@@ -1,0 +1,189 @@
+"""End-to-end speech generation: text -> waveform.
+
+Counterpart of ``lightningfastspeech2_tpu/synthesis/generator.py``: G2P ->
+phone ids -> speaker (and prior) pick -> acoustic model -> HiFi-GAN ->
+post-processing.
+
+Serving runs two bucketing passes, as in the JAX package (where both are on
+by default; here they are the only path):
+- a duration-only pass (encoder + duration tower) picks the static frame
+  bucket, then the full inference pass runs at that bucket;
+- the vocoder sees the mel at its bucket length, padded frames at the
+  log-mel silence floor (-6.0 = log10 of the front-end clip 1e-6), and the
+  waveform is cut to valid frames x hop.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from lightningfastspeech2_tpu_torch.core import config as C
+from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer, pad_to
+from lightningfastspeech2_tpu_torch.data.vocab import Vocab
+from lightningfastspeech2_tpu_torch.synthesis.g2p import G2P
+
+_log = logging.getLogger(__name__)
+
+# padded vocoder frames: the log10 mel floor of the front end (clip 1e-6)
+MEL_PAD_FLOOR = -6.0
+
+
+class SpeechGenerator:
+    def __init__(
+        self,
+        cfg: C.Config,
+        model,  # models.fastspeech2.FastSpeech2, on its device, eval mode
+        vocab: Vocab,
+        g2p: G2P,
+        synthesiser: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+        speaker2dvector: Optional[Dict[str, np.ndarray]] = None,
+        speaker2id: Optional[Dict[str, int]] = None,
+        speaker2priors: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+        speaker_gmms: Optional[Dict[str, Any]] = None,
+        dvector_gmms: Optional[Dict[str, Any]] = None,
+        postprocess: Optional[Callable[[np.ndarray, int], np.ndarray]] = None,
+    ):
+        self.cfg = cfg
+        self.model = model
+        self.vocab = vocab
+        self.g2p = g2p
+        self.synthesiser = synthesiser
+        self.speaker2dvector = speaker2dvector or {}
+        self.speaker2id = speaker2id or {}
+        self.speaker2priors = speaker2priors or {}
+        self.speaker_gmms = speaker_gmms or {}
+        self.dvector_gmms = dvector_gmms or {}
+        self.postprocess = postprocess
+        self.bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
+
+    @property
+    def sampling_rate(self) -> int:
+        return self.cfg.model.audio.sampling_rate
+
+    @property
+    def output_sampling_rate(self) -> int:
+        return (getattr(self.postprocess, "output_sampling_rate", None)
+                or self.sampling_rate)
+
+    # ------------------------------------------------------------ text path
+    def text_to_ids(self, text: str) -> np.ndarray:
+        phones = self.g2p(text)
+        ids = [self.vocab.phone2id[p] for p in phones if p in self.vocab.phone2id]
+        if phones and not ids:
+            _log.warning(
+                "text_to_ids: none of %d G2P phones exist in the model "
+                "vocabulary (%d entries); synthesis will be empty",
+                len(phones), len(self.vocab.phone2id))
+        return np.asarray(ids, dtype=np.int64)
+
+    def _pick_speaker(self, speaker: Optional[str], rng: np.random.Generator,
+                      sample_dvector: bool = False):
+        mcfg = self.cfg.model
+        if mcfg.speaker_type == "dvector":
+            if speaker is None:
+                names = list(self.speaker2dvector)
+                if mcfg.priors and self.speaker2priors:
+                    names = [n for n in names if n in self.speaker2priors] or names
+                speaker = names[int(rng.integers(len(names)))]
+            if sample_dvector and speaker in self.dvector_gmms:
+                dvec = self.dvector_gmms[speaker].sample(
+                    random_state=int(rng.integers(2 ** 31)))[0][0]
+                return speaker, np.asarray(dvec, np.float32)
+            return speaker, np.asarray(self.speaker2dvector[speaker], np.float32)
+        if mcfg.speaker_type == "id":
+            if speaker is None:
+                speaker = list(self.speaker2id)[int(rng.integers(len(self.speaker2id)))]
+            return speaker, np.int64(self.speaker2id[speaker])
+        return None, None
+
+    def _pick_priors(self, speaker_name: Optional[str], strategy: str,
+                     overrides: Optional[Dict[str, float]],
+                     rng: np.random.Generator) -> Dict[str, float]:
+        priors = self.cfg.model.priors
+        values: Dict[str, float] = {}
+        if not priors:
+            return values
+        if strategy == "sample" and speaker_name in self.speaker2priors:
+            history = self.speaker2priors[speaker_name]
+            idx = int(rng.integers(len(history[priors[0]])))
+            values = {p: float(history[p][idx]) for p in priors}
+        elif strategy == "gmm" and speaker_name in self.speaker_gmms:
+            sample = self.speaker_gmms[speaker_name].sample()[0][0]
+            values = {p: float(sample[i]) for i, p in enumerate(priors)}
+        else:
+            values = {p: 0.0 for p in priors}
+        for p, v in (overrides or {}).items():
+            if v != -1:
+                values[p] = v
+        return values
+
+    # ------------------------------------------------------------ synthesis
+    def generate_from_text(self, text: str, speaker: Optional[str] = None,
+                           seed: Optional[int] = None,
+                           prior_strategy: str = "sample",
+                           prior_values: Optional[Dict[str, float]] = None,
+                           sample_dvector: bool = False) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        ids = self.text_to_ids(text)
+        P = self.bucketer.phone_bucket(len(ids))
+        batch: Dict[str, np.ndarray] = {"phones": pad_to(ids, P)[None, :]}
+        speaker_name, spk = self._pick_speaker(speaker, rng, sample_dvector)
+        if spk is not None:
+            batch["speaker"] = np.asarray(spk)[None] if np.ndim(spk) else np.asarray([spk])
+        for p, v in self._pick_priors(speaker_name, prior_strategy,
+                                      prior_values, rng).items():
+            batch[f"priors_{p}"] = np.asarray([v], np.float32)
+        return self.generate_samples(batch)[0]
+
+    @torch.no_grad()
+    def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """Both acoustic passes: the duration pass picks the frame bucket T,
+        the full pass runs at T. Returns the full pass's outputs."""
+        dev = self.model.device
+        tb = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in batch.items()}
+        durs = self.model(tb, inference=True, duration_only=True)
+        need = int(durs["duration_rounded"].sum(-1).max())
+        T = self.bucketer.frame_bucket(need)
+        return self.model(tb, inference=True, max_frames=T)
+
+    def generate_samples(self, batch: Dict[str, np.ndarray]) -> List[np.ndarray]:
+        result = self.infer(batch)
+        mels = result["mel"].float().cpu().numpy()
+        mask = result["frame_mask"].cpu().numpy()
+        hop = self.cfg.model.audio.hop_length
+        audios = []
+        for i in range(len(mels)):
+            if self.synthesiser is not None:
+                mel_in = np.where(mask[i][:, None], mels[i], np.float32(MEL_PAD_FLOOR))
+                wav = np.asarray(self.synthesiser(mel_in), np.float32)
+                if wav.ndim > 1:
+                    wav = wav[0]
+                wav = wav[: int(mask[i].sum()) * hop] / 32768.0
+            else:  # no vocoder: the valid mel frames flattened as a stub signal
+                wav = mels[i][mask[i]].reshape(-1)
+            if self.postprocess is not None:
+                wav = self.postprocess(wav, self.sampling_rate)
+            audios.append(wav)
+        return audios
+
+
+class PostProcessChain:
+    """Compose post-vocoder processors, threading the sample rate through
+    rate-changing stages."""
+
+    def __init__(self, *fns):
+        self.fns = [f for f in fns if f is not None]
+        rate = None
+        for f in self.fns:
+            rate = getattr(f, "output_sampling_rate", rate)
+        self.output_sampling_rate = rate  # None -> rate unchanged
+
+    def __call__(self, wav: np.ndarray, sr: int) -> np.ndarray:
+        for f in self.fns:
+            wav = f(wav, sr)
+            sr = getattr(f, "output_sampling_rate", sr)
+        return wav

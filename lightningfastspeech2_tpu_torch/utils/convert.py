@@ -1,0 +1,132 @@
+"""JAX-package parameter trees -> the port's state dicts.
+
+The inverse of ``lightningfastspeech2_tpu/utils/torch_convert.py``
+(``convert_fastspeech2_state_dict``) and of
+``lightningfastspeech2_tpu/vocoder/hifigan.py`` (``convert_torch_state_dict``):
+the input is the JAX package's parameter tree as nested dicts of numpy
+arrays (with or without the top-level ``"params"`` key), the output a
+``{name: np.ndarray}`` state dict for the port's modules. Imports neither
+JAX nor the JAX package.
+
+Layouts: Dense kernel (in, out) -> Linear (out, in); Conv kernel
+(k, in, out) -> Conv1d (out, in, k); depthwise (k, 1, C) -> (C, 1, k);
+grouped (k, G, ci, co) -> (G*co, ci, k); LayerNorm scale -> weight;
+packed qkv kernel (H, 3H) -> in_proj_weight (3H, H); transposed-conv
+kernel (k, in, out) -> ConvTranspose1d (in, out, k), a plain transpose
+(the JAX conv_transpose1d flips the taps itself).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+from lightningfastspeech2_tpu_torch.core.config import ModelConfig
+from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig
+
+State = Dict[str, np.ndarray]
+
+
+def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def _linear(out: State, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = np.asarray(p["kernel"]).T
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _conv(out: State, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"]), (2, 1, 0))
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _layernorm(out: State, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = np.asarray(p["scale"])
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _grouped(out: State, name: str, p: Mapping[str, Any]) -> None:
+    k, G, ci, co = np.asarray(p["kernel"]).shape
+    w = np.transpose(np.asarray(p["kernel"]), (1, 3, 2, 0))  # (G, co, ci, k)
+    out[f"{name}.weight"] = w.reshape(G * co, ci, k)
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _fft_stack(out: State, prefix: str, tree: Mapping[str, Any], layers: int) -> None:
+    for i in range(layers):
+        p, lp = f"{prefix}.layers.{i}", tree[f"layer{i}"]
+        att = lp["SelfAttention_0"]
+        out[f"{p}.self_attn.in_proj_weight"] = np.asarray(att["qkv"]["kernel"]).T
+        out[f"{p}.self_attn.in_proj_bias"] = np.asarray(att["qkv"]["bias"])
+        _linear(out, f"{p}.self_attn.out_proj", att["out"])
+        _layernorm(out, f"{p}.norm1", lp["norm1"])
+        _layernorm(out, f"{p}.norm2", lp["norm2"])
+        ffn = lp["ConvFFN_0"]
+        _conv(out, f"{p}.conv1.0", ffn["conv1_depth"])
+        _conv(out, f"{p}.conv1.1", ffn["conv1_point"])
+        _grouped(out, f"{p}.conv2.0", ffn["conv2_group"])
+        _conv(out, f"{p}.conv2.1", ffn["conv2_point"])
+
+
+def _variance_predictor(out: State, prefix: str, tree: Mapping[str, Any],
+                        nlayers: int, depthwise: bool) -> None:
+    for i in range(nlayers):
+        p, lp = f"{prefix}.layers.{i}", tree[f"conv{i}"]
+        if depthwise:
+            _conv(out, f"{p}.layers.0.module.0", lp["depth"])
+            _conv(out, f"{p}.layers.0.module.1", lp["point"])
+        else:
+            _conv(out, f"{p}.layers.0.module", lp["conv"])
+        _layernorm(out, f"{p}.layers.2", lp["LayerNorm_0"])
+    _linear(out, f"{prefix}.linear", tree["linear"])
+
+
+def from_jax_fastspeech2(params: Mapping[str, Any], cfg: ModelConfig) -> State:
+    """The JAX ``FastSpeech2`` tree -> the port's ``FastSpeech2`` state dict."""
+    t = _tree(params)
+    out: State = {"phone_embedding.weight": np.asarray(t["phone_embedding"]["embedding"])}
+    _fft_stack(out, "encoder", t["encoder"], cfg.encoder.layers)
+    _fft_stack(out, "decoder", t["decoder"], cfg.decoder.layers)
+    _linear(out, "linear", t["mel_head"])
+    if cfg.speaker_type == "dvector":
+        _linear(out, "speaker_embedding.projection", t["speaker_embedding"]["projection"])
+    elif cfg.speaker_type == "id":
+        out["speaker_embedding.speaker_embedding.weight"] = np.asarray(
+            t["speaker_embedding"]["embedding"]["embedding"])
+    for prior in cfg.priors:
+        out[f"prior_embeddings.{prior}.embedding.weight"] = np.asarray(
+            t[f"prior_embedding_{prior}"]["embedding"]["embedding"])
+    va = t["variance_adaptor"]
+    _variance_predictor(out, "variance_adaptor.duration_predictor",
+                        va["duration_predictor"], cfg.duration.nlayers,
+                        cfg.duration.depthwise)
+    for i, var in enumerate(cfg.variance.variances):
+        p, enc = f"variance_adaptor.encoders.{var}", va[f"encoder_{var}"]
+        _variance_predictor(out, f"{p}.predictor", enc["predictor"],
+                            cfg.variance.nlayers[i], cfg.variance.depthwise)
+        out[f"{p}.embedding.weight"] = np.asarray(enc["embedding"]["embedding"])
+        if cfg.variance.transforms[i] == "cwt":
+            _linear(out, f"{p}.mean_std_linear", enc["mean_std_linear"])
+    return out
+
+
+def from_jax_hifigan(params: Mapping[str, Any],
+                     cfg: HifiGanConfig = HifiGanConfig()) -> State:
+    """The JAX HiFi-GAN ``Generator`` tree -> the port's ``Generator``
+    state dict (ResBlock1 configs)."""
+    t = _tree(params)
+    out: State = {}
+    _conv(out, "conv_pre", t["conv_pre"])
+    _conv(out, "conv_post", t["conv_post"])
+    n_up, n_k = len(cfg.upsample_rates), len(cfg.resblock_kernel_sizes)
+    for i in range(n_up):
+        out[f"ups.{i}.weight"] = np.transpose(np.asarray(t[f"ups_{i}"]["kernel"]), (1, 2, 0))
+        out[f"ups.{i}.bias"] = np.asarray(t[f"ups_{i}"]["bias"])
+    for rb in range(n_up * n_k):
+        block = t[f"resblocks_{rb}"]
+        for j in range(len(cfg.resblock_dilation_sizes[rb % n_k])):
+            for branch in ("convs1", "convs2"):
+                _conv(out, f"resblocks.{rb}.{branch}.{j}", block[f"{branch}_{j}"])
+    return out

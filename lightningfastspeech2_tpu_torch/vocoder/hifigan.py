@@ -1,0 +1,216 @@
+"""HiFi-GAN V1 generator: mel (B, T, 80) -> waveform (B, T * 256).
+
+Counterpart of ``lightningfastspeech2_tpu/vocoder/hifigan.py``
+(``Generator`` and its fused-kernel path ``generator_apply_fused``):
+conv_pre(7) -> 4 x [leaky(0.1) -> ConvTranspose1d upsample -> the stage's
+ResBlock1s, averaged] -> leaky(0.01) -> conv_post(7) -> tanh.
+
+Every resblock group goes through ``ops.hifigan_resblock``: stages of at
+most 128 channels through ``resblock_trio`` (one launch for the three
+ResBlock1s), the 256-channel first stage through three ``resblock``
+launches; on the card these are the CUDA kernels, on the CPU their plain
+versions. conv_pre, the upsampling convs and conv_post are
+``F.conv1d``/``F.conv_transpose1d``, as the JAX package left them to XLA.
+
+Parameters are named like the released torch checkpoints (``conv_pre``,
+``ups.{i}``, ``resblocks.{rb}.convs1.{j}``) with weight norm folded
+(``fold_weight_norm``). ResBlock2 (V2/V3) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_device
+from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import (
+    LRELU_SLOPE,
+    ResblockWeights,
+    prepare_resblock_weights,
+    resblock,
+    resblock_trio,
+)
+
+# stages with at most this many channels run all their resblocks in one
+# resblock_trio launch (the JAX package's rule: fold * C <= 128)
+TRIO_MAX_CHANNELS = 128
+
+
+@dataclass(frozen=True)
+class HifiGanConfig:
+    resblock: str = "1"
+    upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    upsample_initial_channel: int = 512
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = (
+        (1, 3, 5), (1, 3, 5), (1, 3, 5)
+    )
+    num_mels: int = 80
+    sampling_rate: int = 22050
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for r in self.upsample_rates:
+            out *= r
+        return out
+
+
+def get_padding(kernel_size: int, dilation: int = 1) -> int:
+    return (kernel_size * dilation - dilation) // 2
+
+
+def fold_weight_norm(weight_g, weight_v):
+    """torch weight_norm(dim=0): w = g * v / ||v|| with the norm over every
+    dim but 0. numpy or torch in, the same type out."""
+    if isinstance(weight_v, torch.Tensor):
+        norm = weight_v.flatten(1).norm(dim=1).reshape(-1, *[1] * (weight_v.dim() - 1))
+        return weight_g * weight_v / torch.clamp(norm, min=1e-12)
+    v, g = np.asarray(weight_v), np.asarray(weight_g)
+    norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(1, v.ndim)), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def fold_weight_norm_state(state: Dict[str, object]) -> Dict[str, object]:
+    """A state dict with every ``weight_g``/``weight_v`` pair (released
+    checkpoints) replaced by its folded ``weight``."""
+    out = {k: v for k, v in state.items()
+           if not k.endswith((".weight_g", ".weight_v"))}
+    for k in state:
+        if k.endswith(".weight_v"):
+            prefix = k[: -len(".weight_v")]
+            out[f"{prefix}.weight"] = fold_weight_norm(
+                state[f"{prefix}.weight_g"], state[k])
+    return out
+
+
+class ResBlock1(nn.Module):
+    """Parameter holder: three (dilated conv, conv) residual pairs."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: Tuple[int, ...]):
+        super().__init__()
+        self.kernel_size, self.dilations = kernel_size, tuple(dilations)
+        self.convs1 = nn.ModuleList([
+            nn.Conv1d(channels, channels, kernel_size, dilation=d,
+                      padding=get_padding(kernel_size, d)) for d in dilations])
+        self.convs2 = nn.ModuleList([
+            nn.Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size))
+            for _ in dilations])
+
+    def spec(self):
+        return (self.kernel_size, self.dilations,
+                [(c1.weight, c1.bias, c2.weight, c2.bias)
+                 for c1, c2 in zip(self.convs1, self.convs2)])
+
+
+class Generator(nn.Module):
+    def __init__(self, cfg: HifiGanConfig = HifiGanConfig(),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.resblock != "1":
+            raise NotImplementedError("ResBlock2 (HiFi-GAN V2/V3) is not ported yet")
+        self.cfg, self.dtype = cfg, dtype
+        c = cfg
+        self.conv_pre = nn.Conv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for i, (rate, k_up) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+            ch = c.upsample_initial_channel // (2 ** (i + 1))
+            self.ups.append(nn.ConvTranspose1d(2 * ch, ch, k_up, rate,
+                                               padding=(k_up - rate) // 2))
+            for k, ds in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
+                self.resblocks.append(ResBlock1(ch, k, tuple(ds)))
+        self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
+        self.stage_weights: List[List[ResblockWeights]] = []
+        self.prepare()
+        self.register_load_state_dict_post_hook(lambda m, _keys: m.prepare())
+
+    def prepare(self) -> None:
+        """(Re)build the resblock tap stacks: per stage one trio stack, or
+        one stack per resblock for stages above TRIO_MAX_CHANNELS."""
+        n = len(self.cfg.resblock_kernel_sizes)
+        self.stage_weights = []
+        for i in range(len(self.ups)):
+            blocks = [rb.spec() for rb in self.resblocks[i * n:(i + 1) * n]]
+            if self.ups[i].out_channels <= TRIO_MAX_CHANNELS:
+                self.stage_weights.append(
+                    [prepare_resblock_weights(blocks, self.dtype)])
+            else:
+                self.stage_weights.append(
+                    [prepare_resblock_weights([b], self.dtype) for b in blocks])
+
+    def _apply(self, fn, *args, **kwargs):
+        out = super()._apply(fn, *args, **kwargs)
+        if self.stage_weights:
+            self.prepare()
+        return out
+
+    def _conv(self, x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+        """x (B, C, L) in the working dtype through conv (transposed or not)."""
+        dt = self.dtype
+        w, b = conv.weight.to(dt), conv.bias.to(dt)
+        if isinstance(conv, nn.ConvTranspose1d):
+            return F.conv_transpose1d(x, w, b, conv.stride, conv.padding)
+        return F.conv1d(x, w, b, padding=conv.padding)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = self._conv(mel.to(self.dtype).transpose(1, 2), self.conv_pre)
+        for up, stage in zip(self.ups, self.stage_weights):
+            x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)
+            xt = x.transpose(1, 2).contiguous()          # (B, L, C) for the kernels
+            if len(stage) == 1:
+                xt = resblock_trio(xt, stage[0])
+            else:
+                acc = None
+                for w in stage:
+                    y = resblock(xt, w)
+                    acc = y if acc is None else acc + y
+                xt = acc / float(len(stage))
+            x = xt.transpose(1, 2)
+        # reference models.py:161 uses F.leaky_relu's default slope here
+        x = self._conv(F.leaky_relu(x, 0.01), self.conv_post)
+        return torch.tanh(x)[:, 0, :]
+
+
+@torch.no_grad()
+def init_generator_weights(gen: Generator, generator: torch.Generator) -> None:
+    """The JAX package's init: N(0, 0.01) kernels, zero biases."""
+    for m in gen.modules():
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * 0.01)
+            m.bias.zero_()
+    gen.prepare()
+
+
+class Synthesiser:
+    """Inference wrapper: mel (T, 80) or (B, T, 80) as numpy -> waveform
+    scaled by 32768, float32 numpy, shape (B, T * hop)."""
+
+    def __init__(self, cfg: HifiGanConfig = HifiGanConfig(),
+                 state_dict: Optional[Dict[str, object]] = None,
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None,
+                 seed: int = 0):
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.model = Generator(cfg, dtype)
+        if state_dict is not None:
+            self.model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                        fold_weight_norm_state(state_dict).items()})
+        else:
+            init_generator_weights(self.model, torch.Generator().manual_seed(seed))
+        self.model.to(dev).eval()
+        self.device = dev
+
+    @torch.no_grad()
+    def __call__(self, mel) -> np.ndarray:
+        m = torch.as_tensor(np.asarray(mel, np.float32), device=self.device)
+        if m.dim() == 2:
+            m = m[None]
+        wav = self.model(m)
+        return (wav.float() * 32768.0).cpu().numpy().astype(np.float32)

@@ -26,3 +26,11 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA Hopper card (the port's CUDA kernels); the "
+        "cuda_card fixture skips the test elsewhere",
+    )

@@ -1,0 +1,110 @@
+"""Shared pieces of the port's parity tests (tests/test_torch_*.py): tiny
+configs, seeded numpy weights in the JAX package's layouts, and the
+``cuda_card`` fixture for kernel tests on the card."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda_card():
+    """The CUDA device for kernel-vs-plain tests; skips without a Hopper
+    card. Decided here, at run time, never at import or collection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel test)")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (sm_90a kernels)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def tiny_config(C, **model_kwargs):
+    """Flagship structure at test size: depthwise conformer stacks, frame-level
+    pitch (CWT) / energy / SNR, d-vector speakers; hidden 32, 2+2 layers,
+    filter 64. ``C`` is either package's ``core.config`` module."""
+    enc = C.StackConfig(hidden=32, heads=2, layers=2, kernel_sizes=(3, 5),
+                        conv_filter_size=64)
+    dec = C.StackConfig(hidden=32, heads=2, layers=2, kernel_sizes=(5, 4),
+                        conv_filter_size=64)
+    var = C.VarianceConfig(filter_size=32, nbins=16, nlayers=(2, 2, 2))
+    dur = C.DurationConfig(nlayers=2, filter_size=32)
+    kwargs = dict(encoder=enc, decoder=dec, variance=var, duration=dur,
+                  vocab_size=50, max_phones=32, max_frames=256,
+                  speaker_type="dvector", n_speakers=4, dvector_dim=16)
+    kwargs.update(model_kwargs)
+    return C.Config(model=C.ModelConfig(**kwargs))
+
+
+def tiny_hifigan(hg):
+    """A HiFi-GAN V1 structure at test size (hop 16, channels 32 -> 16 -> 8)
+    from either package's ``vocoder.hifigan`` module."""
+    return hg.HifiGanConfig(upsample_rates=(8, 2), upsample_kernel_sizes=(16, 4),
+                            upsample_initial_channel=32)
+
+
+def ffn_params(seed, C, F, k):
+    """FFN-half weights in the JAX package's layouts (ops/pallas_ffn.py)."""
+    g = np.random.default_rng(seed)
+    ci = F // C
+    f32 = np.float32
+    return dict(
+        wd=(g.standard_normal((k, C)) * 0.3).astype(f32),
+        bd=(g.standard_normal((C,)) * 0.1).astype(f32),
+        w1=(g.standard_normal((1, C, F)) * C ** -0.5).astype(f32),
+        b1=(g.standard_normal((F,)) * 0.1).astype(f32),
+        wg=(g.standard_normal((1, C, ci, ci)) * 0.5).astype(f32),
+        bg=(g.standard_normal((F,)) * 0.1).astype(f32),
+        w2=(g.standard_normal((1, F, C)) * F ** -0.5).astype(f32),
+        b2=(g.standard_normal((C,)) * 0.1).astype(f32),
+        g1=(1.0 + 0.1 * g.standard_normal((C,))).astype(f32),
+        be1=(0.1 * g.standard_normal((C,))).astype(f32),
+        g2=(1.0 + 0.1 * g.standard_normal((C,))).astype(f32),
+        be2=(0.1 * g.standard_normal((C,))).astype(f32),
+    )
+
+
+def ffn_modules(p):
+    """The same weights as the port's torch-layout parameter holders."""
+    t = torch.from_numpy
+    wg = p["wg"][0]                                   # (G, ci, co)
+    G, ci, co = wg.shape
+    ns = SimpleNamespace
+    return dict(
+        conv1_depth=ns(weight=t(p["wd"].T[:, None, :].copy()), bias=t(p["bd"])),
+        conv1_point=ns(weight=t(p["w1"][0].T[:, :, None].copy()), bias=t(p["b1"])),
+        conv2_group=ns(weight=t(np.transpose(wg, (0, 2, 1)).reshape(G * co, ci, 1).copy()),
+                       bias=t(p["bg"])),
+        conv2_point=ns(weight=t(p["w2"][0].T[:, :, None].copy()), bias=t(p["b2"])),
+        norm1=ns(weight=t(p["g1"]), bias=t(p["be1"])),
+        norm2=ns(weight=t(p["g2"]), bias=t(p["be2"])),
+    )
+
+
+def resblock_params(seed, C, k, dilations=(1, 3, 5), scale=1.0):
+    """One ResBlock1 in the JAX tree layout ({convs1_i, convs2_i:
+    {kernel (k, C, C), bias}}), weights ~ N(0, scale / (C k))."""
+    g = np.random.default_rng(seed)
+    p = {}
+    for i in range(len(dilations)):
+        for br in ("convs1", "convs2"):
+            p[f"{br}_{i}"] = {
+                "kernel": (g.standard_normal((k, C, C)) * scale * (C * k) ** -0.5
+                           ).astype(np.float32),
+                "bias": (g.standard_normal((C,)) * 0.1).astype(np.float32),
+            }
+    return p
+
+
+def resblock_block(p, k, dilations=(1, 3, 5)):
+    """A JAX ResBlock1 tree as ``prepare_resblock_weights`` input."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    convs = [
+        (t(np.transpose(p[f"convs1_{i}"]["kernel"], (2, 1, 0))), t(p[f"convs1_{i}"]["bias"]),
+         t(np.transpose(p[f"convs2_{i}"]["kernel"], (2, 1, 0))), t(p[f"convs2_{i}"]["bias"]))
+        for i in range(len(dilations))
+    ]
+    return (k, tuple(dilations), convs)

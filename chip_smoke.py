@@ -22,6 +22,21 @@ Phases, each printed as one JSON line:
    equal what the path launches, and none may be 0.
 6. reference: an f32 request on the card against the same request through
    the plain path on the CPU.
+7. train kernels: ``ffn_ln_train`` (forward and backward) at every FFN
+   block's shape of the training step, the widest encoder block and the
+   first decoder block also held against the plain version's output and
+   gradients; ``flash_attention`` (forward and backward) at the decoder's
+   shape against the plain version, with ``F.scaled_dot_product_attention``
+   (same mask and dropout_p) timed as the library yardstick.
+8. training (this slice's main path): the flagship in bf16 with f32
+   parameters takes 1 warm-up and 5 timed optimizer steps on B=8, P=256,
+   T=2048 teacher-forced batches at the config dropout rates. Every loss
+   must be finite, every parameter must get a finite non-zero gradient,
+   and the launch counters, set to 0 just before, must equal 8 / 8 / 4 / 4
+   per step. One more step runs under torch.profiler for the time split.
+9. train reference: one f32 step on the card against the same step on the
+   CPU's plain path (flagship widths, B=2, T=1024, dropout rates 0,
+   warm-up 1 so the first update is visible).
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -386,12 +401,14 @@ def serving_phase(counters) -> dict:
     # per item) one resblock or trio launch per prepared stack
     m, stacks = cfg.model, gen.synthesiser.model.stage_weights
     n_calls, n_items = len(SENTENCES) + 2, len(SENTENCES) + 1 + len(wavs)
-    want = {"probe": 1,
-            "ffn_ln": n_calls * (2 * m.encoder.layers + m.decoder.layers),
-            "resblock": n_items * sum(len(s) for s in stacks if len(s) > 1),
-            "resblock_trio": n_items * sum(1 for s in stacks if len(s) == 1)}
+    want = {c.__name__: 0 for c in counters}   # the training kernels: none here
+    want.update({"probe": 1,
+                 "ffn_ln": n_calls * (2 * m.encoder.layers + m.decoder.layers),
+                 "resblock": n_items * sum(len(s) for s in stacks if len(s) > 1),
+                 "resblock_trio": n_items * sum(1 for s in stacks if len(s) == 1)})
     emit({"phase": "launches", **launches, "expected": want})
-    if launches != want or 0 in launches.values():
+    path = ("probe", "ffn_ln", "resblock", "resblock_trio")
+    if launches != want or any(launches[k] == 0 for k in path):
         raise RuntimeError(f"serving-path launches {launches}, expected {want}")
     return {"launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
             "requests": requests}
@@ -417,6 +434,325 @@ def reference_phase(served) -> None:
         raise RuntimeError(f"card vs CPU: shapes {a.shape} {b.shape}, max |err| {err} > {tol}")
 
 
+# ---------------------------------------------------------- training slice
+TRAIN_B, TRAIN_P, TRAIN_T = 8, 256, 2048   # bench.py's training workload
+
+
+def train_config(rates: bool = True, B_P_T=(TRAIN_B, TRAIN_P, TRAIN_T)):
+    """The flagship cut to one frame bucket (max_phones P, max_frames T), its
+    config dropout rates or (``rates=False``) every rate 0."""
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship, replace
+
+    _, P, T = B_P_T
+    cfg = lightspeech_flagship()
+    m = replace(cfg.model, max_phones=P, max_frames=T)
+    if not rates:
+        m = replace(m, encoder=replace(m.encoder, dropout=0.0),
+                    decoder=replace(m.decoder, dropout=0.0),
+                    variance=replace(m.variance, dropouts=(0.0,) * len(m.variance.variances)),
+                    duration=replace(m.duration, dropout=0.0))
+    return replace(cfg, model=m)
+
+
+def train_batch(cfg, B_P_T=(TRAIN_B, TRAIN_P, TRAIN_T)):
+    """bench.py's batch: P - 16 valid phones whose teacher durations fill T."""
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import make_dummy_batch
+
+    B, P, T = B_P_T
+    return make_dummy_batch(cfg.model, batch_size=B, n_phones=P - 16, n_frames=T,
+                            seed=0, fill_frames=True)
+
+
+def cuda_ms_grad(out, inputs, grad, **kw) -> float:
+    """Time of the backward alone: autograd.grad on a retained graph."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), **kw)
+
+
+def _ffn_train_case(dev, B, T, k, g, plain: bool) -> dict:
+    """ffn_ln_train forward and backward kernels at one of the step's FFN
+    shapes (bf16, F 1024, rate 0.1) against the plain version's autograd."""
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
+    from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
+    from lightningfastspeech2_tpu_torch.ops import ffn
+
+    C, F, rate, dtype = 256, 1024, 0.1, torch.bfloat16
+    block = FFTBlock(C, 2, k, F, dtype)
+    init_weights(block, g)
+    with torch.no_grad():
+        for n in (block.norm1, block.norm2):
+            n.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g))
+            n.bias.copy_(0.1 * torch.randn(C, generator=g))
+    block.to(dev)
+    p = [t.detach().clone().requires_grad_(True) for t in ffn.ffn_train_params(*block._ffn_modules())]
+    z = torch.randn(B, T, C, generator=g).to(dev, dtype)
+    dout = torch.randn(B, T, C, generator=g).to(dev, dtype)
+    seed = torch.tensor([4242], dtype=torch.int32, device=dev)
+    at = f"z ({B}, {T}, {C}) bf16, F={F}, k={k}, rate={rate}"
+    row_f = {"name": "ffn_ln_train", "at": at,
+             "ms": cuda_ms(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate))}
+    row_b = {"name": "ffn_ln_train_bwd", "at": at,
+             "ms": cuda_ms(lambda: ffn.ffn_ln_train_bwd(dout, z, p, seed, rate))}
+    wbytes = sum(tensor_bytes(t) for t in p)
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(
+        B * T * (2 * k * C + 4 * C * F), 2 * tensor_bytes(z) + wbytes, dtype)
+    # the backward recomputes up and ff (4CF) and forms dup, dacc, dW1, dW2f (8CF)
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(
+        B * T * (6 * k * C + 12 * C * F), 3 * tensor_bytes(z) + 2 * wbytes, dtype)
+    if plain:
+        zk = z.clone().requires_grad_(True)
+        out = ffn.ffn_ln_train(zk, p, seed, rate)
+        grads = torch.autograd.grad(out, [zk, *p], dout)
+        zp = z.clone().requires_grad_(True)
+        ref = ffn.ffn_ln_train_plain(zp, p, seed, rate)
+        ref_grads = torch.autograd.grad(ref, [zp, *p], dout, retain_graph=True)
+        torch.cuda.synchronize()
+        err, tol = max_err_and_tol(out, ref, 2e-4)
+        row_f.update(max_abs_err=err, tol=tol,
+                     plain_ms=cuda_ms(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
+        # gradients against the plain version's autograd: the kernel rounds
+        # dff and dup to bf16 before its products, the plain version keeps
+        # them f32; each within 3 % of its largest element
+        errs = {}
+        for name, a, b in zip(("dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f",
+                               "dg1", "dbe1", "dg2", "dbe2"), grads, ref_grads):
+            errs[name] = ((a.float() - b.float()).abs().max().item(),
+                          0.03 * b.float().abs().max().item())
+        row_b.update(max_abs_err=max(e for e, _ in errs.values()),
+                     grad_errs=errs, tol="3 % of each gradient's largest element",
+                     plain_ms=cuda_ms_grad(ref, [zp, *p], dout))
+        for r in (row_f, row_b):
+            emit({"phase": "kernel", **r})
+        if not err <= tol:
+            raise RuntimeError(f"ffn_ln_train at {at}: max |err| {err} > {tol}")
+        bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
+        if bad:
+            raise RuntimeError(f"ffn_ln_train_bwd at {at}: gradients off {bad}")
+    else:
+        for r in (row_f, row_b):
+            emit({"phase": "kernel_time", **r})
+    return {"fwd": row_f, "bwd": row_b}
+
+
+def _flash_case(dev, g) -> dict:
+    """flash_attention forward and backward at the decoder's shape (bf16,
+    rate 0.1) against the plain version, with SDPA as the library yardstick."""
+    import torch.nn.functional as F
+    from lightningfastspeech2_tpu_torch.ops import attention as att
+
+    B, H, T, d, rate, dtype = TRAIN_B, 2, TRAIN_T, 128, 0.1, torch.bfloat16
+    q, k, v, do = (torch.randn(B, H, T, d, generator=g).to(dev, dtype) for _ in range(4))
+    lengths = torch.tensor([T - 97 * i for i in range(B)], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    mask_i32 = mask.to(torch.int32)
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    at = f"q/k/v ({B}, {H}, {T}, {d}) bf16, ragged key mask, rate={rate}"
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = att.flash_attention(*qkv, mask, rate, seed)
+    grads = torch.autograd.grad(out, qkv, do)
+    pq = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = att.flash_attention_plain(*pq, mask, rate, seed)
+    ref_grads = torch.autograd.grad(ref, pq, do, retain_graph=True)
+    torch.cuda.synchronize()
+    # bf16 in and out; the kernel rounds p against the running max, the
+    # plain version the normalised p: 2 % of the largest element
+    errs = {n: ((a.float() - b.float()).abs().max().item(), 0.02 * b.float().abs().max().item())
+            for n, a, b in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads))}
+    o, lse = att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)
+    row_f = {"name": "flash_attention", "at": at, "max_abs_err": errs["o"][0], "tol": errs["o"][1],
+             "ms": cuda_ms(lambda: att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)),
+             "plain_ms": cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask, rate, seed))}
+    row_b = {"name": "flash_attention_bwd", "at": at,
+             "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "grad_errs": errs,
+             "tol": "2 % of each gradient's largest element",
+             "ms": cuda_ms(lambda: att.flash_attention_bwd(do, q, k, v, mask_i32, seed, o, lse, rate)),
+             "plain_ms": cuda_ms_grad(ref, pq, do)}
+    # the library call: SDPA with the same boolean key mask and dropout_p
+    am = mask[:, None, None, :]
+    row_f["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, dropout_p=rate))
+    sq = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sout = F.scaled_dot_product_attention(*sq, attn_mask=am, dropout_p=rate)
+    row_b["library_ms"] = cuda_ms_grad(sout, sq, do)
+
+    def sdpa_fwd_bwd():
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.autograd.grad(F.scaled_dot_product_attention(*xs, attn_mask=am, dropout_p=rate),
+                            xs, do)
+    row_b["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
+    nb = tensor_bytes(q, k, v)
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(4 * B * H * T * T * d,
+                                                    nb + tensor_bytes(out), dtype)
+    # recompute S, then dP, dV, dQ, dK: five T x T x d products
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(10 * B * H * T * T * d,
+                                                    2 * nb + 2 * tensor_bytes(out), dtype)
+    for r in (row_f, row_b):
+        emit({"phase": "kernel", **r})
+    bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
+    if bad:
+        raise RuntimeError(f"flash_attention at {at}: off {bad}")
+    return {"fwd": row_f, "bwd": row_b}
+
+
+def train_kernels_phase(dev) -> dict:
+    """The training kernels at the step's shapes: every FFN block of the
+    flagship (encoder at P = 256, decoder at T = 2048) timed, the widest
+    encoder and the first decoder kernel also held against the plain
+    version; flash attention at the decoder's shape."""
+    g = torch.Generator().manual_seed(1)
+    enc_k, dec_k = (5, 25, 13, 9), (17, 21, 9, 13)
+    ffn = ([_ffn_train_case(dev, TRAIN_B, TRAIN_P, k, g, plain=(k == 25)) for k in enc_k]
+           + [_ffn_train_case(dev, TRAIN_B, TRAIN_T, k, g, plain=(k == 17)) for k in dec_k])
+    return {"ffn": ffn, "flash": _flash_case(dev, g)}
+
+
+def _step_split(prof) -> dict:
+    """Device time of one traced train step by kernel family (torch.profiler
+    key_averages); zeros when the profiler saw no device time."""
+    fam = {"ffn_ln_train": "ffn_ln_kernel", "ffn_ln_train_bwd": "ffn_bwd_kernel",
+           "flash_attention": "fwd_kernel", "flash_attention_bwd": ("dq_kernel", "dkv_kernel")}
+    out = {k: 0.0 for k in fam}
+    total = 0.0
+    rows = []
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+    for e in events:
+        # kernels only: a CPU op (e.g. the autograd Function) that launched
+        # a kernel lists the same device time again, and a range the host
+        # annotated (e.g. the optimizer's step) reappears on the device
+        # spanning kernels already counted
+        if e.device_type != DeviceType.CUDA or e.key in host_names:
+            continue
+        t = e.self_device_time_total
+        if t <= 0:
+            continue
+        total += t
+        rows.append((e.key, t, e.count))
+        for k, pat in fam.items():
+            pats = pat if isinstance(pat, tuple) else (pat,)
+            if any(x in e.key for x in pats):
+                out[k] += t
+    rows.sort(key=lambda r: -r[1])
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "train_profile.txt").write_text(
+        "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
+    return {"device_ms": total / 1e3, **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
+
+
+def training_phase(counters) -> dict:
+    """This slice's main path: the flagship in bf16 (f32 parameters) takes
+    1 warm-up and 5 timed optimizer steps on B=8, P=256, T=2048
+    teacher-forced batches, config dropout rates."""
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = train_config()
+    batch = train_batch(cfg)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    model = build_fastspeech2(cfg.model, dtype=torch.bfloat16, seed=0)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps, metrics = [], []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    # every parameter's gradient of the last step: finite and not all zero
+    # (a kernel detached from autograd would leave zeros)
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    n_steps = len(steps)
+    L_enc, L_dec = cfg.model.encoder.layers, cfg.model.decoder.layers
+    want = {c.__name__: 0 for c in counters}
+    want.update(ffn_ln_train=n_steps * (L_enc + L_dec), ffn_ln_train_bwd=n_steps * (L_enc + L_dec),
+                flash_attention=n_steps * L_dec, flash_attention_bwd=n_steps * L_dec)
+    timed = steps[1:]
+    row = {"phase": "training", "setup_s": setup_s, "steps": n_steps, "step_ms": steps,
+           "timed_step_ms_mean": sum(timed) / len(timed),
+           "frames_per_s": TRAIN_B * TRAIN_T / (sum(timed) / len(timed) / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_losses": metrics[0], "last_losses": metrics[-1], "finite": finite,
+           "params_without_grad": bad, "launches": launches, "expected": want}
+    emit(row)
+    if not finite or bad:
+        raise RuntimeError(f"training: finite={finite}, params without gradient {bad[:8]}")
+    if launches != want:
+        raise RuntimeError(f"training-path launches {launches}, expected {want}")
+    # one more step under the profiler (outside the counted run): where the
+    # step's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    split = _step_split(prof)
+    emit({"phase": "train_profile", **split})
+    return {"row": row, "split": split}
+
+
+def train_reference_phase() -> dict:
+    """One f32 optimizer step on the card (kernels) against the same step on
+    the CPU (plain versions): flagship widths, B=2, T=1024 so the flash gate
+    admits the decoder, every dropout rate 0 (the generators differ)."""
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+
+    from lightningfastspeech2_tpu_torch.core.config import replace
+
+    shape = (2, 128, 1024)
+    cfg = train_config(rates=False, B_P_T=shape)
+    # lr 1e-4 at the first update (the flagship's 4000-step warm-up would
+    # make it 2.5e-8, below the f32 resolution of the parameters)
+    cfg = replace(cfg, train=replace(cfg.train, warmup_steps=1))
+    batch = train_batch(cfg, shape)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_fastspeech2(cfg.model, dtype=torch.float32, device=dev, seed=0)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = create_train_state(model, cfg)
+        state, m = make_train_step(model, cfg)(state, batch, torch.Generator(device=dev))
+        res[dev] = {
+            "losses": {k: float(v) for k, v in m.items()},
+            "grad": {n: state.optimizer.state[p]["exp_avg"].cpu() / 0.1
+                     for n, p in model.named_parameters()},
+            "update": {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()}}
+    a, b = res["cuda"], res["cpu"]
+    loss_err = max(abs(a["losses"][k] - v) / max(abs(v), 1e-6) for k, v in b["losses"].items())
+    gmax = max(g.abs().max().item() for g in b["grad"].values())
+    grad_err = max((a["grad"][n] - g).abs().max().item() for n, g in b["grad"].items())
+    lr = max(u.abs().max().item() for u in b["update"].values())
+    upd_err = 0.0
+    for n, g in b["grad"].items():
+        sure = g.abs() > 1e-2 * gmax
+        if sure.any():
+            upd_err = max(upd_err, (a["update"][n] - b["update"][n])[sure].abs().max().item())
+    # f32 on both sides, TF32 off: losses to 1e-4 relative; gradients to
+    # 1e-3 of the largest; the Adam update (about lr * sign(g) at the first
+    # step) to 1 % of its size where |g| > 1 % of the largest gradient
+    tol = {"loss_rel": 1e-4, "grad_abs": 1e-3 * gmax, "update_abs": 1e-2 * lr}
+    row = {"phase": "train_reference", "at": "flagship f32, B=2, P=128, T=1024, rates 0",
+           "loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": gmax,
+           "update_max_abs_err": upd_err, "update_max": lr, "tol": tol,
+           "losses_cuda": a["losses"], "losses_cpu": b["losses"]}
+    emit(row)
+    if not (loss_err <= tol["loss_rel"] and grad_err <= tol["grad_abs"]
+            and upd_err <= tol["update_abs"]):
+        raise RuntimeError(f"train step card vs CPU: {row}")
+    return row
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -436,7 +772,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a Hopper card",
               file=sys.stderr)
         return 1
-    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln
+    from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
     from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
     from lightningfastspeech2_tpu_torch.ops.probe import probe
 
@@ -447,11 +784,16 @@ def main() -> int:
     build_phase()
     probe_row = probe_phase(dev)
     rows = kernels_phase(dev)
-    counters = (probe, ffn_ln, resblock, resblock_trio)
+    counters = (probe, ffn_ln, resblock, resblock_trio, ffn_ln_train, ffn_ln_train_bwd,
+                flash_attention, flash_attention_bwd)
     served = serving_phase(counters)
     reference_phase(served)
+    train_rows = train_kernels_phase(dev)
+    trained = training_phase(counters)
+    train_reference_phase()
 
     n = served["launches"]
+    nt = trained["row"]["launches"]
     pkg = "lightningfastspeech2_tpu_torch/csrc"
     kernels = [
         {**{k: v for k, v in probe_row.items() if k != "tol"}, "launches": n["probe"]},
@@ -466,6 +808,28 @@ def main() -> int:
                  "lightningfastspeech2_tpu/ops/pallas_hifigan.py:197",
                  rows["resblock_trio"], n["resblock_trio"]),
     ]
+    # the training kernels at the first decoder block's shape (held against
+    # the plain version there); the per-step sum over all eight FFN blocks
+    # rides along
+    dec = train_rows["ffn"][4]
+    for part, src, rep in (("fwd", "ffn_ln.cu", "pallas_ffn.py:242"),
+                           ("bwd", "ffn_ln_train_bwd.cu", "pallas_ffn.py:311")):
+        r = dec[part]
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": f"{pkg}/{src}",
+            "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": nt[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "at": r["at"], "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
+            "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"])})
+    for part, rep in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
+        r = train_rows["flash"][part]
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": f"{pkg}/flash_attention.cu",
+            "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": nt[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": r["at"], **({"library_fwd_bwd_ms": r["library_fwd_bwd_ms"]} if part == "bwd" else {})})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

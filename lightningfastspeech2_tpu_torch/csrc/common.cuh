@@ -79,6 +79,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- stateless dropout hashes, bit for bit the JAX package's --------------
+// The finalizer both hashes share (all arithmetic mod 2^32).
+__device__ __forceinline__ unsigned fmix(unsigned x) {
+  x ^= x >> 16;
+  x *= 2246822519u;
+  x ^= x >> 13;
+  x *= 3266489917u;
+  x ^= x >> 16;
+  return x;
+}
+
+// per-item seed of the FFN masks: seed + b * 2654435761 (pallas_ffn.py _seed_u32)
+__device__ __forceinline__ unsigned item_seed(int seed, int b) {
+  return static_cast<unsigned>(seed) + static_cast<unsigned>(b) * 2654435761u;
+}
+
+// pallas_ffn.py _pos_keep: global row g (negative rows wrap to uint32),
+// column c, per-item seed, salt; keep when the hash is >= threshold
+__device__ __forceinline__ bool ffn_keep(int g, int c, unsigned seed_b, unsigned salt,
+                                         unsigned threshold) {
+  unsigned x = (static_cast<unsigned>(g) * 2654435761u) ^
+               (static_cast<unsigned>(c) + 0x9E3779B9u * salt);
+  return fmix(x + seed_b) >= threshold;
+}
+
+// pallas_attention.py _dropout_keep: global query row r, key column c,
+// seed_bh = seed + b * H + h (an int32 sum read as uint32)
+__device__ __forceinline__ bool attn_keep(int r, int c, unsigned seed_bh, unsigned threshold) {
+  unsigned x = (static_cast<unsigned>(r) * 2654435761u) ^ (static_cast<unsigned>(c) * 1013904223u);
+  return fmix(x + seed_bh) >= threshold;
+}
+
 // opt a kernel into more than 48 KB of dynamic shared memory
 template <typename K> inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

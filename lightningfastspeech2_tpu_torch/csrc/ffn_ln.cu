@@ -23,6 +23,14 @@
 //
 // Shapes the kernel takes: C = 32 * CN with CN in {1, 2, 4, 8}, F a multiple
 // of 128, any k >= 1 and any T >= 1.
+//
+// The training forward (lfs2_ffn_ln_train) is the same kernel with kTrain
+// set. It replaces pallas_ffn.py _ffn_train_kernel (fused_ffn_ln_train's
+// forward): keep1 drops the rounded ReLU output, keep2 the FFN output
+// before the residual, each kept value scaled by 1 / (1 - rate). Both masks
+// hash the global row, the column and a per-item seed (lfs2::ffn_keep,
+// bit for bit pallas_ffn.py _pos_keep), so the backward kernel's other
+// tiling reproduces them.
 #include "common.cuh"
 
 namespace {
@@ -31,11 +39,19 @@ constexpr int kThreads = 256;
 constexpr int kTile = 32;   // output rows per block
 constexpr int kFChunk = 128;  // filter columns per up/down chunk
 
-template <typename T, int CN>
+// dropout of the training forward: the device seed, the keep threshold and
+// 1 / (1 - rate)
+struct Drop {
+  const int* seed;
+  unsigned threshold;
+  float inv_keep;
+};
+
+template <typename T, int CN, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 ffn_ln_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restrict__ wd,
               const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2f,
-              const float* __restrict__ lnp, int T_len, int F, int k, float eps) {
+              const float* __restrict__ lnp, int T_len, int F, int k, float eps, Drop drop) {
   constexpr int C = 32 * CN;
   extern __shared__ __align__(16) float smem[];
   const int lpad = (k - 1) / 2;
@@ -54,6 +70,8 @@ ffn_ln_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restr
   const float* be2 = lnp + 3 * C;
   const float* bd = lnp + 4 * C;
   const float* b2f = lnp + 5 * C;
+  unsigned seed_b = 0;
+  if constexpr (kTrain) seed_b = lfs2::item_seed(*drop.seed, b);
 
   // 1. LN1 over the tile and its halo, one warp per row
   for (int r = warp; r < rows_in; r += kThreads / 32) {
@@ -127,7 +145,13 @@ ffn_ln_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restr
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float x = u[i][j] + b1[f0 + lane * 4 + j];
-        up[(row0 + i) * kFChunk + lane * 4 + j] = lfs2::round_to<T>(fmaxf(x, 0.0f));
+        float v = lfs2::round_to<T>(fmaxf(x, 0.0f));
+        if constexpr (kTrain) {
+          const bool keep = lfs2::ffn_keep(t0 + row0 + i, f0 + lane * 4 + j, seed_b, 1u,
+                                           drop.threshold);
+          v = lfs2::round_to<T>(keep ? v * drop.inv_keep : 0.0f);
+        }
+        up[(row0 + i) * kFChunk + lane * 4 + j] = v;
       }
     __syncthreads();
     // down chunk: acc += up (4 x 128) @ W2f[f0:f0+128, c0:c0+CN]
@@ -152,7 +176,10 @@ ffn_ln_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restr
 #pragma unroll
     for (int j = 0; j < CN; ++j) {
       const int r = row0 + i, c = c0 + j;
-      h0[r * C + c] = t1[(r + lpad) * C + c] + (acc[i][j] + b2f[c]);
+      float ff = acc[i][j] + b2f[c];
+      if constexpr (kTrain)
+        ff = lfs2::ffn_keep(t0 + r, c, seed_b, 2u, drop.threshold) ? ff * drop.inv_keep : 0.0f;
+      h0[r * C + c] = t1[(r + lpad) * C + c] + ff;
     }
   __syncthreads();
 
@@ -182,31 +209,31 @@ ffn_ln_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restr
   }
 }
 
-template <typename T, int CN>
+template <typename T, int CN, bool kTrain>
 cudaError_t launch(const void* z, void* out, const float* wd, const void* w1, const float* b1,
                    const void* w2f, const float* lnp, int B, int T_len, int F, int k, float eps,
-                   cudaStream_t stream) {
+                   Drop drop, cudaStream_t stream) {
   constexpr int C = 32 * CN;
   const int smem = ((kTile + k - 1) * C + kTile * C + kTile * kFChunk) * static_cast<int>(sizeof(float));
-  auto kernel = ffn_ln_kernel<T, CN>;
+  auto kernel = ffn_ln_kernel<T, CN, kTrain>;
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_len + kTile - 1) / kTile, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(z), static_cast<T*>(out), wd, static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2f), lnp, T_len, F, k, eps);
+      static_cast<const T*>(w2f), lnp, T_len, F, k, eps, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 cudaError_t dispatch(int C, const void* z, void* out, const float* wd, const void* w1,
                      const float* b1, const void* w2f, const float* lnp, int B, int T_len, int F,
-                     int k, float eps, cudaStream_t s) {
+                     int k, float eps, Drop d, cudaStream_t s) {
   switch (C) {
-    case 32: return launch<T, 1>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s);
-    case 64: return launch<T, 2>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s);
-    case 128: return launch<T, 4>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s);
-    case 256: return launch<T, 8>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s);
+    case 32: return launch<T, 1, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
+    case 64: return launch<T, 2, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
+    case 128: return launch<T, 4, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
+    case 256: return launch<T, 8, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -220,9 +247,26 @@ LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const voi
                             int C, int F, int k, float eps, int dtype, void* stream) {
   if (F % kFChunk != 0 || k < 1 || B < 1 || T_len < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Drop d{nullptr, 0u, 1.0f};
   const cudaError_t err =
       dtype == lfs2::kBF16
-          ? dispatch<__nv_bfloat16>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s)
-          : dispatch<float>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, s);
+          ? dispatch<__nv_bfloat16, false>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s)
+          : dispatch<float, false>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
+  return static_cast<int>(err);
+}
+
+// seed: one int32 on the device; threshold and inv_keep from the rate
+LFS2_EXPORT int lfs2_ffn_ln_train(const void* z, void* out, const float* wd, const void* w1,
+                                  const float* b1, const void* w2f, const float* lnp,
+                                  const int* seed, int B, int T_len, int C, int F, int k,
+                                  float eps, unsigned threshold, float inv_keep, int dtype,
+                                  void* stream) {
+  if (F % kFChunk != 0 || k < 1 || B < 1 || T_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Drop d{seed, threshold, inv_keep};
+  const cudaError_t err =
+      dtype == lfs2::kBF16
+          ? dispatch<__nv_bfloat16, true>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s)
+          : dispatch<float, true>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
   return static_cast<int>(err);
 }

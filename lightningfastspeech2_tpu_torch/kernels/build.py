@@ -26,7 +26,7 @@ from typing import Dict, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("probe", "ffn_ln", "resblock")
+SOURCES = ("probe", "ffn_ln", "ffn_ln_train_bwd", "flash_attention", "resblock")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

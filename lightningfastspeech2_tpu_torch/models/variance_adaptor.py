@@ -2,7 +2,9 @@
 
 Counterpart of ``lightningfastspeech2_tpu/models/variance_adaptor.py``,
 deterministic duration only (the stochastic duration predictor is not
-ported yet). Phone-level variance encoders add their embeddings before
+ported yet). In training mode each ``VarianceConvLayer`` ends in dropout
+(rates from ``VarianceConfig.dropouts`` and ``DurationConfig.dropout``)
+drawn from the forward's generator. Phone-level variance encoders add their embeddings before
 length regulation, frame-level ones after. Parameter names follow the
 reference torch state dict (``duration_predictor.layers.{i}.layers.0.
 module.0`` ..., ``encoders.{var}.embedding``).
@@ -28,6 +30,7 @@ from lightningfastspeech2_tpu_torch.audio import cwt as cwt_mod
 from lightningfastspeech2_tpu_torch.core.config import DurationConfig, VarianceConfig
 from lightningfastspeech2_tpu_torch.models.layers import LayerNorm, linear
 from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
+from lightningfastspeech2_tpu_torch.ops.dropout import dropout
 from lightningfastspeech2_tpu_torch.ops.depthwise import (
     depthwise_conv1d,
     grouped_conv1d,
@@ -93,12 +96,13 @@ class _Transpose(nn.Module):
 
 
 class VarianceConvLayer(nn.Module):
-    """[conv (depthwise-separable or plain, SAME) -> ReLU -> LayerNorm]."""
+    """[conv (depthwise-separable or plain, SAME) -> ReLU -> LayerNorm ->
+    dropout in training]."""
 
     def __init__(self, in_ch: int, filter_size: int, kernel_size: int,
-                 depthwise: bool, dtype: torch.dtype):
+                 depthwise: bool, dtype: torch.dtype, dropout: float = 0.5):
         super().__init__()
-        self.depthwise, self.dtype = depthwise, dtype
+        self.depthwise, self.dtype, self.dropout = depthwise, dtype, dropout
         if depthwise:
             conv = nn.ModuleList([
                 nn.Conv1d(in_ch, in_ch, kernel_size, groups=in_ch),
@@ -109,7 +113,8 @@ class VarianceConvLayer(nn.Module):
         self.layers = nn.ModuleList([_Transpose(conv), nn.ReLU(),
                                      LayerNorm(filter_size)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         conv = self.layers[0].module
         if self.depthwise:
@@ -117,7 +122,8 @@ class VarianceConvLayer(nn.Module):
             h = pointwise_conv1d(h, conv[1].weight.to(dt), conv[1].bias.to(dt))
         else:
             h = grouped_conv1d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt), 1)
-        return self.layers[2](torch.relu(h), dt)
+        h = self.layers[2](torch.relu(h), dt)
+        return dropout(h, self.dropout, generator) if self.training else h
 
 
 class VariancePredictor(nn.Module):
@@ -125,17 +131,18 @@ class VariancePredictor(nn.Module):
 
     def __init__(self, nlayers: int, hidden: int, filter_size: int,
                  kernel_size: int, depthwise: bool, cwt: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, dropout: float = 0.5):
         super().__init__()
         self.cwt, self.dtype = cwt, dtype
         self.layers = nn.ModuleList([
             VarianceConvLayer(hidden if i == 0 else filter_size, filter_size,
-                              kernel_size, depthwise, dtype)
+                              kernel_size, depthwise, dtype, dropout)
             for i in range(nlayers)
         ])
         self.linear = nn.Linear(filter_size, 10 if cwt else 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """Returns (prediction, last conv output)."""
         extent = None
         if mask is not None:
@@ -144,7 +151,7 @@ class VariancePredictor(nn.Module):
             extent = mask.any(0, keepdim=True)[..., None]
         h = x
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h, generator)
             if extent is not None:
                 h = torch.where(extent, h, torch.zeros((), dtype=h.dtype, device=h.device))
         out = linear(h, self.linear, self.dtype)
@@ -164,7 +171,7 @@ class VarianceEncoder(nn.Module):
 
     def __init__(self, nlayers: int, hidden: int, filter_size: int,
                  kernel_size: int, depthwise: bool, stats: VarianceStats,
-                 nbins: int, cwt: bool, dtype: torch.dtype):
+                 nbins: int, cwt: bool, dtype: torch.dtype, dropout: float = 0.5):
         super().__init__()
         self.stats, self.cwt, self.dtype = stats, cwt, dtype
         lo, hi = stats.min, stats.max
@@ -173,15 +180,16 @@ class VarianceEncoder(nn.Module):
         self.register_buffer("bins", torch.from_numpy(linspace_f32(lo, hi, nbins - 1)),
                              persistent=False)
         self.predictor = VariancePredictor(nlayers, hidden, filter_size,
-                                           kernel_size, depthwise, cwt, dtype)
+                                           kernel_size, depthwise, cwt, dtype, dropout)
         self.embedding = nn.Embedding(nbins, hidden)
         if cwt:
             self.mean_std_linear = nn.Linear(filter_size, 2)
 
     def forward(self, x: torch.Tensor, tgt: Optional[torch.Tensor],
-                mask: Optional[torch.Tensor], control: float = 1.0):
+                mask: Optional[torch.Tensor], control: float = 1.0,
+                generator: Optional[torch.Generator] = None):
         dt = self.dtype
-        prediction, out_conv = self.predictor(x, mask)
+        prediction, out_conv = self.predictor(x, mask, generator)
         if self.cwt:
             mean_std = linear(out_conv.mean(1), self.mean_std_linear, dt)
             mean, std = mean_std[:, 0], mean_std[:, 1]
@@ -262,12 +270,13 @@ class VarianceAdaptor(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         self.duration_predictor = VariancePredictor(
             duration_cfg.nlayers, hidden, duration_cfg.filter_size,
-            duration_cfg.kernel_size, duration_cfg.depthwise, False, dtype)
+            duration_cfg.kernel_size, duration_cfg.depthwise, False, dtype,
+            duration_cfg.dropout)
         self.encoders = nn.ModuleDict({
             var: VarianceEncoder(
                 cfg.nlayers[i], hidden, cfg.filter_size, cfg.kernel_sizes[i],
                 cfg.depthwise, stats_for(stats, var), nbins,
-                cfg.transforms[i] == "cwt", dtype)
+                cfg.transforms[i] == "cwt", dtype, cfg.dropouts[i])
             for i, var in enumerate(cfg.variances)
         })
 
@@ -281,11 +290,12 @@ class VarianceAdaptor(nn.Module):
                 inference: bool = False, tf: bool = True,
                 oracles: Tuple[str, ...] = (),
                 controls: Optional[Dict[str, float]] = None,
-                duration_only: bool = False) -> Dict[str, Any]:
+                duration_only: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         c = self.cfg
         controls = controls or {}
         result: Dict[str, Any] = {}
-        duration_pred, _ = self.duration_predictor(x, phone_mask)
+        duration_pred, _ = self.duration_predictor(x, phone_mask, generator)
 
         if duration_only:
             # serving duration pass: the rounded durations pick the frame
@@ -300,7 +310,7 @@ class VarianceAdaptor(nn.Module):
             if c.levels[i] != "phone":
                 continue
             pred, out = self._encode(i, var, x, targets, phone_mask, inference,
-                                     tf, oracles, controls.get(var, 1.0))
+                                     tf, oracles, controls.get(var, 1.0), generator)
             result[f"variances_{var}"] = pred
             out_val = out if out_val is None else out_val + out
             x = x + out
@@ -318,7 +328,7 @@ class VarianceAdaptor(nn.Module):
             if c.levels[i] != "frame":
                 continue
             pred, out = self._encode(i, var, x, targets, frame_mask, inference,
-                                     tf, oracles, controls.get(var, 1.0))
+                                     tf, oracles, controls.get(var, 1.0), generator)
             result[f"variances_{var}"] = pred
             out_val = out if out_val is None else out_val + out
             x = x + out
@@ -328,9 +338,10 @@ class VarianceAdaptor(nn.Module):
                       out=out_val)
         return result
 
-    def _encode(self, i, var, x, targets, mask, inference, tf, oracles, control):
+    def _encode(self, i, var, x, targets, mask, inference, tf, oracles, control,
+                generator):
         is_cwt = self.cfg.transforms[i] == "cwt"
         tgt = None
         if (((not inference) and tf) or var in oracles) and targets is not None:
             tgt = targets.get(f"variances_{var}_signal" if is_cwt else f"variances_{var}")
-        return self.encoders[var](x, tgt, mask, control)
+        return self.encoders[var](x, tgt, mask, control, generator)

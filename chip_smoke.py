@@ -37,6 +37,26 @@ Phases, each printed as one JSON line:
 9. train reference: one f32 step on the card against the same step on the
    CPU's plain path (flagship widths, B=2, T=1024, dropout rates 0,
    warm-up 1 so the first update is visible).
+10. soft-DTW kernels: ``soft_dtw`` (forward and backward) at the mel loss's
+    lattices (8 items x 8 chunks of 256 frames, D from 80 mel channels,
+    gamma 0.1) against the plain recurrence's value and autograd gradient;
+    the length regulator's expand and segment-sum at the flagship's
+    (8, 256, 256) bf16 -> 2048 frames against the gather (forward bit for
+    bit), with the gather timed as the library yardstick.
+11. soft-DTW training (this slice's main path): phase 8's step with
+    ``mel_loss="soft_dtw"`` and ``LFS2_PALLAS_LR=1`` set in the process, 1
+    warm-up and 3 timed steps; the launch counters, set to 0 just before,
+    must equal the per-step counts derived from the config (now also
+    ``soft_dtw``, ``soft_dtw_bwd``, ``regulate``, ``regulate_bwd``), and one
+    profiled step gives the soft-DTW kernels' share.
+12. soft-DTW train reference: phase 9 with the soft-DTW mel loss and the
+    regulator flag set, card against CPU.
+13. step comparison: phases 8 and 11's trainers take one more step each,
+    interleaved, ``STEP_PAIRS`` times (outside the counted runs); the
+    median of each and of their per-pair difference.
+
+Phases 5 and 8 run without the flag and expect 0 launches of the four
+kernels of phases 10-12.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -46,8 +66,12 @@ repository beside this file, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -436,15 +460,18 @@ def reference_phase(served) -> None:
 
 # ---------------------------------------------------------- training slice
 TRAIN_B, TRAIN_P, TRAIN_T = 8, 256, 2048   # bench.py's training workload
+STEP_PAIRS = 8
 
 
-def train_config(rates: bool = True, B_P_T=(TRAIN_B, TRAIN_P, TRAIN_T)):
+def train_config(rates: bool = True, B_P_T=(TRAIN_B, TRAIN_P, TRAIN_T), mel_loss: str = "l1"):
     """The flagship cut to one frame bucket (max_phones P, max_frames T), its
-    config dropout rates or (``rates=False``) every rate 0."""
+    config dropout rates or (``rates=False``) every rate 0, and the mel
+    loss (the flagship's l1, or soft_dtw)."""
     from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship, replace
 
     _, P, T = B_P_T
     cfg = lightspeech_flagship()
+    cfg = replace(cfg, train=replace(cfg.train, mel_loss=mel_loss))
     m = replace(cfg.model, max_phones=P, max_frames=T)
     if not rates:
         m = replace(m, encoder=replace(m.encoder, dropout=0.0),
@@ -605,11 +632,14 @@ def train_kernels_phase(dev) -> dict:
     return {"ffn": ffn, "flash": _flash_case(dev, g)}
 
 
-def _step_split(prof) -> dict:
+def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
     """Device time of one traced train step by kernel family (torch.profiler
-    key_averages); zeros when the profiler saw no device time."""
+    key_averages, kernel names matched as whole words); zeros when the
+    profiler saw no device time."""
     fam = {"ffn_ln_train": "ffn_ln_kernel", "ffn_ln_train_bwd": "ffn_bwd_kernel",
-           "flash_attention": "fwd_kernel", "flash_attention_bwd": ("dq_kernel", "dkv_kernel")}
+           "flash_attention": "fwd_kernel", "flash_attention_bwd": ("dq_kernel", "dkv_kernel"),
+           "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
+           "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel"}
     out = {k: 0.0 for k in fam}
     total = 0.0
     rows = []
@@ -631,24 +661,64 @@ def _step_split(prof) -> dict:
         rows.append((e.key, t, e.count))
         for k, pat in fam.items():
             pats = pat if isinstance(pat, tuple) else (pat,)
-            if any(x in e.key for x in pats):
+            if any(re.search(rf"\b{x}\b", e.key) for x in pats):
                 out[k] += t
     rows.sort(key=lambda r: -r[1])
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "train_profile.txt").write_text(
+    (ROOT / "chiprun_out" / out_name).write_text(
         "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
     return {"device_ms": total / 1e3, **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
 
 
-def training_phase(counters) -> dict:
-    """This slice's main path: the flagship in bf16 (f32 parameters) takes
+def soft_dtw_launches_per_step(cfg) -> int:
+    """``soft_dtw`` (and ``soft_dtw_bwd``) launches of one teacher-forced
+    step, from the config: each soft-DTW loss folds its full chunks into one
+    launch, and its tail chunk takes a launch of its own when it has at
+    least 8 frames (shorter lattices take the plain recurrence)."""
+    m, t = cfg.model, cfg.train
+    lengths = [m.max_frames] if t.mel_loss == "soft_dtw" else []
+    lengths += [m.max_frames if lvl == "frame" else m.max_phones
+                for lvl, kind in zip(m.variance.levels, m.variance.losses) if kind == "soft_dtw"]
+    c = t.soft_dtw_chunk_size
+    return sum(int(n >= c and c >= 8) + int(n % c >= 8) for n in lengths)
+
+
+def regulate_launches_per_step(cfg) -> int:
+    """``regulate`` (and ``regulate_bwd``) launches of one teacher-forced step
+    with the opt-in set: the regulator expands x, and also the phone-level
+    variances' summed embedding when there is one
+    (models/variance_adaptor.py); both are 3-D and the frame count is a
+    multiple of 256."""
+    assert cfg.model.max_frames % 256 == 0
+    return 1 + int("phone" in cfg.model.variance.levels)
+
+
+@contextlib.contextmanager
+def regulator_opt_in():
+    """``LFS2_PALLAS_LR=1`` in this process, as a user who sets it."""
+    old = os.environ.get("LFS2_PALLAS_LR")
+    os.environ["LFS2_PALLAS_LR"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LFS2_PALLAS_LR"]
+        else:
+            os.environ["LFS2_PALLAS_LR"] = old
+
+
+def training_phase(counters, soft_dtw: bool = False) -> dict:
+    """A main path of training: the flagship in bf16 (f32 parameters) takes
     1 warm-up and 5 timed optimizer steps on B=8, P=256, T=2048
-    teacher-forced batches, config dropout rates."""
+    teacher-forced batches, config dropout rates, the l1 mel loss; with
+    ``soft_dtw`` (this slice's path, run under ``regulator_opt_in``), 1
+    warm-up and 3 timed steps with the soft-DTW mel loss."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
 
-    cfg = train_config()
+    cfg = train_config(mel_loss="soft_dtw" if soft_dtw else "l1")
     batch = train_batch(cfg)
+    n_steps = 4 if soft_dtw else 6
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -659,7 +729,7 @@ def training_phase(counters) -> dict:
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     steps, metrics = [], []
-    for i in range(6):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = step(state, batch, gen)
@@ -673,13 +743,19 @@ def training_phase(counters) -> dict:
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
     finite = all(math.isfinite(v) for m in metrics for v in m.values())
-    n_steps = len(steps)
     L_enc, L_dec = cfg.model.encoder.layers, cfg.model.decoder.layers
     want = {c.__name__: 0 for c in counters}
     want.update(ffn_ln_train=n_steps * (L_enc + L_dec), ffn_ln_train_bwd=n_steps * (L_enc + L_dec),
                 flash_attention=n_steps * L_dec, flash_attention_bwd=n_steps * L_dec)
+    if soft_dtw:
+        n_sdtw, n_lr = soft_dtw_launches_per_step(cfg), regulate_launches_per_step(cfg)
+        want.update(soft_dtw=n_steps * n_sdtw, soft_dtw_bwd=n_steps * n_sdtw,
+                    regulate=n_steps * n_lr, regulate_bwd=n_steps * n_lr)
     timed = steps[1:]
-    row = {"phase": "training", "setup_s": setup_s, "steps": n_steps, "step_ms": steps,
+    name = "soft_dtw_training" if soft_dtw else "training"
+    row = {"phase": name, "mel_loss": cfg.train.mel_loss,
+           "LFS2_PALLAS_LR": os.environ.get("LFS2_PALLAS_LR"), "setup_s": setup_s,
+           "steps": n_steps, "step_ms": steps,
            "timed_step_ms_mean": sum(timed) / len(timed),
            "frames_per_s": TRAIN_B * TRAIN_T / (sum(timed) / len(timed) / 1e3),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -687,9 +763,9 @@ def training_phase(counters) -> dict:
            "params_without_grad": bad, "launches": launches, "expected": want}
     emit(row)
     if not finite or bad:
-        raise RuntimeError(f"training: finite={finite}, params without gradient {bad[:8]}")
+        raise RuntimeError(f"{name}: finite={finite}, params without gradient {bad[:8]}")
     if launches != want:
-        raise RuntimeError(f"training-path launches {launches}, expected {want}")
+        raise RuntimeError(f"{name}-path launches {launches}, expected {want}")
     # one more step under the profiler (outside the counted run): where the
     # step's device time goes
     from torch.profiler import ProfilerActivity, profile
@@ -697,22 +773,34 @@ def training_phase(counters) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
-    split = _step_split(prof)
-    emit({"phase": "train_profile", **split})
-    return {"row": row, "split": split}
+    split = _step_split(prof, f"{name}_profile.txt")
+    emit({"phase": f"{name}_profile", **split})
+
+    def one_step() -> float:
+        """One more step (outside the counted run), its host-clock ms."""
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    return {"row": row, "split": split, "one_step": one_step}
 
 
-def train_reference_phase() -> dict:
+def train_reference_phase(soft_dtw: bool = False) -> dict:
     """One f32 optimizer step on the card (kernels) against the same step on
     the CPU (plain versions): flagship widths, B=2, T=1024 so the flash gate
-    admits the decoder, every dropout rate 0 (the generators differ)."""
+    admits the decoder, every dropout rate 0 (the generators differ); with
+    ``soft_dtw``, the soft-DTW mel loss (run under ``regulator_opt_in``, so
+    the card's regulator runs its kernels too)."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
 
     from lightningfastspeech2_tpu_torch.core.config import replace
 
     shape = (2, 128, 1024)
-    cfg = train_config(rates=False, B_P_T=shape)
+    cfg = train_config(rates=False, B_P_T=shape, mel_loss="soft_dtw" if soft_dtw else "l1")
     # lr 1e-4 at the first update (the flagship's 4000-step warm-up would
     # make it 2.5e-8, below the f32 resolution of the parameters)
     cfg = replace(cfg, train=replace(cfg.train, warmup_steps=1))
@@ -742,7 +830,9 @@ def train_reference_phase() -> dict:
     # 1e-3 of the largest; the Adam update (about lr * sign(g) at the first
     # step) to 1 % of its size where |g| > 1 % of the largest gradient
     tol = {"loss_rel": 1e-4, "grad_abs": 1e-3 * gmax, "update_abs": 1e-2 * lr}
-    row = {"phase": "train_reference", "at": "flagship f32, B=2, P=128, T=1024, rates 0",
+    name = "soft_dtw_train_reference" if soft_dtw else "train_reference"
+    row = {"phase": name, "at": f"flagship f32, B=2, P=128, T=1024, rates 0, mel loss "
+                               f"{cfg.train.mel_loss}",
            "loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": gmax,
            "update_max_abs_err": upd_err, "update_max": lr, "tol": tol,
            "losses_cuda": a["losses"], "losses_cpu": b["losses"]}
@@ -751,6 +841,125 @@ def train_reference_phase() -> dict:
             and upd_err <= tol["update_abs"]):
         raise RuntimeError(f"train step card vs CPU: {row}")
     return row
+
+
+# ------------------------------------------------------- soft-DTW slice
+def _soft_dtw_case(dev, g) -> dict:
+    """soft_dtw forward and backward at the mel loss's lattices: 8 items x 8
+    chunks of 256 frames, D from 80 channels (a bf16 prediction against an
+    f32 target, as in the step), gamma 0.1."""
+    from lightningfastspeech2_tpu_torch.ops import soft_dtw as sd
+
+    chunk, C, gamma = 256, 80, 0.1
+    L = TRAIN_B * TRAIN_T // chunk
+    pred = (0.5 * torch.randn(L, chunk, C, generator=g)).to(dev, torch.bfloat16)
+    truth = torch.randn(L, chunk, C, generator=g).to(dev)
+    D = sd.pairwise_sqdist(pred, truth).contiguous()
+    up = torch.ones(L, device=dev)       # the loss sums the lattices' values
+    Dk = D.clone().requires_grad_(True)
+    val = sd.soft_dtw_from_dist(Dk, gamma)
+    (grad,) = torch.autograd.grad(val, Dk, up)
+    Dp = D.clone().requires_grad_(True)
+    ref = sd.soft_dtw_from_dist_plain(Dp, gamma)
+    (ref_grad,) = torch.autograd.grad(ref, Dp, up, retain_graph=True)
+    torch.cuda.synchronize()
+    # f32 on both sides with the same softmin: the value to 1e-5 relative,
+    # dD (alignment weights in [0, 1]) to 1e-4 of its largest element
+    v_err = ((val - ref).abs() / ref.abs()).max().item()
+    g_err, g_tol = (grad - ref_grad).abs().max().item(), 1e-4 * ref_grad.abs().max().item()
+    at = f"D ({L}, {chunk}, {chunk}) f32 from {C} channels, gamma {gamma}"
+    _, R = sd.soft_dtw_fwd(D, gamma)
+    cells = L * chunk * chunk
+    # each input read once, each output written once: D and the R lattice
+    # (the backward's input) forward, R and dD backward; f32 operations per
+    # cell: the softmin's 3 exps, log, 2 mins and 9 other (forward), the
+    # weights' 3 x 6 and the cell's own softmin again (backward)
+    row_f = {"name": "soft_dtw", "at": at, "max_abs_err": (val - ref).abs().max().item(),
+             "value_rel_err": v_err, "tol": "1e-5 relative",
+             "serial_diagonals": 2 * chunk - 1,
+             "ms": cuda_ms(lambda: sd.soft_dtw_fwd(D, gamma)),
+             "plain_ms": cuda_ms(lambda: sd.soft_dtw_from_dist_plain(D, gamma), max_iters=5),
+             "library_ms": None}
+    row_b = {"name": "soft_dtw_bwd", "at": at, "max_abs_err": g_err, "tol": g_tol,
+             "serial_diagonals": 2 * chunk - 1,
+             "ms": cuda_ms(lambda: sd.soft_dtw_bwd(R, up, gamma)),
+             "plain_ms": cuda_ms_grad(ref, Dp, up, max_iters=5), "library_ms": None}
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(15 * cells, 2 * cells * 4 + L * 4,
+                                                    torch.float32)
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(33 * cells, 2 * cells * 4 + L * 4,
+                                                    torch.float32)
+    for r in (row_f, row_b):
+        emit({"phase": "kernel", **r})
+    if not (v_err <= 1e-5 and g_err <= g_tol):
+        raise RuntimeError(f"soft_dtw at {at}: value rel err {v_err}, dD err {g_err} > {g_tol}")
+    return {"fwd": row_f, "bwd": row_b}
+
+
+def _regulate_case(dev, g) -> dict:
+    """The regulator's expand and segment-sum at the flagship's shape: x
+    (8, 256, 256) bf16 -> 2048 frames, ragged durations (a zero-duration
+    phone every fifth, one item over T), against the gather."""
+    from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
+
+    B, P, H, T, dtype = TRAIN_B, TRAIN_P, 256, TRAIN_T, torch.bfloat16
+    x = torch.randn(B, P, H, generator=g).to(dev, dtype)
+    d = torch.randint(1, 14, (B, P), generator=g)
+    d[:, ::5] = 0
+    d[0] = 10                              # 2560 frames: above T
+    d = d.to(dev)
+    dout = torch.randn(B, T, H, generator=g).to(dev, dtype)
+    xk = x.clone().requires_grad_(True)
+    frames, mask = lr.regulate_kernel(xk, d, T)
+    (grad,) = torch.autograd.grad(frames, xk, dout)
+    ref, ref_mask = lr.regulate_plain(x, d, T)
+    # the segment-sum adds in f32 and rounds once: against the f32 gather's
+    # gradient of the same inputs, rounded once, within one bf16 ulp
+    xf = x.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(lr.regulate_plain(xf, d, T)[0], xf, dout.float())
+    want = want.to(dtype).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    torch.cuda.synchronize()
+    exact = torch.equal(frames, ref) and torch.equal(mask, ref_mask)
+    g_err = (grad.float() - want).abs()
+    at = f"x ({B}, {P}, {H}) bf16 -> {T} frames, ragged durations"
+    ends = torch.cumsum(d.clamp(min=0).to(torch.int32), -1, dtype=torch.int32)
+    # the gather as one PyTorch call on the precomputed frame -> phone index
+    t = torch.arange(T, device=dev)
+    idx = torch.searchsorted(ends.long(), t.expand(B, T).contiguous(), right=True).clamp(max=P - 1)
+    idx = idx[:, :, None].expand(-1, -1, H)
+    xg = x.clone().requires_grad_(True)
+    gathered = torch.gather(xg, 1, idx)
+    pp = x.clone().requires_grad_(True)
+    plain_out = lr.regulate_plain(pp, d, T)[0]
+    row_f = {"name": "regulate", "at": at, "max_abs_err": (frames.float() - ref.float()).abs().max().item(),
+             "tol": 0.0, "bit_exact": exact,
+             "ms": cuda_ms(lambda: lr.regulate_fwd(x, ends, T)),
+             "plain_ms": cuda_ms(lambda: lr.regulate_plain(x, d, T)),
+             "library_ms": cuda_ms(lambda: torch.gather(x, 1, idx)),
+             "library": "torch.gather on the precomputed frame -> phone index"}
+    row_b = {"name": "regulate_bwd", "at": at, "max_abs_err": g_err.max().item(),
+             "tol": "one bf16 ulp of the f32 gather's gradient rounded once",
+             "ms": cuda_ms(lambda: lr.regulate_bwd(dout, ends)),
+             "plain_ms": cuda_ms_grad(plain_out, pp, dout),
+             "library_ms": cuda_ms_grad(gathered, xg, dout),
+             "library_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                 torch.gather(xg, 1, idx), xg, dout)),
+             "library": "torch.gather's backward (a scatter-add)"}
+    nb_x, nb_f = tensor_bytes(x), B * T * H * x.element_size()
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(0, nb_x + nb_f + tensor_bytes(ends), dtype)
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(B * T * H, nb_f + nb_x + tensor_bytes(ends),
+                                                    dtype)
+    for r in (row_f, row_b):
+        emit({"phase": "kernel", **r})
+    if not exact or not bool((g_err <= ulp).all()):
+        raise RuntimeError(f"regulate at {at}: forward bit-exact {exact}, "
+                           f"gradient off by {g_err.max().item()}")
+    return {"fwd": row_f, "bwd": row_b}
+
+
+def sdtw_kernels_phase(dev) -> dict:
+    g = torch.Generator().manual_seed(2)
+    return {"soft_dtw": _soft_dtw_case(dev, g), "regulate": _regulate_case(dev, g)}
 
 
 def _summary(name, source, replaces, rows, launches) -> dict:
@@ -775,7 +984,9 @@ def main() -> int:
     from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
     from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+    from lightningfastspeech2_tpu_torch.ops.length_regulator import regulate, regulate_bwd
     from lightningfastspeech2_tpu_torch.ops.probe import probe
+    from lightningfastspeech2_tpu_torch.ops.soft_dtw import soft_dtw, soft_dtw_bwd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -785,12 +996,38 @@ def main() -> int:
     probe_row = probe_phase(dev)
     rows = kernels_phase(dev)
     counters = (probe, ffn_ln, resblock, resblock_trio, ffn_ln_train, ffn_ln_train_bwd,
-                flash_attention, flash_attention_bwd)
+                flash_attention, flash_attention_bwd, soft_dtw, soft_dtw_bwd, regulate,
+                regulate_bwd)
+    if "LFS2_PALLAS_LR" in os.environ:
+        raise RuntimeError("run without LFS2_PALLAS_LR: the script sets it for its own phases")
     served = serving_phase(counters)
     reference_phase(served)
     train_rows = train_kernels_phase(dev)
     trained = training_phase(counters)
     train_reference_phase()
+    sdtw_rows = sdtw_kernels_phase(dev)
+    with regulator_opt_in():
+        sdtw_trained = training_phase(counters, soft_dtw=True)
+        train_reference_phase(soft_dtw=True)
+    # the two steps interleaved (l1, soft-DTW, l1, ...) so that a drift of
+    # the host's speed during the run falls on both alike
+    pairs = []
+    for _ in range(STEP_PAIRS):
+        l1_ms = trained["one_step"]()
+        with regulator_opt_in():
+            pairs.append((l1_ms, sdtw_trained["one_step"]()))
+    emit({"phase": "soft_dtw_step_vs_l1_step", "interleaved_pairs": STEP_PAIRS,
+          "l1_step_ms": statistics.median(a for a, _ in pairs),
+          "soft_dtw_step_ms": statistics.median(b for _, b in pairs),
+          "difference_ms_median": statistics.median(b - a for a, b in pairs),
+          "pairs_ms": pairs,
+          "phase_means_ms": [trained["row"]["timed_step_ms_mean"],
+                             sdtw_trained["row"]["timed_step_ms_mean"]],
+          "profiled_soft_dtw_kernels_ms": sdtw_trained["split"]["soft_dtw_ms"]
+          + sdtw_trained["split"]["soft_dtw_bwd_ms"],
+          "profiled_regulate_kernels_ms": sdtw_trained["split"]["regulate_ms"]
+          + sdtw_trained["split"]["regulate_bwd_ms"],
+          "profiled_device_ms": sdtw_trained["split"]["device_ms"]})
 
     n = served["launches"]
     nt = trained["row"]["launches"]
@@ -830,6 +1067,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": r["at"], **({"library_fwd_bwd_ms": r["library_fwd_bwd_ms"]} if part == "bwd" else {})})
+    ns = sdtw_trained["row"]["launches"]
+    for key, src, reps in (("soft_dtw", "soft_dtw.cu", ("pallas_soft_dtw.py:81", "pallas_soft_dtw.py:112")),
+                           ("regulate", "length_regulator.cu",
+                            ("pallas_length_regulator.py:30", "pallas_length_regulator.py:66"))):
+        for part, rep in zip(("fwd", "bwd"), reps):
+            r = sdtw_rows[key][part]
+            kernels.append({
+                "name": r["name"], "route": "cuda", "source": f"{pkg}/{src}",
+                "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": ns[r["name"]],
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "at")},
+                **{k: r[k] for k in ("serial_diagonals", "library_fwd_bwd_ms") if k in r}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

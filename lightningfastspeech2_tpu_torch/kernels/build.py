@@ -23,10 +23,15 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("probe", "ffn_ln", "ffn_ln_train_bwd", "flash_attention", "resblock")
+SOURCES = ("probe", "ffn_ln", "ffn_ln_train_bwd", "flash_attention", "resblock", "soft_dtw",
+           "length_regulator")
+# the dtype codes of csrc/common.cuh's DType, as the launchers take them
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

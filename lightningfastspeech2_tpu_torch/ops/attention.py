@@ -23,7 +23,6 @@ import torch
 from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.ops.ffn import (
-    _DTYPES,
     _M32,
     _fmix,
     _mul32,
@@ -94,7 +93,7 @@ def _fns():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     B, H, T, d = q.shape
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes f32 or bf16 q, k, v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if d != HEAD_DIM or T % 64 != 0 or k.shape != q.shape or v.shape != q.shape:
@@ -117,7 +116,7 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, T, d,
             1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            _DTYPES[q.dtype], _stream(q))
+            build.DTYPE_CODES[q.dtype], _stream(q))
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return o, lse
@@ -137,7 +136,7 @@ def flash_attention_bwd(do, q, k, v, mask_i32, seed, o, lse, rate):
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
             B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            _DTYPES[q.dtype], _stream(q))
+            build.DTYPE_CODES[q.dtype], _stream(q))
     build.check(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

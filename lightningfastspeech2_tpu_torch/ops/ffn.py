@@ -31,7 +31,6 @@ from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _c_fn = None
 
 
@@ -134,7 +133,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     check_kernel_inputs(z, w.wd, w.w1, w.b1, w.w2f, w.lnp)
     B, T, C = z.shape
     F = w.w1.shape[1]
-    if z.dtype not in _DTYPES or w.w1.dtype != z.dtype or w.w2f.dtype != z.dtype:
+    if z.dtype not in build.DTYPE_CODES or w.w1.dtype != z.dtype or w.w2f.dtype != z.dtype:
         raise ValueError(f"ffn_ln takes f32 or bf16 z with weights of the same "
                          f"dtype, got {z.dtype}, {w.w1.dtype}, {w.w2f.dtype}")
     if C not in (32, 64, 128, 256) or F % 128 != 0:
@@ -144,7 +143,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     lib, fn = _fn()
     rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.w1.data_ptr(),
             w.b1.data_ptr(), w.w2f.data_ptr(), w.lnp.data_ptr(), B, T, C, F,
-            w.kernel_size, w.eps, _DTYPES[z.dtype],
+            w.kernel_size, w.eps, build.DTYPE_CODES[z.dtype],
             torch.cuda.current_stream(z.device).cuda_stream)
     build.check(lib, rc, "ffn_ln")
     ffn_ln.launches += 1
@@ -343,7 +342,7 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
     rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), w["w1"].data_ptr(),
             w["b1"].data_ptr(), w["w2f"].data_ptr(), w["lnp"].data_ptr(),
             seed.data_ptr(), B, T, C, F, k, eps, keep_threshold(rate),
-            1.0 / (1.0 - rate), _DTYPES[z.dtype],
+            1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype],
             torch.cuda.current_stream(z.device).cuda_stream)
     build.check(lib, rc, "ffn_ln_train")
     ffn_ln_train.launches += 1
@@ -373,7 +372,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
             w["w2fT"].data_ptr(), w["lnp"].data_ptr(), seed.data_ptr(),
             dz.data_ptr(), dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(),
             db1.data_ptr(), dvec.data_ptr(), B, T, C, F, k, eps,
-            keep_threshold(rate), 1.0 / (1.0 - rate), _DTYPES[z.dtype],
+            keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype],
             torch.cuda.current_stream(z.device).cuda_stream)
     build.check(lib, rc, "ffn_ln_train_bwd")
     ffn_ln_train_bwd.launches += 1

@@ -31,7 +31,6 @@ from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
 
 LRELU_SLOPE = 0.1
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # shared memory a block may take (of the H100's 227 KB), and the tile cap
 _SMEM_BUDGET = 200 * 1024
 _TILE_CAP = 256
@@ -171,7 +170,7 @@ def _fn():
 def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
     check_kernel_inputs(x, w.taps, w.bias)
     B, L, C = x.shape
-    if x.dtype not in _DTYPES or w.taps.dtype != x.dtype:
+    if x.dtype not in build.DTYPE_CODES or w.taps.dtype != x.dtype:
         raise ValueError(f"{what} takes f32 or bf16 x with taps of the same dtype, "
                          f"got {x.dtype}, {w.taps.dtype}")
     if C != w.channels or C not in (32, 64, 128, 256):
@@ -191,7 +190,7 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
     lib, fn = _fn()
     rc = fn(x.data_ptr(), out.data_ptr(), w.taps.data_ptr(), w.bias.data_ptr(),
             scratch.data_ptr(), B, L, C, tile, halo, c_layout, w.n_res,
-            int(x_in_smem), _DTYPES[x.dtype],
+            int(x_in_smem), build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, what)
     return out

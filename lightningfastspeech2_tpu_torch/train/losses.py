@@ -7,8 +7,11 @@ variance gives the ``_cwt``, ``_mean`` and ``_std`` triplet), the mel loss,
 the duration loss on ``log(d + 1)``, and ``total`` weighted as
 ``fastspeech2.py:461-473`` with frozen components left out.
 
-The ``soft_dtw`` losses and the FastDiff branches are later slices of the
-port and raise ``NotImplementedError``.
+A ``soft_dtw`` loss (the mel loss, a CWT variance's ``_cwt`` term or a
+scalar variance) is ``soft_dtw_loss``: soft-DTW (``ops/soft_dtw.py``) summed
+over items and over chunks of ``soft_dtw_chunk_size`` frames, like the
+reference (loss.py:69-78). The FastDiff and stochastic-duration losses are
+later slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from lightningfastspeech2_tpu_torch.core.config import Config
+from lightningfastspeech2_tpu_torch.ops.soft_dtw import soft_dtw_batch
 
 
 def masked_mean_loss(pred: torch.Tensor, truth: torch.Tensor, mask: torch.Tensor,
@@ -28,9 +32,6 @@ def masked_mean_loss(pred: torch.Tensor, truth: torch.Tensor, mask: torch.Tensor
         elt = torch.square(pred - truth)
     elif kind == "l1":
         elt = torch.abs(pred - truth)
-    elif kind == "soft_dtw":
-        raise NotImplementedError(
-            "the soft-DTW loss is a later slice of the port (ops/pallas_soft_dtw.py)")
     else:
         raise ValueError(f"unknown loss kind {kind}")
     while mask.dim() < elt.dim():
@@ -38,6 +39,30 @@ def masked_mean_loss(pred: torch.Tensor, truth: torch.Tensor, mask: torch.Tensor
     mask = mask.expand(elt.shape)
     total = torch.where(mask, elt, torch.zeros((), dtype=elt.dtype, device=elt.device)).sum()
     return total / torch.clamp(mask.sum(), min=1)
+
+
+def soft_dtw_loss(pred: torch.Tensor, truth: torch.Tensor, mask: torch.Tensor,
+                  gamma: float, chunk: int) -> torch.Tensor:
+    """Soft-DTW between ``pred`` and ``truth`` (B, T, C), zeroed where
+    ``mask`` is False, summed over items and over chunks of ``chunk``
+    frames (the last may be shorter). The full chunks of all items go to
+    the kernel as one call, the tail as another."""
+    while mask.dim() < pred.dim():
+        mask = mask[..., None]
+    pred = torch.where(mask, pred, torch.zeros((), dtype=pred.dtype, device=pred.device))
+    truth = torch.where(mask, truth, torch.zeros((), dtype=truth.dtype, device=truth.device))
+    B, T = pred.shape[:2]
+    n_full = T // chunk
+    total = 0.0
+    if n_full:
+        def fold(a):
+            return a[:, : n_full * chunk].reshape(B * n_full, chunk, *a.shape[2:])
+
+        total = torch.sum(soft_dtw_batch(fold(pred), fold(truth), gamma=gamma))
+    if T > n_full * chunk:
+        tail = slice(n_full * chunk, T)
+        total = total + torch.sum(soft_dtw_batch(pred[:, tail], truth[:, tail], gamma=gamma))
+    return total
 
 
 def compute_losses(result: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: Config,
@@ -55,8 +80,12 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: 
         kind = vcfg.losses[i]
         if vcfg.transforms[i] == "cwt":
             out = result[f"variances_{var}"]
-            losses[f"{var}_cwt"] = masked_mean_loss(
-                out["spectrogram"], batch[f"variances_{var}_spectrogram"], mask, kind)
+            pred, truth = out["spectrogram"], batch[f"variances_{var}_spectrogram"]
+            if kind == "soft_dtw":
+                losses[f"{var}_cwt"] = soft_dtw_loss(pred, truth, mask, tcfg.soft_dtw_gamma,
+                                                     tcfg.soft_dtw_chunk_size)
+            else:
+                losses[f"{var}_cwt"] = masked_mean_loss(pred, truth, mask, kind)
             losses[f"{var}_mean"] = torch.mean(
                 torch.square(out["mean"] - batch[f"variances_{var}_mean"]))
             losses[f"{var}_std"] = torch.mean(
@@ -66,11 +95,19 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: 
             truth = batch[f"variances_{var}"]
             if vcfg.levels[i] == "frame":
                 truth = truth[:, : pred.shape[1]]
-            losses[var] = masked_mean_loss(pred, truth, mask, kind)
+            if kind == "soft_dtw":
+                losses[var] = soft_dtw_loss(pred[..., None], truth[..., None], mask[..., None],
+                                            tcfg.soft_dtw_gamma, tcfg.soft_dtw_chunk_size)
+            else:
+                losses[var] = masked_mean_loss(pred, truth, mask, kind)
 
     mel = result["mel"]
-    losses["mel"] = masked_mean_loss(mel, batch["mel"][:, : mel.shape[1]], frame_mask,
-                                     tcfg.mel_loss)
+    mel_truth = batch["mel"][:, : mel.shape[1]]
+    if tcfg.mel_loss == "soft_dtw":
+        losses["mel"] = soft_dtw_loss(mel, mel_truth, frame_mask, tcfg.soft_dtw_gamma,
+                                      tcfg.soft_dtw_chunk_size)
+    else:
+        losses["mel"] = masked_mean_loss(mel, mel_truth, frame_mask, tcfg.mel_loss)
     log_d = torch.log(batch["duration"].float() + 1.0)
     losses["duration"] = masked_mean_loss(result["duration_prediction"], log_d, phone_mask,
                                           mcfg.duration.loss)

@@ -52,6 +52,7 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.utils import convert\n"
         "from lightningfastspeech2_tpu_torch.train import losses, optim, step\n"
         "from lightningfastspeech2_tpu_torch.ops import attention, dropout, ffn\n"
+        "from lightningfastspeech2_tpu_torch.ops import length_regulator, soft_dtw\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'lightningfastspeech2_tpu')]\n"
         "assert not bad, bad\n"

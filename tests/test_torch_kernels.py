@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a Hopper
-card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, and the
+card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
 training kernels ``ffn_ln_train`` and ``flash_attention`` (forward and
-backward, gradients against the plain version's autograd). Marked
+backward, gradients against the plain version's autograd), ``soft_dtw``
+(value and dD) and the length regulator's expand and segment-sum. Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
 imports neither JAX nor the JAX package, so it runs where JAX is absent:
 
@@ -18,6 +19,10 @@ from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2,
 from lightningfastspeech2_tpu_torch.ops import attention as tatt
 from lightningfastspeech2_tpu_torch.ops import ffn as tffn
 from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as trb
+from lightningfastspeech2_tpu_torch.ops import length_regulator as tlr
+from lightningfastspeech2_tpu_torch.ops import soft_dtw as tsd
+from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
+from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 from lightningfastspeech2_tpu_torch.ops.probe import probe
 from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
 from torch_port_helpers import (  # noqa: F401
@@ -107,6 +112,57 @@ def _bulk_close(got, want, frac, mean_frac, what):
     assert err.mean().item() <= mean_frac * top + 1e-7, (what, err.mean().item(), top)
 
 
+# An f32 sum of C <= 256 products lies within C * 2^-24 <= 2^-16 of their
+# magnitudes' sum from the exact value, whatever the order. The kernel and
+# the plain version sum the ReLU input in different orders, from depthwise
+# outputs a few ulps apart, so both stay within twice that of the exact
+# value and take the same ReLU branch wherever it lies farther than this:
+KINK_MARGIN = 2.0 ** -14
+_FFN_GRADS = ("out", "dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f", "dg1", "dbe1",
+              "dg2", "dbe2")
+
+
+def _relu_input(z, p, eps=1e-5):
+    """``ffn_ln_train_plain``'s ReLU input h0 @ w1 + b1 (B, T, F) as it forms
+    it, and, in f64, the exact h0 @ w1 and the sum of the products'
+    magnitudes."""
+    wd, bd, w1, b1, _, _, g1, be1, _, _ = (t.detach() for t in p)
+    dt = z.dtype
+    with torch.no_grad():
+        t1 = tffn._rnd(layer_norm_fn(z, g1, be1, torch.float32, eps), dt)
+        h0 = tffn._rnd(depthwise_conv1d(t1, wd.t().unsqueeze(1).float(), bd.float()), dt)
+        w1r = tffn._rnd(w1.float(), dt)
+        return (h0 @ w1r + b1.float(), h0.double() @ w1r.double(),
+                h0.abs().double() @ w1r.abs().double())
+
+
+def _near_kink(exact, mag, b1):
+    b = b1.double()
+    return (exact + b).abs() <= KINK_MARGIN * (mag + b.abs())
+
+
+def _b1_off_the_kink(z, p):
+    """b1 with every F column that holds a ReLU input within ``KINK_MARGIN``
+    of zero moved by the least multiple of 0.01 that clears the column, so
+    that f32 arithmetic fixes every unit's branch."""
+    _, exact, mag = _relu_input(z, p)
+    F = exact.shape[-1]
+    exact, mag = exact.reshape(-1, F), mag.reshape(-1, F)
+    b1 = p[3].detach().clone()
+    for step in range(1, 100):
+        bad = _near_kink(exact, mag, b1).any(0)
+        if not bad.any():
+            return b1
+        b1 = torch.where(bad, p[3].detach() + 0.01 * step, b1)
+    raise AssertionError("no b1 clears the kink")
+
+
+def _ffn_train_grads(fn, z, params, seed, rate, dout):
+    zz = z.clone().requires_grad_(True)
+    out = fn(zz, params, seed, rate)
+    return (out, *torch.autograd.grad(out, [zz, *params], dout))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -117,21 +173,19 @@ def test_ffn_ln_train_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rat
     seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
     z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
     dout = torch.randn(B, T, C_, device=cuda_card).to(dtype)
-
-    def run(fn):
-        zz = z.clone().requires_grad_(True)
-        out = fn(zz, params, seed, rate)
-        grads = torch.autograd.grad(out, [zz, *params], dout)
-        return out, grads
+    # a ReLU input within rounding of zero may fall on one side in the kernel
+    # and on the other in the plain version, which moves dz on the k rows it
+    # reaches past any tolerance (test_ffn_ln_train_gap_lies_at_the_relu_kink):
+    # such draws move b1 off the kink first
+    params[3] = _b1_off_the_kink(z, params).requires_grad_(True)
 
     n_fwd, n_bwd = tffn.ffn_ln_train.launches, tffn.ffn_ln_train_bwd.launches
-    out, grads = run(tffn.ffn_ln_train)
+    out, *grads = _ffn_train_grads(tffn.ffn_ln_train, z, params, seed, rate, dout)
     torch.cuda.synchronize()
     assert (tffn.ffn_ln_train.launches, tffn.ffn_ln_train_bwd.launches) == (n_fwd + 1, n_bwd + 1)
-    ref, ref_grads = run(tffn.ffn_ln_train_plain)
+    ref, *ref_grads = _ffn_train_grads(tffn.ffn_ln_train_plain, z, params, seed, rate, dout)
     assert all(g.dtype == torch.float32 for g in grads[1:])
-    names = ("out", "dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f", "dg1", "dbe1", "dg2", "dbe2")
-    for name, got, want in zip(names, (out, *grads), (ref, *ref_grads)):
+    for name, got, want in zip(_FFN_GRADS, (out, *grads), (ref, *ref_grads)):
         if dtype == torch.float32:
             # f32: summation order and atomics' order only
             _bulk_close(got, want, 2e-4, 2e-5, name)
@@ -139,6 +193,81 @@ def test_ffn_ln_train_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rat
             # bf16 activations; the kernel rounds dff and dup to bf16 before
             # its products where the plain version keeps f32 gradients
             _bulk_close(got, want, 0.03, 0.005, name)
+
+
+@pytest.mark.gpu
+def test_ffn_ln_train_gap_lies_at_the_relu_kink(cuda_card):
+    # Sixteen seeded f32 draws with b1 as drawn. While dz leaves the
+    # tolerance on some row, flip the plain version's branch at one ReLU
+    # input that reaches that row (its depthwise window) by moving b1 of its
+    # column by twice that input, trying the inputs nearest zero first. Each
+    # flipped input must lie within KINK_MARGIN of zero, every row that left
+    # the tolerance within the k rows a flipped input reaches, and then every
+    # gradient must meet the f32 tolerance of the test above.
+    B, T, C_, F_, k = 3, 300, 256, 1024, 25
+    lpad, rpad = (k - 1) // 2, k - 1 - (k - 1) // 2
+    base = [t.detach().to(cuda_card) for t in
+            tffn.ffn_train_params(**ffn_modules(ffn_params(3, C_, F_, k)))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    for draw in range(16):
+        g = torch.Generator(device=cuda_card).manual_seed(draw)
+        z = torch.randn(B, T, C_, device=cuda_card, generator=g)
+        dout = torch.randn(B, T, C_, device=cuda_card, generator=g)
+        params = [t.clone().requires_grad_(True) for t in base]
+        got = _ffn_train_grads(tffn.ffn_ln_train, z, params, seed, 0.0, dout)
+
+        def plain(b1):
+            ps = params[:3] + [b1.clone().requires_grad_(True)] + params[4:]
+            want = _ffn_train_grads(tffn.ffn_ln_train_plain, z, ps, seed, 0.0, dout)
+            tol = 2e-4 * want[1].abs().max().item() + 1e-6
+            return ps, want, (got[1] - want[1]).abs().amax(-1), tol
+
+        b1 = params[3].detach().clone()
+        ps, want, row_gap, tol = plain(b1)
+        first_gap, bad_rows = row_gap.max().item(), (row_gap > tol).nonzero().tolist()
+        fails = [n for n, a, w in zip(_FFN_GRADS, got, want)
+                 if (a - w).abs().max().item() > 2e-4 * w.abs().max().item() + 1e-6]
+        _, exact, mag = _relu_input(z, params)
+        flipped = []
+        while row_gap.max().item() > tol:
+            assert len(flipped) < 4, (draw, flipped, row_gap.max().item())
+            b, t = divmod(int(row_gap.argmax()), T)
+            lo = max(t - rpad, 0)
+            pre = _relu_input(z, ps)[0][b, lo:t + lpad + 1]
+            for i in pre.abs().flatten().argsort()[:4].tolist():
+                gr, f = lo + i // F_, i % F_
+                trial = b1.clone()
+                trial[f] -= 2 * pre[i // F_, f] + pre[i // F_, f].sign() * 2.0 ** -20
+                ps_t, want_t, gap_t, tol_t = plain(trial)
+                if gap_t[b, t] <= tol_t:
+                    break
+            else:
+                raise AssertionError(f"draw {draw}: no ReLU input flip clears row {(b, t)}")
+            flipped.append((b, gr, f, pre[i // F_, f].item()))
+            b1, ps, want, row_gap, tol = trial, ps_t, want_t, gap_t, tol_t
+        print(f"draw {draw}: dz gap {first_gap:.3g} of largest dz "
+              f"{want[1].abs().max().item():.3g} (tolerance {tol:.3g}); over it: {fails}, "
+              f"{len(bad_rows)} rows; ReLU inputs flipped (b, t, f, value): {flipped}; "
+              f"dz gap after: {row_gap.max().item():.3g}")
+        for b, gr, f, _ in flipped:
+            assert _near_kink(exact[b, gr, f], mag[b, gr, f], params[3].detach()[f])
+        assert all(any(b == fb and fg - lpad <= t <= fg + rpad for fb, fg, _, _ in flipped)
+                   for b, t in bad_rows)
+        for name, a, w in zip(_FFN_GRADS, got, want):
+            _bulk_close(a, w, 2e-4, 2e-5, name)
+
+
+@pytest.mark.gpu
+def test_ffn_ln_train_backward_dz_is_deterministic(cuda_card):
+    # dz takes no atomics: two runs on the same inputs agree bit for bit
+    params = [t.detach().to(cuda_card).clone().requires_grad_(True)
+              for t in tffn.ffn_train_params(**ffn_modules(ffn_params(3, 256, 1024, 25)))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    g = torch.Generator(device=cuda_card).manual_seed(2)
+    z, dout = (torch.randn(3, 300, 256, device=cuda_card, generator=g) for _ in range(2))
+    dz = [tffn.ffn_ln_train_bwd(dout, z, params, seed, 0.0)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(d, dz[0]) for d in dz)
 
 
 @pytest.mark.gpu
@@ -200,3 +329,84 @@ def test_train_step_then_serving_forward_on_the_card(cuda_card):
     torch.cuda.synchronize()
     assert torch.equal(after, ref)
     assert not torch.equal(after, before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gamma", [1.0, 0.1])
+@pytest.mark.parametrize("L,N,M", [(4, 256, 256), (3, 31, 57), (2, 1100, 1100)])
+def test_soft_dtw_kernels_match_plain(cuda_card, L, N, M, gamma):
+    # (2, 1100, 1100): more rows than one block has threads
+    g = torch.Generator(device=cuda_card).manual_seed(N)
+    D = torch.rand(L, N, M, device=cuda_card, generator=g) * 2.0
+    n_fwd, n_bwd = tsd.soft_dtw.launches, tsd.soft_dtw_bwd.launches
+    Dk = D.clone().requires_grad_(True)
+    val = tsd.soft_dtw_from_dist(Dk, gamma)
+    (grad,) = torch.autograd.grad(val, Dk, torch.linspace(0.5, 1.5, L, device=cuda_card))
+    torch.cuda.synchronize()
+    assert (tsd.soft_dtw.launches, tsd.soft_dtw_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    Dp = D.clone().requires_grad_(True)
+    ref = tsd.soft_dtw_from_dist_plain(Dp, gamma)
+    (ref_grad,) = torch.autograd.grad(ref, Dp, torch.linspace(0.5, 1.5, L, device=cuda_card))
+    # f32 on both sides, the same softmin form: R to 1e-5 relative; dD (the
+    # alignment weights, within [0, 1.5]) to 1e-4 of the largest
+    torch.testing.assert_close(val, ref, rtol=1e-5, atol=1e-5)
+    _bulk_close(grad, ref_grad, 1e-4, 1e-6, "dD")
+
+
+def _regulate_inputs(device, dtype):
+    g = torch.Generator().manual_seed(11)
+    B, P, H, T = 8, 256, 256, 2048
+    x = torch.randn(B, P, H, generator=g).to(device, dtype)
+    d = torch.randint(0, 15, (B, P), generator=g)
+    d[1, 200:] = 0                       # ragged totals
+    d[2, ::3] = 0                        # zero durations inside an item
+    d[3] = 0                             # an empty item
+    d[4] = 12                            # a total above T (3072 frames)
+    return x, d.to(device), T
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regulate_kernels_match_gather(cuda_card, dtype):
+    x, d, T = _regulate_inputs(cuda_card, dtype)
+    dout = torch.randn(x.shape[0], T, x.shape[2], device=cuda_card)
+    n_fwd, n_bwd = tlr.regulate.launches, tlr.regulate_bwd.launches
+    xk = x.clone().requires_grad_(True)
+    frames, mask = tlr.regulate_kernel(xk, d, T)
+    (grad,) = torch.autograd.grad(frames, xk, dout.to(dtype))
+    torch.cuda.synchronize()
+    assert (tlr.regulate.launches, tlr.regulate_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    ref, ref_mask = tlr.regulate_plain(x, d, T)
+    assert torch.equal(frames, ref) and torch.equal(mask, ref_mask)   # a copy: bit for bit
+    # the gradient against the f32 gather's of the same inputs; in bf16 that
+    # f32 gradient rounded once, since the gather's own bf16 backward adds
+    # in bf16: within one bf16 ulp of it (the kernel sums in f32)
+    xf = x.float().requires_grad_(True)
+    (ref_grad,) = torch.autograd.grad(tlr.regulate_plain(xf, d, T)[0], xf, dout.to(dtype).float())
+    assert not grad[3].any()
+    if dtype == torch.float32:
+        # two f32 sums of the same <= 14 frames in other orders: 1e-6 plus
+        # the bound on their rounding, 2 * 14 * 2^-24 * sum |g|
+        (absum,) = torch.autograd.grad(tlr.regulate_plain(xf, d, T)[0], xf, dout.abs())
+        assert ((grad - ref_grad).abs() <= 1e-6 + 28 * 2.0 ** -24 * absum).all()
+    else:
+        want = ref_grad.to(torch.bfloat16).float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+        assert ((grad.float() - want).abs() <= ulp).all()
+
+
+@pytest.mark.gpu
+def test_regulate_takes_the_kernel_only_when_opted_in(cuda_card, monkeypatch):
+    x, d, _ = _regulate_inputs(cuda_card, torch.bfloat16)
+    n = tlr.regulate.launches
+    monkeypatch.delenv("LFS2_PALLAS_LR", raising=False)
+    tlr.regulate(x, d, 512)
+    assert tlr.regulate.launches == n
+    monkeypatch.setenv("LFS2_PALLAS_LR", "1")
+    a, _ = tlr.regulate(x, d, 512)
+    assert tlr.regulate.launches == n + 1
+    tlr.regulate(x, d, 500)                  # max_frames % 256 != 0: the gather
+    tlr.regulate(x[..., 0], d, 512)          # 2-D: the gather
+    torch.cuda.synchronize()
+    assert tlr.regulate.launches == n + 1
+    assert torch.equal(a, tlr.regulate_plain(x, d, 512)[0])

@@ -1,7 +1,8 @@
 """The port's train step (train/step.py) against the JAX package's on the
 tiny config with every dropout rate 0: the loss dict, ``grad_norm`` and the
 update (after - before) of one optimizer step, plain, with two
-micro-batches, and with a frozen component; the eval step's losses; the
+micro-batches, with a frozen component, and with the soft-DTW mel loss
+over chunks of 48 frames (five chunks and a tail of 16); the eval step's losses; the
 dummy batch draw for draw; and the serving forward after a step (the
 ``ffn_ln`` weights follow the parameters)."""
 
@@ -67,9 +68,15 @@ def _accum(batch, n):
     return out
 
 
-@pytest.mark.parametrize("case", ["plain", "accum2", "frozen_pitch"])
+def _soft_dtw_mel(C, cfg):
+    return C.replace(cfg, **{"train.mel_loss": "soft_dtw", "train.soft_dtw_chunk_size": 48})
+
+
+@pytest.mark.parametrize("case", ["plain", "accum2", "frozen_pitch", "soft_dtw_mel"])
 def test_train_step_matches_jax(setup, case):
     jcfg, tcfg, model, state, optimizer, params0, batch = setup
+    if case == "soft_dtw_mel":
+        jcfg, tcfg = _soft_dtw_mel(JC, jcfg), _soft_dtw_mel(TC, tcfg)
     frozen = ("pitch",) if case == "frozen_pitch" else ()
     b = _accum(batch, 2) if case == "accum2" else batch
     jstep = jax_make_step(model, jcfg, optimizer, donate=False)

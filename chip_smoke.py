@@ -55,8 +55,22 @@ Phases, each printed as one JSON line:
     interleaved, ``STEP_PAIRS`` times (outside the counted runs); the
     median of each and of their per-pair difference.
 
-Phases 5 and 8 run without the flag and expect 0 launches of the four
-kernels of phases 10-12.
+14. FastDiff kernels: ``lvc_stack`` (the LVC chain of one upsample stage)
+    against its plain version at a 512-frame bucket, B=1: stages 2 and 3 in
+    bf16 and f32, one Padé-gate case, and the stage-1 shape.
+15. FastDiff serving (this slice's main path): the flagship with its
+    residual mel head and the FastDiff vocoder (reference widths, N=4), both
+    bf16 from seeded generators, serve phase 5's sentences and batch after
+    the same duration bias; the counters, set to 0 just before, must show
+    ``lvc_stack`` at 2 per ε pass (stages 2 and 3) and no resblock launch.
+    Then one request with ``LFS2_FUSED_STAGE1=1`` (3 per pass), and one
+    profiled vocoder call's split.
+16. FastDiff reference: an f32 FastDiff request on the card against the
+    same request on the CPU's plain path, with the same noise drawn once on
+    the CPU.
+
+Phases 5 and 8 run without the flags and expect 0 launches of the kernels
+of phases 10-12 and 14.
 
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -325,17 +339,28 @@ def _calibrate_durations(model, gen, texts) -> float:
     return bias
 
 
-def _make_generator(cfg, dtype, dev, dvecs, texts, bias):
+def _make_generator(cfg, dtype, dev, dvecs, texts, bias, fastdiff=False, noise_source=None):
+    """The served generator: the flagship and HiFi-GAN V1, or with
+    ``fastdiff`` the flagship with its residual head and the FastDiff
+    vocoder (its noise from ``noise_source`` where given)."""
     from lightningfastspeech2_tpu_torch.data.vocab import Vocab
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.synthesis.g2p import BUILTIN_LEXICON, EnglishG2P
-    from lightningfastspeech2_tpu_torch.synthesis.generator import SpeechGenerator
+    from lightningfastspeech2_tpu_torch.synthesis.generator import (
+        FastDiffSynthesiser,
+        SpeechGenerator,
+    )
     from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig, Synthesiser
 
     g2p = EnglishG2P(BUILTIN_LEXICON)  # the generate CLI's default lexicon
     vocab = Vocab(p for t in texts for p in g2p(t))
-    model = build_fastspeech2(cfg.model, dtype=dtype, device=dev, seed=0)
-    synth = Synthesiser(HifiGanConfig(), dtype=dtype, device=dev, seed=1)
+    model = build_fastspeech2(cfg.model, dtype=dtype, device=dev, seed=0,
+                              use_fastdiff_head=fastdiff)
+    if fastdiff:
+        synth = FastDiffSynthesiser(cfg.model, vocoder_precision=16 if dtype == torch.bfloat16
+                                    else 32, device=dev, seed=1, noise_source=noise_source)
+    else:
+        synth = Synthesiser(HifiGanConfig(), dtype=dtype, device=dev, seed=1)
     gen = SpeechGenerator(cfg, model, vocab, g2p, synthesiser=synth,
                           speaker2dvector=dvecs)
     if bias is None:
@@ -346,30 +371,12 @@ def _make_generator(cfg, dtype, dev, dvecs, texts, bias):
     return gen, bias
 
 
-def serving_phase(counters) -> dict:
-    """The main path: build the flagship and V1 in bf16 on the card, serve
-    the sentences one by one and one batch of 8 at frame bucket 512."""
+def _serve_all(gen, cfg, dvecs, tag: str = "") -> dict:
+    """A warm-up request, the sentences one by one through
+    ``generate_from_text`` and one batch of 8 through ``generate_samples``
+    at frame bucket 512; every waveform checked finite. Returns the
+    requests, the batch's row and the frame bucket of every vocoder call."""
     from lightningfastspeech2_tpu_torch.core.bucketing import pad_to
-    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship
-
-    cfg = lightspeech_flagship()
-    rng = np.random.default_rng(0)
-    dvecs = {}
-    for i in range(4):
-        v = rng.standard_normal(cfg.model.dvector_dim).astype(np.float32)
-        dvecs[f"spk{i}"] = v / np.linalg.norm(v)
-    # set-up, not the main path: the duration bias from the same seeded
-    # weights through the plain path on the CPU, so it launches no kernel
-    _, bias = _make_generator(cfg, torch.float32, "cpu", dvecs, BATCH_TEXTS, None)
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, bias)
-    emit({"phase": "serving_setup", "seconds": time.perf_counter() - t0,
-          "duration_bias": bias,
-          "note": "untrained duration head biased so rounded durations average "
-                  f"about {FRAMES_PER_PHONE:g} frames per phone (bias taken on "
-                  "the CPU before the launch counters were set to 0)"})
 
     def serve(text, seed):
         t = time.perf_counter()
@@ -386,11 +393,12 @@ def serving_phase(counters) -> dict:
                 "audio_s": wav.size / SAMPLING_RATE, "finite": True,
                 "peak": float(np.abs(wav).max())}
 
-    emit({"phase": "request", "cold": True, **serve("Warm up the card.", 0)})
+    warm = serve("Warm up the card.", 0)
+    emit({"phase": f"{tag}request", "cold": True, **warm})
     requests = []
     for i, text in enumerate(SENTENCES):
         r = serve(text, i)
-        emit({"phase": "request", **r})
+        emit({"phase": f"{tag}request", **r})
         requests.append(r)
     if len({r["phones"] for r in requests}) != len(SENTENCES):
         raise RuntimeError("the sentences should differ in length")
@@ -411,12 +419,43 @@ def serving_phase(counters) -> dict:
     bucket = gen.bucketer.frame_bucket(max(frames))
     finite = all(w.size > 0 and np.isfinite(w).all() for w in wavs)
     audio_s = sum(w.size for w in wavs) / SAMPLING_RATE
-    emit({"phase": "batch", "batch": len(wavs), "phone_bucket": P, "frame_bucket": bucket,
-          "frames": frames, "ms": ms, "audio_s": audio_s, "finite": finite,
-          "audio_s_per_s": audio_s / (ms / 1e3)})
+    row = {"phase": f"{tag}batch", "batch": len(wavs), "phone_bucket": P,
+           "frame_bucket": bucket, "frames": frames, "ms": ms, "audio_s": audio_s,
+           "finite": finite, "audio_s_per_s": audio_s / (ms / 1e3)}
+    emit(row)
     if not finite or bucket != 512:
         raise RuntimeError(f"batch: finite={finite}, frame bucket {bucket} (want 512)")
     torch.cuda.synchronize()
+    # every vocoder call (one per item) sees the mel at its request's bucket
+    buckets = [warm["frame_bucket"]] + [r["frame_bucket"] for r in requests] + [bucket] * len(wavs)
+    return {"requests": requests, "batch": row, "vocoder_buckets": buckets,
+            "n_calls": len(SENTENCES) + 2}
+
+
+def serving_phase(counters) -> dict:
+    """The main path: build the flagship and V1 in bf16 on the card, serve
+    the sentences one by one and one batch of 8 at frame bucket 512."""
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship
+
+    cfg = lightspeech_flagship()
+    rng = np.random.default_rng(0)
+    dvecs = {}
+    for i in range(4):
+        v = rng.standard_normal(cfg.model.dvector_dim).astype(np.float32)
+        dvecs[f"spk{i}"] = v / np.linalg.norm(v)
+    # set-up, not the main path: the duration bias from the same seeded
+    # weights through the plain path on the CPU, so it launches no kernel
+    _, bias = _make_generator(cfg, torch.float32, "cpu", dvecs, BATCH_TEXTS, None)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, bias)
+    emit({"phase": "serving_setup", "seconds": time.perf_counter() - t0,
+          "duration_bias": bias,
+          "note": "untrained duration head biased so rounded durations average "
+                  f"about {FRAMES_PER_PHONE:g} frames per phone (bias taken on "
+                  "the CPU before the launch counters were set to 0)"})
+    run = _serve_all(gen, cfg, dvecs)
     launches = {c.__name__: c.launches for c in counters}
     # what the path must launch: the probe once, when the first entry point
     # resolves the card; per generate_samples call (the warm-up, each
@@ -424,10 +463,10 @@ def serving_phase(counters) -> dict:
     # the encoder's and decoder's in the full pass; per vocoder call (one
     # per item) one resblock or trio launch per prepared stack
     m, stacks = cfg.model, gen.synthesiser.model.stage_weights
-    n_calls, n_items = len(SENTENCES) + 2, len(SENTENCES) + 1 + len(wavs)
+    n_items = len(run["vocoder_buckets"])
     want = {c.__name__: 0 for c in counters}   # the training kernels: none here
     want.update({"probe": 1,
-                 "ffn_ln": n_calls * (2 * m.encoder.layers + m.decoder.layers),
+                 "ffn_ln": run["n_calls"] * (2 * m.encoder.layers + m.decoder.layers),
                  "resblock": n_items * sum(len(s) for s in stacks if len(s) > 1),
                  "resblock_trio": n_items * sum(1 for s in stacks if len(s) == 1)})
     emit({"phase": "launches", **launches, "expected": want})
@@ -435,27 +474,41 @@ def serving_phase(counters) -> dict:
     if launches != want or any(launches[k] == 0 for k in path):
         raise RuntimeError(f"serving-path launches {launches}, expected {want}")
     return {"launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
-            "requests": requests}
+            "requests": run["requests"], "batch": run["batch"]}
 
 
-def reference_phase(served) -> None:
+def reference_phase(served, fastdiff: bool = False) -> None:
     """One f32 request on the card (kernels) against the same request on
-    the CPU (plain versions), same seeded weights and duration bias."""
+    the CPU (plain versions), same seeded weights and duration bias; with
+    ``fastdiff``, the FastDiff server, its noise drawn on the CPU from one
+    seed for each call and handed to both."""
     text = SENTENCES[1]
-    wavs = {}
+    cfg = served["fastdiff_cfg"] if fastdiff else served["cfg"]
+
+    def cpu_noise(shape, N):
+        g = torch.Generator().manual_seed(7)
+        return torch.randn(tuple(shape), generator=g), torch.randn((N, *shape), generator=g)
+
+    wavs, ms = {}, {}
     for dev in ("cuda", "cpu"):
-        gen, _ = _make_generator(served["cfg"], torch.float32, dev, served["dvecs"],
-                                 BATCH_TEXTS, bias=served["bias"])
+        gen, _ = _make_generator(cfg, torch.float32, dev, served["dvecs"], BATCH_TEXTS,
+                                 bias=served["bias"], fastdiff=fastdiff,
+                                 noise_source=cpu_noise if fastdiff else None)
+        t = time.perf_counter()
         wavs[dev] = gen.generate_from_text(text, speaker="spk1", seed=0)
+        ms[dev] = (time.perf_counter() - t) * 1e3
     a, b = wavs["cuda"], wavs["cpu"]
     top = float(np.abs(b).max())
     err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
     # f32 on both sides, TF32 off: summation order only, through two models
+    # (and, for FastDiff, four ε passes of the reverse sampler)
     tol = 1e-3 * top + 1e-7
-    emit({"phase": "reference", "samples": [a.size, b.size], "max_abs_err": err,
-          "tol": tol, "peak": top})
+    name = "fastdiff_reference" if fastdiff else "reference"
+    emit({"phase": name, "samples": [a.size, b.size], "max_abs_err": err,
+          "tol": tol, "peak": top, "request_ms": ms})
     if not (a.shape == b.shape and err <= tol and top > 0):
-        raise RuntimeError(f"card vs CPU: shapes {a.shape} {b.shape}, max |err| {err} > {tol}")
+        raise RuntimeError(f"{name} card vs CPU: shapes {a.shape} {b.shape}, "
+                           f"max |err| {err} > {tol}")
 
 
 # ---------------------------------------------------------- training slice
@@ -633,13 +686,14 @@ def train_kernels_phase(dev) -> dict:
 
 
 def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
-    """Device time of one traced train step by kernel family (torch.profiler
+    """Device time of one traced step by kernel family (torch.profiler
     key_averages, kernel names matched as whole words); zeros when the
     profiler saw no device time."""
     fam = {"ffn_ln_train": "ffn_ln_kernel", "ffn_ln_train_bwd": "ffn_bwd_kernel",
            "flash_attention": "fwd_kernel", "flash_attention_bwd": ("dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
-           "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel"}
+           "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
+           "lvc_stack": "lvc_stack_kernel"}
     out = {k: 0.0 for k in fam}
     total = 0.0
     rows = []
@@ -667,7 +721,8 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / out_name).write_text(
         "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
-    return {"device_ms": total / 1e3, **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
+    return {"device_ms": total / 1e3, "device_launches": sum(c for _, _, c in rows),
+            **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
 
 
 def soft_dtw_launches_per_step(cfg) -> int:
@@ -694,24 +749,25 @@ def regulate_launches_per_step(cfg) -> int:
 
 
 @contextlib.contextmanager
-def regulator_opt_in():
-    """``LFS2_PALLAS_LR=1`` in this process, as a user who sets it."""
-    old = os.environ.get("LFS2_PALLAS_LR")
-    os.environ["LFS2_PALLAS_LR"] = "1"
+def env_opt_in(name: str):
+    """``name=1`` in this process (``LFS2_PALLAS_LR``, ``LFS2_FUSED_STAGE1``),
+    as a user who sets it."""
+    old = os.environ.get(name)
+    os.environ[name] = "1"
     try:
         yield
     finally:
         if old is None:
-            del os.environ["LFS2_PALLAS_LR"]
+            del os.environ[name]
         else:
-            os.environ["LFS2_PALLAS_LR"] = old
+            os.environ[name] = old
 
 
 def training_phase(counters, soft_dtw: bool = False) -> dict:
     """A main path of training: the flagship in bf16 (f32 parameters) takes
     1 warm-up and 5 timed optimizer steps on B=8, P=256, T=2048
     teacher-forced batches, config dropout rates, the l1 mel loss; with
-    ``soft_dtw`` (this slice's path, run under ``regulator_opt_in``), 1
+    ``soft_dtw`` (this slice's path, run under ``env_opt_in("LFS2_PALLAS_LR")``), 1
     warm-up and 3 timed steps with the soft-DTW mel loss."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
@@ -792,7 +848,7 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
     """One f32 optimizer step on the card (kernels) against the same step on
     the CPU (plain versions): flagship widths, B=2, T=1024 so the flash gate
     admits the decoder, every dropout rate 0 (the generators differ); with
-    ``soft_dtw``, the soft-DTW mel loss (run under ``regulator_opt_in``, so
+    ``soft_dtw``, the soft-DTW mel loss (run under ``env_opt_in("LFS2_PALLAS_LR")``, so
     the card's regulator runs its kernels too)."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
@@ -962,6 +1018,159 @@ def sdtw_kernels_phase(dev) -> dict:
     return {"soft_dtw": _soft_dtw_case(dev, g), "regulate": _regulate_case(dev, g)}
 
 
+# ------------------------------------------------------- FastDiff slice
+FD_BUCKET = 512   # the served batch's frame bucket
+
+
+def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
+    """lvc_stack at one upsample stage of a FD_BUCKET-frame bucket, B=1, 4
+    layers, C=32, against the plain version; the biases in the working
+    dtype, as the kernel predictor gives them."""
+    from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc as lvc
+
+    B, C, layers = 1, 32, 4
+    L = nL * hop
+    x = torch.randn(B, L, C, generator=g).to(dev, dtype)
+    ad = torch.randn(B, L, C, generator=g).to(dev, dtype)
+    k = (0.2 * torch.randn(B, nL, layers, C, 2 * C, 3, generator=g)).to(dev, dtype)
+    b = (0.1 * torch.randn(B, nL, layers, 2 * C, generator=g)).to(dev, dtype)
+    cw = (0.1 * torch.randn(layers, 3, C, C, generator=g)).to(dev, dtype)
+    cb = (0.1 * torch.randn(layers, C, generator=g)).to(dev)
+    args = (x, ad, k, b, cw, cb, hop)
+    out = lvc.lvc_stack(*args, fast_gating=fast)
+    ref = lvc.lvc_stack_plain(*args, fast_gating=fast)
+    torch.cuda.synchronize()
+    top = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    held = {}
+    if dtype == torch.float32:   # summation order only
+        tol = 2e-4 * (1.0 + top)
+        ok = err <= tol
+    else:   # per value, in ulps of the chain's |x| there (lvc.bf16_chain_error)
+        ulps, share = lvc.bf16_chain_error(out, ref, x, ad, layers)
+        tol = f"{lvc.BF16_MAX_ULPS} ulps a value, {lvc.BF16_MAX_UNEQUAL} of values unequal"
+        held = {"max_ulps": ulps, "unequal_share": share}
+        ok = ulps <= lvc.BF16_MAX_ULPS and share <= lvc.BF16_MAX_UNEQUAL
+    # per row and layer: the dilated conv (3C x C) and the LVC (3C x 2C)
+    flops = B * L * layers * 2 * (3 * C * C + 3 * C * 2 * C)
+    nbytes = 2 * tensor_bytes(x) + tensor_bytes(ad, k, b, cw, cb)
+    row = {"name": "lvc_stack", "stage": {8: 1, 64: 2, 256: 3}.get(hop),
+           "at": f"x ({B}, {L}, {C}) {str(dtype)[6:]}, hop {hop}, {nL} frames, {layers} layers, "
+                 f"{'Padé' if fast else 'exact'} gate",
+           "max_abs_err": err, "tol": tol, **held, "tile_rows": lvc.kernel_tile(B, L),
+           "ms": cuda_ms(lambda: lvc.lvc_stack(*args, fast_gating=fast)),
+           "plain_ms": cuda_ms(lambda: lvc.lvc_stack_plain(*args, fast_gating=fast)),
+           "library_ms": None, "bytes": nbytes, "flops": flops}
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+    emit({"phase": "kernel", **row})
+    if not ok:
+        raise RuntimeError(f"lvc_stack at {row['at']}: max |err| {err} {held}, tolerance {tol}")
+    return row
+
+
+def fastdiff_kernels_phase(dev) -> list:
+    """lvc_stack at stages 2 and 3 in bf16 and f32, the Padé gate at stage
+    3, and the stage-1 shape (hop 8, the LFS2_FUSED_STAGE1 opt-in)."""
+    g = torch.Generator().manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+    return [_lvc_case(dev, g, 64, bf), _lvc_case(dev, g, 256, bf), _lvc_case(dev, g, 64, f32),
+            _lvc_case(dev, g, 256, f32), _lvc_case(dev, g, 256, bf, fast=True),
+            _lvc_case(dev, g, 8, bf)]
+
+
+def fastdiff_serving_phase(counters, served) -> dict:
+    """This slice's main path: the flagship with its residual head and the
+    FastDiff vocoder (reference widths, N from the config), both bf16 from
+    seeded generators, phase 5's dvectors and duration bias; then one
+    request under LFS2_FUSED_STAGE1 and one profiled vocoder call."""
+    from lightningfastspeech2_tpu_torch.core.config import replace
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack, routes_to_kernel
+
+    cfg = served["cfg"]
+    cfg = replace(cfg, model=replace(cfg.model, fastdiff_vocoder=True))
+    dvecs = served["dvecs"]
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, served["bias"],
+                             fastdiff=True)
+    synth = gen.synthesiser
+    fd_cfg, N = synth.vocoder.cfg, synth.n_steps
+    emit({"phase": "fastdiff_serving_setup", "seconds": time.perf_counter() - t0,
+          "fastdiff": {"inner_channels": fd_cfg.inner_channels,
+                       "upsample_ratios": list(fd_cfg.upsample_ratios),
+                       "lvc_layers": fd_cfg.lvc_layers_each_block,
+                       "kpnet_hidden": fd_cfg.kpnet_hidden_channels, "T": fd_cfg.T,
+                       "N": N, "dtype": "bfloat16"}})
+    run = _serve_all(gen, cfg, dvecs, tag="fastdiff_")
+    launches = {c.__name__: c.launches for c in counters}
+    # per generate_samples call the acoustic passes' ffn_ln launches, as in
+    # phase 5; per vocoder call N ε passes, each one lvc_stack launch per
+    # stage the routing rule sends to the kernel at that call's bucket
+    hops, hop = [], 1
+    for r in fd_cfg.upsample_ratios:
+        hop *= r
+        hops.append(hop)
+    layers = fd_cfg.lvc_layers_each_block
+    m = cfg.model
+    want = {c.__name__: 0 for c in counters}
+    want.update({"ffn_ln": run["n_calls"] * (2 * m.encoder.layers + m.decoder.layers),
+                 "lvc_stack": sum(N * sum(routes_to_kernel(h, T, layers) for h in hops)
+                                  for T in run["vocoder_buckets"])})
+    n_voc = len(run["vocoder_buckets"])
+    emit({"phase": "fastdiff_launches", **launches, "expected": want, "vocoder_calls": n_voc,
+          "eps_passes": N * n_voc})
+    if launches != want or want["lvc_stack"] != 2 * N * n_voc or launches["ffn_ln"] == 0:
+        raise RuntimeError(f"FastDiff serving launches {launches}, expected {want} "
+                           f"(2 per pass x {N} x {n_voc} calls)")
+    # one request with the stage-1 opt-in (outside the counted run above)
+    n = lvc_stack.launches
+    with env_opt_in("LFS2_FUSED_STAGE1"):
+        t = time.perf_counter()
+        wav = gen.generate_from_text(SENTENCES[0], speaker="spk0", seed=0)
+        opt_ms = (time.perf_counter() - t) * 1e3
+    opt_launches = lvc_stack.launches - n
+    emit({"phase": "fastdiff_stage1_opt_in", "lvc_stack": opt_launches, "expected": 3 * N,
+          "ms": opt_ms, "finite": bool(np.isfinite(wav).all())})
+    if opt_launches != 3 * N or not np.isfinite(wav).all():
+        raise RuntimeError(f"LFS2_FUSED_STAGE1 request: {opt_launches} lvc_stack launches, "
+                           f"expected {3 * N}")
+    # one vocoder call on a FD_BUCKET-frame mel, timed, then under the profiler
+    mel = (np.random.default_rng(5).standard_normal((FD_BUCKET, m.audio.n_mels)) - 4.0
+           ).astype(np.float32)
+    synth(mel)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    synth(mel)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synth(mel)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "fastdiff_vocoder_profile.txt")
+    # the host side of the same call: PyTorch ops by their own CPU time
+    from torch.autograd import DeviceType
+
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    (ROOT / "chiprun_out" / "fastdiff_vocoder_host_profile.txt").write_text(
+        "\n".join(f"{e.self_cpu_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key}"
+                  for e in host[:60]))
+    hifigan_ms = statistics.median(r["ms"] for r in served["requests"])
+    fastdiff_ms = statistics.median(r["ms"] for r in run["requests"])
+    emit({"phase": "fastdiff_vocoder_profile", "frames": FD_BUCKET, "N": N,
+          "call_ms": call_ms, "device_ms": split["device_ms"],
+          "device_launches": split["device_launches"],
+          "lvc_stack_ms": split["lvc_stack_ms"],
+          "rest_device_ms": split["device_ms"] - split["lvc_stack_ms"],
+          "request_ms_median": {"fastdiff": fastdiff_ms, "hifigan_v1": hifigan_ms},
+          "batch_audio_s_per_s": {"fastdiff": run["batch"]["audio_s_per_s"],
+                                  "hifigan_v1": served["batch"]["audio_s_per_s"]}})
+    return {"launches": launches, "cfg": cfg, "run": run, "split": split}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -982,6 +1191,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
     from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
     from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
     from lightningfastspeech2_tpu_torch.ops.length_regulator import regulate, regulate_bwd
@@ -997,16 +1207,17 @@ def main() -> int:
     rows = kernels_phase(dev)
     counters = (probe, ffn_ln, resblock, resblock_trio, ffn_ln_train, ffn_ln_train_bwd,
                 flash_attention, flash_attention_bwd, soft_dtw, soft_dtw_bwd, regulate,
-                regulate_bwd)
-    if "LFS2_PALLAS_LR" in os.environ:
-        raise RuntimeError("run without LFS2_PALLAS_LR: the script sets it for its own phases")
+                regulate_bwd, lvc_stack)
+    for flag in ("LFS2_PALLAS_LR", "LFS2_FUSED_STAGE1"):
+        if flag in os.environ:
+            raise RuntimeError(f"run without {flag}: the script sets it for its own phases")
     served = serving_phase(counters)
     reference_phase(served)
     train_rows = train_kernels_phase(dev)
     trained = training_phase(counters)
     train_reference_phase()
     sdtw_rows = sdtw_kernels_phase(dev)
-    with regulator_opt_in():
+    with env_opt_in("LFS2_PALLAS_LR"):
         sdtw_trained = training_phase(counters, soft_dtw=True)
         train_reference_phase(soft_dtw=True)
     # the two steps interleaved (l1, soft-DTW, l1, ...) so that a drift of
@@ -1014,7 +1225,7 @@ def main() -> int:
     pairs = []
     for _ in range(STEP_PAIRS):
         l1_ms = trained["one_step"]()
-        with regulator_opt_in():
+        with env_opt_in("LFS2_PALLAS_LR"):
             pairs.append((l1_ms, sdtw_trained["one_step"]()))
     emit({"phase": "soft_dtw_step_vs_l1_step", "interleaved_pairs": STEP_PAIRS,
           "l1_step_ms": statistics.median(a for a, _ in pairs),
@@ -1028,6 +1239,9 @@ def main() -> int:
           "profiled_regulate_kernels_ms": sdtw_trained["split"]["regulate_ms"]
           + sdtw_trained["split"]["regulate_bwd_ms"],
           "profiled_device_ms": sdtw_trained["split"]["device_ms"]})
+    fd_rows = fastdiff_kernels_phase(dev)
+    fd_served = fastdiff_serving_phase(counters, served)
+    reference_phase({**served, "fastdiff_cfg": fd_served["cfg"]}, fastdiff=True)
 
     n = served["launches"]
     nt = trained["row"]["launches"]
@@ -1079,6 +1293,15 @@ def main() -> int:
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at")},
                 **{k: r[k] for k in ("serial_diagonals", "library_fwd_bwd_ms") if k in r}})
+    # lvc_stack at stage 3 of the served bucket in bf16 (the stage-2 row
+    # rides along)
+    stage2, stage3 = fd_rows[0], fd_rows[1]
+    kernels.append({
+        **_summary("lvc_stack", f"{pkg}/lvc_stack.cu",
+                   "lightningfastspeech2_tpu/ops/pallas_fastdiff.py:80", [stage3],
+                   fd_served["launches"]["lvc_stack"]),
+        "stage2": {k: stage2[k] for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err")}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ Counterpart of ``lightningfastspeech2_tpu/models/fastspeech2.py``:
     -> +pos -> +speaker -> decoder (FFT blocks) -> linear -> mel (B, T, 80)
 
 in teacher-forced, ``inference=True`` and ``duration_only=True`` modes.
-The FastDiff branches (speaker generator, diffusion variances, residual
-mel head) and every-layer re-injection are not ported yet.
+With ``use_fastdiff_head`` the result also holds ``fastdiff_var``, the
+FastDiff residual mel head's x0.1 correction. The other FastDiff branches
+(speaker generator, diffusion variances) and every-layer re-injection are
+not ported yet.
 
 Parameters are named like the reference torch state dict; parameters stay
 f32 and ``dtype`` is the working dtype of the activations, fixed at
@@ -49,9 +51,12 @@ class FastSpeech2(nn.Module):
     def __init__(self, cfg: ModelConfig, stats: StatsTree = (),
                  prior_stats: StatsTree = (), dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_fastdiff_head: bool = False):
         """Builds on the CPU, initializes from ``generator`` (seed 0 when
-        None), then moves to ``device`` (``cuda`` unless ``"cpu"``)."""
+        None), then moves to ``device`` (``cuda`` unless ``"cpu"``).
+        ``use_fastdiff_head`` adds the FastDiff residual mel head
+        (``fastdiff_linear``: two Linears, no activation)."""
         super().__init__()
         dev = resolve_device(device)
         if (cfg.fastdiff_variances or cfg.fastdiff_speakers
@@ -78,6 +83,9 @@ class FastSpeech2(nn.Module):
         })
         self.variance_adaptor = VarianceAdaptor(
             cfg.variance, cfg.duration, cfg.hidden, stats, cfg.variance.nbins, dtype)
+        if use_fastdiff_head:
+            self.fastdiff_linear = nn.Sequential(nn.Linear(cfg.hidden, cfg.hidden),
+                                                 nn.Linear(cfg.hidden, cfg.audio.n_mels))
         init_weights(self, generator)
         self.to(dev)
 
@@ -128,8 +136,10 @@ class FastSpeech2(nn.Module):
         y = adaptor_out["x"]
         frame_mask = adaptor_out["frame_mask"]
         y = self.positional_encoding(y, generator)
+        spk_frames = None
         if speaker_module is not None:
-            y = y + speaker_module(batch["speaker"], y.shape[1])
+            spk_frames = speaker_module(batch["speaker"], y.shape[1])
+            y = y + spk_frames
         y = self.decoder(y, frame_mask, generator=generator)
         mel = linear(y, self.linear, dt)
         mel = torch.where(frame_mask[:, :, None], mel, zero)
@@ -143,6 +153,17 @@ class FastSpeech2(nn.Module):
         }
         for var in cfg.variance.variances:
             result[f"variances_{var}"] = adaptor_out[f"variances_{var}"]
+
+        # FastDiff residual mel head (reference fastspeech2.py:390-402,
+        # 733-736), on the regulated variance embeddings plus the speaker
+        # frames; gated on a speaker embedding as in the JAX package
+        head = getattr(self, "fastdiff_linear", None)
+        if head is not None and spk_frames is not None:
+            out_val = adaptor_out["out"]
+            if out_val is None:
+                out_val = torch.zeros_like(spk_frames)
+            h = linear(out_val + spk_frames, head[0], dt)
+            result["fastdiff_var"] = linear(h, head[1], dt) * 0.1
         return result
 
 
@@ -174,11 +195,12 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) 
 def build_fastspeech2(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                       device: DeviceLike = None, seed: int = 0,
                       state_dict: Optional[Dict[str, Union[torch.Tensor, Any]]] = None,
-                      stats: StatsTree = (), prior_stats: StatsTree = ()) -> FastSpeech2:
+                      stats: StatsTree = (), prior_stats: StatsTree = (),
+                      use_fastdiff_head: bool = False) -> FastSpeech2:
     """A model at ``cfg`` with seeded weights, or with ``state_dict`` loaded
     (e.g. from ``utils.convert.from_jax_fastspeech2``), in eval mode."""
     model = FastSpeech2(cfg, stats, prior_stats, dtype, device,
-                        torch.Generator().manual_seed(seed))
+                        torch.Generator().manual_seed(seed), use_fastdiff_head)
     if state_dict is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
     return model.eval()

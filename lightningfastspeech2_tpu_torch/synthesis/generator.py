@@ -1,8 +1,9 @@
 """End-to-end speech generation: text -> waveform.
 
 Counterpart of ``lightningfastspeech2_tpu/synthesis/generator.py``: G2P ->
-phone ids -> speaker (and prior) pick -> acoustic model -> HiFi-GAN ->
-post-processing.
+phone ids -> speaker (and prior) pick -> acoustic model -> vocoder (HiFi-GAN,
+or FastDiff through ``FastDiffSynthesiser``) -> post-processing. A model with
+the FastDiff residual head vocodes mel + ``fastdiff_var``.
 
 Serving runs two bucketing passes, as in the JAX package (where both are on
 by default; here they are the only path):
@@ -16,15 +17,19 @@ by default; here they are the only path):
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import replace
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lightningfastspeech2_tpu_torch.core import config as C
 from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer, pad_to
+from lightningfastspeech2_tpu_torch.core.device import DeviceLike
 from lightningfastspeech2_tpu_torch.data.vocab import Vocab
+from lightningfastspeech2_tpu_torch.models.joint import make_fastdiff_config
 from lightningfastspeech2_tpu_torch.synthesis.g2p import G2P
+from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffVocoder
 
 _log = logging.getLogger(__name__)
 
@@ -152,7 +157,12 @@ class SpeechGenerator:
 
     def generate_samples(self, batch: Dict[str, np.ndarray]) -> List[np.ndarray]:
         result = self.infer(batch)
-        mels = result["mel"].float().cpu().numpy()
+        mel = result["mel"]
+        if "fastdiff_var" in result:
+            # the residual head's x0.1 correction (reference
+            # fastspeech2.py:733-736)
+            mel = mel + result["fastdiff_var"]
+        mels = mel.float().cpu().numpy()
         mask = result["frame_mask"].cpu().numpy()
         hop = self.cfg.model.audio.hop_length
         audios = []
@@ -169,6 +179,43 @@ class SpeechGenerator:
                 wav = self.postprocess(wav, self.sampling_rate)
             audios.append(wav)
         return audios
+
+
+class FastDiffSynthesiser:
+    """The FastDiff vocoder as a synthesiser: mel (T, 80) as numpy ->
+    waveform scaled by 32768 (the HiFi-GAN Synthesiser's int16 contract),
+    float32 numpy (T * hop,). One item per call, ``fastdiff_inference_steps``
+    reverse steps, bf16 for ``vocoder_precision`` 16, the Padé gate with
+    ``fast_gating`` (generate's ``--vocoder_fast_gating``). Counterpart of the
+    synthesiser ``lightningfastspeech2_tpu/cli/generate.py`` builds for
+    ``--use_fastdiff``.
+
+    The noise of each call is drawn from a generator seeded 0 on the
+    vocoder's device, or comes from ``noise_source(shape, N)`` -> (x_T,
+    noises) where given."""
+
+    def __init__(self, model_cfg: C.ModelConfig,
+                 state_dict: Optional[Dict[str, object]] = None,
+                 vocoder_precision: int = 32, fast_gating: bool = False,
+                 device: DeviceLike = None, seed: int = 0,
+                 noise_source: Optional[Callable[[Sequence[int], int],
+                                                 Tuple[Any, Any]]] = None):
+        fd_cfg = make_fastdiff_config(model_cfg)
+        if fast_gating:
+            fd_cfg = replace(fd_cfg, fast_gating=True)
+        dtype = torch.bfloat16 if vocoder_precision == 16 else torch.float32
+        self.vocoder = FastDiffVocoder(fd_cfg, state_dict, dtype, device, seed)
+        self.n_steps = model_cfg.fastdiff_inference_steps
+        self.noise_source = noise_source
+
+    def __call__(self, mel) -> np.ndarray:
+        m = np.asarray(mel, np.float32)[None]
+        noise = {}
+        if self.noise_source is not None:
+            shape = (1, m.shape[1] * self.vocoder.cfg.hop_length)
+            noise = dict(zip(("x_T", "noises"), self.noise_source(shape, self.n_steps)))
+        wav = self.vocoder.inference(m, N=self.n_steps, **noise)
+        return (wav[0].float() * 32768.0).cpu().numpy()
 
 
 class PostProcessChain:

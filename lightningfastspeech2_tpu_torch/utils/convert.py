@@ -1,7 +1,8 @@
 """JAX-package parameter trees -> the port's state dicts.
 
 The inverse of ``lightningfastspeech2_tpu/utils/torch_convert.py``
-(``convert_fastspeech2_state_dict``) and of
+(``convert_fastspeech2_state_dict`` and ``convert_fastdiff_state_dict``)
+and of
 ``lightningfastspeech2_tpu/vocoder/hifigan.py`` (``convert_torch_state_dict``):
 the input is the JAX package's parameter tree as nested dicts of numpy
 arrays (with or without the top-level ``"params"`` key), the output a
@@ -23,6 +24,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 
 from lightningfastspeech2_tpu_torch.core.config import ModelConfig
+from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffConfig
 from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig
 
 State = Dict[str, np.ndarray]
@@ -109,6 +111,9 @@ def from_jax_fastspeech2(params: Mapping[str, Any], cfg: ModelConfig) -> State:
         out[f"{p}.embedding.weight"] = np.asarray(enc["embedding"]["embedding"])
         if cfg.variance.transforms[i] == "cwt":
             _linear(out, f"{p}.mean_std_linear", enc["mean_std_linear"])
+    if "fastdiff_linear1" in t:
+        _linear(out, "fastdiff_linear.0", t["fastdiff_linear1"])
+        _linear(out, "fastdiff_linear.1", t["fastdiff_linear2"])
     return out
 
 
@@ -129,4 +134,41 @@ def from_jax_hifigan(params: Mapping[str, Any],
         for j in range(len(cfg.resblock_dilation_sizes[rb % n_k])):
             for branch in ("convs1", "convs2"):
                 _conv(out, f"resblocks.{rb}.{branch}.{j}", block[f"{branch}_{j}"])
+    return out
+
+
+# the convs of KernelPredictor.residual_conv at the reference's Sequential
+# indices (Dropout and LeakyReLU between them)
+FASTDIFF_RESIDUAL_CONV_INDICES = (1, 3, 6, 8, 11, 13)
+
+
+def from_jax_fastdiff(params: Mapping[str, Any],
+                      cfg: FastDiffConfig = FastDiffConfig()) -> State:
+    """The JAX ``FastDiff`` tree -> the port's ``FastDiff`` state dict (the
+    reference torch names, weight norm folded)."""
+    t = _tree(params)
+    out: State = {}
+    _conv(out, "first_audio_conv", t["first_audio_conv"])
+    _conv(out, "final_conv.0", t["final_conv"])
+    _linear(out, "fc_t1", t["fc_t1"])
+    _linear(out, "fc_t2", t["fc_t2"])
+    n_blocks = len(cfg.upsample_ratios)
+    for i in range(n_blocks):
+        db = t[f"downsample_{i}"]
+        _conv(out, f"downsample.{i}.residual_dense", db["residual_dense"])
+        for j in range(3):
+            _conv(out, f"downsample.{i}.conv.{j}", db[f"conv_{j}"])
+    for n in range(n_blocks):
+        p, blk = f"lvc_blocks.{n}", t[f"lvc_blocks_{n}"]
+        kp = blk["kernel_predictor"]
+        _conv(out, f"{p}.kernel_predictor.input_conv.0", kp["input_conv"])
+        for k, idx in enumerate(FASTDIFF_RESIDUAL_CONV_INDICES):
+            _conv(out, f"{p}.kernel_predictor.residual_conv.{idx}", kp[f"residual_conv_{k}"])
+        _conv(out, f"{p}.kernel_predictor.kernel_conv", kp["kernel_conv"])
+        _conv(out, f"{p}.kernel_predictor.bias_conv", kp["bias_conv"])
+        _linear(out, f"{p}.fc_t", blk["fc_t"])
+        out[f"{p}.upsample.weight"] = np.transpose(np.asarray(blk["upsample"]["kernel"]), (1, 2, 0))
+        out[f"{p}.upsample.bias"] = np.asarray(blk["upsample"]["bias"])
+        for j in range(cfg.lvc_layers_each_block):
+            _conv(out, f"{p}.convs.{j}", blk[f"conv_{j}"])
     return out

@@ -53,6 +53,9 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.train import losses, optim, step\n"
         "from lightningfastspeech2_tpu_torch.ops import attention, dropout, ffn\n"
         "from lightningfastspeech2_tpu_torch.ops import length_regulator, soft_dtw\n"
+        "from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc\n"
+        "from lightningfastspeech2_tpu_torch.vocoder import diffusion, fastdiff\n"
+        "from lightningfastspeech2_tpu_torch.models import joint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'lightningfastspeech2_tpu')]\n"
         "assert not bad, bad\n"
@@ -65,6 +68,7 @@ def test_import_leaves_jax_out():
 
 def test_default_device_raises_without_cuda():
     from lightningfastspeech2_tpu_torch.core.device import resolve_device
+    from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffVocoder
     from lightningfastspeech2_tpu_torch.vocoder.hifigan import Synthesiser
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -74,3 +78,5 @@ def test_default_device_raises_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Synthesiser()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FastDiffVocoder()

@@ -2,7 +2,8 @@
 card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
 training kernels ``ffn_ln_train`` and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd), ``soft_dtw``
-(value and dD) and the length regulator's expand and segment-sum. Marked
+(value and dD), the length regulator's expand and segment-sum, and the
+FastDiff LVC chain ``lvc_stack`` (with the launches of one ε pass). Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
 imports neither JAX nor the JAX package, so it runs where JAX is absent:
 
@@ -17,6 +18,7 @@ import torch
 from lightningfastspeech2_tpu_torch.core import config as TC
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2, make_dummy_batch
 from lightningfastspeech2_tpu_torch.ops import attention as tatt
+from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc as tlvc
 from lightningfastspeech2_tpu_torch.ops import ffn as tffn
 from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as trb
 from lightningfastspeech2_tpu_torch.ops import length_regulator as tlr
@@ -25,6 +27,7 @@ from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 from lightningfastspeech2_tpu_torch.ops.probe import probe
 from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+from lightningfastspeech2_tpu_torch.vocoder import fastdiff as tfd
 from torch_port_helpers import (  # noqa: F401
     cuda_card,
     ffn_modules,
@@ -410,3 +413,71 @@ def test_regulate_takes_the_kernel_only_when_opted_in(cuda_card, monkeypatch):
     torch.cuda.synchronize()
     assert tlr.regulate.launches == n + 1
     assert torch.equal(a, tlr.regulate_plain(x, d, 512)[0])
+
+
+def _lvc_inputs(device, B, nL, hop, dtype, seed, layers=4, C=32):
+    """The JAX kernel tests' draws: x, audio_down, per-frame kernels (x0.2),
+    biases (x0.1, f32), conv taps (x0.1) and conv biases (f32)."""
+    g = torch.Generator().manual_seed(seed)
+    L = nL * hop
+    x, ad = torch.randn(B, L, C, generator=g), torch.randn(B, L, C, generator=g)
+    k = torch.randn(B, nL, layers, C, 2 * C, 3, generator=g) * 0.2
+    b = torch.randn(B, nL, layers, 2 * C, generator=g) * 0.1
+    cw = torch.randn(layers, 3, C, C, generator=g) * 0.1
+    cb = torch.randn(layers, C, generator=g) * 0.1
+    return ([t.to(device, dtype) for t in (x, ad, k)] + [b.to(device)]
+            + [cw.to(device, dtype), cb.to(device)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hop,nL", [(8, 25), (64, 7), (256, 5), (256, 80), (6, 9)])
+def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast):
+    # (8, 25): stage 1, tail tile; (256, 80): 256-row tiles; (6, 9): a hop
+    # that is not a multiple of 4 (one row a chunk), one partial tile
+    args = _lvc_inputs(cuda_card, 2, nL, hop, dtype, seed=hop + nL)
+    n = tlvc.lvc_stack.launches
+    out = tlvc.lvc_stack(*args, hop, fast_gating=fast)
+    torch.cuda.synchronize()
+    assert tlvc.lvc_stack.launches == n + 1 and out.dtype == dtype
+    ref = tlvc.lvc_stack_plain(*args, hop, fast_gating=fast).float()
+    if dtype == torch.float32:   # summation order only
+        err = (out - ref).abs().max().item()
+        top = ref.abs().max().item()
+        assert err <= 2e-4 * (1 + top), (err, top)
+    else:
+        # both round at the same places: a few one-ulp flips, carried down
+        # the residual chain, held per value
+        ulps, share = tlvc.bf16_chain_error(out, ref, args[0], args[1], args[2].shape[2])
+        assert ulps <= tlvc.BF16_MAX_ULPS and share <= tlvc.BF16_MAX_UNEQUAL, (ulps, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt_in", [False, True])
+def test_fastdiff_pass_launches_and_matches_cpu(cuda_card, monkeypatch, opt_in):
+    # one f32 ε pass at the reference widths and 16 frames: stages 2 and 3
+    # on the kernel, stage 1 too under the opt-in; the card's output against
+    # the CPU's plain path
+    if opt_in:
+        monkeypatch.setenv("LFS2_FUSED_STAGE1", "1")
+    else:
+        monkeypatch.delenv("LFS2_FUSED_STAGE1", raising=False)
+    cfg = tfd.FastDiffConfig()
+    model = tfd.FastDiff(cfg)
+    tfd.init_fastdiff_weights(model, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16 * cfg.hop_length, generator=g)
+    c = torch.randn(2, 16, cfg.cond_channels, generator=g)
+    ts = torch.tensor([3.25, 77.5])
+    with torch.no_grad():
+        ref = model(x, c, ts)
+        model.to(cuda_card)
+        n = tlvc.lvc_stack.launches
+        out = model(x.to(cuda_card), c.to(cuda_card), ts.to(cuda_card))
+        torch.cuda.synchronize()
+    assert tlvc.lvc_stack.launches == n + (3 if opt_in else 2)
+    top = ref.abs().max().item()
+    assert torch.isfinite(out).all() and top > 0
+    # f32 on both sides, TF32 off: summation order only, through the network
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3 * top

@@ -25,18 +25,24 @@ Phases, each printed as one JSON line:
 7. train kernels: ``ffn_ln_train`` (forward and backward) at every FFN
    block's shape of the training step, the widest encoder block and the
    first decoder block also held against the plain version's output and
-   gradients; ``flash_attention`` (forward and backward) at the decoder's
-   shape against the plain version, with ``F.scaled_dot_product_attention``
-   (same mask and dropout_p) timed as the library yardstick.
+   gradients; ``flash_attention`` (forward and backward) against the plain
+   version, with ``F.scaled_dot_product_attention`` (same mask and
+   dropout_p) timed as the library yardstick: bf16 at the decoder's shape
+   (the wgmma kernels of ``csrc/flash_attention_sm90.cu``), f32 at phase
+   9's shape (the CUDA-core kernels of ``csrc/flash_attention.cu``), each
+   with its build seconds and the launches by route it made.
 8. training (this slice's main path): the flagship in bf16 with f32
    parameters takes 1 warm-up and 5 timed optimizer steps on B=8, P=256,
    T=2048 teacher-forced batches at the config dropout rates. Every loss
    must be finite, every parameter must get a finite non-zero gradient,
    and the launch counters, set to 0 just before, must equal 8 / 8 / 4 / 4
-   per step. One more step runs under torch.profiler for the time split.
+   per step, every flash launch through the wgmma kernels. One more step
+   runs under torch.profiler for the time split, with flash attention's
+   share of the kernel time.
 9. train reference: one f32 step on the card against the same step on the
    CPU's plain path (flagship widths, B=2, T=1024, dropout rates 0,
-   warm-up 1 so the first update is visible).
+   warm-up 1 so the first update is visible), its flash launches through
+   the CUDA-core kernels.
 10. soft-DTW kernels: ``soft_dtw`` (forward and backward) at the mel loss's
     lattices (8 items x 8 chunks of 256 frames, D from 80 mel channels,
     gamma 0.1) against the plain recurrence's value and autograd gradient;
@@ -446,8 +452,7 @@ def serving_phase(counters) -> dict:
     # set-up, not the main path: the duration bias from the same seeded
     # weights through the plain path on the CPU, so it launches no kernel
     _, bias = _make_generator(cfg, torch.float32, "cpu", dvecs, BATCH_TEXTS, None)
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, bias)
     emit({"phase": "serving_setup", "seconds": time.perf_counter() - t0,
@@ -613,39 +618,60 @@ def _ffn_train_case(dev, B, T, k, g, plain: bool) -> dict:
     return {"fwd": row_f, "bwd": row_b}
 
 
-def _flash_case(dev, g) -> dict:
-    """flash_attention forward and backward at the decoder's shape (bf16,
-    rate 0.1) against the plain version, with SDPA as the library yardstick."""
+def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) -> dict:
+    """flash_attention forward and backward against the plain version, with
+    SDPA (same mask and dropout_p) timed as the library yardstick: bf16 at
+    the decoder's shape (the wgmma kernels of flash_attention_sm90.cu), f32
+    at phase 9's (the CUDA-core kernels of flash_attention.cu)."""
     import torch.nn.functional as F
+    from lightningfastspeech2_tpu_torch.kernels import build
     from lightningfastspeech2_tpu_torch.ops import attention as att
 
-    B, H, T, d, rate, dtype = TRAIN_B, 2, TRAIN_T, 128, 0.1, torch.bfloat16
+    H, d = 2, 128
     q, k, v, do = (torch.randn(B, H, T, d, generator=g).to(dev, dtype) for _ in range(4))
     lengths = torch.tensor([T - 97 * i for i in range(B)], device=dev)
     mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
     mask_i32 = mask.to(torch.int32)
     seed = torch.tensor([99], dtype=torch.int32, device=dev)
-    at = f"q/k/v ({B}, {H}, {T}, {d}) bf16, ragged key mask, rate={rate}"
+    name = str(dtype)[6:]
+    at = f"q/k/v ({B}, {H}, {T}, {d}) {name}, ragged key mask, rate={rate}"
+    route = att.kernel_route(q, k, v)
+    fns = (att.flash_attention, att.flash_attention_bwd)
+    before = [dict(fn.by_route) for fn in fns]
     qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = att.flash_attention(*qkv, mask, rate, seed)
     grads = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    routed = [{r: fn.by_route[r] - n for r, n in b.items()} for fn, b in zip(fns, before)]
     pq = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref = att.flash_attention_plain(*pq, mask, rate, seed)
     ref_grads = torch.autograd.grad(ref, pq, do, retain_graph=True)
     torch.cuda.synchronize()
     # bf16 in and out; the kernel rounds p against the running max, the
-    # plain version the normalised p: 2 % of the largest element
-    errs = {n: ((a.float() - b.float()).abs().max().item(), 0.02 * b.float().abs().max().item())
+    # plain version the normalised p: 2 % of the largest element; f32:
+    # summation order only, 1e-4 of the largest element
+    frac = 0.02 if dtype == torch.bfloat16 else 1e-4
+    errs = {n: ((a.float() - b.float()).abs().max().item(), frac * b.float().abs().max().item())
             for n, a, b in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads))}
-    o, lse = att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)
-    row_f = {"name": "flash_attention", "at": at, "max_abs_err": errs["o"][0], "tol": errs["o"][1],
+    o, lse, o32 = att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)
+    suffix = "" if dtype == torch.bfloat16 else "_f32"
+    common = {"at": at, "route": route, "build_s": build.build_report[route]["seconds"]}
+    row_f = {"name": "flash_attention" + suffix, **common, "max_abs_err": errs["o"][0],
+             "tol": errs["o"][1],
              "ms": cuda_ms(lambda: att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)),
              "plain_ms": cuda_ms(lambda: att.flash_attention_plain(q, k, v, mask, rate, seed))}
-    row_b = {"name": "flash_attention_bwd", "at": at,
+    row_b = {"name": "flash_attention_bwd" + suffix, **common,
              "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "grad_errs": errs,
-             "tol": "2 % of each gradient's largest element",
-             "ms": cuda_ms(lambda: att.flash_attention_bwd(do, q, k, v, mask_i32, seed, o, lse, rate)),
+             "tol": f"{frac:g} of each gradient's largest element",
+             "ms": cuda_ms(lambda: att.flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse,
+                                                           rate)),
              "plain_ms": cuda_ms_grad(ref, pq, do)}
+    if rate > 0.0:
+        # the same kernels without dropout: what the keep hash costs
+        _, lse0, o320 = att.flash_attention_fwd(q, k, v, mask_i32, seed, 0.0)
+        row_f["ms_rate0"] = cuda_ms(lambda: att.flash_attention_fwd(q, k, v, mask_i32, seed, 0.0))
+        row_b["ms_rate0"] = cuda_ms(lambda: att.flash_attention_bwd(do, q, k, v, mask_i32, seed,
+                                                                    o320, lse0, 0.0))
     # the library call: SDPA with the same boolean key mask and dropout_p
     am = mask[:, None, None, :]
     row_f["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -660,16 +686,22 @@ def _flash_case(dev, g) -> dict:
                             xs, do)
     row_b["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
     nb = tensor_bytes(q, k, v)
-    row_f["bound_ms"], row_f["bound_by"] = bound_ms(4 * B * H * T * T * d,
-                                                    nb + tensor_bytes(out), dtype)
-    # recompute S, then dP, dV, dQ, dK: five T x T x d products
-    row_b["bound_ms"], row_b["bound_by"] = bound_ms(10 * B * H * T * T * d,
-                                                    2 * nb + 2 * tensor_bytes(out), dtype)
+    outs = tensor_bytes(o, lse) + (tensor_bytes(o32) if o32 is not o else 0)
+    unit = B * H * T * T * d
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(4 * unit, nb + outs, dtype)
+    # the split backward's seven T x T x d products: S and dP in both passes,
+    # then dQ, dV, dK; a fused backward needs five (S, dP, dV, dQ, dK)
+    bwd_bytes = 2 * nb + tensor_bytes(do, o32, lse)
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(14 * unit, bwd_bytes, dtype)
+    row_b["fused_bound_ms"] = bound_ms(10 * unit, bwd_bytes, dtype)[0]
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
     bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
     if bad:
         raise RuntimeError(f"flash_attention at {at}: off {bad}")
+    want = [{r: int(r == route) for r in b} for b in before]
+    if routed != want:
+        raise RuntimeError(f"flash_attention at {at}: launches by route {routed}, expected {want}")
     return {"fwd": row_f, "bwd": row_b}
 
 
@@ -677,12 +709,14 @@ def train_kernels_phase(dev) -> dict:
     """The training kernels at the step's shapes: every FFN block of the
     flagship (encoder at P = 256, decoder at T = 2048) timed, the widest
     encoder and the first decoder kernel also held against the plain
-    version; flash attention at the decoder's shape."""
+    version; flash attention at the decoder's shape in bf16 and at phase 9's
+    in f32."""
     g = torch.Generator().manual_seed(1)
     enc_k, dec_k = (5, 25, 13, 9), (17, 21, 9, 13)
     ffn = ([_ffn_train_case(dev, TRAIN_B, TRAIN_P, k, g, plain=(k == 25)) for k in enc_k]
            + [_ffn_train_case(dev, TRAIN_B, TRAIN_T, k, g, plain=(k == 17)) for k in dec_k])
-    return {"ffn": ffn, "flash": _flash_case(dev, g)}
+    return {"ffn": ffn, "flash": _flash_case(dev, g),
+            "flash_f32": _flash_case(dev, g, torch.float32, B=2, T=1024, rate=0.0)}
 
 
 def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
@@ -690,7 +724,8 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
     key_averages, kernel names matched as whole words); zeros when the
     profiler saw no device time."""
     fam = {"ffn_ln_train": "ffn_ln_kernel", "ffn_ln_train_bwd": "ffn_bwd_kernel",
-           "flash_attention": "fwd_kernel", "flash_attention_bwd": ("dq_kernel", "dkv_kernel"),
+           "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
+           "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
            "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
            "lvc_stack": "lvc_stack_kernel"}
@@ -723,6 +758,19 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
         "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
     return {"device_ms": total / 1e3, "device_launches": sum(c for _, _, c in rows),
             **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
+
+
+def reset_counts(counters) -> None:
+    """Every launch count to 0, and the flash kernels' counts by route."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "by_route"):
+            c.by_route = dict.fromkeys(c.by_route, 0)
+
+
+def flash_routes(counters) -> dict:
+    """The flash kernels' launches by library (csrc/<name>.cu)."""
+    return {c.__name__: dict(c.by_route) for c in counters if hasattr(c, "by_route")}
 
 
 def soft_dtw_launches_per_step(cfg) -> int:
@@ -775,8 +823,7 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
     cfg = train_config(mel_loss="soft_dtw" if soft_dtw else "l1")
     batch = train_batch(cfg)
     n_steps = 4 if soft_dtw else 6
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     model = build_fastspeech2(cfg.model, dtype=torch.bfloat16, seed=0)
     state = create_train_state(model, cfg)
@@ -794,6 +841,7 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
         metrics.append({k: float(v) for k, v in m.items()})
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    routes = flash_routes(counters)
     # every parameter's gradient of the last step: finite and not all zero
     # (a kernel detached from autograd would leave zeros)
     bad = [n for n, p in model.named_parameters()
@@ -816,12 +864,17 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
            "frames_per_s": TRAIN_B * TRAIN_T / (sum(timed) / len(timed) / 1e3),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "first_losses": metrics[0], "last_losses": metrics[-1], "finite": finite,
-           "params_without_grad": bad, "launches": launches, "expected": want}
+           "params_without_grad": bad, "launches": launches, "expected": want,
+           "flash_routes": routes}
     emit(row)
     if not finite or bad:
         raise RuntimeError(f"{name}: finite={finite}, params without gradient {bad[:8]}")
     if launches != want:
         raise RuntimeError(f"{name}-path launches {launches}, expected {want}")
+    # the bf16 step's attention went through the wgmma kernels alone
+    want_routes = {k: {"flash_attention_sm90": want[k], "flash_attention": 0} for k in routes}
+    if routes != want_routes:
+        raise RuntimeError(f"{name}: flash launches by route {routes}, expected {want_routes}")
     # one more step under the profiler (outside the counted run): where the
     # step's device time goes
     from torch.profiler import ProfilerActivity, profile
@@ -830,7 +883,9 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
     split = _step_split(prof, f"{name}_profile.txt")
-    emit({"phase": f"{name}_profile", **split})
+    flash_ms = split["flash_attention_ms"] + split["flash_attention_bwd_ms"]
+    emit({"phase": f"{name}_profile", **split, "flash_share_ms": flash_ms,
+          "flash_share": flash_ms / split["device_ms"] if split["device_ms"] else None})
 
     def one_step() -> float:
         """One more step (outside the counted run), its host-clock ms."""
@@ -861,7 +916,10 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
     # make it 2.5e-8, below the f32 resolution of the parameters)
     cfg = replace(cfg, train=replace(cfg.train, warmup_steps=1))
     batch = train_batch(cfg, shape)
+    from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
     res = {}
+    reset_counts((flash_attention, flash_attention_bwd))
     for dev in ("cuda", "cpu"):
         model = build_fastspeech2(cfg.model, dtype=torch.float32, device=dev, seed=0)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -891,8 +949,16 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
                                f"{cfg.train.mel_loss}",
            "loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": gmax,
            "update_max_abs_err": upd_err, "update_max": lr, "tol": tol,
-           "losses_cuda": a["losses"], "losses_cpu": b["losses"]}
+           "losses_cuda": a["losses"], "losses_cpu": b["losses"],
+           "flash_routes": flash_routes((flash_attention, flash_attention_bwd))}
     emit(row)
+    # the f32 step's attention went through the CUDA-core kernels alone
+    n_dec = cfg.model.decoder.layers
+    want_routes = {k: {"flash_attention_sm90": 0, "flash_attention": n_dec}
+                   for k in ("flash_attention", "flash_attention_bwd")}
+    if row["flash_routes"] != want_routes:
+        raise RuntimeError(f"{name}: flash launches by route {row['flash_routes']}, "
+                           f"expected {want_routes}")
     if not (loss_err <= tol["loss_rel"] and grad_err <= tol["grad_abs"]
             and upd_err <= tol["update_abs"]):
         raise RuntimeError(f"train step card vs CPU: {row}")
@@ -1089,8 +1155,7 @@ def fastdiff_serving_phase(counters, served) -> dict:
     cfg = served["cfg"]
     cfg = replace(cfg, model=replace(cfg.model, fastdiff_vocoder=True))
     dvecs = served["dvecs"]
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, served["bias"],
                              fastdiff=True)
@@ -1215,7 +1280,7 @@ def main() -> int:
     reference_phase(served)
     train_rows = train_kernels_phase(dev)
     trained = training_phase(counters)
-    train_reference_phase()
+    train_ref = train_reference_phase()
     sdtw_rows = sdtw_kernels_phase(dev)
     with env_opt_in("LFS2_PALLAS_LR"):
         sdtw_trained = training_phase(counters, soft_dtw=True)
@@ -1273,14 +1338,20 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "at": r["at"], "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
             "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"])})
-    for part, rep in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
-        r = train_rows["flash"][part]
-        kernels.append({
-            "name": r["name"], "route": "cuda", "source": f"{pkg}/flash_attention.cu",
-            "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": nt[r["name"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "at": r["at"], **({"library_fwd_bwd_ms": r["library_fwd_bwd_ms"]} if part == "bwd" else {})})
+    # flash attention: the bf16 wgmma kernels (the training path's), then the
+    # f32 CUDA-core kernels at phase 9's shape with that phase's launches
+    for key, launches in (("flash", nt), ("flash_f32", train_ref["flash_routes"])):
+        for part, rep in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
+            r = train_rows[key][part]
+            counter = "flash_attention" + ("_bwd" if part == "bwd" else "")
+            n = (launches[counter] if key == "flash" else launches[counter][r["route"]])
+            kernels.append({
+                "name": r["name"], "route": "cuda", "source": f"{pkg}/{r['route']}.cu",
+                "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": n,
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "at", "build_s")},
+                **{k: r[k] for k in ("library_fwd_bwd_ms", "fused_bound_ms", "ms_rate0")
+                   if k in r}})
     ns = sdtw_trained["row"]["launches"]
     for key, src, reps in (("soft_dtw", "soft_dtw.cu", ("pallas_soft_dtw.py:81", "pallas_soft_dtw.py:112")),
                            ("regulate", "length_regulator.cu",

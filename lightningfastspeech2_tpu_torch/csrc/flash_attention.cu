@@ -1,39 +1,41 @@
-// flash_attention: softmax(q k^T / sqrt(d)) v with a key-padding mask and
-// hashed dropout on the probabilities, forward and backward.
+// flash_attention, f32 route: softmax(q k^T / sqrt(d)) v with a key-padding
+// mask and hashed dropout on the probabilities, forward and backward, on the
+// CUDA cores. bf16 inputs take flash_attention_sm90.cu (wgmma); this route
+// exists for f32, which the tensor cores have no product for (TF32 keeps
+// about three digits).
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_attention.py _fwd_kernel and
 // _bwd_kernel (flash_attention, joined by a custom VJP there and by an
-// autograd Function here). q, k, v, o, do are (B, H, T, 128) in f32 or
-// bf16; mask is (B, T) int32, nonzero = valid key. Padded queries are not
-// masked (torch key_padding_mask semantics); a padded key's score is
-// -1e30, as there.
+// autograd Function here). q, k, v, o, do are (B, H, T, 128) f32; mask is
+// (B, T) int32, nonzero = valid key. Padded queries are not masked (torch
+// key_padding_mask semantics); a padded key's score is -1e30, as there. An
+// item with no valid key scores every key 0 instead: the same uniform
+// softmax the JAX kernel gives, with a log-sum-exp the backward can use. A
+// padded key's score is a constant, so its dS is 0 (the function's gradient
+// and the plain version's).
 //
 // Forward. The TPU kept all of K/V in VMEM and took one softmax pass per
 // row; a Hopper block's shared memory does not hold them, so each block
 // owns 64 query rows and walks K/V in 64-row tiles with an online softmax.
-// The running denominator sums the UNDROPPED p; only the kept p (rounded to
-// the working dtype, as the TPU rounds p before P.V) enters the f32
-// accumulator, and the output is acc / (denom * (1 - rate)), as at
+// The running denominator sums the UNDROPPED p; only the kept p enters the
+// f32 accumulator, and the output is acc / (denom * (1 - rate)), as at
 // pallas_attention.py:124. The f32 log-sum-exp m + log(denom) per row is
 // saved for the backward.
 //
-// Backward: the split the TPU compiler could not build. A dQ pass (one
-// block per 64 query rows, keys walked in tiles) first forms
-// D_i = rowsum(dO o O), which equals sum_j p_ij dp_ij with dropout too, and
-// a K-major pass (one block per 64 keys, queries walked in tiles) forms dK
-// and dV. Both recompute P from the saved log-sum-exp and the dropout mask
-// from the hash; neither needs atomics, and dK/dV accumulate in f32
-// registers (the TPU accumulated them across query tiles in bf16).
+// Backward: a dQ pass (one block per 64 query rows, keys walked in tiles)
+// first forms D_i = rowsum(dO o O), which equals sum_j p_ij dp_ij with
+// dropout too, and a K-major pass (one block per 64 keys, queries walked in
+// tiles) forms dK and dV. Both recompute P from the saved log-sum-exp and
+// the dropout mask from the hash; neither needs atomics.
 //
 // Dropout: keep(query row r, key c) hashes the GLOBAL coordinates with
 // seed_bh = seed + b * H + h (lfs2::attn_keep, bit for bit
 // pallas_attention.py _dropout_keep), so every tiling agrees.
 //
 // What bounds it on an H100: operations (4 T^2 d per (b, h) forward, about
-// 2.5x that backward) once the scores stay on chip, as they do here. The
-// products are plain f32 FMAs on the CUDA cores over 4x4 / 4x8 register
-// tiles fed from shared memory (simple first); tensor cores (wgmma) and a
-// TMA pipeline are the next step.
+// 2.5x that backward) at the 67 TFLOP/s of f32 without tensor cores. The
+// products are plain f32 FMAs over 4x4 / 4x8 register tiles fed from
+// shared memory.
 #include "common.cuh"
 
 namespace {
@@ -138,6 +140,14 @@ __device__ __forceinline__ unsigned seed_bh(const Params& p, int b, int h) {
   return static_cast<unsigned>(*p.seed) + static_cast<unsigned>(b * p.H + h);
 }
 
+// the score of a padded key: -1e30, or 0 when the item has no valid key
+// (every thread of the block calls it)
+__device__ __forceinline__ float masked_score(const Params& p, int b) {
+  int any = 0;
+  for (int i = threadIdx.x; i < p.T; i += kThreads) any |= p.mask[static_cast<size_t>(b) * p.T + i];
+  return __syncthreads_or(any) ? kNeg : 0.0f;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -155,6 +165,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
   const T* v = static_cast<const T*>(p.v) + base;
   const unsigned sbh = seed_bh(p, b, h);
   const bool drop = p.threshold != 0u;
+  const float mval = masked_score(p, b);
 
   load_rows_t(q, q0, Qt);
   float m[4], l[4], o[4][8];
@@ -178,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = mk[tx * 4 + j] ? s[i][j] * p.scale : kNeg;
+        s[i][j] = mk[tx * 4 + j] ? s[i][j] * p.scale : mval;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max16(mx));
@@ -236,6 +247,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + base;
   const unsigned sbh = seed_bh(p, b, h);
   const bool drop = p.threshold != 0u;
+  const float mval = masked_score(p, b);
 
   load_rows_t(q, q0, Qt);
   load_rows_t(dout, q0, dOt);
@@ -267,11 +279,11 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, c = tx * 4 + j;
-        const float sv = mk[c] ? s[i][j] * p.scale : kNeg;
+        const float sv = mk[c] ? s[i][j] * p.scale : mval;
         const float pv = __expf(sv - lse[r]);
         float dpv = dp[i][j];
         if (drop) dpv = lfs2::attn_keep(q0 + r, k0 + c, sbh, p.threshold) ? dpv * p.inv_keep : 0.0f;
-        dSt[c * LDT + r] = lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale);
+        dSt[c * LDT + r] = mk[c] ? lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale) : 0.0f;
       }
     __syncthreads();
     mm_pv(dSt, Ks, dq, ty, tx);
@@ -308,6 +320,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + base;
   const unsigned sbh = seed_bh(p, b, h);
   const bool drop = p.threshold != 0u;
+  const float mval = masked_score(p, b);
 
   load_rows_t(k, k0, Kt);
   load_rows_t(v, k0, Vt);
@@ -333,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = ty * 4 + i, r = tx * 4 + j;
-        const float sv = mk[c] ? s[i][j] * p.scale : kNeg;
+        const float sv = mk[c] ? s[i][j] * p.scale : mval;
         const float pv = __expf(sv - lse[r]);
         float pd = pv, dpv = dp[i][j];
         if (drop) {
@@ -342,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
           dpv = keep ? dpv * p.inv_keep : 0.0f;
         }
         buf[r * LDT + c] = lfs2::round_to<T>(pd);
-        ds[i][j] = lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale);
+        ds[i][j] = mk[c] ? lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale) : 0.0f;
       }
     __syncthreads();
     mm_pv(buf, dOs, dv, ty, tx);   // dV[c] += sum_r P_drop[r][c] dO[r]
@@ -386,19 +399,17 @@ bool shape_ok(int B, int H, int T_len, int d) {
 
 LFS2_DEFINE_ERROR_STRING
 
-// o and lse (B, H, T) f32 are written; seed is one int32 on the device
+// f32 q, k, v; o and lse (B, H, T) f32 are written; seed is one int32 on the
+// device
 LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          const int* mask, const int* seed, void* o, float* lse,
                                          int B, int H, int T_len, int d, float scale,
-                                         unsigned threshold, float inv_keep, int dtype,
-                                         void* stream) {
+                                         unsigned threshold, float inv_keep, void* stream) {
   if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, mask, seed, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
            H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == lfs2::kBF16 ? run(fwd_kernel<__nv_bfloat16>, kFwdSmem, p, B, s)
-                                               : run(fwd_kernel<float>, kFwdSmem, p, B, s);
-  return static_cast<int>(err);
+  return static_cast<int>(run(fwd_kernel<float>, kFwdSmem, p, B, s));
 }
 
 // the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
@@ -408,15 +419,12 @@ LFS2_EXPORT int lfs2_flash_attention_bwd(const void* q, const void* k, const voi
                                          const float* lse, const void* dout, void* dq, void* dk,
                                          void* dv, float* dsum, int B, int H, int T_len, int d,
                                          float scale, unsigned threshold, float inv_keep,
-                                         int dtype, void* stream) {
+                                         void* stream) {
   if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, mask, seed, o, dout, dq, const_cast<float*>(lse), dsum, dk, dv,
            H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == lfs2::kBF16 ? run(dq_kernel<__nv_bfloat16>, kDqSmem, p, B, s)
-                                         : run(dq_kernel<float>, kDqSmem, p, B, s);
+  const cudaError_t err = run(dq_kernel<float>, kDqSmem, p, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = dtype == lfs2::kBF16 ? run(dkv_kernel<__nv_bfloat16>, kDkvSmem, p, B, s)
-                             : run(dkv_kernel<float>, kDkvSmem, p, B, s);
-  return static_cast<int>(err);
+  return static_cast<int>(run(dkv_kernel<float>, kDkvSmem, p, B, s));
 }

@@ -3,8 +3,10 @@
 Counterpart of ``lightningfastspeech2_tpu/ops/pallas_attention.py``
 (``flash_attention``: ``_fwd_kernel`` and ``_bwd_kernel`` joined by a custom
 VJP). ``flash_attention`` runs ``flash_attention_plain`` for CPU tensors and,
-for CUDA tensors, the forward and backward kernels of
-``csrc/flash_attention.cu`` through an autograd Function.
+for CUDA tensors, forward and backward kernels through an autograd Function,
+the library chosen by dtype (``kernel_route``): bf16 takes the Hopper
+tensor-core kernels of ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA),
+f32 the CUDA-core kernels of ``csrc/flash_attention.cu``.
 
 Semantics as there: scores scaled by 1/sqrt(d), padded KEYS set to -1e30
 (queries are not masked), softmax, attention-probability dropout from a
@@ -32,7 +34,6 @@ from lightningfastspeech2_tpu_torch.ops.ffn import (
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the kernels' only head dim (every preset's)
-_c_fns = None
 
 
 def attn_keep_hash(rows: torch.Tensor, cols: torch.Tensor, seed_bh: torch.Tensor,
@@ -76,84 +77,118 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (_rnd(p, v.dtype) @ v.float()).to(q.dtype)
 
 
-def _fns():
-    global _c_fns
-    if _c_fns is None:
-        lib = build.load("flash_attention")
+# the library of each dtype: bf16 on the tensor cores, f32 on the CUDA cores
+ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
+_c_fns = {}
+
+
+def _fns(route: str):
+    if route not in _c_fns:
+        lib = build.load(route)
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        fwd = lib.lfs2_flash_attention_fwd
-        fwd.argtypes = [p] * 7 + [i, i, i, i, f, u, f, i, p]
+        prefix = "lfs2_" + route
+        fwd = getattr(lib, prefix + "_fwd")
+        # the bf16 forward also writes its output in f32 (the backward's D)
+        n_ptr = 8 if route == ROUTES[torch.bfloat16] else 7
+        fwd.argtypes = [p] * n_ptr + [i, i, i, i, f, u, f, p]
         fwd.restype = ctypes.c_int
-        bwd = lib.lfs2_flash_attention_bwd
-        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f, i, p]
+        bwd = getattr(lib, prefix + "_bwd")
+        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f, p]
         bwd.restype = ctypes.c_int
-        _c_fns = (lib, fwd, bwd)
-    return _c_fns
+        _c_fns[route] = (lib, fwd, bwd)
+    return _c_fns[route]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    B, H, T, d = q.shape
-    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes f32 or bf16 q, k, v of one dtype, "
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The library (``csrc/<name>.cu``) the kernels of these inputs come
+    from, after the kernels' rules on dtype and shape; raises on inputs no
+    kernel takes. Needs no card: the tests call it on CPU tensors."""
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernels take f32 or bf16 q, k, v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d != HEAD_DIM or T % 64 != 0 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention kernels take (B, H, T, {HEAD_DIM}) with T % 64 "
-                         f"== 0, got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"flash_attention kernels take q, k, v of one shape (B, H, T, "
+                         f"{HEAD_DIM}), got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    T = q.shape[2]
+    if T < 128 or T % 128 != 0:
+        raise ValueError(f"flash_attention kernels take T a multiple of 128 (their 128-row "
+                         f"tiles), got T = {T}")
+    return ROUTES[q.dtype]
+
+
+def _check_aligned(*ts: torch.Tensor) -> None:
+    # the tensor maps and vector loads take 16-byte aligned rows
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention kernels take 16-byte aligned tensors")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.by_route[route] += 1
+
+
 def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
-    """Launch the forward kernel; returns (o, lse (B, H, T) f32). CUDA only."""
-    _check(q, k, v)
+    """Launch the forward kernel; returns (o, lse (B, H, T) f32, o32), o32
+    being o in f32 before its rounding (o itself for f32 inputs): the
+    backward forms D = rowsum(dO o O) from it, which cancels exactly against
+    dP where one key takes all the weight. CUDA only."""
+    route = kernel_route(q, k, v)
     check_kernel_inputs(q, k, v, mask_i32, seed)
+    _check_aligned(q, k, v, mask_i32)
     B, H, T, d = q.shape
     o = torch.empty_like(q)
+    o32 = o if q.dtype == torch.float32 else torch.empty_like(q, dtype=torch.float32)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    lib, fn, _ = _fns()
+    lib, fn, _ = _fns(route)
+    outs = [o.data_ptr(), lse.data_ptr()] + ([] if o32 is o else [o32.data_ptr()])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
-            seed.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, T, d,
-            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            build.DTYPE_CODES[q.dtype], _stream(q))
+            seed.data_ptr(), *outs, B, H, T, d,
+            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
     build.check(lib, rc, "flash_attention")
-    flash_attention.launches += 1
-    return o, lse
+    _count(flash_attention, route)
+    return o, lse, o32
 
 
-def flash_attention_bwd(do, q, k, v, mask_i32, seed, o, lse, rate):
-    """Launch the backward (the dQ pass, then the K-major dK/dV pass);
-    returns (dq, dk, dv). CUDA only."""
-    _check(q, k, v)
+def flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, rate):
+    """Launch the backward (the dQ pass, then the K-major dK/dV pass) from
+    the forward's o32 and lse; returns (dq, dk, dv). CUDA only."""
+    route = kernel_route(q, k, v)
     do = do.to(q.dtype).contiguous()
-    check_kernel_inputs(q, k, v, mask_i32, seed, o, lse, do)
+    check_kernel_inputs(q, k, v, mask_i32, seed, o32, lse, do)
+    if o32.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd takes the forward's f32 output, got {o32.dtype}")
+    _check_aligned(q, k, v, mask_i32, o32, lse, do)
     B, H, T, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    lib, _, fn = _fns()
+    lib, _, fn = _fns(route)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
-            seed.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            seed.data_ptr(), o32.data_ptr(), lse.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
             B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            build.DTYPE_CODES[q.dtype], _stream(q))
+            _stream(q))
     build.check(lib, rc, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, route)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask_i32, seed, rate):
-        o, lse = flash_attention_fwd(q, k, v, mask_i32, seed, rate)
-        ctx.save_for_backward(q, k, v, mask_i32, seed, o, lse)
+        o, lse, o32 = flash_attention_fwd(q, k, v, mask_i32, seed, rate)
+        ctx.save_for_backward(q, k, v, mask_i32, seed, o32, lse)
         ctx.rate = rate
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask_i32, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(do, q, k, v, mask_i32, seed, o, lse, ctx.rate)
+        q, k, v, mask_i32, seed, o32, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, ctx.rate)
         return dq, dk, dv, None, None, None
 
 
@@ -165,7 +200,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``seed``, a (1,) int32 tensor on q's device (0 when None).
 
     CPU tensors take ``flash_attention_plain``. CUDA tensors run the kernels
-    (d = 128, T % 64 == 0, f32 or bf16) and raise on anything else."""
+    (d = 128, T % 128 == 0; bf16 on the tensor cores, f32 on the CUDA
+    cores) and raise on anything else."""
     B, H, T, _ = q.shape
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)
@@ -179,3 +215,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+# launches by library, set to 0 with the counts: which route a run took
+flash_attention.by_route = dict.fromkeys(ROUTES.values(), 0)
+flash_attention_bwd.by_route = dict.fromkeys(ROUTES.values(), 0)

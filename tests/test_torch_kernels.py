@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a Hopper
 card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
 training kernels ``ffn_ln_train`` and ``flash_attention`` (forward and
-backward, gradients against the plain version's autograd), ``soft_dtw``
+backward, gradients against the plain version's autograd, on both routes:
+bf16 through the wgmma kernels, f32 through the CUDA-core ones), ``soft_dtw``
 (value and dD), the length regulator's expand and segment-sum, and the
 FastDiff LVC chain ``lvc_stack`` (with the launches of one ε pass). Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
@@ -10,6 +11,8 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m gpu
 """
 
+import contextlib
+import faulthandler
 import math
 
 import pytest
@@ -273,28 +276,53 @@ def test_ffn_ln_train_backward_dz_is_deterministic(cuda_card):
     assert all(torch.equal(d, dz[0]) for d in dz)
 
 
+@contextlib.contextmanager
+def _deadline(seconds):
+    """Ends the process with a traceback when the block outlasts
+    ``seconds``: a hung kernel fails its test instead of the run."""
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+# (B, H, T, valid keys per item): T from the flash gate's 1024 to the
+# longest frame bucket 2816, B * H from 1 to 16; the 2048 case pads whole
+# 128-key tiles, and has an item with one valid key and one with none
+_FLASH_CASES = {"T1024": (2, 2, 1024, (1024, 700)),
+                "T2048": (8, 2, 2048, (2048, 1900, 1000, 300, 129, 128, 1, 0)),
+                "T2816": (1, 1, 2816, (2000,))}
+
+
+def _flash_inputs(device, dtype, B, H, T, lengths):
+    g = torch.Generator(device=device).manual_seed(T + B)
+    q, k, v, do = (torch.randn(B, H, T, 128, device=device, generator=g).to(dtype)
+                   for _ in range(4))
+    mask = torch.arange(T, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
+    return q, k, v, do, mask, torch.tensor([777], dtype=torch.int32, device=device)
+
+
+def _flash_run(fn, q, k, v, do, mask, rate, seed):
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*qkv, mask, rate, seed)
+    return (out, *torch.autograd.grad(out, qkv, do))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_FLASH_CASES))
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate):
-    B, H, T, d = 2, 2, 1024, 128
-    g = torch.Generator(device=cuda_card).manual_seed(0)
-    q, k, v, do = (torch.randn(B, H, T, d, device=cuda_card, generator=g).to(dtype)
-                   for _ in range(4))
-    mask = torch.arange(T, device=cuda_card)[None, :] < torch.tensor([[T], [700]], device=cuda_card)
-    seed = torch.tensor([777], dtype=torch.int32, device=cuda_card)
-
-    def run(fn):
-        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = fn(*qkv, mask, rate, seed)
-        return (out, *torch.autograd.grad(out, qkv, do))
-
+def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate, case):
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, dtype, *_FLASH_CASES[case])
     n_fwd, n_bwd = tatt.flash_attention.launches, tatt.flash_attention_bwd.launches
-    got = run(tatt.flash_attention)
-    torch.cuda.synchronize()
+    with _deadline(300):
+        got = _flash_run(tatt.flash_attention, q, k, v, do, mask, rate, seed)
+        torch.cuda.synchronize()
     assert (tatt.flash_attention.launches, tatt.flash_attention_bwd.launches) == (n_fwd + 1, n_bwd + 1)
-    want = run(tatt.flash_attention_plain)
+    want = _flash_run(tatt.flash_attention_plain, q, k, v, do, mask, rate, seed)
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
         if dtype == torch.float32:
             # f32; online softmax and the split backward sum in other orders
             _bulk_close(a, b, 1e-4, 1e-5, name)
@@ -302,6 +330,33 @@ def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate):
             # bf16 inputs and outputs; the kernel rounds p (against the
             # running max) and dS to bf16 before its products
             _bulk_close(a, b, 0.02, 0.004, name)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_is_deterministic(cuda_card):
+    # neither backward pass takes atomics: two runs agree bit for bit
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, torch.bfloat16, *_FLASH_CASES["T2048"])
+    m32 = mask.to(torch.int32)
+    with _deadline(120):
+        _, lse, o32 = tatt.flash_attention_fwd(q, k, v, m32, seed, 0.1)
+        runs = [tatt.flash_attention_bwd(do, q, k, v, m32, seed, o32, lse, 0.1) for _ in range(2)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "flash_attention_sm90"),
+                                         (torch.float32, "flash_attention")])
+def test_flash_attention_route_by_dtype(cuda_card, dtype, route):
+    # bf16 goes through the wgmma kernels, f32 through the CUDA-core ones
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, dtype, *_FLASH_CASES["T1024"])
+    before = {fn: dict(fn.by_route) for fn in (tatt.flash_attention, tatt.flash_attention_bwd)}
+    with _deadline(120):
+        _flash_run(tatt.flash_attention, q, k, v, do, mask, 0.1, seed)
+        torch.cuda.synchronize()
+    for fn, counts in before.items():
+        assert {r: fn.by_route[r] - n for r, n in counts.items()} == {
+            r: int(r == route) for r in counts}
 
 
 @pytest.mark.gpu

@@ -400,12 +400,12 @@ bool shape_ok(int B, int H, int T_len, int d) {
 LFS2_DEFINE_ERROR_STRING
 
 // f32 q, k, v; o and lse (B, H, T) f32 are written; seed is one int32 on the
-// device
+// device. o32, the output in f32 (the bf16 route's signature), is o itself.
 LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          const int* mask, const int* seed, void* o, float* lse,
-                                         int B, int H, int T_len, int d, float scale,
+                                         float* o32, int B, int H, int T_len, int d, float scale,
                                          unsigned threshold, float inv_keep, void* stream) {
-  if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, H, T_len, d) || o32 != o) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, mask, seed, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
            H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -36,9 +36,10 @@
 // whose B operand (V, K, Q or dO) is read MN-major through the transpose
 // bit. In the accumulator layout a row's values sit on the four threads of
 // a quad, so row statistics take two shuffles. The two consumer warpgroups
-// share the SM, so one's softmax overlaps the other's products. The forward
-// and the dQ pass give each consumer warpgroup 64 rows; the dK/dV pass
-// gives one warpgroup P and dV, the other dS and dK (see there).
+// share the SM, so one's softmax overlaps the other's products; the dK/dV
+// pass also runs each warpgroup one tile ahead of itself (see there). The
+// forward and the dQ pass give each consumer warpgroup 64 rows; the dK/dV
+// pass gives one warpgroup P and dV, the other dS and dK.
 //
 // A key tile whose keys are all padded is skipped when its item has a valid
 // key (exp(-1e30 - m) is exactly 0 there). An item with no valid key takes
@@ -163,8 +164,31 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups are still in flight
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an in-flight wgmma reads or writes, pinned at this point: placed
+// after the wait_group that retires the product, so that the compiler
+// neither reuses them for other values nor touches them before it.
+template <int N> __device__ __forceinline__ void hold(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void hold(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+template <int N> __device__ __forceinline__ void copy_frags(uint32_t (&to)[N][4],
+                                                           const uint32_t (&from)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) to[i][j] = from[i][j];
 }
 
 template <unsigned N> __device__ __forceinline__ void setmaxnreg_inc() {
@@ -260,7 +284,6 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t (&
 }
 
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
-constexpr int kStages = 2;      // ring depth of every pass
 constexpr int kMaxTiles = 256;  // key-tile flags: T <= 256 * 64
 constexpr int kTile128 = 128 * D * 2;  // 128 rows x 128 bf16: 32 KB
 constexpr int kTile64 = 64 * D * 2;    // 16 KB
@@ -268,6 +291,7 @@ constexpr int kTile64 = 64 * D * 2;    // 16 KB
 // shared memory of one block, from a 1024-byte aligned base (the swizzle's
 // repeat): tiles first, then the mbarriers and the key-tile flags
 namespace fwd {
+constexpr int kStages = 2;                      // ring depth
 constexpr int kQ = 0;                           // 128 query rows
 constexpr int kStage0 = kTile128;               // K (128 keys), V, mask
 constexpr int kStageBytes = 2 * kTile128 + 1024;
@@ -277,6 +301,7 @@ constexpr int kBytes = kFlags + kMaxTiles * 4;
 }  // namespace fwd
 
 namespace dq {
+constexpr int kStages = 2;
 constexpr int kQ = 0, kDO = kTile128;           // 128 query rows each
 constexpr int kStage0 = 2 * kTile128;           // K (64 keys), V, mask
 constexpr int kStageBytes = 2 * kTile64 + 1024;
@@ -286,6 +311,8 @@ constexpr int kBytes = kFlags + kMaxTiles * 4;
 }  // namespace dq
 
 namespace dkv {
+// a consumer holds two stages at once (see the kernel), so a third loads
+constexpr int kStages = 3;
 constexpr int kQT = 64;                         // queries a tile
 constexpr int kK = 0, kV = kTile64;             // 64 keys each
 constexpr int kStage0 = 2 * kTile64;            // Q (64 queries), dO, lse, D
@@ -297,13 +324,20 @@ constexpr int kFlags = kBars + 64;
 constexpr int kBytes = kFlags + kMaxTiles * 4;
 }  // namespace dkv
 
+// each layout plus the 1024 bytes that align its base; 2 kStages + 1
+// mbarriers in the 64 bytes at kBars
+constexpr int kSmemMax = 227 * 1024;  // a block's shared memory on an H100
+static_assert(fwd::kBytes + 1024 <= kSmemMax && dq::kBytes + 1024 <= kSmemMax &&
+                  dkv::kBytes + 1024 <= kSmemMax && (2 * dkv::kStages + 1) * 8 <= 64,
+              "shared memory");
+
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
 
 // bars[0, kStages): full, [kStages, 2 kStages): empty, [2 kStages]: the
 // tiles loaded once
-__device__ __forceinline__ void init_bars(uint32_t bars) {
+template <int kStages> __device__ __forceinline__ void init_bars(uint32_t bars) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bars + 8 * s, 1);
@@ -353,6 +387,7 @@ __device__ __forceinline__ void store_rows(T* row, const float (&lo)[32], const 
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const Params p) {
+  using fwd::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem), bars = base + fwd::kBars;
@@ -362,7 +397,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
 
-  init_bars(bars);
+  init_bars<fwd::kStages>(bars);
   const bool any = scan_mask(mrow, T, 128, flags);
 
   if (threadIdx.x < 128) {  // producer
@@ -411,7 +446,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       for (int kk = 0; kk < 8; ++kk)
         wgmma_ss_n128(sc, kmajor(qd, 128, 64 * L.cw, kk), kmajor(kd, 128, 0, kk), kk > 0);
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
 
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -461,7 +496,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         wgmma_rs_n64_t(ohi, pf[kk], mnmajor(vd, 128, 1, kk));
       }
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
       ++it;
     }
@@ -487,6 +522,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
           const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
           const Params p) {
+  using dq::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem), bars = base + dq::kBars;
@@ -496,7 +532,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
 
-  init_bars(bars);
+  init_bars<dq::kStages>(bars);
   const bool any = scan_mask(mrow, T, 64, flags);
 
   if (threadIdx.x < 128) {  // producer
@@ -569,7 +605,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         wgmma_ss_n64(dp, kmajor(dod, 128, 64 * L.cw, kk), kmajor(vd, 64, 0, kk), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
 
       uint32_t df[4][4];
 #pragma unroll
@@ -596,7 +632,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         wgmma_rs_n64_t(qhi, df[kk], mnmajor(kd, 64, 1, kk));
       }
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
       ++it;
     }
@@ -616,6 +652,13 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 // buffer in shared memory; both sides hold the same accumulator layout, so
 // thread i reads what thread i wrote. Named barriers 1-2 mark a buffer
 // full, 3-4 empty.
+//
+// Each side runs one tile ahead: it issues the next query tile's S^T or
+// dP^T, then this tile's dV or dK product, and does the next tile's
+// per-score work while both run (wait_group 1 retires the first). So it
+// holds two ring stages at once, and a third loads meanwhile. The other
+// kernels issue their products in order: on an H100 the same run-ahead
+// made the forward and the dQ pass slower (PERF.md).
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
@@ -628,6 +671,7 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
                 const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const Params p) {
   constexpr int QT = dkv::kQT;
+  using dkv::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem), bars = base + dkv::kBars;
@@ -636,8 +680,9 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 64, T = p.T, nt = T / QT;
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
+  auto stage = [&](int s) { return base + dkv::kStage0 + s * dkv::kStageBytes; };
 
-  init_bars(bars);
+  init_bars<dkv::kStages>(bars);
   const bool any = scan_mask(mrow, T, 64, flags);
   if (any && !flags[blockIdx.x]) {
     // every key of the block padded, a valid one elsewhere: P = 0 exactly,
@@ -658,13 +703,13 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       tma_tile(base + dkv::kV, &tv, bh_row + k0, 64, kvbar);
       for (int t = 0; t < nt; ++t) {
         const int s = t % kStages;
-        const uint32_t stage = base + dkv::kStage0 + s * dkv::kStageBytes;
         mbar_wait(bars + 8 * (kStages + s), ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(bars + 8 * s, 2 * kTile64 + 2 * QT * 4);
-        tma_tile(stage, &tq, bh_row + t * QT, QT, bars + 8 * s);
-        tma_tile(stage + kTile64, &tdo, bh_row + t * QT, QT, bars + 8 * s);
-        bulk_load(stage + 2 * kTile64, p.lse + bh_row + t * QT, QT * 4, bars + 8 * s);
-        bulk_load(stage + 2 * kTile64 + QT * 4, p.dsum + bh_row + t * QT, QT * 4, bars + 8 * s);
+        tma_tile(stage(s), &tq, bh_row + t * QT, QT, bars + 8 * s);
+        tma_tile(stage(s) + kTile64, &tdo, bh_row + t * QT, QT, bars + 8 * s);
+        bulk_load(stage(s) + 2 * kTile64, p.lse + bh_row + t * QT, QT * 4, bars + 8 * s);
+        bulk_load(stage(s) + 2 * kTile64 + QT * 4, p.dsum + bh_row + t * QT, QT * 4,
+                  bars + 8 * s);
       }
     }
   } else {  // consumers: the S side (warpgroup 1) and the dP side (warpgroup 2)
@@ -687,28 +732,26 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       named_arrive(4);
     }
     const uint32_t kvt = base + (s_side ? dkv::kK : dkv::kV);
-    mbar_wait(kvbar, 0);
-    for (int t = 0; t < nt; ++t) {
-      const int s = t % kStages, x = t & 1;
-      const uint32_t stage = base + dkv::kStage0 + s * dkv::kStageBytes;
-      const float* lse = reinterpret_cast<const float*>(smem + dkv::kStage0 + s * dkv::kStageBytes + 2 * kTile64);
-      const float* dsum = lse + QT;
-      float* xp = reinterpret_cast<float*>(smem + dkv::kX0 + x * dkv::kXBytes);
-      unsigned* xbits = reinterpret_cast<unsigned*>(xp + 64 * QT);
-      mbar_wait(bars + 8 * s, (t / kStages) & 1);
 
-      // S^T (S side) or dP^T (dP side): K or V against Q or dO
+    // S^T (S side) or dP^T (dP side) of the query tile in stage s: K or V
+    // against Q or dO, issued
+    auto issue_x = [&](float (&sc)[32], int s) {
       const uint32_t ad = opaque(desc_lo(kvt));
-      const uint32_t qd = opaque(desc_lo(stage)), dod = opaque(desc_lo(stage + kTile64));
-      float sc[32];
+      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? 0 : kTile64)));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_ss_n64(sc, kmajor(ad, 64, 0, kk), kmajor(s_side ? qd : dod, QT, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait0();
-
-      uint32_t fr[4][4];
+        wgmma_ss_n64(sc, kmajor(ad, 64, 0, kk), kmajor(bd, QT, 0, kk), kk > 0);
+    };
+    // query tile t (stage s): P^T (S side, which also hands P and the keep
+    // bits across) or dS^T (dP side) into bf16 A fragments
+    auto form = [&](const float (&sc)[32], int t, int s, uint32_t (&fr)[4][4]) {
+      const float* lse = reinterpret_cast<const float*>(smem + dkv::kStage0 +
+                                                        s * dkv::kStageBytes + 2 * kTile64);
+      const float* dsum = lse + QT;
+      const int x = t & 1;
+      float* xp = reinterpret_cast<float*>(smem + dkv::kX0 + x * dkv::kXBytes);
+      unsigned* xbits = reinterpret_cast<unsigned*>(xp + 64 * QT);
       if (s_side) {
         named_sync(3 + x);  // the dP side is done with this buffer
         unsigned bits = 0;
@@ -757,8 +800,12 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         }
         named_arrive(3 + x);
       }
-      // dV += P^T.dO (S side), dK += dS^T.Q (dP side)
-      const uint32_t bd = s_side ? dod : qd;
+    };
+
+    // dV += P^T.dO (S side) or dK += dS^T.Q (dP side) of the tile in
+    // stage s, committed
+    auto issue_acc = [&](const uint32_t (&fr)[4][4], int s) {
+      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? kTile64 : 0)));
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < QT / 16; ++kk) {
@@ -766,9 +813,40 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
         wgmma_rs_n64_t(hi, fr[kk], mnmajor(bd, QT, 1, kk));
       }
       wgmma_commit();
-      wgmma_wait0();
+    };
+
+    float sc[32];
+    uint32_t fr[4][4];
+    mbar_wait(kvbar, 0);
+    mbar_wait(bars, 0);
+    issue_x(sc, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(sc);
+    form(sc, 0, 0, fr);
+    int t = 0;
+    for (; t + 1 < nt; ++t) {  // all but the last query tile
+      const int s = t % kStages, s1 = (t + 1) % kStages;
+      mbar_wait(bars + 8 * s1, ((t + 1) / kStages) & 1);
+      issue_x(sc, s1);  // the next tile's S^T or dP^T first ...
+      wgmma_commit();
+      issue_acc(fr, s);  // ... then this one's dV or dK product
+      uint32_t fn[4][4];
+      wgmma_wait<1>();  // the next tile's per-score work while it runs
+      hold(sc);
+      form(sc, t + 1, s1, fn);
+      wgmma_wait<0>();
+      hold(lo);
+      hold(hi);
+      hold(fr);
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
+      copy_frags(fr, fn);
     }
+    issue_acc(fr, t % kStages);  // the last tile's
+    wgmma_wait<0>();
+    hold(lo);
+    hold(hi);
+    if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + t % kStages));
     store_rows((s_side ? p.dv : p.dk) + (static_cast<size_t>(bh_row) + g0) * D, lo, hi, L.c2,
                1.0f, 1.0f);
   }

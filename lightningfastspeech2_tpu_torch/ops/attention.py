@@ -88,9 +88,7 @@ def _fns(route: str):
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         prefix = "lfs2_" + route
         fwd = getattr(lib, prefix + "_fwd")
-        # the bf16 forward also writes its output in f32 (the backward's D)
-        n_ptr = 8 if route == ROUTES[torch.bfloat16] else 7
-        fwd.argtypes = [p] * n_ptr + [i, i, i, i, f, u, f, p]
+        fwd.argtypes = [p] * 8 + [i, i, i, i, f, u, f, p]
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, prefix + "_bwd")
         bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f, p]
@@ -145,9 +143,8 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     o32 = o if q.dtype == torch.float32 else torch.empty_like(q, dtype=torch.float32)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     lib, fn, _ = _fns(route)
-    outs = [o.data_ptr(), lse.data_ptr()] + ([] if o32 is o else [o32.data_ptr()])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
-            seed.data_ptr(), *outs, B, H, T, d,
+            seed.data_ptr(), o.data_ptr(), lse.data_ptr(), o32.data_ptr(), B, H, T, d,
             1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
     build.check(lib, rc, "flash_attention")
     _count(flash_attention, route)

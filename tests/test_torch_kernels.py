@@ -111,8 +111,8 @@ def test_ffn_ln_raises_when_grad_is_needed(cuda_card):
         assert tffn.ffn_ln(z, w).shape == z.shape
 
 
-def _bulk_close(got, want, frac, mean_frac, what):
-    top = want.abs().max().item()
+def _bulk_close(got, want, frac, mean_frac, what, top=None):
+    top = want.abs().max().item() if top is None else top
     err = (got.float() - want.float()).abs()
     assert err.max().item() <= frac * top + 1e-6, (what, err.max().item(), top)
     assert err.mean().item() <= mean_frac * top + 1e-7, (what, err.mean().item(), top)
@@ -309,6 +309,19 @@ def _flash_run(fn, q, k, v, do, mask, rate, seed):
     return (out, *torch.autograd.grad(out, qkv, do))
 
 
+def _each_item_close(got, want, frac, mean_frac, what):
+    """``_bulk_close`` for each batch item, scaled by the item's own largest
+    element, so one item's large values (a one-key item's o and dV) set no
+    other's tolerance. Where the reference is 0 throughout the item (dq and
+    dk of a one-key or no-key item: the function's gradient is 0 there, and
+    the kernel's is what is left of a cancellation), the whole batch's
+    largest element sets the scale."""
+    top = want.abs().max().item()
+    for b in range(want.shape[0]):
+        item_top = want[b].abs().max().item()
+        _bulk_close(got[b], want[b], frac, mean_frac, (what, b), item_top if item_top else top)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(_FLASH_CASES))
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -325,11 +338,11 @@ def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate, case):
         assert torch.isfinite(a).all(), name
         if dtype == torch.float32:
             # f32; online softmax and the split backward sum in other orders
-            _bulk_close(a, b, 1e-4, 1e-5, name)
+            _each_item_close(a, b, 1e-4, 1e-5, name)
         else:
             # bf16 inputs and outputs; the kernel rounds p (against the
             # running max) and dS to bf16 before its products
-            _bulk_close(a, b, 0.02, 0.004, name)
+            _each_item_close(a, b, 0.02, 0.004, name)
 
 
 @pytest.mark.gpu

@@ -218,22 +218,93 @@ def build_phase() -> None:
         "\n".join(f"=== {k}\n{v['ptxas']}" for k, v in report.items()))
 
 
+HOST_LAUNCHES = 10_000
+
+
+def host_us(fn, n: int = HOST_LAUNCHES) -> float:
+    """Host-clock µs per call of ``fn`` over ``n`` calls with no
+    synchronise between them, then one."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def _old_probe_path():
+    """The probe's launch path as every wrapper ran it before
+    ``kernels/launch.py``: a set of devices, ``get_device_capability`` on
+    every launch, a contiguity pass, and a ``torch.cuda.Stream`` object for
+    the stream handle; the same library and kernel."""
+    from lightningfastspeech2_tpu_torch.kernels import build
+    from lightningfastspeech2_tpu_torch.ops import probe as probe_mod
+
+    lib, fn = probe_mod._fn()
+
+    def old_probe(x):
+        devs = {x.device}
+        if len(devs) != 1:
+            raise ValueError(f"kernel inputs span devices {devs}")
+        dev = next(iter(devs))
+        if dev.type != "cuda":
+            raise RuntimeError(f"kernel launch needs a CUDA tensor, got {dev}")
+        cap = torch.cuda.get_device_capability(dev)
+        if tuple(cap) != (9, 0):
+            raise RuntimeError(f"capability {cap}")
+        if not x.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        if x.dtype != torch.float32:
+            raise ValueError(f"probe takes float32, got {x.dtype}")
+        y = torch.empty_like(x)
+        rc = fn(x.data_ptr(), y.data_ptr(), x.numel(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, rc, "probe")
+        return y
+
+    return old_probe, lib, fn
+
+
 def probe_phase(dev) -> dict:
+    from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
     from lightningfastspeech2_tpu_torch.ops.probe import probe, probe_plain
 
     x = torch.randn(8, 128, device=dev)
     err = (probe(x) - probe_plain(x)).abs().max().item()
+    old_probe, lib, fn = _old_probe_path()
+    old_err = (old_probe(x) - probe_plain(x)).abs().max().item()
     torch.cuda.synchronize()
+    # the old launch path and the new one in turns (old, new, new, old,
+    # twice), HOST_LAUNCHES launches each, on the host clock; then where a
+    # launch's host time goes, each piece alone
+    turns = {"old_path": [], "new_path": []}
+    for which in ("old_path", "new_path", "new_path", "old_path") * 2:
+        call = old_probe if which == "old_path" else probe
+        turns[which].append(host_us(lambda: call(x)))
+    y = torch.empty_like(x)
+    stream = kernel_stream(x)
+    host = {k: statistics.median(v) for k, v in turns.items()}
+    host.update({
+        "torch_mul": host_us(lambda: torch.mul(x, 2.0)),
+        "kernel_stream": host_us(lambda: kernel_stream(x)),
+        "empty_like": host_us(lambda: torch.empty_like(x)),
+        "ctypes_launch": host_us(lambda: fn(x.data_ptr(), y.data_ptr(), x.numel(), stream)),
+        "old_capability_check": host_us(lambda: torch.cuda.get_device_capability(x.device)),
+        "old_current_stream": host_us(lambda: torch.cuda.current_stream(x.device).cuda_stream)})
     row = {"name": "probe", "route": "cuda",
            "source": "lightningfastspeech2_tpu_torch/csrc/probe.cu",
            "replaces": "lightningfastspeech2_tpu/ops/kernel_gate.py:79",
-           "at": "(8, 128) f32", "max_abs_err": err, "tol": 0.0,
+           "at": "(8, 128) f32", "max_abs_err": max(err, old_err), "tol": 0.0,
            "ms": cuda_ms(lambda: probe(x)), "plain_ms": cuda_ms(lambda: probe_plain(x)),
-           "library_ms": cuda_ms(lambda: torch.mul(x, 2.0))}
+           "library_ms": cuda_ms(lambda: torch.mul(x, 2.0)),
+           "old_path_ms": cuda_ms(lambda: old_probe(x)),
+           "host_us_per_launch": host, "host_us_turns": turns,
+           "host_launches": HOST_LAUNCHES}
+    row["vs_library"] = row["ms"] / row["library_ms"]
     row["bound_ms"], row["bound_by"] = bound_ms(x.numel(), 2 * tensor_bytes(x), torch.float32)
     emit({"phase": "probe", **row})
-    if err != 0.0:
-        raise RuntimeError(f"probe: max |err| {err}")
+    if err != 0.0 or old_err != 0.0:
+        raise RuntimeError(f"probe: max |err| {err} (old path {old_err})")
     return row
 
 
@@ -1070,6 +1141,11 @@ def _regulate_case(dev, g) -> dict:
              "library_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
                  torch.gather(xg, 1, idx), xg, dout)),
              "library": "torch.gather's backward (a scatter-add)"}
+    # host-clock µs per call with no synchronise between calls: the event
+    # times above follow the host where it takes longer than the device
+    row_f["host_us"] = host_us(lambda: lr.regulate_fwd(x, ends, T), 2000)
+    row_f["library_host_us"] = host_us(lambda: torch.gather(x, 1, idx), 2000)
+    row_b["host_us"] = host_us(lambda: lr.regulate_bwd(dout, ends), 2000)
     nb_x, nb_f = tensor_bytes(x), B * T * H * x.element_size()
     row_f["bound_ms"], row_f["bound_by"] = bound_ms(0, nb_x + nb_f + tensor_bytes(ends), dtype)
     row_b["bound_ms"], row_b["bound_by"] = bound_ms(B * T * H, nb_f + nb_x + tensor_bytes(ends),

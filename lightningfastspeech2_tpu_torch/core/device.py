@@ -10,11 +10,11 @@ call raises.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
-KERNEL_CAPABILITY = (9, 0)
+from lightningfastspeech2_tpu_torch.kernels.launch import require_kernel_device
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -49,27 +49,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"the probe kernel computed a wrong result on {dev}")
         _probed.add(dev)
     return dev
-
-
-def require_kernel_device(device: torch.device) -> None:
-    """Raise unless ``device`` is a CUDA card of capability (9, 0)."""
-    if device.type != "cuda":
-        raise RuntimeError(f"kernel launch needs a CUDA tensor, got {device}")
-    cap = torch.cuda.get_device_capability(device)
-    if tuple(cap) != KERNEL_CAPABILITY:
-        raise RuntimeError(
-            f"the port's kernels are built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} has capability {cap}"
-        )
-
-
-def check_kernel_inputs(*tensors: Optional[torch.Tensor]) -> None:
-    """Common launch checks: one CUDA device of capability (9, 0), every
-    tensor contiguous."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"kernel inputs span devices {devs}")
-    require_kernel_device(next(iter(devs)))
-    for t in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")

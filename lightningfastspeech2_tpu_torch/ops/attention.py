@@ -22,8 +22,8 @@ from typing import Optional
 
 import torch
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 from lightningfastspeech2_tpu_torch.ops.ffn import (
     _M32,
     _fmix,
@@ -121,10 +121,6 @@ def _check_aligned(*ts: torch.Tensor) -> None:
         raise ValueError("flash_attention kernels take 16-byte aligned tensors")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _count(fn, route: str) -> None:
     fn.launches += 1
     fn.by_route[route] += 1
@@ -136,7 +132,7 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     backward forms D = rowsum(dO o O) from it, which cancels exactly against
     dP where one key takes all the weight. CUDA only."""
     route = kernel_route(q, k, v)
-    check_kernel_inputs(q, k, v, mask_i32, seed)
+    stream = kernel_stream(q, k, v, mask_i32, seed)
     _check_aligned(q, k, v, mask_i32)
     B, H, T, d = q.shape
     o = torch.empty_like(q)
@@ -145,7 +141,7 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     lib, fn, _ = _fns(route)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), o32.data_ptr(), B, H, T, d,
-            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
+            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), stream)
     build.check(lib, rc, "flash_attention")
     _count(flash_attention, route)
     return o, lse, o32
@@ -156,7 +152,7 @@ def flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, rate):
     the forward's o32 and lse; returns (dq, dk, dv). CUDA only."""
     route = kernel_route(q, k, v)
     do = do.to(q.dtype).contiguous()
-    check_kernel_inputs(q, k, v, mask_i32, seed, o32, lse, do)
+    stream = kernel_stream(q, k, v, mask_i32, seed, o32, lse, do)
     if o32.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd takes the forward's f32 output, got {o32.dtype}")
     _check_aligned(q, k, v, mask_i32, o32, lse, do)
@@ -168,7 +164,7 @@ def flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, rate):
             seed.data_ptr(), o32.data_ptr(), lse.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
             B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            _stream(q))
+            stream)
     build.check(lib, rc, "flash_attention_bwd")
     _count(flash_attention_bwd, route)
     return dq, dk, dv

@@ -32,8 +32,8 @@ import os
 import torch
 import torch.nn.functional as F
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 LRELU_SLOPE = 0.2
 # the JAX path's frame tile for a stage whose hop is below the reach when
@@ -217,13 +217,12 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
         if t.dtype != dt:
             raise ValueError(f"lvc_stack: {name} is {t.dtype}, x is {dt}")
     biases, conv_b = biases.float().contiguous(), conv_b.float().contiguous()
-    check_kernel_inputs(x, audio_down, kernels, biases, conv_w, conv_b)
+    stream = kernel_stream(x, audio_down, kernels, biases, conv_w, conv_b)
     out = torch.empty_like(x)
     lib, fn = _fn()
     rc = fn(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
             conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, hop, layers,
-            kernel_tile(B, L), int(fast_gating), build.DTYPE_CODES[dt],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            kernel_tile(B, L), int(fast_gating), build.DTYPE_CODES[dt], stream)
     build.check(lib, rc, "lvc_stack")
     lvc_stack.launches += 1
     return out

@@ -26,8 +26,8 @@ from dataclasses import dataclass
 
 import torch
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
@@ -130,7 +130,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
         raise RuntimeError(
             "ffn_ln is the deterministic (serving) kernel and has no backward; "
             "train through ffn_ln_train, or call it under torch.no_grad()")
-    check_kernel_inputs(z, w.wd, w.w1, w.b1, w.w2f, w.lnp)
+    stream = kernel_stream(z, w.wd, w.w1, w.b1, w.w2f, w.lnp)
     B, T, C = z.shape
     F = w.w1.shape[1]
     if z.dtype not in build.DTYPE_CODES or w.w1.dtype != z.dtype or w.w2f.dtype != z.dtype:
@@ -143,8 +143,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     lib, fn = _fn()
     rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.w1.data_ptr(),
             w.b1.data_ptr(), w.w2f.data_ptr(), w.lnp.data_ptr(), B, T, C, F,
-            w.kernel_size, w.eps, build.DTYPE_CODES[z.dtype],
-            torch.cuda.current_stream(z.device).cuda_stream)
+            w.kernel_size, w.eps, build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln")
     ffn_ln.launches += 1
     return out
@@ -335,15 +334,14 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
     k, F = p[0].shape[0], p[2].shape[1]
     _check_train(z, k, F)
     w = _kernel_layouts(p, z.dtype, transposed=False)
-    check_kernel_inputs(z, seed, *w.values())
+    stream = kernel_stream(z, seed, *w.values())
     B, T, C = z.shape
     out = torch.empty_like(z)
     lib, fn = _train_fn()
     rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), w["w1"].data_ptr(),
             w["b1"].data_ptr(), w["w2f"].data_ptr(), w["lnp"].data_ptr(),
             seed.data_ptr(), B, T, C, F, k, eps, keep_threshold(rate),
-            1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype],
-            torch.cuda.current_stream(z.device).cuda_stream)
+            1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln_train")
     ffn_ln_train.launches += 1
     return out
@@ -358,7 +356,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     _check_train(z, k, F)
     w = _kernel_layouts(p, z.dtype, transposed=True)
     dout = dout.to(z.dtype).contiguous()
-    check_kernel_inputs(z, dout, seed, *w.values())
+    stream = kernel_stream(z, dout, seed, *w.values())
     B, T, C = z.shape
     dz = torch.empty_like(z)
     # one zeroed f32 buffer for every weight gradient: the blocks add their
@@ -372,8 +370,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
             w["w2fT"].data_ptr(), w["lnp"].data_ptr(), seed.data_ptr(),
             dz.data_ptr(), dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(),
             db1.data_ptr(), dvec.data_ptr(), B, T, C, F, k, eps,
-            keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype],
-            torch.cuda.current_stream(z.device).cuda_stream)
+            keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln_train_bwd")
     ffn_ln_train_bwd.launches += 1
     dg1, dbe1, dg2, dbe2, dbd, db2f = dvec.view(6, C)

@@ -27,8 +27,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 LRELU_SLOPE = 0.1
 # shared memory a block may take (of the H100's 227 KB), and the tile cap
@@ -168,7 +168,7 @@ def _fn():
 
 
 def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
-    check_kernel_inputs(x, w.taps, w.bias)
+    stream = kernel_stream(x, w.taps, w.bias)
     B, L, C = x.shape
     if x.dtype not in build.DTYPE_CODES or w.taps.dtype != x.dtype:
         raise ValueError(f"{what} takes f32 or bf16 x with taps of the same dtype, "
@@ -190,8 +190,7 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
     lib, fn = _fn()
     rc = fn(x.data_ptr(), out.data_ptr(), w.taps.data_ptr(), w.bias.data_ptr(),
             scratch.data_ptr(), B, L, C, tile, halo, c_layout, w.n_res,
-            int(x_in_smem), build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(x_in_smem), build.DTYPE_CODES[x.dtype], stream)
     build.check(lib, rc, what)
     return out
 

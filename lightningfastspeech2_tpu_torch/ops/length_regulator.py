@@ -23,8 +23,8 @@ from typing import Tuple
 
 import torch
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 T_TILE = 256  # the JAX kernel's frame tile; its gate needs max_frames % T_TILE == 0
 _c_fns = None
@@ -81,28 +81,25 @@ def _fns():
     return _c_fns
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check(t: torch.Tensor, ends: torch.Tensor, what: str) -> None:
+def _check(t: torch.Tensor, ends: torch.Tensor, what: str) -> int:
+    """Raise on inputs the kernels do not take; returns the launch stream."""
     if t.dim() != 3 or t.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{what} takes a (B, ., H) f32 or bf16 tensor, got "
                          f"{tuple(t.shape)} {t.dtype}")
     if ends.dtype != torch.int32 or ends.dim() != 2 or ends.shape[0] != t.shape[0]:
         raise ValueError(f"{what} takes int32 ends (B, P), got {tuple(ends.shape)} {ends.dtype}")
-    check_kernel_inputs(t, ends)
+    return kernel_stream(t, ends)
 
 
 def regulate_fwd(x: torch.Tensor, ends: torch.Tensor, max_frames: int) -> torch.Tensor:
     """Launch the expand kernel: x (B, P, H), ends (B, P) int32 running
     duration sums -> frames (B, max_frames, H). CUDA only."""
-    _check(x, ends, "regulate")
+    stream = _check(x, ends, "regulate")
     B, P, H = x.shape
     out = torch.empty(B, max_frames, H, dtype=x.dtype, device=x.device)
     lib, fn, _ = _fns()
     rc = fn(x.data_ptr(), ends.data_ptr(), out.data_ptr(), B, P, max_frames, H,
-            x.element_size(), _stream(x))
+            x.element_size(), stream)
     build.check(lib, rc, "regulate")
     regulate.launches += 1
     return out
@@ -112,13 +109,13 @@ def regulate_bwd(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     """Launch the segment-sum kernel: frame gradients g (B, T, H) -> phone
     gradients (B, P, H) in g's dtype, summed in f32. CUDA only."""
     g = g.contiguous()
-    _check(g, ends, "regulate_bwd")
+    stream = _check(g, ends, "regulate_bwd")
     B, T, H = g.shape
     P = ends.shape[1]
     dx = torch.empty(B, P, H, dtype=g.dtype, device=g.device)
     lib, _, fn = _fns()
     rc = fn(g.data_ptr(), ends.data_ptr(), dx.data_ptr(), B, P, T, H, build.DTYPE_CODES[g.dtype],
-            _stream(g))
+            stream)
     build.check(lib, rc, "regulate_bwd")
     regulate_bwd.launches += 1
     return dx

@@ -12,8 +12,8 @@ import ctypes
 
 import torch
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 _c_fn = None
 
@@ -37,15 +37,14 @@ def _fn():
 def probe(x: torch.Tensor) -> torch.Tensor:
     """``2 * x`` for an f32 tensor: the plain version on the CPU, the CUDA
     kernel on the card."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return probe_plain(x)
-    check_kernel_inputs(x)
+    stream = kernel_stream(x)
     if x.dtype != torch.float32:
         raise ValueError(f"probe takes float32, got {x.dtype}")
     y = torch.empty_like(x)
     lib, fn = _fn()
-    rc = fn(x.data_ptr(), y.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), stream)
     build.check(lib, rc, "probe")
     probe.launches += 1
     return y

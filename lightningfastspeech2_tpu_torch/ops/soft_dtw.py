@@ -25,8 +25,8 @@ import ctypes
 
 import torch
 
-from lightningfastspeech2_tpu_torch.core.device import check_kernel_inputs
 from lightningfastspeech2_tpu_torch.kernels import build
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 _INF = 1e10
 # rows of the lattice one thread owns in the kernels; blocks have at most
@@ -105,22 +105,18 @@ def _check(D: torch.Tensor) -> None:
                          f"rows, got {tuple(D.shape)}")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def soft_dtw_fwd(D: torch.Tensor, gamma: float):
     """Launch the forward kernel on D (L, N, M) f32, one block per lattice;
     returns (value (L,), R) with R the lattice skewed by anti-diagonal,
     R[l, d, i] = R_l[i, d - i] (1e10 off the lattice), which the backward
     reads. CUDA only."""
     _check(D)
-    check_kernel_inputs(D)
+    stream = kernel_stream(D)
     L, N, M = D.shape
     value = torch.empty(L, dtype=torch.float32, device=D.device)
     R = torch.empty(L, N + M - 1, N, dtype=torch.float32, device=D.device)
     lib, fn, _ = _fns()
-    rc = fn(D.data_ptr(), R.data_ptr(), value.data_ptr(), L, N, M, float(gamma), _stream(D))
+    rc = fn(D.data_ptr(), R.data_ptr(), value.data_ptr(), L, N, M, float(gamma), stream)
     build.check(lib, rc, "soft_dtw")
     soft_dtw.launches += 1
     return value, R
@@ -135,12 +131,12 @@ def soft_dtw_bwd(R: torch.Tensor, g: torch.Tensor, gamma: float):
     if R.dtype != torch.float32 or R.dim() != 3 or g.shape != (R.shape[0],):
         raise ValueError(f"soft_dtw_bwd takes the forward's f32 lattice and g (L,), got "
                          f"R {tuple(R.shape)} {R.dtype}, g {tuple(g.shape)}")
-    check_kernel_inputs(R, g)
+    stream = kernel_stream(R, g)
     L, n_diag, N = R.shape
     M = n_diag - N + 1
     E = torch.empty(L, N, M, dtype=torch.float32, device=R.device)
     lib, _, fn = _fns()
-    rc = fn(R.data_ptr(), g.data_ptr(), E.data_ptr(), L, N, M, float(gamma), _stream(R))
+    rc = fn(R.data_ptr(), g.data_ptr(), E.data_ptr(), L, N, M, float(gamma), stream)
     build.check(lib, rc, "soft_dtw_bwd")
     soft_dtw_bwd.launches += 1
     return E

@@ -9,7 +9,9 @@ Phases, each printed as one JSON line:
    asserted). f32 convolutions and products run in full f32: TF32 is off
    for cuDNN and cuBLAS, so f32 comparisons measure the kernels alone.
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel.
-3. probe: the launch probe against ``2 * x``.
+3. probe: the launch probe against ``2 * x``, its time beside
+   ``torch.mul``'s, and the host µs per launch of the launch path before
+   ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
 4. kernels: each kernel against its plain PyTorch version on the card at the
    serving path's shapes, with its time (CUDA events, warmed up, L2 warm),
    the plain version's time, and its bound at the H100's published peaks.
@@ -29,8 +31,9 @@ Phases, each printed as one JSON line:
    version, with ``F.scaled_dot_product_attention`` (same mask and
    dropout_p) timed as the library yardstick: bf16 at the decoder's shape
    (the wgmma kernels of ``csrc/flash_attention_sm90.cu``), f32 at phase
-   9's shape (the CUDA-core kernels of ``csrc/flash_attention.cu``), each
-   with its build seconds and the launches by route it made.
+   9's shape (the split-TF32 mma.sync kernels of
+   ``csrc/flash_attention.cu``), each with its build seconds and the
+   launches by route it made.
 8. training (this slice's main path): the flagship in bf16 with f32
    parameters takes 1 warm-up and 5 timed optimizer steps on B=8, P=256,
    T=2048 teacher-forced batches at the config dropout rates. Every loss
@@ -42,7 +45,7 @@ Phases, each printed as one JSON line:
 9. train reference: one f32 step on the card against the same step on the
    CPU's plain path (flagship widths, B=2, T=1024, dropout rates 0,
    warm-up 1 so the first update is visible), its flash launches through
-   the CUDA-core kernels.
+   the split-TF32 kernels of ``csrc/flash_attention.cu``.
 10. soft-DTW kernels: ``soft_dtw`` (forward and backward) at the mel loss's
     lattices (8 items x 8 chunks of 256 frames, D from 80 mel channels,
     gamma 0.1) against the plain recurrence's value and autograd gradient;
@@ -107,6 +110,7 @@ sys.path.insert(0, str(ROOT))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores
               torch.float32: 67e12}     # f32 without the tensor cores
+PEAK_TF32_FLOPS = 495e12                # tensor cores, TF32
 SAMPLING_RATE = 22050
 
 SENTENCES = (
@@ -157,6 +161,18 @@ def bound_ms(flops: float, nbytes: float, dtype: torch.dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_products_bound_ms(flops: float, nbytes: float):
+    """The least time for f32-accurate products: the lesser of the CUDA
+    cores' rate and split TF32 on the tensor cores (three TF32 products for
+    each f32 one), against the bytes; returns (ms, bound_by, which peak)."""
+    cuda_cores, split_tf32 = flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_FLOPS
+    t_ops = min(cuda_cores, split_tf32) * 1e3
+    peak = ("split TF32, 3 x ops at 495 TFLOP/s" if split_tf32 <= cuda_cores
+            else "CUDA cores, 67 TFLOP/s")
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes", "memory") if t_bytes >= t_ops else (t_ops, "operations", peak)
 
 
 def max_err_and_tol(out: torch.Tensor, ref: torch.Tensor, f32_tol: float):
@@ -693,7 +709,7 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     """flash_attention forward and backward against the plain version, with
     SDPA (same mask and dropout_p) timed as the library yardstick: bf16 at
     the decoder's shape (the wgmma kernels of flash_attention_sm90.cu), f32
-    at phase 9's (the CUDA-core kernels of flash_attention.cu)."""
+    at phase 9's (the split-TF32 mma.sync kernels of flash_attention.cu)."""
     import torch.nn.functional as F
     from lightningfastspeech2_tpu_torch.kernels import build
     from lightningfastspeech2_tpu_torch.ops import attention as att
@@ -761,13 +777,28 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     # Forward: S and P.V; backward: the five products S, dP, dV, dQ, dK.
     # The kernels' split backward forms S and dP in both passes, seven
     # products: its own figure is split_bound_ms.
+    # f32: the lesser of the CUDA cores and split TF32 on the tensor cores
+    # (csrc/flash_attention.cu); cuda_core_bound_ms is the former alone
     nb = tensor_bytes(q, k, v)
     n_keys = mask.sum(1)
     unit = H * T * d * torch.where(n_keys > 0, n_keys, T).sum().item()
-    row_f["bound_ms"], row_f["bound_by"] = bound_ms(4 * unit, nb + tensor_bytes(o, lse), dtype)
     bwd_bytes = 2 * nb + tensor_bytes(do, o, lse)
-    row_b["bound_ms"], row_b["bound_by"] = bound_ms(10 * unit, bwd_bytes, dtype)
-    row_b["split_bound_ms"] = bound_ms(14 * unit, bwd_bytes, dtype)[0]
+    for r, ops, nbytes in ((row_f, 4 * unit, nb + tensor_bytes(o, lse)),
+                           (row_b, 10 * unit, bwd_bytes)):
+        if dtype == torch.float32:
+            r["bound_ms"], r["bound_by"], r["bound_peak"] = f32_products_bound_ms(ops, nbytes)
+            r["cuda_core_bound_ms"] = bound_ms(ops, nbytes, dtype)[0]
+        else:
+            r["bound_ms"], r["bound_by"] = bound_ms(ops, nbytes, dtype)
+        r["vs_library"] = r["ms"] / r["library_ms"]
+    split = (f32_products_bound_ms(14 * unit, bwd_bytes) if dtype == torch.float32
+             else bound_ms(14 * unit, bwd_bytes, dtype))
+    row_b["split_bound_ms"] = split[0]
+    if dtype == torch.float32:
+        # one block per 32 rows (queries forward and in the dQ pass, keys in
+        # the dK/dV pass) of each (b, h)
+        row_f["blocks_per_launch"] = B * H * T // 32
+        row_b["blocks_per_launch"] = {"dq": B * H * T // 32, "dkv": B * H * T // 32}
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
     bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
@@ -1026,7 +1057,7 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
            "losses_cuda": a["losses"], "losses_cpu": b["losses"],
            "flash_routes": flash_routes((flash_attention, flash_attention_bwd))}
     emit(row)
-    # the f32 step's attention went through the CUDA-core kernels alone
+    # the f32 step's attention went through the split-TF32 kernels alone
     n_dec = cfg.model.decoder.layers
     want_routes = {k: {"flash_attention_sm90": 0, "flash_attention": n_dec}
                    for k in ("flash_attention", "flash_attention_bwd")}
@@ -1165,6 +1196,7 @@ def sdtw_kernels_phase(dev) -> dict:
 
 # ------------------------------------------------------- FastDiff slice
 FD_BUCKET = 512   # the served batch's frame bucket
+FD_CALL_RUNS = 5  # timed vocoder calls: their median and spread
 
 
 def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
@@ -1279,15 +1311,18 @@ def fastdiff_serving_phase(counters, served) -> dict:
     if opt_launches != 3 * N or not np.isfinite(wav).all():
         raise RuntimeError(f"LFS2_FUSED_STAGE1 request: {opt_launches} lvc_stack launches, "
                            f"expected {3 * N}")
-    # one vocoder call on a FD_BUCKET-frame mel, timed, then under the profiler
+    # vocoder calls on a FD_BUCKET-frame mel, timed FD_CALL_RUNS times, then one under the profiler
     mel = (np.random.default_rng(5).standard_normal((FD_BUCKET, m.audio.n_mels)) - 4.0
            ).astype(np.float32)
     synth(mel)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    synth(mel)
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t) * 1e3
+    call_runs = []
+    for _ in range(FD_CALL_RUNS):
+        t = time.perf_counter()
+        synth(mel)
+        torch.cuda.synchronize()
+        call_runs.append((time.perf_counter() - t) * 1e3)
+    call_ms = statistics.median(call_runs)
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1305,7 +1340,7 @@ def fastdiff_serving_phase(counters, served) -> dict:
     hifigan_ms = statistics.median(r["ms"] for r in served["requests"])
     fastdiff_ms = statistics.median(r["ms"] for r in run["requests"])
     emit({"phase": "fastdiff_vocoder_profile", "frames": FD_BUCKET, "N": N,
-          "call_ms": call_ms, "device_ms": split["device_ms"],
+          "call_ms": call_ms, "call_ms_runs": call_runs, "device_ms": split["device_ms"],
           "device_launches": split["device_launches"],
           "lvc_stack_ms": split["lvc_stack_ms"],
           "rest_device_ms": split["device_ms"] - split["lvc_stack_ms"],
@@ -1418,7 +1453,7 @@ def main() -> int:
             "at": r["at"], "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
             "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"])})
     # flash attention: the bf16 wgmma kernels (the training path's), then the
-    # f32 CUDA-core kernels at phase 9's shape with that phase's launches
+    # f32 split-TF32 kernels at phase 9's shape with that phase's launches
     for key, launches in (("flash", nt), ("flash_f32", train_ref["flash_routes"])):
         for part, rep in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
             r = train_rows[key][part]
@@ -1429,8 +1464,9 @@ def main() -> int:
                 "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": n,
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at", "build_s")},
-                **{k: r[k] for k in ("library_fwd_bwd_ms", "split_bound_ms", "ms_rate0")
-                   if k in r}})
+                **{k: r[k] for k in ("library_fwd_bwd_ms", "split_bound_ms", "ms_rate0",
+                                     "vs_library", "bound_peak", "cuda_core_bound_ms",
+                                     "blocks_per_launch") if k in r}})
     ns = sdtw_trained["row"]["launches"]
     for key, src, reps in (("soft_dtw", "soft_dtw.cu", ("pallas_soft_dtw.py:81", "pallas_soft_dtw.py:112")),
                            ("regulate", "length_regulator.cu",

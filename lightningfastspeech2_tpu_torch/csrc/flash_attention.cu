@@ -1,8 +1,7 @@
 // flash_attention, f32 route: softmax(q k^T / sqrt(d)) v with a key-padding
-// mask and hashed dropout on the probabilities, forward and backward, on the
-// CUDA cores. bf16 inputs take flash_attention_sm90.cu (wgmma); this route
-// exists for f32, which the tensor cores have no product for (TF32 keeps
-// about three digits).
+// mask and hashed dropout on the probabilities, forward and backward, on
+// Hopper's tensor cores with split-TF32 products. bf16 inputs take
+// flash_attention_sm90.cu (wgmma).
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_attention.py _fwd_kernel and
 // _bwd_kernel (flash_attention, joined by a custom VJP there and by an
@@ -14,385 +13,601 @@
 // padded key's score is a constant, so its dS is 0 (the function's gradient
 // and the plain version's).
 //
-// Forward. The TPU kept all of K/V in VMEM and took one softmax pass per
-// row; a Hopper block's shared memory does not hold them, so each block
-// owns 64 query rows and walks K/V in 64-row tiles with an online softmax.
-// The running denominator sums the UNDROPPED p; only the kept p enters the
-// f32 accumulator, and the output is acc / (denom * (1 - rate)), as at
-// pallas_attention.py:124. The f32 log-sum-exp m + log(denom) per row is
-// saved for the backward.
+// Products. One TF32 product keeps 11 bits of each operand, about three
+// digits. Split products keep f32's: each operand is split as x = hi + lo,
+// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and a b is formed as
+// a_hi b_lo + a_lo b_hi + a_hi b_hi with f32 accumulation (CUTLASS's
+// OpMultiplyAddFastF32); the dropped a_lo b_lo is below 2^-22 of a b. Each
+// product is three mma.sync.m16n8k8 tf32 instructions. A block's own 32
+// rows (Q and dO in the forward and dQ pass, K and V in the dK/dV pass) are
+// split once, into shared memory in fragment order (one 16-byte load gives
+// a thread its four A values, hi or lo). The streamed tiles land raw
+// through cp.async and are split in registers as B fragments are loaded:
+// splitting them in shared memory would add a pass over each tile and a
+// barrier, for conversions that cost two cvt and a subtract per value.
 //
-// Backward: a dQ pass (one block per 64 query rows, keys walked in tiles)
-// first forms D_i = rowsum(dO o O), which equals sum_j p_ij dp_ij with
-// dropout too, and a K-major pass (one block per 64 keys, queries walked in
-// tiles) forms dK and dV. Both recompute P from the saved log-sum-exp and
-// the dropout mask from the hash; neither needs atomics.
+// Tiling. A block owns 32 rows (the grid is T/32 x H x B: 128 blocks at
+// (2, 2, 1024, 128)) and streams the other operand in 64-row tiles through
+// a 2-stage cp.async ring, so the next tile's copy overlaps this tile's
+// products. Its 8 warps are 2 row tiles of 16 by 4 column quarters of 16:
+// a warp forms its 16 x 16 scores and then multiplies them, as they are
+// in its registers, into a 16 x 128 f32 accumulator over its own 16
+// columns (the products' k order is permuted so that an mma's C fragment is
+// the next mma's A fragment: k position t holds column 2t, t + 4 column
+// 2t + 1). The four column quarters' partial sums (and, in the forward,
+// their running max and denominator) are combined in shared memory once,
+// at the end. Key tiles past the item's last valid key are skipped: a
+// padded key's probability is exactly 0 there, and its dK and dV too.
+//
+// Forward: online softmax per warp; the running denominator sums the
+// UNDROPPED p, only the kept p enters the accumulator, and the output is
+// acc / (denom * (1 - rate)), as at pallas_attention.py:124. The f32
+// log-sum-exp m + log(denom) per row is saved for the backward.
+//
+// Backward: a dQ pass (one block per 32 query rows, keys streamed) first
+// forms D_i = rowsum(dO o O), which equals sum_j p_ij dp_ij with dropout
+// too, and a K-major pass (one block per 32 keys, queries streamed) forms
+// dK and dV. Both recompute P from the saved log-sum-exp and the dropout
+// mask from the hash; neither takes atomics, so the backward repeats bit
+// for bit.
 //
 // Dropout: keep(query row r, key c) hashes the GLOBAL coordinates with
 // seed_bh = seed + b * H + h (lfs2::attn_keep, bit for bit
 // pallas_attention.py _dropout_keep), so every tiling agrees.
 //
-// What bounds it on an H100: operations (4 T^2 d per (b, h) forward, about
-// 2.5x that backward) at the 67 TFLOP/s of f32 without tensor cores. The
-// products are plain f32 FMAs over 4x4 / 4x8 register tiles fed from
-// shared memory.
+// What bounds it on an H100: operations. 4 T^2 d per (b, h) forward and 5
+// products backward (the split backward forms S and dP twice: 7), each
+// split product three TF32 products: at 495 TFLOP/s of dense TF32 that is
+// 3 x ops / 495 TFLOP/s, against ops / 67 TFLOP/s on the CUDA cores.
 #include "common.cuh"
+
+#include <cstdint>
 
 namespace {
 
-constexpr int D = 128;    // head dim, the only one taken
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // key rows per tile
-constexpr int LDT = 68;   // row stride of transposed tiles (keeps float4 reads aligned)
+constexpr int D = 128;        // head dim, the only one taken
+constexpr int BM = 32;        // a block's own rows
+constexpr int BN = 64;        // rows of a streamed tile
+constexpr int LDS = 132;      // row stride (floats) of a streamed tile: conflict-free B fragments
+constexpr int LDO = 136;      // row stride of the end-of-block reduction buffers
+constexpr int kFrag = BM * D; // floats of one fragment-ordered split half (hi or lo)
+constexpr int kTile = BN * LDS;
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const int* mask;
   const int* seed;
-  const void* o;
-  const void* dout;
-  void* out;      // o (forward) or dq (backward dQ pass)
+  const float* o;
+  const float* dout;
+  float* out;     // o (forward) or dq (backward dQ pass)
   float* lse;
   float* dsum;    // D_i, written by the dQ pass
-  void* dk;
-  void* dv;
+  float* dk;
+  float* dv;
   int H, T;
   float scale;
   unsigned threshold;
   float inv_keep;
 };
 
-// rows [r0, r0 + 64) of a (T, 128) slab into row-major smem [64][128]
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* x, int r0, float* dst) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 4); idx += kThreads) {
-    const int r = idx / (D / 4), d4 = (idx % (D / 4)) * 4;
-    float v[4];
-    lfs2::load_vec<4>(x + static_cast<size_t>(r0 + r) * D + d4, v);
-    *reinterpret_cast<float4*>(dst + r * D + d4) = make_float4(v[0], v[1], v[2], v[3]);
+// ---- split-TF32 products -------------------------------------------------
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32(x - h));
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b as a split product: the two correction terms, then hi x hi
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     const uint32_t bh[2], const uint32_t bl[2]) {
+  mma(c, ah, bl);
+  mma(c, al, bh);
+  mma(c, ah, bh);
+}
+
+// ---- cp.async ---------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + 64) of a (T, 128) slab into a [64][LDS] tile, asynchronously
+__device__ __forceinline__ void issue_tile(const float* x, int r0, float* dst) {
+  for (int idx = threadIdx.x; idx < BN * D / 4; idx += kThreads) {
+    const int r = idx >> 5, c = (idx & 31) * 4;
+    cp_async16(dst + r * LDS + c, x + static_cast<size_t>(r0 + r) * D + c);
   }
 }
 
-// rows [r0, r0 + 64) of a (T, 128) slab into transposed smem [128][LDT]
-// (neighbouring threads take neighbouring rows, so the stores do not
-// conflict)
-template <typename T>
-__device__ __forceinline__ void load_rows_t(const T* x, int r0, float* dst) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 4); idx += kThreads) {
-    const int r = idx % 64, d4 = (idx / 64) * 4;
-    float v[4];
-    lfs2::load_vec<4>(x + static_cast<size_t>(r0 + r) * D + d4, v);
+// 64 floats from x + r0 into dst, asynchronously
+__device__ __forceinline__ void issue_row_vec(const float* x, int r0, float* dst) {
+  if (threadIdx.x < BN / 4) cp_async16(dst + threadIdx.x * 4, x + r0 + threadIdx.x * 4);
+}
+
+// Where element (r, c) of a 32 x 128 operand sits in fragment order: per 16-row
+// tile and 8-column k-step, 32 lanes of {a0, a1, a2, a3} = (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4) with g = lane / 4, t = lane % 4.
+__device__ __forceinline__ int frag_at(int r, int c) {
+  const int rr = r & 15, cc = c & 7;
+  const int lane = (rr & 7) * 4 + (cc & 3);
+  const int reg = (rr >> 3) + 2 * (cc >> 2);
+  return ((((r >> 4) * (D / 8) + (c >> 3)) * 32 + lane) << 2) + reg;
+}
+
+// rows [r0, r0 + 32) of a (T, 128) slab, split into hi and lo, fragment-ordered
+__device__ __forceinline__ void load_split_rows(const float* x, int r0, float* hi, float* lo) {
+  for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
+    const int r = idx >> 5, c = (idx & 31) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(r0 + r) * D + c);
+    const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dst[(d4 + i) * LDT + r] = v[i];
+    for (int i = 0; i < 4; ++i) {
+      const float h = tf32(e[i]);
+      const int at = frag_at(r, c + i);
+      hi[at] = h;
+      lo[at] = tf32(e[i] - h);
+    }
   }
 }
 
-// acc[i][j] += sum_d At[d][ty*4+i] * Bt[d][tx*4+j] over d < 128
-__device__ __forceinline__ void mm_nt(const float* At, const float* Bt, float acc[4][4], int ty,
-                                      int tx) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(At + d * LDT + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(Bt + d * LDT + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+// the A fragment (hi, lo) of row tile mt at k-step ks
+__device__ __forceinline__ void load_a(const float* hi, const float* lo, int mt, int ks, int lane,
+                                       uint32_t ah[4], uint32_t al[4]) {
+  const int at = (mt * (D / 8) + ks) * 32 + lane;
+  const uint4 h = reinterpret_cast<const uint4*>(hi)[at];
+  const uint4 l = reinterpret_cast<const uint4*>(lo)[at];
+  ah[0] = h.x; ah[1] = h.y; ah[2] = h.z; ah[3] = h.w;
+  al[0] = l.x; al[1] = l.y; al[2] = l.z; al[3] = l.w;
+}
+
+// acc[j] += X Y^T at k-step ks (8 of the 128 columns) for the warp's 16 rows
+// of X (fragment-ordered, split) and the 16 rows [n0, n0 + 16) of a
+// streamed tile Y
+__device__ __forceinline__ void score_step(const float* xh, const float* xl, int mt, int ks,
+                                           const float* Y, int n0, int lane, float acc[2][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t ah[4], al[4];
+  load_a(xh, xl, mt, ks, lane, ah, al);
+  uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 2; ++j) {
+    const float* y = Y + (n0 + 8 * j + g) * LDS + 8 * ks + t;
+    split(y[0], bh[j][0], bl[j][0]);
+    split(y[4], bh[j][1], bl[j][1]);
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+  for (int j = 0; j < 2; ++j) mma(acc[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) mma(acc[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) mma(acc[j], ah, bh[j]);
+}
+
+// Two score products over d < 128 in one loop, so that their mma chains
+// interleave: acc0 += X0 Y0^T over k-steps ks0, ks0 + step, ..., acc1 +=
+// X1 Y1^T over ks1, ks1 + step, ... (two products with step 1, or the even
+// and odd k-steps of one with step 2)
+__device__ __forceinline__ void scores2(const float* x0h, const float* x0l, const float* y0,
+                                        int ks0, const float* x1h, const float* x1l,
+                                        const float* y1, int ks1, int step, int mt, int n0,
+                                        int lane, float acc0[2][4], float acc1[2][4]) {
+#pragma unroll 2
+  for (int ks = 0; ks < D / 8; ks += step) {
+    score_step(x0h, x0l, mt, ks + ks0, y0, n0, lane, acc0);
+    score_step(x1h, x1l, mt, ks + ks1, y1, n0, lane, acc1);
   }
 }
 
-// acc[i][j] += sum_c A[c][ty*4+i] * Bm[c][tx*8+j] over c < 64; A is
-// [64][LDT], Bm row-major [64][128]
-__device__ __forceinline__ void mm_pv(const float* A, const float* Bm, float acc[4][8], int ty,
-                                      int tx) {
-#pragma unroll 4
-  for (int c = 0; c < 64; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(A + c * LDT + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(Bm + c * D + tx * 8);
-    const float4 b1 = *reinterpret_cast<const float4*>(Bm + c * D + tx * 8 + 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// acc[n] += P Z for the warp's 16 x 16 block P (C fragments of scores(),
+// split) and rows [c0, c0 + 16) of a streamed tile Z, all 128 columns; k
+// position t of each 8-column step is column 2t, t + 4 is 2t + 1
+__device__ __forceinline__ void accumulate(const uint32_t ph[2][4], const uint32_t pl[2][4],
+                                           const float* Z, int c0, int lane, float acc[16][4]) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t ah[4] = {ph[j][0], ph[j][2], ph[j][1], ph[j][3]};
+    const uint32_t al[4] = {pl[j][0], pl[j][2], pl[j][1], pl[j][3]};
+    const float* z = Z + (c0 + 8 * j + 2 * t) * LDS + g;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      split(z[8 * n], bh[0], bl[0]);
+      split(z[8 * n + LDS], bh[1], bl[1]);
+      mma3(acc[n], ah, al, bh, bl);
+    }
   }
 }
 
-// max / sum over the 16 threads (tx) that share a row group (ty)
-__device__ __forceinline__ float row_max16(float v) {
+// Sum the four column quarters' 32 x 128 partial accumulators (each row
+// scaled by the thread's row_scale) through buf [4][32][LDO] and store the
+// sum to rows [r0, r0 + 32) of out. Every thread of the block calls it.
+__device__ __forceinline__ void reduce_store(const float acc[16][4], const float row_scale[2],
+                                             float* buf, float* out, int r0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * wm + g + 8 * hh;
+      *reinterpret_cast<float2*>(buf + (wn * BM + r) * LDO + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hh] * row_scale[hh], acc[n][2 * hh + 1] * row_scale[hh]);
+    }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
+    const int r = idx >> 5, c = (idx & 31) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(buf + (w * BM + r) * LDO + c);
+      s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+    }
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * D + c) = s;
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ unsigned seed_bh(const Params& p, int b, int h) {
   return static_cast<unsigned>(*p.seed) + static_cast<unsigned>(b * p.H + h);
 }
 
-// the score of a padded key: -1e30, or 0 when the item has no valid key
-// (every thread of the block calls it)
-__device__ __forceinline__ float masked_score(const Params& p, int b) {
-  int any = 0;
-  for (int i = threadIdx.x; i < p.T; i += kThreads) any |= p.mask[static_cast<size_t>(b) * p.T + i];
-  return __syncthreads_or(any) ? kNeg : 0.0f;
+// The score of a padded key (-1e30, or 0 when the item has no valid key)
+// and, in kend, the end of the item's last valid key (T when there is
+// none). Every thread of the block calls it.
+__device__ __forceinline__ float key_extent(const int* mask, int T_len, int* kend) {
+  __shared__ int s_last;
+  if (threadIdx.x == 0) s_last = -1;
+  __syncthreads();
+  int last = -1;
+  for (int i = threadIdx.x; i < T_len; i += kThreads)
+    if (mask[i]) last = i;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0) atomicMax(&s_last, last);
+  __syncthreads();
+  *kend = s_last < 0 ? T_len : s_last + 1;
+  return s_last < 0 ? 0.0f : kNeg;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                 // [128][LDT]
-  float* Kt = Qt + D * LDT;         // [128][LDT]
-  float* Vs = Kt + D * LDT;         // [64][128]
-  float* Pt = Vs + BK * D;          // [64 keys][LDT]
-  int* mk = reinterpret_cast<int*>(Pt + BK * LDT);
+  float* Qh = smem;
+  float* Ql = Qh + kFrag;
+  float* ring = Ql + kFrag;   // stage s: K tile at ring + 2 s kTile, V tile after it
+  __shared__ float s_m[8][16], s_l[8][16];
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ, T_len = p.T;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t base = (static_cast<size_t>(b) * p.H + h) * T_len * D;
-  const T* q = static_cast<const T*>(p.q) + base;
-  const T* k = static_cast<const T*>(p.k) + base;
-  const T* v = static_cast<const T*>(p.v) + base;
-  const unsigned sbh = seed_bh(p, b, h);
-  const bool drop = p.threshold != 0u;
-  const float mval = masked_score(p, b);
-
-  load_rows_t(q, q0, Qt);
-  float m[4], l[4], o[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[i][j] = 0.0f;
-  }
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    __syncthreads();
-    load_rows_t(k, k0, Kt);
-    load_rows(v, k0, Vs);
-    if (threadIdx.x < BK) mk[threadIdx.x] = p.mask[static_cast<size_t>(b) * T_len + k0 + threadIdx.x];
-    __syncthreads();
-    float s[4][4] = {};
-    mm_nt(Qt, Kt, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = mk[tx * 4 + j] ? s[i][j] * p.scale : mval;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = __expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pv = __expf(s[i][j] - m_new);
-        rs += pv;
-        if (drop && !lfs2::attn_keep(q0 + ty * 4 + i, k0 + tx * 4 + j, sbh, p.threshold)) pv = 0.0f;
-        Pt[(tx * 4 + j) * LDT + ty * 4 + i] = lfs2::round_to<T>(pv);
-      }
-      l[i] = l[i] * alpha + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();
-    mm_pv(Pt, Vs, o, ty, tx);
-  }
-  T* out = static_cast<T*>(p.out) + base;
-  const size_t row_base = (static_cast<size_t>(b) * p.H + h) * T_len;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    const float norm = 1.0f / (l[i] * (drop ? 1.0f / p.inv_keep : 1.0f));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[static_cast<size_t>(r) * D + tx * 8 + j] = lfs2::from_f<T>(o[i][j] * norm);
-    if (tx == 0) p.lse[row_base + r] = m[i] + __logf(l[i]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                 // [128][LDT]
-  float* dOt = Qt + D * LDT;
-  float* Kt = dOt + D * LDT;
-  float* Vt = Kt + D * LDT;
-  float* Ks = Vt + D * LDT;         // [64][128]
-  float* dSt = Ks + BK * D;         // [64 keys][LDT]
-  float* lse = dSt + BK * LDT;      // [64]
-  float* dsum = lse + BQ;           // [64]
-  int* mk = reinterpret_cast<int*>(dsum + BQ);
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ, T_len = p.T;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM, T_len = p.T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
   const size_t base = (static_cast<size_t>(b) * p.H + h) * T_len * D;
-  const size_t row_base = (static_cast<size_t>(b) * p.H + h) * T_len;
-  const T* q = static_cast<const T*>(p.q) + base;
-  const T* k = static_cast<const T*>(p.k) + base;
-  const T* v = static_cast<const T*>(p.v) + base;
-  const T* o = static_cast<const T*>(p.o) + base;
-  const T* dout = static_cast<const T*>(p.dout) + base;
+  const float* q = p.q + base;
+  const float* k = p.k + base;
+  const float* v = p.v + base;
+  const int* mask = p.mask + static_cast<size_t>(b) * T_len;
   const unsigned sbh = seed_bh(p, b, h);
   const bool drop = p.threshold != 0u;
-  const float mval = masked_score(p, b);
+  int kend;
+  const float mval = key_extent(mask, T_len, &kend);
+  const int n_tiles = (kend + BN - 1) / BN;
 
-  load_rows_t(q, q0, Qt);
-  load_rows_t(dout, q0, dOt);
-  // D_i = rowsum(dO o O), one warp per row
-  for (int r = warp; r < BQ; r += kThreads / 32) {
-    float a[4], c[4];
-    lfs2::load_vec<4>(dout + static_cast<size_t>(q0 + r) * D + lane * 4, a);
-    lfs2::load_vec<4>(o + static_cast<size_t>(q0 + r) * D + lane * 4, c);
-    const float s = lfs2::warp_sum(a[0] * c[0] + a[1] * c[1] + a[2] * c[2] + a[3] * c[3]);
-    if (lane == 0) {
-      dsum[r] = s;
-      p.dsum[row_base + q0 + r] = s;
-      lse[r] = p.lse[row_base + q0 + r];
+  issue_tile(k, 0, ring);
+  issue_tile(v, 0, ring + kTile);
+  cp_async_commit();
+  load_split_rows(q, q0, Qh, Ql);
+
+  float o[16][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+  const int row0 = q0 + 16 * wm + g;   // this thread's rows: row0 and row0 + 8
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    if (it + 1 < n_tiles) {
+      float* next = ring + ((it + 1) & 1) * 2 * kTile;
+      issue_tile(k, k0 + BN, next);
+      issue_tile(v, k0 + BN, next + kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = ring + (it & 1) * 2 * kTile;
+    const float* Vs = Ks + kTile;
+    float sb[2][4] = {}, so[2][4] = {};   // even and odd k-steps
+    scores2(Qh, Ql, Ks, 0, Qh, Ql, Ks, 1, 2, wm, 16 * wn, lane, sb, so);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = k0 + 16 * wn + 8 * j + 2 * t + (i & 1);
+        sb[j][i] = __ldg(mask + c) ? (sb[j][i] + so[j][i]) * p.scale : mval;
+        mx[i >> 1] = fmaxf(mx[i >> 1], sb[j][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = __expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float pv = __expf(sb[j][i] - m[i >> 1]);
+        l[i >> 1] += pv;
+        if (drop && !lfs2::attn_keep(row0 + 8 * (i >> 1), k0 + 16 * wn + 8 * j + 2 * t + (i & 1),
+                                     sbh, p.threshold))
+          pv = 0.0f;
+        split(pv, ph[j][i], pl[j][i]);
+      }
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+    accumulate(ph, pl, Vs, 16 * wn, lane, o);
+    __syncthreads();   // the stage is refilled next tile
+  }
+  cp_async_wait<0>();
+
+  // combine the four key quarters: max, denominators, then the outputs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (t == 0) {
+      s_m[warp][g + 8 * r] = m[r];
+      s_l[warp][g + 8 * r] = l[r];
     }
   }
-  float dq[4][8] = {};
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    __syncthreads();
-    load_rows_t(k, k0, Kt);
-    load_rows_t(v, k0, Vt);
-    load_rows(k, k0, Ks);
-    if (threadIdx.x < BK) mk[threadIdx.x] = p.mask[static_cast<size_t>(b) * T_len + k0 + threadIdx.x];
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_nt(Qt, Kt, s, ty, tx);
-    mm_nt(dOt, Vt, dp, ty, tx);
+  __syncthreads();
+  float row_scale[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    float M = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty * 4 + i, c = tx * 4 + j;
-        const float sv = mk[c] ? s[i][j] * p.scale : mval;
-        const float pv = __expf(sv - lse[r]);
-        float dpv = dp[i][j];
-        if (drop) dpv = lfs2::attn_keep(q0 + r, k0 + c, sbh, p.threshold) ? dpv * p.inv_keep : 0.0f;
-        dSt[c * LDT + r] = mk[c] ? lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale) : 0.0f;
-      }
-    __syncthreads();
-    mm_pv(dSt, Ks, dq, ty, tx);
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, s_m[2 * w + wm][g + 8 * r]);
+    float L = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int at = 2 * w + wm;
+      L += s_l[at][g + 8 * r] * __expf(s_m[at][g + 8 * r] - M);
+    }
+    row_scale[r] = __expf(m[r] - M) * (drop ? p.inv_keep : 1.0f) / L;
+    if (wn == 0 && t == 0)
+      p.lse[(static_cast<size_t>(b) * p.H + h) * T_len + row0 + 8 * r] = M + logf(L);
   }
-  T* dqo = static_cast<T*>(p.out) + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      dqo[static_cast<size_t>(q0 + ty * 4 + i) * D + tx * 8 + j] = lfs2::from_f<T>(dq[i][j]);
+  reduce_store(o, row_scale, ring, p.out + base, q0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;                 // [128][LDT]
-  float* Vt = Kt + D * LDT;
-  float* Qt = Vt + D * LDT;
-  float* dOt = Qt + D * LDT;
-  float* Qs = dOt + D * LDT;        // [64][128]
-  float* dOs = Qs + BQ * D;         // [64][128]
-  float* buf = dOs + BQ * D;        // [64 queries][LDT]: P_drop, then dS
-  float* lse = buf + BQ * LDT;      // [64]
-  float* dsum = lse + BQ;           // [64]
-  int* mk = reinterpret_cast<int*>(dsum + BQ);
+  float* Qh = smem;
+  float* Ql = Qh + kFrag;
+  float* dOh = Ql + kFrag;
+  float* dOl = dOh + kFrag;
+  float* ring = dOl + kFrag;  // stage s: K tile at ring + 2 s kTile, V tile after it
+  __shared__ float s_lse[BM], s_dsum[BM];
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BK, T_len = p.T;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM, T_len = p.T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
   const size_t base = (static_cast<size_t>(b) * p.H + h) * T_len * D;
   const size_t row_base = (static_cast<size_t>(b) * p.H + h) * T_len;
-  const T* q = static_cast<const T*>(p.q) + base;
-  const T* k = static_cast<const T*>(p.k) + base;
-  const T* v = static_cast<const T*>(p.v) + base;
-  const T* dout = static_cast<const T*>(p.dout) + base;
+  const float* q = p.q + base;
+  const float* k = p.k + base;
+  const float* v = p.v + base;
+  const float* o = p.o + base;
+  const float* dout = p.dout + base;
+  const int* mask = p.mask + static_cast<size_t>(b) * T_len;
   const unsigned sbh = seed_bh(p, b, h);
   const bool drop = p.threshold != 0u;
-  const float mval = masked_score(p, b);
+  int kend;
+  const float mval = key_extent(mask, T_len, &kend);
+  const int n_tiles = (kend + BN - 1) / BN;
 
-  load_rows_t(k, k0, Kt);
-  load_rows_t(v, k0, Vt);
-  if (threadIdx.x < BK) mk[threadIdx.x] = p.mask[static_cast<size_t>(b) * T_len + k0 + threadIdx.x];
-  float dk[4][8] = {}, dv[4][8] = {};
-  for (int q0 = 0; q0 < T_len; q0 += BQ) {
-    __syncthreads();
-    load_rows_t(q, q0, Qt);
-    load_rows_t(dout, q0, dOt);
-    load_rows(q, q0, Qs);
-    load_rows(dout, q0, dOs);
-    if (threadIdx.x < BQ) {
-      lse[threadIdx.x] = p.lse[row_base + q0 + threadIdx.x];
-      dsum[threadIdx.x] = p.dsum[row_base + q0 + threadIdx.x];
+  issue_tile(k, 0, ring);
+  issue_tile(v, 0, ring + kTile);
+  cp_async_commit();
+  load_split_rows(q, q0, Qh, Ql);
+  load_split_rows(dout, q0, dOh, dOl);
+  // D_i = rowsum(dO o O) from the f32 output, one warp per row
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const size_t at = static_cast<size_t>(q0 + r) * D + lane * 4;
+    const float4 a = *reinterpret_cast<const float4*>(dout + at);
+    const float4 c = *reinterpret_cast<const float4*>(o + at);
+    const float s = lfs2::warp_sum(a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w);
+    if (lane == 0) {
+      s_dsum[r] = s;
+      p.dsum[row_base + q0 + r] = s;
+      s_lse[r] = p.lse[row_base + q0 + r];
     }
+  }
+  __syncthreads();
+  const int rl = 16 * wm + g;   // this thread's rows (block-local): rl and rl + 8
+  const float lse_r[2] = {s_lse[rl], s_lse[rl + 8]};
+  const float dsum_r[2] = {s_dsum[rl], s_dsum[rl + 8]};
+
+  float dq[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    if (it + 1 < n_tiles) {
+      float* next = ring + ((it + 1) & 1) * 2 * kTile;
+      issue_tile(k, k0 + BN, next);
+      issue_tile(v, k0 + BN, next + kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // transposed scores: key c = ty*4+i, query r = tx*4+j
-    float s[4][4] = {}, dp[4][4] = {}, ds[4][4];
-    mm_nt(Kt, Qt, s, ty, tx);
-    mm_nt(Vt, dOt, dp, ty, tx);
+    const float* Ks = ring + (it & 1) * 2 * kTile;
+    const float* Vs = Ks + kTile;
+    float s[2][4] = {}, dp[2][4] = {};
+    scores2(Qh, Ql, Ks, 0, dOh, dOl, Vs, 0, 1, wm, 16 * wn, lane, s, dp);
+    uint32_t dh[2][4], dl[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = ty * 4 + i, r = tx * 4 + j;
-        const float sv = mk[c] ? s[i][j] * p.scale : mval;
-        const float pv = __expf(sv - lse[r]);
-        float pd = pv, dpv = dp[i][j];
+      for (int i = 0; i < 4; ++i) {
+        const int c = k0 + 16 * wn + 8 * j + 2 * t + (i & 1), hh = i >> 1;
+        const bool valid = __ldg(mask + c) != 0;
+        const float pv = __expf((valid ? s[j][i] * p.scale : mval) - lse_r[hh]);
+        float dpv = dp[j][i];
+        if (drop)
+          dpv = lfs2::attn_keep(q0 + rl + 8 * hh, c, sbh, p.threshold) ? dpv * p.inv_keep : 0.0f;
+        split(valid ? pv * (dpv - dsum_r[hh]) * p.scale : 0.0f, dh[j][i], dl[j][i]);
+      }
+    accumulate(dh, dl, Ks, 16 * wn, lane, dq);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.0f, 1.0f};
+  reduce_store(dq, one, ring, p.out + base, q0);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* Kh = smem;
+  float* Kl = Kh + kFrag;
+  float* Vh = Kl + kFrag;
+  float* Vl = Vh + kFrag;
+  float* ring = Vl + kFrag;   // stage s: Q tile, dO tile, lse[64], dsum[64]
+  constexpr int kStage = 2 * kTile + 2 * BN;
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM, T_len = p.T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
+  const size_t base = (static_cast<size_t>(b) * p.H + h) * T_len * D;
+  const size_t row_base = (static_cast<size_t>(b) * p.H + h) * T_len;
+  const float* q = p.q + base;
+  const float* k = p.k + base;
+  const float* v = p.v + base;
+  const float* dout = p.dout + base;
+  const int* mask = p.mask + static_cast<size_t>(b) * T_len;
+  const unsigned sbh = seed_bh(p, b, h);
+  const bool drop = p.threshold != 0u;
+  int kend;
+  const float mval = key_extent(mask, T_len, &kend);
+  if (k0 >= kend) {
+    // every key of the block lies past the item's last valid key: P and dS
+    // are 0 on these keys, and so are dK and dV
+    for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
+      const size_t at = static_cast<size_t>(k0) * D + idx * 4;
+      *reinterpret_cast<float4*>(p.dk + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(p.dv + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  // this thread's keys: c0 and c0 + 8
+  const int c0 = k0 + 16 * wm + g;
+  const bool valid[2] = {mask[c0] != 0, mask[c0 + 8] != 0};
+  const int n_tiles = T_len / BN;
+
+  issue_tile(q, 0, ring);
+  issue_tile(dout, 0, ring + kTile);
+  issue_row_vec(p.lse + row_base, 0, ring + 2 * kTile);
+  issue_row_vec(p.dsum + row_base, 0, ring + 2 * kTile + BN);
+  cp_async_commit();
+  load_split_rows(k, k0, Kh, Kl);
+  load_split_rows(v, k0, Vh, Vl);
+
+  float dk[16][4], dv[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int r0 = it * BN;
+    if (it + 1 < n_tiles) {
+      float* next = ring + ((it + 1) & 1) * kStage;
+      issue_tile(q, r0 + BN, next);
+      issue_tile(dout, r0 + BN, next + kTile);
+      issue_row_vec(p.lse + row_base, r0 + BN, next + 2 * kTile);
+      issue_row_vec(p.dsum + row_base, r0 + BN, next + 2 * kTile + BN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qs = ring + (it & 1) * kStage;
+    const float* dOs = Qs + kTile;
+    const float* lse = dOs + kTile;
+    const float* dsum = lse + BN;
+    // transposed scores: keys are rows (c0, c0 + 8), queries columns
+    float s[2][4] = {}, dp[2][4] = {};
+    scores2(Kh, Kl, Qs, 0, Vh, Vl, dOs, 0, 1, wm, 16 * wn, lane, s, dp);
+    uint32_t pdh[2][4], pdl[2][4], dsh[2][4], dsl[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rq = 16 * wn + 8 * j + 2 * t + (i & 1), hh = i >> 1;
+        const float pv = __expf((valid[hh] ? s[j][i] * p.scale : mval) - lse[rq]);
+        float pd = pv, dpv = dp[j][i];
         if (drop) {
-          const bool keep = lfs2::attn_keep(q0 + r, k0 + c, sbh, p.threshold);
+          const bool keep = lfs2::attn_keep(r0 + rq, c0 + 8 * hh, sbh, p.threshold);
           pd = keep ? pv * p.inv_keep : 0.0f;
           dpv = keep ? dpv * p.inv_keep : 0.0f;
         }
-        buf[r * LDT + c] = lfs2::round_to<T>(pd);
-        ds[i][j] = mk[c] ? lfs2::round_to<T>(pv * (dpv - dsum[r]) * p.scale) : 0.0f;
+        split(pd, pdh[j][i], pdl[j][i]);
+        split(valid[hh] ? pv * (dpv - dsum[rq]) * p.scale : 0.0f, dsh[j][i], dsl[j][i]);
       }
+    accumulate(pdh, pdl, dOs, 16 * wn, lane, dv);   // dV[c] += sum_r P_drop[r][c] dO[r]
+    accumulate(dsh, dsl, Qs, 16 * wn, lane, dk);    // dK[c] += sum_r dS[r][c] Q[r]
     __syncthreads();
-    mm_pv(buf, dOs, dv, ty, tx);   // dV[c] += sum_r P_drop[r][c] dO[r]
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) buf[(tx * 4 + j) * LDT + ty * 4 + i] = ds[i][j];
-    __syncthreads();
-    mm_pv(buf, Qs, dk, ty, tx);    // dK[c] += sum_r dS[r][c] Q[r]
   }
-  T* dko = static_cast<T*>(p.dk) + base;
-  T* dvo = static_cast<T*>(p.dv) + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const size_t at = static_cast<size_t>(k0 + ty * 4 + i) * D + tx * 8 + j;
-      dko[at] = lfs2::from_f<T>(dk[i][j]);
-      dvo[at] = lfs2::from_f<T>(dv[i][j]);
-    }
+  cp_async_wait<0>();
+  const float one[2] = {1.0f, 1.0f};
+  reduce_store(dv, one, ring, p.dv + base, k0);
+  reduce_store(dk, one, ring, p.dk + base, k0);
 }
 
-constexpr int kFwdSmem = (2 * D * LDT + BK * D + BK * LDT) * 4 + BK * 4;
-constexpr int kDqSmem = (4 * D * LDT + BK * D + BK * LDT + 2 * BQ) * 4 + BK * 4;
-constexpr int kDkvSmem = (4 * D * LDT + 2 * BQ * D + BQ * LDT + 2 * BQ) * 4 + BK * 4;
+constexpr int kFwdSmem = (2 * kFrag + 2 * 2 * kTile) * 4;
+constexpr int kDqSmem = (4 * kFrag + 2 * 2 * kTile) * 4;
+constexpr int kDkvSmem = (4 * kFrag + 2 * (2 * kTile + 2 * BN)) * 4;
+static_assert(4 * BM * LDO <= 2 * 2 * kTile, "the reduction buffer reuses the ring");
 
 template <typename K>
 cudaError_t run(K kernel, int smem, const Params& p, int B, cudaStream_t s) {
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.T / 64, p.H, B), kThreads, smem, s>>>(p);
+  kernel<<<dim3(p.T / BM, p.H, B), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 bool shape_ok(int B, int H, int T_len, int d) {
-  return B >= 1 && H >= 1 && T_len >= 64 && T_len % 64 == 0 && d == D;
+  return B >= 1 && H >= 1 && T_len >= BN && T_len % BN == 0 && d == D;
 }
 
 }  // namespace
@@ -406,10 +621,10 @@ LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const voi
                                          float* o32, int B, int H, int T_len, int d, float scale,
                                          unsigned threshold, float inv_keep, void* stream) {
   if (!shape_ok(B, H, T_len, d) || o32 != o) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, mask, seed, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+           mask, seed, nullptr, nullptr, static_cast<float*>(o), lse, nullptr, nullptr, nullptr,
            H, T_len, scale, threshold, inv_keep};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(run(fwd_kernel<float>, kFwdSmem, p, B, s));
+  return static_cast<int>(run(fwd_kernel, kFwdSmem, p, B, static_cast<cudaStream_t>(stream)));
 }
 
 // the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
@@ -421,10 +636,12 @@ LFS2_EXPORT int lfs2_flash_attention_bwd(const void* q, const void* k, const voi
                                          float scale, unsigned threshold, float inv_keep,
                                          void* stream) {
   if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, mask, seed, o, dout, dq, const_cast<float*>(lse), dsum, dk, dv,
-           H, T_len, scale, threshold, inv_keep};
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+           mask, seed, static_cast<const float*>(o), static_cast<const float*>(dout),
+           static_cast<float*>(dq), const_cast<float*>(lse), dsum, static_cast<float*>(dk),
+           static_cast<float*>(dv), H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = run(dq_kernel<float>, kDqSmem, p, B, s);
+  const cudaError_t err = run(dq_kernel, kDqSmem, p, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run(dkv_kernel<float>, kDkvSmem, p, B, s));
+  return static_cast<int>(run(dkv_kernel, kDkvSmem, p, B, s));
 }

@@ -6,7 +6,8 @@ VJP). ``flash_attention`` runs ``flash_attention_plain`` for CPU tensors and,
 for CUDA tensors, forward and backward kernels through an autograd Function,
 the library chosen by dtype (``kernel_route``): bf16 takes the Hopper
 tensor-core kernels of ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA),
-f32 the CUDA-core kernels of ``csrc/flash_attention.cu``.
+f32 the split-TF32 ``mma.sync`` kernels of ``csrc/flash_attention.cu``
+(tensor cores at f32 accuracy).
 
 Semantics as there: scores scaled by 1/sqrt(d), padded KEYS set to -1e30
 (queries are not masked), softmax, attention-probability dropout from a
@@ -77,7 +78,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (_rnd(p, v.dtype) @ v.float()).to(q.dtype)
 
 
-# the library of each dtype: bf16 on the tensor cores, f32 on the CUDA cores
+# the library of each dtype: bf16 through wgmma, f32 through split-TF32 mma.sync
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
 _c_fns = {}
 
@@ -193,8 +194,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``seed``, a (1,) int32 tensor on q's device (0 when None).
 
     CPU tensors take ``flash_attention_plain``. CUDA tensors run the kernels
-    (d = 128, T % 128 == 0; bf16 on the tensor cores, f32 on the CUDA
-    cores) and raise on anything else."""
+    (d = 128, T % 128 == 0; bf16 through wgmma, f32 through split-TF32
+    mma.sync, both on the tensor cores) and raise on anything else."""
     B, H, T, _ = q.shape
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)

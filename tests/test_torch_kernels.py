@@ -2,7 +2,8 @@
 card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
 training kernels ``ffn_ln_train`` and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
-bf16 through the wgmma kernels, f32 through the CUDA-core ones), ``soft_dtw``
+bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
+which are also held to the function in f64), ``soft_dtw``
 (value and dD), the length regulator's expand and segment-sum, and the
 FastDiff LVC chain ``lvc_stack`` (with the launches of one ε pass). Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
@@ -37,6 +38,7 @@ from torch_port_helpers import (  # noqa: F401
     ffn_params,
     resblock_block,
     resblock_params,
+    tf32_round,
     tiny_config,
 )
 
@@ -345,6 +347,55 @@ def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate, case):
             _each_item_close(a, b, 0.02, 0.004, name)
 
 
+def _flash_f64(q, k, v, do, mask, rate, seed):
+    """The function in f64 (scores, softmax, dropout, P.V and autograd's
+    gradients) on the f32 inputs: the reference the f32 kernels are held
+    to."""
+    B, H, T, d = q.shape
+    qkv = [t.double().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bhqd,bhkd->bhqk", qkv[0], qkv[1]) / math.sqrt(d)
+    p = torch.softmax(torch.where(mask[:, None, None, :], s, tatt.NEG_INF), dim=-1)
+    if rate > 0.0:
+        keep = tatt.attention_keep_mask(B, H, T, rate, seed, q.device)
+        p = torch.where(keep, p, 0.0) / (1.0 - rate)
+    out = p @ qkv[2]
+    return (out, *torch.autograd.grad(out, qkv, do.double()))
+
+
+def _worst_item(got, want):
+    """The largest (max error, mean error) over batch items, each over the
+    item's largest |want| (the batch's where the item's is 0)."""
+    top = want.abs().max().item()
+    worst = (0.0, 0.0)
+    for b in range(want.shape[0]):
+        scale = want[b].abs().max().item() or top
+        err = (got[b].double() - want[b].double()).abs()
+        worst = (max(worst[0], err.max().item() / scale), max(worst[1], err.mean().item() / scale))
+    return worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_kernels_hold_an_f64_reference(cuda_card, rate):
+    # Split-TF32 products keep f32's digits (a relative 2^-22 per operand):
+    # o, dq, dk and dv within 2e-5 of each item's largest element (2e-6 on
+    # the mean) of the function in f64. One TF32 product keeps 11 bits of
+    # each operand (2^-11, 5e-4): its scores and P.V err by about 3e-4 of
+    # the largest element (tests/test_torch_tf32_split.py), fifteen times
+    # this tolerance, as the plain version on TF32-rounded operands shows.
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, torch.float32, *_FLASH_CASES["T1024"])
+    with _deadline(120):
+        got = _flash_run(tatt.flash_attention, q, k, v, do, mask, rate, seed)
+        torch.cuda.synchronize()
+    want = _flash_f64(q, k, v, do, mask, rate, seed)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        _each_item_close(a, b, 2e-5, 2e-6, name)
+    one_pass = _flash_run(tatt.flash_attention_plain, *(tf32_round(t) for t in (q, k, v, do)),
+                          mask, rate, seed)
+    worst = [_worst_item(a, b) for a, b in zip(one_pass, want)]
+    assert any(m > 2e-5 or mu > 2e-6 for m, mu in worst), worst
+
+
 @pytest.mark.gpu
 def test_flash_attention_backward_is_deterministic(cuda_card):
     # neither backward pass takes atomics: two runs agree bit for bit
@@ -361,7 +412,7 @@ def test_flash_attention_backward_is_deterministic(cuda_card):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "flash_attention_sm90"),
                                          (torch.float32, "flash_attention")])
 def test_flash_attention_route_by_dtype(cuda_card, dtype, route):
-    # bf16 goes through the wgmma kernels, f32 through the CUDA-core ones
+    # bf16 goes through the wgmma kernels, f32 through the split-TF32 ones
     q, k, v, do, mask, seed = _flash_inputs(cuda_card, dtype, *_FLASH_CASES["T1024"])
     before = {fn: dict(fn.by_route) for fn in (tatt.flash_attention, tatt.flash_attention_bwd)}
     with _deadline(120):

@@ -1,0 +1,82 @@
+"""Split-TF32 products, as the f32 route of flash attention forms them on the
+tensor cores (csrc/flash_attention.cu), emulated on the CPU: TF32 rounding
+by integer ops on the f32 bits (``cvt.rna.tf32.f32``), and at the card
+tests' smallest flash shape the score and P.V products held to the f32
+card tolerance of ``test_flash_attention_kernels_match_plain`` (1e-4 of
+each item's largest element, 1e-5 on the mean), which the split products
+meet and one-pass TF32 products do not. Imports no JAX."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import tf32_matmul, tf32_round
+
+# the card tests' smallest flash case (_FLASH_CASES["T1024"]): B, H, T, valid keys
+B, H, T, D = 2, 2, 1024, 128
+LENGTHS = (1024, 700)
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),                   # a tie goes away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 3 * 2.0 ** -11, 1.0 + 2.0 ** -9),                 # ... whichever way that is
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),                    # below half an ulp: down
+    (3.0 + 2.0 ** -9, 3.0 + 2.0 ** -9),                      # representable: unchanged
+])
+def test_tf32_round_is_cvt_rna(x, want):
+    got = tf32_round(torch.tensor([x], dtype=torch.float32)).item()
+    assert got == want
+
+
+def test_split_keeps_22_bits():
+    # x - hi is exact in f32 and within 2^-11 |x|; lo keeps 11 bits of it
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    hi = tf32_round(x)
+    lo = tf32_round(x - hi)
+    assert bool((tf32_round(hi) == hi).all() and (tf32_round(lo) == lo).all())
+    assert ((x - hi).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((x.double() - hi.double() - lo.double()).abs() <= 2.0 ** -22 * x.double().abs()).all()
+
+
+@pytest.fixture(scope="module")
+def operands():
+    """Per product, the f32 operands (a, b) of a @ b at the card tests'
+    smallest flash shape: q and k^T / sqrt(d) for the scores; the
+    probabilities of the masked softmax (rounded to f32 from f64) and v for
+    P.V."""
+    rng = np.random.default_rng(1024)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(np.float32))
+               for _ in range(3))
+    kt = (k / math.sqrt(D)).transpose(-1, -2).contiguous()
+    s = q.double() @ kt.double()
+    mask = torch.arange(T)[None, :] < torch.tensor(LENGTHS)[:, None]
+    p = torch.softmax(torch.where(mask[:, None, None, :], s, -1e30), dim=-1).float()
+    return {"scores": (q, kt), "pv": (p, v)}
+
+
+def _within_card_tolerance(got, want):
+    """test_torch_kernels.py's f32 flash check: per batch item, max error
+    <= 1e-4 of the item's largest element + 1e-6, mean <= 1e-5 of it + 1e-7."""
+    for b in range(want.shape[0]):
+        top = want[b].abs().max().item()
+        err = (got[b].double() - want[b]).abs()
+        if err.max().item() > 1e-4 * top + 1e-6 or err.mean().item() > 1e-5 * top + 1e-7:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_pass"])
+@pytest.mark.parametrize("product", ["scores", "pv"])
+def test_split_tf32_products_hold_the_f32_card_tolerance(operands, product, split):
+    a, b = operands[product]
+    want = a.double() @ b.double()
+    got = tf32_matmul(a, b, split)
+    assert _within_card_tolerance(got, want) == split
+    if split:
+        # and by a wide margin: within 1e-6 of each item's largest element
+        for i in range(B):
+            top = want[i].abs().max().item()
+            assert (got[i].double() - want[i]).abs().max().item() <= 1e-6 * top

@@ -22,6 +22,25 @@ def cuda_card():
     return torch.device("cuda")
 
 
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: integer ops on the f32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a, b, split):
+    """``a @ b`` in f32 with TF32 operands: one product tf32(a) tf32(b), or
+    (``split``) the split product a_hi b_lo + a_lo b_hi + a_hi b_hi with hi =
+    tf32(x), lo = tf32(x - hi), as csrc/flash_attention.cu forms it. A
+    product of two TF32 values is exact in f32; the sums round in f32."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if not split:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
 def tiny_config(C, **model_kwargs):
     """Flagship structure at test size: depthwise conformer stacks, frame-level
     pitch (CWT) / energy / SNR, d-vector speakers; hidden 32, 2+2 layers,

@@ -1,7 +1,8 @@
 """The one launch path of the port's kernels.
 
 Every wrapper under ``ops/`` calls ``kernel_stream`` on the tensors it hands
-a kernel, just before the ctypes call, and passes the stream it returns.
+a kernel, before it allocates the outputs, and passes the stream it returns
+to the ctypes call.
 It does in one pass what each launch needs, at the least host cost: every
 tensor on one CUDA device and contiguous, the card of capability (9, 0)
 (checked once per device index, not per launch), and the device's current

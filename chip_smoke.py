@@ -111,6 +111,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores
               torch.float32: 67e12}     # f32 without the tensor cores
 PEAK_TF32_FLOPS = 495e12                # tensor cores, TF32
+# f32-accurate products: the faster of the CUDA cores and split TF32 on the
+# tensor cores (three TF32 products for each f32 one, 165 TFLOP/s)
+PEAK_F32_ACCURATE = max(PEAK_FLOPS[torch.float32], PEAK_TF32_FLOPS / 3)
 SAMPLING_RATE = 22050
 
 SENTENCES = (
@@ -155,24 +158,13 @@ def cuda_ms(fn, min_total_ms: float = 200.0, max_iters: int = 50) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(flops: float, nbytes: float, dtype: torch.dtype):
+def bound_ms(flops: float, nbytes: float, dtype: torch.dtype, peak: float = None):
     """The least time for the work: bytes over the memory rate or
-    operations over the peak rate for the type, whichever is larger."""
+    operations over the peak rate (the type's unless ``peak`` is given),
+    whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def f32_products_bound_ms(flops: float, nbytes: float):
-    """The least time for f32-accurate products: the lesser of the CUDA
-    cores' rate and split TF32 on the tensor cores (three TF32 products for
-    each f32 one), against the bytes; returns (ms, bound_by, which peak)."""
-    cuda_cores, split_tf32 = flops / PEAK_FLOPS[torch.float32], 3 * flops / PEAK_TF32_FLOPS
-    t_ops = min(cuda_cores, split_tf32) * 1e3
-    peak = ("split TF32, 3 x ops at 495 TFLOP/s" if split_tf32 <= cuda_cores
-            else "CUDA cores, 67 TFLOP/s")
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes", "memory") if t_bytes >= t_ops else (t_ops, "operations", peak)
 
 
 def max_err_and_tol(out: torch.Tensor, ref: torch.Tensor, f32_tol: float):
@@ -776,29 +768,22 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     # over the n valid keys of each item (all T keys where there is none).
     # Forward: S and P.V; backward: the five products S, dP, dV, dQ, dK.
     # The kernels' split backward forms S and dP in both passes, seven
-    # products: its own figure is split_bound_ms.
-    # f32: the lesser of the CUDA cores and split TF32 on the tensor cores
-    # (csrc/flash_attention.cu); cuda_core_bound_ms is the former alone
+    # products: its own figure is split_bound_ms. f32 products are
+    # f32-accurate ones (PEAK_F32_ACCURATE).
     nb = tensor_bytes(q, k, v)
     n_keys = mask.sum(1)
     unit = H * T * d * torch.where(n_keys > 0, n_keys, T).sum().item()
     bwd_bytes = 2 * nb + tensor_bytes(do, o, lse)
+    peak = PEAK_F32_ACCURATE if dtype == torch.float32 else None
     for r, ops, nbytes in ((row_f, 4 * unit, nb + tensor_bytes(o, lse)),
                            (row_b, 10 * unit, bwd_bytes)):
-        if dtype == torch.float32:
-            r["bound_ms"], r["bound_by"], r["bound_peak"] = f32_products_bound_ms(ops, nbytes)
-            r["cuda_core_bound_ms"] = bound_ms(ops, nbytes, dtype)[0]
-        else:
-            r["bound_ms"], r["bound_by"] = bound_ms(ops, nbytes, dtype)
+        r["bound_ms"], r["bound_by"] = bound_ms(ops, nbytes, dtype, peak)
         r["vs_library"] = r["ms"] / r["library_ms"]
-    split = (f32_products_bound_ms(14 * unit, bwd_bytes) if dtype == torch.float32
-             else bound_ms(14 * unit, bwd_bytes, dtype))
-    row_b["split_bound_ms"] = split[0]
-    if dtype == torch.float32:
-        # one block per 32 rows (queries forward and in the dQ pass, keys in
-        # the dK/dV pass) of each (b, h)
-        row_f["blocks_per_launch"] = B * H * T // 32
-        row_b["blocks_per_launch"] = {"dq": B * H * T // 32, "dkv": B * H * T // 32}
+    row_b["split_bound_ms"] = bound_ms(14 * unit, bwd_bytes, dtype, peak)[0]
+    if route == "flash_attention":
+        # the grids the library gave its latest launches, all at this shape
+        row_f["blocks_per_launch"] = flash_f32_blocks(0)
+        row_b["blocks_per_launch"] = {"dq": flash_f32_blocks(1), "dkv": flash_f32_blocks(2)}
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
     bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
@@ -808,6 +793,21 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     if routed != want:
         raise RuntimeError(f"flash_attention at {at}: launches by route {routed}, expected {want}")
     return {"fwd": row_f, "bwd": row_b}
+
+
+def flash_f32_blocks(which: int) -> int:
+    """Blocks in the grid of the f32 flash library's latest launch of
+    kernel ``which`` (0 the forward, 1 the dQ pass, 2 the dK/dV pass), as
+    the library recorded it when the launch was accepted."""
+    import ctypes
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    lib = build.load("flash_attention")
+    fn = lib.lfs2_flash_attention_last_grid
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    grid = (ctypes.c_int * 3)()
+    build.check(lib, fn(which, grid), "flash_attention grid query")
+    return grid[0] * grid[1] * grid[2]
 
 
 def train_kernels_phase(dev) -> dict:
@@ -1465,8 +1465,7 @@ def main() -> int:
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at", "build_s")},
                 **{k: r[k] for k in ("library_fwd_bwd_ms", "split_bound_ms", "ms_rate0",
-                                     "vs_library", "bound_peak", "cuda_core_bound_ms",
-                                     "blocks_per_launch") if k in r}})
+                                     "vs_library", "blocks_per_launch") if k in r}})
     ns = sdtw_trained["row"]["launches"]
     for key, src, reps in (("soft_dtw", "soft_dtw.cu", ("pallas_soft_dtw.py:81", "pallas_soft_dtw.py:112")),
                            ("regulate", "length_regulator.cu",

@@ -19,6 +19,8 @@ from lightningfastspeech2_tpu_torch.kernels.launch import require_kernel_device
 DeviceLike = Union[str, torch.device, None]
 
 
+# cards on which the probe kernel ran; the capability is remembered by
+# kernels/launch.py
 _probed = set()
 
 
@@ -40,8 +42,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    require_kernel_device(dev)
     if dev not in _probed:
+        require_kernel_device(dev)
         from lightningfastspeech2_tpu_torch.ops.probe import probe
 
         x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)

@@ -598,12 +598,23 @@ constexpr int kDqSmem = (4 * kFrag + 2 * 2 * kTile) * 4;
 constexpr int kDkvSmem = (4 * kFrag + 2 * (2 * kTile + 2 * BN)) * 4;
 static_assert(4 * BM * LDO <= 2 * 2 * kTile, "the reduction buffer reuses the ring");
 
+// the grid (x, y, z) of each kernel's latest accepted launch: 0 the
+// forward, 1 the dQ pass, 2 the dK/dV pass
+int g_grid[3][3];
+
 template <typename K>
-cudaError_t run(K kernel, int smem, const Params& p, int B, cudaStream_t s) {
+cudaError_t run(K kernel, int which, int smem, const Params& p, int B, cudaStream_t s) {
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.T / BM, p.H, B), kThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  const dim3 grid(p.T / BM, p.H, B);
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    g_grid[which][0] = grid.x;
+    g_grid[which][1] = grid.y;
+    g_grid[which][2] = grid.z;
+  }
+  return err;
 }
 
 bool shape_ok(int B, int H, int T_len, int d) {
@@ -624,7 +635,7 @@ LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const voi
   Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
            mask, seed, nullptr, nullptr, static_cast<float*>(o), lse, nullptr, nullptr, nullptr,
            H, T_len, scale, threshold, inv_keep};
-  return static_cast<int>(run(fwd_kernel, kFwdSmem, p, B, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(fwd_kernel, 0, kFwdSmem, p, B, static_cast<cudaStream_t>(stream)));
 }
 
 // the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
@@ -641,7 +652,16 @@ LFS2_EXPORT int lfs2_flash_attention_bwd(const void* q, const void* k, const voi
            static_cast<float*>(dq), const_cast<float*>(lse), dsum, static_cast<float*>(dk),
            static_cast<float*>(dv), H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = run(dq_kernel, kDqSmem, p, B, s);
+  const cudaError_t err = run(dq_kernel, 1, kDqSmem, p, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run(dkv_kernel, kDkvSmem, p, B, s));
+  return static_cast<int>(run(dkv_kernel, 2, kDkvSmem, p, B, s));
+}
+
+// copies into out[0..2] the grid of kernel `which` (0 the forward, 1 the dQ
+// pass, 2 the dK/dV pass) as its latest launch was given it; zeros before
+// the first
+LFS2_EXPORT int lfs2_flash_attention_last_grid(int which, int* out) {
+  if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 3; ++i) out[i] = g_grid[which][i];
+  return 0;
 }

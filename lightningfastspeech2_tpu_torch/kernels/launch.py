@@ -57,6 +57,7 @@ def kernel_stream(*tensors: Optional[torch.Tensor]) -> int:
         elif t.get_device() != index or (not t.is_cuda and t.device != first.device):
             devs = {u.device for u in tensors if u is not None}
             raise ValueError(f"kernel inputs span devices {devs}")
-    if not first.is_cuda or index not in _capable:
+    # a CPU or meta tensor's index is -1, never a checked card's
+    if index not in _capable:
         require_kernel_device(first.device)
     return torch._C._cuda_getCurrentRawStream(index)

@@ -15,13 +15,20 @@ Phases, each printed as one JSON line:
 4. kernels: each kernel against its plain PyTorch version on the card at the
    serving path's shapes, with its time (CUDA events, warmed up, L2 warm),
    the plain version's time, and its bound at the H100's published peaks.
+   The resblock rows (HiFi-GAN V1 at a 512-frame mel, B=1, bf16 and f32)
+   add the tile plan (route, tile, blocks_per_launch, shared memory, halo
+   share), achieved TFLOP/s, ``x_bound`` (time over bound) and, for bf16,
+   ``cudnn_bf16_chain_ms``: the same chain as bf16 ``F.conv1d`` calls, a
+   chain of library calls, not one (so no ``library_ms``).
 5. serving (the main path): the flagship LightSpeech (bf16) and HiFi-GAN V1
    (bf16) built from seeded generators serve sentences through
    ``SpeechGenerator.generate_from_text`` and one batch of 8 through
    ``generate_samples`` at frame bucket 512. The duration head's bias is
    taken first, on the CPU. Then every launch counter is set to 0, the
    models are built, the requests served, and the counters read: each must
-   equal what the path launches, and none may be 0.
+   equal what the path launches, and none may be 0. Then one 512-frame
+   vocoder call on the host clock and one under the profiler: device ms
+   and the resblock kernels' share and launches.
 6. reference: an f32 request on the card against the same request through
    the plain path on the CPU.
 7. train kernels: ``ffn_ln_train`` (forward and backward) at every FFN
@@ -179,20 +186,6 @@ def max_err_and_tol(out: torch.Tensor, ref: torch.Tensor, f32_tol: float):
     return err, 4.0 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
 
 
-def halo_share(w, tile: int) -> float:
-    """Share of the resblock kernel's conv work spent on halo rows, which
-    the neighbouring block computes too: each conv of the chain computes
-    the tile plus the reach still needed by the convs after it."""
-    extra = total = 0
-    for k, reaches in zip(w.kernel_sizes, w.reaches):
-        rem = sum(reaches)
-        for q in reaches:
-            rem -= q
-            extra += 2 * rem * k
-            total += (tile + 2 * rem) * k
-    return extra / total
-
-
 def tensor_bytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -346,13 +339,36 @@ def _ffn_case(dev, B, T, k, dtype, g) -> dict:
     return row
 
 
-def _resblock_cases(dev, t_mel, g) -> list:
+def resblock_chain_bf16(x: torch.Tensor, blocks) -> torch.Tensor:
+    """The resblock chain as bf16 ``F.conv1d`` calls (cuDNN) on (B, C, L),
+    ``blocks`` the resblocks' pairs with bf16 weights: a chain of library
+    calls, timed beside the kernel as a yardstick; no single PyTorch call
+    computes a ResBlock1."""
+    import torch.nn.functional as F
+
+    h = x.transpose(1, 2)
+    out = None
+    for pairs in blocks:
+        y = h
+        for w1, b1, d, w2, b2 in pairs:
+            t = F.leaky_relu(y, 0.1)
+            t = F.conv1d(t, w1, b1, padding=d * (w1.shape[-1] - 1) // 2, dilation=d)
+            t = F.conv1d(F.leaky_relu(t, 0.1), w2, b2, padding=(w2.shape[-1] - 1) // 2)
+            y = y + t
+        out = y if out is None else out + y
+    out = out / float(len(blocks)) if len(blocks) > 1 else out
+    return out.transpose(1, 2)
+
+
+def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
     """Stage 0 (three resblock launches) and stages 1-3 (one trio launch
-    each) of HiFi-GAN V1 in bf16 for a mel of ``t_mel`` frames."""
+    each) of HiFi-GAN V1 in ``dtype`` for a mel of ``t_mel`` frames, with
+    the tile plan of each launch; bf16 also times the same chain through
+    bf16 cuDNN convs."""
     from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as rb
     from lightningfastspeech2_tpu_torch.vocoder.hifigan import Generator, HifiGanConfig
 
-    cfg, dtype = HifiGanConfig(), torch.bfloat16
+    cfg = HifiGanConfig()
     gen = Generator(cfg, dtype)
     with torch.no_grad():  # unit-gain convs, so every stage carries signal
         for m in gen.resblocks.modules():
@@ -362,6 +378,7 @@ def _resblock_cases(dev, t_mel, g) -> list:
     gen.prepare()
     gen.to(dev)
     rows, L = [], t_mel
+    name = str(dtype)[6:]
     for stage, weights in enumerate(gen.stage_weights):
         L *= cfg.upsample_rates[stage]
         C = cfg.upsample_initial_channel // 2 ** (stage + 1)
@@ -376,12 +393,22 @@ def _resblock_cases(dev, t_mel, g) -> list:
             flops = L * sum(2 * k * C * C * 2 * len(ds)
                             for k, ds in zip(w.kernel_sizes, w.dilations))
             nbytes = 2 * tensor_bytes(x) + tensor_bytes(w.taps, w.bias)
+            plan = rb.tile_plan(w, 1, L)
             row = {"name": kern.__name__, "stage": stage,
-                   "at": f"x (1, {L}, {C}) bf16, k={list(w.kernel_sizes)}, Tmel={t_mel}",
-                   "max_abs_err": err, "tol": tol,
+                   "at": f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}",
+                   "route": plan.route, "max_abs_err": err, "tol": tol,
                    "ms": cuda_ms(lambda: kern(x, w)), "plain_ms": cuda_ms(lambda: plain(x, w)),
-                   "halo_recompute_share": halo_share(w, rb.kernel_tile(C, w.halo, dtype)[0])}
+                   "tile": plan.tile, "blocks_per_launch": plan.blocks,
+                   "smem_bytes": plan.smem_bytes, "halo_recompute_share": plan.halo_share}
+            if dtype == torch.bfloat16:
+                blocks = [[(w1.to(dtype), b1.to(dtype), d, w2.to(dtype), b2.to(dtype))
+                           for w1, b1, d, w2, b2 in pairs] for pairs in w.pairs]
+                chain = resblock_chain_bf16(x, blocks)
+                row["cudnn_bf16_chain_ms"] = cuda_ms(lambda: resblock_chain_bf16(x, blocks))
+                row["cudnn_bf16_chain_max_abs_err"] = (chain.float() - ref.float()).abs().max().item()
             row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["x_bound"] = row["ms"] / row["bound_ms"]
             emit({"phase": "kernel", **row})
             if not err <= tol:
                 raise RuntimeError(f"{row['name']} at {row['at']}: max |err| {err} > {tol}")
@@ -398,8 +425,11 @@ def kernels_phase(dev) -> dict:
            _ffn_case(dev, 8, 2048, 17, torch.bfloat16, g),
            _ffn_case(dev, 8, 256, 25, torch.bfloat16, g)]
     rbs = _resblock_cases(dev, 512, g)
+    # the f32 route (CUDA cores) at the same shapes: phase 6's request takes it
+    rbs_f32 = _resblock_cases(dev, 512, g, torch.float32)
     return {"ffn_ln": ffn, "resblock": [r for r in rbs if r["name"] == "resblock"],
-            "resblock_trio": [r for r in rbs if r["name"] == "resblock_trio"]}
+            "resblock_trio": [r for r in rbs if r["name"] == "resblock_trio"],
+            "resblock_f32": rbs_f32}
 
 
 def _calibrate_durations(model, gen, texts) -> float:
@@ -557,8 +587,47 @@ def serving_phase(counters) -> dict:
     path = ("probe", "ffn_ln", "resblock", "resblock_trio")
     if launches != want or any(launches[k] == 0 for k in path):
         raise RuntimeError(f"serving-path launches {launches}, expected {want}")
-    return {"launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
+    profile_row = hifigan_vocoder_profile(gen.synthesiser, cfg)
+    return {"vocoder_profile": profile_row,
+            "launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
             "requests": run["requests"], "batch": run["batch"]}
+
+
+HIFIGAN_PROFILE_FRAMES = 512
+HIFIGAN_CALL_RUNS = 5
+
+
+def hifigan_vocoder_profile(synth, cfg) -> dict:
+    """One HiFi-GAN vocoder call on a 512-frame mel, outside the counted
+    run: the host clock over HIFIGAN_CALL_RUNS calls, then one call under
+    the profiler for device ms and the resblock kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mel = (np.random.default_rng(5).standard_normal(
+        (HIFIGAN_PROFILE_FRAMES, cfg.model.audio.n_mels)) - 4.0).astype(np.float32)
+    synth(mel)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(HIFIGAN_CALL_RUNS):
+        t = time.perf_counter()
+        synth(mel)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synth(mel)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "hifigan_vocoder_profile.txt")
+    row = {"phase": "hifigan_vocoder_profile", "frames": HIFIGAN_PROFILE_FRAMES,
+           "call_ms": statistics.median(runs), "call_ms_runs": runs,
+           "device_ms": split["device_ms"], "device_launches": split["device_launches"],
+           "resblock_ms": split["resblock_ms"], "resblock_launches": split["resblock_launches"],
+           "resblock_share": split["resblock_ms"] / max(split["device_ms"], 1e-9),
+           "rest_device_ms": split["device_ms"] - split["resblock_ms"]}
+    emit(row)
+    if split["resblock_launches"] != 6:
+        raise RuntimeError(f"profiled vocoder call: {split['resblock_launches']} resblock "
+                           "kernel launches on the device, expected 6")
+    return row
 
 
 def reference_phase(served, fastdiff: bool = False) -> None:
@@ -833,8 +902,10 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
            "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
-           "lvc_stack": "lvc_stack_kernel"}
+           "lvc_stack": "lvc_stack_kernel",
+           "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "resblock_kernel")}
     out = {k: 0.0 for k in fam}
+    counts = {k: 0 for k in fam}
     total = 0.0
     rows = []
     from torch.autograd import DeviceType
@@ -857,12 +928,14 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
             pats = pat if isinstance(pat, tuple) else (pat,)
             if any(re.search(rf"\b{x}\b", e.key) for x in pats):
                 out[k] += t
+                counts[k] += e.count
     rows.sort(key=lambda r: -r[1])
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / out_name).write_text(
         "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
     return {"device_ms": total / 1e3, "device_launches": sum(c for _, _, c in rows),
-            **{f"{k}_ms": v / 1e3 for k, v in out.items()}}
+            **{f"{k}_ms": v / 1e3 for k, v in out.items()},
+            **{f"{k}_launches": v for k, v in counts.items()}}
 
 
 def reset_counts(counters) -> None:
@@ -1431,13 +1504,20 @@ def main() -> int:
         # own lines above
         _summary("ffn_ln", f"{pkg}/ffn_ln.cu", "lightningfastspeech2_tpu/ops/pallas_ffn.py:77",
                  rows["ffn_ln"][:1], n["ffn_ln"]),
-        _summary("resblock", f"{pkg}/resblock.cu",
-                 "lightningfastspeech2_tpu/ops/pallas_hifigan.py:103",
-                 rows["resblock"], n["resblock"]),
-        _summary("resblock_trio", f"{pkg}/resblock.cu",
-                 "lightningfastspeech2_tpu/ops/pallas_hifigan.py:197",
-                 rows["resblock_trio"], n["resblock_trio"]),
     ]
+    # the bf16 route (the serving path's) summed over a 512-frame call's
+    # launches, with the same chain through bf16 cuDNN convs and the f32
+    # route's times beside
+    for name, rep in (("resblock", "pallas_hifigan.py:103"),
+                      ("resblock_trio", "pallas_hifigan.py:197")):
+        rs = rows[name]
+        kernels.append({
+            **_summary(name, f"{pkg}/resblock.cu", f"lightningfastspeech2_tpu/ops/{rep}",
+                       rs, n[name]),
+            "blocks_per_launch": [r["blocks_per_launch"] for r in rs],
+            "tile": [r["tile"] for r in rs],
+            "cudnn_bf16_chain_ms": sum(r["cudnn_bf16_chain_ms"] for r in rs),
+            "f32_route_ms": sum(r["ms"] for r in rows["resblock_f32"] if r["name"] == name)})
     # the training kernels at the first decoder block's shape (held against
     # the plain version there); the per-step sum over all eight FFN blocks
     # rides along

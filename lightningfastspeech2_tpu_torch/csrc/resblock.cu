@@ -11,36 +11,68 @@
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_hifigan.py _resblock_kernel
 // (fused_resblock) and _resblock_trio_kernel (fused_resblock_trio). The TPU
-// kernels folded time into lanes (tap_blocks) to fill the MXU; that trick is
-// not carried over: this kernel takes the unfolded (B, L, C) signal and
-// (k, C_in, C_out) tap weights, and the dtype is f32 or bf16.
+// kernels folded time into lanes (tap_blocks) and rolled an f32 product to
+// fill the MXU; neither is carried over: this kernel takes the unfolded
+// (B, L, C) signal and (k, C_in, C_out) tap weights.
 //
 // What bounds it on an H100: operations. Six convs of k taps cost
 // 2*k*C*C FLOP per sample each; at C=256, k=11 that is ~8.7 MFLOP per
-// sample against 4*C bytes of input and output. What the design does about
-// it: one block owns a time tile plus a halo equal to the sum of the six
-// convs' reaches (60 samples for k=11, d=1,3,5), so all six (or eighteen)
-// convs, leaky_relus and residual adds run from on-chip memory and only the
-// tile's output is written back. Each conv computes exactly the rows the
-// next one needs (the valid region shrinks by the conv's reach), and the
-// halo rows are recomputed by the neighbouring block: PERF.md records that
-// share. Conv outputs live in shared memory; the residual signal does too
-// when two buffers fit, otherwise (f32 at C=256) in a per-block scratch
-// slice of device memory that stays in L2. Tap weights (1.4 MB for one
-// k=11 conv at C=256 in bf16) cannot fit in shared memory and stream from
-// L2. The products are plain f32 FMAs on the CUDA cores (simple first).
+// sample against 4*C bytes of input and output, far above the card's 295
+// FLOP per byte. Every route runs the whole chain from on-chip memory: one
+// block owns a time tile plus a halo equal to the sum of the six convs'
+// reaches (60 samples for k=11, d=1,3,5), each conv computes exactly the
+// rows the next one needs (the valid region shrinks by the conv's reach),
+// and only the tile's output is written back. The halo rows are recomputed
+// by the neighbouring block; the tile plan (ops/hifigan_resblock.py
+// tile_plan) weighs that share against the number of blocks.
 //
-// Shapes the kernel takes: C = 32 * CN with CN in {1, 2, 4, 8}, up to three
-// resblocks of up to three dilation pairs each, any L >= 1.
+// What holds the bf16 routes back is the taps, not the signal. A conv's
+// (k*C_in, C_out) taps (1.44 MB at C=256, k=11) cannot stay on chip, so
+// they stream from L2 in 16 KB K-chunks, and each chunk must serve as
+// many rows as the accumulators allow before the next replaces it. The
+// CUDA-core code these routes replace re-read a tap's (C, C) slice for
+// every 4 rows (about 4 FLOP per byte of L2 traffic) and ran at about
+// 3 TFLOP/s at stage 0. Here a chunk serves a 128-row pass at C >= 128
+// (128 FLOP a byte) and a 256-row pass below. On this card the copies,
+// not L2's bandwidth, then cost the most: 1024 16-byte cp.async a chunk
+// share the load pipe with the A fragments' ldmatrix. So the wgmma route
+// moves each chunk with one bulk copy and issues it while the products
+// run.
+//
+// Each conv is an implicit GEMM, y[r] = sum_j A_j[r] @ W_j with A_j[r] =
+// in[r + j*d - p], bf16 operands and f32 accumulators. A_j is a row offset
+// into the shared-memory signal, never a copy: ldmatrix takes one row
+// address per lane, so any shift is free, and rows are padded by 16 bytes
+// so that any eight consecutive rows fall in distinct bank groups. The
+// leaky on conv 1's input is applied once per A fragment in registers
+// (times 0.1f in f32, rounded to bf16 once), not per product. The epilogue
+// adds the f32 bias, zeroes rows outside [0, L), and stores leaky(y)
+// rounded (conv 1) or x + round(y) rounded (conv 2).
+//   wgmma route (wg_*, C = 128 and 256): two warpgroups of 64 rows by all
+//     C channels, A from registers, B from a 3-stage ring of swizzled
+//     chunks, one bulk copy and one mbarrier each.
+//   mma.sync route (mma_*, C = 32 and 64): eight warps of 32 rows by all C
+//     channels, B through ldmatrix.trans from a 2-stage cp.async ring of
+//     row-padded chunks, the operands of a k-step loaded during the last.
+//
+// f32 route (resblock_kernel): plain f32 FMAs on the CUDA cores. Conv outputs live
+// in shared memory; the residual signal does too when two buffers fit,
+// otherwise (C=256) in a per-block scratch slice of device memory that
+// stays in L2. Tap weights stream from L2.
+//
+// Shapes the kernel takes: C in {32, 64, 128, 256}, up to three resblocks
+// of up to three dilation pairs each, any L >= 1.
 #include "common.cuh"
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsPerPass = kRowsPerThread * (kThreads / 32);
 constexpr int kMaxRes = 3;
 constexpr int kMaxPairs = 3;
+constexpr int kMaxConvs = kMaxRes * 2 * kMaxPairs;
+constexpr int kMaxSmem = 232448;  // shared memory a block may take on sm_90
 
 struct Spec {
   int n_res;
@@ -51,6 +83,10 @@ struct Spec {
   long long w_off[kMaxRes][2 * kMaxPairs];  // element offsets of each conv's taps
   int b_off[kMaxRes][2 * kMaxPairs];        // row of each conv's bias
 };
+
+// ============================ f32 route: CUDA cores ========================
+constexpr int kRowsPerThread = 4;
+constexpr int kRowsPerPass = kRowsPerThread * (kThreads / 32);
 
 // One dilated conv over buffer rows [olo, ohi):
 //   y[r] = sum_j sum_ci in[r + j*d - p][ci] * W[j][ci][:] + bias, zero
@@ -191,62 +227,745 @@ cudaError_t launch(const void* x, void* out, const void* w, const float* bias, v
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int C, const void* x, void* out, const void* w, const float* bias,
-                     void* scratch, int B, int L, int tile, int halo, const Spec& spec,
-                     int x_in_smem, cudaStream_t s) {
+cudaError_t f32_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
+                         void* scratch, int B, int L, int tile, int halo, const Spec& spec,
+                         int x_in_smem, cudaStream_t s) {
   switch (C) {
-    case 32: return launch<T, 1>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 64: return launch<T, 2>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 128: return launch<T, 4>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 256: return launch<T, 8>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+    case 32: return launch<float, 1>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+    case 64: return launch<float, 2>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+    case 128: return launch<float, 4>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+    case 256: return launch<float, 8>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+// ======================= bf16 route: tensor cores ==========================
+using bf16 = __nv_bfloat16;
 
-LFS2_DEFINE_ERROR_STRING
+constexpr int kChunkElems = 8192;  // one K-chunk of taps: 16 KB of bf16
 
-// layout: n_res groups of [k, n_pairs, d_0, .., d_{n_pairs-1}]; the taps of
-// resblock r, pair p are w[conv], conv = r*2*n_pairs + 2p (+1 for the
-// second conv), each (k, C, C); bias is (n_convs, C) f32.
-LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const float* bias,
-                              void* scratch, int B, int L, int C, int tile, int halo,
-                              const int* layout, int n_res, int x_in_smem, int dtype,
-                              void* stream) {
-  if (n_res < 1 || n_res > kMaxRes || B < 1 || L < 1 || tile < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Spec spec = {};
-  spec.n_res = n_res;
+// One conv of the chain, the same in every block: its taps, bias row,
+// kernel size and dilation, and the buffer rows [olo, ohi) it computes.
+struct ConvStep {
+  long long w_off;
+  int b_off;
+  int k, d;
+  int olo, ohi;
+  int first;  // 1: dilated conv (reads x, writes t); 0: plain conv (reads t, adds into x)
+};
+
+struct Sched {
+  int n_res;
+  int n_convs;
+  int res_convs[kMaxRes];  // convs of each resblock
+  int res_lo[kMaxRes];     // buffer rows of x each resblock loads: [lo, hi)
+  int res_hi[kMaxRes];
+  int t_lo;                // buffer row of t's row 0
+  int x_rows, t_rows;
+  ConvStep conv[kMaxConvs];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// leaky on two packed bf16: max(a, bf16(a * 0.1f)), the product in f32 and
+// rounded once (a bf16 0.1 is 0.10009765625, and would round differently)
+__device__ __forceinline__ uint32_t leaky2(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __hmax2(h, __floats2bfloat162_rn(f.x * 0.1f, f.y * 0.1f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The A fragment of 16 rows by 16 input channels (mma.m16n8k16's layout,
+// which wgmma takes from registers too): this lane's row is a_row, clamped
+// to the buffer (a clamped row only feeds an output row past the conv's
+// end, which the epilogue drops); the k-step's tap j shifts it by j*d - pad.
+template <int C, int LD>
+__device__ __forceinline__ void load_a(uint32_t a[4], unsigned src, int src_rows, int a_row,
+                                       int kg, int d, int pad, int lane) {
+  const int r = min(a_row + (kg / C) * d - pad, src_rows - 1);
+  ldmatrix_x4(a, src + 2u * (r * LD + kg % C + (lane >> 4) * 8));
+}
+
+__device__ __forceinline__ void leaky_a(uint32_t a[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = leaky2(a[i]);
+}
+
+// ---- the chain around the products, shared by both routes ----------------
+// The chunk stream: the (conv, pass, chunk) whose taps are loaded next.
+struct Cursor {
+  int conv, pass, chunk;
+};
+
+template <int C, int KC, int PASS>
+__device__ __forceinline__ void advance(Cursor& c, const Sched& sc) {
+  const ConvStep& cs = sc.conv[c.conv];
+  if (++c.chunk * KC >= cs.k * C) {
+    c.chunk = 0;
+    if (++c.pass * PASS >= cs.ohi - cs.olo) {
+      c.pass = 0;
+      ++c.conv;
+    }
+  }
+}
+
+// The input rows [lo, hi) of a resblock into x, zero outside [0, L)
+template <int C, int LD>
+__device__ __forceinline__ void load_x(bf16* xs, const bf16* __restrict__ xb, int lo, int hi,
+                                       int g0, int L) {
+  constexpr int kVec = C / 8;
+  for (int idx = threadIdx.x; idx < (hi - lo) * kVec; idx += kThreads) {
+    const int row = lo + idx / kVec, v = idx % kVec;
+    const int gp = g0 + row;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (gp >= 0 && gp < L)
+      val = *reinterpret_cast<const uint4*>(xb + static_cast<long long>(gp) * C + v * 8);
+    *reinterpret_cast<uint4*>(xs + row * LD + v * 8) = val;
+  }
+}
+
+// The epilogue of two adjacent channels of one output row: y = acc + bias,
+// zero outside [0, L); conv 1 stores leaky(y) into t, conv 2 x += round(y)
+template <int LD>
+__device__ __forceinline__ void store_pair(const ConvStep& cs, bf16* xs, bf16* ts, int t_lo,
+                                           int row, int col, float a0, float a1, float2 bv,
+                                           bool inside) {
+  const float v0 = inside ? a0 + bv.x : 0.0f;
+  const float v1 = inside ? a1 + bv.y : 0.0f;
+  if (cs.first) {
+    *reinterpret_cast<__nv_bfloat162*>(ts + (row - t_lo) * LD + col) =
+        __floats2bfloat162_rn(fmaxf(v0, v0 * 0.1f), fmaxf(v1, v1 * 0.1f));
+  } else {
+    __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(xs + row * LD + col);
+    const float2 xv = __bfloat1622float2(*xp);
+    const float2 yv = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+    *xp = __floats2bfloat162_rn(xv.x + yv.x, xv.y + yv.y);
+  }
+}
+
+// The tile's rows of resblock r into the output: x1, then ((x1 + x2) + x3) / 3
+template <int C, int LD>
+__device__ __forceinline__ void combine(const bf16* xs, bf16* __restrict__ ob, int halo, int t0,
+                                        int tile, int L, int r, int n_res) {
+  constexpr int kVec = C / 8;
+  for (int idx = threadIdx.x; idx < tile * kVec; idx += kThreads) {
+    const int i = idx / kVec, v = idx % kVec;
+    const int gp = t0 + i;
+    if (gp >= L) break;
+    uint4* op = reinterpret_cast<uint4*>(ob + static_cast<long long>(gp) * C + v * 8);
+    const uint4 xv = *reinterpret_cast<const uint4*>(xs + (halo + i) * LD + v * 8);
+    if (r == 0) {
+      *op = xv;
+      continue;
+    }
+    uint4 ov = *op;
+    const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(oh[j]), c = __bfloat1622float2(xh[j]);
+      float s0 = lfs2::round_to<bf16>(a.x + c.x), s1 = lfs2::round_to<bf16>(a.y + c.y);
+      if (r == n_res - 1) {
+        s0 = s0 / static_cast<float>(n_res);
+        s1 = s1 / static_cast<float>(n_res);
+      }
+      oh[j] = __floats2bfloat162_rn(s0, s1);
+    }
+    *op = ov;
+  }
+}
+
+// ---- C <= 64: mma.sync ------------------------------------------------------
+// A warp owns 32 rows by all C channels (NT n8 tiles); the 8 warps span a
+// 256-row pass. Taps stream through a 2-stage ring of row-padded chunks
+// read with ldmatrix.trans.
+template <int C> struct MmaGeo {
+  static constexpr int MT = 2;                // m16 tiles per warp
+  static constexpr int NT = C / 8;            // n8 tiles per warp
+  static constexpr int PASS = 16 * MT * 8;    // rows per pass
+  static constexpr int KC = kChunkElems / C;  // K rows per chunk
+  static constexpr int LD = C + 8;            // padded row stride (elements)
+  static constexpr int STAGES = 2;
+};
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// K rows [k0, k0 + rows) of one conv's (k*C, C) taps into a padded stage
+template <int C>
+__device__ __forceinline__ void issue_chunk_padded(const bf16* __restrict__ taps, int k0,
+                                                   int rows, unsigned dst) {
+  using G = MmaGeo<C>;
+  constexpr int kVec = C / 8;  // 16-byte pieces per row
+  const bf16* src = taps + static_cast<long long>(k0) * C;
+  for (int idx = threadIdx.x; idx < rows * kVec; idx += kThreads) {
+    const int r = idx / kVec, v = idx % kVec;
+    cp_async16(dst + 2u * (r * G::LD + v * 8), src + static_cast<long long>(r) * C + v * 8);
+  }
+}
+
+// The operands of one k-step of 16: the warp's A rows and its B columns
+template <int C> struct Frags {
+  uint32_t a[MmaGeo<C>::MT][4];
+  uint32_t b[MmaGeo<C>::NT / 2][4];
+};
+
+template <int C>
+__device__ __forceinline__ void load_frags(Frags<C>& f, unsigned src, int src_rows, int a_row,
+                                           unsigned b_addr, int kg0, int s, int d, int pad,
+                                           int n_mt, int lane) {
+  using G = MmaGeo<C>;
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+    if (mt < n_mt)
+      load_a<C, G::LD>(f.a[mt], src, src_rows, a_row + 16 * mt, kg0 + 16 * s, d, pad, lane);
+#pragma unroll
+  for (int np = 0; np < G::NT / 2; ++np)
+    ldmatrix_x4_trans(f.b[np], b_addr + 2u * (16 * s * G::LD + np * 16));
+}
+
+// the step's products, with the leaky on conv 1's input applied to A here,
+// a step after its load
+template <int C, bool FIRST>
+__device__ __forceinline__ void frag_products(float (&acc)[MmaGeo<C>::MT][MmaGeo<C>::NT][4],
+                                              Frags<C>& f, int n_mt) {
+  using G = MmaGeo<C>;
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt) {
+    if (mt >= n_mt) continue;
+    if (FIRST) leaky_a(f.a[mt]);
+#pragma unroll
+    for (int np = 0; np < G::NT / 2; ++np) {
+      mma_bf16(acc[mt][2 * np], f.a[mt], f.b[np]);
+      mma_bf16(acc[mt][2 * np + 1], f.a[mt], f.b[np] + 2);
+    }
+  }
+}
+
+// acc += the products of one K-chunk (ksteps of 16) for the warp's rows,
+// the operands of step s + 1 loaded while step s's products issue
+template <int C, bool FIRST>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MmaGeo<C>::MT][MmaGeo<C>::NT][4],
+                                          unsigned src, int src_rows, int a_row, unsigned stage,
+                                          int kg0, int ksteps, int d, int pad, int n_mt,
+                                          int lane) {
+  using G = MmaGeo<C>;
+  const unsigned b_addr =
+      stage + 2u * (((lane & 7) + ((lane >> 3) & 1) * 8) * G::LD + (lane >> 4) * 8);
+  Frags<C> f0, f1;
+  load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, 0, d, pad, n_mt, lane);
+  for (int s = 0; s < ksteps; s += 2) {
+    if (s + 1 < ksteps)
+      load_frags<C>(f1, src, src_rows, a_row, b_addr, kg0, s + 1, d, pad, n_mt, lane);
+    frag_products<C, FIRST>(acc, f0, n_mt);
+    if (s + 1 < ksteps) {
+      if (s + 2 < ksteps)
+        load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, s + 2, d, pad, n_mt, lane);
+      frag_products<C, FIRST>(acc, f1, n_mt);
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+mma_resblock_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                    const bf16* __restrict__ w, const float* __restrict__ bias, int L, int tile,
+                    int halo, const __grid_constant__ Sched sc) {
+  using G = MmaGeo<C>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned ring = smem_u32(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw) + G::STAGES * G::KC * G::LD;
+  bf16* ts = xs + sc.x_rows * G::LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int t0 = blockIdx.x * tile;
+  const int g0 = t0 - halo;  // signal position of buffer row 0
+  const bf16* xb = x + static_cast<long long>(blockIdx.y) * L * C;
+  bf16* ob = out + static_cast<long long>(blockIdx.y) * L * C;
+  constexpr int kStageBytes = G::KC * G::LD * 2;
+
+  // the next chunk is issued before this one's products, into the other stage
+  Cursor cur = {0, 0, 0};
+  issue_chunk_padded<C>(w + sc.conv[0].w_off, 0, min(G::KC, sc.conv[0].k * C), ring);
+  cp_async_commit();
+  advance<C, G::KC, G::PASS>(cur, sc);
+  int q = 0, ci = 0;
+  for (int r = 0; r < sc.n_res; ++r) {
+    load_x<C, G::LD>(xs, xb, sc.res_lo[r], sc.res_hi[r], g0, L);
+    // (the first chunk barrier below orders these stores before any read)
+    for (int e = 0; e < sc.res_convs[r]; ++e, ++ci) {
+      const ConvStep cs = sc.conv[ci];
+      const int K = cs.k * C;
+      const int chunks = (K + G::KC - 1) / G::KC;
+      const int passes = (cs.ohi - cs.olo + G::PASS - 1) / G::PASS;
+      const int pad = cs.d * (cs.k - 1) / 2;
+      const float* bconv = bias + static_cast<long long>(cs.b_off) * C;
+      const unsigned src = smem_u32(cs.first ? xs : ts);
+      const int src_base = cs.first ? 0 : sc.t_lo;
+      const int src_rows = cs.first ? sc.x_rows : sc.t_rows;
+      for (int p = 0; p < passes; ++p) {
+        const int row0 = cs.olo + p * G::PASS + warp * 16 * G::MT;
+        const int n_mt = max(0, min(G::MT, (cs.ohi - row0 + 15) / 16));
+        float acc[G::MT][G::NT][4];
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+        for (int i = 0; i < chunks; ++i, ++q) {
+          cp_async_wait_all();
+          __syncthreads();  // chunk q has landed for every thread; q - 1's stage is free
+          if (cur.conv < sc.n_convs) {
+            const ConvStep& nx = sc.conv[cur.conv];
+            issue_chunk_padded<C>(w + nx.w_off, cur.chunk * G::KC,
+                                  min(G::KC, nx.k * C - cur.chunk * G::KC),
+                                  ring + ((q + 1) % G::STAGES) * kStageBytes);
+            advance<C, G::KC, G::PASS>(cur, sc);
+          }
+          cp_async_commit();
+          if (n_mt == 0) continue;
+          const int ksteps = min(G::KC, K - i * G::KC) / 16;
+          const unsigned stage = ring + (q % G::STAGES) * kStageBytes;
+          const int a_row = row0 + (lane & 15) - src_base;
+          if (cs.first)
+            mma_chunk<C, true>(acc, src, src_rows, a_row, stage, i * G::KC, ksteps, cs.d, pad,
+                               n_mt, lane);
+          else
+            mma_chunk<C, false>(acc, src, src_rows, a_row, stage, i * G::KC, ksteps, cs.d, pad,
+                                n_mt, lane);
+        }
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int col = nt * 8 + 2 * tq;
+          const float2 bv = *reinterpret_cast<const float2*>(bconv + col);
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = row0 + 16 * mt + g + 8 * h;
+              if (mt < n_mt && row < cs.ohi)
+                store_pair<G::LD>(cs, xs, ts, sc.t_lo, row, col, acc[mt][nt][2 * h],
+                                  acc[mt][nt][2 * h + 1], bv, g0 + row >= 0 && g0 + row < L);
+            }
+        }
+      }
+    }
+    __syncthreads();
+    combine<C, G::LD>(xs, ob, halo, t0, tile, L, r, sc.n_res);
+    __syncthreads();
+  }
+}
+
+// ---- C >= 128: wgmma --------------------------------------------------------
+// Two warpgroups, each 64 rows by all C channels (m64nCk16), span a
+// 128-row pass. A comes from registers (ldmatrix at any row shift, the
+// leaky applied there), B from shared memory in the MN-major layout with
+// 128-byte swizzle (csrc/flash_attention_sm90.cu's V tiles): 64-channel
+// boxes of 128-byte rows, 16-byte pieces XOR-swizzled by row % 8. The
+// taps are stored in that layout, chunk by chunk (ops/hifigan_resblock.py
+// prepare_resblock_weights), so one thread moves a 16 KB chunk with one
+// bulk copy, off the load pipe the A fragments take. A 3-stage ring,
+// filled two chunks ahead, an mbarrier per stage.
+template <int C> struct WgGeo {
+  static constexpr int PASS = 128;             // rows per pass
+  static constexpr int KC = kChunkElems / C;   // K rows per chunk
+  static constexpr int KS = KC / 16;           // k-steps per chunk
+  static constexpr int LD = C + 8;             // x and t row stride (elements)
+  static constexpr int BOX = KC * 128;         // bytes of one 64-channel box of a chunk
+  static constexpr int STAGE = KC * C * 2;     // bytes of a chunk
+  static constexpr int STAGES = 3;
+  static constexpr int BARS = 64;              // bytes for the stages' mbarriers
+  static_assert(C % 128 == 0 && C <= 256 && BOX % 1024 == 0, "wgmma geometry");
+};
+
+// descriptor high word: stride of 8-row groups along K (1024 bytes) and
+// the 128-byte swizzle; the low word holds the start address >> 4 and the
+// leading offset, the stride from one 64-channel box to the next
+constexpr uint32_t kDescHi = (1024u >> 4) | (1u << 30);
+
+template <int BOX> __device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
+  return ((addr & 0x3FFFFu) >> 4) | ((BOX >> 4) << 16);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers an in-flight wgmma reads or writes, pinned after the wait that
+// retires it, so that the compiler neither reuses nor reads them before
+template <int N> __device__ __forceinline__ void hold(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void hold(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// d (64 x N) += A (registers) * B (smem, MN-major: the transpose bit), B's
+// 64-channel boxes apart by the descriptor's leading offset
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4], uint32_t db);
+
+template <> __device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                          uint32_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %70, 0;\n"
+      "mov.b64 db, {%68, %69};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(db), "r"(kDescHi), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[128], const uint32_t (&a)[4],
+                                                          uint32_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %134, 0;\n"
+      "mov.b64 db, {%132, %133};\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(db), "r"(kDescHi), "r"(1));
+}
+
+// ---- mbarriers and bulk copies ----
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that has not
+// completed after 2^26 tries (seconds) traps: a fault, not a hung card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (unsigned tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1u << 26)) __trap();
+  }
+}
+
+// contiguous bytes (16-byte aligned, a multiple of 16) into shared memory,
+// counted on the mbarrier's transaction bytes
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// acc += one K-chunk's products for the warpgroup's 64 rows. The next
+// chunk's copies (issue_next) are issued once the products are in flight:
+// ahead of them they would queue before the A loads in the load pipe.
+template <int C, bool FIRST, typename Issue>
+__device__ __forceinline__ void wg_chunk(float (&acc)[C / 2], unsigned src, int src_rows,
+                                         int a_row, unsigned stage, int kg0, int d, int pad,
+                                         int lane, Issue&& issue_next) {
+  using G = WgGeo<C>;
+  uint32_t a[G::KS][4];
+#pragma unroll
+  for (int s = 0; s < G::KS; ++s)
+    load_a<C, G::LD>(a[s], src, src_rows, a_row, kg0 + 16 * s, d, pad, lane);
+  if (FIRST) {
+#pragma unroll
+    for (int s = 0; s < G::KS; ++s) leaky_a(a[s]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < G::KS; ++s)
+    wgmma_rs_t<C>(acc, a[s], desc_lo<G::BOX>(stage + s * 16 * 128));
+  wgmma_commit();
+  issue_next();
+  wgmma_wait_all();
+  hold(acc);
+  hold(a);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+wg_resblock_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                   const bf16* __restrict__ w, const float* __restrict__ bias, int L, int tile,
+                   int halo, const __grid_constant__ Sched sc) {
+  using G = WgGeo<C>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const unsigned ring = smem_u32(smem);
+  const unsigned full = ring + G::STAGES * G::STAGE;  // a stage's chunk has landed
+  bf16* xs = reinterpret_cast<bf16*>(smem + G::STAGES * G::STAGE + G::BARS);
+  bf16* ts = xs + sc.x_rows * G::LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3;   // warpgroup, warp within it
+  const int g = lane >> 2, tq = lane & 3;
+  const int t0 = blockIdx.x * tile;
+  const int g0 = t0 - halo;  // signal position of buffer row 0
+  const bf16* xb = x + static_cast<long long>(blockIdx.y) * L * C;
+  bf16* ob = out + static_cast<long long>(blockIdx.y) * L * C;
+
+  // chunks are issued two ahead of the one whose products run, by thread 0
+  Cursor cur = {0, 0, 0};
+  auto issue = [&](int stage) {
+    if (cur.conv >= sc.n_convs) return;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + 8 * stage, G::STAGE);
+      bulk_load(ring + stage * G::STAGE,
+                w + sc.conv[cur.conv].w_off + static_cast<long long>(cur.chunk) * G::KC * C,
+                G::STAGE, full + 8 * stage);
+    }
+    __syncwarp();  // warp 0 whole again before its next wgmma instruction
+    advance<C, G::KC, G::PASS>(cur, sc);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < G::STAGES; ++i) mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < G::STAGES - 1; ++i) issue(i);
+  int q = 0, ci = 0;
+  for (int r = 0; r < sc.n_res; ++r) {
+    load_x<C, G::LD>(xs, xb, sc.res_lo[r], sc.res_hi[r], g0, L);
+    // (the first chunk barrier below orders these stores before any read)
+    for (int e = 0; e < sc.res_convs[r]; ++e, ++ci) {
+      const ConvStep cs = sc.conv[ci];
+      const int chunks = cs.k * C / G::KC;
+      const int passes = (cs.ohi - cs.olo + G::PASS - 1) / G::PASS;
+      const int pad = cs.d * (cs.k - 1) / 2;
+      const float* bconv = bias + static_cast<long long>(cs.b_off) * C;
+      const unsigned src = smem_u32(cs.first ? xs : ts);
+      const int src_base = cs.first ? 0 : sc.t_lo;
+      const int src_rows = cs.first ? sc.x_rows : sc.t_rows;
+      for (int p = 0; p < passes; ++p) {
+        const int row0 = cs.olo + p * G::PASS + wg * 64;  // the warpgroup's first row
+        const bool active = row0 < cs.ohi;
+        float acc[C / 2];
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) acc[i] = 0.0f;
+        for (int i = 0; i < chunks; ++i, ++q) {
+          mbar_wait(full + 8 * (q % G::STAGES), (q / G::STAGES) & 1);  // chunk q has landed
+          __syncthreads();  // every warpgroup is done with chunk q - 1's stage
+          auto issue_next = [&] { issue((q + G::STAGES - 1) % G::STAGES); };
+          const unsigned stage = ring + (q % G::STAGES) * G::STAGE;
+          const int a_row = row0 + 16 * wq + (lane & 15) - src_base;
+          if (!active)
+            issue_next();
+          else if (cs.first)
+            wg_chunk<C, true>(acc, src, src_rows, a_row, stage, i * G::KC, cs.d, pad, lane,
+                              issue_next);
+          else
+            wg_chunk<C, false>(acc, src, src_rows, a_row, stage, i * G::KC, cs.d, pad, lane,
+                               issue_next);
+        }
+        if (!active) continue;
+        // accumulator layout: n8 block j holds rows g and g + 8 of the
+        // warp's 16, channels 8j + 2tq and + 1
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          const float2 bv = *reinterpret_cast<const float2*>(bconv + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + 16 * wq + g + 8 * h;
+            if (row < cs.ohi)
+              store_pair<G::LD>(cs, xs, ts, sc.t_lo, row, col, acc[4 * j + 2 * h],
+                                acc[4 * j + 2 * h + 1], bv, g0 + row >= 0 && g0 + row < L);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    combine<C, G::LD>(xs, ob, halo, t0, tile, L, r, sc.n_res);
+    __syncthreads();
+  }
+}
+
+// shared-memory bytes of the bf16 launch: the tap ring (plus the 1 KB that
+// aligns the swizzled one and its mbarriers), x and t
+int bf16_smem_bytes(int C, const Sched& sc) {
+  const int rows = sc.x_rows + sc.t_rows;
+  switch (C) {
+    case 32: return (MmaGeo<32>::STAGES * MmaGeo<32>::KC + rows) * MmaGeo<32>::LD * 2;
+    case 64: return (MmaGeo<64>::STAGES * MmaGeo<64>::KC + rows) * MmaGeo<64>::LD * 2;
+    case 128: return 1024 + WgGeo<128>::STAGES * WgGeo<128>::STAGE + WgGeo<128>::BARS +
+                     rows * WgGeo<128>::LD * 2;
+    case 256: return 1024 + WgGeo<256>::STAGES * WgGeo<256>::STAGE + WgGeo<256>::BARS +
+                     rows * WgGeo<256>::LD * 2;
+    default: return -1;
+  }
+}
+
+template <typename K>
+cudaError_t bf16_launch(K kernel, int smem, const void* x, void* out, const void* w,
+                        const float* bias, int B, int L, int tile, int halo, const Sched& sc,
+                        cudaStream_t stream) {
+  if (smem < 0 || smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + tile - 1) / tile, B);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(x), static_cast<bf16*>(out),
+                                           static_cast<const bf16*>(w), bias, L, tile, halo, sc);
+  return cudaGetLastError();
+}
+
+cudaError_t bf16_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
+                          int B, int L, int tile, int halo, const Sched& sc, cudaStream_t s) {
+  const int smem = bf16_smem_bytes(C, sc);
+  switch (C) {
+    case 32: return bf16_launch(mma_resblock_kernel<32>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
+    case 64: return bf16_launch(mma_resblock_kernel<64>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
+    case 128: return bf16_launch(wg_resblock_kernel<128>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
+    case 256: return bf16_launch(wg_resblock_kernel<256>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// layout: n_res groups of [k, n_pairs, d_0, .., d_{n_pairs-1}]
+int parse_spec(const int* layout, int n_res, int C, int halo, Spec* spec) {
+  if (n_res < 1 || n_res > kMaxRes) return 0;
+  *spec = Spec{};
+  spec->n_res = n_res;
   long long w_off = 0;
   int b_off = 0;
   int pos = 0;
   for (int r = 0; r < n_res; ++r) {
     const int k = layout[pos++];
     const int np = layout[pos++];
-    if (k < 1 || np < 1 || np > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
-    spec.k[r] = k;
-    spec.n_pairs[r] = np;
+    if (k < 1 || np < 1 || np > kMaxPairs) return 0;
+    spec->k[r] = k;
+    spec->n_pairs[r] = np;
     int reach = 0;
     for (int p = 0; p < np; ++p) {
       const int d = layout[pos++];
-      spec.dil[r][p] = d;
+      if (d < 1) return 0;
+      spec->dil[r][p] = d;
       reach += d * (k - 1) / 2 + (k - 1) / 2;
       for (int e = 0; e < 2; ++e) {
-        spec.w_off[r][2 * p + e] = w_off;
-        spec.b_off[r][2 * p + e] = b_off;
+        spec->w_off[r][2 * p + e] = w_off;
+        spec->b_off[r][2 * p + e] = b_off;
         w_off += static_cast<long long>(k) * C * C;
         b_off += 1;
       }
     }
-    if (reach > halo) return static_cast<int>(cudaErrorInvalidValue);
-    spec.reach[r] = reach;
+    if (reach > halo) return 0;
+    spec->reach[r] = reach;
   }
+  return 1;
+}
+
+// the bf16 route's chain, the same for every block: each conv computes the
+// rows the convs after it still need, in buffer coordinates (row 0 is
+// signal position tile_start - halo)
+Sched make_sched(const Spec& spec, int tile, int halo) {
+  Sched sc = {};
+  sc.n_res = spec.n_res;
+  sc.t_lo = halo;
+  int n = 0;
+  for (int r = 0; r < spec.n_res; ++r) {
+    const int k = spec.k[r];
+    int lo = halo - spec.reach[r], hi = halo + tile + spec.reach[r];
+    sc.res_lo[r] = lo;
+    sc.res_hi[r] = hi;
+    sc.res_convs[r] = 2 * spec.n_pairs[r];
+    for (int p = 0; p < spec.n_pairs[r]; ++p) {
+      for (int e = 0; e < 2; ++e) {
+        const int d = e == 0 ? spec.dil[r][p] : 1;
+        const int q = d * (k - 1) / 2;
+        lo += q;
+        hi -= q;
+        ConvStep& cs = sc.conv[n++];
+        cs.w_off = spec.w_off[r][2 * p + e];
+        cs.b_off = spec.b_off[r][2 * p + e];
+        cs.k = k;
+        cs.d = d;
+        cs.olo = lo;
+        cs.ohi = hi;
+        cs.first = e == 0;
+        if (e == 0) sc.t_lo = lo < sc.t_lo ? lo : sc.t_lo;
+      }
+    }
+  }
+  sc.n_convs = n;
+  sc.x_rows = tile + 2 * halo;
+  sc.t_rows = tile + 2 * (halo - sc.t_lo);
+  return sc;
+}
+
+}  // namespace
+
+LFS2_DEFINE_ERROR_STRING
+
+// The taps of resblock r, pair p are w[conv], conv = r*2*n_pairs + 2p (+1
+// for the second conv), each (k, C, C); bias is (n_convs, C) f32. bf16
+// runs the tensor-core route (scratch and x_in_smem unused), f32 the
+// CUDA-core route.
+LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const float* bias,
+                              void* scratch, int B, int L, int C, int tile, int halo,
+                              const int* layout, int n_res, int x_in_smem, int dtype,
+                              void* stream) {
+  Spec spec;
+  if (B < 1 || L < 1 || tile < 1 || !parse_spec(layout, n_res, C, halo, &spec))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == lfs2::kBF16
-          ? dispatch<__nv_bfloat16>(C, x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s)
-          : dispatch<float>(C, x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+          ? bf16_dispatch(C, x, out, w, bias, B, L, tile, halo, make_sched(spec, tile, halo), s)
+          : f32_dispatch(C, x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
   return static_cast<int>(err);
+}
+
+// The shared-memory bytes a bf16 launch with this tile takes (the tile
+// plan's own count, held against this one by a card test); -1 when the
+// layout or C is not taken.
+LFS2_EXPORT int lfs2_resblock_smem_bytes(int C, int tile, int halo, const int* layout,
+                                         int n_res) {
+  Spec spec;
+  if (tile < 1 || !parse_spec(layout, n_res, C, halo, &spec)) return -1;
+  return bf16_smem_bytes(C, make_sched(spec, tile, halo));
 }

@@ -7,6 +7,8 @@ Counterpart of ``lightningfastspeech2_tpu/ops/pallas_hifigan.py``
 kernel in ``csrc/resblock.cu``; for a CPU tensor they run the plain
 versions below. The TPU kernels' time-into-lanes fold (``tap_blocks``) was
 a trick for the MXU and is not carried over: signals stay (B, L, C).
+The kernel has three routes: bf16 at C >= 128 on the tensor cores through
+wgmma, bf16 below through mma.sync, f32 on the CUDA cores.
 
 Numerics, kernel and plain alike: leaky_relu(0.1) on the working dtype
 before the first conv of a pair, f32 accumulation, bias and the second
@@ -15,14 +17,18 @@ each residual add, every conv zero outside the signal. The trio sums its
 resblock outputs in the working dtype and divides by their count.
 
 Tap stacks are prepared once, when weights load
-(``prepare_resblock_weights``), not per call.
+(``prepare_resblock_weights``, in the order the route reads them), not per
+call. ``tile_plan`` is the one place that sizes a launch: the time tile,
+its shared memory and blocks, and the share of conv work spent on halo
+rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +37,19 @@ from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 LRELU_SLOPE = 0.1
-# shared memory a block may take (of the H100's 227 KB), and the tile cap
-_SMEM_BUDGET = 200 * 1024
-_TILE_CAP = 256
-_SLACK_ROWS = 4  # csrc/resblock.cu kRowsPerThread
+# the H100 SXM: shared memory a block may take, and streaming multiprocessors
+SMEM_PER_BLOCK = 232_448
+SM_COUNT = 132
+# bf16 routes, as csrc/resblock.cu MmaGeo<C> (C <= 64: mma.sync, a 2-stage
+# ring of row-padded 8192-element K-chunks, 256-row passes of 32-row warp
+# tiles) and WgGeo<C> (C >= 128: wgmma, a 3-stage ring of swizzled chunks,
+# the 1 KB that aligns it and 64 bytes of mbarriers, 128-row passes of
+# 64-row warpgroup tiles); x and t rows padded by 8 elements
+_CHUNK = 8192
+# f32 route: shared memory budget, tile cap, slack rows (kRowsPerThread)
+_F32_SMEM = 200 * 1024
+_F32_TILE_CAP = 256
+_F32_SLACK = 4
 _c_fn = None
 
 # one residual pair: (w1, b1, dilation, w2, b2), torch Conv1d layout (C, C, k)
@@ -49,7 +64,7 @@ class ResblockWeights:
     dtype: torch.dtype
     kernel_sizes: Tuple[int, ...]
     dilations: Tuple[Tuple[int, ...], ...]
-    taps: torch.Tensor      # every conv's (k, C_in, C_out) taps, flat, working dtype
+    taps: torch.Tensor      # every conv's taps, flat, working dtype, as _kernel_taps lays them
     bias: torch.Tensor      # (n_convs, C) f32
     pairs: List[List[Pair]]  # per resblock, f32 weights rounded through dtype
 
@@ -90,7 +105,7 @@ def prepare_resblock_weights(
             rb_pairs = []
             for d, (w1, b1, w2, b2) in zip(ds, convs):
                 for w, b in ((w1, b1), (w2, b2)):
-                    taps.append(w.to(dtype).permute(2, 1, 0).reshape(-1))
+                    taps.append(_kernel_taps(w.to(dtype).permute(2, 1, 0)))
                     biases.append(b.float())
                 rb_pairs.append((w1.to(dtype).float(), b1.float(), int(d),
                                  w2.to(dtype).float(), b2.float()))
@@ -106,6 +121,24 @@ def prepare_resblock_weights(
         )
 
 
+def _kernel_taps(w: torch.Tensor) -> torch.Tensor:
+    """One conv's (k, C_in, C_out) taps, flat, as the kernel reads them.
+    The wgmma route (bf16, C >= 128) copies 8192-element K-chunks of the
+    (k C_in, C_out) matrix into shared memory as they lie, so each chunk is
+    stored as its shared-memory image: 64-channel boxes of 128-byte rows,
+    the 16-byte pieces of row r at piece index ^ (r % 8). Otherwise the
+    taps stay in order."""
+    k, C, _ = w.shape
+    if w.dtype != torch.bfloat16 or _bf16_geometry(C)[0] != "wgmma":
+        return w.reshape(-1)
+    kc = _CHUNK // C
+    # (chunk, row, box, piece, element) -> (chunk, box, row, swizzled piece, element)
+    m = w.reshape(k * C // kc, kc, C // 64, 8, 8).permute(0, 2, 1, 3, 4)
+    piece = torch.arange(8)[None, :] ^ (torch.arange(kc)[:, None] % 8)   # (row, slot)
+    idx = piece.to(w.device)[None, None, :, :, None].expand(m.shape)
+    return torch.gather(m, 3, idx).reshape(-1)
+
+
 def _conv_f32(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               dilation: int) -> torch.Tensor:
     pad = dilation * (w.shape[-1] - 1) // 2
@@ -113,12 +146,17 @@ def _conv_f32(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     dilation=dilation).transpose(1, 2)
 
 
+def leaky(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0.1 x) in x's dtype: for bf16 the product is taken in f32
+    (0.1f, not bf16's 0.10009765625) and rounded once, as the kernels do."""
+    return torch.maximum(x, x * LRELU_SLOPE)
+
+
 def _one_plain(x: torch.Tensor, pairs: Sequence[Pair]) -> torch.Tensor:
     dt = x.dtype
     for w1, b1, d, w2, b2 in pairs:
-        t = torch.maximum(x, x * LRELU_SLOPE)
-        t = _conv_f32(t, w1, b1, d)
-        t = torch.maximum(t, t * LRELU_SLOPE).to(dt)
+        t = _conv_f32(leaky(x), w1, b1, d)
+        t = leaky(t).to(dt)
         t = _conv_f32(t, w2, b2, 1)
         x = x + t.to(dt)
     return x
@@ -140,18 +178,120 @@ def resblock_trio_plain(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
     return out / float(w.n_res)
 
 
-def kernel_tile(channels: int, halo: int, dtype: torch.dtype) -> Tuple[int, bool]:
-    """(time tile, residual signal in shared memory) for the kernel: the
-    largest multiple of 32 up to 256 whose buffers fit the budget, with
-    both buffers in shared memory when they fit and the residual signal in
-    a per-block device-memory scratch otherwise."""
-    row_bytes = channels * torch.empty((), dtype=dtype).element_size()
+def conv_rows(w: ResblockWeights, tile: int) -> Tuple[Tuple[int, ...], ...]:
+    """Per resblock, the rows each conv of the chain computes for a tile:
+    the tile plus twice the reach of the convs still ahead of it."""
+    out = []
+    for reaches in w.reaches:
+        rem = sum(reaches)
+        rows = []
+        for q in reaches:
+            rem -= q
+            rows.append(tile + 2 * rem)
+        out.append(tuple(rows))
+    return tuple(out)
+
+
+def halo_share(w: ResblockWeights, tile: int) -> float:
+    """Share of the kernel's conv work spent on halo rows, which the
+    neighbouring block computes too."""
+    total = extra = 0
+    for k, rows in zip(w.kernel_sizes, conv_rows(w, tile)):
+        total += k * sum(rows)
+        extra += k * sum(r - tile for r in rows)
+    return extra / total
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How one launch is cut: ``tile`` output rows a block, ``blocks`` in
+    all, ``smem_bytes`` of shared memory each; ``x_in_smem`` (f32 route)
+    keeps the residual signal in shared memory, else in device scratch."""
+
+    route: str             # bf16: "wgmma" (C >= 128) or "mma" (mma.sync); "f32" (CUDA cores)
+    tile: int
+    blocks: int
+    smem_bytes: int
+    x_in_smem: bool
+    halo_share: float
+
+
+def _bf16_geometry(C: int) -> Tuple[str, int, int, int]:
+    """(route, rows a pass, rows a warp or warpgroup tile, K rows a chunk)
+    at C channels."""
+    if C >= 128:
+        return "wgmma", 128, 64, _CHUNK // C
+    return "mma", 256, 32, _CHUNK // C
+
+
+def _bf16_smem(w: ResblockWeights, tile: int) -> int:
+    """The bf16 launch's shared memory: the tap ring, the signal x (tile +
+    2 halo rows) and the first convs' outputs t, from their lowest row."""
+    C, halo = w.channels, w.halo
+    route, _, _, kc = _bf16_geometry(C)
+    t_lo = min(halo - sum(r) + r[0] for r in w.reaches)
+    rows = (tile + 2 * halo) + (tile + 2 * (halo - t_lo))
+    ring = 1024 + 3 * kc * C * 2 + 64 if route == "wgmma" else 2 * kc * (C + 8) * 2
+    return ring + rows * (C + 8) * 2
+
+
+def _bf16_cost(w: ResblockWeights, tile: int) -> float:
+    """A block's work in units of one full chunk at C=256: every pass of
+    every conv walks all of the conv's K-chunks (the loads), and a chunk
+    costs more than a load where its products outweigh a C=256 pass's."""
+    C = w.channels
+    _, pass_rows, tile_rows, kc = _bf16_geometry(C)
+    cost = 0.0
+    for k, rows in zip(w.kernel_sizes, conv_rows(w, tile)):
+        chunks = -(-k * C // kc)
+        for n in rows:
+            for p0 in range(0, n, pass_rows):
+                active = -(-min(pass_rows, n - p0) // tile_rows) * tile_rows
+                cost += chunks * max(1.0, active * kc * C / (64 * _CHUNK))
+    return cost
+
+
+_plans: Dict[tuple, TilePlan] = {}
+
+
+def tile_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
+    """The launch of ``w``'s kernel on (B, L, C): bf16 takes the tensor-core
+    route, whose tile (a multiple of 16) minimises the waves of blocks over
+    the card's SMs times a block's work, larger tiles winning ties; f32
+    takes the CUDA-core route's largest tile up to 256 that fits. Kept per
+    (structure, B, L): a launch looks it up."""
+    key = (w.channels, w.dtype, w.kernel_sizes, w.dilations, B, L)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _make_plan(w, B, L)
+    return plan
+
+
+def _make_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
+    C, halo = w.channels, w.halo
+    if w.dtype == torch.bfloat16:
+        best = None
+        for tile in range(16, 16 * -(-L // 16) + 1, 16):
+            smem = _bf16_smem(w, tile)
+            if smem > SMEM_PER_BLOCK:
+                break
+            blocks = B * -(-L // tile)
+            est = math.ceil(blocks / SM_COUNT) * _bf16_cost(w, tile)
+            if best is None or est <= best[0]:
+                best = (est, tile, blocks, smem)
+        if best is None:
+            raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
+        _, tile, blocks, smem = best
+        return TilePlan(_bf16_geometry(C)[0], tile, blocks, smem, True, halo_share(w, tile))
+    row_bytes = C * torch.empty((), dtype=w.dtype).element_size()
     for buffers in (2, 1):
-        tile = _SMEM_BUDGET // (buffers * row_bytes) - 2 * halo - _SLACK_ROWS
-        tile = min(_TILE_CAP, tile // 32 * 32)
+        tile = _F32_SMEM // (buffers * row_bytes) - 2 * halo - _F32_SLACK
+        tile = min(_F32_TILE_CAP, tile // 32 * 32)
         if tile >= 32:
-            return tile, buffers == 2
-    raise ValueError(f"resblock kernel: C={channels} with halo {halo} does not fit")
+            smem = (tile + 2 * halo + _F32_SLACK) * row_bytes * buffers
+            return TilePlan("f32", tile, B * -(-L // tile), smem, buffers == 2,
+                            halo_share(w, tile))
+    raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
 
 
 def _fn():
@@ -178,19 +318,17 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
                          f"its weights, got C={C}, weights {w.channels}")
     if w.n_res > 3 or any(len(ds) > 3 for ds in w.dilations):
         raise ValueError(f"{what} kernel takes up to 3 resblocks of up to 3 pairs")
-    halo = w.halo
-    tile, x_in_smem = kernel_tile(C, halo, x.dtype)
-    n_blocks = B * -(-L // tile)
-    scratch = (torch.empty(0, dtype=x.dtype, device=x.device) if x_in_smem else
-               torch.empty(n_blocks * (tile + 2 * halo + _SLACK_ROWS) * C,
+    plan = tile_plan(w, B, L)
+    scratch = (torch.empty(0, dtype=x.dtype, device=x.device) if plan.x_in_smem else
+               torch.empty(plan.blocks * (plan.tile + 2 * w.halo + _F32_SLACK) * C,
                            dtype=x.dtype, device=x.device))
     layout = w.layout
     c_layout = (ctypes.c_int * len(layout))(*layout)
     out = torch.empty_like(x)
     lib, fn = _fn()
     rc = fn(x.data_ptr(), out.data_ptr(), w.taps.data_ptr(), w.bias.data_ptr(),
-            scratch.data_ptr(), B, L, C, tile, halo, c_layout, w.n_res,
-            int(x_in_smem), build.DTYPE_CODES[x.dtype], stream)
+            scratch.data_ptr(), B, L, C, plan.tile, w.halo, c_layout, w.n_res,
+            int(plan.x_in_smem), build.DTYPE_CODES[x.dtype], stream)
     build.check(lib, rc, what)
     return out
 

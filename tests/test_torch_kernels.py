@@ -72,16 +72,41 @@ def test_ffn_ln_kernel_matches_plain(cuda_card, C_, F_, k, T, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+# (C, L, kernel sizes, B): the small shapes, HiFi-GAN V1's own at a
+# 512-frame mel (stage 0's three resblocks, stage 1's trio), and the edges a
+# tiling can break: L shorter than the halo (1, 37), L one past a tile
+# boundary ("tile+1", resolved against the plan), and B = 2
+RESBLOCK_CASES = [
+    (256, 300, (11,), 2), (128, 257, (3, 7, 11), 2), (32, 40, (3, 7, 11), 2),
+    (256, 4096, (3,), 1), (256, 4096, (7,), 1), (256, 4096, (11,), 1),
+    (128, 32768, (3, 7, 11), 1),
+    (256, 1, (11,), 1), (64, 1, (3, 7, 11), 2), (256, 37, (7,), 2), (32, 37, (3, 7, 11), 1),
+    (256, "tile+1", (11,), 1), (128, "tile+1", (3, 7, 11), 2), (64, "tile+1", (3, 7, 11), 1),
+]
+
+
+def _one_past_a_tile(w, B):
+    """The least L > 4000 whose planned tile leaves one row in the last block."""
+    for L in range(4001, 1 << 17):
+        if L % trb.tile_plan(w, B, L).tile == 1:
+            return L
+    raise AssertionError("no L one past a tile boundary")
+
+
+def _resblock_weights(C_, ks, dtype, dev):
+    blocks = [resblock_block(resblock_params(k, C_, k, scale=2.0), k) for k in ks]
+    return trb.prepare_resblock_weights(
+        [(k, d, [tuple(t.to(dev) for t in c) for c in convs]) for k, d, convs in blocks], dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C_,L,ks", [(256, 300, (11,)), (128, 257, (3, 7, 11)),
-                                     (32, 40, (3, 7, 11))])
-def test_resblock_kernels_match_plain(cuda_card, C_, L, ks, dtype):
-    blocks = [resblock_block(resblock_params(k, C_, k, scale=2.0), k) for k in ks]
-    w = trb.prepare_resblock_weights(
-        [(k, d, [tuple(t.to(cuda_card) for t in c) for c in convs])
-         for k, d, convs in blocks], dtype)
-    x = torch.randn(2, L, C_, device=cuda_card).to(dtype)
+@pytest.mark.parametrize("C_,L,ks,B", RESBLOCK_CASES)
+def test_resblock_kernels_match_plain(cuda_card, C_, L, ks, B, dtype):
+    w = _resblock_weights(C_, ks, dtype, cuda_card)
+    if L == "tile+1":
+        L = _one_past_a_tile(w, B)
+    x = torch.randn(B, L, C_, device=cuda_card).to(dtype)
     kernel, plain = ((trb.resblock, trb.resblock_plain) if len(ks) == 1 else
                      (trb.resblock_trio, trb.resblock_trio_plain))
     before = kernel.launches
@@ -96,6 +121,26 @@ def test_resblock_kernels_match_plain(cuda_card, C_, L, ks, dtype):
     top = ref.abs().max().item()
     tol = 2e-5 * top if dtype == torch.float32 else 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C_,ks", [(256, (11,)), (256, (3,)), (128, (3, 7, 11)),
+                                   (32, (3, 7, 11))])
+def test_resblock_plan_smem_matches_the_library(cuda_card, C_, ks):
+    """The tile plan's shared-memory count is the one the bf16 launch asks
+    for (csrc/resblock.cu lfs2_resblock_smem_bytes)."""
+    import ctypes
+
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    w = _resblock_weights(C_, ks, torch.bfloat16, "cpu")
+    lib = build.load("resblock")
+    fn = lib.lfs2_resblock_smem_bytes
+    fn.restype = ctypes.c_int
+    layout = (ctypes.c_int * len(w.layout))(*w.layout)
+    for L in (1, 37, 4096, 32768):
+        plan = trb.tile_plan(w, 1, L)
+        assert fn(C_, plan.tile, w.halo, layout, w.n_res) == plan.smem_bytes
 
 
 @pytest.mark.gpu

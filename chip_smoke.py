@@ -16,8 +16,9 @@ Phases, each printed as one JSON line:
    serving path's shapes, with its time (CUDA events, warmed up, L2 warm),
    the plain version's time, and its bound at the H100's published peaks.
    The resblock rows (HiFi-GAN V1 at a 512-frame mel, B=1, bf16 and f32)
-   add the tile plan (route, tile, blocks_per_launch, shared memory, halo
-   share), achieved TFLOP/s, ``x_bound`` (time over bound) and, for bf16,
+   add the launch as the library recorded it (tile, blocks_per_launch,
+   shared memory, each held against the tile plan), the route and halo
+   share, achieved TFLOP/s, ``x_bound`` (time over bound) and, for bf16,
    ``cudnn_bf16_chain_ms``: the same chain as bf16 ``F.conv1d`` calls, a
    chain of library calls, not one (so no ``library_ms``).
 5. serving (the main path): the flagship LightSpeech (bf16) and HiFi-GAN V1
@@ -26,7 +27,8 @@ Phases, each printed as one JSON line:
    ``generate_samples`` at frame bucket 512. The duration head's bias is
    taken first, on the CPU. Then every launch counter is set to 0, the
    models are built, the requests served, and the counters read: each must
-   equal what the path launches, and none may be 0. Then one 512-frame
+   equal what the path launches, and none may be 0. Then the batch again,
+   five times on the host clock (median and spread), and one 512-frame
    vocoder call on the host clock and one under the profiler: device ms
    and the resblock kernels' share and launches.
 6. reference: an f32 request on the card against the same request through
@@ -387,19 +389,26 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
             trio = w.n_res > 1
             kern, plain = ((rb.resblock_trio, rb.resblock_trio_plain) if trio
                            else (rb.resblock, rb.resblock_plain))
-            out, ref = kern(x, w), plain(x, w)
+            out = kern(x, w)
+            launched = rb.last_launch()   # as the library gave it to the card
+            ref = plain(x, w)
             torch.cuda.synchronize()
             err, tol = max_err_and_tol(out, ref, 1e-4)
             flops = L * sum(2 * k * C * C * 2 * len(ds)
                             for k, ds in zip(w.kernel_sizes, w.dilations))
             nbytes = 2 * tensor_bytes(x) + tensor_bytes(w.taps, w.bias)
             plan = rb.tile_plan(w, 1, L)
+            if launched != {"blocks": plan.blocks, "tile": plan.tile,
+                            "smem_bytes": plan.smem_bytes}:
+                raise RuntimeError(f"{kern.__name__} at L={L}: launched {launched}, "
+                                   f"planned {plan}")
             row = {"name": kern.__name__, "stage": stage,
                    "at": f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}",
                    "route": plan.route, "max_abs_err": err, "tol": tol,
                    "ms": cuda_ms(lambda: kern(x, w)), "plain_ms": cuda_ms(lambda: plain(x, w)),
-                   "tile": plan.tile, "blocks_per_launch": plan.blocks,
-                   "smem_bytes": plan.smem_bytes, "halo_recompute_share": plan.halo_share}
+                   "tile": launched["tile"], "blocks_per_launch": launched["blocks"],
+                   "smem_bytes": launched["smem_bytes"],
+                   "halo_recompute_share": plan.halo_share}
             if dtype == torch.bfloat16:
                 blocks = [[(w1.to(dtype), b1.to(dtype), d, w2.to(dtype), b2.to(dtype))
                            for w1, b1, d, w2, b2 in pairs] for pairs in w.pairs]
@@ -543,8 +552,30 @@ def _serve_all(gen, cfg, dvecs, tag: str = "") -> dict:
     torch.cuda.synchronize()
     # every vocoder call (one per item) sees the mel at its request's bucket
     buckets = [warm["frame_bucket"]] + [r["frame_bucket"] for r in requests] + [bucket] * len(wavs)
-    return {"requests": requests, "batch": row, "vocoder_buckets": buckets,
-            "n_calls": len(SENTENCES) + 2}
+    return {"requests": requests, "batch": row, "batch_inputs": batch,
+            "vocoder_buckets": buckets, "n_calls": len(SENTENCES) + 2}
+
+
+BATCH_RUNS = 5
+
+
+def batch_repeats(gen, batch, first: dict) -> dict:
+    """The served batch again, BATCH_RUNS times on the host clock, outside
+    the counted run: its median and spread, since one host-clock reading
+    moves by up to 2x between runs of the same code."""
+    runs = []
+    for _ in range(BATCH_RUNS):
+        t = time.perf_counter()
+        gen.generate_samples(batch)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(runs)
+    row = {"phase": "batch_repeats", "batch": first["batch"],
+           "frame_bucket": first["frame_bucket"], "ms_median": ms, "ms_min": min(runs),
+           "ms_max": max(runs), "ms_runs": runs, "first_ms": first["ms"],
+           "audio_s_per_s_median": first["audio_s"] / (ms / 1e3)}
+    emit(row)
+    return row
 
 
 def serving_phase(counters) -> dict:
@@ -587,8 +618,9 @@ def serving_phase(counters) -> dict:
     path = ("probe", "ffn_ln", "resblock", "resblock_trio")
     if launches != want or any(launches[k] == 0 for k in path):
         raise RuntimeError(f"serving-path launches {launches}, expected {want}")
+    repeats = batch_repeats(gen, run["batch_inputs"], run["batch"])
     profile_row = hifigan_vocoder_profile(gen.synthesiser, cfg)
-    return {"vocoder_profile": profile_row,
+    return {"vocoder_profile": profile_row, "batch_repeats": repeats,
             "launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
             "requests": run["requests"], "batch": run["batch"]}
 

@@ -84,6 +84,22 @@ struct Spec {
   int b_off[kMaxRes][2 * kMaxPairs];        // row of each conv's bias
 };
 
+// the latest accepted launch, either route: grid x, y, z, shared-memory
+// bytes a block and the time tile
+int g_last_launch[5];
+
+cudaError_t record_launch(const dim3& grid, int smem, int tile) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    g_last_launch[0] = grid.x;
+    g_last_launch[1] = grid.y;
+    g_last_launch[2] = grid.z;
+    g_last_launch[3] = smem;
+    g_last_launch[4] = tile;
+  }
+  return err;
+}
+
 // ============================ f32 route: CUDA cores ========================
 constexpr int kRowsPerThread = 4;
 constexpr int kRowsPerPass = kRowsPerThread * (kThreads / 32);
@@ -224,7 +240,7 @@ cudaError_t launch(const void* x, void* out, const void* w, const float* bias, v
                                            static_cast<const T*>(w), bias,
                                            static_cast<T*>(scratch), L, tile, halo, spec,
                                            x_in_smem);
-  return cudaGetLastError();
+  return record_launch(grid, smem, tile);
 }
 
 cudaError_t f32_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
@@ -851,7 +867,7 @@ cudaError_t bf16_launch(K kernel, int smem, const void* x, void* out, const void
   const dim3 grid((L + tile - 1) / tile, B);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(x), static_cast<bf16*>(out),
                                            static_cast<const bf16*>(w), bias, L, tile, halo, sc);
-  return cudaGetLastError();
+  return record_launch(grid, smem, tile);
 }
 
 cudaError_t bf16_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
@@ -960,12 +976,9 @@ LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const flo
   return static_cast<int>(err);
 }
 
-// The shared-memory bytes a bf16 launch with this tile takes (the tile
-// plan's own count, held against this one by a card test); -1 when the
-// layout or C is not taken.
-LFS2_EXPORT int lfs2_resblock_smem_bytes(int C, int tile, int halo, const int* layout,
-                                         int n_res) {
-  Spec spec;
-  if (tile < 1 || !parse_spec(layout, n_res, C, halo, &spec)) return -1;
-  return bf16_smem_bytes(C, make_sched(spec, tile, halo));
+// copies into out[0..4] the grid (x, y, z), shared-memory bytes and tile of
+// the latest accepted launch; zeros before the first
+LFS2_EXPORT int lfs2_resblock_last_launch(int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = g_last_launch[i];
+  return 0;
 }

@@ -26,6 +26,7 @@ rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
@@ -40,11 +41,8 @@ LRELU_SLOPE = 0.1
 # the H100 SXM: shared memory a block may take, and streaming multiprocessors
 SMEM_PER_BLOCK = 232_448
 SM_COUNT = 132
-# bf16 routes, as csrc/resblock.cu MmaGeo<C> (C <= 64: mma.sync, a 2-stage
-# ring of row-padded 8192-element K-chunks, 256-row passes of 32-row warp
-# tiles) and WgGeo<C> (C >= 128: wgmma, a 3-stage ring of swizzled chunks,
-# the 1 KB that aligns it and 64 bytes of mbarriers, 128-row passes of
-# 64-row warpgroup tiles); x and t rows padded by 8 elements
+# bf16 routes: taps stream in K-chunks of this many elements (see
+# _bf16_geometry); x and t rows are padded by 8 elements
 _CHUNK = 8192
 # f32 route: shared memory budget, tile cap, slack rows (kRowsPerThread)
 _F32_SMEM = 200 * 1024
@@ -54,6 +52,30 @@ _c_fn = None
 
 # one residual pair: (w1, b1, dilation, w2, b2), torch Conv1d layout (C, C, k)
 Pair = Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ChainShape:
+    """What a launch's plan depends on besides (B, L): the channels, the
+    dtype and the resblocks' kernel sizes and dilations."""
+
+    channels: int
+    dtype: torch.dtype
+    kernel_sizes: Tuple[int, ...]
+    dilations: Tuple[Tuple[int, ...], ...]
+
+    @property
+    def reaches(self) -> Tuple[Tuple[int, ...], ...]:
+        """Per resblock, each conv's reach in samples, in chain order: the
+        dilated conv's d·(k−1)/2, then the plain conv's (k−1)/2."""
+        return tuple(tuple(r for d in ds for r in (d * (k - 1) // 2, (k - 1) // 2))
+                     for k, ds in zip(self.kernel_sizes, self.dilations))
+
+    @property
+    def halo(self) -> int:
+        """Largest sum of conv reaches over the resblocks (60 for k=11,
+        dilations 1, 3, 5)."""
+        return max(sum(r) for r in self.reaches)
 
 
 @dataclass
@@ -69,21 +91,20 @@ class ResblockWeights:
     pairs: List[List[Pair]]  # per resblock, f32 weights rounded through dtype
 
     @property
+    def shape(self) -> ChainShape:
+        return ChainShape(self.channels, self.dtype, self.kernel_sizes, self.dilations)
+
+    @property
     def n_res(self) -> int:
         return len(self.kernel_sizes)
 
     @property
     def reaches(self) -> Tuple[Tuple[int, ...], ...]:
-        """Per resblock, each conv's reach in samples, in chain order: the
-        dilated conv's d·(k−1)/2, then the plain conv's (k−1)/2."""
-        return tuple(tuple(r for d in ds for r in (d * (k - 1) // 2, (k - 1) // 2))
-                     for k, ds in zip(self.kernel_sizes, self.dilations))
+        return self.shape.reaches
 
     @property
     def halo(self) -> int:
-        """Largest sum of conv reaches over the resblocks (60 for k=11,
-        dilations 1, 3, 5)."""
-        return max(sum(r) for r in self.reaches)
+        return self.shape.halo
 
     @property
     def layout(self) -> Tuple[int, ...]:
@@ -178,7 +199,7 @@ def resblock_trio_plain(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
     return out / float(w.n_res)
 
 
-def conv_rows(w: ResblockWeights, tile: int) -> Tuple[Tuple[int, ...], ...]:
+def conv_rows(w: ChainShape | ResblockWeights, tile: int) -> Tuple[Tuple[int, ...], ...]:
     """Per resblock, the rows each conv of the chain computes for a tile:
     the tile plus twice the reach of the convs still ahead of it."""
     out = []
@@ -192,7 +213,7 @@ def conv_rows(w: ResblockWeights, tile: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(out)
 
 
-def halo_share(w: ResblockWeights, tile: int) -> float:
+def halo_share(w: ChainShape | ResblockWeights, tile: int) -> float:
     """Share of the kernel's conv work spent on halo rows, which the
     neighbouring block computes too."""
     total = extra = 0
@@ -216,31 +237,35 @@ class TilePlan:
     halo_share: float
 
 
-def _bf16_geometry(C: int) -> Tuple[str, int, int, int]:
-    """(route, rows a pass, rows a warp or warpgroup tile, K rows a chunk)
-    at C channels."""
+def _bf16_geometry(C: int) -> Tuple[str, int, int, int, int]:
+    """(route, rows a pass, rows a warp or warpgroup tile, K rows a chunk,
+    tap-ring bytes) at C channels, as csrc/resblock.cu MmaGeo<C>, WgGeo<C>
+    and bf16_smem_bytes lay them out (a card test and chip_smoke.py hold
+    launches' tile, grid and shared memory against the plan, as
+    ``last_launch`` reads them): wgmma at C >= 128, a 3-stage ring of
+    swizzled chunks, the 1 KB that aligns it and 64 bytes of mbarriers;
+    mma.sync below, a 2-stage ring of row-padded chunks."""
+    kc = _CHUNK // C
     if C >= 128:
-        return "wgmma", 128, 64, _CHUNK // C
-    return "mma", 256, 32, _CHUNK // C
+        return "wgmma", 128, 64, kc, 1024 + 3 * _CHUNK * 2 + 64
+    return "mma", 256, 32, kc, 2 * kc * (C + 8) * 2
 
 
-def _bf16_smem(w: ResblockWeights, tile: int) -> int:
+def _bf16_smem(w: ChainShape, tile: int) -> int:
     """The bf16 launch's shared memory: the tap ring, the signal x (tile +
     2 halo rows) and the first convs' outputs t, from their lowest row."""
     C, halo = w.channels, w.halo
-    route, _, _, kc = _bf16_geometry(C)
     t_lo = min(halo - sum(r) + r[0] for r in w.reaches)
     rows = (tile + 2 * halo) + (tile + 2 * (halo - t_lo))
-    ring = 1024 + 3 * kc * C * 2 + 64 if route == "wgmma" else 2 * kc * (C + 8) * 2
-    return ring + rows * (C + 8) * 2
+    return _bf16_geometry(C)[4] + rows * (C + 8) * 2
 
 
-def _bf16_cost(w: ResblockWeights, tile: int) -> float:
+def _bf16_cost(w: ChainShape, tile: int) -> float:
     """A block's work in units of one full chunk at C=256: every pass of
     every conv walks all of the conv's K-chunks (the loads), and a chunk
     costs more than a load where its products outweigh a C=256 pass's."""
     C = w.channels
-    _, pass_rows, tile_rows, kc = _bf16_geometry(C)
+    _, pass_rows, tile_rows, kc, _ = _bf16_geometry(C)
     cost = 0.0
     for k, rows in zip(w.kernel_sizes, conv_rows(w, tile)):
         chunks = -(-k * C // kc)
@@ -251,23 +276,18 @@ def _bf16_cost(w: ResblockWeights, tile: int) -> float:
     return cost
 
 
-_plans: Dict[tuple, TilePlan] = {}
-
-
 def tile_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
     """The launch of ``w``'s kernel on (B, L, C): bf16 takes the tensor-core
     route, whose tile (a multiple of 16) minimises the waves of blocks over
     the card's SMs times a block's work, larger tiles winning ties; f32
-    takes the CUDA-core route's largest tile up to 256 that fits. Kept per
-    (structure, B, L): a launch looks it up."""
-    key = (w.channels, w.dtype, w.kernel_sizes, w.dilations, B, L)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plans[key] = _make_plan(w, B, L)
-    return plan
+    takes the CUDA-core route's largest tile up to 256 that fits. The
+    latest plans are kept per (shape, B, L): serving asks for a few frame
+    buckets' lengths, each launch looks its plan up."""
+    return _make_plan(w.shape, B, L)
 
 
-def _make_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
+@functools.lru_cache(maxsize=256)
+def _make_plan(w: ChainShape, B: int, L: int) -> TilePlan:
     C, halo = w.channels, w.halo
     if w.dtype == torch.bfloat16:
         best = None
@@ -303,8 +323,20 @@ def _fn():
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
                        i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.lfs2_resblock_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.lfs2_resblock_last_launch.restype = ctypes.c_int
         _c_fn = (lib, fn)
     return _c_fn
+
+
+def last_launch() -> Dict[str, int]:
+    """The kernel's latest launch, either route, as the library recorded it
+    when the launch was accepted: its blocks, shared-memory bytes a block
+    and time tile; zeros before the first."""
+    lib, _ = _fn()
+    rec = (ctypes.c_int * 5)()
+    build.check(lib, lib.lfs2_resblock_last_launch(rec), "resblock launch query")
+    return {"blocks": rec[0] * rec[1] * rec[2], "smem_bytes": rec[3], "tile": rec[4]}
 
 
 def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:

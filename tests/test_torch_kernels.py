@@ -127,20 +127,16 @@ def test_resblock_kernels_match_plain(cuda_card, C_, L, ks, B, dtype):
 @pytest.mark.parametrize("C_,ks", [(256, (11,)), (256, (3,)), (128, (3, 7, 11)),
                                    (32, (3, 7, 11))])
 def test_resblock_plan_smem_matches_the_library(cuda_card, C_, ks):
-    """The tile plan's shared-memory count is the one the bf16 launch asks
-    for (csrc/resblock.cu lfs2_resblock_smem_bytes)."""
-    import ctypes
-
-    from lightningfastspeech2_tpu_torch.kernels import build
-
-    w = _resblock_weights(C_, ks, torch.bfloat16, "cpu")
-    lib = build.load("resblock")
-    fn = lib.lfs2_resblock_smem_bytes
-    fn.restype = ctypes.c_int
-    layout = (ctypes.c_int * len(w.layout))(*w.layout)
-    for L in (1, 37, 4096, 32768):
-        plan = trb.tile_plan(w, 1, L)
-        assert fn(C_, plan.tile, w.halo, layout, w.n_res) == plan.smem_bytes
+    """The tile plan's tile, blocks and shared memory are the ones each
+    launch takes, on either route (csrc/resblock.cu lfs2_resblock_last_launch)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        w = _resblock_weights(C_, ks, dtype, cuda_card)
+        kernel = trb.resblock if len(ks) == 1 else trb.resblock_trio
+        for L in (1, 37, 4096, 32768):
+            kernel(torch.zeros(1, L, C_, device=cuda_card, dtype=dtype), w)
+            plan = trb.tile_plan(w, 1, L)
+            assert trb.last_launch() == {"blocks": plan.blocks, "tile": plan.tile,
+                                         "smem_bytes": plan.smem_bytes}
 
 
 @pytest.mark.gpu

@@ -8,7 +8,9 @@ Phases, each printed as one JSON line:
 1. device: the card (name and power limit from nvidia-smi, capability (9, 0)
    asserted). f32 convolutions and products run in full f32: TF32 is off
    for cuDNN and cuBLAS, so f32 comparisons measure the kernels alone.
-2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel.
+2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
+   the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
+   spill and no serialised wgmma for them.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -34,9 +36,11 @@ Phases, each printed as one JSON line:
 6. reference: an f32 request on the card against the same request through
    the plain path on the CPU.
 7. train kernels: ``ffn_ln_train`` (forward and backward) at every FFN
-   block's shape of the training step, the widest encoder block and the
-   first decoder block also held against the plain version's output and
-   gradients; ``flash_attention`` (forward and backward) against the plain
+   block's shape of the training step, each held against the plain
+   version's output and gradients, each launch's grid and shared memory as
+   the library recorded them held against ``ops/ffn.py ffn_plan`` (phase 4
+   does the same for the serving ``ffn_ln``); ``flash_attention`` (forward
+   and backward) against the plain
    version, with ``F.scaled_dot_product_attention`` (same mask and
    dropout_p) timed as the library yardstick: bf16 at the decoder's shape
    (the wgmma kernels of ``csrc/flash_attention_sm90.cu``), f32 at phase
@@ -219,6 +223,49 @@ def build_phase() -> None:
     out.mkdir(exist_ok=True)
     (out / "ptxas.txt").write_text(
         "\n".join(f"=== {k}\n{v['ptxas']}" for k, v in report.items()))
+    ffn_sass_phase(report)
+
+
+# the FFN sources' tensor-core kernels, by their mangled names
+FFN_WGMMA = re.compile(r"(ffn_ln_kernel|ffn_dup_kernel)ILi(\d+)E(?:Lb([01])E)?")
+
+
+def ffn_sass_phase(report) -> dict:
+    """The bf16 FFN kernels as compiled: HGMMA (wgmma) and HMMA counts in
+    cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
+    serialised-wgmma warnings (C7512). Fails unless every one has HGMMA and
+    none spills or serialises."""
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    def key(m):
+        return f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    rows = {}
+    for name in ("ffn_ln", "ffn_ln_train_bwd"):
+        sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        for block in re.split(r"\n\s+Function : ", sass)[1:]:
+            m = FFN_WGMMA.search(block.split("\n", 1)[0])
+            if m:
+                rows[key(m)] = {"hgmma": len(re.findall(r"\bHGMMA", block)),
+                                "hmma": len(re.findall(r"\bHMMA", block)),
+                                "spill_bytes": 0, "serialised_wgmma": False}
+        current = None
+        for line in report[name]["ptxas"].splitlines():
+            m = FFN_WGMMA.search(line)
+            if "Compiling entry function" in line:
+                current = key(m) if m else None
+            elif "C7512" in line and m:
+                rows[key(m)]["serialised_wgmma"] = True
+            elif current and "spill stores" in line:
+                rows[current]["spill_bytes"] += int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    emit({"phase": "ffn_sass", "kernels": rows})
+    bad = {k: r for k, r in rows.items()
+           if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
+    if len(rows) != 9 or bad:
+        raise RuntimeError(f"ffn tensor-core kernels: {len(rows)} found, off {bad}")
+    return rows
 
 
 HOST_LAUNCHES = 10_000
@@ -314,6 +361,7 @@ def probe_phase(dev) -> dict:
 def _ffn_case(dev, B, T, k, dtype, g) -> dict:
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
     from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
+    from lightningfastspeech2_tpu_torch.ops import ffn as ffn_mod
     from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_plain
 
     C, F = 256, 1024
@@ -334,6 +382,7 @@ def _ffn_case(dev, B, T, k, dtype, g) -> dict:
     row = {"at": f"z ({B}, {T}, {C}) {str(dtype)[6:]}, F={F}, k={k}",
            "max_abs_err": err, "tol": tol,
            "ms": cuda_ms(lambda: ffn_ln(z, w)), "plain_ms": cuda_ms(lambda: ffn_ln_plain(z, w))}
+    row["launch"] = ffn_launches(ffn_mod, C, F, k, B, T, dtype, "serve")
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
     emit({"phase": "kernel", "name": "ffn_ln", **row})
     if not err <= tol:
@@ -733,9 +782,28 @@ def cuda_ms_grad(out, inputs, grad, **kw) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), **kw)
 
 
-def _ffn_train_case(dev, B, T, k, g, plain: bool) -> dict:
+def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
+    """The launches of the latest ``mode`` call (serve, train, bwd) as the
+    libraries recorded them, held against ``ffn_plan``: raises when a
+    grid, shared-memory size or row count differs."""
+    rec = ffn.last_launches()
+    got = ([rec["ffn_ln"]] if mode != "bwd" or dtype == torch.bfloat16 else []) + (
+        rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
+    plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
+    want = [ffn.planned_launch(x) for x in plan]
+    if got != want:
+        raise RuntimeError(f"ffn {mode} launches {got}, planned {want}")
+    return [{"kernel": x.kernel, "blocks": r["grid"][0] * r["grid"][1] * r["grid"][2],
+             "smem_bytes": r["smem_bytes"], "rows": r["rows"]} for x, r in zip(plan, got)]
+
+
+def _ffn_train_case(dev, B, T, k, g) -> dict:
     """ffn_ln_train forward and backward kernels at one of the step's FFN
-    shapes (bf16, F 1024, rate 0.1) against the plain version's autograd."""
+    shapes (bf16, F 1024, rate 0.1): the output and every gradient against
+    the plain version's autograd (and the gradients' distance from the
+    staged plain backward, the kernels' own rounding points), the kernel
+    times with the call's weight layouts prepared, each launch as the
+    library recorded it."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
     from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
     from lightningfastspeech2_tpu_torch.ops import ffn
@@ -753,48 +821,53 @@ def _ffn_train_case(dev, B, T, k, g, plain: bool) -> dict:
     dout = torch.randn(B, T, C, generator=g).to(dev, dtype)
     seed = torch.tensor([4242], dtype=torch.int32, device=dev)
     at = f"z ({B}, {T}, {C}) bf16, F={F}, k={k}, rate={rate}"
+    w = ffn._kernel_layouts(p, dtype)
     row_f = {"name": "ffn_ln_train", "at": at,
-             "ms": cuda_ms(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate))}
+             "ms": cuda_ms(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate, layouts=w))}
+    row_f["launch"] = ffn_launches(ffn, C, F, k, B, T, dtype, "train")
     row_b = {"name": "ffn_ln_train_bwd", "at": at,
-             "ms": cuda_ms(lambda: ffn.ffn_ln_train_bwd(dout, z, p, seed, rate))}
+             "ms": cuda_ms(lambda: ffn.ffn_ln_train_bwd(dout, z, p, seed, rate, layouts=w))}
+    row_b["launch"] = ffn_launches(ffn, C, F, k, B, T, dtype, "bwd")
+    # what a training call adds to the kernels: the weight layouts it prepares
+    row_f["layouts_ms"] = cuda_ms(lambda: ffn._kernel_layouts(p, dtype))
     wbytes = sum(tensor_bytes(t) for t in p)
     row_f["bound_ms"], row_f["bound_by"] = bound_ms(
         B * T * (2 * k * C + 4 * C * F), 2 * tensor_bytes(z) + wbytes, dtype)
     # the backward recomputes up and ff (4CF) and forms dup, dacc, dW1, dW2f (8CF)
     row_b["bound_ms"], row_b["bound_by"] = bound_ms(
         B * T * (6 * k * C + 12 * C * F), 3 * tensor_bytes(z) + 2 * wbytes, dtype)
-    if plain:
-        zk = z.clone().requires_grad_(True)
-        out = ffn.ffn_ln_train(zk, p, seed, rate)
-        grads = torch.autograd.grad(out, [zk, *p], dout)
-        zp = z.clone().requires_grad_(True)
-        ref = ffn.ffn_ln_train_plain(zp, p, seed, rate)
-        ref_grads = torch.autograd.grad(ref, [zp, *p], dout, retain_graph=True)
-        torch.cuda.synchronize()
-        err, tol = max_err_and_tol(out, ref, 2e-4)
-        row_f.update(max_abs_err=err, tol=tol,
-                     plain_ms=cuda_ms(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
-        # gradients against the plain version's autograd: the kernel rounds
-        # dff and dup to bf16 before its products, the plain version keeps
-        # them f32; each within 3 % of its largest element
-        errs = {}
-        for name, a, b in zip(("dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f",
-                               "dg1", "dbe1", "dg2", "dbe2"), grads, ref_grads):
-            errs[name] = ((a.float() - b.float()).abs().max().item(),
-                          0.03 * b.float().abs().max().item())
-        row_b.update(max_abs_err=max(e for e, _ in errs.values()),
-                     grad_errs=errs, tol="3 % of each gradient's largest element",
-                     plain_ms=cuda_ms_grad(ref, [zp, *p], dout))
-        for r in (row_f, row_b):
-            emit({"phase": "kernel", **r})
-        if not err <= tol:
-            raise RuntimeError(f"ffn_ln_train at {at}: max |err| {err} > {tol}")
-        bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
-        if bad:
-            raise RuntimeError(f"ffn_ln_train_bwd at {at}: gradients off {bad}")
-    else:
-        for r in (row_f, row_b):
-            emit({"phase": "kernel_time", **r})
+    zk = z.clone().requires_grad_(True)
+    out = ffn.ffn_ln_train(zk, p, seed, rate)
+    grads = torch.autograd.grad(out, [zk, *p], dout)
+    zp = z.clone().requires_grad_(True)
+    ref = ffn.ffn_ln_train_plain(zp, p, seed, rate)
+    ref_grads = torch.autograd.grad(ref, [zp, *p], dout, retain_graph=True)
+    staged = ffn.ffn_ln_train_bwd_plain(dout, z, p, seed, rate)
+    torch.cuda.synchronize()
+    err, tol = max_err_and_tol(out, ref, 2e-4)
+    row_f.update(max_abs_err=err, tol=tol,
+                 plain_ms=cuda_ms(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
+    # gradients against the plain version's autograd: the kernel rounds
+    # dff and dup to bf16 before its products, the plain version keeps
+    # them f32; each within 3 % of its largest element
+    errs, staged_rel = {}, {}
+    names = ("dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f", "dg1", "dbe1", "dg2", "dbe2")
+    for name, a, b, c in zip(names, grads, ref_grads, staged):
+        errs[name] = ((a.float() - b.float()).abs().max().item(),
+                      0.03 * b.float().abs().max().item())
+        staged_rel[name] = ((a.float() - c.float()).abs().max()
+                            / c.float().abs().max().clamp_min(1e-30)).item()
+    row_b.update(max_abs_err=max(e for e, _ in errs.values()),
+                 grad_errs=errs, tol="3 % of each gradient's largest element",
+                 staged_plain_max_rel_err=staged_rel,
+                 plain_ms=cuda_ms_grad(ref, [zp, *p], dout))
+    for r in (row_f, row_b):
+        emit({"phase": "kernel", **r})
+    if not err <= tol:
+        raise RuntimeError(f"ffn_ln_train at {at}: max |err| {err} > {tol}")
+    bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
+    if bad:
+        raise RuntimeError(f"ffn_ln_train_bwd at {at}: gradients off {bad}")
     return {"fwd": row_f, "bwd": row_b}
 
 
@@ -913,14 +986,13 @@ def flash_f32_blocks(which: int) -> int:
 
 def train_kernels_phase(dev) -> dict:
     """The training kernels at the step's shapes: every FFN block of the
-    flagship (encoder at P = 256, decoder at T = 2048) timed, the widest
-    encoder and the first decoder kernel also held against the plain
-    version; flash attention at the decoder's shape in bf16 and at phase 9's
-    in f32."""
+    flagship (encoder at P = 256, decoder at T = 2048) timed and held
+    against the plain version; flash attention at the decoder's shape in
+    bf16 and at phase 9's in f32."""
     g = torch.Generator().manual_seed(1)
     enc_k, dec_k = (5, 25, 13, 9), (17, 21, 9, 13)
-    ffn = ([_ffn_train_case(dev, TRAIN_B, TRAIN_P, k, g, plain=(k == 25)) for k in enc_k]
-           + [_ffn_train_case(dev, TRAIN_B, TRAIN_T, k, g, plain=(k == 17)) for k in dec_k])
+    ffn = ([_ffn_train_case(dev, TRAIN_B, TRAIN_P, k, g) for k in enc_k]
+           + [_ffn_train_case(dev, TRAIN_B, TRAIN_T, k, g) for k in dec_k])
     return {"ffn": ffn, "flash": _flash_case(dev, g),
             "flash_f32": _flash_case(dev, g, torch.float32, B=2, T=1024, rate=0.0)}
 
@@ -929,7 +1001,11 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
     """Device time of one traced step by kernel family (torch.profiler
     key_averages, kernel names matched as whole words); zeros when the
     profiler saw no device time."""
-    fam = {"ffn_ln_train": "ffn_ln_kernel", "ffn_ln_train_bwd": "ffn_bwd_kernel",
+    # the bf16 FFN template ffn_ln_kernel<CP, kChain> is the forward with
+    # kChain false and the backward's first launch with kChain true
+    fam = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_ln_f32_kernel<float, \d+, true>"),
+           "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", "ffn_dup_kernel", "ffn_dt1_kernel",
+                                "ffn_bwd_kernel"),
            "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
@@ -958,7 +1034,7 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
         rows.append((e.key, t, e.count))
         for k, pat in fam.items():
             pats = pat if isinstance(pat, tuple) else (pat,)
-            if any(re.search(rf"\b{x}\b", e.key) for x in pats):
+            if any(re.search(rf"\b{x}" + ("" if x.endswith(">") else r"\b"), e.key) for x in pats):
                 out[k] += t
                 counts[k] += e.count
     rows.sort(key=lambda r: -r[1])
@@ -1562,7 +1638,9 @@ def main() -> int:
             "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": nt[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "at": r["at"], "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
+            "at": r["at"], "launch_record": r["launch"],
+            **({"chain_source": f"{pkg}/ffn_ln.cu"} if part == "bwd" else {}),
+            "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
             "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"])})
     # flash attention: the bf16 wgmma kernels (the training path's), then the
     # f32 split-TF32 kernels at phase 9's shape with that phase's launches

@@ -36,6 +36,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# extra preprocessor macros, space-separated in LFS2_KERNEL_DEFINES (read at
+# build time and part of each library's name): for measurements that build
+# a variant, e.g. LFS2_FFN_NO_WGRAD_ATOMICS (csrc/ffn_sm90.cuh)
+DEFINES_ENV = "LFS2_KERNEL_DEFINES"
+
+
+def _flags():
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in os.environ.get(DEFINES_ENV, "").split())
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -62,7 +70,7 @@ def _digest(name: str) -> str:
     for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags()).encode())
     return h.hexdigest()[:16]
 
 
@@ -82,7 +90,7 @@ def build_all() -> Dict[str, Dict[str, object]]:
                 build_report.setdefault(name, {"seconds": 0.0, "ptxas": ""})
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+            cmd = [find_nvcc(), *_flags(), "-I", str(CSRC_DIR), "-o", str(tmp),
                    str(CSRC_DIR / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a Hopper
 card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
-training kernels ``ffn_ln_train`` and ``flash_attention`` (forward and
+training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
+backward ``ffn_ln_train_bwd_plain``; every launch's grid and shared memory
+against ``ffn_plan``) and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
@@ -234,14 +236,25 @@ def test_ffn_ln_train_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rat
     assert (tffn.ffn_ln_train.launches, tffn.ffn_ln_train_bwd.launches) == (n_fwd + 1, n_bwd + 1)
     ref, *ref_grads = _ffn_train_grads(tffn.ffn_ln_train_plain, z, params, seed, rate, dout)
     assert all(g.dtype == torch.float32 for g in grads[1:])
+    if dtype == torch.bfloat16:
+        # the oracle of the gradients: the kernels' stages in plain PyTorch,
+        # with their rounding points (dff and dup rounded before their
+        # products)
+        ref_grads = tffn.ffn_ln_train_bwd_plain(dout, z, params, seed, rate)
     for name, got, want in zip(_FFN_GRADS, (out, *grads), (ref, *ref_grads)):
         if dtype == torch.float32:
             # f32: summation order and atomics' order only
             _bulk_close(got, want, 2e-4, 2e-5, name)
-        else:
-            # bf16 activations; the kernel rounds dff and dup to bf16 before
-            # its products where the plain version keeps f32 gradients
+        elif name == "out":
+            # one-ulp flips at the rounding points of the forward
             _bulk_close(got, want, 0.03, 0.005, name)
+        else:
+            # the same rounding points, met by values that differ in f32
+            # summation order: a rounded value (h0, up, dff, dup) may land
+            # one bf16 ulp (2^-8) away, and a gradient's path crosses up to
+            # four of them: 4 ulps (2^-6) of its largest element, the bulk
+            # within 2^-9
+            _bulk_close(got, want, 2.0 ** -6, 2.0 ** -9, name)
 
 
 @pytest.mark.gpu
@@ -317,6 +330,56 @@ def test_ffn_ln_train_backward_dz_is_deterministic(cuda_card):
     dz = [tffn.ffn_ln_train_bwd(dout, z, params, seed, 0.0)[0] for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(d, dz[0]) for d in dz)
+
+
+@pytest.mark.gpu
+def test_ffn_ln_train_backward_dz_is_deterministic_bf16(cuda_card):
+    # the bf16 route: dacc sums over F in one block's fixed order and the
+    # depthwise/LN1 backward takes no atomics, so dz agrees bit for bit
+    params = [t.detach().to(cuda_card).clone()
+              for t in tffn.ffn_train_params(**ffn_modules(ffn_params(3, 256, 1024, 25)))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    g = torch.Generator(device=cuda_card).manual_seed(2)
+    z, dout = (torch.randn(3, 300, 256, device=cuda_card, generator=g).to(torch.bfloat16)
+               for _ in range(2))
+    dz = [tffn.ffn_ln_train_bwd(dout, z, params, seed, 0.1)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(d, dz[0]) for d in dz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_launch_record_matches_the_plan(cuda_card, dtype):
+    # every launch of a serving call, a training forward and a backward, as
+    # the libraries recorded it, against ops/ffn.py ffn_plan
+    B, T, C_, F_, k = 3, 300, 256, 1024, 25
+    p = ffn_params(3, C_, F_, k)
+    params = [t.detach().to(cuda_card).clone()
+              for t in tffn.ffn_train_params(**ffn_modules(p))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
+
+    def plan(mode):
+        return [tffn.planned_launch(x) for x in tffn.ffn_plan(C_, F_, k, B, T, dtype, mode)]
+
+    w = tffn.prepare_ffn_weights(
+        **{n: type(v)(**{a: t.to(cuda_card) for a, t in vars(v).items()})
+           for n, v in ffn_modules(p).items()}, dtype=dtype)
+    with torch.no_grad():
+        tffn.ffn_ln(z, w)
+    torch.cuda.synchronize()
+    assert [tffn.last_launches()["ffn_ln"]] == plan("serve")
+    tffn.ffn_ln_train_fwd(z, params, seed, 0.1)
+    torch.cuda.synchronize()
+    assert [tffn.last_launches()["ffn_ln"]] == plan("train")
+    tffn.ffn_ln_train_bwd(torch.randn_like(z), z, params, seed, 0.1)
+    torch.cuda.synchronize()
+    rec = tffn.last_launches()
+    want = plan("bwd")
+    if dtype == torch.bfloat16:  # the chain (ffn_ln.cu), then the dup and dt1 passes
+        assert [rec["ffn_ln"], *rec["ffn_ln_train_bwd"]] == want
+    else:
+        assert rec["ffn_ln_train_bwd"] == want
 
 
 @contextlib.contextmanager

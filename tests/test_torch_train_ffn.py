@@ -113,3 +113,61 @@ def test_ffn_ln_train_plain_matches_pallas_interpret(dtype, rate):
             # bulk to 0.5 %
             np.testing.assert_allclose(got, ref, rtol=0, atol=0.03 * top, err_msg=name)
             assert np.mean(np.abs(got - ref)) <= 0.005 * top, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_staged_backward_matches_pallas_interpret(dtype):
+    # ffn_ln_train_bwd_plain (the bf16 kernels' stages (a)-(c) with their
+    # rounding points: dff and dup rounded before their products, as
+    # pallas_ffn.py rounds them) against the TPU kernel's VJP, the gradients
+    # carried back through the grouped-conv fold to the modules
+    rate = 0.3
+    p = ffn_params(7, C, F, K)
+    rng = np.random.default_rng(4)
+    z = rng.standard_normal((2, T, C)).astype(np.float32)
+    dout = rng.standard_normal((2, T, C)).astype(np.float32)
+    seed = 987654
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    _, ref_grads = _jax_ffn(jnp.asarray(z).astype(jdt), p, seed, rate, dout)
+
+    mods = ffn_modules(p)
+    for m in mods.values():
+        for t in vars(m).values():
+            t.requires_grad_(True)
+    params = tffn.ffn_train_params(**mods)
+    zt = torch.from_numpy(z).to(tdt)
+    dz, *dp = tffn.ffn_ln_train_bwd_plain(torch.from_numpy(dout).to(tdt), zt, params,
+                                          torch.tensor([seed], dtype=torch.int32), rate)
+    assert dz.dtype == tdt and all(g.dtype == torch.float32 for g in dp)
+    torch.autograd.backward(params, dp)
+    zt.grad = dz
+    grads = _torch_grads(mods, zt)
+    for name, ref in zip(NAMES, ref_grads):
+        ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+        got = grads[name]
+        top = np.abs(ref).max()
+        if dtype == "float32":
+            # f32 everywhere: summation order only
+            np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5 * max(top, 1.0), err_msg=name)
+        else:
+            # the same rounding points; a one-ulp f32 difference before a
+            # bf16 rounding flips that value's ulp (2^-8 relative), which the
+            # chain of products carries: 3 % of the largest gradient, the
+            # bulk within 0.5 %
+            np.testing.assert_allclose(got, ref, rtol=0, atol=0.03 * top, err_msg=name)
+            assert np.mean(np.abs(got - ref)) <= 0.005 * top, name
+
+
+def test_staged_backward_matches_autograd_in_f32():
+    # in f32 the staged backward rounds nothing: it is the plain forward's
+    # gradient, to summation order
+    params = [t.clone().requires_grad_(True)
+              for t in tffn.ffn_train_params(**ffn_modules(ffn_params(5, C, F, K)))]
+    g = torch.Generator().manual_seed(6)
+    z, dout = (torch.randn(3, T, C, generator=g) for _ in range(2))
+    seed = torch.tensor([31337], dtype=torch.int32)
+    zz = z.clone().requires_grad_(True)
+    want = torch.autograd.grad(tffn.ffn_ln_train_plain(zz, params, seed, 0.2), [zz, *params], dout)
+    got = tffn.ffn_ln_train_bwd_plain(dout, z, params, seed, 0.2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())

@@ -10,7 +10,9 @@ Phases, each printed as one JSON line:
    for cuDNN and cuBLAS, so f32 comparisons measure the kernels alone.
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
    the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
-   spill and no serialised wgmma for them.
+   spill and no serialised wgmma for them; the four tensor-core
+   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate) must hold HMMA
+   and spill nothing.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -78,15 +80,20 @@ Phases, each printed as one JSON line:
     median of each and of their per-pair difference.
 
 14. FastDiff kernels: ``lvc_stack`` (the LVC chain of one upsample stage)
-    against its plain version at a 512-frame bucket, B=1: stages 2 and 3 in
-    bf16 and f32, one Padé-gate case, and the stage-1 shape.
+    against its plain version at a 512-frame bucket, B=1: stages 1, 2 and 3
+    in bf16 and f32 and one Padé-gate case, each with the launch as the
+    library recorded it held against ``ops/fastdiff_lvc.py lvc_plan``, its
+    bound (bytes and operations, bf16 at the tensor cores' peak, f32 as
+    split-TF32 products) and the plain version's time.
 15. FastDiff serving (this slice's main path): the flagship with its
     residual mel head and the FastDiff vocoder (reference widths, N=4), both
     bf16 from seeded generators, serve phase 5's sentences and batch after
     the same duration bias; the counters, set to 0 just before, must show
     ``lvc_stack`` at 2 per ε pass (stages 2 and 3) and no resblock launch.
     Then one request with ``LFS2_FUSED_STAGE1=1`` (3 per pass), and one
-    profiled vocoder call's split.
+    512-frame vocoder call timed and profiled in bf16 and in f32 (the
+    generate CLI's default vocoder precision): the median of
+    ``FD_CALL_RUNS`` calls, device ms and ``lvc_stack`` ms.
 16. FastDiff reference: an f32 FastDiff request on the card against the
     same request on the CPU's plain path, with the same noise drawn once on
     the CPU.
@@ -228,43 +235,62 @@ def build_phase() -> None:
 
 # the FFN sources' tensor-core kernels, by their mangled names
 FFN_WGMMA = re.compile(r"(ffn_ln_kernel|ffn_dup_kernel)ILi(\d+)E(?:Lb([01])E)?")
+# lvc_stack's tensor-core kernels: lvc_mma_kernel<bf16 or float, Padé gate>
+LVC_MMA = re.compile(r"(lvc_mma_kernel)I(13__nv_bfloat16|f)Lb([01])E")
+
+
+def _sass_rows(name, report, pattern, key) -> dict:
+    """Per kernel of library ``name`` matching ``pattern``: HGMMA and HMMA
+    counts in cuobjdump's SASS, ptxas's spill bytes and C7512 warnings."""
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    rows = {}
+    for block in re.split(r"\n\s+Function : ", sass)[1:]:
+        m = pattern.search(block.split("\n", 1)[0])
+        if m:
+            rows[key(m)] = {"hgmma": len(re.findall(r"\bHGMMA", block)),
+                            "hmma": len(re.findall(r"\bHMMA", block)),
+                            "spill_bytes": 0, "serialised_wgmma": False}
+    current = None
+    for line in report[name]["ptxas"].splitlines():
+        m = pattern.search(line)
+        if "Compiling entry function" in line:
+            current = key(m) if m else None
+        elif "C7512" in line and m:
+            rows[key(m)]["serialised_wgmma"] = True
+        elif current and "spill stores" in line:
+            rows[current]["spill_bytes"] += int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    return rows
 
 
 def ffn_sass_phase(report) -> dict:
-    """The bf16 FFN kernels as compiled: HGMMA (wgmma) and HMMA counts in
+    """The tensor-core kernels as compiled: HGMMA (wgmma) and HMMA counts in
     cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
-    serialised-wgmma warnings (C7512). Fails unless every one has HGMMA and
-    none spills or serialises."""
-    from lightningfastspeech2_tpu_torch.kernels import build
+    serialised-wgmma warnings (C7512). Fails unless every bf16 FFN kernel
+    has HGMMA and none spills or serialises, and every tensor-core
+    lvc_stack kernel has HMMA and spills nothing."""
 
     def key(m):
         return f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")
 
-    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    def lvc_key(m):
+        dtype = "bf16" if m.group(2).endswith("bfloat16") else "float"
+        return f"{m.group(1)}<{dtype}, {'true' if m.group(3) == '1' else 'false'}>"
+
     rows = {}
     for name in ("ffn_ln", "ffn_ln_train_bwd"):
-        sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
-                              capture_output=True, text=True, timeout=300, check=True).stdout
-        for block in re.split(r"\n\s+Function : ", sass)[1:]:
-            m = FFN_WGMMA.search(block.split("\n", 1)[0])
-            if m:
-                rows[key(m)] = {"hgmma": len(re.findall(r"\bHGMMA", block)),
-                                "hmma": len(re.findall(r"\bHMMA", block)),
-                                "spill_bytes": 0, "serialised_wgmma": False}
-        current = None
-        for line in report[name]["ptxas"].splitlines():
-            m = FFN_WGMMA.search(line)
-            if "Compiling entry function" in line:
-                current = key(m) if m else None
-            elif "C7512" in line and m:
-                rows[key(m)]["serialised_wgmma"] = True
-            elif current and "spill stores" in line:
-                rows[current]["spill_bytes"] += int(re.search(r"(\d+) bytes spill stores", line).group(1))
-    emit({"phase": "ffn_sass", "kernels": rows})
+        rows.update(_sass_rows(name, report, FFN_WGMMA, key))
+    lvc_rows = _sass_rows("lvc_stack", report, LVC_MMA, lvc_key)
+    emit({"phase": "ffn_sass", "kernels": rows, "lvc_stack": lvc_rows})
     bad = {k: r for k, r in rows.items()
            if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
-    if len(rows) != 9 or bad:
-        raise RuntimeError(f"ffn tensor-core kernels: {len(rows)} found, off {bad}")
+    bad.update({k: r for k, r in lvc_rows.items() if r["hmma"] == 0 or r["spill_bytes"]})
+    if len(rows) != 9 or len(lvc_rows) != 4 or bad:
+        raise RuntimeError(f"tensor-core kernels: {len(rows)} ffn and {len(lvc_rows)} "
+                           f"lvc_stack found, off {bad}")
     return rows
 
 
@@ -1010,7 +1036,7 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
            "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
-           "lvc_stack": "lvc_stack_kernel",
+           "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
            "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "resblock_kernel")}
     out = {k: 0.0 for k in fam}
     counts = {k: 0 for k in fam}
@@ -1396,6 +1422,7 @@ def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
     cb = (0.1 * torch.randn(layers, C, generator=g)).to(dev)
     args = (x, ad, k, b, cw, cb, hop)
     out = lvc.lvc_stack(*args, fast_gating=fast)
+    launched = lvc.last_launch()  # as the library gave it to the card
     ref = lvc.lvc_stack_plain(*args, fast_gating=fast)
     torch.cuda.synchronize()
     top = ref.float().abs().max().item()
@@ -1409,31 +1436,42 @@ def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
         tol = f"{lvc.BF16_MAX_ULPS} ulps a value, {lvc.BF16_MAX_UNEQUAL} of values unequal"
         held = {"max_ulps": ulps, "unequal_share": share}
         ok = ulps <= lvc.BF16_MAX_ULPS and share <= lvc.BF16_MAX_UNEQUAL
-    # per row and layer: the dilated conv (3C x C) and the LVC (3C x 2C)
+    # per row and layer: the dilated conv (3C x C) and the LVC (3C x 2C);
+    # bf16 at the tensor cores' peak, f32 as split-TF32 products
     flops = B * L * layers * 2 * (3 * C * C + 3 * C * 2 * C)
     nbytes = 2 * tensor_bytes(x) + tensor_bytes(ad, k, b, cw, cb)
+    peak = PEAK_FLOPS[dtype] if dtype == torch.bfloat16 else PEAK_F32_ACCURATE
+    plan = lvc.lvc_plan(B, L, hop, layers, dtype)
     row = {"name": "lvc_stack", "stage": {8: 1, 64: 2, 256: 3}.get(hop),
            "at": f"x ({B}, {L}, {C}) {str(dtype)[6:]}, hop {hop}, {nL} frames, {layers} layers, "
                  f"{'Padé' if fast else 'exact'} gate",
-           "max_abs_err": err, "tol": tol, **held, "tile_rows": lvc.kernel_tile(B, L),
+           "max_abs_err": err, "tol": tol, **held, "route": plan.route,
+           "launch": launched, "plan": plan.record, "halo": plan.halo,
+           "frames": plan.frames,
            "ms": cuda_ms(lambda: lvc.lvc_stack(*args, fast_gating=fast)),
            "plain_ms": cuda_ms(lambda: lvc.lvc_stack_plain(*args, fast_gating=fast)),
-           "library_ms": None, "bytes": nbytes, "flops": flops}
-    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+           "library_ms": None, "bytes": nbytes, "flops": flops,
+           "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": flops / peak * 1e3}
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype, peak)
+    row["x_bound"] = row["ms"] / row["bound_ms"]
     emit({"phase": "kernel", **row})
     if not ok:
         raise RuntimeError(f"lvc_stack at {row['at']}: max |err| {err} {held}, tolerance {tol}")
+    if launched != plan.record:
+        raise RuntimeError(f"lvc_stack at {row['at']}: launched {launched}, planned {plan}")
     return row
 
 
-def fastdiff_kernels_phase(dev) -> list:
+def fastdiff_kernels_phase(dev) -> dict:
     """lvc_stack at stages 2 and 3 in bf16 and f32, the Padé gate at stage
-    3, and the stage-1 shape (hop 8, the LFS2_FUSED_STAGE1 opt-in)."""
+    3, and the stage-1 shape (hop 8, the LFS2_FUSED_STAGE1 opt-in) in both
+    dtypes; the rows by name."""
     g = torch.Generator().manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
-    return [_lvc_case(dev, g, 64, bf), _lvc_case(dev, g, 256, bf), _lvc_case(dev, g, 64, f32),
-            _lvc_case(dev, g, 256, f32), _lvc_case(dev, g, 256, bf, fast=True),
-            _lvc_case(dev, g, 8, bf)]
+    return {"stage2": _lvc_case(dev, g, 64, bf), "stage3": _lvc_case(dev, g, 256, bf),
+            "stage2_f32": _lvc_case(dev, g, 64, f32), "stage3_f32": _lvc_case(dev, g, 256, f32),
+            "stage3_pade": _lvc_case(dev, g, 256, bf, fast=True),
+            "stage1": _lvc_case(dev, g, 8, bf), "stage1_f32": _lvc_case(dev, g, 8, f32)}
 
 
 def fastdiff_serving_phase(counters, served) -> dict:
@@ -1492,24 +1530,11 @@ def fastdiff_serving_phase(counters, served) -> dict:
     if opt_launches != 3 * N or not np.isfinite(wav).all():
         raise RuntimeError(f"LFS2_FUSED_STAGE1 request: {opt_launches} lvc_stack launches, "
                            f"expected {3 * N}")
-    # vocoder calls on a FD_BUCKET-frame mel, timed FD_CALL_RUNS times, then one under the profiler
+    # vocoder calls on a FD_BUCKET-frame mel in bf16, then in f32 (the
+    # generate CLI's default --vocoder_precision 32)
     mel = (np.random.default_rng(5).standard_normal((FD_BUCKET, m.audio.n_mels)) - 4.0
            ).astype(np.float32)
-    synth(mel)
-    torch.cuda.synchronize()
-    call_runs = []
-    for _ in range(FD_CALL_RUNS):
-        t = time.perf_counter()
-        synth(mel)
-        torch.cuda.synchronize()
-        call_runs.append((time.perf_counter() - t) * 1e3)
-    call_ms = statistics.median(call_runs)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        synth(mel)
-        torch.cuda.synchronize()
-    split = _step_split(prof, "fastdiff_vocoder_profile.txt")
+    call, prof = _vocoder_call(synth, mel, "")
     # the host side of the same call: PyTorch ops by their own CPU time
     from torch.autograd import DeviceType
 
@@ -1520,15 +1545,46 @@ def fastdiff_serving_phase(counters, served) -> dict:
                   for e in host[:60]))
     hifigan_ms = statistics.median(r["ms"] for r in served["requests"])
     fastdiff_ms = statistics.median(r["ms"] for r in run["requests"])
-    emit({"phase": "fastdiff_vocoder_profile", "frames": FD_BUCKET, "N": N,
-          "call_ms": call_ms, "call_ms_runs": call_runs, "device_ms": split["device_ms"],
-          "device_launches": split["device_launches"],
-          "lvc_stack_ms": split["lvc_stack_ms"],
-          "rest_device_ms": split["device_ms"] - split["lvc_stack_ms"],
+    emit({"phase": "fastdiff_vocoder_profile", "frames": FD_BUCKET, "N": N, **call,
           "request_ms_median": {"fastdiff": fastdiff_ms, "hifigan_v1": hifigan_ms},
           "batch_audio_s_per_s": {"fastdiff": run["batch"]["audio_s_per_s"],
                                   "hifigan_v1": served["batch"]["audio_s_per_s"]}})
-    return {"launches": launches, "cfg": cfg, "run": run, "split": split}
+    from lightningfastspeech2_tpu_torch.synthesis.generator import FastDiffSynthesiser
+
+    synth32 = FastDiffSynthesiser(cfg.model, vocoder_precision=32, seed=1)
+    call32, _ = _vocoder_call(synth32, mel, "_f32")
+    emit({"phase": "fastdiff_vocoder_profile_f32", "frames": FD_BUCKET, "N": N, **call32})
+    if call32["lvc_stack_launches"] != 2 * N or call["lvc_stack_launches"] != 2 * N:
+        raise RuntimeError(f"profiled vocoder calls: lvc_stack kernels "
+                           f"{call['lvc_stack_launches']} (bf16), "
+                           f"{call32['lvc_stack_launches']} (f32), expected {2 * N}")
+    return {"launches": launches, "cfg": cfg, "run": run, "split": call, "split_f32": call32}
+
+
+def _vocoder_call(synth, mel, tag: str):
+    """One vocoder call on ``mel``, warmed up, timed FD_CALL_RUNS times on
+    the host clock (median), then once under the profiler: device ms and
+    launches, ``lvc_stack``'s kernel ms and launches (the kernel table in
+    fastdiff_vocoder_profile{tag}.txt), and the profiler."""
+    synth(mel)
+    torch.cuda.synchronize()
+    call_runs = []
+    for _ in range(FD_CALL_RUNS):
+        t = time.perf_counter()
+        synth(mel)
+        torch.cuda.synchronize()
+        call_runs.append((time.perf_counter() - t) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synth(mel)
+        torch.cuda.synchronize()
+    split = _step_split(prof, f"fastdiff_vocoder_profile{tag}.txt")
+    return {"call_ms": statistics.median(call_runs), "call_ms_runs": call_runs,
+            "device_ms": split["device_ms"], "device_launches": split["device_launches"],
+            "lvc_stack_ms": split["lvc_stack_ms"],
+            "lvc_stack_launches": split["lvc_stack_launches"],
+            "rest_device_ms": split["device_ms"] - split["lvc_stack_ms"]}, prof
 
 
 def _summary(name, source, replaces, rows, launches) -> dict:
@@ -1668,15 +1724,18 @@ def main() -> int:
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at")},
                 **{k: r[k] for k in ("serial_diagonals", "library_fwd_bwd_ms") if k in r}})
-    # lvc_stack at stage 3 of the served bucket in bf16 (the stage-2 row
-    # rides along)
-    stage2, stage3 = fd_rows[0], fd_rows[1]
+    # lvc_stack at stage 3 of the served bucket in bf16; the other stages
+    # and the f32 route (the generate CLI's default) ride along
+    lvc_keys = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "launch")
     kernels.append({
         **_summary("lvc_stack", f"{pkg}/lvc_stack.cu",
-                   "lightningfastspeech2_tpu/ops/pallas_fastdiff.py:80", [stage3],
+                   "lightningfastspeech2_tpu/ops/pallas_fastdiff.py:80", [fd_rows["stage3"]],
                    fd_served["launches"]["lvc_stack"]),
-        "stage2": {k: stage2[k] for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "max_abs_err")}})
+        **{name: {k: fd_rows[name][k] for k in lvc_keys}
+           for name in ("stage2", "stage1", "stage3_pade", "stage3_f32", "stage2_f32",
+                        "stage1_f32")},
+        "vocoder_call_lvc_stack_ms": {"bf16": fd_served["split"]["lvc_stack_ms"],
+                                      "f32": fd_served["split_f32"]["lvc_stack_ms"]}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

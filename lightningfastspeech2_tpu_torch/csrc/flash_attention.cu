@@ -60,6 +60,7 @@
 // split product three TF32 products: at 495 TFLOP/s of dense TF32 that is
 // 3 x ops / 495 TFLOP/s, against ops / 67 TFLOP/s on the CUDA cores.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cstdint>
 
@@ -94,45 +95,14 @@ struct Params {
   float inv_keep;
 };
 
-// ---- split-TF32 products -------------------------------------------------
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const float h = tf32(x);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(tf32(x - h));
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b as a split product: the two correction terms, then hi x hi
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     const uint32_t bh[2], const uint32_t bl[2]) {
-  mma(c, ah, bl);
-  mma(c, al, bh);
-  mma(c, ah, bh);
-}
-
-// ---- cp.async ---------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
+// split-TF32 products and cp.async (csrc/mma.cuh)
+using lfs2::cp_async16;
+using lfs2::cp_async_commit;
+using lfs2::cp_async_wait;
+using lfs2::mma3;
+using lfs2::mma_tf32;
+using lfs2::split;
+using lfs2::tf32;
 
 // rows [r0, r0 + 64) of a (T, 128) slab into a [64][LDS] tile, asynchronously
 __device__ __forceinline__ void issue_tile(const float* x, int r0, float* dst) {
@@ -199,11 +169,11 @@ __device__ __forceinline__ void score_step(const float* xh, const float* xl, int
     split(y[4], bh[j][1], bl[j][1]);
   }
 #pragma unroll
-  for (int j = 0; j < 2; ++j) mma(acc[j], ah, bl[j]);
+  for (int j = 0; j < 2; ++j) mma_tf32(acc[j], ah, bl[j]);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) mma(acc[j], al, bh[j]);
+  for (int j = 0; j < 2; ++j) mma_tf32(acc[j], al, bh[j]);
 #pragma unroll
-  for (int j = 0; j < 2; ++j) mma(acc[j], ah, bh[j]);
+  for (int j = 0; j < 2; ++j) mma_tf32(acc[j], ah, bh[j]);
 }
 
 // Two score products over d < 128 in one loop, so that their mma chains

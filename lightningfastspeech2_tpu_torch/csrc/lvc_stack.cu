@@ -16,21 +16,74 @@
 // whole frames, the VMEM-sized frame tiles and the transposed, padded copy of
 // the LVC kernels were Mosaic workarounds and are not carried over: a block
 // here owns `tile` output rows and a halo in rows, and every row finds its
-// frame's kernel by t / hop, so no shape is refused.
+// frame's kernel by t / hop.
 //
-// What bounds it on an H100: bytes. At a 512-frame bucket in bf16, stage 3
+// What bounds it on an H100. bf16: bytes. At a 512-frame bucket, stage 3
 // (hop 256, L = 131,072) reads x, ad and 25 MB of per-frame kernels and
 // writes x: about 51 MB (15 us at 3.35 TB/s) against 9.7 GFLOP (9.8 us at
 // the bf16 tensor-core peak); stage 2 (hop 64) about 31 MB, most of it the
-// per-frame kernels, whose size does not depend on the hop. What the design
-// does about it: x, ad and both intermediate signals of the whole chain stay
-// in shared memory for all layers, so each input byte is read once and the
-// output written once; only the halo rows (48 a side) are read again by the
-// neighbouring block, and the per-frame kernels come once per frame from
-// device memory (L1/L2 for the rows after the first). The products are plain
-// f32 FMAs on the CUDA cores, lane = channel (C = 32 is one warp); tensor
-// cores for the per-frame (hop, 96) @ (96, 64) products are later work.
+// per-frame kernels, whose 25 MB do not depend on the hop and each serve
+// only 64 rows. f32: operations. About 100 MB (30 us) against the same
+// products as split TF32, three TF32 products each (59 us at 165 TFLOP/s
+// of f32-accurate products; mma.sync itself reaches about 320 TFLOP/s of
+// TF32 on an H100 at 700 W, so its floor is about 90 us). What the design does about it: x, ad
+// and the LVC's input stay in shared memory for all layers, so each input
+// byte is read once and the output written once; the conv's input is
+// formed from x in registers; only the halo rows (48 a side at 4 layers)
+// are read again by the neighbouring block; each frame's kernel comes once
+// per block and layer from device memory (L2 for a neighbouring block's
+// halo frame), fetched a round ahead so that it lands while the block
+// computes; and the products run on the tensor cores.
+//
+// Tensor-core route (lvc_mma_kernel, hop a multiple of 8). Both products
+// are formed transposed, out^T = W^T @ rows^T: M = the output channels (32
+// for the conv, 64 for the LVC: sigmoid's half in m16 tiles 0-1, tanh's in
+// 2-3, so a thread holds both halves of a gate), K = 96 in the JAX
+// wrapper's order k = tap * C + cin (pallas_fastdiff.py:193), N = 8 signal
+// rows. The weights are A, read through ldmatrix from their staged copy;
+// the signal is B, read through ldmatrix from the shared-memory rows with
+// one row address per lane, so a tap's shift (-d, 0, +d for the conv, -1,
+// 0, +1 for the LVC) is an address and never a copy. Why transposed: an n8
+// tile of 8 rows lies in one frame whenever hop % 8 == 0, so the one form
+// serves stage 1 (hop 8, where an m16 tile of rows would span two frames
+// with different kernels) as well as stages 2 and 3; and a warp's A
+// fragments serve all nt row tiles of its chunk, which at nt = 4 reads as
+// few shared-memory bytes per product as 32-row A tiles would. The leaky on
+// the conv's input is applied to the B fragments.
+//   bf16: mma.sync m16n8k16; 16 warps. Weights staged [k][out] and read
+// with ldmatrix.trans. A round's raw (cin, out, tap) kernels land by bulk
+// copies (cp.async.bulk, one a frame, issued by one thread and counted on
+// an mbarrier, so no warp stalls issuing them) and are reordered once into
+// [tap * C + cin][out]; the next round's copies (or the next layer's
+// first, with its conv taps) are issued once the conv is done, so they
+// overlap this round's LVC.
+//   f32: split-TF32 m16n8k8 (csrc/mma.cuh), three products a_hi b_lo +
+// a_lo b_hi + a_hi b_hi in three passes over the accumulators, as
+// csrc/flash_attention.cu forms f32 products on the tensor cores; 8 warps
+// (the split operands need more than 128 registers a thread). The weights
+// are split once a block and layer into hi and lo halves stored [out][k],
+// so ldmatrix gives A fragments that need no conversion; the signal is
+// split in registers as it is loaded. Split kernels leave no room for raw
+// copies, so the next round's raw kernels wait in registers. At one n8
+// tile a frame (hop 8) neither a split nor a reordered copy would be
+// reused: the LVC reads each frame's raw kernel as it landed, from two
+// bulk-copy slots by round parity (raw_products).
+//   Per layer: the conv's rows, then the LVC's rows round by round; a
+// round holds the kernels of up to round_frames frames; each step's n8
+// tiles are split evenly over the warps. Epilogues in registers: the conv
+// adds its bias, the leaky, the round and the zero outside [0, L); the LVC
+// its frame's bias, the gate (__expf and __fdividef: no IEEE-division slow
+// path), the round and the residual add, and (but in the last layer) the
+// next layer's x + ad.
+//
+// CUDA-core route (lvc_stack_kernel): hops that are not a multiple of 8,
+// and chains whose tensor-core launch does not fit shared memory (f32 with
+// more than 4 layers), by the rule on shape in ops/fastdiff_lvc.py
+// lvc_plan. Plain f32 FMAs, lane = channel.
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <cstdint>
 
 namespace {
 
@@ -41,6 +94,22 @@ constexpr int kMaxLayers = 6;
 constexpr int kAlign = 4;     // region rounding; rows per chunk when hop % 4 == 0
 constexpr int kConvRows = 4;  // rows per chunk of the dilated conv
 constexpr int kMaxSmem = 232448;
+constexpr int kRouteCores = 0, kRouteMma = 1;
+
+// the latest accepted launch: route, tile, grid x, grid y, shared-memory
+// bytes a block, frames staged a round, n8 row tiles of an LVC chunk
+int g_last_launch[7];
+
+cudaError_t record_launch(int route, int tile, const dim3& grid, int smem, int round_frames,
+                          int nt) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    const int rec[7] = {route, tile, static_cast<int>(grid.x), static_cast<int>(grid.y), smem,
+                        round_frames, nt};
+    for (int i = 0; i < 7; ++i) g_last_launch[i] = rec[i];
+  }
+  return err;
+}
 
 // Buffer rows (row 0 is signal position blockIdx.x * tile - halo) of each
 // step of each layer: the residual add and leaky [a_lo, a_hi), the dilated
@@ -53,21 +122,30 @@ struct Spec {
   int c_lo[kMaxLayers], c_hi[kMaxLayers];
 };
 
-__device__ __forceinline__ float fast_tanh(float t) {
-  // clamped Padé(7,6), as vocoder/fastdiff.py fast_tanh
+// The gate, both routes: sigmoid(a) * tanh(b) with tanh(b) = 2 sigmoid(2b)
+// - 1 and sigmoid(z) = 1 / (1 + e^-z) from __expf and __fdividef (within
+// 2e-7 of the exact gate; no IEEE-division slow path), or the Padé gate
+// (clamped Padé(7,6) tanh, as vocoder/fastdiff.py fast_tanh) with its one
+// division a __fdividef
+__device__ __forceinline__ float sigmoid_fast(float z) {
+  return __fdividef(1.0f, 1.0f + __expf(-z));
+}
+
+__device__ __forceinline__ float pade_tanh(float t) {
   t = fminf(fmaxf(t, -4.97f), 4.97f);
   const float t2 = t * t;
   const float num = t * (135135.0f + t2 * (17325.0f + t2 * (378.0f + t2)));
   const float den = 135135.0f + t2 * (62370.0f + t2 * (3150.0f + t2 * 28.0f));
-  return fminf(fmaxf(num / den, -1.0f), 1.0f);
+  return fminf(fmaxf(__fdividef(num, den), -1.0f), 1.0f);
 }
 
 template <bool FAST>
 __device__ __forceinline__ float gate(float a, float b) {
-  if (FAST) return (0.5f * (fast_tanh(0.5f * a) + 1.0f)) * fast_tanh(b);
-  return (1.0f / (1.0f + expf(-a))) * tanhf(b);
+  if (FAST) return (0.5f * (pade_tanh(0.5f * a) + 1.0f)) * pade_tanh(b);
+  return sigmoid_fast(a) * (2.0f * sigmoid_fast(2.0f * b) - 1.0f);
 }
 
+// ============================ CUDA-core route ===============================
 template <typename T, int RPT, bool FAST>
 __global__ void __launch_bounds__(kThreads)
 lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __restrict__ kern,
@@ -246,7 +324,7 @@ cudaError_t launch(const void* x, const void* ad, const void* kern, const float*
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ad), static_cast<const T*>(kern), bias,
       static_cast<const T*>(conv_w), conv_b, static_cast<T*>(out), L, hop, tile, spec);
-  return cudaGetLastError();
+  return record_launch(kRouteCores, tile, grid, smem, 0, 0);
 }
 
 template <typename T>
@@ -262,26 +340,710 @@ cudaError_t dispatch(const void* x, const void* ad, const void* kern, const floa
               : launch<T, 1, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, s);
 }
 
+// ===================== tensor-core route (hop % 8 == 0) ====================
+constexpr int kFrameElems = C * 2 * C * 3;  // one frame's (C, 2C, 3) kernel of one layer
+constexpr int kK = 3 * C;                   // the products' contraction: k = tap * C + cin
+constexpr int kLDK = 2 * C + 8;             // row stride of a staged frame kernel, [k][out]
+constexpr int kLDW = C + 8;                 // row stride of staged conv taps, [k][cout]
+constexpr int kLDT = kK + 4;                // f32: row stride of split weights, [out][k]
+constexpr int kConvTiles = 4;               // n8 row tiles of a conv chunk
+constexpr int kMmaWarpsMax = 16;            // the most warps of a tensor-core block
+
+// per working dtype: signal row stride (80 or 144 bytes: any 8 rows fall
+// in distinct bank groups for ldmatrix), the most n8 row tiles of an LVC
+// chunk (acc registers: 4 m16 tiles x 4 floats each) and the threads
+template <typename T> struct Geo;
+template <> struct Geo<__nv_bfloat16> {
+  static constexpr int LDY = C + 8;
+  static constexpr int NT = 4;
+  static constexpr int THREADS = 512;  // 16 warps: four a scheduler, 128 registers a thread
+};
+template <> struct Geo<float> {
+  static constexpr int LDY = C + 4;
+  static constexpr int NT = 2;
+  static constexpr int THREADS = 256;  // the split products need more than 128 registers
+};
+
+// Buffer rows (row 0 is signal position blockIdx.x * tile - halo) each
+// layer computes: the dilated conv [b_lo, b_hi) and the LVC [c_lo, c_hi),
+// exactly what the next step reads (no rounding); the halo is the chain's
+// reach rounded up to 8, so that buffer rows and signal rows agree mod 8.
+struct MmaSpec {
+  int layers, halo, rows;
+  int round_frames;  // frames whose kernels are staged at once
+  int nt;            // n8 row tiles of an LVC chunk: 8 * nt rows of one frame
+  int b_lo[kMaxLayers], b_hi[kMaxLayers];
+  int c_lo[kMaxLayers], c_hi[kMaxLayers];
+};
+
+// leaky on two packed bf16: max(a, bf16(a * 0.2f)), the product in f32 and
+// rounded once, as the plain version's bf16 x * 0.2
+__device__ __forceinline__ uint32_t leaky2(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __hmax2(h, __floats2bfloat162_rn(f.x * 0.2f, f.y * 0.2f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// acc[mt][nt] (m16 tile mt of MT, n8 row tile nt of NT) += the products of
+// one chunk: A = the (out, k) weights staged [k][out] at stride LDA (conv
+// taps or a frame's kernel), B = signal rows s + 8 nt + shift(tap) of src,
+// clamped to the buffer (a clamped row feeds only a row the epilogue
+// drops). n8 tiles past n_act issue nothing. LEAKY applies the leaky to B
+// (the conv reads x). bf16: m16n8k16, A through ldmatrix.trans, B through
+// ldmatrix.
+template <int MT, int NT, int LDA, int LDY, bool LEAKY>
+__device__ __forceinline__ void chunk_products(float (&acc)[MT][NT][4],
+                                               const __nv_bfloat16* A, const __nv_bfloat16* src,
+                                               int s, int n_act, int d, int rows, int lane) {
+  const unsigned a_base = lfs2::smem_u32(A), y_base = lfs2::smem_u32(src);
+  const int r8 = lane & 7, j = lane >> 3;
+#pragma unroll
+  for (int ks = 0; ks < kK / 16; ++ks) {
+    const int k0 = 16 * ks, tap = ks >> 1, cin0 = 16 * (ks & 1);
+    const int shift = (tap - 1) * d;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      lfs2::ldmatrix_x4_trans(
+          a[mt], a_base + 2u * ((k0 + r8 + 8 * (j >> 1)) * LDA + 16 * mt + 8 * (j & 1)));
+    uint32_t b[NT][2];
+#pragma unroll
+    for (int np = 0; np < (NT + 1) / 2; ++np) {
+      if (2 * np >= n_act) continue;
+      const int row = min(max(s + 16 * np + 8 * (j >> 1) + r8 + shift, 0), rows - 1);
+      uint32_t r[4];
+      lfs2::ldmatrix_x4(r, y_base + 2u * (row * LDY + cin0 + 8 * (j & 1)));
+      if (LEAKY) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[q] = leaky2(r[q]);
+      }
+      b[2 * np][0] = r[0];
+      b[2 * np][1] = r[1];
+      if (2 * np + 1 < NT) {
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= n_act) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) lfs2::mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+}
+
+// f32: the weights come split already, hi and lo halves stored [out][k] at
+// stride kLDT, so ldmatrix gives a thread its A fragment (a b16 8 x 8
+// matrix is an 8 x 4 block of 32-bit values); B is split in registers.
+template <int MT, int NT, int LDY, bool LEAKY>
+__device__ __forceinline__ void chunk_products_split(float (&acc)[MT][NT][4], const float* Ah,
+                                                     const float* Al, const float* src, int s,
+                                                     int n_act, int d, int rows, int lane) {
+  const unsigned ah_base = lfs2::smem_u32(Ah), al_base = lfs2::smem_u32(Al);
+  const unsigned y_base = lfs2::smem_u32(src);
+  const int r8 = lane & 7, j = lane >> 3;
+#pragma unroll 2
+  for (int ks = 0; ks < kK / 8; ++ks) {
+    const int k0 = 8 * ks, tap = ks >> 2, cin0 = 8 * (ks & 3);
+    const int shift = (tap - 1) * d;
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const unsigned off = 4u * ((16 * mt + r8 + 8 * (j & 1)) * kLDT + k0 + 4 * (j >> 1));
+      lfs2::ldmatrix_x4(ah[mt], ah_base + off);
+      lfs2::ldmatrix_x4(al[mt], al_base + off);
+    }
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int np = 0; np < (NT + 1) / 2; ++np) {
+      if (2 * np >= n_act) continue;
+      const int row = min(max(s + 16 * np + 8 * (j >> 1) + r8 + shift, 0), rows - 1);
+      uint32_t r[4];
+      lfs2::ldmatrix_x4(r, y_base + 4u * (row * LDY + cin0 + 4 * (j & 1)));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (2 * np + (q >> 1) >= NT) continue;
+        float v = __uint_as_float(r[q]);
+        if (LEAKY) v = fmaxf(v, v * 0.2f);
+        lfs2::split(v, bh[2 * np + (q >> 1)][q & 1], bl[2 * np + (q >> 1)][q & 1]);
+      }
+    }
+    // the three products of every accumulator in three passes (hi lo, lo
+    // hi, hi hi: mma3's order), so that consecutive MMAs are independent
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= n_act) continue;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          lfs2::mma_tf32(acc[mt][nt], pass == 1 ? al[mt] : ah[mt], pass == 0 ? bl[nt] : bh[nt]);
+      }
+  }
+}
+
+// f32 at one n8 row tile a frame (a hop that is not a multiple of 16): the
+// LVC product straight from the frame's raw (cin, out, tap) kernel as it
+// landed, for the gate pair of m16 tiles {h2, h2 + 2}. The
+// contraction runs in the raw order k = cin * 3 + tap (any order serves
+// when A and B agree), so a lane's A values of one k-step lie at most two
+// banks apart; A and B come by scalar loads and are split in registers.
+template <int LDY>
+__device__ __forceinline__ void raw_products(float (&acc)[2][4], const float* K, int h2,
+                                             const float* src, int s, int rows, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < kK / 8; ++ks) {
+    const int k0 = 8 * ks + tq, k1 = k0 + 4;
+    const int cin0 = k0 / 3, tap0 = k0 - 3 * cin0, cin1 = k1 / 3, tap1 = k1 - 3 * cin1;
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m = 16 * h2 + C * mt + g;
+      const float* k0p = K + (cin0 * 2 * C + m) * 3 + tap0;
+      const float* k1p = K + (cin1 * 2 * C + m) * 3 + tap1;
+      lfs2::split(k0p[0], ah[mt][0], al[mt][0]);
+      lfs2::split(k0p[24], ah[mt][1], al[mt][1]);
+      lfs2::split(k1p[0], ah[mt][2], al[mt][2]);
+      lfs2::split(k1p[24], ah[mt][3], al[mt][3]);
+    }
+    const int row0 = min(max(s + g + tap0 - 1, 0), rows - 1);
+    const int row1 = min(max(s + g + tap1 - 1, 0), rows - 1);
+    uint32_t bh[2], bl[2];
+    lfs2::split(src[row0 * LDY + cin0], bh[0], bl[0]);
+    lfs2::split(src[row1 * LDY + cin1], bh[1], bl[1]);
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        lfs2::mma_tf32(acc[mt], pass == 1 ? al[mt] : ah[mt], pass == 0 ? bl : bh);
+  }
+}
+
+// ---- phase clocks (built with LFS2_LVC_PHASE_CLOCKS only) -------------------
+// The middle block of batch item 0 adds, per warp, the cycles of each phase
+// in registers (slots are constants) and, at the end, into
+// g_phase[warp][slot]; lfs2_lvc_stack_phase_clocks copies them out. Slots:
+// 0 loads, 1 waiting for a round's copies, 2 reordering a round's kernels
+// and issuing the next, 3 conv, 4 waiting for the conv, 5 LVC products, 6
+// LVC epilogues, 7 the final barrier and the output.
+#ifdef LFS2_LVC_PHASE_CLOCKS
+__device__ long long g_phase[kMmaWarpsMax][8];
+#define LVC_CLOCK(var)                                                  \
+  long long var = clock64();                                            \
+  long long lvc_phase_[8] = {}
+#define LVC_PHASE(slot, since)                                          \
+  do {                                                                  \
+    const long long now_ = clock64();                                   \
+    lvc_phase_[slot] += now_ - since;                                   \
+    since = now_;                                                       \
+  } while (0)
+#define LVC_FLUSH()                                                     \
+  do {                                                                  \
+    if (blockIdx.x == gridDim.x / 2 && blockIdx.y == 0 && (threadIdx.x & 31) == 0) \
+      for (int i_ = 0; i_ < 8; ++i_) g_phase[threadIdx.x >> 5][i_] = lvc_phase_[i_]; \
+    if (blockIdx.x == gridDim.x / 2 && blockIdx.y == 0 && threadIdx.x == 0) \
+      for (int w_ = blockDim.x >> 5; w_ < kMmaWarpsMax; ++w_)           \
+        for (int i_ = 0; i_ < 8; ++i_) g_phase[w_][i_] = 0;             \
+  } while (0)
+#else
+#define LVC_CLOCK(var)
+#define LVC_PHASE(slot, since)
+#define LVC_FLUSH()
+#endif
+
+// One launch runs every layer for a tile of rows, in the transposed form:
+// out^T (channels x rows) = W^T (channels x 96) @ rows^T (96 x rows), n8
+// row tiles (see the note at the top of this file). Each step's n8 tiles
+// are split evenly over the warps, each warp taking a contiguous run of
+// them in chunks of up to NT tiles (an LVC chunk never crosses a frame).
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(Geo<T>::THREADS, 1)
+lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __restrict__ kern,
+               const float* __restrict__ bias, const T* __restrict__ conv_w,
+               const float* __restrict__ conv_b, T* __restrict__ out, int L, int hop, int tile,
+               const __grid_constant__ MmaSpec sp) {
+  constexpr int LDY = Geo<T>::LDY;
+  constexpr int NTL = Geo<T>::NT;
+  constexpr int kMmaThreads = Geo<T>::THREADS;
+  constexpr int kMmaWarps = kMmaThreads / 32;
+  constexpr int V = 16 / sizeof(T);           // elements in 16 bytes
+  constexpr int kRowPieces = C / V;           // 16-byte pieces of a signal row
+  constexpr int kFramePieces = kFrameElems / V;
+  constexpr bool kSplit = sizeof(T) == 4;     // f32: split-TF32 products
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int R = sp.rows, FR = sp.round_frames;
+  T* xs = reinterpret_cast<T*>(smem_raw);     // x (after this layer's residual add)
+  T* as = xs + R * LDY;                       // audio_down
+  T* y2 = as + R * LDY;                       // the LVC's input
+  // Then the weights. bf16: the layer's conv taps [k][cout], the round's
+  // frame kernels [k][out], the next round's raw frame kernels (stg). f32:
+  // the conv taps split, hi then lo halves, each [out][k] (wh, wl); with
+  // nt > 1 the round's frame kernels split the same way (kf), the next
+  // round's raw ones waiting in registers (pre), for want of room; with one
+  // n8 tile a chunk (a hop that is not a multiple of 16) no kf: the LVC reads
+  // each frame's kernel raw (raw_products) from two slots of bulk copies by
+  // round parity, since a split or reordered copy would serve one tile.
+  const bool presplit = kSplit && sp.nt > 1;
+  const bool raw = kSplit && !presplit;
+  const int kf_elems = kSplit ? (presplit ? 2 * 2 * C * kLDT : 0) : kK * kLDK;
+  T* cw = y2 + R * LDY;
+  T* kf = cw + (kSplit ? 2 * C * kLDT : kK * kLDW);
+  T* stg = kf + FR * kf_elems;
+  // one mbarrier a staging slot (two slots on the raw route, none with
+  // split kernels): a round's frames land by bulk copies
+  const unsigned bars = lfs2::smem_u32(stg + (raw ? 2 : presplit ? 0 : 1) * FR * kFrameElems);
+  float* wh = reinterpret_cast<float*>(cw);
+  float* wl = wh + C * kLDT;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int g0 = t0 - sp.halo;                // signal position of buffer row 0
+  const int nL = L / hop;
+  const long long base = static_cast<long long>(b) * L * C;
+  const T* kb = kern + static_cast<long long>(b) * nL * sp.layers * kFrameElems;
+  const float* bb = bias + static_cast<long long>(b) * nL * sp.layers * 2 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // frames [fa, fb) holding the signal rows of layer i's LVC
+  auto layer_frames = [&](int i, int& fa, int& fb) {
+    const int lo = g0 + sp.c_lo[i];
+    fa = lo <= 0 ? 0 : lo / hop;
+    fb = min(nL, (g0 + sp.c_hi[i] - 1) / hop + 1);
+  };
+  // f32: layer i's conv taps (k, cout), split, into wh and wl as [cout][k]
+  auto split_conv = [&](int i) {
+    const float* src = reinterpret_cast<const float*>(conv_w) + static_cast<long long>(i) * kK * C;
+    for (int idx = threadIdx.x; idx < kK * C; idx += kMmaThreads) {
+      const int k = idx >> 5, co = idx & (C - 1);
+      uint32_t hi, lo;
+      lfs2::split(src[idx], hi, lo);
+      wh[co * kLDT + k] = __uint_as_float(hi);
+      wl[co * kLDT + k] = __uint_as_float(lo);
+    }
+  };
+  // round r of layer i into staging slot `slot`: its frames' raw kernels
+  // (each contiguous: one bulk copy a frame by thread 0, counted on the
+  // slot's mbarrier), and in bf16 with r == 0 the layer's conv taps (one
+  // cp.async commit group)
+  auto issue = [&](int i, int r, int slot) {
+    if (threadIdx.x == 0) {
+      int fa, fb;
+      layer_frames(i, fa, fb);
+      const int f0 = fa + r * FR, nf = min(FR, fb - f0);
+      const unsigned bytes = kFrameElems * sizeof(T), bar = bars + 8u * slot;
+      const unsigned dst = lfs2::smem_u32(stg + slot * FR * kFrameElems);
+      const T* src = kb + (static_cast<long long>(f0) * sp.layers + i) * kFrameElems;
+      lfs2::mbar_expect_tx(bar, nf * bytes);
+      for (int jf = 0; jf < nf; ++jf)
+        lfs2::bulk_load(dst + jf * bytes, src + static_cast<long long>(jf) * sp.layers * kFrameElems,
+                        bytes, bar);
+    }
+    if (r == 0 && !kSplit) {
+      T* cdst = cw;
+      const T* wsrc = conv_w + static_cast<long long>(i) * kK * C;
+      for (int idx = threadIdx.x; idx < kK * kRowPieces; idx += kMmaThreads) {
+        const int k = idx / kRowPieces, p = (idx - k * kRowPieces) * V;
+        lfs2::cp_async16(cdst + k * kLDW + p, wsrc + k * C + p);
+      }
+    }
+    lfs2::cp_async_commit();
+  };
+
+  // f32 with split kernels: round r of layer i's raw kernels into pre, one
+  // 16-byte piece a thread per kMmaThreads (two frames at most: kPre pieces)
+  constexpr int kPre = 2 * kFramePieces / kMmaThreads;
+  float4 pre[kSplit ? kPre : 1];
+  auto prefetch = [&](int i, int r) {
+    int fa, fb;
+    layer_frames(i, fa, fb);
+    const int f0 = fa + r * FR, n_pieces = min(FR, fb - f0) * kFramePieces;
+    const float* src = reinterpret_cast<const float*>(kb) +
+                       (static_cast<long long>(f0) * sp.layers + i) * kFrameElems;
+#pragma unroll
+    for (int t = 0; t < (kSplit ? kPre : 1); ++t) {
+      const int idx = threadIdx.x + t * kMmaThreads;
+      if (idx >= n_pieces) break;
+      const int jf = idx / kFramePieces, p = (idx - jf * kFramePieces) * V;
+      pre[t] = *reinterpret_cast<const float4*>(
+          src + static_cast<long long>(jf) * sp.layers * kFrameElems + p);
+    }
+  };
+
+  LVC_CLOCK(tp);
+  if (threadIdx.x == 0) {
+    lfs2::mbar_init(bars, 1);
+    lfs2::mbar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kSplit) split_conv(0);
+  if (presplit)
+    prefetch(0, 0);
+  else
+    issue(0, 0, 0);
+  // x and audio_down rows through cp.async (zero outside [0, L)), with the
+  // first round's copies; then xs = x + ad, layer 0's residual add
+  for (int idx = threadIdx.x; idx < R * kRowPieces; idx += kMmaThreads) {
+    const int row = idx / kRowPieces, p = (idx - row * kRowPieces) * V;
+    const int gp = g0 + row;
+    if (gp >= 0 && gp < L) {
+      lfs2::cp_async16(xs + row * LDY + p, x + base + static_cast<long long>(gp) * C + p);
+      lfs2::cp_async16(as + row * LDY + p, ad + base + static_cast<long long>(gp) * C + p);
+    } else {
+      *reinterpret_cast<uint4*>(xs + row * LDY + p) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(as + row * LDY + p) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  lfs2::cp_async_commit();
+  lfs2::cp_async_wait_all();
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < R * kRowPieces; idx += kMmaThreads) {
+    const int row = idx / kRowPieces, p = (idx - row * kRowPieces) * V;
+    uint4 xv = *reinterpret_cast<const uint4*>(xs + row * LDY + p);
+    const uint4 av = *reinterpret_cast<const uint4*>(as + row * LDY + p);
+    T* xe = reinterpret_cast<T*>(&xv);
+    const T* ae = reinterpret_cast<const T*>(&av);
+#pragma unroll
+    for (int e = 0; e < V; ++e) xe[e] = lfs2::from_f<T>(lfs2::to_f(xe[e]) + lfs2::to_f(ae[e]));
+    *reinterpret_cast<uint4*>(xs + row * LDY + p) = xv;
+  }
+
+  int q = 0;  // rounds so far: a raw slot's parity
+  int d = 1;
+  for (int i = 0; i < sp.layers; ++i, d *= 3) {
+    int fa, fb;
+    layer_frames(i, fa, fb);
+    const int n_rounds = (fb - fa + FR - 1) / FR;
+    const bool last = i == sp.layers - 1;
+    for (int r = 0; r < n_rounds; ++r, ++q) {
+      LVC_PHASE(0, tp);
+      lfs2::cp_async_wait_all();
+      if (!presplit) {  // the round's frames: slot q % slots, its (q / slots)-th use
+        const int slots = raw ? 2 : 1;
+        lfs2::mbar_wait(bars + 8u * (q % slots), (q / slots) & 1);
+      }
+      __syncthreads();  // the round's copies landed; every warp is done with kf and y2
+      LVC_PHASE(1, tp);
+      const int f0 = fa + r * FR, nf = min(FR, fb - f0);
+      const bool more = r + 1 < n_rounds || !last;  // a round follows
+      const int ni = r + 1 < n_rounds ? i : i + 1, nr = r + 1 < n_rounds ? r + 1 : 0;
+      if (raw && more) issue(ni, nr, (q + 1) & 1);  // the other slot: its round is done
+      if constexpr (kSplit) {
+        // f32 with split kernels: the round's raw (cin, out, tap) kernels
+        // from pre, 16 bytes a piece, split into kf's hi and lo halves at
+        // [out][tap * C + cin] (the raw route reads them as they landed)
+        if (presplit) {
+          float* kh = reinterpret_cast<float*>(kf);
+          const int n_pieces = nf * kFramePieces;
+#pragma unroll
+          for (int t = 0; t < kPre; ++t) {
+            const int idx = threadIdx.x + t * kMmaThreads;
+            if (idx >= n_pieces) break;
+            const int jf = idx / kFramePieces, p = (idx - jf * kFramePieces) * V;
+            const float ve[4] = {pre[t].x, pre[t].y, pre[t].z, pre[t].w};
+            const int cin = p / (2 * C * 3), o3 = p - cin * (2 * C * 3);
+            float* dh = kh + jf * kf_elems + cin;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int o = (o3 + e) / 3, tap = o3 + e - 3 * o;
+              uint32_t hi, lo;
+              lfs2::split(ve[e], hi, lo);
+              dh[o * kLDT + tap * C] = __uint_as_float(hi);
+              dh[(2 * C + o) * kLDT + tap * C] = __uint_as_float(lo);
+            }
+          }
+        }
+      } else {
+        // bf16: raw (cin, out, tap) -> kf[tap * C + cin][out]: a thread
+        // moves the three taps of one (cin, out)
+        const T* src = stg;
+#pragma unroll 4
+        for (int idx = threadIdx.x; idx < nf * C * 2 * C; idx += kMmaThreads) {
+          const int jf = idx >> 11, cin = (idx >> 6) & (C - 1), o = idx & (2 * C - 1);
+          const T* sp3 = src + jf * kFrameElems + (cin * 2 * C + o) * 3;
+          T* dst = kf + jf * kK * kLDK + cin * kLDK + o;
+          const T v0 = sp3[0], v1 = sp3[1], v2 = sp3[2];
+          dst[0] = v0;
+          dst[C * kLDK] = v1;
+          dst[2 * C * kLDK] = v2;
+        }
+      }
+      LVC_PHASE(2, tp);
+
+      if (r == 0) {
+        // dilated conv: y2 = round(leaky(conv(leaky(x)) + conv_b)), zero
+        // outside [0, L), over [b_lo, b_hi)
+        float cb[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) cb[mt][h] = conv_b[i * C + 16 * mt + g + 8 * h];
+        const int lo = sp.b_lo[i], hi = sp.b_hi[i];
+        const int first = lo & ~7, n_tiles = (hi - first + 7) / 8;
+        const int u1 = n_tiles * (warp + 1) / kMmaWarps;
+        for (int u = n_tiles * warp / kMmaWarps; u < u1; u += kConvTiles) {
+          const int s = first + 8 * u, n_act = min(kConvTiles, u1 - u);
+          float acc[2][kConvTiles][4] = {};
+          if constexpr (kSplit)
+            chunk_products_split<2, kConvTiles, LDY, true>(acc, wh, wl, xs, s, n_act, d, R, lane);
+          else
+            chunk_products<2, kConvTiles, kLDW, LDY, true>(acc, cw, xs, s, n_act, d, R, lane);
+#pragma unroll
+          for (int nt = 0; nt < kConvTiles; ++nt) {
+            if (nt >= n_act) continue;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int row = s + 8 * nt + 2 * tq + c;
+              if (row < lo || row >= hi) continue;
+              const bool inside = g0 + row >= 0 && g0 + row < L;
+              T* yr = y2 + row * LDY + g;
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float v = acc[mt][nt][2 * h + c] + cb[mt][h];
+                  yr[16 * mt + 8 * h] = lfs2::from_f<T>(inside ? fmaxf(v, v * 0.2f) : 0.0f);
+                }
+            }
+          }
+        }
+      }
+      LVC_PHASE(3, tp);
+      if (r == 0 || !raw) __syncthreads();  // y2 and the round's kf are whole; stg, cw free
+      // the next round's copies (or the next layer's first), under this LVC;
+      // f32 splits the next layer's conv taps here
+      if (kSplit && r + 1 == n_rounds && !last) split_conv(i + 1);
+      if (more && presplit) prefetch(ni, nr);
+      if (more && !kSplit) issue(ni, nr, 0);
+      LVC_PHASE(4, tp);
+
+      // LVC of the round's rows with each frame's kernel and bias, the
+      // gate, the residual add (and the next layer's x + ad). The round's
+      // n8 tiles start at a multiple of 8 in the signal, and so do frames
+      // (hop % 8 == 0): a chunk is cut at a frame's end.
+      const int rlo = max(sp.c_lo[i], f0 * hop - g0);
+      const int rhi = min(sp.c_hi[i], (f0 + nf) * hop - g0);
+      const int first = rlo & ~7, n_tiles = (rhi - first + 7) / 8;
+      // x = round(x + round(gate(a, b))) (then + ad, rounded, but in the last layer)
+      auto gate_into_x = [&](T* xp, const T* ap, float a, float bg) {
+        float v = lfs2::round_to<T>(lfs2::to_f(*xp) + lfs2::round_to<T>(gate<FAST>(a, bg)));
+        if (!last) v = lfs2::round_to<T>(v + lfs2::to_f(*ap));
+        *xp = lfs2::from_f<T>(v);
+      };
+      if constexpr (kSplit) {
+        if (raw) {
+          // f32, one row tile a frame: two units a tile, the gate pairs of m16
+          // tiles {h, h + 2}, so that twice as many warps share a round
+          const int n_units = 2 * n_tiles;
+          for (int u = warp; u < n_units; u += kMmaWarps) {
+            const int s = first + 8 * (u >> 1), h2 = u & 1;
+            const int f = (g0 + s) / hop;
+            const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
+            float ba[2], bg[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              ba[h] = bs[16 * h2 + g + 8 * h];
+              bg[h] = bs[C + 16 * h2 + g + 8 * h];
+            }
+            float acc[2][4] = {};
+            raw_products<LDY>(acc, reinterpret_cast<const float*>(stg) +
+                                       ((q & 1) * FR + f - f0) * kFrameElems,
+                              h2, y2, s, R, lane);
+            LVC_PHASE(5, tp);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int row = s + 2 * tq + c;
+              if (row < rlo || row >= rhi) continue;
+              T* xr = xs + row * LDY + 16 * h2 + g;
+              const T* ar = as + row * LDY + 16 * h2 + g;
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                gate_into_x(xr + 8 * h, ar + 8 * h, acc[0][2 * h + c] + ba[h],
+                            acc[1][2 * h + c] + bg[h]);
+            }
+            LVC_PHASE(6, tp);
+          }
+          continue;
+        }
+      }
+      const int u1 = n_tiles * (warp + 1) / kMmaWarps;
+      for (int u = n_tiles * warp / kMmaWarps; u < u1;) {
+        const int s = first + 8 * u;
+        const int f = (g0 + s) / hop;
+        const int n_act = min(min(sp.nt, u1 - u), ((f + 1) * hop - g0 - s) / 8);
+        const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
+        float ba[2][2], bg[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            ba[mt][h] = bs[16 * mt + g + 8 * h];
+            bg[mt][h] = bs[C + 16 * mt + g + 8 * h];
+          }
+        float acc[4][NTL][4] = {};
+        if constexpr (kSplit) {
+          const float* kh = reinterpret_cast<const float*>(kf) + (f - f0) * kf_elems;
+          chunk_products_split<4, NTL, LDY, false>(acc, kh, kh + 2 * C * kLDT, y2, s, n_act, 1,
+                                                   R, lane);
+        } else {
+          chunk_products<4, NTL, kLDK, LDY, false>(acc, kf + (f - f0) * kK * kLDK, y2, s,
+                                                    n_act, 1, R, lane);
+        }
+        LVC_PHASE(5, tp);
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) {
+          if (nt >= n_act) continue;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int row = s + 8 * nt + 2 * tq + c;
+            if (row < rlo || row >= rhi) continue;
+            T* xr = xs + row * LDY + g;
+            const T* ar = as + row * LDY + g;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                gate_into_x(xr + 16 * mt + 8 * h, ar + 16 * mt + 8 * h,
+                            acc[mt][nt][2 * h + c] + ba[mt][h],
+                            acc[mt + 2][nt][2 * h + c] + bg[mt][h]);
+          }
+        }
+        LVC_PHASE(6, tp);
+        u += n_act;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < tile * kRowPieces; idx += kMmaThreads) {
+    const int row = idx / kRowPieces, p = (idx - row * kRowPieces) * V;
+    const int gp = t0 + row;
+    if (gp >= L) break;
+    *reinterpret_cast<uint4*>(out + base + static_cast<long long>(gp) * C + p) =
+        *reinterpret_cast<const uint4*>(xs + (sp.halo + row) * LDY + p);
+  }
+  LVC_PHASE(7, tp);
+  LVC_FLUSH();
+}
+
+int ceil_to(int v, int m) { return (v + m - 1) / m * m; }
+
+MmaSpec make_mma_spec(int layers, int tile, int round_frames, int nt) {
+  MmaSpec s = {};
+  s.layers = layers;
+  s.round_frames = round_frames;
+  s.nt = nt;
+  int lo = 0, hi = tile;  // rows relative to the tile's first
+  int d = 1;
+  for (int i = 1; i < layers; ++i) d *= 3;
+  for (int i = layers - 1; i >= 0; --i, d /= 3) {
+    s.c_lo[i] = lo;
+    s.c_hi[i] = hi;
+    s.b_lo[i] = lo - 1;
+    s.b_hi[i] = hi + 1;
+    lo = s.b_lo[i] - d;
+    hi = s.b_hi[i] + d;
+  }
+  s.halo = ceil_to(-lo, 8);
+  s.rows = tile + 2 * s.halo;
+  for (int i = 0; i < layers; ++i) {
+    s.b_lo[i] += s.halo; s.b_hi[i] += s.halo;
+    s.c_lo[i] += s.halo; s.c_hi[i] += s.halo;
+  }
+  return s;
+}
+
+// shared-memory bytes of a tensor-core launch (ops/fastdiff_lvc.py
+// lvc_plan computes the same): x, audio_down and y2 rows; bf16 the conv
+// taps and per staged frame its kernel in [k][out] order and its raw copy;
+// f32 the split conv taps and per frame its split kernel (nt > 1) or two
+// raw copies (nt == 1)
+int mma_smem_bytes(int elem, int rows, int round_frames, int nt) {
+  constexpr int kBars = 16;  // two mbarriers
+  if (elem == 2)
+    return kBars + 2 * (3 * rows * Geo<__nv_bfloat16>::LDY + kK * kLDW +
+                        round_frames * (kK * kLDK + kFrameElems));
+  return kBars + 4 * (3 * rows * Geo<float>::LDY + 2 * C * kLDT +
+                      round_frames * (nt > 1 ? 2 * 2 * C * kLDT : 2 * kFrameElems));
+}
+
+template <typename T, bool FAST>
+cudaError_t mma_launch(const void* x, const void* ad, const void* kern, const float* bias,
+                       const void* conv_w, const float* conv_b, void* out, int B, int L, int hop,
+                       int tile, const MmaSpec& spec, int smem, cudaStream_t stream) {
+  auto kernel = lvc_mma_kernel<T, FAST>;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + tile - 1) / tile, B);
+  kernel<<<grid, Geo<T>::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(ad), static_cast<const T*>(kern), bias,
+      static_cast<const T*>(conv_w), conv_b, static_cast<T*>(out), L, hop, tile, spec);
+  return record_launch(kRouteMma, tile, grid, smem, spec.round_frames, spec.nt);
+}
+
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
 // x, ad, out (B, L, 32); kern (B, L / hop, layers, 32, 64, 3) and conv_w
 // (layers, 3, 32, 32) in the working dtype; bias (B, L / hop, layers, 64) and
-// conv_b (layers, 32) f32. tile: output rows per block, a multiple of 4.
+// conv_b (layers, 32) f32. route 1 (tensor cores): hop and tile multiples of
+// 8, round_frames >= 1 frames staged a round (at most 2 in f32 with nt > 1),
+// nt in {1, 2, 4} (bf16) or {1, 2} (f32) n8 row tiles an LVC chunk, 8 * nt
+// dividing hop. route 0 (CUDA
+// cores): tile a multiple of 4 (round_frames and nt unused).
 LFS2_EXPORT int lfs2_lvc_stack(const void* x, const void* ad, const void* kern, const float* bias,
                                const void* conv_w, const float* conv_b, void* out, int B, int L,
-                               int hop, int layers, int tile, int fast, int dtype, void* stream) {
+                               int hop, int layers, int tile, int fast, int dtype, int route,
+                               int round_frames, int nt, void* stream) {
   if (B < 1 || L < 1 || hop < 1 || L % hop != 0 || layers < 1 || layers > kMaxLayers ||
-      tile < kAlign || tile % kAlign != 0)
+      (dtype != lfs2::kBF16 && dtype != lfs2::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = dtype == lfs2::kBF16 ? 2 : 4;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf = dtype == lfs2::kBF16;
+  if (route == kRouteMma) {
+    const int nt_max = bf ? Geo<__nv_bfloat16>::NT : Geo<float>::NT;
+    if (hop % 8 != 0 || tile < 8 || tile % 8 != 0 || round_frames < 1 ||
+        (nt != 1 && nt != 2 && nt != 4) || nt > nt_max || hop % (8 * nt) != 0 ||
+        (!bf && nt > 1 && round_frames > 2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const MmaSpec spec = make_mma_spec(layers, tile, round_frames, nt);
+    const int smem = mma_smem_bytes(elem, spec.rows, round_frames, nt);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    if (bf)
+      err = fast ? mma_launch<__nv_bfloat16, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s)
+                 : mma_launch<__nv_bfloat16, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s);
+    else
+      err = fast ? mma_launch<float, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s)
+                 : mma_launch<float, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s);
+    return static_cast<int>(err);
+  }
+  if (route != kRouteCores || tile < kAlign || tile % kAlign != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Spec spec = make_spec(layers, tile);
-  const int elem = dtype == lfs2::kBF16 ? 2 : 4;
   if (4 * spec.rows * C * elem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == lfs2::kBF16
-          ? dispatch<__nv_bfloat16>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s)
-          : dispatch<float>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s);
+      bf ? dispatch<__nv_bfloat16>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s)
+         : dispatch<float>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s);
   return static_cast<int>(err);
+}
+
+#ifdef LFS2_LVC_PHASE_CLOCKS
+// copies g_phase (kMmaWarpsMax x 8 cycle counts) into out
+LFS2_EXPORT int lfs2_lvc_stack_phase_clocks(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase)));
+}
+#endif
+
+// copies into out[0..6] the route (0 CUDA cores, 1 tensor cores), tile, grid
+// x and y, shared-memory bytes, frames staged a round and n8 tiles an LVC
+// chunk of the latest accepted launch; zeros before the first
+LFS2_EXPORT int lfs2_lvc_stack_last_launch(int* out) {
+  for (int i = 0; i < 7; ++i) out[i] = g_last_launch[i];
+  return 0;
 }

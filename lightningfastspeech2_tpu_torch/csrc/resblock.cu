@@ -63,6 +63,7 @@
 // Shapes the kernel takes: C in {32, 64, 128, 256}, up to three resblocks
 // of up to three dilation pairs each, any L >= 1.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cstdint>
 
@@ -281,29 +282,14 @@ struct Sched {
   ConvStep conv[kMaxConvs];
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+// cp.async, ldmatrix and mma.sync (csrc/mma.cuh)
+using lfs2::cp_async16;
+using lfs2::cp_async_commit;
+using lfs2::cp_async_wait_all;
+using lfs2::ldmatrix_x4;
+using lfs2::ldmatrix_x4_trans;
+using lfs2::mma_bf16;
+using lfs2::smem_u32;
 
 // leaky on two packed bf16: max(a, bf16(a * 0.1f)), the product in f32 and
 // rounded once (a bf16 0.1 is 0.10009765625, and would round differently)
@@ -426,14 +412,6 @@ template <int C> struct MmaGeo {
   static constexpr int LD = C + 8;            // padded row stride (elements)
   static constexpr int STAGES = 2;
 };
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // K rows [k0, k0 + rows) of one conv's (k*C, C) taps into a padded stage
 template <int C>
@@ -682,42 +660,11 @@ template <> __device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[128], con
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(db), "r"(kDescHi), "r"(1));
 }
 
-// ---- mbarriers and bulk copies ----
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that has not
-// completed after 2^26 tries (seconds) traps: a fault, not a hung card.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  for (unsigned tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1u << 26)) __trap();
-  }
-}
-
-// contiguous bytes (16-byte aligned, a multiple of 16) into shared memory,
-// counted on the mbarrier's transaction bytes
-__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
+// mbarriers and bulk copies (csrc/mma.cuh)
+using lfs2::bulk_load;
+using lfs2::mbar_expect_tx;
+using lfs2::mbar_init;
+using lfs2::mbar_wait;
 
 // acc += one K-chunk's products for the warpgroup's 64 rows. The next
 // chunk's copies (issue_next) are issued once the products are in flight:

@@ -15,6 +15,12 @@ conv and the LVC input in the working dtype; conv and LVC products summed
 in f32 with f32 biases; the gate in f32, rounded to the working dtype
 before the residual add.
 
+``lvc_plan`` is the one place that sizes a launch: the route (the tensor
+cores when the hop is a multiple of 8 and a launch fits, the CUDA cores
+otherwise), the tile, halo, frames, shared memory and blocks. The wrapper
+passes it to the library and holds the launch the library records
+(``last_launch``) to it.
+
 The elementwise pieces (``fast_tanh``, ``gated_activation``) and
 ``location_variable_convolution`` live here too; ``vocoder.fastdiff``
 takes them from this module.
@@ -27,7 +33,9 @@ Which stages take the kernel is the JAX package's rule
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -39,11 +47,25 @@ LRELU_SLOPE = 0.2
 # the JAX path's frame tile for a stage whose hop is below the reach when
 # LFS2_FUSED_STAGE1 is set (max(tile, 16), and its dtype tiles are <= 16)
 HALO_TILE_FRAMES = 16
-# output rows per block of the kernel, largest first: the largest that
-# still gives at least one block per SM of the H100's 132
-_TILES = (256, 128, 64)
-_SMS = 132
+# the H100 SXM: shared memory a block may take, and streaming multiprocessors
+SMEM_PER_BLOCK = 232_448
+SM_COUNT = 132
+C = 32                  # the channels the kernel takes
+# CUDA-core route: output rows per block, largest first (the largest that
+# still gives every SM a block); regions rounded to 4 rows
+_CORES_TILES = (256, 128, 64)
+_CORES_ALIGN = 4
+# tensor-core route (csrc/lvc_stack.cu): output rows per block, largest
+# first; signal row stride (x, audio_down, the LVC input) and the staged
+# weights' row strides, in elements
+_MMA_TILES = (512, 256, 128, 64, 32)
+_MMA_LDY = {torch.bfloat16: C + 8, torch.float32: C + 4}
+_LDK, _LDW = 2 * C + 8, C + 8
+_LDT = 3 * C + 4        # f32: row stride of split weights, [out][k]
+_FRAME = C * 2 * C * 3  # one frame's kernel of one layer, elements
+_K = 3 * C              # the products' contraction, k = tap * C + cin
 _c_fn = None
+_c_last = None
 
 
 def fast_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -179,19 +201,161 @@ def _fn():
         lib = build.load("lvc_stack")
         fn = lib.lfs2_lvc_stack
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 7 + [p]
+        fn.argtypes = [p] * 7 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
         _c_fn = (lib, fn)
     return _c_fn
 
 
-def kernel_tile(batch: int, length: int) -> int:
-    """Output rows per block: the largest of ``_TILES`` that still gives
-    every SM a block (the smallest otherwise)."""
-    for tile in _TILES:
-        if batch * -(-length // tile) >= _SMS:
-            return tile
-    return _TILES[-1]
+def _floor_to(v: int, m: int) -> int:
+    return v // m * m
+
+
+def mma_regions(layers: int, tile: int):
+    """The tensor-core route's rows, as ``make_mma_spec`` computes them:
+    (halo, rows, [(b_lo, b_hi)], [(c_lo, c_hi)]) in buffer rows (row 0 is
+    signal position tile_start - halo), per layer the dilated conv's rows
+    and the LVC's, exactly what the next step reads; the halo is the
+    chain's reach rounded up to 8."""
+    lo, hi = 0, tile
+    b, c = [None] * layers, [None] * layers
+    for i in reversed(range(layers)):
+        c[i] = (lo, hi)
+        b[i] = (lo - 1, hi + 1)
+        lo, hi = b[i][0] - 3 ** i, b[i][1] + 3 ** i
+    halo = -_floor_to(lo, 8)
+    return (halo, tile + 2 * halo, [(x + halo, y + halo) for x, y in b],
+            [(x + halo, y + halo) for x, y in c])
+
+
+def _cores_halo(layers: int, tile: int) -> int:
+    """The CUDA-core route's halo, as ``make_spec`` computes it: each step's
+    rows rounded out to 4."""
+    lo, hi = 0, tile
+    for i in reversed(range(layers)):
+        lo = _floor_to(lo, _CORES_ALIGN) - 1 - 3 ** i
+        hi = -_floor_to(-hi, _CORES_ALIGN) + 1 + 3 ** i
+    return -_floor_to(-max(-lo, hi - tile), _CORES_ALIGN)
+
+
+def mma_smem_bytes(dtype: torch.dtype, rows: int, round_frames: int, nt: int) -> int:
+    """Shared memory of a tensor-core launch (``mma_smem_bytes`` in the
+    source): two mbarriers, x, audio_down and the LVC input rows; in bf16 the conv taps and
+    per staged frame its kernel in [k][out] order and its raw copy, in f32
+    the conv taps split into TF32 hi and lo halves and per frame its kernel
+    in [out][k] order, split where chunks hold more than one row tile
+    (``nt`` > 1, the next round's raw kernels then wait in registers, two
+    frames at most), else two raw copies by round parity, read raw."""
+    rows_bytes = 16 + 3 * rows * _MMA_LDY[dtype] * (torch.finfo(dtype).bits // 8)
+    if dtype == torch.bfloat16:
+        return rows_bytes + 2 * (_K * _LDW + round_frames * (_K * _LDK + _FRAME))
+    per_frame = 2 * 2 * C * _LDT if nt > 1 else 2 * _FRAME
+    return rows_bytes + 4 * (2 * C * _LDT + round_frames * per_frame)
+
+
+def _frames_touched(hop: int, n_rows: int, n_frames: int) -> int:
+    """The most frames ``n_rows`` consecutive signal rows can touch."""
+    return min(n_frames, (hop + n_rows - 2) // hop + 1)
+
+
+@dataclass(frozen=True)
+class LvcPlan:
+    """One launch of ``lvc_stack``. ``route``: "mma" (tensor cores) or
+    "cuda_cores"; ``tile``: output rows a block; ``halo``: rows a side;
+    ``rows``: tile + 2 halo; ``frames``: the most frames one layer's LVC
+    rows touch in a block; ``round_frames``: frames whose kernels a block
+    stages at once (0 on the CUDA cores, which read them from device
+    memory); ``nt``: n8 row tiles of an LVC chunk (0 on the CUDA cores);
+    ``smem_bytes`` a block; ``blocks`` a launch."""
+
+    route: str
+    tile: int
+    halo: int
+    rows: int
+    frames: int
+    round_frames: int
+    nt: int
+    smem_bytes: int
+    blocks: int
+
+    @property
+    def record(self) -> dict:
+        """What the library records of this launch (``last_launch``)."""
+        return {"route": self.route, "tile": self.tile, "blocks": self.blocks,
+                "smem_bytes": self.smem_bytes, "round_frames": self.round_frames,
+                "nt": self.nt}
+
+
+@functools.lru_cache(maxsize=None)
+def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype) -> LvcPlan:
+    """The launch of one stage's chain on (B, L, 32) in ``dtype``.
+
+    The rule on shape: the tensor cores when the hop is a multiple of 8 (an
+    n8 tile of rows then lies in one frame) and a 32-row tile fits a block
+    with one frame staged a round; the CUDA cores otherwise (a hop such as
+    6, or a chain whose halo leaves no room, as f32 at six layers).
+
+    Tensor cores: the largest tile of ``_MMA_TILES`` that fits and gives
+    at least one block per two SMs (the smallest that fits when none does):
+    every block recomputes 44 rows a side in its first layers, and on the
+    H100 that work costs more than idle SMs do down to about half of them
+    (``scripts/bench_lvc_stack.py``'s shapes, swept on the card); each round
+    stages as many frames as fit, up to all that one layer's rows touch;
+    chunks of up to 32 rows of one frame in bf16 (a warp's weight fragments
+    then serve 4 row tiles), 16 in f32 (measured faster: its split operands
+    take the registers). CUDA cores: the largest of ``_CORES_TILES`` that
+    gives every SM a block, as before the tensor-core route."""
+    if dtype not in _MMA_LDY or L % hop:
+        raise ValueError(f"lvc_plan: dtype {dtype}, L {L}, hop {hop}")
+    n_frames = L // hop
+
+    def blocks(tile):
+        return B * -(-L // tile)
+
+    def frames(tile):  # layer 0's LVC rows: the tile and the later layers' reach
+        return _frames_touched(hop, tile + 2 * (lvc_reach(layers) - 2), n_frames)
+
+    if hop % 8 == 0:
+        nt = 4 if hop % 32 == 0 and dtype == torch.bfloat16 else 2 if hop % 16 == 0 else 1
+        fitting = []
+        for tile in _MMA_TILES:
+            halo, rows, _, _ = mma_regions(layers, tile)
+            most = 2 if dtype == torch.float32 and nt > 1 else frames(tile)
+            fit = [f for f in range(1, min(frames(tile), most) + 1)
+                   if mma_smem_bytes(dtype, rows, f, nt) <= SMEM_PER_BLOCK]
+            if fit:
+                fitting.append((tile, halo, rows, fit[-1]))
+        if fitting:
+            full = [t for t in fitting if blocks(t[0]) >= -(-SM_COUNT // 2)]
+            tile, halo, rows, rf = full[0] if full else fitting[-1]
+            return LvcPlan("mma", tile, halo, rows, frames(tile), rf, nt,
+                           mma_smem_bytes(dtype, rows, rf, nt), blocks(tile))
+    tile = next((t for t in _CORES_TILES if blocks(t) >= SM_COUNT), _CORES_TILES[-1])
+    halo = _cores_halo(layers, tile)
+    rows = tile + 2 * halo
+    return LvcPlan("cuda_cores", tile, halo, rows, frames(tile), 0, 0,
+                   4 * rows * C * (torch.finfo(dtype).bits // 8), blocks(tile))
+
+
+_ROUTES = ("cuda_cores", "mma")
+
+
+def last_launch() -> dict:
+    """The latest accepted launch as the library recorded it (the route,
+    tile, blocks, shared memory, frames staged a round and n8 tiles of an
+    LVC chunk)."""
+    global _c_last
+    if _c_last is None:
+        lib, _ = _fn()
+        fn = lib.lfs2_lvc_stack_last_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _c_last = (fn, (ctypes.c_int * 7)())
+    fn, buf = _c_last
+    fn(buf)
+    route, tile, gx, gy, smem, rf, nt = list(buf)
+    return {"route": _ROUTES[route], "tile": tile, "blocks": gx * gy, "smem_bytes": smem,
+            "round_frames": rf, "nt": nt}
 
 
 def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
@@ -216,15 +380,22 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     for name, t in (("audio_down", audio_down), ("kernels", kernels), ("conv_w", conv_w)):
         if t.dtype != dt:
             raise ValueError(f"lvc_stack: {name} is {t.dtype}, x is {dt}")
+    plan = lvc_plan(B, L, hop, layers, dt)
+    if plan.route == "mma":  # its 16-byte copies need 16-byte aligned rows
+        x, audio_down, kernels, conv_w = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                          for t in (x, audio_down, kernels, conv_w))
     biases, conv_b = biases.float().contiguous(), conv_b.float().contiguous()
     stream = kernel_stream(x, audio_down, kernels, biases, conv_w, conv_b)
     out = torch.empty_like(x)
     lib, fn = _fn()
     rc = fn(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
             conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, hop, layers,
-            kernel_tile(B, L), int(fast_gating), build.DTYPE_CODES[dt], stream)
+            plan.tile, int(fast_gating), build.DTYPE_CODES[dt], _ROUTES.index(plan.route),
+            plan.round_frames, plan.nt, stream)
     build.check(lib, rc, "lvc_stack")
     lvc_stack.launches += 1
+    if last_launch() != plan.record:
+        raise RuntimeError(f"lvc_stack launched {last_launch()}, planned {plan}")
     return out
 
 

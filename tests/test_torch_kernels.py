@@ -7,7 +7,9 @@ backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
 (value and dD), the length regulator's expand and segment-sum, and the
-FastDiff LVC chain ``lvc_stack`` (with the launches of one ε pass). Marked
+FastDiff LVC chain ``lvc_stack`` (at the served batch too; the f32 route
+held to the chain in f64; every launch as recorded against ``lvc_plan``;
+the launches of one ε pass). Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
 imports neither JAX nor the JAX package, so it runs where JAX is absent:
 
@@ -674,6 +676,81 @@ def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast):
         # the residual chain, held per value
         ulps, share = tlvc.bf16_chain_error(out, ref, args[0], args[1], args[2].shape[2])
         assert ulps <= tlvc.BF16_MAX_ULPS and share <= tlvc.BF16_MAX_UNEQUAL, (ulps, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lvc_stack_kernel_matches_plain_at_the_served_batch(cuda_card, dtype):
+    # stage 3 of the served batch at frame bucket 512: B = 8, hop 256
+    args = _lvc_inputs(cuda_card, 8, 512, 256, dtype, seed=8)
+    out = tlvc.lvc_stack(*args, 256)
+    torch.cuda.synchronize()
+    ref = tlvc.lvc_stack_plain(*args, 256).float()
+    if dtype == torch.float32:
+        err = (out - ref).abs().max().item()
+        top = ref.abs().max().item()
+        assert err <= 2e-4 * (1 + top), (err, top)
+    else:
+        ulps, share = tlvc.bf16_chain_error(out, ref, args[0], args[1], args[2].shape[2])
+        assert ulps <= tlvc.BF16_MAX_ULPS and share <= tlvc.BF16_MAX_UNEQUAL, (ulps, share)
+
+
+def _lvc_chain(x, ad, k, b, cw, cb, hop, operand=lambda t: t):
+    """The chain in the dtype of x with every product operand passed
+    through ``operand`` first: in f64 the function itself; in f32 with
+    ``tf32_round`` the chain as one TF32 product a product would give it."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    for i in range(k.shape[2]):
+        d = 3 ** i
+        x = x + ad
+        y = torch.maximum(x, x * tlvc.LRELU_SLOPE)
+        w = operand(cw[i].to(dt)).permute(2, 1, 0)
+        y = F.conv1d(operand(y).transpose(1, 2), w, cb[i].to(dt), padding=d,
+                     dilation=d).transpose(1, 2)
+        y = torch.maximum(y, y * tlvc.LRELU_SLOPE)
+        g = tlvc.location_variable_convolution(operand(y), operand(k[:, :, i].to(dt)),
+                                               b[:, :, i].to(dt), hop)
+        x = x + tlvc.gated_activation(g, x.shape[-1], False)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hop,nL", [(64, 7), (8, 25), (256, 3)])
+def test_lvc_stack_f32_kernel_holds_an_f64_reference(cuda_card, hop, nL):
+    # Split-TF32 products keep f32's digits: the f32 route lies within 1e-5
+    # (1 + max |ref|) of the chain computed in f64 (its own f32 roundings of
+    # x are about 1e-7 of |x|). One TF32 product a product keeps 11 bits of
+    # each operand: that chain misses the same tolerance
+    # (tests/test_torch_tf32_split.py shows the product alone).
+    args = _lvc_inputs(cuda_card, 2, nL, hop, torch.float32, seed=hop + 2 * nL)
+    got = tlvc.lvc_stack(*args, hop)
+    torch.cuda.synchronize()
+    assert tlvc.last_launch()["route"] == "mma"
+    want = _lvc_chain(*(t.double() for t in args), hop)
+    top = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * (1 + top), (err, top)
+    one_pass = _lvc_chain(*args, hop, operand=tf32_round)
+    assert (one_pass.double() - want).abs().max().item() > 1e-5 * (1 + top)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lvc_launch_record_matches_the_plan(cuda_card, dtype):
+    """Each launch's route, tile, blocks, shared memory, frames a round and
+    row tiles a chunk, as csrc/lvc_stack.cu recorded it
+    (lfs2_lvc_stack_last_launch), are ops/fastdiff_lvc.py lvc_plan's: hop 8
+    and 6 (the CUDA-core rule), the stages of a 512-frame bucket."""
+    for B, nL, hop in ((2, 25, 8), (2, 9, 6), (1, 512, 8), (1, 512, 64), (1, 512, 256),
+                       (2, 5, 256)):
+        args = _lvc_inputs(cuda_card, B, nL, hop, dtype, seed=nL)
+        tlvc.lvc_stack(*args, hop)
+        torch.cuda.synchronize()
+        plan = tlvc.lvc_plan(B, nL * hop, hop, 4, dtype)
+        assert tlvc.last_launch() == plan.record
+        assert plan.route == ("mma" if hop % 8 == 0 else "cuda_cores")
 
 
 @pytest.mark.gpu

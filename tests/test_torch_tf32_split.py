@@ -4,7 +4,9 @@ by integer ops on the f32 bits (``cvt.rna.tf32.f32``), and at the card
 tests' smallest flash shape the score and P.V products held to the f32
 card tolerance of ``test_flash_attention_kernels_match_plain`` (1e-4 of
 each item's largest element, 1e-5 on the mean), which the split products
-meet and one-pass TF32 products do not. Imports no JAX."""
+meet and one-pass TF32 products do not; and one stage-2 frame of the LVC
+product of csrc/lvc_stack.cu's f32 route, held to that kernel's f32 card
+tolerance the same way. Imports no JAX."""
 
 import math
 
@@ -80,3 +82,33 @@ def test_split_tf32_products_hold_the_f32_card_tolerance(operands, product, spli
         for i in range(B):
             top = want[i].abs().max().item()
             assert (got[i].double() - want[i]).abs().max().item() <= 1e-6 * top
+
+
+@pytest.fixture(scope="module")
+def lvc_frame():
+    """One stage-2 frame (hop 64) of the LVC product as the f32 route of
+    csrc/lvc_stack.cu forms it: the (hop, 3C) rows of the leaky LVC input at
+    offsets -1, 0, +1 (column tap * C + cin) and the frame's kernel, drawn
+    as the card tests draw it (x0.2), in that order, (3C, 2C)."""
+    rng = np.random.default_rng(64)
+    hop, C = 64, 32
+    y = rng.standard_normal((hop + 2, C)).astype(np.float32)
+    y = np.maximum(y, np.float32(0.2) * y)
+    k = (0.2 * rng.standard_normal((C, 2 * C, 3))).astype(np.float32)
+    a = np.concatenate([y[t:t + hop] for t in range(3)], axis=1)
+    b = k.transpose(2, 0, 1).reshape(3 * C, 2 * C)
+    return torch.from_numpy(a), torch.from_numpy(np.ascontiguousarray(b))
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_pass"])
+def test_split_tf32_lvc_frame_product_holds_the_f32_card_tolerance(lvc_frame, split):
+    # the f32 lvc_stack card tolerance, 2e-4 (1 + max |ref|): split products
+    # (three TF32 products a product) meet it by three orders of magnitude,
+    # one TF32 product does not
+    a, b = lvc_frame
+    want = a.double() @ b.double()
+    top = want.abs().max().item()
+    err = (tf32_matmul(a, b, split).double() - want).abs().max().item()
+    assert (err <= 2e-4 * (1 + top)) == split, (err, top)
+    if split:
+        assert err <= 1e-6 * (1 + top)

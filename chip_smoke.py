@@ -11,7 +11,9 @@ Phases, each printed as one JSON line:
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
    the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
    spill and no serialised wgmma for them; the four tensor-core
-   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate) must hold HMMA
+   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate) and the seven
+   split-TF32 ``resblock`` kernels (f32 at C = 32, 64, 128 with x in
+   shared memory or in L2, and C = 256 in clusters of 4) must hold HMMA
    and spill nothing.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
@@ -21,8 +23,11 @@ Phases, each printed as one JSON line:
    the plain version's time, and its bound at the H100's published peaks.
    The resblock rows (HiFi-GAN V1 at a 512-frame mel, B=1, bf16 and f32)
    add the launch as the library recorded it (tile, blocks_per_launch,
-   shared memory, each held against the tile plan), the route and halo
-   share, achieved TFLOP/s, ``x_bound`` (time over bound) and, for bf16,
+   shared memory, each held against the tile plan), the route, where x
+   lies and the halo share, achieved TFLOP/s,
+   ``x_bound`` (time over bound: f32 products at split TF32's 165 TFLOP/s,
+   ``bound_ms_cuda_cores`` at 67 beside it; the f32 plain version is the
+   chain as f32 cuDNN convs with TF32 off) and, for bf16,
    ``cudnn_bf16_chain_ms``: the same chain as bf16 ``F.conv1d`` calls, a
    chain of library calls, not one (so no ``library_ms``).
 5. serving (the main path): the flagship LightSpeech (bf16) and HiFi-GAN V1
@@ -33,8 +38,10 @@ Phases, each printed as one JSON line:
    models are built, the requests served, and the counters read: each must
    equal what the path launches, and none may be 0. Then the batch again,
    five times on the host clock (median and spread), and one 512-frame
-   vocoder call on the host clock and one under the profiler: device ms
-   and the resblock kernels' share and launches.
+   vocoder call, in bf16 and in f32 (the generate CLI's default
+   ``--vocoder_precision 32``, the split-TF32 resblock route), the median
+   of ``HIFIGAN_CALL_RUNS`` on the host clock and one under the profiler:
+   device ms and the resblock kernels' ms, share and launches (6 each).
 6. reference: an f32 request on the card against the same request through
    the plain path on the CPU.
 7. train kernels: ``ffn_ln_train`` (forward and backward) at every FFN
@@ -237,6 +244,9 @@ def build_phase() -> None:
 FFN_WGMMA = re.compile(r"(ffn_ln_kernel|ffn_dup_kernel)ILi(\d+)E(?:Lb([01])E)?")
 # lvc_stack's tensor-core kernels: lvc_mma_kernel<bf16 or float, Padé gate>
 LVC_MMA = re.compile(r"(lvc_mma_kernel)I(13__nv_bfloat16|f)Lb([01])E")
+# resblock's split-TF32 kernels: f32_resblock_kernel<C, x in shared memory,
+# blocks a row tile>
+RESBLOCK_F32 = re.compile(r"(f32_resblock_kernel)ILi(\d+)ELb([01])ELi(\d+)E")
 
 
 def _sass_rows(name, report, pattern, key) -> dict:
@@ -271,7 +281,9 @@ def ffn_sass_phase(report) -> dict:
     cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
     serialised-wgmma warnings (C7512). Fails unless every bf16 FFN kernel
     has HGMMA and none spills or serialises, and every tensor-core
-    lvc_stack kernel has HMMA and spills nothing."""
+    lvc_stack kernel and every split-TF32 resblock kernel (C = 32, 64, 128
+    with x in shared memory or in L2, C = 256 in clusters of 4) has HMMA
+    and spills nothing."""
 
     def key(m):
         return f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")
@@ -284,13 +296,17 @@ def ffn_sass_phase(report) -> dict:
     for name in ("ffn_ln", "ffn_ln_train_bwd"):
         rows.update(_sass_rows(name, report, FFN_WGMMA, key))
     lvc_rows = _sass_rows("lvc_stack", report, LVC_MMA, lvc_key)
-    emit({"phase": "ffn_sass", "kernels": rows, "lvc_stack": lvc_rows})
+    rb_rows = _sass_rows("resblock", report, RESBLOCK_F32, lambda m: (
+        f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}, "
+        f"{m.group(4)}>"))
+    emit({"phase": "ffn_sass", "kernels": rows, "lvc_stack": lvc_rows, "resblock_f32": rb_rows})
     bad = {k: r for k, r in rows.items()
            if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
-    bad.update({k: r for k, r in lvc_rows.items() if r["hmma"] == 0 or r["spill_bytes"]})
-    if len(rows) != 9 or len(lvc_rows) != 4 or bad:
-        raise RuntimeError(f"tensor-core kernels: {len(rows)} ffn and {len(lvc_rows)} "
-                           f"lvc_stack found, off {bad}")
+    bad.update({k: r for k, r in {**lvc_rows, **rb_rows}.items()
+                if r["hmma"] == 0 or r["spill_bytes"]})
+    if len(rows) != 9 or len(lvc_rows) != 4 or len(rb_rows) != 7 or bad:
+        raise RuntimeError(f"tensor-core kernels: {len(rows)} ffn, {len(lvc_rows)} "
+                           f"lvc_stack and {len(rb_rows)} f32 resblock found, off {bad}")
     return rows
 
 
@@ -471,7 +487,10 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
             err, tol = max_err_and_tol(out, ref, 1e-4)
             flops = L * sum(2 * k * C * C * 2 * len(ds)
                             for k, ds in zip(w.kernel_sizes, w.dilations))
-            nbytes = 2 * tensor_bytes(x) + tensor_bytes(w.taps, w.bias)
+            # x read and the output written once, each conv's weights once
+            # (the f32 route's prepared taps are split: twice the weights)
+            n_w = sum(k * C * C * 2 * len(ds) for k, ds in zip(w.kernel_sizes, w.dilations))
+            nbytes = 2 * tensor_bytes(x) + n_w * x.element_size() + tensor_bytes(w.bias)
             plan = rb.tile_plan(w, 1, L)
             if launched != {"blocks": plan.blocks, "tile": plan.tile,
                             "smem_bytes": plan.smem_bytes}:
@@ -481,8 +500,10 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
                    "at": f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}",
                    "route": plan.route, "max_abs_err": err, "tol": tol,
                    "ms": cuda_ms(lambda: kern(x, w)), "plain_ms": cuda_ms(lambda: plain(x, w)),
+                   "plain": ("the f32 cuDNN chain (F.conv1d, TF32 off)" if dtype == torch.float32
+                             else "f32 cuDNN convs on bf16-rounded values"),
                    "tile": launched["tile"], "blocks_per_launch": launched["blocks"],
-                   "smem_bytes": launched["smem_bytes"],
+                   "smem_bytes": launched["smem_bytes"], "x_in_smem": plan.x_in_smem,
                    "halo_recompute_share": plan.halo_share}
             if dtype == torch.bfloat16:
                 blocks = [[(w1.to(dtype), b1.to(dtype), d, w2.to(dtype), b2.to(dtype))
@@ -490,7 +511,12 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
                 chain = resblock_chain_bf16(x, blocks)
                 row["cudnn_bf16_chain_ms"] = cuda_ms(lambda: resblock_chain_bf16(x, blocks))
                 row["cudnn_bf16_chain_max_abs_err"] = (chain.float() - ref.float()).abs().max().item()
-            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+            # f32 products at f32 accuracy: split TF32 (165 TFLOP/s), the
+            # CUDA cores' 67 beside it
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                flops, nbytes, dtype, PEAK_F32_ACCURATE if dtype == torch.float32 else None)
+            if dtype == torch.float32:
+                row["bound_ms_cuda_cores"] = bound_ms(flops, nbytes, dtype)[0]
             row["tflops"] = flops / row["ms"] / 1e9
             row["x_bound"] = row["ms"] / row["bound_ms"]
             emit({"phase": "kernel", **row})
@@ -509,7 +535,8 @@ def kernels_phase(dev) -> dict:
            _ffn_case(dev, 8, 2048, 17, torch.bfloat16, g),
            _ffn_case(dev, 8, 256, 25, torch.bfloat16, g)]
     rbs = _resblock_cases(dev, 512, g)
-    # the f32 route (CUDA cores) at the same shapes: phase 6's request takes it
+    # the f32 route (split TF32) at the same shapes: phase 6's request and
+    # phase 5's f32 vocoder call take it
     rbs_f32 = _resblock_cases(dev, 512, g, torch.float32)
     return {"ffn_ln": ffn, "resblock": [r for r in rbs if r["name"] == "resblock"],
             "resblock_trio": [r for r in rbs if r["name"] == "resblock_trio"],
@@ -695,7 +722,14 @@ def serving_phase(counters) -> dict:
         raise RuntimeError(f"serving-path launches {launches}, expected {want}")
     repeats = batch_repeats(gen, run["batch_inputs"], run["batch"])
     profile_row = hifigan_vocoder_profile(gen.synthesiser, cfg)
-    return {"vocoder_profile": profile_row, "batch_repeats": repeats,
+    # the same call in f32, the generate CLI's default --vocoder_precision 32
+    # (its split-TF32 resblock route), from the same seed
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig, Synthesiser
+
+    profile_f32 = hifigan_vocoder_profile(
+        Synthesiser(HifiGanConfig(), dtype=torch.float32, seed=1), cfg, "_f32")
+    return {"vocoder_profile": profile_row, "vocoder_profile_f32": profile_f32,
+            "batch_repeats": repeats,
             "launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
             "requests": run["requests"], "batch": run["batch"]}
 
@@ -704,10 +738,12 @@ HIFIGAN_PROFILE_FRAMES = 512
 HIFIGAN_CALL_RUNS = 5
 
 
-def hifigan_vocoder_profile(synth, cfg) -> dict:
+def hifigan_vocoder_profile(synth, cfg, tag: str = "") -> dict:
     """One HiFi-GAN vocoder call on a 512-frame mel, outside the counted
-    run: the host clock over HIFIGAN_CALL_RUNS calls, then one call under
-    the profiler for device ms and the resblock kernels' share."""
+    run: the host clock over HIFIGAN_CALL_RUNS calls (the median), then
+    one call under the profiler for device ms and the resblock kernels'
+    ms, share and launches (the kernel table in
+    hifigan_vocoder_profile{tag}.txt)."""
     from torch.profiler import ProfilerActivity, profile
 
     mel = (np.random.default_rng(5).standard_normal(
@@ -723,8 +759,9 @@ def hifigan_vocoder_profile(synth, cfg) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         synth(mel)
         torch.cuda.synchronize()
-    split = _step_split(prof, "hifigan_vocoder_profile.txt")
-    row = {"phase": "hifigan_vocoder_profile", "frames": HIFIGAN_PROFILE_FRAMES,
+    split = _step_split(prof, f"hifigan_vocoder_profile{tag}.txt")
+    row = {"phase": f"hifigan_vocoder_profile{tag}", "frames": HIFIGAN_PROFILE_FRAMES,
+           "dtype": str(synth.model.dtype)[6:],
            "call_ms": statistics.median(runs), "call_ms_runs": runs,
            "device_ms": split["device_ms"], "device_launches": split["device_launches"],
            "resblock_ms": split["resblock_ms"], "resblock_launches": split["resblock_launches"],
@@ -732,8 +769,9 @@ def hifigan_vocoder_profile(synth, cfg) -> dict:
            "rest_device_ms": split["device_ms"] - split["resblock_ms"]}
     emit(row)
     if split["resblock_launches"] != 6:
-        raise RuntimeError(f"profiled vocoder call: {split['resblock_launches']} resblock "
-                           "kernel launches on the device, expected 6")
+        raise RuntimeError(f"profiled {row['dtype']} vocoder call: "
+                           f"{split['resblock_launches']} resblock kernel launches on the "
+                           "device, expected 6")
     return row
 
 
@@ -1037,7 +1075,7 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
            "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
            "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
-           "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "resblock_kernel")}
+           "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
     out = {k: 0.0 for k in fam}
     counts = {k: 0 for k in fam}
     total = 0.0
@@ -1670,18 +1708,31 @@ def main() -> int:
                  rows["ffn_ln"][:1], n["ffn_ln"]),
     ]
     # the bf16 route (the serving path's) summed over a 512-frame call's
-    # launches, with the same chain through bf16 cuDNN convs and the f32
-    # route's times beside
+    # launches, with the same chain through bf16 cuDNN convs; the f32 route
+    # (split TF32: phase 6's request and phase 5's f32 call) summed the same
+    # way beside it, with that call's resblock kernel time
+    voc32 = served["vocoder_profile_f32"]
     for name, rep in (("resblock", "pallas_hifigan.py:103"),
                       ("resblock_trio", "pallas_hifigan.py:197")):
         rs = rows[name]
+        r32 = [r for r in rows["resblock_f32"] if r["name"] == name]
         kernels.append({
             **_summary(name, f"{pkg}/resblock.cu", f"lightningfastspeech2_tpu/ops/{rep}",
                        rs, n[name]),
             "blocks_per_launch": [r["blocks_per_launch"] for r in rs],
             "tile": [r["tile"] for r in rs],
             "cudnn_bf16_chain_ms": sum(r["cudnn_bf16_chain_ms"] for r in rs),
-            "f32_route_ms": sum(r["ms"] for r in rows["resblock_f32"] if r["name"] == name)})
+            "f32_route": {
+                "routes": [r["route"] for r in r32],
+                "launches_a_512_frame_call": len(r32),
+                **{k: sum(r[k] for r in r32)
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_ms_cuda_cores")},
+                "max_abs_err": max(r["max_abs_err"] for r in r32),
+                "plain": r32[0]["plain"], "bound_by": r32[-1]["bound_by"],
+                "blocks_per_launch": [r["blocks_per_launch"] for r in r32],
+                "tile": [r["tile"] for r in r32]},
+            "f32_vocoder_call_resblock_ms": voc32["resblock_ms"],
+            "f32_vocoder_call_resblock_launches": voc32["resblock_launches"]})
     # the training kernels at the first decoder block's shape (held against
     # the plain version there); the per-step sum over all eight FFN blocks
     # rides along

@@ -26,26 +26,26 @@
 // by the neighbouring block; the tile plan (ops/hifigan_resblock.py
 // tile_plan) weighs that share against the number of blocks.
 //
-// What holds the bf16 routes back is the taps, not the signal. A conv's
-// (k*C_in, C_out) taps (1.44 MB at C=256, k=11) cannot stay on chip, so
-// they stream from L2 in 16 KB K-chunks, and each chunk must serve as
-// many rows as the accumulators allow before the next replaces it. The
-// CUDA-core code these routes replace re-read a tap's (C, C) slice for
-// every 4 rows (about 4 FLOP per byte of L2 traffic) and ran at about
+// What holds the tensor-core routes back is the taps, not the signal. A
+// conv's (k*C_in, C_out) taps (1.44 MB at C=256, k=11 in bf16) cannot stay
+// on chip, so they stream from L2 in 16 KB K-chunks, and each chunk must
+// serve as many rows as the accumulators allow before the next replaces
+// it. The CUDA-core code these routes replaced re-read a tap's (C, C) slice
+// for every 4 rows (about 4 FLOP per byte of L2 traffic) and ran at about
 // 3 TFLOP/s at stage 0. Here a chunk serves a 128-row pass at C >= 128
 // (128 FLOP a byte) and a 256-row pass below. On this card the copies,
 // not L2's bandwidth, then cost the most: 1024 16-byte cp.async a chunk
-// share the load pipe with the A fragments' ldmatrix. So the wgmma route
-// moves each chunk with one bulk copy and issues it while the products
-// run.
+// share the load pipe with the A fragments' ldmatrix. So the wgmma and
+// f32 routes move each chunk with one bulk copy.
 //
 // Each conv is an implicit GEMM, y[r] = sum_j A_j[r] @ W_j with A_j[r] =
-// in[r + j*d - p], bf16 operands and f32 accumulators. A_j is a row offset
-// into the shared-memory signal, never a copy: ldmatrix takes one row
-// address per lane, so any shift is free, and rows are padded by 16 bytes
-// so that any eight consecutive rows fall in distinct bank groups. The
-// leaky on conv 1's input is applied once per A fragment in registers
-// (times 0.1f in f32, rounded to bf16 once), not per product. The epilogue
+// in[r + j*d - p], f32 accumulators (bf16 operands, or f32 ones formed as
+// split-TF32 products). A_j is a row offset into the signal, never a copy:
+// ldmatrix takes one row address per lane, so any shift is free, and bf16
+// rows are padded by 16 bytes so that any eight consecutive rows fall in
+// distinct bank groups. The leaky on conv 1's input is applied once per A
+// fragment in registers (in bf16 times 0.1f in f32, rounded once), not per
+// product. The epilogue
 // adds the f32 bias, zeroes rows outside [0, L), and stores leaky(y)
 // rounded (conv 1) or x + round(y) rounded (conv 2).
 //   wgmma route (wg_*, C = 128 and 256): two warpgroups of 64 rows by all
@@ -55,10 +55,32 @@
 //     channels, B through ldmatrix.trans from a 2-stage cp.async ring of
 //     row-padded chunks, the operands of a k-step loaded during the last.
 //
-// f32 route (resblock_kernel): plain f32 FMAs on the CUDA cores. Conv outputs live
-// in shared memory; the residual signal does too when two buffers fit,
-// otherwise (C=256) in a per-block scratch slice of device memory that
-// stays in L2. Tap weights stream from L2.
+//   f32 route (f32_*, every C): split-TF32 mma.sync m16n8k8 (csrc/mma.cuh),
+//     each f32 product as a_hi b_lo + a_lo b_hi + a_hi b_hi, which keeps
+//     f32's digits (the dropped a_lo b_lo is below 2^-22 of the product).
+//     A chunk's split products sum from zero on the tensor cores and are
+//     added to the accumulators with f32 adds: the tensor cores' f32
+//     accumulation truncates, and over the k C terms of a conv (2816 at
+//     C = 256, k = 11) one accumulator drifted to about 1e-4 of the sum on
+//     an H100, five times the f32 tolerance. The taps come split into hi
+//     and lo halves, in fragment order, from ops/hifigan_resblock.py
+//     _kernel_taps: a lane reads its two B values of both halves in one
+//     16-byte load, a chunk (32 KB, 8 KB at C = 32) is one bulk copy into a
+//     2-stage ring. The signal is split in registers as each A fragment is
+//     loaded, two float2 loads a m16 tile (rows padded by 32 bytes): within
+//     each group of 8 input channels the product's k index t is channel 2t
+//     and t + 4 is 2t + 1 (the taps are laid out to match). Eight warps of 32 rows by 64 of the block's
+//     output channels (32 at C = 32). An f32 row takes twice a bf16 one
+//     and the split taps four times, so shared memory is the crux; the
+//     plan (ops/hifigan_resblock.py tile_plan) picks the tile and where x
+//     lies: in shared memory, or (XS false) in a per-block scratch slice
+//     of device memory that stays in L2, which leaves shared memory to t.
+//     At C = 256 a 512-frame call has 4096 rows for 132 SMs: with a block
+//     a tile, the halo (60 rows a side at k = 11) would be most of the
+//     work. There a cluster of 4 blocks shares a row tile (NS = 4), each
+//     computing a quarter of the output channels from all input channels,
+//     x and t in the tile's scratch slice, and a cluster barrier between
+//     convs: tiles four times as long for the same blocks.
 //
 // Shapes the kernel takes: C in {32, 64, 128, 256}, up to three resblocks
 // of up to three dilation pairs each, any L >= 1.
@@ -99,161 +121,6 @@ cudaError_t record_launch(const dim3& grid, int smem, int tile) {
     g_last_launch[4] = tile;
   }
   return err;
-}
-
-// ============================ f32 route: CUDA cores ========================
-constexpr int kRowsPerThread = 4;
-constexpr int kRowsPerPass = kRowsPerThread * (kThreads / 32);
-
-// One dilated conv over buffer rows [olo, ohi):
-//   y[r] = sum_j sum_ci in[r + j*d - p][ci] * W[j][ci][:] + bias, zero
-// where the row's signal position lies outside [0, L). LEAKY_IN applies
-// leaky (rounded to T) to the input as it is read; FIRST stores
-// leaky(y) rounded to T into dst, otherwise dst += round(y) (rounded to T).
-template <typename T, int CN, bool FIRST>
-__device__ void conv_rows(const T* src, T* dst, const T* __restrict__ w,
-                          const float* __restrict__ bias, int olo, int ohi, int k, int d,
-                          int g0, int L) {
-  constexpr int C = 32 * CN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = lane * CN;
-  const int p = d * (k - 1) / 2;
-  float bv[CN];
-  lfs2::load_vec<CN>(bias + c0, bv);
-  for (int rb = olo + warp * kRowsPerThread; rb < ohi; rb += kRowsPerPass) {
-    float acc[kRowsPerThread][CN];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const T* in = src + static_cast<long long>(rb + j * d - p) * C;
-      const T* wj = w + static_cast<long long>(j) * C * C + c0;
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) {
-        float wv[CN];
-        lfs2::load_vec<CN>(wj + ci * C, wv);
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          float a = lfs2::to_f(in[i * C + ci]);
-          if (FIRST) a = fmaxf(a, lfs2::round_to<T>(a * 0.1f));
-#pragma unroll
-          for (int jj = 0; jj < CN; ++jj) acc[i][jj] += a * wv[jj];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = rb + i;
-      if (r >= ohi) break;
-      const int g = g0 + r;
-      const bool inside = g >= 0 && g < L;
-      T* o = dst + static_cast<long long>(r) * C + c0;
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        float v = inside ? acc[i][jj] + bv[jj] : 0.0f;
-        if (FIRST) {
-          o[jj] = lfs2::from_f<T>(fmaxf(v, v * 0.1f));
-        } else {
-          o[jj] = lfs2::from_f<T>(lfs2::to_f(o[jj]) + lfs2::round_to<T>(v));
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int CN>
-__global__ void __launch_bounds__(kThreads)
-resblock_kernel(const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ w,
-                const float* __restrict__ bias, T* __restrict__ scratch, int L, int tile,
-                int halo, Spec spec, int x_in_smem) {
-  constexpr int C = 32 * CN;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // buffers hold R rows plus kRowsPerThread rows of slack for the last pass
-  const int rows = tile + 2 * halo + kRowsPerThread;
-  T* tbuf = reinterpret_cast<T*>(smem_raw);
-  T* xbuf = x_in_smem
-                ? tbuf + static_cast<long long>(rows) * C
-                : scratch + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * rows * C;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int g0 = t0 - halo;  // signal position of buffer row 0
-  const T* xb = x + static_cast<long long>(b) * L * C;
-  T* ob = out + static_cast<long long>(b) * L * C;
-
-  for (int r = 0; r < spec.n_res; ++r) {
-    int lo = halo - spec.reach[r];
-    int hi = halo + tile + spec.reach[r];
-    for (int idx = threadIdx.x; idx < (hi - lo) * C; idx += kThreads) {
-      const int row = lo + idx / C, c = idx % C;
-      const int g = g0 + row;
-      xbuf[static_cast<long long>(row) * C + c] =
-          (g >= 0 && g < L) ? xb[static_cast<long long>(g) * C + c] : lfs2::from_f<T>(0.0f);
-    }
-    __syncthreads();
-    const int k = spec.k[r];
-    for (int pr = 0; pr < spec.n_pairs[r]; ++pr) {
-      const int d = spec.dil[r][pr];
-      const int q1 = d * (k - 1) / 2;
-      conv_rows<T, CN, true>(xbuf, tbuf, w + spec.w_off[r][2 * pr], bias + spec.b_off[r][2 * pr] * C,
-                             lo + q1, hi - q1, k, d, g0, L);
-      lo += q1;
-      hi -= q1;
-      __syncthreads();
-      const int q2 = (k - 1) / 2;
-      conv_rows<T, CN, false>(tbuf, xbuf, w + spec.w_off[r][2 * pr + 1],
-                              bias + spec.b_off[r][2 * pr + 1] * C, lo + q2, hi - q2, k, 1, g0, L);
-      lo += q2;
-      hi -= q2;
-      __syncthreads();
-    }
-    // combine the tile's rows into the output: x1, then ((x1 + x2) + x3) / 3
-    for (int idx = threadIdx.x; idx < tile * C; idx += kThreads) {
-      const int i = idx / C, c = idx % C;
-      const int g = t0 + i;
-      if (g >= L) break;
-      const long long o = static_cast<long long>(g) * C + c;
-      const float v = lfs2::to_f(xbuf[static_cast<long long>(halo + i) * C + c]);
-      if (r == 0) {
-        ob[o] = lfs2::from_f<T>(v);
-      } else {
-        float s = lfs2::round_to<T>(lfs2::to_f(ob[o]) + v);
-        if (r == spec.n_res - 1) s = s / static_cast<float>(spec.n_res);
-        ob[o] = lfs2::from_f<T>(s);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int CN>
-cudaError_t launch(const void* x, void* out, const void* w, const float* bias, void* scratch,
-                   int B, int L, int tile, int halo, const Spec& spec, int x_in_smem,
-                   cudaStream_t stream) {
-  constexpr int C = 32 * CN;
-  const int rows = tile + 2 * halo + kRowsPerThread;
-  const int smem = rows * C * static_cast<int>(sizeof(T)) * (x_in_smem ? 2 : 1);
-  auto kernel = resblock_kernel<T, CN>;
-  cudaError_t err = lfs2::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + tile - 1) / tile, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out),
-                                           static_cast<const T*>(w), bias,
-                                           static_cast<T*>(scratch), L, tile, halo, spec,
-                                           x_in_smem);
-  return record_launch(grid, smem, tile);
-}
-
-cudaError_t f32_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
-                         void* scratch, int B, int L, int tile, int halo, const Spec& spec,
-                         int x_in_smem, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch<float, 1>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 64: return launch<float, 2>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 128: return launch<float, 4>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    case 256: return launch<float, 8>(x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ======================= bf16 route: tensor cores ==========================
@@ -829,6 +696,363 @@ cudaError_t bf16_dispatch(int C, const void* x, void* out, const void* w, const 
   }
 }
 
+// ===================== f32 route: split TF32 on the tensor cores ===========
+// Eight warps, WN across the block's channels by 8 / WN down the rows;
+// each owns 32 rows (MT m16 tiles) by 64 channels (NT n8 tiles; 32 at
+// C = 32): 64 f32 accumulators a thread (32 at C = 32) and as many for the
+// chunk's products on the tensor cores. A chunk is KC K-rows of hi and lo
+// taps in fragment order (KC divides C, so a conv's taps are k * C / KC
+// whole chunks).
+template <int C, int NS> struct F32Geo {
+  static constexpr int CN = C / NS;                  // output channels a block
+  static constexpr int MT = 2;                       // m16 tiles a warp
+  static constexpr int WN = CN < 64 ? 1 : CN / 64;   // warps across the channels
+  static constexpr int NT = CN / 8 / WN;             // n8 tiles a warp
+  static constexpr int PASS = 16 * MT * (kThreads / 32 / WN);  // rows a pass
+  static constexpr int KC = C < 4096 / CN ? C : 4096 / CN;  // K rows a chunk
+  static constexpr int KS = KC / 8;                  // k-steps a chunk
+  static constexpr int STAGE = KC * CN * 8;          // bytes of a chunk (hi and lo)
+  static constexpr int STAGES = 2;
+  static constexpr int BARS = 16;                    // bytes for the stages' mbarriers
+  static constexpr int LD = C + 8;                   // x and t row stride in shared memory
+  static_assert(C % KC == 0 && KC % 8 == 0 && STAGE <= 32768, "f32 geometry");
+};
+
+// The raw A values of one k-step for the warp's m16 tiles: rows g and
+// g + 8 of each tile (a_row is this lane's row g of tile 0, in the
+// source's rows, clamped to the buffer: a clamped row only feeds an output
+// row past the conv's end, which the epilogue drops), input channels
+// 2 tq and 2 tq + 1 of the k-step's group of 8 (k indices tq and tq + 4).
+// Every tile is loaded and multiplied, also past the conv's last row: a
+// guard per tile would split the products into branches that the
+// compiler cannot interleave.
+template <int C, int NS, int LDS>
+__device__ __forceinline__ void f32_load_a(float2 (&a)[F32Geo<C, NS>::MT][2], const float* src,
+                                           int src_rows, int a_row, int kg, int d, int pad,
+                                           int tq) {
+  const int r = a_row + (kg / C) * d - pad;
+  const int c = kg % C + 2 * tq;
+#pragma unroll
+  for (int mt = 0; mt < F32Geo<C, NS>::MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = min(r + 16 * mt + 8 * h, src_rows - 1);
+      a[mt][h] = *reinterpret_cast<const float2*>(src + static_cast<long long>(rr) * LDS + c);
+    }
+}
+
+// acc += one chunk's split products for the warp's rows and channels. a
+// holds the raw A values of the chunk's first k-step and leaves with the
+// next chunk's: each k-step loads the next one's before its products.
+// FIRST applies leaky(0.1) to A (conv 1's input) before the split. The
+// chunk's products sum on the tensor cores from zero, in tc, and are
+// added to acc with f32 adds: a k-step's three products are each issued
+// for all MT x NT tiles before the next.
+template <int C, int NS, int LDS, bool FIRST>
+__device__ __forceinline__ void f32_chunk(float (&acc)[F32Geo<C, NS>::MT][F32Geo<C, NS>::NT][4],
+                                          float2 (&a)[F32Geo<C, NS>::MT][2], const float* src,
+                                          int src_rows, int a_row, const float4* stage, int kg0,
+                                          int K, int d, int pad, int nt0, int lane) {
+  using G = F32Geo<C, NS>;
+  float tc[G::MT][G::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tc[mt][nt][i] = 0.0f;
+  // (unrolled further, the k-steps' loads are hoisted until registers spill)
+#pragma unroll 4
+  for (int s = 0; s < G::KS; ++s) {
+    uint32_t ah[G::MT][4], al[G::MT][4];
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt) {
+      // (g, tq), (g + 8, tq), (g, tq + 4), (g + 8, tq + 4): mma_tf32's a
+      float v[4] = {a[mt][0].x, a[mt][1].x, a[mt][0].y, a[mt][1].y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (FIRST) v[i] = fmaxf(v[i], v[i] * 0.1f);
+        lfs2::split(v[i], ah[mt][i], al[mt][i]);
+      }
+    }
+    const int kn = kg0 + 8 * (s + 1);
+    if (kn < K) f32_load_a<C, NS, LDS>(a, src, src_rows, a_row, kn, d, pad, lane & 3);
+    // this lane's B of n8 tile nt: hi of k rows tq and tq + 4, then lo
+    const float4* bp = stage + (s * (G::CN / 8) + nt0) * 32 + lane;
+    uint32_t bh[G::NT][2], bl[G::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      const float4 b = bp[nt * 32];
+      bh[nt][0] = __float_as_uint(b.x);
+      bh[nt][1] = __float_as_uint(b.y);
+      bl[nt][0] = __float_as_uint(b.z);
+      bl[nt][1] = __float_as_uint(b.w);
+    }
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) lfs2::mma_tf32(tc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) lfs2::mma_tf32(tc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) lfs2::mma_tf32(tc[mt][nt], ah[mt], bh[nt]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += tc[mt][nt][i];
+}
+
+// Channels [c0, c0 + CN) of the input rows [lo, hi) of a resblock into x
+// (row stride LDX), zero outside [0, L)
+template <int C, int CN, int LDX>
+__device__ __forceinline__ void f32_load_x(float* xs, const float* __restrict__ xb, int lo, int hi,
+                                           int g0, int L, int c0) {
+  constexpr int kVec = CN / 4;
+  for (int idx = threadIdx.x; idx < (hi - lo) * kVec; idx += kThreads) {
+    const int row = lo + idx / kVec, v = c0 / 4 + idx % kVec;
+    const int gp = g0 + row;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (gp >= 0 && gp < L)
+      val = *reinterpret_cast<const float4*>(xb + static_cast<long long>(gp) * C + v * 4);
+    *reinterpret_cast<float4*>(xs + static_cast<long long>(row) * LDX + v * 4) = val;
+  }
+}
+
+// Channels [c0, c0 + CN) of the tile's rows of resblock r into the output:
+// x1, then ((x1 + x2) + x3) / 3
+template <int C, int CN, int LDX>
+__device__ __forceinline__ void f32_combine(const float* xs, float* __restrict__ ob, int halo,
+                                            int t0, int tile, int L, int r, int n_res, int c0) {
+  constexpr int kVec = CN / 4;
+  for (int idx = threadIdx.x; idx < tile * kVec; idx += kThreads) {
+    const int i = idx / kVec, v = c0 / 4 + idx % kVec;
+    const int gp = t0 + i;
+    if (gp >= L) break;
+    float4* op = reinterpret_cast<float4*>(ob + static_cast<long long>(gp) * C + v * 4);
+    const float4 xv =
+        *reinterpret_cast<const float4*>(xs + static_cast<long long>(halo + i) * LDX + v * 4);
+    if (r == 0) {
+      *op = xv;
+      continue;
+    }
+    float4 o = *op;
+    o = make_float4(o.x + xv.x, o.y + xv.y, o.z + xv.z, o.w + xv.w);
+    if (r == n_res - 1) {
+      const float n = static_cast<float>(n_res);
+      o = make_float4(o.x / n, o.y / n, o.z / n, o.w / n);
+    }
+    *op = o;
+  }
+}
+
+// every thread of every block of the cluster; orders the blocks' device
+// memory writes before the reads after it (release, acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// NS == 1: one block a row tile, t in shared memory, x there too (XS) or
+// in the block's slice of scratch (x_rows * C floats, row stride C), which
+// stays in L2. NS > 1: a cluster of NS blocks shares a row tile, block
+// `rank` computing output channels [rank C / NS, (rank + 1) C / NS) of
+// every conv from all C input channels; x and t lie in the tile's slice of
+// scratch ((x_rows + t_rows) * C floats), and a cluster barrier before
+// each conv orders one conv's writes before the next one's reads. The tap
+// ring has two chunks, one in flight while the other is read (deeper rings
+// timed no faster on an H100: scripts/bench_resblock.py --sweep).
+template <int C, bool XS, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+f32_resblock_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    const float* __restrict__ w, const float* __restrict__ bias, float* scratch,
+                    int L, int tile, int halo, const __grid_constant__ Sched sc) {
+  constexpr int stages = F32Geo<C, NS>::STAGES;
+  using G = F32Geo<C, NS>;
+  static_assert(NS == 1 || !XS, "a split tile keeps x in scratch");
+  constexpr bool TS = NS == 1;  // t in shared memory
+  constexpr int LDX = XS ? G::LD : C;
+  constexpr int LDT = TS ? G::LD : C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned ring = smem_u32(smem_raw);
+  const unsigned full = ring + stages * G::STAGE;  // a stage's chunk has landed
+  float* sm = reinterpret_cast<float*>(smem_raw + stages * G::STAGE + G::BARS);
+  const int rank = blockIdx.x % NS, tile_idx = blockIdx.x / NS;
+  const long long slot = static_cast<long long>(blockIdx.y) * (gridDim.x / NS) + tile_idx;
+  float* slice = scratch + slot * ((XS ? 0 : sc.x_rows) + (TS ? 0 : sc.t_rows)) * C;
+  float* ts = TS ? sm : slice + (XS ? 0 : sc.x_rows * C);
+  float* xs = XS ? sm + sc.t_rows * G::LD : slice;
+  const int c0 = rank * G::CN;  // the block's first output channel
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp / G::WN, nt0 = (warp % G::WN) * G::NT;  // row group, first n8 tile
+  const int g = lane >> 2, tq = lane & 3;
+  const int t0 = tile_idx * tile;
+  const int g0 = t0 - halo;  // signal position of buffer row 0
+  const float* xb = x + static_cast<long long>(blockIdx.y) * L * C;
+  float* ob = out + static_cast<long long>(blockIdx.y) * L * C;
+
+  // chunk q + 1 is issued by thread 0 once every warp is done with chunk
+  // q - 1's stage. The split taps take 2 floats an element
+  // (w_off counts elements of the unsplit taps); a conv's taps hold the
+  // blocks' output channels one block after the other.
+  Cursor cur = {0, 0, 0};
+  auto issue = [&](int stage) {
+    if (cur.conv >= sc.n_convs) return;
+    if (threadIdx.x == 0) {
+      const ConvStep& cs = sc.conv[cur.conv];
+      mbar_expect_tx(full + 8 * stage, G::STAGE);
+      bulk_load(ring + stage * G::STAGE,
+                w + 2 * (cs.w_off + static_cast<long long>(rank) * cs.k * C * G::CN +
+                         static_cast<long long>(cur.chunk) * G::KC * G::CN),
+                G::STAGE, full + 8 * stage);
+    }
+    advance<C, G::KC, G::PASS>(cur, sc);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int i = 0; i < stages - 1; ++i) issue(i);
+  int q = 0, ci = 0;
+  for (int r = 0; r < sc.n_res; ++r) {
+    f32_load_x<C, G::CN, LDX>(xs, xb, sc.res_lo[r], sc.res_hi[r], g0, L, c0);
+    // (NS == 1: the first chunk barrier below orders these stores before
+    // any read)
+    for (int e = 0; e < sc.res_convs[r]; ++e, ++ci) {
+      if (NS > 1) cluster_sync();
+      const ConvStep cs = sc.conv[ci];
+      const int K = cs.k * C;
+      const int chunks = K / G::KC;
+      const int passes = (cs.ohi - cs.olo + G::PASS - 1) / G::PASS;
+      const int pad = cs.d * (cs.k - 1) / 2;
+      const float* bconv = bias + static_cast<long long>(cs.b_off) * C;
+      // x or t by name in each branch below, so that the compiler knows
+      // which memory each load reads
+      const int src_rows = cs.first ? sc.x_rows : sc.t_rows;
+      const int a_row = cs.first ? 0 : -sc.t_lo;  // buffer row -> source row
+      for (int p = 0; p < passes; ++p) {
+        const int row0 = cs.olo + p * G::PASS + rg * 16 * G::MT;
+        const int n_mt = max(0, min(G::MT, (cs.ohi - row0 + 15) / 16));
+        const int lane_row = row0 + g + a_row;
+        float acc[G::MT][G::NT][4];
+#pragma unroll
+        for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+        float2 a[G::MT][2] = {};
+        for (int i = 0; i < chunks; ++i, ++q) {
+          mbar_wait(full + 8 * (q % stages), (q / stages) & 1);  // chunk q has landed
+          __syncthreads();  // every warp is done with chunk q - 1's stage
+          issue((q + stages - 1) % stages);
+          if (n_mt == 0) continue;
+          const float4* stage =
+              reinterpret_cast<const float4*>(smem_raw + (q % stages) * G::STAGE);
+          if (cs.first) {
+            if (i == 0) f32_load_a<C, NS, LDX>(a, xs, src_rows, lane_row, 0, cs.d, pad, tq);
+            f32_chunk<C, NS, LDX, true>(acc, a, xs, src_rows, lane_row, stage, i * G::KC, K,
+                                        cs.d, pad, nt0, lane);
+          } else {
+            if (i == 0) f32_load_a<C, NS, LDT>(a, ts, src_rows, lane_row, 0, 1, pad, tq);
+            f32_chunk<C, NS, LDT, false>(acc, a, ts, src_rows, lane_row, stage, i * G::KC, K,
+                                         1, pad, nt0, lane);
+          }
+        }
+        // accumulator layout: rows g and g + 8 of each m16 tile, channels
+        // 8 nt + 2 tq and + 1
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int col = c0 + (nt0 + nt) * 8 + 2 * tq;
+          const float2 bv = *reinterpret_cast<const float2*>(bconv + col);
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = row0 + 16 * mt + g + 8 * h;
+              if (mt >= n_mt || row >= cs.ohi) continue;
+              const bool inside = g0 + row >= 0 && g0 + row < L;
+              const float v0 = inside ? acc[mt][nt][2 * h] + bv.x : 0.0f;
+              const float v1 = inside ? acc[mt][nt][2 * h + 1] + bv.y : 0.0f;
+              if (cs.first) {
+                *reinterpret_cast<float2*>(ts + static_cast<long long>(row - sc.t_lo) * LDT +
+                                           col) =
+                    make_float2(fmaxf(v0, v0 * 0.1f), fmaxf(v1, v1 * 0.1f));
+              } else {
+                float2* xp = reinterpret_cast<float2*>(xs + static_cast<long long>(row) * LDX + col);
+                const float2 xv = *xp;
+                *xp = make_float2(xv.x + v0, xv.y + v1);
+              }
+            }
+        }
+      }
+    }
+    __syncthreads();
+    f32_combine<C, G::CN, LDX>(xs, ob, halo, t0, tile, L, r, sc.n_res, c0);
+    __syncthreads();
+  }
+}
+
+// shared-memory bytes of the f32 launch: the tap ring and its mbarriers,
+// then t and x where they lie in shared memory
+template <int C, int NS> int f32_smem(const Sched& sc, bool xs) {
+  using G = F32Geo<C, NS>;
+  return G::STAGES * G::STAGE + G::BARS +
+         ((NS == 1 ? sc.t_rows : 0) + (xs ? sc.x_rows : 0)) * G::LD * 4;
+}
+
+template <int C, bool XS, int NS>
+cudaError_t f32_launch(const void* x, void* out, const void* w, const float* bias, void* scratch,
+                       int B, int L, int tile, int halo, const Sched& sc, cudaStream_t stream) {
+  const int smem = f32_smem<C, NS>(sc, XS);
+  if (smem > kMaxSmem || (!XS && scratch == nullptr)) return cudaErrorInvalidValue;
+  auto kernel = f32_resblock_kernel<C, XS, NS>;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(NS * ((L + tile - 1) / tile), B);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = NS > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x), static_cast<float*>(out),
+                           static_cast<const float*>(w), bias, static_cast<float*>(scratch), L,
+                           tile, halo, sc);
+  if (err != cudaSuccess) return err;
+  return record_launch(grid, smem, tile);
+}
+
+// nsplit 1: x in shared memory (x_in_smem) or in scratch; nsplit 4 (C =
+// 256 only, which its taps' layout follows): a cluster of 4 a tile
+cudaError_t f32_dispatch(int C, const void* x, void* out, const void* w, const float* bias,
+                         void* scratch, int B, int L, int tile, int halo, const Sched& sc,
+                         int x_in_smem, int nsplit, cudaStream_t s) {
+#define LFS2_F32_ARGS x, out, w, bias, scratch, B, L, tile, halo, sc, s
+  if (nsplit != (C == 256 ? 4 : 1) || (nsplit > 1 && x_in_smem)) return cudaErrorInvalidValue;
+  switch (C) {
+    case 32: return x_in_smem ? f32_launch<32, true, 1>(LFS2_F32_ARGS) : f32_launch<32, false, 1>(LFS2_F32_ARGS);
+    case 64: return x_in_smem ? f32_launch<64, true, 1>(LFS2_F32_ARGS) : f32_launch<64, false, 1>(LFS2_F32_ARGS);
+    case 128: return x_in_smem ? f32_launch<128, true, 1>(LFS2_F32_ARGS) : f32_launch<128, false, 1>(LFS2_F32_ARGS);
+    case 256: return f32_launch<256, false, 4>(LFS2_F32_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef LFS2_F32_ARGS
+}
+
 // layout: n_res groups of [k, n_pairs, d_0, .., d_{n_pairs-1}]
 int parse_spec(const int* layout, int n_res, int C, int halo, Spec* spec) {
   if (n_res < 1 || n_res > kMaxRes) return 0;
@@ -862,7 +1086,7 @@ int parse_spec(const int* layout, int n_res, int C, int halo, Spec* spec) {
   return 1;
 }
 
-// the bf16 route's chain, the same for every block: each conv computes the
+// the chain of every route, the same for every block: each conv computes the
 // rows the convs after it still need, in buffer coordinates (row 0 is
 // signal position tile_start - halo)
 Sched make_sched(const Spec& spec, int tile, int halo) {
@@ -905,13 +1129,17 @@ Sched make_sched(const Spec& spec, int tile, int halo) {
 LFS2_DEFINE_ERROR_STRING
 
 // The taps of resblock r, pair p are w[conv], conv = r*2*n_pairs + 2p (+1
-// for the second conv), each (k, C, C); bias is (n_convs, C) f32. bf16
-// runs the tensor-core route (scratch and x_in_smem unused), f32 the
-// CUDA-core route.
+// for the second conv), each k * C * C elements as _kernel_taps lays them
+// (f32: hi and lo, 2 floats an element); bias is (n_convs, C) f32. bf16
+// takes wgmma (C >= 128) or mma.sync, scratch and x_in_smem unused; f32
+// takes split TF32, x in shared memory or (x_in_smem 0) in scratch,
+// blocks * (tile + 2 halo) * C floats; at C = 256 (nsplit 4) a cluster of
+// 4 blocks a tile, x and t in scratch, B * tiles * (x_rows + t_rows) * C
+// floats.
 LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const float* bias,
                               void* scratch, int B, int L, int C, int tile, int halo,
-                              const int* layout, int n_res, int x_in_smem, int dtype,
-                              void* stream) {
+                              const int* layout, int n_res, int x_in_smem, int nsplit,
+                              int dtype, void* stream) {
   Spec spec;
   if (B < 1 || L < 1 || tile < 1 || !parse_spec(layout, n_res, C, halo, &spec))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -919,7 +1147,8 @@ LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const flo
   const cudaError_t err =
       dtype == lfs2::kBF16
           ? bf16_dispatch(C, x, out, w, bias, B, L, tile, halo, make_sched(spec, tile, halo), s)
-          : f32_dispatch(C, x, out, w, bias, scratch, B, L, tile, halo, spec, x_in_smem, s);
+          : f32_dispatch(C, x, out, w, bias, scratch, B, L, tile, halo,
+                         make_sched(spec, tile, halo), x_in_smem, nsplit, s);
   return static_cast<int>(err);
 }
 

@@ -7,8 +7,9 @@ Counterpart of ``lightningfastspeech2_tpu/ops/pallas_hifigan.py``
 kernel in ``csrc/resblock.cu``; for a CPU tensor they run the plain
 versions below. The TPU kernels' time-into-lanes fold (``tap_blocks``) was
 a trick for the MXU and is not carried over: signals stay (B, L, C).
-The kernel has three routes: bf16 at C >= 128 on the tensor cores through
-wgmma, bf16 below through mma.sync, f32 on the CUDA cores.
+Every route runs on the tensor cores: bf16 at C >= 128 through wgmma,
+bf16 below through mma.sync, f32 through mma.sync with split-TF32
+products (three TF32 products each, f32 accuracy).
 
 Numerics, kernel and plain alike: leaky_relu(0.1) on the working dtype
 before the first conv of a pair, f32 accumulation, bias and the second
@@ -44,10 +45,16 @@ SM_COUNT = 132
 # bf16 routes: taps stream in K-chunks of this many elements (see
 # _bf16_geometry); x and t rows are padded by 8 elements
 _CHUNK = 8192
-# f32 route: shared memory budget, tile cap, slack rows (kRowsPerThread)
-_F32_SMEM = 200 * 1024
-_F32_TILE_CAP = 256
-_F32_SLACK = 4
+# f32 route (csrc/resblock.cu F32Geo): the tile plan's time model of a
+# block, fitted to scripts/bench_resblock.py --sweep on an H100: each
+# K-chunk costs _F32_CHUNK_US (its wait and block barrier) plus
+# _F32_MMA_US per TF32 product of the busiest of the SM's four
+# sub-partitions
+_F32_CHUNK_US = 0.76
+_F32_MMA_US = 0.0057
+# clusters of 4 blocks an H100 runs at once (more take a second wave:
+# scripts/bench_resblock.py --sweep, 32 clusters as slow as two waves)
+_F32_CLUSTERS_AT_ONCE = 28
 _c_fn = None
 
 # one residual pair: (w1, b1, dilation, w2, b2), torch Conv1d layout (C, C, k)
@@ -147,10 +154,13 @@ def _kernel_taps(w: torch.Tensor) -> torch.Tensor:
     The wgmma route (bf16, C >= 128) copies 8192-element K-chunks of the
     (k C_in, C_out) matrix into shared memory as they lie, so each chunk is
     stored as its shared-memory image: 64-channel boxes of 128-byte rows,
-    the 16-byte pieces of row r at piece index ^ (r % 8). Otherwise the
-    taps stay in order."""
+    the 16-byte pieces of row r at piece index ^ (r % 8). The f32 route
+    takes them split (``split_taps``). bf16 below C = 128 keeps the
+    order."""
     k, C, _ = w.shape
-    if w.dtype != torch.bfloat16 or _bf16_geometry(C)[0] != "wgmma":
+    if w.dtype == torch.float32:
+        return split_taps(w, _f32_split(C))
+    if _bf16_geometry(C)[0] != "wgmma":
         return w.reshape(-1)
     kc = _CHUNK // C
     # (chunk, row, box, piece, element) -> (chunk, box, row, swizzled piece, element)
@@ -158,6 +168,33 @@ def _kernel_taps(w: torch.Tensor) -> torch.Tensor:
     piece = torch.arange(8)[None, :] ^ (torch.arange(kc)[:, None] % 8)   # (row, slot)
     idx = piece.to(w.device)[None, None, :, :, None].expand(m.shape)
     return torch.gather(m, 3, idx).reshape(-1)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: integer ops on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_taps(w: torch.Tensor, ns: int = 1) -> torch.Tensor:
+    """f32 (k, C_in, C_out) taps as the f32 route reads them: hi = tf32(w),
+    lo = tf32(w - hi), so hi + lo is w within 2^-22 of |w|, in mma.sync's
+    B-fragment order. Row kk = j C_in + c_in of the (k C_in, C_out) matrix
+    lies in k-step kk // 8; within the k-step, channels 2t and 2t + 1 are
+    the product's k indices t and t + 4. The outputs are cut into ``ns``
+    blocks' parts (a cluster's blocks, C_out / ns channels each), one after
+    the other; within a part, per (k-step, n8 tile of its outputs, lane =
+    4 g + t) four floats: hi of rows 2t, 2t + 1 at output 8 nt + g, then lo
+    of the same. A K-chunk of a part is a run of whole k-steps, so it is
+    one contiguous piece."""
+    k, C, Co = w.shape
+    hi = tf32(w.float())
+    lo = tf32(w.float() - hi)
+    # (k-step, t, e, part, n8 tile, g) -> (part, k-step, n8 tile, g, t, hi/lo, e)
+    parts = [h.reshape(k * C // 8, 4, 2, ns, Co // 8 // ns, 8).permute(3, 0, 4, 5, 1, 2)
+             for h in (hi, lo)]
+    return torch.stack(parts, dim=5).reshape(-1)
 
 
 def _conv_f32(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -225,16 +262,22 @@ def halo_share(w: ChainShape | ResblockWeights, tile: int) -> float:
 
 @dataclass(frozen=True)
 class TilePlan:
-    """How one launch is cut: ``tile`` output rows a block, ``blocks`` in
-    all, ``smem_bytes`` of shared memory each; ``x_in_smem`` (f32 route)
-    keeps the residual signal in shared memory, else in device scratch."""
+    """How one launch is cut: ``tile`` output rows a block (a row tile
+    shared by a cluster of 4 blocks on route "mma_tf32_c4"), ``blocks`` in
+    all, ``smem_bytes`` of shared memory each; ``x_in_smem`` keeps the
+    residual signal in shared memory, else (f32 only) in device scratch."""
 
-    route: str             # bf16: "wgmma" (C >= 128) or "mma" (mma.sync); "f32" (CUDA cores)
-    tile: int
+    route: str             # bf16: "wgmma" (C >= 128) or "mma" (mma.sync); f32 (split
+    tile: int              # TF32): "mma_tf32", "mma_tf32_xl2" (x in L2), "mma_tf32_c4"
     blocks: int
     smem_bytes: int
     x_in_smem: bool
     halo_share: float
+
+
+def _t_lo(w: ChainShape) -> int:
+    """The lowest buffer row of the first convs' outputs t."""
+    return min(w.halo - sum(r) + r[0] for r in w.reaches)
 
 
 def _bf16_geometry(C: int) -> Tuple[str, int, int, int, int]:
@@ -255,8 +298,7 @@ def _bf16_smem(w: ChainShape, tile: int) -> int:
     """The bf16 launch's shared memory: the tap ring, the signal x (tile +
     2 halo rows) and the first convs' outputs t, from their lowest row."""
     C, halo = w.channels, w.halo
-    t_lo = min(halo - sum(r) + r[0] for r in w.reaches)
-    rows = (tile + 2 * halo) + (tile + 2 * (halo - t_lo))
+    rows = (tile + 2 * halo) + (tile + 2 * (halo - _t_lo(w)))
     return _bf16_geometry(C)[4] + rows * (C + 8) * 2
 
 
@@ -276,42 +318,104 @@ def _bf16_cost(w: ChainShape, tile: int) -> float:
     return cost
 
 
+def _f32_split(C: int) -> int:
+    """Blocks that share a row tile, each with C / n of the outputs: 4 at
+    C = 256 (a cluster), else 1."""
+    return 4 if C == 256 else 1
+
+
+def _f32_geometry(C: int) -> Tuple[int, int, int, int]:
+    """(rows a pass, warps across a block's channels, m16 tiles a warp,
+    bytes of a K-chunk of hi and lo taps) at C channels, as csrc/resblock.cu
+    F32Geo<C, NS> lays them out: eight warps of 32 rows by 64 of the
+    block's CN = C / NS output channels (32 at CN = 32), chunks of 32 KB
+    (8 KB at C = 32) in a 2-stage ring, 16 bytes of mbarriers beside it."""
+    cn = C // _f32_split(C)
+    mt, wn = 2, max(1, cn // 64)
+    kc = min(C, 4096 // cn)
+    return 16 * mt * (8 // wn), wn, mt, kc * cn * 8
+
+
+def _f32_smem(w: ChainShape, tile: int, x_in_smem: bool) -> int:
+    """The f32 launch's shared memory: the tap ring and its mbarriers, then
+    t (one block a tile) and x (where it lies there), at C + 8 floats a
+    row."""
+    C, halo = w.channels, w.halo
+    t_rows = tile + 2 * (halo - _t_lo(w)) if _f32_split(C) == 1 else 0
+    rows = t_rows + (tile + 2 * halo if x_in_smem else 0)
+    return 2 * _f32_geometry(C)[3] + 16 + rows * (C + 8) * 4
+
+
+def _f32_us(w: ChainShape, tile: int) -> float:
+    """A block's time by the model above: every pass of every conv walks
+    all of the conv's K-chunks, each with its products for the warps of
+    the row groups that have rows in the pass."""
+    C = w.channels
+    pass_rows, wn, mt, chunk = _f32_geometry(C)
+    cn = C // _f32_split(C)
+    kc = chunk // (8 * cn)
+    step = 3 * mt * (cn // 8 // wn) * _F32_MMA_US   # one warp's k-step
+    us = 0.0
+    for k, rows in zip(w.kernel_sizes, conv_rows(w, tile)):
+        for n in rows:
+            for p0 in range(0, n, pass_rows):
+                groups = -(-min(pass_rows, n - p0) // (16 * mt))
+                busy = -(-groups * wn // 4)
+                us += k * C // kc * (_F32_CHUNK_US + kc // 8 * busy * step)
+    return us
+
+
 def tile_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
-    """The launch of ``w``'s kernel on (B, L, C): bf16 takes the tensor-core
-    route, whose tile (a multiple of 16) minimises the waves of blocks over
-    the card's SMs times a block's work, larger tiles winning ties; f32
-    takes the CUDA-core route's largest tile up to 256 that fits. The
-    latest plans are kept per (shape, B, L): serving asks for a few frame
+    """The launch of ``w``'s kernel on (B, L, C): the tile (a multiple of
+    16) that minimises the waves of blocks over the card's SMs times a
+    block's time, larger tiles winning ties. bf16 weighs a block's chunk
+    loads and products (``_bf16_cost``); f32 (``_f32_us``) also picks where
+    x lies below C = 256: with x in L2 a tile can be larger. The latest
+    plans are kept per (shape, B, L): serving asks for a few frame
     buckets' lengths, each launch looks its plan up."""
     return _make_plan(w.shape, B, L)
+
+
+def _f32_options(w: ChainShape, tile: int):
+    """(route, x_in_smem, shared memory) of the f32 launches of a tile that
+    fit: one block a tile with x in shared memory or in L2; at C = 256 a
+    cluster of 4 blocks a tile with x and t in L2 (the rest of the SM's
+    256 KB then caches their reads in L1)."""
+    routes = ((("mma_tf32_c4", False),) if _f32_split(w.channels) > 1 else
+              (("mma_tf32", True), ("mma_tf32_xl2", False)))
+    for route, xs in routes:
+        smem = _f32_smem(w, tile, xs)
+        if smem <= SMEM_PER_BLOCK:
+            yield route, xs, smem
 
 
 @functools.lru_cache(maxsize=256)
 def _make_plan(w: ChainShape, B: int, L: int) -> TilePlan:
     C, halo = w.channels, w.halo
-    if w.dtype == torch.bfloat16:
-        best = None
-        for tile in range(16, 16 * -(-L // 16) + 1, 16):
+    best = None
+    split = _f32_split(C) if w.dtype == torch.float32 else 1
+    at_once = SM_COUNT if split == 1 else _F32_CLUSTERS_AT_ONCE * split
+    for tile in range(16, 16 * -(-L // 16) + 1, 16):
+        blocks = split * B * -(-L // tile)
+        waves = math.ceil(blocks / at_once)
+        if w.dtype == torch.bfloat16:
             smem = _bf16_smem(w, tile)
-            if smem > SMEM_PER_BLOCK:
-                break
-            blocks = B * -(-L // tile)
-            est = math.ceil(blocks / SM_COUNT) * _bf16_cost(w, tile)
-            if best is None or est <= best[0]:
-                best = (est, tile, blocks, smem)
-        if best is None:
-            raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
-        _, tile, blocks, smem = best
-        return TilePlan(_bf16_geometry(C)[0], tile, blocks, smem, True, halo_share(w, tile))
-    row_bytes = C * torch.empty((), dtype=w.dtype).element_size()
-    for buffers in (2, 1):
-        tile = _F32_SMEM // (buffers * row_bytes) - 2 * halo - _F32_SLACK
-        tile = min(_F32_TILE_CAP, tile // 32 * 32)
-        if tile >= 32:
-            smem = (tile + 2 * halo + _F32_SLACK) * row_bytes * buffers
-            return TilePlan("f32", tile, B * -(-L // tile), smem, buffers == 2,
-                            halo_share(w, tile))
-    raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
+            options = ([(_bf16_geometry(C)[0], True, smem, _bf16_cost(w, tile))]
+                       if smem <= SMEM_PER_BLOCK else [])
+        else:
+            options = [(route, xs, smem, _f32_us(w, tile))
+                       for route, xs, smem in _f32_options(w, tile)]
+        if not options:
+            break
+        for route, xs, smem, cost in options:
+            est = waves * cost
+            # larger tiles win ties, and x in shared memory wins ties with L2
+            if best is None or est < best[0] or (est == best[0] and xs >= best[5]):
+                best = (est, route, tile, blocks, smem, xs)
+    if best is None:
+        raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
+    _, route, tile, blocks, smem, xs = best
+    return TilePlan(route, tile, blocks, smem, xs, halo_share(w, tile))
 
 
 def _fn():
@@ -321,7 +425,7 @@ def _fn():
         fn = lib.lfs2_resblock
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_int),
-                       i, i, i, p]
+                       i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.lfs2_resblock_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.lfs2_resblock_last_launch.restype = ctypes.c_int
@@ -339,7 +443,8 @@ def last_launch() -> Dict[str, int]:
     return {"blocks": rec[0] * rec[1] * rec[2], "smem_bytes": rec[3], "tile": rec[4]}
 
 
-def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
+            plan: TilePlan | None = None) -> torch.Tensor:
     stream = kernel_stream(x, w.taps, w.bias)
     B, L, C = x.shape
     if x.dtype not in build.DTYPE_CODES or w.taps.dtype != x.dtype:
@@ -350,17 +455,22 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str) -> torch.Tensor:
                          f"its weights, got C={C}, weights {w.channels}")
     if w.n_res > 3 or any(len(ds) > 3 for ds in w.dilations):
         raise ValueError(f"{what} kernel takes up to 3 resblocks of up to 3 pairs")
-    plan = tile_plan(w, B, L)
-    scratch = (torch.empty(0, dtype=x.dtype, device=x.device) if plan.x_in_smem else
-               torch.empty(plan.blocks * (plan.tile + 2 * w.halo + _F32_SLACK) * C,
-                           dtype=x.dtype, device=x.device))
+    plan = plan or tile_plan(w, B, L)
+    split = _f32_split(C) if x.dtype == torch.float32 else 1
+    if plan.x_in_smem:
+        scratch = torch.empty(0, dtype=x.dtype, device=x.device)
+    else:  # x, and with a split tile t, per tile
+        rows = plan.tile + 2 * w.halo
+        if split > 1:
+            rows += plan.tile + 2 * (w.halo - _t_lo(w.shape))
+        scratch = torch.empty(plan.blocks // split * rows * C, dtype=x.dtype, device=x.device)
     layout = w.layout
     c_layout = (ctypes.c_int * len(layout))(*layout)
     out = torch.empty_like(x)
     lib, fn = _fn()
     rc = fn(x.data_ptr(), out.data_ptr(), w.taps.data_ptr(), w.bias.data_ptr(),
             scratch.data_ptr(), B, L, C, plan.tile, w.halo, c_layout, w.n_res,
-            int(plan.x_in_smem), build.DTYPE_CODES[x.dtype], stream)
+            int(plan.x_in_smem), split, build.DTYPE_CODES[x.dtype], stream)
     build.check(lib, rc, what)
     return out
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on a Hopper
-card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio``, the
-training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
+card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio`` (the f32
+route also held to the chain in f64), the training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
 backward ``ffn_ln_train_bwd_plain``; every launch's grid and shared memory
 against ``ffn_plan``) and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
@@ -141,6 +141,52 @@ def test_resblock_plan_smem_matches_the_library(cuda_card, C_, ks):
             plan = trb.tile_plan(w, 1, L)
             assert trb.last_launch() == {"blocks": plan.blocks, "tile": plan.tile,
                                          "smem_bytes": plan.smem_bytes}
+
+
+def _resblock_chain(x, w, operand=lambda t: t):
+    """The resblock chain of ``w`` on x (B, L, C) in the dtype of x, every
+    conv operand (input and taps) passed through ``operand`` first: in f64
+    the function itself; in f32 with ``tf32_round`` the chain as one TF32
+    product a product would give it."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    out = None
+    for pairs in w.pairs:
+        y = x
+        for w1, b1, d, w2, b2 in pairs:
+            t = y
+            for wc, bc, dc, first in ((w1, b1, d, True), (w2, b2, 1, False)):
+                t = torch.maximum(t, t * trb.LRELU_SLOPE)  # leaky before each conv
+                t = F.conv1d(operand(t.transpose(1, 2).contiguous()), operand(wc.to(dt)),
+                             bc.to(dt), padding=dc * (wc.shape[-1] - 1) // 2,
+                             dilation=dc).transpose(1, 2)
+            y = y + t
+        out = y if out is None else out + y
+    return out / float(w.n_res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C_,L,ks,B", [(256, 4096, (11,), 1), (32, 8192, (3, 7, 11), 2)])
+def test_resblock_f32_kernels_hold_an_f64_reference(cuda_card, C_, L, ks, B):
+    # Split-TF32 products keep f32's digits: the f32 route (stage 0's k=11
+    # launch at C=256 and a C=32 trio) lies within 1e-5 of max |ref| of the
+    # chain computed in f64 (its own f32 roundings and sums are about 1e-6
+    # of it); one TF32 product a product keeps 11 bits of each operand, and
+    # that chain misses the same tolerance (tests/test_torch_tf32_split.py
+    # shows one conv's product alone)
+    w = _resblock_weights(C_, ks, torch.float32, cuda_card)
+    x = torch.randn(B, L, C_, device=cuda_card)
+    kernel = trb.resblock if len(ks) == 1 else trb.resblock_trio
+    got = kernel(x, w)
+    torch.cuda.synchronize()
+    assert trb.tile_plan(w, B, L).route in ("mma_tf32", "mma_tf32_xl2", "mma_tf32_c4")
+    want = _resblock_chain(x.double(), w)
+    top = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * top, (err, top)
+    one_pass = _resblock_chain(x, w, operand=tf32_round)
+    assert (one_pass.double() - want).abs().max().item() > 1e-5 * top
 
 
 @pytest.mark.gpu

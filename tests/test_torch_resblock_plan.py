@@ -1,8 +1,10 @@
-"""The resblock kernels' tile plan (ops/hifigan_resblock.py tile_plan) and
-the bf16 leaky both routes share, on the CPU and without JAX: every HiFi-GAN
-V1 stage's launch fits a block's shared memory and has blocks; each conv of
-the chain computes the tile plus twice the reach still ahead; the leaky
-rounds 0.1f * a once, which a bf16 0.1 would not."""
+"""The resblock kernels' tile plan (ops/hifigan_resblock.py tile_plan), the
+bf16 leaky both bf16 routes share and the f32 route's split taps, on the
+CPU and without JAX: every HiFi-GAN V1 stage's launch fits a block's shared
+memory and has blocks; each conv of the chain computes the tile plus twice
+the reach still ahead; the leaky rounds 0.1f * a once, which a bf16 0.1
+would not; the f32 taps are split into TF32 hi and lo halves that keep
+f32's digits, in the order the split-TF32 route reads them."""
 
 import numpy as np
 import pytest
@@ -30,13 +32,17 @@ def test_v1_stage_plans_fit_a_block(stage, dtype):
             for B in (1, 8):
                 L = frames * hop
                 plan = trb.tile_plan(w, B, L)
-                want = "f32" if dtype == torch.float32 else ("wgmma" if w.channels >= 128 else "mma")
-                assert plan.route == want
+                f32 = dtype == torch.float32
+                want = ({"mma_tf32_c4"} if f32 and w.channels == 256 else
+                        {"mma_tf32", "mma_tf32_xl2"} if f32 else
+                        {"wgmma" if w.channels >= 128 else "mma"})
+                assert plan.route in want
+                assert plan.x_in_smem == (plan.route in ("mma_tf32", "wgmma", "mma"))
                 assert 0 < plan.smem_bytes <= 232_448
-                assert plan.blocks == B * -(-L // plan.tile) >= 1
-                if plan.route != "f32":
-                    # a multiple of 16, no larger than the signal needs
-                    assert plan.tile % 16 == 0 and plan.tile <= 16 * -(-L // 16)
+                split = 4 if plan.route == "mma_tf32_c4" else 1
+                assert plan.blocks == split * B * -(-L // plan.tile) >= 1
+                # a multiple of 16, no larger than the signal needs
+                assert plan.tile % 16 == 0 and plan.tile <= 16 * -(-L // 16)
                 assert 0.0 <= plan.halo_share < 1.0
 
 
@@ -93,12 +99,13 @@ def test_bf16_leaky_rounds_the_f32_product_once():
 def test_kernel_taps_are_the_wgmma_chunk_images(C_, k):
     """bf16 taps at C >= 128 are stored as the wgmma route's shared-memory
     chunks: tap row kk, channel c of chunk kk // KC at box c // 64, row
-    kk % KC, 16-byte piece ((c % 64) // 8) ^ (row % 8); below 128 channels,
-    and in f32, the (k, C_in, C_out) order stays."""
+    kk % KC, 16-byte piece ((c % 64) // 8) ^ (row % 8); below 128 channels
+    the (k, C_in, C_out) order stays; f32 taps are split (split_taps)."""
     g = torch.Generator().manual_seed(C_ + k)
     w = torch.randn(k, C_, C_, generator=g).to(torch.bfloat16)
     flat = trb._kernel_taps(w)
-    assert torch.equal(trb._kernel_taps(w.float()), w.float().reshape(-1))
+    assert torch.equal(trb._kernel_taps(w.float()),
+                       trb.split_taps(w.float(), 4 if C_ == 256 else 1))
     if C_ < 128:
         assert torch.equal(flat, w.reshape(-1))
         return
@@ -110,3 +117,107 @@ def test_kernel_taps_are_the_wgmma_chunk_images(C_, k):
            + (((c % 64) // 8) ^ (row % 8)) * 8 + c % 8)
     assert torch.equal(flat[off], w.reshape(k * C_, C_))
     assert torch.equal(flat.sort().values, w.reshape(-1).sort().values)
+
+
+# PR 10's f32 plan of a 512-frame call at B=1 (CUDA cores): blocks of stage
+# 0's three launches (k = 3, 7, 11), which left most of the 132 SMs idle
+PR10_F32_STAGE0_BLOCKS = (64, 43, 64)
+
+
+def test_v1_f32_plans_at_512_frames_fill_the_card():
+    """Stage 0's split-TF32 launches (C = 256: clusters of 4 blocks, each a
+    quarter of the channels of a shared row tile) have more blocks than PR
+    10's, and stages 1-3 at least 128 blocks on the 132 SMs: their plans
+    take larger tiles than PR 10's (less halo, measured faster on the card
+    by scripts/bench_resblock.py --sweep) but still one block for nearly
+    every SM."""
+    cfg, L = HifiGanConfig(), 512
+    for stage in range(4):
+        L *= cfg.upsample_rates[stage]
+        for i, w in enumerate(_stage_weights(stage, torch.float32)):
+            plan = trb.tile_plan(w, 1, L)
+            if stage == 0:
+                assert plan.route == "mma_tf32_c4"
+                assert plan.blocks > PR10_F32_STAGE0_BLOCKS[i]
+            else:
+                assert plan.route in ("mma_tf32", "mma_tf32_xl2")
+                assert plan.blocks >= 128
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_f32_plan_smem_is_the_ring_t_and_x(stage):
+    """The f32 launch's shared memory as csrc/resblock.cu f32_smem counts it:
+    a ring of two K-chunks (hi and lo, 32 KB each, 8 KB at C = 32) and 16
+    bytes of mbarriers, then t and, in shared memory, x, at C + 8 floats a
+    row. At C = 256 a cluster of 4 blocks shares a tile with x and t in
+    L2: the ring alone."""
+    cfg, L = HifiGanConfig(), 512
+    for s_ in range(stage + 1):
+        L *= cfg.upsample_rates[s_]
+    for w in _stage_weights(stage, torch.float32):
+        plan = trb.tile_plan(w, 1, L)
+        C, halo = w.channels, w.halo
+        t_lo = min(halo - sum(r) + r[0] for r in w.reaches)
+        chunk = 8192 if C == 32 else 32768
+        if C == 256:
+            assert plan.route == "mma_tf32_c4" and plan.smem_bytes == 2 * chunk + 16
+            continue
+        rows = plan.tile + 2 * (halo - t_lo) + (plan.tile + 2 * halo if plan.x_in_smem else 0)
+        assert plan.smem_bytes == 2 * chunk + 16 + rows * (C + 8) * 4
+
+
+@pytest.mark.parametrize("C_,k", [(256, 11), (128, 3), (32, 7)])
+def test_f32_split_taps_keep_f32_digits(C_, k):
+    """hi + lo equals each f32 tap within 2^-22 of its size, and both halves
+    are TF32 values (the low 13 bits of each f32 zero)."""
+    g = torch.Generator().manual_seed(C_ * k)
+    w = torch.randn(k, C_, C_, generator=g) * 0.05
+    f = trb.split_taps(w).reshape(k * C_ // 8, C_ // 8, 32, 2, 2)
+    hi, lo = f[..., 0, :], f[..., 1, :]
+    for h in (hi, lo):
+        assert not (h.contiguous().view(torch.int32) & 0x1FFF).any()
+    # back to (k C, C) order: (k-step, n8 tile, g, t, e) -> row 8 s + 2 t + e, column 8 nt + g
+    def unpack(h):
+        return h.reshape(k * C_ // 8, C_ // 8, 8, 4, 2).permute(0, 3, 4, 1, 2).reshape(k * C_, C_)
+    want = w.reshape(k * C_, C_).double()
+    got = unpack(hi).double() + unpack(lo).double()
+    assert ((got - want).abs() <= 2.0 ** -22 * want.abs()).all()
+    assert ((unpack(hi).double() - want).abs() > 2.0 ** -22 * want.abs()).any()
+
+
+@pytest.mark.parametrize("C_,k", [(256, 3), (64, 11), (32, 3)])
+def test_f32_taps_lie_in_mma_fragment_order(C_, k):
+    """split_taps lays each K-step of 8 rows of the (k C_in, C_out) matrix as
+    the route reads it: per n8 tile of outputs, per lane (g = lane // 4,
+    t = lane % 4) one 16-byte piece, hi of rows 2t and 2t + 1 at output
+    8 nt + g, then lo of the same; a K-chunk of KC rows is then the
+    contiguous run of its k-steps, one bulk copy."""
+    g = torch.Generator().manual_seed(C_ + k)
+    w = torch.randn(k, C_, C_, generator=g)
+    flat = trb.split_taps(w)
+    W = w.reshape(k * C_, C_)
+    hi = trb.tf32(W)
+    lo = trb.tf32(W - hi)
+    s = torch.arange(k * C_ // 8)[:, None, None]
+    nt = torch.arange(C_ // 8)[None, :, None]
+    lane = torch.arange(32)[None, None, :]
+    row, col = 8 * s + 2 * (lane % 4), 8 * nt + lane // 4
+    want = torch.stack([hi[row, col], hi[row + 1, col], lo[row, col], lo[row + 1, col]], -1)
+    assert torch.equal(flat.reshape(k * C_ // 8, C_ // 8, 32, 4), want)
+    # chunk i of KC rows starts at float 2 * i * KC * C
+    kc = C_ if C_ < 128 else 4096 // C_
+    chunk = flat.reshape(-1, 2 * kc * C_)[1]
+    assert torch.equal(chunk, want[kc // 8:2 * kc // 8].reshape(-1))
+
+
+def test_f32_taps_of_a_split_tile_hold_each_blocks_outputs_in_turn():
+    """At C = 256 a cluster of 4 blocks shares a tile, block r computing
+    outputs [64 r, 64 r + 64): split_taps(w, 4) lays block r's part (its
+    outputs, in the fragment order of test_f32_taps_lie_in_mma_fragment_order)
+    as the r-th quarter of the conv's taps."""
+    k, C_ = 3, 256
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn(k, C_, C_, generator=g)
+    parts = trb.split_taps(w, 4).reshape(4, -1)
+    for r in range(4):
+        assert torch.equal(parts[r], trb.split_taps(w[:, :, 64 * r:64 * r + 64].contiguous()))

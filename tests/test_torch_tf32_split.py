@@ -6,7 +6,9 @@ card tolerance of ``test_flash_attention_kernels_match_plain`` (1e-4 of
 each item's largest element, 1e-5 on the mean), which the split products
 meet and one-pass TF32 products do not; and one stage-2 frame of the LVC
 product of csrc/lvc_stack.cu's f32 route, held to that kernel's f32 card
-tolerance the same way. Imports no JAX."""
+tolerance the same way; and one product of a stage-0 HiFi-GAN resblock
+conv as csrc/resblock.cu's f32 route forms it, held to that kernel's f32
+card tolerance. Imports no JAX."""
 
 import math
 
@@ -112,3 +114,34 @@ def test_split_tf32_lvc_frame_product_holds_the_f32_card_tolerance(lvc_frame, sp
     assert (err <= 2e-4 * (1 + top)) == split, (err, top)
     if split:
         assert err <= 1e-6 * (1 + top)
+
+
+@pytest.fixture(scope="module")
+def resblock_rows():
+    """A few dozen rows of HiFi-GAN V1 stage 0's first dilated conv (k = 11,
+    dilation 1, C = 256) as the f32 route of csrc/resblock.cu forms it, an
+    implicit GEMM: the leaky input rows at tap offsets j - 5 side by side
+    (column j C + c_in) and the conv's taps as (k C_in, C_out), drawn as the
+    card tests draw them (weights x2 / sqrt(C k), biases apart)."""
+    rng = np.random.default_rng(11)
+    rows, k, C = 48, 11, 256
+    x = rng.standard_normal((rows + k - 1, C)).astype(np.float32)
+    x = np.maximum(x, np.float32(0.1) * x)
+    w = (2.0 * rng.standard_normal((k, C, C)) / np.sqrt(C * k)).astype(np.float32)
+    a = np.concatenate([x[j:j + rows] for j in range(k)], axis=1)
+    return torch.from_numpy(a), torch.from_numpy(w.reshape(k * C, C))
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_pass"])
+def test_split_tf32_resblock_conv_product_holds_the_f32_card_tolerance(resblock_rows, split):
+    # test_resblock_kernels_match_plain's f32 tolerance, 2e-5 max |ref|: the
+    # split products (three TF32 products a product, k C = 2816 terms, the
+    # sums in f32) meet it by an order of magnitude, one TF32 product a
+    # product does not
+    a, b = resblock_rows
+    want = a.double() @ b.double()
+    top = want.abs().max().item()
+    err = (tf32_matmul(a, b, split).double() - want).abs().max().item()
+    assert (err <= 2e-5 * top) == split, (err, top)
+    if split:
+        assert err <= 2e-6 * top

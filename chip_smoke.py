@@ -11,10 +11,11 @@ Phases, each printed as one JSON line:
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
    the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
    spill and no serialised wgmma for them; the four tensor-core
-   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate) and the seven
+   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate), the seven
    split-TF32 ``resblock`` kernels (f32 at C = 32, 64, 128 with x in
-   shared memory or in L2, and C = 256 in clusters of 4) must hold HMMA
-   and spill nothing.
+   shared memory or in L2, and C = 256 in clusters of 4) and the 24
+   split-TF32 FFN kernels (``ffn_tf32_kernel`` and ``ffn_dup_tf32_kernel``
+   at every C and both row counts) must hold HMMA and spill nothing.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -55,7 +56,12 @@ Phases, each printed as one JSON line:
    (the wgmma kernels of ``csrc/flash_attention_sm90.cu``), f32 at phase
    9's shape (the split-TF32 mma.sync kernels of
    ``csrc/flash_attention.cu``), each with its build seconds and the
-   launches by route it made.
+   launches by route it made. The f32 route of ``ffn_ln_train`` (split
+   TF32) at phase 9's shapes (encoder B=2, P=128, k 5/25/13/9; decoder
+   B=2, T=1024, k 17/21/9/13), each held against the plain version (TF32
+   off, b1 moved off the ReLU kink), its launches against ``ffn_plan``,
+   with its bound at split TF32's 165 TFLOP/s and at the CUDA cores' 67,
+   and the time of its products alone as f32 ``torch.matmul`` calls.
 8. training (this slice's main path): the flagship in bf16 with f32
    parameters takes 1 warm-up and 5 timed optimizer steps on B=8, P=256,
    T=2048 teacher-forced batches at the config dropout rates. Every loss
@@ -67,7 +73,9 @@ Phases, each printed as one JSON line:
 9. train reference: one f32 step on the card against the same step on the
    CPU's plain path (flagship widths, B=2, T=1024, dropout rates 0,
    warm-up 1 so the first update is visible), its flash launches through
-   the split-TF32 kernels of ``csrc/flash_attention.cu``.
+   the split-TF32 kernels of ``csrc/flash_attention.cu``; the counted
+   step's FFN launches, and one more card step under torch.profiler: the
+   FFN kernels' ms and launches.
 10. soft-DTW kernels: ``soft_dtw`` (forward and backward) at the mel loss's
     lattices (8 items x 8 chunks of 256 frames, D from 80 mel channels,
     gamma 0.1) against the plain recurrence's value and autograd gradient;
@@ -247,6 +255,9 @@ LVC_MMA = re.compile(r"(lvc_mma_kernel)I(13__nv_bfloat16|f)Lb([01])E")
 # resblock's split-TF32 kernels: f32_resblock_kernel<C, x in shared memory,
 # blocks a row tile>
 RESBLOCK_F32 = re.compile(r"(f32_resblock_kernel)ILi(\d+)ELb([01])ELi(\d+)E")
+# the FFN sources' split-TF32 kernels: ffn_tf32_kernel<C, MT, chain> and
+# ffn_dup_tf32_kernel<C, MT>
+FFN_TF32 = re.compile(r"(ffn_tf32_kernel|ffn_dup_tf32_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
 
 
 def _sass_rows(name, report, pattern, key) -> dict:
@@ -281,9 +292,9 @@ def ffn_sass_phase(report) -> dict:
     cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
     serialised-wgmma warnings (C7512). Fails unless every bf16 FFN kernel
     has HGMMA and none spills or serialises, and every tensor-core
-    lvc_stack kernel and every split-TF32 resblock kernel (C = 32, 64, 128
-    with x in shared memory or in L2, C = 256 in clusters of 4) has HMMA
-    and spills nothing."""
+    lvc_stack kernel, every split-TF32 resblock kernel (C = 32, 64, 128
+    with x in shared memory or in L2, C = 256 in clusters of 4) and every
+    split-TF32 FFN kernel has HMMA and spills nothing."""
 
     def key(m):
         return f"{m.group(1)}<{m.group(2)}" + (f", {m.group(3)}>" if m.group(3) else ">")
@@ -292,21 +303,28 @@ def ffn_sass_phase(report) -> dict:
         dtype = "bf16" if m.group(2).endswith("bfloat16") else "float"
         return f"{m.group(1)}<{dtype}, {'true' if m.group(3) == '1' else 'false'}>"
 
-    rows = {}
+    def f32_key(m):
+        return (f"{m.group(1)}<{m.group(2)}, {m.group(3)}"
+                + (f", {'true' if m.group(4) == '1' else 'false'}>" if m.group(4) else ">"))
+
+    rows, f32_rows = {}, {}
     for name in ("ffn_ln", "ffn_ln_train_bwd"):
         rows.update(_sass_rows(name, report, FFN_WGMMA, key))
+        f32_rows.update(_sass_rows(name, report, FFN_TF32, f32_key))
     lvc_rows = _sass_rows("lvc_stack", report, LVC_MMA, lvc_key)
     rb_rows = _sass_rows("resblock", report, RESBLOCK_F32, lambda m: (
         f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}, "
         f"{m.group(4)}>"))
-    emit({"phase": "ffn_sass", "kernels": rows, "lvc_stack": lvc_rows, "resblock_f32": rb_rows})
+    emit({"phase": "ffn_sass", "kernels": rows, "ffn_f32": f32_rows, "lvc_stack": lvc_rows,
+          "resblock_f32": rb_rows})
     bad = {k: r for k, r in rows.items()
            if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
-    bad.update({k: r for k, r in {**lvc_rows, **rb_rows}.items()
+    bad.update({k: r for k, r in {**lvc_rows, **rb_rows, **f32_rows}.items()
                 if r["hmma"] == 0 or r["spill_bytes"]})
-    if len(rows) != 9 or len(lvc_rows) != 4 or len(rb_rows) != 7 or bad:
-        raise RuntimeError(f"tensor-core kernels: {len(rows)} ffn, {len(lvc_rows)} "
-                           f"lvc_stack and {len(rb_rows)} f32 resblock found, off {bad}")
+    if len(rows) != 9 or len(f32_rows) != 24 or len(lvc_rows) != 4 or len(rb_rows) != 7 or bad:
+        raise RuntimeError(f"tensor-core kernels: {len(rows)} bf16 ffn, {len(f32_rows)} f32 "
+                           f"ffn, {len(lvc_rows)} lvc_stack and {len(rb_rows)} f32 resblock "
+                           f"found, off {bad}")
     return rows
 
 
@@ -425,7 +443,12 @@ def _ffn_case(dev, B, T, k, dtype, g) -> dict:
            "max_abs_err": err, "tol": tol,
            "ms": cuda_ms(lambda: ffn_ln(z, w)), "plain_ms": cuda_ms(lambda: ffn_ln_plain(z, w))}
     row["launch"] = ffn_launches(ffn_mod, C, F, k, B, T, dtype, "serve")
-    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype)
+    # f32 products are f32-accurate ones (split TF32), the CUDA cores' bound beside
+    f32 = dtype == torch.float32
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype,
+                                                PEAK_F32_ACCURATE if f32 else None)
+    if f32:
+        row["bound_ms_cuda_cores"] = bound_ms(flops, nbytes, dtype)[0]
     emit({"phase": "kernel", "name": "ffn_ln", **row})
     if not err <= tol:
         raise RuntimeError(f"ffn_ln at {row['at']}: max |err| {err} > {tol}")
@@ -787,14 +810,19 @@ def reference_phase(served, fastdiff: bool = False) -> None:
         g = torch.Generator().manual_seed(7)
         return torch.randn(tuple(shape), generator=g), torch.randn((N, *shape), generator=g)
 
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln
+
     wavs, ms = {}, {}
     for dev in ("cuda", "cpu"):
         gen, _ = _make_generator(cfg, torch.float32, dev, served["dvecs"], BATCH_TEXTS,
                                  bias=served["bias"], fastdiff=fastdiff,
                                  noise_source=cpu_noise if fastdiff else None)
+        reset_counts((ffn_ln,))
         t = time.perf_counter()
         wavs[dev] = gen.generate_from_text(text, speaker="spk1", seed=0)
         ms[dev] = (time.perf_counter() - t) * 1e3
+        if dev == "cuda":
+            n_ffn = ffn_ln.launches  # the request's f32 serving FFN launches
     a, b = wavs["cuda"], wavs["cpu"]
     top = float(np.abs(b).max())
     err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
@@ -803,7 +831,7 @@ def reference_phase(served, fastdiff: bool = False) -> None:
     tol = 1e-3 * top + 1e-7
     name = "fastdiff_reference" if fastdiff else "reference"
     emit({"phase": name, "samples": [a.size, b.size], "max_abs_err": err,
-          "tol": tol, "peak": top, "request_ms": ms})
+          "tol": tol, "peak": top, "request_ms": ms, "ffn_ln_launches": n_ffn})
     if not (a.shape == b.shape and err <= tol and top > 0):
         raise RuntimeError(f"{name} card vs CPU: shapes {a.shape} {b.shape}, "
                            f"max |err| {err} > {tol}")
@@ -851,8 +879,7 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
     libraries recorded them, held against ``ffn_plan``: raises when a
     grid, shared-memory size or row count differs."""
     rec = ffn.last_launches()
-    got = ([rec["ffn_ln"]] if mode != "bwd" or dtype == torch.bfloat16 else []) + (
-        rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
+    got = [rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
     plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
     want = [ffn.planned_launch(x) for x in plan]
     if got != want:
@@ -861,18 +888,62 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
              "smem_bytes": r["smem_bytes"], "rows": r["rows"]} for x, r in zip(plan, got)]
 
 
-def _ffn_train_case(dev, B, T, k, g) -> dict:
+def _b1_off_the_kink(z, p, eps=1e-5):
+    """b1 with every F column that holds a ReLU input within 2^-14 of its
+    products' magnitude sum of zero moved by the least multiple of 0.01
+    that clears the column: f32 sums of C products in two orders (kernel,
+    plain version) stay within 2^-16 of that sum of the exact value, so
+    every ReLU then takes the same branch in both."""
+    from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
+    from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
+
+    wd, bd, w1, b1, _, _, g1, be1, _, _ = (t.detach() for t in p)
+    with torch.no_grad():
+        t1 = layer_norm_fn(z.float(), g1, be1, torch.float32, eps)
+        h0 = depthwise_conv1d(t1, wd.t().unsqueeze(1).float(), bd.float()).double()
+        exact = (h0 @ w1.double()).reshape(-1, w1.shape[1])
+        mag = (h0.abs() @ w1.abs().double()).reshape(-1, w1.shape[1])
+    moved = b1.clone()
+    for step in range(1, 100):
+        b = moved.double()
+        bad = ((exact + b).abs() <= 2.0 ** -14 * (mag + b.abs())).any(0)
+        if not bad.any():
+            return moved
+        moved = torch.where(bad, b1 + 0.01 * step, moved)
+    raise RuntimeError("no b1 clears the ReLU kink")
+
+
+def ffn_products_ms(B, T, C, F, dev, mode) -> float:
+    """The FFN half's products alone as f32 ``torch.matmul`` calls (TF32
+    off) on random operands of their shapes: the forward's h0 W1 and up
+    W2f; the backward's six (the chain's two, dup_d, dacc, dW1, dW2f). A
+    chain of library calls, a yardstick, not a port."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    h0, dff = (torch.randn(B * T, C, device=dev, generator=g) for _ in range(2))
+    up = torch.randn(B * T, F, device=dev, generator=g)
+    w1 = torch.randn(C, F, device=dev, generator=g)
+    w2f = torch.randn(F, C, device=dev, generator=g)
+    if mode == "fwd":
+        return cuda_ms(lambda: (h0 @ w1, up @ w2f))
+    return cuda_ms(lambda: (h0 @ w1, up @ w2f, dff @ w2f.t(), up @ w1.t(), h0.t() @ up,
+                            up.t() @ dff))
+
+
+def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
     """ffn_ln_train forward and backward kernels at one of the step's FFN
-    shapes (bf16, F 1024, rate 0.1): the output and every gradient against
-    the plain version's autograd (and the gradients' distance from the
-    staged plain backward, the kernels' own rounding points), the kernel
-    times with the call's weight layouts prepared, each launch as the
-    library recorded it."""
+    shapes (F 1024, rate 0.1): the output and every gradient against the
+    plain version's autograd (bf16: and the gradients' distance from the
+    staged plain backward, the kernels' own rounding points; f32: b1 moved
+    off the ReLU kink first), the kernel times with the call's weight
+    layouts prepared, each launch as the library recorded it. f32 adds its
+    bound at the CUDA cores' 67 TFLOP/s and its products' time as f32
+    ``torch.matmul`` calls."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
     from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
     from lightningfastspeech2_tpu_torch.ops import ffn
 
-    C, F, rate, dtype = 256, 1024, 0.1, torch.bfloat16
+    C, F, rate = 256, 1024, 0.1
+    f32 = dtype == torch.float32
     block = FFTBlock(C, 2, k, F, dtype)
     init_weights(block, g)
     with torch.no_grad():
@@ -883,8 +954,10 @@ def _ffn_train_case(dev, B, T, k, g) -> dict:
     p = [t.detach().clone().requires_grad_(True) for t in ffn.ffn_train_params(*block._ffn_modules())]
     z = torch.randn(B, T, C, generator=g).to(dev, dtype)
     dout = torch.randn(B, T, C, generator=g).to(dev, dtype)
+    if f32:
+        p[3] = _b1_off_the_kink(z, p).requires_grad_(True)
     seed = torch.tensor([4242], dtype=torch.int32, device=dev)
-    at = f"z ({B}, {T}, {C}) bf16, F={F}, k={k}, rate={rate}"
+    at = f"z ({B}, {T}, {C}) {str(dtype)[6:]}, F={F}, k={k}, rate={rate}"
     w = ffn._kernel_layouts(p, dtype)
     row_f = {"name": "ffn_ln_train", "at": at,
              "ms": cuda_ms(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate, layouts=w))}
@@ -895,11 +968,17 @@ def _ffn_train_case(dev, B, T, k, g) -> dict:
     # what a training call adds to the kernels: the weight layouts it prepares
     row_f["layouts_ms"] = cuda_ms(lambda: ffn._kernel_layouts(p, dtype))
     wbytes = sum(tensor_bytes(t) for t in p)
-    row_f["bound_ms"], row_f["bound_by"] = bound_ms(
-        B * T * (2 * k * C + 4 * C * F), 2 * tensor_bytes(z) + wbytes, dtype)
-    # the backward recomputes up and ff (4CF) and forms dup, dacc, dW1, dW2f (8CF)
-    row_b["bound_ms"], row_b["bound_by"] = bound_ms(
-        B * T * (6 * k * C + 12 * C * F), 3 * tensor_bytes(z) + 2 * wbytes, dtype)
+    # the backward recomputes up and ff (4CF) and forms dup, dacc, dW1, dW2f
+    # (8CF); f32 products are f32-accurate ones (PEAK_F32_ACCURATE, split
+    # TF32), with the CUDA cores' bound beside them
+    work = {"fwd": (B * T * (2 * k * C + 4 * C * F), 2 * tensor_bytes(z) + wbytes),
+            "bwd": (B * T * (6 * k * C + 12 * C * F), 3 * tensor_bytes(z) + 2 * wbytes)}
+    for r, part in ((row_f, "fwd"), (row_b, "bwd")):
+        r["bound_ms"], r["bound_by"] = bound_ms(*work[part], dtype,
+                                                PEAK_F32_ACCURATE if f32 else None)
+        if f32:
+            r["bound_ms_cuda_cores"] = bound_ms(*work[part], dtype)[0]
+            r["products_matmul_ms"] = ffn_products_ms(B, T, C, F, dev, part)
     zk = z.clone().requires_grad_(True)
     out = ffn.ffn_ln_train(zk, p, seed, rate)
     grads = torch.autograd.grad(out, [zk, *p], dout)
@@ -911,25 +990,32 @@ def _ffn_train_case(dev, B, T, k, g) -> dict:
     err, tol = max_err_and_tol(out, ref, 2e-4)
     row_f.update(max_abs_err=err, tol=tol,
                  plain_ms=cuda_ms(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
-    # gradients against the plain version's autograd: the kernel rounds
-    # dff and dup to bf16 before its products, the plain version keeps
-    # them f32; each within 3 % of its largest element
+    # gradients against the plain version's autograd: bf16, the kernel
+    # rounds dff and dup to bf16 before its products, the plain version
+    # keeps them f32, each within 3 % of its largest element; f32, the
+    # summation order only, each within 2e-4 of its largest element and
+    # its mean error within 2e-5
     errs, staged_rel = {}, {}
     names = ("dz", "dwd", "dbd", "dw1", "db1", "dw2f", "db2f", "dg1", "dbe1", "dg2", "dbe2")
     for name, a, b, c in zip(names, grads, ref_grads, staged):
-        errs[name] = ((a.float() - b.float()).abs().max().item(),
-                      0.03 * b.float().abs().max().item())
+        d = (a.float() - b.float()).abs()
+        top = b.float().abs().max().item()
+        errs[name] = ((d.max().item(), 2e-4 * top + 1e-6, d.mean().item(), 2e-5 * top + 1e-7)
+                      if f32 else (d.max().item(), 0.03 * top))
         staged_rel[name] = ((a.float() - c.float()).abs().max()
                             / c.float().abs().max().clamp_min(1e-30)).item()
-    row_b.update(max_abs_err=max(e for e, _ in errs.values()),
-                 grad_errs=errs, tol="3 % of each gradient's largest element",
+    row_b.update(max_abs_err=max(e[0] for e in errs.values()),
+                 grad_errs=errs,
+                 tol=("2e-4 of each gradient's largest element, the mean 2e-5" if f32
+                      else "3 % of each gradient's largest element"),
                  staged_plain_max_rel_err=staged_rel,
                  plain_ms=cuda_ms_grad(ref, [zp, *p], dout))
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
     if not err <= tol:
         raise RuntimeError(f"ffn_ln_train at {at}: max |err| {err} > {tol}")
-    bad = {n: e for n, e in errs.items() if not e[0] <= e[1]}
+    bad = {n: e for n, e in errs.items()
+           if not (e[0] <= e[1] and (len(e) == 2 or e[2] <= e[3]))}
     if bad:
         raise RuntimeError(f"ffn_ln_train_bwd at {at}: gradients off {bad}")
     return {"fwd": row_f, "bwd": row_b}
@@ -1051,13 +1137,17 @@ def flash_f32_blocks(which: int) -> int:
 def train_kernels_phase(dev) -> dict:
     """The training kernels at the step's shapes: every FFN block of the
     flagship (encoder at P = 256, decoder at T = 2048) timed and held
-    against the plain version; flash attention at the decoder's shape in
-    bf16 and at phase 9's in f32."""
+    against the plain version, in bf16 and, at phase 9's shapes, in f32;
+    flash attention at the decoder's shape in bf16 and at phase 9's in
+    f32."""
     g = torch.Generator().manual_seed(1)
     enc_k, dec_k = (5, 25, 13, 9), (17, 21, 9, 13)
     ffn = ([_ffn_train_case(dev, TRAIN_B, TRAIN_P, k, g) for k in enc_k]
            + [_ffn_train_case(dev, TRAIN_B, TRAIN_T, k, g) for k in dec_k])
-    return {"ffn": ffn, "flash": _flash_case(dev, g),
+    # the f32 route at phase 9's shapes (B=2, P=128, T=1024)
+    ffn_f32 = ([_ffn_train_case(dev, 2, 128, k, g, torch.float32) for k in enc_k]
+               + [_ffn_train_case(dev, 2, 1024, k, g, torch.float32) for k in dec_k])
+    return {"ffn": ffn, "ffn_f32": ffn_f32, "flash": _flash_case(dev, g),
             "flash_f32": _flash_case(dev, g, torch.float32, B=2, T=1024, rate=0.0)}
 
 
@@ -1065,11 +1155,12 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
     """Device time of one traced step by kernel family (torch.profiler
     key_averages, kernel names matched as whole words); zeros when the
     profiler saw no device time."""
-    # the bf16 FFN template ffn_ln_kernel<CP, kChain> is the forward with
-    # kChain false and the backward's first launch with kChain true
-    fam = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_ln_f32_kernel<float, \d+, true>"),
-           "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", "ffn_dup_kernel", "ffn_dt1_kernel",
-                                "ffn_bwd_kernel"),
+    # the FFN templates ffn_ln_kernel<CP, kChain> (bf16) and
+    # ffn_tf32_kernel<C, MT, kChain> (f32) are the forward with kChain false
+    # and the backward's first launch with kChain true
+    fam = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kernel<\d+, \d+, false>"),
+           "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", r"ffn_tf32_kernel<\d+, \d+, true>",
+                                "ffn_dup_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"),
            "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
@@ -1267,19 +1358,33 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
     cfg = replace(cfg, train=replace(cfg.train, warmup_steps=1))
     batch = train_batch(cfg, shape)
     from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln_train, ffn_ln_train_bwd
 
     res = {}
-    reset_counts((flash_attention, flash_attention_bwd))
+    reset_counts((flash_attention, flash_attention_bwd, ffn_ln_train, ffn_ln_train_bwd))
     for dev in ("cuda", "cpu"):
         model = build_fastspeech2(cfg.model, dtype=torch.float32, device=dev, seed=0)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         state = create_train_state(model, cfg)
-        state, m = make_train_step(model, cfg)(state, batch, torch.Generator(device=dev))
+        step = make_train_step(model, cfg)
+        state, m = step(state, batch, torch.Generator(device=dev))
         res[dev] = {
             "losses": {k: float(v) for k, v in m.items()},
             "grad": {n: state.optimizer.state[p]["exp_avg"].cpu() / 0.1
                      for n, p in model.named_parameters()},
             "update": {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()}}
+        if dev == "cuda":
+            # the counted step's FFN launches, then one more step under the
+            # profiler (after the step's gradients and update were taken):
+            # the f32 FFN kernels' share of the step
+            ffn_counts = {c.__name__: c.launches for c in (ffn_ln_train, ffn_ln_train_bwd)}
+            routes = flash_routes((flash_attention, flash_attention_bwd))
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(state, batch, torch.Generator(device=dev))
+                torch.cuda.synchronize()
+            split = _step_split(prof, f"{'soft_dtw_' if soft_dtw else ''}train_reference_profile.txt")
     a, b = res["cuda"], res["cpu"]
     loss_err = max(abs(a["losses"][k] - v) / max(abs(v), 1e-6) for k, v in b["losses"].items())
     gmax = max(g.abs().max().item() for g in b["grad"].values())
@@ -1300,7 +1405,10 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
            "loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": gmax,
            "update_max_abs_err": upd_err, "update_max": lr, "tol": tol,
            "losses_cuda": a["losses"], "losses_cpu": b["losses"],
-           "flash_routes": flash_routes((flash_attention, flash_attention_bwd))}
+           "flash_routes": routes, "ffn_launches": ffn_counts,
+           "profiled_step": {k: split[k] for k in (
+               "device_ms", "device_launches", "ffn_ln_train_ms", "ffn_ln_train_launches",
+               "ffn_ln_train_bwd_ms", "ffn_ln_train_bwd_launches")}}
     emit(row)
     # the f32 step's attention went through the split-TF32 kernels alone
     n_dec = cfg.model.decoder.layers
@@ -1309,6 +1417,9 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
     if row["flash_routes"] != want_routes:
         raise RuntimeError(f"{name}: flash launches by route {row['flash_routes']}, "
                            f"expected {want_routes}")
+    n_ffn = cfg.model.encoder.layers + cfg.model.decoder.layers
+    if ffn_counts != {"ffn_ln_train": n_ffn, "ffn_ln_train_bwd": n_ffn}:
+        raise RuntimeError(f"{name}: ffn launches {ffn_counts}, expected {n_ffn} each")
     if not (loss_err <= tol["loss_rel"] and grad_err <= tol["grad_abs"]
             and upd_err <= tol["update_abs"]):
         raise RuntimeError(f"train step card vs CPU: {row}")
@@ -1748,7 +1859,17 @@ def main() -> int:
             "at": r["at"], "launch_record": r["launch"],
             **({"chain_source": f"{pkg}/ffn_ln.cu"} if part == "bwd" else {}),
             "per_step_ms_all_8_blocks": sum(c[part]["ms"] for c in train_rows["ffn"]),
-            "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"])})
+            "per_step_bound_ms_all_8_blocks": sum(c[part]["bound_ms"] for c in train_rows["ffn"]),
+            # the f32 route (split TF32) summed over phase 9's eight shapes,
+            # with that step's counted launches and profiled kernel time
+            "f32_route": {
+                **{k: sum(c[part][k] for c in train_rows["ffn_f32"])
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_ms_cuda_cores",
+                             "products_matmul_ms")},
+                "max_abs_err": max(c[part]["max_abs_err"] for c in train_rows["ffn_f32"]),
+                "at": "; ".join(c[part]["at"] for c in train_rows["ffn_f32"]),
+                "launches_phase_9_step": train_ref["ffn_launches"][r["name"]],
+                "profiled_phase_9_step_ms": train_ref["profiled_step"][f"{r['name']}_ms"]}})
     # flash attention: the bf16 wgmma kernels (the training path's), then the
     # f32 split-TF32 kernels at phase 9's shape with that phase's launches
     for key, launches in (("flash", nt), ("flash_f32", train_ref["flash_routes"])):

@@ -48,191 +48,29 @@
 // dres / (1 - r) (bf16), and dg2, dbe2, db2f partials). C = 32 runs as
 // C = 64 with zero channels.
 //
-// f32 route (ffn_ln_f32_kernel): the tensor cores have no f32 product; one
-// block owns a 32-row tile, the products are f32 FMAs on the CUDA cores,
-// F in chunks of 128.
+// f32 route (ffn_tf32_kernel): the products on the tensor cores as split
+// TF32 (a b = a_hi b_lo + a_lo b_hi + a_hi b_hi, mma.sync m16n8k8), which
+// keeps f32's digits at a third of TF32's rate (165 TFLOP/s against the
+// CUDA cores' 67). A block owns 64 rows, or 32 where 64 would leave most
+// of the card idle (ffn_plan), with eight warps; F streams in chunks of 32
+// columns, a W1 and a W2f piece each, split and in fragment order
+// (ops/ffn.py _f32_image), one bulk copy each, through two buffers that the
+// last warp to release refills. h0 is an f32 tile split as it is read; the
+// up chunk's accumulators become the ff product's A fragments as they
+// stand (ffn_sm90.cuh's k order), split once into shared memory. Every
+// product sums at most 64 k indices on the tensor cores and adds them in
+// f32 (their accumulation truncates). The epilogue runs a row on a warp;
+// the chain variant writes h0, dres and dff in f32.
 //
 // Shapes the kernel takes: C in {32, 64, 128, 256}, F a multiple of 128,
 // any T >= 1; k >= 1 while the t1 window fits shared memory (k <= 63 at
-// C = 256 in bf16).
+// C = 256 in bf16; rows + k - 1 <= 128 in f32).
 #include "common.cuh"
 #include "ffn_sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;   // output rows per block
-constexpr int kFChunk = 128;  // filter columns per up/down chunk
-
-// dropout of the training forward: the device seed, the keep threshold and
-// 1 / (1 - rate)
-struct Drop {
-  const int* seed;
-  unsigned threshold;
-  float inv_keep;
-};
-
-template <typename T, int CN, bool kTrain>
-__global__ void __launch_bounds__(kThreads)
-ffn_ln_f32_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restrict__ wd,
-              const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2f,
-              const float* __restrict__ lnp, int T_len, int F, int k, float eps, Drop drop) {
-  constexpr int C = 32 * CN;
-  extern __shared__ __align__(16) float smem[];
-  const int lpad = (k - 1) / 2;
-  const int rows_in = kTile + k - 1;
-  float* t1 = smem;                    // rows_in x C, LN1 output
-  float* h0 = t1 + rows_in * C;        // kTile x C, depthwise output; later the residual
-  float* up = h0 + kTile * C;          // kTile x kFChunk
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTile;
-  const T* zb = z + static_cast<size_t>(b) * T_len * C;
-  const float* g1 = lnp;
-  const float* be1 = lnp + C;
-  const float* g2 = lnp + 2 * C;
-  const float* be2 = lnp + 3 * C;
-  const float* bd = lnp + 4 * C;
-  const float* b2f = lnp + 5 * C;
-  unsigned seed_b = 0;
-  if constexpr (kTrain) seed_b = lfs2::item_seed(*drop.seed, b);
-
-  // 1. LN1 over the tile and its halo, one warp per row
-  for (int r = warp; r < rows_in; r += kThreads / 32) {
-    const int g = t0 - lpad + r;
-    float v[CN];
-    if (g < 0 || g >= T_len) {
-#pragma unroll
-      for (int i = 0; i < CN; ++i) t1[r * C + lane + 32 * i] = 0.0f;
-      continue;
-    }
-    float s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      v[i] = lfs2::to_f(zb[static_cast<size_t>(g) * C + lane + 32 * i]);
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float var = fmaxf(s2 / C - mean * mean, 0.0f);
-    const float inv = rsqrtf(var + eps);
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      t1[r * C + c] = lfs2::round_to<T>((v[i] - mean) * inv * g1[c] + be1[c]);
-    }
-  }
-  __syncthreads();
-
-  // 2. depthwise conv: h0[i] = sum_j t1[i + j] * wd[j] + bd
-  for (int idx = threadIdx.x; idx < kTile * C; idx += kThreads) {
-    const int i = idx / C, c = idx % C;
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) acc += t1[(i + j) * C + c] * wd[j * C + c];
-    h0[idx] = lfs2::round_to<T>(acc + bd[c]);
-  }
-  __syncthreads();
-
-  // 3. up/down projections over F in chunks; acc holds rows
-  //    warp*4 .. warp*4+3 and columns lane*CN .. lane*CN+CN-1
-  const int row0 = warp * 4;
-  const int c0 = lane * CN;
-  float acc[4][CN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.0f;
-
-  for (int f0 = 0; f0 < F; f0 += kFChunk) {
-    // up chunk: rows row0..row0+3, columns f0 + lane*4 .. +3
-    float u[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) u[i][j] = 0.0f;
-    const T* w1c = w1 + f0 + lane * 4;
-#pragma unroll 4
-    for (int ci = 0; ci < C; ++ci) {
-      float wv[4];
-      lfs2::load_vec<4>(w1c + static_cast<size_t>(ci) * F, wv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float hv = h0[(row0 + i) * C + ci];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) u[i][j] += hv * wv[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = u[i][j] + b1[f0 + lane * 4 + j];
-        float v = lfs2::round_to<T>(fmaxf(x, 0.0f));
-        if constexpr (kTrain) {
-          const bool keep = lfs2::ffn_keep(t0 + row0 + i, f0 + lane * 4 + j, seed_b, 1u,
-                                           drop.threshold);
-          v = lfs2::round_to<T>(keep ? v * drop.inv_keep : 0.0f);
-        }
-        up[(row0 + i) * kFChunk + lane * 4 + j] = v;
-      }
-    __syncthreads();
-    // down chunk: acc += up (4 x 128) @ W2f[f0:f0+128, c0:c0+CN]
-    const T* w2c = w2f + static_cast<size_t>(f0) * C + c0;
-#pragma unroll 4
-    for (int f = 0; f < kFChunk; ++f) {
-      float wv[CN];
-      lfs2::load_vec<CN>(w2c + static_cast<size_t>(f) * C, wv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float uv = up[(row0 + i) * kFChunk + f];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] += uv * wv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4. residual on the LN1 output (not on z), into h0
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int r = row0 + i, c = c0 + j;
-      float ff = acc[i][j] + b2f[c];
-      if constexpr (kTrain)
-        ff = lfs2::ffn_keep(t0 + r, c, seed_b, 2u, drop.threshold) ? ff * drop.inv_keep : 0.0f;
-      h0[r * C + c] = t1[(r + lpad) * C + c] + ff;
-    }
-  __syncthreads();
-
-  // 5. LN2, one warp per row
-  T* ob = out + static_cast<size_t>(b) * T_len * C;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int g = t0 + r;
-    if (g >= T_len) break;
-    float v[CN];
-    float s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      v[i] = h0[r * C + lane + 32 * i];
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float var = fmaxf(s2 / C - mean * mean, 0.0f);
-    const float inv = rsqrtf(var + eps);
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      ob[static_cast<size_t>(g) * C + c] = lfs2::from_f<T>((v[i] - mean) * inv * g2[c] + be2[c]);
-    }
-  }
-}
+constexpr int kFChunk = 128;  // F must be a multiple of this
 
 // the latest accepted launch, either route: grid x, y, z, shared-memory
 // bytes a block and the rows of one item a block owns
@@ -250,33 +88,349 @@ cudaError_t record_launch(const dim3& grid, int smem, int rows) {
   return err;
 }
 
-template <typename T, int CN, bool kTrain>
-cudaError_t launch(const void* z, void* out, const float* wd, const void* w1, const float* b1,
-                   const void* w2f, const float* lnp, int B, int T_len, int F, int k, float eps,
-                   Drop drop, cudaStream_t stream) {
-  constexpr int C = 32 * CN;
-  const int smem = ((kTile + k - 1) * C + kTile * C + kTile * kFChunk) * static_cast<int>(sizeof(float));
-  auto kernel = ffn_ln_f32_kernel<T, CN, kTrain>;
-  cudaError_t err = lfs2::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + kTile - 1) / kTile, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(z), static_cast<T*>(out), wd, static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2f), lnp, T_len, F, k, eps, drop);
-  return record_launch(grid, smem, kTile);
+// ============================ f32 route: split TF32 =========================
+struct F32Args {
+  const float* z;
+  float* out;          // serve / train: the output
+  const float* dout;   // chain: the output's gradient
+  const float* wd;
+  const float* img;    // F / 32 chunks of a W1 and a W2f piece (ops/ffn.py _f32_image)
+  const float* b1;
+  const float* lnp;
+  const int* seed;     // null: no dropout
+  float* h0_out;       // chain: h0, dres, dff (B, T, C) and the (6, C) partials
+  float* dres_out;
+  float* dff_out;
+  float* dvec;
+  int T, F, k;
+  float eps;
+  unsigned threshold;
+  float inv_keep;
+};
+
+// LN1 over the W window rows (item rows t_first ..) into t1 (f32, C a row;
+// zero outside [0, T)), and each row's mean and 1 / sigma; C / 8 lanes a
+// row, 8 channels a lane
+template <int C>
+__device__ __forceinline__ void ln1_window_f32(const float* __restrict__ zb, float* t1,
+                                               float2* stats, const float* __restrict__ g1,
+                                               const float* __restrict__ be1, int t_first, int W,
+                                               int T, float eps) {
+  constexpr int G = C / 8, RPW = 32 / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, l = lane % G;
+  float gv[8], bv[8];
+  lfs2::load_vec<8>(g1 + 8 * l, gv);
+  lfs2::load_vec<8>(be1 + 8 * l, bv);
+  for (int r0 = warp * RPW; r0 < W; r0 += (ffn::kThreads / 32) * RPW) {
+    const int r = r0 + lane / G, g = t_first + r;
+    const bool in = r < W && g >= 0 && g < T;
+    float v[8], s = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = 0.0f;
+    if (in) lfs2::load_vec<8>(zb + static_cast<size_t>(g) * C + 8 * l, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s += v[e];
+      s2 += v[e] * v[e];
+    }
+    for (int m = G / 2; m > 0; m >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, m);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+    }
+    if (r >= W) continue;
+    const float mean = s / C;
+    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + eps);
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = in ? ffn::ln_apply(v[e], mean, inv, gv[e], bv[e]) : 0.0f;
+    *reinterpret_cast<float4*>(t1 + r * C + 8 * l) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(t1 + r * C + 8 * l + 4) = make_float4(o[4], o[5], o[6], o[7]);
+    if (l == 0) stats[r] = make_float2(mean, inv);
+  }
 }
 
-template <bool kTrain>
-cudaError_t f32_dispatch(int C, const void* z, void* out, const float* wd, const void* w1,
-                         const float* b1, const void* w2f, const float* lnp, int B, int T_len,
-                         int F, int k, float eps, Drop d, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch<float, 1, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
-    case 64: return launch<float, 2, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
-    case 128: return launch<float, 4, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
-    case 256: return launch<float, 8, kTrain>(z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s);
+// ffn_tf32_kernel<C, MT, kChain>: a block owns R = 32 MT rows of one item;
+// kChain false serves and trains (dropout when a seed is given and the rate
+// is not 0), true is the backward's chain. Eight warps: per F chunk of 32,
+//   up (R x 32) = h0 @ W1 piece      warps 4 x 2 (R = 64) or 2 x 4 (R = 32)
+//                                    of 16 rows, h0 split as it is read
+//   + b1, relu, keep1 and scale, split into the ff product's A fragments
+//   ff (R x C) += up @ W2f piece     warps 2 x 4 of R / 2 rows by C / 4
+// Each piece is one bulk copy into its buffer, the next issued by the last
+// warp to release the buffer; the up staging has two buffers, so one block
+// barrier a chunk guards it.
+template <int C, int MT, bool kChain>
+__global__ void __launch_bounds__(ffn::kThreads, 1)
+ffn_tf32_kernel(const __grid_constant__ F32Args a) {
+  using namespace ffn;
+  constexpr int R = 32 * MT, FC = kF32FC, P = piece_bytes(C, FC);
+  constexpr int WMU = R / 16, WNU = 8 / WMU, NTU = FC / 8 / WNU;  // up: warps down, across; n8 tiles
+  constexpr int NT = C / 32;                                     // ff: n8 tiles a warp
+  constexpr int kNR = 16;                                        // depthwise rows a work item
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int k = a.k, T = a.T, lpad = (k - 1) / 2, W = R + k - 1;
+  float* t1 = reinterpret_cast<float*>(smem);  // the window, over the piece buffers
+  float* h0s = reinterpret_cast<float*>(smem + 2 * P);
+  float4* ups = reinterpret_cast<float4*>(smem + 2 * P + R * C * 4);
+  uint8_t* barp = smem + 2 * P + R * C * 4 + 2 * R * FC * 8;
+  float2* stats = reinterpret_cast<float2*>(barp + kBarBytes);
+  const float4* wb1 = reinterpret_cast<const float4*>(smem);
+  const float4* wb2 = reinterpret_cast<const float4*>(smem + P);
+  const uint32_t base = smem_u32(smem);
+  const Bars bars(smem_u32(barp), reinterpret_cast<uint32_t*>(barp + 16));
+  const int b = blockIdx.y, t0 = blockIdx.x * R;
+  const int nchunks = a.F / FC;
+  const float* zb = a.z + static_cast<size_t>(b) * T * C;
+  const float* g1 = a.lnp;
+  const float* be1 = a.lnp + C;
+  const float* g2 = a.lnp + 2 * C;
+  const float* be2 = a.lnp + 3 * C;
+  const float* bd = a.lnp + 4 * C;
+  const float* b2f = a.lnp + 5 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint8_t* img = reinterpret_cast<const uint8_t*>(a.img);
+  auto piece = [img](int ci, int m) { return img + (static_cast<size_t>(ci) * 2 + m) * P; };
+
+  if (threadIdx.x == 0) bars.init();
+  // 1. LN1 over the window (rows t0 - lpad ..)
+  ln1_window_f32<C>(zb, t1, stats, g1, be1, t0 - lpad, W, T, a.eps);
+  __syncthreads();
+
+  // 2. depthwise: h0[r][c] = sum_j t1[r + j][c] wd[j][c] + bd[c], into the
+  //    swizzled tile; a work item is 16 rows by 2 channels, taps 8 at a time
+  //    over a register window of 23 rows
+  for (int u = threadIdx.x; u < (R / kNR) * (C / 2); u += ffn::kThreads) {
+    const int c = 2 * (u % (C / 2)), r0 = kNR * (u / (C / 2));
+    float2 acc[kNR];
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) acc[i] = make_float2(0.0f, 0.0f);
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      float2 w[8], x[kNR + 7];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        w[jj] = j0 + jj < k ? __ldg(reinterpret_cast<const float2*>(a.wd + (j0 + jj) * C + c))
+                            : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < kNR + 7; ++q) {
+        const int rr = r0 + j0 + q;
+        x[q] = rr < W ? *reinterpret_cast<const float2*>(t1 + rr * C + c) : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < kNR; ++i) {
+          acc[i].x += x[i + jj].x * w[jj].x;
+          acc[i].y += x[i + jj].y * w[jj].y;
+        }
+    }
+    const float2 bias = *reinterpret_cast<const float2*>(bd + c);
+#pragma unroll
+    for (int i = 0; i < kNR; ++i)
+      *reinterpret_cast<float2*>(h0s + (r0 + i) * C + swz32(r0 + i, c)) =
+          make_float2(acc[i].x + bias.x, acc[i].y + bias.y);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {  // chunk 0, now that the window has left the buffers
+    load_bytes(bars, 0, base, piece(0, 0), P);
+    load_bytes(bars, 1, base + P, piece(0, 1), P);
+  }
+
+  const int um = warp % WMU, un = warp / WMU;  // up warp: rows 16 um, n8 tiles un NTU
+  const int fm = warp >> 2, fn = warp & 3;     // ff warp: m16 tiles fm MT, n8 tiles fn NT
+  const bool drop = a.seed != nullptr && a.threshold != 0u;
+  const unsigned seed_b = a.seed != nullptr ? lfs2::item_seed(*a.seed, b) : 0u;
+  const unsigned thr = a.threshold;
+  const float ik = a.inv_keep;
+  const unsigned rh[2] = {row_hash(t0 + 16 * um + g), row_hash(t0 + 16 * um + g + 8)};
+  float ff[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ff[mt][nt][e] = 0.0f;
+
+  for (int i = 0; i < nchunks; ++i) {
+    const unsigned ph = i & 1;
+    float up[NTU][4];
+    mbar_wait(bars.full1, ph);
+    rows_x_piece<C, NTU, FC / 8>(up, h0s, 16 * um, wb1, un * NTU, lane);
+    if (last_of(&bars.released[0], 8) && i + 1 < nchunks) load_bytes(bars, 0, base, piece(i + 1, 0), P);
+    // + b1, relu, keep1 and scale into staging buffer i % 2 (every warp
+    // read buffer (i - 2) % 2 before the last chunk's barrier); tile j of
+    // the chunk is the ff product's k-step j
+    float4* stage = ups + (i & 1) * (R * FC / 2);
+#pragma unroll
+    for (int nt = 0; nt < NTU; ++nt) {
+      const int j = un * NTU + nt, f = i * FC + 8 * j + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(a.b1 + f);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = fmaxf(up[nt][e] + ((e & 1) ? bb.y : bb.x), 0.0f);
+        if (drop) v[e] = keep_h(rh[e >> 1], col_hash(f + (e & 1), 1u), seed_b, thr) ? v[e] * ik : 0.0f;
+      }
+      store_a_frag(stage + ((j * (R / 16) + um) * 32 + lane) * 2, v);
+    }
+    __syncthreads();  // the chunk's up staging is complete
+    mbar_wait(bars.full2, ph);
+    frags_x_piece<MT, NT, FC / 8, R / 16, C / 8>(ff, stage, fm * MT, wb2, fn * NT, lane);
+    if (last_of(&bars.released[1], 8) && i + 1 < nchunks) load_bytes(bars, 1, base + P, piece(i + 1, 1), P);
+  }
+
+  // the epilogue, row by row: ff + b2f (keep2 and scale) into an f32 row
+  // buffer over the piece buffers (free once every warp left the loop; the
+  // chain stores its h0 rows to device memory first), then each row on one
+  // warp
+  if constexpr (kChain) {
+    float* dst = a.h0_out + (static_cast<size_t>(b) * T + t0) * C;
+    for (int idx = threadIdx.x; idx < R * (C / 4); idx += ffn::kThreads) {
+      const int r = idx / (C / 4), c = 4 * (idx % (C / 4));
+      if (t0 + r < T)
+        *reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * C + c) =
+            *reinterpret_cast<const float4*>(h0s + r * C + swz32(r, c));
+    }
+  }
+  __syncthreads();
+  constexpr int RLD = C + 4;
+  float* rows = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = 8 * (fn * NT + nt) + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(b2f + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * (fm * MT + mt) + g + 8 * h;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = ff[mt][nt][2 * h + e] + (e ? bb.y : bb.x);
+          if (drop) v[e] = keep_h(row_hash(t0 + r), col_hash(c + e, 2u), seed_b, thr) ? v[e] * ik : 0.0f;
+        }
+        *reinterpret_cast<float2*>(rows + r * RLD + c) = make_float2(v[0], v[1]);
+      }
+    }
+  __syncthreads();
+  constexpr int NC = C / 32;  // channels lane + 32 i of a row
+  float cg[NC], cb[NC], cf[NC];  // the chain's column sums: dg2, dbe2, db2f
+#pragma unroll
+  for (int i = 0; i < NC; ++i) cg[i] = cb[i] = cf[i] = 0.0f;
+  for (int r = warp; r < R && t0 + r < T; r += ffn::kThreads / 32) {
+    const int gr = t0 + r;
+    const size_t at = (static_cast<size_t>(b) * T + gr) * C;
+    const float2 st = stats[r + lpad];
+    float v[NC], s = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      // res = t1 + ff, with t1 formed again from z and LN1's row statistics
+      v[i] = rows[r * RLD + c] + ln_apply(a.z[at + c], st.x, st.y, g1[c], be1[c]);
+      s += v[i];
+      s2 += v[i] * v[i];
+    }
+    s = lfs2::warp_sum(s);
+    s2 = lfs2::warp_sum(s2);
+    const float mean = s / C;
+    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
+    if constexpr (!kChain) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        a.out[at + c] = ln_apply(v[i], mean, inv, g2[c], be2[c]);
+      }
+    } else {
+      // the LN2 backward from dout: dres = inv (dy g2 - mean(dy g2) - x_hat
+      // mean(dy g2 x_hat)), dff = keep2 dres / (1 - r)
+      float dy[NC], m1 = 0.0f, m2 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        dy[i] = a.dout[at + c];
+        v[i] = (v[i] - mean) * inv;  // x_hat
+        const float dyg = dy[i] * g2[c];
+        m1 += dyg;
+        m2 += dyg * v[i];
+      }
+      m1 = lfs2::warp_sum(m1) / C;
+      m2 = lfs2::warp_sum(m2) / C;
+      const unsigned rhg = row_hash(gr);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        const float dr = inv * (dy[i] * g2[c] - m1 - v[i] * m2);
+        const float df = drop && !keep_h(rhg, col_hash(c, 2u), seed_b, thr) ? 0.0f : dr * ik;
+        a.dres_out[at + c] = dr;
+        a.dff_out[at + c] = df;
+        cg[i] += dy[i] * v[i];
+        cb[i] += dy[i];
+        cf[i] += df;
+      }
+    }
+  }
+  if constexpr (kChain) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      atomicAdd(a.dvec + 2 * C + c, cg[i]);
+      atomicAdd(a.dvec + 3 * C + c, cb[i]);
+      atomicAdd(a.dvec + 5 * C + c, cf[i]);
+    }
+  }
+}
+
+template <int C, int MT, bool kChain>
+cudaError_t f32_launch(const F32Args& a, int B, cudaStream_t stream) {
+  const int smem = ffn::f32_fwd_smem(32 * MT, C, a.k);
+  if (a.k < 1 || smem > ffn::kMaxSmem || 32 * MT + a.k - 1 > 2 * ffn::kF32FC * 8 / 4)
+    return cudaErrorInvalidValue;
+  auto kernel = ffn_tf32_kernel<C, MT, kChain>;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + 32 * MT - 1) / (32 * MT), B);
+  kernel<<<grid, ffn::kThreads, smem, stream>>>(a);
+  return record_launch(grid, smem, 32 * MT);
+}
+
+template <int C, bool kChain>
+cudaError_t f32_rows(const F32Args& a, int B, int rows, cudaStream_t s) {
+  switch (rows) {
+    case 32: return f32_launch<C, 1, kChain>(a, B, s);
+    case 64: return f32_launch<C, 2, kChain>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kChain>
+cudaError_t f32_dispatch(int C, const F32Args& a, int B, int rows, cudaStream_t s) {
+  switch (C) {
+    case 32: return f32_rows<32, kChain>(a, B, rows, s);
+    case 64: return f32_rows<64, kChain>(a, B, rows, s);
+    case 128: return f32_rows<128, kChain>(a, B, rows, s);
+    case 256: return f32_rows<256, kChain>(a, B, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+F32Args f32_args(const void* z, const float* wd, const void* img, const float* b1,
+                 const float* lnp, const int* seed, int T_len, int F, int k, float eps,
+                 unsigned threshold, float inv_keep) {
+  F32Args a{};
+  a.z = static_cast<const float*>(z);
+  a.wd = wd;
+  a.img = static_cast<const float*>(img);
+  a.b1 = b1;
+  a.lnp = lnp;
+  a.seed = seed;
+  a.T = T_len;
+  a.F = F;
+  a.k = k;
+  a.eps = eps;
+  a.threshold = threshold;
+  a.inv_keep = inv_keep;
+  return a;
 }
 
 // ============================ bf16 route: tensor cores ======================
@@ -761,56 +915,71 @@ FwdArgs bf16_args(const void* z, const float* wd, const void* img, const float* 
 
 LFS2_DEFINE_ERROR_STRING
 
-// bf16 reads the weights from img (ops/ffn.py _weight_image), f32 from w1
-// and w2f
-LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const void* w1,
-                            const float* b1, const void* w2f, const float* lnp, const void* img,
-                            int B, int T_len, int C, int F, int k, float eps, int dtype,
-                            void* stream) {
+// Both routes read the weights from img: bf16 the swizzled image (ops/ffn.py
+// _weight_image), f32 the split pieces (_f32_image). rows: the rows of one
+// item a block owns (ops/ffn.py ffn_plan): 128 in bf16, 32 or 64 in f32
+LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const float* b1,
+                            const float* lnp, const void* img, int B, int T_len, int C, int F,
+                            int k, int rows, float eps, int dtype, void* stream) {
   if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lfs2::kBF16) {
+    if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
     FwdArgs a = bf16_args(z, wd, img, b1, lnp, nullptr, T_len, C, F, k, eps, 0u, 1.0f);
     a.out = static_cast<bf16*>(out);
     return static_cast<int>(bf16_dispatch<false>(a, B, s));
   }
-  const Drop d{nullptr, 0u, 1.0f};
-  return static_cast<int>(f32_dispatch<false>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s));
+  F32Args a = f32_args(z, wd, img, b1, lnp, nullptr, T_len, F, k, eps, 0u, 1.0f);
+  a.out = static_cast<float*>(out);
+  return static_cast<int>(f32_dispatch<false>(C, a, B, rows, s));
 }
 
 // seed: one int32 on the device; threshold and inv_keep from the rate
-LFS2_EXPORT int lfs2_ffn_ln_train(const void* z, void* out, const float* wd, const void* w1,
-                                  const float* b1, const void* w2f, const float* lnp,
-                                  const void* img, const int* seed, int B, int T_len, int C,
-                                  int F, int k, float eps, unsigned threshold, float inv_keep,
-                                  int dtype, void* stream) {
+LFS2_EXPORT int lfs2_ffn_ln_train(const void* z, void* out, const float* wd, const float* b1,
+                                  const float* lnp, const void* img, const int* seed, int B,
+                                  int T_len, int C, int F, int k, int rows, float eps,
+                                  unsigned threshold, float inv_keep, int dtype, void* stream) {
   if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lfs2::kBF16) {
+    if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
     FwdArgs a = bf16_args(z, wd, img, b1, lnp, seed, T_len, C, F, k, eps, threshold, inv_keep);
     a.out = static_cast<bf16*>(out);
     return static_cast<int>(bf16_dispatch<false>(a, B, s));
   }
-  const Drop d{seed, threshold, inv_keep};
-  return static_cast<int>(f32_dispatch<true>(C, z, out, wd, w1, b1, w2f, lnp, B, T_len, F, k, eps, d, s));
+  F32Args a = f32_args(z, wd, img, b1, lnp, seed, T_len, F, k, eps, threshold, inv_keep);
+  a.out = static_cast<float*>(out);
+  return static_cast<int>(f32_dispatch<false>(C, a, B, rows, s));
 }
 
-// The bf16 backward's stage (a): the forward again with the LN2 backward
-// from dout; writes h0, dres (f32), dff (bf16), all (B, T, C), and adds
-// dg2, dbe2 and db2f into dvec (6, C), a zeroed f32 buffer
+// The backward's first launch, the chain: the forward again with the LN2
+// backward from dout; writes h0 and dff (the working dtype) and dres (f32),
+// all (B, T, C), and adds dg2, dbe2 and db2f into dvec (6, C), a zeroed
+// f32 buffer
 LFS2_EXPORT int lfs2_ffn_ln_chain(const void* z, const void* dout, const float* wd,
                                   const void* img, const float* b1, const float* lnp,
                                   const int* seed, void* h0, float* dres, void* dff, float* dvec,
-                                  int B, int T_len, int C, int F, int k, float eps,
-                                  unsigned threshold, float inv_keep, void* stream) {
+                                  int B, int T_len, int C, int F, int k, int rows, float eps,
+                                  unsigned threshold, float inv_keep, int dtype, void* stream) {
   if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
-  FwdArgs a = bf16_args(z, wd, img, b1, lnp, seed, T_len, C, F, k, eps, threshold, inv_keep);
-  a.dout = static_cast<const bf16*>(dout);
-  a.h0_out = static_cast<bf16*>(h0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == lfs2::kBF16) {
+    if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
+    FwdArgs a = bf16_args(z, wd, img, b1, lnp, seed, T_len, C, F, k, eps, threshold, inv_keep);
+    a.dout = static_cast<const bf16*>(dout);
+    a.h0_out = static_cast<bf16*>(h0);
+    a.dres_out = dres;
+    a.dff_out = static_cast<bf16*>(dff);
+    a.dvec = dvec;
+    return static_cast<int>(bf16_dispatch<true>(a, B, s));
+  }
+  F32Args a = f32_args(z, wd, img, b1, lnp, seed, T_len, F, k, eps, threshold, inv_keep);
+  a.dout = static_cast<const float*>(dout);
+  a.h0_out = static_cast<float*>(h0);
   a.dres_out = dres;
-  a.dff_out = static_cast<bf16*>(dff);
+  a.dff_out = static_cast<float*>(dff);
   a.dvec = dvec;
-  return static_cast<int>(bf16_dispatch<true>(a, B, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(f32_dispatch<true>(C, a, B, rows, s));
 }
 
 #ifdef LFS2_FFN_PHASE_CLOCKS

@@ -46,429 +46,27 @@
 //       backward of dacc, the dwd and dbd partials, LN1 recomputed from z
 //       and its backward into dz, dg1 and dbe1.
 //
-// f32 route (ffn_bwd_kernel, CUDA cores; the tensor cores have no f32
-// product): one block recomputes the forward on EP = 32 chain rows and owns
-// TT = EP - (k - 1) of them; two passes over F in chunks of 64, the first
-// for ff, the second for dup, dacc, dW1 and dW2f (central rows only).
+// f32 route: the same three launches, the products as split TF32 on the
+// tensor cores (mma.sync m16n8k8, three TF32 products a product, f32's
+// digits): (a) ffn_ln.cu's ffn_tf32_kernel<C, MT, true> writes h0, dres and
+// dff in f32; (b) ffn_dup_tf32_kernel (64- or 32-row blocks, F in chunks of
+// 16, W1 / W2f^T / W1^T pieces split at weight preparation); (c)
+// ffn_dt1_kernel<float, CN>. No product is formed on a halo row.
 //
 // Weight gradients go to one zeroed f32 buffer by atomics, so their
 // summation order changes from run to run (f32 order only); dz takes none.
 //
 // Shapes the kernels take: C in {32, 64, 128, 256}; F a multiple of 64;
-// 1 <= k <= 31 in f32 (EP), k <= 63 in bf16 (the forward's t1 window).
+// 1 <= k <= 63 in bf16 (the forward's t1 window), k <= 50 in f32 (the dt1
+// tile).
 #include "common.cuh"
 #include "ffn_sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFC = 64;  // F columns per chunk
-
-template <typename T> struct Rows;
-template <> struct Rows<float> { static constexpr int EP = 32; };
-
-template <typename T> __device__ __forceinline__ void store(T* p, float v) { *p = lfs2::from_f<T>(v); }
-
-struct Args {
-  const void* z;
-  const void* dout;
-  const float* wd;
-  const void* w1;
-  const void* w1T;
-  const float* b1;
-  const void* w2f;
-  const void* w2fT;
-  const float* lnp;
-  const int* seed;
-  void* dz;
-  float* dwd;
-  float* dw1;
-  float* dw2f;
-  float* db1;
-  float* dvec;
-  int T_len, F, k;
-  float eps;
-  unsigned threshold;
-  float inv_keep;
-};
-
-template <int EP, int C>
-__host__ __device__ constexpr int smem_bytes_for(int k, int s) {
-  return EP * C * 4 + EP * kFC * 4 + 2 * EP * C * s + (EP + k - 1) * C * s + EP * kFC * s;
-}
-
-template <typename T, int CN>
-__global__ void __launch_bounds__(kThreads)
-ffn_bwd_kernel(Args a) {
-  constexpr int C = 32 * CN;
-  constexpr int EP = Rows<T>::EP;
-  constexpr int RW = EP / kWarps;  // chain rows per warp
-  const int k = a.k, F = a.F, T_len = a.T_len;
-  const int lpad = (k - 1) / 2, rpad = k - 1 - lpad;
-  const int TT = EP - (k - 1);
-  const int W = EP + k - 1;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int e0 = t0 - rpad;     // global row of chain row 0
-  const int w0 = t0 - (k - 1);  // global row of t1 row 0
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* dres = reinterpret_cast<float*>(smem_raw);        // EP x C: res, then dres
-  float* dupc = dres + EP * C;                             // EP x kFC: rounded dup chunk
-  T* h0s = reinterpret_cast<T*>(dupc + EP * kFC);          // EP x C
-  T* dffs = h0s + EP * C;                                  // EP x C
-  float* daccs = reinterpret_cast<float*>(h0s);            // EP x C f32 over h0s + dffs, at the end
-  T* t1s = dffs + EP * C;                                  // W x C
-  T* upc = t1s + W * C;                                    // EP x kFC: up chunk after keep1
-
-  const T* zb = static_cast<const T*>(a.z) + static_cast<size_t>(b) * T_len * C;
-  const T* dob = static_cast<const T*>(a.dout) + static_cast<size_t>(b) * T_len * C;
-  T* dzb = static_cast<T*>(a.dz) + static_cast<size_t>(b) * T_len * C;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w1T = static_cast<const T*>(a.w1T);
-  const T* w2f = static_cast<const T*>(a.w2f);
-  const T* w2fT = static_cast<const T*>(a.w2fT);
-  const float* g1 = a.lnp;
-  const float* be1 = a.lnp + C;
-  const float* g2 = a.lnp + 2 * C;
-  const float* bd = a.lnp + 4 * C;
-  const float* b2f = a.lnp + 5 * C;
-  const unsigned seed_b = lfs2::item_seed(*a.seed, b);
-  const float inv_keep = a.inv_keep;
-
-  // 1. LN1 over the t1 window, one warp per row; rows outside [0, T) zero
-  for (int r = warp; r < W; r += kWarps) {
-    const int g = w0 + r;
-    if (g < 0 || g >= T_len) {
-#pragma unroll
-      for (int i = 0; i < CN; ++i) t1s[r * C + lane + 32 * i] = lfs2::from_f<T>(0.0f);
-      continue;
-    }
-    float v[CN], s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      v[i] = lfs2::to_f(zb[static_cast<size_t>(g) * C + lane + 32 * i]);
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      store(&t1s[r * C + c], (v[i] - mean) * inv * g1[c] + be1[c]);
-    }
-  }
-  __syncthreads();
-
-  // 2. depthwise over the chain rows: h0[e] = sum_j t1[e + j] * wd[j] + bd
-  for (int idx = threadIdx.x; idx < EP * C; idx += kThreads) {
-    const int e = idx / C, c = idx % C;
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) acc += lfs2::to_f(t1s[(e + j) * C + c]) * a.wd[j * C + c];
-    store(&h0s[idx], acc + bd[c]);
-  }
-  __syncthreads();
-
-  const int row0 = warp * RW;   // this warp's chain rows
-  const int c0 = lane * CN;     // this lane's columns of a C-wide row
-  const int fl = lane * 2;      // this lane's columns of an F chunk
-
-  // 3. pass 1: ff over the chain rows
-  float acc[RW][CN];
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.0f;
-  for (int f0 = 0; f0 < F; f0 += kFC) {
-    float u[RW][2];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) u[i][0] = u[i][1] = 0.0f;
-#pragma unroll 4
-    for (int ci = 0; ci < C; ++ci) {
-      float wv[2];
-      lfs2::load_vec<2>(w1 + static_cast<size_t>(ci) * F + f0 + fl, wv);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float hv = lfs2::to_f(h0s[(row0 + i) * C + ci]);
-        u[i][0] += hv * wv[0];
-        u[i][1] += hv * wv[1];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int f = f0 + fl + j;
-        float v = lfs2::round_to<T>(fmaxf(u[i][j] + a.b1[f], 0.0f));
-        const bool keep = lfs2::ffn_keep(e0 + row0 + i, f, seed_b, 1u, a.threshold);
-        store(&upc[(row0 + i) * kFC + fl + j], keep ? v * inv_keep : 0.0f);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int f = 0; f < kFC; ++f) {
-      float wv[CN];
-      lfs2::load_vec<CN>(w2f + static_cast<size_t>(f0 + f) * C + c0, wv);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float uv = lfs2::to_f(upc[(row0 + i) * kFC + f]);
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] += uv * wv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4. residual on the LN1 output: res[e] = t1[e + lpad] + keep2 * ff / (1-r)
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int e = row0 + i, c = c0 + j;
-      const float ff = acc[i][j] + b2f[c];
-      const bool keep = lfs2::ffn_keep(e0 + e, c, seed_b, 2u, a.threshold);
-      dres[e * C + c] = lfs2::to_f(t1s[(e + lpad) * C + c]) + (keep ? ff * inv_keep : 0.0f);
-    }
-  __syncthreads();
-
-  // 5. LN2 backward per chain row (warp per row): dres, and dff rounded for
-  //    the products; dg2, dbe2 and db2f over the central rows
-  float vg2[CN], vbe2[CN], vb2f[CN];
-#pragma unroll
-  for (int i = 0; i < CN; ++i) vg2[i] = vbe2[i] = vb2f[i] = 0.0f;
-  for (int e = warp; e < EP; e += kWarps) {
-    const int g = e0 + e;
-    const bool in_t = g >= 0 && g < T_len;
-    const bool central = e >= rpad && e < rpad + TT;
-    float x[CN], dy[CN], s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      x[i] = dres[e * C + c];
-      dy[i] = in_t ? lfs2::to_f(dob[static_cast<size_t>(g) * C + c]) : 0.0f;
-      s += x[i];
-      s2 += x[i] * x[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
-    float m1 = 0.0f, m2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      x[i] = (x[i] - mean) * inv;  // x_hat
-      const float dyg = dy[i] * g2[lane + 32 * i];
-      m1 += dyg;
-      m2 += dyg * x[i];
-    }
-    m1 = lfs2::warp_sum(m1) / C;
-    m2 = lfs2::warp_sum(m2) / C;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      const float dr = inv * (dy[i] * g2[c] - m1 - x[i] * m2);
-      dres[e * C + c] = dr;
-      const float dff = lfs2::ffn_keep(g, c, seed_b, 2u, a.threshold) ? dr * inv_keep : 0.0f;
-      store(&dffs[e * C + c], dff);
-      if (central) {
-        vg2[i] += dy[i] * x[i];
-        vbe2[i] += dy[i];
-        vb2f[i] += dff;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < CN; ++i) {
-    const int c = lane + 32 * i;
-    atomicAdd(&a.dvec[2 * C + c], vg2[i]);
-    atomicAdd(&a.dvec[3 * C + c], vbe2[i]);
-    atomicAdd(&a.dvec[5 * C + c], vb2f[i]);
-  }
-  __syncthreads();
-
-  // 6. pass 2 over F chunks: recompute up, form dup, accumulate dacc, and
-  //    add the chunk's dW1 / dW2f / db1 over the central rows
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.0f;  // now dacc
-  for (int f0 = 0; f0 < F; f0 += kFC) {
-    float u[RW][2], d[RW][2];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) u[i][0] = u[i][1] = d[i][0] = d[i][1] = 0.0f;
-#pragma unroll 2
-    for (int ci = 0; ci < C; ++ci) {
-      float wv[2], wt[2];
-      lfs2::load_vec<2>(w1 + static_cast<size_t>(ci) * F + f0 + fl, wv);
-      lfs2::load_vec<2>(w2fT + static_cast<size_t>(ci) * F + f0 + fl, wt);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float hv = lfs2::to_f(h0s[(row0 + i) * C + ci]);
-        const float dv = lfs2::to_f(dffs[(row0 + i) * C + ci]);
-        u[i][0] += hv * wv[0];
-        u[i][1] += hv * wv[1];
-        d[i][0] += dv * wt[0];
-        d[i][1] += dv * wt[1];
-      }
-    }
-    float vb1[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int e = row0 + i, f = f0 + fl + j;
-        const float pre = u[i][j] + a.b1[f];
-        const float v = lfs2::round_to<T>(fmaxf(pre, 0.0f));
-        const bool keep = lfs2::ffn_keep(e0 + e, f, seed_b, 1u, a.threshold);
-        store(&upc[e * kFC + fl + j], keep ? v * inv_keep : 0.0f);
-        const float dup = (keep && pre > 0.0f) ? d[i][j] * inv_keep : 0.0f;
-        dupc[e * kFC + fl + j] = lfs2::round_to<T>(dup);
-        if (e >= rpad && e < rpad + TT) vb1[j] += dup;
-      }
-    atomicAdd(&a.db1[f0 + fl], vb1[0]);
-    atomicAdd(&a.db1[f0 + fl + 1], vb1[1]);
-    __syncthreads();
-
-    // dacc += dup (EP x kFC) @ W1T[f0:f0+kFC, :]
-#pragma unroll 4
-    for (int f = 0; f < kFC; ++f) {
-      float wv[CN];
-      lfs2::load_vec<CN>(w1T + static_cast<size_t>(f0 + f) * C + c0, wv);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float dv = dupc[(row0 + i) * kFC + f];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] += dv * wv[j];
-      }
-    }
-
-    // dW1[c, f0 + f] += sum_central h0[e, c] * dup[e, f]: warp w owns
-    // C / 8 rows of c in four passes of CN, lane owns two f
-    for (int q = 0; q < 4; ++q) {
-      const int cb = warp * 4 * CN + q * CN;
-      float pw[CN][2];
-#pragma unroll
-      for (int i = 0; i < CN; ++i) pw[i][0] = pw[i][1] = 0.0f;
-      for (int e = rpad; e < rpad + TT; ++e) {
-        const float d0 = dupc[e * kFC + fl], d1 = dupc[e * kFC + fl + 1];
-#pragma unroll
-        for (int i = 0; i < CN; ++i) {
-          const float hv = lfs2::to_f(h0s[e * C + cb + i]);
-          pw[i][0] += hv * d0;
-          pw[i][1] += hv * d1;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < CN; ++i) {
-        atomicAdd(&a.dw1[static_cast<size_t>(cb + i) * F + f0 + fl], pw[i][0]);
-        atomicAdd(&a.dw1[static_cast<size_t>(cb + i) * F + f0 + fl + 1], pw[i][1]);
-      }
-    }
-
-    // dW2f[f0 + f, c] += sum_central up[e, f] * dff[e, c]: warp w owns 8
-    // rows of f in four passes of 2, lane owns CN columns
-    for (int q = 0; q < 4; ++q) {
-      const int fb = warp * 8 + q * 2;
-      float pw[2][CN];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) pw[i][j] = 0.0f;
-      for (int e = rpad; e < rpad + TT; ++e) {
-        float dv[CN];
-        lfs2::load_vec<CN>(dffs + e * C + c0, dv);
-        const float u0 = lfs2::to_f(upc[e * kFC + fb]), u1 = lfs2::to_f(upc[e * kFC + fb + 1]);
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          pw[0][j] += u0 * dv[j];
-          pw[1][j] += u1 * dv[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j)
-          atomicAdd(&a.dw2f[static_cast<size_t>(f0 + fb + i) * C + c0 + j], pw[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // 7. dacc to shared memory, over h0 and dff (no longer read)
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) daccs[(row0 + i) * C + c0 + j] = acc[i][j];
-  __syncthreads();
-
-  // 8. dwd[j, c] = sum_central t1[e + j, c] * dacc[e, c]; dbd = sum dacc
-  for (int idx = threadIdx.x; idx < (k + 1) * C; idx += kThreads) {
-    const int j = idx / C, c = idx % C;
-    float s = 0.0f;
-    if (j < k) {
-      for (int e = rpad; e < rpad + TT; ++e) s += lfs2::to_f(t1s[(e + j) * C + c]) * daccs[e * C + c];
-      atomicAdd(&a.dwd[j * C + c], s);
-    } else {
-      for (int e = rpad; e < rpad + TT; ++e) s += daccs[e * C + c];
-      atomicAdd(&a.dvec[4 * C + c], s);
-    }
-  }
-
-  // 9. central rows: dt1 = dres + depthwise backward of dacc, then the LN1
-  //    backward into dz; dg1 and dbe1
-  float vg1[CN], vbe1[CN];
-#pragma unroll
-  for (int i = 0; i < CN; ++i) vg1[i] = vbe1[i] = 0.0f;
-  for (int r = warp; r < TT; r += kWarps) {
-    const int g = t0 + r;
-    if (g >= T_len) break;
-    float dt[CN], x[CN], s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      float v = dres[(r + rpad) * C + c];
-      for (int j = 0; j < k; ++j) v += daccs[(r + k - 1 - j) * C + c] * a.wd[j * C + c];
-      dt[i] = v;
-      x[i] = lfs2::to_f(zb[static_cast<size_t>(g) * C + c]);
-      s += x[i];
-      s2 += x[i] * x[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
-    float m1 = 0.0f, m2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      x[i] = (x[i] - mean) * inv;
-      const float dyg = dt[i] * g1[lane + 32 * i];
-      m1 += dyg;
-      m2 += dyg * x[i];
-    }
-    m1 = lfs2::warp_sum(m1) / C;
-    m2 = lfs2::warp_sum(m2) / C;
-#pragma unroll
-    for (int i = 0; i < CN; ++i) {
-      const int c = lane + 32 * i;
-      store(&dzb[static_cast<size_t>(g) * C + c], inv * (dt[i] * g1[c] - m1 - x[i] * m2));
-      vg1[i] += dt[i] * x[i];
-      vbe1[i] += dt[i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < CN; ++i) {
-    const int c = lane + 32 * i;
-    atomicAdd(&a.dvec[c], vg1[i]);
-    atomicAdd(&a.dvec[C + c], vbe1[i]);
-  }
-}
-
 // the launches of the latest accepted call: per launch grid x, y, z,
-// shared-memory bytes a block and rows of one item a block owns (the f32
-// route's one launch, or the bf16 route's dup and dt1 passes)
+// shared-memory bytes a block and rows of one item a block owns (the dup
+// and dt1 passes)
 int g_last_launch[2][5];
 
 cudaError_t record_launch(int which, const dim3& grid, int smem, int rows) {
@@ -485,27 +83,269 @@ cudaError_t record_launch(int which, const dim3& grid, int smem, int rows) {
   return err;
 }
 
-template <typename T, int CN>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int C = 32 * CN;
-  constexpr int EP = Rows<T>::EP;
-  if (a.k < 1 || a.k > EP - 1) return cudaErrorInvalidValue;
-  const int smem = smem_bytes_for<EP, C>(a.k, static_cast<int>(sizeof(T)));
-  auto kernel = ffn_bwd_kernel<T, CN>;
-  cudaError_t err = lfs2::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int TT = EP - (a.k - 1);
-  const dim3 grid((a.T_len + TT - 1) / TT, B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return record_launch(0, grid, smem, TT);
+// ============================ f32 route: split TF32 =========================
+struct DupF32Args {
+  const float* h0;   // (B, T, C), from the chain
+  const float* dff;  // (B, T, C)
+  const float* img;  // F / 16 chunks of a W1, a W2f^T and a W1^T piece (ops/ffn.py _f32_image)
+  const float* b1;
+  const int* seed;
+  float* dacc;       // (B, T, C) out
+  float* dw1;
+  float* dw2f;
+  float* db1;
+  int T, F;
+  unsigned threshold;
+  float inv_keep;
+};
+
+// (b) in f32: ffn_dup_tf32_kernel<C, MT>, a block owns R = 32 MT rows of
+// one item, h0 and dff in swizzled f32 tiles, and walks F in chunks of 16
+// from chunk `rot` on (so that the blocks' weight-gradient reductions
+// spread over the matrices). Per chunk:
+//   warps 0-3: up = h0 @ W1 piece (buffer A)      16-row tiles, split as read
+//   warps 4-7: dup_d = dff @ W2f^T piece (buffer B), the same tiles; handed
+//              to the partner up warp through shared memory (barrier 1 + w)
+//   warps 0-3: dup = keep1 relu' dup_d / (1 - r), up_d = keep1 relu(up) /
+//              (1 - r); split into dacc's A fragments and into plain rows;
+//              db1 from the unsplit dup
+//   all:       dacc (R x C) += dup @ W1^T piece (buffer A, refilled with
+//              W1^T once the up warps are done with W1)
+//              dW1[:, chunk] += h0^T dup (m16 tiles of channels) and
+//              dW2f[chunk, :] += up_d^T dff (32 channels a warp), over the
+//              tile's rows, each tile added with vector reductions
+// dacc sums over F in the block's fixed order, so dz is deterministic.
+template <int C, int MT>
+__global__ void __launch_bounds__(ffn::kThreads, 1)
+ffn_dup_tf32_kernel(const __grid_constant__ DupF32Args a) {
+  using namespace ffn;
+  constexpr int R = 32 * MT, FC = kDupFC, P = piece_bytes(C, FC), LD = kStageLd;
+  constexpr int WMU = R / 16, WNU = 4 / WMU, NTU = FC / 8 / WNU;  // a half's warps down, across
+  constexpr int NT = C / 32;                                     // dacc: n8 tiles a warp
+  constexpr int QW1 = (C / 16 + 7) / 8;                          // dW1: m16 tiles a warp
+  extern __shared__ __align__(16) uint8_t smem[];
+  const float4* bufA = reinterpret_cast<const float4*>(smem);
+  const float4* bufB = reinterpret_cast<const float4*>(smem + P);
+  float* h0s = reinterpret_cast<float*>(smem + 2 * P);
+  float* dffs = h0s + R * C;
+  float4* sd = reinterpret_cast<float4*>(dffs + R * C);  // dup as dacc's A fragments
+  float* dup_hi = reinterpret_cast<float*>(sd + R * FC / 2);
+  float* dup_lo = dup_hi + R * LD;
+  float* upd_hi = dup_lo + R * LD;
+  float* upd_lo = upd_hi + R * LD;
+  float4* xch = reinterpret_cast<float4*>(upd_lo + R * LD);  // dup_d, up warp by up warp
+  uint8_t* barp = reinterpret_cast<uint8_t*>(xch + R * FC / 4);
+  const uint32_t base = smem_u32(smem);
+  const Bars bars(smem_u32(barp), reinterpret_cast<uint32_t*>(barp + 16));
+  const int T = a.T, b = blockIdx.y, t0 = blockIdx.x * R, nchunks = a.F / FC;
+  const int rot = (blockIdx.x + blockIdx.y * gridDim.x) % nchunks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint8_t* img = reinterpret_cast<const uint8_t*>(a.img);
+  auto piece = [img](int ci, int m) { return img + (static_cast<size_t>(ci) * 3 + m) * P; };
+
+  if (threadIdx.x == 0) {
+    bars.init();
+    bars.released[2] = 0u;
+    load_bytes(bars, 0, base, piece(rot, 0), P);
+    load_bytes(bars, 1, base + P, piece(rot, 1), P);
+  }
+  // the tile's h0 and dff rows into the swizzled tiles; zero beyond T
+  {
+    const size_t off = (static_cast<size_t>(b) * T + t0) * C;
+    for (int idx = threadIdx.x; idx < R * (C / 4); idx += ffn::kThreads) {
+      const int r = idx / (C / 4), c = 4 * (idx % (C / 4)), o = r * C + swz32(r, c);
+      if (t0 + r < T) {
+        cp_async16(smem_u32(h0s + o), a.h0 + off + static_cast<size_t>(r) * C + c);
+        cp_async16(smem_u32(dffs + o), a.dff + off + static_cast<size_t>(r) * C + c);
+      } else {
+        *reinterpret_cast<float4*>(h0s + o) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(dffs + o) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  const int half = warp >> 2, hw = warp & 3;
+  const int um = hw % WMU, un = hw / WMU;      // rows 16 um, n8 tiles un NTU of the chunk
+  const int fm = warp >> 2, fn = warp & 3;     // dacc: m16 tiles fm MT, n8 tiles fn NT
+  const bool drop = a.threshold != 0u;
+  const unsigned seed_b = lfs2::item_seed(*a.seed, b), thr = a.threshold;
+  const float ik = a.inv_keep;
+  const unsigned rh[2] = {row_hash(t0 + 16 * um + g), row_hash(t0 + 16 * um + g + 8)};
+  float dacc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dacc[mt][nt][e] = 0.0f;
+
+  for (int i = 0; i < nchunks; ++i) {
+    const int ci = (i + rot) % nchunks, f0 = ci * FC;
+    const int next = i + 1 < nchunks ? (i + 1 + rot) % nchunks : -1;
+    if (half == 0) {
+      // up (the relu and keep1 bits, and up_d for dW2f)
+      float up[NTU][4];
+      mbar_wait(bars.full1, 0u);  // buffer A's even phases: W1 pieces
+      rows_x_piece<C, NTU, FC / 8>(up, h0s, 16 * um, bufA, un * NTU, lane);
+      if (last_of(&bars.released[0], 4)) load_bytes(bars, 0, base, piece(ci, 2), P);
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + hw) : "memory");  // the partner's dup_d
+#pragma unroll
+      for (int nt = 0; nt < NTU; ++nt) {
+        const int j = un * NTU + nt, fl = 8 * j + 2 * t, f = f0 + fl;
+        const float4 d4 = xch[(hw * NTU + nt) * 32 + lane];
+        const float dd[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float2 bb = *reinterpret_cast<const float2*>(a.b1 + f);
+        float ud[4], dp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pre = up[nt][e] + ((e & 1) ? bb.y : bb.x);
+          const bool keep = !drop || keep_h(rh[e >> 1], col_hash(f + (e & 1), 1u), seed_b, thr);
+          const bool in = t0 + 16 * um + g + 8 * (e >> 1) < T;
+          ud[e] = keep && in ? fmaxf(pre, 0.0f) * ik : 0.0f;
+          dp[e] = keep && pre > 0.0f ? dd[e] * ik : 0.0f;
+        }
+        add_col_pair(a.db1 + f, dp[0] + dp[2], dp[1] + dp[3], lane);
+        store_a_frag(sd + ((j * (R / 16) + um) * 32 + lane) * 2, dp);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (16 * um + g + 8 * h) * LD + fl;
+          uint32_t dh[2], dl[2], uh[2], ul[2];
+          lfs2::split(dp[2 * h], dh[0], dl[0]);
+          lfs2::split(dp[2 * h + 1], dh[1], dl[1]);
+          lfs2::split(ud[2 * h], uh[0], ul[0]);
+          lfs2::split(ud[2 * h + 1], uh[1], ul[1]);
+          *reinterpret_cast<float2*>(dup_hi + at) = make_float2(__uint_as_float(dh[0]), __uint_as_float(dh[1]));
+          *reinterpret_cast<float2*>(dup_lo + at) = make_float2(__uint_as_float(dl[0]), __uint_as_float(dl[1]));
+          *reinterpret_cast<float2*>(upd_hi + at) = make_float2(__uint_as_float(uh[0]), __uint_as_float(uh[1]));
+          *reinterpret_cast<float2*>(upd_lo + at) = make_float2(__uint_as_float(ul[0]), __uint_as_float(ul[1]));
+        }
+      }
+    } else {
+      // dup_d = dff @ W2fc^T, handed to the up warp of the same tiles
+      float dd[NTU][4];
+      mbar_wait(bars.full2, i & 1);
+      rows_x_piece<C, NTU, FC / 8>(dd, dffs, 16 * um, bufB, un * NTU, lane);
+      if (last_of(&bars.released[1], 4) && next >= 0) load_bytes(bars, 1, base + P, piece(next, 1), P);
+#pragma unroll
+      for (int nt = 0; nt < NTU; ++nt)
+        xch[(hw * NTU + nt) * 32 + lane] = make_float4(dd[nt][0], dd[nt][1], dd[nt][2], dd[nt][3]);
+      asm volatile("bar.arrive %0, 64;\n" ::"r"(1 + hw) : "memory");
+    }
+    __syncthreads();  // the chunk's stagings are complete
+
+    // dacc += dup @ W1c^T
+    mbar_wait(bars.full1, 1u);  // buffer A's odd phases: W1^T pieces
+    frags_x_piece<MT, NT, FC / 8, R / 16, C / 8>(dacc, sd, fm * MT, bufA, fn * NT, lane);
+    if (last_of(&bars.released[2], 8) && next >= 0) load_bytes(bars, 0, base, piece(next, 0), P);
+
+    // dW1[c, chunk] += sum_r h0[r, c] dup[r, f]: m16 tiles of channels
+    {
+      float acc[QW1][2][4];
+#pragma unroll
+      for (int q = 0; q < QW1; ++q)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][nt][e] = 0.0f;
+      if (warp < C / 16) {
+#pragma unroll 2
+        for (int s = 0; s < R / 8; ++s) {
+          const int r0 = 8 * s + 2 * t;
+          uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              bh[nt][e] = __float_as_uint(dup_hi[(r0 + e) * LD + 8 * nt + g]);
+              bl[nt][e] = __float_as_uint(dup_lo[(r0 + e) * LD + 8 * nt + g]);
+            }
+#pragma unroll
+          for (int q = 0; q < QW1; ++q) {
+            const int c0 = 16 * (warp + 8 * q);
+            uint32_t ah[4], al[4];
+            lfs2::split_a(h0s[r0 * C + swz32(r0, c0 + g)], h0s[r0 * C + swz32(r0, c0 + g + 8)],
+                          h0s[(r0 + 1) * C + swz32(r0 + 1, c0 + g)],
+                          h0s[(r0 + 1) * C + swz32(r0 + 1, c0 + g + 8)], ah, al);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) lfs2::mma3(acc[q][nt], ah, al, bh[nt], bl[nt]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QW1; ++q)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) red_tile(a.dw1, a.F, acc[q][nt], 16 * (warp + 8 * q), f0 + 8 * nt, lane);
+      }
+    }
+    // dW2f[chunk, c] += sum_r up_d[r, f] dff[r, c]: 32 channels a warp
+    if (warp < C / 32) {
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll 2
+      for (int s = 0; s < R / 8; ++s) {
+        const int r0 = 8 * s + 2 * t;
+        uint32_t ah[4], al[4];
+        // (f g, r 2t), (f g + 8, r 2t), (f g, r 2t + 1), (f g + 8, r 2t + 1)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int at = (r0 + (q >> 1)) * LD + g + 8 * (q & 1);
+          ah[q] = __float_as_uint(upd_hi[at]);
+          al[q] = __float_as_uint(upd_lo[at]);
+        }
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = 32 * warp + 8 * nt + g;
+          lfs2::split(dffs[r0 * C + swz32(r0, c)], bh[nt][0], bl[nt][0]);
+          lfs2::split(dffs[(r0 + 1) * C + swz32(r0 + 1, c)], bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) lfs2::mma_tf32(acc[nt], ah, bl[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) lfs2::mma_tf32(acc[nt], al, bh[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) lfs2::mma_tf32(acc[nt], ah, bh[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) red_tile(a.dw2f, C, acc[nt], f0, 32 * warp + 8 * nt, lane);
+    }
+    __syncthreads();  // the stagings are free for the next chunk
+  }
+
+  const size_t row0 = static_cast<size_t>(b) * T + t0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * (fm * MT + mt) + g + 8 * h, c = 8 * (fn * NT + nt) + 2 * t;
+        if (t0 + r < T)
+          *reinterpret_cast<float2*>(a.dacc + (row0 + r) * C + c) =
+              make_float2(dacc[mt][nt][2 * h], dacc[mt][nt][2 * h + 1]);
+      }
 }
 
-cudaError_t f32_dispatch(int C, const Args& a, int B, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch<float, 1>(a, B, s);
-    case 64: return launch<float, 2>(a, B, s);
-    case 128: return launch<float, 4>(a, B, s);
-    case 256: return launch<float, 8>(a, B, s);
+template <int C, int MT>
+cudaError_t dup_f32_launch(const DupF32Args& a, int B, cudaStream_t s) {
+  const int smem = ffn::f32_dup_smem(32 * MT, C);
+  auto kernel = ffn_dup_tf32_kernel<C, MT>;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T + 32 * MT - 1) / (32 * MT), B);
+  kernel<<<grid, ffn::kThreads, smem, s>>>(a);
+  return record_launch(0, grid, smem, 32 * MT);
+}
+
+template <int C>
+cudaError_t dup_f32_rows(const DupF32Args& a, int B, int rows, cudaStream_t s) {
+  switch (rows) {
+    case 32: return dup_f32_launch<C, 1>(a, B, s);
+    case 64: return dup_f32_launch<C, 2>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -720,30 +560,41 @@ ffn_dup_kernel(const __grid_constant__ DupArgs a) {
   FFN_FLUSH();
 }
 
+template <typename TW>
 struct Dt1Args {
-  const bf16* z;
+  const TW* z;
   const float* dres;
   const float* dacc;
   const float* wd;
   const float* lnp;
-  bf16* dz;
+  TW* dz;
   float* dwd;
   float* dvec;
   int T, k;
   float eps;
 };
 
-// (c): a block owns kDt1Rows rows of one item; dacc over them and the k - 1
-// rows the depthwise backward reaches (f32), t1 over the rows the dwd sums
-// reach (recomputed from z and rounded, as the forward formed it)
-template <int CN>
+// four consecutive t1 values as floats
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// (c), both routes: a block owns kDt1Rows rows of one item; dacc over them
+// and the k - 1 rows the depthwise backward reaches (f32), t1 over the rows
+// the dwd sums reach (recomputed from z and rounded to the working dtype TW,
+// as the forward formed it)
+template <typename TW, int CN>
 __global__ void __launch_bounds__(ffn::kDt1Threads)
-ffn_dt1_kernel(const __grid_constant__ Dt1Args a) {
+ffn_dt1_kernel(const __grid_constant__ Dt1Args<TW> a) {
   constexpr int C = 32 * CN, TC = ffn::kDt1Rows, NW = ffn::kDt1Threads / 32, RPW = TC / NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = a.k, T = a.T, lpad = (k - 1) / 2, rpad = k - 1 - lpad, Wn = TC + k - 1;
   float* dw = reinterpret_cast<float*>(smem_raw);      // dacc rows t0 - rpad ..
-  bf16* t1w = reinterpret_cast<bf16*>(dw + Wn * C);    // t1 rows t0 - lpad ..
+  TW* t1w = reinterpret_cast<TW*>(dw + Wn * C);          // t1 rows t0 - lpad ..
   const int b = blockIdx.y, t0 = blockIdx.x * TC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t base = static_cast<size_t>(b) * T * C;
@@ -773,7 +624,7 @@ ffn_dt1_kernel(const __grid_constant__ Dt1Args a) {
 #pragma unroll
     for (int i = 0; i < CN; ++i) {
       const int c = lane + 32 * i;
-      t1w[r * C + c] = lfs2::from_f<bf16>(in ? ffn::ln_apply(v[i], mean, inv, g1[c], be1[c]) : 0.0f);
+      t1w[r * C + c] = lfs2::from_f<TW>(in ? ffn::ln_apply(v[i], mean, inv, g1[c], be1[c]) : 0.0f);
     }
   }
   __syncthreads();
@@ -785,13 +636,7 @@ ffn_dt1_kernel(const __grid_constant__ Dt1Args a) {
     float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int r = 0; r < TC; ++r) {
       const float4 d = *reinterpret_cast<const float4*>(dw + (r + rpad) * C + c);
-      float4 t = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
-      if (j < k) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(t1w + (r + j) * C + c);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        t = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
+      const float4 t = j < k ? load4(t1w + (r + j) * C + c) : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
       s.x += t.x * d.x;
       s.y += t.y * d.y;
       s.z += t.z * d.z;
@@ -852,7 +697,7 @@ ffn_dt1_kernel(const __grid_constant__ Dt1Args a) {
 #pragma unroll
     for (int i = 0; i < CN; ++i) {
       const int c = lane + 32 * i;
-      a.dz[o + c] = lfs2::from_f<bf16>(inv * (dt[rr][i] * g1[c] - m1 - x[i] * m2));
+      a.dz[o + c] = lfs2::from_f<TW>(inv * (dt[rr][i] * g1[c] - m1 - x[i] * m2));
       vg1[i] += dt[rr][i] * x[i];
       vbe1[i] += dt[rr][i];
     }
@@ -876,11 +721,11 @@ cudaError_t dup_launch(const DupArgs& a, int B, cudaStream_t s) {
   return record_launch(0, grid, smem, ffn::kRows);
 }
 
-template <int CN>
-cudaError_t dt1_launch(const Dt1Args& a, int B, cudaStream_t s) {
-  const int smem = ffn::dt1_smem(32 * CN, a.k);
+template <typename TW, int CN>
+cudaError_t dt1_launch(const Dt1Args<TW>& a, int B, cudaStream_t s) {
+  const int smem = ffn::dt1_smem(32 * CN, a.k, static_cast<int>(sizeof(TW)));
   if (smem > ffn::kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ffn_dt1_kernel<CN>;
+  auto kernel = ffn_dt1_kernel<TW, CN>;
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + ffn::kDt1Rows - 1) / ffn::kDt1Rows, B);
@@ -888,21 +733,34 @@ cudaError_t dt1_launch(const Dt1Args& a, int B, cudaStream_t s) {
   return record_launch(1, grid, smem, ffn::kDt1Rows);
 }
 
-cudaError_t bf16_backward(int C, const DupArgs& d, const Dt1Args& t, int B, cudaStream_t s) {
-  cudaError_t err;
+cudaError_t bf16_dup(int C, const DupArgs& d, int B, cudaStream_t s) {
   switch (C) {
     case 32:
-    case 64: err = dup_launch<64>(d, B, s); break;
-    case 128: err = dup_launch<128>(d, B, s); break;
-    case 256: err = dup_launch<256>(d, B, s); break;
+    case 64: return dup_launch<64>(d, B, s);
+    case 128: return dup_launch<128>(d, B, s);
+    case 256: return dup_launch<256>(d, B, s);
     default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
+}
+
+cudaError_t f32_dup(int C, const DupF32Args& d, int B, int rows, cudaStream_t s) {
   switch (C) {
-    case 32: return dt1_launch<1>(t, B, s);
-    case 64: return dt1_launch<2>(t, B, s);
-    case 128: return dt1_launch<4>(t, B, s);
-    default: return dt1_launch<8>(t, B, s);
+    case 32: return dup_f32_rows<32>(d, B, rows, s);
+    case 64: return dup_f32_rows<64>(d, B, rows, s);
+    case 128: return dup_f32_rows<128>(d, B, rows, s);
+    case 256: return dup_f32_rows<256>(d, B, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TW>
+cudaError_t dt1(int C, const Dt1Args<TW>& t, int B, cudaStream_t s) {
+  switch (C) {
+    case 32: return dt1_launch<TW, 1>(t, B, s);
+    case 64: return dt1_launch<TW, 2>(t, B, s);
+    case 128: return dt1_launch<TW, 4>(t, B, s);
+    case 256: return dt1_launch<TW, 8>(t, B, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -910,51 +768,55 @@ cudaError_t bf16_backward(int C, const DupArgs& d, const Dt1Args& t, int B, cuda
 
 LFS2_DEFINE_ERROR_STRING
 
-// The f32 route. dwd, dw1, dw2f, db1 and dvec must be zeroed f32 buffers;
-// seed is one int32 on the device
-LFS2_EXPORT int lfs2_ffn_ln_train_bwd(const void* z, const void* dout, const float* wd,
-                                      const void* w1, const void* w1T, const float* b1,
-                                      const void* w2f, const void* w2fT, const float* lnp,
-                                      const int* seed, void* dz, float* dwd, float* dw1,
-                                      float* dw2f, float* db1, float* dvec, int B, int T_len,
-                                      int C, int F, int k, float eps, unsigned threshold,
-                                      float inv_keep, void* stream) {
-  if (F % kFC != 0 || B < 1 || T_len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{z, dout, wd, w1, w1T, b1, w2f, w2fT, lnp, seed, dz, dwd, dw1, dw2f, db1, dvec,
-               T_len, F, k, eps, threshold, inv_keep};
-  return static_cast<int>(f32_dispatch(C, a, B, static_cast<cudaStream_t>(stream)));
-}
-
-// The bf16 route's stages (b) and (c), after ffn_ln.cu's lfs2_ffn_ln_chain
-// wrote h0, dres and dff (and dg2, dbe2, db2f into dvec). dacc is (B, T, C)
-// f32 scratch; dwd, dw1, dw2f, db1 and dvec are zeroed f32 buffers
-LFS2_EXPORT int lfs2_ffn_ln_train_bwd_bf16(const void* z, const float* dres, const void* h0,
-                                           const void* dff, const float* wd, const void* img,
-                                           const float* b1, const float* lnp, const int* seed,
-                                           float* dacc, void* dz, float* dwd, float* dw1,
-                                           float* dw2f, float* db1, float* dvec, int B, int T_len,
-                                           int C, int F, int k, float eps, unsigned threshold,
-                                           float inv_keep, void* stream) {
-  if (F % kFC != 0 || B < 1 || T_len < 1 || k < 1 || k > ffn::kMaxK)
+// The backward's stages (b) and (c), after ffn_ln.cu's lfs2_ffn_ln_chain
+// wrote h0, dres and dff (and dg2, dbe2, db2f into dvec), in the working
+// dtype (h0, dff, z, dz; dres f32). img: bf16 the swizzled image (the
+// chain's), f32 the dup pass's pieces (ops/ffn.py _f32_image). dacc is
+// (B, T, C) f32 scratch; dwd, dw1, dw2f, db1 and dvec are zeroed f32
+// buffers; rows: the dup pass's rows a block (128 in bf16, 32 or 64 in f32)
+LFS2_EXPORT int lfs2_ffn_ln_train_bwd(const void* z, const float* dres, const void* h0,
+                                      const void* dff, const float* wd, const void* img,
+                                      const float* b1, const float* lnp, const int* seed,
+                                      float* dacc, void* dz, float* dwd, float* dw1, float* dw2f,
+                                      float* db1, float* dvec, int B, int T_len, int C, int F,
+                                      int k, int rows, float eps, unsigned threshold,
+                                      float inv_keep, int dtype, void* stream) {
+  if (F % ffn::kFC != 0 || B < 1 || T_len < 1 || k < 1 ||
+      k > (dtype == lfs2::kBF16 ? ffn::kMaxK : ffn::kMaxKF32))
     return static_cast<int>(cudaErrorInvalidValue);
-  DupArgs d{};
-  d.h0 = static_cast<const bf16*>(h0);
-  d.dff = static_cast<const bf16*>(dff);
-  d.img = static_cast<const uint8_t*>(img);
-  d.b1 = b1;
-  d.seed = seed;
-  d.dacc = dacc;
-  d.dw1 = dw1;
-  d.dw2f = dw2f;
-  d.db1 = db1;
-  d.T = T_len;
-  d.C = C;
-  d.F = F;
-  d.threshold = threshold;
-  d.inv_keep = inv_keep;
-  const Dt1Args t{static_cast<const bf16*>(z), dres, dacc, wd, lnp, static_cast<bf16*>(dz), dwd,
-                  dvec, T_len, k, eps};
-  return static_cast<int>(bf16_backward(C, d, t, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == lfs2::kBF16) {
+    if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
+    DupArgs d{};
+    d.h0 = static_cast<const bf16*>(h0);
+    d.dff = static_cast<const bf16*>(dff);
+    d.img = static_cast<const uint8_t*>(img);
+    d.b1 = b1;
+    d.seed = seed;
+    d.dacc = dacc;
+    d.dw1 = dw1;
+    d.dw2f = dw2f;
+    d.db1 = db1;
+    d.T = T_len;
+    d.C = C;
+    d.F = F;
+    d.threshold = threshold;
+    d.inv_keep = inv_keep;
+    err = bf16_dup(C, d, B, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Dt1Args<bf16> t{static_cast<const bf16*>(z), dres, dacc, wd, lnp, static_cast<bf16*>(dz),
+                          dwd, dvec, T_len, k, eps};
+    return static_cast<int>(dt1(C, t, B, s));
+  }
+  const DupF32Args d{static_cast<const float*>(h0), static_cast<const float*>(dff),
+                     static_cast<const float*>(img), b1, seed, dacc, dw1, dw2f, db1, T_len, F,
+                     threshold, inv_keep};
+  err = f32_dup(C, d, B, rows, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Dt1Args<float> t{static_cast<const float*>(z), dres, dacc, wd, lnp, static_cast<float*>(dz),
+                         dwd, dvec, T_len, k, eps};
+  return static_cast<int>(dt1(C, t, B, s));
 }
 
 #ifdef LFS2_FFN_PHASE_CLOCKS
@@ -968,7 +830,7 @@ LFS2_EXPORT int lfs2_ffn_dup_phase_clocks(long long* out) {
 #endif
 
 // copies into out[0..9] the grid (x, y, z), shared-memory bytes and rows of
-// the latest accepted call's launches (the second zero on the f32 route)
+// the latest accepted call's launches: the dup pass, then the dt1 pass
 LFS2_EXPORT int lfs2_ffn_ln_train_bwd_last_launches(int* out) {
   for (int i = 0; i < 10; ++i) out[i] = g_last_launch[i / 5][i % 5];
   return 0;

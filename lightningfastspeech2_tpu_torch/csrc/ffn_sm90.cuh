@@ -1,6 +1,8 @@
-// ffn_sm90.cuh: what the two FFN sources' tensor-core (bf16) route shares:
-// the geometry table, mbarriers and bulk copies, the wgmma products, the
-// 128-byte swizzle, and the reductions on the accumulator layout.
+// ffn_sm90.cuh: what the two FFN sources' tensor-core routes share: the
+// geometry tables (bf16 wgmma, f32 split-TF32 mma.sync), mbarriers and bulk
+// copies, the wgmma products, the 128-byte swizzle, the f32 route's
+// products from shared memory, and the reductions on the accumulator
+// layout.
 //
 // Geometry (ops/ffn.py ffn_plan mirrors this table; the static_asserts
 // below hold it to a block's shared memory):
@@ -31,6 +33,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace ffn {
 
@@ -64,8 +67,11 @@ __host__ __device__ constexpr int fwd_smem(int CP, int k) {
 __host__ __device__ constexpr int dup_smem(int CP) {
   return 1024 + 2 * wbuf_bytes(CP) + 2 * tile_bytes(CP) + 2 * stage_bytes() + kBarBytes;
 }
-// depthwise/LN1 backward: dacc (f32) and t1 (bf16) over the rows and k - 1
-__host__ __device__ constexpr int dt1_smem(int C, int k) { return (kDt1Rows + k - 1) * C * 6; }
+// depthwise/LN1 backward: dacc (f32) and t1 (the working dtype, `elem`
+// bytes) over the rows and k - 1
+__host__ __device__ constexpr int dt1_smem(int C, int k, int elem) {
+  return (kDt1Rows + k - 1) * C * (4 + elem);
+}
 
 static_assert(fwd_smem(256, kMaxK) <= kMaxSmem, "forward tile");
 // the forward's epilogue row buffer (kRows x (CP + 4) f32) over the weight
@@ -76,7 +82,7 @@ static_assert(kRows * (256 + 4) * 4 <= 2 * wbuf_bytes(256) + tile_bytes(256) + w
 static_assert(kMaxK * 256 * 4 <= 2 * wbuf_bytes(256) && kMaxK * 64 * 4 <= 2 * wbuf_bytes(64),
               "wd fits the weight buffers during the prologue");
 static_assert(dup_smem(256) <= kMaxSmem, "dup tile");
-static_assert(dt1_smem(256, kMaxK) <= kMaxSmem, "dt1 tile");
+static_assert(dt1_smem(256, kMaxK, 2) <= kMaxSmem, "dt1 tile");
 static_assert(kRows == 2 * 64 && kThreads == 2 * 128 && kFC == 64, "two warpgroups");
 static_assert(kDt1Rows % (kDt1Threads / 32) == 0, "dt1 rows a warp");
 
@@ -179,13 +185,18 @@ struct Bars {
   }
 };
 
+// `bytes` from src into the buffer barrier m (0: full1, 1: full2) guards
+__device__ __forceinline__ void load_bytes(const Bars& bars, int m, uint32_t dst, const void* src,
+                                           int bytes) {
+  const uint32_t full = m == 0 ? bars.full1 : bars.full2;
+  mbar_expect_tx(full, bytes);
+  bulk_load(dst, src, bytes, full);
+}
 // chunk ci's W1 (m = 0) or W2 (m = 1) matrix from the weight image into its
 // buffer
 __device__ __forceinline__ void load_w(const Bars& bars, int m, uint32_t dst, const uint8_t* img,
                                        int ci, int CP) {
-  const uint32_t full = m == 0 ? bars.full1 : bars.full2;
-  mbar_expect_tx(full, wbuf_bytes(CP));
-  bulk_load(dst, img + (static_cast<size_t>(ci) * 2 + m) * wbuf_bytes(CP), wbuf_bytes(CP), full);
+  load_bytes(bars, m, dst, img + (static_cast<size_t>(ci) * 2 + m) * wbuf_bytes(CP), wbuf_bytes(CP));
 }
 // A warp is done reading buffer m's chunk (after its wgmma_wait): lane 0
 // counts the release, and the last of the eight warps issues chunk next
@@ -356,6 +367,193 @@ __device__ __forceinline__ unsigned row_hash(int g) {
 }
 __device__ __forceinline__ unsigned col_hash(int c, unsigned salt) {
   return static_cast<unsigned>(c) + 0x9E3779B9u * salt;
+}
+
+// ============ f32 route: split TF32 on mma.sync (m16n8k8) =====================
+// Geometry (ops/ffn.py ffn_plan mirrors this table too):
+//   R        rows of one batch item a block owns, 64 or 32 (the plan takes
+//            the one that fills more of the card), eight warps
+//   kF32FC   F columns per chunk of the forward and the backward's chain: a
+//            W1 piece (K = C, N = 32) and a W2f piece (K = 32, N = C)
+//   kDupFC   F columns per chunk of the dup pass: W1 (K = C, N = 16), W2f^T
+//            (K = C, N = 16) and W1^T (K = 16, N = C) pieces
+// A piece is a K x N product operand split into TF32 hi and lo halves in
+// mma.sync's B-fragment order (ops/ffn.py _frag_order), K N 8 bytes: per
+// k-step of 8 and n8 tile, 32 lanes of one float4 (hi of the k-step's rows
+// 2t and 2t + 1 at column g, then lo). Within every k-step the product's k
+// indices t and t + 4 are the operands' rows (columns of A) 2t and 2t + 1,
+// so an A fragment is two float2 reads of a row-major tile, and the
+// accumulator of one n8 tile is, as it stands, the A fragment of the next
+// product's k-step. Activation tiles are f32 rows of C in shared memory,
+// columns swizzled by swz32. The tensor cores' f32 accumulation truncates,
+// so every product sums a run of at most 64 k indices from zero and adds
+// it to the running sum with f32 adds.
+constexpr int kF32FC = 32;
+constexpr int kDupFC = 16;
+constexpr int kStageLd = kDupFC + 4;  // row stride (floats) of the dup pass's plain stagings
+constexpr int kMaxKF32 = 50;          // the f32 dt1 tile at C = 256
+__host__ __device__ constexpr int piece_bytes(int C, int fc) { return C * fc * 8; }
+// forward / chain: the W1 and W2f pieces (the t1 window during the
+// prologue, the row buffer in the epilogue), h0, two up chunks as the ff
+// product's split A fragments, barriers, each window row's LN1 statistics
+__host__ __device__ constexpr int f32_fwd_smem(int R, int C, int k) {
+  return 2 * piece_bytes(C, kF32FC) + R * C * 4 + 2 * R * kF32FC * 8 + kBarBytes + (R + k - 1) * 8;
+}
+// dup pass: two piece buffers, h0 and dff, dup as dacc's split A
+// fragments, dup and up_d split in plain rows (hi, lo each), the dup_d
+// hand-over, barriers
+__host__ __device__ constexpr int f32_dup_smem(int R, int C) {
+  return 2 * piece_bytes(C, kDupFC) + 2 * R * C * 4 + R * kDupFC * 8 + 4 * R * kStageLd * 4 +
+         R * kDupFC * 4 + kBarBytes;
+}
+static_assert(f32_fwd_smem(64, 256, kMaxKF32) <= kMaxSmem, "f32 forward tile");
+static_assert((64 + kMaxKF32 - 1) * 4 <= 2 * kF32FC * 8 && 64 * (256 + 4) * 4 <= 2 * piece_bytes(256, kF32FC),
+              "the t1 window and the row buffer fit the f32 pieces' buffers");
+static_assert(f32_dup_smem(64, 256) <= kMaxSmem, "f32 dup tile");
+static_assert(dt1_smem(256, kMaxKF32, 4) <= kMaxSmem, "f32 dt1 tile");
+
+// column of element (r, c) in an f32 tile: bits 3-4 of c flipped by a
+// function of r % 8 that is one to one on rows {0-3}, {4-7}, {0, 2, 4, 6}
+// and {1, 3, 5, 7}, so both of a fragment's reads meet 32 banks: row-wise
+// float2 (rows g, columns 2t) and transposed scalars (rows 2t + e, column g)
+__device__ __forceinline__ int swz32(int r, int c) {
+  return c ^ ((((r ^ (r >> 2)) & 1) | (r & 2)) << 3);
+}
+
+// A warp is done with a buffer: lane 0 counts it on *count (after the
+// warp's lanes converge), and is told whether its warp completed a round
+// of n; that warp issues the buffer's next load
+__device__ __forceinline__ bool last_of(uint32_t* count, unsigned n) {
+  __syncwarp();
+  return (threadIdx.x & 31) == 0 && atomicAdd(count, 1u) % n == n - 1;
+}
+
+// acc (NT n8 tiles of 16 rows) = rows [r0, r0 + 16) of the f32 tile src
+// (C columns, swizzled) times n8 tiles [j0, j0 + NT) of a piece with K = C
+// and NTOT n8 tiles. The three terms of a k-step go to three sets of
+// accumulators (independent chains on the tensor cores), each summed from
+// zero over 64 k indices and added in f32.
+template <int C, int NT, int NTOT>
+__device__ __forceinline__ void rows_x_piece(float (&acc)[NT][4], const float* src, int r0,
+                                             const float4* piece, int j0, int lane) {
+  constexpr int KR = C < 64 ? C : 64;
+  const int g = lane >> 2, t = lane & 3;
+  const float* x0 = src + (r0 + g) * C;
+  const float* x1 = src + (r0 + g + 8) * C;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll 1
+  for (int kb = 0; kb < C; kb += KR) {
+    float tc[3][NT][4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tc[q][nt][e] = 0.0f;
+#pragma unroll 4
+    for (int s = kb / 8; s < (kb + KR) / 8; ++s) {
+      const float2 a0 = *reinterpret_cast<const float2*>(x0 + swz32(r0 + g, 8 * s + 2 * t));
+      const float2 a1 = *reinterpret_cast<const float2*>(x1 + swz32(r0 + g + 8, 8 * s + 2 * t));
+      uint32_t ah[4], al[4];
+      lfs2::split_a(a0.x, a1.x, a0.y, a1.y, ah, al);
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::frag_b(piece[(s * NTOT + j0 + nt) * 32 + lane], bh[nt], bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[0][nt], ah, bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[1][nt], al, bh[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[2][nt], ah, bh[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += (tc[0][nt][e] + tc[1][nt][e]) + tc[2][nt][e];
+  }
+}
+
+// acc (MT m16 x NT n8 tiles) += KS k-steps of A fragments stored split in
+// fragment order (per k-step and m16 tile, 32 lanes of a hi and a lo
+// float4; MTOT m16 tiles a k-step) from m16 tile m0, times n8 tiles [j0,
+// j0 + NT) of a piece with NTOT n8 tiles; summed from zero, added in f32
+template <int MT, int NT, int KS, int MTOT, int NTOT>
+__device__ __forceinline__ void frags_x_piece(float (&acc)[MT][NT][4], const float4* af, int m0,
+                                              const float4* piece, int j0, int lane) {
+  float tc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc[mt][nt][e] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float4* p = af + ((s * MTOT + m0 + mt) * 32 + lane) * 2;
+      const float4 h = p[0], l = p[1];
+      ah[mt][0] = __float_as_uint(h.x), ah[mt][1] = __float_as_uint(h.y);
+      ah[mt][2] = __float_as_uint(h.z), ah[mt][3] = __float_as_uint(h.w);
+      al[mt][0] = __float_as_uint(l.x), al[mt][1] = __float_as_uint(l.y);
+      al[mt][2] = __float_as_uint(l.z), al[mt][3] = __float_as_uint(l.w);
+    }
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) lfs2::frag_b(piece[(s * NTOT + j0 + nt) * 32 + lane], bh[nt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) lfs2::mma_tf32(tc[mt][nt], ah[mt], bh[nt]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += tc[mt][nt][e];
+}
+
+// four values of an accumulator tile (rows g, g + 8; columns 2t, 2t + 1)
+// as the split A fragment of the next product's k-step (k indices t, t + 4
+// are columns 2t, 2t + 1): a hi and a lo float4 at dst[0], dst[1]
+__device__ __forceinline__ void store_a_frag(float4* dst, const float (&v)[4]) {
+  uint32_t h[4], l[4];
+  lfs2::split_a(v[0], v[2], v[1], v[3], h, l);
+  dst[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                       __uint_as_float(h[3]));
+  dst[1] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                       __uint_as_float(l[3]));
+}
+
+// One m16n8 accumulator tile added into a row-major f32 matrix of `ld`
+// columns at (row0, col0): lanes of a pair swap halves so each adds four
+// consecutive columns of one row with one vector reduction
+__device__ __forceinline__ void red_tile(float* dst, int ld, const float (&acc)[4], int row0,
+                                         int col0, int lane) {
+  const bool odd = lane & 1;
+  const float x = __shfl_xor_sync(0xffffffffu, odd ? acc[0] : acc[2], 1);
+  const float y = __shfl_xor_sync(0xffffffffu, odd ? acc[1] : acc[3], 1);
+  const float4 v = odd ? make_float4(x, y, acc[2], acc[3]) : make_float4(acc[0], acc[1], x, y);
+  const int row = row0 + (lane >> 2) + (odd ? 8 : 0);
+  const int col = col0 + 2 * ((lane & 3) & ~1);
+#ifndef LFS2_FFN_NO_WGRAD_ATOMICS  // defined only to time the products without the reductions
+  atomicAdd(reinterpret_cast<float4*>(dst + static_cast<size_t>(row) * ld + col), v);
+#else
+  (void)v, (void)row, (void)col;
+#endif
 }
 
 }  // namespace ffn

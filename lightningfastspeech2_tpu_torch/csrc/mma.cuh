@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy primitives of the mma.sync kernels
-// (csrc/resblock.cu, csrc/flash_attention.cu, csrc/lvc_stack.cu): cp.async,
+// (csrc/resblock.cu, csrc/flash_attention.cu, csrc/lvc_stack.cu and the f32
+// routes of csrc/ffn_ln.cu and csrc/ffn_ln_train_bwd.cu): cp.async,
 // ldmatrix, mma.sync in bf16 (m16n8k16) and in TF32 (m16n8k8), the
 // split-TF32 product that keeps f32's digits on the tensor cores, and
 // mbarriers with bulk copies.
@@ -93,6 +94,25 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uin
   mma_tf32(c, ah, bl);
   mma_tf32(c, al, bh);
   mma_tf32(c, ah, bh);
+}
+
+// An A fragment from its four raw values (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4), split into hi and lo
+__device__ __forceinline__ void split_a(float v0, float v1, float v2, float v3, uint32_t ah[4],
+                                        uint32_t al[4]) {
+  split(v0, ah[0], al[0]);
+  split(v1, ah[1], al[1]);
+  split(v2, ah[2], al[2]);
+  split(v3, ah[3], al[3]);
+}
+
+// A B fragment's hi and lo halves from one float4 of a split operand in
+// fragment order: hi of k rows t and t + 4 at column g, then lo
+__device__ __forceinline__ void frag_b(const float4& v, uint32_t bh[2], uint32_t bl[2]) {
+  bh[0] = __float_as_uint(v.x);
+  bh[1] = __float_as_uint(v.y);
+  bl[0] = __float_as_uint(v.z);
+  bl[1] = __float_as_uint(v.w);
 }
 
 // ---- mbarriers and bulk copies ----------------------------------------------

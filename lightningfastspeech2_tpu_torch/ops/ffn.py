@@ -10,12 +10,14 @@ Counterpart of ``lightningfastspeech2_tpu/ops/pallas_ffn.py``:
 and runs ``ffn_ln_plain`` for a CPU tensor; ``ffn_ln_train`` launches the
 same source's training forward and the backward's three launches (the
 chain in ``csrc/ffn_ln.cu``, the dup and dt1 passes in
-``csrc/ffn_ln_train_bwd.cu``; one CUDA-core kernel in f32) through an
-autograd Function, or runs ``ffn_ln_train_plain`` on the CPU. The rounding
-points follow the TPU kernel: LN1 output, depthwise output and ReLU output
-are rounded to the working dtype; the depthwise taps, both products and
-both LayerNorms accumulate in f32. ``ffn_ln_train_bwd_plain`` is the bf16
-backward's stages in plain PyTorch, with its rounding points.
+``csrc/ffn_ln_train_bwd.cu``) through an autograd Function, or runs
+``ffn_ln_train_plain`` on the CPU. Both dtypes run the products on the
+tensor cores: bf16 on wgmma, f32 as split-TF32 ``mma.sync`` (three TF32
+products a product, f32's digits). The rounding points follow the TPU
+kernel: LN1 output, depthwise output and ReLU output are rounded to the
+working dtype; the depthwise taps, both products and both LayerNorms
+accumulate in f32. ``ffn_ln_train_bwd_plain`` is the backward's stages in
+plain PyTorch, with their rounding points (none in f32).
 
 ``ffn_plan`` sizes every launch of both sources (rows a block owns, F
 chunk, weight buffers, shared memory, grid): the table of
@@ -26,8 +28,10 @@ Kernel weight layouts are prepared once, when weights load
 (``prepare_ffn_weights``), or once per training call (the autograd
 Function keeps the forward's for the backward), not per launch: the
 grouped k=1 conv and the down-projection compose into one (F, C) matrix
-(``fold_grouped_into_down``), and the bf16 kernels read W1 and W2f as one
-pre-swizzled image (``_weight_image``).
+(``fold_grouped_into_down``); the bf16 kernels read W1 and W2f as one
+pre-swizzled image (``_weight_image``), the f32 kernels as TF32 hi / lo
+halves in ``mma.sync`` fragment order (``_f32_image``); each is one
+gather through an index cached per shape.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch.nn.functional as nnf
 from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
+from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import tf32
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
@@ -50,7 +55,6 @@ _c_fn = None
 _c_train = None
 _c_chain = None
 _c_bwd = None
-_c_bwd_bf16 = None
 
 
 def _lib_fn(name: str, symbol: str, argtypes):
@@ -72,7 +76,7 @@ class FFNWeights:
     w2f: torch.Tensor   # (F, C) working dtype, grouped conv folded into down
     lnp: torch.Tensor   # (6, C) f32: g1, be1, g2, be2, bd, b2f
     eps: float = 1e-5
-    img: Optional[torch.Tensor] = None  # bf16: W1 and W2f as the kernel reads them
+    img: Optional[torch.Tensor] = None  # W1 and W2f as the kernel reads them (built at first use)
 
     @property
     def kernel_size(self) -> int:
@@ -135,7 +139,7 @@ def ffn_ln_plain(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
 def _fn():
     global _c_fn
     if _c_fn is None:
-        _c_fn = _lib_fn("ffn_ln", "lfs2_ffn_ln", [_P] * 8 + [_I] * 5 + [_F, _I, _P])
+        _c_fn = _lib_fn("ffn_ln", "lfs2_ffn_ln", [_P] * 6 + [_I] * 6 + [_F, _I, _P])
     return _c_fn
 
 
@@ -163,21 +167,19 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     if C not in (32, 64, 128, 256) or F % 128 != 0:
         raise ValueError(f"ffn_ln kernel takes C in (32, 64, 128, 256) and F % 128 "
                          f"== 0, got C={C}, F={F}")
-    smem = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")[0].smem_bytes
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ffn_ln kernel: k={w.kernel_size} at C={C} needs {smem} bytes "
-                         f"of shared memory, over {SMEM_LIMIT}")
-    img = None
-    if z.dtype == torch.bfloat16:
-        if w.img is None:
-            w.img = _weight_image(w.w1, w.w2f)
-        img = w.img
+    plan = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")[0]
+    if not _fits(plan, w.kernel_size):
+        raise ValueError(f"ffn_ln kernel: k={w.kernel_size} at C={C} needs {plan.smem_bytes} "
+                         f"bytes of shared memory (at most {SMEM_LIMIT}) or a t1 window of "
+                         f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32)")
+    if w.img is None:
+        w.img = (_weight_image(w.w1, w.w2f) if z.dtype == torch.bfloat16
+                 else _f32_image(w.w1, w.w2f, "fwd"))
     out = torch.empty_like(z)
     lib, fn = _fn()
-    rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.w1.data_ptr(),
-            w.b1.data_ptr(), w.w2f.data_ptr(), w.lnp.data_ptr(),
-            None if img is None else img.data_ptr(), B, T, C, F,
-            w.kernel_size, w.eps, build.DTYPE_CODES[z.dtype], stream)
+    rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.b1.data_ptr(), w.lnp.data_ptr(),
+            w.img.data_ptr(), B, T, C, F, w.kernel_size, plan.rows, w.eps,
+            build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln")
     ffn_ln.launches += 1
     return out
@@ -189,18 +191,22 @@ ffn_ln.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the launches' geometry: csrc/ffn_sm90.cuh's table (bf16) and the f32 routes'
+# the launches' geometry: csrc/ffn_sm90.cuh's tables (bf16 wgmma, f32 split TF32)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
+SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 _ROWS = 128          # kRows: rows of one item a wgmma block owns (two warpgroups of 64)
 _FC = 64             # kFC: F columns per weight chunk
-_THREADS = 256       # kThreads: two warpgroups
+_THREADS = 256       # kThreads: two warpgroups (bf16), eight warps (f32)
 _DT1_ROWS = 64       # kDt1Rows: rows a depthwise/LN1-backward block owns
 _DT1_THREADS = 256
-_MAX_K = {torch.bfloat16: 63, torch.float32: 31}  # kMaxK; the f32 backward's EP - 1
-_F32_ROWS, _F32_FC, _F32_THREADS = 32, 128, 256   # ffn_ln_f32_kernel
-_F32_EP, _F32_BWD_FC = 32, 64                      # ffn_bwd_kernel
+_MAX_K = {torch.bfloat16: 63, torch.float32: 50}  # kMaxK, kMaxKF32 (the f32 dt1 tile)
+_F32_ROWS = (64, 32)  # rows a split-TF32 block may own
+_F32_FC, _DUP_FC = 32, 16  # kF32FC, kDupFC: F columns per forward / dup chunk
+_F32_WINDOW = 2 * _F32_FC * 8 // 4  # rows of t1 the two f32 piece buffers hold
+_STAGE_LD = _DUP_FC + 4  # kStageLd
+_BAR_BYTES = 64
 
 
 @dataclass(frozen=True)
@@ -208,7 +214,7 @@ class FFNLaunch:
     """One kernel launch: the kernel, the rows of one batch item a block
     owns, the F columns per weight chunk, the weight-chunk buffers in flight
     (a W1 and a W2f buffer, each refilled as soon as its chunk is released;
-    0 where the weights stream from L2), shared memory a block, grid and
+    0 where the kernel streams no weights), shared memory a block, grid and
     threads a block."""
 
     kernel: str
@@ -235,54 +241,84 @@ def _dup_smem(C: int) -> int:
     return 1024 + 2 * cp * 128 + 2 * _ROWS * cp * 2 + 2 * _ROWS * _FC * 2 + 64
 
 
-def _dt1_smem(C: int, k: int) -> int:
-    return (_DT1_ROWS + k - 1) * C * 6
+def _dt1_smem(C: int, k: int, elem: int) -> int:
+    return (_DT1_ROWS + k - 1) * C * (4 + elem)
+
+
+def _piece_bytes(C: int, fc: int) -> int:
+    """A split K x N product operand with K N = C fc: hi and lo, 8 bytes."""
+    return C * fc * 8
+
+
+def _f32_fwd_smem(R: int, C: int, k: int) -> int:
+    return (2 * _piece_bytes(C, _F32_FC) + R * C * 4 + 2 * R * _F32_FC * 8 + _BAR_BYTES
+            + (R + k - 1) * 8)
+
+
+def _f32_dup_smem(R: int, C: int) -> int:
+    return (2 * _piece_bytes(C, _DUP_FC) + 2 * R * C * 4 + R * _DUP_FC * 8
+            + 4 * R * _STAGE_LD * 4 + R * _DUP_FC * 4 + _BAR_BYTES)
+
+
+def _f32_rows(B: int, T: int) -> int:
+    """Rows a split-TF32 block owns: of 64 and 32, the one whose blocks take
+    fewer rows' time in waves over the card's SMs (one block an SM), 64 on
+    a tie (half the weight streaming and reductions a row)."""
+    return min(_F32_ROWS, key=lambda r: -(-B * -(-T // r) // SM_COUNT) * r)
 
 
 @functools.lru_cache(maxsize=256)
 def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
              mode: str) -> Tuple[FFNLaunch, ...]:
     """Every launch of one call, in order: ``mode`` "serve" (``ffn_ln``),
-    "train" (``ffn_ln_train``'s forward) or "bwd" (its backward). bf16 runs
-    the tensor-core kernels: 128-row blocks for the forward and the
-    backward's chain and dup passes (64-column F chunks, two weight
-    buffers), 64-row blocks for the dt1 pass. f32 runs the CUDA-core
-    kernels: 32-row forward blocks, and backward blocks that own
-    32 - (k - 1) of the 32 rows they recompute."""
+    "train" (``ffn_ln_train``'s forward) or "bwd" (its backward: the chain,
+    the dup pass, the dt1 pass). bf16 runs the wgmma kernels: 128-row
+    blocks for the forward, the chain and the dup pass (64-column F
+    chunks, two weight buffers). f32 runs the split-TF32 kernels: blocks
+    of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
+    forward and the chain, 16-column for the dup pass. The dt1 pass takes
+    64-row blocks in both. Every block owns the rows its products form."""
     def grid(rows):
         return (-(-T // rows), B, 1)
 
-    if dtype == torch.bfloat16:
+    bf16 = dtype == torch.bfloat16
+    if bf16:
         fwd = FFNLaunch("ffn_ln_kernel", _ROWS, _FC, 2, _fwd_smem(C, k), grid(_ROWS), _THREADS)
-        if mode != "bwd":
-            return (fwd,)
-        return (fwd,
-                FFNLaunch("ffn_dup_kernel", _ROWS, _FC, 2, _dup_smem(C), grid(_ROWS), _THREADS),
-                FFNLaunch("ffn_dt1_kernel", _DT1_ROWS, 0, 0, _dt1_smem(C, k), grid(_DT1_ROWS),
-                          _DT1_THREADS))
+    else:
+        r = _f32_rows(B, T)
+        fwd = FFNLaunch("ffn_tf32_kernel", r, _F32_FC, 2, _f32_fwd_smem(r, C, k), grid(r),
+                        _THREADS)
     if mode != "bwd":
-        smem = ((_F32_ROWS + k - 1) * C + _F32_ROWS * C + _F32_ROWS * _F32_FC) * 4
-        return (FFNLaunch("ffn_ln_f32_kernel", _F32_ROWS, _F32_FC, 0, smem, grid(_F32_ROWS),
-                          _F32_THREADS),)
-    ep, tt = _F32_EP, _F32_EP - (k - 1)
-    smem = (ep * C * 4 + ep * _F32_BWD_FC * 4 + 2 * ep * C * 4 + (ep + k - 1) * C * 4
-            + ep * _F32_BWD_FC * 4)
-    return (FFNLaunch("ffn_bwd_kernel", tt, _F32_BWD_FC, 0, smem, grid(max(tt, 1)),
-                      _F32_THREADS),)
+        return (fwd,)
+    dup = (FFNLaunch("ffn_dup_kernel", _ROWS, _FC, 2, _dup_smem(C), grid(_ROWS), _THREADS)
+           if bf16 else
+           FFNLaunch("ffn_dup_tf32_kernel", fwd.rows, _DUP_FC, 2, _f32_dup_smem(fwd.rows, C),
+                     fwd.grid, _THREADS))
+    return (fwd, dup,
+            FFNLaunch("ffn_dt1_kernel", _DT1_ROWS, 0, 0, _dt1_smem(C, k, 2 if bf16 else 4),
+                      grid(_DT1_ROWS), _DT1_THREADS))
+
+
+def _fits(launch: FFNLaunch, k: int) -> bool:
+    """Whether a launch fits a block: its shared memory, and in f32 the t1
+    window of the forward's two piece buffers."""
+    window = launch.kernel != "ffn_tf32_kernel" or launch.rows + k - 1 <= _F32_WINDOW
+    return launch.smem_bytes <= SMEM_LIMIT and window
 
 
 def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
     """Whether the training kernels take these widths on the card: the card's
     own counterpart of the JAX package's VMEM estimate (``_fused_ffn_ok``).
-    Every launch of the forward and the backward must fit a block's shared
-    memory; k is at most 63 in bf16 and 31 in f32 (where a backward block
-    owns 32 - (k - 1) of the rows it recomputes)."""
+    Every launch of the forward and the backward must fit a block (at both
+    f32 row counts); k is at most 63 in bf16 and 50 in f32 (the dt1 tile at
+    C = 256)."""
     if dtype not in _MAX_K or C not in (32, 64, 128, 256) or F % 128 != 0:
         return False
     if not 1 <= k <= _MAX_K[dtype]:
         return False
-    plans = ffn_plan(C, F, k, 1, 1, dtype, "train") + ffn_plan(C, F, k, 1, 1, dtype, "bwd")
-    return all(p.smem_bytes <= SMEM_LIMIT for p in plans)
+    shapes = ((1, 1), (1, 64 * SM_COUNT))  # the 32-row and the 64-row f32 plan
+    return all(_fits(p, k) for B, T in shapes
+               for mode in ("train", "bwd") for p in ffn_plan(C, F, k, B, T, dtype, mode))
 
 
 @functools.lru_cache(maxsize=16)
@@ -316,6 +352,58 @@ def _weight_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
     C, F = w1.shape
     src = torch.cat([w1.reshape(-1), w2f.reshape(-1), w1.new_zeros(1)]).to(torch.bfloat16)
     return src[_image_index(C, F, w1.device)]
+
+
+def _frag_order(x: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) product operands in ``mma.sync``'s B-fragment order, as
+    the f32 kernels read them: per k-step s of 8 rows, n8 tile j and lane
+    4 g + t, rows 8 s + 2 t and 8 s + 2 t + 1 at column 8 j + g
+    (csrc/ffn_sm90.cuh: rows 2t, 2t + 1 of a k-step are the product's k
+    indices t, t + 4). Returns (..., K / 8, N / 8, 8, 4, 2)."""
+    *lead, K, N = x.shape
+    n = len(lead)
+    order = tuple(range(n)) + tuple(n + d for d in (0, 3, 4, 1, 2))
+    return x.reshape(*lead, K // 8, 4, 2, N // 8, 8).permute(order)
+
+
+@functools.lru_cache(maxsize=16)
+def _f32_index(C: int, F: int, which: str, device: torch.device) -> torch.Tensor:
+    """For each element of ``_f32_image``'s layout, its source in
+    ``_split_source``'s [hi(W1), hi(W2f), lo(W1), lo(W2f)]: per chunk of fc
+    F columns its pieces, each in ``_frag_order`` with a lane's two hi
+    values before its two lo ones."""
+    fc = _F32_FC if which == "fwd" else _DUP_FC
+    w1 = torch.arange(C * F).reshape(C, F // fc, fc).permute(1, 0, 2)          # (chunk, C, fc)
+    w2 = (C * F + torch.arange(F * C)).reshape(F // fc, fc, C)                 # (chunk, fc, C)
+    pieces = (w1, w2) if which == "fwd" else (w1, w2.transpose(1, 2), w1.transpose(1, 2))
+    out = []
+    for x in pieces:
+        o = _frag_order(x)
+        out.append(torch.stack([o, o + 2 * C * F], dim=-2).reshape(F // fc, -1))
+    return torch.stack(out, dim=1).to(device)
+
+
+def _split_source(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
+    """W1 and W2f split into TF32 halves, hi = tf32(w), lo = tf32(w - hi)
+    (hi + lo is w within 2^-22 of |w|): [hi(W1), hi(W2f), lo(W1), lo(W2f)]
+    flattened, f32."""
+    w = torch.cat([w1.float().reshape(-1), w2f.float().reshape(-1)])
+    hi = tf32(w)
+    return torch.cat([hi, tf32(w - hi)])
+
+
+def _f32_image(w1: torch.Tensor, w2f: torch.Tensor, which: str,
+               src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W1 (C, F) and W2f (F, C) as the f32 kernels stream them, one gather
+    from their split halves (``src``, ``_split_source``'s, made here when
+    not given): a (F / fc, pieces, C fc 2) f32 tensor, per chunk of fc F
+    columns "fwd" (``ffn_tf32_kernel``, fc 32) a W1 piece (K = C, N = fc)
+    and a W2f piece (K = fc, N = C), "dup" (``ffn_dup_tf32_kernel``, fc 16)
+    W1 (K = C, N = fc), W2f^T (K = C, N = fc) and W1^T (K = fc, N = C); a
+    piece in ``_frag_order``, a lane's two hi values before its lo ones."""
+    C, F = w1.shape
+    src = _split_source(w1, w2f) if src is None else src
+    return src[_f32_index(C, F, which, w1.device)]
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +586,9 @@ def _check_train(z: torch.Tensor, k: int, F: int) -> None:
 def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     """The kernels' weight layouts of one training call, for the forward and
     the backward alike: the f32 taps, biases and LayerNorm vectors, and W1,
-    W2f in the working dtype (bf16: the swizzled image; f32: as they are and
-    transposed, as the CUDA-core backward reads them)."""
+    W2f as the kernels stream them: bf16 one swizzled image ("img", the
+    forward, the chain and the dup pass); f32 the forward's and the chain's
+    split pieces ("img") and the dup pass's ("dup_img")."""
     wd, bd, w1, b1, w2f, b2f, g1, be1, g2, be2 = (t.detach() for t in p)
     lnp = torch.stack([g1.float(), be1.float(), g2.float(), be2.float(),
                        bd.float(), b2f.float()]).contiguous()
@@ -507,8 +596,8 @@ def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     if dt == torch.bfloat16:
         out["img"] = _weight_image(w1, w2f)
     else:
-        out.update(w1=w1.to(dt).contiguous(), w2f=w2f.to(dt).contiguous(),
-                   w1T=w1.t().to(dt).contiguous(), w2fT=w2f.t().to(dt).contiguous())
+        src = _split_source(w1, w2f)
+        out.update(img=_f32_image(w1, w2f, "fwd", src), dup_img=_f32_image(w1, w2f, "dup", src))
     return out
 
 
@@ -516,14 +605,15 @@ def _train_fn():
     global _c_train
     if _c_train is None:
         _c_train = _lib_fn("ffn_ln", "lfs2_ffn_ln_train",
-                           [_P] * 9 + [_I] * 5 + [_F, _U, _F, _I, _P])
+                           [_P] * 7 + [_I] * 6 + [_F, _U, _F, _I, _P])
     return _c_train
 
 
 def _chain_fn():
     global _c_chain
     if _c_chain is None:
-        _c_chain = _lib_fn("ffn_ln", "lfs2_ffn_ln_chain", [_P] * 11 + [_I] * 5 + [_F, _U, _F, _P])
+        _c_chain = _lib_fn("ffn_ln", "lfs2_ffn_ln_chain",
+                           [_P] * 11 + [_I] * 6 + [_F, _U, _F, _I, _P])
     return _c_chain
 
 
@@ -531,20 +621,8 @@ def _bwd_fn():
     global _c_bwd
     if _c_bwd is None:
         _c_bwd = _lib_fn("ffn_ln_train_bwd", "lfs2_ffn_ln_train_bwd",
-                         [_P] * 16 + [_I] * 5 + [_F, _U, _F, _P])
+                         [_P] * 16 + [_I] * 6 + [_F, _U, _F, _I, _P])
     return _c_bwd
-
-
-def _bwd_bf16_fn():
-    global _c_bwd_bf16
-    if _c_bwd_bf16 is None:
-        _c_bwd_bf16 = _lib_fn("ffn_ln_train_bwd", "lfs2_ffn_ln_train_bwd_bf16",
-                              [_P] * 16 + [_I] * 5 + [_F, _U, _F, _P])
-    return _c_bwd_bf16
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
@@ -558,12 +636,12 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
     w = _kernel_layouts(p, z.dtype) if layouts is None else layouts
     stream = kernel_stream(z, seed, *w.values())
     B, T, C = z.shape
+    rows = ffn_plan(C, F, k, B, T, z.dtype, "train")[0].rows
     out = torch.empty_like(z)
     lib, fn = _train_fn()
-    rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), _ptr(w.get("w1")),
-            w["b1"].data_ptr(), _ptr(w.get("w2f")), w["lnp"].data_ptr(), _ptr(w.get("img")),
-            seed.data_ptr(), B, T, C, F, k, eps, keep_threshold(rate), 1.0 / (1.0 - rate),
-            build.DTYPE_CODES[z.dtype], stream)
+    rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), w["b1"].data_ptr(),
+            w["lnp"].data_ptr(), w["img"].data_ptr(), seed.data_ptr(), B, T, C, F, k, rows,
+            eps, keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln_train")
     ffn_ln_train.launches += 1
     return out
@@ -572,11 +650,12 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
 def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
                      rate: float, eps: float = 1e-5,
                      layouts: Optional[Dict[str, torch.Tensor]] = None):
-    """Launch the backward (CUDA tensors only): in bf16 the chain
+    """Launch the backward (CUDA tensors only): the chain
     (``csrc/ffn_ln.cu``), then the dup and dt1 passes
-    (``csrc/ffn_ln_train_bwd.cu``), through (B, T, C) scratch h0, dres, dff
-    and dacc; in f32 the one recompute-based CUDA-core kernel. Returns
-    ``dz`` and the f32 gradients of the ten entries of ``p``, in order."""
+    (``csrc/ffn_ln_train_bwd.cu``), through (B, T, C) scratch h0, dff (the
+    working dtype), dres and dacc (f32), each launch sized by ``ffn_plan``.
+    Returns ``dz`` and the f32 gradients of the ten entries of ``p``, in
+    order."""
     k, F = p[0].shape[0], p[2].shape[1]
     _check_train(z, k, F)
     w = _kernel_layouts(p, z.dtype) if layouts is None else layouts
@@ -590,29 +669,23 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=z.device)
     dwd, dw1, dw2f, db1, dvec = torch.split(grads, sizes)
     thr, ik = keep_threshold(rate), 1.0 / (1.0 - rate)
-    if z.dtype == torch.bfloat16:
-        h0, dff = torch.empty_like(z), torch.empty_like(z)
-        dres = torch.empty(B, T, C, dtype=torch.float32, device=z.device)
-        dacc = torch.empty_like(dres)
-        lib, fn = _chain_fn()
-        rc = fn(z.data_ptr(), dout.data_ptr(), w["wd"].data_ptr(), w["img"].data_ptr(),
-                w["b1"].data_ptr(), w["lnp"].data_ptr(), seed.data_ptr(), h0.data_ptr(),
-                dres.data_ptr(), dff.data_ptr(), dvec.data_ptr(), B, T, C, F, k, eps, thr, ik,
-                stream)
-        build.check(lib, rc, "ffn_ln_train_bwd (chain)")
-        lib, fn = _bwd_bf16_fn()
-        rc = fn(z.data_ptr(), dres.data_ptr(), h0.data_ptr(), dff.data_ptr(),
-                w["wd"].data_ptr(), w["img"].data_ptr(), w["b1"].data_ptr(),
-                w["lnp"].data_ptr(), seed.data_ptr(), dacc.data_ptr(), dz.data_ptr(),
-                dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(), db1.data_ptr(),
-                dvec.data_ptr(), B, T, C, F, k, eps, thr, ik, stream)
-    else:
-        lib, fn = _bwd_fn()
-        rc = fn(z.data_ptr(), dout.data_ptr(), w["wd"].data_ptr(), w["w1"].data_ptr(),
-                w["w1T"].data_ptr(), w["b1"].data_ptr(), w["w2f"].data_ptr(),
-                w["w2fT"].data_ptr(), w["lnp"].data_ptr(), seed.data_ptr(),
-                dz.data_ptr(), dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(),
-                db1.data_ptr(), dvec.data_ptr(), B, T, C, F, k, eps, thr, ik, stream)
+    code = build.DTYPE_CODES[z.dtype]
+    chain, dup, _ = ffn_plan(C, F, k, B, T, z.dtype, "bwd")
+    h0, dff = torch.empty_like(z), torch.empty_like(z)
+    dres = torch.empty(B, T, C, dtype=torch.float32, device=z.device)
+    dacc = torch.empty_like(dres)
+    lib, fn = _chain_fn()
+    rc = fn(z.data_ptr(), dout.data_ptr(), w["wd"].data_ptr(), w["img"].data_ptr(),
+            w["b1"].data_ptr(), w["lnp"].data_ptr(), seed.data_ptr(), h0.data_ptr(),
+            dres.data_ptr(), dff.data_ptr(), dvec.data_ptr(), B, T, C, F, k, chain.rows, eps,
+            thr, ik, code, stream)
+    build.check(lib, rc, "ffn_ln_train_bwd (chain)")
+    lib, fn = _bwd_fn()
+    rc = fn(z.data_ptr(), dres.data_ptr(), h0.data_ptr(), dff.data_ptr(),
+            w["wd"].data_ptr(), w.get("dup_img", w["img"]).data_ptr(), w["b1"].data_ptr(),
+            w["lnp"].data_ptr(), seed.data_ptr(), dacc.data_ptr(), dz.data_ptr(),
+            dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(), db1.data_ptr(),
+            dvec.data_ptr(), B, T, C, F, k, dup.rows, eps, thr, ik, code, stream)
     build.check(lib, rc, "ffn_ln_train_bwd")
     ffn_ln_train_bwd.launches += 1
     dg1, dbe1, dg2, dbe2, dbd, db2f = dvec.view(6, C)
@@ -625,8 +698,7 @@ def last_launches() -> Dict[str, object]:
     accepted, each ``{"grid", "smem_bytes", "rows"}``: under "ffn_ln" the
     forward library's latest (a forward, a serving call or the backward's
     chain), under "ffn_ln_train_bwd" the backward library's latest call
-    (one launch in f32; the dup and dt1 passes in bf16). Zeros before the
-    first."""
+    (the dup and dt1 passes). Zeros before the first."""
     def rec(r):
         return {"grid": (r[0], r[1], r[2]), "smem_bytes": r[3], "rows": r[4]}
 

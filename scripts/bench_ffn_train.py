@@ -3,7 +3,7 @@
 step's shapes, and split one profiled training step by kernel family.
 
     python3 scripts/bench_ffn_train.py [--tree DIR] [--label NAME] [--no-step] [--f32]
-        [--defines MACRO ...] [--phases]
+        [--f32-step] [--defines MACRO ...] [--phases]
 
 ``--tree`` imports ``lightningfastspeech2_tpu_torch`` from another checkout
 (for example an unpacked parent commit), so that two versions can be timed
@@ -15,7 +15,15 @@ B=8, P=256, k = 5, 25, 13, 9; decoder B=8, T=2048, k = 17, 21, 9, 13;
 C=256, F=1024, dropout rate 0.1) through ``ffn_ln_train_fwd`` and
 ``ffn_ln_train_bwd`` in bf16 (and in f32 with ``--f32``), and the serving
 ``ffn_ln`` at the served batch's decoder shape (8, 512, 256), k=17, bf16.
-Times are CUDA-event means after a warm-up, L2 warm.
+Times are CUDA-event means after a warm-up, L2 warm. f32 rows carry their
+bound at split TF32's 165 TFLOP/s (three TF32 products a product) with the
+CUDA cores' 67 beside it, and the time of their products alone as f32
+``torch.matmul`` calls with TF32 off (a chain of library calls, a
+yardstick).
+
+``--f32-step`` profiles, instead of the bf16 step, one f32 step of the
+flagship at ``chip_smoke.py`` phase 9's shape (B=2, P=128, T=1024, dropout
+rates 0, l1 mel loss) after one warm-up step, split the same way.
 
 ``--defines`` builds the kernels with extra macros (``LFS2_KERNEL_DEFINES``,
 kernels/build.py): ``LFS2_FFN_NO_WGRAD_ATOMICS`` drops the backward's
@@ -41,18 +49,36 @@ ENC_K, DEC_K = (5, 25, 13, 9), (17, 21, 9, 13)
 B, P, T, C, F, RATE = 8, 256, 2048, 256, 1024, 0.1
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# kernel-name patterns of both designs, by the wrapper whose launch they
-# belong to (bf16 ffn_ln_kernel<CP, false> is the forward, <CP, true> the
-# backward's chain)
+PEAK_F32_ACCURATE = 495e12 / 3  # split TF32: three TF32 products a product
+# kernel-name patterns of every design this script may time (a parent
+# checkout's too), by the wrapper whose launch they belong to (bf16
+# ffn_ln_kernel<CP, false> is the forward, <CP, true> the backward's chain;
+# f32 ffn_tf32_kernel<C, MT, false> and <C, MT, true> likewise)
 FAMILIES = {
-    "ffn_ln_train": (r"\bffn_ln_kernel<\d+, false>", r"\bffn_ln_f32_kernel<float, \d+, true>",
+    "ffn_ln_train": (r"\bffn_ln_kernel<\d+, false>", r"\bffn_tf32_kernel<\d+, \d+, false>",
+                     r"\bffn_ln_f32_kernel<float, \d+, true>",
                      r"\bffn_ln_kernel<__nv_bfloat16, \d+, true>"),
-    "ffn_ln_train_bwd": (r"\bffn_ln_kernel<\d+, true>", r"\bffn_dup_kernel\b", r"\bffn_dt1_kernel\b",
-                         r"\bffn_bwd_kernel\b"),
+    "ffn_ln_train_bwd": (r"\bffn_ln_kernel<\d+, true>", r"\bffn_tf32_kernel<\d+, \d+, true>",
+                         r"\bffn_dup_kernel\b", r"\bffn_dup_tf32_kernel\b",
+                         r"\bffn_dt1_kernel\b", r"\bffn_bwd_kernel\b"),
     "flash_attention": (r"\bfwd_sm90_kernel\b", r"\bfwd_kernel\b"),
     "flash_attention_bwd": (r"\bdq_sm90_kernel\b", r"\bdkv_sm90_kernel\b", r"\bdq_kernel\b",
                             r"\bdkv_kernel\b"),
 }
+
+
+def smoke():
+    """This checkout's chip_smoke.py as a module, loaded by path (a --tree
+    checkout has its own on sys.path first)."""
+    import importlib.util
+
+    name = "bench_chip_smoke"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, Path(__file__).resolve().parent.parent / "chip_smoke.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
 
 
 def emit(obj) -> None:
@@ -76,8 +102,8 @@ def cuda_ms(fn, min_total_ms: float = 200.0, max_iters: int = 50) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(flops: float, nbytes: float, dtype) -> float:
-    return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+def bound_ms(flops: float, nbytes: float, dtype, peak: float = None) -> float:
+    return max(nbytes / PEAK_BYTES_PER_S, flops / (peak or PEAK_FLOPS[dtype])) * 1e3
 
 
 def block(ffn_layers, k, dtype, g, dev):
@@ -103,6 +129,7 @@ def shapes(dev, dtypes) -> None:
     from lightningfastspeech2_tpu_torch.models import layers
     from lightningfastspeech2_tpu_torch.ops import ffn
 
+    ffn_products_ms = smoke().ffn_products_ms
     g = torch.Generator().manual_seed(1)
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     for dtype in dtypes:
@@ -126,10 +153,15 @@ def shapes(dev, dtypes) -> None:
                 row["bwd_launches"] = launches(ffn)
                 if kw:
                     row["layouts_ms"] = cuda_ms(lambda: ffn._kernel_layouts(p, dtype))
-                row["fwd_bound_ms"] = bound_ms(B * rows * (2 * k * C + 4 * C * F),
-                                               2 * nbytes(z) + wb, dtype)
-                row["bwd_bound_ms"] = bound_ms(B * rows * (6 * k * C + 12 * C * F),
-                                               3 * nbytes(z) + 2 * wb, dtype)
+                work = {"fwd": (B * rows * (2 * k * C + 4 * C * F), 2 * nbytes(z) + wb),
+                        "bwd": (B * rows * (6 * k * C + 12 * C * F), 3 * nbytes(z) + 2 * wb)}
+                for part, wk in work.items():
+                    if dtype == torch.float32:
+                        row[f"{part}_bound_ms"] = bound_ms(*wk, dtype, PEAK_F32_ACCURATE)
+                        row[f"{part}_bound_ms_cuda_cores"] = bound_ms(*wk, dtype)
+                        row[f"{part}_products_matmul_ms"] = ffn_products_ms(B, rows, C, F, dev, part)
+                    else:
+                        row[f"{part}_bound_ms"] = bound_ms(*wk, dtype)
                 emit({"phase": "ffn_train_shape", **row})
     blk = block(layers, 17, torch.bfloat16, g, dev)
     w = blk.ffn_weights
@@ -144,21 +176,21 @@ def shapes(dev, dtypes) -> None:
     emit({"phase": "ffn_serve_shape", **row})
 
 
-def step_split(dev) -> None:
+def step_split(dev, f32: bool = False) -> None:
     """The flagship in bf16 at B=8, P=256, T=2048 (l1 mel loss, config
-    dropout rates): two warm-up steps, then one under torch.profiler,
-    split by kernel family."""
+    dropout rates), or with ``f32`` in f32 at B=2, P=128, T=1024 (rates 0):
+    warm-up steps, then one under torch.profiler, split by kernel family."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from chip_smoke import train_batch, train_config
+    train_batch, train_config = smoke().train_batch, smoke().train_config
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
 
-    cfg = train_config()
-    batch = train_batch(cfg)
-    model = build_fastspeech2(cfg.model, dtype=torch.bfloat16, seed=0)
+    shape = (2, 128, 1024) if f32 else (B, P, T)
+    cfg = train_config(rates=not f32, B_P_T=shape)
+    batch = train_batch(cfg, shape)
+    model = build_fastspeech2(cfg.model, dtype=torch.float32 if f32 else torch.bfloat16, seed=0)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg)
     gen = torch.Generator(device=model.device).manual_seed(5)
@@ -184,7 +216,8 @@ def step_split(dev) -> None:
             if any(re.search(x, e.key) for x in pats):
                 out[fam] += e.self_device_time_total
                 counts[fam] += e.count
-    emit({"phase": "train_step_split", "device_ms": total / 1e3,
+    emit({"phase": "train_step_split", "at": f"{'f32' if f32 else 'bf16'} B, P, T = {shape}",
+          "device_ms": total / 1e3,
           **{f"{f}_ms": v / 1e3 for f, v in out.items()},
           **{f"{f}_kernels": v for f, v in counts.items()}, "ffn_kernels": ffn_rows})
 
@@ -241,6 +274,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--no-step", action="store_true")
     ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--f32-step", action="store_true")
     ap.add_argument("--defines", nargs="*", default=[])
     ap.add_argument("--phases", action="store_true")
     a = ap.parse_args()
@@ -270,7 +304,7 @@ def main() -> int:
     dtypes = (torch.bfloat16, torch.float32) if a.f32 else (torch.bfloat16,)
     shapes(dev, dtypes)
     if not a.no_step:
-        step_split(dev)
+        step_split(dev, f32=a.f32_step)
     return 0
 
 

@@ -1,10 +1,15 @@
-"""The FFN kernels' tile plan (ops/ffn.py ffn_plan) and weight image, on the
-CPU and without JAX: every flagship FFN launch (the 4 encoder and 4 decoder
-blocks of a training step, and the serving shape) covers T with blocks that
-each own rows and fits a block's shared memory, in both dtypes;
-ffn_train_fits accepts what the kernels take; the bf16 kernels' weight
-image puts every W1 and W2f element at the byte the descriptors read."""
+"""The FFN kernels' tile plan (ops/ffn.py ffn_plan) and weight images, on
+the CPU and without JAX: every flagship FFN launch (the 4 encoder and 4
+decoder blocks of a training step, and the serving shape) covers T with
+blocks that each own rows and fits a block's shared memory, in both dtypes;
+the f32 route's launches own every row they compute at the flagship's and
+the f32 reference step's shapes and take 64-row blocks where those fill the
+card; ffn_train_fits accepts what the kernels take; the bf16 kernels'
+weight image puts every W1 and W2f element at the byte the descriptors
+read, and the f32 kernels' split pieces put every element where the
+fragment loads read it, hi + lo within 2^-22 of the weight."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,9 +28,9 @@ SHAPES = ([(8, 256, k, m) for k in (5, 25, 13, 9) for m in ("train", "bwd")]
 def test_flagship_launches_cover_t_and_fit_a_block(B, T, k, mode, dtype):
     plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
     want = {("bf16", "bwd"): ["ffn_ln_kernel", "ffn_dup_kernel", "ffn_dt1_kernel"],
-            ("f32", "bwd"): ["ffn_bwd_kernel"]}.get(
+            ("f32", "bwd"): ["ffn_tf32_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"]}.get(
         ("bf16" if dtype == torch.bfloat16 else "f32", mode),
-        ["ffn_ln_kernel" if dtype == torch.bfloat16 else "ffn_ln_f32_kernel"])
+        ["ffn_ln_kernel" if dtype == torch.bfloat16 else "ffn_tf32_kernel"])
     assert [p.kernel for p in plan] == want
     for p in plan:
         assert p.rows >= 1
@@ -38,11 +43,49 @@ def test_flagship_launches_cover_t_and_fit_a_block(B, T, k, mode, dtype):
         # the wgmma launches: 128-row blocks of two warpgroups, 64-column chunks
         assert all((p.rows, p.fchunk, p.threads) == (128, 64, 256)
                    for p in plan if p.kernel != "ffn_dt1_kernel")
+    else:
+        # the split-TF32 launches: 64- or 32-row blocks of eight warps, F in
+        # chunks of 32 (forward, chain) and 16 (dup)
+        assert all(p.rows in (32, 64) and p.threads == 256 for p in plan
+                   if p.kernel != "ffn_dt1_kernel")
+        assert [p.fchunk for p in plan] == [32, 16, 0][:len(plan)]
+
+
+# phase 9's f32 step of chip_smoke.py: B = 2, P = 128, T = 1024
+F32_SHAPES = ([(B, P, k) for B, P in ((8, 256), (2, 128)) for k in (5, 25, 13, 9)]
+              + [(B, T, k) for B, T in ((8, 2048), (2, 1024)) for k in (17, 21, 9, 13)])
+
+
+@pytest.mark.parametrize("B,T,k", F32_SHAPES)
+def test_f32_launches_own_every_row_they_compute(B, T, k):
+    # the chain and the dup pass form their products on the block's own
+    # rows only (no halo row is computed twice), the grids tile T exactly
+    # once, and every launch fits a block's shared memory and, for the
+    # forward, the t1 window of its piece buffers
+    fwd, = ffn.ffn_plan(C, F, k, B, T, torch.float32, "train")
+    chain, dup, dt1 = ffn.ffn_plan(C, F, k, B, T, torch.float32, "bwd")
+    assert chain == fwd
+    for p in (chain, dup, dt1):
+        assert p.grid[0] == -(-T // p.rows) and p.grid[1:] == (B, 1)
+        assert p.smem_bytes <= ffn.SMEM_LIMIT
+    assert dup.rows == chain.rows and dup.grid == chain.grid
+    assert chain.rows + k - 1 <= 2 * 32 * 8 // 4   # the window over two 32-column pieces
+    assert ffn.ffn_train_fits(C, F, k, torch.float32)
+
+
+@pytest.mark.parametrize("B,T,rows", [(8, 2048, 64), (8, 256, 32), (2, 1024, 32), (2, 128, 32),
+                                      (16, 2048, 64), (3, 300, 32)])
+def test_f32_rows_fill_the_card(B, T, rows):
+    # 64-row blocks where they fill as many waves of the card's 132 SMs as
+    # 32-row ones (half the weight streaming a row), 32 where 64 would leave
+    # SMs idle (the encoder's 2048 rows: 32 blocks of 64 against 64 of 32)
+    assert ffn.ffn_plan(C, F, 9, B, T, torch.float32, "serve")[0].rows == rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_fits_takes_what_the_kernels_take(dtype):
-    kmax = 63 if dtype == torch.bfloat16 else 31
+    # f32: the dt1 tile (64 + k - 1 rows of f32 dacc and t1) at C = 256
+    kmax = 63 if dtype == torch.bfloat16 else 50
     for c in (32, 64, 128, 256):
         for k in (1, 5, 25, kmax):
             assert ffn.ffn_train_fits(c, F, k, dtype), (c, k)
@@ -77,3 +120,51 @@ def test_weight_image_puts_each_element_where_the_descriptors_read(C_, F_):
         want2[:, :C_] = w2f[64 * i:64 * i + 64]
         assert torch.equal(img[i][w1_at], want1)
         assert torch.equal(img[i][w2_at], want2)
+
+
+@pytest.mark.parametrize("C_,F_,which", [(32, 128, "fwd"), (64, 256, "fwd"), (32, 128, "dup"),
+                                         (128, 128, "dup")])
+def test_f32_pieces_lie_where_the_fragment_loads_read(C_, F_, which):
+    # per chunk of fc F columns, pieces (K x N): fwd W1 (C x fc), W2f (fc x
+    # C); dup W1 (C x fc), W2f^T (C x fc), W1^T (fc x C). Lane 4 g + t of
+    # k-step s and n8 tile j reads one float4 at ((s N / 8 + j) 32 + lane):
+    # hi of rows 8 s + 2 t and 8 s + 2 t + 1 at column 8 j + g, then lo
+    g = torch.Generator().manual_seed(C_ + F_)
+    w1 = torch.randn(C_, F_, generator=g)
+    w2f = torch.randn(F_, C_, generator=g)
+    img = ffn._f32_image(w1, w2f, which)
+    fc = 32 if which == "fwd" else 16
+    n_pieces = 2 if which == "fwd" else 3
+    assert img.shape == (F_ // fc, n_pieces, C_ * fc * 2) and img.dtype == torch.float32
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        ci = int(rng.integers(F_ // fc))
+        m = int(rng.integers(n_pieces))
+        w1c, w2c = w1[:, ci * fc:(ci + 1) * fc], w2f[ci * fc:(ci + 1) * fc]
+        mat = [w1c, w2c if which == "fwd" else w2c.t(), w1c.t()][m]
+        K, N = mat.shape
+        s, j = int(rng.integers(K // 8)), int(rng.integers(N // 8))
+        gg, t = int(rng.integers(8)), int(rng.integers(4))
+        at = ((s * (N // 8) + j) * 32 + 4 * gg + t) * 4
+        quad = img[ci, m, at:at + 4]
+        for e in range(2):
+            x = mat[8 * s + 2 * t + e, 8 * j + gg]
+            hi, lo = quad[e], quad[2 + e]
+            assert hi == ffn.tf32(x.reshape(1))[0] and lo == ffn.tf32((x - hi).reshape(1))[0]
+
+
+@pytest.mark.parametrize("which", ["fwd", "dup"])
+def test_f32_pieces_keep_f32_digits(which):
+    # hi + lo gives back each f32 weight to 2^-22 of its size, and both
+    # halves are TF32 values (their low 13 mantissa bits zero)
+    g = torch.Generator().manual_seed(7)
+    w1 = torch.randn(256, 1024, generator=g) * 0.05
+    w2f = torch.randn(1024, 256, generator=g) * 0.05
+    img = ffn._f32_image(w1, w2f, which).reshape(-1, 4)
+    hi, lo = img[:, :2].reshape(-1), img[:, 2:].reshape(-1)
+    assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+    x = hi.double() + lo.double()
+    assert x.numel() == (3 if which == "dup" else 2) * w1.numel()
+    # every weight appears (in its pieces' order): compare the sorted values
+    src = torch.cat([w1.reshape(-1), w2f.reshape(-1)] + ([w1.reshape(-1)] if which == "dup" else []))
+    assert torch.allclose(x.sort().values, src.double().sort().values, rtol=2.0 ** -22, atol=0)

@@ -235,21 +235,22 @@ def _relu_input(z, p, eps=1e-5):
                 h0.abs().double() @ w1r.abs().double())
 
 
-def _near_kink(exact, mag, b1):
+def _near_kink(exact, mag, b1, margin=KINK_MARGIN):
     b = b1.double()
-    return (exact + b).abs() <= KINK_MARGIN * (mag + b.abs())
+    return (exact + b).abs() <= margin * (mag + b.abs())
 
 
-def _b1_off_the_kink(z, p):
-    """b1 with every F column that holds a ReLU input within ``KINK_MARGIN``
-    of zero moved by the least multiple of 0.01 that clears the column, so
-    that f32 arithmetic fixes every unit's branch."""
+def _b1_off_the_kink(z, p, margin=KINK_MARGIN):
+    """b1 with every F column that holds a ReLU input within ``margin``
+    (``KINK_MARGIN`` unless given) of zero moved by the least multiple of
+    0.01 that clears the column, so that f32 arithmetic fixes every unit's
+    branch."""
     _, exact, mag = _relu_input(z, p)
     F = exact.shape[-1]
     exact, mag = exact.reshape(-1, F), mag.reshape(-1, F)
     b1 = p[3].detach().clone()
     for step in range(1, 100):
-        bad = _near_kink(exact, mag, b1).any(0)
+        bad = _near_kink(exact, mag, b1, margin).any(0)
         if not bad.any():
             return b1
         b1 = torch.where(bad, p[3].detach() + 0.01 * step, b1)
@@ -381,6 +382,92 @@ def test_ffn_ln_train_backward_dz_is_deterministic(cuda_card):
 
 
 @pytest.mark.gpu
+def test_ffn_ln_train_backward_dz_is_deterministic_at_the_decoder_shape(cuda_card):
+    # the f32 route at the flagship decoder's (8, 2048, 256), k = 21 (64-row
+    # blocks): dacc sums over F in one block's fixed order and dz takes no
+    # atomics, so dz agrees bit for bit
+    params = [t.detach().to(cuda_card).clone()
+              for t in tffn.ffn_train_params(**ffn_modules(ffn_params(3, 256, 1024, 21)))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    g = torch.Generator(device=cuda_card).manual_seed(2)
+    z, dout = (torch.randn(8, 2048, 256, device=cuda_card, generator=g) for _ in range(2))
+    assert tffn.ffn_plan(256, 1024, 21, 8, 2048, torch.float32, "bwd")[1].rows == 64
+    dz = [tffn.ffn_ln_train_bwd(dout, z, params, seed, 0.1)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(d, dz[0]) for d in dz)
+
+
+def _ffn_train_f64(z, p, seed, rate, operand=lambda t: t, eps=1e-5):
+    """The training FFN half as a function, in the dtype of z (f64: the
+    function itself), every product operand passed through ``operand``
+    first (in f32 with ``tf32_round``: one TF32 product a product), with
+    ffn_ln_train_plain's keep masks; differentiable."""
+    wd, bd, w1, b1, w2f, b2f, g1, be1, g2, be2 = (t.to(z.dtype) for t in p)
+    B, T, C = z.shape
+    F = w1.shape[1]
+    ik = 1.0 / (1.0 - rate)
+    seeds = tffn.batch_seeds(seed, B)
+    gpos = torch.arange(T, device=z.device)
+
+    def ln(x, gm, bt):
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        return (x - mean) / torch.sqrt(var + eps) * gm + bt
+
+    t1 = ln(z, g1, be1)
+    h0 = depthwise_conv1d(t1, wd.t().unsqueeze(1), bd)
+    up = torch.relu(operand(h0) @ operand(w1) + b1)
+    up = torch.where(tffn.ffn_keep_mask(gpos, F, rate, seeds, 1), up * ik, 0.0)
+    ff = operand(up) @ operand(w2f) + b2f
+    ff = torch.where(tffn.ffn_keep_mask(gpos, C, rate, seeds, 2), ff * ik, 0.0)
+    return ln(t1 + ff, g2, be2)
+
+
+@pytest.mark.gpu
+def test_ffn_ln_train_f32_kernels_hold_an_f64_reference(cuda_card):
+    # Split-TF32 products keep f32's digits: at the flagship decoder's shape
+    # (8, 2048, 256), k = 21, F = 1024, rate 0.1, the f32 kernels' output
+    # lies within 1e-5 of max |ref| of the function computed in f64 (one
+    # TF32 product a product misses that: tests/test_torch_tf32_split.py
+    # shows the up and down products alone), and every gradient within the
+    # f32 card tolerance of the f64 gradient (2e-4 of its largest element,
+    # the bulk within 2e-5). b1 is moved off the ReLU kink first, as in
+    # test_ffn_ln_train_kernels_match_plain, with a margin of 2^-18 of the
+    # products' magnitude sum: the kernel's ReLU inputs lie within about
+    # 2^-20 of it of the exact value (split TF32 keeps 2^-22 a product, and
+    # a 64-term run on the tensor cores truncates at most eight sums of
+    # 2^-23), while KINK_MARGIN (2^-14, for two f32 sums of C products in
+    # any order) leaves no b1 clear at 16384 rows a column.
+    B, T, C_, F_, k, rate = 8, 2048, 256, 1024, 21, 0.1
+    params = [t.detach().to(cuda_card).clone()
+              for t in tffn.ffn_train_params(**ffn_modules(ffn_params(3, C_, F_, k)))]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    g = torch.Generator(device=cuda_card).manual_seed(21)
+    z, dout = (torch.randn(B, T, C_, device=cuda_card, generator=g) for _ in range(2))
+    params[3] = _b1_off_the_kink(z, params, margin=2.0 ** -18)
+    params = [t.requires_grad_(True) for t in params]
+    out, *grads = _ffn_train_grads(tffn.ffn_ln_train, z, params, seed, rate, dout)
+    torch.cuda.synchronize()
+    p64 = [t.detach().double().requires_grad_(True) for t in params]
+    ref, *ref_grads = _ffn_train_grads(lambda zz, pp, s, r: _ffn_train_f64(zz, pp, s, r),
+                                       z.double(), p64, seed, rate, dout.double())
+    top = ref.abs().max().item()
+    with torch.no_grad():
+        one_pass = _ffn_train_f64(z, [t.detach() for t in params], seed, rate,
+                                  operand=tf32_round)
+    errs = {"out": (out.double() - ref).abs().max().item() / top,
+            "one_pass_out": (one_pass.double() - ref).abs().max().item() / top}
+    for name, got, want in zip(_FFN_GRADS[1:], grads, ref_grads):
+        d = (got.double() - want).abs()
+        w = want.abs().max().item()
+        errs[name] = (d.max().item() / w, d.mean().item() / w)
+    print("errors relative to the largest element:", errs)
+    assert errs["out"] <= 1e-5 and errs["one_pass_out"] > 1e-5, errs
+    for name, got, want in zip(_FFN_GRADS[1:], grads, ref_grads):
+        _bulk_close(got.double(), want, 2e-4, 2e-5, name)
+
+
+@pytest.mark.gpu
 def test_ffn_ln_train_backward_dz_is_deterministic_bf16(cuda_card):
     # the bf16 route: dacc sums over F in one block's fixed order and the
     # depthwise/LN1 backward takes no atomics, so dz agrees bit for bit
@@ -423,11 +510,8 @@ def test_ffn_launch_record_matches_the_plan(cuda_card, dtype):
     tffn.ffn_ln_train_bwd(torch.randn_like(z), z, params, seed, 0.1)
     torch.cuda.synchronize()
     rec = tffn.last_launches()
-    want = plan("bwd")
-    if dtype == torch.bfloat16:  # the chain (ffn_ln.cu), then the dup and dt1 passes
-        assert [rec["ffn_ln"], *rec["ffn_ln_train_bwd"]] == want
-    else:
-        assert rec["ffn_ln_train_bwd"] == want
+    # the chain (ffn_ln.cu), then the dup and dt1 passes, in either dtype
+    assert [rec["ffn_ln"], *rec["ffn_ln_train_bwd"]] == plan("bwd")
 
 
 @contextlib.contextmanager

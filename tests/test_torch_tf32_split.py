@@ -8,7 +8,10 @@ meet and one-pass TF32 products do not; and one stage-2 frame of the LVC
 product of csrc/lvc_stack.cu's f32 route, held to that kernel's f32 card
 tolerance the same way; and one product of a stage-0 HiFi-GAN resblock
 conv as csrc/resblock.cu's f32 route forms it, held to that kernel's f32
-card tolerance. Imports no JAX."""
+card tolerance; and the FFN half's up product (64 rows, K = C = 256) and
+down product (K = F = 1024, summed 64 k indices at a time in f32) as the
+f32 route of csrc/ffn_ln.cu forms them, held to ffn_ln_train's f32 card
+tolerance. Imports no JAX."""
 
 import math
 
@@ -145,3 +148,39 @@ def test_split_tf32_resblock_conv_product_holds_the_f32_card_tolerance(resblock_
     assert (err <= 2e-5 * top) == split, (err, top)
     if split:
         assert err <= 2e-6 * top
+
+
+@pytest.fixture(scope="module")
+def ffn_operands():
+    """One 64-row block of the flagship FFN half's two products: h0 (64, C)
+    and W1 (C, F) drawn at unit and 1 / sqrt(C) scale, and the down
+    product's up = relu(h0 W1) with W2f (F, C) at 1 / sqrt(F)."""
+    rng = np.random.default_rng(256)
+    rows, C, F = 64, 256, 1024
+    h0 = torch.from_numpy(rng.standard_normal((rows, C)).astype(np.float32))
+    w1 = torch.from_numpy((rng.standard_normal((C, F)) / np.sqrt(C)).astype(np.float32))
+    w2f = torch.from_numpy((rng.standard_normal((F, C)) / np.sqrt(F)).astype(np.float32))
+    up = torch.relu(h0.double() @ w1.double()).float()
+    return {"up": (h0, w1), "down": (up, w2f)}
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_pass"])
+@pytest.mark.parametrize("product", ["up", "down"])
+def test_split_tf32_ffn_products_hold_the_f32_card_tolerance(ffn_operands, product, split):
+    # test_ffn_ln_train_kernels_match_plain's f32 tolerance: 2e-4 of the
+    # largest element, the mean within 2e-5 of it. The down product sums F
+    # = 1024 terms as the kernel does, 64 at a time, the runs added in f32.
+    # Split products meet it by two orders of magnitude, one TF32 product a
+    # product does not.
+    a, b = ffn_operands[product]
+    want = a.double() @ b.double()
+    if product == "down":
+        got = sum(tf32_matmul(a[:, i:i + 64], b[i:i + 64], split) for i in range(0, b.shape[0], 64))
+    else:
+        got = tf32_matmul(a, b, split)
+    top = want.abs().max().item()
+    err = (got.double() - want).abs()
+    held = err.max().item() <= 2e-4 * top and err.mean().item() <= 2e-5 * top
+    assert held == split, (err.max().item(), err.mean().item(), top)
+    if split:
+        assert err.max().item() <= 2e-6 * top

@@ -15,7 +15,10 @@ Phases, each printed as one JSON line:
    split-TF32 ``resblock`` kernels (f32 at C = 32, 64, 128 with x in
    shared memory or in L2, and C = 256 in clusters of 4) and the 24
    split-TF32 FFN kernels (``ffn_tf32_kernel`` and ``ffn_dup_tf32_kernel``
-   at every C and both row counts) must hold HMMA and spill nothing.
+   at every C and both row counts) must hold HMMA and spill nothing; the
+   ten soft-DTW kernels (``soft_dtw_wave_fwd`` and ``soft_dtw_wave_bwd`` at
+   each rows-a-thread and chunk length) must spill nothing and hold no
+   local-memory access.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -78,7 +81,12 @@ Phases, each printed as one JSON line:
    FFN kernels' ms and launches.
 10. soft-DTW kernels: ``soft_dtw`` (forward and backward) at the mel loss's
     lattices (8 items x 8 chunks of 256 frames, D from 80 mel channels,
-    gamma 0.1) against the plain recurrence's value and autograd gradient;
+    gamma 0.1) against the plain recurrence's value and autograd gradient,
+    each kernel alone against its plain twin (the forward's residual of
+    softmin weights, the backward on the plain residual), each launch as
+    the library recorded it against ``ops/soft_dtw.py soft_dtw_plan``, with
+    the byte bound of the function's own bytes (D in, the residual out and
+    in, dD out);
     the length regulator's expand and segment-sum at the flagship's
     (8, 256, 256) bf16 -> 2048 frames against the gather (forward bit for
     bit), with the gather timed as the library yardstick.
@@ -246,6 +254,7 @@ def build_phase() -> None:
     (out / "ptxas.txt").write_text(
         "\n".join(f"=== {k}\n{v['ptxas']}" for k, v in report.items()))
     ffn_sass_phase(report)
+    soft_dtw_sass_phase(report)
 
 
 # the FFN sources' tensor-core kernels, by their mangled names
@@ -262,7 +271,8 @@ FFN_TF32 = re.compile(r"(ffn_tf32_kernel|ffn_dup_tf32_kernel)ILi(\d+)ELi(\d+)E(?
 
 def _sass_rows(name, report, pattern, key) -> dict:
     """Per kernel of library ``name`` matching ``pattern``: HGMMA and HMMA
-    counts in cuobjdump's SASS, ptxas's spill bytes and C7512 warnings."""
+    counts and local-memory instructions (LDL, STL) in cuobjdump's SASS,
+    ptxas's spill bytes and C7512 warnings."""
     from lightningfastspeech2_tpu_torch.kernels import build
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -274,6 +284,7 @@ def _sass_rows(name, report, pattern, key) -> dict:
         if m:
             rows[key(m)] = {"hgmma": len(re.findall(r"\bHGMMA", block)),
                             "hmma": len(re.findall(r"\bHMMA", block)),
+                            "local": len(re.findall(r"\b(?:LDL|STL)\b", block)),
                             "spill_bytes": 0, "serialised_wgmma": False}
     current = None
     for line in report[name]["ptxas"].splitlines():
@@ -325,6 +336,23 @@ def ffn_sass_phase(report) -> dict:
         raise RuntimeError(f"tensor-core kernels: {len(rows)} bf16 ffn, {len(f32_rows)} f32 "
                            f"ffn, {len(lvc_rows)} lvc_stack and {len(rb_rows)} f32 resblock "
                            f"found, off {bad}")
+    return rows
+
+
+# the soft-DTW kernels: soft_dtw_wave_fwd<K, P> and soft_dtw_wave_bwd<K, P>
+SOFT_DTW_WAVE = re.compile(r"soft_dtw_wave_(fwd|bwd)ILi(\d+)ELi(\d+)E")
+
+
+def soft_dtw_sass_phase(report) -> dict:
+    """Every soft-DTW kernel the library holds (the forward and backward at
+    each rows-a-thread and chunk length): fails unless ptxas reports no
+    spill and the SASS holds no local-memory access."""
+    rows = _sass_rows("soft_dtw", report, SOFT_DTW_WAVE,
+                      lambda m: f"soft_dtw_wave_{m.group(1)}<{m.group(2)}, {m.group(3)}>")
+    emit({"phase": "soft_dtw_sass", "kernels": rows})
+    bad = {k: r for k, r in rows.items() if r["spill_bytes"] or r["local"]}
+    if len(rows) != 10 or bad:
+        raise RuntimeError(f"soft_dtw kernels: {len(rows)} found, spilling or local {bad}")
     return rows
 
 
@@ -1163,7 +1191,7 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
                                 "ffn_dup_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"),
            "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
-           "soft_dtw": "soft_dtw_fwd_kernel", "soft_dtw_bwd": "soft_dtw_bwd_kernel",
+           "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
            "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
            "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
            "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
@@ -1430,7 +1458,9 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
 def _soft_dtw_case(dev, g) -> dict:
     """soft_dtw forward and backward at the mel loss's lattices: 8 items x 8
     chunks of 256 frames, D from 80 channels (a bf16 prediction against an
-    f32 target, as in the step), gamma 0.1."""
+    f32 target, as in the step), gamma 0.1; each kernel also alone against
+    its plain twin (the forward's residual, the backward on the plain
+    residual), and each launch against ``soft_dtw_plan``."""
     from lightningfastspeech2_tpu_torch.ops import soft_dtw as sd
 
     chunk, C, gamma = 256, 80, 0.1
@@ -1442,39 +1472,74 @@ def _soft_dtw_case(dev, g) -> dict:
     Dk = D.clone().requires_grad_(True)
     val = sd.soft_dtw_from_dist(Dk, gamma)
     (grad,) = torch.autograd.grad(val, Dk, up)
+    launch = sd.last_launch()
     Dp = D.clone().requires_grad_(True)
     ref = sd.soft_dtw_from_dist_plain(Dp, gamma)
     (ref_grad,) = torch.autograd.grad(ref, Dp, up, retain_graph=True)
+    # each kernel alone: the forward's residual against the plain forward on
+    # the lattice's cells, the backward on the plain residual against the
+    # plain backward
+    _, W = sd.soft_dtw_fwd(D, gamma)
+    _, W_ref = sd.soft_dtw_fwd_plain(D, gamma)
+    on = sd.residual_cells(chunk, chunk, dev)
+    w_err = (W - W_ref).abs()[:, on]
+    dD_alone = sd.soft_dtw_bwd(W_ref, up, chunk)
+    dD_plain = sd.soft_dtw_bwd_plain(W_ref, up, chunk)
     torch.cuda.synchronize()
+    plan = sd.soft_dtw_plan(L, chunk, chunk)
     # f32 on both sides with the same softmin: the value to 1e-5 relative,
-    # dD (alignment weights in [0, 1]) to 1e-4 of its largest element
+    # dD (alignment weights in [0, 1]) to 1e-4 of its largest element; the
+    # residual (weights in [0, 1]) differs where ex2 / lg2 / rcp.approx
+    # against exp2 / log2 / division move R by an ulp in a near tie, by at
+    # most ulp(R) / (4 gamma): 1e-3 at most, 1e-7 on average; the backward
+    # alone sums the same products in the same order, one of them fused:
+    # 1e-5 of its largest
     v_err = ((val - ref).abs() / ref.abs()).max().item()
     g_err, g_tol = (grad - ref_grad).abs().max().item(), 1e-4 * ref_grad.abs().max().item()
+    alone_err = (dD_alone - dD_plain).abs().max().item()
+    alone_tol = 1e-5 * dD_plain.abs().max().item()
     at = f"D ({L}, {chunk}, {chunk}) f32 from {C} channels, gamma {gamma}"
-    _, R = sd.soft_dtw_fwd(D, gamma)
     cells = L * chunk * chunk
-    # each input read once, each output written once: D and the R lattice
-    # (the backward's input) forward, R and dD backward; f32 operations per
-    # cell: the softmin's 3 exps, log, 2 mins and 9 other (forward), the
-    # weights' 3 x 6 and the cell's own softmin again (backward)
+    # each input read once, each output written once: D in and the residual
+    # (three weights a cell) out, then the residual in and dD out; f32
+    # operations a cell: the forward's softmin 17 (6 min / max, 2 ex2, lg2,
+    # 8 adds and products), its weights 15 (rcp, 2 products, 6 compares, 6
+    # selects); the backward's recurrence 5
+    res_bytes = 3 * cells * 4
     row_f = {"name": "soft_dtw", "at": at, "max_abs_err": (val - ref).abs().max().item(),
              "value_rel_err": v_err, "tol": "1e-5 relative",
+             "residual_max_abs_err": w_err.max().item(),
+             "residual_mean_abs_err": w_err.mean().item(), "residual_tol": [1e-3, 1e-7],
+             "residual_bytes": res_bytes, "residual_alloc_bytes": plan.residual_bytes,
+             "launch": launch["fwd"], "plan": plan.fwd.record,
              "serial_diagonals": 2 * chunk - 1,
              "ms": cuda_ms(lambda: sd.soft_dtw_fwd(D, gamma)),
              "plain_ms": cuda_ms(lambda: sd.soft_dtw_from_dist_plain(D, gamma), max_iters=5),
+             "plain_kernel_contract_ms": cuda_ms(lambda: sd.soft_dtw_fwd_plain(D, gamma),
+                                                 max_iters=3),
              "library_ms": None}
     row_b = {"name": "soft_dtw_bwd", "at": at, "max_abs_err": g_err, "tol": g_tol,
+             "alone_max_abs_err": alone_err, "alone_tol": alone_tol,
+             "launch": launch["bwd"], "plan": plan.bwd.record,
              "serial_diagonals": 2 * chunk - 1,
-             "ms": cuda_ms(lambda: sd.soft_dtw_bwd(R, up, gamma)),
-             "plain_ms": cuda_ms_grad(ref, Dp, up, max_iters=5), "library_ms": None}
-    row_f["bound_ms"], row_f["bound_by"] = bound_ms(15 * cells, 2 * cells * 4 + L * 4,
+             "ms": cuda_ms(lambda: sd.soft_dtw_bwd(W, up, chunk)),
+             "plain_ms": cuda_ms_grad(ref, Dp, up, max_iters=5),
+             "plain_kernel_contract_ms": cuda_ms(lambda: sd.soft_dtw_bwd_plain(W_ref, up, chunk),
+                                                 max_iters=3),
+             "library_ms": None}
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(32 * cells, 4 * cells + res_bytes + 4 * L,
                                                     torch.float32)
-    row_b["bound_ms"], row_b["bound_by"] = bound_ms(33 * cells, 2 * cells * 4 + L * 4,
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(5 * cells, res_bytes + 4 * cells + 4 * L,
                                                     torch.float32)
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
-    if not (v_err <= 1e-5 and g_err <= g_tol):
-        raise RuntimeError(f"soft_dtw at {at}: value rel err {v_err}, dD err {g_err} > {g_tol}")
+    if not (v_err <= 1e-5 and g_err <= g_tol and alone_err <= alone_tol
+            and w_err.max().item() <= 1e-3 and w_err.mean().item() <= 1e-7):
+        raise RuntimeError(f"soft_dtw at {at}: value rel err {v_err}, dD err {g_err} > {g_tol}, "
+                           f"backward alone {alone_err} > {alone_tol}, residual "
+                           f"{w_err.max().item()} / {w_err.mean().item()}")
+    if (launch["fwd"], launch["bwd"]) != (plan.fwd.record, plan.bwd.record):
+        raise RuntimeError(f"soft_dtw launched {launch}, planned {plan}")
     return {"fwd": row_f, "bwd": row_b}
 
 

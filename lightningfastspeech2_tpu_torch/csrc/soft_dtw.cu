@@ -1,265 +1,593 @@
 // soft_dtw: exact soft-DTW over a batch of (N, M) distance lattices, forward
-// (the R lattice and its corner value) and backward (the E-recurrence,
-// giving dValue/dD).
+// (the corner value, and the softmin weights every cell gives its three
+// predecessors) and backward (the E-recurrence over those weights, giving
+// g * dValue/dD).
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_soft_dtw.py
 // soft_dtw_from_dist_pallas: _fwd_kernel (:81) and _bwd_kernel (:112),
-// joined there by a custom VJP (:201-212) and here by an autograd Function
-// (ops/soft_dtw.py). The TPU kernels keep one lattice in VMEM, skewed so
-// that an anti-diagonal is one vector row; the grid had one program per
-// call, so the training loss launched one kernel per 256-frame chunk.
+// joined there by a custom VJP (:191-212) and here by an autograd Function
+// (ops/soft_dtw.py _SoftDTW). The TPU kernels keep one lattice in VMEM,
+// skewed so that an anti-diagonal is one vector row.
 //
-// Design: one block per lattice, every lattice of one call in one launch
-// (the loss folds all its chunks into one call). A thread owns rows
-// tid + k * blockDim.x, k < K, and the block walks the N + M - 1
-// anti-diagonals with one __syncthreads() each, keeping the last diagonals
-// in shared memory. The forward's softmin, the 1e10 sentinel and the
-// validity masks are those of the Pallas forward, so exp underflows in the
-// same cells; the backward keeps the Pallas clip bounds but forms its
-// weights another way (see there). R goes to global memory skewed,
-// R[l][d][i] = R_l(i, d - i), 1e10 off the lattice, so each diagonal is one
-// coalesced row for both kernels; the forward reads D in its natural layout
-// (L2 absorbs the stride), the backward needs only R.
+// What bounds them on the H100. The bytes (D in, the residual out and back
+// in, dD out) take ~0.02 ms a kernel at the mel loss's 64 lattices of
+// 256 x 256, but each lattice is a chain of N + M - 1 dependent
+// anti-diagonals ("steps"), so the time is the chain's length times one
+// step. The design keeps the step short (ops/soft_dtw.py soft_dtw_plan
+// sizes every launch; scripts/bench_soft_dtw.py times it):
 //
-// Bound: the bytes are D read once, R written and read once, dD written
-// once (a few tens of MB at the training shape, ~0.01-0.02 ms at
-// 3.35 TB/s), but no roofline shows the real limit: the N + M - 1
-// diagonals form a serial chain of dependent steps (a barrier, shared
-// loads and three exp and a log each), which sets the time of one lattice
-// whatever the card's width. The lattices run side by side, one per SM.
+// * One block a lattice, every lattice of a call in one launch. A thread
+//   owns K consecutive rows i0 .. i0 + K - 1 (i0 = K * threadIdx.x) and at
+//   step s computes its K cells of anti-diagonal s, (i, s - i): they are
+//   independent. A cell needs the row above at steps s - 1 and s - 2 and its
+//   own row at s - 1: registers, one __shfl_up_sync (the last row of the
+//   lane above), or, for lane 0 of warp w > 0, a ring in shared memory that
+//   warp w - 1 fills a step at a time. A ring slot is one 64-bit word, the
+//   value and its step, so the reader checks the step it finds and no fence
+//   is needed; the reader reports how far it has read once a chunk of P
+//   steps. No block barrier after the first: each warp runs up to a few
+//   chunks ahead of the one below, and walks only the steps where its rows
+//   hold cells. The backward mirrors all of it upwards.
+// * Nothing global on the chain. The forward loads D(i, s + P - i) of each
+//   row P steps before the step that uses it (a register ring indexed by
+//   the unrolled step); the backward stages its weights in shared memory
+//   with cp.async a chunk ahead. No load is consumed in the chunk that
+//   issues it.
+// * The forward's softmin in base 2 with the minimum's term not computed:
+//   m, mid and hi are the three inputs in order (five min / max), the
+//   minimum's exp is exactly 1, so S = 1 + ex2((m - mid) c) + ex2((m - hi) c)
+//   with c = log2(e) / gamma, and softmin = m - gamma ln2 lg2(S): two ex2 and
+//   one lg2 a cell. R = D + softmin is formed as the plain recurrence forms
+//   it (m - gamma log S, then + D), so R keeps the digits it has there.
+// * The backward's chain holds no exp, log or division. The forward writes,
+//   for every cell n, the weights its softmin gives its predecessors,
+//   w_x(n) = exp((m_n - R_x) / gamma) / S_n, formed from n's own softmin
+//   inputs (never as R_n - R_x - D_n, which loses digits where R ~ 1e4),
+//   skewed: W[l][d][x][i], x = up (i-1, j), left (i, j-1), diag (i-1, j-1),
+//   rows padded to Np. The backward pushes: cell n holds E(n), sends
+//   E(n) w_left(n) along its own row (a register), and E(n) w_up(n) +
+//   E(n + (0, 1)) w_diag(n + (0, 1)) to the row above (a shuffle, or the
+//   ring between warps): one add and one FMA a cell on the chain. The TPU
+//   kernel clipped each weight's exponent to [-80, 30]; the exponent is
+//   never positive (m is the minimum), and the clip below changes a weight
+//   by at most exp(-80), so it is gone.
+// * Stores leave coalesced. A step's weights go to a warp buffer in shared
+//   memory, and a chunk's leave as float4 runs of the warp's rows; a
+//   chunk's dD goes to a warp buffer and leaves as runs of P columns of a
+//   row (one row a lane would touch 32 cache lines a store).
+//
+// LFS2_SOFT_DTW_NO_MEMORY (a LFS2_KERNEL_DEFINES variant, for
+// scripts/bench_soft_dtw.py --floor) builds the same chains with every
+// global load and store but the last taken out: the chain's own floor.
 #include "common.cuh"
 
 namespace {
 
 constexpr float kInf = 1e10f;  // ops/pallas_soft_dtw.py _INF
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreads = 512;  // every instantiation: up to 128 registers a thread
+constexpr int kMaxSmem = 232448;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The hand-over between warps. A ring slot holds a value and the step it
+// belongs to in one 64-bit word, so a reader that finds its step finds its
+// value: no fence on either side. The reader publishes how far it has read
+// (a plain int) only after it has used what it read, so the writer, which
+// waits on that before it reuses a slot, needs no fence either.
+__device__ __forceinline__ void put_slot(unsigned addr, float v, int step) {
+  const unsigned long long x =
+      (static_cast<unsigned long long>(static_cast<unsigned>(step)) << 32) | __float_as_uint(v);
+  asm volatile("st.volatile.shared.u64 [%0], %1;" ::"r"(addr), "l"(x));
+}
+__device__ __forceinline__ unsigned long long get_slot(const unsigned long long* p) {
+  unsigned long long x;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(x) : "r"(smem_u32(p)));
+  return x;
+}
+__device__ __forceinline__ void put_progress(int* p, int v) {
+  asm volatile("st.volatile.shared.u32 [%0], %1;" ::"r"(smem_u32(p)), "r"(v) : "memory");
+}
+// spin until *p >= need (kUp) or <= need; a wait that has not completed
+// after 2^26 tries (seconds) traps: a fault, not a hung card
+template <bool kUp> __device__ __forceinline__ void wait_progress(const int* p, int need) {
+  for (unsigned tries = 0;; ++tries) {
+    int v;
+    asm volatile("ld.volatile.shared.u32 %0, [%1];" : "=r"(v) : "r"(smem_u32(p)));
+    if (kUp ? v >= need : v <= need) return;
+    if (tries > (1u << 26)) __trap();
+  }
+}
+// an empty slot: step -1, value 1e10
+constexpr unsigned long long kEmptySlot = 0xffffffff501502f9ull;
+// The P values of steps t0 + q * dt (q < P) from a ring into v, once every
+// slot whose step lies in [t_lo, t_hi] carries it; the whole warp reads the
+// same slots and agrees. A value of another step feeds only cells off the
+// lattice: a warp's chunks start at its first row (P divides 32 K), so its
+// first row's diagonal input at its first cell is its own initial 1e10.
+template <int P>
+__device__ __forceinline__ void read_ring(const unsigned long long* ring, int rmask, int t0, int dt,
+                                          int t_lo, int t_hi, float* v) {
+  for (unsigned tries = 0;; ++tries) {
+    bool ok = true;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int t = t0 + q * dt;
+      const unsigned long long x = get_slot(ring + (t & rmask));
+      v[q] = __uint_as_float(static_cast<unsigned>(x));
+      ok &= t < t_lo || t > t_hi || static_cast<int>(x >> 32) == t;
+    }
+    if (__all_sync(kFull, ok)) return;
+    if (tries > (1u << 26)) __trap();
+  }
+}
+
+// K consecutive floats (aligned to their size up to 16 bytes)
+template <int K> __device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (K == 1) {
+    p[0] = v[0];
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      *reinterpret_cast<float4*>(p + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  }
+}
+template <int K> __device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (K == 1) {
+    v[0] = p[0];
+  } else if constexpr (K == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + k);
+      v[k] = a.x;
+      v[k + 1] = a.y;
+      v[k + 2] = a.z;
+      v[k + 3] = a.w;
+    }
+  }
+}
+
+// K consecutive floats from device memory into shared memory (byte address
+// dst), asynchronously
+template <int K> __device__ __forceinline__ void cp_async_vec(unsigned dst, const float* src) {
+  if constexpr (K <= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst), "l"(src), "n"(4 * K)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst + 4 * k), "l"(src + k)
+                   : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// at most n of this thread's committed groups still in flight (n < 4)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// the steps (anti-diagonals) where warp w's rows hold cells, as chunks of P
+struct WarpSpan {
+  int row_lo, row_hi;  // rows [row_lo, row_hi)
+  int c_lo, c_hi;      // chunks c_lo .. c_hi: steps c * P .. c * P + P - 1
+};
+__device__ __forceinline__ WarpSpan warp_span(int w, int K, int P, int N, int M) {
+  WarpSpan sp;
+  sp.row_lo = w * 32 * K;
+  sp.row_hi = min(N, sp.row_lo + 32 * K);
+  sp.c_lo = sp.row_lo / P;
+  sp.c_hi = (sp.row_hi + M - 2) / P;
+  return sp;
+}
+
+// Shared memory of a lattice's block of nwl warps, in bytes (each part a
+// multiple of 16): the forward's hand-over rings and progress counts; the
+// backward's weight stage, dD buffers, rings and counts.
+__host__ __device__ constexpr int ring_bytes(int nwl, int ring) {
+  return nwl * ring * 8 + ((nwl + 3) / 4) * 16;
+}
+// the forward's weight buffer: each warp's chunk of P steps of 3 planes of
+// its 32 K rows
+__host__ __device__ constexpr int fwd_smem_bytes(int nwl, int K, int P, int ring) {
+  return ring_bytes(nwl, ring) + nwl * P * 3 * 32 * K * 4;
+}
+__host__ __device__ constexpr int bwd_stage_floats(int nwl, int K, int P, int A) {
+  return (A + 1) * P * 3 * 32 * nwl * K;
+}
+__host__ __device__ constexpr int bwd_ebuf_floats(int nwl, int K, int P) {
+  return (nwl * P * (32 * K + 1) + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int bwd_smem_bytes(int nwl, int K, int P, int A, int ring) {
+  return 4 * (bwd_stage_floats(nwl, K, P, A) + bwd_ebuf_floats(nwl, K, P)) + ring_bytes(nwl, ring);
+}
 
 // ---------------------------------------------------------------- forward
-template <int K>
-__global__ void soft_dtw_fwd_kernel(const float* __restrict__ D, float* __restrict__ R,
-                                    float* __restrict__ value, int N, int M, float gamma) {
-  extern __shared__ float smem[];  // three diagonals of N floats: d, d-1, d-2
+// Shared memory: ring[nw][ring] (ring[w] holds R of the last row of warp
+// w - 1 at step s in slot s % ring), taken[nw] (the last step of ring[w]
+// that warp w has read), wbuf[nw][P][3][32 K] (each warp's weights of a
+// chunk, its rows in order).
+template <int K, int P>
+__global__ void __launch_bounds__(kMaxThreads)
+    soft_dtw_wave_fwd(const float* __restrict__ D, float* __restrict__ W, float* __restrict__ value,
+                      int N, int M, int Np, float c, float gl, int ring) {
+  extern __shared__ __align__(16) float smem[];
+  const int nw = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned long long* rings = reinterpret_cast<unsigned long long*>(smem);
+  int* taken = reinterpret_cast<int*>(rings + nw * ring);
+  const int i0 = threadIdx.x * K;
+  const WarpSpan sp = warp_span(w, K, P, N, M);
+  for (int x = threadIdx.x; x < nw * ring; x += blockDim.x) rings[x] = kEmptySlot;
+  if (lane == 0) taken[w] = sp.c_lo * P - 2;  // steps before its first need count as read
+  __syncthreads();
+  const int rmask = ring - 1, s_value = N + M - 2;
+  const bool consumer = w > 0, producer = w < nw - 1;
+  // the steps at which warp w - 1's last row holds cells
+  const int t_lo = sp.row_lo - 1, t_hi = sp.row_lo + M - 2;
+  const unsigned long long* ring_in = rings + w * ring;
+  const unsigned ring_out = smem_u32(rings + (w + 1) * ring);
+  // The weights go to a warp buffer a step, then out a chunk at a time with
+  // coalesced float4 stores: the warp's rows of step s, plane x are one run
+  // of 32 K floats at W + (l ndiag + s) 3 Np + x Np + row_lo. Lane l stores
+  // float4 e = l + 32 t of the chunk, of run e / (8 K), at 4 (e % (8 K)).
+  constexpr int F4 = 8 * K;
+  float* wbuf = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + ring_bytes(nw, ring)) +
+                w * P * 3 * 32 * K;
+  float* Wl = W + static_cast<size_t>(blockIdx.x) * (N + M - 1) * 3 * Np + sp.row_lo;
   const int ndiag = N + M - 1;
-  const float* Dl = D + static_cast<size_t>(blockIdx.x) * N * M;
-  float* Rl = R + static_cast<size_t>(blockIdx.x) * ndiag * N;
-  for (int i = threadIdx.x; i < 3 * N; i += blockDim.x) smem[i] = kInf;
 
-  float dcur[K];
+  // Cells off the lattice are computed like the others and never read by
+  // one on it: before a row starts (j < 0) every input is ~1e10 and so is R;
+  // past its end (j >= M) R and the weights are not used. Rows past N read
+  // row N - 1's distances. R(0, 0) = D(0, 0): its diagonal input starts at
+  // 0, so its softmin is exactly 0.
+  // D(i, s - i) of each row is loaded P steps ahead, at a column clamped
+  // into the row: no load needs a predicate, and none is consumed in the
+  // chunk that issues it.
+  float r[K], upp[K], dq[K][P];
+  const float* drow[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    dcur[k] = (i == 0) ? Dl[0] : 0.0f;  // diagonal 0 holds only (0, 0)
+    r[k] = kInf;
+    upp[k] = i0 + k == 0 ? 0.0f : kInf;
+    drow[k] = D + static_cast<size_t>(blockIdx.x) * N * M + static_cast<size_t>(min(i0 + k, N - 1)) * M;
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      dq[k][q] = __ldg(drow[k] + min(max(sp.c_lo * P + q - i0 - k, 0), M - 1));
   }
-  float* prev2 = smem;
-  float* prev = smem + N;
-  float* cur = smem + 2 * N;
-  __syncthreads();
 
-  for (int d = 0; d < ndiag; ++d) {
-    // prefetch the next diagonal's distances while this one is computed
-    float dnext[K];
+  for (int ch = sp.c_lo; ch <= sp.c_hi; ++ch) {
+    const int s0 = ch * P;
+    float ub[P];  // R of the last row of warp w - 1 at steps s0 - 1 .. s0 + P - 2
+    if (consumer) {
+      read_ring<P>(ring_in, rmask, s0 - 1, 1, t_lo, t_hi, ub);
+    } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      const int j = d + 1 - i;
-      dnext[k] = (i < N && j >= 0 && j < M) ? __ldg(Dl + static_cast<size_t>(i) * M + j) : 0.0f;
+      for (int q = 0; q < P; ++q) ub[q] = kInf;
     }
+    // before this chunk overwrites ring[w + 1], warp w + 1 has read what it held
+    if (producer && lane == 31) wait_progress<true>(taken + w + 1, s0 + P - 1 - ring);
+    const unsigned slot0 = ring_out + (s0 & rmask) * 8;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i >= N) continue;
-      const int j = d - i;
-      float r = kInf;
-      if (j >= 0 && j < M) {
-        if (d == 0) {
-          r = dcur[k];  // R[0,0] = D[0,0]
-        } else {
-          const float up = i > 0 ? prev[i - 1] : kInf;    // (i-1, j)
-          const float left = prev[i];                      // (i, j-1)
-          const float diag = i > 0 ? prev2[i - 1] : kInf;  // (i-1, j-1)
-          const float m = fminf(fminf(up, left), diag);
-          const float soft = m - gamma * logf(expf((m - up) / gamma) + expf((m - left) / gamma) +
-                                              expf((m - diag) / gamma));
-          r = dcur[k] + soft;
-        }
+    for (int q = 0; q < P; ++q) {
+      const int s = s0 + q;
+      float upin = __shfl_up_sync(kFull, r[K - 1], 1);
+      if (lane == 0) upin = ub[q];
+      float wv[3][K];
+#pragma unroll
+      for (int k = K - 1; k >= 0; --k) {
+        const float up = k ? r[k - 1] : upin, left = r[k], dg = upp[k];
+        upp[k] = up;
+        const float mn = fminf(up, left), mx = fmaxf(up, left);
+        const float m = fminf(mn, dg), hi = fmaxf(mx, dg), mid = fmaxf(mn, fminf(mx, dg));
+        const float e1 = ex2((m - mid) * c), e2 = ex2((m - hi) * c);
+        const float S = (e1 + e2) + 1.0f;
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+        const float dv = 1.0f;
+#else
+        const float dv = dq[k][q];
+        dq[k][q] = __ldg(drow[k] + min(max(s + P - i0 - k, 0), M - 1));
+#endif
+        r[k] = dv + fmaf(lg2(S), -gl, m);
+        const float rS = rcp(S), a1 = e1 * rS, a2 = e2 * rS;
+        wv[0][k] = up == m ? rS : (up == mid ? a1 : a2);
+        wv[1][k] = left == m ? rS : (left == mid ? a1 : a2);
+        wv[2][k] = dg == m ? rS : (dg == mid ? a1 : a2);
       }
-      Rl[static_cast<size_t>(d) * N + i] = r;
-      cur[i] = r;
-    }
-    __syncthreads();
-    float* t = prev2;
-    prev2 = prev;
-    prev = cur;
-    cur = t;
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+      if (Np < 0) {  // never true: keeps the weights live without a store
+#else
+      {
+#endif
 #pragma unroll
-    for (int k = 0; k < K; ++k) dcur[k] = dnext[k];
+        for (int x = 0; x < 3; ++x) store_vec<K>(wbuf + (q * 3 + x) * 32 * K + lane * K, wv[x]);
+      }
+      if (producer && lane == 31) put_slot(slot0 + 8 * q, r[K - 1], s);
+      if (s == s_value) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (i0 + k == N - 1) value[blockIdx.x] = r[k];  // R(N - 1, M - 1)
+      }
+    }
+    if (consumer && lane == 0) put_progress(taken + w, s0 + P - 2);
+#ifndef LFS2_SOFT_DTW_NO_MEMORY
+    __syncwarp();  // the chunk's weights are in wbuf
+    float* wch = Wl + static_cast<size_t>(s0) * 3 * Np;
+#pragma unroll
+    for (int t = 0; t < 3 * P * K / 4; ++t) {
+      const int e = lane + 32 * t, run = e / F4, col = 4 * (e % F4);
+      // runs past the last step or columns past Np are not the residual's
+      if (s0 + run / 3 < ndiag && sp.row_lo + col < Np)
+        *reinterpret_cast<float4*>(wch + static_cast<size_t>(run) * Np + col) =
+            *reinterpret_cast<const float4*>(wbuf + run * 32 * K + col);
+    }
+    __syncwarp();  // wbuf is read before the next chunk writes it
+#endif
   }
-  if (threadIdx.x == 0) value[blockIdx.x] = prev[N - 1];  // R(N-1, M-1)
 }
 
 // --------------------------------------------------------------- backward
-// E(i,j) = dValue/dD(i,j) = sum over the successors n of (i,j) of E(n) w(n),
-// w(n) the weight of (i,j) in n's softmin. The TPU kernel evaluates
-// w(n) = exp((R(n) - R(i,j) - D(n)) / gamma), which recovers n's softmin
-// term (size gamma) by subtracting numbers of size R: at the mel loss's
-// lattices R reaches ~2e4, whose f32 spacing is 2e-3, so each weight is off
-// by up to 1 % and E by several % after hundreds of steps. Here each cell
-// recomputes its own softmin inputs from R, as the forward formed them,
-// m = min(up, left, diag) and S = sum exp((m - a) / gamma), and a
-// predecessor's weight is w = exp((m - R(i,j)) / gamma) / S: the same
-// quantity, the derivative autograd takes of the forward. The TPU kernel's
-// clip of the exponent to [-80, 30] is kept.
-//
-// Shared memory: three diagonals (d, d+1, d+2), each E, m and S of N rows.
-struct Diag {
-  float* e;
-  float* m;
-  float* s;
-};
-
-__device__ __forceinline__ Diag diag_buf(float* smem, int d, int N) {
-  float* b = smem + (d % 3) * 3 * N;
-  return {b, b + N, b + 2 * N};
-}
-
-__device__ __forceinline__ float weight(const Diag& n, int row, float r0, float gamma) {
-  return n.e[row] * (expf(fminf(fmaxf((n.m[row] - r0) / gamma, -80.0f), 30.0f)) / n.s[row]);
-}
-
-// R of cell row i on skewed diagonal d of lattice Rl (INF off the lattice)
-__device__ __forceinline__ float r_at(const float* Rl, int d, int i, int N) {
-  return (d >= 0 && i >= 0) ? __ldg(Rl + static_cast<size_t>(d) * N + i) : kInf;
-}
-
-template <int K>
-__global__ void soft_dtw_bwd_kernel(const float* __restrict__ R, const float* __restrict__ g,
-                                    float* __restrict__ E, int N, int M, float gamma) {
-  extern __shared__ float smem[];
-  const int ndiag = N + M - 1;
-  const float* Rl = R + static_cast<size_t>(blockIdx.x) * ndiag * N;
-  float* El = E + static_cast<size_t>(blockIdx.x) * N * M;
-  const float gl = g[blockIdx.x];
-  // E 0, m and S 1, so a row off the lattice contributes nothing
-  for (int i = threadIdx.x; i < 9 * N; i += blockDim.x) smem[i] = ((i / N) % 3 == 0) ? 0.0f : 1.0f;
-
-  // the cell's own R and its predecessors' (up, left, diag), one diagonal ahead
-  float r0[K], ru[K], rl[K], rd[K];
-  const auto fetch = [&](int d, float* c, float* u, float* l, float* dg) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      c[k] = i < N ? r_at(Rl, d, i, N) : kInf;
-      u[k] = i < N ? r_at(Rl, d - 1, i - 1, N) : kInf;
-      l[k] = i < N ? r_at(Rl, d - 1, i, N) : kInf;
-      dg[k] = i < N ? r_at(Rl, d - 2, i - 1, N) : kInf;
-    }
-  };
-  fetch(ndiag - 1, r0, ru, rl, rd);
+// Shared memory: stage[(A + 1) * P][3][T * K] (each
+// thread's weights of a chunk's steps, its own K rows at t * K),
+// ebuf[nw][P][32 K + 1] (each warp's dD of a chunk: step q's value of its
+// local row 32 k + l, the row lane l owns as its k-th, at [q][32 k + l]),
+// ring[nw][ring] (ring[w] holds what the first row of warp w + 1 sends up at
+// step s, in slot s % ring), taken[nw] (the lowest step of ring[w] that warp
+// w has read). Steps run downwards.
+template <int K, int P>
+__global__ void __launch_bounds__(kMaxThreads)
+    soft_dtw_wave_bwd(const float* __restrict__ W, const float* __restrict__ g,
+                      float* __restrict__ dD, int N, int M, int Np, int A, int ring) {
+  extern __shared__ __align__(16) float smem[];
+  // a lane's successive dD values of a chunk at ebuf[.. + t TSTEP]
+  constexpr int WS = 32 * K + 1, RPI = 32 / P, TSTEP = RPI / K;
+  static_assert(K * P <= 32, "a lane's writes of a chunk keep its row order");
+  const int T = blockDim.x, nw = T >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int TK = T * K, nslot = A + 1;
+  float* stage = smem;
+  float* ebuf = stage + bwd_stage_floats(nw, K, P, A) + w * P * WS;
+  unsigned long long* rings = reinterpret_cast<unsigned long long*>(
+      stage + bwd_stage_floats(nw, K, P, A) + bwd_ebuf_floats(nw, K, P));
+  int* taken = reinterpret_cast<int*>(rings + nw * ring);
+  const int i0 = threadIdx.x * K;
+  const WarpSpan sp = warp_span(w, K, P, N, M);
+  for (int x = threadIdx.x; x < nw * ring; x += T) rings[x] = kEmptySlot;
+  if (lane == 0) taken[w] = sp.c_hi * P + P + 1;  // steps above its first need count as read
   __syncthreads();
+  const int rmask = ring - 1;
+  const float* Wl = W + static_cast<size_t>(blockIdx.x) * (N + M - 1) * 3 * Np + i0;
+  const float gl = g[blockIdx.x];
+  const bool consumer = w < nw - 1, producer = w > 0;
+  // the steps at which warp w + 1's first row holds cells
+  const int t_lo = sp.row_hi, t_hi = sp.row_hi + M - 1;
+  const unsigned long long* ring_in = rings + w * ring;
+  const unsigned ring_out = smem_u32(rings + (w - 1) * ring);
+  const unsigned n_on = i0 < N ? static_cast<unsigned>(min(i0 + K, N) - 1 - i0 + M) : 0u;
 
-  for (int d = ndiag - 1; d >= 0; --d) {
-    float n0[K], nu[K], nl[K], nd[K];
-    if (d > 0) fetch(d - 1, n0, nu, nl, nd);
-    const Diag cur = diag_buf(smem, d, N);
-    const Diag n1 = diag_buf(smem, d + 1, N);
-    const Diag n2 = diag_buf(smem, d + 2, N);
+  // copy this thread's weights of chunk ch into its ring slot (one group a
+  // chunk, empty past the last)
+  const unsigned dst0 = smem_u32(stage + threadIdx.x * K);
+  const auto issue = [&](int ch) {
+#ifndef LFS2_SOFT_DTW_NO_MEMORY
+    if (ch >= sp.c_lo) {
+      const unsigned dst = dst0 + (ch % nslot) * P * 3 * TK * 4;
+      const float* src = Wl + static_cast<size_t>(ch) * P * 3 * Np;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i >= N) continue;
-      const int j = d - i;
-      float e = 0.0f, m = 1.0f, s = 1.0f;
-      if (j >= 0 && j < M) {
-        if (d == ndiag - 1) {
-          e = 1.0f;  // seed: E(N-1, M-1) = 1
-        } else {
-          const bool va = i + 1 < N;  // (i+1, j): diagonal d+1, row i+1
-          const bool vb = j + 1 < M;  // (i, j+1): diagonal d+1, row i
-          const float ta = va ? weight(n1, i + 1, r0[k], gamma) : 0.0f;
-          const float tb = vb ? weight(n1, i, r0[k], gamma) : 0.0f;
-          const float tc = (va && vb) ? weight(n2, i + 1, r0[k], gamma) : 0.0f;  // (i+1, j+1)
-          e = ta + tb + tc;
+      for (int q = 0; q < P; ++q) {
+        if (static_cast<unsigned>(ch * P + q - i0) < n_on) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x)
+            cp_async_vec<K>(dst + (q * 3 + x) * TK * 4, src + (q * 3 + x) * Np);
         }
-        El[static_cast<size_t>(i) * M + j] = e * gl;
-        // this cell's softmin inputs, as the forward formed them
-        const float up = i > 0 ? ru[k] : kInf, left = rl[k], diag = i > 0 ? rd[k] : kInf;
-        m = fminf(fminf(up, left), diag);
-        s = expf((m - up) / gamma) + expf((m - left) / gamma) + expf((m - diag) / gamma);
       }
-      cur.e[i] = e;
-      cur.m[i] = m;
-      cur.s[i] = s;
     }
-    __syncthreads();
+#endif
+    cp_async_commit();
+  };
+
+  // per row: E's carry along the row (cl), what goes to the row above
+  // (snd), this row's diag term for the step after (pdp)
+  float cl[K], snd[K], pdp[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      r0[k] = n0[k];
-      ru[k] = nu[k];
-      rl[k] = nl[k];
-      rd[k] = nd[k];
+  for (int k = 0; k < K; ++k) {
+    cl[k] = i0 + k == N - 1 ? 1.0f : 0.0f;  // E(N - 1, M - 1) = 1 arrives along its row
+    snd[k] = 0.0f;
+    pdp[k] = 0.0f;
+  }
+  // a chunk's dD leaves ebuf with coalesced stores: lane l writes step
+  // q = l % P of local rows l / P + t RPI, P lanes a row
+  float* dDl = dD + static_cast<size_t>(blockIdx.x) * N * M;
+  const int cq = lane % P, crow = lane / P;
+  const float* esrc = ebuf + cq * WS + (crow % K) * 32 + crow / K;
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+  float sink = 0.0f;
+#endif
+  for (int a = 0; a < A; ++a) issue(sp.c_hi - a);
+
+  for (int ch = sp.c_hi; ch >= sp.c_lo; --ch) {
+    issue(ch - A);
+    cp_async_wait(A);
+    const float* slot = stage + (ch % nslot) * P * 3 * TK + threadIdx.x * K;
+    const int s0 = ch * P;
+    float ub[P];  // what the first row of warp w + 1 sent at steps s + 1
+    if (consumer) {
+      read_ring<P>(ring_in, rmask, s0 + P, -1, t_lo, t_hi, ub);
+    } else {
+#pragma unroll
+      for (int q = 0; q < P; ++q) ub[q] = 0.0f;
     }
+    // before this chunk overwrites ring[w - 1], warp w - 1 has read what it held
+    if (producer && lane == 0) wait_progress<false>(taken + w - 1, s0 + ring);
+    const unsigned slot0 = ring_out + (s0 & rmask) * 8;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int s = s0 + P - 1 - q;
+      float wv[3][K];
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+#pragma unroll
+      for (int k = 0; k < K; ++k) wv[0][k] = wv[1][k] = wv[2][k] = 0.33f;
+#else
+#pragma unroll
+      for (int x = 0; x < 3; ++x) load_vec<K>(slot + ((P - 1 - q) * 3 + x) * TK, wv[x]);
+#endif
+      float bin = __shfl_down_sync(kFull, snd[0], 1);
+      if (lane == 31) bin = ub[q];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const bool valid = i0 + k < N && static_cast<unsigned>(s - i0 - k) < static_cast<unsigned>(M);
+        const float below = k < K - 1 ? snd[k + 1] : bin;
+        const float e = valid ? cl[k] + below : 0.0f;
+        cl[k] = valid ? e * wv[1][k] : cl[k];
+        snd[k] = valid ? fmaf(e, wv[0][k], pdp[k]) : 0.0f;
+        pdp[k] = valid ? e * wv[2][k] : 0.0f;
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+        sink += e;
+#else
+        ebuf[(P - 1 - q) * WS + 32 * k + lane] = e * gl;
+#endif
+      }
+      if (producer && lane == 0) put_slot(slot0 + 8 * (P - 1 - q), snd[0], s);
+    }
+    if (consumer && lane == 31) put_progress(taken + w, s0 + 1);
+#ifndef LFS2_SOFT_DTW_NO_MEMORY
+    __syncwarp();  // the chunk's dD is in ebuf
+    const int i_first = sp.row_lo + crow, s = s0 + cq;
+#pragma unroll
+    for (int t = 0; t < K * P; ++t) {
+      const int i = i_first + t * RPI, j = s - i;
+      if (i < N && static_cast<unsigned>(j) < static_cast<unsigned>(M))
+        dDl[static_cast<size_t>(i) * M + j] = esrc[t * TSTEP];
+    }
+    __syncwarp();  // ebuf is read before the next chunk writes it
+#endif
   }
+#ifdef LFS2_SOFT_DTW_NO_MEMORY
+  if (sink == 12345.0f) dDl[0] = sink;  // keeps the chain live
+#endif
+  cp_async_wait(0);
 }
 
-// rows per thread and threads per block for N rows
-inline void block_shape(int N, int* K, int* threads) {
-  *K = (N + 1023) / 1024;
-  *threads = ((N + *K - 1) / *K + 31) / 32 * 32;
+// ---------------------------------------------------------------- launches
+// the latest accepted launch of each kernel: rows a thread, threads, steps a
+// chunk, chunks staged ahead, ring, shared-memory bytes, blocks
+int g_last_launch[2][7];
+
+// opt a kernel in to all the shared memory a block may have, once (a launch
+// then sets no attribute, so launches can be captured in a CUDA graph)
+template <typename Kern> cudaError_t opt_in_smem(Kern kernel, int smem) {
+  static Kern done[32];
+  static int n_done = 0;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  for (int n = 0; n < n_done; ++n)
+    if (done[n] == kernel) return cudaSuccess;
+  const cudaError_t err = lfs2::allow_smem(kernel, kMaxSmem);
+  if (err == cudaSuccess && n_done < 32) done[n_done++] = kernel;
+  return err;
 }
 
-template <int K>
-cudaError_t launch_fwd(const float* D, float* R, float* value, int L, int N, int M, float gamma,
-                       int threads, cudaStream_t stream) {
-  const int smem = 3 * N * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = lfs2::allow_smem(soft_dtw_fwd_kernel<K>, smem);
-    if (err != cudaSuccess) return err;
-  }
-  soft_dtw_fwd_kernel<K><<<L, threads, smem, stream>>>(D, R, value, N, M, gamma);
-  return cudaGetLastError();
+// what every launch must satisfy: nwl warps of K rows a thread cover the N
+// rows with no warp empty, within the thread limit; a ring of a power of two
+// slots at least two chunks long
+bool launch_ok(int N, int M, int Np, int K, int nwl, int P, int ring) {
+  const int T = 32 * nwl;
+  return N >= 1 && M >= 1 && Np >= N && Np % 8 == 0 && nwl >= 1 && T <= kMaxThreads &&
+         T * K >= N && (T - 32) * K < N && ring >= 2 * P && (ring & (ring - 1)) == 0 &&
+         static_cast<long long>(N) * M < (1ll << 31);
 }
 
-template <int K>
-cudaError_t launch_bwd(const float* R, const float* g, float* E, int L, int N, int M, float gamma,
-                       int threads, cudaStream_t stream) {
-  const int smem = 9 * N * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = lfs2::allow_smem(soft_dtw_bwd_kernel<K>, smem);
-    if (err != cudaSuccess) return err;
+template <typename Kern, typename... Args>
+int launch(int which, Kern kern, int L, int K, int nwl, int P, int A, int ring, int smem,
+           cudaStream_t stream, Args... args) {
+  cudaError_t err = opt_in_smem(kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<L, 32 * nwl, smem, stream>>>(args...);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    const int rec[7] = {K, 32 * nwl, P, A, ring, smem, L};
+    for (int i = 0; i < 7; ++i) g_last_launch[which][i] = rec[i];
   }
-  soft_dtw_bwd_kernel<K><<<L, threads, smem, stream>>>(R, g, E, N, M, gamma);
-  return cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
-// D (L, N, M) f32 -> R (L, N + M - 1, N) f32 skewed, value (L,) f32
-LFS2_EXPORT int lfs2_soft_dtw_fwd(const float* D, float* R, float* value, int L, int N, int M,
-                                  float gamma, void* stream) {
-  int K, threads;
-  block_shape(N, &K, &threads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1: return static_cast<int>(launch_fwd<1>(D, R, value, L, N, M, gamma, threads, s));
-    case 2: return static_cast<int>(launch_fwd<2>(D, R, value, L, N, M, gamma, threads, s));
-    case 3: return static_cast<int>(launch_fwd<3>(D, R, value, L, N, M, gamma, threads, s));
-    case 4: return static_cast<int>(launch_fwd<4>(D, R, value, L, N, M, gamma, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// D (L, N, M) f32 -> W (L, N + M - 1, 3, Np) the skewed weights, value (L,).
+// c = log2(e) / gamma, gl = gamma * ln(2); K rows a thread, nwl warps a
+// lattice (one block), P steps a chunk.
+LFS2_EXPORT int lfs2_soft_dtw_fwd(const float* D, float* W, float* value, int L, int N, int M,
+                                  int Np, float c, float gl, int K, int nwl, int P, int ring,
+                                  int smem, void* stream) {
+  if (!launch_ok(N, M, Np, K, nwl, P, ring) || smem != fwd_smem_bytes(nwl, K, P, ring) ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(const float*, float*, float*, int, int, int, float, float, int) = nullptr;
+  if (K == 1 && P == 16) kern = soft_dtw_wave_fwd<1, 16>;
+  if (K == 2 && P == 8) kern = soft_dtw_wave_fwd<2, 8>;
+  if (K == 4 && P == 4) kern = soft_dtw_wave_fwd<4, 4>;
+  if (K == 4 && P == 8) kern = soft_dtw_wave_fwd<4, 8>;
+  if (K == 8 && P == 1) kern = soft_dtw_wave_fwd<8, 1>;
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(0, kern, L, K, nwl, P, 0, ring, smem, static_cast<cudaStream_t>(stream), D, W,
+                value, N, M, Np, c, gl, ring);
 }
 
-// R (L, N + M - 1, N) from the forward, g (L,) the upstream gradient -> E (L, N, M) = g * dValue/dD
-LFS2_EXPORT int lfs2_soft_dtw_bwd(const float* R, const float* g, float* E, int L, int N, int M,
-                                  float gamma, void* stream) {
-  int K, threads;
-  block_shape(N, &K, &threads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1: return static_cast<int>(launch_bwd<1>(R, g, E, L, N, M, gamma, threads, s));
-    case 2: return static_cast<int>(launch_bwd<2>(R, g, E, L, N, M, gamma, threads, s));
-    case 3: return static_cast<int>(launch_bwd<3>(R, g, E, L, N, M, gamma, threads, s));
-    case 4: return static_cast<int>(launch_bwd<4>(R, g, E, L, N, M, gamma, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// W from the forward, g (L,) the upstream gradient -> dD (L, N, M) = g * dValue/dD.
+// K rows a thread, nwl warps a lattice (one block), P steps a chunk, A
+// chunks of weights staged ahead of the chain.
+LFS2_EXPORT int lfs2_soft_dtw_bwd(const float* W, const float* g, float* dD, int L, int N, int M,
+                                  int Np, int K, int nwl, int P, int A, int ring, int smem,
+                                  void* stream) {
+  if (!launch_ok(N, M, Np, K, nwl, P, ring) || A < 1 || A > 3 ||
+      smem != bwd_smem_bytes(nwl, K, P, A, ring) || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(const float*, const float*, float*, int, int, int, int, int) = nullptr;
+  if (K == 1 && P == 4) kern = soft_dtw_wave_bwd<1, 4>;
+  if (K == 1 && P == 8) kern = soft_dtw_wave_bwd<1, 8>;
+  if (K == 2 && P == 4) kern = soft_dtw_wave_bwd<2, 4>;
+  if (K == 4 && P == 2) kern = soft_dtw_wave_bwd<4, 2>;
+  if (K == 8 && P == 2) kern = soft_dtw_wave_bwd<8, 2>;
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(1, kern, L, K, nwl, P, A, ring, smem, static_cast<cudaStream_t>(stream), W, g,
+                dD, N, M, Np, A, ring);
+}
+
+// the latest accepted launches: out[0..6] the forward's, out[7..13] the backward's
+LFS2_EXPORT int lfs2_soft_dtw_last_launch(int* out) {
+  for (int i = 0; i < 7; ++i) {
+    out[i] = g_last_launch[0][i];
+    out[7 + i] = g_last_launch[1][i];
   }
+  return 0;
 }

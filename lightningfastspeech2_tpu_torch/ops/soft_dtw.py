@@ -12,16 +12,22 @@ and ``_bwd_kernel`` joined by a custom VJP), one module as
 with R[0,0] = D[0,0]; the value is R[N-1,M-1]. ``soft_dtw_from_dist`` runs
 ``soft_dtw_from_dist_plain`` (autograd through the recurrence) for CPU
 tensors and, for CUDA tensors, the forward and backward kernels of
-``csrc/soft_dtw.cu`` through an autograd Function. The backward is the
-E-recurrence (Cuturi & Blondel 2017), giving dValue/dD, with each weight
-formed from its successor's softmin inputs, as autograd of the forward
-forms it (the TPU kernel's form loses digits where R is large; see the
-kernel's source).
+``csrc/soft_dtw.cu`` through an autograd Function. The forward kernel
+returns the value and, as the backward's residual, the softmin weights each
+cell gives its three predecessors, formed from the cell's own softmin
+inputs (the TPU kernel's ``R_next - R - D_next`` loses digits where R is
+large; see the kernel's source); the backward is the E-recurrence (Cuturi &
+Blondel 2017) over those weights, giving dValue/dD. ``soft_dtw_fwd_plain``
+and ``soft_dtw_bwd_plain`` are the two kernels' contract in plain PyTorch,
+their oracles on the card; ``soft_dtw_plan`` sizes both launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -29,10 +35,116 @@ from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
 
 _INF = 1e10
-# rows of the lattice one thread owns in the kernels; blocks have at most
-# 1024 threads, so N <= MAX_ROWS_PER_THREAD * 1024
-MAX_ROWS_PER_THREAD = 4
+# a block has at most MAX_THREADS threads of up to MAX_ROWS_PER_THREAD rows
+# each (csrc/soft_dtw.cu kMaxThreads: 128 registers a thread), so the
+# kernels take N <= MAX_ROWS = 4096 rows
+MAX_ROWS_PER_THREAD = 8
+MAX_THREADS = 512
+MAX_ROWS = MAX_ROWS_PER_THREAD * MAX_THREADS
+SMEM_PER_BLOCK = 232448
+# rows a thread: the fewest that keep a lattice within this many warps
+_MAX_WARPS = 10
 _c_fns = None
+_c_last = None
+
+
+@dataclass(frozen=True)
+class SoftDtwLaunch:
+    """One launch of a soft-DTW kernel, one block a lattice:
+    ``rows_per_thread`` (K), ``warps`` a block, ``threads`` a block,
+    ``steps`` anti-diagonals a chunk (P: the forward's prefetch distance and
+    both kernels' hand-over period between warps), ``ahead`` chunks of
+    weights staged ahead of the backward's chain (0 for the forward),
+    ``ring`` slots of each hand-over ring, ``smem_bytes`` a block,
+    ``blocks`` a launch."""
+
+    rows_per_thread: int
+    warps: int
+    threads: int
+    steps: int
+    ahead: int
+    ring: int
+    smem_bytes: int
+    blocks: int
+
+    @property
+    def record(self) -> dict:
+        """What the library records of this launch (``last_launch``)."""
+        return {"rows_per_thread": self.rows_per_thread, "threads": self.threads,
+                "steps": self.steps, "ahead": self.ahead, "ring": self.ring,
+                "smem_bytes": self.smem_bytes, "blocks": self.blocks}
+
+
+@dataclass(frozen=True)
+class SoftDtwPlan:
+    """Both launches of one call on (L, N, M) lattices, and the residual the
+    forward hands the backward: the skewed weights (L, N + M - 1, 3, Np) f32,
+    rows padded to ``Np`` (a multiple of 8, so a thread's rows are one
+    aligned vector)."""
+
+    fwd: SoftDtwLaunch
+    bwd: SoftDtwLaunch
+    residual_shape: tuple
+
+    @property
+    def residual_bytes(self) -> int:
+        return 4 * math.prod(self.residual_shape)
+
+
+def _padded_rows(N: int) -> int:
+    return -(-N // 8) * 8
+
+
+def _ring_bytes(warps: int, ring: int) -> int:
+    """csrc/soft_dtw.cu ring_bytes: each warp's hand-over ring of 8-byte
+    slots, and the warps' progress counts."""
+    return warps * ring * 8 + (warps + 3) // 4 * 16
+
+
+def fwd_smem_bytes(warps: int, K: int, P: int, ring: int) -> int:
+    """csrc/soft_dtw.cu fwd_smem_bytes: the rings, then each warp's chunk
+    of weights (P steps of 3 planes of its 32 K rows)."""
+    return _ring_bytes(warps, ring) + warps * P * 3 * 32 * K * 4
+
+
+def bwd_smem_bytes(warps: int, K: int, P: int, A: int, ring: int) -> int:
+    """csrc/soft_dtw.cu bwd_smem_bytes: A + 1 chunks of P steps of three
+    weights for each row, each warp's chunk of dD (P x (32 K + 1) floats),
+    then the rings."""
+    stage = (A + 1) * P * 3 * 32 * warps * K
+    ebuf = (warps * P * (32 * K + 1) + 3) // 4 * 4
+    return 4 * (stage + ebuf) + _ring_bytes(warps, ring)
+
+
+def _launch(L: int, N: int, K: int, P: int, A: int) -> SoftDtwLaunch:
+    warps = -(-(-(-N // K)) // 32)   # ceil(ceil(N / K) / 32)
+    ring = 4 * P
+    smem = bwd_smem_bytes(warps, K, P, A, ring) if A else fwd_smem_bytes(warps, K, P, ring)
+    return SoftDtwLaunch(K, warps, 32 * warps, P, A, ring, smem, L)
+
+
+@functools.lru_cache(maxsize=None)
+def soft_dtw_plan(L: int, N: int, M: int) -> SoftDtwPlan:
+    """The launches of the forward and backward kernels on L lattices of
+    N x M (N <= MAX_ROWS, M >= 1), one block a lattice.
+
+    Rows a thread: the fewest of 1, 2, 4 that keep a lattice within
+    ``_MAX_WARPS`` warps, else 8. Chunks: the forward's 16, 8, 8, 1 steps at
+    1, 2, 4, 8 rows a thread (its prefetch ring holds K x P distances a
+    thread), the backward's 8, 4, 2, 2 (a chunk's weights are 3 K P
+    registers), the longest each instantiation holds without a spill, with
+    one chunk staged ahead. ``scripts/bench_soft_dtw.py --sweep`` measured
+    the choices (H100): one row a thread beat two at 256 rows and four beat
+    eight at 1100; staging more chunks ahead, or two lattices a block,
+    gained nothing."""
+    if not (1 <= N <= MAX_ROWS and M >= 1 and L >= 1):
+        raise ValueError(f"soft_dtw kernels take 1 <= N <= {MAX_ROWS} rows, got "
+                         f"({L}, {N}, {M})")
+    K = next((k for k in (1, 2, 4) if -(-N // k) <= 32 * _MAX_WARPS), MAX_ROWS_PER_THREAD)
+    fwd = _launch(L, N, K, {1: 16, 2: 8, 4: 8, 8: 1}[K], 0)
+    bwd = _launch(L, N, K, {1: 8, 2: 4, 4: 2, 8: 2}[K], 1)
+    assert max(fwd.smem_bytes, bwd.smem_bytes) <= SMEM_PER_BLOCK, (fwd, bwd)
+    return SoftDtwPlan(fwd, bwd, (L, N + M - 1, 3, _padded_rows(N)))
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -47,6 +159,14 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(xx + yy - 2.0 * prod, min=0.0)
 
 
+def _diagonal_rows(N: int, M: int, device) -> tuple:
+    """(rows (N,), valid (N + M - 1, N), cols clamped): cell (i, d - i) of
+    anti-diagonal d, indexed by row i."""
+    rows = torch.arange(N, device=device)
+    cols = torch.arange(N + M - 1, device=device)[:, None] - rows[None, :]
+    return rows, (cols >= 0) & (cols < M), cols.clamp(0, M - 1)
+
+
 def soft_dtw_from_dist_plain(D: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
     """Plain, autograd-differentiable version for D (..., N, M) -> (...):
     ``_soft_dtw_from_dist_scan`` batched over lattices, one anti-diagonal
@@ -54,13 +174,10 @@ def soft_dtw_from_dist_plain(D: torch.Tensor, gamma: float = 1.0) -> torch.Tenso
     lead, (N, M) = D.shape[:-2], D.shape[-2:]
     D = D.reshape(-1, N, M)
     L, n_diag = D.shape[0], N + M - 1
-    rows = torch.arange(N, device=D.device)
-    d_idx = torch.arange(n_diag, device=D.device)[:, None]
-    cols = d_idx - rows[None, :]
-    valid = (cols >= 0) & (cols < M)                              # (n_diag, N)
+    rows, valid, cols = _diagonal_rows(N, M, D.device)
     inf = torch.full((), _INF, dtype=D.dtype, device=D.device)
     # the lattice skewed once: diags[:, d, i] = D[:, i, d - i] (INF outside)
-    diags = torch.where(valid, D[:, rows[None, :], cols.clamp(0, M - 1)], inf)
+    diags = torch.where(valid, D[:, rows[None, :], cols], inf)
     r_prev2 = r_prev = torch.full((L, N), _INF, dtype=D.dtype, device=D.device)
     first_row = rows[None, :] > 0
     for d in range(n_diag):
@@ -80,19 +197,116 @@ def soft_dtw_from_dist_plain(D: torch.Tensor, gamma: float = 1.0) -> torch.Tenso
     return r_prev[:, N - 1].reshape(lead)
 
 
+def residual_cells(N: int, M: int, device) -> torch.Tensor:
+    """(N + M - 1, 3, Np) bool: the entries of the residual that hold a
+    weight of a cell of the lattice (the kernel's residual holds nothing
+    defined elsewhere)."""
+    on = torch.zeros(N + M - 1, 3, _padded_rows(N), dtype=torch.bool, device=device)
+    on[..., :N] = _diagonal_rows(N, M, device)[1][:, None, :]
+    return on
+
+
+def _softmin_constants(gamma: float):
+    """c = log2(e) / gamma and gamma ln 2 in f32, as the kernels take them."""
+    return math.log2(math.e) / gamma, gamma * math.log(2.0)
+
+
+def soft_dtw_fwd_plain(D: torch.Tensor, gamma: float):
+    """The forward kernel's contract in plain PyTorch, one anti-diagonal of
+    every lattice a step: D (L, N, M) f32 -> (value (L,), W), W the skewed
+    weights (L, N + M - 1, 3, Np): W[l, d, x, i] the weight cell (i, d - i)
+    gives its predecessor x (0 up (i-1, j), 1 left (i, j-1), 2 diag
+    (i-1, j-1)), exp((m - R_x) / gamma) / S with m the least of the three and
+    S the sum, 0 off the lattice (where the kernel's entries are undefined).
+    The arithmetic is the kernel's: the softmin in base 2 with the
+    minimum's term 1, R = D + (m - gamma ln2 log2 S), R(0, 0) = D(0, 0)
+    through a diagonal input of 0."""
+    L, N, M = D.shape
+    dev, f32 = D.device, torch.float32
+    c, gl = (torch.tensor(v, dtype=f32, device=dev) for v in _softmin_constants(gamma))
+    rows, valid, cols = _diagonal_rows(N, M, dev)
+    inf = torch.full((), _INF, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    diags = D[:, rows[None, :], cols]                              # D skewed: (L, ndiag, N)
+    W = torch.zeros(L, N + M - 1, 3, _padded_rows(N), dtype=f32, device=dev)
+    r_prev2 = r_prev = torch.full((L, N), _INF, dtype=f32, device=dev)
+    first_row = rows[None, :] > 0
+    for d in range(N + M - 1):
+        up = torch.where(first_row, torch.roll(r_prev, 1, dims=1), inf)
+        left = r_prev
+        # (0, 0)'s diagonal input is 0, so its softmin is exactly 0
+        dg = torch.where(first_row, torch.roll(r_prev2, 1, dims=1), zero if d == 0 else inf)
+        mn, mx = torch.minimum(up, left), torch.maximum(up, left)
+        m, hi = torch.minimum(mn, dg), torch.maximum(mx, dg)
+        mid = torch.maximum(mn, torch.minimum(mx, dg))
+        e1, e2 = torch.exp2((m - mid) * c), torch.exp2((m - hi) * c)
+        S = (e1 + e2) + 1.0
+        r_new = torch.where(valid[d], diags[:, d] + (m - gl * torch.log2(S)), inf)
+        rS = 1.0 / S
+        a1, a2 = e1 * rS, e2 * rS
+        for x, v in enumerate((up, left, dg)):
+            w = torch.where(v == m, rS, torch.where(v == mid, a1, a2))
+            W[:, d, x, :N] = torch.where(valid[d], w, zero)
+        r_prev2, r_prev = r_prev, r_new
+    return r_prev[:, N - 1], W
+
+
+def soft_dtw_bwd_plain(W: torch.Tensor, g: torch.Tensor, N: int) -> torch.Tensor:
+    """The backward kernel's contract in plain PyTorch: the forward's
+    weights W (L, N + M - 1, 3, Np) of N-row lattices and the upstream
+    gradient g (L,) -> g * dValue/dD (L, N, M), by the E-recurrence in
+    reverse anti-diagonal order, E(i, j) = E(i, j+1) w_left(i, j+1) +
+    (E(i+1, j) w_up(i+1, j) + E(i+1, j+1) w_diag(i+1, j+1)), E(N-1, M-1) = 1."""
+    L, n_diag = W.shape[:2]
+    M = n_diag - N + 1
+    dev = W.device
+    rows, valid, cols = _diagonal_rows(N, M, dev)
+    zero = torch.zeros((L, 1), dtype=W.dtype, device=dev)
+    E = torch.zeros(L, n_diag, N, dtype=W.dtype, device=dev)
+    E[:, n_diag - 1, N - 1] = 1.0
+    # per diagonal, what a row sends the row above: E w_up of its own cell
+    # and E w_diag of its cell one diagonal later
+    up1 = E[:, n_diag - 1] * W[:, n_diag - 1, 0, :N]
+    dg2 = torch.zeros_like(up1)
+    for d in range(n_diag - 2, -1, -1):
+        e1 = E[:, d + 1]
+        from_below = torch.cat([(up1 + dg2)[:, 1:], zero], dim=1)   # rows i + 1
+        e = torch.where(valid[d], e1 * W[:, d + 1, 1, :N] + from_below, 0.0)
+        E[:, d] = e
+        dg2 = e1 * W[:, d + 1, 2, :N]
+        up1 = e * W[:, d, 0, :N]
+    return E[:, rows[:, None] + torch.arange(M, device=dev)[None, :], rows[:, None]] \
+        * g.to(W.dtype)[:, None, None]
+
+
 def _fns():
     global _c_fns
     if _c_fns is None:
         lib = build.load("soft_dtw")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = lib.lfs2_soft_dtw_fwd
-        fwd.argtypes = [p, p, p, i, i, i, f, p]
+        fwd.argtypes = [p, p, p, i, i, i, i, f, f, i, i, i, i, i, p]
         fwd.restype = ctypes.c_int
         bwd = lib.lfs2_soft_dtw_bwd
-        bwd.argtypes = [p, p, p, i, i, i, f, p]
+        bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
         bwd.restype = ctypes.c_int
         _c_fns = (lib, fwd, bwd)
     return _c_fns
+
+
+def last_launch() -> dict:
+    """The latest accepted launches as the library recorded them:
+    {"fwd": record, "bwd": record}, each as ``SoftDtwLaunch.record``."""
+    global _c_last
+    if _c_last is None:
+        fn = _fns()[0].lfs2_soft_dtw_last_launch
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _c_last = (fn, (ctypes.c_int * 14)())
+    fn, buf = _c_last
+    fn(buf)
+    keys = ("rows_per_thread", "threads", "steps", "ahead", "ring", "smem_bytes", "blocks")
+    return {part: dict(zip(keys, buf[7 * n:7 * n + 7])) for n, part in enumerate(("fwd", "bwd"))}
 
 
 def _check(D: torch.Tensor) -> None:
@@ -100,60 +314,72 @@ def _check(D: torch.Tensor) -> None:
         raise ValueError(f"soft_dtw kernels take an (L, N, M) f32 lattice, got "
                          f"{tuple(D.shape)} {D.dtype}")
     L, N, M = D.shape
-    if min(N, M) < 1 or N > MAX_ROWS_PER_THREAD * 1024:
-        raise ValueError(f"soft_dtw kernels take 1 <= N <= {MAX_ROWS_PER_THREAD * 1024} "
-                         f"rows, got {tuple(D.shape)}")
+    if min(N, M) < 1 or N > MAX_ROWS or N * M >= 2 ** 31:
+        raise ValueError(f"soft_dtw kernels take 1 <= N <= {MAX_ROWS} rows and N * M < 2^31, "
+                         f"got {tuple(D.shape)}")
 
 
 def soft_dtw_fwd(D: torch.Tensor, gamma: float):
-    """Launch the forward kernel on D (L, N, M) f32, one block per lattice;
-    returns (value (L,), R) with R the lattice skewed by anti-diagonal,
-    R[l, d, i] = R_l[i, d - i] (1e10 off the lattice), which the backward
-    reads. CUDA only."""
+    """Launch the forward kernel on D (L, N, M) f32, one block a lattice, as
+    ``soft_dtw_plan`` sizes it; returns (value (L,), W) with W the skewed
+    weights of ``soft_dtw_fwd_plain`` (entries off the lattice undefined),
+    which the backward reads. CUDA only."""
     _check(D)
     stream = kernel_stream(D)
     L, N, M = D.shape
+    plan = soft_dtw_plan(L, N, M)
     value = torch.empty(L, dtype=torch.float32, device=D.device)
-    R = torch.empty(L, N + M - 1, N, dtype=torch.float32, device=D.device)
+    W = torch.empty(plan.residual_shape, dtype=torch.float32, device=D.device)
+    c, gl = _softmin_constants(gamma)
+    f = plan.fwd
     lib, fn, _ = _fns()
-    rc = fn(D.data_ptr(), R.data_ptr(), value.data_ptr(), L, N, M, float(gamma), stream)
+    rc = fn(D.data_ptr(), W.data_ptr(), value.data_ptr(), L, N, M, W.shape[-1], c, gl,
+            f.rows_per_thread, f.warps, f.steps, f.ring, f.smem_bytes, stream)
     build.check(lib, rc, "soft_dtw")
     soft_dtw.launches += 1
-    return value, R
+    if last_launch()["fwd"] != f.record:
+        raise RuntimeError(f"soft_dtw launched {last_launch()['fwd']}, planned {f}")
+    return value, W
 
 
-def soft_dtw_bwd(R: torch.Tensor, g: torch.Tensor, gamma: float):
-    """Launch the backward kernel (the E-recurrence in reverse diagonal
-    order) on the forward's skewed lattice R (L, N + M - 1, N); returns
-    dValue/dD (L, N, M) scaled by the upstream gradient ``g`` (L,). CUDA
-    only."""
+def soft_dtw_bwd(W: torch.Tensor, g: torch.Tensor, N: int):
+    """Launch the backward kernel (the E-recurrence in reverse anti-diagonal
+    order) on the forward's weights W (L, N + M - 1, 3, Np) of N-row
+    lattices; returns dValue/dD (L, N, M) scaled by the upstream gradient
+    ``g`` (L,). CUDA only."""
     g = g.to(torch.float32).contiguous()
-    if R.dtype != torch.float32 or R.dim() != 3 or g.shape != (R.shape[0],):
-        raise ValueError(f"soft_dtw_bwd takes the forward's f32 lattice and g (L,), got "
-                         f"R {tuple(R.shape)} {R.dtype}, g {tuple(g.shape)}")
-    stream = kernel_stream(R, g)
-    L, n_diag, N = R.shape
+    L, n_diag = W.shape[:2]
     M = n_diag - N + 1
-    E = torch.empty(L, N, M, dtype=torch.float32, device=R.device)
+    if (W.dtype != torch.float32 or W.dim() != 4 or W.shape[2] != 3 or M < 1
+            or W.shape[3] != _padded_rows(N) or g.shape != (L,)):
+        raise ValueError(f"soft_dtw_bwd takes the forward's f32 weights of {N}-row lattices "
+                         f"and g (L,), got W {tuple(W.shape)} {W.dtype}, g {tuple(g.shape)}")
+    stream = kernel_stream(W, g)
+    plan = soft_dtw_plan(L, N, M)
+    dD = torch.empty(L, N, M, dtype=torch.float32, device=W.device)
+    b = plan.bwd
     lib, _, fn = _fns()
-    rc = fn(R.data_ptr(), g.data_ptr(), E.data_ptr(), L, N, M, float(gamma), stream)
+    rc = fn(W.data_ptr(), g.data_ptr(), dD.data_ptr(), L, N, M, W.shape[-1], b.rows_per_thread,
+            b.warps, b.steps, b.ahead, b.ring, b.smem_bytes, stream)
     build.check(lib, rc, "soft_dtw_bwd")
     soft_dtw_bwd.launches += 1
-    return E
+    if last_launch()["bwd"] != b.record:
+        raise RuntimeError(f"soft_dtw_bwd launched {last_launch()['bwd']}, planned {b}")
+    return dD
 
 
 class _SoftDTW(torch.autograd.Function):
     @staticmethod
     def forward(ctx, D, gamma):
-        value, R = soft_dtw_fwd(D, gamma)
-        ctx.save_for_backward(R)
-        ctx.gamma = gamma
+        value, W = soft_dtw_fwd(D, gamma)
+        ctx.save_for_backward(W)
+        ctx.rows = D.shape[1]
         return value
 
     @staticmethod
     def backward(ctx, g):
-        (R,) = ctx.saved_tensors
-        return soft_dtw_bwd(R, g, ctx.gamma), None
+        (W,) = ctx.saved_tensors
+        return soft_dtw_bwd(W, g, ctx.rows), None
 
 
 def soft_dtw_from_dist(D: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:

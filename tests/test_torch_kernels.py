@@ -6,7 +6,8 @@ against ``ffn_plan``) and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
-(value and dD), the length regulator's expand and segment-sum, and the
+(value and dD; each kernel alone against its plain twin; the launch record
+against ``soft_dtw_plan``; dD repeatable bit for bit), the length regulator's expand and segment-sum, and the
 FastDiff LVC chain ``lvc_stack`` (at the served batch too; the f32 route
 held to the chain in f64; every launch as recorded against ``lvc_plan``;
 the launches of one ε pass). Marked
@@ -689,13 +690,31 @@ def test_train_step_then_serving_forward_on_the_card(cuda_card):
     assert not torch.equal(after, before)
 
 
+def _soft_dtw_lattices(device, L, N, M, mel):
+    """D (L, N, M) f32: uniform in [0, 2), or (``mel``) squared distances of
+    a small bf16 prediction against unit targets over 80 channels, as the
+    mel loss forms them (R reaches ~1e4)."""
+    g = torch.Generator(device=device).manual_seed(N)
+    if mel:
+        pred = (0.5 * torch.randn(L, N, 80, device=device, generator=g)).to(torch.bfloat16)
+        truth = torch.randn(L, M, 80, device=device, generator=g)
+        return tsd.pairwise_sqdist(pred, truth).contiguous()
+    return torch.rand(L, N, M, device=device, generator=g) * 2.0
+
+
+# (L, N, M, mel-like D): the card's first shapes; the mel loss's 64 lattices
+# of the flagship's step; the longest lattice the kernels take (8 rows a
+# thread); the fewest rows the gate admits
+SOFT_DTW_CASES = [(4, 256, 256, False), (3, 31, 57, False), (2, 1100, 1100, False),
+                  (64, 256, 256, True), (2, 4096, 64, False), (5, 8, 300, False)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("gamma", [1.0, 0.1])
-@pytest.mark.parametrize("L,N,M", [(4, 256, 256), (3, 31, 57), (2, 1100, 1100)])
-def test_soft_dtw_kernels_match_plain(cuda_card, L, N, M, gamma):
+@pytest.mark.parametrize("L,N,M,mel", SOFT_DTW_CASES)
+def test_soft_dtw_kernels_match_plain(cuda_card, L, N, M, mel, gamma):
     # (2, 1100, 1100): more rows than one block has threads
-    g = torch.Generator(device=cuda_card).manual_seed(N)
-    D = torch.rand(L, N, M, device=cuda_card, generator=g) * 2.0
+    D = _soft_dtw_lattices(cuda_card, L, N, M, mel)
     n_fwd, n_bwd = tsd.soft_dtw.launches, tsd.soft_dtw_bwd.launches
     Dk = D.clone().requires_grad_(True)
     val = tsd.soft_dtw_from_dist(Dk, gamma)
@@ -709,6 +728,56 @@ def test_soft_dtw_kernels_match_plain(cuda_card, L, N, M, gamma):
     # alignment weights, within [0, 1.5]) to 1e-4 of the largest
     torch.testing.assert_close(val, ref, rtol=1e-5, atol=1e-5)
     _bulk_close(grad, ref_grad, 1e-4, 1e-6, "dD")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,N,M,mel", [(4, 256, 256, False), (8, 256, 256, True),
+                                       (2, 1100, 1100, False), (2, 4096, 64, False),
+                                       (5, 8, 300, False)])
+def test_soft_dtw_kernels_alone_match_their_plain_twins(cuda_card, L, N, M, mel):
+    gamma = 0.1
+    D = _soft_dtw_lattices(cuda_card, L, N, M, mel)
+    g = torch.linspace(0.5, 1.5, L, device=cuda_card)
+    value, W = tsd.soft_dtw_fwd(D, gamma)
+    ref_value, ref_W = tsd.soft_dtw_fwd_plain(D, gamma)
+    dD = tsd.soft_dtw_bwd(ref_W, g, N)
+    ref_dD = tsd.soft_dtw_bwd_plain(ref_W, g, N)
+    torch.cuda.synchronize()
+    # the forward: the same arithmetic, ex2 / lg2 / rcp.approx against exp2 /
+    # log2 / division; where that moves R by an ulp in a near tie a weight
+    # moves by up to ulp(R) / (4 gamma): 1e-3 at most, 1e-7 on average
+    torch.testing.assert_close(value, ref_value, rtol=1e-5, atol=1e-5)
+    err = (W - ref_W).abs()[:, tsd.residual_cells(N, M, cuda_card)]
+    assert err.max().item() <= 1e-3 and err.mean().item() <= 1e-7, (err.max(), err.mean())
+    # the backward on the same residual: the same products in the same
+    # order, one of them fused
+    _bulk_close(dD, ref_dD, 1e-5, 1e-7, "dD")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,N,M", [(64, 256, 256), (3, 31, 57), (2, 600, 80), (2, 1100, 1100),
+                                   (2, 4096, 64)])
+def test_soft_dtw_launch_record_matches_the_plan(cuda_card, L, N, M):
+    """Each launch as the library recorded it (lfs2_soft_dtw_last_launch) is
+    ops/soft_dtw.py soft_dtw_plan's: rows a thread 1, 1, 2, 4 and 8 here."""
+    D = torch.rand(L, N, M, device=cuda_card)
+    _, W = tsd.soft_dtw_fwd(D, 1.0)
+    tsd.soft_dtw_bwd(W, torch.ones(L, device=cuda_card), N)
+    torch.cuda.synchronize()
+    plan = tsd.soft_dtw_plan(L, N, M)
+    assert tsd.last_launch() == {"fwd": plan.fwd.record, "bwd": plan.bwd.record}
+    assert W.shape == plan.residual_shape
+
+
+@pytest.mark.gpu
+def test_soft_dtw_backward_is_deterministic(cuda_card):
+    # no atomics: every dD element is written once, by one thread
+    D = _soft_dtw_lattices(cuda_card, 64, 256, 256, True)
+    _, W = tsd.soft_dtw_fwd(D, 0.1)
+    g = torch.ones(64, device=cuda_card)
+    a, b = tsd.soft_dtw_bwd(W, g, 256), tsd.soft_dtw_bwd(W, g, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _regulate_inputs(device, dtype):

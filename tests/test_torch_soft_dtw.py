@@ -88,43 +88,58 @@ def test_soft_dtw_loss_matches_jax(T, chunk):
 
 
 def _kernel_twin(D, gamma, tpu_weights):
-    """The CUDA kernels' arithmetic in numpy f32, one anti-diagonal at a
-    time: the forward's R lattice, then dValue/dD by the E-recurrence with
-    each weight formed as csrc/soft_dtw.cu forms it, exp((m_n - R) / gamma)
-    / S_n from the successor n's softmin inputs, or (``tpu_weights``) as the
-    TPU kernel does, exp((R_n - R - D_n) / gamma)."""
+    """A kernel's arithmetic in numpy f32, one anti-diagonal at a time: the
+    value and dValue/dD. ``tpu_weights``: the TPU kernel's, R by the exp /
+    log softmin and the E-recurrence's weights exp((R_n - R - D_n) / gamma).
+    Otherwise csrc/soft_dtw.cu's: R = D + (m - gamma ln2 log2 S) with
+    S = 1 + 2^((m - mid) c) + 2^((m - hi) c), c = log2(e) / gamma (m, mid,
+    hi the three inputs in order, (0, 0)'s diagonal input 0), the forward
+    keeping each cell's weights to its predecessors, formed from its own
+    softmin inputs, and the backward's E(i, j) = E(i, j+1) w_left(i, j+1) +
+    (E(i+1, j) w_up(i+1, j) + E(i+1, j+1) w_diag(i+1, j+1))."""
     f32, inf = np.float32, np.float32(1e10)
     N, M = D.shape
     g = f32(gamma)
+    c, gl = f32(np.log2(np.e) / gamma), f32(gamma * np.log(2.0))
     R = np.full((N + 1, M + 1), inf, f32)   # R[i + 1, j + 1] is cell (i, j)
-    m_of = np.zeros((N, M), f32)
-    s_of = np.ones((N, M), f32)
+    Wt = np.zeros((3, N + 1, M + 1), f32)   # up, left, diag weights of cell (i, j)
     for d in range(N + M - 1):
         i = np.arange(max(0, d - M + 1), min(N, d + 1))
         j = d - i
         up, left, dg = R[i, j + 1], R[i + 1, j], R[i, j]
-        m = np.minimum(np.minimum(up, left), dg)
-        s = np.exp((m - up) / g) + np.exp((m - left) / g) + np.exp((m - dg) / g)
-        m_of[i, j], s_of[i, j] = m, s
-        R[i + 1, j + 1] = D[i, j] if d == 0 else D[i, j] + (m - g * np.log(s))
+        if tpu_weights:
+            m = np.minimum(np.minimum(up, left), dg)
+            s = np.exp((m - up) / g) + np.exp((m - left) / g) + np.exp((m - dg) / g)
+            R[i + 1, j + 1] = D[i, j] if d == 0 else D[i, j] + (m - g * np.log(s))
+            continue
+        if d == 0:
+            dg = np.zeros_like(dg)
+        mn, mx = np.minimum(up, left), np.maximum(up, left)
+        m, hi = np.minimum(mn, dg), np.maximum(mx, dg)
+        mid = np.maximum(mn, np.minimum(mx, dg))
+        e1, e2 = np.exp2((m - mid) * c), np.exp2((m - hi) * c)
+        S = (e1 + e2) + f32(1)
+        R[i + 1, j + 1] = D[i, j] + (m - gl * np.log2(S))
+        rS = f32(1) / S
+        for x, v in enumerate((up, left, dg)):
+            Wt[x, i, j] = np.where(v == m, rS, np.where(v == mid, e1 * rS, e2 * rS))
     Rc = R[1:, 1:]
     E = np.zeros((N + 1, M + 1), f32)
-    for d in range(N + M - 2, -1, -1):
+    E[N - 1, M - 1] = 1.0
+    for d in range(N + M - 3, -1, -1):
         i = np.arange(max(0, d - M + 1), min(N, d + 1))
         j = d - i
-        E[N - 1, M - 1] = 1.0
-        e = np.zeros(len(i), f32)
-        for di, dj in ((1, 0), (0, 1), (1, 1)):
-            ok = (i + di < N) & (j + dj < M)
-            a, b = np.minimum(i + di, N - 1), np.minimum(j + dj, M - 1)
-            if tpu_weights:
-                arg = (Rc[a, b] - Rc[i, j] - D[a, b]) / g
-                w = np.exp(np.clip(arg, -80, 30))
-            else:
-                w = np.exp(np.clip((m_of[a, b] - Rc[i, j]) / g, -80, 30)) / s_of[a, b]
-            e = e + np.where(ok, E[a, b] * w, f32(0))
+        if tpu_weights:
+            e = np.zeros(len(i), f32)
+            for di, dj in ((1, 0), (0, 1), (1, 1)):
+                ok = (i + di < N) & (j + dj < M)
+                a, b = np.minimum(i + di, N - 1), np.minimum(j + dj, M - 1)
+                w = np.exp(np.clip((Rc[a, b] - Rc[i, j] - D[a, b]) / g, -80, 30))
+                e = e + np.where(ok, E[a, b] * w, f32(0))
+        else:   # cells off the lattice hold E = 0 and weights 0
+            e = E[i, j + 1] * Wt[1, i, j + 1] + (E[i + 1, j] * Wt[0, i + 1, j]
+                                                 + E[i + 1, j + 1] * Wt[2, i + 1, j + 1])
         E[i, j] = e
-    E[N - 1, M - 1] = 1.0
     return Rc[N - 1, M - 1], E[:N, :M]
 
 
@@ -147,6 +162,27 @@ def test_kernel_backward_weights_keep_their_digits():
     np.testing.assert_allclose(tpu, pallas, rtol=0, atol=1e-5)   # the twin is the TPU kernel
     np.testing.assert_allclose(port, want, rtol=0, atol=1e-5)
     assert np.abs(tpu - want).max() > 1e-2
+
+
+@pytest.mark.parametrize("N,M", [(12, 40), (40, 12), (8, 33)])
+def test_plain_kernel_contract_matches_jax(N, M):
+    # the two kernels' contract in plain PyTorch, forward then backward, on
+    # two lattices with upstream gradients other than 1
+    rng = np.random.default_rng(N * 100 + M)
+    D = np.abs(rng.standard_normal((2, N, M))).astype(np.float32)
+    g = np.array([0.7, 1.3], np.float32)
+    value, W = tsd.soft_dtw_fwd_plain(torch.from_numpy(D), 0.1)
+    assert W.shape == tsd.soft_dtw_plan(2, N, M).residual_shape
+    assert not W[:, ~tsd.residual_cells(N, M, "cpu")].any()   # 0 off the lattice
+    dD = tsd.soft_dtw_bwd_plain(W, torch.from_numpy(g), N)
+    for l in range(2):
+        Dl = jnp.asarray(D[l])
+        # f32 recurrences in other orders of operations
+        for want in (jsd._soft_dtw_from_dist_scan(Dl, 0.1), soft_dtw_from_dist_pallas(Dl, 0.1, True)):
+            np.testing.assert_allclose(float(value[l]), float(want), rtol=1e-5)
+        # the scan's gradient: the Pallas backward's weights lose digits
+        want = g[l] * np.asarray(jax.grad(lambda d: jsd._soft_dtw_from_dist_scan(d, 0.1))(Dl))
+        np.testing.assert_allclose(dD[l].numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 def _soft_dtw_config(C):

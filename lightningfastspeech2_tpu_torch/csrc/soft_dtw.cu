@@ -9,11 +9,11 @@
 // (ops/soft_dtw.py _SoftDTW). The TPU kernels keep one lattice in VMEM,
 // skewed so that an anti-diagonal is one vector row.
 //
-// What bounds them on the H100. The bytes (D in, the residual out and back
-// in, dD out) take ~0.02 ms a kernel at the mel loss's 64 lattices of
-// 256 x 256, but each lattice is a chain of N + M - 1 dependent
-// anti-diagonals ("steps"), so the time is the chain's length times one
-// step. The design keeps the step short (ops/soft_dtw.py soft_dtw_plan
+// What bounds them on the H100. The function's bytes (D in and one float a
+// cell out; that float in and dD out) take ~0.01 ms a kernel at the mel
+// loss's 64 lattices of 256 x 256, but each lattice is a chain of N + M - 1
+// dependent anti-diagonals ("steps"), so the time is the chain's length
+// times one step. The design keeps the step short (ops/soft_dtw.py soft_dtw_plan
 // sizes every launch; scripts/bench_soft_dtw.py times it):
 //
 // * One block a lattice, every lattice of a call in one launch. A thread
@@ -25,14 +25,15 @@
 //   warp w - 1 fills a step at a time. A ring slot is one 64-bit word, the
 //   value and its step, so the reader checks the step it finds and no fence
 //   is needed; the reader reports how far it has read once a chunk of P
-//   steps. No block barrier after the first: each warp runs up to a few
-//   chunks ahead of the one below, and walks only the steps where its rows
-//   hold cells. The backward mirrors all of it upwards.
+//   steps, and a ring holds four chunks. No block barrier after the first:
+//   each warp runs up to a few chunks ahead of the one below, and walks only
+//   the steps where its rows hold cells. The backward mirrors all of it
+//   upwards.
 // * Nothing global on the chain. The forward loads D(i, s + P - i) of each
 //   row P steps before the step that uses it (a register ring indexed by
 //   the unrolled step); the backward stages its weights in shared memory
-//   with cp.async a chunk ahead. No load is consumed in the chunk that
-//   issues it.
+//   with cp.async one chunk ahead (staging more gained nothing). No load is
+//   consumed in the chunk that issues it.
 // * The forward's softmin in base 2 with the minimum's term not computed:
 //   m, mid and hi are the three inputs in order (five min / max), the
 //   minimum's exp is exactly 1, so S = 1 + ex2((m - mid) c) + ex2((m - hi) c)
@@ -43,16 +44,19 @@
 //   for every cell n, the weights its softmin gives its predecessors,
 //   w_x(n) = exp((m_n - R_x) / gamma) / S_n, formed from n's own softmin
 //   inputs (never as R_n - R_x - D_n, which loses digits where R ~ 1e4),
-//   skewed: W[l][d][x][i], x = up (i-1, j), left (i, j-1), diag (i-1, j-1),
-//   rows padded to Np. The backward pushes: cell n holds E(n), sends
-//   E(n) w_left(n) along its own row (a register), and E(n) w_up(n) +
+//   in each warp's band: W[l][w][t][x][r] is the weight of cell (i, s - i),
+//   i = 32 K w + r, s = 32 K w + t, t < 32 K + M - 1 (the steps where the
+//   warp's rows hold cells), x = up (i-1, j), left (i, j-1), diag
+//   (i-1, j-1). Three floats a cell where the function needs one (R): the
+//   price of a chain with no exp. The backward pushes: cell n holds E(n),
+//   sends E(n) w_left(n) along its own row (a register), and E(n) w_up(n) +
 //   E(n + (0, 1)) w_diag(n + (0, 1)) to the row above (a shuffle, or the
 //   ring between warps): one add and one FMA a cell on the chain. The TPU
 //   kernel clipped each weight's exponent to [-80, 30]; the exponent is
 //   never positive (m is the minimum), and the clip below changes a weight
 //   by at most exp(-80), so it is gone.
 // * Stores leave coalesced. A step's weights go to a warp buffer in shared
-//   memory, and a chunk's leave as float4 runs of the warp's rows; a
+//   memory, and a chunk's leave as one contiguous run of its band; a
 //   chunk's dD goes to a warp buffer and leaves as runs of P columns of a
 //   row (one row a lane would touch 32 cache lines a store).
 //
@@ -67,6 +71,7 @@ constexpr float kInf = 1e10f;  // ops/pallas_soft_dtw.py _INF
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 512;  // every instantiation: up to 128 registers a thread
 constexpr int kMaxSmem = 232448;
+constexpr int kRingChunks = 4;  // a hand-over ring holds this many chunks of P steps
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -187,14 +192,9 @@ template <int K> __device__ __forceinline__ void cp_async_vec(unsigned dst, cons
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
-// at most n of this thread's committed groups still in flight (n < 4)
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
-  }
+// at most N of this thread's committed groups still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // the steps (anti-diagonals) where warp w's rows hold cells, as chunks of P
@@ -214,57 +214,64 @@ __device__ __forceinline__ WarpSpan warp_span(int w, int K, int P, int N, int M)
 // Shared memory of a lattice's block of nwl warps, in bytes (each part a
 // multiple of 16): the forward's hand-over rings and progress counts; the
 // backward's weight stage, dD buffers, rings and counts.
-__host__ __device__ constexpr int ring_bytes(int nwl, int ring) {
-  return nwl * ring * 8 + ((nwl + 3) / 4) * 16;
+__host__ __device__ constexpr int ring_bytes(int nwl, int P) {
+  return nwl * kRingChunks * P * 8 + ((nwl + 3) / 4) * 16;
 }
 // the forward's weight buffer: each warp's chunk of P steps of 3 planes of
 // its 32 K rows
-__host__ __device__ constexpr int fwd_smem_bytes(int nwl, int K, int P, int ring) {
-  return ring_bytes(nwl, ring) + nwl * P * 3 * 32 * K * 4;
+__host__ __device__ constexpr int fwd_smem_bytes(int nwl, int K, int P) {
+  return ring_bytes(nwl, P) + nwl * P * 3 * 32 * K * 4;
 }
-__host__ __device__ constexpr int bwd_stage_floats(int nwl, int K, int P, int A) {
-  return (A + 1) * P * 3 * 32 * nwl * K;
+// two chunks of weights: the one the chain reads and the one in flight
+__host__ __device__ constexpr int bwd_stage_floats(int nwl, int K, int P) {
+  return 2 * P * 3 * 32 * nwl * K;
 }
 __host__ __device__ constexpr int bwd_ebuf_floats(int nwl, int K, int P) {
   return (nwl * P * (32 * K + 1) + 3) / 4 * 4;
 }
-__host__ __device__ constexpr int bwd_smem_bytes(int nwl, int K, int P, int A, int ring) {
-  return 4 * (bwd_stage_floats(nwl, K, P, A) + bwd_ebuf_floats(nwl, K, P)) + ring_bytes(nwl, ring);
+__host__ __device__ constexpr int bwd_smem_bytes(int nwl, int K, int P) {
+  return 4 * (bwd_stage_floats(nwl, K, P) + bwd_ebuf_floats(nwl, K, P)) + ring_bytes(nwl, P);
+}
+// floats of warp w's band of the residual: 32 K + M - 1 steps of 3 planes
+// of its 32 K rows
+__device__ __forceinline__ size_t band_floats(int K, int M) {
+  return static_cast<size_t>(32 * K + M - 1) * 3 * 32 * K;
 }
 
 // ---------------------------------------------------------------- forward
-// Shared memory: ring[nw][ring] (ring[w] holds R of the last row of warp
-// w - 1 at step s in slot s % ring), taken[nw] (the last step of ring[w]
+// Shared memory: ring[nw][RING] (ring[w] holds R of the last row of warp
+// w - 1 at step s in slot s % RING), taken[nw] (the last step of ring[w]
 // that warp w has read), wbuf[nw][P][3][32 K] (each warp's weights of a
-// chunk, its rows in order).
+// chunk, its rows in order: the band's layout).
 template <int K, int P>
 __global__ void __launch_bounds__(kMaxThreads)
     soft_dtw_wave_fwd(const float* __restrict__ D, float* __restrict__ W, float* __restrict__ value,
-                      int N, int M, int Np, float c, float gl, int ring) {
+                      int N, int M, float c, float gl) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int RING = kRingChunks * P, rmask = RING - 1;
   const int nw = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned long long* rings = reinterpret_cast<unsigned long long*>(smem);
-  int* taken = reinterpret_cast<int*>(rings + nw * ring);
+  int* taken = reinterpret_cast<int*>(rings + nw * RING);
   const int i0 = threadIdx.x * K;
   const WarpSpan sp = warp_span(w, K, P, N, M);
-  for (int x = threadIdx.x; x < nw * ring; x += blockDim.x) rings[x] = kEmptySlot;
+  for (int x = threadIdx.x; x < nw * RING; x += blockDim.x) rings[x] = kEmptySlot;
   if (lane == 0) taken[w] = sp.c_lo * P - 2;  // steps before its first need count as read
   __syncthreads();
-  const int rmask = ring - 1, s_value = N + M - 2;
+  const int s_value = N + M - 2;
   const bool consumer = w > 0, producer = w < nw - 1;
   // the steps at which warp w - 1's last row holds cells
   const int t_lo = sp.row_lo - 1, t_hi = sp.row_lo + M - 2;
-  const unsigned long long* ring_in = rings + w * ring;
-  const unsigned ring_out = smem_u32(rings + (w + 1) * ring);
-  // The weights go to a warp buffer a step, then out a chunk at a time with
-  // coalesced float4 stores: the warp's rows of step s, plane x are one run
-  // of 32 K floats at W + (l ndiag + s) 3 Np + x Np + row_lo. Lane l stores
-  // float4 e = l + 32 t of the chunk, of run e / (8 K), at 4 (e % (8 K)).
-  constexpr int F4 = 8 * K;
-  float* wbuf = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + ring_bytes(nw, ring)) +
+  const unsigned long long* ring_in = rings + w * RING;
+  const unsigned ring_out = smem_u32(rings + (w + 1) * RING);
+  // The weights go to a warp buffer a step, then out a chunk at a time: the
+  // chunk is one contiguous run of the warp's band (wbuf has its layout),
+  // stored as coalesced float4s, lane l the float4s l + 32 t. The band
+  // starts at the warp's first step, row_lo = c_lo P (P divides 32 K).
+  constexpr int F4_STEP = 3 * 8 * K;  // float4s of a step
+  const int band_steps = 32 * K + M - 1;
+  float* wbuf = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + ring_bytes(nw, P)) +
                 w * P * 3 * 32 * K;
-  float* Wl = W + static_cast<size_t>(blockIdx.x) * (N + M - 1) * 3 * Np + sp.row_lo;
-  const int ndiag = N + M - 1;
+  float* Wb = W + (static_cast<size_t>(blockIdx.x) * nw + w) * band_floats(K, M);
 
   // Cells off the lattice are computed like the others and never read by
   // one on it: before a row starts (j < 0) every input is ~1e10 and so is R;
@@ -296,7 +303,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int q = 0; q < P; ++q) ub[q] = kInf;
     }
     // before this chunk overwrites ring[w + 1], warp w + 1 has read what it held
-    if (producer && lane == 31) wait_progress<true>(taken + w + 1, s0 + P - 1 - ring);
+    if (producer && lane == 31) wait_progress<true>(taken + w + 1, s0 + P - 1 - RING);
     const unsigned slot0 = ring_out + (s0 & rmask) * 8;
 #pragma unroll
     for (int q = 0; q < P; ++q) {
@@ -325,7 +332,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         wv[2][k] = dg == m ? rS : (dg == mid ? a1 : a2);
       }
 #ifdef LFS2_SOFT_DTW_NO_MEMORY
-      if (Np < 0) {  // never true: keeps the weights live without a store
+      if (M < 0) {  // never true: keeps the weights live without a store
 #else
       {
 #endif
@@ -342,14 +349,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (consumer && lane == 0) put_progress(taken + w, s0 + P - 2);
 #ifndef LFS2_SOFT_DTW_NO_MEMORY
     __syncwarp();  // the chunk's weights are in wbuf
-    float* wch = Wl + static_cast<size_t>(s0) * 3 * Np;
+    const int t0 = s0 - sp.row_lo;  // the chunk's first step in the band
+    float* wch = Wb + static_cast<size_t>(t0) * 3 * 32 * K;
 #pragma unroll
     for (int t = 0; t < 3 * P * K / 4; ++t) {
-      const int e = lane + 32 * t, run = e / F4, col = 4 * (e % F4);
-      // runs past the last step or columns past Np are not the residual's
-      if (s0 + run / 3 < ndiag && sp.row_lo + col < Np)
-        *reinterpret_cast<float4*>(wch + static_cast<size_t>(run) * Np + col) =
-            *reinterpret_cast<const float4*>(wbuf + run * 32 * K + col);
+      const int e = lane + 32 * t;
+      if (t0 + e / F4_STEP < band_steps)  // steps past the band hold no cell
+        *reinterpret_cast<float4*>(wch + 4 * e) = *reinterpret_cast<const float4*>(wbuf + 4 * e);
     }
     __syncwarp();  // wbuf is read before the next chunk writes it
 #endif
@@ -357,57 +363,59 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // --------------------------------------------------------------- backward
-// Shared memory: stage[(A + 1) * P][3][T * K] (each
-// thread's weights of a chunk's steps, its own K rows at t * K),
+// Shared memory: stage[2 * P][3][T * K] (each thread's weights of two
+// chunks' steps, its own K rows at t * K),
 // ebuf[nw][P][32 K + 1] (each warp's dD of a chunk: step q's value of its
 // local row 32 k + l, the row lane l owns as its k-th, at [q][32 k + l]),
-// ring[nw][ring] (ring[w] holds what the first row of warp w + 1 sends up at
-// step s, in slot s % ring), taken[nw] (the lowest step of ring[w] that warp
+// ring[nw][RING] (ring[w] holds what the first row of warp w + 1 sends up at
+// step s, in slot s % RING), taken[nw] (the lowest step of ring[w] that warp
 // w has read). Steps run downwards.
 template <int K, int P>
 __global__ void __launch_bounds__(kMaxThreads)
     soft_dtw_wave_bwd(const float* __restrict__ W, const float* __restrict__ g,
-                      float* __restrict__ dD, int N, int M, int Np, int A, int ring) {
+                      float* __restrict__ dD, int N, int M) {
   extern __shared__ __align__(16) float smem[];
   // a lane's successive dD values of a chunk at ebuf[.. + t TSTEP]
   constexpr int WS = 32 * K + 1, RPI = 32 / P, TSTEP = RPI / K;
+  constexpr int RING = kRingChunks * P, rmask = RING - 1;
   static_assert(K * P <= 32, "a lane's writes of a chunk keep its row order");
   const int T = blockDim.x, nw = T >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int TK = T * K, nslot = A + 1;
+  const int TK = T * K;
   float* stage = smem;
-  float* ebuf = stage + bwd_stage_floats(nw, K, P, A) + w * P * WS;
+  float* ebuf = stage + bwd_stage_floats(nw, K, P) + w * P * WS;
   unsigned long long* rings = reinterpret_cast<unsigned long long*>(
-      stage + bwd_stage_floats(nw, K, P, A) + bwd_ebuf_floats(nw, K, P));
-  int* taken = reinterpret_cast<int*>(rings + nw * ring);
+      stage + bwd_stage_floats(nw, K, P) + bwd_ebuf_floats(nw, K, P));
+  int* taken = reinterpret_cast<int*>(rings + nw * RING);
   const int i0 = threadIdx.x * K;
   const WarpSpan sp = warp_span(w, K, P, N, M);
-  for (int x = threadIdx.x; x < nw * ring; x += T) rings[x] = kEmptySlot;
+  for (int x = threadIdx.x; x < nw * RING; x += T) rings[x] = kEmptySlot;
   if (lane == 0) taken[w] = sp.c_hi * P + P + 1;  // steps above its first need count as read
   __syncthreads();
-  const int rmask = ring - 1;
-  const float* Wl = W + static_cast<size_t>(blockIdx.x) * (N + M - 1) * 3 * Np + i0;
+  // this thread's rows in its warp's band, which starts at step row_lo
+  const float* Wb = W + (static_cast<size_t>(blockIdx.x) * nw + w) * band_floats(K, M) + lane * K;
   const float gl = g[blockIdx.x];
   const bool consumer = w < nw - 1, producer = w > 0;
   // the steps at which warp w + 1's first row holds cells
   const int t_lo = sp.row_hi, t_hi = sp.row_hi + M - 1;
-  const unsigned long long* ring_in = rings + w * ring;
-  const unsigned ring_out = smem_u32(rings + (w - 1) * ring);
+  const unsigned long long* ring_in = rings + w * RING;
+  const unsigned ring_out = smem_u32(rings + (w - 1) * RING);
   const unsigned n_on = i0 < N ? static_cast<unsigned>(min(i0 + K, N) - 1 - i0 + M) : 0u;
 
-  // copy this thread's weights of chunk ch into its ring slot (one group a
-  // chunk, empty past the last)
+  // copy this thread's weights of chunk ch into stage half ch % 2 (one
+  // group a chunk, empty past the last); a step of the thread's cells lies
+  // within the band (s - row_lo < (i0 - row_lo) + n_on <= 32 K + M - 1)
   const unsigned dst0 = smem_u32(stage + threadIdx.x * K);
   const auto issue = [&](int ch) {
 #ifndef LFS2_SOFT_DTW_NO_MEMORY
     if (ch >= sp.c_lo) {
-      const unsigned dst = dst0 + (ch % nslot) * P * 3 * TK * 4;
-      const float* src = Wl + static_cast<size_t>(ch) * P * 3 * Np;
+      const unsigned dst = dst0 + (ch & 1) * P * 3 * TK * 4;
+      const float* src = Wb + static_cast<size_t>(ch * P - sp.row_lo) * 3 * 32 * K;
 #pragma unroll
       for (int q = 0; q < P; ++q) {
         if (static_cast<unsigned>(ch * P + q - i0) < n_on) {
 #pragma unroll
           for (int x = 0; x < 3; ++x)
-            cp_async_vec<K>(dst + (q * 3 + x) * TK * 4, src + (q * 3 + x) * Np);
+            cp_async_vec<K>(dst + (q * 3 + x) * TK * 4, src + (q * 3 + x) * 32 * K);
         }
       }
     }
@@ -432,12 +440,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 #ifdef LFS2_SOFT_DTW_NO_MEMORY
   float sink = 0.0f;
 #endif
-  for (int a = 0; a < A; ++a) issue(sp.c_hi - a);
+  issue(sp.c_hi);
 
   for (int ch = sp.c_hi; ch >= sp.c_lo; --ch) {
-    issue(ch - A);
-    cp_async_wait(A);
-    const float* slot = stage + (ch % nslot) * P * 3 * TK + threadIdx.x * K;
+    issue(ch - 1);
+    cp_async_wait<1>();  // chunk ch has landed; ch - 1 may be in flight
+    const float* slot = stage + (ch & 1) * P * 3 * TK + threadIdx.x * K;
     const int s0 = ch * P;
     float ub[P];  // what the first row of warp w + 1 sent at steps s + 1
     if (consumer) {
@@ -447,7 +455,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int q = 0; q < P; ++q) ub[q] = 0.0f;
     }
     // before this chunk overwrites ring[w - 1], warp w - 1 has read what it held
-    if (producer && lane == 0) wait_progress<false>(taken + w - 1, s0 + ring);
+    if (producer && lane == 0) wait_progress<false>(taken + w - 1, s0 + RING);
     const unsigned slot0 = ring_out + (s0 & rmask) * 8;
 #pragma unroll
     for (int q = 0; q < P; ++q) {
@@ -494,13 +502,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 #ifdef LFS2_SOFT_DTW_NO_MEMORY
   if (sink == 12345.0f) dDl[0] = sink;  // keeps the chain live
 #endif
-  cp_async_wait(0);
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------- launches
 // the latest accepted launch of each kernel: rows a thread, threads, steps a
-// chunk, chunks staged ahead, ring, shared-memory bytes, blocks
-int g_last_launch[2][7];
+// chunk, shared-memory bytes, blocks
+int g_last_launch[2][5];
 
 // opt a kernel in to all the shared memory a block may have, once (a launch
 // then sets no attribute, so launches can be captured in a CUDA graph)
@@ -516,25 +524,23 @@ template <typename Kern> cudaError_t opt_in_smem(Kern kernel, int smem) {
 }
 
 // what every launch must satisfy: nwl warps of K rows a thread cover the N
-// rows with no warp empty, within the thread limit; a ring of a power of two
-// slots at least two chunks long
-bool launch_ok(int N, int M, int Np, int K, int nwl, int P, int ring) {
+// rows with no warp empty, within the thread limit
+bool launch_ok(int N, int M, int K, int nwl) {
   const int T = 32 * nwl;
-  return N >= 1 && M >= 1 && Np >= N && Np % 8 == 0 && nwl >= 1 && T <= kMaxThreads &&
-         T * K >= N && (T - 32) * K < N && ring >= 2 * P && (ring & (ring - 1)) == 0 &&
+  return N >= 1 && M >= 1 && nwl >= 1 && T <= kMaxThreads && T * K >= N && (T - 32) * K < N &&
          static_cast<long long>(N) * M < (1ll << 31);
 }
 
 template <typename Kern, typename... Args>
-int launch(int which, Kern kern, int L, int K, int nwl, int P, int A, int ring, int smem,
-           cudaStream_t stream, Args... args) {
+int launch(int which, Kern kern, int L, int K, int nwl, int P, int smem, cudaStream_t stream,
+           Args... args) {
   cudaError_t err = opt_in_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<L, 32 * nwl, smem, stream>>>(args...);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
-    const int rec[7] = {K, 32 * nwl, P, A, ring, smem, L};
-    for (int i = 0; i < 7; ++i) g_last_launch[which][i] = rec[i];
+    const int rec[5] = {K, 32 * nwl, P, smem, L};
+    for (int i = 0; i < 5; ++i) g_last_launch[which][i] = rec[i];
   }
   return static_cast<int>(err);
 }
@@ -543,51 +549,44 @@ int launch(int which, Kern kern, int L, int K, int nwl, int P, int A, int ring, 
 
 LFS2_DEFINE_ERROR_STRING
 
-// D (L, N, M) f32 -> W (L, N + M - 1, 3, Np) the skewed weights, value (L,).
-// c = log2(e) / gamma, gl = gamma * ln(2); K rows a thread, nwl warps a
-// lattice (one block), P steps a chunk.
+// D (L, N, M) f32 -> W (L, nwl, 32 K + M - 1, 3, 32 K) each warp's band of
+// weights, value (L,). c = log2(e) / gamma, gl = gamma * ln(2); K rows a
+// thread, nwl warps a lattice (one block), P steps a chunk.
 LFS2_EXPORT int lfs2_soft_dtw_fwd(const float* D, float* W, float* value, int L, int N, int M,
-                                  int Np, float c, float gl, int K, int nwl, int P, int ring,
-                                  int smem, void* stream) {
-  if (!launch_ok(N, M, Np, K, nwl, P, ring) || smem != fwd_smem_bytes(nwl, K, P, ring) ||
-      smem > kMaxSmem)
+                                  float c, float gl, int K, int nwl, int P, int smem,
+                                  void* stream) {
+  if (!launch_ok(N, M, K, nwl) || smem != fwd_smem_bytes(nwl, K, P) || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*kern)(const float*, float*, float*, int, int, int, float, float, int) = nullptr;
+  void (*kern)(const float*, float*, float*, int, int, float, float) = nullptr;
   if (K == 1 && P == 16) kern = soft_dtw_wave_fwd<1, 16>;
   if (K == 2 && P == 8) kern = soft_dtw_wave_fwd<2, 8>;
-  if (K == 4 && P == 4) kern = soft_dtw_wave_fwd<4, 4>;
   if (K == 4 && P == 8) kern = soft_dtw_wave_fwd<4, 8>;
   if (K == 8 && P == 1) kern = soft_dtw_wave_fwd<8, 1>;
   if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(0, kern, L, K, nwl, P, 0, ring, smem, static_cast<cudaStream_t>(stream), D, W,
-                value, N, M, Np, c, gl, ring);
+  return launch(0, kern, L, K, nwl, P, smem, static_cast<cudaStream_t>(stream), D, W, value, N,
+                M, c, gl);
 }
 
 // W from the forward, g (L,) the upstream gradient -> dD (L, N, M) = g * dValue/dD.
-// K rows a thread, nwl warps a lattice (one block), P steps a chunk, A
-// chunks of weights staged ahead of the chain.
+// K rows a thread, nwl warps a lattice (one block), P steps a chunk.
 LFS2_EXPORT int lfs2_soft_dtw_bwd(const float* W, const float* g, float* dD, int L, int N, int M,
-                                  int Np, int K, int nwl, int P, int A, int ring, int smem,
-                                  void* stream) {
-  if (!launch_ok(N, M, Np, K, nwl, P, ring) || A < 1 || A > 3 ||
-      smem != bwd_smem_bytes(nwl, K, P, A, ring) || smem > kMaxSmem)
+                                  int K, int nwl, int P, int smem, void* stream) {
+  if (!launch_ok(N, M, K, nwl) || smem != bwd_smem_bytes(nwl, K, P) || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*kern)(const float*, const float*, float*, int, int, int, int, int) = nullptr;
-  if (K == 1 && P == 4) kern = soft_dtw_wave_bwd<1, 4>;
+  void (*kern)(const float*, const float*, float*, int, int) = nullptr;
   if (K == 1 && P == 8) kern = soft_dtw_wave_bwd<1, 8>;
   if (K == 2 && P == 4) kern = soft_dtw_wave_bwd<2, 4>;
   if (K == 4 && P == 2) kern = soft_dtw_wave_bwd<4, 2>;
   if (K == 8 && P == 2) kern = soft_dtw_wave_bwd<8, 2>;
   if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(1, kern, L, K, nwl, P, A, ring, smem, static_cast<cudaStream_t>(stream), W, g,
-                dD, N, M, Np, A, ring);
+  return launch(1, kern, L, K, nwl, P, smem, static_cast<cudaStream_t>(stream), W, g, dD, N, M);
 }
 
-// the latest accepted launches: out[0..6] the forward's, out[7..13] the backward's
+// the latest accepted launches: out[0..4] the forward's, out[5..9] the backward's
 LFS2_EXPORT int lfs2_soft_dtw_last_launch(int* out) {
-  for (int i = 0; i < 7; ++i) {
+  for (int i = 0; i < 5; ++i) {
     out[i] = g_last_launch[0][i];
-    out[7 + i] = g_last_launch[1][i];
+    out[5 + i] = g_last_launch[1][i];
   }
   return 0;
 }

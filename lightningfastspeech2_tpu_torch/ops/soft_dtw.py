@@ -53,17 +53,13 @@ class SoftDtwLaunch:
     """One launch of a soft-DTW kernel, one block a lattice:
     ``rows_per_thread`` (K), ``warps`` a block, ``threads`` a block,
     ``steps`` anti-diagonals a chunk (P: the forward's prefetch distance and
-    both kernels' hand-over period between warps), ``ahead`` chunks of
-    weights staged ahead of the backward's chain (0 for the forward),
-    ``ring`` slots of each hand-over ring, ``smem_bytes`` a block,
+    both kernels' hand-over period between warps), ``smem_bytes`` a block,
     ``blocks`` a launch."""
 
     rows_per_thread: int
     warps: int
     threads: int
     steps: int
-    ahead: int
-    ring: int
     smem_bytes: int
     blocks: int
 
@@ -71,16 +67,14 @@ class SoftDtwLaunch:
     def record(self) -> dict:
         """What the library records of this launch (``last_launch``)."""
         return {"rows_per_thread": self.rows_per_thread, "threads": self.threads,
-                "steps": self.steps, "ahead": self.ahead, "ring": self.ring,
-                "smem_bytes": self.smem_bytes, "blocks": self.blocks}
+                "steps": self.steps, "smem_bytes": self.smem_bytes, "blocks": self.blocks}
 
 
 @dataclass(frozen=True)
 class SoftDtwPlan:
     """Both launches of one call on (L, N, M) lattices, and the residual the
-    forward hands the backward: the skewed weights (L, N + M - 1, 3, Np) f32,
-    rows padded to ``Np`` (a multiple of 8, so a thread's rows are one
-    aligned vector)."""
+    forward hands the backward: each warp's band of weights, (L, warps,
+    32 K + M - 1, 3, 32 K) f32 (``residual_bands``)."""
 
     fwd: SoftDtwLaunch
     bwd: SoftDtwLaunch
@@ -91,36 +85,52 @@ class SoftDtwPlan:
         return 4 * math.prod(self.residual_shape)
 
 
-def _padded_rows(N: int) -> int:
-    return -(-N // 8) * 8
+# a hand-over ring holds this many chunks of steps (csrc/soft_dtw.cu kRingChunks)
+_RING_CHUNKS = 4
+# the chunk lengths each rows-a-thread K is built with (csrc/soft_dtw.cu's
+# instantiations): the forward's prefetch ring holds K x P distances a
+# thread, the backward's chunk of weights 3 K P registers; the longest each
+# holds without a spill
+FWD_STEPS = {1: 16, 2: 8, 4: 8, 8: 1}
+BWD_STEPS = {1: 8, 2: 4, 4: 2, 8: 2}
 
 
-def _ring_bytes(warps: int, ring: int) -> int:
+def _ring_bytes(warps: int, P: int) -> int:
     """csrc/soft_dtw.cu ring_bytes: each warp's hand-over ring of 8-byte
-    slots, and the warps' progress counts."""
-    return warps * ring * 8 + (warps + 3) // 4 * 16
+    slots, four chunks of P steps, and the warps' progress counts."""
+    return warps * _RING_CHUNKS * P * 8 + (warps + 3) // 4 * 16
 
 
-def fwd_smem_bytes(warps: int, K: int, P: int, ring: int) -> int:
+def fwd_smem_bytes(warps: int, K: int, P: int) -> int:
     """csrc/soft_dtw.cu fwd_smem_bytes: the rings, then each warp's chunk
     of weights (P steps of 3 planes of its 32 K rows)."""
-    return _ring_bytes(warps, ring) + warps * P * 3 * 32 * K * 4
+    return _ring_bytes(warps, P) + warps * P * 3 * 32 * K * 4
 
 
-def bwd_smem_bytes(warps: int, K: int, P: int, A: int, ring: int) -> int:
-    """csrc/soft_dtw.cu bwd_smem_bytes: A + 1 chunks of P steps of three
-    weights for each row, each warp's chunk of dD (P x (32 K + 1) floats),
-    then the rings."""
-    stage = (A + 1) * P * 3 * 32 * warps * K
+def bwd_smem_bytes(warps: int, K: int, P: int) -> int:
+    """csrc/soft_dtw.cu bwd_smem_bytes: two chunks of P steps of three
+    weights for each row (the one the chain reads, the one in flight), each
+    warp's chunk of dD (P x (32 K + 1) floats), then the rings."""
+    stage = 2 * P * 3 * 32 * warps * K
     ebuf = (warps * P * (32 * K + 1) + 3) // 4 * 4
-    return 4 * (stage + ebuf) + _ring_bytes(warps, ring)
+    return 4 * (stage + ebuf) + _ring_bytes(warps, P)
 
 
-def _launch(L: int, N: int, K: int, P: int, A: int) -> SoftDtwLaunch:
-    warps = -(-(-(-N // K)) // 32)   # ceil(ceil(N / K) / 32)
-    ring = 4 * P
-    smem = bwd_smem_bytes(warps, K, P, A, ring) if A else fwd_smem_bytes(warps, K, P, ring)
-    return SoftDtwLaunch(K, warps, 32 * warps, P, A, ring, smem, L)
+def _warps(N: int, K: int) -> int:
+    return -(-N // (32 * K))
+
+
+def residual_bands(L: int, N: int, M: int, K: int) -> tuple:
+    """The residual's shape at K rows a thread: each warp's band of
+    32 K + M - 1 steps (those where its rows hold cells) of three weights of
+    its 32 K rows, (L, warps, 32 K + M - 1, 3, 32 K)."""
+    return (L, _warps(N, K), 32 * K + M - 1, 3, 32 * K)
+
+
+def _launch(L: int, N: int, K: int, P: int, fwd: bool) -> SoftDtwLaunch:
+    warps = _warps(N, K)
+    smem = fwd_smem_bytes(warps, K, P) if fwd else bwd_smem_bytes(warps, K, P)
+    return SoftDtwLaunch(K, warps, 32 * warps, P, smem, L)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,22 +139,25 @@ def soft_dtw_plan(L: int, N: int, M: int) -> SoftDtwPlan:
     N x M (N <= MAX_ROWS, M >= 1), one block a lattice.
 
     Rows a thread: the fewest of 1, 2, 4 that keep a lattice within
-    ``_MAX_WARPS`` warps, else 8. Chunks: the forward's 16, 8, 8, 1 steps at
-    1, 2, 4, 8 rows a thread (its prefetch ring holds K x P distances a
-    thread), the backward's 8, 4, 2, 2 (a chunk's weights are 3 K P
-    registers), the longest each instantiation holds without a spill, with
-    one chunk staged ahead. ``scripts/bench_soft_dtw.py --sweep`` measured
-    the choices (H100): one row a thread beat two at 256 rows and four beat
-    eight at 1100; staging more chunks ahead, or two lattices a block,
-    gained nothing."""
+    ``_MAX_WARPS`` warps, else 8; chunks of ``FWD_STEPS[K]`` and
+    ``BWD_STEPS[K]`` steps, the backward's weights staged one chunk ahead.
+    ``scripts/bench_soft_dtw.py --sweep`` measured the choices (H100): one
+    row a thread beat two at 256 rows and four beat eight at 1100; staging
+    more chunks ahead or two lattices a block gained nothing.
+
+    The residual (``residual_bands``) takes 4 L warps (32 K + M - 1) 3 (32 K)
+    bytes, at most 12 L (N + 255)(M + 255): three floats a cell and each
+    warp's start and end of band. At the mel loss's (64, 256, 256) that is
+    56.4 MB for 50.3 MB of cells; the most at 4096 rows is 12 L 4096
+    (M + 255) bytes, 31.4 MB at (2, 4096, 64)."""
     if not (1 <= N <= MAX_ROWS and M >= 1 and L >= 1):
         raise ValueError(f"soft_dtw kernels take 1 <= N <= {MAX_ROWS} rows, got "
                          f"({L}, {N}, {M})")
     K = next((k for k in (1, 2, 4) if -(-N // k) <= 32 * _MAX_WARPS), MAX_ROWS_PER_THREAD)
-    fwd = _launch(L, N, K, {1: 16, 2: 8, 4: 8, 8: 1}[K], 0)
-    bwd = _launch(L, N, K, {1: 8, 2: 4, 4: 2, 8: 2}[K], 1)
+    fwd = _launch(L, N, K, FWD_STEPS[K], True)
+    bwd = _launch(L, N, K, BWD_STEPS[K], False)
     assert max(fwd.smem_bytes, bwd.smem_bytes) <= SMEM_PER_BLOCK, (fwd, bwd)
-    return SoftDtwPlan(fwd, bwd, (L, N + M - 1, 3, _padded_rows(N)))
+    return SoftDtwPlan(fwd, bwd, residual_bands(L, N, M, K))
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -197,13 +210,47 @@ def soft_dtw_from_dist_plain(D: torch.Tensor, gamma: float = 1.0) -> torch.Tenso
     return r_prev[:, N - 1].reshape(lead)
 
 
+def _band_cells(N: int, M: int, K: int, device) -> tuple:
+    """(step, row, on), each (warps, 32 K + M - 1, 32 K): the anti-diagonal
+    and row of every entry of a band (clamped into the lattice's), and
+    whether it is a cell of the lattice."""
+    R, warps = 32 * K, _warps(N, K)
+    first = torch.arange(warps, device=device)[:, None, None] * R
+    row = first + torch.arange(R, device=device)[None, None, :]
+    step = first + torch.arange(R + M - 1, device=device)[None, :, None]
+    col = step - row
+    on = (row < N) & (col >= 0) & (col < M)
+    return step.clamp(max=N + M - 2), row.clamp(max=N - 1), on
+
+
+def _skewed_to_bands(Ws: torch.Tensor, N: int, M: int, K: int) -> torch.Tensor:
+    """Skewed weights (L, N + M - 1, 3, N) -> the bands at K rows a thread,
+    0 off the lattice."""
+    step, row, on = _band_cells(N, M, K, Ws.device)
+    bands = Ws.permute(0, 2, 1, 3)[:, :, step, row]          # (L, 3, warps, steps, 32 K)
+    return torch.where(on, bands, 0.0).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def _bands_to_skewed(W: torch.Tensor, N: int) -> torch.Tensor:
+    """The bands (L, warps, 32 K + M - 1, 3, 32 K) -> skewed weights
+    (L, N + M - 1, 3, N), 0 off the lattice."""
+    R = W.shape[-1]
+    M = W.shape[2] - R + 1
+    rows, valid, _ = _diagonal_rows(N, M, W.device)
+    d = torch.arange(N + M - 1, device=W.device)[:, None]
+    w, r = rows // R, rows % R
+    t = (d - w * R).clamp(0, W.shape[2] - 1)                  # (N + M - 1, N)
+    Ws = W.permute(0, 3, 1, 2, 4)[:, :, w[None, :], t, r[None, :]]   # (L, 3, ndiag, N)
+    return torch.where(valid, Ws, 0.0).permute(0, 2, 1, 3)
+
+
 def residual_cells(N: int, M: int, device) -> torch.Tensor:
-    """(N + M - 1, 3, Np) bool: the entries of the residual that hold a
-    weight of a cell of the lattice (the kernel's residual holds nothing
-    defined elsewhere)."""
-    on = torch.zeros(N + M - 1, 3, _padded_rows(N), dtype=torch.bool, device=device)
-    on[..., :N] = _diagonal_rows(N, M, device)[1][:, None, :]
-    return on
+    """(warps, 32 K + M - 1, 3, 32 K) bool at the plan's K: the entries of
+    the residual that hold a weight of a cell of the lattice (the kernel's
+    residual holds nothing defined elsewhere)."""
+    K = soft_dtw_plan(1, N, M).fwd.rows_per_thread
+    on = _band_cells(N, M, K, device)[2]
+    return on[:, :, None, :].expand(-1, -1, 3, -1)
 
 
 def _softmin_constants(gamma: float):
@@ -211,16 +258,9 @@ def _softmin_constants(gamma: float):
     return math.log2(math.e) / gamma, gamma * math.log(2.0)
 
 
-def soft_dtw_fwd_plain(D: torch.Tensor, gamma: float):
-    """The forward kernel's contract in plain PyTorch, one anti-diagonal of
-    every lattice a step: D (L, N, M) f32 -> (value (L,), W), W the skewed
-    weights (L, N + M - 1, 3, Np): W[l, d, x, i] the weight cell (i, d - i)
-    gives its predecessor x (0 up (i-1, j), 1 left (i, j-1), 2 diag
-    (i-1, j-1)), exp((m - R_x) / gamma) / S with m the least of the three and
-    S the sum, 0 off the lattice (where the kernel's entries are undefined).
-    The arithmetic is the kernel's: the softmin in base 2 with the
-    minimum's term 1, R = D + (m - gamma ln2 log2 S), R(0, 0) = D(0, 0)
-    through a diagonal input of 0."""
+def _skewed_weights(D: torch.Tensor, gamma: float):
+    """``soft_dtw_fwd_plain`` with the weights skewed, (L, N + M - 1, 3, N):
+    [l, d, x, i] the weight of cell (i, d - i), 0 off the lattice."""
     L, N, M = D.shape
     dev, f32 = D.device, torch.float32
     c, gl = (torch.tensor(v, dtype=f32, device=dev) for v in _softmin_constants(gamma))
@@ -228,7 +268,7 @@ def soft_dtw_fwd_plain(D: torch.Tensor, gamma: float):
     inf = torch.full((), _INF, dtype=f32, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
     diags = D[:, rows[None, :], cols]                              # D skewed: (L, ndiag, N)
-    W = torch.zeros(L, N + M - 1, 3, _padded_rows(N), dtype=f32, device=dev)
+    W = torch.zeros(L, N + M - 1, 3, N, dtype=f32, device=dev)
     r_prev2 = r_prev = torch.full((L, N), _INF, dtype=f32, device=dev)
     first_row = rows[None, :] > 0
     for d in range(N + M - 1):
@@ -246,17 +286,34 @@ def soft_dtw_fwd_plain(D: torch.Tensor, gamma: float):
         a1, a2 = e1 * rS, e2 * rS
         for x, v in enumerate((up, left, dg)):
             w = torch.where(v == m, rS, torch.where(v == mid, a1, a2))
-            W[:, d, x, :N] = torch.where(valid[d], w, zero)
+            W[:, d, x] = torch.where(valid[d], w, zero)
         r_prev2, r_prev = r_prev, r_new
     return r_prev[:, N - 1], W
 
 
+def soft_dtw_fwd_plain(D: torch.Tensor, gamma: float):
+    """The forward kernel's contract in plain PyTorch, one anti-diagonal of
+    every lattice a step: D (L, N, M) f32 -> (value (L,), W), W the weights
+    in the plan's bands (``residual_bands``): W[l, w, t, x, r] the weight
+    cell (i, s - i), i = 32 K w + r, s = 32 K w + t, gives its predecessor x
+    (0 up (i-1, j), 1 left (i, j-1), 2 diag (i-1, j-1)), exp((m - R_x) /
+    gamma) / S with m the least of the three and S the sum, 0 off the
+    lattice (where the kernel's entries are undefined). The arithmetic is
+    the kernel's: the softmin in base 2 with the minimum's term 1,
+    R = D + (m - gamma ln2 log2 S), R(0, 0) = D(0, 0) through a diagonal
+    input of 0."""
+    L, N, M = D.shape
+    value, Ws = _skewed_weights(D, gamma)
+    return value, _skewed_to_bands(Ws, N, M, soft_dtw_plan(L, N, M).fwd.rows_per_thread)
+
+
 def soft_dtw_bwd_plain(W: torch.Tensor, g: torch.Tensor, N: int) -> torch.Tensor:
     """The backward kernel's contract in plain PyTorch: the forward's
-    weights W (L, N + M - 1, 3, Np) of N-row lattices and the upstream
-    gradient g (L,) -> g * dValue/dD (L, N, M), by the E-recurrence in
-    reverse anti-diagonal order, E(i, j) = E(i, j+1) w_left(i, j+1) +
+    weights W (``soft_dtw_fwd_plain``'s bands) of N-row lattices and the
+    upstream gradient g (L,) -> g * dValue/dD (L, N, M), by the E-recurrence
+    in reverse anti-diagonal order, E(i, j) = E(i, j+1) w_left(i, j+1) +
     (E(i+1, j) w_up(i+1, j) + E(i+1, j+1) w_diag(i+1, j+1)), E(N-1, M-1) = 1."""
+    W = _bands_to_skewed(W, N)
     L, n_diag = W.shape[:2]
     M = n_diag - N + 1
     dev = W.device
@@ -285,10 +342,10 @@ def _fns():
         lib = build.load("soft_dtw")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = lib.lfs2_soft_dtw_fwd
-        fwd.argtypes = [p, p, p, i, i, i, i, f, f, i, i, i, i, i, p]
+        fwd.argtypes = [p, p, p, i, i, i, f, f, i, i, i, i, p]
         fwd.restype = ctypes.c_int
         bwd = lib.lfs2_soft_dtw_bwd
-        bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         bwd.restype = ctypes.c_int
         _c_fns = (lib, fwd, bwd)
     return _c_fns
@@ -302,11 +359,11 @@ def last_launch() -> dict:
         fn = _fns()[0].lfs2_soft_dtw_last_launch
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _c_last = (fn, (ctypes.c_int * 14)())
+        _c_last = (fn, (ctypes.c_int * 10)())
     fn, buf = _c_last
     fn(buf)
-    keys = ("rows_per_thread", "threads", "steps", "ahead", "ring", "smem_bytes", "blocks")
-    return {part: dict(zip(keys, buf[7 * n:7 * n + 7])) for n, part in enumerate(("fwd", "bwd"))}
+    keys = ("rows_per_thread", "threads", "steps", "smem_bytes", "blocks")
+    return {part: dict(zip(keys, buf[5 * n:5 * n + 5])) for n, part in enumerate(("fwd", "bwd"))}
 
 
 def _check(D: torch.Tensor) -> None:
@@ -321,7 +378,7 @@ def _check(D: torch.Tensor) -> None:
 
 def soft_dtw_fwd(D: torch.Tensor, gamma: float):
     """Launch the forward kernel on D (L, N, M) f32, one block a lattice, as
-    ``soft_dtw_plan`` sizes it; returns (value (L,), W) with W the skewed
+    ``soft_dtw_plan`` sizes it; returns (value (L,), W) with W the banded
     weights of ``soft_dtw_fwd_plain`` (entries off the lattice undefined),
     which the backward reads. CUDA only."""
     _check(D)
@@ -333,8 +390,8 @@ def soft_dtw_fwd(D: torch.Tensor, gamma: float):
     c, gl = _softmin_constants(gamma)
     f = plan.fwd
     lib, fn, _ = _fns()
-    rc = fn(D.data_ptr(), W.data_ptr(), value.data_ptr(), L, N, M, W.shape[-1], c, gl,
-            f.rows_per_thread, f.warps, f.steps, f.ring, f.smem_bytes, stream)
+    rc = fn(D.data_ptr(), W.data_ptr(), value.data_ptr(), L, N, M, c, gl, f.rows_per_thread,
+            f.warps, f.steps, f.smem_bytes, stream)
     build.check(lib, rc, "soft_dtw")
     soft_dtw.launches += 1
     if last_launch()["fwd"] != f.record:
@@ -344,14 +401,14 @@ def soft_dtw_fwd(D: torch.Tensor, gamma: float):
 
 def soft_dtw_bwd(W: torch.Tensor, g: torch.Tensor, N: int):
     """Launch the backward kernel (the E-recurrence in reverse anti-diagonal
-    order) on the forward's weights W (L, N + M - 1, 3, Np) of N-row
-    lattices; returns dValue/dD (L, N, M) scaled by the upstream gradient
-    ``g`` (L,). CUDA only."""
+    order) on the forward's banded weights W of N-row lattices
+    (``residual_bands``); returns dValue/dD (L, N, M) scaled by the upstream
+    gradient ``g`` (L,). CUDA only."""
     g = g.to(torch.float32).contiguous()
-    L, n_diag = W.shape[:2]
-    M = n_diag - N + 1
-    if (W.dtype != torch.float32 or W.dim() != 4 or W.shape[2] != 3 or M < 1
-            or W.shape[3] != _padded_rows(N) or g.shape != (L,)):
+    L = W.shape[0]
+    M = W.shape[2] - W.shape[-1] + 1 if W.dim() == 5 else 0
+    if (W.dtype != torch.float32 or M < 1 or not 1 <= N <= MAX_ROWS or not W.is_contiguous()
+            or tuple(W.shape) != soft_dtw_plan(L, N, M).residual_shape or g.shape != (L,)):
         raise ValueError(f"soft_dtw_bwd takes the forward's f32 weights of {N}-row lattices "
                          f"and g (L,), got W {tuple(W.shape)} {W.dtype}, g {tuple(g.shape)}")
     stream = kernel_stream(W, g)
@@ -359,8 +416,8 @@ def soft_dtw_bwd(W: torch.Tensor, g: torch.Tensor, N: int):
     dD = torch.empty(L, N, M, dtype=torch.float32, device=W.device)
     b = plan.bwd
     lib, _, fn = _fns()
-    rc = fn(W.data_ptr(), g.data_ptr(), dD.data_ptr(), L, N, M, W.shape[-1], b.rows_per_thread,
-            b.warps, b.steps, b.ahead, b.ring, b.smem_bytes, stream)
+    rc = fn(W.data_ptr(), g.data_ptr(), dD.data_ptr(), L, N, M, b.rows_per_thread, b.warps,
+            b.steps, b.smem_bytes, stream)
     build.check(lib, rc, "soft_dtw_bwd")
     soft_dtw_bwd.launches += 1
     if last_launch()["bwd"] != b.record:

@@ -7,8 +7,9 @@ First the card's name and power limit (nvidia-smi), then one JSON line per
 shape: the forward and backward kernels' times (CUDA events, warmed up, L2
 warm), the value and dD against the plain recurrence's autograd
 (``soft_dtw_from_dist_plain``), and the byte bound of each kernel: the
-function's own bytes (D in; the residual out and back in; dD out) at the
-H100's 3.35 TB/s. The shapes: the mel loss's lattices at the flagship's
+function's own bytes at the H100's 3.35 TB/s, the same for every tree (the
+forward D in and one float a cell out, the backward that float in and dD
+out), with the bytes the tree's residual moves beyond them beside it. The shapes: the mel loss's lattices at the flagship's
 training step (64 x 256 x 256 from 80 mel channels, gamma 0.1), the f32
 reference step's (8 x 256 x 256), and the card test's.
 
@@ -16,9 +17,9 @@ reference step's (8 x 256 x 256), and the card test's.
 parent commit) instead of this checkout, so two trees can be timed in
 turns in one run on one card; a tree without ``soft_dtw_plan`` is timed
 through its own API (the R lattice as the residual). ``--sweep`` times, at
-each shape, every launch the library takes (rows a thread; the forward's
-chunk of steps; the backward's chunk and chunks staged ahead), each held
-against the plain kernel contract: the data behind ``soft_dtw_plan``.
+each shape, the launch of every rows-a-thread the library is built for
+(``FWD_STEPS``, ``BWD_STEPS``), each held against the plain kernel
+contract: the data behind ``soft_dtw_plan``.
 ``--floor`` builds with ``LFS2_SOFT_DTW_NO_MEMORY`` (every global load and
 store of the chain taken out) and times one lattice and 64 at 256 x 256:
 the chain's own floor. ``--latency`` builds and runs a small CUDA program
@@ -30,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import inspect
-import itertools
 import json
 import os
 import subprocess
@@ -139,17 +139,20 @@ def shapes(dev, label) -> None:
         Dp = D.clone().requires_grad_(True)
         ref = sd.soft_dtw_from_dist_plain(Dp, gamma)
         (ref_grad,) = torch.autograd.grad(ref, Dp, up)
-        d_bytes = D.numel() * 4
+        cells = D.numel()
         res_bytes = res.numel() * 4
+        # the function's bytes: each input read once, each output written
+        # once, with one float a cell (R) between the two kernels
+        bound_ms = (8 * cells + 4 * L) / PEAK_BYTES_PER_S * 1e3
         row = {"phase": "soft_dtw", "label": label, "at": at,
                "fwd_ms": graph_ms(fwd), "bwd_ms": graph_ms(bwd),
                "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd),
                "value_rel_err": ((val - ref).abs() / ref.abs()).max().item(),
                "dD_err_of_largest": ((grad - ref_grad).abs().max()
                                      / ref_grad.abs().max()).item(),
+               "fwd_bound_ms": bound_ms, "bwd_bound_ms": bound_ms,
                "residual_bytes": res_bytes,
-               "fwd_bound_ms": (d_bytes + res_bytes + 4 * L) / PEAK_BYTES_PER_S * 1e3,
-               "bwd_bound_ms": (res_bytes + d_bytes + 4 * L) / PEAK_BYTES_PER_S * 1e3,
+               "residual_extra_bytes_a_cell": (res_bytes - 4 * cells) / cells,
                "serial_diagonals": N + M - 1}
         if hasattr(sd, "soft_dtw_plan"):
             plan = sd.soft_dtw_plan(L, N, M)
@@ -159,8 +162,10 @@ def shapes(dev, label) -> None:
 
 
 def sweep(dev) -> None:
-    """Every launch of each shape that the library accepts, timed and held
-    against the plain kernel contract; the plan's own launch marked."""
+    """At each shape, the launch of every rows-a-thread K the library is
+    built for (its chunk lengths ``FWD_STEPS[K]``, ``BWD_STEPS[K]``), timed
+    and held against the plain kernel contract; the plan's own launch
+    marked."""
     from lightningfastspeech2_tpu_torch.ops import soft_dtw as sd
 
     _, ffn, bfn = sd._fns()
@@ -168,51 +173,48 @@ def sweep(dev) -> None:
         D = lattices(L, N, M, mel, dev, seed=n)
         up = torch.linspace(0.5, 1.5, L, device=dev)
         plan = sd.soft_dtw_plan(L, N, M)
-        ref_v, ref_W = sd.soft_dtw_fwd_plain(D, gamma)
-        ref_dD = sd.soft_dtw_bwd_plain(ref_W, up, N)
-        on = torch.zeros(plan.residual_shape, dtype=torch.bool, device=dev)
-        on[..., :N] = sd._diagonal_rows(N, M, dev)[1][None, :, None, :]
+        ref_v, ref_Ws = sd._skewed_weights(D, gamma)
+        ref_dD = sd.soft_dtw_bwd_plain(sd._skewed_to_bands(ref_Ws, N, M, 1), up, N)
         c, gl = sd._softmin_constants(gamma)
         value = torch.empty(L, device=dev)
-        W = torch.empty(plan.residual_shape, device=dev)
         dD = torch.empty(L, N, M, device=dev)
-        for part in ("fwd", "bwd"):
-            rows = []
-            for K, P, A in itertools.product((1, 2, 4, 8), (2, 4, 8, 16),
-                                             (0,) if part == "fwd" else (1, 2, 3)):
-                warps, ring = -(-(-(-N // K)) // 32), 4 * P
+        rows = {"fwd": [], "bwd": []}
+        for K in sd.FWD_STEPS:
+            warps = sd._warps(N, K)
+            W = torch.empty(sd.residual_bands(L, N, M, K), device=dev)
+            ref_W = sd._skewed_to_bands(ref_Ws, N, M, K)
+            on = sd._band_cells(N, M, K, dev)[2][:, :, None, :].expand(-1, -1, 3, -1)
+            for part, P in (("fwd", sd.FWD_STEPS[K]), ("bwd", sd.BWD_STEPS[K])):
                 if part == "fwd":
-                    smem = sd.fwd_smem_bytes(warps, K, P, ring)
+                    smem = sd.fwd_smem_bytes(warps, K, P)
 
                     def launch():
-                        return ffn(D.data_ptr(), W.data_ptr(), value.data_ptr(), L, N, M,
-                                   W.shape[-1], c, gl, K, warps, P, ring, smem,
-                                   torch.cuda.current_stream().cuda_stream)
+                        return ffn(D.data_ptr(), W.data_ptr(), value.data_ptr(), L, N, M, c, gl,
+                                   K, warps, P, smem, torch.cuda.current_stream().cuda_stream)
                 else:
-                    smem = sd.bwd_smem_bytes(warps, K, P, A, ring)
+                    smem = sd.bwd_smem_bytes(warps, K, P)
 
                     def launch():
-                        return bfn(ref_W.data_ptr(), up.data_ptr(), dD.data_ptr(), L, N, M,
-                                   W.shape[-1], K, warps, P, A, ring, smem,
-                                   torch.cuda.current_stream().cuda_stream)
+                        return bfn(ref_W.data_ptr(), up.data_ptr(), dD.data_ptr(), L, N, M, K,
+                                   warps, P, smem, torch.cuda.current_stream().cuda_stream)
 
-                if launch() != 0:  # the library refuses what it does not take
+                if launch() != 0:  # more threads than a block holds
                     continue
                 torch.cuda.synchronize()
                 if part == "fwd":
                     err = max(((value - ref_v).abs() / ref_v.abs()).max().item(),
-                              (W - ref_W).abs()[on].max().item())
+                              (W - ref_W).abs()[:, on].max().item())
                 else:
                     err = ((dD - ref_dD).abs().max() / ref_dD.abs().max()).item()
-                rec = {"rows_per_thread": K, "threads": 32 * warps, "steps": P, "ahead": A,
-                       "ring": ring, "smem_bytes": smem, "blocks": L}
-                rows.append({**rec, "ms": graph_ms(launch), "err": err,
-                             "plan": rec == getattr(plan, part).record})
-            rows.sort(key=lambda r: r["ms"])
+                rec = {"rows_per_thread": K, "threads": 32 * warps, "steps": P,
+                       "smem_bytes": smem, "blocks": L}
+                rows[part].append({**rec, "ms": graph_ms(launch), "err": err,
+                                   "plan": rec == getattr(plan, part).record})
+        for part in ("fwd", "bwd"):
+            timed = sorted(rows[part], key=lambda r: r["ms"])
             emit({"phase": f"soft_dtw_sweep_{part}", "at": f"{what}: ({L}, {N}, {M}) gamma {gamma}",
-                  "plan": getattr(plan, part).record, "fastest": rows[:6],
-                  "plan_rank": next((i for i, r in enumerate(rows) if r["plan"]), None),
-                  "launches_timed": len(rows)})
+                  "plan": getattr(plan, part).record, "timed": timed,
+                  "plan_rank": next((i for i, r in enumerate(timed) if r["plan"]), None)})
 
 
 def floor(dev) -> None:

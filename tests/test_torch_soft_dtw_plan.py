@@ -2,7 +2,7 @@
 take (1 <= N <= 4096 rows, any M) gets a forward and a backward launch that
 the library accepts (an instantiated rows-a-thread and chunk length, the
 block and shared-memory limits, every row covered, no warp empty), the
-residual's layout, and the soft-DTW loss's folding of its chunks into one
+residual's layout (each warp's band) and its largest size, and the soft-DTW loss's folding of its chunks into one
 call (one forward and one backward launch a loss on the card). Needs no card
 and imports no JAX."""
 
@@ -31,15 +31,10 @@ def _check_launch(launch, N, kind):
     assert T == 32 * launch.warps and T <= tsd.MAX_THREADS
     assert T * K >= N and (T - 32) * K < N, (N, launch)   # every row, no empty warp
     assert K * P <= 32        # a warp's coalesced copies keep each lane's rows in order
-    assert launch.ring >= 2 * P and launch.ring & (launch.ring - 1) == 0
+    assert (32 * K) % P == 0  # a warp's band starts at a chunk's first step
     assert launch.smem_bytes <= tsd.SMEM_PER_BLOCK
-    if kind == "fwd":
-        assert launch.ahead == 0
-        assert launch.smem_bytes == tsd.fwd_smem_bytes(launch.warps, K, P, launch.ring)
-    else:
-        assert 1 <= launch.ahead <= 3
-        assert launch.smem_bytes == tsd.bwd_smem_bytes(launch.warps, K, P, launch.ahead,
-                                                       launch.ring)
+    smem = tsd.fwd_smem_bytes if kind == "fwd" else tsd.bwd_smem_bytes
+    assert launch.smem_bytes == smem(launch.warps, K, P)
 
 
 def test_plan_fits_every_row_count():
@@ -54,12 +49,38 @@ def test_plan_fits_every_row_count():
 @pytest.mark.parametrize("N,M", [(1, 1), (8, 300), (31, 57), (256, 256), (300, 8),
                                  (1100, 1100), (4096, 64), (4095, 5000)])
 def test_plan_residual_layout(N, M):
+    # each warp's band: the 32 K + M - 1 steps where its 32 K rows hold cells
     plan = tsd.soft_dtw_plan(2, N, M)
-    L, n_diag, planes, Np = plan.residual_shape
-    assert (L, n_diag, planes) == (2, N + M - 1, 3)
-    assert Np >= N and Np % 8 == 0 and Np - N < 8
-    assert plan.residual_bytes == 4 * 2 * n_diag * 3 * Np
+    K, warps = plan.fwd.rows_per_thread, plan.fwd.warps
+    assert plan.residual_shape == (2, warps, 32 * K + M - 1, 3, 32 * K)
+    assert plan.residual_bytes == 4 * 2 * warps * (32 * K + M - 1) * 3 * 32 * K
+    # the largest residual the kernels allocate (soft_dtw_plan's docstring)
+    assert plan.residual_bytes <= 12 * 2 * (N + 255) * (M + 255)
     assert int(tsd.residual_cells(N, M, "cpu").sum()) == 3 * N * M
+
+
+def test_residual_at_the_most_rows_stays_near_its_cells():
+    # 4096 rows of 64 columns: 16 warps' bands of 319 steps, 31.4 MB for
+    # 6.3 MB of cells (the full skew of N + M - 1 steps of every row would
+    # be 409 MB)
+    plan = tsd.soft_dtw_plan(2, tsd.MAX_ROWS, 64)
+    assert plan.residual_shape == (2, 16, 319, 3, 256)
+    assert plan.residual_bytes == 31_358_976
+    assert plan.residual_bytes < 5 * 12 * 2 * tsd.MAX_ROWS * 64
+
+
+@pytest.mark.parametrize("N,M", [(8, 33), (40, 12), (100, 7), (700, 30)])
+def test_bands_hold_every_cell_once(N, M):
+    # the skewed weights through the bands and back are unchanged; a band
+    # entry off the lattice is 0
+    g = torch.Generator().manual_seed(N)
+    K = tsd.soft_dtw_plan(1, N, M).fwd.rows_per_thread
+    valid = tsd._diagonal_rows(N, M, "cpu")[1]
+    Ws = torch.where(valid[None, :, None, :], torch.rand(2, N + M - 1, 3, N, generator=g), 0.0)
+    W = tsd._skewed_to_bands(Ws, N, M, K)
+    assert W.shape == tsd.soft_dtw_plan(2, N, M).residual_shape
+    assert not W[:, ~tsd.residual_cells(N, M, "cpu")].any()
+    assert torch.equal(tsd._bands_to_skewed(W, N), Ws)
 
 
 @pytest.mark.parametrize("N,K,warps", [(8, 1, 1), (256, 1, 8), (320, 1, 10), (600, 2, 10),

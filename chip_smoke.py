@@ -88,9 +88,13 @@ Phases, each printed as one JSON line:
     the byte bound of the function's own bytes (D in and one float a cell
     out; that float in and dD out) and the bytes the kernels' residual of
     three floats a cell moves beyond it;
-    the length regulator's expand and segment-sum at the flagship's
-    (8, 256, 256) bf16 -> 2048 frames against the gather (forward bit for
-    bit), with the gather timed as the library yardstick.
+    the length regulator's two kernels at the flagship's (8, 256, 256) bf16
+    -> 2048 frames with int64 durations against the gather (forward bit for
+    bit, the running sums it writes, the gradient within one bf16 ulp), each
+    kernel's device ms a launch from torch.profiler beside its event ms and
+    the whole call's host µs, with the gather timed as the library
+    yardstick; one regulator call must run one device kernel forward and
+    one backward, by the profiler's count.
 11. soft-DTW training (this slice's main path): phase 8's step with
     ``mel_loss="soft_dtw"`` and ``LFS2_PALLAS_LR=1`` set in the process, 1
     warm-up and 3 timed steps; the launch counters, set to 0 just before,
@@ -1193,7 +1197,7 @@ def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
            "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
            "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
            "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
-           "regulate": "regulate_expand_kernel", "regulate_bwd": "regulate_segsum_kernel",
+           "regulate": "regulate_fwd_kernel", "regulate_bwd": "regulate_bwd_kernel",
            "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
            "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
     out = {k: 0.0 for k in fam}
@@ -1545,10 +1549,51 @@ def _soft_dtw_case(dev, g) -> dict:
     return {"fwd": row_f, "bwd": row_b}
 
 
+def device_kernels(fn, calls: int = 20, windows: int = 3) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: the device kernels
+    (copies and fills included) a call, by name, and the device ms a call.
+    The profiler on this card now and then drops a kernel's record, or a
+    whole window's: each name counts round(records / calls) kernels a call
+    (at least one once seen), its ms the mean of its records, and of up to
+    ``windows`` windows the one with the most records is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = {e.key for e in events if e.device_type == DeviceType.CPU}
+        rows = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA and e.key not in host and e.count:
+                name = re.split(r"[<(]", e.key.removeprefix("void ").replace(
+                    "(anonymous namespace)::", ""), maxsplit=1)[0]
+                t, c = rows.get(name, (0.0, 0))
+                rows[name] = (t + e.self_device_time_total, c + e.count)
+        records = sum(c for _, c in rows.values())
+        if best is None or records > best[0]:
+            best = (records, rows)
+        if records and all(c % calls == 0 for _, c in rows.values()):
+            break
+    records, rows = best
+    a_call = {n: max(1, round(c / calls)) for n, (_, c) in rows.items()}
+    return {"device_ms": sum(t / c * a_call[n] for n, (t, c) in rows.items()) / 1e3,
+            "kernels": sum(a_call.values()), "names": sorted(rows),
+            "records": records, "calls": calls}
+
+
 def _regulate_case(dev, g) -> dict:
-    """The regulator's expand and segment-sum at the flagship's shape: x
-    (8, 256, 256) bf16 -> 2048 frames, ragged durations (a zero-duration
-    phone every fifth, one item over T), against the gather."""
+    """The regulator's two kernels at the flagship's shape: x (8, 256, 256)
+    bf16 -> 2048 frames, int64 durations as the model rounds them, ragged (a
+    zero-duration phone every fifth, one item over T), against the gather;
+    device ms from the profiler beside the event ms and host µs, and one
+    device kernel a direction."""
     from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
 
     B, P, H, T, dtype = TRAIN_B, TRAIN_P, 256, TRAIN_T, torch.bfloat16
@@ -1560,9 +1605,11 @@ def _regulate_case(dev, g) -> dict:
     dout = torch.randn(B, T, H, generator=g).to(dev, dtype)
     xk = x.clone().requires_grad_(True)
     frames, mask = lr.regulate_kernel(xk, d, T)
-    (grad,) = torch.autograd.grad(frames, xk, dout)
+    (grad,) = torch.autograd.grad(frames, xk, dout, retain_graph=True)
     ref, ref_mask = lr.regulate_plain(x, d, T)
-    # the segment-sum adds in f32 and rounds once: against the f32 gather's
+    _, _, ends = lr.regulate_fwd(x, d, T)
+    want_ends = torch.cumsum(d.clamp(min=0).to(torch.int32), -1, dtype=torch.int32)
+    # the backward adds in f32 and rounds once: against the f32 gather's
     # gradient of the same inputs, rounded once, within one bf16 ulp
     xf = x.float().requires_grad_(True)
     (want,) = torch.autograd.grad(lr.regulate_plain(xf, d, T)[0], xf, dout.float())
@@ -1571,8 +1618,7 @@ def _regulate_case(dev, g) -> dict:
     torch.cuda.synchronize()
     exact = torch.equal(frames, ref) and torch.equal(mask, ref_mask)
     g_err = (grad.float() - want).abs()
-    at = f"x ({B}, {P}, {H}) bf16 -> {T} frames, ragged durations"
-    ends = torch.cumsum(d.clamp(min=0).to(torch.int32), -1, dtype=torch.int32)
+    at = f"x ({B}, {P}, {H}) bf16 -> {T} frames, int64 ragged durations"
     # the gather as one PyTorch call on the precomputed frame -> phone index
     t = torch.arange(T, device=dev)
     idx = torch.searchsorted(ends.long(), t.expand(B, T).contiguous(), right=True).clamp(max=P - 1)
@@ -1581,34 +1627,72 @@ def _regulate_case(dev, g) -> dict:
     gathered = torch.gather(xg, 1, idx)
     pp = x.clone().requires_grad_(True)
     plain_out = lr.regulate_plain(pp, d, T)[0]
-    row_f = {"name": "regulate", "at": at, "max_abs_err": (frames.float() - ref.float()).abs().max().item(),
-             "tol": 0.0, "bit_exact": exact,
-             "ms": cuda_ms(lambda: lr.regulate_fwd(x, ends, T)),
+
+    def call():                            # as in training: x needs its gradient
+        return lr.regulate_kernel(xk, d, T)
+
+    def call_bwd():
+        return torch.autograd.grad(frames, xk, dout, retain_graph=True)
+
+    def gather_bwd():
+        return torch.autograd.grad(gathered, xg, dout, retain_graph=True)
+
+    fwd_prof, bwd_prof = device_kernels(call), device_kernels(call_bwd)
+    lib_prof = device_kernels(lambda: torch.gather(x, 1, idx))
+    lib_bwd_prof = device_kernels(gather_bwd)
+    # ms: the kernel's device time a launch (torch.profiler); event_ms: CUDA
+    # events around a run of wrapper calls, which follow the host where it
+    # is slower; host_us: the whole regulate_kernel call (mask included) or
+    # its backward through autograd, on the host clock; plain_ms: events
+    # around regulate_plain (the gather and its index work) or its backward
+    row_f = {"name": "regulate", "at": at,
+             "max_abs_err": (frames.float() - ref.float()).abs().max().item(),
+             "tol": 0.0, "bit_exact": exact, "ends_equal": torch.equal(ends, want_ends),
+             "ms": fwd_prof["device_ms"], "kernels_a_call": fwd_prof["kernels"],
+             "kernel_names": fwd_prof["names"], "profiler_records": fwd_prof["records"],
+             "event_ms": cuda_ms(lambda: lr.regulate_fwd(x, d, T)),
              "plain_ms": cuda_ms(lambda: lr.regulate_plain(x, d, T)),
-             "library_ms": cuda_ms(lambda: torch.gather(x, 1, idx)),
+             "library_ms": lib_prof["device_ms"],
+             "library_event_ms": cuda_ms(lambda: torch.gather(x, 1, idx)),
              "library": "torch.gather on the precomputed frame -> phone index"}
     row_b = {"name": "regulate_bwd", "at": at, "max_abs_err": g_err.max().item(),
              "tol": "one bf16 ulp of the f32 gather's gradient rounded once",
-             "ms": cuda_ms(lambda: lr.regulate_bwd(dout, ends)),
+             "ms": bwd_prof["device_ms"], "kernels_a_call": bwd_prof["kernels"],
+             "kernel_names": bwd_prof["names"], "profiler_records": bwd_prof["records"],
+             "event_ms": cuda_ms(lambda: lr.regulate_bwd(dout, ends)),
              "plain_ms": cuda_ms_grad(plain_out, pp, dout),
-             "library_ms": cuda_ms_grad(gathered, xg, dout),
+             "library_ms": lib_bwd_prof["device_ms"],
+             "library_event_ms": cuda_ms_grad(gathered, xg, dout),
              "library_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
                  torch.gather(xg, 1, idx), xg, dout)),
-             "library": "torch.gather's backward (a scatter-add)"}
-    # host-clock µs per call with no synchronise between calls: the event
-    # times above follow the host where it takes longer than the device
-    row_f["host_us"] = host_us(lambda: lr.regulate_fwd(x, ends, T), 2000)
+             "library": "torch.gather's backward (a fill and a scatter-add)"}
+    row_f["host_us"] = host_us(call, 2000)
+    row_f["launch_host_us"] = host_us(lambda: lr.regulate_fwd(x, d, T), 2000)
     row_f["library_host_us"] = host_us(lambda: torch.gather(x, 1, idx), 2000)
-    row_b["host_us"] = host_us(lambda: lr.regulate_bwd(dout, ends), 2000)
-    nb_x, nb_f = tensor_bytes(x), B * T * H * x.element_size()
-    row_f["bound_ms"], row_f["bound_by"] = bound_ms(0, nb_x + nb_f + tensor_bytes(ends), dtype)
-    row_b["bound_ms"], row_b["bound_by"] = bound_ms(B * T * H, nb_f + nb_x + tensor_bytes(ends),
-                                                    dtype)
+    row_b["host_us"] = host_us(call_bwd, 2000)
+    row_b["launch_host_us"] = host_us(lambda: lr.regulate_bwd(dout, ends), 2000)
+    row_b["library_host_us"] = host_us(gather_bwd, 2000)
+    # the bytes this run's data needs, each read or written once: the
+    # durations, the x rows that own a frame below T, frames, mask and ends;
+    # g's frames below each item's total, ends and dx
+    row_bytes = H * x.element_size()
+    starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    x_rows = int(((ends > starts) & (starts < T)).sum())
+    g_rows = int(ends[:, -1].clamp(max=T).sum())
+    nb_f = B * T * row_bytes
+    row_f["bound_ms"], row_f["bound_by"] = bound_ms(
+        0, tensor_bytes(d, ends, mask) + x_rows * row_bytes + nb_f, dtype)
+    row_b["bound_ms"], row_b["bound_by"] = bound_ms(
+        g_rows * H, g_rows * row_bytes + tensor_bytes(ends) + tensor_bytes(x), dtype)
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
-    if not exact or not bool((g_err <= ulp).all()):
-        raise RuntimeError(f"regulate at {at}: forward bit-exact {exact}, "
-                           f"gradient off by {g_err.max().item()}")
+    if not exact or not row_f["ends_equal"] or not bool((g_err <= ulp).all()):
+        raise RuntimeError(f"regulate at {at}: forward bit-exact {exact}, ends "
+                           f"{row_f['ends_equal']}, gradient off by {g_err.max().item()}")
+    if (fwd_prof["kernels"], bwd_prof["kernels"]) != (1, 1):
+        raise RuntimeError(f"regulate at {at}: a forward call ran {fwd_prof['names']} "
+                           f"({fwd_prof['kernels']} kernels), a backward {bwd_prof['names']} "
+                           f"({bwd_prof['kernels']}); one kernel a direction expected")
     return {"fwd": row_f, "bwd": row_b}
 
 
@@ -1962,7 +2046,8 @@ def main() -> int:
                 "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": ns[r["name"]],
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at")},
-                **{k: r[k] for k in ("serial_diagonals", "library_fwd_bwd_ms") if k in r}})
+                **{k: r[k] for k in ("serial_diagonals", "library_fwd_bwd_ms", "event_ms",
+                                     "kernels_a_call", "host_us", "library_event_ms") if k in r}})
     # lvc_stack at stage 3 of the served bucket in bf16; the other stages
     # and the f32 route (the generate CLI's default) ride along
     lvc_keys = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "launch")

@@ -13,7 +13,7 @@ object built.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -40,22 +40,24 @@ def require_kernel_device(device: torch.device) -> None:
     _capable.add(index)
 
 
-def kernel_stream(*tensors: Optional[torch.Tensor]) -> int:
+def kernel_stream(*tensors: Optional[torch.Tensor],
+                  strided: Sequence[torch.Tensor] = ()) -> int:
     """Check the tensors of one launch (``None`` entries are skipped) and
     return the raw handle of their device's current stream. Raises on a
     non-contiguous tensor, on tensors that span devices, on a tensor off
-    CUDA and on a card of another capability."""
+    CUDA and on a card of another capability. ``strided`` tensors are held
+    to the same device but may have any strides: the kernel takes them."""
     index = None
     first = None
-    for t in tensors:
+    for n, t in enumerate((*tensors, *strided)):
         if t is None:
             continue
-        if not t.is_contiguous():
+        if n < len(tensors) and not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
         if first is None:
             first, index = t, t.get_device()
         elif t.get_device() != index or (not t.is_cuda and t.device != first.device):
-            devs = {u.device for u in tensors if u is not None}
+            devs = {u.device for u in (*tensors, *strided) if u is not None}
             raise ValueError(f"kernel inputs span devices {devs}")
     # a CPU or meta tensor's index is -1, never a checked card's
     if index not in _capable:

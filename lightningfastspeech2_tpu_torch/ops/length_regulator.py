@@ -9,10 +9,12 @@ is True at valid frames.
 ``regulate`` is the gather (``regulate_plain``), the JAX package's default.
 The JAX package's own opt-in, ``LFS2_PALLAS_LR`` set to ``1``, ``true`` or
 ``on`` (read at each call), routes a 3-D ``x`` on a CUDA tensor with
-``max_frames % 256 == 0`` to ``regulate_kernel``: the expand and
-segment-sum kernels of ``csrc/length_regulator.cu`` (``regulate_pallas``'s
-``_expand_kernel`` and ``_grad_kernel``) through an autograd Function. The
-switch turns a kernel on, never off.
+``max_frames % 256 == 0`` to ``regulate_kernel``: one launch of
+``csrc/length_regulator.cu``'s forward kernel, which takes the durations
+and writes the frames, the mask and the running sums, and one of its
+backward kernel, the segment-sum from those sums (``regulate_pallas``'s
+``_expand_kernel`` and ``_grad_kernel`` with the work around them), through
+an autograd Function. The switch turns a kernel on, never off.
 """
 
 from __future__ import annotations
@@ -69,53 +71,106 @@ def regulate_plain(x: torch.Tensor, durations: torch.Tensor,
     return frames, mask
 
 
+SM_COUNT = 132         # the H100 SXM's SMs
+# the forward's frames a block: the plan picks one, the bench's sweep times each
+FRAMES_PER_BLOCK = (16, 32, 64, 128, 256)
+
+
+def fwd_frames_per_block(B: int, T: int) -> int:
+    """The forward's run of frames a block: the longest in FRAMES_PER_BLOCK
+    whose grid, B * ceil(T / F) blocks, still gives every SM a block, else
+    the shortest."""
+    for F in reversed(FRAMES_PER_BLOCK):
+        if B * -(-T // F) >= SM_COUNT:
+            return F
+    return FRAMES_PER_BLOCK[0]
+
+
+def regulate_fwd_plain(x: torch.Tensor, durations: torch.Tensor, max_frames: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel's contract in PyTorch: (frames (B, T, H), mask
+    (B, T), ends (B, P) int32), ends the running sums of the durations
+    clamped at 0 and cast to int32, in the JAX order."""
+    ends = torch.cumsum(durations.clamp(min=0).to(torch.int32), dim=-1, dtype=torch.int32)
+    frames, mask = regulate_plain(x, durations, max_frames)
+    return frames, mask, ends
+
+
+def regulate_bwd_plain(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's contract in PyTorch: frame gradients g (B, T,
+    H) -> phone gradients (B, P, H) in g's dtype, each phone's frames below
+    the item's total summed in f32 and rounded once."""
+    B, T, H = g.shape
+    P = ends.shape[1]
+    t = torch.arange(T, device=g.device)
+    # the phone owning frame t; P (a row thrown away) for frames past the total
+    idx = torch.searchsorted(ends.long(), t.expand(B, T).contiguous(), right=True)
+    dx = torch.zeros(B, P + 1, H, dtype=torch.float32, device=g.device)
+    dx.scatter_add_(1, idx[:, :, None].expand(-1, -1, H), g.float())
+    return dx[:, :P].to(g.dtype)
+
+
 def _fns():
     global _c_fns
     if _c_fns is None:
         lib = build.load("length_regulator")
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.lfs2_regulate_fwd, lib.lfs2_regulate_bwd):
-            fn.argtypes = [p, p, p, i, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-        _c_fns = (lib, lib.lfs2_regulate_fwd, lib.lfs2_regulate_bwd)
+        fwd, bwd = lib.lfs2_regulate_fwd, lib.lfs2_regulate_bwd
+        q = ctypes.c_longlong
+        fwd.argtypes = [p, q, q, q, p, q, q, i, p, p, p, i, i, i, i, i, i, p]
+        bwd.argtypes = [p, q, q, q, p, p, i, i, i, i, i, p]
+        fwd.restype = bwd.restype = ctypes.c_int
+        _c_fns = (lib, fwd, bwd)
     return _c_fns
 
 
-def _check(t: torch.Tensor, ends: torch.Tensor, what: str) -> int:
-    """Raise on inputs the kernels do not take; returns the launch stream."""
-    if t.dim() != 3 or t.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"{what} takes a (B, ., H) f32 or bf16 tensor, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    if ends.dtype != torch.int32 or ends.dim() != 2 or ends.shape[0] != t.shape[0]:
-        raise ValueError(f"{what} takes int32 ends (B, P), got {tuple(ends.shape)} {ends.dtype}")
-    return kernel_stream(t, ends)
-
-
-def regulate_fwd(x: torch.Tensor, ends: torch.Tensor, max_frames: int) -> torch.Tensor:
-    """Launch the expand kernel: x (B, P, H), ends (B, P) int32 running
-    duration sums -> frames (B, max_frames, H). CUDA only."""
-    stream = _check(x, ends, "regulate")
+def regulate_fwd(x: torch.Tensor, durations: torch.Tensor, max_frames: int,
+                 frames_per_block: int = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel: x (B, P, H) f32 or bf16, durations (B, P)
+    int32 or int64 (either with any strides) -> (frames (B, T, H), mask
+    (B, T), ends (B, P) int32) with T = ``max_frames``; one launch, CUDA
+    only. ``regulate_fwd_plain`` is its plain version."""
+    if x.dim() != 3 or x.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"regulate takes a (B, P, H) f32 or bf16 x, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     B, P, H = x.shape
-    out = torch.empty(B, max_frames, H, dtype=x.dtype, device=x.device)
+    if (durations.shape != (B, P) or durations.dtype not in (torch.int32, torch.int64)
+            or min(B, P, H, max_frames) < 1):
+        raise ValueError(f"regulate takes int32 or int64 durations {(B, P)} and at least one "
+                         f"frame, got {tuple(durations.shape)} {durations.dtype}, {max_frames}")
+    stream = kernel_stream(strided=(x, durations))
+    F = frames_per_block or fwd_frames_per_block(B, max_frames)
+    frames = torch.empty(B, max_frames, H, dtype=x.dtype, device=x.device)
+    mask = torch.empty(B, max_frames, dtype=torch.bool, device=x.device)
+    ends = torch.empty(B, P, dtype=torch.int32, device=x.device)
     lib, fn, _ = _fns()
-    rc = fn(x.data_ptr(), ends.data_ptr(), out.data_ptr(), B, P, max_frames, H,
-            x.element_size(), stream)
+    rc = fn(x.data_ptr(), *x.stride(), durations.data_ptr(), *durations.stride(),
+            durations.element_size(), frames.data_ptr(), mask.data_ptr(), ends.data_ptr(),
+            B, P, max_frames, H, x.element_size(), F, stream)
     build.check(lib, rc, "regulate")
     regulate.launches += 1
-    return out
+    return frames, mask, ends
 
 
 def regulate_bwd(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
-    """Launch the segment-sum kernel: frame gradients g (B, T, H) -> phone
-    gradients (B, P, H) in g's dtype, summed in f32. CUDA only."""
-    g = g.contiguous()
-    stream = _check(g, ends, "regulate_bwd")
+    """Launch the backward kernel: frame gradients g (B, T, H), with any
+    strides, and the forward's ends (B, P) int32 -> phone gradients (B, P,
+    H) in g's dtype, summed in f32; one launch, CUDA only.
+    ``regulate_bwd_plain`` is its plain version."""
+    if g.dim() != 3 or g.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"regulate_bwd takes a (B, T, H) f32 or bf16 g, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if ends.dtype != torch.int32 or ends.dim() != 2 or ends.shape[0] != g.shape[0]:
+        raise ValueError(f"regulate_bwd takes int32 ends (B, P), got {tuple(ends.shape)} "
+                         f"{ends.dtype}")
+    stream = kernel_stream(ends, strided=(g,))
     B, T, H = g.shape
     P = ends.shape[1]
     dx = torch.empty(B, P, H, dtype=g.dtype, device=g.device)
     lib, _, fn = _fns()
-    rc = fn(g.data_ptr(), ends.data_ptr(), dx.data_ptr(), B, P, T, H, build.DTYPE_CODES[g.dtype],
-            stream)
+    rc = fn(g.data_ptr(), *g.stride(), ends.data_ptr(), dx.data_ptr(), B, P, T, H,
+            build.DTYPE_CODES[g.dtype], stream)
     build.check(lib, rc, "regulate_bwd")
     regulate_bwd.launches += 1
     return dx
@@ -123,12 +178,18 @@ def regulate_bwd(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
 
 class _Regulate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ends, max_frames):
+    def forward(ctx, x, durations, max_frames):
+        frames, mask, ends = regulate_fwd(x, durations, max_frames)
+        ctx.mark_non_differentiable(mask, ends)
         ctx.save_for_backward(ends)
-        return regulate_fwd(x, ends, max_frames)
+        # no zero gradients made for the mask and ends: a launch each
+        ctx.set_materialize_grads(False)
+        return frames, mask, ends
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _mask, _ends):
+        if g is None:
+            return None, None, None
         (ends,) = ctx.saved_tensors
         return regulate_bwd(g, ends), None, None
 
@@ -136,13 +197,13 @@ class _Regulate(torch.autograd.Function):
 def regulate_kernel(x: torch.Tensor, durations: torch.Tensor,
                     max_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``regulate_pallas`` for x (B, P, H): (frames (B, T, H), frame_mask
-    (B, T)), through the kernels (f32 or bf16, CUDA tensors); raises on
-    anything else. ``regulate_plain`` is its plain version."""
-    ends = torch.cumsum(durations.clamp(min=0).to(torch.int32), dim=-1,
-                        dtype=torch.int32).contiguous()
-    frames = _Regulate.apply(x.contiguous(), ends, max_frames)
-    t = torch.arange(max_frames, device=x.device)
-    mask = t[None, :] < torch.clamp(ends[:, -1], max=max_frames)[:, None]
+    (B, T)), one kernel launch forward and one backward (f32 or bf16, CUDA
+    tensors); raises on anything else. ``regulate_plain`` is its plain
+    version."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        frames, mask, _ = _Regulate.apply(x, durations, max_frames)
+    else:
+        frames, mask, _ = regulate_fwd(x, durations, max_frames)
     return frames, mask
 
 

@@ -7,7 +7,10 @@ backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
 (value and dD; each kernel alone against its plain twin; the launch record
-against ``soft_dtw_plan``; dD repeatable bit for bit), the length regulator's expand and segment-sum, and the
+against ``soft_dtw_plan``; dD repeatable bit for bit), the length regulator's two kernels (forward bit for bit at
+every shape the bench times and at rows that are not 16-byte aligned, the running sums it
+writes, the backward repeatable bit for bit and on strided gradients, one device
+kernel a direction by the profiler's count), and the
 FastDiff LVC chain ``lvc_stack`` (at the served batch too; the f32 route
 held to the chain in f64; every launch as recorded against ``lvc_plan``;
 the launches of one ε pass). Marked
@@ -780,46 +783,152 @@ def test_soft_dtw_backward_is_deterministic(cuda_card):
     assert torch.equal(a, b)
 
 
-def _regulate_inputs(device, dtype):
+# (B, P, H, T, dtype): the flagship's training step in f32 and bf16, a
+# one-sentence request bucket, the lightspeech_true76m width, long items (P
+# above the forward's scan chunk of 256 phones), and rows that are not
+# 16-byte aligned (134 bytes: 2-byte copies; 264: 4-byte copies, int32
+# durations)
+REGULATE_SHAPES = [(8, 256, 256, 2048, torch.float32), (8, 256, 256, 2048, torch.bfloat16),
+                   (1, 64, 256, 512, torch.bfloat16), (8, 256, 640, 2048, torch.bfloat16),
+                   (2, 1024, 256, 8192, torch.bfloat16), (2, 40, 67, 256, torch.bfloat16),
+                   (2, 40, 66, 256, torch.float32)]
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _regulate_inputs(device, dtype, B=8, P=256, H=256, T=2048):
+    """x with a -0.0 and a NaN with a payload in it, and int64 durations
+    (int32 where H is 66): ragged totals, zeros inside an item, an empty
+    item, negative durations (clamped) and an item above T, as far as B
+    allows."""
     g = torch.Generator().manual_seed(11)
-    B, P, H, T = 8, 256, 256, 2048
     x = torch.randn(B, P, H, generator=g).to(device, dtype)
+    bits = x.view(_BITS[dtype])
+    bits[0, 0, 0] = 0x7FC00001 if dtype == torch.float32 else 0x7FC1   # NaN, payload 1
+    x[0, 0, 1] = -0.0
     d = torch.randint(0, 15, (B, P), generator=g)
-    d[1, 200:] = 0                       # ragged totals
-    d[2, ::3] = 0                        # zero durations inside an item
-    d[3] = 0                             # an empty item
-    d[4] = 12                            # a total above T (3072 frames)
+    d[0, 1::7] = -4                      # negative durations count as 0
+    if B > 1:
+        d[1, P * 25 // 32:] = 0          # ragged totals
+    if B == 2:
+        d[0, ::2] = 2 * T // P + 1       # a total above T
+    if B > 2:
+        d[2, ::3] = 0                    # zero durations inside an item
+    if B > 3:
+        d[3] = 0                         # an empty item
+    if B > 4:
+        d[4] = 12                        # a total above T (3072 frames)
+    if H == 66:
+        d = d.to(torch.int32)
     return x, d.to(device), T
 
 
+def _device_kernels(fn, calls: int = 5):
+    """The device kernels (and copies or fills) ``calls`` calls of ``fn``
+    run, by name, from torch.profiler, with the last call's result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return out, {e.key: e.count for e in events
+                 if e.device_type == DeviceType.CUDA and e.key not in host and e.count}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_regulate_kernels_match_gather(cuda_card, dtype):
-    x, d, T = _regulate_inputs(cuda_card, dtype)
-    dout = torch.randn(x.shape[0], T, x.shape[2], device=cuda_card)
+@pytest.mark.parametrize("B,P,H,T,dtype", REGULATE_SHAPES)
+def test_regulate_kernels_match_gather(cuda_card, B, P, H, T, dtype):
+    x, d, T = _regulate_inputs(cuda_card, dtype, B, P, H, T)
+    dout = torch.randn(B, T, H, device=cuda_card)
     n_fwd, n_bwd = tlr.regulate.launches, tlr.regulate_bwd.launches
     xk = x.clone().requires_grad_(True)
     frames, mask = tlr.regulate_kernel(xk, d, T)
     (grad,) = torch.autograd.grad(frames, xk, dout.to(dtype))
     torch.cuda.synchronize()
     assert (tlr.regulate.launches, tlr.regulate_bwd.launches) == (n_fwd + 1, n_bwd + 1)
-    ref, ref_mask = tlr.regulate_plain(x, d, T)
-    assert torch.equal(frames, ref) and torch.equal(mask, ref_mask)   # a copy: bit for bit
+    # a copy: bit for bit, -0.0 and the NaN's payload included (the gather
+    # run on the bits as integers)
+    ref, ref_mask = tlr.regulate_plain(x.view(_BITS[dtype]), d, T)
+    assert torch.equal(frames.view(_BITS[dtype]), ref) and torch.equal(mask, ref_mask)
+    # ends: the running sums of the clamped durations, in int32
+    _, _, ends = tlr.regulate_fwd(x, d, T)
+    assert ends.dtype == torch.int32
+    assert torch.equal(ends, torch.cumsum(d.clamp(min=0).to(torch.int32), -1, dtype=torch.int32))
     # the gradient against the f32 gather's of the same inputs; in bf16 that
     # f32 gradient rounded once, since the gather's own bf16 backward adds
     # in bf16: within one bf16 ulp of it (the kernel sums in f32)
     xf = x.float().requires_grad_(True)
     (ref_grad,) = torch.autograd.grad(tlr.regulate_plain(xf, d, T)[0], xf, dout.to(dtype).float())
-    assert not grad[3].any()
+    if B > 3:
+        assert not grad[3].any()
     if dtype == torch.float32:
-        # two f32 sums of the same <= 14 frames in other orders: 1e-6 plus
-        # the bound on their rounding, 2 * 14 * 2^-24 * sum |g|
+        # two f32 sums of the same frames in other orders: 1e-6 plus the
+        # bound on their rounding, 2 * n * 2^-24 * sum |g| with n the
+        # longest run
+        n = int(d.clamp(min=0).max())
         (absum,) = torch.autograd.grad(tlr.regulate_plain(xf, d, T)[0], xf, dout.abs())
-        assert ((grad - ref_grad).abs() <= 1e-6 + 28 * 2.0 ** -24 * absum).all()
+        assert ((grad - ref_grad).abs() <= 1e-6 + 2 * n * 2.0 ** -24 * absum).all()
     else:
         want = ref_grad.to(torch.bfloat16).float()
         ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
         assert ((grad.float() - want).abs() <= ulp).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regulate_backward_repeats_and_takes_strides(cuda_card, dtype):
+    # no atomics: every dx element is written once, by one lane, in frame
+    # order; a gradient with other strides sums the same values in the same
+    # order (16-byte loads for contiguous rows, one element a load else)
+    x, d, T = _regulate_inputs(cuda_card, dtype)
+    _, _, ends = tlr.regulate_fwd(x, d, T)
+    B, P, H = x.shape
+    g = torch.randn(B, T, H, device=cuda_card).to(dtype)
+    a, b = tlr.regulate_bwd(g, ends), tlr.regulate_bwd(g, ends)
+    transposed = g.transpose(1, 2).contiguous().transpose(1, 2)
+    row = torch.randn(H, device=cuda_card).to(dtype)
+    expanded = row.expand(B, T, H)                # as the gradient of a sum
+    c = tlr.regulate_bwd(transposed, ends)
+    e = tlr.regulate_bwd(expanded, ends)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(e, tlr.regulate_bwd(expanded.contiguous(), ends))
+    # against the plain segment-sum: both sum in f32 and round once, so in
+    # bf16 within one ulp; in f32 within the two orders' rounding (runs of
+    # at most 14 frames)
+    ref = tlr.regulate_bwd_plain(g, ends).float()
+    if dtype == torch.float32:
+        tol = 1e-6 + 28 * 2.0 ** -24 * tlr.regulate_bwd_plain(g.abs(), ends)
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    assert ((a.float() - ref).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+def test_regulate_is_one_kernel_a_direction(cuda_card):
+    # the only device kernel five calls run is the regulator's, and the
+    # wrapper launched it once a call (the profiler on this card now and
+    # then drops a record, so its count is held to at most one a call)
+    x, d, T = _regulate_inputs(cuda_card, torch.bfloat16)
+    xk = x.clone().requires_grad_(True)
+    dout = torch.randn(x.shape[0], T, x.shape[2], device=cuda_card).to(torch.bfloat16)
+    frames, _ = tlr.regulate_kernel(xk, d, T)      # built and warmed up
+    torch.autograd.grad(frames, xk, dout, retain_graph=True)
+    cases = (("regulate_fwd_kernel", tlr.regulate, lambda: tlr.regulate_kernel(xk, d, T)),
+             ("regulate_bwd_kernel", tlr.regulate_bwd,
+              lambda: torch.autograd.grad(frames, xk, dout, retain_graph=True)))
+    for name, counter, fn in cases:
+        n = counter.launches
+        _, kernels = _device_kernels(fn)
+        assert counter.launches == n + 5
+        assert len(kernels) == 1 and name in next(iter(kernels)), kernels
+        assert 1 <= sum(kernels.values()) <= 5, kernels
+    with torch.no_grad():                          # serving: no autograd Function
+        _, kernels = _device_kernels(lambda: tlr.regulate_kernel(x, d, T))
+    assert len(kernels) == 1 and "regulate_fwd_kernel" in next(iter(kernels)), kernels
 
 
 @pytest.mark.gpu
@@ -836,7 +945,8 @@ def test_regulate_takes_the_kernel_only_when_opted_in(cuda_card, monkeypatch):
     tlr.regulate(x[..., 0], d, 512)          # 2-D: the gather
     torch.cuda.synchronize()
     assert tlr.regulate.launches == n + 1
-    assert torch.equal(a, tlr.regulate_plain(x, d, 512)[0])
+    # bit for bit (x holds a NaN)
+    assert torch.equal(a.view(torch.int16), tlr.regulate_plain(x.view(torch.int16), d, 512)[0])
 
 
 def _lvc_inputs(device, B, nL, hop, dtype, seed, layers=4, C=32):

@@ -25,14 +25,20 @@ def _cases():
                            "kernel inputs must be contiguous"),
         "mixed_devices": ((cpu, None, torch.zeros(8, device="meta")), ValueError,
                           "kernel inputs span devices"),
+        # a tensor passed as strided may have any strides, but not another device
+        "strided_on_another_device": ((cpu,), ValueError, "kernel inputs span devices",
+                                      (torch.zeros(128, 8, device="meta").t(),)),
+        "strided_on_cpu": ((), RuntimeError, "kernel launch needs a CUDA tensor, got cpu",
+                           (torch.zeros(128, 8).t(),)),
     }
 
 
-@pytest.mark.parametrize("case", ["cpu_tensor", "non_contiguous", "mixed_devices"])
+@pytest.mark.parametrize("case", ["cpu_tensor", "non_contiguous", "mixed_devices",
+                                  "strided_on_another_device", "strided_on_cpu"])
 def test_kernel_stream_raises(case):
-    tensors, exc, msg = _cases()[case]
+    tensors, exc, msg, *strided = _cases()[case]
     with pytest.raises(exc, match=msg):
-        launch.kernel_stream(*tensors)
+        launch.kernel_stream(*tensors, strided=strided[0] if strided else ())
 
 
 @pytest.mark.parametrize("cap,ok", [((9, 0), True), ((8, 0), False), ((10, 0), False)])

@@ -88,3 +88,93 @@ def test_regulate_routing(monkeypatch):
     with pytest.raises(AttributeError):   # the gather touches the stand-in
         tlr.regulate(cuda_x, d, 512)
     assert len(calls) == 1
+
+
+# the kernels' contracts (regulate_fwd_plain, regulate_bwd_plain): durations
+# as the model gives them (int64) -> frames, mask and int32 running sums, and
+# the segment-sum from those sums; "long" has P above the forward kernel's
+# scan chunk of 256 phones
+CONTRACT_CASES = {"ragged": (16, 256), "zero": (16, 256), "negative": (16, 256),
+                  "overflow": (16, 256), "long": (300, 1024)}
+
+
+def _contract_inputs(case, g):
+    P, T = CONTRACT_CASES[case]
+    if case == "ragged":
+        d = g.integers(0, 20, (B, P))
+        d[1, 10:] = 0
+    elif case == "zero":
+        d = np.zeros((B, P), np.int64)
+        d[0, :4] = (3, 0, 5, 0)
+    elif case == "negative":             # clamped at 0
+        d = g.integers(-6, 20, (B, P))
+    elif case == "overflow":             # totals above T
+        d = g.integers(10, 40, (B, P))
+    else:                                # item 0 above T, item 1 below it
+        d = g.integers(0, 7, (B, P))
+        d[0] = g.integers(3, 8, P)
+    return d.astype(np.int64), P, T
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CONTRACT_CASES))
+def test_kernel_contracts_match_jax(case, dtype, monkeypatch):
+    from lightningfastspeech2_tpu.ops.length_regulator import regulate as jregulate
+
+    monkeypatch.delenv("LFS2_PALLAS_LR", raising=False)   # the JAX gather
+    g = np.random.default_rng(list(CONTRACT_CASES).index(case) + 10)
+    d, P, T = _contract_inputs(case, g)
+    Hc = 8
+    x = g.standard_normal((B, P, Hc)).astype(np.float32)
+    w = g.standard_normal((B, T, Hc)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx, jd = jnp.asarray(x, jdt), jnp.asarray(d.astype(np.int32))
+    frames, mask, ends = tlr.regulate_fwd_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(d), T)
+    assert frames.dtype == tdt and mask.dtype == torch.bool and ends.dtype == torch.int32
+    # frames, mask and ends: tolerance 0, against the Pallas kernel in
+    # interpret mode, the JAX gather and the JAX package's own running sums
+    for jframes, jmask in (regulate_pallas(jx, jd, T, interpret=True), jregulate(jx, jd, T)):
+        np.testing.assert_array_equal(frames.float().numpy(), np.asarray(jframes.astype(jnp.float32)))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(ends.numpy(), np.asarray(jnp.cumsum(jnp.maximum(jd, 0).astype(jnp.int32), axis=-1)))
+
+    # the segment-sum against the Pallas kernel's f32 gradient of the same
+    # cotangent (w rounded to the dtype): f32 to 1e-6 (sums in another
+    # order); bf16 within one bf16 ulp of that f32 gradient rounded once
+    wt = torch.from_numpy(w).to(tdt)
+    _, vjp = jax.vjp(lambda xj: regulate_pallas(xj, jd, T, interpret=True)[0], jnp.asarray(x))
+    (jgrad,) = vjp(jnp.asarray(wt.float().numpy()))
+    want = torch.from_numpy(np.array(jgrad))
+    # g as autograd may hand it over: contiguous, and transposed in memory
+    for gt in (wt, wt.transpose(1, 2).contiguous().transpose(1, 2)):
+        dx = tlr.regulate_bwd_plain(gt, ends)
+        assert dx.dtype == tdt and dx.shape == (B, P, Hc)
+        if dtype == "float32":
+            np.testing.assert_allclose(dx.numpy(), want.numpy(), rtol=0, atol=1e-6)
+        else:
+            ref = want.to(torch.bfloat16).float()
+            ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+            assert ((dx.float() - ref).abs() <= ulp).all()
+    if case == "zero":
+        assert not dx[1].any() and not dx[0, 4:].any()
+
+
+@pytest.mark.parametrize("B,T,F", [(8, 2048, 64), (2, 8192, 64), (1, 512, 16), (64, 4096, 256)])
+def test_forward_plan_fills_the_card(B, T, F):
+    # the longest run of frames a block that still gives each of the 132
+    # SMs a block; the shortest where no run does
+    assert tlr.fwd_frames_per_block(B, T) == F
+    assert F in tlr.FRAMES_PER_BLOCK
+    assert B * -(-T // F) >= tlr.SM_COUNT or F == tlr.FRAMES_PER_BLOCK[0]
+
+
+def test_kernel_path_raises_on_the_cpu():
+    # no fallback: the wrappers launch on a card or raise, the CPU takes the
+    # gather through ``regulate`` alone
+    x, d = torch.randn(B, P, H), torch.full((B, P), 3)
+    with pytest.raises(RuntimeError, match="kernel launch needs a CUDA tensor"):
+        tlr.regulate_kernel(x.requires_grad_(True), d, T)
+    with pytest.raises(RuntimeError, match="kernel launch needs a CUDA tensor"):
+        tlr.regulate_bwd(torch.randn(B, T, H), torch.zeros(B, P, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32 or int64 durations"):
+        tlr.regulate_fwd(x, d.float(), T)

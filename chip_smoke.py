@@ -1551,11 +1551,13 @@ def _soft_dtw_case(dev, g) -> dict:
 
 def device_kernels(fn, calls: int = 20, windows: int = 3) -> dict:
     """``calls`` calls of ``fn`` under torch.profiler: the device kernels
-    (copies and fills included) a call, by name, and the device ms a call.
-    The profiler on this card now and then drops a kernel's record, or a
-    whole window's: each name counts round(records / calls) kernels a call
-    (at least one once seen), its ms the mean of its records, and of up to
-    ``windows`` windows the one with the most records is kept."""
+    (copies and fills included) a call, by name without arguments or
+    template arguments, and the device ms a call. The profiler on this card
+    now and then drops a kernel's record, or a whole window's: each name
+    counts round(records / calls) kernels a call (at least one once seen),
+    its ms the mean of its records, and of up to ``windows`` windows the one
+    with the most records is kept. ``scripts/bench_length_regulator.py`` and
+    the card tests count kernels with it too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1582,10 +1584,11 @@ def device_kernels(fn, calls: int = 20, windows: int = 3) -> dict:
         if records and all(c % calls == 0 for _, c in rows.values()):
             break
     records, rows = best
-    a_call = {n: max(1, round(c / calls)) for n, (_, c) in rows.items()}
-    return {"device_ms": sum(t / c * a_call[n] for n, (t, c) in rows.items()) / 1e3,
-            "kernels": sum(a_call.values()), "names": sorted(rows),
-            "records": records, "calls": calls}
+    by_name = {n: {"ms": t / c / 1e3, "a_call": max(1, round(c / calls)), "records": c}
+               for n, (t, c) in rows.items()}
+    return {"device_ms": sum(v["ms"] * v["a_call"] for v in by_name.values()),
+            "kernels": sum(v["a_call"] for v in by_name.values()), "names": sorted(by_name),
+            "by_name": by_name, "records": records, "calls": calls}
 
 
 def _regulate_case(dev, g) -> dict:

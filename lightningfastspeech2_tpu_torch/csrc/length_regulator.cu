@@ -29,18 +29,22 @@
 // (durations, x, frames, mask, ends).
 //
 // regulate_bwd_kernel: dx[b, p] = sum of g[b, t] over the frames phone p
-// owns in [0, min(total, T)), from the forward's ends. One warp per (item,
-// phone, 32 lane-vectors of the row), up to 8 warps a block and fewer where
-// the grid would leave SMs idle: at H = 256 in bf16 a lane loads 16 bytes a
-// frame and one warp covers the row; each lane sums its own columns over
-// the phone's frames in frame order in f32, kSumFrames frames' loads in
-// flight, and rounds once to g's dtype. No atomics: every dx element is
-// written once by one lane, so the result repeats bit for bit. g is taken
-// with its strides (autograd may hand over an expanded or transposed
-// gradient): 16-byte loads where the rows are contiguous and aligned, one
-// element a load otherwise. Bound: bytes (g's frames below each item's
+// owns in [0, min(total, T)), from the forward's ends. S warps per (item,
+// phone, 32 lane-vectors of the row), 8 / S such units a block of 8 warps,
+// S (1, 2, 4 or 8, a template argument) from the wrapper's plan: 1 where
+// the grid gives every SM a block, more on smaller grids, which would
+// otherwise leave each SM a few warps with a phone's whole run of loads in
+// a chain. At H = 256 in bf16 a lane loads 16 bytes a frame and one warp
+// covers the row; warp s of a unit sums frames s, s + S, ... in frame order
+// in f32, kSumFrames frames' loads in flight; the S partial rows meet in
+// shared memory, where the unit's threads share out the columns, add each
+// column's partial sums in warp order and round once to g's dtype. No
+// atomics: the order depends on the shape alone, so the result repeats bit
+// for bit. g is taken with its strides (autograd may hand over an expanded
+// or transposed gradient): 16-byte loads where the rows are contiguous and
+// aligned, one element a load otherwise; S does not depend on which, so
+// both sum in the same order. Bound: bytes (g's frames below each item's
 // total, ends, dx).
-#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -49,10 +53,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSMs = 132;        // the H100 SXM's
 constexpr int kScanAhead = 4;    // forward: chunks of durations loaded together
 constexpr int kCopyUnroll = 8;   // forward: vector loads in flight a thread
 constexpr int kSumFrames = 4;    // backward: frames' loads in flight a lane
+constexpr int kBwdBlocksPerSM = 6;  // backward: six blocks an SM, 40 registers a thread
 
 // ---------------------------------------------------------------- forward
 // grid (ceil(T / F), B), kThreads threads, F ints of dynamic shared memory.
@@ -191,42 +195,90 @@ __device__ __forceinline__ void store_row(T* p, const float* a) {
   }
 }
 
-// a warp per (item, phone, column group of 32 * N elements), up to kWarps
-// warps a block
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
+// grid (ceil(P * groups / (kWarps / S)), B), kThreads threads: S warps per
+// (phone, column group of 32 * N elements) of item blockIdx.y
+template <typename T, int N, int S>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 regulate_bwd_kernel(const T* __restrict__ g, long long gsb, long long gst, long long gsh,
-                    const int* __restrict__ ends, T* __restrict__ dx, int B, int P, int Tf, int H,
-                    int groups) {
-  const long long w = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-  if (w >= static_cast<long long>(B) * P * groups) return;
-  const int grp = static_cast<int>(w % groups);
-  const int bp = static_cast<int>(w / groups);
-  const int b = bp / P, p = bp - b * P;
-  const int h0 = (grp * 32 + threadIdx.x % 32) * N;
-  if (h0 >= H) return;
-  const int* e = ends + static_cast<size_t>(b) * P;
-  const int start = min(p == 0 ? 0 : e[p - 1], Tf);
-  const int stop = min(e[p], Tf);    // ends[p] <= total: frames past it are not summed
-  const T* gp = g + b * gsb + h0 * gsh;
+                    const int* __restrict__ ends, T* __restrict__ dx, int P, int Tf, int H,
+                    int groups, int group_shift) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, s = warp % S;
+  const int b = blockIdx.y;
+  const int unit = blockIdx.x * (kWarps / S) + warp / S;
+  // the unit's phone and column group: a shift where groups is a power of
+  // two (1 at H = 256 in bf16, 2 in f32), a division on the critical path
+  // to the first load otherwise
+  const int p = group_shift >= 0 ? unit >> group_shift : unit / groups;
+  const int grp = unit - p * groups;
+  const int h0 = (grp * 32 + lane) * N;
+  // no early return: a unit's warps meet at the barrier below
+  const bool active = p < P && h0 < H;
   float acc[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) acc[k] = 0.0f;
-  // groups of kSumFrames frames, their loads issued together and kept raw
-  // until all are in flight, then the rest one frame at a time (groups of
-  // 8, predicated groups, groups that load the last frame again in place
-  // of the rest, and 2-byte loads on small grids measured no faster)
-  using R = typename Vec<T, N>::type;
-  int t = start;
-  for (; t + kSumFrames <= stop; t += kSumFrames) {
-    R r[kSumFrames];
+  if (active) {
+    const int* e = ends + static_cast<size_t>(b) * P;
+    const int start = min(p == 0 ? 0 : e[p - 1], Tf);
+    const int stop = min(e[p], Tf);  // ends[p] <= total: frames past it are not summed
+    const T* gp = g + b * gsb + h0 * gsh;
+    // groups of kSumFrames of the warp's frames, their loads issued
+    // together and kept raw until all are in flight; then the rest, one
+    // frame at a time for one warp a phone (groups of 8, predicated groups,
+    // groups that load the last frame again in place of the rest, and
+    // 2-byte loads on small grids measured no faster), predicated loads
+    // issued together for a split run, whose warps each hold a few frames
+    using R = typename Vec<T, N>::type;
+    int t = start + s;
+    for (; t + (kSumFrames - 1) * S < stop; t += kSumFrames * S) {
+      R r[kSumFrames];
 #pragma unroll
-    for (int u = 0; u < kSumFrames; ++u) r[u] = *reinterpret_cast<const R*>(gp + (t + u) * gst);
+      for (int u = 0; u < kSumFrames; ++u)
+        r[u] = *reinterpret_cast<const R*>(gp + (t + u * S) * gst);
 #pragma unroll
-    for (int u = 0; u < kSumFrames; ++u) add_row<T, N>(r[u], acc);
+      for (int u = 0; u < kSumFrames; ++u) add_row<T, N>(r[u], acc);
+    }
+    if constexpr (S == 1) {
+      for (; t < stop; ++t) add_row<T, N>(*reinterpret_cast<const R*>(gp + t * gst), acc);
+    } else {
+      R r[kSumFrames - 1];
+#pragma unroll
+      for (int u = 0; u < kSumFrames - 1; ++u)
+        if (t + u * S < stop) r[u] = *reinterpret_cast<const R*>(gp + (t + u * S) * gst);
+#pragma unroll
+      for (int u = 0; u < kSumFrames - 1; ++u)
+        if (t + u * S < stop) add_row<T, N>(r[u], acc);
+    }
   }
-  for (; t < stop; ++t) add_row<T, N>(*reinterpret_cast<const R*>(gp + t * gst), acc);
-  store_row<T, N>(dx + static_cast<size_t>(bp) * H + h0, acc);
+  if constexpr (S > 1) {
+    // the S partial rows meet in shared memory in the row's own order,
+    // [warp][lane][k]; then the unit's 32 * S threads share out the row's
+    // columns, each adding a column's S partial sums in warp order, and
+    // consecutive threads store consecutive columns
+    __shared__ __align__(16) float s_part[kWarps * 32 * N];
+    float* mine = s_part + (warp * 32 + lane) * N;
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < N; k += 4)
+        *reinterpret_cast<float4*>(mine + k) =
+            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) mine[k] = acc[k];
+    }
+    __syncthreads();
+    if (p >= P) return;
+    const float* part = s_part + (warp - s) * 32 * N;   // the unit's first warp's
+    const int c0 = grp * 32 * N, cols = min(32 * N, H - c0);
+    T* out = dx + (static_cast<size_t>(b) * P + p) * H + c0;
+    for (int c = s * 32 + lane; c < cols; c += 32 * S) {
+      float a = part[c];
+#pragma unroll
+      for (int j = 1; j < S; ++j) a += part[j * 32 * N + c];
+      out[c] = lfs2::from_f<T>(a);
+    }
+    return;
+  }
+  if (active) store_row<T, N>(dx + (static_cast<size_t>(b) * P + p) * H + h0, acc);
 }
 
 template <typename V, typename D>
@@ -255,18 +307,32 @@ cudaError_t launch_fwd_d(const void* x, long long sb, long long sp, long long sh
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int N, int S>
+cudaError_t launch_bwd_split(const void* g, long long sb, long long st, long long sh,
+                             const int* ends, void* dx, int B, int P, int Tf, int H,
+                             cudaStream_t stream) {
+  const int groups = (H + 32 * N - 1) / (32 * N);
+  const long long units = static_cast<long long>(P) * groups;
+  if (units > 0x7fffffffLL - kWarps) return cudaErrorInvalidConfiguration;
+  int shift = 0;
+  while ((1 << shift) < groups) ++shift;
+  const dim3 grid(static_cast<unsigned>((units + kWarps / S - 1) / (kWarps / S)), B);
+  regulate_bwd_kernel<T, N, S><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(g), sb, st, sh, ends, static_cast<T*>(dx), P, Tf, H, groups,
+      (1 << shift) == groups ? shift : -1);
+  return cudaGetLastError();
+}
+
 template <typename T, int N>
 cudaError_t launch_bwd(const void* g, long long sb, long long st, long long sh, const int* ends,
-                       void* dx, int B, int P, int Tf, int H, cudaStream_t stream) {
-  const int groups = (H + 32 * N - 1) / (32 * N);
-  const long long warps = static_cast<long long>(B) * P * groups;
-  // up to kWarps warps a block, fewer where that would leave SMs without one
-  const int wpb = static_cast<int>(std::min<long long>(kWarps, std::max(1LL, warps / kSMs)));
-  const long long blocks = (warps + wpb - 1) / wpb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  regulate_bwd_kernel<T, N><<<static_cast<unsigned>(blocks), 32 * wpb, 0, stream>>>(
-      static_cast<const T*>(g), sb, st, sh, ends, static_cast<T*>(dx), B, P, Tf, H, groups);
-  return cudaGetLastError();
+                       void* dx, int B, int P, int Tf, int H, int S, cudaStream_t stream) {
+  switch (S) {
+    case 1: return launch_bwd_split<T, N, 1>(g, sb, st, sh, ends, dx, B, P, Tf, H, stream);
+    case 2: return launch_bwd_split<T, N, 2>(g, sb, st, sh, ends, dx, B, P, Tf, H, stream);
+    case 4: return launch_bwd_split<T, N, 4>(g, sb, st, sh, ends, dx, B, P, Tf, H, stream);
+    case 8: return launch_bwd_split<T, N, 8>(g, sb, st, sh, ends, dx, B, P, Tf, H, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -307,12 +373,13 @@ LFS2_EXPORT int lfs2_regulate_fwd(const void* x, long long xs0, long long xs1, l
 }
 
 // g (B, T, H) with element strides (gs0, gs1, gs2) -> dx (B, P, H)
-// contiguous in the same dtype (lfs2::DType code), from ends (B, P) int32
+// contiguous in the same dtype (lfs2::DType code), from ends (B, P) int32;
+// S warps a phone run (1, 2, 4 or 8)
 LFS2_EXPORT int lfs2_regulate_bwd(const void* g, long long gs0, long long gs1, long long gs2,
                                   const int* ends, void* dx, int B, int P, int T, int H,
-                                  int dtype, void* stream) {
+                                  int dtype, int S, void* stream) {
   const long long gs[3] = {gs0, gs1, gs2};
-  if (B < 1 || P < 1 || H < 1) return cudaErrorInvalidValue;
+  if (B < 1 || P < 1 || H < 1 || B > 65535) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int es = dtype == lfs2::kF32 ? 4 : 2;
   // 16 bytes a load where g's rows are contiguous and every row start is aligned
@@ -321,11 +388,11 @@ LFS2_EXPORT int lfs2_regulate_bwd(const void* g, long long gs0, long long gs1, l
                     (gs[1] * es) % 16 == 0;
   if (dtype == lfs2::kF32)
     return static_cast<int>(
-        wide ? launch_bwd<float, 4>(g, gs[0], gs[1], 1, ends, dx, B, P, T, H, s)
-             : launch_bwd<float, 1>(g, gs[0], gs[1], gs[2], ends, dx, B, P, T, H, s));
+        wide ? launch_bwd<float, 4>(g, gs[0], gs[1], 1, ends, dx, B, P, T, H, S, s)
+             : launch_bwd<float, 1>(g, gs[0], gs[1], gs[2], ends, dx, B, P, T, H, S, s));
   if (dtype == lfs2::kBF16)
     return static_cast<int>(
-        wide ? launch_bwd<__nv_bfloat16, 8>(g, gs[0], gs[1], 1, ends, dx, B, P, T, H, s)
-             : launch_bwd<__nv_bfloat16, 1>(g, gs[0], gs[1], gs[2], ends, dx, B, P, T, H, s));
+        wide ? launch_bwd<__nv_bfloat16, 8>(g, gs[0], gs[1], 1, ends, dx, B, P, T, H, S, s)
+             : launch_bwd<__nv_bfloat16, 1>(g, gs[0], gs[1], gs[2], ends, dx, B, P, T, H, S, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

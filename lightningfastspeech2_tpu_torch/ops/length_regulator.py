@@ -72,8 +72,11 @@ def regulate_plain(x: torch.Tensor, durations: torch.Tensor,
 
 
 SM_COUNT = 132         # the H100 SXM's SMs
-# the forward's frames a block: the plan picks one, the bench's sweep times each
+WARPS_PER_BLOCK = 8    # the backward's blocks (kWarps in the .cu)
+# the forward's frames a block and the backward's warps a phone run: the
+# plans pick one of each
 FRAMES_PER_BLOCK = (16, 32, 64, 128, 256)
+BWD_SPLITS = (1, 2, 4, 8)
 
 
 def fwd_frames_per_block(B: int, T: int) -> int:
@@ -84,6 +87,20 @@ def fwd_frames_per_block(B: int, T: int) -> int:
         if B * -(-T // F) >= SM_COUNT:
             return F
     return FRAMES_PER_BLOCK[0]
+
+
+def bwd_warps_per_phone(B: int, P: int, H: int, elem_bytes: int) -> int:
+    """The backward's warps a phone run, S: the kernel deals the run's
+    frames among S warps and adds their f32 partial sums in warp order. The
+    least S in BWD_SPLITS that gives every SM a block of WARPS_PER_BLOCK
+    warps, counting a warp for each 512 bytes of a phone's row (16 bytes a
+    lane), else the most. From the shape alone, not g's strides, so that
+    every layout of g sums in the same order."""
+    units = B * P * -(-H * elem_bytes // 512)
+    for S in BWD_SPLITS:
+        if units * S >= SM_COUNT * WARPS_PER_BLOCK:
+            return S
+    return BWD_SPLITS[-1]
 
 
 def regulate_fwd_plain(x: torch.Tensor, durations: torch.Tensor, max_frames: int
@@ -118,14 +135,13 @@ def _fns():
         fwd, bwd = lib.lfs2_regulate_fwd, lib.lfs2_regulate_bwd
         q = ctypes.c_longlong
         fwd.argtypes = [p, q, q, q, p, q, q, i, p, p, p, i, i, i, i, i, i, p]
-        bwd.argtypes = [p, q, q, q, p, p, i, i, i, i, i, p]
+        bwd.argtypes = [p, q, q, q, p, p, i, i, i, i, i, i, p]
         fwd.restype = bwd.restype = ctypes.c_int
         _c_fns = (lib, fwd, bwd)
     return _c_fns
 
 
-def regulate_fwd(x: torch.Tensor, durations: torch.Tensor, max_frames: int,
-                 frames_per_block: int = None
+def regulate_fwd(x: torch.Tensor, durations: torch.Tensor, max_frames: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: x (B, P, H) f32 or bf16, durations (B, P)
     int32 or int64 (either with any strides) -> (frames (B, T, H), mask
@@ -140,7 +156,7 @@ def regulate_fwd(x: torch.Tensor, durations: torch.Tensor, max_frames: int,
         raise ValueError(f"regulate takes int32 or int64 durations {(B, P)} and at least one "
                          f"frame, got {tuple(durations.shape)} {durations.dtype}, {max_frames}")
     stream = kernel_stream(strided=(x, durations))
-    F = frames_per_block or fwd_frames_per_block(B, max_frames)
+    F = fwd_frames_per_block(B, max_frames)
     frames = torch.empty(B, max_frames, H, dtype=x.dtype, device=x.device)
     mask = torch.empty(B, max_frames, dtype=torch.bool, device=x.device)
     ends = torch.empty(B, P, dtype=torch.int32, device=x.device)
@@ -170,7 +186,7 @@ def regulate_bwd(g: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     dx = torch.empty(B, P, H, dtype=g.dtype, device=g.device)
     lib, _, fn = _fns()
     rc = fn(g.data_ptr(), *g.stride(), ends.data_ptr(), dx.data_ptr(), B, P, T, H,
-            build.DTYPE_CODES[g.dtype], stream)
+            build.DTYPE_CODES[g.dtype], bwd_warps_per_phone(B, P, H, g.element_size()), stream)
     build.check(lib, rc, "regulate_bwd")
     regulate_bwd.launches += 1
     return dx

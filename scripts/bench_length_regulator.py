@@ -3,15 +3,16 @@
 
     python3 scripts/bench_length_regulator.py [--tree DIR] [--label NAME] [--sweep]
 
-First the card's name and power limit (nvidia-smi), then one JSON line per
-shape, with ``LFS2_PALLAS_LR`` irrelevant (``regulate_kernel`` is called
-directly):
+First the card's name and power limit (nvidia-smi) and the device time of
+the smallest launch, a fill of one element (the floor under a small
+grid's time), then one JSON line per shape, with ``LFS2_PALLAS_LR``
+irrelevant (``regulate_kernel`` is called directly):
 
 - ``fwd`` / ``bwd``: the regulator's own kernel, its CUDA-event ms (a run of
   wrapper calls between two events, warmed up, L2 warm: the host's pace
   where the host is slower than the card) and its device ms a launch from
   ``torch.profiler`` ``key_averages()`` (the mean of the records: the
-  profiler now and then drops one, see ``device_kernels``);
+  profiler now and then drops one, see ``chip_smoke.device_kernels``);
 - ``fwd_call`` / ``fwd_call_no_grad`` / ``bwd_call``: the whole
   ``regulate_kernel`` call, mask included, with x needing its gradient (as
   in training) and under ``torch.no_grad`` (as in serving), and its
@@ -40,7 +41,8 @@ there is more than one item.
 parent commit) instead of this checkout, so two trees can be timed in turns
 in one chip call; a tree whose ``regulate_fwd`` takes the running sums
 (``ends``) is timed through that API. ``--sweep`` times the forward kernel
-at every frames-a-block the library takes, at each shape (this tree only).
+at every frames-a-block and the backward kernel at every warps-a-phone the
+library takes, at each shape (this tree only).
 """
 
 from __future__ import annotations
@@ -48,13 +50,16 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
-import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
+from chip_smoke import device_kernels  # noqa: E402  (this checkout's, whichever tree is timed)
 
 PEAK_BYTES_PER_S = 3.35e12
 HOST_CALLS = 2000
@@ -101,50 +106,6 @@ def host_us(fn, n: int = HOST_CALLS) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / n * 1e6
-
-
-def device_kernels(fn, calls: int = PROFILED_CALLS, windows: int = 3) -> dict:
-    """``calls`` calls of ``fn`` under torch.profiler: the device ms and the
-    device kernels (and copies or fills) a call, by name. The profiler on
-    this card now and then drops a kernel's record, or a whole window's:
-    each name counts round(records / calls) kernels a call (at least one
-    once seen), its ms the mean of its records, and of up to ``windows``
-    windows the one with the most records is kept."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    best = None
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        host = {e.key for e in events if e.device_type == DeviceType.CPU}
-        rows = {}
-        for e in events:
-            if e.device_type == DeviceType.CUDA and e.key not in host and e.count:
-                t, c = rows.get(short(e.key), (0.0, 0))
-                rows[short(e.key)] = (t + e.self_device_time_total / 1e3, c + e.count)
-        records = sum(c for _, c in rows.values())
-        if best is None or records > best[0]:
-            best = (records, rows)
-        if records and all(c % calls == 0 for _, c in rows.values()):
-            break
-    records, rows = best
-    by_name = {n: {"ms": t / c, "a_call": max(1, round(c / calls)), "records": c}
-               for n, (t, c) in rows.items()}
-    return {"device_ms": sum(v["ms"] * v["a_call"] for v in by_name.values()),
-            "kernels": sum(v["a_call"] for v in by_name.values()),
-            "records": records, "by_name": by_name}
-
-
-def short(name: str) -> str:
-    """A kernel's name without its arguments and template arguments."""
-    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
-    return re.split(r"[<(]", name, maxsplit=1)[0]
 
 
 def regulator_kernel(prof: dict) -> dict:
@@ -244,13 +205,13 @@ def shapes(dev, label) -> None:
                "grad_max_bf16_ulps": grad_ulps, "bwd_repeats": torch.equal(grad, again)}
         row.update(bounds(x, d, ends, T))
         for name, fn in (("fwd", fwd), ("bwd", bwd)):
-            prof = device_kernels(fn)
+            prof = device_kernels(fn, PROFILED_CALLS)
             row[name] = {"event_ms": cuda_ms(fn), **regulator_kernel(prof),
                          "launch_kernels": prof["kernels"]}
         for name, fn in (("fwd_call", call), ("fwd_call_no_grad", call_no_grad),
                          ("bwd_call", call_bwd),
                          ("gather", gather), ("gather_bwd", gather_bwd)):
-            prof = device_kernels(fn)
+            prof = device_kernels(fn, PROFILED_CALLS)
             row[name] = {"event_ms": cuda_ms(fn), "device_ms": prof["device_ms"],
                          "host_us": host_us(fn), "kernels": prof["kernels"],
                          "by_name": prof["by_name"]}
@@ -258,25 +219,42 @@ def shapes(dev, label) -> None:
 
 
 def sweep(dev) -> None:
-    """The forward kernel at every frames-a-block the library takes, at
-    each shape, each launch held bit for bit against ``regulate_fwd_plain``."""
+    """At each shape, the forward kernel at every frames-a-block the library
+    takes, each launch held bit for bit against ``regulate_fwd_plain``, and
+    the backward kernel at every warps-a-phone, against
+    ``regulate_bwd_plain``: the plans are replaced for the timed calls."""
     from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
 
+    fwd_plan, bwd_plan = lr.fwd_frames_per_block, lr.bwd_warps_per_phone
     for n, (what, B, P, H, T, dtype) in enumerate(SHAPES):
         g = torch.Generator().manual_seed(100 + n)
         x = torch.randn(B, P, H, generator=g).to(dev, dtype)
         d = durations(B, P, T, g).to(dev)
+        dout = torch.randn(B, T, H, generator=g).to(dev, dtype)
         ref = lr.regulate_fwd_plain(x, d, T)
-        timed = []
-        for F in lr.FRAMES_PER_BLOCK:
-            out = lr.regulate_fwd(x, d, T, frames_per_block=F)
-            torch.cuda.synchronize()
-            ok = all(torch.equal(a, b) for a, b in zip(out, ref))
-            prof = device_kernels(lambda: lr.regulate_fwd(x, d, T, frames_per_block=F))
-            timed.append({"frames_per_block": F, "blocks": B * -(-T // F),
-                          "device_ms": regulator_kernel(prof)["device_ms"], "exact": ok})
+        ref_dx = lr.regulate_bwd_plain(dout, ref[2]).float()
+        fwd, bwd = [], []
+        try:
+            for F in lr.FRAMES_PER_BLOCK:
+                lr.fwd_frames_per_block = lambda B, T, F=F: F
+                out = lr.regulate_fwd(x, d, T)
+                torch.cuda.synchronize()
+                ok = all(torch.equal(a, b) for a, b in zip(out, ref))
+                prof = device_kernels(lambda: lr.regulate_fwd(x, d, T), PROFILED_CALLS)
+                fwd.append({"frames_per_block": F, "blocks": B * -(-T // F),
+                            "device_ms": regulator_kernel(prof)["device_ms"], "exact": ok})
+            for S in lr.BWD_SPLITS:
+                lr.bwd_warps_per_phone = lambda B, P, H, e, S=S: S
+                err = (lr.regulate_bwd(dout, ref[2]).float() - ref_dx).abs().max().item()
+                prof = device_kernels(lambda: lr.regulate_bwd(dout, ref[2]), PROFILED_CALLS)
+                bwd.append({"warps_per_phone": S,
+                            "device_ms": regulator_kernel(prof)["device_ms"],
+                            "max_abs_err_vs_plain": err})
+        finally:
+            lr.fwd_frames_per_block, lr.bwd_warps_per_phone = fwd_plan, bwd_plan
         emit({"phase": "regulate_sweep", "at": f"x ({B}, {P}, {H}) {str(dtype)[6:]} -> {T}",
-              "plan": lr.fwd_frames_per_block(B, T), "timed": timed})
+              "fwd_plan": fwd_plan(B, T), "fwd": fwd,
+              "bwd_plan": bwd_plan(B, P, H, x.element_size()), "bwd": bwd})
 
 
 def main() -> int:
@@ -291,15 +269,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    root = Path(a.tree).resolve() if a.tree else Path(__file__).resolve().parent.parent
+    root = Path(a.tree).resolve() if a.tree else HERE
     sys.path.insert(0, str(root))
     import lightningfastspeech2_tpu_torch as pkg
     from lightningfastspeech2_tpu_torch.kernels import build
 
     build.SOURCES = ("length_regulator",)  # the one library timed here
-    emit({"phase": "device", "label": a.label, "package": str(Path(pkg.__file__).parent),
-          "name": torch.cuda.get_device_name(0), "nvidia_smi": smi})
     dev = torch.device("cuda", 0)
+    one = torch.zeros(1, device=dev)
+    emit({"phase": "device", "label": a.label, "package": str(Path(pkg.__file__).parent),
+          "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "fill_one_element_device_ms": device_kernels(one.zero_, PROFILED_CALLS)["device_ms"]})
     if a.sweep:
         sweep(dev)
     else:

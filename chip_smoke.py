@@ -125,6 +125,23 @@ Phases, each printed as one JSON line:
 16. FastDiff reference: an f32 FastDiff request on the card against the
     same request on the CPU's plain path, with the same noise drawn once on
     the CPU.
+17. generate CLI: port checkpoints of the flagship (pitch and energy
+    priors, two d-vector speakers, the prior and d-vector GMMs as the
+    port's LogGMMs) and of the joint model (+ FastDiff) are written under
+    ``_chip/``, and ``cli.generate.main`` serves a sentence with an
+    out-of-vocabulary word with ``--prior_strategy gmm --sample_dvector``:
+    f32 HiFi-GAN V1 (the CLI's default), ``--vocoder_precision 16``,
+    ``--restore true --augment_gaussian_snr true`` and ``--use_fastdiff true
+    --fastdiff_n 4``. Each wav must be finite, non-empty and at 22.05 kHz
+    (44.1 kHz restored); per run one line: the host ms of
+    ``generate_from_text`` (median of 5 after a warm call), its device ms,
+    and per kernel route its device ms, launches and bound at the request's
+    buckets (B=1), which must show ``ffn_ln``'s f32 kernel in every run, the
+    f32 resblock kernels (f32 runs), the bf16 ones (bf16 run) and
+    ``lvc_stack`` (FastDiff). The f32 run's waveform must agree with the
+    same CLI run with ``--device cpu`` within phase 6's tolerance, and the
+    neural G2P must spell the OOV word on the card as on the CPU. Then each
+    kernel route alone at the request's shapes against its plain version.
 
 Phases 5 and 8 run without the flags and expect 0 launches of the kernels
 of phases 10-12 and 14.
@@ -141,6 +158,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -1184,22 +1202,24 @@ def train_kernels_phase(dev) -> dict:
             "flash_f32": _flash_case(dev, g, torch.float32, B=2, T=1024, rate=0.0)}
 
 
-def _step_split(prof, out_name: str = "train_profile.txt") -> dict:
+# the FFN templates ffn_ln_kernel<CP, kChain> (bf16) and
+# ffn_tf32_kernel<C, MT, kChain> (f32) are the forward with kChain false
+# and the backward's first launch with kChain true
+STEP_FAMILIES = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kernel<\d+, \d+, false>"),
+                 "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", r"ffn_tf32_kernel<\d+, \d+, true>",
+                                      "ffn_dup_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"),
+                 "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
+                 "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
+                 "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
+                 "regulate": "regulate_fwd_kernel", "regulate_bwd": "regulate_bwd_kernel",
+                 "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
+                 "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
+
+
+def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES) -> dict:
     """Device time of one traced step by kernel family (torch.profiler
     key_averages, kernel names matched as whole words); zeros when the
     profiler saw no device time."""
-    # the FFN templates ffn_ln_kernel<CP, kChain> (bf16) and
-    # ffn_tf32_kernel<C, MT, kChain> (f32) are the forward with kChain false
-    # and the backward's first launch with kChain true
-    fam = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kernel<\d+, \d+, false>"),
-           "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", r"ffn_tf32_kernel<\d+, \d+, true>",
-                                "ffn_dup_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"),
-           "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
-           "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
-           "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
-           "regulate": "regulate_fwd_kernel", "regulate_bwd": "regulate_bwd_kernel",
-           "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
-           "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
     out = {k: 0.0 for k in fam}
     counts = {k: 0 for k in fam}
     total = 0.0
@@ -1890,6 +1910,311 @@ def _vocoder_call(synth, mel, tag: str):
             "rest_device_ms": split["device_ms"] - split["lvc_stack_ms"]}, prof
 
 
+# ------------------------------------------------------- the generate CLI
+# a short sentence with a word in no lexicon: the neural G2P spells it
+CLI_SENTENCE = "Hello zyxwort world."
+CLI_OOV = "zyxwort"
+CLI_RUNS = 5   # timed requests after one warm call: their median
+# kernel routes by the names torch.profiler gives the device kernels
+CLI_ROUTES = {"ffn_ln_f32": r"ffn_tf32_kernel<\d+, \d+, false>",
+              "ffn_ln_bf16": r"ffn_ln_kernel<\d+, false>",
+              "resblock_f32": "f32_resblock_kernel",
+              "resblock_bf16": ("wg_resblock_kernel", "mma_resblock_kernel"),
+              "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
+              "probe": "probe_kernel"}
+
+
+def write_cli_checkpoints(root: Path) -> dict:
+    """Port checkpoints of the flagship with pitch and energy priors and
+    their stats, two d-vector speakers with prior histories, and the
+    prior and d-vector GMMs (made from seeded parameters as the port's own
+    LogGMMs: this machine has no scikit-learn to fit them); and a joint one,
+    the flagship with its residual head and FastDiff at reference widths.
+    Weights from seeded generators; the duration head gives every phone 7
+    frames."""
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship, replace
+    from lightningfastspeech2_tpu_torch.data.vocab import ARPABET_TO_IPA, PUNCTUATION_TOKENS, SILENCE
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.models.joint import make_fastdiff_config
+    from lightningfastspeech2_tpu_torch.utils.log_gmm import make_log_gmm
+    from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffVocoder
+
+    phones = sorted(set(ARPABET_TO_IPA.values()) | set(PUNCTUATION_TOKENS.values()) | {SILENCE})
+    phone2id = {"[PAD]": 0, **{p: i + 1 for i, p in enumerate(phones)}}
+    cfg = lightspeech_flagship()
+    cfg = replace(cfg, model=replace(cfg.model, priors=("pitch", "energy"),
+                                     vocab_size=len(phone2id)))
+    g = np.random.default_rng(0)
+    dvecs = {}
+    for i in range(2):
+        v = g.standard_normal(cfg.model.dvector_dim)
+        dvecs[f"spk{i}"] = (v / np.linalg.norm(v)).astype(np.float32)
+    history = {s: {"pitch": g.uniform(110.0, 230.0, 50), "energy": g.uniform(0.2, 0.9, 50)}
+               for s in dvecs}
+    stats = {v: {"min": -2.0, "max": 3.0, "mean": 0.0, "std": 1.0}
+             for v in cfg.model.variance.variances}
+    stats["priors_pitch"] = {"min": 100.0, "max": 240.0, "mean": 165.0, "std": 35.0}
+    stats["priors_energy"] = {"min": 0.1, "max": 1.0, "mean": 0.55, "std": 0.2}
+    sidecar = {"phone2id": phone2id, "stats": stats, "speaker2dvector": dvecs,
+               "speaker2priors": history}
+    D = cfg.model.dvector_dim
+    prior_gmms, dvector_gmms = {}, {}
+    for s, v in dvecs.items():
+        # pitch and energy max-scaled and log-transformed, as fit_speaker_gmms
+        mean = np.log(np.array([[150.0, 0.4], [200.0, 0.7]]) / np.array([240.0, 1.0]))
+        prior_gmms[s] = make_log_gmm([0.45, 0.55], mean, [np.diag([0.01, 0.04])] * 2,
+                                     [240.0, 1.0], logs=[0, 1])
+        dvector_gmms[s] = make_log_gmm([0.5, 0.5], [v, 0.9 * v], [np.eye(D) * 1e-4] * 2,
+                                       np.ones(D))
+
+    def model_state(mcfg, fastdiff_head):
+        model = build_fastspeech2(mcfg, device="cpu", seed=0, use_fastdiff_head=fastdiff_head)
+        with torch.no_grad():
+            head = model.variance_adaptor.duration_predictor.linear
+            head.weight.zero_()
+            head.bias.fill_(math.log(8.0))   # round(exp(log 8) - 1) = 7 frames a phone
+        return model.state_dict()
+
+    dirs = {"acoustic": root / "ckpt", "joint": root / "joint"}
+    Checkpointer(dirs["acoustic"]).save(1, model_state(cfg.model, False), cfg, sidecar)
+    jcfg = replace(cfg, model=replace(cfg.model, fastdiff_vocoder=True))
+    fd = FastDiffVocoder(make_fastdiff_config(jcfg.model), device="cpu", seed=1).model
+    Checkpointer(dirs["joint"]).save(
+        1, {"acoustic": model_state(jcfg.model, True), "fastdiff": fd.state_dict()},
+        jcfg, sidecar)
+    for d in dirs.values():
+        (d / "prior_gmms.pkl").write_bytes(pickle.dumps(prior_gmms))
+        (d / "dvector_gmms.pkl").write_bytes(pickle.dumps(dvector_gmms))
+    return {k: str(v) for k, v in dirs.items()}
+
+
+def _route_split(prof, out_name: str) -> dict:
+    """Device ms and launches of each CLI_ROUTES route in one profiled
+    request, and the request's whole device time (the kernel table in
+    ``out_name``)."""
+    split = _step_split(prof, out_name, CLI_ROUTES)
+    return {"device_ms": split["device_ms"], "device_launches": split["device_launches"],
+            "routes": {k: {"ms": split[f"{k}_ms"], "launches": split[f"{k}_launches"]}
+                       for k in CLI_ROUTES}}
+
+
+def _cli_bounds(gen, P: int, T: int) -> dict:
+    """Each route's least time for one request of phone bucket P and frame
+    bucket T, B = 1, summed over its launches, as its PERF.md row counts
+    it: ffn_ln per FFT block (the duration pass's encoder, the full pass's
+    encoder and decoder; f32 products at split TF32's 165 TFLOP/s), the
+    resblock launches of one vocoder call, lvc_stack per routed stage and ε
+    pass; and the launches that sum covers."""
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import routes_to_kernel
+    from lightningfastspeech2_tpu_torch.synthesis.generator import FastDiffSynthesiser
+
+    out = {}
+
+    def add(route, flops, nbytes, dtype, peak):
+        b, by = bound_ms(flops, nbytes, dtype, peak)
+        r = out.setdefault(route, {"bound_ms": 0.0, "bound_launches": 0, "bound_by": by})
+        r["bound_ms"] += b
+        r["bound_launches"] += 1
+
+    m = gen.model
+    blocks = [(b, P) for b in m.encoder.layers] * 2 + [(b, T) for b in m.decoder.layers]
+    for blk, L in blocks:
+        w = blk.ffn_weights
+        C, F = w.w1.shape
+        f32 = m.dtype == torch.float32
+        flops = L * (2 * w.kernel_size * C + 4 * C * F)
+        nbytes = 2 * L * C * w.w1.element_size() + tensor_bytes(w.wd, w.w1, w.b1, w.w2f, w.lnp)
+        add("ffn_ln_f32" if f32 else "ffn_ln_bf16", flops, nbytes, m.dtype,
+            PEAK_F32_ACCURATE if f32 else None)
+    synth = gen.synthesiser
+    if isinstance(synth, FastDiffSynthesiser):
+        v = synth.vocoder
+        dt, C, layers = v.dtype, v.cfg.inner_channels, v.cfg.lvc_layers_each_block
+        peak = PEAK_FLOPS[dt] if dt == torch.bfloat16 else PEAK_F32_ACCURATE
+        elt = torch.finfo(dt).bits // 8
+        hop = 1
+        for r in v.cfg.upsample_ratios:
+            hop *= r
+            if not routes_to_kernel(hop, T, layers):
+                continue
+            L = T * hop
+            flops = L * layers * 2 * (3 * C * C + 3 * C * 2 * C)
+            # x in and out, the audio branch, the predicted kernels and biases,
+            # the dilated convs' weights (f32 biases)
+            nbytes = (3 * L * C + T * layers * (C * 2 * C * 3 + 2 * C) + layers * 3 * C * C) * elt \
+                + layers * C * 4
+            for _ in range(synth.n_steps):
+                add("lvc_stack", flops, nbytes, dt, peak)
+    elif synth is not None:
+        g = synth.model
+        dt = g.dtype
+        route = "resblock_f32" if dt == torch.float32 else "resblock_bf16"
+        L = T
+        for stage, weights in enumerate(g.stage_weights):
+            L *= g.cfg.upsample_rates[stage]
+            for w in weights:
+                C = w.channels
+                convs = [(k, len(ds)) for k, ds in zip(w.kernel_sizes, w.dilations)]
+                flops = L * sum(2 * k * C * C * 2 * n for k, n in convs)
+                n_w = sum(k * C * C * 2 * n for k, n in convs)
+                elt = torch.finfo(dt).bits // 8
+                nbytes = 2 * L * C * elt + n_w * elt + tensor_bytes(w.bias)
+                add(route, flops, nbytes, dt, PEAK_F32_ACCURATE if dt == torch.float32 else None)
+    return out
+
+
+def _cli_request(gen, cfg, args, name: str, smi: str) -> dict:
+    """One CLI run's request through the generator the CLI builds: the host
+    ms of ``generate_from_text`` (median of CLI_RUNS after one warm call),
+    then one call under the profiler: device ms, and per route device ms,
+    launches and bound at the request's buckets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightningfastspeech2_tpu_torch.cli import generate as cli
+
+    mels = []
+    synth = gen.synthesiser
+
+    def recording(mel):   # the vocoder sees the mel at its frame bucket
+        mels.append(np.shape(mel))
+        return synth(mel)
+
+    gen.synthesiser = recording
+    cli.synthesize_sentence(gen, cfg, args)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(CLI_RUNS):
+        t = time.perf_counter()
+        wav = cli.synthesize_sentence(gen, cfg, args)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli.synthesize_sentence(gen, cfg, args)
+        torch.cuda.synchronize()
+    gen.synthesiser = synth
+    split = _route_split(prof, f"cli_{name}_profile.txt")
+    n_ph = len(gen.text_to_ids(args.sentence))
+    P, T = gen.bucketer.phone_bucket(n_ph), mels[-1][0]
+    bounds = _cli_bounds(gen, P, T)
+    routes = {}
+    for k, r in split["routes"].items():
+        if r["launches"] == 0:
+            continue
+        b = bounds.get(k, {})
+        routes[k] = {**r, "ms_a_launch": r["ms"] / r["launches"], **b,
+                     **({"x_bound": r["ms"] / b["bound_ms"]} if b else {})}
+    return {"host_ms_median": statistics.median(runs), "host_ms_runs": runs,
+            "device_ms": split["device_ms"], "device_launches": split["device_launches"],
+            "phones": n_ph, "phone_bucket": P, "frame_bucket": T,
+            "samples": int(wav.size), "routes": routes, "nvidia_smi": smi}
+
+
+def cli_phase(counters, smi: str) -> dict:
+    """Phase 17: the port's generate CLI on the card from checkpoints this
+    phase writes: f32 HiFi-GAN V1 (the CLI's default), bf16 V1, with
+    restoration and an augmentation, and FastDiff on the joint checkpoint,
+    each with ``--prior_strategy gmm --sample_dvector`` on a sentence with an
+    out-of-vocabulary word. Each wav must be finite, non-empty and at its
+    rate; each run's routes must show their kernels; the f32 run's waveform
+    must agree with the same CLI run on the CPU within phase 6's tolerance,
+    and the neural G2P must spell the OOV word on the card as on the CPU."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as cli
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+    from lightningfastspeech2_tpu_torch.synthesis import neural_g2p
+
+    work = ROOT / "_chip" / "cli_checkpoints"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    dirs = write_cli_checkpoints(work)
+    emit({"phase": "cli_checkpoints", "seconds": time.perf_counter() - t0,
+          "model": "lightspeech_flagship, priors pitch + energy, 2 d-vector speakers; "
+                   "joint: + residual head and FastDiff (reference widths)"})
+    out_root = ROOT / "chiprun_out" / "cli"
+    runs = {  # name: (checkpoint, flags, routes that must launch, routes that must not)
+        "f32": ("acoustic", [], ("ffn_ln_f32", "resblock_f32"), ("resblock_bf16",)),
+        "bf16": ("acoustic", ["--vocoder_precision", "16"], ("ffn_ln_f32", "resblock_bf16"),
+                 ("resblock_f32",)),
+        "restore_augment": ("acoustic", ["--restore", "true", "--augment_gaussian_snr", "true"],
+                            ("ffn_ln_f32", "resblock_f32"), ("resblock_bf16",)),
+        "fastdiff": ("joint", ["--use_fastdiff", "true", "--fastdiff_n", "4"],
+                     ("ffn_ln_f32", "lvc_stack"), ("resblock_f32", "resblock_bf16")),
+    }
+    rows = {}
+    for name, (ckpt, flags, must, must_not) in runs.items():
+        argv = ["--checkpoint_dir", dirs[ckpt], "--sentence", CLI_SENTENCE, "--seed", "0",
+                "--prior_strategy", "gmm", "--sample_dvector",
+                "--output_path", str(out_root / name), *flags]
+        reset_counts(counters)
+        t = time.perf_counter()
+        wav = cli.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+        written, sr = wav_io.read(out_root / name / "sentence.wav")
+        want_sr = 44100 if "--restore" in flags else SAMPLING_RATE
+        if not (written.size > 0 and np.isfinite(written).all() and sr == want_sr
+                and np.isfinite(wav).all() and wav.size == written.size):
+            raise RuntimeError(f"cli {name}: wav of {written.size} samples at {sr} Hz "
+                               f"(want {want_sr}), finite={np.isfinite(written).all()}")
+        args = cli.build_parser().parse_args(argv)
+        gen, cfg, _ = cli.load_generator(args)
+        chain = cli.postprocess_chain(args)
+        if chain is not None:
+            gen.set_postprocess(chain)
+        req = _cli_request(gen, cfg, args, name, smi)
+        row = {"phase": "cli", "run": name, "flags": flags, "main_s": main_s,
+               "wav_samples": int(written.size), "sampling_rate": sr,
+               "peak": float(np.abs(written).max()), "launches_main_run": launches, **req}
+        emit(row)
+        missing = [k for k in must if k not in req["routes"]]
+        extra = [k for k in must_not if k in req["routes"]]
+        if missing or extra:
+            raise RuntimeError(f"cli {name}: routes {sorted(req['routes'])}, missing {missing}, "
+                               f"unexpected {extra}")
+        row["wav"], row["oov_phones"] = wav, gen.g2p.neural([CLI_OOV])[0]
+        rows[name] = row
+    # the plain path: the f32 run again with --device cpu
+    argv = ["--checkpoint_dir", dirs["acoustic"], "--sentence", CLI_SENTENCE, "--seed", "0",
+            "--prior_strategy", "gmm", "--sample_dvector",
+            "--output_path", str(out_root / "f32_cpu"), "--device", "cpu"]
+    t = time.perf_counter()
+    ref = cli.main(argv)
+    cpu_s = time.perf_counter() - t
+    cpu_phones = neural_g2p.NeuralG2P.load(device="cpu")([CLI_OOV])[0]
+    a = rows["f32"]["wav"]
+    top = float(np.abs(ref).max())
+    err = float(np.abs(a - ref).max()) if a.shape == ref.shape else float("inf")
+    tol = 1e-3 * top + 1e-7   # phase 6's
+    emit({"phase": "cli_reference", "samples": [a.size, ref.size], "max_abs_err": err,
+          "tol": tol, "peak": top, "cpu_main_s": cpu_s, "oov": CLI_OOV,
+          "oov_phones": {n: r["oov_phones"] for n, r in rows.items()} | {"cpu": cpu_phones},
+          "nvidia_smi": smi})
+    if not (a.shape == ref.shape and err <= tol and top > 0):
+        raise RuntimeError(f"cli f32 card vs CPU: shapes {a.shape} {ref.shape}, "
+                           f"max |err| {err} > {tol}")
+    if not cpu_phones or any(r["oov_phones"] != cpu_phones for r in rows.values()):
+        raise RuntimeError(f"neural G2P on the card {[r['oov_phones'] for r in rows.values()]} "
+                           f"against the CPU's {cpu_phones}")
+    shutil.rmtree(work, ignore_errors=True)
+    # each route alone at the request's shapes (B = 1, its buckets) against
+    # its plain version, as phases 4 and 14 hold them at theirs
+    dev, g = torch.device("cuda", 0), torch.Generator().manual_seed(17)
+    P, T = rows["f32"]["phone_bucket"], rows["f32"]["frame_bucket"]
+    f32 = torch.float32
+    served = {"ffn_ln_f32": [_ffn_case(dev, 1, P, 5, f32, g), _ffn_case(dev, 1, T, 17, f32, g)],
+              "resblock_f32": _resblock_cases(dev, T, g, f32),
+              "resblock_bf16": _resblock_cases(dev, T, g),
+              "lvc_stack_f32": [_lvc_case(dev, g, hop, f32, nL=T) for hop in (64, 256)]}
+    emit({"phase": "cli_served_shapes", "phone_bucket": P, "frame_bucket": T,
+          **{k: [{f: r[f] for f in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")} for r in v] for k, v in served.items()},
+          "nvidia_smi": smi})
+    return {n: {k: v for k, v in r.items() if k != "wav"} for n, r in rows.items()}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -1961,6 +2286,7 @@ def main() -> int:
     fd_rows = fastdiff_kernels_phase(dev)
     fd_served = fastdiff_serving_phase(counters, served)
     reference_phase({**served, "fastdiff_cfg": fd_served["cfg"]}, fastdiff=True)
+    cli_rows = cli_phase(counters, info["nvidia_smi"])
 
     n = served["launches"]
     nt = trained["row"]["launches"]
@@ -1969,8 +2295,10 @@ def main() -> int:
         {**{k: v for k, v in probe_row.items() if k != "tol"}, "launches": n["probe"]},
         # the served batch's decoder shape; the other shapes are on their
         # own lines above
-        _summary("ffn_ln", f"{pkg}/ffn_ln.cu", "lightningfastspeech2_tpu/ops/pallas_ffn.py:77",
-                 rows["ffn_ln"][:1], n["ffn_ln"]),
+        {**_summary("ffn_ln", f"{pkg}/ffn_ln.cu", "lightningfastspeech2_tpu/ops/pallas_ffn.py:77",
+                    rows["ffn_ln"][:1], n["ffn_ln"]),
+         # the f32 route at the generate CLI's request (phase 17)
+         "cli_f32_request": cli_rows["f32"]["routes"]["ffn_ln_f32"]},
     ]
     # the bf16 route (the serving path's) summed over a 512-frame call's
     # launches, with the same chain through bf16 cuDNN convs; the f32 route

@@ -1,5 +1,6 @@
-"""The port's own copy of ``lightningfastspeech2_tpu/synthesis/g2p.py``
-(lexicon + rule LTS; the neural OOV fallback is not ported yet).
+"""The port's own copy of ``lightningfastspeech2_tpu/synthesis/g2p.py``:
+lexicon, then the neural OOV fallback (``neural=``, a
+``synthesis.neural_g2p.NeuralG2P``) where given, then the rule LTS.
 
 Grapheme-to-phoneme conversion.
 
@@ -31,9 +32,12 @@ BUILTIN_LEXICON = str(Path(__file__).resolve().parent.parent / "data"
 
 
 class G2P(ABC):
-    def __init__(self, lexicon_path: Optional[str] = None):
+    def __init__(self, lexicon_path: Optional[str] = None, neural=None):
         self.lexicon_path = lexicon_path
         self.lexicon = self.load_lexicon()
+        # OOV fallback: a synthesis.neural_g2p.NeuralG2P (the analog of the
+        # reference's g2p_en model, g2p.py:4); rule LTS when absent
+        self.neural = neural
 
     @abstractmethod
     def __call__(self, text: str) -> List[str]: ...
@@ -111,6 +115,8 @@ class EnglishG2P(G2P):
             if word[-1] in ".,!?;:":
                 punctuation, word = word[-1], word[:-1]
             raw = self.lexicon.get(word)
+            if raw is None and self.neural is not None:
+                raw = self.neural([word])[0]
             if not raw:
                 raw = letter_to_sound(word)
             for phone in raw:

@@ -2,8 +2,9 @@
 
 Counterpart of ``lightningfastspeech2_tpu/synthesis/generator.py``: G2P ->
 phone ids -> speaker (and prior) pick -> acoustic model -> vocoder (HiFi-GAN,
-or FastDiff through ``FastDiffSynthesiser``) -> post-processing. A model with
-the FastDiff residual head vocodes mel + ``fastdiff_var``.
+or FastDiff through ``FastDiffSynthesiser``) -> post-processing (restoration,
+augmentations: ``PostProcessChain``) -> ``save_audio`` at the output rate. A
+model with the FastDiff residual head vocodes mel + ``fastdiff_var``.
 
 Serving runs two bucketing passes, as in the JAX package (where both are on
 by default; here they are the only path):
@@ -26,6 +27,7 @@ import torch
 from lightningfastspeech2_tpu_torch.core import config as C
 from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer, pad_to
 from lightningfastspeech2_tpu_torch.core.device import DeviceLike
+from lightningfastspeech2_tpu_torch.data import wav as wav_io
 from lightningfastspeech2_tpu_torch.data.vocab import Vocab
 from lightningfastspeech2_tpu_torch.models.joint import make_fastdiff_config
 from lightningfastspeech2_tpu_torch.synthesis.g2p import G2P
@@ -73,6 +75,15 @@ class SpeechGenerator:
     def output_sampling_rate(self) -> int:
         return (getattr(self.postprocess, "output_sampling_rate", None)
                 or self.sampling_rate)
+
+    def set_postprocess(self, fn) -> None:
+        """Install a post-processor after construction (the save rate
+        follows it: a restorer outputs 44.1 kHz)."""
+        self.postprocess = fn
+
+    def save_audio(self, path, audio: np.ndarray) -> None:
+        """int16 PCM at the output rate (``data/wav.py write``)."""
+        wav_io.write(path, audio, self.output_sampling_rate)
 
     # ------------------------------------------------------------ text path
     def text_to_ids(self, text: str) -> np.ndarray:

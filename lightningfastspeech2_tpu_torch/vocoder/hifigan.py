@@ -61,6 +61,21 @@ class HifiGanConfig:
             out *= r
         return out
 
+    @classmethod
+    def from_dict(cls, d) -> "HifiGanConfig":
+        """From ``dataclasses.asdict`` of either package's config, as a
+        vocoder checkpoint's sidecar holds it (``hifigan_config``)."""
+        return cls(
+            resblock=d["resblock"],
+            upsample_rates=tuple(d["upsample_rates"]),
+            upsample_kernel_sizes=tuple(d["upsample_kernel_sizes"]),
+            upsample_initial_channel=d["upsample_initial_channel"],
+            resblock_kernel_sizes=tuple(d["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(tuple(x) for x in d["resblock_dilation_sizes"]),
+            num_mels=d["num_mels"],
+            sampling_rate=d["sampling_rate"],
+        )
+
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
@@ -88,6 +103,23 @@ def fold_weight_norm_state(state: Dict[str, object]) -> Dict[str, object]:
             out[f"{prefix}.weight"] = fold_weight_norm(
                 state[f"{prefix}.weight_g"], state[k])
     return out
+
+
+def load_torch_generator(path, cfg: HifiGanConfig = HifiGanConfig()) -> Dict[str, torch.Tensor]:
+    """A released torch HiFi-GAN generator checkpoint (the
+    ``generator_universal.pth.tar`` layout, optionally nested under a
+    ``"generator"`` key) as this module's state dict, weight norm folded.
+    Only tensors are read (``weights_only``)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "generator" in state:
+        state = state["generator"]
+    state = fold_weight_norm_state(dict(state))
+    n_blocks = len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)
+    missing = [k for k in ("conv_pre.weight", "conv_post.weight",
+                           f"resblocks.{n_blocks - 1}.convs1.0.weight") if k not in state]
+    if missing:
+        raise ValueError(f"{path} is not a HiFi-GAN generator for {cfg}: no {missing}")
+    return state
 
 
 class ResBlock1(nn.Module):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``lightningfastspeech2_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, optax, orbax or the JAX package, and
-entry points refuse to run silently on the CPU."""
+``chip_smoke.py``) imports JAX, flax, optax, orbax, msgpack, scikit-learn,
+huggingface_hub or the JAX package, and entry points refuse to run silently
+on the CPU."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "lightningfastspeech2_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lightningfastspeech2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "sklearn",
+             "huggingface_hub", "lightningfastspeech2_tpu")
 
 
 def _imported_modules(path: Path):
@@ -56,8 +58,14 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc\n"
         "from lightningfastspeech2_tpu_torch.vocoder import diffusion, fastdiff\n"
         "from lightningfastspeech2_tpu_torch.models import joint\n"
+        "from lightningfastspeech2_tpu_torch.cli import generate\n"
+        "from lightningfastspeech2_tpu_torch.core import checkpoint\n"
+        "from lightningfastspeech2_tpu_torch.utils import log_gmm, flax_msgpack\n"
+        "from lightningfastspeech2_tpu_torch.synthesis import (\n"
+        "    augment, denoiser, g2p, neural_g2p, restore)\n"
+        "from lightningfastspeech2_tpu_torch.data import wav\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'orbax', 'lightningfastspeech2_tpu')]\n"
+        f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1088,3 +1088,60 @@ def test_fastdiff_pass_launches_and_matches_cpu(cuda_card, monkeypatch, opt_in):
     assert torch.isfinite(out).all() and top > 0
     # f32 on both sides, TF32 off: summation order only, through the network
     assert (out.cpu() - ref).abs().max().item() <= 1e-3 * top
+
+
+@pytest.mark.gpu
+def test_generate_cli_on_the_card_matches_cpu(cuda_card, tmp_path):
+    """The generate CLI at a tiny size (C 32, F 128; HiFi-GAN 64 -> 32
+    channels, hop 16) from a port checkpoint with d-vectors: on the card the
+    neural G2P spells the OOV word as on the CPU and the f32 waveform agrees
+    within phase 6's tolerance (1e-3 of the peak)."""
+    import dataclasses
+
+    import numpy as np
+
+    from lightningfastspeech2_tpu_torch.cli import generate as cli
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.data.vocab import (
+        ARPABET_TO_IPA,
+        PUNCTUATION_TOKENS,
+        SILENCE,
+    )
+    from lightningfastspeech2_tpu_torch.vocoder import hifigan as thg
+
+    phones = sorted(set(ARPABET_TO_IPA.values()) | set(PUNCTUATION_TOKENS.values()) | {SILENCE})
+    phone2id = {"[PAD]": 0, **{p: i + 1 for i, p in enumerate(phones)}}
+    stack = dict(hidden=32, heads=2, layers=2, conv_filter_size=128)
+    cfg = tiny_config(TC, encoder=TC.StackConfig(kernel_sizes=(3, 5), **stack),
+                      decoder=TC.StackConfig(kernel_sizes=(5, 3), **stack),
+                      audio=TC.AudioConfig(hop_length=16), vocab_size=len(phone2id))
+    model = build_fastspeech2(cfg.model, device="cpu")
+    with torch.no_grad():  # every phone 7 frames
+        head = model.variance_adaptor.duration_predictor.linear
+        head.weight.zero_()
+        head.bias.fill_(math.log(8.0))
+    g = np.random.default_rng(0)
+    dvecs = {f"spk{i}": g.standard_normal(16).astype(np.float32) for i in range(2)}
+    Checkpointer(tmp_path / "ck").save(1, model.state_dict(), cfg,
+                                       {"phone2id": phone2id, "speaker2dvector": dvecs})
+    hcfg = thg.HifiGanConfig(upsample_rates=(8, 2), upsample_kernel_sizes=(16, 4),
+                             upsample_initial_channel=128)
+    voc = thg.Synthesiser(hcfg, device="cpu", seed=1).model
+    Checkpointer(tmp_path / "voc").save(
+        1, {"gen": {k: v * 8.0 for k, v in voc.state_dict().items()}},
+        sidecar={"hifigan_config": dataclasses.asdict(hcfg)})
+
+    argv = ["--checkpoint_dir", str(tmp_path / "ck"), "--hifigan_checkpoint",
+            str(tmp_path / "voc"), "--sentence", "hello zyxwort world.", "--seed", "0",
+            "--speaker", "spk1"]
+    wavs, ids = {}, {}
+    for dev in ("cuda", "cpu"):
+        run = argv + ["--device", dev, "--output_path", str(tmp_path / dev)]
+        wavs[dev] = cli.main(run)
+        gen, _, _ = cli.load_generator(cli.build_parser().parse_args(run))
+        ids[dev] = gen.text_to_ids("zyxwort")
+    assert list(ids["cuda"]) == list(ids["cpu"]) and len(ids["cpu"]) > 2
+    a, b = wavs["cuda"], wavs["cpu"]
+    top = float(np.abs(b).max())
+    assert a.shape == b.shape and np.isfinite(a).all() and top > 0.01
+    assert float(np.abs(a - b).max()) <= 1e-3 * top + 1e-7

@@ -127,3 +127,23 @@ def resblock_block(p, k, dilations=(1, 3, 5)):
         for i in range(len(dilations))
     ]
     return (k, tuple(dilations), convs)
+
+
+_JAX_G2P = {}
+
+
+def jax_neural_g2p(path=None, load=None):
+    """The JAX package's ``NeuralG2P.load(path)`` (or ``load(path)``),
+    loaded once per process (a model.init and, at first use, a decode
+    compile: seconds on the CPU) and shared by the tests that hold the
+    port's neural G2P against it."""
+    from pathlib import Path
+
+    from lightningfastspeech2_tpu.synthesis.neural_g2p import NeuralG2P
+
+    if path is None:
+        path = Path(__file__).resolve().parent.parent / "lightningfastspeech2_tpu/data/g2p_en.npz"
+    key = str(Path(path).resolve())
+    if key not in _JAX_G2P:
+        _JAX_G2P[key] = (load or NeuralG2P.load)(path)
+    return _JAX_G2P[key]

@@ -18,7 +18,10 @@ Phases, each printed as one JSON line:
    at every C and both row counts) must hold HMMA and spill nothing; the
    eight soft-DTW kernels (``soft_dtw_wave_fwd`` and ``soft_dtw_wave_bwd`` at
    each rows-a-thread the plan takes) must spill nothing and hold no
-   local-memory access.
+   local-memory access; ``ffn_wide_kernel`` (both dtypes, C = 384, 512, 640)
+   and the split-TF32 flash kernels at head dims 128 and 256 must hold
+   HMMA, the wgmma flash kernels HGMMA, and the spills and serialised wgmma
+   of these and of the CUDA-core flash route are reported.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -143,6 +146,36 @@ Phases, each printed as one JSON line:
     neural G2P must spell the OOV word on the card as on the CPU. Then each
     kernel route alone at the request's shapes against its plain version.
 
+18. wide FFN: ``ffn_ln`` at C = 640 (B, T = 1, 256 and 8, 512; k = 5, 17,
+    25) and at C = 384 and 512 (8, 512, k = 17), F = 4 C, in bf16 and f32,
+    through ``ffn_wide_kernel``, each against ``ffn_ln_plain`` with its
+    launch as the library recorded it held against ``ffn_plan``, its time
+    and its bound.
+19. wide flash: flash attention forward and backward at (2, 2, 2048, 256)
+    (the tensor-core routes' D = 256 templates) and (1, 1, 1024, 512) (the
+    CUDA-core route), bf16 and f32, against the plain version, with SDPA
+    timed beside them.
+20. lightspeech_true76m serving: the preset with HiFi-GAN V1, bf16 and f32,
+    from seeded generators, serves phase 5's sentences and batch; the
+    counters, set to 0 just before each run, must show ``ffn_ln`` at C =
+    640 in every block of every pass (``ffn_ln.by_width``); then an f32
+    request on the card against the CPU's plain path (phase 6's tolerance).
+21. lightspeech_true76m training: bf16 with f32 parameters and bf16 Adam
+    moments, B=8, P=256, T=2048, 1 warm-up and 3 timed steps; finite losses,
+    a finite non-zero gradient on every parameter, first moments in bf16;
+    the counters must show every decoder flash launch through the wgmma
+    kernels and no ``ffn_ln_train`` launch (the JAX gate's fit estimate
+    sends (640, 2560) to the unfused FFN); one profiled step.
+22. fastspeech2_27m: the preset (plain ConvFFN, no speaker) with HiFi-GAN
+    V1 in bf16 serves phase 5's sentences and batch (no ``ffn_ln`` launch:
+    its blocks run unfused); then ``cli.generate.main`` serves a sentence
+    from a port checkpoint of it with a ResBlock2 vocoder directory
+    (HiFi-GAN V3's dims, plain convs: no resblock kernel launch).
+23. every-layer embeddings: the flagship with every-layer speaker and prior
+    embeddings serves one request and takes one training step (B=2, P=64,
+    T=1024) in bf16, finite, through ``ffn_ln`` / ``ffn_ln_train`` in every
+    block and flash in every decoder block.
+
 Phases 5 and 8 run without the flags and expect 0 launches of the kernels
 of phases 10-12 and 14.
 
@@ -155,6 +188,7 @@ repository beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -278,6 +312,7 @@ def build_phase() -> None:
         "\n".join(f"=== {k}\n{v['ptxas']}" for k, v in report.items()))
     ffn_sass_phase(report)
     soft_dtw_sass_phase(report)
+    wide_sass_phase(report)
 
 
 # the FFN sources' tensor-core kernels, by their mangled names
@@ -379,6 +414,40 @@ def soft_dtw_sass_phase(report) -> dict:
     return rows
 
 
+# this slice's kernels: ffn_wide_kernel<T, C> and the flash kernels at head
+# dim 256 (the tensor-core routes' templates) and past it (the CUDA cores')
+FFN_WIDE = re.compile(r"(ffn_wide_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+FLASH_D = re.compile(r"((?:fwd|dq|dkv)(?:_sm90)?_kernel)ILi(\d+)E")
+FLASH_WIDE = re.compile(r"(wide_(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E")
+
+
+def wide_sass_phase(report) -> dict:
+    """This slice's kernels as compiled, reported beside the checks above:
+    ``ffn_wide_kernel`` at C = 384, 512, 640 in both dtypes (HMMA required),
+    both flash routes at head dims 128 and 256 (HGMMA in bf16, HMMA in f32
+    required) and the CUDA-core flash route; their spills and serialised
+    wgmma are reported (PERF.md), not refused."""
+    def dt(x):
+        return "bf16" if x.endswith("bfloat16") else "f32"
+
+    rows = {"ffn_wide": _sass_rows("ffn_ln", report, FFN_WIDE,
+                                   lambda m: f"{m.group(1)}<{dt(m.group(2))}, {m.group(3)}>"),
+            "flash_sm90": _sass_rows("flash_attention_sm90", report, FLASH_D,
+                                     lambda m: f"{m.group(1)}<{m.group(2)}>"),
+            "flash_f32": _sass_rows("flash_attention", report, FLASH_D,
+                                    lambda m: f"{m.group(1)}<{m.group(2)}>"),
+            "flash_wide": _sass_rows("flash_attention_wide", report, FLASH_WIDE,
+                                     lambda m: f"{m.group(1)}<{dt(m.group(2))}>")}
+    emit({"phase": "wide_sass", **rows})
+    bad = {k: r for k, r in {**rows["ffn_wide"], **rows["flash_f32"]}.items() if r["hmma"] == 0}
+    bad.update({k: r for k, r in rows["flash_sm90"].items() if r["hgmma"] == 0})
+    if (len(rows["ffn_wide"]) != 6 or len(rows["flash_sm90"]) != 6
+            or len(rows["flash_f32"]) != 6 or len(rows["flash_wide"]) != 6 or bad):
+        raise RuntimeError(f"this slice's kernels: {[len(r) for r in rows.values()]} found "
+                           f"(want 6 each), without tensor-core instructions {bad}")
+    return rows
+
+
 HOST_LAUNCHES = 10_000
 
 
@@ -469,13 +538,12 @@ def probe_phase(dev) -> dict:
     return row
 
 
-def _ffn_case(dev, B, T, k, dtype, g) -> dict:
+def _ffn_case(dev, B, T, k, dtype, g, C=256, F=1024) -> dict:
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
     from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
     from lightningfastspeech2_tpu_torch.ops import ffn as ffn_mod
     from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_plain
 
-    C, F = 256, 1024
     block = FFTBlock(C, 2, k, F, dtype)
     init_weights(block, g)
     with torch.no_grad():  # non-trivial LayerNorm parameters
@@ -849,7 +917,7 @@ def hifigan_vocoder_profile(synth, cfg, tag: str = "") -> dict:
     return row
 
 
-def reference_phase(served, fastdiff: bool = False) -> None:
+def reference_phase(served, fastdiff: bool = False, tag: str = "") -> None:
     """One f32 request on the card (kernels) against the same request on
     the CPU (plain versions), same seeded weights and duration bias; with
     ``fastdiff``, the FastDiff server, its noise drawn on the CPU from one
@@ -880,7 +948,7 @@ def reference_phase(served, fastdiff: bool = False) -> None:
     # f32 on both sides, TF32 off: summation order only, through two models
     # (and, for FastDiff, four ε passes of the reverse sampler)
     tol = 1e-3 * top + 1e-7
-    name = "fastdiff_reference" if fastdiff else "reference"
+    name = tag + ("fastdiff_reference" if fastdiff else "reference")
     emit({"phase": name, "samples": [a.size, b.size], "max_abs_err": err,
           "tol": tol, "peak": top, "request_ms": ms, "ffn_ln_launches": n_ffn})
     if not (a.shape == b.shape and err <= tol and top > 0):
@@ -1072,7 +1140,8 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
     return {"fwd": row_f, "bwd": row_b}
 
 
-def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) -> dict:
+def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1, H=2,
+                d=128) -> dict:
     """flash_attention forward and backward against the plain version, with
     SDPA (same mask and dropout_p) timed as the library yardstick: bf16 at
     the decoder's shape (the wgmma kernels of flash_attention_sm90.cu), f32
@@ -1081,13 +1150,12 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     from lightningfastspeech2_tpu_torch.kernels import build
     from lightningfastspeech2_tpu_torch.ops import attention as att
 
-    H, d = 2, 128
     q, k, v, do = (torch.randn(B, H, T, d, generator=g).to(dev, dtype) for _ in range(4))
     lengths = torch.tensor([T - 97 * i for i in range(B)], device=dev)
     mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
     mask_i32 = mask.to(torch.int32)
     seed = torch.tensor([99], dtype=torch.int32, device=dev)
-    name = str(dtype)[6:]
+    name = str(dtype)[6:] + ("" if d == 128 else f"_d{d}")
     at = f"q/k/v ({B}, {H}, {T}, {d}) {name}, ragged key mask, rate={rate}"
     route = att.kernel_route(q, k, v)
     fns = (att.flash_attention, att.flash_attention_bwd)
@@ -1108,8 +1176,9 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1) ->
     errs = {n: ((a.float() - b.float()).abs().max().item(), frac * b.float().abs().max().item())
             for n, a, b in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads))}
     o, lse, o32 = att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)
-    suffix = "" if dtype == torch.bfloat16 else "_f32"
-    common = {"at": at, "route": route, "build_s": build.build_report[route]["seconds"]}
+    suffix = ("" if dtype == torch.bfloat16 else "_f32") + ("" if d == 128 else f"_d{d}")
+    common = {"at": at, "route": route, "build_s": build.build_report[route]["seconds"],
+              "head_dim": d}
     row_f = {"name": "flash_attention" + suffix, **common, "max_abs_err": errs["o"][0],
              "tol": errs["o"][1],
              "ms": cuda_ms(lambda: att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)),
@@ -1208,8 +1277,10 @@ def train_kernels_phase(dev) -> dict:
 STEP_FAMILIES = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kernel<\d+, \d+, false>"),
                  "ffn_ln_train_bwd": (r"ffn_ln_kernel<\d+, true>", r"ffn_tf32_kernel<\d+, \d+, true>",
                                       "ffn_dup_kernel", "ffn_dup_tf32_kernel", "ffn_dt1_kernel"),
-                 "flash_attention": ("fwd_sm90_kernel", "fwd_kernel"),
-                 "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel"),
+                 "flash_attention": ("fwd_sm90_kernel", "fwd_kernel", "wide_fwd_kernel"),
+                 "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel",
+                                         "wide_dq_kernel", "wide_dkv_kernel"),
+                 "ffn_ln_wide": "ffn_wide_kernel",
                  "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
                  "regulate": "regulate_fwd_kernel", "regulate_bwd": "regulate_bwd_kernel",
                  "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
@@ -1255,11 +1326,14 @@ def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES) ->
 
 
 def reset_counts(counters) -> None:
-    """Every launch count to 0, and the flash kernels' counts by route."""
+    """Every launch count to 0, the flash kernels' counts by route and
+    ``ffn_ln``'s by width."""
     for c in counters:
         c.launches = 0
         if hasattr(c, "by_route"):
             c.by_route = dict.fromkeys(c.by_route, 0)
+        if hasattr(c, "by_width"):
+            c.by_width = {}
 
 
 def flash_routes(counters) -> dict:
@@ -1366,7 +1440,8 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
     if launches != want:
         raise RuntimeError(f"{name}-path launches {launches}, expected {want}")
     # the bf16 step's attention went through the wgmma kernels alone
-    want_routes = {k: {"flash_attention_sm90": want[k], "flash_attention": 0} for k in routes}
+    want_routes = {k: {**dict.fromkeys(v, 0), "flash_attention_sm90": want[k]}
+                   for k, v in routes.items()}
     if routes != want_routes:
         raise RuntimeError(f"{name}: flash launches by route {routes}, expected {want_routes}")
     # one more step under the profiler (outside the counted run): where the
@@ -1465,8 +1540,8 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
     emit(row)
     # the f32 step's attention went through the split-TF32 kernels alone
     n_dec = cfg.model.decoder.layers
-    want_routes = {k: {"flash_attention_sm90": 0, "flash_attention": n_dec}
-                   for k in ("flash_attention", "flash_attention_bwd")}
+    want_routes = {k: {**dict.fromkeys(v, 0), "flash_attention": n_dec}
+                   for k, v in row["flash_routes"].items()}
     if row["flash_routes"] != want_routes:
         raise RuntimeError(f"{name}: flash launches by route {row['flash_routes']}, "
                            f"expected {want_routes}")
@@ -2215,6 +2290,278 @@ def cli_phase(counters, smi: str) -> dict:
     return {n: {k: v for k, v in r.items() if k != "wav"} for n, r in rows.items()}
 
 
+# ------------------------------------------- the other presets (phases 18-23)
+# (B, T, C, k) of ffn_wide_kernel's cases: lightspeech_true76m's request
+# and batch shapes at its narrowest, middle and widest depthwise kernel, and
+# C = 384 and 512 at the batch's shape; F = 4 C
+WIDE_FFN_SHAPES = ([(1, 256, 640, k) for k in (5, 17, 25)]
+                   + [(8, 512, 640, k) for k in (5, 17, 25)]
+                   + [(8, 512, 384, 17), (8, 512, 512, 17)])
+# (B, H, T, head_dim) of the flash cases past head dim 128
+WIDE_FLASH_SHAPES = ((2, 2, 2048, 256), (1, 1, 1024, 512))
+
+
+def wide_kernels_phase(dev) -> dict:
+    """Phases 18-19: ``ffn_ln`` at C = 384-640 (``ffn_wide_kernel``) in
+    both dtypes against ``ffn_ln_plain``, each launch as the library
+    recorded it against ``ffn_plan``; flash attention at head dims 256 (the
+    tensor-core routes' D = 256 templates) and 512 (the CUDA-core route),
+    forward and backward, both dtypes, against the plain version with SDPA
+    beside it."""
+    g = torch.Generator().manual_seed(16)
+    ffn = {dt: [_ffn_case(dev, B, T, k, dt, g, C, 4 * C) for B, T, C, k in WIDE_FFN_SHAPES]
+           for dt in (torch.bfloat16, torch.float32)}
+    flash = {(d, dt): _flash_case(dev, g, dt, B, T, 0.1, H, d)
+             for B, H, T, d in WIDE_FLASH_SHAPES for dt in (torch.bfloat16, torch.float32)}
+    return {"ffn": ffn, "flash": flash}
+
+
+def _preset_launches(counters, gen, cfg, run, tag) -> dict:
+    """A served preset's launches against what its path launches: per
+    generate_samples call ``ffn_ln`` in every fused block of the duration
+    pass (the encoder) and the full pass (encoder and decoder), per vocoder
+    call one resblock or trio launch per prepared stack; ``by_width`` the
+    ``ffn_ln`` launches by C."""
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln
+
+    m = cfg.model
+    fused = m.encoder.conformer and m.encoder.depthwise and m.hidden % 128 == 0
+    launches = {c.__name__: c.launches for c in counters}
+    stacks = gen.synthesiser.model.stage_weights
+    n_items = len(run["vocoder_buckets"])
+    want = {c.__name__: 0 for c in counters}
+    want.update(probe=launches["probe"],  # once a process, when the card is first resolved
+                ffn_ln=run["n_calls"] * (2 * m.encoder.layers + m.decoder.layers) * fused,
+                resblock=n_items * sum(len(s) for s in stacks if len(s) > 1),
+                resblock_trio=n_items * sum(1 for s in stacks if len(s) == 1))
+    widths = dict(ffn_ln.by_width)
+    want_widths = {m.hidden: want["ffn_ln"]} if want["ffn_ln"] else {}
+    emit({"phase": f"{tag}launches", **launches, "expected": want, "ffn_ln_by_width": widths})
+    if launches != want or widths != want_widths:
+        raise RuntimeError(f"{tag} launches {launches} (by width {widths}), expected {want} "
+                           f"({want_widths})")
+    return launches
+
+
+def true76m_serving_phase(counters, served) -> dict:
+    """Phase 20: lightspeech_true76m (hidden 640, filter 2560, 8 + 7
+    blocks) with HiFi-GAN V1 from seeded generators serves phase 5's
+    sentences and a batch of 8 at frame bucket 512, in bf16 and in f32; the
+    counters, set to 0 just before each run, must show ``ffn_ln`` at C =
+    640 in every block. Then one f32 request on the card against the same
+    request on the CPU's plain path (phase 6's tolerance)."""
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_true76m
+
+    cfg, dvecs = lightspeech_true76m(), served["dvecs"]
+    out, bias = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"true76m_{str(dtype)[6:]}_"
+        t0 = time.perf_counter()
+        # the duration bias taken on the card before the counts (bf16 run)
+        gen, bias = _make_generator(cfg, dtype, None, dvecs, BATCH_TEXTS, bias)
+        setup_s = time.perf_counter() - t0
+        reset_counts(counters)
+        run = _serve_all(gen, cfg, dvecs, tag)
+        launches = _preset_launches(counters, gen, cfg, run, tag)
+        out[str(dtype)[6:]] = {"setup_s": setup_s, "launches": launches, "batch": run["batch"],
+                               "request_ms": [r["ms"] for r in run["requests"]]}
+        del gen
+    reference_phase({"cfg": cfg, "dvecs": dvecs, "bias": bias}, tag="true76m_")
+    return out
+
+
+def true76m_training_phase(counters) -> dict:
+    """Phase 21: lightspeech_true76m in bf16 with f32 parameters and bf16
+    Adam moments takes 1 warm-up and 3 timed steps at B=8, P=256, T=2048
+    (config dropout rates): finite losses, a finite non-zero gradient on
+    every parameter; the counters, set to 0 just before, must show every
+    decoder flash launch through the wgmma kernels (head dim 128) and no
+    ``ffn_ln_train`` launch (the JAX gate's fit estimate sends (640, 2560)
+    to the unfused FFN). One more step under the profiler gives the time
+    split."""
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_true76m, replace
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.train.optim import AdamWBf16Mu
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = lightspeech_true76m()
+    cfg = replace(cfg, train=replace(cfg.train, bf16_moments=True),
+                  model=replace(cfg.model, max_phones=TRAIN_P, max_frames=TRAIN_T))
+    batch = train_batch(cfg)
+    n_steps = 4
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    model = build_fastspeech2(cfg.model, dtype=torch.bfloat16, seed=0)
+    state = create_train_state(model, cfg)
+    if not isinstance(state.optimizer, AdamWBf16Mu):
+        raise RuntimeError(f"bf16_moments built {type(state.optimizer).__name__}")
+    step = make_train_step(model, cfg)
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps, metrics = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {c.__name__: c.launches for c in counters}
+    routes = flash_routes(counters)
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    L_dec = cfg.model.decoder.layers
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_steps * L_dec, flash_attention_bwd=n_steps * L_dec)
+    mu_dtypes = {str(s["exp_avg"].dtype) for s in state.optimizer.state.values()}
+    timed = steps[1:]
+    n_params = sum(p.numel() for p in model.parameters())
+    row = {"phase": "true76m_training", "params": n_params, "setup_s": setup_s,
+           "steps": n_steps, "step_ms": steps, "timed_step_ms_mean": sum(timed) / len(timed),
+           "frames_per_s": TRAIN_B * TRAIN_T / (sum(timed) / len(timed) / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_losses": metrics[0], "last_losses": metrics[-1], "finite": finite,
+           "params_without_grad": bad, "launches": launches, "expected": want,
+           "flash_routes": routes, "first_moment_dtypes": sorted(mu_dtypes)}
+    emit(row)
+    if not finite or bad or mu_dtypes != {"torch.bfloat16"}:
+        raise RuntimeError(f"true76m training: finite={finite}, params without gradient "
+                           f"{bad[:8]}, first moments {mu_dtypes}")
+    want_routes = {k: {**dict.fromkeys(v, 0), "flash_attention_sm90": want[k]}
+                   for k, v in routes.items()}
+    if launches != want or routes != want_routes:
+        raise RuntimeError(f"true76m training launches {launches} ({routes}), expected {want}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "true76m_training_profile.txt")
+    emit({"phase": "true76m_training_profile", **split})
+    return {"row": row, "split": split}
+
+
+# HiFi-GAN V3's published config, the released vocoder with ResBlock2
+HIFIGAN_RESBLOCK2 = dict(resblock="2", upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+                         upsample_initial_channel=256, resblock_kernel_sizes=(3, 5, 7),
+                         resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+
+
+def fastspeech2_27m_phase(counters, served, smi: str) -> dict:
+    """Phase 22: fastspeech2_27m (plain ConvFFN blocks, no speaker
+    embedding) with HiFi-GAN V1 in bf16 serves phase 5's sentences and
+    batch; its blocks run the unfused FFN, so the counters show no
+    ``ffn_ln`` launch. Then ``cli.generate.main`` serves a sentence from a
+    port checkpoint of it with a ResBlock2 vocoder directory (HiFi-GAN V3's
+    dims, plain convs: no resblock kernel launch), f32."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as cli
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.core.config import fastspeech2_27m, replace
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+    from lightningfastspeech2_tpu_torch.data.vocab import ARPABET_TO_IPA, PUNCTUATION_TOKENS, SILENCE
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig, Synthesiser
+
+    cfg, dvecs = fastspeech2_27m(), served["dvecs"]
+    gen, _ = _make_generator(cfg, torch.bfloat16, None, dvecs, BATCH_TEXTS, None)
+    reset_counts(counters)
+    run = _serve_all(gen, cfg, dvecs, "fs27m_")
+    launches = _preset_launches(counters, gen, cfg, run, "fs27m_")
+    del gen
+
+    work = ROOT / "_chip" / "fs27m_checkpoints"
+    shutil.rmtree(work, ignore_errors=True)
+    phones = sorted(set(ARPABET_TO_IPA.values()) | set(PUNCTUATION_TOKENS.values()) | {SILENCE})
+    phone2id = {"[PAD]": 0, **{p: i + 1 for i, p in enumerate(phones)}}
+    cfg = replace(cfg, model=replace(cfg.model, vocab_size=len(phone2id)))
+    model = build_fastspeech2(cfg.model, device="cpu", seed=0)
+    with torch.no_grad():
+        head = model.variance_adaptor.duration_predictor.linear
+        head.weight.zero_()
+        head.bias.fill_(math.log(8.0))   # 7 frames a phone
+    stats = {v: {"min": -2.0, "max": 3.0, "mean": 0.0, "std": 1.0}
+             for v in cfg.model.variance.variances}
+    Checkpointer(work / "ckpt").save(1, model.state_dict(), cfg,
+                                     {"phone2id": phone2id, "stats": stats})
+    vcfg = HifiGanConfig(**HIFIGAN_RESBLOCK2)
+    voc = Synthesiser(vcfg, device="cpu", seed=2).model
+    Checkpointer(work / "voc").save(1, {"gen": voc.state_dict()},
+                                    sidecar={"hifigan_config": dataclasses.asdict(vcfg)})
+    out_dir = ROOT / "chiprun_out" / "cli_fs27m"
+    argv = ["--checkpoint_dir", str(work / "ckpt"), "--hifigan_checkpoint", str(work / "voc"),
+            "--sentence", CLI_SENTENCE, "--seed", "0", "--output_path", str(out_dir)]
+    reset_counts(counters)
+    t = time.perf_counter()
+    wav = cli.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    cli_launches = {c.__name__: c.launches for c in counters
+                    if c.launches and c.__name__ != "probe"}
+    written, sr = wav_io.read(out_dir / "sentence.wav")
+    row = {"phase": "fs27m_cli", "main_s": main_s, "wav_samples": int(written.size),
+           "sampling_rate": sr, "peak": float(np.abs(written).max()),
+           "vocoder": "ResBlock2 (HiFi-GAN V3 dims), f32", "launches": cli_launches,
+           "nvidia_smi": smi}
+    emit(row)
+    if not (written.size > 0 and np.isfinite(written).all() and sr == SAMPLING_RATE
+            and np.isfinite(wav).all()):
+        raise RuntimeError(f"fastspeech2_27m CLI: {written.size} samples at {sr} Hz")
+    if any(k in cli_launches for k in ("ffn_ln", "resblock", "resblock_trio")):
+        raise RuntimeError(f"fastspeech2_27m CLI launched {cli_launches}: its convs are plain")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "batch": run["batch"], "cli": row}
+
+
+def every_layer_phase(counters, served) -> dict:
+    """Phase 23: the flagship with every-layer speaker and prior embeddings
+    (pitch and energy priors) in bf16: one request through
+    ``generate_from_text`` (``ffn_ln`` in every block) and one training
+    step at B=2, P=64, T=1024 (``ffn_ln_train`` in every block, flash in
+    every decoder block), finite throughout."""
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship, replace
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2, make_dummy_batch
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = lightspeech_flagship()
+    cfg = replace(cfg, model=replace(cfg.model, priors=("pitch", "energy"),
+                                     speaker_embedding_every_layer=True,
+                                     prior_embedding_every_layer=True))
+    m = cfg.model
+    gen, _ = _make_generator(cfg, torch.bfloat16, None, served["dvecs"], BATCH_TEXTS,
+                             served["bias"])
+    reset_counts(counters)
+    wav = gen.generate_from_text(SENTENCES[1], speaker="spk0", seed=0)
+    torch.cuda.synchronize()
+    served_launches = {c.__name__: c.launches for c in counters
+                       if c.launches and c.__name__ != "probe"}
+    tcfg = replace(cfg, model=replace(m, max_phones=64, max_frames=1024))
+    batch = make_dummy_batch(tcfg.model, batch_size=2, n_phones=48, n_frames=1024, seed=0,
+                             fill_frames=True)
+    model = build_fastspeech2(tcfg.model, dtype=torch.bfloat16, seed=0)
+    state = create_train_state(model, tcfg)
+    reset_counts(counters)
+    state, metrics = make_train_step(model, tcfg)(
+        state, batch, torch.Generator(device=model.device).manual_seed(3))
+    torch.cuda.synchronize()
+    train_launches = {c.__name__: c.launches for c in counters
+                      if c.launches and c.__name__ != "probe"}
+    losses = {k: float(v) for k, v in metrics.items()}
+    L = m.encoder.layers + m.decoder.layers
+    row = {"phase": "every_layer", "request_samples": int(wav.size),
+           "request_finite": bool(np.isfinite(wav).all()), "request_launches": served_launches,
+           "train_losses": losses, "train_launches": train_launches}
+    emit(row)
+    want_train = {"ffn_ln_train": L, "ffn_ln_train_bwd": L,
+                  "flash_attention": m.decoder.layers, "flash_attention_bwd": m.decoder.layers}
+    if not (wav.size > 0 and np.isfinite(wav).all() and served_launches.get("ffn_ln", 0) >= L
+            and all(math.isfinite(v) for v in losses.values()) and train_launches == want_train):
+        raise RuntimeError(f"every-layer embeddings: {row}")
+    return row
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -2287,6 +2634,11 @@ def main() -> int:
     fd_served = fastdiff_serving_phase(counters, served)
     reference_phase({**served, "fastdiff_cfg": fd_served["cfg"]}, fastdiff=True)
     cli_rows = cli_phase(counters, info["nvidia_smi"])
+    wide = wide_kernels_phase(dev)
+    t76 = true76m_serving_phase(counters, served)
+    true76m_training_phase(counters)
+    fastspeech2_27m_phase(counters, served, info["nvidia_smi"])
+    every_layer_phase(counters, served)
 
     n = served["launches"]
     nt = trained["row"]["launches"]
@@ -2391,6 +2743,30 @@ def main() -> int:
                         "stage1_f32")},
         "vocoder_call_lvc_stack_ms": {"bf16": fd_served["split"]["lvc_stack_ms"],
                                       "f32": fd_served["split_f32"]["lvc_stack_ms"]}})
+    # this slice's widths: ffn_wide_kernel at lightspeech_true76m's batch
+    # shape (k = 17) with the bf16 serving run's launches, its f32 route and
+    # every other shape riding along
+    wide_keys = ("at", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "launch")
+    bf, f32w = wide["ffn"][torch.bfloat16], wide["ffn"][torch.float32]
+    kernels.append({
+        **_summary("ffn_ln_wide", f"{pkg}/ffn_ln.cu (ffn_wide_kernel)",
+                   "lightningfastspeech2_tpu/ops/pallas_ffn.py:77", [bf[4]],
+                   t76["bfloat16"]["launches"]["ffn_ln"]),
+        "f32_route": {**{k: f32w[4][k] for k in wide_keys},
+                      "launches": t76["float32"]["launches"]["ffn_ln"]},
+        "shapes": {"bf16": [{k: r[k] for k in wide_keys} for r in bf],
+                   "f32": [{k: r[k] for k in wide_keys} for r in f32w]}})
+    # flash attention past head dim 128: no preset reaches these head dims,
+    # so the main paths' runs launched them 0 times
+    for (d, dt), case in wide["flash"].items():
+        for part, rep_ in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
+            r = case[part]
+            kernels.append({
+                "name": r["name"], "route": "cuda", "source": f"{pkg}/{r['route']}.cu",
+                "replaces": f"lightningfastspeech2_tpu/ops/{rep_}", "launches": 0,
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "at", "head_dim")},
+                "note": "no preset has this head dim: 0 launches on the main paths"})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

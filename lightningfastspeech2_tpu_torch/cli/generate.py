@@ -117,7 +117,7 @@ def load_generator(args):
     from lightningfastspeech2_tpu_torch.utils.log_gmm import load_gmms
     from lightningfastspeech2_tpu_torch.vocoder import hifigan as hg
 
-    if args.hub:
+    if args.hub and not args.checkpoint_dir:
         raise NotImplementedError(
             "--hub downloads a checkpoint, which needs the network and "
             "huggingface_hub (ROADMAP.md A8: not portable offline); pass "

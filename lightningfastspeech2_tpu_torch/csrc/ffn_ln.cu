@@ -62,9 +62,14 @@
 // f32 (their accumulation truncates). The epilogue runs a row on a warp;
 // the chain variant writes h0, dres and dff in f32.
 //
-// Shapes the kernel takes: C in {32, 64, 128, 256}, F a multiple of 128,
-// any T >= 1; k >= 1 while the t1 window fits shared memory (k <= 63 at
-// C = 256 in bf16; rows + k - 1 <= 128 in f32).
+// Serving at C = 384, 512 and 640 (ffn_wide_kernel, below): 32-row blocks
+// with C split across the eight warps, both dtypes on mma.sync, the weights'
+// fragments read from L2.
+//
+// Shapes the kernel takes: C in {32, 64, 128, 256} (serving and training)
+// and {384, 512, 640} (serving), F a multiple of 128, any T >= 1; k >= 1
+// while the t1 window fits shared memory (k <= 63 at C = 256 in bf16;
+// rows + k - 1 <= 128 in f32; k <= 27 at C = 640 in f32).
 #include "common.cuh"
 #include "ffn_sm90.cuh"
 
@@ -891,6 +896,324 @@ bool bad_shape(int B, int T_len, int F, int k) {
   return F % kFChunk != 0 || k < 1 || B < 1 || T_len < 1;
 }
 
+// ===================== serving at C = 384, 512, 640: both dtypes =====================
+// ffn_wide_kernel<T, C>: a block owns kWideRows = 32 rows of one item with
+// eight warps, and C is split across them, so a thread holds 32 x C / 256 f32
+// ff values (80 at C = 640) where the kernels above would need C / 2. The
+// weights do not fit shared memory beside the t1 window at these widths
+// (a 64-column chunk of W1 and W2f is 160 KB in bf16 at C = 640), so every
+// warp reads its B fragments straight from device memory (L2), in fragment
+// order: per chunk of 32 F columns a W1 piece (K = C, N = 32) and a W2f piece
+// (K = 32, N = C). bf16 runs mma.sync m16n8k16 on pieces of ops/ffn.py
+// _wide_image; f32 the split-TF32 products of the f32 route above on
+// _f32_image's pieces. Shared memory holds the t1 window (f32, the working
+// dtype's values), h0 and the up chunk's staging (two buffers, one block
+// barrier a chunk); per chunk:
+//   up (32 x 32) = h0 @ W1 piece   warps 2 x 4 of 16 rows by one n8 tile
+//   + b1, relu, round, into the staging
+//   ff (32 x C) += up @ W2f piece  warps 2 x 4 of 16 rows by C / 4 columns
+// The epilogue is the f32 route's: ff + b2f into an f32 row buffer over the
+// window, then LN2 a row a warp with t1 formed again from z.
+constexpr int kWideRows = 32;
+constexpr int kWideFC = 32;
+
+template <typename T> struct WideArgs {
+  const T* z;
+  T* out;
+  const float* wd;
+  const uint8_t* img;
+  const float* b1;
+  const float* lnp;
+  int T_len, F, k;
+  float eps;
+};
+
+// h0 row stride (elements): f32 rows of C, columns swizzled (swz32); bf16
+// rows of C + 8, so that a fragment's 32-bit reads meet 32 banks
+template <typename T, int C> __host__ __device__ constexpr int wide_hld() {
+  return sizeof(T) == 4 ? C : C + 8;
+}
+constexpr int kWideStageLd = kWideFC + 8;  // bf16 up staging row stride
+template <typename T, int C> __host__ __device__ constexpr int wide_stage_bytes() {
+  return sizeof(T) == 4 ? kWideRows * kWideFC * 8 : kWideRows * kWideStageLd * 2;
+}
+// one region that is the t1 window (prologue), the two up stagings (loop)
+// and the f32 row buffer (epilogue)
+template <typename T, int C> __host__ __device__ constexpr int wide_region(int k) {
+  const int win = (kWideRows + k - 1) * C * 4, rows = kWideRows * (C + 4) * 4;
+  const int stage = 2 * wide_stage_bytes<T, C>();
+  return win > rows ? (win > stage ? win : stage) : (rows > stage ? rows : stage);
+}
+// h0, the region, each window row's LN1 statistics
+template <typename T, int C> __host__ __device__ constexpr int wide_smem(int k) {
+  return kWideRows * wide_hld<T, C>() * static_cast<int>(sizeof(T)) + wide_region<T, C>(k) +
+         (kWideRows + k - 1) * 8;
+}
+// one chunk's W1 or W2f piece: C * 32 values, f32 as hi and lo
+template <typename T, int C> __host__ __device__ constexpr int wide_piece_bytes() {
+  return sizeof(T) == 4 ? C * kWideFC * 8 : C * kWideFC * 2;
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(ffn::kThreads, 1)
+ffn_wide_kernel(const __grid_constant__ WideArgs<T> a) {
+  using namespace ffn;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int R = kWideRows, FC = kWideFC, HLD = wide_hld<T, C>();
+  constexpr int NT = C / 32;    // ff: n8 tiles a warp
+  constexpr int NC = C / 32;    // channels lane + 32 i of a row
+  constexpr int kNR = 16;       // depthwise rows a work item
+  constexpr int PB = wide_piece_bytes<T, C>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int k = a.k, T_len = a.T_len, lpad = (k - 1) / 2, W = R + k - 1;
+  T* h0 = reinterpret_cast<T*>(smem);
+  uint8_t* region = smem + R * HLD * sizeof(T);
+  float* t1 = reinterpret_cast<float*>(region);
+  float2* stats = reinterpret_cast<float2*>(region + wide_region<T, C>(k));
+  const int b = blockIdx.y, t0 = blockIdx.x * R;
+  const int nchunks = a.F / FC;
+  const T* zb = a.z + static_cast<size_t>(b) * T_len * C;
+  const float* g1 = a.lnp;
+  const float* be1 = a.lnp + C;
+  const float* g2 = a.lnp + 2 * C;
+  const float* be2 = a.lnp + 3 * C;
+  const float* bd = a.lnp + 4 * C;
+  const float* b2f = a.lnp + 5 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  // 1. LN1 over the window (rows t0 - lpad ..), a row a warp, rounded to T
+  for (int r = warp; r < W; r += ffn::kThreads / 32) {
+    const int gr = t0 - lpad + r;
+    const bool in = gr >= 0 && gr < T_len;
+    float v[NC], s = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      v[i] = in ? lfs2::to_f(zb[static_cast<size_t>(gr) * C + lane + 32 * i]) : 0.0f;
+      s += v[i];
+      s2 += v[i] * v[i];
+    }
+    s = lfs2::warp_sum(s);
+    s2 = lfs2::warp_sum(s2);
+    const float mean = s / C;
+    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      t1[r * C + c] = in ? lfs2::round_to<T>(ln_apply(v[i], mean, inv, g1[c], be1[c])) : 0.0f;
+    }
+    if (lane == 0) stats[r] = make_float2(mean, inv);
+  }
+  __syncthreads();
+
+  // 2. depthwise: h0[r][c] = sum_j t1[r + j][c] wd[j][c] + bd[c], rounded to
+  //    T; a work item is 16 rows by 2 channels, taps 8 at a time
+  for (int u = threadIdx.x; u < (R / kNR) * (C / 2); u += ffn::kThreads) {
+    const int c = 2 * (u % (C / 2)), r0 = kNR * (u / (C / 2));
+    float2 acc[kNR];
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) acc[i] = make_float2(0.0f, 0.0f);
+    for (int j0 = 0; j0 < k; j0 += 8) {
+      float2 w[8], x[kNR + 7];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        w[jj] = j0 + jj < k ? __ldg(reinterpret_cast<const float2*>(a.wd + (j0 + jj) * C + c))
+                            : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < kNR + 7; ++q) {
+        const int rr = r0 + j0 + q;
+        x[q] = rr < W ? *reinterpret_cast<const float2*>(t1 + rr * C + c) : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < kNR; ++i) {
+          acc[i].x += x[i + jj].x * w[jj].x;
+          acc[i].y += x[i + jj].y * w[jj].y;
+        }
+    }
+    const float2 bias = *reinterpret_cast<const float2*>(bd + c);
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      const float hx = acc[i].x + bias.x, hy = acc[i].y + bias.y;
+      if constexpr (kF32)
+        *reinterpret_cast<float2*>(h0 + (r0 + i) * C + swz32(r0 + i, c)) = make_float2(hx, hy);
+      else
+        *reinterpret_cast<uint32_t*>(h0 + (r0 + i) * HLD + c) = pack_bf16(hx, hy);
+    }
+  }
+  __syncthreads();  // h0 is complete and the window is free for the staging
+
+  const int um = warp & 1, un = warp >> 1;   // up warp: rows 16 um, n8 tile un
+  const int fm = warp >> 2, fn = warp & 3;   // ff warp: rows 16 fm, n8 tiles fn NT ..
+  float ff[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ff[nt][e] = 0.0f;
+
+  for (int i = 0; i < nchunks; ++i) {
+    const uint8_t* w1p = a.img + (static_cast<size_t>(i) * 2) * PB;
+    const uint8_t* w2p = w1p + PB;
+    uint8_t* stage = region + (i & 1) * wide_stage_bytes<T, C>();
+    float up[4];
+    if constexpr (kF32) {
+      float upt[1][4];
+      rows_x_piece<C, 1, FC / 8>(upt, reinterpret_cast<const float*>(h0), 16 * um,
+                                 reinterpret_cast<const float4*>(w1p), un, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) up[e] = upt[0][e];
+    } else {
+      // two accumulators (even and odd k-steps): two independent mma chains
+      float u2[2][4] = {};
+      const T* x0 = h0 + (16 * um + g) * HLD + 2 * t;
+      const T* x1 = x0 + 8 * HLD;
+      const uint2* wp = reinterpret_cast<const uint2*>(w1p);
+#pragma unroll 4
+      for (int s = 0; s < C / 16; ++s) {
+        const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(x0 + 16 * s),
+                                *reinterpret_cast<const uint32_t*>(x1 + 16 * s),
+                                *reinterpret_cast<const uint32_t*>(x0 + 16 * s + 8),
+                                *reinterpret_cast<const uint32_t*>(x1 + 16 * s + 8)};
+        const uint2 bv = __ldg(wp + (s * (FC / 8) + un) * 32 + lane);
+        const uint32_t bf[2] = {bv.x, bv.y};
+        lfs2::mma_bf16(u2[s & 1], af, bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) up[e] = u2[0][e] + u2[1][e];
+    }
+    // + b1, relu, rounded, into staging buffer i % 2 (every warp read buffer
+    // (i - 2) % 2 before the last chunk's barrier)
+    {
+      const int f = i * FC + 8 * un + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(a.b1 + f);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = lfs2::round_to<T>(fmaxf(up[e] + ((e & 1) ? bb.y : bb.x), 0.0f));
+      if constexpr (kF32) {
+        store_a_frag(reinterpret_cast<float4*>(stage) + ((un * (R / 16) + um) * 32 + lane) * 2, v);
+      } else {
+        T* st = reinterpret_cast<T*>(stage);
+        const int r = 16 * um + g, c = 8 * un + 2 * t;
+        *reinterpret_cast<uint32_t*>(st + r * kWideStageLd + c) = pack_bf16(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(st + (r + 8) * kWideStageLd + c) = pack_bf16(v[2], v[3]);
+      }
+    }
+    __syncthreads();  // the chunk's up staging is complete
+    if constexpr (kF32) {
+      // in groups of four n8 tiles, so that a group's partial sums and B
+      // fragments stay few beside the accumulator
+      constexpr int NG = 4;
+#pragma unroll
+      for (int gi = 0; gi < NT / NG; ++gi) {
+        float acc[1][NG][4];
+#pragma unroll
+        for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.0f;
+        frags_x_piece<1, NG, FC / 8, R / 16, C / 8>(acc, reinterpret_cast<const float4*>(stage),
+                                                    fm, reinterpret_cast<const float4*>(w2p),
+                                                    fn * NT + gi * NG, lane);
+#pragma unroll
+        for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ff[gi * NG + nt][e] += acc[0][nt][e];
+      }
+    } else {
+      const T* st = reinterpret_cast<const T*>(stage) + (16 * fm + g) * kWideStageLd + 2 * t;
+      const uint2* wp = reinterpret_cast<const uint2*>(w2p);
+#pragma unroll
+      for (int s = 0; s < FC / 16; ++s) {
+        const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(st + 16 * s),
+                                *reinterpret_cast<const uint32_t*>(st + 8 * kWideStageLd + 16 * s),
+                                *reinterpret_cast<const uint32_t*>(st + 16 * s + 8),
+                                *reinterpret_cast<const uint32_t*>(st + 8 * kWideStageLd + 16 * s + 8)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 bv = __ldg(wp + (s * (C / 8) + fn * NT + nt) * 32 + lane);
+          const uint32_t bf[2] = {bv.x, bv.y};
+          lfs2::mma_bf16(ff[nt], af, bf);
+        }
+      }
+    }
+  }
+
+  // the epilogue: ff + b2f into an f32 row buffer over the region (free once
+  // every warp left the loop), then LN2 a row a warp
+  __syncthreads();
+  constexpr int RLD = C + 4;
+  float* rows = reinterpret_cast<float*>(region);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = 8 * (fn * NT + nt) + 2 * t;
+    const float2 bb = *reinterpret_cast<const float2*>(b2f + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * fm + g + 8 * h;
+      *reinterpret_cast<float2*>(rows + r * RLD + c) =
+          make_float2(ff[nt][2 * h] + bb.x, ff[nt][2 * h + 1] + bb.y);
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < R && t0 + r < T_len; r += ffn::kThreads / 32) {
+    const size_t at = (static_cast<size_t>(b) * T_len + t0 + r) * C;
+    const float2 st = stats[r + lpad];
+    float v[NC], s = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      // res = t1 + ff, with t1 formed again from z and LN1's row statistics
+      v[i] = rows[r * RLD + c] +
+             lfs2::round_to<T>(ln_apply(lfs2::to_f(a.z[at + c]), st.x, st.y, g1[c], be1[c]));
+      s += v[i];
+      s2 += v[i] * v[i];
+    }
+    s = lfs2::warp_sum(s);
+    s2 = lfs2::warp_sum(s2);
+    const float mean = s / C;
+    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      a.out[at + c] = lfs2::from_f<T>(ln_apply(v[i], mean, inv, g2[c], be2[c]));
+    }
+  }
+}
+
+template <typename T, int C>
+cudaError_t wide_launch(const WideArgs<T>& a, int B, cudaStream_t stream) {
+  const int smem = wide_smem<T, C>(a.k);
+  if (a.k < 1 || smem > ffn::kMaxSmem || a.F % kWideFC != 0) return cudaErrorInvalidValue;
+  auto kernel = ffn_wide_kernel<T, C>;
+  cudaError_t err = lfs2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T_len + kWideRows - 1) / kWideRows, B);
+  kernel<<<grid, ffn::kThreads, smem, stream>>>(a);
+  return record_launch(grid, smem, kWideRows);
+}
+
+template <typename T>
+cudaError_t wide_dispatch(int C, const WideArgs<T>& a, int B, cudaStream_t s) {
+  switch (C) {
+    case 384: return wide_launch<T, 384>(a, B, s);
+    case 512: return wide_launch<T, 512>(a, B, s);
+    case 640: return wide_launch<T, 640>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static_assert(wide_smem<float, 640>(25) <= ffn::kMaxSmem, "f32 wide tile at k = 25");
+static_assert(wide_smem<__nv_bfloat16, 640>(25) <= ffn::kMaxSmem, "bf16 wide tile at k = 25");
+
+template <typename T>
+cudaError_t wide_serve(const void* z, void* out, const float* wd, const float* b1,
+                       const float* lnp, const void* img, int B, int T_len, int C, int F, int k,
+                       float eps, cudaStream_t s) {
+  WideArgs<T> a{static_cast<const T*>(z), static_cast<T*>(out), wd,
+                static_cast<const uint8_t*>(img), b1, lnp, T_len, F, k, eps};
+  return wide_dispatch<T>(C, a, B, s);
+}
+
 FwdArgs bf16_args(const void* z, const float* wd, const void* img, const float* b1,
                   const float* lnp, const int* seed, int T_len, int C, int F, int k, float eps,
                   unsigned threshold, float inv_keep) {
@@ -916,13 +1239,22 @@ FwdArgs bf16_args(const void* z, const float* wd, const void* img, const float* 
 LFS2_DEFINE_ERROR_STRING
 
 // Both routes read the weights from img: bf16 the swizzled image (ops/ffn.py
-// _weight_image), f32 the split pieces (_f32_image). rows: the rows of one
-// item a block owns (ops/ffn.py ffn_plan): 128 in bf16, 32 or 64 in f32
+// _weight_image), f32 the split pieces (_f32_image); at C > 256 both take
+// ffn_wide_kernel, bf16 reading _wide_image. rows: the rows of one item a
+// block owns (ops/ffn.py ffn_plan): 128 in bf16, 32 or 64 in f32, 32 at
+// C > 256
 LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const float* b1,
                             const float* lnp, const void* img, int B, int T_len, int C, int F,
                             int k, int rows, float eps, int dtype, void* stream) {
   if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C > 256) {  // ffn_wide_kernel, both dtypes
+    if (rows != kWideRows) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        dtype == lfs2::kBF16
+            ? wide_serve<__nv_bfloat16>(z, out, wd, b1, lnp, img, B, T_len, C, F, k, eps, s)
+            : wide_serve<float>(z, out, wd, b1, lnp, img, B, T_len, C, F, k, eps, s));
+  }
   if (dtype == lfs2::kBF16) {
     if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
     FwdArgs a = bf16_args(z, wd, img, b1, lnp, nullptr, T_len, C, F, k, eps, 0u, 1.0f);

@@ -5,7 +5,8 @@
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_attention.py _fwd_kernel and
 // _bwd_kernel (flash_attention, joined by a custom VJP there and by an
-// autograd Function here). q, k, v, o, do are (B, H, T, 128) f32; mask is
+// autograd Function here). q, k, v, o, do are (B, H, T, D) f32 with head dim
+// D = 128 or 256 (the kernels are templates on D); mask is
 // (B, T) int32, nonzero = valid key. Padded queries are not masked (torch
 // key_padding_mask semantics); a padded key's score is -1e30, as there. An
 // item with no valid key scores every key 0 instead: the same uniform
@@ -55,6 +56,13 @@
 // seed_bh = seed + b * H + h (lfs2::attn_keep, bit for bit
 // pallas_attention.py _dropout_keep), so every tiling agrees.
 //
+// At D = 256 a streamed tile of K and V is 133 KB, so the ring has one
+// stage (the next tile's copy waits for this tile's products); the dQ and
+// dK/dV passes keep their own rows raw in fragment order and split them as
+// they are read (split, Q and dO alone are 128 KB); and the dK/dV pass gives
+// each 32 keys two blocks, one forming dV and one dK, since one thread
+// cannot hold both 16 x 256 accumulators.
+//
 // What bounds it on an H100: operations. 4 T^2 d per (b, h) forward and 5
 // products backward (the split backward forms S and dP twice: 7), each
 // split product three TF32 products: at 495 TFLOP/s of dense TF32 that is
@@ -66,15 +74,21 @@
 
 namespace {
 
-constexpr int D = 128;        // head dim, the only one taken
 constexpr int BM = 32;        // a block's own rows
 constexpr int BN = 64;        // rows of a streamed tile
-constexpr int LDS = 132;      // row stride (floats) of a streamed tile: conflict-free B fragments
-constexpr int LDO = 136;      // row stride of the end-of-block reduction buffers
-constexpr int kFrag = BM * D; // floats of one fragment-ordered split half (hi or lo)
-constexpr int kTile = BN * LDS;
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
+
+// The geometry of head dim D (128 or 256)
+template <int D> struct Geo {
+  static constexpr int LDS = D + 4;   // row stride (floats) of a streamed tile: conflict-free B fragments
+  static constexpr int LDO = D == 128 ? D + 8 : D + 4;  // the end-of-block reduction buffers
+  static constexpr int kFrag = BM * D;  // floats of one fragment-ordered half (hi or lo, or raw)
+  static constexpr int kTile = BN * LDS;
+  static constexpr int kStages = D == 128 ? 2 : 1;   // the streamed tiles' ring
+  static constexpr bool kSplitOwn = D == 128;        // dQ and dK/dV: own rows split once
+  static constexpr bool kBothKV = D == 128;          // dK/dV: one block forms both
+};
 
 struct Params {
   const float* q;
@@ -104,11 +118,11 @@ using lfs2::mma_tf32;
 using lfs2::split;
 using lfs2::tf32;
 
-// rows [r0, r0 + 64) of a (T, 128) slab into a [64][LDS] tile, asynchronously
-__device__ __forceinline__ void issue_tile(const float* x, int r0, float* dst) {
+// rows [r0, r0 + 64) of a (T, D) slab into a [64][LDS] tile, asynchronously
+template <int D> __device__ __forceinline__ void issue_tile(const float* x, int r0, float* dst) {
   for (int idx = threadIdx.x; idx < BN * D / 4; idx += kThreads) {
-    const int r = idx >> 5, c = (idx & 31) * 4;
-    cp_async16(dst + r * LDS + c, x + static_cast<size_t>(r0 + r) * D + c);
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    cp_async16(dst + r * Geo<D>::LDS + c, x + static_cast<size_t>(r0 + r) * D + c);
   }
 }
 
@@ -117,54 +131,67 @@ __device__ __forceinline__ void issue_row_vec(const float* x, int r0, float* dst
   if (threadIdx.x < BN / 4) cp_async16(dst + threadIdx.x * 4, x + r0 + threadIdx.x * 4);
 }
 
-// Where element (r, c) of a 32 x 128 operand sits in fragment order: per 16-row
+// Where element (r, c) of a 32 x D operand sits in fragment order: per 16-row
 // tile and 8-column k-step, 32 lanes of {a0, a1, a2, a3} = (g, t), (g + 8, t),
 // (g, t + 4), (g + 8, t + 4) with g = lane / 4, t = lane % 4.
-__device__ __forceinline__ int frag_at(int r, int c) {
+template <int D> __device__ __forceinline__ int frag_at(int r, int c) {
   const int rr = r & 15, cc = c & 7;
   const int lane = (rr & 7) * 4 + (cc & 3);
   const int reg = (rr >> 3) + 2 * (cc >> 2);
   return ((((r >> 4) * (D / 8) + (c >> 3)) * 32 + lane) << 2) + reg;
 }
 
-// rows [r0, r0 + 32) of a (T, 128) slab, split into hi and lo, fragment-ordered
+// rows [r0, r0 + 32) of a (T, D) slab, fragment-ordered: split into hi and
+// lo (kSplit), or raw into hi (lo unused)
+template <int D, bool kSplit>
 __device__ __forceinline__ void load_split_rows(const float* x, int r0, float* hi, float* lo) {
   for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
-    const int r = idx >> 5, c = (idx & 31) * 4;
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     const float4 v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(r0 + r) * D + c);
     const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float h = tf32(e[i]);
-      const int at = frag_at(r, c + i);
-      hi[at] = h;
-      lo[at] = tf32(e[i] - h);
+      const int at = frag_at<D>(r, c + i);
+      if constexpr (kSplit) {
+        const float h = tf32(e[i]);
+        hi[at] = h;
+        lo[at] = tf32(e[i] - h);
+      } else {
+        hi[at] = e[i];
+      }
     }
   }
 }
 
-// the A fragment (hi, lo) of row tile mt at k-step ks
+// the A fragment (hi, lo) of row tile mt at k-step ks, from split halves or
+// split here from the raw values in hi
+template <int D, bool kSplit>
 __device__ __forceinline__ void load_a(const float* hi, const float* lo, int mt, int ks, int lane,
                                        uint32_t ah[4], uint32_t al[4]) {
   const int at = (mt * (D / 8) + ks) * 32 + lane;
-  const uint4 h = reinterpret_cast<const uint4*>(hi)[at];
-  const uint4 l = reinterpret_cast<const uint4*>(lo)[at];
-  ah[0] = h.x; ah[1] = h.y; ah[2] = h.z; ah[3] = h.w;
-  al[0] = l.x; al[1] = l.y; al[2] = l.z; al[3] = l.w;
+  if constexpr (kSplit) {
+    const uint4 h = reinterpret_cast<const uint4*>(hi)[at];
+    const uint4 l = reinterpret_cast<const uint4*>(lo)[at];
+    ah[0] = h.x; ah[1] = h.y; ah[2] = h.z; ah[3] = h.w;
+    al[0] = l.x; al[1] = l.y; al[2] = l.z; al[3] = l.w;
+  } else {
+    const float4 v = reinterpret_cast<const float4*>(hi)[at];
+    lfs2::split_a(v.x, v.y, v.z, v.w, ah, al);
+  }
 }
 
-// acc[j] += X Y^T at k-step ks (8 of the 128 columns) for the warp's 16 rows
-// of X (fragment-ordered, split) and the 16 rows [n0, n0 + 16) of a
-// streamed tile Y
+// acc[j] += X Y^T at k-step ks (8 of the D columns) for the warp's 16 rows
+// of X (fragment-ordered) and the 16 rows [n0, n0 + 16) of a streamed tile Y
+template <int D, bool kSplit>
 __device__ __forceinline__ void score_step(const float* xh, const float* xl, int mt, int ks,
                                            const float* Y, int n0, int lane, float acc[2][4]) {
   const int g = lane >> 2, t = lane & 3;
   uint32_t ah[4], al[4];
-  load_a(xh, xl, mt, ks, lane, ah, al);
+  load_a<D, kSplit>(xh, xl, mt, ks, lane, ah, al);
   uint32_t bh[2][2], bl[2][2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const float* y = Y + (n0 + 8 * j + g) * LDS + 8 * ks + t;
+    const float* y = Y + (n0 + 8 * j + g) * Geo<D>::LDS + 8 * ks + t;
     split(y[0], bh[j][0], bl[j][0]);
     split(y[4], bh[j][1], bl[j][1]);
   }
@@ -176,26 +203,29 @@ __device__ __forceinline__ void score_step(const float* xh, const float* xl, int
   for (int j = 0; j < 2; ++j) mma_tf32(acc[j], ah, bh[j]);
 }
 
-// Two score products over d < 128 in one loop, so that their mma chains
+// Two score products over d < D in one loop, so that their mma chains
 // interleave: acc0 += X0 Y0^T over k-steps ks0, ks0 + step, ..., acc1 +=
 // X1 Y1^T over ks1, ks1 + step, ... (two products with step 1, or the even
 // and odd k-steps of one with step 2)
+template <int D, bool kSplit>
 __device__ __forceinline__ void scores2(const float* x0h, const float* x0l, const float* y0,
                                         int ks0, const float* x1h, const float* x1l,
                                         const float* y1, int ks1, int step, int mt, int n0,
                                         int lane, float acc0[2][4], float acc1[2][4]) {
 #pragma unroll 2
   for (int ks = 0; ks < D / 8; ks += step) {
-    score_step(x0h, x0l, mt, ks + ks0, y0, n0, lane, acc0);
-    score_step(x1h, x1l, mt, ks + ks1, y1, n0, lane, acc1);
+    score_step<D, kSplit>(x0h, x0l, mt, ks + ks0, y0, n0, lane, acc0);
+    score_step<D, kSplit>(x1h, x1l, mt, ks + ks1, y1, n0, lane, acc1);
   }
 }
 
 // acc[n] += P Z for the warp's 16 x 16 block P (C fragments of scores(),
-// split) and rows [c0, c0 + 16) of a streamed tile Z, all 128 columns; k
+// split) and rows [c0, c0 + 16) of a streamed tile Z, all D columns; k
 // position t of each 8-column step is column 2t, t + 4 is 2t + 1
+template <int D>
 __device__ __forceinline__ void accumulate(const uint32_t ph[2][4], const uint32_t pl[2][4],
-                                           const float* Z, int c0, int lane, float acc[16][4]) {
+                                           const float* Z, int c0, int lane, float (&acc)[D / 8][4]) {
+  constexpr int LDS = Geo<D>::LDS;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -212,11 +242,13 @@ __device__ __forceinline__ void accumulate(const uint32_t ph[2][4], const uint32
   }
 }
 
-// Sum the four column quarters' 32 x 128 partial accumulators (each row
+// Sum the four column quarters' 32 x D partial accumulators (each row
 // scaled by the thread's row_scale) through buf [4][32][LDO] and store the
 // sum to rows [r0, r0 + 32) of out. Every thread of the block calls it.
-__device__ __forceinline__ void reduce_store(const float acc[16][4], const float row_scale[2],
+template <int D>
+__device__ __forceinline__ void reduce_store(const float (&acc)[D / 8][4], const float row_scale[2],
                                              float* buf, float* out, int r0) {
+  constexpr int LDO = Geo<D>::LDO;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
 #pragma unroll
@@ -229,7 +261,7 @@ __device__ __forceinline__ void reduce_store(const float acc[16][4], const float
     }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
-    const int r = idx >> 5, c = (idx & 31) * 4;
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
@@ -262,7 +294,39 @@ __device__ __forceinline__ float key_extent(const int* mask, int T_len, int* ken
   return s_last < 0 ? 0.0f : kNeg;
 }
 
+// The ring of streamed tiles: with two stages the next tile's copy is issued
+// before this tile's products; with one it is issued after them.
+template <int D> struct Ring {
+  static constexpr int kStages = Geo<D>::kStages;
+  // before tile it's products: issue tile it + 1 (two stages), then wait for
+  // tile it; `issue(i, dst)` copies tile i into a stage
+  template <typename F>
+  static __device__ __forceinline__ float* acquire(int it, int n_tiles, float* ring, int stage_floats,
+                                                   F issue) {
+    if constexpr (kStages == 2) {
+      if (it + 1 < n_tiles) issue(it + 1, ring + ((it + 1) & 1) * stage_floats);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    return ring + (kStages == 2 ? (it & 1) * stage_floats : 0);
+  }
+  // after tile it's products: the stage may be refilled
+  template <typename F>
+  static __device__ __forceinline__ void release(int it, int n_tiles, float* ring, F issue) {
+    __syncthreads();
+    if constexpr (kStages == 1) {
+      if (it + 1 < n_tiles) issue(it + 1, ring);
+      cp_async_commit();
+    }
+  }
+};
+
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
+  constexpr int kFrag = Geo<D>::kFrag, kTile = Geo<D>::kTile;
   extern __shared__ __align__(16) float smem[];
   float* Qh = smem;
   float* Ql = Qh + kFrag;
@@ -282,32 +346,27 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
   int kend;
   const float mval = key_extent(mask, T_len, &kend);
   const int n_tiles = (kend + BN - 1) / BN;
+  auto issue = [&](int i, float* dst) {
+    issue_tile<D>(k, i * BN, dst);
+    issue_tile<D>(v, i * BN, dst + kTile);
+  };
 
-  issue_tile(k, 0, ring);
-  issue_tile(v, 0, ring + kTile);
+  issue(0, ring);
   cp_async_commit();
-  load_split_rows(q, q0, Qh, Ql);
+  load_split_rows<D, true>(q, q0, Qh, Ql);
 
-  float o[16][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
   const int row0 = q0 + 16 * wm + g;   // this thread's rows: row0 and row0 + 8
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BN;
-    if (it + 1 < n_tiles) {
-      float* next = ring + ((it + 1) & 1) * 2 * kTile;
-      issue_tile(k, k0 + BN, next);
-      issue_tile(v, k0 + BN, next + kTile);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* Ks = ring + (it & 1) * 2 * kTile;
+    const float* Ks = Ring<D>::acquire(it, n_tiles, ring, 2 * kTile, issue);
     const float* Vs = Ks + kTile;
     float sb[2][4] = {}, so[2][4] = {};   // even and odd k-steps
-    scores2(Qh, Ql, Ks, 0, Qh, Ql, Ks, 1, 2, wm, 16 * wn, lane, sb, so);
+    scores2<D, true>(Qh, Ql, Ks, 0, Qh, Ql, Ks, 1, 2, wm, 16 * wn, lane, sb, so);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -340,12 +399,12 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
         split(pv, ph[j][i], pl[j][i]);
       }
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
-    accumulate(ph, pl, Vs, 16 * wn, lane, o);
-    __syncthreads();   // the stage is refilled next tile
+    accumulate<D>(ph, pl, Vs, 16 * wn, lane, o);
+    Ring<D>::release(it, n_tiles, ring, issue);   // the stage is refilled next tile
   }
   cp_async_wait<0>();
 
@@ -376,16 +435,20 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
     if (wn == 0 && t == 0)
       p.lse[(static_cast<size_t>(b) * p.H + h) * T_len + row0 + 8 * r] = M + logf(L);
   }
-  reduce_store(o, row_scale, ring, p.out + base, q0);
+  reduce_store<D>(o, row_scale, ring, p.out + base, q0);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
+  constexpr int kFrag = Geo<D>::kFrag, kTile = Geo<D>::kTile;
+  constexpr bool kSplit = Geo<D>::kSplitOwn;
+  constexpr int kHalves = kSplit ? 2 : 1;  // hi and lo, or raw
   extern __shared__ __align__(16) float smem[];
   float* Qh = smem;
   float* Ql = Qh + kFrag;
-  float* dOh = Ql + kFrag;
+  float* dOh = Qh + kHalves * kFrag;
   float* dOl = dOh + kFrag;
-  float* ring = dOl + kFrag;  // stage s: K tile at ring + 2 s kTile, V tile after it
+  float* ring = dOh + kHalves * kFrag;  // stage s: K tile at ring + 2 s kTile, V tile after it
   __shared__ float s_lse[BM], s_dsum[BM];
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM, T_len = p.T;
@@ -404,18 +467,26 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
   int kend;
   const float mval = key_extent(mask, T_len, &kend);
   const int n_tiles = (kend + BN - 1) / BN;
+  auto issue = [&](int i, float* dst) {
+    issue_tile<D>(k, i * BN, dst);
+    issue_tile<D>(v, i * BN, dst + kTile);
+  };
 
-  issue_tile(k, 0, ring);
-  issue_tile(v, 0, ring + kTile);
+  issue(0, ring);
   cp_async_commit();
-  load_split_rows(q, q0, Qh, Ql);
-  load_split_rows(dout, q0, dOh, dOl);
+  load_split_rows<D, kSplit>(q, q0, Qh, Ql);
+  load_split_rows<D, kSplit>(dout, q0, dOh, dOl);
   // D_i = rowsum(dO o O) from the f32 output, one warp per row
   for (int r = warp; r < BM; r += kThreads / 32) {
-    const size_t at = static_cast<size_t>(q0 + r) * D + lane * 4;
-    const float4 a = *reinterpret_cast<const float4*>(dout + at);
-    const float4 c = *reinterpret_cast<const float4*>(o + at);
-    const float s = lfs2::warp_sum(a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w);
+    float s = 0.0f;
+#pragma unroll
+    for (int c = lane * 4; c < D; c += 128) {
+      const size_t at = static_cast<size_t>(q0 + r) * D + c;
+      const float4 a = *reinterpret_cast<const float4*>(dout + at);
+      const float4 x = *reinterpret_cast<const float4*>(o + at);
+      s += a.x * x.x + a.y * x.y + a.z * x.z + a.w * x.w;
+    }
+    s = lfs2::warp_sum(s);
     if (lane == 0) {
       s_dsum[r] = s;
       p.dsum[row_base + q0 + r] = s;
@@ -427,25 +498,17 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
   const float lse_r[2] = {s_lse[rl], s_lse[rl + 8]};
   const float dsum_r[2] = {s_dsum[rl], s_dsum[rl + 8]};
 
-  float dq[16][4];
+  float dq[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.0f;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BN;
-    if (it + 1 < n_tiles) {
-      float* next = ring + ((it + 1) & 1) * 2 * kTile;
-      issue_tile(k, k0 + BN, next);
-      issue_tile(v, k0 + BN, next + kTile);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* Ks = ring + (it & 1) * 2 * kTile;
+    const float* Ks = Ring<D>::acquire(it, n_tiles, ring, 2 * kTile, issue);
     const float* Vs = Ks + kTile;
     float s[2][4] = {}, dp[2][4] = {};
-    scores2(Qh, Ql, Ks, 0, dOh, dOl, Vs, 0, 1, wm, 16 * wn, lane, s, dp);
+    scores2<D, kSplit>(Qh, Ql, Ks, 0, dOh, dOl, Vs, 0, 1, wm, 16 * wn, lane, s, dp);
     uint32_t dh[2][4], dl[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -459,24 +522,34 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params p) {
           dpv = lfs2::attn_keep(q0 + rl + 8 * hh, c, sbh, p.threshold) ? dpv * p.inv_keep : 0.0f;
         split(valid ? pv * (dpv - dsum_r[hh]) * p.scale : 0.0f, dh[j][i], dl[j][i]);
       }
-    accumulate(dh, dl, Ks, 16 * wn, lane, dq);
-    __syncthreads();
+    accumulate<D>(dh, dl, Ks, 16 * wn, lane, dq);
+    Ring<D>::release(it, n_tiles, ring, issue);
   }
   cp_async_wait<0>();
   const float one[2] = {1.0f, 1.0f};
-  reduce_store(dq, one, ring, p.out + base, q0);
+  reduce_store<D>(dq, one, ring, p.out + base, q0);
 }
 
+// grid (T / 32, H, B) at D = 128, each block forming dK and dV of its 32
+// keys; (2 T / 32, H, B) at D = 256, block 2 i + 1 forming dK and 2 i dV of
+// keys [32 i, 32 i + 32)
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
+  constexpr int kFrag = Geo<D>::kFrag, kTile = Geo<D>::kTile;
+  constexpr bool kSplit = Geo<D>::kSplitOwn, kBoth = Geo<D>::kBothKV;
+  constexpr int kHalves = kSplit ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   float* Kh = smem;
   float* Kl = Kh + kFrag;
-  float* Vh = Kl + kFrag;
+  float* Vh = Kh + kHalves * kFrag;
   float* Vl = Vh + kFrag;
-  float* ring = Vl + kFrag;   // stage s: Q tile, dO tile, lse[64], dsum[64]
+  float* ring = Vh + kHalves * kFrag;   // stage s: Q tile, dO tile, lse[64], dsum[64]
   constexpr int kStage = 2 * kTile + 2 * BN;
+  // 0: dV alone, 1: dK alone, 2: both
+  const int which = kBoth ? 2 : static_cast<int>(blockIdx.x & 1);
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM, T_len = p.T;
+  const int b = blockIdx.z, h = blockIdx.y, T_len = p.T;
+  const int k0 = (kBoth ? blockIdx.x : blockIdx.x >> 1) * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, wm = warp & 1, wn = warp >> 1;
   const size_t base = (static_cast<size_t>(b) * p.H + h) * T_len * D;
@@ -495,8 +568,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
     // are 0 on these keys, and so are dK and dV
     for (int idx = threadIdx.x; idx < BM * D / 4; idx += kThreads) {
       const size_t at = static_cast<size_t>(k0) * D + idx * 4;
-      *reinterpret_cast<float4*>(p.dk + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(p.dv + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (which != 0) *reinterpret_cast<float4*>(p.dk + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (which != 1) *reinterpret_cast<float4*>(p.dv + base + at) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     return;
   }
@@ -504,39 +577,37 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
   const int c0 = k0 + 16 * wm + g;
   const bool valid[2] = {mask[c0] != 0, mask[c0 + 8] != 0};
   const int n_tiles = T_len / BN;
+  auto issue = [&](int i, float* dst) {
+    issue_tile<D>(q, i * BN, dst);
+    issue_tile<D>(dout, i * BN, dst + kTile);
+    issue_row_vec(p.lse + row_base, i * BN, dst + 2 * kTile);
+    issue_row_vec(p.dsum + row_base, i * BN, dst + 2 * kTile + BN);
+  };
 
-  issue_tile(q, 0, ring);
-  issue_tile(dout, 0, ring + kTile);
-  issue_row_vec(p.lse + row_base, 0, ring + 2 * kTile);
-  issue_row_vec(p.dsum + row_base, 0, ring + 2 * kTile + BN);
+  issue(0, ring);
   cp_async_commit();
-  load_split_rows(k, k0, Kh, Kl);
-  load_split_rows(v, k0, Vh, Vl);
+  load_split_rows<D, kSplit>(k, k0, Kh, Kl);
+  load_split_rows<D, kSplit>(v, k0, Vh, Vl);
 
-  float dk[16][4], dv[16][4];
+  // dV, or dK alone (which == 1); dK beside dV when one block forms both
+  float acc[D / 8][4], dk2[kBoth ? D / 8 : 1][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (kBoth ? D / 8 : 1); ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk2[n][i] = 0.0f;
   for (int it = 0; it < n_tiles; ++it) {
     const int r0 = it * BN;
-    if (it + 1 < n_tiles) {
-      float* next = ring + ((it + 1) & 1) * kStage;
-      issue_tile(q, r0 + BN, next);
-      issue_tile(dout, r0 + BN, next + kTile);
-      issue_row_vec(p.lse + row_base, r0 + BN, next + 2 * kTile);
-      issue_row_vec(p.dsum + row_base, r0 + BN, next + 2 * kTile + BN);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* Qs = ring + (it & 1) * kStage;
+    const float* Qs = Ring<D>::acquire(it, n_tiles, ring, kStage, issue);
     const float* dOs = Qs + kTile;
     const float* lse = dOs + kTile;
     const float* dsum = lse + BN;
     // transposed scores: keys are rows (c0, c0 + 8), queries columns
     float s[2][4] = {}, dp[2][4] = {};
-    scores2(Kh, Kl, Qs, 0, Vh, Vl, dOs, 0, 1, wm, 16 * wn, lane, s, dp);
+    scores2<D, kSplit>(Kh, Kl, Qs, 0, Vh, Vl, dOs, 0, 1, wm, 16 * wn, lane, s, dp);
     uint32_t pdh[2][4], pdl[2][4], dsh[2][4], dsl[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -553,30 +624,47 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
         split(pd, pdh[j][i], pdl[j][i]);
         split(valid[hh] ? pv * (dpv - dsum[rq]) * p.scale : 0.0f, dsh[j][i], dsl[j][i]);
       }
-    accumulate(pdh, pdl, dOs, 16 * wn, lane, dv);   // dV[c] += sum_r P_drop[r][c] dO[r]
-    accumulate(dsh, dsl, Qs, 16 * wn, lane, dk);    // dK[c] += sum_r dS[r][c] Q[r]
-    __syncthreads();
+    if (which == 1) {
+      accumulate<D>(dsh, dsl, Qs, 16 * wn, lane, acc);    // dK[c] += sum_r dS[r][c] Q[r]
+    } else {
+      accumulate<D>(pdh, pdl, dOs, 16 * wn, lane, acc);   // dV[c] += sum_r P_drop[r][c] dO[r]
+      if constexpr (kBoth) accumulate<D>(dsh, dsl, Qs, 16 * wn, lane, dk2);
+    }
+    Ring<D>::release(it, n_tiles, ring, issue);
   }
   cp_async_wait<0>();
   const float one[2] = {1.0f, 1.0f};
-  reduce_store(dv, one, ring, p.dv + base, k0);
-  reduce_store(dk, one, ring, p.dk + base, k0);
+  reduce_store<D>(acc, one, ring, (which == 1 ? p.dk : p.dv) + base, k0);
+  if constexpr (kBoth) reduce_store<D>(dk2, one, ring, p.dk + base, k0);
 }
 
-constexpr int kFwdSmem = (2 * kFrag + 2 * 2 * kTile) * 4;
-constexpr int kDqSmem = (4 * kFrag + 2 * 2 * kTile) * 4;
-constexpr int kDkvSmem = (4 * kFrag + 2 * (2 * kTile + 2 * BN)) * 4;
-static_assert(4 * BM * LDO <= 2 * 2 * kTile, "the reduction buffer reuses the ring");
+template <int D> constexpr int fwd_smem() {
+  return (2 * Geo<D>::kFrag + Geo<D>::kStages * 2 * Geo<D>::kTile) * 4;
+}
+template <int D> constexpr int dq_smem() {
+  return ((Geo<D>::kSplitOwn ? 4 : 2) * Geo<D>::kFrag + Geo<D>::kStages * 2 * Geo<D>::kTile) * 4;
+}
+template <int D> constexpr int dkv_smem() {
+  return ((Geo<D>::kSplitOwn ? 4 : 2) * Geo<D>::kFrag +
+          Geo<D>::kStages * (2 * Geo<D>::kTile + 2 * BN)) * 4;
+}
+template <int D> constexpr bool reduce_fits() {
+  return 4 * BM * Geo<D>::LDO <= Geo<D>::kStages * 2 * Geo<D>::kTile;
+}
+static_assert(reduce_fits<128>() && reduce_fits<256>(), "the reduction buffer reuses the ring");
+static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 && dkv_smem<256>() <= 232448,
+              "shared memory at D = 256");
 
 // the grid (x, y, z) of each kernel's latest accepted launch: 0 the
 // forward, 1 the dQ pass, 2 the dK/dV pass
 int g_grid[3][3];
 
 template <typename K>
-cudaError_t run(K kernel, int which, int smem, const Params& p, int B, cudaStream_t s) {
+cudaError_t run(K kernel, int which, int smem, const Params& p, int B, int blocks_x,
+                cudaStream_t s) {
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.T / BM, p.H, B);
+  const dim3 grid(blocks_x, p.H, B);
   kernel<<<grid, kThreads, smem, s>>>(p);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
@@ -588,15 +676,25 @@ cudaError_t run(K kernel, int which, int smem, const Params& p, int B, cudaStrea
 }
 
 bool shape_ok(int B, int H, int T_len, int d) {
-  return B >= 1 && H >= 1 && T_len >= BN && T_len % BN == 0 && d == D;
+  return B >= 1 && H >= 1 && T_len >= BN && T_len % BN == 0 && (d == 128 || d == 256);
+}
+
+template <int D> cudaError_t fwd(const Params& p, int B, cudaStream_t s) {
+  return run(fwd_kernel<D>, 0, fwd_smem<D>(), p, B, p.T / BM, s);
+}
+template <int D> cudaError_t bwd(const Params& p, int B, cudaStream_t s) {
+  const cudaError_t err = run(dq_kernel<D>, 1, dq_smem<D>(), p, B, p.T / BM, s);
+  if (err != cudaSuccess) return err;
+  return run(dkv_kernel<D>, 2, dkv_smem<D>(), p, B, (Geo<D>::kBothKV ? 1 : 2) * (p.T / BM), s);
 }
 
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
-// f32 q, k, v; o and lse (B, H, T) f32 are written; seed is one int32 on the
-// device. o32, the output in f32 (the bf16 route's signature), is o itself.
+// f32 q, k, v (B, H, T, d), d = 128 or 256; o and lse (B, H, T) f32 are
+// written; seed is one int32 on the device. o32, the output in f32 (the
+// bf16 route's signature), is o itself.
 LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          const int* mask, const int* seed, void* o, float* lse,
                                          float* o32, int B, int H, int T_len, int d, float scale,
@@ -605,7 +703,8 @@ LFS2_EXPORT int lfs2_flash_attention_fwd(const void* q, const void* k, const voi
   Params p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
            mask, seed, nullptr, nullptr, static_cast<float*>(o), lse, nullptr, nullptr, nullptr,
            H, T_len, scale, threshold, inv_keep};
-  return static_cast<int>(run(fwd_kernel, 0, kFwdSmem, p, B, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 128 ? fwd<128>(p, B, s) : fwd<256>(p, B, s));
 }
 
 // the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
@@ -622,9 +721,7 @@ LFS2_EXPORT int lfs2_flash_attention_bwd(const void* q, const void* k, const voi
            static_cast<float*>(dq), const_cast<float*>(lse), dsum, static_cast<float*>(dk),
            static_cast<float*>(dv), H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = run(dq_kernel, 1, kDqSmem, p, B, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run(dkv_kernel, 2, kDkvSmem, p, B, s));
+  return static_cast<int>(d == 128 ? bwd<128>(p, B, s) : bwd<256>(p, B, s));
 }
 
 // copies into out[0..2] the grid of kernel `which` (0 the forward, 1 the dQ

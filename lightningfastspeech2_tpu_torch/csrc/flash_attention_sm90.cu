@@ -3,9 +3,9 @@
 // Hopper's tensor cores.
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_attention.py _fwd_kernel and
-// _bwd_kernel for bf16 q, k, v (B, H, T, 128), T % 128 == 0; mask is (B, T)
-// int32, nonzero = valid key. The f32 route keeps the CUDA-core kernels of
-// flash_attention.cu (the tensor cores have no f32 product).
+// _bwd_kernel for bf16 q, k, v (B, H, T, D), D = 128 or 256 (the kernels are
+// templates on D), T % 128 == 0; mask is (B, T) int32, nonzero = valid key.
+// f32 inputs take flash_attention.cu (split-TF32 mma.sync).
 //
 // What it computes, as flash_attention.cu does: scores q.k^T summed in f32,
 // then scaled by 1/sqrt(d) in f32; a padded key's score is -1e30 (queries
@@ -30,7 +30,7 @@
 // shared-memory stages with TMA (cp.async.bulk.tensor, 128-byte swizzle,
 // each 128-column bf16 row as two 64-column boxes), tracked by full and
 // empty mbarriers; setmaxnreg gives the consumers 240 registers a thread
-// and the producer 24. The consumers run wgmma: S = Q.K^T reads both
+// and the producer 24 (232 and 40 at D = 256). The consumers run wgmma: S = Q.K^T reads both
 // operands from shared memory (K-major), and P (or dS) goes from the f32
 // accumulator straight into bf16 A-register fragments for the next product,
 // whose B operand (V, K, Q or dO) is read MN-major through the transpose
@@ -40,6 +40,16 @@
 // pass also runs each warpgroup one tile ahead of itself (see there). The
 // forward and the dQ pass give each consumer warpgroup 64 rows; the dK/dV
 // pass gives one warpgroup P and dV, the other dS and dK.
+//
+// At D = 256 the tiles are twice as wide, and a 64 x 256 f32 accumulator
+// would be 128 registers a thread, past the 168 ptxas gives a thread of a
+// 384-thread block. So a thread keeps a 64 x 128 accumulator at every D:
+// at D = 256 the forward and the dQ pass give a block 64 query rows, and
+// both consumer warpgroups form the same scores and each accumulates one
+// half of the head dim; the dK/dV pass gives each 64 keys two blocks, one a
+// half of the head dim each. The streamed tiles narrow to fit shared
+// memory: 64-key tiles in the forward, 32-query tiles in the dK/dV pass
+// (scores of those as m64n32 products).
 //
 // A key tile whose keys are all padded is skipped when its item has a valid
 // key (exp(-1e30 - m) is exactly 0 there). An item with no valid key takes
@@ -55,7 +65,6 @@
 
 namespace {
 
-constexpr int D = 128;          // head dim, the only one taken
 constexpr int kRowBytes = 128;  // one 64-column bf16 box row
 constexpr float kNeg = -1e30f;
 
@@ -121,11 +130,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// a row of `rows` x 128 bf16 as its two 64-column boxes, one after the other
+// `rows` rows of D bf16 as their D / 64 column boxes, one after the other
+template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int row, int rows,
                                          uint32_t bar) {
-  tma_load(dst, map, 0, row, bar);
-  tma_load(dst + rows * kRowBytes, map, 64, row, bar);
+#pragma unroll 1
+  for (int h = 0; h < D / 64; ++h) tma_load(dst + h * rows * kRowBytes, map, 64 * h, row, bar);
 }
 
 // contiguous bytes (16-byte aligned, a multiple of 16)
@@ -250,6 +260,17 @@ __device__ __forceinline__ bool keep_at(unsigned row_hash, int c, unsigned sbh, 
   return lfs2::fmix((row_hash ^ (static_cast<unsigned>(c) * 1013904223u)) + sbh) >= threshold;
 }
 
+// d (64 x 32) += A (smem, K-major) * B (smem, K-major)^T; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint32_t da, uint32_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %19, 0;\n"
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(da), "r"(db), "r"(kDescHi), "r"(scale_d));
+}
+
 // d (64 x 64) += A (smem, K-major) * B (smem, K-major)^T; scale_d 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint32_t da, uint32_t db, int scale_d) {
   asm volatile(
@@ -284,52 +305,78 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t (&
 }
 
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
-constexpr int kMaxTiles = 256;  // key-tile flags: T <= 256 * 64
-constexpr int kTile128 = 128 * D * 2;  // 128 rows x 128 bf16: 32 KB
-constexpr int kTile64 = 64 * D * 2;    // 16 KB
+constexpr int kMaxTiles = 512;  // key-tile flags: T <= 512 * 32
+
+// Registers a thread after the split: the producer's code at D = 256 (four
+// boxes a tile) needs more than 24, so it takes 40 and each consumer 232
+// (128 x (40 + 2 x 232) fits the SM's 64K registers, as 24 + 2 x 240 does)
+template <int D> __device__ __forceinline__ void producer_regs() {
+  if constexpr (D == 128) setmaxnreg_dec<24>();
+  else setmaxnreg_dec<40>();
+}
+template <int D> __device__ __forceinline__ void consumer_regs() {
+  if constexpr (D == 128) setmaxnreg_inc<240>();
+  else setmaxnreg_inc<232>();
+}
+
+// scores of N columns: d (64 x N) += A (smem, K-major) * B (smem, K-major)^T
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint32_t da, uint32_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
 
 // shared memory of one block, from a 1024-byte aligned base (the swizzle's
-// repeat): tiles first, then the mbarriers and the key-tile flags
-namespace fwd {
-constexpr int kStages = 2;                      // ring depth
-constexpr int kQ = 0;                           // 128 query rows
-constexpr int kStage0 = kTile128;               // K (128 keys), V, mask
-constexpr int kStageBytes = 2 * kTile128 + 1024;
-constexpr int kBars = kStage0 + kStages * kStageBytes;
-constexpr int kFlags = kBars + 64;
-constexpr int kBytes = kFlags + kMaxTiles * 4;
-}  // namespace fwd
+// repeat): tiles first, then the mbarriers and the key-tile flags. A tile
+// of r rows is r * D * 2 bytes.
+template <int D> struct FwdLayout {
+  static constexpr int kQRows = D == 128 ? 128 : 64;  // query rows a block
+  static constexpr int kKT = D == 128 ? 128 : 64;     // keys a streamed tile
+  static constexpr int kStages = 2;                   // ring depth
+  static constexpr int kQ = 0;                        // the block's query rows
+  static constexpr int kStage0 = kQRows * D * 2;      // K (kKT keys), V, mask
+  static constexpr int kStageBytes = 2 * kKT * D * 2 + 1024;
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  static constexpr int kFlags = kBars + 64;
+  static constexpr int kBytes = kFlags + kMaxTiles * 4;
+};
 
-namespace dq {
-constexpr int kStages = 2;
-constexpr int kQ = 0, kDO = kTile128;           // 128 query rows each
-constexpr int kStage0 = 2 * kTile128;           // K (64 keys), V, mask
-constexpr int kStageBytes = 2 * kTile64 + 1024;
-constexpr int kBars = kStage0 + kStages * kStageBytes;
-constexpr int kFlags = kBars + 64;
-constexpr int kBytes = kFlags + kMaxTiles * 4;
-}  // namespace dq
+template <int D> struct DqLayout {
+  static constexpr int kQRows = D == 128 ? 128 : 64;  // query rows a block
+  static constexpr int kKT = 64;                      // keys a streamed tile
+  static constexpr int kStages = 2;
+  static constexpr int kQ = 0, kDO = kQRows * D * 2;  // the block's query rows, each
+  static constexpr int kStage0 = 2 * kQRows * D * 2;  // K (kKT keys), V, mask
+  static constexpr int kStageBytes = 2 * kKT * D * 2 + 1024;
+  static constexpr int kBars = kStage0 + kStages * kStageBytes;
+  static constexpr int kFlags = kBars + 64;
+  static constexpr int kBytes = kFlags + kMaxTiles * 4;
+};
 
-namespace dkv {
-// a consumer holds two stages at once (see the kernel), so a third loads
-constexpr int kStages = 3;
-constexpr int kQT = 64;                         // queries a tile
-constexpr int kK = 0, kV = kTile64;             // 64 keys each
-constexpr int kStage0 = 2 * kTile64;            // Q (64 queries), dO, lse, D
-constexpr int kStageBytes = 2 * kTile64 + 1024;
-constexpr int kX0 = kStage0 + kStages * kStageBytes;  // P (f32) and keep bits, S side -> dP side
-constexpr int kXBytes = 64 * kQT * 4 + 1024;
-constexpr int kBars = kX0 + 2 * kXBytes;
-constexpr int kFlags = kBars + 64;
-constexpr int kBytes = kFlags + kMaxTiles * 4;
-}  // namespace dkv
+template <int D> struct DkvLayout {
+  static constexpr int kHalves = D / 128;             // blocks a 64-key tile, a head-dim half each
+  // a consumer holds two stages at once (see the kernel), so a third loads
+  static constexpr int kStages = 3;
+  static constexpr int kQT = D == 128 ? 64 : 32;      // queries a tile
+  static constexpr int kK = 0, kV = 64 * D * 2;       // 64 keys each
+  static constexpr int kStage0 = 2 * 64 * D * 2;      // Q (kQT queries), dO, lse, D
+  static constexpr int kStageBytes = 2 * kQT * D * 2 + 1024;
+  static constexpr int kX0 = kStage0 + kStages * kStageBytes;  // P (f32) and keep bits, S side -> dP side
+  static constexpr int kXBytes = 64 * kQT * 4 + 1024;
+  static constexpr int kBars = kX0 + 2 * kXBytes;
+  static constexpr int kFlags = kBars + 64;
+  static constexpr int kBytes = kFlags + kMaxTiles * 4;
+};
 
 // each layout plus the 1024 bytes that align its base; 2 kStages + 1
 // mbarriers in the 64 bytes at kBars
 constexpr int kSmemMax = 227 * 1024;  // a block's shared memory on an H100
-static_assert(fwd::kBytes + 1024 <= kSmemMax && dq::kBytes + 1024 <= kSmemMax &&
-                  dkv::kBytes + 1024 <= kSmemMax && (2 * dkv::kStages + 1) * 8 <= 64,
-              "shared memory");
+template <int D> constexpr bool fits() {
+  return FwdLayout<D>::kBytes + 1024 <= kSmemMax && DqLayout<D>::kBytes + 1024 <= kSmemMax &&
+         DkvLayout<D>::kBytes + 1024 <= kSmemMax && (2 * DkvLayout<D>::kStages + 1) * 8 <= 64;
+}
+static_assert(fits<128>() && fits<256>(), "shared memory");
 
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
@@ -361,7 +408,7 @@ struct Lane {
   }
 };
 
-// rows r and r + 8 of a (T, 128) slab from two 64-column accumulators
+// rows r and r + 8 of a (T, D) slab from two 64-column accumulators
 __device__ __forceinline__ void store2(__nv_bfloat16* at, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x, y);
 }
@@ -369,88 +416,104 @@ __device__ __forceinline__ void store2(float* at, float x, float y) {
   *reinterpret_cast<float2*>(at) = make_float2(x, y);
 }
 
-template <typename T>
-__device__ __forceinline__ void store_rows(T* row, const float (&lo)[32], const float (&hi)[32],
-                                           int c2, float n0, float n1) {
+// columns c0 .. c0 + 127 of the rows, acc[h] holding columns c0 + 64 h ..
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* row, const float (&acc)[2][32], int c0, int c2,
+                                           float n0, float n1) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + c2;
-    store2(row + c, lo[4 * j] * n0, lo[4 * j + 1] * n0);
-    store2(row + 8 * D + c, lo[4 * j + 2] * n1, lo[4 * j + 3] * n1);
-    store2(row + 64 + c, hi[4 * j] * n0, hi[4 * j + 1] * n0);
-    store2(row + 8 * D + 64 + c, hi[4 * j + 2] * n1, hi[4 * j + 3] * n1);
-  }
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + 64 * h + 8 * j + c2;
+      store2(row + c, acc[h][4 * j] * n0, acc[h][4 * j + 1] * n0);
+      store2(row + 8 * D + c, acc[h][4 * j + 2] * n1, acc[h][4 * j + 3] * n1);
+    }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][32]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.0f;
+}
+__device__ __forceinline__ void hold_acc(float (&acc)[2][32]) {
+  hold(acc[0]);
+  hold(acc[1]);
 }
 
 // ---- forward ---------------------------------------------------------------
-// grid (T / 128, H, B): 128 query rows a block; K/V stream in 128-key tiles.
+// grid (T / QR, H, B): QR query rows a block; K/V stream in KT-key tiles.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const Params p) {
-  using fwd::kStages;
+  using L_ = FwdLayout<D>;
+  constexpr int kStages = L_::kStages, KT = L_::kKT, QR = L_::kQRows;
+  constexpr int kTileK = KT * D * 2, kTileQ = QR * D * 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t base = smem_u32(smem), bars = base + fwd::kBars;
+  const uint32_t base = smem_u32(smem), bars = base + L_::kBars;
   const uint32_t qbar = bars + 8 * 2 * kStages;
-  int* flags = reinterpret_cast<int*>(smem + fwd::kFlags);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 128, T = p.T, nt = T / 128;
+  int* flags = reinterpret_cast<int*>(smem + L_::kFlags);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QR, T = p.T, nt = T / KT;
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
 
-  init_bars<fwd::kStages>(bars);
-  const bool any = scan_mask(mrow, T, 128, flags);
+  init_bars<kStages>(bars);
+  const bool any = scan_mask(mrow, T, KT, flags);
 
   if (threadIdx.x < 128) {  // producer
-    setmaxnreg_dec<24>();
+    producer_regs<D>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qbar, kTile128);
-      tma_tile(base + fwd::kQ, &tq, bh_row + q0, 128, qbar);
+      mbar_expect_tx(qbar, kTileQ);
+      tma_tile<D>(base + L_::kQ, &tq, bh_row + q0, QR, qbar);
       for (int t = 0, it = 0; t < nt; ++t) {
         if (any && !flags[t]) continue;
         const int s = it % kStages;
-        const uint32_t stage = base + fwd::kStage0 + s * fwd::kStageBytes;
+        const uint32_t stage = base + L_::kStage0 + s * L_::kStageBytes;
         mbar_wait(bars + 8 * (kStages + s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bars + 8 * s, 2 * kTile128 + 128 * 4);
-        tma_tile(stage, &tk, bh_row + t * 128, 128, bars + 8 * s);
-        tma_tile(stage + kTile128, &tv, bh_row + t * 128, 128, bars + 8 * s);
-        bulk_load(stage + 2 * kTile128, mrow + t * 128, 128 * 4, bars + 8 * s);
+        mbar_expect_tx(bars + 8 * s, 2 * kTileK + KT * 4);
+        tma_tile<D>(stage, &tk, bh_row + t * KT, KT, bars + 8 * s);
+        tma_tile<D>(stage + kTileK, &tv, bh_row + t * KT, KT, bars + 8 * s);
+        bulk_load(stage + 2 * kTileK, mrow + t * KT, KT * 4, bars + 8 * s);
         ++it;
       }
     }
-  } else {  // consumers: 64 query rows each
-    setmaxnreg_inc<240>();
+  } else {  // consumers: 64 query rows each (D = 128), or the same 64 (D = 256)
+    consumer_regs<D>();
     const Lane L(threadIdx.x / 128 - 1);
-    const int g0 = q0 + 64 * L.cw + L.r0;  // this thread's rows g0, g0 + 8
+    const int rowoff = D == 128 ? 64 * L.cw : 0;  // the warpgroup's rows in the block
+    const int hb = D == 128 ? 0 : 2 * L.cw;       // its first 64-column box of the output
+    const int g0 = q0 + rowoff + L.r0;            // this thread's rows g0, g0 + 8
     const unsigned sbh = seed_bh(p, b, h), thr = p.threshold;
     const bool drop = thr != 0u;
     const unsigned rh0 = static_cast<unsigned>(g0) * 2654435761u;
     const unsigned rh1 = static_cast<unsigned>(g0 + 8) * 2654435761u;
     const float mval = any ? kNeg : 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-    float olo[32], ohi[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) olo[i] = ohi[i] = 0.0f;
-    const uint32_t qt = base + fwd::kQ;
+    float oacc[2][32];  // head columns 64 (hb + h) .. + 63
+    zero_acc(oacc);
+    const uint32_t qt = base + L_::kQ;
     mbar_wait(qbar, 0);
     for (int t = 0, it = 0; t < nt; ++t) {
       if (any && !flags[t]) continue;
       const int s = it % kStages;
-      const uint32_t stage = base + fwd::kStage0 + s * fwd::kStageBytes;
-      const int* mk = reinterpret_cast<const int*>(smem + fwd::kStage0 + s * fwd::kStageBytes + 2 * kTile128);
+      const uint32_t stage = base + L_::kStage0 + s * L_::kStageBytes;
+      const int* mk = reinterpret_cast<const int*>(smem + L_::kStage0 + s * L_::kStageBytes + 2 * kTileK);
       mbar_wait(bars + 8 * s, (it / kStages) & 1);
 
       const uint32_t qd = opaque(desc_lo(qt)), kd = opaque(desc_lo(stage));
-      float sc[64];
+      float sc[KT / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_ss_n128(sc, kmajor(qd, 128, 64 * L.cw, kk), kmajor(kd, 128, 0, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT>(sc, kmajor(qd, QR, rowoff, kk), kmajor(kd, KT, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
 
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         const int2 vm = *reinterpret_cast<const int2*>(mk + 8 * j + L.c2);
         sc[4 * j] = vm.x ? sc[4 * j] * p.scale : mval;
         sc[4 * j + 1] = vm.y ? sc[4 * j + 1] * p.scale : mval;
@@ -464,10 +527,10 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       m0 = mn0;
       m1 = mn1;
       float rs0 = 0.0f, rs1 = 0.0f;
-      uint32_t pf[8][4];
+      uint32_t pf[KT / 16][4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = t * 128 + 8 * j + L.c2;
+      for (int j = 0; j < KT / 8; ++j) {
+        const int c = t * KT + 8 * j + L.c2;
         float e0 = __expf(sc[4 * j] - m0), e1 = __expf(sc[4 * j + 1] - m0);
         float e2 = __expf(sc[4 * j + 2] - m1), e3 = __expf(sc[4 * j + 3] - m1);
         rs0 += e0 + e1;
@@ -484,19 +547,22 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       l0 = l0 * a0 + rs0;  // this thread's part of the row sum
       l1 = l1 * a1 + rs1;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        olo[4 * j] *= a0; olo[4 * j + 1] *= a0; olo[4 * j + 2] *= a1; olo[4 * j + 3] *= a1;
-        ohi[4 * j] *= a0; ohi[4 * j + 1] *= a0; ohi[4 * j + 2] *= a1; ohi[4 * j + 3] *= a1;
-      }
-      const uint32_t vd = opaque(desc_lo(stage + kTile128));
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          oacc[hh][4 * j] *= a0; oacc[hh][4 * j + 1] *= a0;
+          oacc[hh][4 * j + 2] *= a1; oacc[hh][4 * j + 3] *= a1;
+        }
+      const uint32_t vd = opaque(desc_lo(stage + kTileK));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_rs_n64_t(olo, pf[kk], mnmajor(vd, 128, 0, kk));
-        wgmma_rs_n64_t(ohi, pf[kk], mnmajor(vd, 128, 1, kk));
-      }
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          wgmma_rs_n64_t(oacc[hh], pf[kk], mnmajor(vd, KT, hb + hh, kk));
       wgmma_commit();
       wgmma_wait<0>();
+      hold_acc(oacc);
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
       ++it;
     }
@@ -505,9 +571,9 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float keep = drop ? 1.0f / p.inv_keep : 1.0f;
     const size_t off = (static_cast<size_t>(bh_row) + g0) * D;
     const float n0 = 1.0f / (l0 * keep), n1 = 1.0f / (l1 * keep);
-    store_rows(p.out + off, olo, ohi, L.c2, n0, n1);
-    store_rows(p.out32 + off, olo, ohi, L.c2, n0, n1);
-    if ((L.lane & 3) == 0) {
+    store_rows<D>(p.out + off, oacc, 64 * hb, L.c2, n0, n1);
+    store_rows<D>(p.out32 + off, oacc, 64 * hb, L.c2, n0, n1);
+    if ((L.lane & 3) == 0 && hb == 0) {
       p.lse[bh_row + g0] = m0 + __logf(l0);
       p.lse[bh_row + g0 + 8] = m1 + __logf(l1);
     }
@@ -515,61 +581,66 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 }
 
 // ---- backward, dQ pass -------------------------------------------------------
-// grid (T / 128, H, B): 128 query rows a block; K/V stream in 64-key tiles.
+// grid (T / QR, H, B): QR query rows a block; K/V stream in KT-key tiles.
 // Also writes D_i = rowsum(dO o O), which equals sum_j p_ij dp_ij with
 // dropout too, for the dK/dV pass.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
           const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
           const Params p) {
-  using dq::kStages;
+  using L_ = DqLayout<D>;
+  constexpr int kStages = L_::kStages, KT = L_::kKT, QR = L_::kQRows;
+  constexpr int kTileK = KT * D * 2, kTileQ = QR * D * 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t base = smem_u32(smem), bars = base + dq::kBars;
+  const uint32_t base = smem_u32(smem), bars = base + L_::kBars;
   const uint32_t qbar = bars + 8 * 2 * kStages;
-  int* flags = reinterpret_cast<int*>(smem + dq::kFlags);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 128, T = p.T, nt = T / 64;
+  int* flags = reinterpret_cast<int*>(smem + L_::kFlags);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QR, T = p.T, nt = T / KT;
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
 
-  init_bars<dq::kStages>(bars);
-  const bool any = scan_mask(mrow, T, 64, flags);
+  init_bars<kStages>(bars);
+  const bool any = scan_mask(mrow, T, KT, flags);
 
   if (threadIdx.x < 128) {  // producer
-    setmaxnreg_dec<24>();
+    producer_regs<D>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qbar, 2 * kTile128);
-      tma_tile(base + dq::kQ, &tq, bh_row + q0, 128, qbar);
-      tma_tile(base + dq::kDO, &tdo, bh_row + q0, 128, qbar);
+      mbar_expect_tx(qbar, 2 * kTileQ);
+      tma_tile<D>(base + L_::kQ, &tq, bh_row + q0, QR, qbar);
+      tma_tile<D>(base + L_::kDO, &tdo, bh_row + q0, QR, qbar);
       for (int t = 0, it = 0; t < nt; ++t) {
         if (any && !flags[t]) continue;
         const int s = it % kStages;
-        const uint32_t stage = base + dq::kStage0 + s * dq::kStageBytes;
+        const uint32_t stage = base + L_::kStage0 + s * L_::kStageBytes;
         mbar_wait(bars + 8 * (kStages + s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bars + 8 * s, 2 * kTile64 + 64 * 4);
-        tma_tile(stage, &tk, bh_row + t * 64, 64, bars + 8 * s);
-        tma_tile(stage + kTile64, &tv, bh_row + t * 64, 64, bars + 8 * s);
-        bulk_load(stage + 2 * kTile64, mrow + t * 64, 64 * 4, bars + 8 * s);
+        mbar_expect_tx(bars + 8 * s, 2 * kTileK + KT * 4);
+        tma_tile<D>(stage, &tk, bh_row + t * KT, KT, bars + 8 * s);
+        tma_tile<D>(stage + kTileK, &tv, bh_row + t * KT, KT, bars + 8 * s);
+        bulk_load(stage + 2 * kTileK, mrow + t * KT, KT * 4, bars + 8 * s);
         ++it;
       }
     }
-  } else {  // consumers: 64 query rows each
-    setmaxnreg_inc<240>();
+  } else {  // consumers: 64 query rows each (D = 128), or the same 64 (D = 256)
+    consumer_regs<D>();
     const Lane L(threadIdx.x / 128 - 1);
-    const int g0 = q0 + 64 * L.cw + L.r0;
+    const int rowoff = D == 128 ? 64 * L.cw : 0;  // the warpgroup's rows in the block
+    const int hb = D == 128 ? 0 : 2 * L.cw;       // its first 64-column box of dQ
+    const int g0 = q0 + rowoff + L.r0;
     const unsigned sbh = seed_bh(p, b, h), thr = p.threshold;
     const bool drop = thr != 0u;
     const unsigned rh0 = static_cast<unsigned>(g0) * 2654435761u;
     const unsigned rh1 = static_cast<unsigned>(g0 + 8) * 2654435761u;
     const float mval = any ? kNeg : 0.0f, scale = p.scale, inv_keep = p.inv_keep;
-    // D for rows g0 and g0 + 8: the quad's four threads take 32 columns each
+    // D for rows g0 and g0 + 8: the quad's four threads take D / 4 columns each
     float dd[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const size_t off = (static_cast<size_t>(bh_row) + g0 + 8 * i) * D + 32 * (L.lane & 3);
+      const size_t off = (static_cast<size_t>(bh_row) + g0 + 8 * i) * D + (D / 4) * (L.lane & 3);
       float acc = 0.0f;
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
+      for (int v = 0; v < D / 32; ++v) {
         float x[8], y[8];
         lfs2::load_vec<8>(p.dout + off + 8 * v, x);
         lfs2::load_vec<8>(p.o32 + off + 8 * v, y);
@@ -578,40 +649,39 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
       dd[i] = quad_sum(acc);
     }
-    if ((L.lane & 3) == 0) {
+    if ((L.lane & 3) == 0 && hb == 0) {
       p.dsum[bh_row + g0] = dd[0];
       p.dsum[bh_row + g0 + 8] = dd[1];
     }
     const float lse0 = p.lse[bh_row + g0], lse1 = p.lse[bh_row + g0 + 8];
-    float qlo[32], qhi[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) qlo[i] = qhi[i] = 0.0f;
-    const uint32_t qt = base + dq::kQ, dot = base + dq::kDO;
+    float qacc[2][32];  // dQ, head columns 64 (hb + h) .. + 63
+    zero_acc(qacc);
+    const uint32_t qt = base + L_::kQ, dot = base + L_::kDO;
     mbar_wait(qbar, 0);
     for (int t = 0, it = 0; t < nt; ++t) {
       if (any && !flags[t]) continue;
       const int s = it % kStages;
-      const uint32_t stage = base + dq::kStage0 + s * dq::kStageBytes;
-      const int* mk = reinterpret_cast<const int*>(smem + dq::kStage0 + s * dq::kStageBytes + 2 * kTile64);
+      const uint32_t stage = base + L_::kStage0 + s * L_::kStageBytes;
+      const int* mk = reinterpret_cast<const int*>(smem + L_::kStage0 + s * L_::kStageBytes + 2 * kTileK);
       mbar_wait(bars + 8 * s, (it / kStages) & 1);
 
       const uint32_t qd = opaque(desc_lo(qt)), dod = opaque(desc_lo(dot));
-      const uint32_t kd = opaque(desc_lo(stage)), vd = opaque(desc_lo(stage + kTile64));
-      float sc[32], dp[32];
+      const uint32_t kd = opaque(desc_lo(stage)), vd = opaque(desc_lo(stage + kTileK));
+      float sc[KT / 2], dp[KT / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_ss_n64(sc, kmajor(qd, 128, 64 * L.cw, kk), kmajor(kd, 64, 0, kk), kk > 0);
-        wgmma_ss_n64(dp, kmajor(dod, 128, 64 * L.cw, kk), kmajor(vd, 64, 0, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<KT>(sc, kmajor(qd, QR, rowoff, kk), kmajor(kd, KT, 0, kk), kk > 0);
+        wgmma_ss<KT>(dp, kmajor(dod, QR, rowoff, kk), kmajor(vd, KT, 0, kk), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
 
-      uint32_t df[4][4];
+      uint32_t df[KT / 16][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         const int2 vm = *reinterpret_cast<const int2*>(mk + 8 * j + L.c2);
-        const int c = t * 64 + 8 * j + L.c2;
+        const int c = t * KT + 8 * j + L.c2;
         float ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -627,26 +697,28 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs_n64_t(qlo, df[kk], mnmajor(kd, 64, 0, kk));
-        wgmma_rs_n64_t(qhi, df[kk], mnmajor(kd, 64, 1, kk));
-      }
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          wgmma_rs_n64_t(qacc[hh], df[kk], mnmajor(kd, KT, hb + hh, kk));
       wgmma_commit();
       wgmma_wait<0>();
+      hold_acc(qacc);
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
       ++it;
     }
-    store_rows(p.out + (static_cast<size_t>(bh_row) + g0) * D, qlo, qhi, L.c2, 1.0f, 1.0f);
+    store_rows<D>(p.out + (static_cast<size_t>(bh_row) + g0) * D, qacc, 64 * hb, L.c2, 1.0f,
+                  1.0f);
   }
 }
 
 // ---- backward, dK/dV pass ------------------------------------------------------
-// grid (T / 64, H, B): 64 keys a block; Q, dO, lse and D stream in 64-query
-// tiles. The scores are formed transposed (S^T = K.Q^T, dP^T = V.dO^T), so
+// grid (T / 64 * D / 128, H, B): 64 keys and one 128-column half of the
+// head dim a block; Q, dO, lse and D stream in QT-query tiles. The scores are formed transposed (S^T = K.Q^T, dP^T = V.dO^T), so
 // P^T and dS^T are already A fragments for dV += P^T.dO and dK += dS^T.Q.
 // The two consumer warpgroups split the work, not the keys: the S side
 // forms P (the exp and the keep hash) and dV, the dP side dS and dK. So a
-// thread holds one f32 accumulator of 64 x 128, not two: both in one thread
+// thread holds one f32 accumulator of 64 x D, not two: both in one thread
 // with the scores beside them made ptxas spill. The S side hands the
 // undropped P (f32) and the keep bits to the dP side through a double
 // buffer in shared memory; both sides hold the same accumulator layout, so
@@ -666,54 +738,56 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                 const Params p) {
-  constexpr int QT = dkv::kQT;
-  using dkv::kStages;
+  using L_ = DkvLayout<D>;
+  constexpr int QT = L_::kQT, kStages = L_::kStages, kTileQ = QT * D * 2, kTileK = 64 * D * 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
-  const uint32_t base = smem_u32(smem), bars = base + dkv::kBars;
+  const uint32_t base = smem_u32(smem), bars = base + L_::kBars;
   const uint32_t kvbar = bars + 8 * 2 * kStages;
-  int* flags = reinterpret_cast<int*>(smem + dkv::kFlags);
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 64, T = p.T, nt = T / QT;
+  int* flags = reinterpret_cast<int*>(smem + L_::kFlags);
+  const int kb = blockIdx.x / L_::kHalves, hb = 2 * (blockIdx.x % L_::kHalves);
+  const int b = blockIdx.z, h = blockIdx.y, k0 = kb * 64, T = p.T, nt = T / QT;
   const int bh_row = (b * p.H + h) * T;
   const int* mrow = p.mask + static_cast<size_t>(b) * T;
-  auto stage = [&](int s) { return base + dkv::kStage0 + s * dkv::kStageBytes; };
+  auto stage = [&](int s) { return base + L_::kStage0 + s * L_::kStageBytes; };
 
-  init_bars<dkv::kStages>(bars);
+  init_bars<kStages>(bars);
   const bool any = scan_mask(mrow, T, 64, flags);
-  if (any && !flags[blockIdx.x]) {
+  if (any && !flags[kb]) {
     // every key of the block padded, a valid one elsewhere: P = 0 exactly,
-    // so dK = dV = 0
-    const size_t off = (static_cast<size_t>(bh_row) + k0) * D;
-    for (int i = threadIdx.x; i < 64 * D / 8; i += kThreads) {
-      reinterpret_cast<uint4*>(p.dk + off)[i] = make_uint4(0, 0, 0, 0);
-      reinterpret_cast<uint4*>(p.dv + off)[i] = make_uint4(0, 0, 0, 0);
+    // so dK = dV = 0 (the block's 128 columns of them)
+    for (int i = threadIdx.x; i < 64 * 128 / 8; i += kThreads) {
+      const size_t at = (static_cast<size_t>(bh_row) + k0 + i / 16) * D + 64 * hb + 8 * (i % 16);
+      *reinterpret_cast<uint4*>(p.dk + at) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(p.dv + at) = make_uint4(0, 0, 0, 0);
     }
     return;
   }
 
   if (threadIdx.x < 128) {  // producer
-    setmaxnreg_dec<24>();
+    producer_regs<D>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kvbar, 2 * kTile64);
-      tma_tile(base + dkv::kK, &tk, bh_row + k0, 64, kvbar);
-      tma_tile(base + dkv::kV, &tv, bh_row + k0, 64, kvbar);
+      mbar_expect_tx(kvbar, 2 * kTileK);
+      tma_tile<D>(base + L_::kK, &tk, bh_row + k0, 64, kvbar);
+      tma_tile<D>(base + L_::kV, &tv, bh_row + k0, 64, kvbar);
       for (int t = 0; t < nt; ++t) {
         const int s = t % kStages;
         mbar_wait(bars + 8 * (kStages + s), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(bars + 8 * s, 2 * kTile64 + 2 * QT * 4);
-        tma_tile(stage(s), &tq, bh_row + t * QT, QT, bars + 8 * s);
-        tma_tile(stage(s) + kTile64, &tdo, bh_row + t * QT, QT, bars + 8 * s);
-        bulk_load(stage(s) + 2 * kTile64, p.lse + bh_row + t * QT, QT * 4, bars + 8 * s);
-        bulk_load(stage(s) + 2 * kTile64 + QT * 4, p.dsum + bh_row + t * QT, QT * 4,
+        mbar_expect_tx(bars + 8 * s, 2 * kTileQ + 2 * QT * 4);
+        tma_tile<D>(stage(s), &tq, bh_row + t * QT, QT, bars + 8 * s);
+        tma_tile<D>(stage(s) + kTileQ, &tdo, bh_row + t * QT, QT, bars + 8 * s);
+        bulk_load(stage(s) + 2 * kTileQ, p.lse + bh_row + t * QT, QT * 4, bars + 8 * s);
+        bulk_load(stage(s) + 2 * kTileQ + QT * 4, p.dsum + bh_row + t * QT, QT * 4,
                   bars + 8 * s);
       }
     }
   } else {  // consumers: the S side (warpgroup 1) and the dP side (warpgroup 2)
-    setmaxnreg_inc<240>();
+    consumer_regs<D>();
     const Lane L(threadIdx.x / 128 - 1);
     const bool s_side = L.cw == 0;
     const int tid = threadIdx.x & 127;
@@ -724,33 +798,32 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
     const unsigned kh1 = static_cast<unsigned>(g0 + 8) * 1013904223u;
     const float mval = any ? kNeg : 0.0f, scale = p.scale, inv_keep = p.inv_keep;
     const bool valid0 = mrow[g0] != 0, valid1 = mrow[g0 + 8] != 0;
-    float lo[32], hi[32];  // dV (S side) or dK (dP side), head columns 0-63 and 64-127
-#pragma unroll
-    for (int i = 0; i < 32; ++i) lo[i] = hi[i] = 0.0f;
+    float acc[2][32];  // dV (S side) or dK (dP side), head columns 64 (hb + h) ..
+    zero_acc(acc);
     if (!s_side) {  // both exchange buffers start empty
       named_arrive(3);
       named_arrive(4);
     }
-    const uint32_t kvt = base + (s_side ? dkv::kK : dkv::kV);
+    const uint32_t kvt = base + (s_side ? L_::kK : L_::kV);
 
     // S^T (S side) or dP^T (dP side) of the query tile in stage s: K or V
     // against Q or dO, issued
-    auto issue_x = [&](float (&sc)[32], int s) {
+    auto issue_x = [&](float (&sc)[QT / 2], int s) {
       const uint32_t ad = opaque(desc_lo(kvt));
-      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? 0 : kTile64)));
+      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? 0 : kTileQ)));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_ss_n64(sc, kmajor(ad, 64, 0, kk), kmajor(bd, QT, 0, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<QT>(sc, kmajor(ad, 64, 0, kk), kmajor(bd, QT, 0, kk), kk > 0);
     };
     // query tile t (stage s): P^T (S side, which also hands P and the keep
     // bits across) or dS^T (dP side) into bf16 A fragments
-    auto form = [&](const float (&sc)[32], int t, int s, uint32_t (&fr)[4][4]) {
-      const float* lse = reinterpret_cast<const float*>(smem + dkv::kStage0 +
-                                                        s * dkv::kStageBytes + 2 * kTile64);
+    auto form = [&](const float (&sc)[QT / 2], int t, int s, uint32_t (&fr)[QT / 16][4]) {
+      const float* lse = reinterpret_cast<const float*>(smem + L_::kStage0 +
+                                                        s * L_::kStageBytes + 2 * kTileQ);
       const float* dsum = lse + QT;
       const int x = t & 1;
-      float* xp = reinterpret_cast<float*>(smem + dkv::kX0 + x * dkv::kXBytes);
+      float* xp = reinterpret_cast<float*>(smem + L_::kX0 + x * L_::kXBytes);
       unsigned* xbits = reinterpret_cast<unsigned*>(xp + 64 * QT);
       if (s_side) {
         named_sync(3 + x);  // the dP side is done with this buffer
@@ -804,19 +877,19 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
 
     // dV += P^T.dO (S side) or dK += dS^T.Q (dP side) of the tile in
     // stage s, committed
-    auto issue_acc = [&](const uint32_t (&fr)[4][4], int s) {
-      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? kTile64 : 0)));
+    auto issue_acc = [&](const uint32_t (&fr)[QT / 16][4], int s) {
+      const uint32_t bd = opaque(desc_lo(stage(s) + (s_side ? kTileQ : 0)));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        wgmma_rs_n64_t(lo, fr[kk], mnmajor(bd, QT, 0, kk));
-        wgmma_rs_n64_t(hi, fr[kk], mnmajor(bd, QT, 1, kk));
-      }
+      for (int kk = 0; kk < QT / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          wgmma_rs_n64_t(acc[hh], fr[kk], mnmajor(bd, QT, hb + hh, kk));
       wgmma_commit();
     };
 
-    float sc[32];
-    uint32_t fr[4][4];
+    float sc[QT / 2];
+    uint32_t fr[QT / 16][4];
     mbar_wait(kvbar, 0);
     mbar_wait(bars, 0);
     issue_x(sc, 0);
@@ -831,24 +904,22 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ 
       issue_x(sc, s1);  // the next tile's S^T or dP^T first ...
       wgmma_commit();
       issue_acc(fr, s);  // ... then this one's dV or dK product
-      uint32_t fn[4][4];
+      uint32_t fn[QT / 16][4];
       wgmma_wait<1>();  // the next tile's per-score work while it runs
       hold(sc);
       form(sc, t + 1, s1, fn);
       wgmma_wait<0>();
-      hold(lo);
-      hold(hi);
+      hold_acc(acc);
       hold(fr);
       if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + s));
       copy_frags(fr, fn);
     }
     issue_acc(fr, t % kStages);  // the last tile's
     wgmma_wait<0>();
-    hold(lo);
-    hold(hi);
+    hold_acc(acc);
     if (L.lane == 0) mbar_arrive(bars + 8 * (kStages + t % kStages));
-    store_rows((s_side ? p.dv : p.dk) + (static_cast<size_t>(bh_row) + g0) * D, lo, hi, L.c2,
-               1.0f, 1.0f);
+    store_rows<D>((s_side ? p.dv : p.dk) + (static_cast<size_t>(bh_row) + g0) * D, acc, 64 * hb,
+                  L.c2, 1.0f, 1.0f);
   }
 }
 
@@ -873,12 +944,12 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (rows, 128) bf16 slab read in boxes of box_rows x 64 columns, 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int box_rows) {
+// a (rows, d) bf16 slab read in boxes of box_rows x 64 columns, 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int box_rows, int d) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estrides[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
@@ -890,27 +961,69 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u
 
 bool shape_ok(int B, int H, int T_len, int d) {
   return B >= 1 && H >= 1 && B <= 65535 && H <= 65535 && T_len >= 128 && T_len % 128 == 0 &&
-         T_len <= 64 * kMaxTiles && d == D;
+         T_len <= 32 * kMaxTiles && (d == 128 || d == 256);
 }
 
-// grid (T / rows, H, B) of blocks that each own `rows` rows
+// A kernel's shared memory: its layout's bytes and room to align the base
+// to 1024 bytes. Setting it is a runtime call, made before the tensor maps:
+// it makes the device's context current on the calling thread, which the
+// driver's tensor-map encoder needs (a thread on which nothing has run CUDA
+// work yet, such as autograd's device thread before its first kernel, has
+// none, and the encoder fails there).
+template <typename K> cudaError_t prepare(K kernel, int bytes) {
+  return lfs2::allow_smem(kernel, bytes + 1024);
+}
+
+// grid (blocks_x, H, B), after prepare()
 template <typename K, typename... Args>
-cudaError_t launch(K kernel, int rows, int bytes, int B, int H, int T_len, cudaStream_t s,
+cudaError_t launch(K kernel, int blocks_x, int bytes, int B, int H, cudaStream_t s,
                    Args... args) {
-  const int smem = bytes + 1024;  // room to align the base to 1024 bytes
-  cudaError_t err = lfs2::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(T_len / rows, H, B), kThreads, smem, s>>>(args...);
+  kernel<<<dim3(blocks_x, H, B), kThreads, bytes + 1024, s>>>(args...);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t fwd_launch(const void* q, const void* k, const void* v, const Params& p, int B,
+                       cudaStream_t s) {
+  const int rows = B * p.H * p.T;
+  constexpr int KT = FwdLayout<D>::kKT, QR = FwdLayout<D>::kQRows;
+  const cudaError_t err = prepare(fwd_sm90_kernel<D>, FwdLayout<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, rows, QR, D) || !make_map(&tk, k, rows, KT, D) ||
+      !make_map(&tv, v, rows, KT, D))
+    return cudaErrorNotSupported;
+  return launch(fwd_sm90_kernel<D>, p.T / QR, FwdLayout<D>::kBytes, B, p.H, s, tq, tk, tv, p);
+}
+
+template <int D>
+cudaError_t bwd_launch(const void* q, const void* k, const void* v, const void* dout,
+                       const Params& p, int B, cudaStream_t s) {
+  const int rows = B * p.H * p.T;
+  constexpr int KT = DqLayout<D>::kKT, QR = DqLayout<D>::kQRows, QT = DkvLayout<D>::kQT;
+  cudaError_t err = prepare(dq_sm90_kernel<D>, DqLayout<D>::kBytes);
+  if (err == cudaSuccess) err = prepare(dkv_sm90_kernel<D>, DkvLayout<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq128, tdo128, tkq, tvq, tk64, tv64, tqq, tdoq;
+  if (!make_map(&tq128, q, rows, QR, D) || !make_map(&tdo128, dout, rows, QR, D) ||
+      !make_map(&tkq, k, rows, KT, D) || !make_map(&tvq, v, rows, KT, D) ||
+      !make_map(&tk64, k, rows, 64, D) || !make_map(&tv64, v, rows, 64, D) ||
+      !make_map(&tqq, q, rows, QT, D) || !make_map(&tdoq, dout, rows, QT, D))
+    return cudaErrorNotSupported;
+  err = launch(dq_sm90_kernel<D>, p.T / QR, DqLayout<D>::kBytes, B, p.H, s, tq128, tdo128, tkq,
+               tvq, p);
+  if (err != cudaSuccess) return err;
+  return launch(dkv_sm90_kernel<D>, p.T / 64 * DkvLayout<D>::kHalves, DkvLayout<D>::kBytes, B,
+                p.H, s, tk64, tv64, tqq, tdoq, p);
 }
 
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
-// bf16 q, k, v (B, H, T, 128); o bf16, o32 (the same before its rounding,
-// f32, for the backward's D) and lse (B, H, T) f32 are written;
-// mask (B, T) int32; seed is one int32 on the device
+// bf16 q, k, v (B, H, T, d), d = 128 or 256; o bf16, o32 (the same before
+// its rounding, f32, for the backward's D) and lse (B, H, T) f32 are
+// written; mask (B, T) int32; seed is one int32 on the device
 LFS2_EXPORT int lfs2_flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                                               const int* mask, const int* seed, void* o,
                                               float* lse, float* o32, int B, int H, int T_len,
@@ -919,14 +1032,11 @@ LFS2_EXPORT int lfs2_flash_attention_sm90_fwd(const void* q, const void* k, cons
   if (!shape_ok(B, H, T_len, d) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
       !aligned16(mask) || !aligned16(o32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = B * H * T_len;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, rows, 128) || !make_map(&tk, k, rows, 128) || !make_map(&tv, v, rows, 128))
-    return static_cast<int>(cudaErrorNotSupported);
   const Params p{mask, seed, nullptr, nullptr, static_cast<__nv_bfloat16*>(o), o32, nullptr,
                  nullptr, lse, nullptr, H, T_len, scale, threshold, inv_keep};
-  return static_cast<int>(launch(fwd_sm90_kernel, 128, fwd::kBytes, B, H, T_len,
-                                 static_cast<cudaStream_t>(stream), tq, tk, tv, p));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d == 128 ? fwd_launch<128>(q, k, v, p, B, s)
+                                   : fwd_launch<256>(q, k, v, p, B, s));
 }
 
 // the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
@@ -941,19 +1051,11 @@ LFS2_EXPORT int lfs2_flash_attention_sm90_bwd(const void* q, const void* k, cons
       !aligned16(dout) || !aligned16(o32) || !aligned16(lse) || !aligned16(dsum) ||
       !aligned16(mask) || !aligned16(dk) || !aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = B * H * T_len;
-  CUtensorMap tq128, tdo128, tk64, tv64, tq64, tdo64;
-  if (!make_map(&tq128, q, rows, 128) || !make_map(&tdo128, dout, rows, 128) ||
-      !make_map(&tk64, k, rows, 64) || !make_map(&tv64, v, rows, 64) ||
-      !make_map(&tq64, q, rows, 64) || !make_map(&tdo64, dout, rows, 64))
-    return static_cast<int>(cudaErrorNotSupported);
   const Params p{mask, seed, static_cast<const float*>(o32),
                  static_cast<const __nv_bfloat16*>(dout), static_cast<__nv_bfloat16*>(dq), nullptr,
                  static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
                  const_cast<float*>(lse), dsum, H, T_len, scale, threshold, inv_keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch(dq_sm90_kernel, 128, dq::kBytes, B, H, T_len, s, tq128, tdo128, tk64, tv64, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch(dkv_sm90_kernel, 64, dkv::kBytes, B, H, T_len, s, tk64, tv64, tq64,
-                                 tdo64, p));
+  return static_cast<int>(d == 128 ? bwd_launch<128>(q, k, v, dout, p, B, s)
+                                   : bwd_launch<256>(q, k, v, dout, p, B, s));
 }

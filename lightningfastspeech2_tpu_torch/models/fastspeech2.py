@@ -8,9 +8,11 @@ Counterpart of ``lightningfastspeech2_tpu/models/fastspeech2.py``:
 
 in teacher-forced, ``inference=True`` and ``duration_only=True`` modes.
 With ``use_fastdiff_head`` the result also holds ``fastdiff_var``, the
-FastDiff residual mel head's x0.1 correction. The other FastDiff branches
-(speaker generator, diffusion variances) and every-layer re-injection are
-not ported yet.
+FastDiff residual mel head's x0.1 correction. With
+``speaker_embedding_every_layer`` / ``prior_embedding_every_layer`` the
+speaker and prior embeddings are added before every encoder layer (and the
+speaker's before every decoder layer) instead of once. The other FastDiff
+branches (speaker generator, diffusion variances) are not ported yet.
 
 Parameters are named like the reference torch state dict; parameters stay
 f32 and ``dtype`` is the working dtype of the activations, fixed at
@@ -59,11 +61,9 @@ class FastSpeech2(nn.Module):
         (``fastdiff_linear``: two Linears, no activation)."""
         super().__init__()
         dev = resolve_device(device)
-        if (cfg.fastdiff_variances or cfg.fastdiff_speakers
-                or cfg.speaker_embedding_every_layer
-                or cfg.prior_embedding_every_layer):
-            raise NotImplementedError(
-                "FastDiff branches and every-layer embeddings are not ported yet")
+        if cfg.fastdiff_variances or cfg.fastdiff_speakers:
+            raise NotImplementedError("the FastDiff variance and speaker branches are not "
+                                      "ported yet (ROADMAP item A13)")
         self.cfg, self.dtype = cfg, dtype
         stats = stats or default_stats(cfg.variance.variances)
         self.phone_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden)
@@ -112,12 +112,24 @@ class FastSpeech2(nn.Module):
         x = torch.where(phone_mask[:, :, None], x, zero)
         x = self.positional_encoding(x, generator)
 
+        # every_layer: the sum added before each encoder layer (FFTBlock's
+        # additional_src), where the config re-injects the embeddings
         speaker_module = getattr(self, "speaker_embedding", None)
+        every_layer = None
         if speaker_module is not None:
-            x = x + speaker_module(batch["speaker"], x.shape[1])
-        x = self.encoder(x, phone_mask, generator=generator)
-        for p, module in self.prior_embeddings.items():
-            x = x + module(batch[f"priors_{p}"], x.shape[1])
+            spk = speaker_module(batch["speaker"], x.shape[1])
+            if cfg.speaker_embedding_every_layer:
+                every_layer = spk
+            else:
+                x = x + spk
+        if cfg.prior_embedding_every_layer:
+            for p, module in self.prior_embeddings.items():
+                pe = module(batch[f"priors_{p}"], x.shape[1])
+                every_layer = pe if every_layer is None else every_layer + pe
+        x = self.encoder(x, phone_mask, every_layer, generator=generator)
+        if not cfg.prior_embedding_every_layer:
+            for p, module in self.prior_embeddings.items():
+                x = x + module(batch[f"priors_{p}"], x.shape[1])
 
         if max_frames is None:
             max_frames = (min(batch["mel"].shape[1], cfg.max_frames)
@@ -136,11 +148,14 @@ class FastSpeech2(nn.Module):
         y = adaptor_out["x"]
         frame_mask = adaptor_out["frame_mask"]
         y = self.positional_encoding(y, generator)
-        spk_frames = None
+        spk_frames, dec_extra = None, None
         if speaker_module is not None:
             spk_frames = speaker_module(batch["speaker"], y.shape[1])
-            y = y + spk_frames
-        y = self.decoder(y, frame_mask, generator=generator)
+            if cfg.speaker_embedding_every_layer:
+                dec_extra = spk_frames
+            else:
+                y = y + spk_frames
+        y = self.decoder(y, frame_mask, dec_extra, generator=generator)
         mel = linear(y, self.linear, dt)
         mel = torch.where(frame_mask[:, :, None], mel, zero)
 

@@ -14,10 +14,13 @@ working dtype given at construction, like flax's ``dtype``.
 ``module.train()`` / ``.eval()`` is the counterpart of flax's
 ``deterministic``. Training-mode forwards take a ``torch.Generator`` for
 every dropout and every kernel seed. The FFN half (LN1 -> ConvFFN ->
-residual -> LN2) always goes through one call: ``ops.ffn.ffn_ln`` in eval
+residual -> LN2) of a depthwise conformer block at the widths
+``ffn_fused_ok`` admits goes through one call: ``ops.ffn.ffn_ln`` in eval
 mode, ``ops.ffn.ffn_ln_train`` in training; the CUDA kernels on the card,
-their plain versions on the CPU. Only the depthwise conformer FFN is
-ported (every config of the port's slices).
+their plain versions on the CPU. Every other block (the plain ConvFFN, the
+linear FFN of a non-conformer stack, and widths the gate refuses) runs the
+FFN half unfused, with ``F.conv1d`` / ``F.linear`` and the generator's
+dropout, as the JAX package runs it outside its kernels.
 """
 
 from __future__ import annotations
@@ -31,17 +34,24 @@ import torch.nn.functional as F
 
 from lightningfastspeech2_tpu_torch.core.config import StackConfig
 from lightningfastspeech2_tpu_torch.ops.attention import flash_attention
+from lightningfastspeech2_tpu_torch.ops.depthwise import (
+    depthwise_conv1d,
+    grouped_conv1d,
+    pointwise_conv1d,
+)
 from lightningfastspeech2_tpu_torch.ops.dropout import draw_seed, dropout
 from lightningfastspeech2_tpu_torch.ops.ffn import (
     ffn_ln,
     ffn_ln_train,
+    ffn_train_fits,
     ffn_train_params,
+    fold_grouped_into_down,
     prepare_ffn_weights,
 )
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
 __all__ = ["LayerNorm", "PositionalEncoding", "SelfAttention", "FFTBlock",
-           "FFTStack", "flash_ok", "layer_norm_fn", "linear"]
+           "FFTStack", "ffn_fused_ok", "flash_ok", "layer_norm_fn", "linear"]
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -94,6 +104,36 @@ def flash_ok(T: int, head_dim: int, training: bool) -> bool:
     return training and T >= 1024 and T % 128 == 0 and head_dim % 128 == 0
 
 
+# the JAX package's fit estimate for its training FFN kernel: both pointwise
+# weights in two layouts plus f32 partials (16 C F bytes) and three f32
+# (tile + halo, F) intermediates at the backward's tile, within 14 MiB
+_JAX_TRAIN_FIT = 14 * 1024 * 1024
+
+
+def ffn_fused_ok(hidden: int, filter_size: int, kernel_size: int, training: bool,
+                 dtype: torch.dtype) -> bool:
+    """Whether a depthwise conformer block (grouped conv of kernel 1) runs its
+    FFN half as one fused kernel call: the JAX package's gate
+    (``models/layers.py _fused_ffn_ok``) as it runs on the chip, on the CPU
+    and on the card alike. Hidden and filter must be multiples of 128; in
+    training the JAX fit estimate ``16 C F + 3 * 320 * F * 4 <= 14 MiB``
+    must hold too. Where that estimate admits widths that the port's
+    training kernels do not take (``ops.ffn.ffn_train_fits``), it raises
+    rather than run another path (ROADMAP item B9t)."""
+    if hidden % 128 or filter_size % 128:
+        return False
+    if not training:
+        return True
+    if 16 * hidden * filter_size + 3 * (256 + 64) * filter_size * 4 > _JAX_TRAIN_FIT:
+        return False
+    if not ffn_train_fits(hidden, filter_size, kernel_size, dtype):
+        raise NotImplementedError(
+            f"the fused training FFN at hidden {hidden}, filter {filter_size}, kernel "
+            f"{kernel_size} in {dtype}: the JAX package's gate admits these widths, and "
+            f"ops.ffn.ffn_ln_train does not take them yet (ROADMAP item B9t)")
+    return True
+
+
 class SelfAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` math with packed qkv and a key-padding
     mask. Plain matmul + softmax (padded keys at ``finfo.min``), with
@@ -135,30 +175,52 @@ class SelfAttention(nn.Module):
 
 
 class FFTBlock(nn.Module):
-    """One post-norm FFT block: x + MHA -> [LN1 -> ConvFFN -> residual ->
-    LN2] with the bracket as one ``ffn_ln`` call (eval) or one
-    ``ffn_ln_train`` call (training, with the block's f32 parameters and a
-    seed drawn from the step's generator)."""
+    """One post-norm FFT block: x + MHA -> [LN1 -> FFN -> residual -> LN2].
+
+    The FFN is the reference ConvFFN (``conformer``; depthwise-separable or
+    a plain conv pair) or the vanilla linear FFN. Where ``ffn_fused_ok``
+    admits a depthwise block, the bracket is one ``ffn_ln`` call (eval) or
+    one ``ffn_ln_train`` call (training, with the block's f32 parameters
+    and a seed drawn from the step's generator); otherwise it runs unfused,
+    dropout after the ReLU and after the FFN, as the JAX package's
+    ``ConvFFN`` / ``LinearFFN``."""
 
     def __init__(self, hidden: int, heads: int, kernel_size: int,
-                 filter_size: int, dtype: torch.dtype, dropout: float = 0.1):
+                 filter_size: int, dtype: torch.dtype, dropout: float = 0.1,
+                 conformer: bool = True, depthwise: bool = True,
+                 dim_feedforward: Optional[int] = None):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
+        self.conformer, self.depthwise = conformer, depthwise and conformer
         self.self_attn = SelfAttention(hidden, heads, dtype, dropout)
         self.norm1 = LayerNorm(hidden)
         self.norm2 = LayerNorm(hidden)
-        # reference ConvFFN (depthwise-separable): conv1 = depthwise k +
-        # pointwise up; conv2 = grouped k=1 conv with groups=hidden over
-        # filter_size channels (the reference quirk) + pointwise down
-        self.conv1 = nn.ModuleList([
-            nn.Conv1d(hidden, hidden, kernel_size, groups=hidden),
-            nn.Conv1d(hidden, filter_size, 1),
-        ])
-        self.conv2 = nn.ModuleList([
-            nn.Conv1d(filter_size, filter_size, 1, groups=hidden),
-            nn.Conv1d(filter_size, hidden, 1),
-        ])
+        if self.depthwise:
+            # reference ConvFFN (depthwise-separable): conv1 = depthwise k +
+            # pointwise up; conv2 = grouped k=1 conv with groups=hidden over
+            # filter_size channels (the reference quirk) + pointwise down
+            self.conv1 = nn.ModuleList([
+                nn.Conv1d(hidden, hidden, kernel_size, groups=hidden),
+                nn.Conv1d(hidden, filter_size, 1),
+            ])
+            self.conv2 = nn.ModuleList([
+                nn.Conv1d(filter_size, filter_size, 1, groups=hidden),
+                nn.Conv1d(filter_size, hidden, 1),
+            ])
+        elif conformer:  # plain ConvFFN: conv k up, conv 1 down
+            self.conv1 = nn.Conv1d(hidden, filter_size, kernel_size)
+            self.conv2 = nn.Conv1d(filter_size, hidden, 1)
+        else:  # the vanilla transformer FFN
+            inner = dim_feedforward or filter_size
+            self.linear1 = nn.Linear(hidden, inner)
+            self.linear2 = nn.Linear(inner, hidden)
         self._ffn, self._ffn_key = None, None
+
+    def fused(self) -> bool:
+        """Whether this forward runs the FFN half as one fused call."""
+        return self.depthwise and ffn_fused_ok(
+            self.norm1.weight.shape[0], self.conv1[1].weight.shape[0],
+            self.conv1[0].weight.shape[-1], self.training, self.dtype)
 
     def _ffn_modules(self):
         return (self.conv1[0], self.conv1[1], self.conv2[0], self.conv2[1],
@@ -176,32 +238,62 @@ class FFTBlock(nn.Module):
             self._ffn_key = key
         return self._ffn
 
+    def _drop(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return dropout(h, self.dropout, generator) if self.training else h
+
+    def _ffn_unfused(self, x: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The FFN alone, in the working dtype: ConvFFN or LinearFFN."""
+        dt = self.dtype
+        if self.depthwise:
+            c1, c2 = self.conv1, self.conv2
+            h = depthwise_conv1d(x, c1[0].weight.to(dt), c1[0].bias.to(dt))
+            h = pointwise_conv1d(h, c1[1].weight.to(dt), c1[1].bias.to(dt))
+            h = self._drop(torch.relu(h), generator)
+            # the grouped k=1 conv and the pointwise down conv, linear with
+            # nothing between them, as one (F, C) product, as the fused
+            # kernels take them (a grouped conv's weight gradient runs one
+            # library launch a group)
+            w2f, b2f = fold_grouped_into_down(c2[0].weight, c2[0].bias, c2[1].weight,
+                                              c2[1].bias, groups=self.norm1.weight.shape[0])
+            h = h @ w2f.to(dt) + b2f.to(dt)
+        elif self.conformer:
+            h = grouped_conv1d(x, self.conv1.weight.to(dt), self.conv1.bias.to(dt), 1)
+            h = self._drop(torch.relu(h), generator)
+            h = grouped_conv1d(h, self.conv2.weight.to(dt), self.conv2.bias.to(dt), 1)
+        else:
+            h = self._drop(torch.relu(linear(x, self.linear1, dt)), generator)
+            h = linear(h, self.linear2, dt)
+        return self._drop(h, generator)
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 additional_src: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if additional_src is not None:
             x = x + additional_src
-        sa = self.self_attn(x, mask, generator)
-        if not self.training:
-            return ffn_ln((x.to(self.dtype) + sa).contiguous(), self.ffn_weights)
-        sa = dropout(sa, self.dropout, generator)
+        sa = self._drop(self.self_attn(x, mask, generator), generator)
         z = (x.to(self.dtype) + sa).contiguous()
+        if not self.fused():
+            t1 = self.norm1(z, self.dtype)
+            return self.norm2(t1 + self._ffn_unfused(t1, generator), self.dtype)
+        if not self.training:
+            return ffn_ln(z, self.ffn_weights)
         return ffn_ln_train(z, ffn_train_params(*self._ffn_modules()),
                             draw_seed(generator, z.device), self.dropout)
 
 
 class FFTStack(nn.Module):
-    """Encoder/decoder stack; layer i uses ``kernel_sizes[i]`` for its
-    depthwise conv."""
+    """Encoder/decoder stack; layer i uses ``kernel_sizes[i]`` for its first
+    conv (3 in a non-conformer stack, whose blocks have no conv)."""
 
     def __init__(self, cfg: StackConfig, dtype: torch.dtype):
         super().__init__()
-        if not (cfg.conformer and cfg.depthwise):
-            raise NotImplementedError(
-                "the port runs the depthwise conformer FFT block only")
+        kernels = cfg.kernel_sizes if cfg.conformer else (3,) * cfg.layers
         self.layers = nn.ModuleList([
-            FFTBlock(cfg.hidden, cfg.heads, k, cfg.conv_filter_size, dtype, cfg.dropout)
-            for k in cfg.kernel_sizes
+            FFTBlock(cfg.hidden, cfg.heads, k, cfg.conv_filter_size, dtype, cfg.dropout,
+                     conformer=cfg.conformer, depthwise=cfg.depthwise,
+                     dim_feedforward=cfg.dim_feedforward)
+            for k in kernels
         ])
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,

@@ -4,10 +4,12 @@ Counterpart of ``lightningfastspeech2_tpu/ops/pallas_attention.py``
 (``flash_attention``: ``_fwd_kernel`` and ``_bwd_kernel`` joined by a custom
 VJP). ``flash_attention`` runs ``flash_attention_plain`` for CPU tensors and,
 for CUDA tensors, forward and backward kernels through an autograd Function,
-the library chosen by dtype (``kernel_route``): bf16 takes the Hopper
-tensor-core kernels of ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA),
-f32 the split-TF32 ``mma.sync`` kernels of ``csrc/flash_attention.cu``
-(tensor cores at f32 accuracy).
+the library chosen by dtype and head dim (``kernel_route``): at head dim 128
+or 256, bf16 takes the Hopper tensor-core kernels of
+``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA), f32 the split-TF32
+``mma.sync`` kernels of ``csrc/flash_attention.cu`` (tensor cores at f32
+accuracy); every larger multiple of 128 takes the CUDA-core kernels of
+``csrc/flash_attention_wide.cu`` in both dtypes.
 
 Semantics as there: scores scaled by 1/sqrt(d), padded KEYS set to -1e30
 (queries are not masked), softmax, attention-probability dropout from a
@@ -34,7 +36,7 @@ from lightningfastspeech2_tpu_torch.ops.ffn import (
 )
 
 NEG_INF = -1e30
-HEAD_DIM = 128  # the kernels' only head dim (every preset's)
+TENSOR_CORE_DIMS = (128, 256)  # head dims of the tensor-core routes; larger ones take WIDE
 
 
 def attn_keep_hash(rows: torch.Tensor, cols: torch.Tensor, seed_bh: torch.Tensor,
@@ -78,24 +80,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (_rnd(p, v.dtype) @ v.float()).to(q.dtype)
 
 
-# the library of each dtype: bf16 through wgmma, f32 through split-TF32 mma.sync
+# the library of each dtype at head dims 128 and 256: bf16 through wgmma, f32
+# through split-TF32 mma.sync; past 256 both take WIDE (CUDA cores)
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
+WIDE = "flash_attention_wide"
 _c_fns = {}
 
 
 def _fns(route: str):
+    """The library's forward and backward launchers; WIDE's take the dtype
+    code before the stream."""
     if route not in _c_fns:
         lib = build.load(route)
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         prefix = "lfs2_" + route
+        tail = [i, p] if route == WIDE else [p]
         fwd = getattr(lib, prefix + "_fwd")
-        fwd.argtypes = [p] * 8 + [i, i, i, i, f, u, f, p]
+        fwd.argtypes = [p] * 8 + [i, i, i, i, f, u, f] + tail
         fwd.restype = ctypes.c_int
         bwd = getattr(lib, prefix + "_bwd")
-        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f, p]
+        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f] + tail
         bwd.restype = ctypes.c_int
         _c_fns[route] = (lib, fwd, bwd)
     return _c_fns[route]
+
+
+def _tail(route: str, q: torch.Tensor, stream):
+    return ((build.DTYPE_CODES[q.dtype], stream) if route == WIDE else (stream,))
 
 
 def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -105,15 +116,15 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernels take f32 or bf16 q, k, v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash_attention kernels take q, k, v of one shape (B, H, T, "
-                         f"{HEAD_DIM}), got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] % 128 != 0:
+        raise ValueError(f"flash_attention kernels take q, k, v of one shape (B, H, T, d) "
+                         f"with d a multiple of 128, got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
     T = q.shape[2]
     if T < 128 or T % 128 != 0:
         raise ValueError(f"flash_attention kernels take T a multiple of 128 (their 128-row "
                          f"tiles), got T = {T}")
-    return ROUTES[q.dtype]
+    return ROUTES[q.dtype] if q.shape[-1] in TENSOR_CORE_DIMS else WIDE
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
@@ -142,7 +153,8 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     lib, fn, _ = _fns(route)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), o32.data_ptr(), B, H, T, d,
-            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), stream)
+            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
+            *_tail(route, q, stream))
     build.check(lib, rc, "flash_attention")
     _count(flash_attention, route)
     return o, lse, o32
@@ -165,7 +177,7 @@ def flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, rate):
             seed.data_ptr(), o32.data_ptr(), lse.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
             B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            stream)
+            *_tail(route, q, stream))
     build.check(lib, rc, "flash_attention_bwd")
     _count(flash_attention_bwd, route)
     return dq, dk, dv
@@ -194,8 +206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``seed``, a (1,) int32 tensor on q's device (0 when None).
 
     CPU tensors take ``flash_attention_plain``. CUDA tensors run the kernels
-    (d = 128, T % 128 == 0; bf16 through wgmma, f32 through split-TF32
-    mma.sync, both on the tensor cores) and raise on anything else."""
+    (d a multiple of 128, T % 128 == 0; at d = 128 and 256 bf16 through
+    wgmma, f32 through split-TF32 mma.sync, both on the tensor cores; past
+    256 the CUDA-core route) and raise on anything else."""
     B, H, T, _ = q.shape
     if seed is None:
         seed = torch.zeros(1, dtype=torch.int32, device=q.device)
@@ -210,5 +223,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 # launches by library, set to 0 with the counts: which route a run took
-flash_attention.by_route = dict.fromkeys(ROUTES.values(), 0)
-flash_attention_bwd.by_route = dict.fromkeys(ROUTES.values(), 0)
+flash_attention.by_route = dict.fromkeys((*ROUTES.values(), WIDE), 0)
+flash_attention_bwd.by_route = dict.fromkeys((*ROUTES.values(), WIDE), 0)

@@ -147,8 +147,8 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     """LN2(LN1(z) + ConvFFN(LN1(z))) for z (B, T, C) in f32 or bf16.
 
     CPU tensors take ``ffn_ln_plain``; CUDA tensors launch the kernel,
-    which takes C in {32, 64, 128, 256} and F a multiple of 128, and
-    raises on anything else. The kernel's result is invisible to autograd,
+    which takes C in ``SERVE_C`` and F a multiple of 128, and raises on
+    anything else. The kernel's result is invisible to autograd,
     so on the card it raises when grad mode is on and an input needs a
     gradient."""
     if z.device.type == "cpu":
@@ -164,17 +164,19 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     if z.dtype not in build.DTYPE_CODES or w.w1.dtype != z.dtype or w.w2f.dtype != z.dtype:
         raise ValueError(f"ffn_ln takes f32 or bf16 z with weights of the same "
                          f"dtype, got {z.dtype}, {w.w1.dtype}, {w.w2f.dtype}")
-    if C not in (32, 64, 128, 256) or F % 128 != 0:
-        raise ValueError(f"ffn_ln kernel takes C in (32, 64, 128, 256) and F % 128 "
-                         f"== 0, got C={C}, F={F}")
+    if C not in SERVE_C or F % 128 != 0:
+        raise ValueError(f"ffn_ln kernel takes C in {SERVE_C} and F % 128 == 0, got C={C}, "
+                         f"F={F}")
     plan = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")[0]
     if not _fits(plan, w.kernel_size):
         raise ValueError(f"ffn_ln kernel: k={w.kernel_size} at C={C} needs {plan.smem_bytes} "
                          f"bytes of shared memory (at most {SMEM_LIMIT}) or a t1 window of "
                          f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32)")
     if w.img is None:
-        w.img = (_weight_image(w.w1, w.w2f) if z.dtype == torch.bfloat16
-                 else _f32_image(w.w1, w.w2f, "fwd"))
+        if z.dtype == torch.float32:
+            w.img = _f32_image(w.w1, w.w2f, "fwd")
+        else:
+            w.img = _wide_image(w.w1, w.w2f) if C in WIDE_C else _weight_image(w.w1, w.w2f)
     out = torch.empty_like(z)
     lib, fn = _fn()
     rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.b1.data_ptr(), w.lnp.data_ptr(),
@@ -182,10 +184,12 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
             build.DTYPE_CODES[z.dtype], stream)
     build.check(lib, rc, "ffn_ln")
     ffn_ln.launches += 1
+    ffn_ln.by_width[C] = ffn_ln.by_width.get(C, 0) + 1
     return out
 
 
 ffn_ln.launches = 0
+ffn_ln.by_width = {}  # launches by channel count C, set to {} with the count
 
 
 
@@ -195,6 +199,9 @@ ffn_ln.launches = 0
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
+TRAIN_C = (32, 64, 128, 256)  # widths of the training kernels (and of serving's first route)
+WIDE_C = (384, 512, 640)      # widths only ffn_wide_kernel takes, serving only
+SERVE_C = TRAIN_C + WIDE_C
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 _ROWS = 128          # kRows: rows of one item a wgmma block owns (two warpgroups of 64)
 _FC = 64             # kFC: F columns per weight chunk
@@ -214,7 +221,7 @@ class FFNLaunch:
     """One kernel launch: the kernel, the rows of one batch item a block
     owns, the F columns per weight chunk, the weight-chunk buffers in flight
     (a W1 and a W2f buffer, each refilled as soon as its chunk is released;
-    0 where the kernel streams no weights), shared memory a block, grid and
+    0 where the kernel stages no weights), shared memory a block, grid and
     threads a block."""
 
     kernel: str
@@ -260,6 +267,20 @@ def _f32_dup_smem(R: int, C: int) -> int:
             + 4 * R * _STAGE_LD * 4 + R * _DUP_FC * 4 + _BAR_BYTES)
 
 
+_WIDE_ROWS, _WIDE_FC = 32, 32  # kWideRows, kWideFC
+
+
+def _wide_smem(C: int, k: int, dtype: torch.dtype) -> int:
+    """``wide_smem``: h0 (f32 rows of C, bf16 rows of C + 8), one region that
+    is the f32 t1 window, the two up stagings or the f32 row buffer, and
+    each window row's LN1 statistics."""
+    f32 = dtype == torch.float32
+    h0 = _WIDE_ROWS * C * 4 if f32 else _WIDE_ROWS * (C + 8) * 2
+    stage = _WIDE_ROWS * _WIDE_FC * 8 if f32 else _WIDE_ROWS * (_WIDE_FC + 8) * 2
+    w = _WIDE_ROWS + k - 1
+    return h0 + max(w * C * 4, _WIDE_ROWS * (C + 4) * 4, 2 * stage) + w * 8
+
+
 def _f32_rows(B: int, T: int) -> int:
     """Rows a split-TF32 block owns: of 64 and 32, the one whose blocks take
     fewer rows' time in waves over the card's SMs (one block an SM), 64 on
@@ -272,7 +293,9 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
              mode: str) -> Tuple[FFNLaunch, ...]:
     """Every launch of one call, in order: ``mode`` "serve" (``ffn_ln``),
     "train" (``ffn_ln_train``'s forward) or "bwd" (its backward: the chain,
-    the dup pass, the dt1 pass). bf16 runs the wgmma kernels: 128-row
+    the dup pass, the dt1 pass). Serving at C in ``WIDE_C`` runs
+    ``ffn_wide_kernel`` in both dtypes: 32-row blocks, 32-column F chunks
+    read from L2, no weight buffers. Otherwise bf16 runs the wgmma kernels: 128-row
     blocks for the forward, the chain and the dup pass (64-column F
     chunks, two weight buffers). f32 runs the split-TF32 kernels: blocks
     of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
@@ -282,6 +305,9 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
         return (-(-T // rows), B, 1)
 
     bf16 = dtype == torch.bfloat16
+    if C in WIDE_C and mode == "serve":
+        return (FFNLaunch("ffn_wide_kernel", _WIDE_ROWS, _WIDE_FC, 0, _wide_smem(C, k, dtype),
+                          grid(_WIDE_ROWS), _THREADS),)
     if bf16:
         fwd = FFNLaunch("ffn_ln_kernel", _ROWS, _FC, 2, _fwd_smem(C, k), grid(_ROWS), _THREADS)
     else:
@@ -312,7 +338,7 @@ def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
     Every launch of the forward and the backward must fit a block (at both
     f32 row counts); k is at most 63 in bf16 and 50 in f32 (the dt1 tile at
     C = 256)."""
-    if dtype not in _MAX_K or C not in (32, 64, 128, 256) or F % 128 != 0:
+    if dtype not in _MAX_K or C not in TRAIN_C or F % 128 != 0:
         return False
     if not 1 <= k <= _MAX_K[dtype]:
         return False
@@ -352,6 +378,34 @@ def _weight_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
     C, F = w1.shape
     src = torch.cat([w1.reshape(-1), w2f.reshape(-1), w1.new_zeros(1)]).to(torch.bfloat16)
     return src[_image_index(C, F, w1.device)]
+
+
+@functools.lru_cache(maxsize=16)
+def _wide_index(C: int, F: int, device: torch.device) -> torch.Tensor:
+    """For each element of ``_wide_image``'s (F / 32, 2, 32 C) layout, its
+    source in ``cat(W1.flatten(), W2f.flatten())``: per 32-column chunk of F
+    a W1 piece (K = C, N = 32) and a W2f piece (K = 32, N = C), each in
+    ``mma.sync`` m16n8k16's B-fragment order: per k-step s of 16 rows, n8
+    tile j and lane 4 g + t, rows 16 s + 2 t, + 1, + 8, + 9 at column 8 j + g
+    (four bf16, one 8-byte load a lane)."""
+    fc = _WIDE_FC
+    w1 = torch.arange(C * F).reshape(C, F // fc, fc).permute(1, 0, 2)          # (chunk, C, fc)
+    w2 = (C * F + torch.arange(F * C)).reshape(F // fc, fc, C)                 # (chunk, fc, C)
+    out = []
+    for x in (w1, w2):
+        n, K, N = x.shape
+        # (chunk, s, half, t, e, j, g) -> (chunk, s, j, g, t, half, e)
+        o = x.reshape(n, K // 16, 2, 4, 2, N // 8, 8).permute(0, 1, 5, 6, 3, 2, 4)
+        out.append(o.reshape(n, -1))
+    return torch.stack(out, dim=1).to(device)
+
+
+def _wide_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
+    """W1 (C, F) and W2f (F, C) as the bf16 ``ffn_wide_kernel`` reads them
+    (``_wide_index``): a (F / 32, 2, 32 C) bf16 tensor, one gather."""
+    C, F = w1.shape
+    src = torch.cat([w1.reshape(-1), w2f.reshape(-1)]).to(torch.bfloat16)
+    return src[_wide_index(C, F, w1.device)]
 
 
 def _frag_order(x: torch.Tensor) -> torch.Tensor:
@@ -578,7 +632,7 @@ def _check_train(z: torch.Tensor, k: int, F: int) -> None:
     B, T, C = z.shape
     if not ffn_train_fits(C, F, k, z.dtype):
         raise ValueError(
-            f"ffn_ln_train kernels take f32 or bf16 z, C in (32, 64, 128, 256), "
+            f"ffn_ln_train kernels take f32 or bf16 z, C in {TRAIN_C}, "
             f"F % 128 == 0 and k <= {_MAX_K.get(z.dtype, 0)} within "
             f"{SMEM_LIMIT} bytes of shared memory; got {z.dtype}, C={C}, F={F}, k={k}")
 

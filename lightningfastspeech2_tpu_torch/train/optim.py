@@ -7,7 +7,9 @@ under a Noam warm-up schedule stepped per optimizer step, after global-norm
 gradient clipping.
 
 ``torch.optim.AdamW`` computes optax's ``adamw`` update (eps outside the
-square root, decay decoupled and scaled by the learning rate). The clip is
+square root, decay decoupled and scaled by the learning rate). With
+``TrainConfig.bf16_moments`` the optimizer is ``AdamWBf16Mu``, optax's
+``adamw(mu_dtype=bfloat16)``: the first moment stored in bf16. The clip is
 optax's ``clip_by_global_norm`` rule, ``g * c / max(|g|, c)``, not
 ``clip_grad_norm_``, which adds 1e-6 to the norm.
 """
@@ -29,12 +31,51 @@ def noam_lr(base_lr: float, warmup_steps: int, count: int) -> float:
     return base_lr * warmup_steps ** 0.5 * min(s ** -0.5, s * warmup_steps ** -1.5)
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig) -> torch.optim.AdamW:
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """AdamW with its first moment stored in bf16, as optax's
+    ``adamw(mu_dtype=jnp.bfloat16)`` computes it: mu = (1 - b1) g + b1 mu_old
+    in f32, the decay product taken in bf16 (optax's weak-typed ``b1 * mu``
+    on the bf16 moment); nu in f32; the bias-corrected update and the
+    decoupled weight decay in f32; mu stored rounded to bf16."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, betas, eps: float,
+                 weight_decay: float):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st["step"] += 1
+                g = p.grad.float()
+                decay = torch.tensor(b1, dtype=torch.bfloat16, device=p.device)
+                mu = (1 - b1) * g + (st["exp_avg"] * decay).float()
+                nu = st["exp_avg_sq"].mul_(b2).add_((1 - b2) * (g * g))
+                n = torch.tensor(float(st["step"]), dtype=torch.float32)
+                bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** n
+                bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** n
+                update = (mu / bc1.to(p.device)) / (torch.sqrt(nu / bc2.to(p.device)) + eps)
+                p.add_(-lr * (update + wd * p.float()).to(p.dtype))
+                st["exp_avg"] = mu.to(torch.bfloat16)
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   cfg: TrainConfig) -> torch.optim.Optimizer:
+    kwargs = dict(lr=noam_lr(cfg.lr, cfg.warmup_steps, 0), betas=tuple(cfg.betas),
+                  eps=cfg.eps, weight_decay=cfg.weight_decay)
     if cfg.bf16_moments:
-        raise NotImplementedError("bf16 Adam moments are not ported (not on the flagship)")
-    return torch.optim.AdamW(list(params), lr=noam_lr(cfg.lr, cfg.warmup_steps, 0),
-                             betas=tuple(cfg.betas), eps=cfg.eps,
-                             weight_decay=cfg.weight_decay)
+        return AdamWBf16Mu(list(params), **kwargs)
+    return torch.optim.AdamW(list(params), **kwargs)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -47,7 +47,7 @@ class TrainState:
     updates applied. The step updates them in place and returns the state."""
 
     model: FastSpeech2
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer  # AdamW, or AdamWBf16Mu with bf16 moments
     step: int = 0
 
 

@@ -57,6 +57,9 @@ def _grouped(out: State, name: str, p: Mapping[str, Any]) -> None:
 
 
 def _fft_stack(out: State, prefix: str, tree: Mapping[str, Any], layers: int) -> None:
+    """Each layer's attention, norms and FFN: the depthwise-separable
+    ConvFFN, the plain one (``conv1``, ``conv2``) or the linear FFN
+    (``LinearFFN_0``: ``linear1``, ``linear2``), whichever the tree has."""
     for i in range(layers):
         p, lp = f"{prefix}.layers.{i}", tree[f"layer{i}"]
         att = lp["SelfAttention_0"]
@@ -65,7 +68,15 @@ def _fft_stack(out: State, prefix: str, tree: Mapping[str, Any], layers: int) ->
         _linear(out, f"{p}.self_attn.out_proj", att["out"])
         _layernorm(out, f"{p}.norm1", lp["norm1"])
         _layernorm(out, f"{p}.norm2", lp["norm2"])
+        if "LinearFFN_0" in lp:
+            _linear(out, f"{p}.linear1", lp["LinearFFN_0"]["Dense_0"])
+            _linear(out, f"{p}.linear2", lp["LinearFFN_0"]["Dense_1"])
+            continue
         ffn = lp["ConvFFN_0"]
+        if "conv1" in ffn:
+            _conv(out, f"{p}.conv1", ffn["conv1"])
+            _conv(out, f"{p}.conv2", ffn["conv2"])
+            continue
         _conv(out, f"{p}.conv1.0", ffn["conv1_depth"])
         _conv(out, f"{p}.conv1.1", ffn["conv1_point"])
         _grouped(out, f"{p}.conv2.0", ffn["conv2_group"])
@@ -120,7 +131,7 @@ def from_jax_fastspeech2(params: Mapping[str, Any], cfg: ModelConfig) -> State:
 def from_jax_hifigan(params: Mapping[str, Any],
                      cfg: HifiGanConfig = HifiGanConfig()) -> State:
     """The JAX HiFi-GAN ``Generator`` tree -> the port's ``Generator``
-    state dict (ResBlock1 configs)."""
+    state dict (ResBlock1 and ResBlock2 configs)."""
     t = _tree(params)
     out: State = {}
     _conv(out, "conv_pre", t["conv_pre"])
@@ -129,10 +140,11 @@ def from_jax_hifigan(params: Mapping[str, Any],
     for i in range(n_up):
         out[f"ups.{i}.weight"] = np.transpose(np.asarray(t[f"ups_{i}"]["kernel"]), (1, 2, 0))
         out[f"ups.{i}.bias"] = np.asarray(t[f"ups_{i}"]["bias"])
+    branches = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
     for rb in range(n_up * n_k):
         block = t[f"resblocks_{rb}"]
         for j in range(len(cfg.resblock_dilation_sizes[rb % n_k])):
-            for branch in ("convs1", "convs2"):
+            for branch in branches:
                 _conv(out, f"resblocks.{rb}.{branch}.{j}", block[f"{branch}_{j}"])
     return out
 

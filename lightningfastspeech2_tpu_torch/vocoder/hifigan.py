@@ -12,9 +12,14 @@ launches; on the card these are the CUDA kernels, on the CPU their plain
 versions. conv_pre, the upsampling convs and conv_post are
 ``F.conv1d``/``F.conv_transpose1d``, as the JAX package left them to XLA.
 
+A config with ``resblock: "2"`` (HiFi-GAN V3's block) builds ``ResBlock2``
+instead: two (leaky ReLU, dilated conv) residual steps in plain
+``F.conv1d``, which the JAX package also runs outside its kernels.
+
 Parameters are named like the released torch checkpoints (``conv_pre``,
-``ups.{i}``, ``resblocks.{rb}.convs1.{j}``) with weight norm folded
-(``fold_weight_norm``). ResBlock2 (V2/V3) is not ported yet.
+``ups.{i}``, ``resblocks.{rb}.convs1.{j}``, ResBlock2's
+``resblocks.{rb}.convs.{j}``) with weight norm folded
+(``fold_weight_norm``).
 """
 
 from __future__ import annotations
@@ -115,8 +120,9 @@ def load_torch_generator(path, cfg: HifiGanConfig = HifiGanConfig()) -> Dict[str
         state = state["generator"]
     state = fold_weight_norm_state(dict(state))
     n_blocks = len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)
+    first = "convs1.0" if cfg.resblock == "1" else "convs.0"
     missing = [k for k in ("conv_pre.weight", "conv_post.weight",
-                           f"resblocks.{n_blocks - 1}.convs1.0.weight") if k not in state]
+                           f"resblocks.{n_blocks - 1}.{first}.weight") if k not in state]
     if missing:
         raise ValueError(f"{path} is not a HiFi-GAN generator for {cfg}: no {missing}")
     return state
@@ -141,13 +147,34 @@ class ResBlock1(nn.Module):
                  for c1, c2 in zip(self.convs1, self.convs2)])
 
 
+class ResBlock2(nn.Module):
+    """Two (leaky ReLU, dilated conv) residual steps: HiFi-GAN's second
+    residual block (``resblock: "2"``), in plain ``F.conv1d``, as the JAX
+    package runs it outside its kernels."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv1d(channels, channels, kernel_size, dilation=d,
+                      padding=get_padding(kernel_size, d)) for d in dilations])
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """x (B, C, L) in the working dtype ``dtype``."""
+        for c in self.convs:
+            xt = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), c.weight.to(dtype), c.bias.to(dtype),
+                          padding=c.padding, dilation=c.dilation)
+            x = x + xt
+        return x
+
+
 class Generator(nn.Module):
     def __init__(self, cfg: HifiGanConfig = HifiGanConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.resblock != "1":
-            raise NotImplementedError("ResBlock2 (HiFi-GAN V2/V3) is not ported yet")
+        if cfg.resblock not in ("1", "2"):
+            raise ValueError(f"resblock must be \"1\" or \"2\", got {cfg.resblock!r}")
         self.cfg, self.dtype = cfg, dtype
+        block = ResBlock1 if cfg.resblock == "1" else ResBlock2
         c = cfg
         self.conv_pre = nn.Conv1d(c.num_mels, c.upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -157,7 +184,7 @@ class Generator(nn.Module):
             self.ups.append(nn.ConvTranspose1d(2 * ch, ch, k_up, rate,
                                                padding=(k_up - rate) // 2))
             for k, ds in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(ch, k, tuple(ds)))
+                self.resblocks.append(block(ch, k, tuple(ds)))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
         self.stage_weights: List[List[ResblockWeights]] = []
         self.prepare()
@@ -165,9 +192,12 @@ class Generator(nn.Module):
 
     def prepare(self) -> None:
         """(Re)build the resblock tap stacks: per stage one trio stack, or
-        one stack per resblock for stages above TRIO_MAX_CHANNELS."""
+        one stack per resblock for stages above TRIO_MAX_CHANNELS. ResBlock2
+        stages have none: they run plain convs."""
         n = len(self.cfg.resblock_kernel_sizes)
         self.stage_weights = []
+        if self.cfg.resblock != "1":
+            return
         for i in range(len(self.ups)):
             blocks = [rb.spec() for rb in self.resblocks[i * n:(i + 1) * n]]
             if self.ups[i].out_channels <= TRIO_MAX_CHANNELS:
@@ -193,6 +223,8 @@ class Generator(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self._conv(mel.to(self.dtype).transpose(1, 2), self.conv_pre)
+        if self.cfg.resblock != "1":
+            return self._forward_resblock2(x)
         for up, stage in zip(self.ups, self.stage_weights):
             x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)
             xt = x.transpose(1, 2).contiguous()          # (B, L, C) for the kernels
@@ -205,6 +237,16 @@ class Generator(nn.Module):
                     acc = y if acc is None else acc + y
                 xt = acc / float(len(stage))
             x = xt.transpose(1, 2)
+        return self._post(x)
+
+    def _forward_resblock2(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.cfg.resblock_kernel_sizes)
+        for i, up in enumerate(self.ups):
+            x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)
+            x = sum(rb(x, self.dtype) for rb in self.resblocks[i * n:(i + 1) * n]) / float(n)
+        return self._post(x)
+
+    def _post(self, x: torch.Tensor) -> torch.Tensor:
         # reference models.py:161 uses F.leaky_relu's default slope here
         x = self._conv(F.leaky_relu(x, 0.01), self.conv_post)
         return torch.tanh(x)[:, 0, :]

@@ -168,3 +168,56 @@ def test_f32_pieces_keep_f32_digits(which):
     # every weight appears (in its pieces' order): compare the sorted values
     src = torch.cat([w1.reshape(-1), w2f.reshape(-1)] + ([w1.reshape(-1)] if which == "dup" else []))
     assert torch.allclose(x.sort().values, src.double().sort().values, rtol=2.0 ** -22, atol=0)
+
+
+# lightspeech_true76m's serving widths (C = 640, F = 2560) at every kernel
+# size of its blocks, a request's and a batch's buckets, and C = 384 / 512
+WIDE_SHAPES = ([(640, 2560, k, B, T) for k in (5, 9, 13, 17, 21, 25)
+                for B, T in ((1, 32), (1, 256), (8, 512))]
+               + [(384, 1536, 17, 8, 512), (512, 2048, 17, 8, 512)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_,F_,k,B,T", WIDE_SHAPES)
+def test_wide_serving_launch_covers_t_and_fits_a_block(C_, F_, k, B, T, dtype):
+    (p,) = ffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")
+    assert (p.kernel, p.rows, p.fchunk, p.stages, p.threads) == ("ffn_wide_kernel", 32, 32, 0, 256)
+    assert p.grid == (-(-T // 32), B, 1)
+    assert F_ % p.fchunk == 0
+    assert ffn._fits(p, k) and 0 < p.smem_bytes <= ffn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_", ffn.WIDE_C)
+def test_training_past_256_is_refused_naming_b9t(C_, dtype):
+    """The training kernels stop at C = 256: ffn_train_fits says no, and
+    where the JAX gate's fit estimate admits the widths, the port's gate
+    raises naming ROADMAP item B9t rather than run another path."""
+    from lightningfastspeech2_tpu_torch.models.layers import ffn_fused_ok
+
+    assert not ffn.ffn_train_fits(C_, 1024, 5, dtype)
+    with pytest.raises(NotImplementedError, match="B9t"):
+        ffn_fused_ok(C_, 1024, 5, True, dtype)
+    assert ffn_fused_ok(C_, 1024, 5, False, dtype)   # serving takes them
+
+
+@pytest.mark.parametrize("C_,F_", [(384, 256), (640, 128)])
+def test_wide_image_puts_each_element_where_the_fragment_loads_read(C_, F_):
+    """``_wide_image``: per 32-column chunk a W1 (K = C) and a W2f (K = 32)
+    piece; lane 4 g + t of k-step s and n8 tile j reads rows 16 s + 2 t, +
+    1, + 8, + 9 of column 8 j + g (mma.sync m16n8k16's B fragment)."""
+    g = torch.Generator().manual_seed(C_)
+    w1, w2f = torch.randn(C_, F_, generator=g), torch.randn(F_, C_, generator=g)
+    img = ffn._wide_image(w1, w2f).float()
+    assert img.shape == (F_ // 32, 2, 32 * C_)
+    s, j, lane, e = np.meshgrid(np.arange(C_ // 16), np.arange(4), np.arange(32), np.arange(4),
+                                indexing="ij")
+    rows, cols = 16 * s + 2 * (lane & 3) + (e & 1) + 8 * (e >> 1), 8 * j + (lane >> 2)
+    for i in range(F_ // 32):
+        w1p = img[i, 0].reshape(C_ // 16, 4, 32, 4)
+        assert torch.equal(w1p, w1[:, 32 * i:32 * i + 32].bfloat16().float()[rows, cols])
+        s2, j2, l2, e2 = np.meshgrid(np.arange(2), np.arange(C_ // 8), np.arange(32),
+                                     np.arange(4), indexing="ij")
+        w2p = img[i, 1].reshape(2, C_ // 8, 32, 4)
+        r2, c2 = 16 * s2 + 2 * (l2 & 3) + (e2 & 1) + 8 * (e2 >> 1), 8 * j2 + (l2 >> 2)
+        assert torch.equal(w2p, w2f[32 * i:32 * i + 32].bfloat16().float()[r2, c2])

@@ -237,6 +237,18 @@ def test_cli_unported_modes_name_their_roadmap_items(checkpoints, tmp_path):
         tcli.main(["--hub", "some/repo", "--sentence", "hello.", "--device", "cpu"])
 
 
+def test_cli_hub_with_checkpoint_dir_serves_the_directory(checkpoints):
+    """As the JAX CLI (``cli/generate.py`` there): ``--hub`` downloads only
+    without ``--checkpoint_dir``; with one, the directory serves."""
+    c = checkpoints
+    wav = tcli.main(["--hub", "some/repo", "--checkpoint_dir", str(c.torch),
+                     "--hifigan_checkpoint", str(c.torch_voc), "--sentence", "hello world.",
+                     "--seed", "3", "--speaker", "spk1", "--device", "cpu",
+                     "--output_path", str(c.root / "out_hub")])
+    assert wav.size > 0 and np.isfinite(wav).all()
+    assert (c.root / "out_hub" / "sentence.wav").exists()
+
+
 def test_load_torch_generator_matches_jax(tmp_path):
     """A released-layout generator file (nested under "generator", one conv
     weight-normed) loads through the port's ``load_torch_generator`` as

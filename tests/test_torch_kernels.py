@@ -81,6 +81,33 @@ def test_ffn_ln_kernel_matches_plain(cuda_card, C_, F_, k, T, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [5, 25])
+@pytest.mark.parametrize("C_", [384, 512, 640])
+def test_ffn_ln_wide_matches_plain(cuda_card, C_, k, dtype):
+    # ffn_wide_kernel, serving at C = 384 to 640 with F = 4 C; T = 300 ends
+    # mid-block; the launch as the library recorded it against ffn_plan
+    F_, B, T = 4 * C_, 2, 300
+    p = ffn_params(1, C_, F_, k)
+    w = tffn.prepare_ffn_weights(
+        **{n: type(v)(**{a: t.to(cuda_card) for a, t in vars(v).items()})
+           for n, v in ffn_modules(p).items()}, dtype=dtype)
+    z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
+    before = tffn.ffn_ln.launches
+    out = tffn.ffn_ln(z, w)
+    torch.cuda.synchronize()
+    assert tffn.ffn_ln.launches == before + 1
+    plan = tffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")[0]
+    assert plan.kernel == "ffn_wide_kernel"
+    assert tffn.last_launches()["ffn_ln"] == tffn.planned_launch(plan)
+    ref = tffn.ffn_ln_plain(z, w)
+    # f32: summation order only; bf16: one-ulp flips at the rounding points
+    tol = 2e-4 if dtype == torch.float32 else 0.07
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= tol, err
+
+
 # (C, L, kernel sizes, B): the small shapes, HiFi-GAN V1's own at a
 # 512-frame mel (stage 0's three resblocks, stage 1's trio), and the edges a
 # tiling can break: L shorter than the halo (1, 37), L one past a tile
@@ -538,9 +565,9 @@ _FLASH_CASES = {"T1024": (2, 2, 1024, (1024, 700)),
                 "T2816": (1, 1, 2816, (2000,))}
 
 
-def _flash_inputs(device, dtype, B, H, T, lengths):
+def _flash_inputs(device, dtype, B, H, T, lengths, d=128):
     g = torch.Generator(device=device).manual_seed(T + B)
-    q, k, v, do = (torch.randn(B, H, T, 128, device=device, generator=g).to(dtype)
+    q, k, v, do = (torch.randn(B, H, T, d, device=device, generator=g).to(dtype)
                    for _ in range(4))
     mask = torch.arange(T, device=device)[None, :] < torch.tensor(lengths, device=device)[:, None]
     return q, k, v, do, mask, torch.tensor([777], dtype=torch.int32, device=device)
@@ -586,6 +613,63 @@ def test_flash_attention_kernels_match_plain(cuda_card, dtype, rate, case):
             # bf16 inputs and outputs; the kernel rounds p (against the
             # running max) and dS to bf16 before its products
             _each_item_close(a, b, 0.02, 0.004, name)
+
+
+# (B, H, T, d, lengths): head dim 256 on the tensor-core routes, 512 on the
+# CUDA-core one
+_WIDE_FLASH_CASES = {"d256": (2, 2, 2048, 256, (2048, 1500)),
+                     "d512": (1, 1, 1024, 512, (900,))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_WIDE_FLASH_CASES))
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_head_dims_match_plain(cuda_card, dtype, rate, case):
+    B, H, T, d, lengths = _WIDE_FLASH_CASES[case]
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, dtype, B, H, T, lengths, d)
+    route = tatt.ROUTES[dtype] if d in tatt.TENSOR_CORE_DIMS else tatt.WIDE
+    assert tatt.kernel_route(q, k, v) == route
+    before = {fn: dict(fn.by_route) for fn in (tatt.flash_attention, tatt.flash_attention_bwd)}
+    with _deadline(300):
+        got = _flash_run(tatt.flash_attention, q, k, v, do, mask, rate, seed)
+        torch.cuda.synchronize()
+    for fn, counts in before.items():
+        assert {r: fn.by_route[r] - n for r, n in counts.items()} == {
+            r: int(r == route) for r in counts}
+    want = _flash_run(tatt.flash_attention_plain, q, k, v, do, mask, rate, seed)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            _each_item_close(a, b, 1e-4, 1e-5, name)
+        else:
+            _each_item_close(a, b, 0.02, 0.004, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_launches_from_a_fresh_thread(cuda_card, d):
+    # a thread that has run no CUDA work has no current context (autograd's
+    # device thread before its first kernel is one): the bf16 route's tensor
+    # maps need one, and the launch must not fail there
+    import threading
+
+    q, k, v, do, mask, seed = _flash_inputs(cuda_card, torch.bfloat16, 1, 2, 1024, (1024,), d)
+    m32 = mask.to(torch.int32)
+    errors = []
+
+    def run():
+        try:
+            _, lse, o32 = tatt.flash_attention_fwd(q, k, v, m32, seed, 0.1)
+            tatt.flash_attention_bwd(do, q, k, v, m32, seed, o32, lse, 0.1)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    assert not errors, errors
 
 
 def _flash_f64(q, k, v, do, mask, rate, seed):
@@ -666,11 +750,12 @@ def test_flash_attention_route_by_dtype(cuda_card, dtype, route):
 
 @pytest.mark.gpu
 def test_train_step_then_serving_forward_on_the_card(cuda_card):
-    # a small model whose FFN widths the training kernels take (C 64, F 128):
-    # one optimizer step through them, then the serving forward must use the
-    # updated weights (the optimizer's in-place update moves the version
-    # counters the prepared ffn_ln layouts are keyed on)
-    stack = dict(hidden=64, heads=2, layers=1, conv_filter_size=128)
+    # a small model whose FFN widths the training kernels take and the FFN
+    # gate fuses (C 128, F 128: multiples of 128): one optimizer step through
+    # them, then the serving forward must use the updated weights (the
+    # optimizer's in-place update moves the version counters the prepared
+    # ffn_ln layouts are keyed on)
+    stack = dict(hidden=128, heads=2, layers=1, conv_filter_size=128)
     cfg = tiny_config(TC, encoder=TC.StackConfig(kernel_sizes=(3,), **stack),
                       decoder=TC.StackConfig(kernel_sizes=(5,), **stack))
     model = build_fastspeech2(cfg.model, device=cuda_card)

@@ -165,7 +165,9 @@ Phases, each printed as one JSON line:
     a finite non-zero gradient on every parameter, first moments in bf16;
     the counters must show every decoder flash launch through the wgmma
     kernels and no ``ffn_ln_train`` launch (the JAX gate's fit estimate
-    sends (640, 2560) to the unfused FFN); one profiled step.
+    sends (640, 2560) to the unfused FFN); one profiled step, with the
+    optimizer's host and device share of it and ``optimizer.step()`` alone
+    (its kernels a call, device ms, host ms).
 22. fastspeech2_27m: the preset (plain ConvFFN, no speaker) with HiFi-GAN
     V1 in bf16 serves phase 5's sentences and batch (no ``ffn_ln`` launch:
     its blocks run unfused); then ``cli.generate.main`` serves a sentence
@@ -175,6 +177,16 @@ Phases, each printed as one JSON line:
     embeddings serves one request and takes one training step (B=2, P=64,
     T=1024) in bf16, finite, through ``ffn_ln`` / ``ffn_ln_train`` in every
     block and flash in every decoder block.
+24. head dims past 128 through the train step: the flagship at hidden 512
+    (filter 2048: the unfused FFN) with 2 heads (head dim 256) and 1 (512),
+    1 + 1 blocks, one step in bf16 and one in f32 at B=2, P=128, T=1024;
+    the counters by (route, head dim), set to 0 just before each step, must
+    show the decoder block's flash launch, forward and backward.
+
+The flash kernels count launches by route and by (route, head dim): the
+``kernels`` line gives the rows at head dims 256 and 512 the launches that
+the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
+24's beside them.
 
 Phases 5 and 8 run without the flags and expect 0 launches of the kernels
 of phases 10-12 and 14.
@@ -846,6 +858,7 @@ def serving_phase(counters) -> dict:
                   "the CPU before the launch counters were set to 0)"})
     run = _serve_all(gen, cfg, dvecs)
     launches = {c.__name__: c.launches for c in counters}
+    head_dims = flash_head_dims(counters)
     # what the path must launch: the probe once, when the first entry point
     # resolves the card; per generate_samples call (the warm-up, each
     # sentence, the batch) the encoder's blocks in the duration pass and
@@ -871,7 +884,7 @@ def serving_phase(counters) -> dict:
     profile_f32 = hifigan_vocoder_profile(
         Synthesiser(HifiGanConfig(), dtype=torch.float32, seed=1), cfg, "_f32")
     return {"vocoder_profile": profile_row, "vocoder_profile_f32": profile_f32,
-            "batch_repeats": repeats,
+            "batch_repeats": repeats, "flash_head_dims": head_dims,
             "launches": launches, "bias": bias, "dvecs": dvecs, "cfg": cfg,
             "requests": run["requests"], "batch": run["batch"]}
 
@@ -1177,7 +1190,7 @@ def _flash_case(dev, g, dtype=torch.bfloat16, B=TRAIN_B, T=TRAIN_T, rate=0.1, H=
             for n, a, b in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads))}
     o, lse, o32 = att.flash_attention_fwd(q, k, v, mask_i32, seed, rate)
     suffix = ("" if dtype == torch.bfloat16 else "_f32") + ("" if d == 128 else f"_d{d}")
-    common = {"at": at, "route": route, "build_s": build.build_report[route]["seconds"],
+    common = {"at": at, "route": route, "build_s": build.build_report[att.LIBRARY[route]]["seconds"],
               "head_dim": d}
     row_f = {"name": "flash_attention" + suffix, **common, "max_abs_err": errs["o"][0],
              "tol": errs["o"][1],
@@ -1326,19 +1339,28 @@ def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES) ->
 
 
 def reset_counts(counters) -> None:
-    """Every launch count to 0, the flash kernels' counts by route and
-    ``ffn_ln``'s by width."""
+    """Every launch count to 0, the flash kernels' counts by route and by
+    (route, head dim), and ``ffn_ln``'s by width."""
     for c in counters:
         c.launches = 0
         if hasattr(c, "by_route"):
             c.by_route = dict.fromkeys(c.by_route, 0)
+        if hasattr(c, "by_head_dim"):
+            c.by_head_dim = {}
         if hasattr(c, "by_width"):
             c.by_width = {}
 
 
 def flash_routes(counters) -> dict:
-    """The flash kernels' launches by library (csrc/<name>.cu)."""
+    """The flash kernels' launches by route."""
     return {c.__name__: dict(c.by_route) for c in counters if hasattr(c, "by_route")}
+
+
+def flash_head_dims(counters) -> dict:
+    """The flash kernels' launches by route and head dim, keyed
+    ``"<route> d=<head dim>"``."""
+    return {c.__name__: {f"{r} d={d}": n for (r, d), n in sorted(c.by_head_dim.items())}
+            for c in counters if hasattr(c, "by_head_dim")}
 
 
 def soft_dtw_launches_per_step(cfg) -> int:
@@ -1433,7 +1455,7 @@ def training_phase(counters, soft_dtw: bool = False) -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "first_losses": metrics[0], "last_losses": metrics[-1], "finite": finite,
            "params_without_grad": bad, "launches": launches, "expected": want,
-           "flash_routes": routes}
+           "flash_routes": routes, "flash_head_dims": flash_head_dims(counters)}
     emit(row)
     if not finite or bad:
         raise RuntimeError(f"{name}: finite={finite}, params without gradient {bad[:8]}")
@@ -1507,6 +1529,7 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
             # the f32 FFN kernels' share of the step
             ffn_counts = {c.__name__: c.launches for c in (ffn_ln_train, ffn_ln_train_bwd)}
             routes = flash_routes((flash_attention, flash_attention_bwd))
+            head_dims = flash_head_dims((flash_attention, flash_attention_bwd))
             from torch.profiler import ProfilerActivity, profile
 
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1533,7 +1556,7 @@ def train_reference_phase(soft_dtw: bool = False) -> dict:
            "loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": gmax,
            "update_max_abs_err": upd_err, "update_max": lr, "tol": tol,
            "losses_cuda": a["losses"], "losses_cpu": b["losses"],
-           "flash_routes": routes, "ffn_launches": ffn_counts,
+           "flash_routes": routes, "flash_head_dims": head_dims, "ffn_launches": ffn_counts,
            "profiled_step": {k: split[k] for k in (
                "device_ms", "device_launches", "ffn_ln_train_ms", "ffn_ln_train_launches",
                "ffn_ln_train_bwd_ms", "ffn_ln_train_bwd_launches")}}
@@ -2378,7 +2401,7 @@ def true76m_training_phase(counters) -> dict:
     decoder flash launch through the wgmma kernels (head dim 128) and no
     ``ffn_ln_train`` launch (the JAX gate's fit estimate sends (640, 2560)
     to the unfused FFN). One more step under the profiler gives the time
-    split."""
+    split, with the optimizer's share of it (``optimizer_split``)."""
     from lightningfastspeech2_tpu_torch.core.config import lightspeech_true76m, replace
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.train.optim import AdamWBf16Mu
@@ -2425,7 +2448,8 @@ def true76m_training_phase(counters) -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "first_losses": metrics[0], "last_losses": metrics[-1], "finite": finite,
            "params_without_grad": bad, "launches": launches, "expected": want,
-           "flash_routes": routes, "first_moment_dtypes": sorted(mu_dtypes)}
+           "flash_routes": routes, "flash_head_dims": flash_head_dims(counters),
+           "first_moment_dtypes": sorted(mu_dtypes)}
     emit(row)
     if not finite or bad or mu_dtypes != {"torch.bfloat16"}:
         raise RuntimeError(f"true76m training: finite={finite}, params without gradient "
@@ -2438,8 +2462,98 @@ def true76m_training_phase(counters) -> dict:
         state, _ = step(state, batch, gen)
         torch.cuda.synchronize()
     split = _step_split(prof, "true76m_training_profile.txt")
-    emit({"phase": "true76m_training_profile", **split})
-    return {"row": row, "split": split}
+    opt = optimizer_split(prof, state.optimizer)
+    emit({"phase": "true76m_training_profile", **split, "optimizer": opt})
+    return {"row": row, "split": split, "optimizer": opt}
+
+
+def optimizer_split(prof, optimizer, calls: int = 5) -> dict:
+    """The optimizer's share of a profiled step: the host ms and the device
+    span of torch's ``Optimizer.step#...`` range in that step's trace; then
+    ``optimizer.step()`` alone, outside the step (the step's gradients are
+    still there): its device kernels a call and their device ms
+    (``device_kernels``), and its host-clock ms a call over ``calls`` calls
+    with one synchronise each."""
+    from torch.autograd import DeviceType
+
+    mark = f"Optimizer.step#{type(optimizer).__name__}.step"
+    events = {(e.key, e.device_type): e for e in prof.key_averages() if e.key == mark}
+    host = events.get((mark, DeviceType.CPU))
+    span = events.get((mark, DeviceType.CUDA))
+    alone = device_kernels(optimizer.step, calls)
+    runs = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        optimizer.step()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    return {"range": mark,
+            "in_step_host_ms": host.cpu_time_total / 1e3 if host else None,
+            "in_step_device_span_ms": span.device_time_total / 1e3 if span else None,
+            "alone_device_ms": alone["device_ms"], "alone_kernels": alone["kernels"],
+            "alone_host_ms": statistics.median(runs), "alone_host_ms_runs": runs,
+            "parameters": sum(len(g["params"]) for g in optimizer.param_groups)}
+
+
+# (heads, head dim) at hidden 512: the two head dims past 128 that flash_ok
+# admits and no preset has
+HEAD_DIM_CASES = ((2, 256), (1, 512))
+
+
+def head_dim_training_phase(counters) -> dict:
+    """Phase 24: head dims past 128 through the train step (a config that
+    ``flash_ok`` admits at head dim 256 used to raise on the card): the
+    flagship at hidden 512 (filter 2048, so the JAX gate's fit estimate
+    sends the FFN to the unfused path) with 2 heads (head dim 256) and 1
+    (head dim 512), one encoder and one decoder block, one step in bf16 and
+    one in f32 parameters and activations at B=2, P=128, T=1024. The
+    counters, set to 0 just before each step, must show one forward and one
+    backward flash launch, the decoder block's, at that route and head dim;
+    losses and gradients finite."""
+    from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
+    from lightningfastspeech2_tpu_torch.ops import attention as att
+    from lightningfastspeech2_tpu_torch.core.config import replace
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+
+    B_P_T = (2, 128, 1024)
+    rows = []
+    for heads, d in HEAD_DIM_CASES:
+        cfg = train_config(B_P_T=B_P_T)
+        m = cfg.model
+        stack = dict(hidden=512, heads=heads, layers=1, conv_filter_size=2048)
+        m = replace(m, encoder=replace(m.encoder, kernel_sizes=m.encoder.kernel_sizes[:1], **stack),
+                    decoder=replace(m.decoder, kernel_sizes=m.decoder.kernel_sizes[:1], **stack))
+        cfg = replace(cfg, model=m)
+        batch = train_batch(cfg, B_P_T)
+        for dtype in (torch.bfloat16, torch.float32):
+            model = build_fastspeech2(cfg.model, dtype=dtype, seed=0)
+            state = create_train_state(model, cfg)
+            step = make_train_step(model, cfg)
+            reset_counts(counters)
+            t = time.perf_counter()
+            state, metrics = step(state, batch, torch.Generator(device=model.device).manual_seed(4))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launches = {c.__name__: c.launches for c in counters if c.launches}
+            dims = flash_head_dims(counters)
+            losses = {k: float(v) for k, v in metrics.items()}
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not torch.isfinite(p.grad).all()]
+            route = (att.ROUTES if d in att.TENSOR_CORE_DIMS else att.WIDE_ROUTES)[dtype]
+            want = {"flash_attention": {f"{route} d={d}": 1},
+                    "flash_attention_bwd": {f"{route} d={d}": 1}}
+            row = {"phase": "head_dim_training", "head_dim": d, "heads": heads,
+                   "dtype": str(dtype)[6:], "at": f"hidden 512, 1 + 1 blocks, B=2, P=128, T=1024",
+                   "step_ms_first": ms, "losses": losses, "launches": launches,
+                   "flash_head_dims": dims, "expected_flash_head_dims": want,
+                   "params_without_finite_grad": bad}
+            emit(row)
+            if (dims != want or bad or not all(math.isfinite(v) for v in losses.values())
+                    or launches.get("ffn_ln_train", 0)):
+                raise RuntimeError(f"head dim {d} training step: {row}")
+            rows.append(row)
+    return {"rows": rows}
 
 
 # HiFi-GAN V3's published config, the released vocoder with ResBlock2
@@ -2581,6 +2695,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a Hopper card",
               file=sys.stderr)
         return 1
+    from lightningfastspeech2_tpu_torch.ops import attention as att
     from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
     from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
@@ -2610,7 +2725,7 @@ def main() -> int:
     sdtw_rows = sdtw_kernels_phase(dev)
     with env_opt_in("LFS2_PALLAS_LR"):
         sdtw_trained = training_phase(counters, soft_dtw=True)
-        train_reference_phase(soft_dtw=True)
+        sdtw_ref = train_reference_phase(soft_dtw=True)
     # the two steps interleaved (l1, soft-DTW, l1, ...) so that a drift of
     # the host's speed during the run falls on both alike
     pairs = []
@@ -2636,9 +2751,16 @@ def main() -> int:
     cli_rows = cli_phase(counters, info["nvidia_smi"])
     wide = wide_kernels_phase(dev)
     t76 = true76m_serving_phase(counters, served)
-    true76m_training_phase(counters)
+    t76_trained = true76m_training_phase(counters)
     fastspeech2_27m_phase(counters, served, info["nvidia_smi"])
     every_layer_phase(counters, served)
+    head_dims = head_dim_training_phase(counters)
+    # flash launches by route and head dim on the main paths' counted runs:
+    # serving (phase 5), training (8, and its soft-DTW run), the f32 step
+    # against the CPU (9, both losses), lightspeech_true76m training (21)
+    main_dims = [served["flash_head_dims"], trained["row"]["flash_head_dims"],
+                 sdtw_trained["row"]["flash_head_dims"], train_ref["flash_head_dims"],
+                 sdtw_ref["flash_head_dims"], t76_trained["row"]["flash_head_dims"]]
 
     n = served["launches"]
     nt = trained["row"]["launches"]
@@ -2712,7 +2834,8 @@ def main() -> int:
             counter = "flash_attention" + ("_bwd" if part == "bwd" else "")
             n = (launches[counter] if key == "flash" else launches[counter][r["route"]])
             kernels.append({
-                "name": r["name"], "route": "cuda", "source": f"{pkg}/{r['route']}.cu",
+                "name": r["name"], "route": "cuda",
+                "source": f"{pkg}/{att.LIBRARY[r['route']]}.cu",
                 "replaces": f"lightningfastspeech2_tpu/ops/{rep}", "launches": n,
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at", "build_s")},
@@ -2756,17 +2879,23 @@ def main() -> int:
                       "launches": t76["float32"]["launches"]["ffn_ln"]},
         "shapes": {"bf16": [{k: r[k] for k in wide_keys} for r in bf],
                    "f32": [{k: r[k] for k in wide_keys} for r in f32w]}})
-    # flash attention past head dim 128: no preset reaches these head dims,
-    # so the main paths' runs launched them 0 times
+    # flash attention past head dim 128: the launches the main paths' counted
+    # runs made at this route and head dim (no preset has these head dims),
+    # and phase 24's, a train step at each through the same entry point
     for (d, dt), case in wide["flash"].items():
         for part, rep_ in (("fwd", "pallas_attention.py:100"), ("bwd", "pallas_attention.py:128")):
             r = case[part]
+            counter = "flash_attention" + ("_bwd" if part == "bwd" else "")
+            key = f"{r['route']} d={d}"
             kernels.append({
-                "name": r["name"], "route": "cuda", "source": f"{pkg}/{r['route']}.cu",
-                "replaces": f"lightningfastspeech2_tpu/ops/{rep_}", "launches": 0,
+                "name": r["name"], "route": "cuda",
+                "source": f"{pkg}/{att.LIBRARY[r['route']]}.cu",
+                "replaces": f"lightningfastspeech2_tpu/ops/{rep_}",
+                "launches": sum(x[counter].get(key, 0) for x in main_dims),
+                "launches_phase_24": sum(x["flash_head_dims"][counter].get(key, 0)
+                                         for x in head_dims["rows"]),
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "at", "head_dim")},
-                "note": "no preset has this head dim: 0 launches on the main paths"})
+                                     "library_ms", "at", "head_dim")}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

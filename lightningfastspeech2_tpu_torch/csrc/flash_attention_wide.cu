@@ -30,6 +30,7 @@
 #include "common.cuh"
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -372,61 +373,71 @@ Params<T> params(const void* q, const void* k, const void* v, const int* mask, c
   return p;
 }
 
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const int* mask, const int* seed, void* o,
+        float* lse, float* o32, int B, int H, int T_len, int d, float scale, unsigned threshold,
+        float inv_keep, void* stream) {
+  if (!shape_ok(B, H, T_len, d) || std::is_same_v<T, float> != (o32 == o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = params<T>(q, k, v, mask, seed, H, T_len, d, scale, threshold, inv_keep);
+  p.out = static_cast<T*>(o);
+  p.out32 = o32;
+  p.lse = lse;
+  return static_cast<int>(run(wide_fwd_kernel<T>, 0, p, B, static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int bwd(const void* q, const void* k, const void* v, const int* mask, const int* seed,
+        const void* o32, const float* lse, const void* dout, void* dq, void* dk, void* dv,
+        float* dsum, int B, int H, int T_len, int d, float scale, unsigned threshold,
+        float inv_keep, void* stream) {
+  if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto p = params<T>(q, k, v, mask, seed, H, T_len, d, scale, threshold, inv_keep);
+  p.o32 = static_cast<const float*>(o32);
+  p.dout = static_cast<const T*>(dout);
+  p.out = static_cast<T*>(dq);
+  p.lse = const_cast<float*>(lse);
+  p.dsum = dsum;
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
+  const cudaError_t err = run(wide_dq_kernel<T>, 1, p, B, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(wide_dkv_kernel<T>, 2, p, B, s));
+}
+
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
-// q, k, v (B, H, T, d) in the working dtype (dtype: csrc/common.cuh DType),
-// d a multiple of 128 above 256; o (the working dtype), o32 (f32; o itself
-// for f32) and lse (B, H, T) f32 are written; seed is one int32 on the device
-LFS2_EXPORT int lfs2_flash_attention_wide_fwd(const void* q, const void* k, const void* v,
-                                              const int* mask, const int* seed, void* o,
-                                              float* lse, float* o32, int B, int H, int T_len,
-                                              int d, float scale, unsigned threshold,
-                                              float inv_keep, int dtype, void* stream) {
-  if (!shape_ok(B, H, T_len, d) || (dtype == lfs2::kF32) != (o32 == o))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lfs2::kBF16) {
-    auto p = params<__nv_bfloat16>(q, k, v, mask, seed, H, T_len, d, scale, threshold, inv_keep);
-    p.out = static_cast<__nv_bfloat16*>(o);
-    p.out32 = o32;
-    p.lse = lse;
-    return static_cast<int>(run(wide_fwd_kernel<__nv_bfloat16>, 0, p, B, s));
+// One forward and one backward launcher per dtype, with the signature of
+// flash_attention.cu's and flash_attention_sm90.cu's (the dtype is in the
+// name): lfs2_flash_attention_wide_{f32,bf16}_{fwd,bwd}.
+//
+// forward: q, k, v (B, H, T, d), d a multiple of 128 above 256; o (the
+// working dtype), o32 (f32; o itself for f32) and lse (B, H, T) f32 are
+// written; seed is one int32 on the device. backward: the dQ pass (which
+// also writes dsum, (B, H, T) f32 scratch), then the dK/dV pass, on one
+// stream; o32 and lse are the forward's.
+#define LFS2_WIDE_LAUNCHERS(NAME, T)                                                           \
+  LFS2_EXPORT int lfs2_flash_attention_wide_##NAME##_fwd(                                      \
+      const void* q, const void* k, const void* v, const int* mask, const int* seed, void* o,  \
+      float* lse, float* o32, int B, int H, int T_len, int d, float scale, unsigned threshold, \
+      float inv_keep, void* stream) {                                                          \
+    return fwd<T>(q, k, v, mask, seed, o, lse, o32, B, H, T_len, d, scale, threshold,         \
+                  inv_keep, stream);                                                           \
+  }                                                                                            \
+  LFS2_EXPORT int lfs2_flash_attention_wide_##NAME##_bwd(                                      \
+      const void* q, const void* k, const void* v, const int* mask, const int* seed,           \
+      const void* o32, const float* lse, const void* dout, void* dq, void* dk, void* dv,       \
+      float* dsum, int B, int H, int T_len, int d, float scale, unsigned threshold,            \
+      float inv_keep, void* stream) {                                                          \
+    return bwd<T>(q, k, v, mask, seed, o32, lse, dout, dq, dk, dv, dsum, B, H, T_len, d,      \
+                  scale, threshold, inv_keep, stream);                                         \
   }
-  auto p = params<float>(q, k, v, mask, seed, H, T_len, d, scale, threshold, inv_keep);
-  p.out = static_cast<float*>(o);
-  p.out32 = o32;
-  p.lse = lse;
-  return static_cast<int>(run(wide_fwd_kernel<float>, 0, p, B, s));
-}
 
-// the dQ pass (which also writes dsum, (B, H, T) f32 scratch), then the
-// dK/dV pass, on one stream; o32 and lse are the forward's
-LFS2_EXPORT int lfs2_flash_attention_wide_bwd(const void* q, const void* k, const void* v,
-                                              const int* mask, const int* seed, const void* o32,
-                                              const float* lse, const void* dout, void* dq,
-                                              void* dk, void* dv, float* dsum, int B, int H,
-                                              int T_len, int d, float scale, unsigned threshold,
-                                              float inv_keep, int dtype, void* stream) {
-  if (!shape_ok(B, H, T_len, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag) -> cudaError_t {
-    using T = decltype(tag);
-    auto p = params<T>(q, k, v, mask, seed, H, T_len, d, scale, threshold, inv_keep);
-    p.o32 = static_cast<const float*>(o32);
-    p.dout = static_cast<const T*>(dout);
-    p.out = static_cast<T*>(dq);
-    p.lse = const_cast<float*>(lse);
-    p.dsum = dsum;
-    p.dk = static_cast<T*>(dk);
-    p.dv = static_cast<T*>(dv);
-    const cudaError_t err = run(wide_dq_kernel<T>, 1, p, B, s);
-    if (err != cudaSuccess) return err;
-    return run(wide_dkv_kernel<T>, 2, p, B, s);
-  };
-  return static_cast<int>(dtype == lfs2::kBF16 ? go(__nv_bfloat16{}) : go(float{}));
-}
+LFS2_WIDE_LAUNCHERS(f32, float)
+LFS2_WIDE_LAUNCHERS(bf16, __nv_bfloat16)
 
 // copies into out[0..2] the grid of kernel `which` (0 the forward, 1 the dQ
 // pass, 2 the dK/dV pass) as its latest launch was given it

@@ -4,7 +4,7 @@ Counterpart of ``lightningfastspeech2_tpu/ops/pallas_attention.py``
 (``flash_attention``: ``_fwd_kernel`` and ``_bwd_kernel`` joined by a custom
 VJP). ``flash_attention`` runs ``flash_attention_plain`` for CPU tensors and,
 for CUDA tensors, forward and backward kernels through an autograd Function,
-the library chosen by dtype and head dim (``kernel_route``): at head dim 128
+the route chosen by dtype and head dim (``kernel_route``): at head dim 128
 or 256, bf16 takes the Hopper tensor-core kernels of
 ``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA), f32 the split-TF32
 ``mma.sync`` kernels of ``csrc/flash_attention.cu`` (tensor cores at f32
@@ -36,7 +36,7 @@ from lightningfastspeech2_tpu_torch.ops.ffn import (
 )
 
 NEG_INF = -1e30
-TENSOR_CORE_DIMS = (128, 256)  # head dims of the tensor-core routes; larger ones take WIDE
+TENSOR_CORE_DIMS = (128, 256)  # head dims of the tensor-core routes; larger ones take WIDE_ROUTES
 
 
 def attn_keep_hash(rows: torch.Tensor, cols: torch.Tensor, seed_bh: torch.Tensor,
@@ -80,39 +80,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (_rnd(p, v.dtype) @ v.float()).to(q.dtype)
 
 
-# the library of each dtype at head dims 128 and 256: bf16 through wgmma, f32
-# through split-TF32 mma.sync; past 256 both take WIDE (CUDA cores)
+# the route of each dtype at head dims 128 and 256 (bf16 through wgmma, f32
+# through split-TF32 mma.sync) and past 256 (CUDA cores); a route's launchers
+# are lfs2_<route>_fwd / _bwd, all with one signature, in the library
+# csrc/<LIBRARY[route]>.cu
 ROUTES = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
-WIDE = "flash_attention_wide"
+WIDE_ROUTES = {torch.bfloat16: "flash_attention_wide_bf16", torch.float32: "flash_attention_wide_f32"}
+LIBRARY = {**{r: r for r in ROUTES.values()},
+           **dict.fromkeys(WIDE_ROUTES.values(), "flash_attention_wide")}
 _c_fns = {}
 
 
 def _fns(route: str):
-    """The library's forward and backward launchers; WIDE's take the dtype
-    code before the stream."""
+    """The route's forward and backward launchers."""
     if route not in _c_fns:
-        lib = build.load(route)
+        lib = build.load(LIBRARY[route])
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        prefix = "lfs2_" + route
-        tail = [i, p] if route == WIDE else [p]
-        fwd = getattr(lib, prefix + "_fwd")
-        fwd.argtypes = [p] * 8 + [i, i, i, i, f, u, f] + tail
+        fwd = getattr(lib, f"lfs2_{route}_fwd")
+        fwd.argtypes = [p] * 8 + [i, i, i, i, f, u, f, p]
         fwd.restype = ctypes.c_int
-        bwd = getattr(lib, prefix + "_bwd")
-        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f] + tail
+        bwd = getattr(lib, f"lfs2_{route}_bwd")
+        bwd.argtypes = [p] * 12 + [i, i, i, i, f, u, f, p]
         bwd.restype = ctypes.c_int
         _c_fns[route] = (lib, fwd, bwd)
     return _c_fns[route]
 
 
-def _tail(route: str, q: torch.Tensor, stream):
-    return ((build.DTYPE_CODES[q.dtype], stream) if route == WIDE else (stream,))
-
-
 def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The library (``csrc/<name>.cu``) the kernels of these inputs come
-    from, after the kernels' rules on dtype and shape; raises on inputs no
-    kernel takes. Needs no card: the tests call it on CPU tensors."""
+    """The route the kernels of these inputs take (their library is
+    ``csrc/<LIBRARY[route]>.cu``), after the kernels' rules on dtype and
+    shape; raises on inputs no kernel takes. Needs no card: the tests call
+    it on CPU tensors."""
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernels take f32 or bf16 q, k, v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -124,7 +122,7 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if T < 128 or T % 128 != 0:
         raise ValueError(f"flash_attention kernels take T a multiple of 128 (their 128-row "
                          f"tiles), got T = {T}")
-    return ROUTES[q.dtype] if q.shape[-1] in TENSOR_CORE_DIMS else WIDE
+    return (ROUTES if q.shape[-1] in TENSOR_CORE_DIMS else WIDE_ROUTES)[q.dtype]
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
@@ -133,9 +131,10 @@ def _check_aligned(*ts: torch.Tensor) -> None:
         raise ValueError("flash_attention kernels take 16-byte aligned tensors")
 
 
-def _count(fn, route: str) -> None:
+def _count(fn, route: str, head_dim: int) -> None:
     fn.launches += 1
     fn.by_route[route] += 1
+    fn.by_head_dim[(route, head_dim)] = fn.by_head_dim.get((route, head_dim), 0) + 1
 
 
 def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
@@ -153,10 +152,9 @@ def flash_attention_fwd(q, k, v, mask_i32, seed, rate):
     lib, fn, _ = _fns(route)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), o32.data_ptr(), B, H, T, d,
-            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            *_tail(route, q, stream))
+            1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), stream)
     build.check(lib, rc, "flash_attention")
-    _count(flash_attention, route)
+    _count(flash_attention, route, d)
     return o, lse, o32
 
 
@@ -176,10 +174,9 @@ def flash_attention_bwd(do, q, k, v, mask_i32, seed, o32, lse, rate):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(),
             seed.data_ptr(), o32.data_ptr(), lse.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-            B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate),
-            *_tail(route, q, stream))
+            B, H, T, d, 1.0 / math.sqrt(d), keep_threshold(rate), 1.0 / (1.0 - rate), stream)
     build.check(lib, rc, "flash_attention_bwd")
-    _count(flash_attention_bwd, route)
+    _count(flash_attention_bwd, route, d)
     return dq, dk, dv
 
 
@@ -222,6 +219,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
-# launches by library, set to 0 with the counts: which route a run took
-flash_attention.by_route = dict.fromkeys((*ROUTES.values(), WIDE), 0)
-flash_attention_bwd.by_route = dict.fromkeys((*ROUTES.values(), WIDE), 0)
+# launches by route and by (route, head dim), set to 0 with the counts:
+# which route a run took, and at which head dims
+flash_attention.by_route = dict.fromkeys(LIBRARY, 0)
+flash_attention_bwd.by_route = dict.fromkeys(LIBRARY, 0)
+flash_attention.by_head_dim = {}
+flash_attention_bwd.by_head_dim = {}

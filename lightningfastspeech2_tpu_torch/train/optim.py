@@ -16,8 +16,9 @@ optax's ``clip_by_global_norm`` rule, ``g * c / max(|g|, c)``, not
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Dict, Iterable, List
 
+import numpy as np
 import torch
 
 from lightningfastspeech2_tpu_torch.core.config import TrainConfig
@@ -36,7 +37,12 @@ class AdamWBf16Mu(torch.optim.Optimizer):
     ``adamw(mu_dtype=jnp.bfloat16)`` computes it: mu = (1 - b1) g + b1 mu_old
     in f32, the decay product taken in bf16 (optax's weak-typed ``b1 * mu``
     on the bf16 moment); nu in f32; the bias-corrected update and the
-    decoupled weight decay in f32; mu stored rounded to bf16."""
+    decoupled weight decay in f32; mu stored rounded to bf16.
+
+    Each step runs as ``torch._foreach_*`` calls over the parameters that
+    share a step count (a few multi-tensor launches each on the card, not a
+    launch per parameter), with the bias corrections formed on the host as
+    f32 scalars."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, betas, eps: float,
                  weight_decay: float):
@@ -47,7 +53,7 @@ class AdamWBf16Mu(torch.optim.Optimizer):
     def step(self, closure=None):
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            by_step: Dict[int, List[torch.nn.Parameter]] = {}
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -57,16 +63,45 @@ class AdamWBf16Mu(torch.optim.Optimizer):
                     st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
                     st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
                 st["step"] += 1
-                g = p.grad.float()
-                decay = torch.tensor(b1, dtype=torch.bfloat16, device=p.device)
-                mu = (1 - b1) * g + (st["exp_avg"] * decay).float()
-                nu = st["exp_avg_sq"].mul_(b2).add_((1 - b2) * (g * g))
-                n = torch.tensor(float(st["step"]), dtype=torch.float32)
-                bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** n
-                bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** n
-                update = (mu / bc1.to(p.device)) / (torch.sqrt(nu / bc2.to(p.device)) + eps)
-                p.add_(-lr * (update + wd * p.float()).to(p.dtype))
-                st["exp_avg"] = mu.to(torch.bfloat16)
+                by_step.setdefault(st["step"], []).append(p)
+            for n, ps in by_step.items():
+                # 1 - b^n in f32, as optax's bias correction
+                bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
+                bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
+                self._update(ps, group, bc1, bc2)
+
+    def _update(self, ps: List[torch.nn.Parameter], group: dict, bc1: float, bc2: float) -> None:
+        b1, b2 = group["betas"]
+        lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+        mus = [self.state[p]["exp_avg"] for p in ps]
+        nus = [self.state[p]["exp_avg_sq"] for p in ps]
+        g = [p.grad.float() for p in ps]
+        # b1 mu_old in bf16 (b1 rounded to bf16, the product rounded once)
+        decayed = torch._foreach_mul(mus, _bf16(b1))
+        mu = [torch.empty_like(m, dtype=torch.float32) for m in mus]
+        torch._foreach_copy_(mu, decayed)
+        g1 = torch._foreach_mul(g, 1 - b1)
+        torch._foreach_add_(mu, g1)
+        torch._foreach_mul_(nus, b2)
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_add_(nus, g2)
+        torch._foreach_copy_(mus, mu)
+        # update = (mu / bc1) / (sqrt(nu / bc2) + eps) + wd p, scaled by -lr
+        den = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(mu, bc1)
+        torch._foreach_div_(mu, den)
+        decay = torch._foreach_mul([p.float() for p in ps], wd)
+        torch._foreach_add_(mu, decay)
+        torch._foreach_mul_(mu, -lr)
+        torch._foreach_add_(ps, [u.to(p.dtype) for u, p in zip(mu, ps)])
+
+
+def _bf16(x: float) -> float:
+    """``x`` rounded to bf16, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],

@@ -628,15 +628,17 @@ _WIDE_FLASH_CASES = {"d256": (2, 2, 2048, 256, (2048, 1500)),
 def test_flash_attention_wide_head_dims_match_plain(cuda_card, dtype, rate, case):
     B, H, T, d, lengths = _WIDE_FLASH_CASES[case]
     q, k, v, do, mask, seed = _flash_inputs(cuda_card, dtype, B, H, T, lengths, d)
-    route = tatt.ROUTES[dtype] if d in tatt.TENSOR_CORE_DIMS else tatt.WIDE
+    route = (tatt.ROUTES if d in tatt.TENSOR_CORE_DIMS else tatt.WIDE_ROUTES)[dtype]
     assert tatt.kernel_route(q, k, v) == route
-    before = {fn: dict(fn.by_route) for fn in (tatt.flash_attention, tatt.flash_attention_bwd)}
+    before = {fn: (dict(fn.by_route), fn.by_head_dim.get((route, d), 0))
+              for fn in (tatt.flash_attention, tatt.flash_attention_bwd)}
     with _deadline(300):
         got = _flash_run(tatt.flash_attention, q, k, v, do, mask, rate, seed)
         torch.cuda.synchronize()
-    for fn, counts in before.items():
+    for fn, (counts, at_d) in before.items():
         assert {r: fn.by_route[r] - n for r, n in counts.items()} == {
             r: int(r == route) for r in counts}
+        assert fn.by_head_dim[(route, d)] == at_d + 1
     want = _flash_run(tatt.flash_attention_plain, q, k, v, do, mask, rate, seed)
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name

@@ -111,8 +111,8 @@ def test_kernel_route_takes_every_head_dim_the_gate_admits(d, dtype):
     CUDA-core route past them, all built from the repository's sources."""
     qkv = [torch.zeros(1, 1, 1024, d, dtype=dtype) for _ in range(3)]
     route = tatt.kernel_route(*qkv)
-    assert route == (tatt.ROUTES[dtype] if d <= 256 else tatt.WIDE)
-    assert route in build.SOURCES
+    assert route == (tatt.ROUTES if d <= 256 else tatt.WIDE_ROUTES)[dtype]
+    assert tatt.LIBRARY[route] in build.SOURCES
 
 
 def test_adamw_bf16_moments_matches_optax():
@@ -143,6 +143,33 @@ def test_adamw_bf16_moments_matches_optax():
         assert opt.state[p]["exp_avg"].dtype == torch.bfloat16
         np.testing.assert_array_equal(opt.state[p]["exp_avg"].float().numpy(),
                                       np.asarray(mu[k].astype(jnp.float32)), err_msg=k)
+
+
+def test_adamw_bf16_moments_steps_each_parameter_by_its_own_count():
+    """A parameter without a gradient skips a step and keeps its own step
+    count (its bias correction): the grouped update equals one optimizer
+    per parameter, bit for bit."""
+    g = np.random.default_rng(8)
+    p0 = [g.standard_normal((16, 8)).astype(np.float32), g.standard_normal(8).astype(np.float32)]
+    grads = [[(g.standard_normal(v.shape) * 0.3).astype(np.float32) for v in p0]
+             for _ in range(3)]
+    kw = dict(lr=1e-3, betas=(0.9, 0.98), eps=1e-8, weight_decay=0.01)
+    both = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in p0]
+    alone = [torch.nn.Parameter(torch.from_numpy(v.copy())) for v in p0]
+    opt = AdamWBf16Mu(both, **kw)
+    opts = [AdamWBf16Mu([p], **kw) for p in alone]
+    for i, gr in enumerate(grads):
+        for j in range(2):
+            has = not (j == 1 and i == 0)   # the second parameter skips the first step
+            both[j].grad = torch.from_numpy(gr[j]) if has else None
+            alone[j].grad = torch.from_numpy(gr[j]) if has else None
+        opt.step()
+        for o in opts:
+            o.step()
+    assert [opt.state[p]["step"] for p in both] == [3, 2]
+    for a, b, o in zip(both, alone, opts):
+        assert torch.equal(a, b)
+        assert torch.equal(opt.state[a]["exp_avg"], o.state[b]["exp_avg"])
 
 
 def test_resblock2_generator_matches_jax():

@@ -18,10 +18,11 @@ Phases, each printed as one JSON line:
    at every C and both row counts) must hold HMMA and spill nothing; the
    eight soft-DTW kernels (``soft_dtw_wave_fwd`` and ``soft_dtw_wave_bwd`` at
    each rows-a-thread the plan takes) must spill nothing and hold no
-   local-memory access; ``ffn_wide_kernel`` (both dtypes, C = 384, 512, 640)
-   and the split-TF32 flash kernels at head dims 128 and 256 must hold
-   HMMA, the wgmma flash kernels HGMMA, and the spills and serialised wgmma
-   of these and of the CUDA-core flash route are reported.
+   local-memory access; ``ffn_wide_kernel`` (C = 384, 512, 640) must hold
+   HGMMA in bf16 and HMMA without a spill byte in f32, the split-TF32 flash
+   kernels at head dims 128 and 256 HMMA, the wgmma flash kernels HGMMA, and
+   the other spills and serialised wgmma of these and of the CUDA-core
+   flash route are reported.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -147,10 +148,12 @@ Phases, each printed as one JSON line:
     kernel route alone at the request's shapes against its plain version.
 
 18. wide FFN: ``ffn_ln`` at C = 640 (B, T = 1, 256 and 8, 512; k = 5, 17,
-    25) and at C = 384 and 512 (8, 512, k = 17), F = 4 C, in bf16 and f32,
-    through ``ffn_wide_kernel``, each against ``ffn_ln_plain`` with its
-    launch as the library recorded it held against ``ffn_plan``, its time
-    and its bound.
+    25; and 1, 32, k = 5, an encoder launch at a sentence's phones) and at
+    C = 384 and 512 (8, 512, k = 17), F = 4 C, in bf16 and f32, through
+    ``ffn_wide_kernel`` and its LN2 pass, each against ``ffn_ln_plain``
+    with both launches as the library recorded them held against
+    ``ffn_plan`` (grid, cluster, shared memory; the F splits and the
+    clusters the card holds at once beside them), its time and its bound.
 19. wide flash: flash attention forward and backward at (2, 2, 2048, 256)
     (the tensor-core routes' D = 256 templates) and (1, 1, 1024, 512) (the
     CUDA-core route), bf16 and f32, against the plain version, with SDPA
@@ -158,8 +161,10 @@ Phases, each printed as one JSON line:
 20. lightspeech_true76m serving: the preset with HiFi-GAN V1, bf16 and f32,
     from seeded generators, serves phase 5's sentences and batch; the
     counters, set to 0 just before each run, must show ``ffn_ln`` at C =
-    640 in every block of every pass (``ffn_ln.by_width``); then an f32
-    request on the card against the CPU's plain path (phase 6's tolerance).
+    640 in every block of every pass (``ffn_ln.by_width``); after each
+    counted run ``ffn_ln``'s device ms (torch.profiler) in the longest
+    request and in the batch; then an f32 request on the card against the
+    CPU's plain path (phase 6's tolerance).
 21. lightspeech_true76m training: bf16 with f32 parameters and bf16 Adam
     moments, B=8, P=256, T=2048, 1 warm-up and 3 timed steps; finite losses,
     a finite non-zero gradient on every parameter, first moments in bf16;
@@ -434,11 +439,12 @@ FLASH_WIDE = re.compile(r"(wide_(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)E")
 
 
 def wide_sass_phase(report) -> dict:
-    """This slice's kernels as compiled, reported beside the checks above:
-    ``ffn_wide_kernel`` at C = 384, 512, 640 in both dtypes (HMMA required),
-    both flash routes at head dims 128 and 256 (HGMMA in bf16, HMMA in f32
-    required) and the CUDA-core flash route; their spills and serialised
-    wgmma are reported (PERF.md), not refused."""
+    """The wide kernels as compiled, reported beside the checks above:
+    ``ffn_wide_kernel`` at C = 384, 512, 640 (bf16 must hold HGMMA, f32
+    HMMA and no spill byte), both flash routes at head dims 128 and 256
+    (HGMMA in bf16, HMMA in f32 required) and the CUDA-core flash route;
+    the other spills and serialised wgmma are reported (PERF.md), not
+    refused."""
     def dt(x):
         return "bf16" if x.endswith("bfloat16") else "f32"
 
@@ -451,7 +457,9 @@ def wide_sass_phase(report) -> dict:
             "flash_wide": _sass_rows("flash_attention_wide", report, FLASH_WIDE,
                                      lambda m: f"{m.group(1)}<{dt(m.group(2))}>")}
     emit({"phase": "wide_sass", **rows})
-    bad = {k: r for k, r in {**rows["ffn_wide"], **rows["flash_f32"]}.items() if r["hmma"] == 0}
+    bad = {k: r for k, r in rows["ffn_wide"].items()
+           if (r["hgmma"] == 0 if "bf16" in k else r["hmma"] == 0 or r["spill_bytes"])}
+    bad.update({k: r for k, r in rows["flash_f32"].items() if r["hmma"] == 0})
     bad.update({k: r for k, r in rows["flash_sm90"].items() if r["hgmma"] == 0})
     if (len(rows["ffn_wide"]) != 6 or len(rows["flash_sm90"]) != 6
             or len(rows["flash_f32"]) != 6 or len(rows["flash_wide"]) != 6 or bad):
@@ -1011,13 +1019,20 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
     libraries recorded them, held against ``ffn_plan``: raises when a
     grid, shared-memory size or row count differs."""
     rec = ffn.last_launches()
-    got = [rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
     plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
+    wide = plan[0].kernel == "ffn_wide_kernel"
+    got = ([rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
+           + ([rec["ffn_ln_wide_ln2"]] if wide else []))
     want = [ffn.planned_launch(x) for x in plan]
     if got != want:
         raise RuntimeError(f"ffn {mode} launches {got}, planned {want}")
-    return [{"kernel": x.kernel, "blocks": r["grid"][0] * r["grid"][1] * r["grid"][2],
-             "smem_bytes": r["smem_bytes"], "rows": r["rows"]} for x, r in zip(plan, got)]
+    rows = [{"kernel": x.kernel, "blocks": r["grid"][0] * r["grid"][1] * r["grid"][2],
+             "smem_bytes": r["smem_bytes"], "rows": r["rows"], "cluster": r["cluster"]}
+            for x, r in zip(plan, got)]
+    if wide:  # the wide launch's splits of F and the clusters the card holds at once
+        rows[0].update(splits=got[0]["grid"][2],
+                       max_active_clusters=rec["ffn_ln_max_active_clusters"])
+    return rows
 
 
 def _b1_off_the_kink(z, p, eps=1e-5):
@@ -1293,7 +1308,7 @@ STEP_FAMILIES = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kerne
                  "flash_attention": ("fwd_sm90_kernel", "fwd_kernel", "wide_fwd_kernel"),
                  "flash_attention_bwd": ("dq_sm90_kernel", "dkv_sm90_kernel", "dq_kernel", "dkv_kernel",
                                          "wide_dq_kernel", "wide_dkv_kernel"),
-                 "ffn_ln_wide": "ffn_wide_kernel",
+                 "ffn_ln_wide": ("ffn_wide_kernel", "ffn_wide_ln2_kernel"),
                  "soft_dtw": "soft_dtw_wave_fwd", "soft_dtw_bwd": "soft_dtw_wave_bwd",
                  "regulate": "regulate_fwd_kernel", "regulate_bwd": "regulate_bwd_kernel",
                  "lvc_stack": ("lvc_mma_kernel", "lvc_stack_kernel"),
@@ -2315,11 +2330,12 @@ def cli_phase(counters, smi: str) -> dict:
 
 # ------------------------------------------- the other presets (phases 18-23)
 # (B, T, C, k) of ffn_wide_kernel's cases: lightspeech_true76m's request
-# and batch shapes at its narrowest, middle and widest depthwise kernel, and
-# C = 384 and 512 at the batch's shape; F = 4 C
+# and batch shapes at its narrowest, middle and widest depthwise kernel,
+# C = 384 and 512 at the batch's shape, and an encoder launch at a
+# sentence's phone count; F = 4 C
 WIDE_FFN_SHAPES = ([(1, 256, 640, k) for k in (5, 17, 25)]
                    + [(8, 512, 640, k) for k in (5, 17, 25)]
-                   + [(8, 512, 384, 17), (8, 512, 512, 17)])
+                   + [(8, 512, 384, 17), (8, 512, 512, 17), (1, 32, 640, 5)])
 # (B, H, T, head_dim) of the flash cases past head dim 128
 WIDE_FLASH_SHAPES = ((2, 2, 2048, 256), (1, 1, 1024, 512))
 
@@ -2366,13 +2382,29 @@ def _preset_launches(counters, gen, cfg, run, tag) -> dict:
     return launches
 
 
+def ffn_device_split(fn, out_name: str) -> dict:
+    """``fn`` once under torch.profiler: the device ms and kernels of every
+    kernel and of the wide ``ffn_ln`` launches (ffn_wide_kernel and its LN2
+    pass); the kernel table in chiprun_out/``out_name``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = _step_split(prof, out_name, {"ffn_ln_wide": STEP_FAMILIES["ffn_ln_wide"]})
+    return {"device_ms": split["device_ms"], "device_launches": split["device_launches"],
+            "ffn_ln_ms": split["ffn_ln_wide_ms"], "ffn_ln_kernels": split["ffn_ln_wide_launches"]}
+
+
 def true76m_serving_phase(counters, served) -> dict:
     """Phase 20: lightspeech_true76m (hidden 640, filter 2560, 8 + 7
     blocks) with HiFi-GAN V1 from seeded generators serves phase 5's
     sentences and a batch of 8 at frame bucket 512, in bf16 and in f32; the
     counters, set to 0 just before each run, must show ``ffn_ln`` at C =
-    640 in every block. Then one f32 request on the card against the same
-    request on the CPU's plain path (phase 6's tolerance)."""
+    640 in every block; after it, the longest request and the batch once
+    more under torch.profiler for ``ffn_ln``'s device ms. Then one f32
+    request on the card against the same request on the CPU's plain path
+    (phase 6's tolerance)."""
     from lightningfastspeech2_tpu_torch.core.config import lightspeech_true76m
 
     cfg, dvecs = lightspeech_true76m(), served["dvecs"]
@@ -2386,8 +2418,17 @@ def true76m_serving_phase(counters, served) -> dict:
         reset_counts(counters)
         run = _serve_all(gen, cfg, dvecs, tag)
         launches = _preset_launches(counters, gen, cfg, run, tag)
-        out[str(dtype)[6:]] = {"setup_s": setup_s, "launches": launches, "batch": run["batch"],
-                               "request_ms": [r["ms"] for r in run["requests"]]}
+        # after the counted run: ffn_ln's device time in the longest request
+        # and in the batch, from torch.profiler
+        dt = str(dtype)[6:]
+        device = {"request": ffn_device_split(
+                      lambda: gen.generate_from_text(SENTENCES[-1], speaker="spk0", seed=0),
+                      f"true76m_{dt}_request_profile.txt"),
+                  "batch": ffn_device_split(lambda: gen.generate_samples(run["batch_inputs"]),
+                                            f"true76m_{dt}_batch_profile.txt")}
+        emit({"phase": f"{tag}ffn_ln_device", **device})
+        out[dt] = {"setup_s": setup_s, "launches": launches, "batch": run["batch"],
+                   "request_ms": [r["ms"] for r in run["requests"]], "ffn_ln_device": device}
         del gen
     reference_phase({"cfg": cfg, "dvecs": dvecs, "bias": bias}, tag="true76m_")
     return out

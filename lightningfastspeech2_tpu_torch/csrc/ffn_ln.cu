@@ -62,14 +62,43 @@
 // f32 (their accumulation truncates). The epilogue runs a row on a warp;
 // the chain variant writes h0, dres and dff in f32.
 //
-// Serving at C = 384, 512 and 640 (ffn_wide_kernel, below): 32-row blocks
-// with C split across the eight warps, both dtypes on mma.sync, the weights'
-// fragments read from L2.
+// Serving at C = 384, 512 and 640 (ffn_wide_kernel and ffn_wide_ln2_kernel,
+// below). What bounds it: at (8, 512, 640) operations, 26.8 GFLOP (0.027 ms
+// at bf16's 989 TFLOP/s, 0.163 ms as split TF32 at 165); at B = 1 the
+// weights' bytes (6.55 MB in bf16, 0.002 ms). The first design read every
+// weight fragment from L2 for every 32 rows, so its time was each block's
+// weight stream. Here a block streams the weights once for its row tile
+// (64 rows in bf16, 32 in f32), 32 F columns a chunk, as bulk copies of a
+// pre-arranged image (ops/ffn.py _wide_image, _wide_f32_image) into
+// shared memory, completed on mbarriers; the blocks of a cluster (2 or 4
+// row tiles of one item) take each copy in one multicast, so L2 serves it
+// once per 128 to 256 rows. On this card a bulk copy costs its issuing
+// thread about 150 cycles whatever its size, and an SM's copies land at
+// about 26 bytes a cycle when every SM reads L2 (70 alone), so the copies
+// are few and large. To fill the card at small B T a launch splits F
+// across blocks (grid z; ffn_plan picks the splits and the cluster from B
+// and T): each block forms its split's ff partial sums over its rows (LN1
+// and the depthwise taps a 64-channel box at a time into h0; per chunk up
+// = relu(h0 @ W1 + b1), then ff += up @ W2f) and stores them to an f32
+// scratch; ffn_wide_ln2_kernel adds the splits in split order (no atomics:
+// a launch's bits repeat), b2f and the residual and takes LN2.
+//   bf16: two warpgroups on wgmma; warpgroup 0 forms each up chunk (m64n32,
+//   W1 K-major), both the down product of half the channels (m64n256 /
+//   n128 / n64, W2f MN-major). W1 is double-buffered, one copy a chunk;
+//   each warpgroup refills its own W2f boxes with one copy once its down
+//   product is done. No producer warp: a ninth warp caps every thread at
+//   168 registers, and a warpgroup's 64 x 320 f32 share of ff at C = 640
+//   then spills.
+//   f32: eight warps of split-TF32 mma.sync and a producer warp that
+//   streams 16 KB slabs through a ring of six; the up chunk's K is split in
+//   quarters across the warps (each split of h0 feeds four n8 tiles), the
+//   quarters added in order in shared memory.
 //
 // Shapes the kernel takes: C in {32, 64, 128, 256} (serving and training)
 // and {384, 512, 640} (serving), F a multiple of 128, any T >= 1; k >= 1
 // while the t1 window fits shared memory (k <= 63 at C = 256 in bf16;
-// rows + k - 1 <= 128 in f32; k <= 27 at C = 640 in f32).
+// rows + k - 1 <= 128 in f32; at C = 640 k <= 130 in bf16 and 100 in f32,
+// more at C = 384 and 512).
 #include "common.cuh"
 #include "ffn_sm90.cuh"
 
@@ -77,11 +106,15 @@ namespace {
 
 constexpr int kFChunk = 128;  // F must be a multiple of this
 
-// the latest accepted launch, either route: grid x, y, z, shared-memory
-// bytes a block and the rows of one item a block owns
-int g_last_launch[5];
+// the latest accepted launch, any route: grid x, y, z, shared-memory bytes
+// a block, the rows of one item a block owns, the cluster size and, for a
+// wide launch, the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 elsewhere); and the latest wide LN2
+// pass's grid x, y, z, shared memory and rows
+int g_last_launch[7];
+int g_last_ln2[5];
 
-cudaError_t record_launch(const dim3& grid, int smem, int rows) {
+cudaError_t record_launch(const dim3& grid, int smem, int rows, int cluster = 1, int resident = 0) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {
     g_last_launch[0] = grid.x;
@@ -89,6 +122,8 @@ cudaError_t record_launch(const dim3& grid, int smem, int rows) {
     g_last_launch[2] = grid.z;
     g_last_launch[3] = smem;
     g_last_launch[4] = rows;
+    g_last_launch[5] = cluster;
+    g_last_launch[6] = resident;
   }
   return err;
 }
@@ -897,322 +932,786 @@ bool bad_shape(int B, int T_len, int F, int k) {
 }
 
 // ===================== serving at C = 384, 512, 640: both dtypes =====================
-// ffn_wide_kernel<T, C>: a block owns kWideRows = 32 rows of one item with
-// eight warps, and C is split across them, so a thread holds 32 x C / 256 f32
-// ff values (80 at C = 640) where the kernels above would need C / 2. The
-// weights do not fit shared memory beside the t1 window at these widths
-// (a 64-column chunk of W1 and W2f is 160 KB in bf16 at C = 640), so every
-// warp reads its B fragments straight from device memory (L2), in fragment
-// order: per chunk of 32 F columns a W1 piece (K = C, N = 32) and a W2f piece
-// (K = 32, N = C). bf16 runs mma.sync m16n8k16 on pieces of ops/ffn.py
-// _wide_image; f32 the split-TF32 products of the f32 route above on
-// _f32_image's pieces. Shared memory holds the t1 window (f32, the working
-// dtype's values), h0 and the up chunk's staging (two buffers, one block
-// barrier a chunk); per chunk:
-//   up (32 x 32) = h0 @ W1 piece   warps 2 x 4 of 16 rows by one n8 tile
-//   + b1, relu, round, into the staging
-//   ff (32 x C) += up @ W2f piece  warps 2 x 4 of 16 rows by C / 4 columns
-// The epilogue is the f32 route's: ff + b2f into an f32 row buffer over the
-// window, then LN2 a row a warp with t1 formed again from z.
-constexpr int kWideRows = 32;
+// ffn_wide_kernel<T, C> forms one split's ff partial sums, ffn_wide_ln2_kernel<T, C>
+// adds the splits in order and takes the residual and LN2 (the design is in
+// the note at the top). Geometry (ops/ffn.py ffn_plan and _wide_smem mirror
+// it):
+//   R        rows of one item a block owns: 64 in bf16 (one wgmma M), 32 in f32
+//   kWideFC  F columns a chunk: a W1 part (K = C, N = 32) and a W2f part
+//            (K = 32, N = C), each C / 64 tiles of the weight image
+//   TILE     bf16: 4 KB, a box of 32 rows (f) by 64 channels in 128-byte rows
+//            and the 128-byte swizzle (W1 K-major, W2f MN-major; ops/ffn.py
+//            _wide_image); f32: 16 KB, split TF32 fragments of 64 k indices
+//            by 32 columns (W1) or 32 k indices by 64 columns (W2f)
+//            (_wide_f32_image)
+//   NS       f32: ring slots (kWideF32Slots); bf16: the four buffers and
+//            their barriers (W1 buffers A and B, each warpgroup's W2f boxes)
+//   THREADS  bf16: two warpgroups (256 threads; a ninth warp would cap every
+//            thread at 168 registers, and a warpgroup's 64 x 320 f32 share
+//            of ff at C = 640 then spills), each refilling the buffers it
+//            reads; f32: eight warps and a producer warp (288), which keeps
+//            the copies' issue (about 150 cycles each) and, in a cluster,
+//            the wait for the other blocks off the consumers
+// Shared memory from a 1024-byte aligned base (WideGeo lists the order):
+// the weight buffers, h0, two up stagings, one region that is the t1
+// window of a 64-channel box (f32, R + k - 1 rows) in the prologue and then
+// W1 buffer B (bf16) or the up product's K-quarter partials (f32), each
+// window row's LN1 statistics, and the full, cluster-free and (f32) empty
+// mbarriers of every buffer.
 constexpr int kWideFC = 32;
+constexpr int kWideF32Slots = 6;
+
+template <typename T, int C> struct WideGeo {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int R = kF32 ? 32 : 64;
+  static constexpr int TILE = kF32 ? 16384 : 4096;
+  static constexpr int NB = C / 64;           // tiles of a chunk's W1 part, and of its W2f part
+  static constexpr int TPC = 2 * NB;          // tiles a chunk
+  static constexpr int NS = kF32 ? kWideF32Slots : 4;  // f32 ring slots; bf16 buffers
+  static constexpr int H0 = R * C * static_cast<int>(sizeof(T));
+  static constexpr int STAGE = kF32 ? R * kWideFC * 8 : R * 128;
+  // f32: the ring, h0, the stagings, the region (the window, then the
+  // K-quarter partials); bf16: h0, the stagings, W1 buffer A, the two
+  // warpgroups' W2f boxes, W1 buffer B (the window during the prologue,
+  // the region running past it where the window is larger)
+  static constexpr int H0_AT = kF32 ? NS * TILE : 0;
+  static constexpr int STAGE_AT = H0_AT + H0;
+  static constexpr int W1A_AT = STAGE_AT + 2 * STAGE;
+  static constexpr int W2_AT = W1A_AT + NB * TILE;
+  static constexpr int WIN_AT = kF32 ? STAGE_AT + 2 * STAGE : W2_AT + NB * TILE;
+  static constexpr int PARTS = kF32 ? 4 * R * kWideFC * 4 : NB * TILE;
+  static constexpr int THREADS = kF32 ? 288 : 256;
+  __host__ __device__ static constexpr int region(int k) {
+    return (R + k - 1) * 64 * 4 > PARTS ? (R + k - 1) * 64 * 4 : PARTS;
+  }
+  __host__ __device__ static constexpr int stats_at(int k) { return WIN_AT + region(k); }
+  __host__ __device__ static constexpr int bars_at(int k) { return stats_at(k) + (R + k - 1) * 8; }
+  __host__ __device__ static constexpr int smem(int k) { return 1024 + bars_at(k) + 3 * NS * 8; }
+};
 
 template <typename T> struct WideArgs {
   const T* z;
-  T* out;
+  float* part;          // (S, B, T, C) f32: each split's ff partial sums
   const float* wd;
-  const uint8_t* img;
+  const uint8_t* img;   // the weight image: chunk after chunk of TPC tiles
   const float* b1;
   const float* lnp;
-  int T_len, F, k;
+  int T_len, F, k, per;  // per: chunks a split
   float eps;
 };
 
-// h0 row stride (elements): f32 rows of C, columns swizzled (swz32); bf16
-// rows of C + 8, so that a fragment's 32-bit reads meet 32 banks
-template <typename T, int C> __host__ __device__ constexpr int wide_hld() {
-  return sizeof(T) == 4 ? C : C + 8;
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
-constexpr int kWideStageLd = kWideFC + 8;  // bf16 up staging row stride
-template <typename T, int C> __host__ __device__ constexpr int wide_stage_bytes() {
-  return sizeof(T) == 4 ? kWideRows * kWideFC * 8 : kWideRows * kWideStageLd * 2;
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
 }
-// one region that is the t1 window (prologue), the two up stagings (loop)
-// and the f32 row buffer (epilogue)
-template <typename T, int C> __host__ __device__ constexpr int wide_region(int k) {
-  const int win = (kWideRows + k - 1) * C * 4, rows = kWideRows * (C + 4) * 4;
-  const int stage = 2 * wide_stage_bytes<T, C>();
-  return win > rows ? (win > stage ? win : stage) : (rows > stage ? rows : stage);
+// every thread of every block of the cluster (a block barrier with m = 1)
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-// h0, the region, each window row's LN1 statistics
-template <typename T, int C> __host__ __device__ constexpr int wide_smem(int k) {
-  return kWideRows * wide_hld<T, C>() * static_cast<int>(sizeof(T)) + wide_region<T, C>(k) +
-         (kWideRows + k - 1) * 8;
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-// one chunk's W1 or W2f piece: C * 32 values, f32 as hi and lo
-template <typename T, int C> __host__ __device__ constexpr int wide_piece_bytes() {
-  return sizeof(T) == 4 ? C * kWideFC * 8 : C * kWideFC * 2;
+// an arrival on the mbarrier at the same offset in block `rank` of the
+// cluster (the default release at CTA scope: what it orders is the
+// block's own reads of the buffer, done before; a release at cluster scope
+// from a thread that issues bulk copies cost it a copy's latency each)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+// contiguous bytes into the same offset of every block of `mask`, completed
+// on each block's mbarrier at the same offset
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, unsigned bytes,
+                                                    uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(ffn::kThreads, 1)
-ffn_wide_kernel(const __grid_constant__ WideArgs<T> a) {
+// `bytes` of the image into the buffer at dst, its `use`-th fill, once the
+// block is done with the buffer's previous contents: the block arms the
+// buffer's full barrier; in a cluster the other blocks tell rank 0 on its
+// cluster-free barrier, and rank 0 issues the copy to every block in one
+// multicast once all of them did. (Issuing a bulk copy costs its thread
+// about 150 cycles, whatever its size, and one SM's copies land at up to
+// about 70 bytes a cycle alone, about 26 with every SM reading L2:
+// scripts/probe_bulk_copy.cu. So few, large copies.)
+__device__ __forceinline__ void wide_issue(const uint8_t* src, int bytes, uint32_t dst,
+                                           uint32_t full, uint32_t clfree, unsigned use,
+                                           unsigned m, unsigned rank) {
+  ffn::mbar_expect_tx(full, bytes);
+  if (m == 1) {
+    ffn::bulk_load(dst, src, bytes, full);
+  } else if (rank != 0) {
+    mbar_arrive_cluster(clfree, 0);
+  } else {
+    mbar_arrive(clfree);
+    ffn::mbar_wait(clfree, use & 1);
+    bulk_load_multicast(dst, src, bytes, full, static_cast<uint16_t>((1u << m) - 1));
+  }
+}
+
+// 8 consecutive values of z (16 bytes in bf16, 32 in f32) as raw words,
+// and as floats
+template <typename T> struct Piece {
+  uint4 w[sizeof(T) / 2];
+};
+template <typename T> __device__ __forceinline__ Piece<T> load_piece(const T* p) {
+  Piece<T> x;
+#pragma unroll
+  for (int h = 0; h < static_cast<int>(sizeof(T)) / 2; ++h) x.w[h] = reinterpret_cast<const uint4*>(p)[h];
+  return x;
+}
+template <typename T> __device__ __forceinline__ void unpack_piece(const Piece<T>& x, float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    const float* f = reinterpret_cast<const float*>(x.w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = f[e];
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(x.w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  }
+}
+
+// The prologue, on the 256 consumer threads: LN1's statistics of the
+// window rows (item rows t0 - lpad ..), then per 64-channel box the t1
+// window (rounded to T, zero outside [0, T)) and the depthwise taps into h0
+// (rounded to T): bf16 into the swizzled K-major tile, f32 into rows of C
+// with swz32 columns. Its reads of z are latency-bound, so they are issued
+// together: a warp's statistics take RG rows at once, 16-byte pieces a
+// lane, and each box's z pieces are loaded into registers while the
+// previous box's taps run (kWidePieces a thread at most: W 8 <= 2048).
+constexpr int kWidePieces = 8;
+
+template <typename T, int C, int R>
+__device__ __forceinline__ void wide_prologue(const WideArgs<T>& a, uint8_t* smem, int h0_at,
+                                              float* win, float2* stats, int t0) {
   using namespace ffn;
-  constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int R = kWideRows, FC = kWideFC, HLD = wide_hld<T, C>();
-  constexpr int NT = C / 32;    // ff: n8 tiles a warp
-  constexpr int NC = C / 32;    // channels lane + 32 i of a row
-  constexpr int kNR = 16;       // depthwise rows a work item
-  constexpr int PB = wide_piece_bytes<T, C>();
-  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int NR = R / 8;                           // depthwise rows a thread
+  constexpr int NP = C / 8, NI = (NP + 31) / 32;      // a row's pieces; a lane's
+  constexpr int RG = sizeof(T) == 4 ? 2 : 4;          // rows a warp's statistics take at once
   const int k = a.k, T_len = a.T_len, lpad = (k - 1) / 2, W = R + k - 1;
-  T* h0 = reinterpret_cast<T*>(smem);
-  uint8_t* region = smem + R * HLD * sizeof(T);
-  float* t1 = reinterpret_cast<float*>(region);
-  float2* stats = reinterpret_cast<float2*>(region + wide_region<T, C>(k));
-  const int b = blockIdx.y, t0 = blockIdx.x * R;
-  const int nchunks = a.F / FC;
-  const T* zb = a.z + static_cast<size_t>(b) * T_len * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* zb = a.z + static_cast<size_t>(blockIdx.y) * T_len * C;
   const float* g1 = a.lnp;
   const float* be1 = a.lnp + C;
-  const float* g2 = a.lnp + 2 * C;
-  const float* be2 = a.lnp + 3 * C;
   const float* bd = a.lnp + 4 * C;
-  const float* b2f = a.lnp + 5 * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-
-  // 1. LN1 over the window (rows t0 - lpad ..), a row a warp, rounded to T
-  for (int r = warp; r < W; r += ffn::kThreads / 32) {
-    const int gr = t0 - lpad + r;
-    const bool in = gr >= 0 && gr < T_len;
-    float v[NC], s = 0.0f, s2 = 0.0f;
+  auto inside = [&](int r) { return t0 - lpad + r >= 0 && t0 - lpad + r < T_len; };
+  for (int r0 = warp; r0 < W; r0 += 8 * RG) {
+    Piece<T> x[RG][NI];
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      v[i] = in ? lfs2::to_f(zb[static_cast<size_t>(gr) * C + lane + 32 * i]) : 0.0f;
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
+    for (int q = 0; q < RG; ++q)
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      t1[r * C + c] = in ? lfs2::round_to<T>(ln_apply(v[i], mean, inv, g1[c], be1[c])) : 0.0f;
+      for (int i = 0; i < NI; ++i) {
+        const int r = r0 + 8 * q, p = lane + 32 * i;
+        if (r < W && p < NP && inside(r)) x[q][i] = load_piece(zb + static_cast<size_t>(t0 - lpad + r) * C + 8 * p);
+        else x[q][i] = Piece<T>{};
+      }
+#pragma unroll
+    for (int q = 0; q < RG; ++q) {
+      float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        float v[8];
+        unpack_piece(x[q][i], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s += v[e];
+          s2 += v[e] * v[e];
+        }
+      }
+      s = lfs2::warp_sum(s);
+      s2 = lfs2::warp_sum(s2);
+      const float mean = s / C;
+      if (lane == 0 && r0 + 8 * q < W)
+        stats[r0 + 8 * q] = make_float2(mean, rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps));
     }
-    if (lane == 0) stats[r] = make_float2(mean, inv);
   }
-  __syncthreads();
-
-  // 2. depthwise: h0[r][c] = sum_j t1[r + j][c] wd[j][c] + bd[c], rounded to
-  //    T; a work item is 16 rows by 2 channels, taps 8 at a time
-  for (int u = threadIdx.x; u < (R / kNR) * (C / 2); u += ffn::kThreads) {
-    const int c = 2 * (u % (C / 2)), r0 = kNR * (u / (C / 2));
-    float2 acc[kNR];
+  // a thread's pieces of a box: window row u / 8, channels 8 (u % 8) .. of
+  // the box, u = threadIdx.x + 256 q
+  Piece<T> zp[kWidePieces];
+  auto load_box = [&](int cb) {
 #pragma unroll
-    for (int i = 0; i < kNR; ++i) acc[i] = make_float2(0.0f, 0.0f);
+    for (int q = 0; q < kWidePieces; ++q) {
+      const int u = threadIdx.x + 256 * q, r = u >> 3;
+      if (r < W && inside(r)) zp[q] = load_piece(zb + static_cast<size_t>(t0 - lpad + r) * C + 64 * cb + 8 * (u & 7));
+      else zp[q] = Piece<T>{};
+    }
+  };
+  load_box(0);
+  named_sync(2);  // the statistics are complete
+  const int cp = 2 * lane, r0 = NR * warp;
+  for (int cb = 0; cb < C / 64; ++cb) {
+#pragma unroll
+    for (int q = 0; q < kWidePieces; ++q) {
+      const int u = threadIdx.x + 256 * q, r = u >> 3, c = 8 * (u & 7);
+      if (r >= W) break;
+      float v[8], o[8], gv[8], bv[8];
+      unpack_piece(zp[q], v);
+      lfs2::load_vec<8>(g1 + 64 * cb + c, gv);
+      lfs2::load_vec<8>(be1 + 64 * cb + c, bv);
+      const float2 st = stats[r];
+      const bool in = inside(r);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = in ? lfs2::round_to<T>(ln_apply(v[e], st.x, st.y, gv[e], bv[e])) : 0.0f;
+      *reinterpret_cast<float4*>(win + r * 64 + c) = make_float4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<float4*>(win + r * 64 + c + 4) = make_float4(o[4], o[5], o[6], o[7]);
+    }
+    named_sync(2);
+    if (cb + 1 < C / 64) load_box(cb + 1);  // in flight while the taps run
+    // h0[r][c] = sum_j t1[r + j][c] wd[j][c] + bd[c]: NR rows by a channel
+    // pair a thread, taps 8 at a time over a register window
+    const int c = 64 * cb + cp;
+    float2 acc[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[i] = make_float2(0.0f, 0.0f);
     for (int j0 = 0; j0 < k; j0 += 8) {
-      float2 w[8], x[kNR + 7];
+      float2 w[8], x[NR + 7];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
         w[jj] = j0 + jj < k ? __ldg(reinterpret_cast<const float2*>(a.wd + (j0 + jj) * C + c))
                             : make_float2(0.0f, 0.0f);
 #pragma unroll
-      for (int q = 0; q < kNR + 7; ++q) {
+      for (int q = 0; q < NR + 7; ++q) {
         const int rr = r0 + j0 + q;
-        x[q] = rr < W ? *reinterpret_cast<const float2*>(t1 + rr * C + c) : make_float2(0.0f, 0.0f);
+        x[q] = rr < W ? *reinterpret_cast<const float2*>(win + rr * 64 + cp) : make_float2(0.0f, 0.0f);
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-        for (int i = 0; i < kNR; ++i) {
+        for (int i = 0; i < NR; ++i) {
           acc[i].x += x[i + jj].x * w[jj].x;
           acc[i].y += x[i + jj].y * w[jj].y;
         }
     }
     const float2 bias = *reinterpret_cast<const float2*>(bd + c);
 #pragma unroll
-    for (int i = 0; i < kNR; ++i) {
+    for (int i = 0; i < NR; ++i) {
+      const int r = r0 + i;
       const float hx = acc[i].x + bias.x, hy = acc[i].y + bias.y;
-      if constexpr (kF32)
-        *reinterpret_cast<float2*>(h0 + (r0 + i) * C + swz32(r0 + i, c)) = make_float2(hx, hy);
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(smem + h0_at + (r * C + swz32(r, c)) * 4) = make_float2(hx, hy);
       else
-        *reinterpret_cast<uint32_t*>(h0 + (r0 + i) * HLD + c) = pack_bf16(hx, hy);
+        *reinterpret_cast<uint32_t*>(smem + h0_at + swz(r, c, R)) = pack_bf16(hx, hy);
     }
+    if constexpr (sizeof(T) != 4) fence_proxy_async();  // h0 is read by wgmma
+    named_sync(2);  // the window is free again; after the last box h0 is complete
   }
-  __syncthreads();  // h0 is complete and the window is free for the staging
+}
 
-  const int um = warp & 1, un = warp >> 1;   // up warp: rows 16 um, n8 tile un
-  const int fm = warp >> 2, fn = warp & 3;   // ff warp: rows 16 fm, n8 tiles fn NT ..
-  float ff[NT][4];
+// a wgmma accumulator (rows r and r + 8; columns c + 8 q, + 1) into rows of
+// C f32, rows below `rows` only
+template <int C, int N>
+__device__ __forceinline__ void store_acc(float* dst, const float (&acc)[N], int r, int c, int rows) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int q = 0; q < N / 4; ++q)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ff[nt][e] = 0.0f;
-
-  for (int i = 0; i < nchunks; ++i) {
-    const uint8_t* w1p = a.img + (static_cast<size_t>(i) * 2) * PB;
-    const uint8_t* w2p = w1p + PB;
-    uint8_t* stage = region + (i & 1) * wide_stage_bytes<T, C>();
-    float up[4];
-    if constexpr (kF32) {
-      float upt[1][4];
-      rows_x_piece<C, 1, FC / 8>(upt, reinterpret_cast<const float*>(h0), 16 * um,
-                                 reinterpret_cast<const float4*>(w1p), un, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) up[e] = upt[0][e];
-    } else {
-      // two accumulators (even and odd k-steps): two independent mma chains
-      float u2[2][4] = {};
-      const T* x0 = h0 + (16 * um + g) * HLD + 2 * t;
-      const T* x1 = x0 + 8 * HLD;
-      const uint2* wp = reinterpret_cast<const uint2*>(w1p);
-#pragma unroll 4
-      for (int s = 0; s < C / 16; ++s) {
-        const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(x0 + 16 * s),
-                                *reinterpret_cast<const uint32_t*>(x1 + 16 * s),
-                                *reinterpret_cast<const uint32_t*>(x0 + 16 * s + 8),
-                                *reinterpret_cast<const uint32_t*>(x1 + 16 * s + 8)};
-        const uint2 bv = __ldg(wp + (s * (FC / 8) + un) * 32 + lane);
-        const uint32_t bf[2] = {bv.x, bv.y};
-        lfs2::mma_bf16(u2[s & 1], af, bf);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) up[e] = u2[0][e] + u2[1][e];
-    }
-    // + b1, relu, rounded, into staging buffer i % 2 (every warp read buffer
-    // (i - 2) % 2 before the last chunk's barrier)
-    {
-      const int f = i * FC + 8 * un + 2 * t;
-      const float2 bb = *reinterpret_cast<const float2*>(a.b1 + f);
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = lfs2::round_to<T>(fmaxf(up[e] + ((e & 1) ? bb.y : bb.x), 0.0f));
-      if constexpr (kF32) {
-        store_a_frag(reinterpret_cast<float4*>(stage) + ((un * (R / 16) + um) * 32 + lane) * 2, v);
-      } else {
-        T* st = reinterpret_cast<T*>(stage);
-        const int r = 16 * um + g, c = 8 * un + 2 * t;
-        *reinterpret_cast<uint32_t*>(st + r * kWideStageLd + c) = pack_bf16(v[0], v[1]);
-        *reinterpret_cast<uint32_t*>(st + (r + 8) * kWideStageLd + c) = pack_bf16(v[2], v[3]);
-      }
-    }
-    __syncthreads();  // the chunk's up staging is complete
-    if constexpr (kF32) {
-      // in groups of four n8 tiles, so that a group's partial sums and B
-      // fragments stay few beside the accumulator
-      constexpr int NG = 4;
-#pragma unroll
-      for (int gi = 0; gi < NT / NG; ++gi) {
-        float acc[1][NG][4];
-#pragma unroll
-        for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.0f;
-        frags_x_piece<1, NG, FC / 8, R / 16, C / 8>(acc, reinterpret_cast<const float4*>(stage),
-                                                    fm, reinterpret_cast<const float4*>(w2p),
-                                                    fn * NT + gi * NG, lane);
-#pragma unroll
-        for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ff[gi * NG + nt][e] += acc[0][nt][e];
-      }
-    } else {
-      const T* st = reinterpret_cast<const T*>(stage) + (16 * fm + g) * kWideStageLd + 2 * t;
-      const uint2* wp = reinterpret_cast<const uint2*>(w2p);
-#pragma unroll
-      for (int s = 0; s < FC / 16; ++s) {
-        const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(st + 16 * s),
-                                *reinterpret_cast<const uint32_t*>(st + 8 * kWideStageLd + 16 * s),
-                                *reinterpret_cast<const uint32_t*>(st + 16 * s + 8),
-                                *reinterpret_cast<const uint32_t*>(st + 8 * kWideStageLd + 16 * s + 8)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint2 bv = __ldg(wp + (s * (C / 8) + fn * NT + nt) * 32 + lane);
-          const uint32_t bf[2] = {bv.x, bv.y};
-          lfs2::mma_bf16(ff[nt], af, bf);
-        }
-      }
-    }
-  }
-
-  // the epilogue: ff + b2f into an f32 row buffer over the region (free once
-  // every warp left the loop), then LN2 a row a warp
-  __syncthreads();
-  constexpr int RLD = C + 4;
-  float* rows = reinterpret_cast<float*>(region);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = 8 * (fn * NT + nt) + 2 * t;
-    const float2 bb = *reinterpret_cast<const float2*>(b2f + c);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * fm + g + 8 * h;
-      *reinterpret_cast<float2*>(rows + r * RLD + c) =
-          make_float2(ff[nt][2 * h] + bb.x, ff[nt][2 * h + 1] + bb.y);
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < R && t0 + r < T_len; r += ffn::kThreads / 32) {
-    const size_t at = (static_cast<size_t>(b) * T_len + t0 + r) * C;
-    const float2 st = stats[r + lpad];
-    float v[NC], s = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      // res = t1 + ff, with t1 formed again from z and LN1's row statistics
-      v[i] = rows[r * RLD + c] +
-             lfs2::round_to<T>(ln_apply(lfs2::to_f(a.z[at + c]), st.x, st.y, g1[c], be1[c]));
-      s += v[i];
-      s2 += v[i] * v[i];
-    }
-    s = lfs2::warp_sum(s);
-    s2 = lfs2::warp_sum(s2);
-    const float mean = s / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.0f) + a.eps);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      a.out[at + c] = lfs2::from_f<T>(ln_apply(v[i], mean, inv, g2[c], be2[c]));
-    }
-  }
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < rows)
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(r + 8 * h) * C + c + 8 * q) =
+            make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
 }
 
 template <typename T, int C>
-cudaError_t wide_launch(const WideArgs<T>& a, int B, cudaStream_t stream) {
-  const int smem = wide_smem<T, C>(a.k);
-  if (a.k < 1 || smem > ffn::kMaxSmem || a.F % kWideFC != 0) return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(WideGeo<T, C>::THREADS, 1)
+ffn_wide_kernel(const __grid_constant__ WideArgs<T> a) {
+  using namespace ffn;
+  using G = WideGeo<T, C>;
+  constexpr int R = G::R, NS = G::NS, TPC = G::TPC, TILE = G::TILE;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const int k = a.k;
+  const uint32_t bars = base + G::bars_at(k);  // full[NS], clfree[NS], empty[NS]
+  auto full = [bars](int s) { return bars + 8 * s; };
+  auto clfree = [bars](int s) { return bars + 8 * (NS + s); };
+  auto empty = [bars](int s) { return bars + 8 * (2 * NS + s); };
+  const int b = blockIdx.y, t0 = blockIdx.x * R, split = blockIdx.z;
+  const int nch = a.F / kWideFC, c0 = split * a.per, n = min(nch - c0, a.per);
+  const unsigned m = cluster_nctarank(), rank = cluster_ctarank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint8_t* src = a.img + static_cast<size_t>(c0) * TPC * TILE;
+  constexpr int NB = G::NB;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(clfree(s), m);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync_all();
+
+  // f32: the producer warp streams the split's tiles through the ring, tile
+  // j into slot j % NS once the eight warps released tile j - NS
+  if constexpr (G::kF32) {
+    if (warp == 8) {
+      if (lane == 0)
+        for (int j = 0; j < n * TPC; ++j) {
+          if (j >= NS) mbar_wait(empty(j % NS), (j / NS - 1) & 1);
+          wide_issue(src + static_cast<size_t>(j) * TILE, TILE, base + (j % NS) * TILE,
+                     full(j % NS), clfree(j % NS), j / NS, m, rank);
+        }
+      __syncwarp();
+      cluster_sync_all();
+      return;
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+  // bf16: a warpgroup's share of the channels; warpgroup 0 also forms the
+  // up chunks. A buffer is read by one warpgroup, which refills it: W1
+  // double-buffered (chunk c in buffer c % 2, barrier group c % 2), each
+  // warpgroup's W2f boxes (group 2 + warpgroup) single, each part one copy.
+  constexpr int NH = C / 2, NA = NH >= 256 ? 256 : 128, NX = NH - NA, BPW = NH / 64;
+  constexpr int CHUNK = TPC * TILE;
+  const int wg = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  auto issue_w1 = [&](int c) {
+    wide_issue(src + static_cast<size_t>(c) * CHUNK, NB * TILE,
+               base + ((c & 1) ? G::WIN_AT : G::W1A_AT), full(c & 1), clfree(c & 1), c >> 1, m,
+               rank);
+  };
+  auto issue_w2 = [&](int c) {
+    wide_issue(src + static_cast<size_t>(c) * CHUNK + (NB + wg * BPW) * TILE, BPW * TILE,
+               base + G::W2_AT + wg * BPW * TILE, full(2 + wg), clfree(2 + wg), c, m, rank);
+  };
+  if constexpr (!G::kF32) {
+    if (wt == 0) {
+      if (wg == 0) issue_w1(0);
+      issue_w2(0);
+    }
+    __syncwarp();
+  }
+  FFN_CLOCK(tp);
+  wide_prologue<T, C, R>(a, smem, G::H0_AT, reinterpret_cast<float*>(smem + G::WIN_AT),
+                         reinterpret_cast<float2*>(smem + G::stats_at(k)), t0);
+  FFN_PHASE(0, tp);  // prologue
+  float* dst = a.part + ((static_cast<size_t>(split) * gridDim.y + b) * a.T_len + t0) * C;
+  const int rows_in = a.T_len - t0;  // rows of the tile inside the item
+
+  if constexpr (!G::kF32) {
+    if (wg == 0 && wt == 0 && n > 1) issue_w1(1);  // into W1 buffer B, the window until now
+    __syncwarp();
+    const int rl = 16 * (wt >> 5) + g;
+    float ffa[NA / 2], ffx[NX > 0 ? NX / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < NA / 2; ++i) ffa[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < (NX > 0 ? NX / 2 : 1); ++i) ffx[i] = 0.0f;
+    const uint32_t h0d = desc(base + G::H0_AT);
+    for (int i = 0; i < n; ++i) {
+      const int stage_at = G::STAGE_AT + (i & 1) * G::STAGE;
+      if (wg == 0) {
+        float up[16];
+        float2 bb[4];  // b1 of the thread's columns, loaded while the product runs
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          bb[q] = *reinterpret_cast<const float2*>(a.b1 + (c0 + i) * kWideFC + 8 * q + 2 * t);
+        mbar_wait(full(i & 1), (i >> 1) & 1);
+        FFN_PHASE(1, tp);  // waiting for W1
+        wgmma_fence();
+        {
+          const uint32_t w1d = opaque(desc(base + ((i & 1) ? G::WIN_AT : G::W1A_AT)));
+          const uint32_t ad = opaque(h0d);
+#pragma unroll
+          for (int kk = 0; kk < 4 * NB; ++kk)
+            SsOp<32>::run<0, 0>(up, kmajor(ad, R, 0, kk), w1d + ((kk >> 2) * TILE + (kk & 3) * 32) / 16,
+                                kk != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(up);
+        FFN_PHASE(2, tp);  // up product
+        // + b1, relu, rounded: the down product's A, K-major
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = lfs2::round_to<T>(fmaxf(up[4 * q + e] + ((e & 1) ? bb[q].y : bb[q].x), 0.0f));
+          *reinterpret_cast<uint32_t*>(smem + stage_at + swz(rl, 8 * q + 2 * t, R)) = pack_bf16(v[0], v[1]);
+          *reinterpret_cast<uint32_t*>(smem + stage_at + swz(rl + 8, 8 * q + 2 * t, R)) = pack_bf16(v[2], v[3]);
+        }
+        fence_proxy_async();
+        FFN_PHASE(3, tp);  // up epilogue
+      }
+      named_sync(1);  // the chunk's up staging is complete
+      FFN_PHASE(4, tp);  // waiting for the staging
+      mbar_wait(full(2 + wg), i & 1);
+      FFN_PHASE(5, tp);  // waiting for W2f
+      wgmma_fence();
+      {
+        const uint32_t sd = opaque(desc(base + stage_at));
+        const uint32_t wa = opaque(desc(base + G::W2_AT + wg * BPW * TILE, TILE));
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) SsOp<NA>::template run<0, 1>(ffa, kmajor(sd, R, 0, kk), mnmajor(wa, kk), 1);
+        if constexpr (NX > 0) {
+          const uint32_t wx = opaque(desc(base + G::W2_AT + (wg * BPW + NA / 64) * TILE, TILE));
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) SsOp<64>::run<0, 1>(ffx, kmajor(sd, R, 0, kk), mnmajor(wx, kk), 1);
+        }
+      }
+      wgmma_commit();
+      // W1 buffer i % 2 is free (up(i) is done): chunk i + 2, while the
+      // down product runs
+      if (wg == 0 && wt == 0 && i + 2 < n) issue_w1(i + 2);
+      __syncwarp();
+      wgmma_wait<0>();
+      hold(ffa);
+      hold(ffx);
+      FFN_PHASE(6, tp);  // down product
+      if (wt == 0 && i + 1 < n) issue_w2(i + 1);  // the warpgroup's boxes of the next chunk
+      __syncwarp();
+    }
+    // the split's partial sums, rows inside the item only
+    store_acc<C>(dst, ffa, rl, wg * NH + 2 * t, rows_in);
+    if constexpr (NX > 0) store_acc<C>(dst, ffx, rl, wg * NH + NA + 2 * t, rows_in);
+  } else {
+    // eight warps of split-TF32 mma.sync: per chunk
+    //   up (32 x 32) = h0 @ W1 part   warps 2 x 4: 16 rows by the chunk's 32
+    //                                 columns over every fourth W1 slab (a
+    //                                 quarter of K), the quarters added in
+    //                                 order in shared memory
+    //   + b1, relu, split into the down product's A fragments (staging)
+    //   ff (32 x C) += up @ W2f part  warps 2 x 4 of 16 rows by the n8
+    //                                 tiles 8 nb + fn, + 4 of each box nb
+    // every product sums at most 64 k indices from zero and adds them in
+    // f32; every warp releases every slot it passed
+    const int um = warp & 1, kq = warp >> 1;
+    auto release = [&](int j) {  // the warp is done with tile j
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(j % NS));
+    };
+    const float* h0f = reinterpret_cast<const float*>(smem + G::H0_AT);
+    float4* parts = reinterpret_cast<float4*>(smem + G::WIN_AT);  // [kq][um][n8 tile][lane]
+    const int ra = 16 * um + g;
+    float ff[C / 32][4];
+#pragma unroll
+    for (int q = 0; q < C / 32; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ff[q][e] = 0.0f;
+    for (int i = 0, j = 0; i < n; ++i, j += TPC) {
+      float4* stage = reinterpret_cast<float4*>(smem + G::STAGE_AT + (i & 1) * G::STAGE);
+      float4* mine = parts + (kq * 2 + um) * 4 * 32 + lane;  // this warp's partials
+#pragma unroll 1
+      for (int kb = 0; kb < NB; ++kb) {
+        const int s = (j + kb) % NS;
+        FFN_PHASE(2, tp);  // up product
+        mbar_wait(full(s), ((j + kb) / NS) & 1);
+        FFN_PHASE(1, tp);  // waiting for W1
+        if ((kb & 3) == kq) {
+          const float4* slab = reinterpret_cast<const float4*>(smem + s * TILE);
+          float tc[4][4] = {};
+#pragma unroll
+          for (int st = 0; st < 8; ++st) {
+            const int col = 64 * kb + 8 * st + 2 * t;
+            const float2 a0 = *reinterpret_cast<const float2*>(h0f + ra * C + swz32(ra, col));
+            const float2 a1 = *reinterpret_cast<const float2*>(h0f + (ra + 8) * C + swz32(ra + 8, col));
+            uint32_t ah[4], al[4];
+            lfs2::split_a(a0.x, a1.x, a0.y, a1.y, ah, al);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              uint32_t bh[2], bl[2];
+              lfs2::frag_b(slab[(st * 4 + nt) * 32 + lane], bh, bl);
+              lfs2::mma3(tc[nt], ah, al, bh, bl);
+            }
+          }
+          // the slab's sums into the warp's partials in shared memory (kept
+          // in registers beside ff they would spill at C = 640)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            float4 p = make_float4(tc[nt][0], tc[nt][1], tc[nt][2], tc[nt][3]);
+            if (kb != kq) {
+              const float4 q = mine[nt * 32];
+              p = make_float4(q.x + p.x, q.y + p.y, q.z + p.z, q.w + p.w);
+            }
+            mine[nt * 32] = p;
+          }
+        }
+        release(j + kb);
+      }
+      named_sync(1);  // the chunk's K-quarter partials are complete
+      {
+        // warp w: n8 tile w / 2 of m16 tile w % 2, the quarters added in
+        // order, + b1, relu, into staging i % 2 as the down product's A
+        const int nt = warp >> 1;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 p = parts[((q * 2 + um) * 4 + nt) * 32 + lane];
+          v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
+        }
+        const float2 bb = *reinterpret_cast<const float2*>(a.b1 + (c0 + i) * kWideFC + 8 * nt + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fmaxf(v[e] + ((e & 1) ? bb.y : bb.x), 0.0f);
+        store_a_frag(stage + ((nt * (R / 16) + um) * 32 + lane) * 2, v);
+      }
+      FFN_PHASE(3, tp);  // up epilogue
+      named_sync(1);  // the chunk's up staging is complete
+      FFN_PHASE(4, tp);  // waiting for the staging
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const float4* p = stage + ((st * (R / 16) + um) * 32 + lane) * 2;
+        const float4 h = p[0], l = p[1];
+        ah[st][0] = __float_as_uint(h.x), ah[st][1] = __float_as_uint(h.y);
+        ah[st][2] = __float_as_uint(h.z), ah[st][3] = __float_as_uint(h.w);
+        al[st][0] = __float_as_uint(l.x), al[st][1] = __float_as_uint(l.y);
+        al[st][2] = __float_as_uint(l.z), al[st][3] = __float_as_uint(l.w);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int s = (j + NB + nb) % NS;
+        FFN_PHASE(6, tp);  // down product
+        mbar_wait(full(s), ((j + NB + nb) / NS) & 1);
+        FFN_PHASE(5, tp);  // waiting for W2f
+        const float4* slab = reinterpret_cast<const float4*>(smem + s * TILE);
+        float tc[2][4] = {};
+#pragma unroll
+        for (int st = 0; st < 4; ++st)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t bh[2], bl[2];
+            lfs2::frag_b(slab[(st * 8 + kq + 4 * h) * 32 + lane], bh, bl);
+            lfs2::mma3(tc[h], ah[st], al[st], bh, bl);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ff[2 * nb + h][e] += tc[h][e];
+        release(j + NB + nb);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C / 32; ++q) {
+      const int c = 8 * (8 * (q >> 1) + kq + 4 * (q & 1)) + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 8 * h;
+        if (r < rows_in)
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * C + c) = make_float2(ff[q][2 * h], ff[q][2 * h + 1]);
+      }
+    }
+  }
+  FFN_PHASE(7, tp);  // partial sums stored
+  FFN_FLUSH();
+  __syncwarp();
+  cluster_sync_all();  // no block leaves while a multicast or an arrival may still reach it
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(ffn::pack_bf16(v[0], v[1]), ffn::pack_bf16(v[2], v[3]));
+}
+
+// The warps an LN2 row takes: up to 8, so that a row's S split partials
+// are read by as many warps at once (S / WR each, in split order); the
+// block's 8 warps take 8 / WR rows (ops/ffn.py _wide_ln2_warps)
+__host__ __device__ constexpr int wide_ln2_warps(int splits) {
+  return splits >= 8 ? 8 : splits >= 4 ? 4 : splits >= 2 ? 2 : 1;
+}
+
+// ffn_wide_ln2_kernel<T, C>: WR warps a row, channels 4 (lane + 32 i) .. +
+// 3 a lane; warp p of a row adds splits p, p + WR, .. in order, and the
+// row's first warp adds the WR sums in warp order (shared memory), + b2f;
+// the residual's t1 formed again from z (LN1's statistics taken again);
+// LN2 into out. The order is fixed, so a launch's bits repeat.
+template <typename T, int C>
+__global__ void __launch_bounds__(256, 1)
+ffn_wide_ln2_kernel(const T* __restrict__ z, T* __restrict__ out, const float* __restrict__ part,
+                    const float* __restrict__ lnp, int rows, int splits, float eps) {
+  constexpr int NV = C / 128;
+  __shared__ float4 sums[8][NV * 32];
+  const int wr = wide_ln2_warps(splits), warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (8 / wr) + warp / wr, p = warp % wr;
+  float v[NV][4] = {};
+  if (row < rows) {
+#pragma unroll 4
+    for (int sp = p; sp < splits; sp += wr)
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        float q[4];
+        load4(part + (static_cast<size_t>(sp) * rows + row) * C + 4 * (lane + 32 * i), q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][e] += q[e];
+      }
+  }
+  if (wr > 1) {
+    if (p > 0)
+#pragma unroll
+      for (int i = 0; i < NV; ++i) sums[warp][lane + 32 * i] = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+    __syncthreads();
+    if (p > 0) return;
+    for (int w = 1; w < wr; ++w)
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float4 q = sums[warp + w][lane + 32 * i];
+        v[i][0] += q.x, v[i][1] += q.y, v[i][2] += q.z, v[i][3] += q.w;
+      }
+  }
+  if (row >= rows) return;
+  const float* g1 = lnp;
+  const float* be1 = lnp + C;
+  const float* g2 = lnp + 2 * C;
+  const float* be2 = lnp + 3 * C;
+  const float* b2f = lnp + 5 * C;
+  float zv[NV][4], s = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    load4(z + static_cast<size_t>(row) * C + 4 * (lane + 32 * i), zv[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s += zv[i][e];
+      s2 += zv[i][e] * zv[i][e];
+    }
+  }
+  s = lfs2::warp_sum(s);
+  s2 = lfs2::warp_sum(s2);
+  const float mean1 = s / C, inv1 = rsqrtf(fmaxf(s2 / C - mean1 * mean1, 0.0f) + eps);
+  s = s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * (lane + 32 * i) + e;
+      v[i][e] = (v[i][e] + b2f[c]) +
+                lfs2::round_to<T>(ffn::ln_apply(zv[i][e], mean1, inv1, g1[c], be1[c]));
+      s += v[i][e];
+      s2 += v[i][e] * v[i][e];
+    }
+  s = lfs2::warp_sum(s);
+  s2 = lfs2::warp_sum(s2);
+  const float mean2 = s / C, inv2 = rsqrtf(fmaxf(s2 / C - mean2 * mean2, 0.0f) + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * (lane + 32 * i) + e;
+      o[e] = ffn::ln_apply(v[i][e], mean2, inv2, g2[c], be2[c]);
+    }
+    store4(out + static_cast<size_t>(row) * C + 4 * (lane + 32 * i), o);
+  }
+}
+
+// the resident clusters of a launch configuration
+// (cudaOccupancyMaxActiveClusters), asked once per kernel, shared memory and
+// cluster size; -1 where the query fails
+struct ClusterOccupancy {
+  const void* fn;
+  int smem, cluster, n;
+};
+ClusterOccupancy g_occupancy[64];
+int g_n_occupancy = 0;
+
+int max_active_clusters(const void* fn, const cudaLaunchConfig_t& cfg, int cluster) {
+  const int smem = static_cast<int>(cfg.dynamicSmemBytes);
+  for (int i = 0; i < g_n_occupancy; ++i)
+    if (g_occupancy[i].fn == fn && g_occupancy[i].smem == smem && g_occupancy[i].cluster == cluster)
+      return g_occupancy[i].n;
+  int n = -1;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    n = -1;
+    cudaGetLastError();  // the query's error is not the launch's
+  }
+  if (g_n_occupancy < 64) g_occupancy[g_n_occupancy++] = {fn, smem, cluster, n};
+  return n;
+}
+
+template <typename T, int C>
+cudaError_t wide_launch(WideArgs<T> a, T* out, int B, int splits, int cluster, cudaStream_t stream) {
+  using G = WideGeo<T, C>;
+  const int smem = G::smem(a.k), nch = a.F / kWideFC;
+  if (a.k < 1 || smem > ffn::kMaxSmem || (G::R + a.k - 1) * 8 > 256 * kWidePieces ||
+      a.F % kWideFC != 0 || splits < 1 || splits > nch ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8))
+    return cudaErrorInvalidValue;
+  a.per = (nch + splits - 1) / splits;
+  if ((splits - 1) * a.per >= nch) return cudaErrorInvalidValue;  // a split without chunks
   auto kernel = ffn_wide_kernel<T, C>;
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T_len + kWideRows - 1) / kWideRows, B);
-  kernel<<<grid, ffn::kThreads, smem, stream>>>(a);
-  return record_launch(grid, smem, kWideRows);
+  const int tiles = (a.T_len + G::R - 1) / G::R;
+  const dim3 grid((tiles + cluster - 1) / cluster * cluster, B, splits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(G::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int resident = max_active_clusters(reinterpret_cast<const void*>(kernel), cfg, cluster);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  err = record_launch(grid, smem, G::R, cluster, resident);
+  if (err != cudaSuccess) return err;
+  const int rows = B * a.T_len;
+  const int ln2_rows = 8 / wide_ln2_warps(splits);
+  const dim3 grid2((rows + ln2_rows - 1) / ln2_rows);
+  ffn_wide_ln2_kernel<T, C><<<grid2, 256, 0, stream>>>(a.z, out, a.part, a.lnp, rows,
+                                                                      splits, a.eps);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    g_last_ln2[0] = grid2.x;
+    g_last_ln2[1] = grid2.y;
+    g_last_ln2[2] = grid2.z;
+    g_last_ln2[3] = 0;
+    g_last_ln2[4] = ln2_rows;
+  }
+  return err;
 }
 
 template <typename T>
-cudaError_t wide_dispatch(int C, const WideArgs<T>& a, int B, cudaStream_t s) {
+cudaError_t wide_serve(const void* z, void* out, float* part, const float* wd, const float* b1,
+                       const float* lnp, const void* img, int B, int T_len, int C, int F, int k,
+                       int splits, int cluster, float eps, cudaStream_t s) {
+  WideArgs<T> a{static_cast<const T*>(z), part, wd, static_cast<const uint8_t*>(img), b1, lnp,
+                T_len, F, k, 0, eps};
+  T* o = static_cast<T*>(out);
   switch (C) {
-    case 384: return wide_launch<T, 384>(a, B, s);
-    case 512: return wide_launch<T, 512>(a, B, s);
-    case 640: return wide_launch<T, 640>(a, B, s);
+    case 384: return wide_launch<T, 384>(a, o, B, splits, cluster, s);
+    case 512: return wide_launch<T, 512>(a, o, B, splits, cluster, s);
+    case 640: return wide_launch<T, 640>(a, o, B, splits, cluster, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-static_assert(wide_smem<float, 640>(25) <= ffn::kMaxSmem, "f32 wide tile at k = 25");
-static_assert(wide_smem<__nv_bfloat16, 640>(25) <= ffn::kMaxSmem, "bf16 wide tile at k = 25");
-
-template <typename T>
-cudaError_t wide_serve(const void* z, void* out, const float* wd, const float* b1,
-                       const float* lnp, const void* img, int B, int T_len, int C, int F, int k,
-                       float eps, cudaStream_t s) {
-  WideArgs<T> a{static_cast<const T*>(z), static_cast<T*>(out), wd,
-                static_cast<const uint8_t*>(img), b1, lnp, T_len, F, k, eps};
-  return wide_dispatch<T>(C, a, B, s);
-}
+static_assert(WideGeo<float, 640>::smem(27) <= ffn::kMaxSmem, "f32 wide tile at C = 640, k = 27");
+static_assert(WideGeo<__nv_bfloat16, 640>::smem(43) <= ffn::kMaxSmem, "bf16 wide tile at C = 640, k = 43");
+static_assert(WideGeo<__nv_bfloat16, 640>::STAGE == 64 * 128 && WideGeo<float, 640>::STAGE == 32 * 32 * 8,
+              "an up staging");
 
 FwdArgs bf16_args(const void* z, const float* wd, const void* img, const float* b1,
                   const float* lnp, const int* seed, int T_len, int C, int F, int k, float eps,
@@ -1239,22 +1738,13 @@ FwdArgs bf16_args(const void* z, const float* wd, const void* img, const float* 
 LFS2_DEFINE_ERROR_STRING
 
 // Both routes read the weights from img: bf16 the swizzled image (ops/ffn.py
-// _weight_image), f32 the split pieces (_f32_image); at C > 256 both take
-// ffn_wide_kernel, bf16 reading _wide_image. rows: the rows of one item a
-// block owns (ops/ffn.py ffn_plan): 128 in bf16, 32 or 64 in f32, 32 at
-// C > 256
+// _weight_image), f32 the split pieces (_f32_image). rows: the rows of one
+// item a block owns (ops/ffn.py ffn_plan): 128 in bf16, 32 or 64 in f32
 LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const float* b1,
                             const float* lnp, const void* img, int B, int T_len, int C, int F,
                             int k, int rows, float eps, int dtype, void* stream) {
   if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C > 256) {  // ffn_wide_kernel, both dtypes
-    if (rows != kWideRows) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        dtype == lfs2::kBF16
-            ? wide_serve<__nv_bfloat16>(z, out, wd, b1, lnp, img, B, T_len, C, F, k, eps, s)
-            : wide_serve<float>(z, out, wd, b1, lnp, img, B, T_len, C, F, k, eps, s));
-  }
   if (dtype == lfs2::kBF16) {
     if (rows != ffn::kRows) return static_cast<int>(cudaErrorInvalidValue);
     FwdArgs a = bf16_args(z, wd, img, b1, lnp, nullptr, T_len, C, F, k, eps, 0u, 1.0f);
@@ -1264,6 +1754,24 @@ LFS2_EXPORT int lfs2_ffn_ln(const void* z, void* out, const float* wd, const flo
   F32Args a = f32_args(z, wd, img, b1, lnp, nullptr, T_len, F, k, eps, 0u, 1.0f);
   a.out = static_cast<float*>(out);
   return static_cast<int>(f32_dispatch<false>(C, a, B, rows, s));
+}
+
+// Serving at C = 384, 512 and 640, both dtypes: ffn_wide_kernel into part
+// (splits, B, T, C) f32 scratch, then ffn_wide_ln2_kernel into out. img is
+// ops/ffn.py _wide_image (bf16) or _wide_f32_image (f32); splits and
+// cluster come from ffn_plan.
+LFS2_EXPORT int lfs2_ffn_ln_wide(const void* z, void* out, float* part, const float* wd,
+                                 const float* b1, const float* lnp, const void* img, int B,
+                                 int T_len, int C, int F, int k, int splits, int cluster,
+                                 float eps, int dtype, void* stream) {
+  if (bad_shape(B, T_len, F, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == lfs2::kBF16
+          ? wide_serve<__nv_bfloat16>(z, out, part, wd, b1, lnp, img, B, T_len, C, F, k, splits,
+                                      cluster, eps, s)
+          : wide_serve<float>(z, out, part, wd, b1, lnp, img, B, T_len, C, F, k, splits, cluster,
+                              eps, s));
 }
 
 // seed: one int32 on the device; threshold and inv_keep from the rate
@@ -1324,9 +1832,10 @@ LFS2_EXPORT int lfs2_ffn_ln_phase_clocks(long long* out) {
 }
 #endif
 
-// copies into out[0..4] the grid (x, y, z), shared-memory bytes and rows a
-// block owns of the latest accepted launch; zeros before the first
+// copies into out[0..6] the latest accepted launch (g_last_launch) and into
+// out[7..11] the latest wide LN2 pass (g_last_ln2); zeros before the first
 LFS2_EXPORT int lfs2_ffn_ln_last_launch(int* out) {
-  for (int i = 0; i < 5; ++i) out[i] = g_last_launch[i];
+  for (int i = 0; i < 7; ++i) out[i] = g_last_launch[i];
+  for (int i = 0; i < 5; ++i) out[7 + i] = g_last_ln2[i];
   return 0;
 }

@@ -259,10 +259,22 @@ __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-// d (64 x N) (+)= A (smem) * B (smem), N = 64, 128 or 256; TA / TB: the
+// d (64 x N) (+)= A (smem) * B (smem), N = 32, 64, 128 or 256; TA / TB: the
 // operands' transpose bits (1: MN-major, boxes the descriptor's leading
 // offset apart); scale_d 0 overwrites d
 template <int N> struct SsOp;
+template <> struct SsOp<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float (&d)[16], uint32_t da, uint32_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %19, 0;\n"
+        "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, da, db, p, 1, 1, %20, %21;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(da), "r"(db), "r"(kDescHi), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
 template <> struct SsOp<64> {
   template <int TA, int TB>
   static __device__ __forceinline__ void run(float (&d)[32], uint32_t da, uint32_t db, int scale_d) {

@@ -52,6 +52,7 @@ from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _c_fn = None
+_c_wide = None
 _c_train = None
 _c_chain = None
 _c_bwd = None
@@ -143,6 +144,13 @@ def _fn():
     return _c_fn
 
 
+def _wide_fn():
+    global _c_wide
+    if _c_wide is None:
+        _c_wide = _lib_fn("ffn_ln", "lfs2_ffn_ln_wide", [_P] * 7 + [_I] * 7 + [_F, _I, _P])
+    return _c_wide
+
+
 def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     """LN2(LN1(z) + ConvFFN(LN1(z))) for z (B, T, C) in f32 or bf16.
 
@@ -172,16 +180,26 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
         raise ValueError(f"ffn_ln kernel: k={w.kernel_size} at C={C} needs {plan.smem_bytes} "
                          f"bytes of shared memory (at most {SMEM_LIMIT}) or a t1 window of "
                          f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32)")
+    wide = C in WIDE_C
     if w.img is None:
-        if z.dtype == torch.float32:
-            w.img = _f32_image(w.w1, w.w2f, "fwd")
+        if wide:
+            w.img = (_wide_f32_image if z.dtype == torch.float32 else _wide_image)(w.w1, w.w2f)
         else:
-            w.img = _wide_image(w.w1, w.w2f) if C in WIDE_C else _weight_image(w.w1, w.w2f)
+            w.img = (_f32_image(w.w1, w.w2f, "fwd") if z.dtype == torch.float32
+                     else _weight_image(w.w1, w.w2f))
     out = torch.empty_like(z)
-    lib, fn = _fn()
-    rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.b1.data_ptr(), w.lnp.data_ptr(),
-            w.img.data_ptr(), B, T, C, F, w.kernel_size, plan.rows, w.eps,
-            build.DTYPE_CODES[z.dtype], stream)
+    code = build.DTYPE_CODES[z.dtype]
+    if wide:
+        splits = plan.grid[2]
+        part = torch.empty(splits, B, T, C, dtype=torch.float32, device=z.device)
+        lib, fn = _wide_fn()
+        rc = fn(z.data_ptr(), out.data_ptr(), part.data_ptr(), w.wd.data_ptr(), w.b1.data_ptr(),
+                w.lnp.data_ptr(), w.img.data_ptr(), B, T, C, F, w.kernel_size, splits,
+                plan.cluster, w.eps, code, stream)
+    else:
+        lib, fn = _fn()
+        rc = fn(z.data_ptr(), out.data_ptr(), w.wd.data_ptr(), w.b1.data_ptr(), w.lnp.data_ptr(),
+                w.img.data_ptr(), B, T, C, F, w.kernel_size, plan.rows, w.eps, code, stream)
     build.check(lib, rc, "ffn_ln")
     ffn_ln.launches += 1
     ffn_ln.by_width[C] = ffn_ln.by_width.get(C, 0) + 1
@@ -220,9 +238,9 @@ _BAR_BYTES = 64
 class FFNLaunch:
     """One kernel launch: the kernel, the rows of one batch item a block
     owns, the F columns per weight chunk, the weight-chunk buffers in flight
-    (a W1 and a W2f buffer, each refilled as soon as its chunk is released;
-    0 where the kernel stages no weights), shared memory a block, grid and
-    threads a block."""
+    (a W1 and a W2f buffer each refilled as soon as its chunk is released,
+    or the wide kernel's ring slots; 0 where the kernel stages no weights),
+    shared memory a block, grid, threads a block and cluster size."""
 
     kernel: str
     rows: int
@@ -231,6 +249,7 @@ class FFNLaunch:
     smem_bytes: int
     grid: Tuple[int, int, int]
     threads: int
+    cluster: int = 1  # blocks along grid x that share each weight tile
 
 
 def _cp(C: int) -> int:
@@ -267,18 +286,63 @@ def _f32_dup_smem(R: int, C: int) -> int:
             + 4 * R * _STAGE_LD * 4 + R * _DUP_FC * 4 + _BAR_BYTES)
 
 
-_WIDE_ROWS, _WIDE_FC = 32, 32  # kWideRows, kWideFC
+_WIDE_FC = 32           # kWideFC: F columns a chunk
+_WIDE_F32_SLOTS = 6     # kWideF32Slots
+_WIDE_PIECES = 8        # kWidePieces: z pieces of 8 values a thread holds in the prologue
+# CTAs an H100 holds at once at about 210 KB of shared memory each, by
+# cluster size (clusters of 4: 28, resblock.cu's measured count; the wide
+# launch records cudaOccupancyMaxActiveClusters beside each launch)
+_WIDE_AT_ONCE = {1: SM_COUNT, 2: SM_COUNT, 4: 112}
+
+
+def _wide_geometry(C: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """``WideGeo``: rows a block owns, bytes a weight tile, weight buffers
+    (f32: ring slots; bf16: W1 buffers A and B and each warpgroup's W2f
+    boxes), threads a block (eight warps; f32 also the producer warp)."""
+    if dtype == torch.float32:
+        return 32, 16384, _WIDE_F32_SLOTS, 288
+    return 64, 4096, 4, 256
 
 
 def _wide_smem(C: int, k: int, dtype: torch.dtype) -> int:
-    """``wide_smem``: h0 (f32 rows of C, bf16 rows of C + 8), one region that
-    is the f32 t1 window, the two up stagings or the f32 row buffer, and
-    each window row's LN1 statistics."""
-    f32 = dtype == torch.float32
-    h0 = _WIDE_ROWS * C * 4 if f32 else _WIDE_ROWS * (C + 8) * 2
-    stage = _WIDE_ROWS * _WIDE_FC * 8 if f32 else _WIDE_ROWS * (_WIDE_FC + 8) * 2
-    w = _WIDE_ROWS + k - 1
-    return h0 + max(w * C * 4, _WIDE_ROWS * (C + 4) * 4, 2 * stage) + w * 8
+    """``WideGeo::smem``: 1 KB of alignment, the weight buffers (f32: the
+    ring; bf16: W1 buffer A and the W2f boxes), h0, two up stagings, the
+    region that is the t1 window of a 64-channel box (f32) and then, in
+    f32, the up product's K-quarter partials or, in bf16, W1 buffer B, each
+    window row's LN1 statistics and three mbarriers a buffer."""
+    R, tile, ns, _ = _wide_geometry(C, dtype)
+    w = R + k - 1
+    if dtype == torch.float32:
+        buffers, h0, stage, region = ns * tile, R * C * 4, R * _WIDE_FC * 8, 4 * R * _WIDE_FC * 4
+    else:
+        buffers, h0, stage, region = 2 * (C // 64) * tile, R * C * 2, R * 128, (C // 64) * tile
+    return 1024 + buffers + h0 + 2 * stage + max(w * 64 * 4, region) + w * 8 + 3 * ns * 8
+
+
+def _wide_ln2_warps(splits: int) -> int:
+    """``wide_ln2_warps``: the warps an LN2 row takes (up to 8, each adding
+    every WR-th split), so that a block of 8 warps owns 8 / WR rows."""
+    return 8 if splits >= 8 else 4 if splits >= 4 else 2 if splits >= 2 else 1
+
+
+def _wide_split(B: int, T: int, R: int, nch: int) -> Tuple[int, int, int]:
+    """(grid x, cluster, splits) of a wide launch. A cluster of m row tiles
+    of one item shares each weight copy: up to 4 while B tiles stay below a
+    quarter of the card (the image read about once), else 2 (clusters of 4
+    would not all fit at once), halved while padding grid x to a multiple
+    of m would add more than a quarter of the tiles. F is split so that the
+    blocks come near the CTAs the card holds at once, every split with the
+    same count of chunks but the last."""
+    tiles = -(-T // R)
+    m = 1
+    while m < min(tiles, 2 if B * tiles >= SM_COUNT // 4 else 4):
+        m *= 2
+    while m > 2 and -(-tiles // m) * m - tiles > tiles // 4:
+        m //= 2
+    x = -(-tiles // m) * m
+    splits = max(1, min(nch, _WIDE_AT_ONCE[m] // (B * x)))
+    per = -(-nch // splits)
+    return x, m, -(-nch // per)
 
 
 def _f32_rows(B: int, T: int) -> int:
@@ -293,9 +357,16 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
              mode: str) -> Tuple[FFNLaunch, ...]:
     """Every launch of one call, in order: ``mode`` "serve" (``ffn_ln``),
     "train" (``ffn_ln_train``'s forward) or "bwd" (its backward: the chain,
-    the dup pass, the dt1 pass). Serving at C in ``WIDE_C`` runs
-    ``ffn_wide_kernel`` in both dtypes: 32-row blocks, 32-column F chunks
-    read from L2, no weight buffers. Otherwise bf16 runs the wgmma kernels: 128-row
+    the dup pass, the dt1 pass). Serving at C in ``WIDE_C`` runs, in both
+    dtypes, ``ffn_wide_kernel`` then ``ffn_wide_ln2_kernel``: blocks of 64
+    rows (bf16, wgmma) or 32 (f32, split TF32) that stream the weights once
+    a block, 32 F columns a chunk, by bulk copies (bf16: a W1 part and each
+    warpgroup's W2f boxes a copy; f32: 16 KB slabs through a ring of six),
+    each copy shared by a cluster of 2 or 4 row tiles (multicast); F split
+    across grid z when B T is small (``_wide_split``: the card filled, the
+    image read about once a cluster); the splits' f32 partial sums added in
+    a fixed order by the LN2 pass, up to 8 warps a row
+    (``_wide_ln2_warps``). Otherwise bf16 runs the wgmma kernels: 128-row
     blocks for the forward, the chain and the dup pass (64-column F
     chunks, two weight buffers). f32 runs the split-TF32 kernels: blocks
     of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
@@ -306,8 +377,12 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
 
     bf16 = dtype == torch.bfloat16
     if C in WIDE_C and mode == "serve":
-        return (FFNLaunch("ffn_wide_kernel", _WIDE_ROWS, _WIDE_FC, 0, _wide_smem(C, k, dtype),
-                          grid(_WIDE_ROWS), _THREADS),)
+        R, _, ns, threads = _wide_geometry(C, dtype)
+        x, m, splits = _wide_split(B, T, R, F // _WIDE_FC)
+        return (FFNLaunch("ffn_wide_kernel", R, _WIDE_FC, ns, _wide_smem(C, k, dtype),
+                          (x, B, splits), threads, m),
+                FFNLaunch("ffn_wide_ln2_kernel", 8 // _wide_ln2_warps(splits), 0, 0, 0,
+                          (-(-B * T // (8 // _wide_ln2_warps(splits))), 1, 1), 256))
     if bf16:
         fwd = FFNLaunch("ffn_ln_kernel", _ROWS, _FC, 2, _fwd_smem(C, k), grid(_ROWS), _THREADS)
     else:
@@ -326,10 +401,12 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
 
 
 def _fits(launch: FFNLaunch, k: int) -> bool:
-    """Whether a launch fits a block: its shared memory, and in f32 the t1
-    window of the forward's two piece buffers."""
-    window = launch.kernel != "ffn_tf32_kernel" or launch.rows + k - 1 <= _F32_WINDOW
-    return launch.smem_bytes <= SMEM_LIMIT and window
+    """Whether a launch fits a block: its shared memory, in f32 the t1
+    window of the forward's two piece buffers, and in the wide kernel the
+    window rows whose z pieces its threads hold (8 a row, 8 a thread)."""
+    window = {"ffn_tf32_kernel": _F32_WINDOW,
+              "ffn_wide_kernel": _WIDE_PIECES * 256 // 8}.get(launch.kernel)
+    return launch.smem_bytes <= SMEM_LIMIT and (window is None or launch.rows + k - 1 <= window)
 
 
 def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
@@ -382,30 +459,58 @@ def _weight_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _wide_index(C: int, F: int, device: torch.device) -> torch.Tensor:
-    """For each element of ``_wide_image``'s (F / 32, 2, 32 C) layout, its
-    source in ``cat(W1.flatten(), W2f.flatten())``: per 32-column chunk of F
-    a W1 piece (K = C, N = 32) and a W2f piece (K = 32, N = C), each in
-    ``mma.sync`` m16n8k16's B-fragment order: per k-step s of 16 rows, n8
-    tile j and lane 4 g + t, rows 16 s + 2 t, + 1, + 8, + 9 at column 8 j + g
-    (four bf16, one 8-byte load a lane)."""
-    fc = _WIDE_FC
-    w1 = torch.arange(C * F).reshape(C, F // fc, fc).permute(1, 0, 2)          # (chunk, C, fc)
-    w2 = (C * F + torch.arange(F * C)).reshape(F // fc, fc, C)                 # (chunk, fc, C)
-    out = []
-    for x in (w1, w2):
-        n, K, N = x.shape
-        # (chunk, s, half, t, e, j, g) -> (chunk, s, j, g, t, half, e)
-        o = x.reshape(n, K // 16, 2, 4, 2, N // 8, 8).permute(0, 1, 5, 6, 3, 2, 4)
-        out.append(o.reshape(n, -1))
-    return torch.stack(out, dim=1).to(device)
+    """For each element of ``_wide_image``'s (F / 32, 2, C / 64, 32, 64)
+    layout, its source in ``cat(W1^T.flatten(), W2f.flatten())`` (both
+    (F, C)): per 32-column chunk i of F a W1 part and a W2f part, each C /
+    64 boxes of 32 rows (f) by 64 channels, a row 128 bytes in the
+    128-byte swizzle (16-byte piece q of row r at q ^ (r % 8)): box b of
+    part p holds X_p[32 i + r, 64 b + 8 (q ^ r % 8) + e]. The W1 boxes are
+    the up product's B K-major, the W2f boxes the down product's B
+    MN-major."""
+    n = F // _WIDE_FC
+    i = torch.arange(n)[:, None, None, None, None, None]
+    p = torch.arange(2)[None, :, None, None, None, None]
+    b = torch.arange(C // 64)[None, None, :, None, None, None]
+    r = torch.arange(_WIDE_FC)[None, None, None, :, None, None]
+    q = torch.arange(8)[None, None, None, None, :, None]
+    e = torch.arange(8)[None, None, None, None, None, :]
+    src = p * F * C + (_WIDE_FC * i + r) * C + 64 * b + 8 * (q ^ (r % 8)) + e
+    return src.reshape(n, -1).to(device)
 
 
 def _wide_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
-    """W1 (C, F) and W2f (F, C) as the bf16 ``ffn_wide_kernel`` reads them
-    (``_wide_index``): a (F / 32, 2, 32 C) bf16 tensor, one gather."""
+    """W1 (C, F) and W2f (F, C) as the bf16 ``ffn_wide_kernel`` streams
+    them (``_wide_index``): a (F / 32, 64 C) bf16 tensor, one gather; a
+    chunk's 2 C / 64 boxes of 4 KB are its tiles in ring order."""
     C, F = w1.shape
-    src = torch.cat([w1.reshape(-1), w2f.reshape(-1)]).to(torch.bfloat16)
+    src = torch.cat([w1.t().reshape(-1), w2f.reshape(-1)]).to(torch.bfloat16)
     return src[_wide_index(C, F, w1.device)]
+
+
+@functools.lru_cache(maxsize=16)
+def _wide_f32_index(C: int, F: int, device: torch.device) -> torch.Tensor:
+    """For each element of ``_wide_f32_image``'s layout, its source in
+    ``_split_source``'s [hi(W1), hi(W2f), lo(W1), lo(W2f)]: per 32-column
+    chunk a W1 part (K = C, N = 32) as C / 64 slabs of 8 k-steps by 4 n8
+    tiles, then a W2f part (K = 32, N = C) as C / 64 slabs of 4 k-steps by
+    the 8 n8 tiles of 64 channels; a slab in ``_frag_order`` (k-step, n8
+    tile, lane, a lane's two hi values before its two lo ones), 16 KB."""
+    n = F // _WIDE_FC
+    w1 = torch.arange(C * F).reshape(C, n, _WIDE_FC).permute(1, 0, 2)     # (chunk, C, 32)
+    w2 = (C * F + torch.arange(F * C)).reshape(n, _WIDE_FC, C)             # (chunk, 32, C)
+    o1 = _frag_order(w1)                                                   # (n, C/8, 4, 8, 4, 2)
+    o2 = _frag_order(w2).reshape(n, 4, C // 64, 8, 8, 4, 2).permute(0, 2, 1, 3, 4, 5, 6)
+    out = [torch.stack([o, o + 2 * C * F], dim=-2).reshape(n, -1) for o in (o1, o2)]
+    return torch.stack(out, dim=1).to(device)
+
+
+def _wide_f32_image(w1: torch.Tensor, w2f: torch.Tensor) -> torch.Tensor:
+    """W1 (C, F) and W2f (F, C) as the f32 ``ffn_wide_kernel`` streams them
+    (``_wide_f32_index``): a (F / 32, 2, 64 C) f32 tensor of TF32 hi / lo
+    halves, one gather; a chunk's 2 C / 64 slabs of 16 KB are its tiles in
+    ring order."""
+    C, F = w1.shape
+    return _split_source(w1, w2f)[_wide_f32_index(C, F, w1.device)]
 
 
 def _frag_order(x: torch.Tensor) -> torch.Tensor:
@@ -749,14 +854,18 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
 
 def last_launches() -> Dict[str, object]:
     """The latest launches as the libraries recorded them when they were
-    accepted, each ``{"grid", "smem_bytes", "rows"}``: under "ffn_ln" the
-    forward library's latest (a forward, a serving call or the backward's
-    chain), under "ffn_ln_train_bwd" the backward library's latest call
-    (the dup and dt1 passes). Zeros before the first."""
-    def rec(r):
-        return {"grid": (r[0], r[1], r[2]), "smem_bytes": r[3], "rows": r[4]}
+    accepted, each ``{"grid", "smem_bytes", "rows", "cluster"}``: under
+    "ffn_ln" the forward library's latest (a forward, a serving call's
+    first launch or the backward's chain), under "ffn_ln_wide_ln2" its
+    latest wide LN2 pass, under "ffn_ln_max_active_clusters" the clusters
+    the card holds at once at the latest wide launch's configuration
+    (cudaOccupancyMaxActiveClusters; 0 after other routes), under
+    "ffn_ln_train_bwd" the backward library's latest call (the dup and dt1
+    passes). Zeros before the first."""
+    def rec(r, cluster=1):
+        return {"grid": (r[0], r[1], r[2]), "smem_bytes": r[3], "rows": r[4], "cluster": cluster}
 
-    fwd = (ctypes.c_int * 5)()
+    fwd = (ctypes.c_int * 12)()
     lib = build.load("ffn_ln")
     lib.lfs2_ffn_ln_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int)]
     build.check(lib, lib.lfs2_ffn_ln_last_launch(fwd), "ffn_ln launch query")
@@ -764,13 +873,16 @@ def last_launches() -> Dict[str, object]:
     lib = build.load("ffn_ln_train_bwd")
     lib.lfs2_ffn_ln_train_bwd_last_launches.argtypes = [ctypes.POINTER(ctypes.c_int)]
     build.check(lib, lib.lfs2_ffn_ln_train_bwd_last_launches(bwd), "ffn_ln_train_bwd launch query")
-    return {"ffn_ln": rec(fwd[:]),
+    return {"ffn_ln": rec(fwd[:5], fwd[5]),
+            "ffn_ln_wide_ln2": rec(fwd[7:12]),
+            "ffn_ln_max_active_clusters": fwd[6],
             "ffn_ln_train_bwd": [rec(bwd[5 * i:5 * i + 5]) for i in range(2) if bwd[5 * i]]}
 
 
 def planned_launch(launch: FFNLaunch) -> Dict[str, object]:
     """A plan entry in ``last_launches``' terms, to hold the two together."""
-    return {"grid": launch.grid, "smem_bytes": launch.smem_bytes, "rows": launch.rows}
+    return {"grid": launch.grid, "smem_bytes": launch.smem_bytes, "rows": launch.rows,
+            "cluster": launch.cluster}
 
 
 class _FFNLnTrain(torch.autograd.Function):

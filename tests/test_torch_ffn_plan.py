@@ -180,11 +180,70 @@ WIDE_SHAPES = ([(640, 2560, k, B, T) for k in (5, 9, 13, 17, 21, 25)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C_,F_,k,B,T", WIDE_SHAPES)
 def test_wide_serving_launch_covers_t_and_fits_a_block(C_, F_, k, B, T, dtype):
-    (p,) = ffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")
-    assert (p.kernel, p.rows, p.fchunk, p.stages, p.threads) == ("ffn_wide_kernel", 32, 32, 0, 256)
-    assert p.grid == (-(-T // 32), B, 1)
-    assert F_ % p.fchunk == 0
-    assert ffn._fits(p, k) and 0 < p.smem_bytes <= ffn.SMEM_LIMIT
+    """The wide route's two launches: ffn_wide_kernel's blocks own 64 rows
+    (bf16) or 32 (f32) of one item and 32-column F chunks; its grid covers
+    every row of every item once per split of F (grid x padded to whole
+    clusters by less than a cluster), every split takes chunks, and the
+    LN2 pass covers every row once; both fit a block."""
+    main, ln2 = ffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")
+    R, threads = (32, 288) if dtype == torch.float32 else (64, 256)
+    assert (main.kernel, main.rows, main.fchunk, main.threads) == ("ffn_wide_kernel", R, 32, threads)
+    x, by, splits = main.grid
+    tiles = -(-T // R)
+    assert by == B and x % main.cluster == 0 and tiles <= x < tiles + main.cluster
+    nch = F_ // main.fchunk
+    per = -(-nch // splits)
+    assert 1 <= splits <= nch and (splits - 1) * per < nch <= splits * per
+    assert main.smem_bytes == ffn._wide_smem(C_, k, dtype) and ffn._fits(main, k)
+    assert 0 < main.smem_bytes <= ffn.SMEM_LIMIT
+    # L2 serves each weight tile once per cluster of row tiles: 64 rows or more
+    assert R * main.cluster >= 64 or tiles == 1
+    assert (ln2.kernel, ln2.cluster, ln2.smem_bytes, ln2.threads) == ("ffn_wide_ln2_kernel", 1, 0, 256)
+    assert ln2.rows == 8 // min(8, 1 << (splits.bit_length() - 1))   # up to 8 warps a row
+    assert ln2.grid[1:] == (1, 1) and ln2.grid[0] * ln2.rows >= B * T > (ln2.grid[0] - 1) * ln2.rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [32, 256])
+def test_wide_small_launches_fill_half_the_card(T, dtype):
+    """A B = 1 launch at a sentence's phones or a request's frame bucket
+    splits F until at least half of the card's 132 SMs hold a block, and
+    its clusters still read the image about once (no more than two row
+    clusters an item)."""
+    main, _ = ffn.ffn_plan(640, 2560, 5, 1, T, dtype, "serve")
+    assert main.grid[0] * main.grid[1] * main.grid[2] >= 66
+    assert main.grid[0] // main.cluster <= 2
+
+
+def test_wide_batch_reads_a_quarter_of_the_first_designs_weight_bytes():
+    """At (8, 512, 640) the bf16 launch reads the 6.55 MB image once per
+    cluster of row tiles: at most a quarter of the 839 MB that 128 blocks
+    of 32 rows read; f32 (the split halves, 26.2 MB) at most half of 3.35
+    GB."""
+    for dtype, image, share in ((torch.bfloat16, 2 * 640 * 2560 * 2, 4),
+                                (torch.float32, 2 * 640 * 2560 * 8, 2)):
+        main, _ = ffn.ffn_plan(640, 2560, 17, 8, 512, dtype, "serve")
+        reads = main.grid[0] // main.cluster * main.grid[1] * image
+        assert reads * share <= 128 * image, (dtype, reads)
+
+
+def _first_design_smem(C_, k, dtype):
+    """The first wide kernel's shared memory (32-row blocks, the whole t1
+    window in f32): the widths ``_fits`` admitted before this design."""
+    f32 = dtype == torch.float32
+    w = 32 + k - 1
+    return ((32 * C_ * 4 if f32 else 32 * (C_ + 8) * 2)
+            + max(w * C_ * 4, 32 * (C_ + 4) * 4, 2 * (32 * 32 * 8 if f32 else 32 * 40 * 2)) + w * 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_", ffn.WIDE_C)
+def test_wide_takes_every_kernel_size_it_took_before(C_, dtype):
+    """No depthwise width that launched on the first design raises now."""
+    kmax = max(k for k in range(1, 200) if _first_design_smem(C_, k, dtype) <= ffn.SMEM_LIMIT)
+    assert kmax >= (27 if (C_, dtype) == (640, torch.float32) else 43)
+    for k in range(1, kmax + 1):
+        assert ffn._fits(ffn.ffn_plan(C_, 4 * C_, k, 1, 256, dtype, "serve")[0], k), k
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -201,23 +260,111 @@ def test_training_past_256_is_refused_naming_b9t(C_, dtype):
     assert ffn_fused_ok(C_, 1024, 5, False, dtype)   # serving takes them
 
 
+def _wide_boxes(img, C_, F_):
+    """``_wide_image`` read as the bf16 kernel's descriptors read it: per
+    chunk, part and 4 KB box, the 32 x 64 matrix whose row r's 16-byte piece
+    q ^ (r % 8) lies at bytes 128 r + 16 q (the 128-byte swizzle)."""
+    x = img.float().reshape(F_ // 32, 2, C_ // 64, 32, 8, 8)
+    r = torch.arange(32)[:, None]
+    q = torch.arange(8)[None, :] ^ (r % 8)          # logical piece -> stored piece
+    return x[:, :, :, r, q].reshape(F_ // 32, 2, C_ // 64, 32, 64)
+
+
 @pytest.mark.parametrize("C_,F_", [(384, 256), (640, 128)])
 def test_wide_image_puts_each_element_where_the_fragment_loads_read(C_, F_):
-    """``_wide_image``: per 32-column chunk a W1 (K = C) and a W2f (K = 32)
-    piece; lane 4 g + t of k-step s and n8 tile j reads rows 16 s + 2 t, +
-    1, + 8, + 9 of column 8 j + g (mma.sync m16n8k16's B fragment)."""
+    """``_wide_image``: per 32-column chunk i, C / 64 W1 boxes (the up
+    product's B, K-major: row f, 64 channels) then C / 64 W2f boxes (the
+    down product's B, MN-major: row f, 64 channels), each 32 rows of 128
+    bytes in the 128-byte swizzle, rounded to bf16."""
     g = torch.Generator().manual_seed(C_)
     w1, w2f = torch.randn(C_, F_, generator=g), torch.randn(F_, C_, generator=g)
-    img = ffn._wide_image(w1, w2f).float()
-    assert img.shape == (F_ // 32, 2, 32 * C_)
-    s, j, lane, e = np.meshgrid(np.arange(C_ // 16), np.arange(4), np.arange(32), np.arange(4),
-                                indexing="ij")
-    rows, cols = 16 * s + 2 * (lane & 3) + (e & 1) + 8 * (e >> 1), 8 * j + (lane >> 2)
+    img = ffn._wide_image(w1, w2f)
+    assert img.shape == (F_ // 32, 64 * C_) and img.dtype == torch.bfloat16
+    boxes = _wide_boxes(img, C_, F_)
     for i in range(F_ // 32):
-        w1p = img[i, 0].reshape(C_ // 16, 4, 32, 4)
-        assert torch.equal(w1p, w1[:, 32 * i:32 * i + 32].bfloat16().float()[rows, cols])
-        s2, j2, l2, e2 = np.meshgrid(np.arange(2), np.arange(C_ // 8), np.arange(32),
-                                     np.arange(4), indexing="ij")
-        w2p = img[i, 1].reshape(2, C_ // 8, 32, 4)
-        r2, c2 = 16 * s2 + 2 * (l2 & 3) + (e2 & 1) + 8 * (e2 >> 1), 8 * j2 + (l2 >> 2)
-        assert torch.equal(w2p, w2f[32 * i:32 * i + 32].bfloat16().float()[r2, c2])
+        for b in range(C_ // 64):
+            want1 = w1[64 * b:64 * b + 64, 32 * i:32 * i + 32].t().bfloat16().float()
+            want2 = w2f[32 * i:32 * i + 32, 64 * b:64 * b + 64].bfloat16().float()
+            assert torch.equal(boxes[i, 0, b], want1)
+            assert torch.equal(boxes[i, 1, b], want2)
+
+
+def _wide_f32_parts(img, C_, F_):
+    """``_wide_f32_image`` read as the f32 kernel's fragment loads read it:
+    per chunk the W1 part (C x 32) and the W2f part (32 x C), hi + lo. Lane
+    4 g + t of W1 slab kb reads the float4 at ((s 4 + j) 32 + lane): hi of
+    rows 64 kb + 8 s + 2 t, + 1 at column 8 j + g, then lo; of W2f slab nb
+    at ((s 8 + j) 32 + lane): rows 8 s + 2 t, + 1 at column 64 nb + 8 j +
+    g."""
+    n, nb = F_ // 32, C_ // 64
+    x = img.double().reshape(n, 2, nb, -1, 32, 4)
+    val = x[..., :2] + x[..., 2:]                      # (n, part, slab, s j, lane, e)
+    w1 = torch.zeros(n, C_, 32, dtype=torch.float64)
+    w2 = torch.zeros(n, 32, C_, dtype=torch.float64)
+    lane = torch.arange(32)
+    gg, t = lane // 4, lane % 4
+    for kb in range(nb):
+        for s in range(8):
+            for j in range(4):
+                for e in range(2):
+                    w1[:, 64 * kb + 8 * s + 2 * t + e, 8 * j + gg] = val[:, 0, kb, 4 * s + j, :, e]
+        for s in range(4):
+            for j in range(8):
+                for e in range(2):
+                    w2[:, 8 * s + 2 * t + e, 64 * kb + 8 * j + gg] = val[:, 1, kb, 8 * s + j, :, e]
+    return w1, w2
+
+
+@pytest.mark.parametrize("C_,F_", [(384, 64), (640, 32)])
+def test_wide_f32_image_puts_each_element_where_the_fragment_loads_read(C_, F_):
+    """``_wide_f32_image``: per 32-column chunk C / 64 W1 slabs, then C / 64
+    W2f slabs, 16 KB each; every weight where its lane reads it, hi + lo
+    within 2^-22 of it, both TF32 values."""
+    g = torch.Generator().manual_seed(C_ + F_)
+    w1, w2f = torch.randn(C_, F_, generator=g), torch.randn(F_, C_, generator=g)
+    img = ffn._wide_f32_image(w1, w2f)
+    assert img.shape == (F_ // 32, 2, 64 * C_) and img.dtype == torch.float32
+    assert not (img.view(torch.int32) & 0x1FFF).any()
+    p1, p2 = _wide_f32_parts(img, C_, F_)
+    for i in range(F_ // 32):
+        torch.testing.assert_close(p1[i], w1[:, 32 * i:32 * i + 32].double(), rtol=2.0 ** -22, atol=0)
+        torch.testing.assert_close(p2[i], w2f[32 * i:32 * i + 32].double(), rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_splits_rebuild_the_ffn_from_the_image(dtype):
+    """The wide launch's dataflow on the CPU: each split of F takes its
+    chunks' tiles from the image as the kernel streams them (chunks split s
+    .. of ceil(F / 32 / splits)), forms up = relu(h0 W1 + b1) at the plain
+    version's rounding points and its ff partial sums; the LN2 pass adds
+    the splits in order with b2f and the residual. Held to ffn_ln_plain."""
+    from tests.torch_port_helpers import ffn_modules, ffn_params
+
+    C_, F_, k, B, T = 384, 768, 5, 1, 40
+    w = ffn.prepare_ffn_weights(**ffn_modules(ffn_params(4, C_, F_, k)), dtype=dtype)
+    z = torch.randn(B, T, C_, generator=torch.Generator().manual_seed(5)).to(dtype)
+    main, _ = ffn.ffn_plan(C_, F_, k, B, 1, dtype, "serve")   # one row tile: F split 24 ways
+    splits = main.grid[2]
+    assert splits == F_ // 32
+    if dtype == torch.float32:
+        w1p, w2p = (p.float() for p in _wide_f32_parts(ffn._wide_f32_image(w.w1, w.w2f), C_, F_))
+    else:
+        boxes = _wide_boxes(ffn._wide_image(w.w1, w.w2f), C_, F_)
+        w1p = boxes[:, 0].permute(0, 2, 1, 3).reshape(F_ // 32, 32, C_).transpose(1, 2)
+        w2p = boxes[:, 1].permute(0, 2, 1, 3).reshape(F_ // 32, 32, C_)
+    g1, be1, g2, be2, bd, b2f = w.lnp
+    t1 = ffn.layer_norm_fn(z, g1, be1, dtype, w.eps).float()
+    h0 = ffn.depthwise_conv1d(t1, w.wd.t().unsqueeze(1), bd).to(dtype).float()
+    nch, per = F_ // 32, -(-F_ // 32 // splits)
+    parts = []
+    for s in range(splits):
+        ff = torch.zeros(B, T, C_)
+        for c in range(s * per, min(nch, s * per + per)):
+            up = torch.relu(h0 @ w1p[c] + w.b1[32 * c:32 * c + 32]).to(dtype).float()
+            ff += up @ w2p[c]
+        parts.append(ff)
+    ff = sum(parts[1:], parts[0]) + b2f
+    out = ffn.layer_norm_fn(t1 + ff, g2, be2, dtype, w.eps)
+    ref = ffn.ffn_ln_plain(z, w)
+    tol = 2e-5 if dtype == torch.float32 else 0.07
+    assert (out.float() - ref.float()).abs().max().item() <= tol

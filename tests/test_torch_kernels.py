@@ -81,14 +81,30 @@ def test_ffn_ln_kernel_matches_plain(cuda_card, C_, F_, k, T, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+# (C, B, T) of the wide kernel's cases: lightspeech_true76m's width at a
+# phone, an encoder launch, a request's and a batch's decoder bucket and a
+# batch of 2 ending mid-tile; C = 384 and 512 at that batch. "max" is the
+# largest depthwise kernel each dtype takes at C (ops/ffn.py _fits)
+WIDE_FFN_CASES = ([(640, B, T) for B, T in ((1, 1), (1, 32), (1, 256), (2, 300), (8, 512))]
+                  + [(384, 2, 300), (512, 2, 300)])
+
+
+def _wide_kmax(C_, dtype):
+    return max(k for k in range(1, 400)
+               if tffn._fits(tffn.ffn_plan(C_, 4 * C_, k, 1, 1, dtype, "serve")[0], k))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [5, 25])
-@pytest.mark.parametrize("C_", [384, 512, 640])
-def test_ffn_ln_wide_matches_plain(cuda_card, C_, k, dtype):
-    # ffn_wide_kernel, serving at C = 384 to 640 with F = 4 C; T = 300 ends
-    # mid-block; the launch as the library recorded it against ffn_plan
-    F_, B, T = 4 * C_, 2, 300
+@pytest.mark.parametrize("k", [5, 25, "max"])
+@pytest.mark.parametrize("C_,B,T", WIDE_FFN_CASES)
+def test_ffn_ln_wide_matches_plain(cuda_card, C_, B, T, k, dtype):
+    # ffn_wide_kernel and its LN2 pass, serving at C = 384 to 640 with F =
+    # 4 C against ffn_ln_plain; two launches give the same bits (the splits
+    # are added in order, no atomics); both launches as the library
+    # recorded them (grid, cluster, shared memory) against ffn_plan
+    k = _wide_kmax(C_, dtype) if k == "max" else k
+    F_ = 4 * C_
     p = ffn_params(1, C_, F_, k)
     w = tffn.prepare_ffn_weights(
         **{n: type(v)(**{a: t.to(cuda_card) for a, t in vars(v).items()})
@@ -96,11 +112,15 @@ def test_ffn_ln_wide_matches_plain(cuda_card, C_, k, dtype):
     z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
     before = tffn.ffn_ln.launches
     out = tffn.ffn_ln(z, w)
+    again = tffn.ffn_ln(z, w)
     torch.cuda.synchronize()
-    assert tffn.ffn_ln.launches == before + 1
-    plan = tffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")[0]
-    assert plan.kernel == "ffn_wide_kernel"
-    assert tffn.last_launches()["ffn_ln"] == tffn.planned_launch(plan)
+    assert tffn.ffn_ln.launches == before + 2
+    plan = tffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")
+    assert [x.kernel for x in plan] == ["ffn_wide_kernel", "ffn_wide_ln2_kernel"]
+    rec = tffn.last_launches()
+    assert [rec["ffn_ln"], rec["ffn_ln_wide_ln2"]] == [tffn.planned_launch(x) for x in plan]
+    assert rec["ffn_ln_max_active_clusters"] != 0
+    assert torch.equal(out, again)
     ref = tffn.ffn_ln_plain(z, w)
     # f32: summation order only; bf16: one-ulp flips at the rounding points
     tol = 2e-4 if dtype == torch.float32 else 0.07

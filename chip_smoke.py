@@ -188,6 +188,24 @@ Phases, each printed as one JSON line:
     the counters by (route, head dim), set to 0 just before each step, must
     show the decoder block's flash launch, forward and backward.
 
+25. dataset: a make_rich_corpus corpus (4 speakers x 8 utterances) under
+    ``_chip/``; ``TTSDataset`` on the card with the flagship's variances
+    (frame-level pitch with CWT, energy, SNR) and pitch and energy priors,
+    its stats computed there, held against the same dataset on the CPU with
+    the CPU tests' tolerances: each utterance's frame features (pitch off
+    the frames within ``YIN_MARGIN`` of a YIN decision), every item key for
+    key, the stats and the priors; items a second on each, and one item's
+    extraction's device ms and kernels (``device_kernels``); a
+    ``PrefetchLoader`` with 2 spawn workers on the card, its batches in the
+    synchronous ``batch_index_stream`` order, batches a second; then
+    ``cli.generate.main --dataset`` from phase 17's flagship checkpoint with
+    f32 HiFi-GAN V1: every utterance written, finite, at 22.05 kHz, its
+    ``.meta`` the corpus's phones and durations, ``ffn_ln`` and the resblock
+    kernels counted, and one profiled utterance through ``ffn_ln_f32`` and
+    ``resblock_f32``; one collated item of the CPU dataset served on the card
+    within phase 6's tolerance of the CPU generator, and as int32 equal to
+    its int64 twin.
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -2717,6 +2735,358 @@ def every_layer_phase(counters, served) -> dict:
     return row
 
 
+# ------------------------------------------------ the data pipeline (phase 25)
+# a synthetic corpus for the dataset phase: make_rich_corpus speakers x
+# utterances (no real speech is in the repository)
+DS_SPEAKERS, DS_UTTS = 4, 8
+# the flagship's variances and priors; no duration augmentation, so that the
+# loader's workers make the items the synchronous order makes
+DS_CONFIG = dict(variances=("pitch", "energy", "snr"), variance_levels=("frame",) * 3,
+                 variance_transforms=("cwt", "none", "none"), priors=("pitch", "energy"),
+                 augment_duration=0.0)
+DS_BATCH = 4
+# tests/test_torch_audio.py's margin on d' around YIN's decisions
+YIN_MARGIN = 1e-3
+
+
+def _hold_features(fa, fb, wav, audio, frames) -> dict:
+    """One utterance's frame features from two devices (``TTSDataset
+    _extract``) held to the CPU tests' tolerances (tests/test_torch_audio.py):
+    mel, energy and SNR within their rounding bounds, pitch off the frames
+    near a YIN decision. Returns the errors, the bounds, the frames near a
+    decision and whether any decision came out otherwise."""
+    from lightningfastspeech2_tpu_torch.audio import pitch as pitch_mod
+    from lightningfastspeech2_tpu_torch.audio.features import energy_rounding_bound
+    from lightningfastspeech2_tpu_torch.audio.snr import snr_rounding_bound
+
+    win = audio.win_length
+    lin_a, lin_b = 10.0 ** fa["mel"].astype(np.float64), 10.0 ** fb["mel"].astype(np.float64)
+    peak = lin_b.max()
+    loud = lin_b >= 1e-3 * peak
+    mel_lin = float(np.abs(lin_a - lin_b).max() / peak)
+    mel_log = float(np.abs(fa["mel"] - fb["mel"])[loud].max())
+    e_err = float(np.abs(fa["energy"].astype(np.float64) ** 2
+                         - fb["energy"].astype(np.float64) ** 2).max())
+    e_bound = energy_rounding_bound(wav, win)
+    nan_a, nan_b = np.isnan(fa["snr"]), np.isnan(fb["snr"])
+    ok = ~nan_b
+    snr_err = float(np.abs(fa["snr"][ok] - fb["snr"][ok]).max()) if ok.any() else 0.0
+    snr_tol = snr_rounding_bound(wav, fb["snr"][ok], win) if ok.any() else 0.0
+    near = pitch_mod.near_decision(frames, audio.sampling_rate, YIN_MARGIN).numpy()[
+        : len(fb["pitch"])]
+    pa, pb = fa["pitch"], fb["pitch"]
+    keep = ~near
+    voiced = keep & (pb > 0)
+    f0_rel = float((np.abs(pa - pb)[voiced] / pb[voiced]).max()) if voiced.any() else 0.0
+    changed = bool(((pa > 0) != (pb > 0)).any()
+                   or (np.abs(pa - pb) > 1e-5 * np.maximum(pb, 1.0)).any())
+    out = {"mel_lin_err": mel_lin, "mel_log_err": mel_log, "energy_sq_err": e_err,
+           "energy_sq_bound": e_bound, "snr_err_db": snr_err, "snr_tol_db": snr_tol,
+           "f0_rel_err": f0_rel, "near_decision_frames": int(near.sum()),
+           "decision_changed": changed}
+    fails = [k for k, bad in (
+        ("mel", mel_lin > 2e-6 or mel_log > 1e-4),
+        ("energy", e_err > e_bound),
+        ("snr", not np.array_equal(nan_a, nan_b) or snr_err > snr_tol),
+        ("pitch", not np.array_equal(pa[keep] > 0, pb[keep] > 0) or f0_rel > 1e-5)) if bad]
+    if fails:
+        raise RuntimeError(f"dataset features card vs CPU: {fails} {out}")
+    return out
+
+
+def _hold_item(a, b, wav, stats_a, stats_b, win, pitch_too: bool) -> None:
+    """One item from two devices, key for key, at the CPU tests' item
+    tolerances (tests/test_torch_dataset.py); the pitch keys only where no
+    YIN decision came out otherwise. Each dataset z-normalizes with its own
+    stats, so energy and SNR are held de-normalized, and the energy prior
+    (a mean of energies) within the largest frame's energy bound."""
+    from lightningfastspeech2_tpu_torch.audio.features import (energy_error_bound,
+                                                               energy_rounding_bound)
+    from lightningfastspeech2_tpu_torch.audio.snr import snr_rounding_bound
+
+    if set(a) != set(b):
+        raise RuntimeError(f"item keys differ: {set(a) ^ set(b)}")
+
+    def plain(item, stats, var):   # a normalized variance back in its units
+        st = stats[var]
+        return np.asarray(item[f"variances_{var}"], np.float64) * st["std"] + st["mean"]
+
+    ea, eb = plain(a, stats_a, "energy"), plain(b, stats_b, "energy")
+    e_bound = energy_rounding_bound(wav, win)
+    bad = []
+    for k, y in b.items():
+        x = a[k]
+        if isinstance(y, str):
+            bad += [k] if x != y else []
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(k)
+        elif y.dtype.kind in "biu" or k in ("speaker", "utterance_dvec"):
+            bad += [k] if not np.array_equal(x, y) else []
+        elif k == "mel":
+            la, lb = 10.0 ** x.astype(np.float64), 10.0 ** y.astype(np.float64)
+            loud = lb >= 1e-3 * lb.max()
+            bad += [k] if (np.abs(la - lb).max() > 2e-6 * lb.max()
+                           or np.abs(x - y)[loud].max() > 1e-4) else []
+        elif k.startswith("variances_pitch") or k == "priors_pitch":
+            if not pitch_too:
+                continue
+            tol = {"variances_pitch_signal": (1e-5, 0), "priors_pitch": (1e-5, 0),
+                   "variances_pitch_spectrogram": (0, 1e-6)}.get(k, (1e-6, 0))
+            bad += [k] if not np.allclose(x, y, rtol=tol[0], atol=tol[1]) else []
+        elif k == "priors_energy":
+            err, tol = abs(float(x) - float(y)), energy_error_bound(ea, eb, e_bound).max()
+            bad += [f"{k}: {err} > {tol}"] if err > tol else []
+        elif k == "variances_energy":
+            err = np.abs(ea ** 2 - eb ** 2).max()
+            bad += [f"{k}: {err} > {e_bound}"] if err > e_bound else []
+        elif k == "variances_snr":
+            sa, sb = plain(a, stats_a, "snr"), plain(b, stats_b, "snr")
+            err, tol = np.abs(sa - sb).max(), snr_rounding_bound(wav, sb, win)
+            bad += [f"{k}: {err} > {tol}"] if err > tol else []
+        else:
+            bad.append(k)
+    if bad:
+        raise RuntimeError(f"item {b['id']} card vs CPU: {bad}")
+
+
+def _hold_batch(batch, ref, feats, stats) -> None:
+    """A loader batch against the same indices collated in the main process,
+    both on the card: integer keys (phones, durations, lengths: the order)
+    equal; the floats at the items' tolerances, since the card's prefix sums
+    (CUB scans) may add in another order on each run: energy and SNR
+    de-normalized within the batch's largest bounds, the rest rtol 1e-5 with
+    a floor of 1e-6."""
+    e_bound = max(f["energy_sq_bound"] for f in feats)
+    snr_tol = max(f["snr_tol_db"] for f in feats)
+    for k, v in ref.items():
+        x = batch[k]
+        if x.dtype != v.dtype or x.shape != v.shape:
+            raise RuntimeError(f"loader batch key {k} differs in dtype or shape")
+        if v.dtype.kind in "biu":
+            ok = np.array_equal(x, v)
+        elif k in ("variances_energy", "variances_snr"):
+            st = stats[k.split("_")[1]]
+            a, b = (np.asarray(y, np.float64) * st["std"] + st["mean"] for y in (x, v))
+            ok = (np.abs(a - b).max() <= snr_tol if k == "variances_snr"
+                  else np.abs(a ** 2 - b ** 2).max() <= e_bound)
+        elif k == "priors_energy":   # a mean of energies, in its own units
+            ok = np.abs(x.astype(np.float64) - v).max() <= math.sqrt(e_bound)
+        elif k == "mel":
+            la, lb = 10.0 ** x.astype(np.float64), 10.0 ** v.astype(np.float64)
+            loud = lb >= 1e-3 * lb.max()
+            ok = (np.abs(la - lb).max() <= 2e-6 * lb.max()
+                  and np.abs(x - v)[loud].max() <= 1e-4)
+        else:
+            ok = np.allclose(x, v, rtol=1e-5, atol=1e-6, equal_nan=True)
+        if not ok:
+            raise RuntimeError(f"loader batch key {k} differs from the synchronous order's")
+
+
+def _hold_stats(sa, sb, e_tol: float, snr_tol: float, pitch_too: bool) -> dict:
+    """The corpus stats from two devices at the CPU tests' tolerances: each
+    of min, max, mean and std moves at most by the largest frame's (or
+    utterance prior's) error, so energy and its prior within ``e_tol``, SNR
+    within ``snr_tol``, the rest rtol 1e-5 with a floor of 1e-6."""
+    if set(sa) != set(sb):
+        raise RuntimeError(f"stats keys differ: {set(sa) ^ set(sb)}")
+    worst = {}
+    for key, ref in sb.items():
+        if key in ("pitch", "priors_pitch") and not pitch_too:
+            continue
+        for s, v in ref.items():
+            err = abs(sa[key][s] - v)
+            tol = {"energy": e_tol, "priors_energy": e_tol, "snr": snr_tol}.get(
+                key, 1e-5 * abs(v) + 1e-6)
+            worst[key] = max(worst.get(key, 0.0), err)
+            if err > tol:
+                raise RuntimeError(f"stats {key}.{s} card {sa[key][s]} CPU {v} (tol {tol})")
+    return worst
+
+
+def dataset_phase(counters, smi: str) -> dict:
+    """Phase 25: the data pipeline on the card. A make_rich_corpus corpus
+    under ``_chip/``; ``TTSDataset`` on the card with the flagship's
+    variances (frame-level pitch with CWT, energy, SNR; pitch and energy
+    priors, stats computed there) held item for item, stats and priors
+    against the same dataset on the CPU; items a second, the device ms and
+    kernels of one item's extraction; a 2-worker ``PrefetchLoader`` on the
+    card against the synchronous order; then the generate CLI's
+    ``--dataset`` mode from phase 17's flagship checkpoint with f32
+    HiFi-GAN V1, and one collated item served on the card against the CPU
+    generator, and as int32 against its int64 twin."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.audio import pitch as pitch_mod
+    from lightningfastspeech2_tpu_torch.cli import generate as cli
+    from lightningfastspeech2_tpu_torch.core.bucketing import round_up
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+    from lightningfastspeech2_tpu_torch.data.loader import PrefetchLoader
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln
+    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_chip" / "dataset"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    corpus = make_rich_corpus(work / "corpus", n_speakers=DS_SPEAKERS, n_utts=DS_UTTS, seed=0)
+    corpus_s = time.perf_counter() - t
+    cfg = DataConfig(**DS_CONFIG)
+    built, items = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        ds = TTSDataset(corpus, cfg, device=dev)
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        items[dev] = [ds.__getitem__(i, augment=False) for i in range(len(ds))]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        built[dev] = {"ds": ds, "build_s": build_s, "items_s": time.perf_counter() - t}
+    dc, dp = built["cuda"]["ds"], built["cpu"]["ds"]
+    n = len(dc)
+    audio = cfg.audio
+    feats, changed = [], 0
+    for i, e in enumerate(dp.entries):
+        wav = dp._load_audio(e)
+        bucket = round_up(max(len(wav), audio.hop_length), audio.hop_length * 256)
+        padded = np.zeros(bucket, np.float32)
+        padded[: len(wav)] = wav
+        frames = pitch_mod.frame_windows(torch.from_numpy(padded), audio.sampling_rate,
+                                         audio.hop_length, audio.win_length)
+        f = _hold_features(dc._extract(wav), dp._extract(wav), wav, audio, frames)
+        changed += f["decision_changed"]
+        feats.append(f)
+        _hold_item(items["cuda"][i], items["cpu"][i], wav, dc.stats, dp.stats,
+                   audio.win_length, pitch_too=not f["decision_changed"])
+    e_tol = math.sqrt(max(f["energy_sq_bound"] for f in feats))
+    snr_tol = max(f["snr_tol_db"] for f in feats)
+    stats_err = _hold_stats(dc.stats, dp.stats, e_tol, snr_tol, pitch_too=changed == 0)
+    priors = {dev: built[dev]["ds"].create_priors() for dev in built}
+    for spk, d in priors["cpu"].items():
+        for var, ref in d.items():
+            got = priors["cuda"][spk][var]
+            ok = (np.allclose(got, ref, rtol=1e-5, atol=0) if var == "pitch"
+                  else np.allclose(got, ref, rtol=0, atol=e_tol))
+            if not ok and not (var == "pitch" and changed):
+                raise RuntimeError(f"priors {spk}.{var} card {got} CPU {ref}")
+    # one item's extraction: the median-length utterance
+    mid = sorted(range(n), key=lambda i: len(items["cpu"][i]["mel"]))[n // 2]
+    wav_mid = dc._load_audio(dc.entries[mid])
+    one = device_kernels(lambda: dc._extract(wav_mid), calls=10)
+    row = {"phase": "dataset", "corpus": f"make_rich_corpus {DS_SPEAKERS} x {DS_UTTS}, seed 0",
+           "utterances": n, "frames": int(sum(len(it["mel"]) for it in items["cpu"])),
+           "corpus_s": corpus_s,
+           "build_with_stats_s": {d: b["build_s"] for d, b in built.items()},
+           "items_per_s": {d: n / b["items_s"] for d, b in built.items()},
+           "one_item_extraction": {"frames": len(items["cpu"][mid]["mel"]),
+                                   "device_ms": one["device_ms"],
+                                   "device_kernels": one["kernels"], "by_name": one["by_name"]},
+           "max_err": {k: max(f[k] for f in feats) for k in feats[0] if k.endswith("_err")},
+           "near_decision_frames": sum(f["near_decision_frames"] for f in feats),
+           "items_with_a_changed_yin_decision": changed, "stats_max_err": stats_err,
+           "nvidia_smi": smi}
+    emit(row)
+
+    # the prefetch loader: 2 spawn workers extracting on the card
+    loader = PrefetchLoader(dc, batch_size=DS_BATCH, seed=0, epochs=1, num_workers=2,
+                            prefetch=4, device="cuda")
+    order = list(loader.index_stream())
+    t = time.perf_counter()
+    stamps, got = [], []
+    with loader:
+        for batch in loader:
+            stamps.append(time.perf_counter() - t)
+            got.append(batch)
+    if len(got) != len(order):
+        raise RuntimeError(f"loader gave {len(got)} batches, the order has {len(order)}")
+    exact = True
+    for batch, idx in zip(got, order):
+        ref = dc.collate([items["cuda"][i] for i in idx], loader.bucketer)
+        if set(batch) != set(ref):
+            raise RuntimeError(f"loader batch {idx} keys {set(batch) ^ set(ref)}")
+        exact &= all(np.array_equal(batch[k], v, equal_nan=True) for k, v in ref.items())
+        _hold_batch(batch, ref, [feats[i] for i in idx], dc.stats)
+    emit({"phase": "dataset_loader", "workers": loader.num_workers, "batch_size": DS_BATCH,
+          "batches": len(got), "first_batch_s": stamps[0],
+          "batches_per_s_after_first": ((len(got) - 1) / (stamps[-1] - stamps[0])
+                                        if len(got) > 1 else None),
+          "batches_per_s_all": len(got) / stamps[-1], "bitwise_equal_to_sync": exact,
+          "nvidia_smi": smi})
+
+    # the generate CLI's --dataset mode from phase 17's flagship checkpoint
+    dirs = write_cli_checkpoints(work / "ckpt")
+    out = work / "resynthesized"
+    argv = ["--checkpoint_dir", dirs["acoustic"], "--dataset", str(corpus), "--seed", "0",
+            "--output_path", str(out)]
+    reset_counts(counters)
+    t = time.perf_counter()
+    wavs = cli.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    if len(wavs) != n or not ffn_ln.launches or not (resblock.launches
+                                                     + resblock_trio.launches):
+        raise RuntimeError(f"cli --dataset: {len(wavs)} of {n} utterances, launches {launches}")
+    by_id = {it["id"]: it for it in items["cpu"]}
+    audio_s = 0.0
+    for key, wav in wavs.items():
+        written, sr = wav_io.read(out / f"{key}.wav")
+        meta = pickle.loads((out / f"{key}.meta").read_bytes())
+        ref = by_id[key.split("/")[1]]
+        if not (written.size > 0 and np.isfinite(written).all() and sr == SAMPLING_RATE
+                and np.isfinite(wav).all() and wav.size == written.size
+                and np.array_equal(meta["phones"], ref["phones"])
+                and np.array_equal(meta["durations"], ref["duration"])
+                and (out / f"{key}_original.wav").exists()):
+            raise RuntimeError(f"cli --dataset {key}: {written.size} samples at {sr} Hz, "
+                               f"meta {meta}")
+        audio_s += written.size / sr
+    # one utterance's re-synthesis under the profiler (the generator loaded
+    # and warmed first): its kernel routes
+    from torch.profiler import ProfilerActivity, profile
+
+    gens, one_utt = {}, argv[:-1] + [str(out) + "_one", "--hours", "1e-9"]
+    for dev in ("cuda", "cpu"):
+        gens[dev] = cli.load_generator(cli.build_parser().parse_args(argv + ["--device", dev]))
+    args = cli.build_parser().parse_args(one_utt)
+    cli.resynthesize_dataset(*gens["cuda"], args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli.resynthesize_dataset(*gens["cuda"], args)
+        torch.cuda.synchronize()
+    routes = _route_split(prof, "cli_dataset_profile.txt")
+    seen = {k for k, r in routes["routes"].items() if r["launches"]}
+    if not {"ffn_ln_f32", "resblock_f32"} <= seen or "resblock_bf16" in seen:
+        raise RuntimeError(f"cli --dataset routes {sorted(seen)}")
+    # one collated item of the CPU dataset, served on the card and on the CPU
+    item = items["cpu"][mid]
+    batch = {k: v for k, v in dp.collate([item]).items() if isinstance(v, np.ndarray)}
+    twin = {k: v.astype(np.int64) if v.dtype == np.int32 else v for k, v in batch.items()}
+    gens = {dev: g[0] for dev, g in gens.items()}
+    a = gens["cuda"].generate_samples(batch)[0]
+    a64 = gens["cuda"].generate_samples(twin)[0]
+    b = gens["cpu"].generate_samples(batch)[0]
+    top = float(np.abs(b).max())
+    err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    tol = 1e-3 * top + 1e-7   # phase 6's
+    emit({"phase": "cli_dataset", "utterances": len(wavs), "audio_s": audio_s, "main_s": main_s,
+          "launches_main_run": launches, "profiled_one_utterance": routes,
+          "served_item": {"id": item["id"], "phones": int(len(item["phones"])),
+                          "int32_phones": str(batch["phones"].dtype),
+                          "max_abs_err_card_vs_cpu": err, "tol": tol, "peak": top,
+                          "int32_equals_int64_twin": bool(np.array_equal(a, a64))},
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    if not (a.shape == b.shape and err <= tol and top > 0):
+        raise RuntimeError(f"cli --dataset item card vs CPU: max |err| {err} > {tol}")
+    if not np.array_equal(a, a64):
+        raise RuntimeError("an int32 batch served otherwise than its int64 twin")
+    shutil.rmtree(work, ignore_errors=True)
+    return row
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -2796,6 +3166,7 @@ def main() -> int:
     fastspeech2_27m_phase(counters, served, info["nvidia_smi"])
     every_layer_phase(counters, served)
     head_dims = head_dim_training_phase(counters)
+    dataset_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)

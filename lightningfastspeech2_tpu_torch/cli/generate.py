@@ -1,26 +1,37 @@
-"""Synthesis CLI: a sentence -> wav, from a checkpoint directory.
+"""Synthesis CLI: a sentence -> wav, or a whole corpus re-synthesized, from
+a checkpoint directory.
 
-Counterpart of ``lightningfastspeech2_tpu/cli/generate.py`` (its parser and
-sentence mode), on ``cuda`` unless ``--device cpu``:
+Counterpart of ``lightningfastspeech2_tpu/cli/generate.py`` (its parser,
+sentence mode and ``--dataset`` mode), on ``cuda`` unless ``--device cpu``:
 
     python -m lightningfastspeech2_tpu_torch.cli.generate \\
         --checkpoint_dir ckpts --sentence "Hello world." --output_path out
+    python -m lightningfastspeech2_tpu_torch.cli.generate \\
+        --checkpoint_dir ckpts --dataset corpus --hours 0.5 --output_path out
+
+``--dataset`` reads an aligned corpus (``<speaker>/<utt>.wav`` beside
+``<utt>.TextGrid``) through ``data/dataset.py`` on the acoustic model's
+device, serves each utterance's phones, speaker and priors, and writes
+``<speaker>/<utt>.wav``, ``<utt>_original.wav``, ``<utt>.lab`` (the words)
+and ``<utt>.meta`` (pickled phones and durations) until ``--hours`` of
+audio are written.
 
 The checkpoint directory is this package's (``core/checkpoint.py``;
 ``scripts/jax_checkpoint_to_torch.py`` converts a JAX one), with
 ``prior_gmms.pkl`` and ``dvector_gmms.pkl`` beside it as the JAX trainer
 writes them. ``--tts_device`` and ``--vocoder_device`` are CUDA ordinals.
 The acoustic model serves in f32; ``--vocoder_precision 16`` runs the
-vocoder (HiFi-GAN or FastDiff) in bf16. Not ported yet: ``--dataset``
-(re-synthesis of a corpus, which needs the dataset loader) and ``--hub``
-(a download, which needs the network and ``huggingface_hub``).
+vocoder (HiFi-GAN or FastDiff) in bf16. Not ported: ``--hub`` (a
+download, which needs the network and ``huggingface_hub``).
 """
 
 from __future__ import annotations
 
 import argparse
+import pickle
+import shutil
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="NeuralG2P .npz used for OOV words; 'builtin' = the "
                         "shipped data/g2p_en.npz, 'none' = rule LTS only")
     p.add_argument("--dataset", type=str, default=None,
-                   help="aligned corpus root for re-synthesis mode (not ported yet)")
+                   help="aligned corpus root for re-synthesis mode")
     p.add_argument("--hours", type=float, default=1.0)
     p.add_argument("--hifigan_checkpoint", type=str, default=None,
                    help="a torch HiFi-GAN generator file (.pth.tar) or a "
@@ -246,22 +257,79 @@ def synthesize_sentence(gen, cfg, args) -> np.ndarray:
         sample_dvector=args.sample_dvector)
 
 
-def main(argv=None) -> np.ndarray:
-    """Sentence mode; writes ``<output_path>/sentence.wav`` and returns the
-    float waveform it wrote (before the int16 write)."""
+def resynthesize_dataset(gen, cfg, sidecar, args) -> Dict[str, np.ndarray]:
+    """``--dataset`` mode: every utterance of the corpus, one at a time,
+    through ``gen.generate_samples`` until ``--hours`` of audio are written.
+    Features are extracted on the acoustic model's device with the
+    checkpoint's variances, stats and d-vectors, and no duration
+    augmentation. Returns the float waveforms written (before the int16
+    write), keyed ``<speaker>/<utt>``."""
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+
+    m = cfg.model
+    dcfg = DataConfig(
+        variances=m.variance.variances,
+        variance_levels=m.variance.levels,
+        variance_transforms=m.variance.transforms,
+        priors=m.priors,
+        speaker_type=m.speaker_type,
+        augment_duration=0.0,
+        max_phones=m.max_phones,
+        max_frames=m.max_frames,
+    )
+    # the sidecar's d-vector table and stats keep speaker identity and
+    # normalization as in training (unknown speakers take hash placeholders)
+    s2d = sidecar.get("speaker2dvector")
+    ds = TTSDataset(
+        root=Path(args.dataset), cfg=dcfg, compute_stats=False,
+        stats=sidecar.get("stats"),
+        speaker2dvector={k: np.asarray(v) for k, v in s2d.items()} if s2d else None,
+        device=_device(args, args.tts_device),
+    )
+    out_dir = Path(args.output_path)
+    budget_s = args.hours * 3600
+    total_s = 0.0
+    written = {}
+    for idx in range(len(ds)):
+        item = ds.__getitem__(idx, augment=False)
+        batch = ds.collate([item])
+        wav = gen.generate_samples(
+            {k: v for k, v in batch.items() if isinstance(v, np.ndarray)})[0]
+        speaker_dir = out_dir / str(item["speaker_key"])
+        speaker_dir.mkdir(parents=True, exist_ok=True)
+        gen.save_audio(speaker_dir / f"{item['id']}.wav", wav)
+        # the ground truth beside the synthesis (reference generate.py:228-231)
+        try:
+            shutil.copyfile(ds.entries[idx].audio_path,
+                            speaker_dir / f"{item['id']}_original.wav")
+        except OSError:
+            pass
+        (speaker_dir / f"{item['id']}.lab").write_text(item.get("text", ""))
+        with open(speaker_dir / f"{item['id']}.meta", "wb") as fh:
+            pickle.dump({"phones": item["phones"], "durations": item["duration"]}, fh)
+        written[f"{item['speaker_key']}/{item['id']}"] = wav
+        total_s += len(wav) / gen.output_sampling_rate
+        if total_s >= budget_s:
+            break
+    print(f"re-synthesized {total_s / 3600:.2f} hours into {out_dir}")
+    return written
+
+
+def main(argv=None):
+    """Sentence mode writes ``<output_path>/sentence.wav`` and returns the
+    float waveform it wrote (before the int16 write); ``--dataset`` mode
+    returns ``resynthesize_dataset``'s waveforms."""
     args = build_parser().parse_args(argv)
-    if not args.sentence:
-        if args.dataset:
-            raise NotImplementedError(
-                "--dataset re-synthesis needs the dataset loader (data/dataset.py), "
-                "which is not ported yet (ROADMAP.md A9)")
-        raise SystemExit("provide --sentence")
-    gen, cfg, _ = load_generator(args)
+    if not (args.sentence or args.dataset):
+        raise SystemExit("provide --sentence or --dataset")
+    gen, cfg, sidecar = load_generator(args)
     chain = postprocess_chain(args)
     if chain is not None:
         gen.set_postprocess(chain)
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if not args.sentence:
+        return resynthesize_dataset(gen, cfg, sidecar, args)
     wav = synthesize_sentence(gen, cfg, args)
     out = out_dir / "sentence.wav"
     gen.save_audio(out, wav)

@@ -20,7 +20,7 @@ padded to its largest member's bucket, so a full training run touches at most
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -71,3 +71,8 @@ def pad_to(x: np.ndarray, length: int, axis: int = 0, value=0) -> np.ndarray:
     widths = [(0, 0)] * x.ndim
     widths[axis] = (0, length - cur)
     return np.pad(x, widths, constant_values=value)
+
+
+def pad_batch(arrays: Sequence[np.ndarray], length: int, value=0) -> np.ndarray:
+    """Stack variable-length arrays into (B, length, ...) with padding."""
+    return np.stack([pad_to(np.asarray(a), length, 0, value) for a in arrays])

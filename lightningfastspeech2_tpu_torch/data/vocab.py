@@ -59,6 +59,14 @@ def to_ipa(phone: str, source_phoneset: str = "arpabet") -> str:
     return phone
 
 
+def normalize_phone(phone: str, source_phoneset: str = "arpabet") -> str:
+    """Full reference pipeline for one raw alignment label: silence labels
+    -> [SILENCE], else stress-strip + IPA."""
+    if phone in ("sil", "sp", "spn", ""):
+        return SILENCE
+    return to_ipa(phone, source_phoneset)
+
+
 class Vocab:
     """phone2id with [PAD]=0 (datasets.py:553-560: sorted unique phones,
     pad first)."""

@@ -17,7 +17,6 @@ from typing import Tuple, Union
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def read(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
@@ -47,5 +46,9 @@ def write(path: Union[str, Path], wav: np.ndarray, sr: int) -> None:
 def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return wav
+    # imported here: scipy.signal takes seconds to import, and a spawn
+    # worker reading wavs at the target rate never needs it
+    from scipy.signal import resample_poly
+
     g = math.gcd(orig_sr, target_sr)
     return resample_poly(wav, target_sr // g, orig_sr // g).astype(np.float32)

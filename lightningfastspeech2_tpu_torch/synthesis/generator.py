@@ -39,6 +39,17 @@ _log = logging.getLogger(__name__)
 MEL_PAD_FLOOR = -6.0
 
 
+def _batch_tensor(v, dev: torch.device) -> torch.Tensor:
+    """One batch entry on the model's device. Integer entries become int64:
+    a collated corpus batch carries int32 phones and durations
+    (``data/dataset.py _shrink_transfer``), a sentence's batch int64, and
+    both serve alike."""
+    t = torch.as_tensor(np.asarray(v), device=dev)
+    if not t.is_floating_point() and t.dtype != torch.bool:
+        t = t.to(torch.int64)
+    return t
+
+
 class SpeechGenerator:
     def __init__(
         self,
@@ -160,7 +171,7 @@ class SpeechGenerator:
         """Both acoustic passes: the duration pass picks the frame bucket T,
         the full pass runs at T. Returns the full pass's outputs."""
         dev = self.model.device
-        tb = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in batch.items()}
+        tb = {k: _batch_tensor(v, dev) for k, v in batch.items()}
         durs = self.model(tb, inference=True, duration_only=True)
         need = int(durs["duration_rounded"].sum(-1).max())
         T = self.bucketer.frame_bucket(need)

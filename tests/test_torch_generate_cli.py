@@ -7,9 +7,13 @@ written by the JAX ``Checkpointer``, converted by
 sentence with an out-of-vocabulary word (the builtin lexicon and neural
 G2P): the phone ids are identical, the waveforms agree within
 ``test_torch_serving.py``'s tolerance before the write and within one LSB
-in the wav files."""
+in the wav files. In ``--dataset`` mode both re-synthesize one
+``make_corpus`` corpus: the ``.meta`` phones and durations, the ``.lab``
+text and the ``_original.wav`` copies are identical, the waveforms agree as
+in sentence mode."""
 
 import dataclasses
+import pickle
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -34,6 +38,7 @@ from lightningfastspeech2_tpu.utils.log_gmm import fit_dvector_gmms, fit_speaker
 from lightningfastspeech2_tpu.vocoder import hifigan as jhg
 from lightningfastspeech2_tpu_torch.cli import generate as tcli
 from lightningfastspeech2_tpu_torch.data import wav as wav_io
+from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
 from lightningfastspeech2_tpu_torch.synthesis import generator as tgen_mod
 from tests.torch_port_helpers import jax_neural_g2p, tiny_config, tiny_hifigan
 
@@ -105,8 +110,6 @@ def checkpoints(tmp_path_factory):
     assert max(m.gmm.n_components for m in gmms.values()) > 1
     dv_gmms = fit_dvector_gmms(
         [(s, v + 0.1 * g.standard_normal((30, 16))) for s, v in dvecs.items()])
-    import pickle
-
     (jax_dir / "prior_gmms.pkl").write_bytes(pickle.dumps(gmms))
     (jax_dir / "dvector_gmms.pkl").write_bytes(pickle.dumps(dv_gmms))
 
@@ -127,6 +130,13 @@ def checkpoints(tmp_path_factory):
     convert(voc_dir, torch_voc)
     return SimpleNamespace(jax=jax_dir, jax_voc=voc_dir, torch=torch_dir, torch_voc=torch_voc,
                            root=root)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """2 speakers (spk0, spk1: the checkpoint's d-vector table) x 2
+    utterances."""
+    return make_corpus(tmp_path_factory.mktemp("cli_corpus"), n_speakers=2, n_utts=2, seed=0)
 
 
 @pytest.fixture(autouse=True)
@@ -189,6 +199,56 @@ def test_cli_matches_jax(checkpoints, monkeypatch, flags):
     assert np.abs(a * 32768 - b * 32768).max() <= 1.0
 
 
+def _record_saves(monkeypatch, module):
+    """The float waveform of every save_audio call, by file path."""
+    seen = {}
+    save_audio = module.SpeechGenerator.save_audio
+
+    def save(self, path, audio):
+        seen[Path(path)] = np.array(audio)
+        return save_audio(self, path, audio)
+
+    monkeypatch.setattr(module.SpeechGenerator, "save_audio", save)
+    return seen
+
+
+def test_cli_dataset_matches_jax(checkpoints, corpus, monkeypatch):
+    c = checkpoints
+    out_j, out_t = c.root / "resynth_jax", c.root / "resynth_torch"
+    jseen = _record_saves(monkeypatch, jgen_mod)
+    jcli.main(["--checkpoint_dir", str(c.jax), "--hifigan_checkpoint", str(c.jax_voc),
+               "--dataset", str(corpus), "--output_path", str(out_j)])
+    tseen = _record_saves(monkeypatch, tgen_mod)
+    wavs = tcli.main(["--checkpoint_dir", str(c.torch), "--hifigan_checkpoint",
+                      str(c.torch_voc), "--dataset", str(corpus), "--output_path", str(out_t),
+                      "--device", "cpu"])
+    files = sorted(p.relative_to(out_j) for p in out_j.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(out_t) for p in out_t.rglob("*") if p.is_file())
+    assert len(files) == 4 * 4 and len(wavs) == 4
+    for key, wav in wavs.items():
+        name = Path(key + ".wav")
+        ref = jseen[out_j / name]
+        np.testing.assert_array_equal(wav, tseen[out_t / name])
+        meta_t = pickle.loads((out_t / key).with_suffix(".meta").read_bytes())
+        meta_j = pickle.loads((out_j / key).with_suffix(".meta").read_bytes())
+        assert set(meta_t) == set(meta_j) == {"phones", "durations"}
+        for k in meta_j:
+            assert meta_t[k].dtype == meta_j[k].dtype
+            np.testing.assert_array_equal(meta_t[k], meta_j[k])
+        assert (out_t / key).with_suffix(".lab").read_text() == \
+            (out_j / key).with_suffix(".lab").read_text() == "synthetic"
+        orig = Path(key + "_original.wav")
+        assert (out_t / orig).read_bytes() == (out_j / orig).read_bytes()
+        # every phone 7 frames of 16 samples, as in sentence mode
+        assert wav.shape == ref.shape and len(wav) == 7 * HOP * len(meta_j["phones"])
+        assert np.isfinite(wav).all() and np.abs(ref).max() > 0.05
+        np.testing.assert_allclose(wav, ref, rtol=0, atol=ATOL)
+        a, sr_a = wav_io.read(out_t / name)
+        b, sr_b = wav_io.read(out_j / name)
+        assert sr_a == sr_b == 22050
+        assert np.abs(a * 32768 - b * 32768).max() <= 1.0
+
+
 def test_cli_picks_differ_by_strategy(checkpoints):
     """The three runs above drew different priors / d-vectors: the prior
     GMM and the d-vector GMM change the request."""
@@ -229,10 +289,21 @@ def test_cli_raises_without_card(checkpoints, tmp_path):
                    "--output_path", str(tmp_path)])
 
 
-def test_cli_unported_modes_name_their_roadmap_items(checkpoints, tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcli.main(["--checkpoint_dir", str(checkpoints.torch), "--dataset", str(tmp_path),
-                   "--device", "cpu"])
+def test_cli_unported_modes_name_their_roadmap_items(checkpoints, corpus, tmp_path):
+    """``--hub`` alone still raises naming A8; ``--dataset`` (A9) runs, and
+    stops at ``--hours``."""
+    out = tcli.main(["--checkpoint_dir", str(checkpoints.torch), "--dataset", str(corpus),
+                     "--device", "cpu", "--no_vocoder", "--output_path", str(tmp_path / "all")])
+    assert len(out) == 4 and all(np.isfinite(w).all() and w.size for w in out.values())
+    for key in out:
+        for suffix in (".wav", "_original.wav", ".lab", ".meta"):
+            assert (tmp_path / "all" / f"{key}{suffix}").exists()
+    one = tcli.main(["--checkpoint_dir", str(checkpoints.torch), "--dataset", str(corpus),
+                     "--device", "cpu", "--no_vocoder", "--hours", "1e-9",
+                     "--output_path", str(tmp_path / "one")])
+    assert list(one) == list(out)[:1]
+    with pytest.raises(SystemExit, match="--dataset"):
+        tcli.main(["--checkpoint_dir", str(checkpoints.torch), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A8"):
         tcli.main(["--hub", "some/repo", "--sentence", "hello.", "--device", "cpu"])
 

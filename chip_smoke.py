@@ -206,6 +206,27 @@ Phases, each printed as one JSON line:
     within phase 6's tolerance of the CPU generator, and as int32 equal to
     its int64 twin.
 
+26. train CLI: ``cli.train.main`` on the card under ``_chip/``. A
+    make_rich_corpus corpus of 4 speakers x 8 utterances of 2-14 s (batches
+    of 8 reach frame buckets of 1024 and more); the flagship (pitch with
+    CWT, energy, SNR; pitch, energy and duration priors) trains 20 steps in
+    bf16 at batch 8 through a 2-worker loader, with d-vectors and
+    ``--dvector_gmm``, ``--priors_gmm``, SWA, a validation set of 4 x 2
+    utterances of 1-2 s, evals and checkpoints every 10 steps: every
+    logged loss and eval metric finite, ``latest`` at step 20 and
+    restoring into a model, the SWA
+    checkpoint and both GMM pickles there, the serving ``ffn_ln``,
+    ``ffn_ln_train`` and flash launched by the run. Its steps/s, host ms a
+    step, the share of the loop spent waiting for the loader (with and
+    without the first batch) and one more step of the trained model
+    profiled. Then a 2-step warm start (every tensor restored), a 2-step
+    soft-DTW run with ``LFS2_PALLAS_LR=1`` (``soft_dtw`` and ``regulate``
+    launched), a 2-step f32 run (rates 0, B=2, frame bucket 1024, flash) on
+    the card against the same run on the CPU through one feature cache
+    (losses and ``grad_norm`` within ``TC_LOSS_REL``), one d-vector card
+    against CPU, and the generate CLI serving the bf16 run's checkpoint with
+    ``--prior_strategy gmm --sample_dvector``.
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -3087,6 +3108,256 @@ def dataset_phase(counters, smi: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------- train CLI
+TC_SPEAKERS, TC_UTTS = 4, 8            # the bf16 run's corpus
+TC_WORDS = (6, 36)                     # words an utterance: 2-14 s, buckets to 1536
+TC_LONG_WORDS = (26, 30)               # the f32 corpus: 9-12 s, frame bucket 1024
+TC_VALID_WORDS = (2, 4)                # the validation set: 4 x 2 utterances of 1-2 s
+TC_STEPS = 20
+TC_LOSS_REL = 1e-4                     # phase 9's loss tolerance, card against CPU
+TC_DVEC_ATOL = 5e-4                    # one d-vector, card against CPU (test_torch_dvector.py)
+
+
+class _StampedLines:
+    """A stdout that keeps each line with the seconds since ``t0`` at which
+    it was written."""
+
+    def __init__(self, t0: float):
+        self.t0, self.lines, self._part = t0, [], ""
+
+    def write(self, text: str) -> int:
+        *done, self._part = (self._part + text).split("\n")
+        now = time.perf_counter() - self.t0
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+
+def _train_cli(cli, argv, counters) -> dict:
+    """``cli.main(argv)`` with every launch count set to 0 just before and
+    read just after, its stdout captured (and echoed) with each line's
+    seconds since the start, and its seconds."""
+    reset_counts(counters)
+    t = time.perf_counter()
+    out = _StampedLines(t)
+    with contextlib.redirect_stdout(out):
+        result = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    text = "\n".join(line for _, line in out.lines)
+    print(text, flush=True)
+    # where the run's host time went: each line but the per-step ones
+    timeline = [[round(s, 3), line[:60]] for s, line in out.lines
+                if not line.startswith("step ") or "eval/" in line or line.startswith("step 0:")]
+    return {"result": result, "stdout": text, "s": seconds, "timeline": timeline,
+            "launches": {c.__name__: c.launches for c in counters},
+            "flash_routes": flash_routes(counters)}
+
+
+def _metrics_lines(log_dir: Path) -> list:
+    return [json.loads(l) for l in (log_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def train_cli_phase(counters, smi: str) -> dict:
+    """Phase 26: the port's train CLI on the card. A make_rich_corpus corpus
+    of 4 speakers with utterances of 2-14 s (batches of 8 reach frame
+    buckets of 1024 and more, so the decoder runs flash attention) under
+    ``_chip/``; the CLI trains the flagship in bf16 for ``TC_STEPS`` steps
+    through a 2-worker loader, with d-vectors and their GMMs, priors and
+    their GMMs, SWA, evals on a short validation set and asynchronous
+    checkpoints every 10 steps;
+    then a warm start, a soft-DTW run with ``LFS2_PALLAS_LR=1``, an f32 run
+    (rates 0, B=2, frame bucket 1024) on the card against the same run on
+    the CPU through one feature cache, one d-vector card against CPU, and
+    the generate CLI serving the bf16 run's checkpoint with the prior GMMs.
+    Each run's launches are counted; one more step of the trained model is
+    profiled."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+    from lightningfastspeech2_tpu_torch.data.dvector import DVectorPipeline
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.train.loop import batch_iterator, build_model
+    from lightningfastspeech2_tpu_torch.train.step import make_train_step
+    from lightningfastspeech2_tpu_torch.utils.log_gmm import load_gmms
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_chip" / "train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    long_corpus = make_rich_corpus(work / "long", n_speakers=2, n_utts=2, seed=1,
+                                   min_words=TC_LONG_WORDS[0], max_words=TC_LONG_WORDS[1])
+    # short: each eval's mel metrics run on the host (soft-DTW over an
+    # N x M x 80 distance cube an utterance)
+    valid = make_rich_corpus(work / "valid", n_speakers=TC_SPEAKERS, n_utts=2, seed=2,
+                             min_words=TC_VALID_WORDS[0], max_words=TC_VALID_WORDS[1])
+    corpus_s = time.perf_counter() - t
+    ck, logs = work / "ckpt", work / "logs"
+    base = ["--train_target_path", str(corpus), "--checkpoint_dir", str(ck),
+            "--log_dir", str(logs), "--batch_size", "8", "--log_every", "1",
+            "--cache_path", str(work / "cache"), "--priors", "pitch", "energy", "duration",
+            "--variance_transforms", "cwt", "none", "none"]
+
+    # the bf16 run: the flagship's widths, variances (pitch with CWT) and
+    # d-vector speakers, the CLI's defaults otherwise
+    argv = base + ["--valid_target_path", str(valid), "--max_steps", str(TC_STEPS),
+                   "--eval_every", "10", "--checkpoint_every", "10", "--num_workers", "2",
+                   "--dvector_gmm", "True", "--priors_gmm", "True", "--swa", "True"]
+    run = _train_cli(cli, argv, counters)
+    res = run["result"]
+    lines = _metrics_lines(logs)
+    train_lines = [l for l in lines if "train/total_loss" in l]
+    eval_lines = [l for l in lines if "eval/mel_loss" in l]
+    bad = [(l["step"], k) for l in lines for k, v in l.items()
+           if k.startswith(("train/", "eval/")) and not math.isfinite(v)]
+    if len(train_lines) != TC_STEPS or len(eval_lines) != 3 or bad:
+        raise RuntimeError(f"train CLI: {len(train_lines)} step lines, {len(eval_lines)} evals, "
+                           f"not finite {bad[:8]}")
+    latest = (ck / "latest").read_text()
+    tree, cfg, side = Checkpointer(ck).restore()
+    m = cfg.model
+    ds = TTSDataset(corpus, DataConfig(variances=m.variance.variances,
+                                       variance_levels=m.variance.levels,
+                                       variance_transforms=m.variance.transforms,
+                                       priors=m.priors),
+                    stats=side["stats"], speaker2dvector=side["speaker2dvector"],
+                    cache_dir=work / "cache", device="cuda")
+    restored = build_model(cfg, ds, device="cuda")
+    restored.load_state_dict(tree["params"])
+    swa_ok = (ck / "swa" / "latest").exists() and bool(Checkpointer(ck / "swa").latest_path())
+    gmms = {n: load_gmms(ck / f"{n}.pkl") for n in ("prior_gmms", "dvector_gmms")}
+    if not (latest == f"step_{TC_STEPS:08d}" and tree["opt_state"]["state"] and swa_ok
+            and all(len(g) == TC_SPEAKERS for g in gmms.values())
+            and len(side.get("speaker2priors", {})) == TC_SPEAKERS):
+        raise RuntimeError(f"train CLI checkpoints: latest {latest}, swa {swa_ok}, "
+                           f"gmms {[len(g) for g in gmms.values()]}")
+    n = run["launches"]
+    need = ("ffn_ln", "ffn_ln_train", "ffn_ln_train_bwd", "flash_attention",
+            "flash_attention_bwd")
+    if not all(n[k] > 0 for k in need):
+        raise RuntimeError(f"train CLI launches {n}")
+    # host ms a step: the logged interval rates, eval and checkpoint steps
+    # among them; the loop's share spent waiting for the loader
+    step_ms = [1e3 / l["train/steps_per_s"] for l in train_lines]
+    waits = {"loop_s": res.loop_s, "loader_wait_s": res.loader_wait_s,
+             "first_batch_s": res.first_batch_s,
+             "wait_share": res.loader_wait_s / res.loop_s,
+             "wait_share_after_first": ((res.loader_wait_s - res.first_batch_s)
+                                        / (res.loop_s - res.first_batch_s))}
+    # one more step of the trained model on the run's first batch, profiled
+    bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
+    batch = next(batch_iterator(ds, 8, bucketer, seed=cfg.train.seed))
+    step = make_train_step(res.state.model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(res.state, batch, gen)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(res.state, batch, gen)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "train_cli_profile.txt")
+    row = {"phase": "train_cli", "corpus": f"make_rich_corpus {TC_SPEAKERS} x {TC_UTTS}, "
+                                           f"{TC_WORDS[0]}-{TC_WORDS[1]} words, seed 0",
+           "corpus_s": corpus_s, "cli_s": run["s"], "cli_timeline": run["timeline"],
+           "steps": TC_STEPS,
+           "steps_per_s_loop": TC_STEPS / res.loop_s,
+           "host_ms_a_step_median": statistics.median(step_ms), "host_ms_a_step": step_ms,
+           **waits, "launches": n, "flash_routes": run["flash_routes"],
+           "first_loss": train_lines[0]["train/total_loss"],
+           "last_loss": train_lines[-1]["train/total_loss"],
+           "eval_mel_loss": [l["eval/mel_loss"] for l in eval_lines],
+           "eval_metrics_final": {k: v for k, v in eval_lines[-1].items() if k != "ts"},
+           "latest": latest, "swa": swa_ok, "profiled_step": {
+               "frame_bucket": int(batch["mel"].shape[1]), **{k: split[k] for k in (
+                   "device_ms", "device_launches", "ffn_ln_train_ms", "ffn_ln_train_bwd_ms",
+                   "flash_attention_ms", "flash_attention_bwd_ms")}},
+           "nvidia_smi": smi}
+    emit(row)
+
+    # a warm start from the bf16 run: every tensor restored
+    warm = _train_cli(cli, base + ["--checkpoint_dir", str(work / "warm"), "--max_steps", "2",
+                                   "--num_workers", "0", "--from_checkpoint", str(ck)], counters)
+    n_params = len(tree["params"])
+    if f"warm start: {n_params} tensors restored, 0 kept fresh" not in warm["stdout"]:
+        raise RuntimeError(f"warm start: {warm['stdout'][-500:]}")
+    # the soft-DTW mel loss with the opt-in regulator
+    with env_opt_in("LFS2_PALLAS_LR"):
+        sdtw = _train_cli(cli, base + ["--checkpoint_dir", str(work / "sdtw"), "--max_steps", "2",
+                                       "--num_workers", "0", "--mel_loss", "soft_dtw"], counters)
+    ns = sdtw["launches"]
+    if not all(ns[k] > 0 for k in ("soft_dtw", "soft_dtw_bwd", "regulate", "regulate_bwd",
+                                   "ffn_ln_train", "flash_attention")):
+        raise RuntimeError(f"soft-DTW train CLI launches {ns}")
+    sdtw_losses = [h["total"] for h in sdtw["result"].history]
+    if not all(math.isfinite(v) for v in sdtw_losses):
+        raise RuntimeError(f"soft-DTW train CLI losses {sdtw_losses}")
+
+    # f32, every rate 0: the card against the CPU over one feature cache
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        f32[dev] = _train_cli(cli, [
+            "--train_target_path", str(long_corpus), "--checkpoint_dir", str(work / f"f32_{dev}"),
+            "--log_dir", str(work / f"f32_logs_{dev}"), "--cache_path", str(work / "long_cache"),
+            "--batch_size", "2", "--max_steps", "2", "--log_every", "1", "--num_workers", "0",
+            "--precision", "32", "--warmup_steps", "1", "--encoder_dropout", "0",
+            "--decoder_dropout", "0", "--variance_dropout", "0", "0", "0",
+            "--duration_dropout", "0", "--augment_duration", "0",
+            "--variance_transforms", "cwt", "none", "none", "--device", dev], counters)
+    ha, hb = f32["cuda"]["result"].history, f32["cpu"]["result"].history
+    err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+              for a, b in zip(ha, hb) for k in b if k not in ("steps_per_s", "lr"))
+    fr = f32["cuda"]["flash_routes"]
+    if not (len(ha) == len(hb) == 2 and err <= TC_LOSS_REL
+            and fr["flash_attention"]["flash_attention"] > 0):
+        raise RuntimeError(f"f32 train CLI card vs CPU: max rel err {err}, flash {fr}, "
+                           f"card {ha}, CPU {hb}")
+    # one item's d-vector
+    wav, sr = wav_io.read(next(iter(sorted(corpus.rglob("*.wav")))))
+    wav = wav[:sr] / max(float(np.abs(wav[:sr]).max()), 1e-9)
+    dv = {d: DVectorPipeline(device=d).embed_wav(wav, sr) for d in ("cuda", "cpu")}
+    dv_err = float(np.abs(dv["cuda"] - dv["cpu"]).max())
+    if dv_err > TC_DVEC_ATOL:
+        raise RuntimeError(f"d-vector card vs CPU: {dv_err} > {TC_DVEC_ATOL}")
+
+    # the generate CLI serves the bf16 run's checkpoint with its prior GMMs
+    out = work / "gen"
+    reset_counts(counters)
+    wav_gen = gen_cli.main(["--checkpoint_dir", str(ck), "--sentence", "Hello world.",
+                            "--output_path", str(out), "--prior_strategy", "gmm",
+                            "--sample_dvector", "--seed", "0"])
+    written, gsr = wav_io.read(out / "sentence.wav")
+    gen_launches = {c.__name__: c.launches for c in counters if c.launches}
+    if not (written.size > 0 and gsr == SAMPLING_RATE and np.isfinite(wav_gen).all()
+            and gen_launches.get("ffn_ln", 0) > 0):
+        raise RuntimeError(f"generate from the trained checkpoint: {written.size} samples at "
+                           f"{gsr} Hz, launches {gen_launches}")
+    tail = {"phase": "train_cli_checks", "warm_start_s": warm["s"],
+            "warm_start_tensors": n_params, "soft_dtw_s": sdtw["s"],
+            "soft_dtw_launches": {k: v for k, v in ns.items() if v},
+            "soft_dtw_losses": sdtw_losses,
+            "f32_card_vs_cpu": {"max_rel_err": err, "tol": TC_LOSS_REL,
+                                "card": [{k: v for k, v in h.items() if k != "steps_per_s"}
+                                         for h in ha],
+                                "cpu_s": f32["cpu"]["s"], "card_s": f32["cuda"]["s"],
+                                "flash_routes": fr},
+            "dvector_card_vs_cpu": {"max_abs_err": dv_err, "tol": TC_DVEC_ATOL},
+            "generate": {"samples": int(written.size), "launches": gen_launches},
+            "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"row": row, "soft_dtw_launches": ns}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -3167,6 +3438,7 @@ def main() -> int:
     every_layer_phase(counters, served)
     head_dims = head_dim_training_phase(counters)
     dataset_phase(counters, info["nvidia_smi"])
+    train_cli = train_cli_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -3308,6 +3580,14 @@ def main() -> int:
                                          for x in head_dims["rows"]),
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "at", "head_dim")}})
+    # phase 26's counted CLI runs beside each kernel of their path: the
+    # bf16 run's launches, the soft-DTW run's for soft-DTW and the regulator
+    p26 = {**train_cli["row"]["launches"],
+           **{k: train_cli["soft_dtw_launches"][k]
+              for k in ("soft_dtw", "soft_dtw_bwd", "regulate", "regulate_bwd")}}
+    for k in kernels:
+        if k["name"] in p26 and "launches_phase_26" not in k:
+            k["launches_phase_26"] = p26[k["name"]]
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,478 @@
+"""Training CLI.
+
+Counterpart of ``lightningfastspeech2_tpu/cli/train.py``: the same flags,
+defaults and config (``args_to_config``), flag-compatible with the
+reference where sensible (reference ``litfass/train.py:29-93``,
+``scripts/train.sh``), plus ``--device`` (``cuda`` unless ``cpu``, as the
+generate CLI):
+
+    python -m lightningfastspeech2_tpu_torch.cli.train \\
+        --train_target_path corpus/train --valid_target_path corpus/valid \\
+        --checkpoint_dir ckpts --max_steps 10000
+
+``main`` runs in the JAX CLI's order: dataset -> d-vectors (and
+``dvector_gmms.pkl``) -> sort -> validation set -> fit (logged steps, evals,
+asynchronous checkpoints, an optional warm start) -> final checkpoint ->
+SWA checkpoint under ``swa/`` -> final eval -> priors in the sidecar and
+``prior_gmms.pkl``. The checkpoint directory is what the port's generate
+CLI serves. One process trains on one device: the mesh flags and
+``--zero1`` change nothing, as in the JAX CLI on one device. Flags whose
+modules are not ported raise ``NotImplementedError`` naming their ROADMAP.md
+item: ``--on_device_features`` (A14), ``--fastdiff_vocoder`` /
+``--fastdiff_variances`` / ``--fastdiff_speakers`` (A13),
+``--duration_stochastic`` (A11), and an ``srmr`` variance (A16, raised by
+the dataset).
+"""
+
+from __future__ import annotations
+
+import argparse
+import pickle
+from pathlib import Path
+
+
+def str2bool(v: str) -> bool:  # reference third_party/argutils semantics
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("boolean value expected")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="FastSpeech2 training (PyTorch / CUDA)")
+    # data
+    p.add_argument("--train_target_path", type=str, required=True,
+                   help="aligned corpus root (wav + TextGrid pairs)")
+    p.add_argument("--valid_target_path", type=str, default=None)
+    p.add_argument("--train_min_samples_per_speaker", type=int, default=0)
+    p.add_argument("--min_length", type=float, default=0.5)
+    p.add_argument("--max_length", type=float, default=32.0)
+    p.add_argument("--augment_duration", type=float, default=0.1)
+    p.add_argument("--sort_data_by_length", type=str2bool, default=False)
+    p.add_argument("--stat_entries", type=int, default=10000)
+    # variances
+    p.add_argument("--variances", nargs="+", default=["pitch", "energy", "snr"])
+    p.add_argument("--variance_levels", nargs="+",
+                   default=["frame", "frame", "frame"])
+    p.add_argument("--variance_transforms", nargs="+",
+                   default=["none", "none", "none"])
+    p.add_argument("--variance_losses", nargs="+", default=["mse", "mse", "mse"])
+    p.add_argument("--variance_nlayers", nargs="+", type=int, default=[5, 5, 5])
+    p.add_argument("--variance_kernel_size", nargs="+", type=int, default=[3, 3, 3])
+    p.add_argument("--variance_dropout", nargs="+", type=float,
+                   default=[0.5, 0.5, 0.5])
+    p.add_argument("--variance_loss_weights", nargs="+", type=float,
+                   default=[5e-2, 5e-2, 5e-2])
+    p.add_argument("--variance_filter_size", type=int, default=256)
+    p.add_argument("--variance_nbins", type=int, default=256)
+    p.add_argument("--variance_depthwise_conv", type=str2bool, default=True)
+    p.add_argument("--variance_early_stopping", type=str, default="none",
+                   choices=["none", "mae", "js"])
+    p.add_argument("--variance_early_stopping_patience", type=int, default=4)
+    # duration
+    p.add_argument("--duration_nlayers", type=int, default=2)
+    p.add_argument("--duration_stochastic", type=str2bool, default=False)
+    p.add_argument("--duration_kernel_size", type=int, default=3)
+    p.add_argument("--duration_dropout", type=float, default=0.5)
+    p.add_argument("--duration_filter_size", type=int, default=256)
+    p.add_argument("--duration_depthwise_conv", type=str2bool, default=True)
+    p.add_argument("--duration_loss_weight", type=float, default=5e-1)
+    # encoder/decoder
+    for side, kernels in (("encoder", [5, 25, 13, 9]), ("decoder", [17, 21, 9, 13])):
+        p.add_argument(f"--{side}_hidden", type=int, default=256)
+        p.add_argument(f"--{side}_head", type=int, default=2)
+        p.add_argument(f"--{side}_layers", type=int, default=4)
+        p.add_argument(f"--{side}_dropout", type=float, default=0.1)
+        p.add_argument(f"--{side}_kernel_sizes", nargs="+", type=int,
+                       default=kernels)
+        p.add_argument(f"--{side}_conformer", type=str2bool, default=True)
+        p.add_argument(f"--{side}_depthwise_conv", type=str2bool, default=True)
+        p.add_argument(f"--{side}_conv_filter_size", type=int, default=1024)
+    # FastDiff (reference litfass/train.py:73-91, scripts/train.sh:44-47)
+    p.add_argument("--fastdiff_vocoder", type=str2bool, default=False,
+                   help="joint acoustic+FastDiff vocoder training")
+    p.add_argument("--fastdiff_variances", type=str2bool, default=False,
+                   help="diffusion variance adaptor")
+    p.add_argument("--fastdiff_speakers", type=str2bool, default=False,
+                   help="diffusion d-vector speaker generator")
+    p.add_argument("--fastdiff_schedule", nargs="+", type=float,
+                   default=[0.0, 1.0],
+                   help="per-epoch P(condition vocoder on predicted mel)")
+    p.add_argument("--fastdiff_schedule_end", type=int, default=20)
+    p.add_argument("--fastdiff_n", type=int, default=4,
+                   help="reverse-diffusion steps at inference")
+    p.add_argument("--fastdiff_inner_channels", type=int, default=32)
+    p.add_argument("--fastdiff_upsample_ratios", nargs="+", type=int,
+                   default=[8, 8, 4])
+    p.add_argument("--fastdiff_lvc_layers", type=int, default=4)
+    p.add_argument("--fastdiff_kpnet_hidden", type=int, default=64)
+    p.add_argument("--fastdiff_diffusion_T", type=int, default=1000)
+    # speakers & priors
+    p.add_argument("--speaker_type", type=str, default="dvector",
+                   choices=["none", "id", "dvector", "dvector_utterance"])
+    p.add_argument("--compute_dvectors", type=str2bool, default=True,
+                   help="embed every utterance with the d-vector LSTM at "
+                        "dataset init (reference datasets.py:652-690); "
+                        "False falls back to deterministic placeholders")
+    p.add_argument("--dvector_gmm", type=str2bool, default=False,
+                   help="fit per-speaker GMMs over utterance d-vectors "
+                        "for novel-voice sampling (reference "
+                        "fastspeech2.py:121,492-499)")
+    p.add_argument("--dvector_checkpoint", type=str, default=None,
+                   help="torch d-vector state-dict (yistLin topology) for "
+                        "the embedding pipeline")
+    p.add_argument("--priors", nargs="*", default=[])
+    p.add_argument("--priors_gmm", type=str2bool, default=False)
+    p.add_argument("--priors_gmm_max_components", type=int, default=5)
+    p.add_argument("--speaker_embedding_every_layer", type=str2bool, default=False)
+    p.add_argument("--prior_embedding_every_layer", type=str2bool, default=False)
+    # optimization (reference defaults: fastspeech2.py:50-56, train.sh)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup_steps", type=int, default=4000)
+    p.add_argument("--batch_size", type=int, default=6)
+    p.add_argument("--accumulate_grad_batches", type=int, default=1)
+    p.add_argument("--gradient_clip_val", type=float, default=1.0)
+    p.add_argument("--max_steps", type=int, default=100000)
+    p.add_argument("--mel_loss", type=str, default="l1")
+    p.add_argument("--soft_dtw_gamma", type=float, default=0.1)
+    p.add_argument("--soft_dtw_chunk_size", type=int, default=256)
+    p.add_argument("--precision", type=str, default="bf16",
+                   choices=["bf16", "32"])
+    p.add_argument("--bf16_moments", type=str2bool, default=False,
+                   help="Adam first moment in bf16 (cuts optimizer-state "
+                        "memory a third)")
+    p.add_argument("--on_device_features", type=str2bool, default=False,
+                   help="extract mel/pitch/energy/SNR on the device inside the "
+                        "train step (raw-wav host pipeline; not ported: A14)")
+    p.add_argument("--seed", type=int, default=42)
+    # host input pipeline (reference DataLoader num_workers=cpu_count,
+    # fastspeech2.py:42,114); default: leave 2 CPUs for the main process
+    import os as _os
+
+    p.add_argument("--num_workers", type=int,
+                   default=max((_os.cpu_count() or 2) - 2, 2))
+    p.add_argument("--prefetch", type=int, default=4)
+    p.add_argument("--mel_transfer_dtype", type=str, default="auto",
+                   choices=("auto", "float32", "bfloat16"),
+                   help="collated-mel storage dtype; auto = bfloat16 when "
+                        "--precision bf16 (halves the dominant batch "
+                        "payload; see DataConfig.mel_dtype)")
+    p.add_argument("--wav_transfer_dtype", type=str, default="int16",
+                   choices=("float32", "int16"),
+                   help="waveform transfer dtype when batches carry audio "
+                        "(joint FastDiff / --on_device_features); int16 "
+                        "quarters the payload, dequantized on device")
+    p.add_argument("--swa", type=str2bool, default=False,
+                   help="stochastic weight averaging over the last 25% of "
+                        "steps (reference train.py:282-283)")
+    # mesh
+    p.add_argument("--mesh_data", type=int, default=-1)
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument("--zero1", type=str2bool, default=False,
+                   help="shard optimizer moments over the data mesh axis")
+    # io
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--async_checkpoints", type=str2bool, default=True,
+                   help="write checkpoints on a background thread: the train "
+                        "loop only blocks for the device->host copy, not the "
+                        "disk write")
+    p.add_argument("--cache_path", type=str, default=None,
+                   help="dataset scan/stats cache directory (reference "
+                        "--cache_path analog)")
+    p.add_argument("--from_checkpoint", type=str, default=None)
+    p.add_argument("--log_dir", type=str, default="logs")
+    p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--eval_every", type=int, default=1000)
+    p.add_argument("--checkpoint_every", type=int, default=1000)
+    p.add_argument("--early_stopping", type=str2bool, default=False)
+    p.add_argument("--early_stopping_patience", type=int, default=10)
+    p.add_argument("--wandb_mode", type=str, default="offline")
+    p.add_argument("--wandb_project", type=str, default=None)
+    p.add_argument("--log_eval_media", type=str2bool, default=True,
+                   help="write pred/true spectrogram pngs under "
+                        "log_dir/eval_examples every eval (reference logs "
+                        "these to wandb, fastspeech2.py:809-957)")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    return p
+
+
+def args_to_config(args):
+    from lightningfastspeech2_tpu_torch.core import config as C
+
+    n = len(args.variances)
+
+    def fit_list(lst, fill=None):
+        lst = list(lst)
+        while len(lst) < n:
+            lst.append(fill if fill is not None else lst[-1])
+        return tuple(lst[:n])
+
+    variance = C.VarianceConfig(
+        variances=tuple(args.variances),
+        levels=fit_list(args.variance_levels),
+        transforms=fit_list(args.variance_transforms),
+        losses=fit_list(args.variance_losses),
+        nlayers=fit_list(args.variance_nlayers),
+        kernel_sizes=fit_list(args.variance_kernel_size),
+        dropouts=fit_list(args.variance_dropout),
+        loss_weights=fit_list(args.variance_loss_weights),
+        filter_size=args.variance_filter_size,
+        nbins=args.variance_nbins,
+        depthwise=args.variance_depthwise_conv,
+    )
+    duration = C.DurationConfig(
+        nlayers=args.duration_nlayers,
+        stochastic=args.duration_stochastic,
+        kernel_size=args.duration_kernel_size,
+        dropout=args.duration_dropout,
+        filter_size=args.duration_filter_size,
+        depthwise=args.duration_depthwise_conv,
+        loss_weight=args.duration_loss_weight,
+    )
+
+    def stack(side):
+        g = lambda k: getattr(args, f"{side}_{k}")
+        return C.StackConfig(
+            hidden=g("hidden"), heads=g("head"), layers=g("layers"),
+            dropout=g("dropout"),
+            kernel_sizes=tuple(g("kernel_sizes"))[: g("layers")],
+            conformer=g("conformer"), depthwise=g("depthwise_conv"),
+            conv_filter_size=g("conv_filter_size"),
+        )
+
+    model = C.ModelConfig(
+        encoder=stack("encoder"), decoder=stack("decoder"),
+        variance=variance, duration=duration,
+        speaker_type=args.speaker_type,
+        priors=tuple(args.priors),
+        speaker_embedding_every_layer=args.speaker_embedding_every_layer,
+        prior_embedding_every_layer=args.prior_embedding_every_layer,
+        fastdiff_vocoder=args.fastdiff_vocoder,
+        fastdiff_variances=args.fastdiff_variances,
+        fastdiff_speakers=args.fastdiff_speakers,
+        fastdiff_schedule=tuple(args.fastdiff_schedule),
+        fastdiff_schedule_end=args.fastdiff_schedule_end,
+        fastdiff_inference_steps=args.fastdiff_n,
+        fastdiff_inner_channels=args.fastdiff_inner_channels,
+        fastdiff_upsample_ratios=tuple(args.fastdiff_upsample_ratios),
+        fastdiff_lvc_layers=args.fastdiff_lvc_layers,
+        fastdiff_kpnet_hidden=args.fastdiff_kpnet_hidden,
+        fastdiff_diffusion_T=args.fastdiff_diffusion_T,
+    )
+    train = C.TrainConfig(
+        lr=args.lr, warmup_steps=args.warmup_steps,
+        batch_size=args.batch_size, grad_accum=args.accumulate_grad_batches,
+        grad_clip=args.gradient_clip_val, max_steps=args.max_steps,
+        bf16=args.precision == "bf16", bf16_moments=args.bf16_moments,
+        seed=args.seed,
+        on_device_features=args.on_device_features,
+        mel_loss=args.mel_loss, soft_dtw_gamma=args.soft_dtw_gamma,
+        soft_dtw_chunk_size=args.soft_dtw_chunk_size,
+        log_every=args.log_every, eval_every=args.eval_every,
+        checkpoint_every=args.checkpoint_every,
+        variance_early_stopping=args.variance_early_stopping,
+        variance_early_stopping_patience=args.variance_early_stopping_patience,
+        num_workers=args.num_workers, prefetch=args.prefetch,
+        zero1=args.zero1, swa=args.swa,
+    )
+    mesh = C.MeshConfig(data=args.mesh_data, model=args.mesh_model)
+    return C.Config(model=model, train=train, mesh=mesh)
+
+
+_UNPORTED_FLAGS = (
+    ("on_device_features", "--on_device_features (train/on_device_features.py)", "A14"),
+    ("fastdiff_vocoder", "--fastdiff_vocoder (joint FastDiff training)", "A13"),
+    ("fastdiff_variances", "--fastdiff_variances (models/fastdiff_variances.py)", "A13"),
+    ("fastdiff_speakers", "--fastdiff_speakers (models/fastdiff_variances.py)", "A13"),
+    ("duration_stochastic", "--duration_stochastic (models/sdp.py)", "A11"),
+)
+
+
+def check_ported(args) -> None:
+    """Raise for a flag whose module is not ported, naming its ROADMAP item."""
+    for attr, what, item in _UNPORTED_FLAGS:
+        if getattr(args, attr):
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    cfg = args_to_config(args)
+    check_ported(args)
+
+    import torch
+
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer, warm_start
+    from lightningfastspeech2_tpu_torch.core.device import resolve_device
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+    from lightningfastspeech2_tpu_torch.train.loop import (
+        StopTraining, build_model, encoder_snapshot, evaluate, fit)
+    from lightningfastspeech2_tpu_torch.train.metrics_logger import MetricsLogger
+    from lightningfastspeech2_tpu_torch.train.step import TrainState, create_train_state
+
+    device = resolve_device(args.device)
+    dcfg = DataConfig(
+        min_length=args.min_length, max_length=args.max_length,
+        variances=tuple(args.variances),
+        variance_levels=cfg.model.variance.levels,
+        variance_transforms=cfg.model.variance.transforms,
+        priors=tuple(args.priors),
+        augment_duration=args.augment_duration,
+        speaker_type=args.speaker_type,
+        min_samples_per_speaker=args.train_min_samples_per_speaker,
+        stat_entries=args.stat_entries,
+        raw_mode=args.on_device_features,
+        mel_dtype=("bfloat16" if args.precision in ("bf16", "16") else "float32")
+        if args.mel_transfer_dtype == "auto" else args.mel_transfer_dtype,
+        wav_dtype=args.wav_transfer_dtype,
+        load_wav=args.fastdiff_vocoder,
+        seed=args.seed,
+        max_phones=cfg.model.max_phones,
+        max_frames=cfg.model.max_frames,
+        scan_workers=args.num_workers,
+    )
+    print(f"scanning corpus {args.train_target_path} ...", flush=True)
+    dataset = TTSDataset(root=Path(args.train_target_path), cfg=dcfg,
+                         cache_dir=Path(args.cache_path) if args.cache_path else None,
+                         device=device)
+    print(f"{len(dataset)} utterances, {len(dataset.speakers)} speakers, "
+          f"{len(dataset.vocab)} phones", flush=True)
+    if args.compute_dvectors and "dvector" in args.speaker_type and len(dataset):
+        # per-utterance d-vectors and speaker means (reference embeds at
+        # dataset init, datasets.py:652-690) in place of hash placeholders
+        from lightningfastspeech2_tpu_torch.data.dvector import DVectorPipeline
+
+        state_dict = None
+        if args.dvector_checkpoint:
+            state_dict = torch.load(args.dvector_checkpoint, map_location="cpu",
+                                    weights_only=True)
+        pipeline = DVectorPipeline(state_dict, sampling_rate=cfg.model.audio.sampling_rate,
+                                   device=device)
+        dataset.create_dvectors(pipeline)
+        print(f"d-vectors: embedded {len(dataset)} utterances, "
+              f"{len(dataset.speaker2dvector)} speaker vectors", flush=True)
+        if args.dvector_gmm:
+            from lightningfastspeech2_tpu_torch.utils.log_gmm import fit_dvector_gmms
+
+            dvector_gmms = fit_dvector_gmms(dataset.get_speaker_dvectors())
+            Path(args.checkpoint_dir).mkdir(parents=True, exist_ok=True)
+            with open(Path(args.checkpoint_dir) / "dvector_gmms.pkl", "wb") as fh:
+                pickle.dump(dvector_gmms, fh)
+            print(f"fitted d-vector GMMs for {len(dvector_gmms)} speakers")
+    if len(dataset) == 0:
+        raise SystemExit(f"no usable utterances under {args.train_target_path} (need "
+                         "paired <utt>.wav + <utt>.TextGrid files)")
+    if args.sort_data_by_length:
+        dataset.sort_by_duration()
+    valid = None
+    if args.valid_target_path:
+        valid = dataset.create_validation_dataset(Path(args.valid_target_path))
+
+    logger = MetricsLogger(args.log_dir, use_wandb=args.wandb_mode == "online",
+                           wandb_project=args.wandb_project)
+    ckpt = Checkpointer(args.checkpoint_dir, use_async=args.async_checkpoints)
+    sidecar = {"stats": dataset.stats, "phone2id": dataset.vocab.to_dict(),
+               "speaker2id": dataset.speaker2id}
+    if dataset.speaker2dvector:
+        sidecar["speaker2dvector"] = dataset.speaker2dvector
+
+    def save(step: int, state: TrainState, directory=ckpt, side=sidecar, params=None):
+        return directory.save(step, params if params is not None else state.model.state_dict(),
+                              cfg, side, opt_state=state.optimizer.state_dict())
+
+    resume_state = None
+    if args.from_checkpoint:
+        # warm start (reference train.py:240-260, load_from_checkpoint with
+        # strict=False): every tensor of matching name and shape restored, a
+        # fresh optimizer whose schedule starts over, as in the JAX CLI
+        restored, _, _ = Checkpointer(args.from_checkpoint).restore()
+        model0 = build_model(cfg, dataset, device=device)
+        merged, used, dropped = warm_start(model0.state_dict(), restored["params"])
+        model0.load_state_dict(merged)
+        print(f"warm start: {used} tensors restored, {dropped} kept fresh")
+        resume_state = create_train_state(model0, cfg)
+
+    eval_fn = None
+    if valid is not None and len(valid):
+        from lightningfastspeech2_tpu_torch.train.metrics import VarianceEarlyStopping
+
+        early_stopping = VarianceEarlyStopping(
+            cfg.model.variance.variances, mode=cfg.train.variance_early_stopping,
+            patience=cfg.train.variance_early_stopping_patience)
+        best = {"loss": float("inf"), "stale": 0}
+
+        def eval_fn(step_i, state):
+            metrics = evaluate(cfg, valid, state.model,
+                               media_dir=(Path(args.log_dir) / "eval_examples"
+                                          if args.log_eval_media else None),
+                               step=step_i + 1)
+            logger.log(step_i, metrics)
+            # best checkpoint on the eval mel loss (ModelCheckpoint analog,
+            # reference train.py:265-273)
+            mel_loss = metrics.get("eval/mel_loss", float("nan"))
+            if mel_loss == mel_loss and mel_loss < best["loss"]:
+                best["loss"], best["stale"] = mel_loss, 0
+                path = save(step_i + 1, state)
+                (ckpt.dir / "best").write_text(path.name)
+            else:
+                best["stale"] += 1
+                if args.early_stopping and best["stale"] >= args.early_stopping_patience:
+                    print("early stopping: eval/mel_loss stalled")
+                    raise StopTraining
+            snapshots = {var: snap for var in cfg.model.variance.variances
+                         if (snap := encoder_snapshot(state.model, var))}
+            frozen = early_stopping.update(metrics, snapshots)
+            restores = early_stopping.pop_restores()
+            if restores:
+                print(f"variance early stopping: freezing {sorted(restores)} "
+                      "at their best weights")
+            return frozen, restores
+
+    # loss terms get the reference's train/{k}_loss names; the rate and
+    # optimizer diagnostics keep their own
+    non_loss = ("grad_norm", "steps_per_s", "lr")
+
+    def train_log_fn(s, m):
+        logger.log(s, {(f"train/{k}" if k in non_loss else f"train/{k}_loss"): v
+                       for k, v in m.items()})
+
+    try:
+        result = fit(cfg, dataset, max_steps=args.max_steps, log_fn=train_log_fn,
+                     checkpoint_fn=lambda step_i, state: save(step_i + 1, state),
+                     eval_fn=eval_fn, state=resume_state, device=device)
+        save(args.max_steps, result.state)
+        if result.swa_params is not None:
+            # the averaged weights as a checkpoint of their own
+            save(args.max_steps, result.state,
+                 directory=Checkpointer(Path(args.checkpoint_dir) / "swa"),
+                 params={**result.state.model.state_dict(), **result.swa_params})
+            print("saved SWA-averaged weights to checkpoint_dir/swa")
+        if valid is not None and len(valid):
+            logger.log(args.max_steps, evaluate(cfg, valid, result.state.model))
+        if args.priors:
+            # per-speaker priors always persist when priors are modelled: the
+            # default "sample" strategy at synthesis needs them (reference
+            # fastspeech2.py:622-634)
+            priors = dataset.create_priors()
+            save(args.max_steps, result.state, side={**sidecar, "speaker2priors": priors})
+            print(f"persisted priors for {len(priors)} speakers")
+            if args.priors_gmm:
+                from lightningfastspeech2_tpu_torch.utils.log_gmm import fit_speaker_gmms
+
+                gmms = fit_speaker_gmms(priors, tuple(args.priors),
+                                        max_components=args.priors_gmm_max_components)
+                with open(Path(args.checkpoint_dir) / "prior_gmms.pkl", "wb") as fh:
+                    pickle.dump(gmms, fh)
+                print(f"fitted prior GMMs for {len(gmms)} speakers")
+    finally:
+        ckpt.wait_until_finished()   # publish the write in flight
+        logger.close()
+    return result
+
+
+if __name__ == "__main__":
+    main()

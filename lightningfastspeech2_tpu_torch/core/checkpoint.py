@@ -1,11 +1,12 @@
-"""Checkpoint directories: save and restore.
+"""Checkpoint directories: save, restore, warm start.
 
 Counterpart of ``lightningfastspeech2_tpu/core/checkpoint.py`` with the same
 directory layout, so the sidecars of either package read in the other:
 
     <dir>/latest                  the name of the newest step directory
     <dir>/step_XXXXXXXX/
-        tree.pt                   torch.save({"params": ..., "step": int})
+        tree.pt                   torch.save({"params": ..., "step": int,
+                                              "opt_state": ...})
         config.json               core/config.py save_json
         sidecar.json              stats, phone2id, speaker2id, ... (JSON)
         sidecar.npz               dvec::<speaker>, prior::<speaker>::<prior>
@@ -16,15 +17,23 @@ JAX checkpoint directory into this layout. ``params`` is a state dict, or a
 dict of state dicts: ``{"acoustic": ..., "fastdiff": ...}`` for a joint
 checkpoint, ``{"gen": ...}`` for a vocoder directory (its architecture in
 the sidecar's ``hifigan_config``), as the JAX trees are nested.
+``opt_state``, written by the trainer, is the optimizer's ``state_dict()``.
 
-Training's pieces (optimizer state, ``warm_start``, async writes and
-multi-host barriers) are not ported yet.
+``use_async=True`` writes ``tree.pt`` on a background thread: ``save()``
+blocks only while the tensors are copied to the host (the train step then
+updates the live ones in place), the ``latest`` marker is published in
+``wait_until_finished()`` after the write finished, and ``restore`` /
+``latest_path`` wait implicitly, so a crash mid-write never leaves
+``latest`` pointing at a torn checkpoint. The port trains in one process,
+so there are no multi-host barriers.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -37,31 +46,55 @@ TREE_FILE = "tree.pt"
 
 
 def _to_tensors(tree: Any) -> Any:
-    """Nested dicts of arrays -> nested dicts of CPU tensors."""
+    """Nested dicts of arrays -> nested dicts of CPU tensors, copies of
+    tensors that are already on the CPU."""
     if isinstance(tree, Mapping):
         return {k: _to_tensors(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     return torch.as_tensor(np.asarray(tree))
 
 
+def _host_copy(tree: Any) -> Any:
+    """An optimizer ``state_dict()`` with every tensor copied to the CPU
+    (the structure and other values as they are)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, Mapping):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
 class Checkpointer:
-    def __init__(self, directory):
+    def __init__(self, directory, use_async: bool = False):
         self.dir = Path(directory).resolve()
         self.dir.mkdir(parents=True, exist_ok=True)
+        self._async = bool(use_async)
+        self._writer: Optional[threading.Thread] = None
+        self._pending: Optional[str] = None
+        self._error: Optional[BaseException] = None
 
     def save(self, step: int, params: Mapping[str, Any],
              cfg: Optional[C.Config] = None,
-             sidecar: Optional[Dict[str, Any]] = None) -> Path:
+             sidecar: Optional[Dict[str, Any]] = None,
+             opt_state: Optional[Mapping[str, Any]] = None) -> Path:
         """``params``: a state dict or a dict of them (arrays or tensors).
         ``sidecar`` may hold stats (dict), phone2id (dict), speaker2id
         (dict), speaker2dvector {name: array}, speaker2priors {name:
-        {prior: array}} and any other JSON-safe entry."""
+        {prior: array}} and any other JSON-safe entry. ``opt_state``: an
+        optimizer's ``state_dict()``. Tensors are copied to the host before
+        this returns, also when the write goes on in the background."""
+        # one write in flight: finish (and publish) the previous one first
+        self.wait_until_finished()
         path = self.dir / f"step_{step:08d}"
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
-        torch.save({"params": _to_tensors(params), "step": int(step)}, path / TREE_FILE)
+        tree = {"params": _to_tensors(params), "step": int(step)}
+        if opt_state is not None:
+            tree["opt_state"] = _host_copy(opt_state)
         if cfg is not None:
             C.save_json(cfg, str(path / "config.json"))
         if sidecar:
@@ -80,10 +113,38 @@ class Checkpointer:
             (path / "sidecar.json").write_text(json.dumps(json_side))
             if np_side:
                 np.savez(path / "sidecar.npz", **np_side)
-        (self.dir / "latest").write_text(path.name)
+        if self._async:
+            self._pending = path.name
+            self._writer = threading.Thread(target=self._write, args=(tree, path),
+                                            name=f"checkpoint-{path.name}", daemon=False)
+            self._writer.start()
+        else:
+            _write_tree(tree, path)
+            (self.dir / "latest").write_text(path.name)
         return path
 
+    def _write(self, tree: Dict[str, Any], path: Path) -> None:
+        try:
+            _write_tree(tree, path)
+        except Exception as e:  # re-raised by wait_until_finished
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Block until the write in flight finished, then publish its
+        ``latest`` marker; re-raises the write's error. A no-op when no
+        write is in flight."""
+        if self._writer is None:
+            return
+        self._writer.join()
+        self._writer = None
+        pending, self._pending = self._pending, None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError(f"checkpoint {pending} was not written") from error
+        (self.dir / "latest").write_text(pending)
+
     def latest_path(self) -> Optional[Path]:
+        self.wait_until_finished()
         marker = self.dir / "latest"
         if not marker.exists():
             return None
@@ -93,7 +154,9 @@ class Checkpointer:
     def restore(self, path: Optional[Path] = None
                 ) -> Tuple[Dict[str, Any], Optional[C.Config], Dict[str, Any]]:
         """Returns (tree, cfg, sidecar): tree is ``{"params": ..., "step":
-        int}`` with CPU tensors, cfg None without a config.json."""
+        int}`` (and ``"opt_state"`` where the trainer wrote one) with CPU
+        tensors, cfg None without a config.json."""
+        self.wait_until_finished()
         path = Path(path) if path else self.latest_path()
         if path is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
@@ -103,6 +166,34 @@ class Checkpointer:
                 "converted by scripts/jax_checkpoint_to_torch.py")
         tree = torch.load(path / TREE_FILE, weights_only=True, map_location="cpu")
         return tree, read_config(path), read_sidecar(path)
+
+
+def _write_tree(tree: Dict[str, Any], path: Path) -> None:
+    tmp = path / (TREE_FILE + ".tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, path / TREE_FILE)
+
+
+def warm_start(fresh: Mapping[str, torch.Tensor], restored: Mapping[str, Any]
+               ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """Merge a restored state dict into a freshly initialized one by name and
+    shape (the reference's tolerant ``strict=False`` resume,
+    ``fastspeech2.py:599-620``): a fresh tensor whose name is restored with
+    the same shape takes the restored values (in the fresh dtype), any
+    other keeps its fresh values; restored names the model lacks are left
+    out. Returns (merged, used, dropped), the counts of fresh tensors taken
+    from ``restored`` and kept fresh."""
+    merged: Dict[str, torch.Tensor] = {}
+    used = dropped = 0
+    for name, leaf in fresh.items():
+        old = restored.get(name)
+        if old is not None and tuple(old.shape) == tuple(leaf.shape):
+            merged[name] = torch.as_tensor(old).to(leaf.dtype)
+            used += 1
+        else:
+            merged[name] = leaf
+            dropped += 1
+    return merged, used, dropped
 
 
 def read_config(path) -> Optional[C.Config]:

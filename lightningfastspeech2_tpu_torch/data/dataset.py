@@ -55,11 +55,6 @@ from lightningfastspeech2_tpu_torch.data.alignment import tier_to_alignment
 from lightningfastspeech2_tpu_torch.data.textgrid import load as load_textgrid
 from lightningfastspeech2_tpu_torch.data.vocab import Vocab, normalize_phone
 
-_D_VECTORS_UNPORTED = (
-    "d-vector extraction (data/dvector.py) is not ported yet (ROADMAP.md A16); "
-    "pass speaker2dvector or use the hash placeholders")
-
-
 @dataclass(frozen=True)
 class DataConfig:
     """Dataset knobs (reference ``datasets.py:48-128`` defaults); the JAX
@@ -244,6 +239,9 @@ class TTSDataset:
                 if s not in self.speaker2dvector:
                     self.speaker2dvector[s] = _hash_dvector(s)
         self.speaker2priors: Dict[str, Dict[str, np.ndarray]] = {}
+        # the per-utterance d-vector files' suffix: <utt>.npy until
+        # create_dvectors names its pipeline's (data/dvector.py)
+        self.dvector_suffix = ".npy"
 
         # per-utterance feature cache: stats write it, epochs read it
         self.feature_cache_dir = (
@@ -476,11 +474,11 @@ class TTSDataset:
             item["speaker"] = self._speaker(entry)
             # per-utterance d-vector for the diffusion speaker generator
             # (datasets.py:469: utterance_dvec from <utt>.npy)
-            utt_path = entry.audio_path.with_suffix(".npy")
+            utt_path = entry.audio_path.with_suffix(self.dvector_suffix)
             if utt_path.exists():
                 item["utterance_dvec"] = np.load(utt_path).astype(np.float32)
         elif cfg.speaker_type == "dvector_utterance":
-            utt_path = entry.audio_path.with_suffix(".npy")
+            utt_path = entry.audio_path.with_suffix(self.dvector_suffix)
             if utt_path.exists():
                 item["speaker"] = np.load(utt_path).astype(np.float32)
             else:
@@ -554,17 +552,48 @@ class TTSDataset:
         apply."""
         entries = self.scan(Path(root), self.cfg)
         cfg = dataclasses.replace(self.cfg, min_samples_per_speaker=0)
-        return TTSDataset(
+        valid = TTSDataset(
             cfg=cfg, entries=entries, vocab=self.vocab, stats=self.stats,
             speaker2dvector=self.speaker2dvector, compute_stats=False,
             device=self.device,
         )
+        valid.dvector_suffix = self.dvector_suffix
+        return valid
 
     def create_dvectors(self, pipeline=None, cache: bool = True):
-        raise NotImplementedError(_D_VECTORS_UNPORTED)
+        """Embed every utterance with the d-vector net and build the speaker
+        table (reference ``_create_dvectors``, datasets.py:652-690: 1 s per
+        utterance -> ``<utt><tag>.npy``, speaker vector = mean over its
+        utterances -> ``speaker<tag>.npy``; ``<tag>`` names the pipeline's
+        weights, data/dvector.py). ``pipeline``: a ``DVectorPipeline``, by
+        default the seeded one on the dataset's device. Returns the table."""
+        from lightningfastspeech2_tpu_torch.data.dvector import DVectorPipeline
+
+        if pipeline is None:
+            pipeline = DVectorPipeline(sampling_rate=self.cfg.audio.sampling_rate,
+                                       device=self.device)
+        speaker_means = pipeline.process_entries(self.entries, cache=cache)
+        self.speaker2dvector.update(speaker_means)
+        if cache:
+            self.dvector_suffix = pipeline.cache_tag + ".npy"
+            for e in self.entries:
+                spk_path = Path(e.audio_path).parent / f"speaker{self.dvector_suffix}"
+                if e.speaker in speaker_means and not spk_path.exists():
+                    np.save(spk_path, speaker_means[e.speaker])
+        return self.speaker2dvector
 
     def get_speaker_dvectors(self):
-        raise NotImplementedError(_D_VECTORS_UNPORTED)
+        """Yield ``(speaker, (n_utts, dim) array)`` of per-utterance d-vectors
+        from the files ``create_dvectors`` writes beside the audio
+        (reference ``get_speaker_dvectors``, datasets.py:546-551); speakers
+        with none are skipped."""
+        per_speaker: Dict[str, List[np.ndarray]] = {}
+        for e in self.entries:
+            path = Path(e.audio_path).with_suffix(self.dvector_suffix)
+            if path.exists():
+                per_speaker.setdefault(e.speaker, []).append(np.load(path))
+        for spk, vecs in per_speaker.items():
+            yield spk, np.stack(vecs)
 
     def create_priors(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Per-speaker arrays of utterance priors

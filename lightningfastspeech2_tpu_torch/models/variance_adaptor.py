@@ -9,9 +9,13 @@ length regulation, frame-level ones after. Parameter names follow the
 reference torch state dict (``duration_predictor.layers.{i}.layers.0.
 module.0`` ..., ``encoders.{var}.embedding``).
 
-Two spots where bits matter:
+Three spots where bits matter:
 - bucket boundaries are built like ``jnp.linspace`` in f32
   (``linspace_f32``): one ulp off flips an embedding index;
+- the teacher-forced target is de-normalized with one rounding
+  (``denormalize``), as XLA contracts ``x * std + mean`` into a fused
+  multiply-add: a silent frame's energy comes back exactly at the stats
+  minimum, the first boundary, where a second rounding flips its bin;
 - ``VariancePredictor`` zeroes rows beyond the batch-wide extent
   (``any`` over the batch), not per item, as the reference does.
 """
@@ -76,6 +80,13 @@ def linspace_f32(lo: float, hi: float, num: int) -> np.ndarray:
     i = np.arange(div, dtype=np.float32)
     out = start * (np.float32(1.0) - i * c) + i * (stop * c)
     return np.concatenate([out, [stop]]).astype(np.float32)
+
+
+def denormalize(x: torch.Tensor, stats: "VarianceStats") -> torch.Tensor:
+    """``x * std + mean`` in f32 with one rounding (a fused multiply-add of
+    f32 ``x``, ``std`` and ``mean``: the product is exact in f64)."""
+    std, mean = float(np.float32(stats.std)), float(np.float32(stats.mean))
+    return (x.double() * std + mean).float()
 
 
 def bucketize(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
@@ -197,7 +208,7 @@ class VarianceEncoder(nn.Module):
             if self.cwt:
                 tgt_vals = torch.log(torch.clamp(tgt, min=1e-10))
             else:
-                tgt_vals = tgt * self.stats.std + self.stats.mean
+                tgt_vals = denormalize(tgt, self.stats)
             emb = embed(bucketize(tgt_vals, self.bins), self.embedding, dt)
         else:
             if self.cwt:

@@ -184,3 +184,27 @@ def from_jax_fastdiff(params: Mapping[str, Any],
         for j in range(cfg.lvc_layers_each_block):
             _conv(out, f"{p}.convs.{j}", blk[f"conv_{j}"])
     return out
+
+
+def from_jax_dvector(params: Mapping[str, Any], num_layers: int = 3) -> State:
+    """The JAX package's d-vector tree (``data/dvector.py DVector``) -> the
+    port's ``DVector`` state dict, the inverse of its
+    ``convert_torch_state_dict``: each layer's flax gate kernels ``i{g}``
+    (input) and ``h{g}`` (hidden, with the bias), g in (i, f, g, o), stack
+    into ``weight_ih_l{l}`` / ``weight_hh_l{l}``; the bias goes to
+    ``bias_ih_l{l}`` and ``bias_hh_l{l}`` is 0 (torch adds the two)."""
+    tree = _tree(params)
+    out: State = {}
+    for l in range(num_layers):
+        cell = tree[f"lstm{l}"]["cell"]
+        gates = ("i", "f", "g", "o")
+        out[f"lstm.weight_ih_l{l}"] = np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates])
+        out[f"lstm.weight_hh_l{l}"] = np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates])
+        out[f"lstm.bias_ih_l{l}"] = np.concatenate(
+            [np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+        out[f"lstm.bias_hh_l{l}"] = np.zeros_like(out[f"lstm.bias_ih_l{l}"])
+    _linear(out, "embedding", tree["embedding"])
+    _linear(out, "attention", tree["attention"])
+    return out

@@ -50,7 +50,13 @@ from lightningfastspeech2_tpu_torch.synthesis.generator import (
 from lightningfastspeech2_tpu_torch.utils.convert import from_jax_fastdiff, from_jax_fastspeech2
 from lightningfastspeech2_tpu_torch.vocoder import diffusion as tdiff
 from lightningfastspeech2_tpu_torch.vocoder import fastdiff as tfd
-from tests.torch_port_helpers import tiny_config
+from tests.torch_port_helpers import tiny_config, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _t(a, dtype=torch.float32):

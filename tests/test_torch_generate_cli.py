@@ -40,7 +40,8 @@ from lightningfastspeech2_tpu_torch.cli import generate as tcli
 from lightningfastspeech2_tpu_torch.data import wav as wav_io
 from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
 from lightningfastspeech2_tpu_torch.synthesis import generator as tgen_mod
-from tests.torch_port_helpers import jax_neural_g2p, tiny_config, tiny_hifigan
+from tests.torch_port_helpers import jax_neural_g2p, tiny_config, tiny_hifigan, torch_threads
+from tests.torch_port_helpers import seeded_params as _seeded
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
@@ -52,25 +53,10 @@ ATOL = 1e-4   # test_torch_serving.py's: f32 through two models
 HOP = 16
 
 
-def _seeded(shapes, seed, kernel_std=None):
-    """Seeded weights for a tree of shapes (``jax.eval_shape`` of an init,
-    which traces without compiling): kernels N(0, 1/fan_in) (or
-    ``kernel_std``), LayerNorm scales 1 + N(0, 0.1), embeddings and biases
-    small; zero biases with ``kernel_std`` (the HiFi-GAN init)."""
-    g = np.random.default_rng(seed)
-
-    def leaf(path, s):
-        name = str(path[-1].key)
-        if name == "kernel":
-            std = kernel_std or np.prod(s.shape[:-1]) ** -0.5
-            return (g.standard_normal(s.shape) * std).astype(np.float32)
-        if name == "scale":
-            return (1.0 + 0.1 * g.standard_normal(s.shape)).astype(np.float32)
-        if name == "bias" and kernel_std is not None:
-            return np.zeros(s.shape, np.float32)
-        return (0.1 * g.standard_normal(s.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(leaf, shapes)
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

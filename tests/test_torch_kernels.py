@@ -1252,3 +1252,25 @@ def test_generate_cli_on_the_card_matches_cpu(cuda_card, tmp_path):
     top = float(np.abs(b).max())
     assert a.shape == b.shape and np.isfinite(a).all() and top > 0.01
     assert float(np.abs(a - b).max()) <= 1e-3 * top + 1e-7
+
+
+@pytest.mark.gpu
+def test_dvector_embedding_card_matches_cpu(cuda_card):
+    """One second of speech-like audio through ``data/dvector.py`` (the
+    front-end's FFT and the cuDNN LSTM on the card, TF32 off) against the
+    CPU: within 5e-4 (``tests/test_torch_dvector.py``'s pipeline tolerance,
+    near-clamp log-mel bins), unit norm; the d-vector train CLI path."""
+    import numpy as np
+
+    from lightningfastspeech2_tpu_torch.data.dvector import DVectorPipeline
+
+    sr = 22050
+    g = np.random.default_rng(0)
+    t = np.arange(sr) / sr
+    wav = (0.5 * np.sin(2 * np.pi * (120 + 80 * t) * t) * (t > 0.15)
+           + 0.02 * g.standard_normal(sr)).astype(np.float32)
+    a = DVectorPipeline(device=cuda_card).embed_wav(wav, sr)
+    b = DVectorPipeline(device="cpu").embed_wav(wav, sr)
+    assert a.shape == b.shape == (256,)
+    assert float(np.abs(a - b).max()) <= 5e-4
+    assert abs(float(np.linalg.norm(a)) - 1.0) <= 1e-5

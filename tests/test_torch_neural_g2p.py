@@ -22,9 +22,15 @@ from lightningfastspeech2_tpu_torch.synthesis import neural_g2p as tn
 from lightningfastspeech2_tpu_torch.synthesis.g2p import BUILTIN_LEXICON
 from lightningfastspeech2_tpu_torch.synthesis.g2p import EnglishG2P as TG2P
 from lightningfastspeech2_tpu_torch.utils import flax_msgpack
-from tests.torch_port_helpers import jax_neural_g2p
+from tests.torch_port_helpers import jax_neural_g2p, torch_threads
 
 JAX_BUNDLE = Path(__file__).resolve().parent.parent / "lightningfastspeech2_tpu/data/g2p_en.npz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

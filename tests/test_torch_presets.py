@@ -23,11 +23,17 @@ from lightningfastspeech2_tpu_torch.core import config as TC
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
 from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
 from lightningfastspeech2_tpu_torch.utils.convert import from_jax_fastspeech2
-from tests.torch_port_helpers import tiny_config
+from tests.torch_port_helpers import seeded_params as _seeded, tiny_config, torch_threads
 
 # f32 end to end; XLA and torch sum in different orders (test_torch_model.py's)
 ATOL = 1e-4
 PRESETS = ("fastspeech2_27m", "lightspeech_true76m")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -46,23 +52,6 @@ def _cut(C, preset):
                       variance=C.replace(m.variance, dropouts=(0.0,) * len(m.variance.variances)),
                       duration=C.replace(m.duration, dropout=0.0))
     return C.replace(cfg, model=model)
-
-
-def _seeded(shapes, seed):
-    """Seeded weights for a tree of shapes (``jax.eval_shape`` of an init,
-    which traces without compiling): kernels N(0, 1/fan_in), LayerNorm
-    scales 1 + N(0, 0.1), the rest N(0, 0.1)."""
-    g = np.random.default_rng(seed)
-
-    def leaf(path, s):
-        name = str(path[-1].key)
-        if name == "kernel":
-            return (g.standard_normal(s.shape) * np.prod(s.shape[:-1]) ** -0.5).astype(np.float32)
-        if name == "scale":
-            return (1.0 + 0.1 * g.standard_normal(s.shape)).astype(np.float32)
-        return (0.1 * g.standard_normal(s.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def _pair(jcfg, tcfg, seed=0):

@@ -12,10 +12,17 @@ import torch
 
 from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as trb
 from lightningfastspeech2_tpu_torch.vocoder.hifigan import Generator, HifiGanConfig
+from tests.torch_port_helpers import torch_threads
 
 # mel frames of one vocoder call: a 1-frame mel and the serving path's
 # frame buckets
 MEL_FRAMES = (1, 256, 512, 768, 1280)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _stage_weights(stage, dtype):

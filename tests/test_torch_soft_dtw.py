@@ -18,7 +18,13 @@ from lightningfastspeech2_tpu.train import losses as jlosses
 from lightningfastspeech2_tpu_torch.core import config as TC
 from lightningfastspeech2_tpu_torch.ops import soft_dtw as tsd
 from lightningfastspeech2_tpu_torch.train import losses as tlosses
-from tests.torch_port_helpers import tiny_config
+from tests.torch_port_helpers import tiny_config, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.mark.parametrize("gamma", [1.0, 0.1])

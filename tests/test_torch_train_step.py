@@ -28,7 +28,13 @@ from lightningfastspeech2_tpu_torch.train.step import (
     make_train_step,
 )
 from lightningfastspeech2_tpu_torch.utils.convert import from_jax_fastspeech2
-from tests.torch_port_helpers import tiny_config
+from tests.torch_port_helpers import tiny_config, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _no_dropout(C):

@@ -2,11 +2,26 @@
 configs, seeded numpy weights in the JAX package's layouts, and the
 ``cuda_card`` fixture for kernel tests on the card."""
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside the block. The tier-1
+    run puts several test workers on one machine, each with a thread a
+    core by default; a file whose time goes to many small torch ops runs
+    several times faster at one thread there."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 @pytest.fixture
@@ -147,3 +162,90 @@ def jax_neural_g2p(path=None, load=None):
     if key not in _JAX_G2P:
         _JAX_G2P[key] = (load or NeuralG2P.load)(path)
     return _JAX_G2P[key]
+
+
+_TRAIN_SETUP = {}
+
+
+def train_config(C, **train_kwargs):
+    """``tiny_config`` for training on a ``make_corpus`` corpus: 256-dim
+    d-vectors (the dataset's), every dropout rate 0, f32, warm-up 1 (lr 1e-4
+    at the first update), batch 2, logged every step."""
+    cfg = tiny_config(C, dvector_dim=256)
+    m = cfg.model
+    kwargs = {"train.bf16": False, "train.warmup_steps": 1, "train.batch_size": 2,
+              "train.log_every": 1, "train.seed": 0}
+    kwargs.update({f"train.{k}": v for k, v in train_kwargs.items()})
+    return C.replace(cfg, **{
+        "model.encoder": C.replace(m.encoder, dropout=0.0),
+        "model.decoder": C.replace(m.decoder, dropout=0.0),
+        "model.variance": C.replace(m.variance, dropouts=(0.0,) * len(m.variance.variances)),
+        "model.duration": C.replace(m.duration, dropout=0.0),
+        **kwargs})
+
+
+def data_config(ds_module, cfg):
+    """Either package's ``DataConfig`` for ``cfg``'s variances, with no
+    duration augmentation (no draws from the dataset's generator)."""
+    v = cfg.model.variance
+    return ds_module.DataConfig(variances=v.variances, variance_levels=v.levels,
+                                variance_transforms=v.transforms, augment_duration=0.0,
+                                max_phones=cfg.model.max_phones,
+                                max_frames=cfg.model.max_frames)
+
+
+def seeded_params(shapes, seed, kernel_std=None):
+    """Seeded numpy weights for a JAX tree of shapes (``jax.eval_shape`` of
+    an init, which traces without compiling): kernels N(0, 1/fan_in) (or
+    ``kernel_std``), LayerNorm scales 1 + N(0, 0.1), embeddings and biases
+    N(0, 0.1); zero biases with ``kernel_std`` (the HiFi-GAN init)."""
+    import jax
+
+    g = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = str(path[-1].key)
+        if name == "kernel":
+            std = kernel_std or np.prod(s.shape[:-1]) ** -0.5
+            return (g.standard_normal(s.shape) * std).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * g.standard_normal(s.shape)).astype(np.float32)
+        if name == "bias" and kernel_std is not None:
+            return np.zeros(s.shape, np.float32)
+        return (0.1 * g.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_train_setup(tmp_path_factory):
+    """A ``make_corpus`` corpus (2 speakers x 4 utterances, seed 0), the JAX
+    package's dataset on it, the JAX model of ``train_config`` and seeded
+    initial parameters (numpy), built once per process and shared by the
+    tests that hold the port's training loop against the JAX package's."""
+    if "setup" not in _TRAIN_SETUP:
+        import jax
+        import jax.numpy as jnp
+
+        from lightningfastspeech2_tpu.core import config as JC
+        from lightningfastspeech2_tpu.data import dataset as jds
+        from lightningfastspeech2_tpu.train.loop import batch_iterator, build_model
+        from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
+
+        corpus = make_corpus(tmp_path_factory.mktemp("train_corpus"), n_speakers=2, n_utts=4,
+                             seed=0)
+        jcfg = train_config(JC)
+        # the feature cache: items are extracted once, for the stats
+        dataset = jds.TTSDataset(corpus, data_config(jds, jcfg),
+                                 cache_dir=tmp_path_factory.mktemp("train_cache"))
+        model = build_model(jcfg, dataset)
+        first = next(batch_iterator(dataset, 2, seed=0))
+        batch = {k: jnp.asarray(v) for k, v in first.items()}
+        rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
+                "sdp": jax.random.PRNGKey(2)}
+        # the tree's shapes traced, not compiled (an init compile takes
+        # seconds), then seeded weights
+        shapes = jax.eval_shape(lambda b: model.init(rngs, b, deterministic=True), batch)
+        params = seeded_params(shapes["params"], 0)
+        _TRAIN_SETUP["setup"] = SimpleNamespace(corpus=corpus, jcfg=jcfg, dataset=dataset,
+                                                model=model, params=params)
+    return _TRAIN_SETUP["setup"]

@@ -227,6 +227,25 @@ Phases, each printed as one JSON line:
     against CPU, and the generate CLI serving the bf16 run's checkpoint with
     ``--prior_strategy gmm --sample_dvector``.
 
+27. canonical joint: ``cli.train.main`` trains ``canonical_joint`` (the
+    flagship acoustic stack with 6 decoder layers, the diffusion variance
+    adaptor over pitch, energy, SNR and SRMR, the diffusion speaker
+    generator and FastDiff fine-tuning; its flags held to the preset) on a
+    make_rich_corpus corpus of 4 x 2 utterances of 9-12 s, in bf16 at batch
+    4 and a frame bucket of 1024 or more for 6 steps: every branch's loss finite
+    (mel, the four variances, duration, fastdiff, speakers),
+    ``ffn_ln_train`` and flash launched, ``lvc_stack`` not (FastDiff trains
+    on its plain route). One more step profiled, FastDiff's training
+    forward and backward timed alone. A 2-step f32 run (rates 0, B=2) on
+    the card against the same on the CPU through one feature cache: the
+    first step within ``TC_LOSS_REL``, and the second replayed on the CPU
+    from the card's own state within it; a 2-step flagship run with
+    ``--duration_stochastic``;
+    the generate CLI serving the joint checkpoint through FastDiff
+    (``lvc_stack``) and HiFi-GAN (the resblock kernels), and the stochastic
+    one; the corpus's per-window SRMR on the card within ``SRMR_REL`` of
+    the CPU's. The ``kernels`` line gains ``launches_phase_27``.
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -3358,6 +3377,281 @@ def train_cli_phase(counters, smi: str) -> dict:
     return {"row": row, "soft_dtw_launches": ns}
 
 
+# ------------------------------------------------------- canonical joint
+CJ_SPEAKERS, CJ_UTTS = 4, 2            # phase 26's long-corpus words: 9-12 s an utterance,
+CJ_WORDS = TC_LONG_WORDS               # so every batch of 4 takes a frame bucket >= 1024
+CJ_STEPS = 6
+SRMR_REL = 1e-4                        # per-window SRMR, card against CPU (relative)
+CJ_LOSSES = ("mel", "pitch", "energy", "snr", "srmr", "duration", "fastdiff", "speakers")
+
+
+def canonical_joint_flags() -> list:
+    """The train CLI's flags that build ``core/config.py canonical_joint``'s
+    model (the flagship defaults otherwise; checked against the preset)."""
+    return ["--variances", "pitch", "energy", "snr", "srmr",
+            "--variance_levels", *["frame"] * 4, "--variance_transforms", *["none"] * 4,
+            "--variance_losses", *["mse"] * 4, "--variance_nlayers", *["5"] * 4,
+            "--variance_kernel_size", *["5"] * 4, "--variance_dropout", *["0.1"] * 4,
+            "--variance_loss_weights", *["1.0"] * 4, "--decoder_layers", "6",
+            "--decoder_kernel_sizes", *["9"] * 6, "--duration_nlayers", "5",
+            "--fastdiff_vocoder", "true", "--fastdiff_variances", "true",
+            "--fastdiff_speakers", "true"]
+
+
+def _serve(gen_cli, ck: Path, out: Path, extra: list, counters) -> dict:
+    """The generate CLI on one checkpoint, launches counted."""
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+
+    reset_counts(counters)
+    t = time.perf_counter()
+    wav = gen_cli.main(["--checkpoint_dir", str(ck), "--sentence", "Hello world.",
+                        "--output_path", str(out), "--seed", "0"] + extra)
+    torch.cuda.synchronize()
+    written, sr = wav_io.read(out / "sentence.wav")
+    row = {"s": time.perf_counter() - t, "samples": int(written.size), "sampling_rate": sr,
+           "launches": {c.__name__: c.launches for c in counters if c.launches}}
+    if not (written.size > 0 and sr == SAMPLING_RATE and np.isfinite(wav).all()):
+        raise RuntimeError(f"generate {extra}: {row}")
+    return row
+
+
+def _replay_second_step(argv: list) -> dict:
+    """The second step of the card's f32 CLI run of ``argv``, on the CPU
+    from the card's own state after the first (``step_00000001``: the
+    weights and the optimizer), with the run's second batch, generator and
+    draws. Returns its metrics as floats."""
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
+    from lightningfastspeech2_tpu_torch.data.dvector import DVectorPipeline
+    from lightningfastspeech2_tpu_torch.models.joint import flatten_joint, schedule_probability
+    from lightningfastspeech2_tpu_torch.train import loop
+    from lightningfastspeech2_tpu_torch.train.step import create_train_state, make_train_step
+
+    args = cli.build_parser().parse_args(argv)
+    ck = Path(args.checkpoint_dir)
+    tree, cfg, side = Checkpointer(ck).restore(ck / "step_00000001")
+    ds = TTSDataset(Path(args.train_target_path), cli.data_config(args, cfg),
+                    stats=side["stats"], speaker2dvector=side["speaker2dvector"],
+                    cache_dir=Path(args.cache_path), device="cpu")
+    ds.dvector_suffix = DVectorPipeline(device="cpu").cache_tag + ".npy"
+    state = create_train_state(loop.build_model(cfg, ds, device="cpu"), cfg)
+    state.model.load_state_dict(flatten_joint(tree["params"]))
+    state.optimizer.load_state_dict(tree["opt_state"])
+    state.step = 1
+    batches = loop.batch_iterator(ds, cfg.train.batch_size,
+                                  Bucketer(cfg.model.max_phones, cfg.model.max_frames),
+                                  seed=cfg.train.seed)
+    next(batches)
+    batch = {k: x for k, x in next(batches).items() if isinstance(x, np.ndarray)}
+    steps_per_epoch = max(len(ds) // cfg.train.batch_size, 1)
+    _, metrics = make_train_step(state.model, cfg)(
+        state, batch, loop._step_generator(torch.device("cpu"), cfg.train.seed, 1),
+        draws=loop._step_draws(cfg.train.seed, 1),
+        schedule_p=schedule_probability(cfg.model, 1 // steps_per_epoch))
+    return {k: float(x) for k, x in metrics.items()}
+
+
+def canonical_joint_phase(counters, smi: str) -> dict:
+    """Phase 27: the reference's canonical experiment through the port's
+    CLIs on the card. A make_rich_corpus corpus of 4 speakers x 2
+    utterances of 9-12 s under ``_chip/``; the train CLI trains
+    ``canonical_joint`` (the flags checked against the preset) in bf16 at
+    B = 4, frame bucket >= 1024, for ``CJ_STEPS`` steps: every branch's loss
+    finite, ``ffn_ln_train`` and flash launched, ``lvc_stack`` not (FastDiff
+    trains on its plain route). Then one more step profiled and FastDiff's
+    training forward and backward timed alone; an f32 2-step run (rates 0,
+    B = 2) on the card against the same run on the CPU through one feature
+    cache (the draws are made on the CPU, so both take the same): the first
+    step held, and the second replayed on the CPU from the card's own
+    state after the first and held; a 2-step bf16 flagship run with ``--duration_stochastic``; the
+    generate CLI serving the joint checkpoint through FastDiff
+    (``lvc_stack`` counted) and through HiFi-GAN (the resblock kernels),
+    and the stochastic one; the corpus's SRMR on the card against the
+    CPU."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.audio.srmr import srmr_per_window
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core import config as C
+    from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.models.draws import ModuleStreams
+    from lightningfastspeech2_tpu_torch.train.loop import batch_iterator
+    from lightningfastspeech2_tpu_torch.train.step import make_train_step, to_device
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_chip" / "canonical_joint"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = make_rich_corpus(work / "corpus", n_speakers=CJ_SPEAKERS, n_utts=CJ_UTTS, seed=1,
+                              min_words=CJ_WORDS[0], max_words=CJ_WORDS[1])
+    flags = canonical_joint_flags()
+    parsed = cli.args_to_config(cli.build_parser().parse_args(
+        ["--train_target_path", str(corpus)] + flags))
+    if C.to_dict(parsed.model) != C.to_dict(C.canonical_joint().model):
+        raise RuntimeError("the phase's flags do not build canonical_joint")
+    base = ["--train_target_path", str(corpus), "--log_every", "1", "--num_workers", "0",
+            "--cache_path", str(work / "cache")]
+
+    # bf16, the CLI's defaults otherwise (rates, warm-up, d-vectors)
+    torch.cuda.reset_peak_memory_stats()
+    ck = work / "joint"
+    run = _train_cli(cli, base + flags + [
+        "--checkpoint_dir", str(ck), "--log_dir", str(work / "logs"), "--batch_size", "4",
+        "--max_steps", str(CJ_STEPS)], counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    res, n = run["result"], run["launches"]
+    hist = res.history
+    bad = [(i, k) for i, h in enumerate(hist) for k in CJ_LOSSES + ("total", "grad_norm")
+           if not math.isfinite(h.get(k, float("nan")))]
+    if len(hist) != CJ_STEPS or bad:
+        raise RuntimeError(f"canonical joint: {len(hist)} steps, not finite {bad}")
+    if not (n["ffn_ln_train"] > 0 and n["ffn_ln_train_bwd"] > 0 and n["flash_attention"] > 0
+            and n["flash_attention_bwd"] > 0 and n["lvc_stack"] == 0):
+        raise RuntimeError(f"canonical joint training launches {n}")
+    step_ms = [1e3 / h["steps_per_s"] for h in hist]
+
+    # one more step profiled, and FastDiff's training route alone at the
+    # phase's shape (forward and backward of the ε-MSE)
+    model = res.state.model
+    ds = TTSDataset(corpus, DataConfig(variances=parsed.model.variance.variances,
+                                       variance_levels=parsed.model.variance.levels,
+                                       variance_transforms=parsed.model.variance.transforms,
+                                       load_wav=True),
+                    cache_dir=work / "cache", device="cuda")
+    bucketer = Bucketer(parsed.model.max_phones, parsed.model.max_frames)
+    batch = next(batch_iterator(ds, 4, bucketer, seed=0))
+    step = make_train_step(model, parsed)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(res.state, batch, gen, draws=ModuleStreams(0), schedule_p=0.0)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(res.state, batch, gen, draws=ModuleStreams(1), schedule_p=0.0)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "canonical_joint_profile.txt")
+    tb = to_device({k: v for k, v in batch.items() if isinstance(v, np.ndarray)},
+                   torch.device("cuda"))
+    T = int(tb["mel"].shape[1]) - 2
+    hop = model.fastdiff_cfg.hop_length
+    wav = tb["wav"][:, : T * hop].float()
+    mel = tb["mel"][:, :T].to(model.dtype)
+    ts = torch.full((wav.shape[0],), 500.0, device="cuda")
+
+    def fastdiff_train():
+        eps = model.fastdiff(wav, mel, ts, train_route=True)
+        eps.float().square().mean().backward()
+
+    fastdiff_ms = cuda_ms(fastdiff_train, min_total_ms=300.0, max_iters=10)
+    model.zero_grad(set_to_none=True)
+    row = {"phase": "canonical_joint", "corpus": f"make_rich_corpus {CJ_SPEAKERS} x {CJ_UTTS}, "
+                                                 f"{CJ_WORDS[0]}-{CJ_WORDS[1]} words, seed 1",
+           "config": "canonical_joint (bf16)", "batch": 4, "frame_bucket": int(tb["mel"].shape[1]),
+           "steps": CJ_STEPS, "cli_s": run["s"], "cli_timeline": run["timeline"],
+           "host_ms_a_step": step_ms, "host_ms_a_step_median": statistics.median(step_ms),
+           "loop_s": res.loop_s, "peak_gb": peak_gb,
+           "losses_first": {k: hist[0][k] for k in CJ_LOSSES + ("total",)},
+           "losses_last": {k: hist[-1][k] for k in CJ_LOSSES + ("total",)},
+           "launches": n, "flash_routes": run["flash_routes"],
+           "profiled_step": {k: split[k] for k in (
+               "device_ms", "device_launches", "ffn_ln_train_ms", "ffn_ln_train_bwd_ms",
+               "flash_attention_ms", "flash_attention_bwd_ms")},
+           "fastdiff_train_fwd_bwd_ms": fastdiff_ms, "fastdiff_samples": list(wav.shape),
+           "nvidia_smi": smi}
+    emit(row)
+
+    # f32, every rate 0: the card against the CPU over one feature cache.
+    # The first step starts both from the same weights and draws. The
+    # second starts from each run's own first update, which a ReLU
+    # decision taken differently (a pre-activation within an f32 rounding
+    # of 0; the diffusion predictors hold millions) can move apart through
+    # Adam's first step (about +-lr on every weight whose gradient is near
+    # 0): so the second step is also replayed on the CPU from the card's
+    # own state after the first (its checkpoint, optimizer included), and
+    # held there.
+    f32, f32_argv = {}, {}
+    for dev in ("cuda", "cpu"):
+        f32_argv[dev] = base + flags + [
+            "--checkpoint_dir", str(work / f"f32_{dev}"), "--log_dir", str(work / f"f32_l_{dev}"),
+            "--batch_size", "2", "--max_steps", "2", "--precision", "32", "--warmup_steps", "1",
+            "--checkpoint_every", "1", "--async_checkpoints", "false",
+            "--encoder_dropout", "0", "--decoder_dropout", "0", "--variance_dropout",
+            "0", "0", "0", "0", "--duration_dropout", "0", "--augment_duration", "0",
+            "--device", dev]
+        f32[dev] = _train_cli(cli, f32_argv[dev], counters)
+    ha, hb = f32["cuda"]["result"].history, f32["cpu"]["result"].history
+
+    def rel_errs(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b
+                if k not in ("steps_per_s", "lr")}
+
+    err = max(rel_errs(ha[0], hb[0]).values())
+    replay = _replay_second_step(f32_argv["cuda"])
+    replay_err = max(rel_errs(ha[1], replay).values())
+    run_step2_err = rel_errs(ha[1], hb[1])
+    if not (len(ha) == len(hb) == 2 and err <= TC_LOSS_REL and replay_err <= TC_LOSS_REL):
+        raise RuntimeError(f"canonical joint f32 card vs CPU: step 1 max rel err {err}, "
+                           f"step 2 replayed {replay_err}; card {ha}, CPU {hb}, replay {replay}")
+
+    # the flagship with the stochastic duration predictor
+    sdp_ck = work / "sdp"
+    sdp = _train_cli(cli, base + ["--checkpoint_dir", str(sdp_ck), "--log_dir",
+                                  str(work / "sdp_logs"), "--batch_size", "4", "--max_steps", "2",
+                                  "--duration_stochastic", "true"], counters)
+    sdp_hist = sdp["result"].history
+    if not (len(sdp_hist) == 2 and all(math.isfinite(h["duration"]) and math.isfinite(h["total"])
+                                       for h in sdp_hist)
+            and sdp["launches"]["ffn_ln_train"] > 0):
+        raise RuntimeError(f"stochastic duration run: {sdp_hist}, {sdp['launches']}")
+
+    # serving: the joint checkpoint through FastDiff and through HiFi-GAN,
+    # the stochastic one through HiFi-GAN
+    served = {"joint_fastdiff": _serve(gen_cli, ck, work / "gen_fd", ["--use_fastdiff", "true"],
+                                       counters),
+              "joint_hifigan": _serve(gen_cli, ck, work / "gen_hg", [], counters),
+              "sdp_hifigan": _serve(gen_cli, sdp_ck, work / "gen_sdp", [], counters)}
+    if not (served["joint_fastdiff"]["launches"].get("lvc_stack", 0) > 0
+            and all(served[k]["launches"].get(r, 0) > 0 for k in ("joint_hifigan", "sdp_hifigan")
+                    for r in ("resblock", "resblock_trio", "ffn_ln"))):
+        raise RuntimeError(f"canonical joint serving launches {served}")
+
+    # the corpus's SRMR, card against CPU
+    srmr_err = 0.0
+    for entry in ds.entries:
+        w = ds._load_audio(entry)
+        a = srmr_per_window(w, SAMPLING_RATE, device="cuda").cpu().numpy()
+        b = srmr_per_window(w, SAMPLING_RATE, device="cpu").numpy()
+        srmr_err = max(srmr_err, float(np.max(np.abs(a - b) / np.abs(b))))
+    if srmr_err > SRMR_REL:
+        raise RuntimeError(f"SRMR card vs CPU: max rel err {srmr_err} > {SRMR_REL}")
+
+    launches = {}
+    for r in [run, f32["cuda"], sdp] + [{"launches": v["launches"]} for v in served.values()]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    tail = {"phase": "canonical_joint_checks",
+            "f32_card_vs_cpu": {"max_rel_err": err, "tol": TC_LOSS_REL,
+                                "step2_replayed_from_card_state_max_rel_err": replay_err,
+                                "step2_of_the_two_runs_rel_err": run_step2_err,
+                                "card": [{k: v for k, v in h.items() if k != "steps_per_s"}
+                                         for h in ha],
+                                "card_s": f32["cuda"]["s"], "cpu_s": f32["cpu"]["s"]},
+            "stochastic_duration": {"s": sdp["s"], "losses": sdp_hist,
+                                    "launches": {k: v for k, v in sdp["launches"].items() if v}},
+            "serving": served, "srmr_card_vs_cpu": {"max_rel_err": srmr_err, "tol": SRMR_REL,
+                                                     "utterances": len(ds.entries)},
+            "launches_phase_27": launches,
+            "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 27 (canonical joint): {tail['phase_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"row": row, "launches": launches}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -3439,6 +3733,7 @@ def main() -> int:
     head_dims = head_dim_training_phase(counters)
     dataset_phase(counters, info["nvidia_smi"])
     train_cli = train_cli_phase(counters, info["nvidia_smi"])
+    joint = canonical_joint_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -3588,6 +3883,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in p26 and "launches_phase_26" not in k:
             k["launches_phase_26"] = p26[k["name"]]
+    # phase 27's counted runs (the canonical joint CLI runs and their
+    # serving), summed
+    for k in kernels:
+        if k["name"] in joint["launches"] and "launches_phase_27" not in k:
+            k["launches_phase_27"] = joint["launches"][k["name"]]
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,13 @@ asynchronous checkpoints, an optional warm start) -> final checkpoint ->
 SWA checkpoint under ``swa/`` -> final eval -> priors in the sidecar and
 ``prior_gmms.pkl``. The checkpoint directory is what the port's generate
 CLI serves. One process trains on one device: the mesh flags and
-``--zero1`` change nothing, as in the JAX CLI on one device. Flags whose
-modules are not ported raise ``NotImplementedError`` naming their ROADMAP.md
-item: ``--on_device_features`` (A14), ``--fastdiff_vocoder`` /
-``--fastdiff_variances`` / ``--fastdiff_speakers`` (A13),
-``--duration_stochastic`` (A11), and an ``srmr`` variance (A16, raised by
-the dataset).
+``--zero1`` change nothing, as in the JAX CLI on one device.
+``--fastdiff_vocoder`` trains the joint acoustic + FastDiff module (the
+dataset then loads each wav), ``--fastdiff_variances`` /
+``--fastdiff_speakers`` the diffusion adaptor and speaker generator,
+``--duration_stochastic`` the flow-based duration predictor, and an
+``srmr`` variance comes from ``audio/srmr.py``. ``--on_device_features``
+is not ported and raises ``NotImplementedError`` naming ROADMAP.md A14.
 """
 
 from __future__ import annotations
@@ -285,10 +286,6 @@ def args_to_config(args):
 
 _UNPORTED_FLAGS = (
     ("on_device_features", "--on_device_features (train/on_device_features.py)", "A14"),
-    ("fastdiff_vocoder", "--fastdiff_vocoder (joint FastDiff training)", "A13"),
-    ("fastdiff_variances", "--fastdiff_variances (models/fastdiff_variances.py)", "A13"),
-    ("fastdiff_speakers", "--fastdiff_speakers (models/fastdiff_variances.py)", "A13"),
-    ("duration_stochastic", "--duration_stochastic (models/sdp.py)", "A11"),
 )
 
 
@@ -299,23 +296,12 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    cfg = args_to_config(args)
-    check_ported(args)
+def data_config(args, cfg):
+    """The dataset's config for the parsed arguments and ``args_to_config``'s
+    config (the JAX CLI's)."""
+    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig
 
-    import torch
-
-    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer, warm_start
-    from lightningfastspeech2_tpu_torch.core.device import resolve_device
-    from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
-    from lightningfastspeech2_tpu_torch.train.loop import (
-        StopTraining, build_model, encoder_snapshot, evaluate, fit)
-    from lightningfastspeech2_tpu_torch.train.metrics_logger import MetricsLogger
-    from lightningfastspeech2_tpu_torch.train.step import TrainState, create_train_state
-
-    device = resolve_device(args.device)
-    dcfg = DataConfig(
+    return DataConfig(
         min_length=args.min_length, max_length=args.max_length,
         variances=tuple(args.variances),
         variance_levels=cfg.model.variance.levels,
@@ -335,6 +321,26 @@ def main(argv=None):
         max_frames=cfg.model.max_frames,
         scan_workers=args.num_workers,
     )
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    cfg = args_to_config(args)
+    check_ported(args)
+
+    import torch
+
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer, warm_start
+    from lightningfastspeech2_tpu_torch.core.device import resolve_device
+    from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
+    from lightningfastspeech2_tpu_torch.models.joint import flatten_joint, nest_joint
+    from lightningfastspeech2_tpu_torch.train.loop import (
+        StopTraining, build_model, encoder_snapshot, evaluate, fit)
+    from lightningfastspeech2_tpu_torch.train.metrics_logger import MetricsLogger
+    from lightningfastspeech2_tpu_torch.train.step import TrainState, create_train_state
+
+    device = resolve_device(args.device)
+    dcfg = data_config(args, cfg)
     print(f"scanning corpus {args.train_target_path} ...", flush=True)
     dataset = TTSDataset(root=Path(args.train_target_path), cfg=dcfg,
                          cache_dir=Path(args.cache_path) if args.cache_path else None,
@@ -381,8 +387,11 @@ def main(argv=None):
         sidecar["speaker2dvector"] = dataset.speaker2dvector
 
     def save(step: int, state: TrainState, directory=ckpt, side=sidecar, params=None):
-        return directory.save(step, params if params is not None else state.model.state_dict(),
-                              cfg, side, opt_state=state.optimizer.state_dict())
+        # a joint model's weights as {"acoustic", "fastdiff"}, as the JAX CLI
+        # writes them and the generate CLI serves them
+        params = params if params is not None else state.model.state_dict()
+        return directory.save(step, nest_joint(params), cfg, side,
+                              opt_state=state.optimizer.state_dict())
 
     resume_state = None
     if args.from_checkpoint:
@@ -391,7 +400,8 @@ def main(argv=None):
         # fresh optimizer whose schedule starts over, as in the JAX CLI
         restored, _, _ = Checkpointer(args.from_checkpoint).restore()
         model0 = build_model(cfg, dataset, device=device)
-        merged, used, dropped = warm_start(model0.state_dict(), restored["params"])
+        merged, used, dropped = warm_start(model0.state_dict(),
+                                           flatten_joint(restored["params"]))
         model0.load_state_dict(merged)
         print(f"warm start: {used} tensors restored, {dropped} kept fresh")
         resume_state = create_train_state(model0, cfg)

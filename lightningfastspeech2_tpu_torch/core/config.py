@@ -302,8 +302,7 @@ def replace(cfg, **kwargs):
     return dataclasses.replace(cfg, **flat)
 
 
-# Canonical model presets (``canonical_joint`` of the JAX package waits for
-# the port of its FastDiff variances and speaker generator)
+# Canonical model presets
 def fastspeech2_27m() -> Config:
     """Single-speaker FastSpeech2 ~27M, vanilla convs, deterministic duration."""
     enc = StackConfig(depthwise=False)
@@ -356,4 +355,33 @@ def lightspeech_true76m() -> Config:
                   conv_filter_size=2560,
                   kernel_sizes=(17, 21, 9, 13, 5, 25, 13))
     model = dataclasses.replace(base, encoder=enc, decoder=dec)
+    return Config(model=model)
+
+
+def canonical_joint() -> Config:
+    """The reference's canonical experiment composition (reference
+    scripts/train.sh:44-55): the flagship acoustic stack (256 hidden, 4
+    encoder + 6 decoder depthwise layers, d-vectors) with FastDiff vocoder
+    fine-tuning, the diffusion variance adaptor over four frame-level
+    variances (pitch, energy, snr, srmr) and the diffusion speaker
+    generator."""
+    base = lightspeech_flagship().model
+    var = replace(
+        base.variance,
+        variances=("pitch", "energy", "snr", "srmr"),
+        levels=("frame",) * 4,
+        transforms=("none",) * 4,
+        losses=("mse",) * 4,
+        nlayers=(5, 5, 5, 5),
+        kernel_sizes=(5, 5, 5, 5),
+        dropouts=(0.1,) * 4,
+        loss_weights=(1.0,) * 4,
+    )
+    dec = replace(base.decoder, layers=6, kernel_sizes=(9,) * 6)
+    dur = replace(base.duration, nlayers=5)
+    model = dataclasses.replace(
+        base, variance=var, decoder=dec, duration=dur,
+        fastdiff_vocoder=True, fastdiff_variances=True,
+        fastdiff_speakers=True,
+    )
     return Config(model=model)

@@ -11,7 +11,7 @@ Per-utterance pipeline (mirrors ``__getitem__``, ``datasets.py:355-474``):
      -> durations (+ augmentation)             data/alignment.py
      -> silence masks (expanded + phone level)
      -> variances: pitch (NaN at silence, interpolated), energy,
-        WADA SNR                               audio/{pitch,features,snr}.py
+        WADA SNR, SRMR                         audio/{pitch,features,snr,srmr}.py
      -> phone-level averaging / cwt / log / z-norm transforms
      -> utterance priors over non-silent frames
 
@@ -47,6 +47,7 @@ import torch
 from lightningfastspeech2_tpu_torch.audio import cwt as cwt_mod
 from lightningfastspeech2_tpu_torch.audio import features, mel as mel_mod, pitch as pitch_mod
 from lightningfastspeech2_tpu_torch.audio import snr as snr_mod
+from lightningfastspeech2_tpu_torch.audio import srmr as srmr_mod
 from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer, pad_batch, round_up
 from lightningfastspeech2_tpu_torch.core.config import AudioConfig
 from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_device
@@ -206,9 +207,6 @@ class TTSDataset:
         cache_dir: Optional[Path] = None,
         device: DeviceLike = None,
     ):
-        if "srmr" in cfg.variances:
-            raise NotImplementedError(
-                "the srmr variance (audio/srmr.py) is not ported yet (ROADMAP.md A16)")
         self.device = str(resolve_device(device))
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
@@ -344,6 +342,17 @@ class TTSDataset:
             lambda: self._extract(wav),
         )
 
+    def _srmr(self, entry: Entry, wav: np.ndarray, dur_sum: int) -> np.ndarray:
+        """The SRMR on the frame grid of ``dur_sum`` frames, computed on the
+        dataset's device at the raw wav length, cached under the JAX
+        package's key (the grid is augmentation-stable: the duration
+        jitter keeps the total)."""
+        sr = self.cfg.audio.sampling_rate
+        return self._cached(
+            "srmr", entry, (entry.utt_id, len(wav), int(dur_sum), sr),
+            lambda: {"srmr": srmr_mod.frame_srmr(wav, dur_sum, sr, device=self.device)},
+        )["srmr"]
+
     def _speaker(self, entry: Entry) -> np.ndarray:
         dvec = self.speaker2dvector.get(entry.speaker)
         return (dvec if dvec is not None else _hash_dvector(entry.speaker)).astype(np.float32)
@@ -397,7 +406,10 @@ class TTSDataset:
 
         variances: Dict[str, Any] = {}
         for i, var in enumerate(cfg.variances):
-            sig = feats[var][:dur_sum].astype(np.float64).copy()
+            if var == "srmr":
+                sig = self._srmr(entry, wav, dur_sum)
+            else:
+                sig = feats[var][:dur_sum].astype(np.float64).copy()
             sm = silence_mask[: len(sig)]
             if var == "pitch":
                 sig[sig == 0] = np.nan

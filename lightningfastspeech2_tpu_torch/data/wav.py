@@ -1,5 +1,5 @@
-"""The port's own copy of ``lightningfastspeech2_tpu/data/wav.py`` (without
-``dequantize``, which works on device arrays of the JAX package).
+"""The port's own copy of ``lightningfastspeech2_tpu/data/wav.py``, its
+``dequantize`` on tensors.
 
 WAV file IO + resampling (host side).
 
@@ -52,3 +52,18 @@ def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
     g = math.gcd(orig_sr, target_sr)
     return resample_poly(wav, target_sr // g, orig_sr // g).astype(np.float32)
+
+
+def dequantize(wav):
+    """The inverse of the int16 transfer encoding (``DataConfig.wav_dtype``):
+    an integer waveform becomes float32 in [-1, 1); a float one passes
+    through. Works on tensors and numpy arrays."""
+    import torch
+
+    if torch.is_tensor(wav):
+        if not wav.is_floating_point():
+            return wav.float() / 32768.0
+        return wav
+    if np.issubdtype(np.asarray(wav).dtype, np.integer):
+        return np.asarray(wav).astype(np.float32) / 32768.0
+    return wav

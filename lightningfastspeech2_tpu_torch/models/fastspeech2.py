@@ -11,8 +11,12 @@ With ``use_fastdiff_head`` the result also holds ``fastdiff_var``, the
 FastDiff residual mel head's x0.1 correction. With
 ``speaker_embedding_every_layer`` / ``prior_embedding_every_layer`` the
 speaker and prior embeddings are added before every encoder layer (and the
-speaker's before every decoder layer) instead of once. The other FastDiff
-branches (speaker generator, diffusion variances) are not ported yet.
+speaker's before every decoder layer) instead of once. With
+``fastdiff_speakers`` a diffusion generator makes the encoder's d-vector
+(``speaker_pred`` / ``speaker_z`` in the result), with
+``fastdiff_variances`` the diffusion adaptor replaces the variance adaptor
+(``variances_*_z`` and ``duration_z`` in the result); both, and the
+stochastic duration predictor, draw from the forward's ``draws``.
 
 Parameters are named like the reference torch state dict; parameters stay
 f32 and ``dtype`` is the working dtype of the activations, fixed at
@@ -29,6 +33,11 @@ import torch.nn as nn
 
 from lightningfastspeech2_tpu_torch.core.config import ModelConfig
 from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_device
+from lightningfastspeech2_tpu_torch.models.draws import Draws, ModuleStreams
+from lightningfastspeech2_tpu_torch.models.fastdiff_variances import (
+    FastDiffSpeakerGenerator,
+    FastDiffVarianceAdaptor,
+)
 from lightningfastspeech2_tpu_torch.models.layers import (
     FFTStack,
     LayerNorm,
@@ -61,9 +70,6 @@ class FastSpeech2(nn.Module):
         (``fastdiff_linear``: two Linears, no activation)."""
         super().__init__()
         dev = resolve_device(device)
-        if cfg.fastdiff_variances or cfg.fastdiff_speakers:
-            raise NotImplementedError("the FastDiff variance and speaker branches are not "
-                                      "ported yet (ROADMAP item A13)")
         self.cfg, self.dtype = cfg, dtype
         stats = stats or default_stats(cfg.variance.variances)
         self.phone_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden)
@@ -81,8 +87,17 @@ class FastSpeech2(nn.Module):
                               stats_for(prior_stats, p), dtype)
             for p in cfg.priors
         })
-        self.variance_adaptor = VarianceAdaptor(
-            cfg.variance, cfg.duration, cfg.hidden, stats, cfg.variance.nbins, dtype)
+        if cfg.fastdiff_variances:
+            self.variance_adaptor = FastDiffVarianceAdaptor(
+                cfg.variance, cfg.duration, cfg.hidden, stats, cfg.variance.nbins,
+                cfg.fastdiff_inference_steps, dtype=dtype)
+        else:
+            self.variance_adaptor = VarianceAdaptor(
+                cfg.variance, cfg.duration, cfg.hidden, stats, cfg.variance.nbins, dtype)
+        if cfg.fastdiff_speakers and cfg.speaker_type == "dvector":
+            self.fastdiff_speaker_generator = FastDiffSpeakerGenerator(
+                512, cfg.dvector_dim, cfg.dvector_dim, cfg.fastdiff_inference_steps,
+                dtype=dtype)
         if use_fastdiff_head:
             self.fastdiff_linear = nn.Sequential(nn.Linear(cfg.hidden, cfg.hidden),
                                                  nn.Linear(cfg.hidden, cfg.audio.n_mels))
@@ -98,12 +113,17 @@ class FastSpeech2(nn.Module):
                 controls: Optional[Dict[str, float]] = None,
                 duration_only: bool = False,
                 max_frames: Optional[int] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Draws] = None) -> Dict[str, Any]:
         """``max_frames`` is the static frame bucket; by default the batch's
         mel length when present, else the config maximum. In training mode
         (``model.train()``) every dropout and kernel seed is drawn from
-        ``generator``, which lives on the model's device."""
+        ``generator``, which lives on the model's device. The stochastic
+        modules (the SDP, the diffusion adaptor and speaker generator) draw
+        from ``draws`` (``models/draws.py``; by default ``ModuleStreams(0)``,
+        so a forward repeated with the same inputs draws the same values)."""
         cfg, dt = self.cfg, self.dtype
+        draws = draws if draws is not None else ModuleStreams(0)
         phones = batch["phones"]
         phone_mask = phones != 0
         zero = torch.zeros((), dtype=dt, device=phones.device)
@@ -112,12 +132,29 @@ class FastSpeech2(nn.Module):
         x = torch.where(phone_mask[:, :, None], x, zero)
         x = self.positional_encoding(x, generator)
 
+        # the diffusion d-vector generator (reference fastspeech2.py:640-649):
+        # training denoises the utterance d-vector conditioned on the speaker
+        # mean and the encoder sees the utterance d-vector; inference samples
+        # one from the mean. The decoder keeps the batch's speaker.
+        speakers = batch.get("speaker")
+        result_speaker: Dict[str, Any] = {}
+        spk_gen = getattr(self, "fastdiff_speaker_generator", None)
+        if spk_gen is not None:
+            if inference:
+                speakers = spk_gen(batch["speaker"], inference=True, draws=draws)
+                result_speaker = {"speaker_pred": speakers, "speaker_z": None}
+            else:
+                utt = batch.get("utterance_dvec", batch["speaker"])
+                pred, z = spk_gen(batch["speaker"], utt, draws=draws)
+                speakers = utt
+                result_speaker = {"speaker_pred": pred, "speaker_z": z}
+
         # every_layer: the sum added before each encoder layer (FFTBlock's
         # additional_src), where the config re-injects the embeddings
         speaker_module = getattr(self, "speaker_embedding", None)
         every_layer = None
         if speaker_module is not None:
-            spk = speaker_module(batch["speaker"], x.shape[1])
+            spk = speaker_module(speakers, x.shape[1])
             if cfg.speaker_embedding_every_layer:
                 every_layer = spk
             else:
@@ -134,10 +171,15 @@ class FastSpeech2(nn.Module):
         if max_frames is None:
             max_frames = (min(batch["mel"].shape[1], cfg.max_frames)
                           if "mel" in batch else cfg.max_frames)
-        adaptor_out = self.variance_adaptor(
-            x, phone_mask, max_frames, batch, inference=inference, tf=tf,
-            oracles=oracles, controls=controls, duration_only=duration_only,
-            generator=generator)
+        if cfg.fastdiff_variances:
+            adaptor_out = self.variance_adaptor(
+                x, phone_mask, max_frames, batch, inference=inference,
+                duration_only=duration_only, draws=draws, generator=generator)
+        else:
+            adaptor_out = self.variance_adaptor(
+                x, phone_mask, max_frames, batch, inference=inference, tf=tf,
+                oracles=oracles, controls=controls, duration_only=duration_only,
+                generator=generator, draws=draws)
         if duration_only:
             return {
                 "duration_prediction": adaptor_out["duration_prediction"],
@@ -166,8 +208,13 @@ class FastSpeech2(nn.Module):
             "phone_mask": phone_mask,
             "frame_mask": frame_mask,
         }
+        result.update(result_speaker)
         for var in cfg.variance.variances:
             result[f"variances_{var}"] = adaptor_out[f"variances_{var}"]
+            if cfg.fastdiff_variances:
+                result[f"variances_{var}_z"] = adaptor_out[f"variances_{var}_z"]
+        if cfg.fastdiff_variances:
+            result["duration_z"] = adaptor_out["duration_z"]
 
         # FastDiff residual mel head (reference fastspeech2.py:390-402,
         # 733-736), on the regulated variance embeddings plus the speaker
@@ -205,6 +252,10 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None) 
             m.in_proj_weight.copy_(
                 torch.empty_like(m.in_proj_weight).uniform_(-bound, bound, generator=g))
             m.in_proj_bias.zero_()
+    # the flows' zero starts (sdp.py: ElementwiseAffine, ConvFlow.proj)
+    for m in model.modules():
+        if hasattr(m, "zero_init"):
+            m.zero_init()
 
 
 def build_fastspeech2(cfg: ModelConfig, dtype: torch.dtype = torch.float32,

@@ -1,8 +1,11 @@
-"""Variance adaptor: duration, pitch/energy/SNR prediction and injection.
+"""Variance adaptor: duration, pitch/energy/SNR/SRMR prediction and injection.
 
-Counterpart of ``lightningfastspeech2_tpu/models/variance_adaptor.py``,
-deterministic duration only (the stochastic duration predictor is not
-ported yet). In training mode each ``VarianceConvLayer`` ends in dropout
+Counterpart of ``lightningfastspeech2_tpu/models/variance_adaptor.py``. The
+duration is predicted by a conv stack, or with ``DurationConfig.stochastic``
+by the flow-based ``models/sdp.py`` on the hidden states without their
+gradient: its training pass returns the per-item NLL, its inference pass
+log-durations drawn from the ``draws`` source, rounded by
+``round_durations_stochastic``. In training mode each ``VarianceConvLayer`` ends in dropout
 (rates from ``VarianceConfig.dropouts`` and ``DurationConfig.dropout``)
 drawn from the forward's generator. Phone-level variance encoders add their embeddings before
 length regulation, frame-level ones after. Parameter names follow the
@@ -32,7 +35,9 @@ import torch.nn.functional as F
 
 from lightningfastspeech2_tpu_torch.audio import cwt as cwt_mod
 from lightningfastspeech2_tpu_torch.core.config import DurationConfig, VarianceConfig
+from lightningfastspeech2_tpu_torch.models.draws import Draws
 from lightningfastspeech2_tpu_torch.models.layers import LayerNorm, linear
+from lightningfastspeech2_tpu_torch.models.sdp import StochasticDurationPredictor
 from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
 from lightningfastspeech2_tpu_torch.ops.dropout import dropout
 from lightningfastspeech2_tpu_torch.ops.depthwise import (
@@ -275,14 +280,17 @@ class VarianceAdaptor(nn.Module):
     def __init__(self, cfg: VarianceConfig, duration_cfg: DurationConfig,
                  hidden: int, stats: StatsTree, nbins: int, dtype: torch.dtype):
         super().__init__()
-        if duration_cfg.stochastic:
-            raise NotImplementedError(
-                "the stochastic duration predictor is not ported yet")
         self.cfg, self.dtype = cfg, dtype
-        self.duration_predictor = VariancePredictor(
-            duration_cfg.nlayers, hidden, duration_cfg.filter_size,
-            duration_cfg.kernel_size, duration_cfg.depthwise, False, dtype,
-            duration_cfg.dropout)
+        self.stochastic = duration_cfg.stochastic
+        if self.stochastic:
+            self.duration_predictor = StochasticDurationPredictor(
+                hidden, duration_cfg.filter_size, duration_cfg.kernel_size,
+                duration_cfg.dropout, duration_cfg.nlayers, dtype)
+        else:
+            self.duration_predictor = VariancePredictor(
+                duration_cfg.nlayers, hidden, duration_cfg.filter_size,
+                duration_cfg.kernel_size, duration_cfg.depthwise, False, dtype,
+                duration_cfg.dropout)
         self.encoders = nn.ModuleDict({
             var: VarianceEncoder(
                 cfg.nlayers[i], hidden, cfg.filter_size, cfg.kernel_sizes[i],
@@ -292,7 +300,8 @@ class VarianceAdaptor(nn.Module):
         })
 
     def _rounded(self, duration_pred, phone_mask):
-        d = lr.round_durations_deterministic(duration_pred)
+        d = (lr.round_durations_stochastic(duration_pred) if self.stochastic
+             else lr.round_durations_deterministic(duration_pred))
         d = torch.where(phone_mask, d, torch.zeros_like(d))
         return lr.rescue_zero_durations(d, phone_mask)
 
@@ -302,11 +311,26 @@ class VarianceAdaptor(nn.Module):
                 oracles: Tuple[str, ...] = (),
                 controls: Optional[Dict[str, float]] = None,
                 duration_only: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Draws] = None) -> Dict[str, Any]:
         c = self.cfg
         controls = controls or {}
         result: Dict[str, Any] = {}
-        duration_pred, _ = self.duration_predictor(x, phone_mask, generator)
+        if self.stochastic:
+            # the flows see the hidden states without their gradient
+            # (model.py:262-267)
+            x_det = x.detach()
+            if not inference:
+                duration_pred = self.duration_predictor(
+                    x_det, phone_mask, targets["duration"].to(self.dtype), draws=draws,
+                    generator=generator)
+            else:
+                duration_pred = self.duration_predictor(x_det, phone_mask, reverse=True,
+                                                        draws=draws, generator=generator)
+                duration_pred = torch.where(phone_mask, duration_pred,
+                                            torch.zeros_like(duration_pred))
+        else:
+            duration_pred, _ = self.duration_predictor(x, phone_mask, generator)
 
         if duration_only:
             # serving duration pass: the rounded durations pick the frame

@@ -24,17 +24,18 @@ def same_pad(k: int):
 
 
 def grouped_conv1d(x: torch.Tensor, w: torch.Tensor,
-                   b: Optional[torch.Tensor], groups: int) -> torch.Tensor:
-    """x (B, T, G*ci), w (G*co, ci, k) -> (B, T, G*co), SAME padding."""
-    lpad, rpad = same_pad(w.shape[-1])
+                   b: Optional[torch.Tensor], groups: int, dilation: int = 1) -> torch.Tensor:
+    """x (B, T, G*ci), w (G*co, ci, k) -> (B, T, G*co), SAME padding over
+    the dilated kernel's span (k - 1) * dilation + 1."""
+    lpad, rpad = same_pad((w.shape[-1] - 1) * dilation + 1)
     xt = F.pad(x.transpose(1, 2), (lpad, rpad))
-    return F.conv1d(xt, w, b, groups=groups).transpose(1, 2)
+    return F.conv1d(xt, w, b, groups=groups, dilation=dilation).transpose(1, 2)
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
-                     b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     b: Optional[torch.Tensor] = None, dilation: int = 1) -> torch.Tensor:
     """x (B, T, C), w (C, 1, k) -> (B, T, C), SAME padding."""
-    return grouped_conv1d(x, w, b, groups=x.shape[-1])
+    return grouped_conv1d(x, w, b, groups=x.shape[-1], dilation=dilation)
 
 
 def pointwise_conv1d(x: torch.Tensor, w: torch.Tensor,

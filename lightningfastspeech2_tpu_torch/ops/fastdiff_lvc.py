@@ -361,10 +361,20 @@ def last_launch() -> dict:
 def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
               fast_gating: bool = False) -> torch.Tensor:
     """The whole chain of one stage (see ``lvc_stack_plain`` for the
-    arguments): the kernel for CUDA tensors, the plain version on the CPU."""
+    arguments): the kernel for CUDA tensors, the plain version on the CPU.
+    The kernel's result is invisible to autograd, so on the card it raises
+    when grad mode is on and an input needs a gradient: a caller that
+    trains takes FastDiff's training route (``FastDiff.forward(...,
+    train_route=True)``, the plain chain JAX's ``FastDiff.apply`` runs)."""
     if x.device.type == "cpu":
         return lvc_stack_plain(x, audio_down, kernels, biases, conv_w, conv_b, hop,
                                fast_gating)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, audio_down, kernels, biases, conv_w, conv_b)):
+        raise RuntimeError(
+            "lvc_stack has no backward: an input needs a gradient; train through "
+            "FastDiff's training route (FastDiff.forward(..., train_route=True)), or "
+            "call it under torch.no_grad()")
     B, L, C = x.shape
     layers = kernels.shape[2]
     dt = x.dtype

@@ -229,6 +229,14 @@ def round_durations_deterministic(log_duration_pred: torch.Tensor) -> torch.Tens
                        min=0.0).to(torch.int64)
 
 
+def round_durations_stochastic(log_duration_pred: torch.Tensor) -> torch.Tensor:
+    """The SDP's rounding: ceil(exp(pred + 1e-9)), 0 where the prediction is
+    exactly 0, clamped >= 0 (model.py:302-305)."""
+    rounded = torch.ceil(torch.exp(log_duration_pred + 1e-9))
+    rounded = torch.where(log_duration_pred == 0, torch.zeros_like(rounded), rounded)
+    return torch.clamp(rounded, min=0.0).to(torch.int64)
+
+
 def rescue_zero_durations(durations: torch.Tensor,
                           phone_mask: torch.Tensor) -> torch.Tensor:
     """If an utterance's total duration <= half its phone count, set all its

@@ -9,7 +9,8 @@ model with the FastDiff residual head vocodes mel + ``fastdiff_var``.
 Serving runs two bucketing passes, as in the JAX package (where both are on
 by default; here they are the only path):
 - a duration-only pass (encoder + duration tower) picks the static frame
-  bucket, then the full inference pass runs at that bucket;
+  bucket, then the full inference pass runs at that bucket; sampled
+  durations, variances and speakers are drawn alike in both;
 - the vocoder sees the mel at its bucket length, padded frames at the
   log-mel silence floor (-6.0 = log10 of the front-end clip 1e-6), and the
   waveform is cut to valid frames x hop.
@@ -29,6 +30,7 @@ from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer, pad_to
 from lightningfastspeech2_tpu_torch.core.device import DeviceLike
 from lightningfastspeech2_tpu_torch.data import wav as wav_io
 from lightningfastspeech2_tpu_torch.data.vocab import Vocab
+from lightningfastspeech2_tpu_torch.models.draws import ModuleStreams
 from lightningfastspeech2_tpu_torch.models.joint import make_fastdiff_config
 from lightningfastspeech2_tpu_torch.synthesis.g2p import G2P
 from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffVocoder
@@ -169,13 +171,17 @@ class SpeechGenerator:
     @torch.no_grad()
     def infer(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Both acoustic passes: the duration pass picks the frame bucket T,
-        the full pass runs at T. Returns the full pass's outputs."""
+        the full pass runs at T. Returns the full pass's outputs. A model's
+        stochastic modules (the SDP, the diffusion adaptor and speaker
+        generator) draw from per-module streams seeded 0, made anew for each
+        pass, so the full pass re-draws the durations the duration pass drew
+        (the JAX generator's two passes share their rng, PRNGKey(0))."""
         dev = self.model.device
         tb = {k: _batch_tensor(v, dev) for k, v in batch.items()}
-        durs = self.model(tb, inference=True, duration_only=True)
+        durs = self.model(tb, inference=True, duration_only=True, draws=ModuleStreams(0))
         need = int(durs["duration_rounded"].sum(-1).max())
         T = self.bucketer.frame_bucket(need)
-        return self.model(tb, inference=True, max_frames=T)
+        return self.model(tb, inference=True, max_frames=T, draws=ModuleStreams(0))
 
     def generate_samples(self, batch: Dict[str, np.ndarray]) -> List[np.ndarray]:
         result = self.infer(batch)

@@ -27,6 +27,7 @@ import torch
 from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
 from lightningfastspeech2_tpu_torch.core.config import Config, replace
 from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_device
+from lightningfastspeech2_tpu_torch.models.draws import Draws, ModuleStreams
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from lightningfastspeech2_tpu_torch.models.variance_adaptor import StatsTree, VarianceStats
 from lightningfastspeech2_tpu_torch.train.optim import noam_lr
@@ -51,18 +52,27 @@ def prior_stats_tree(dataset, priors) -> StatsTree:
 def build_model(cfg: Config, dataset, device: DeviceLike = None) -> FastSpeech2:
     """The model against the dataset's vocab and statistics, its weights
     drawn from ``cfg.train.seed``, on ``device`` (``cuda`` unless
-    ``"cpu"``), in the working dtype of ``cfg.train.bf16``."""
+    ``"cpu"``), in the working dtype of ``cfg.train.bf16``; with
+    ``fastdiff_vocoder`` the joint acoustic + FastDiff module."""
     mcfg = cfg.model
-    if mcfg.fastdiff_vocoder:
-        raise NotImplementedError("joint FastSpeech2 + FastDiff training (--fastdiff_vocoder) "
-                                  "is not ported yet (ROADMAP.md A13)")
     vocab_size = max(len(dataset.vocab), 2)
     if mcfg.vocab_size != vocab_size:
         mcfg = replace(mcfg, vocab_size=vocab_size)
     dtype = torch.bfloat16 if cfg.train.bf16 else torch.float32
-    return FastSpeech2(mcfg, stats_tree(dataset, mcfg.variance.variances),
-                       prior_stats_tree(dataset, mcfg.priors), dtype, device,
-                       torch.Generator().manual_seed(cfg.train.seed))
+    stats = stats_tree(dataset, mcfg.variance.variances)
+    prior_stats = prior_stats_tree(dataset, mcfg.priors)
+    generator = torch.Generator().manual_seed(cfg.train.seed)
+    if mcfg.fastdiff_vocoder:
+        # the joint acoustic + FastDiff module (the reference wires the
+        # vocoder inside its LightningModule, fastspeech2.py:390-411)
+        from lightningfastspeech2_tpu_torch.models.joint import (
+            JointFastSpeech2FastDiff,
+            make_fastdiff_config,
+        )
+
+        return JointFastSpeech2FastDiff(mcfg, make_fastdiff_config(mcfg), stats, prior_stats,
+                                        dtype, device, generator)
+    return FastSpeech2(mcfg, stats, prior_stats, dtype, device, generator)
 
 
 def batch_iterator(dataset, batch_size: int, bucketer: Optional[Bucketer] = None,
@@ -219,15 +229,24 @@ def _step_generator(device: torch.device, seed: int, step_i: int) -> torch.Gener
     return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + step_i)
 
 
+def _step_draws(seed: int, step_i: int) -> ModuleStreams:
+    """The stochastic modules' draws of step ``step_i`` (the JAX package's
+    ``sdp`` stream, ``fold_in(rng, 7)``): drawn on the CPU, so the card and
+    the CPU train on the same values."""
+    return ModuleStreams((((seed + 1) << 32) + step_i) * 8 + 7)
+
+
 def fit(cfg: Config, dataset, max_steps: Optional[int] = None,
         log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
         checkpoint_fn: Optional[Callable[[int, TrainState], None]] = None,
         eval_fn: Optional[Callable[[int, TrainState], Any]] = None,
-        state: Optional[TrainState] = None, device: DeviceLike = None) -> TrainResult:
+        state: Optional[TrainState] = None, device: DeviceLike = None,
+        draws: Optional[Draws] = None) -> TrainResult:
     """Train for ``max_steps`` (default ``cfg.train.max_steps``) optimizer
     steps from ``state`` (default: ``build_model`` on ``device`` and a fresh
-    AdamW). The loader's workers, when there are any, are closed on every
-    way out."""
+    AdamW). The stochastic modules draw from each step's own streams
+    (``_step_draws``), or from ``draws`` for all steps where given. The
+    loader's workers, when there are any, are closed on every way out."""
     if state is None:
         state = create_train_state(build_model(cfg, dataset, device=resolve_device(device)), cfg)
     bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
@@ -245,16 +264,26 @@ def fit(cfg: Config, dataset, max_steps: Optional[int] = None,
         batches = batch_iterator(dataset, cfg.train.batch_size * accum, bucketer,
                                  seed=cfg.train.seed)
     try:
-        return _fit_loop(cfg, state, batches, accum, max_steps, log_fn, checkpoint_fn, eval_fn)
+        return _fit_loop(cfg, state, batches, accum, max_steps, log_fn, checkpoint_fn, eval_fn,
+                         len(dataset), draws)
     finally:
         if loader is not None:
             loader.close()
 
 
 def _fit_loop(cfg: Config, state: TrainState, batches, accum: int, max_steps: int,
-              log_fn, checkpoint_fn, eval_fn) -> TrainResult:
+              log_fn, checkpoint_fn, eval_fn, len_dataset: int = 1,
+              draws: Optional[Draws] = None) -> TrainResult:
     model = state.model
     step_fn = make_train_step(model, cfg)
+    schedule_fn = None
+    if cfg.model.fastdiff_vocoder:
+        # the epoch-indexed P(condition the vocoder on the predicted mel)
+        # (reference fastspeech2.py:403-411)
+        from lightningfastspeech2_tpu_torch.models.joint import schedule_probability
+
+        steps_per_epoch = max(len_dataset // (cfg.train.batch_size * accum), 1)
+        schedule_fn = lambda s: schedule_probability(cfg.model, s // steps_per_epoch)
     swa = None
     if cfg.train.swa:
         from lightningfastspeech2_tpu_torch.train.swa import SWA
@@ -276,8 +305,11 @@ def _fit_loop(cfg: Config, state: TrainState, batches, accum: int, max_steps: in
             # the teacher-forcing draw of this step (model.py:272)
             tf = bool(np.random.default_rng(cfg.train.seed + step_i).uniform()
                       <= cfg.model.tf_ratio)
+        kwargs = {} if schedule_fn is None else {"schedule_p": schedule_fn(step_i)}
         state, metrics = step_fn(state, arrs, _step_generator(model.device, cfg.train.seed,
-                                                               step_i), tf=tf, frozen=frozen)
+                                                               step_i), tf=tf, frozen=frozen,
+                                 draws=(draws if draws is not None
+                                        else _step_draws(cfg.train.seed, step_i)), **kwargs)
         if swa is not None:
             swa.update(step_i, dict(model.named_parameters()))
         if step_i % cfg.train.log_every == 0 or step_i == max_steps - 1:

@@ -10,8 +10,11 @@ the duration loss on ``log(d + 1)``, and ``total`` weighted as
 A ``soft_dtw`` loss (the mel loss, a CWT variance's ``_cwt`` term or a
 scalar variance) is ``soft_dtw_loss``: soft-DTW (``ops/soft_dtw.py``) summed
 over items and over chunks of ``soft_dtw_chunk_size`` frames, like the
-reference (loss.py:69-78). The FastDiff and stochastic-duration losses are
-later slices of the port and raise ``NotImplementedError``.
+reference (loss.py:69-78). With ``fastdiff_variances`` each diffusion
+variance and the duration are the MSE of the noise prediction against its
+z; the stochastic duration predictor's loss is its NLL summed over items;
+the joint vocoder adds ``fastdiff`` (ε-MSE over ``wav_mask``, weight 0.1)
+and the speaker generator ``speakers`` (MSE, weight 1).
 """
 
 from __future__ import annotations
@@ -69,11 +72,26 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: 
                    frozen_components: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
     """Per-component losses and the weighted ``total``."""
     mcfg, vcfg, tcfg = cfg.model, cfg.model.variance, cfg.train
-    if mcfg.fastdiff_variances or mcfg.duration.stochastic:
-        raise NotImplementedError(
-            "FastDiff and stochastic-duration losses are later slices of the port")
     losses: Dict[str, torch.Tensor] = {}
     phone_mask, frame_mask = result["phone_mask"], result["frame_mask"]
+
+    if mcfg.fastdiff_variances:
+        # each diffusion variance and the duration: MSE(noise prediction, z)
+        # (reference loss.py:105-115,173-180)
+        for var in vcfg.variances:
+            losses[var] = masked_mean_loss(result[f"variances_{var}"],
+                                           result[f"variances_{var}_z"], frame_mask, "mse")
+        losses["duration"] = masked_mean_loss(result["duration_prediction"],
+                                              result["duration_z"], phone_mask, "mse")
+        losses["mel"] = masked_mean_loss(result["mel"],
+                                         batch["mel"][:, : result["mel"].shape[1]],
+                                         frame_mask, tcfg.mel_loss)
+        _joint_losses(losses, result)
+        weights = {"mel": tcfg.mel_loss_weight, "duration": mcfg.duration.loss_weight,
+                   **JOINT_WEIGHTS}
+        for i, var in enumerate(vcfg.variances):
+            weights[var] = vcfg.loss_weights[i]
+        return _total(losses, weights, frozen_components)
 
     for i, var in enumerate(vcfg.variances):
         mask = phone_mask if vcfg.levels[i] == "phone" else frame_mask
@@ -108,15 +126,40 @@ def compute_losses(result: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: 
                                       tcfg.soft_dtw_chunk_size)
     else:
         losses["mel"] = masked_mean_loss(mel, mel_truth, frame_mask, tcfg.mel_loss)
-    log_d = torch.log(batch["duration"].float() + 1.0)
-    losses["duration"] = masked_mean_loss(result["duration_prediction"], log_d, phone_mask,
-                                          mcfg.duration.loss)
+    if mcfg.duration.stochastic:
+        # the SDP's per-item NLL, summed over the batch (loss.py:189)
+        losses["duration"] = torch.sum(result["duration_prediction"])
+    else:
+        log_d = torch.log(batch["duration"].float() + 1.0)
+        losses["duration"] = masked_mean_loss(result["duration_prediction"], log_d,
+                                              phone_mask, mcfg.duration.loss)
+    _joint_losses(losses, result)
 
     weights: Dict[str, float] = {"mel": tcfg.mel_loss_weight,
-                                 "duration": mcfg.duration.loss_weight}
+                                 "duration": mcfg.duration.loss_weight, **JOINT_WEIGHTS}
     for i, var in enumerate(vcfg.variances):
         for key in (var, f"{var}_cwt", f"{var}_mean", f"{var}_std"):
             weights[key] = vcfg.loss_weights[i]
+    return _total(losses, weights, frozen_components)
+
+
+# the joint vocoder's ε-MSE and the speaker generator's (fastspeech2.py:461-473)
+JOINT_WEIGHTS = {"fastdiff": 1e-1, "speakers": 1.0}
+
+
+def _joint_losses(losses: Dict[str, torch.Tensor], result: Dict[str, Any]) -> None:
+    """The joint vocoder's ε-MSE over ``wav_mask`` and the speaker
+    generator's MSE, where the result has them."""
+    if "fastdiff" in result:
+        eps, z = result["fastdiff"]
+        losses["fastdiff"] = masked_mean_loss(eps, z, result["wav_mask"], "mse")
+    if result.get("speaker_z") is not None:
+        losses["speakers"] = torch.mean(torch.square(result["speaker_pred"]
+                                                     - result["speaker_z"]))
+
+
+def _total(losses: Dict[str, torch.Tensor], weights: Dict[str, float],
+           frozen_components: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
     total = 0.0
     for key, value in losses.items():
         if any(f in key for f in frozen_components):

@@ -24,11 +24,12 @@ moments; the parameters agree either way.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from lightningfastspeech2_tpu_torch.core.config import Config
+from lightningfastspeech2_tpu_torch.models.draws import Draws
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from lightningfastspeech2_tpu_torch.train.losses import compute_losses
 from lightningfastspeech2_tpu_torch.train.optim import (
@@ -70,13 +71,17 @@ def is_frozen(name: str, frozen: Tuple[str, ...]) -> bool:
 
 
 def make_train_step(model: FastSpeech2, cfg: Config) -> Callable:
-    """Returns ``step(state, batch, generator, tf=True, frozen=()) ->
-    (state, metrics)``. ``metrics`` holds every loss (0-dim tensors on the
-    model's device) and ``grad_norm``, the global norm after the frozen
-    gradients are dropped and before clipping."""
+    """Returns ``step(state, batch, generator, tf=True, frozen=(), draws=None,
+    schedule_p=None) -> (state, metrics)``. ``metrics`` holds every loss
+    (0-dim tensors on the model's device) and ``grad_norm``, the global norm
+    after the frozen gradients are dropped and before clipping. ``draws``
+    feeds the stochastic modules (``models/draws.py``; the model's default
+    where None); ``schedule_p`` is the joint model's probability of
+    conditioning the vocoder on the predicted mel."""
 
     def step(state: TrainState, batch: Batch, generator: torch.Generator,
-             tf: bool = True, frozen: Tuple[str, ...] = ()):
+             tf: bool = True, frozen: Tuple[str, ...] = (), draws: Optional[Draws] = None,
+             schedule_p: Optional[float] = None):
         m = model  # the module whose parameters ``state`` was created for
         batch = to_device(batch, m.device)
         m.train()
@@ -87,8 +92,10 @@ def make_train_step(model: FastSpeech2, cfg: Config) -> Callable:
         else:
             n, micro = 1, [batch]
         sums: Dict[str, torch.Tensor] = {}
+        kwargs = {} if schedule_p is None else {"schedule_p": schedule_p}
         for mb in micro:
-            losses = compute_losses(m(mb, tf=tf, generator=generator), mb, cfg, frozen)
+            out = m(mb, tf=tf, generator=generator, draws=draws, **kwargs)
+            losses = compute_losses(out, mb, cfg, frozen)
             (losses["total"] / n).backward()
             for key, value in losses.items():
                 v = value.detach() if torch.is_tensor(value) else torch.tensor(value)

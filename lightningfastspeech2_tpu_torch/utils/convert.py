@@ -96,8 +96,76 @@ def _variance_predictor(out: State, prefix: str, tree: Mapping[str, Any],
     _linear(out, f"{prefix}.linear", tree["linear"])
 
 
+def _conv1x1(out: State, name: str, p: Mapping[str, Any]) -> None:
+    """A Dense (in, out) -> a 1x1 Conv1d (out, in, 1)."""
+    out[f"{name}.weight"] = np.asarray(p["kernel"]).T[:, :, None]
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _dds_conv(out: State, prefix: str, tree: Mapping[str, Any], layers: int = 3) -> None:
+    for i in range(layers):
+        out[f"{prefix}.convs_sep.{i}.weight"] = np.transpose(
+            np.asarray(tree[f"sep{i}_kernel"]), (2, 1, 0))
+        out[f"{prefix}.convs_sep.{i}.bias"] = np.asarray(tree[f"sep{i}_bias"])
+        _conv1x1(out, f"{prefix}.convs_1x1.{i}", tree[f"conv1x1_{i}"])
+        for which in (1, 2):
+            ln = tree[f"norm{which}_{i}"]
+            out[f"{prefix}.norms_{which}.{i}.gamma"] = np.asarray(ln["scale"])
+            out[f"{prefix}.norms_{which}.{i}.beta"] = np.asarray(ln["bias"])
+
+
+def _sdp(out: State, prefix: str, tree: Mapping[str, Any], n_flows: int) -> None:
+    """``models/sdp.py StochasticDurationPredictor``: the encoders, then
+    ``flow_pre`` / ``flow_{i}`` as ``flows.0`` / ``flows.{i + 1}`` (and the
+    ``post_`` twins)."""
+    for side in ("", "post_"):
+        _conv1x1(out, f"{prefix}.{side}pre", tree[f"{side}pre"])
+        _dds_conv(out, f"{prefix}.{side}convs", tree[f"{side}convs"])
+        _conv1x1(out, f"{prefix}.{side}proj", tree[f"{side}proj"])
+        ea = tree[f"{side}flow_pre"]
+        for k in ("translation", "log_scale"):
+            out[f"{prefix}.{side}flows.0.{k}"] = np.asarray(ea[k])[:, None]
+        for i in range(n_flows):
+            p, f = f"{prefix}.{side}flows.{i + 1}", tree[f"{side}flow_{i}"]
+            _conv1x1(out, f"{p}.pre", f["pre"])
+            _dds_conv(out, f"{p}.convs", f["convs"])
+            _conv1x1(out, f"{p}.proj", f["proj"])
+
+
+def _step_mlp(out: State, prefix: str, tree: Mapping[str, Any]) -> None:
+    for name in ("fc_t1", "fc_t2", "linear_noise"):
+        _linear(out, f"{prefix}.{name}", tree[name])
+
+
+def _diffusion_adaptor(out: State, prefix: str, tree: Mapping[str, Any],
+                       cfg: ModelConfig) -> None:
+    """``models/fastdiff_variances.py FastDiffVarianceAdaptor``."""
+    v = cfg.variance
+
+    def predictor(p, t, nlayers):
+        _step_mlp(out, p, t)
+        _linear(out, f"{p}.linear_in", t["linear_in"])
+        _variance_predictor(out, p, t, nlayers, v.depthwise)
+
+    predictor(f"{prefix}.duration_predictor", tree["duration_predictor"], cfg.duration.nlayers)
+    for i, var in enumerate(v.variances):
+        predictor(f"{prefix}.predictors.{var}", tree[f"predictor_{var}"], v.nlayers[i])
+        out[f"{prefix}.embeddings.{var}.weight"] = np.asarray(
+            tree[f"embedding_{var}"]["embedding"])
+
+
+def _speaker_generator(out: State, prefix: str, tree: Mapping[str, Any]) -> None:
+    """``models/fastdiff_variances.py FastDiffSpeakerGenerator``."""
+    p, sg = f"{prefix}.predictor", tree["predictor"]
+    _step_mlp(out, p, sg)
+    for name in ("conditional_in", "mlp0", "mlp1", "linear_out"):
+        _linear(out, f"{p}.{name}", sg[name])
+
+
 def from_jax_fastspeech2(params: Mapping[str, Any], cfg: ModelConfig) -> State:
-    """The JAX ``FastSpeech2`` tree -> the port's ``FastSpeech2`` state dict."""
+    """The JAX ``FastSpeech2`` tree -> the port's ``FastSpeech2`` state dict
+    (the stochastic duration predictor, the diffusion adaptor and speaker
+    generator included where the config has them)."""
     t = _tree(params)
     out: State = {"phone_embedding.weight": np.asarray(t["phone_embedding"]["embedding"])}
     _fft_stack(out, "encoder", t["encoder"], cfg.encoder.layers)
@@ -111,11 +179,19 @@ def from_jax_fastspeech2(params: Mapping[str, Any], cfg: ModelConfig) -> State:
     for prior in cfg.priors:
         out[f"prior_embeddings.{prior}.embedding.weight"] = np.asarray(
             t[f"prior_embedding_{prior}"]["embedding"]["embedding"])
+    if "fastdiff_speaker_generator" in t:
+        _speaker_generator(out, "fastdiff_speaker_generator", t["fastdiff_speaker_generator"])
     va = t["variance_adaptor"]
-    _variance_predictor(out, "variance_adaptor.duration_predictor",
-                        va["duration_predictor"], cfg.duration.nlayers,
-                        cfg.duration.depthwise)
-    for i, var in enumerate(cfg.variance.variances):
+    if cfg.fastdiff_variances:
+        _diffusion_adaptor(out, "variance_adaptor", va, cfg)
+    elif cfg.duration.stochastic:
+        _sdp(out, "variance_adaptor.duration_predictor", va["duration_predictor"],
+             cfg.duration.nlayers)
+    else:
+        _variance_predictor(out, "variance_adaptor.duration_predictor",
+                            va["duration_predictor"], cfg.duration.nlayers,
+                            cfg.duration.depthwise)
+    for i, var in enumerate(() if cfg.fastdiff_variances else cfg.variance.variances):
         p, enc = f"variance_adaptor.encoders.{var}", va[f"encoder_{var}"]
         _variance_predictor(out, f"{p}.predictor", enc["predictor"],
                             cfg.variance.nlayers[i], cfg.variance.depthwise)

@@ -5,8 +5,8 @@ DiffusionDBlock downsample stages and 3 time-aware location-variable-
 convolution (LVC) upsample stages (ratios 8, 8, 4 = hop 256), with a
 sinusoidal step embedding through two swish Linear layers. Serving runs the
 reverse sampler (``vocoder.diffusion``) over the hardcoded N-step
-schedules. Inference only here: the ε-MSE training path waits for the
-joint-training slice.
+schedules; the joint model (``models/joint.py``) trains it on the ε-MSE
+through ``FastDiff.forward(..., train_route=True)``.
 
 ``FastDiff.forward`` is the port's counterpart of the JAX package's
 ``eps_apply_fused``: the kernel predictors, the downsample blocks and the
@@ -191,18 +191,20 @@ class TimeAwareLVCBlock(nn.Module):
                       padding=3 ** i * (conv_kernel_size - 1) // 2)
             for i in range(conv_layers)])
 
-    def forward(self, x, audio_down, c, emb, dt: torch.dtype, fast: bool) -> torch.Tensor:
+    def forward(self, x, audio_down, c, emb, dt: torch.dtype, fast: bool,
+                train_route: bool = False) -> torch.Tensor:
         noise = linear(emb, self.fc_t, dt)
         kernels, bias = self.kernel_predictor(c.to(dt) + noise[:, None, :], dt)
         h = _conv(_leaky(x, 0.2), self.upsample, dt)
         layers, n_frames = len(self.convs), kernels.shape[1]
-        if routes_to_kernel(self.cond_hop, n_frames, layers):
+        if not train_route and routes_to_kernel(self.cond_hop, n_frames, layers):
             conv_w = torch.stack([m.weight.to(dt).permute(2, 1, 0) for m in self.convs])
             conv_b = torch.stack([m.bias.float() for m in self.convs])
             return lvc_stack(h.contiguous(), audio_down.contiguous(), kernels, bias,
                              conv_w.contiguous(), conv_b, self.cond_hop, fast)
-        # the chain the JAX path keeps where even a whole-tile halo cannot
-        # cover the layers' reach (vocoder/fastdiff.py:431-439)
+        # the training route, and the chain the serving path keeps where
+        # even a whole-tile halo cannot cover the layers' reach
+        # (vocoder/fastdiff.py:431-439)
         for i, conv in enumerate(self.convs):
             h = h + audio_down
             y = _leaky(_conv(_leaky(h, 0.2), conv, dt), 0.2)
@@ -213,7 +215,13 @@ class TimeAwareLVCBlock(nn.Module):
 
 class FastDiff(nn.Module):
     """ε-prediction network: (noisy wav (B, T), mel (B, T', 80), fractional
-    steps ts (B,)) -> ε (B, T) in the working dtype (FastDiff.py:91-147)."""
+    steps ts (B,)) -> ε (B, T) in the working dtype (FastDiff.py:91-147).
+
+    Two routes, chosen by the caller as the JAX package chooses between its
+    two functions: serving (the default, JAX's ``eps_apply_fused``) sends
+    the stages the JAX rule routes to its kernel through ``lvc_stack``;
+    ``train_route=True`` (JAX's ``FastDiff.apply``, which its training takes)
+    runs every stage's chain in plain PyTorch under autograd."""
 
     def __init__(self, cfg: FastDiffConfig = FastDiffConfig(),
                  dtype: torch.dtype = torch.float32):
@@ -235,7 +243,8 @@ class FastDiff(nn.Module):
         self.lvc_blocks = nn.ModuleList(blocks)
         self.final_conv = nn.Sequential(nn.Conv1d(C, cfg.audio_channels, 7, padding=3))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, ts: torch.Tensor,
+                train_route: bool = False) -> torch.Tensor:
         cfg, dt = self.cfg, self.dtype
         emb = diffusion.step_embedding(ts, cfg.step_embed_dim_in).to(dt)
         emb = swish(linear(emb, self.fc_t1, dt))
@@ -246,7 +255,7 @@ class FastDiff(nn.Module):
             downsampled.append(h)
             h = blk(h, dt)
         for n, blk in enumerate(self.lvc_blocks):
-            h = blk(h, downsampled[-1 - n], c, emb, dt, cfg.fast_gating)
+            h = blk(h, downsampled[-1 - n], c, emb, dt, cfg.fast_gating, train_route)
         return _conv(h, self.final_conv[0], dt)[..., 0]
 
 

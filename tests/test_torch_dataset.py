@@ -41,6 +41,7 @@ from lightningfastspeech2_tpu_torch.data import dataset as tds
 from lightningfastspeech2_tpu_torch.data import textgrid as ttg
 from lightningfastspeech2_tpu_torch.data.alignment import tier_to_alignment
 from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus, make_rich_corpus
+from lightningfastspeech2_tpu_torch.audio.srmr import frame_srmr
 from tests.torch_port_helpers import torch_threads
 
 WIN = 1024
@@ -286,10 +287,12 @@ def test_validation_split_and_sharding(pair, corpus):
 
 
 def test_unported_parts_name_a16(corpus):
-    """SRMR is still A16's; the d-vector half is ported (data/dvector.py,
-    held against the JAX package in test_torch_dvector.py): without the
-    cache nothing is written beside the audio, so the shared corpus keeps
-    no d-vector files."""
+    """Both halves of A16 are ported. The d-vectors (data/dvector.py, held
+    against the JAX package in test_torch_dvector.py): without the cache
+    nothing is written beside the audio, so the shared corpus keeps no
+    d-vector files. The ``srmr`` variance (audio/srmr.py, held against the
+    JAX package in test_torch_srmr.py): each item's is ``frame_srmr`` of its
+    wav on the mel grid, z-normalized by the dataset's stats."""
     fresh = tds.TTSDataset(corpus, tds.DataConfig(**FLAGSHIP), device="cpu",
                            compute_stats=False)
     table = fresh.create_dvectors(cache=False)
@@ -298,11 +301,17 @@ def test_unported_parts_name_a16(corpus):
         assert vec.shape == (256,) and abs(float(np.linalg.norm(vec)) - 1) < 0.5
         assert not np.array_equal(vec, tds._hash_dvector(spk))
     assert fresh.dvector_suffix == ".npy" and dict(fresh.get_speaker_dvectors()) == {}
-    with pytest.raises(NotImplementedError, match="A16"):
-        tds.TTSDataset(corpus, tds.DataConfig(variances=("pitch", "srmr"),
-                                              variance_levels=("frame", "frame"),
-                                              variance_transforms=("none", "none")),
-                       device="cpu")
+    ds = tds.TTSDataset(corpus, tds.DataConfig(variances=("pitch", "srmr"),
+                                               variance_levels=("frame", "frame"),
+                                               variance_transforms=("none", "none"),
+                                               augment_duration=0.0, load_wav=True),
+                        device="cpu")
+    st = ds.stats["srmr"]
+    assert st["std"] > 0 and st["min"] < st["mean"] < st["max"]
+    item = ds[0]
+    want = frame_srmr(item["wav"], len(item["mel"]), device="cpu")
+    np.testing.assert_allclose(item["variances_srmr"],
+                               ((want - st["mean"]) / st["std"]).astype(np.float32), rtol=1e-6)
 
 
 def test_default_device_raises_without_cuda(corpus):

@@ -71,6 +71,9 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.cli import train\n"
         "from lightningfastspeech2_tpu_torch.utils import plotting\n"
         "from lightningfastspeech2_tpu_torch import native\n"
+        "from lightningfastspeech2_tpu_torch.ops import splines\n"
+        "from lightningfastspeech2_tpu_torch.models import draws, fastdiff_variances, sdp\n"
+        "from lightningfastspeech2_tpu_torch.audio import srmr\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -95,3 +98,15 @@ def test_default_device_raises_without_cuda():
         Synthesiser()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FastDiffVocoder()
+    from lightningfastspeech2_tpu_torch.audio.srmr import srmr_per_window
+    from lightningfastspeech2_tpu_torch.core import config as C
+    from lightningfastspeech2_tpu_torch.models.joint import (
+        JointFastSpeech2FastDiff,
+        make_fastdiff_config,
+    )
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srmr_per_window([0.0] * 8000)
+    m = C.canonical_joint().model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        JointFastSpeech2FastDiff(m, make_fastdiff_config(m))

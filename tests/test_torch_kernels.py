@@ -1093,6 +1093,28 @@ def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast):
 
 
 @pytest.mark.gpu
+def test_lvc_stack_raises_when_grad_is_needed(cuda_card):
+    # the kernel is invisible to autograd: on the card it must not silently
+    # stop the gradient at an LVC stage; training takes FastDiff's route
+    args = _lvc_inputs(cuda_card, 1, 5, 256, torch.float32, seed=3)
+    args[2].requires_grad_(True)
+    n = tlvc.lvc_stack.launches
+    with pytest.raises(RuntimeError, match="train_route"):
+        tlvc.lvc_stack(*args, 256)
+    assert tlvc.lvc_stack.launches == n
+    with torch.no_grad():
+        assert tlvc.lvc_stack(*args, 256).shape == args[0].shape
+    # the training route on the card: no kernel launch, gradients flow
+    fd = tfd.FastDiff(tfd.FastDiffConfig()).to(cuda_card)
+    x = torch.randn(1, 5 * 256, device=cuda_card)
+    c = torch.randn(1, 5, 80, device=cuda_card)
+    n = tlvc.lvc_stack.launches
+    fd(x, c, torch.full((1,), 3.0, device=cuda_card), train_route=True).square().sum().backward()
+    assert tlvc.lvc_stack.launches == n
+    assert all(p.grad is not None for p in fd.parameters())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lvc_stack_kernel_matches_plain_at_the_served_batch(cuda_card, dtype):
     # stage 3 of the served batch at frame bucket 512: B = 8, hop 256

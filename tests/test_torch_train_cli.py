@@ -22,6 +22,15 @@ from lightningfastspeech2_tpu_torch.data import wav as wav_io
 from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
 from lightningfastspeech2_tpu_torch.utils.log_gmm import load_gmms
 from lightningfastspeech2_tpu_torch.vocoder import hifigan as thg
+from lightningfastspeech2_tpu_torch.data.dataset import DataConfig, TTSDataset
+from lightningfastspeech2_tpu_torch.models.fastdiff_variances import (
+    FastDiffSpeakerGenerator,
+    FastDiffVarianceAdaptor,
+)
+from lightningfastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+from lightningfastspeech2_tpu_torch.models.joint import JointFastSpeech2FastDiff, make_fastdiff_config
+from lightningfastspeech2_tpu_torch.models.sdp import StochasticDurationPredictor
+from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiff
 from tests.torch_port_helpers import tiny_hifigan, torch_threads
 
 TINY = ("--variances pitch energy --variance_levels phone frame --variance_transforms none none "
@@ -60,6 +69,11 @@ def test_parsers_have_the_same_flags_and_defaults():
     assert t == j
 
 
+@pytest.fixture(scope="module")
+def srmr_corpus(tmp_path_factory):
+    return make_corpus(tmp_path_factory.mktemp("srmr_corpus"), n_speakers=1, n_utts=2, seed=3)
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--on_device_features", "True"], "A14"),
     (["--fastdiff_vocoder", "True"], "A13"),
@@ -68,11 +82,47 @@ def test_parsers_have_the_same_flags_and_defaults():
     (["--duration_stochastic", "True"], "A11"),
     (["--variances", "pitch", "srmr"], "A16"),
 ])
-def test_unported_flags_raise_with_their_item(tmp_path, flag, item):
+def test_unported_flags_raise_with_their_item(tmp_path, srmr_corpus, flag, item):
+    """``--on_device_features`` (A14) still raises naming its item. The
+    others are ported (A11, A13, A16): each builds the JAX CLI's config and
+    the module it names."""
     argv = ["--train_target_path", str(tmp_path), "--device", "cpu",
             "--checkpoint_dir", str(tmp_path / "c"), "--log_dir", str(tmp_path / "l")] + flag
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+    if item == "A14":
+        with pytest.raises(NotImplementedError, match=item):
+            tcli.main(argv)
+        return
+    if flag[0] == "--variances":
+        flag = flag + ["--variance_transforms", "none", "none"]
+    argv = ["--train_target_path", "corpus"] + TINY + ["--variance_levels", "frame", "frame"] + flag
+    got = tcli.args_to_config(tcli.build_parser().parse_args(argv + ["--device", "cpu"]))
+    ref = jcli.args_to_config(jcli.build_parser().parse_args(argv))
+    assert json.dumps(TC.to_dict(got), sort_keys=True) == json.dumps(JC.to_dict(ref),
+                                                                      sort_keys=True)
+    tcli.check_ported(tcli.build_parser().parse_args(argv))
+    m = got.model
+    if item == "A16":
+        ds = TTSDataset(srmr_corpus, DataConfig(variances=m.variance.variances,
+                                                variance_levels=m.variance.levels,
+                                                variance_transforms=m.variance.transforms,
+                                                augment_duration=0.0),
+                        device="cpu", compute_stats=False)
+        srmr = ds[0]["variances_srmr"]
+        assert srmr.shape == ds[0]["mel"].shape[:1] and np.isfinite(srmr).all()
+        return
+    if flag[0] == "--fastdiff_vocoder":
+        module = JointFastSpeech2FastDiff(m, make_fastdiff_config(m), device="cpu").fastdiff
+        want = FastDiff
+    else:
+        model = FastSpeech2(m, device="cpu")
+        module, want = {
+            "--fastdiff_variances": (model.variance_adaptor, FastDiffVarianceAdaptor),
+            "--fastdiff_speakers": (getattr(model, "fastdiff_speaker_generator", None),
+                                    FastDiffSpeakerGenerator),
+            "--duration_stochastic": (model.variance_adaptor.duration_predictor,
+                                      StochasticDurationPredictor),
+        }[flag[0]]
+    assert isinstance(module, want)
 
 
 def test_default_device_raises_without_cuda(tmp_path):
@@ -158,3 +208,34 @@ def test_warm_start_restores_every_tensor(trained, capsys):
     n = len(first.state.model.state_dict())
     assert f"warm start: {n} tensors restored, 0 kept fresh" in capsys.readouterr().out
     assert res.state.step == 1
+
+
+JOINT = ["--fastdiff_vocoder", "true", "--fastdiff_variances", "true", "--fastdiff_speakers",
+         "true", "--fastdiff_inner_channels", "8", "--fastdiff_kpnet_hidden", "8",
+         "--fastdiff_lvc_layers", "2", "--variances", "energy", "srmr", "--variance_levels",
+         "frame", "frame"]
+
+
+@pytest.mark.parametrize("flags", [JOINT, ["--duration_stochastic", "true"]],
+                         ids=["joint", "stochastic_duration"])
+def test_joint_and_stochastic_runs_train_and_serve(srmr_corpus, tmp_path, flags):
+    """Two steps with the joint flags (the diffusion adaptor, the speaker
+    generator, FastDiff, an SRMR variance) or the stochastic duration
+    predictor, then the generate CLI serves the checkpoint (the joint one
+    through FastDiff)."""
+    ck = tmp_path / "ck"
+    argv = ["--train_target_path", str(srmr_corpus), "--checkpoint_dir", str(ck),
+            "--log_dir", str(tmp_path / "logs"), "--max_steps", "2", "--batch_size", "2",
+            "--log_every", "1", "--num_workers", "0", "--device", "cpu"] + TINY + flags
+    result = tcli.main(argv)
+    assert result.state.step == 2 and len(result.history) == 2
+    keys = {"fastdiff", "speakers", "srmr", "duration"} if flags is JOINT else {"duration"}
+    for h in result.history:
+        assert keys <= set(h) and all(np.isfinite(v) for v in h.values())
+    tree, cfg, _ = Checkpointer(ck).restore()
+    assert (set(tree["params"]) == {"acoustic", "fastdiff"}) == (flags is JOINT)
+    extra = ["--use_fastdiff", "true"] if flags is JOINT else ["--no_vocoder"]
+    wav = gcli.main(["--checkpoint_dir", str(ck), "--sentence", "hello world.",
+                     "--output_path", str(tmp_path / "gen"), "--lexicon_path", "none",
+                     "--g2p_model", "none", "--device", "cpu"] + extra)
+    assert wav.size > 0 and np.isfinite(wav).all()

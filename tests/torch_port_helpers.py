@@ -249,3 +249,40 @@ def jax_train_setup(tmp_path_factory):
         _TRAIN_SETUP["setup"] = SimpleNamespace(corpus=corpus, jcfg=jcfg, dataset=dataset,
                                                 model=model, params=params)
     return _TRAIN_SETUP["setup"]
+
+
+@contextlib.contextmanager
+def recorded_jax_draws():
+    """The JAX package's random draws, recorded in order: inside the block
+    each value ``jax.random.normal``, ``uniform`` and ``randint`` return is
+    appended (as numpy) to the yielded list, eagerly or, under jit and
+    grad, through an ordered ``jax.debug.callback`` (program order; the
+    list is complete once the block ends, after an effects barrier). The
+    port is fed the same values in the same order (``models/draws.py
+    HandedDraws``): flax's ``make_rng`` stream cannot be reproduced in
+    torch. Nothing in the JAX package changes; the module attributes are
+    restored on exit."""
+    import jax
+
+    draws = []
+    names = ("normal", "uniform", "randint")
+    originals = {n: getattr(jax.random, n) for n in names}
+
+    def record(value):
+        draws.append(np.asarray(value))
+
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            jax.debug.callback(record, out, ordered=True)
+            return out
+        return recorded
+
+    for n in names:
+        setattr(jax.random, n, wrap(originals[n]))
+    try:
+        yield draws
+        jax.effects_barrier()
+    finally:
+        for n in names:
+            setattr(jax.random, n, originals[n])

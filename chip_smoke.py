@@ -11,9 +11,9 @@ Phases, each printed as one JSON line:
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
    the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
    spill and no serialised wgmma for them; the four tensor-core
-   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate), the seven
-   split-TF32 ``resblock`` kernels (f32 at C = 32, 64, 128 with x in
-   shared memory or in L2, and C = 256 in clusters of 4) and the 24
+   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate), the eleven
+   split-TF32 ``resblock`` kernels (f32 at C = 8, 16, 32, 64, 128 with x
+   in shared memory or in L2, and C = 256 in clusters of 4) and the 24
    split-TF32 FFN kernels (``ffn_tf32_kernel`` and ``ffn_dup_tf32_kernel``
    at every C and both row counts) must hold HMMA and spill nothing; the
    eight soft-DTW kernels (``soft_dtw_wave_fwd`` and ``soft_dtw_wave_bwd`` at
@@ -246,6 +246,27 @@ Phases, each printed as one JSON line:
     one; the corpus's per-window SRMR on the card within ``SRMR_REL`` of
     the CPU's. The ``kernels`` line gains ``launches_phase_27``.
 
+28. HiFi-GAN training: ``cli.train_vocoder.main`` on the card under
+    ``_chip/``. A make_corpus corpus of 8 wavs of 2-4 s; HiFi-GAN V1 at
+    full width (the CLI's defaults: B = 16, segments of 8192, f32 with TF32
+    off) trains 8 steps, a checkpoint every 4, and resumes for 2: every
+    loss finite, no resblock kernel launched in training (the generator
+    trains on its plain route), the host ms of each step, one more step
+    profiled (device ms, its 10 largest kernels, peak memory). f32 means
+    f32: the CLI in a subprocess on the card, one step of a 2048-sample
+    segment at B = 2 from seeded weights, against the same with ``--device
+    cpu`` (losses within ``VOC_F32_REL``; the same step in this process
+    with TF32 on beside it). The generate CLI serves the V1 checkpoint with
+    phase 17's acoustic checkpoint in f32 and bf16 (``resblock`` at C =
+    256, ``resblock_trio`` at 128, 64, 32: ``by_width``). HiFi-GAN V2
+    (``--upsample_initial_channel 128``) trains 2 steps and serves in both
+    dtypes through ``resblock_trio`` at C = 64, 32, 16, 8; the trio and
+    each resblock alone at C = 16 and 8 are held against their plain
+    versions at the request's lengths, with time, bound and launches.
+    Then C3 on the card: the kernels raise where a gradient is needed,
+    and V1's training route gives every parameter a gradient. Rows 4-5 of
+    the ``kernels`` line gain ``launches_phase_28`` and ``c16_c8``.
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -436,8 +457,8 @@ def ffn_sass_phase(report) -> dict:
     cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
     serialised-wgmma warnings (C7512). Fails unless every bf16 FFN kernel
     has HGMMA and none spills or serialises, and every tensor-core
-    lvc_stack kernel, every split-TF32 resblock kernel (C = 32, 64, 128
-    with x in shared memory or in L2, C = 256 in clusters of 4) and every
+    lvc_stack kernel, every split-TF32 resblock kernel (C = 8, 16, 32, 64,
+    128 with x in shared memory or in L2, C = 256 in clusters of 4) and every
     split-TF32 FFN kernel has HMMA and spills nothing."""
 
     def key(m):
@@ -465,7 +486,7 @@ def ffn_sass_phase(report) -> dict:
            if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
     bad.update({k: r for k, r in {**lvc_rows, **rb_rows, **f32_rows}.items()
                 if r["hmma"] == 0 or r["spill_bytes"]})
-    if len(rows) != 9 or len(f32_rows) != 24 or len(lvc_rows) != 4 or len(rb_rows) != 7 or bad:
+    if len(rows) != 9 or len(f32_rows) != 24 or len(lvc_rows) != 4 or len(rb_rows) != 11 or bad:
         raise RuntimeError(f"tensor-core kernels: {len(rows)} bf16 ffn, {len(f32_rows)} f32 "
                            f"ffn, {len(lvc_rows)} lvc_stack and {len(rb_rows)} f32 resblock "
                            f"found, off {bad}")
@@ -673,16 +694,19 @@ def resblock_chain_bf16(x: torch.Tensor, blocks) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
-def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
+def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16, cfg=None, stages=None,
+                    singles=False) -> list:
     """Stage 0 (three resblock launches) and stages 1-3 (one trio launch
-    each) of HiFi-GAN V1 in ``dtype`` for a mel of ``t_mel`` frames, with
-    the tile plan of each launch; bf16 also times the same chain through
-    bf16 cuDNN convs."""
+    each) of HiFi-GAN V1 (or ``cfg``; only ``stages`` where given) in
+    ``dtype`` for a mel of ``t_mel`` frames, with the tile plan of each
+    launch; bf16 also times the same chain through bf16 cuDNN convs.
+    ``singles``: a trio stage's resblocks also one at a time."""
     from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as rb
     from lightningfastspeech2_tpu_torch.vocoder.hifigan import Generator, HifiGanConfig
 
-    cfg = HifiGanConfig()
-    gen = Generator(cfg, dtype)
+    cfg = cfg or HifiGanConfig()
+    # serving weights: the kernels refuse parameters that need a gradient
+    gen = Generator(cfg, dtype).requires_grad_(False)
     with torch.no_grad():  # unit-gain convs, so every stage carries signal
         for m in gen.resblocks.modules():
             if isinstance(m, torch.nn.Conv1d):
@@ -694,8 +718,14 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
     name = str(dtype)[6:]
     for stage, weights in enumerate(gen.stage_weights):
         L *= cfg.upsample_rates[stage]
+        if stages is not None and stage not in stages:
+            continue
         C = cfg.upsample_initial_channel // 2 ** (stage + 1)
         x = torch.randn(1, L, C, generator=g).to(dev, dtype)
+        if singles and weights[0].n_res > 1:
+            weights = weights + [rb.prepare_resblock_weights([blk], dtype) for blk in (
+                gen.resblocks[stage * weights[0].n_res + j].spec()
+                for j in range(weights[0].n_res))]
         for w in weights:
             trio = w.n_res > 1
             kern, plain = ((rb.resblock_trio, rb.resblock_trio_plain) if trio
@@ -716,7 +746,7 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16) -> list:
                             "smem_bytes": plan.smem_bytes}:
                 raise RuntimeError(f"{kern.__name__} at L={L}: launched {launched}, "
                                    f"planned {plan}")
-            row = {"name": kern.__name__, "stage": stage,
+            row = {"name": kern.__name__, "stage": stage, "channels": C,
                    "at": f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}",
                    "route": plan.route, "max_abs_err": err, "tol": tol,
                    "ms": cuda_ms(lambda: kern(x, w)), "plain_ms": cuda_ms(lambda: plain(x, w)),
@@ -1373,10 +1403,12 @@ STEP_FAMILIES = {"ffn_ln_train": (r"ffn_ln_kernel<\d+, false>", r"ffn_tf32_kerne
                  "resblock": ("wg_resblock_kernel", "mma_resblock_kernel", "f32_resblock_kernel")}
 
 
-def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES) -> dict:
+def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES,
+                top: int = 0) -> dict:
     """Device time of one traced step by kernel family (torch.profiler
     key_averages, kernel names matched as whole words); zeros when the
-    profiler saw no device time."""
+    profiler saw no device time. ``top``: also the ``top`` kernels with
+    the most device time (ms, launches, name)."""
     out = {k: 0.0 for k in fam}
     counts = {k: 0 for k in fam}
     total = 0.0
@@ -1408,7 +1440,8 @@ def _step_split(prof, out_name: str = "train_profile.txt", fam=STEP_FAMILIES) ->
         "\n".join(f"{t / 1e3:10.3f} ms  x{c:<5d} {k}" for k, t, c in rows))
     return {"device_ms": total / 1e3, "device_launches": sum(c for _, _, c in rows),
             **{f"{k}_ms": v / 1e3 for k, v in out.items()},
-            **{f"{k}_launches": v for k, v in counts.items()}}
+            **{f"{k}_launches": v for k, v in counts.items()},
+            **({"top_kernels": [[t / 1e3, c, k[:120]] for k, t, c in rows[:top]]} if top else {})}
 
 
 def reset_counts(counters) -> None:
@@ -3652,6 +3685,283 @@ def canonical_joint_phase(counters, smi: str) -> dict:
     return {"row": row, "launches": launches}
 
 
+# ------------------------------------------------------- HiFi-GAN training
+VOC_FILES = (2, 4)                     # make_corpus: 2 x 4 utterances of 12-20 phones, 2-4 s
+VOC_STEPS, VOC_CKPT_EVERY, VOC_RESUME = 8, 4, 2
+V2_STEPS = 2
+VOC_LOSSES = ("d_loss", "g_loss", "adv", "fm", "mel")
+# the f32 check: one step of a short segment from seeded weights, card
+# subprocess against the CPU's. Its losses are means over many values, so
+# TF32 moves them little: 8.3e-6 relative in this process with TF32 on,
+# against 3.7e-7 for the f32 subprocess (PERF.md §6, an H100); the gate lies
+# between
+VOC_C4_FLAGS = ["--batch_size", "2", "--segment_size", "2048", "--max_steps", "1",
+                "--log_every", "1", "--seed", "7"]
+VOC_F32_REL = 2e-6
+V2_FLAGS = ["--upsample_initial_channel", "128"]   # config_v2.json: stages of 64, 32, 16, 8
+
+
+def _voc_subprocess(argv: list, log_dir: Path) -> dict:
+    """``python -m ...cli.train_vocoder argv`` in a process of its own (the
+    TF32 flags as a user's process starts with them); its first logged
+    metrics and seconds."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lightningfastspeech2_tpu_torch.cli.train_vocoder",
+                           *argv], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"train_vocoder {argv}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    return {"s": time.perf_counter() - t, "metrics": _metrics_lines(log_dir)[0]}
+
+
+def _vocoder_frames(gen_cli, argv: list) -> int:
+    """The mel frames the generate CLI's vocoder sees for ``argv``'s
+    request (its frame bucket)."""
+    args = gen_cli.build_parser().parse_args(argv)
+    gen, cfg, _ = gen_cli.load_generator(args)
+    synth, frames = gen.synthesiser, []
+
+    def recording(mel):
+        frames.append(np.shape(mel)[-2])
+        return synth(mel)
+
+    gen.synthesiser = recording
+    gen_cli.synthesize_sentence(gen, cfg, args)
+    return frames[-1]
+
+
+def _c3_on_card(dev) -> dict:
+    """The resblock kernels raise where a gradient is needed, and HiFi-GAN
+    V1's training route gives every parameter a gradient on the card and
+    equals the serving route."""
+    from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as rb
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import (
+        Generator, HifiGanConfig, init_generator_weights)
+
+    gen = Generator(HifiGanConfig())
+    init_generator_weights(gen, torch.Generator().manual_seed(0))
+    with torch.no_grad():   # every stage carries signal, tanh short of saturation
+        for p in gen.parameters():
+            p.mul_(4.0)
+    gen.to(dev)
+    raised = []
+    for w, kern in ((gen.stage_weights[0][0], rb.resblock), (gen.stage_weights[1][0], rb.resblock_trio)):
+        x = torch.randn(1, 64, w.channels, device=dev, requires_grad=True)
+        try:
+            kern(x, w)
+        except RuntimeError as e:
+            raised.append("no backward" in str(e))
+    mel = torch.randn(1, 16, 80, generator=torch.Generator().manual_seed(3)).to(dev)
+    out = gen(mel, train_route=True)
+    out.square().mean().backward()
+    no_grad = [n for n, p in gen.named_parameters() if p.grad is None or not p.grad.abs().sum() > 0]
+    with torch.no_grad():
+        served = gen(mel)
+    err = (served - out.detach()).abs().max().item()
+    tol = 1e-4 * out.detach().abs().max().item()
+    row = {"kernels_raise_under_grad": raised, "parameters": len(list(gen.parameters())),
+           "without_gradient": no_grad, "train_vs_serving_max_abs_err": err, "tol": tol}
+    if raised != [True, True] or no_grad or not err <= tol:
+        raise RuntimeError(f"C3 on the card: {row}")
+    return row
+
+
+def hifigan_training_phase(counters, smi: str) -> dict:
+    """Phase 28: HiFi-GAN training through the port's train_vocoder CLI on
+    the card. A make_corpus corpus of 8 wavs of 2-4 s under ``_chip/``;
+    HiFi-GAN V1 at full width (the CLI's defaults: B = 16, segments of
+    8192, f32) trains ``VOC_STEPS`` steps with a checkpoint every
+    ``VOC_CKPT_EVERY``, then resumes for ``VOC_RESUME`` more: every loss
+    finite, no resblock kernel launched (the training route), the host ms
+    of each step, one more step profiled (device ms, its largest kernels)
+    and peak memory. The f32 check: one step of the CLI in a subprocess on
+    the card against the same step with ``--device cpu``. The generate CLI
+    serves the V1 checkpoint with phase 17's acoustic checkpoint in f32 and
+    bf16 (the resblock kernels at C = 256 .. 32). HiFi-GAN V2 trains
+    ``V2_STEPS`` steps and serves in bf16 and f32 (``resblock_trio`` at C
+    = 64, 32, 16, 8); the new widths (C = 16, 8) are held against their
+    plain versions at the request's lengths, beside the single resblock at
+    them. Then C3: the kernels raise under grad, the training route
+    reaches every parameter."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.audio.mel import mel_spectrogram
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train_vocoder as cli
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.core.config import AudioConfig
+    from lightningfastspeech2_tpu_torch.data import wav as wav_io
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
+    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan_train import (
+        HifiGanTrainConfig, HifiGanTrainer)
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = ROOT / "_chip" / "hifigan_training"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = make_corpus(work / "corpus", n_speakers=VOC_FILES[0], n_utts=VOC_FILES[1], seed=2,
+                         min_phones=12, max_phones=20)
+    lengths = [wav_io.read(p)[0].size / SAMPLING_RATE for p in sorted(corpus.rglob("*.wav"))]
+
+    # V1 at the CLI's defaults: train, checkpoint, resume
+    ck, logs = work / "v1", work / "v1_logs"
+    base = ["--train_target_path", str(corpus), "--checkpoint_dir", str(ck), "--log_dir", str(logs),
+            "--log_every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    run = _train_cli(cli, base + ["--max_steps", str(VOC_STEPS),
+                                  "--checkpoint_every", str(VOC_CKPT_EVERY)], counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    resumed = _train_cli(cli, base + ["--from_checkpoint", str(ck), "--max_steps",
+                                      str(VOC_STEPS + VOC_RESUME), "--checkpoint_every", "1000"],
+                         counters)
+    lines = _metrics_lines(logs)
+    losses = [{k: l[f"train/{k}"] for k in VOC_LOSSES} for l in lines]
+    bad = [(l["step"], k) for l in lines for k in VOC_LOSSES if not math.isfinite(l[f"train/{k}"])]
+    tree, _, sidecar = Checkpointer(ck).restore()
+    launched = {k: v for r in (run, resumed) for k, v in r["launches"].items() if v}
+    if ([l["step"] for l in lines] != list(range(VOC_STEPS + VOC_RESUME)) or bad
+            or tree["step"] != VOC_STEPS + VOC_RESUME or launched.get("resblock")
+            or launched.get("resblock_trio")):
+        raise RuntimeError(f"V1 training: steps {[l['step'] for l in lines]}, not finite {bad}, "
+                           f"saved step {tree['step']}, launches {launched}")
+    step_ms = [1e3 / l["train/steps_per_s"] for l in lines if l["train/steps_per_s"] > 0]
+
+    # one more step of the trained V1, profiled, at the CLI's batch
+    trainer = HifiGanTrainer(HifiGanConfig(), HifiGanTrainConfig(), AudioConfig(), device=dev)
+    trainer.load(tree["params"], tree["opt_state"])
+    wav = torch.from_numpy(cli.SegmentSampler(corpus, SAMPLING_RATE, 8192, seed=0).batch(16)).to(dev)
+    mel = mel_spectrogram(wav, AudioConfig())[:, :32]
+    trainer.train_step(mel, wav)
+    torch.cuda.synchronize()
+    # the device's wall time of one step (CUDA events on the step's stream)
+    # beside the profiler's sum of kernel times
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    trainer.train_step(mel, wav)
+    b.record()
+    torch.cuda.synchronize()
+    event_ms = a.elapsed_time(b)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step(mel, wav)
+        torch.cuda.synchronize()
+        profiled_host_ms = (time.perf_counter() - t) * 1e3
+    step_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = _step_split(prof, "hifigan_training_profile.txt", fam={}, top=10)
+    del trainer
+    row = {"phase": "hifigan_training", "corpus": f"make_corpus {VOC_FILES[0]} x {VOC_FILES[1]}, "
+                                                  "12-20 phones, seed 2",
+           "wav_seconds": lengths, "config": "HiFi-GAN V1 (config.json), f32, TF32 off",
+           "batch": 16, "segment": 8192, "steps": VOC_STEPS, "resumed_steps": VOC_RESUME,
+           "cli_s": run["s"], "resume_s": resumed["s"], "losses": losses,
+           "host_ms_a_step": step_ms, "host_ms_a_step_median": statistics.median(step_ms),
+           "peak_gb_cli_run": peak_gb, "peak_gb_profiled_step": step_peak_gb,
+           "event_ms_a_step": event_ms,
+           "profiled_step": {"host_ms": profiled_host_ms, "device_ms": split["device_ms"],
+                             "device_launches": split["device_launches"],
+                             "largest_kernels": split["top_kernels"]},
+           "checkpoints": sorted(p.name for p in ck.glob("step_*")),
+           "launches_in_training": launched, "nvidia_smi": smi}
+    emit(row)
+
+    # f32 means f32: the CLI in a process of its own on the card, and with
+    # --device cpu, one step from the same seeded weights and segments
+    c4 = {}
+    for device in ("cuda", "cpu"):
+        d = work / f"c4_{device}"
+        c4[device] = _voc_subprocess(
+            ["--train_target_path", str(corpus), "--checkpoint_dir", str(d / "ck"),
+             "--log_dir", str(d / "logs"), "--device", device, *VOC_C4_FLAGS], d / "logs")
+    rel = {k: abs(c4["cuda"]["metrics"][f"train/{k}"] - c4["cpu"]["metrics"][f"train/{k}"])
+           / abs(c4["cpu"]["metrics"][f"train/{k}"]) for k in VOC_LOSSES}
+    # the same step in this process with TF32 on, beside it: what the check
+    # would see if the CLI left TF32 on
+    trainer = HifiGanTrainer(HifiGanConfig(), HifiGanTrainConfig(), AudioConfig(),
+                             device=dev, seed=7)
+    wav = torch.from_numpy(cli.SegmentSampler(corpus, SAMPLING_RATE, 2048, seed=7).batch(2)).to(dev)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = {k: float(v) for k, v in trainer.train_step(
+            mel_spectrogram(wav, AudioConfig())[:, :8], wav).items()}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    del trainer
+    rel_tf32 = {k: abs(tf32[k] - c4["cpu"]["metrics"][f"train/{k}"])
+                / abs(c4["cpu"]["metrics"][f"train/{k}"]) for k in VOC_LOSSES}
+    c4_row = {"phase": "hifigan_f32_cli_vs_cpu", "flags": VOC_C4_FLAGS,
+              "losses": {d: {k: c4[d]["metrics"][f"train/{k}"] for k in VOC_LOSSES} for d in c4},
+              "max_rel_err": max(rel.values()), "rel_err": rel, "tol": VOC_F32_REL,
+              "in_process_tf32_on_max_rel_err": max(rel_tf32.values()),
+              "tol_sees_tf32": max(rel_tf32.values()) > VOC_F32_REL,
+              "s": {d: c4[d]["s"] for d in c4}, "nvidia_smi": smi}
+    emit(c4_row)
+    if not max(rel.values()) <= VOC_F32_REL:
+        raise RuntimeError(f"train_vocoder f32 on the card against the CPU: {rel} > {VOC_F32_REL}")
+    if not max(rel_tf32.values()) > VOC_F32_REL:
+        # the control: a gate that TF32 passes cannot tell f32 from TF32
+        raise RuntimeError(f"the same step with TF32 on is within the f32 gate: {rel_tf32} "
+                           f"<= {VOC_F32_REL}")
+
+    # serving: V1 through the generate CLI with phase 17's acoustic checkpoint
+    acoustic = Path(write_cli_checkpoints(work / "acoustic")["acoustic"])
+    served, by_width = {}, {}
+    expect = {"v1": ({256: 3}, {128: 1, 64: 1, 32: 1}), "v2": ({}, {64: 1, 32: 1, 16: 1, 8: 1})}
+    v2 = work / "v2"
+    for name, voc in (("v1", ck), ("v2", v2)):
+        if name == "v2":
+            v2_run = _train_cli(cli, ["--train_target_path", str(corpus), "--checkpoint_dir",
+                                      str(v2), "--log_dir", str(work / "v2_logs"), "--log_every",
+                                      "1", "--max_steps", str(V2_STEPS), *V2_FLAGS], counters)
+            v2_lines = _metrics_lines(work / "v2_logs")
+            if (len(v2_lines) != V2_STEPS or v2_run["launches"]["resblock_trio"]
+                    or not all(math.isfinite(l[f"train/{k}"]) for l in v2_lines for k in VOC_LOSSES)):
+                raise RuntimeError(f"V2 training: {v2_lines}, launches {v2_run['launches']}")
+        for prec in ("32", "16"):
+            key = f"{name}_{'f32' if prec == '32' else 'bf16'}"
+            served[key] = _serve(gen_cli, acoustic, work / f"out_{key}",
+                                 ["--hifigan_checkpoint", str(voc), "--vocoder_precision", prec],
+                                 counters)
+            by_width[key] = {"resblock": dict(resblock.by_width),
+                             "resblock_trio": dict(resblock_trio.by_width)}
+            if (by_width[key]["resblock"], by_width[key]["resblock_trio"]) != expect[name]:
+                raise RuntimeError(f"{key} serving launched {by_width[key]}, want {expect[name]}")
+    frames = _vocoder_frames(gen_cli, ["--checkpoint_dir", str(acoustic), "--sentence",
+                                       "Hello world.", "--output_path", str(work / "frames"),
+                                       "--seed", "0", "--hifigan_checkpoint", str(v2)])
+    # the new widths at the V2 request's lengths, against their plain
+    # versions: the trio (served) and each resblock alone (not served: V2
+    # runs every stage through the trio)
+    g = torch.Generator().manual_seed(28)
+    v2_cfg = HifiGanConfig(upsample_initial_channel=128)
+    narrow = {}
+    for dtype, key in ((torch.bfloat16, "v2_bf16"), (torch.float32, "v2_f32")):
+        rows = _resblock_cases(dev, frames, g, dtype, cfg=v2_cfg, stages=(2, 3), singles=True)
+        for r in rows:
+            r["launches_v2_request"] = by_width[key][r["name"]].get(r["channels"], 0)
+        narrow[str(dtype)[6:]] = rows
+    c3 = _c3_on_card(dev)
+    launches = {n: sum(r["launches"].get(n, 0) for r in served.values())
+                for n in ("resblock", "resblock_trio")}
+    tail = {"phase": "hifigan_training_serving", "served": served, "by_width": by_width,
+            "v2_training": {"s": v2_run["s"], "losses": [{k: l[f"train/{k}"] for k in VOC_LOSSES}
+                                                         for l in v2_lines]},
+            "v2_request_frames": frames, "c3": c3,
+            "new_widths": {d: [{k: r[k] for k in ("name", "at", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err", "tol", "tile",
+                                                  "blocks_per_launch", "launches_v2_request")}
+                               for r in rows] for d, rows in narrow.items()},
+            "launches_phase_28": launches, "phase_s": time.perf_counter() - t_phase,
+            "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 28 (HiFi-GAN training): {tail['phase_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"row": row, "c4": c4_row, "narrow": narrow, "launches": launches}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -3734,6 +4044,7 @@ def main() -> int:
     dataset_phase(counters, info["nvidia_smi"])
     train_cli = train_cli_phase(counters, info["nvidia_smi"])
     joint = canonical_joint_phase(counters, info["nvidia_smi"])
+    voc = hifigan_training_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -3888,6 +4199,16 @@ def main() -> int:
     for k in kernels:
         if k["name"] in joint["launches"] and "launches_phase_27" not in k:
             k["launches_phase_27"] = joint["launches"][k["name"]]
+    # phase 28's counted serving runs (V1 and V2, f32 and bf16), and the
+    # widths V2 added (C = 16, 8) at its request's lengths: the trio as
+    # served, each resblock alone beside it
+    narrow_keys = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "tile",
+                   "blocks_per_launch", "launches_v2_request")
+    for k in kernels:
+        if k["name"] in voc["launches"]:
+            k["launches_phase_28"] = voc["launches"][k["name"]]
+            k["c16_c8"] = {d: [{f: r[f] for f in narrow_keys} for r in rows if r["name"] == k["name"]]
+                           for d, rows in voc["narrow"].items()}
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -319,9 +319,12 @@ def main(argv=None):
     """Sentence mode writes ``<output_path>/sentence.wav`` and returns the
     float waveform it wrote (before the int16 write); ``--dataset`` mode
     returns ``resynthesize_dataset``'s waveforms."""
+    from lightningfastspeech2_tpu_torch.core.device import f32_convolutions
+
     args = build_parser().parse_args(argv)
     if not (args.sentence or args.dataset):
         raise SystemExit("provide --sentence or --dataset")
+    f32_convolutions(32)   # the acoustic model serves in f32
     gen, cfg, sidecar = load_generator(args)
     chain = postprocess_chain(args)
     if chain is not None:

@@ -331,7 +331,7 @@ def main(argv=None):
     import torch
 
     from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer, warm_start
-    from lightningfastspeech2_tpu_torch.core.device import resolve_device
+    from lightningfastspeech2_tpu_torch.core.device import f32_convolutions, resolve_device
     from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
     from lightningfastspeech2_tpu_torch.models.joint import flatten_joint, nest_joint
     from lightningfastspeech2_tpu_torch.train.loop import (
@@ -339,6 +339,7 @@ def main(argv=None):
     from lightningfastspeech2_tpu_torch.train.metrics_logger import MetricsLogger
     from lightningfastspeech2_tpu_torch.train.step import TrainState, create_train_state
 
+    f32_convolutions(args.precision)
     device = resolve_device(args.device)
     dcfg = data_config(args, cfg)
     print(f"scanning corpus {args.train_target_path} ...", flush=True)

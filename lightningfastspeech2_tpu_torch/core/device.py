@@ -1,4 +1,4 @@
-"""Device resolution and the kernel gate.
+"""Device resolution, the kernel gate and f32 precision.
 
 Counterpart of ``lightningfastspeech2_tpu/ops/kernel_gate.py``. There the
 gate probed the backend and fell back to XLA paths; here there is no
@@ -6,6 +6,11 @@ fallback and no environment opt-out. A tensor on the CPU takes a kernel's
 plain PyTorch version; a CUDA tensor launches the kernel, which needs a
 Hopper card (compute capability 9.0, the ``sm_90a`` build target), or the
 call raises.
+
+``f32_convolutions`` makes an f32 run f32 on the card: PyTorch runs f32
+convolutions through cuDNN in TF32 by default (about three decimal
+digits), which is not the JAX package's f32 computation. The CLIs call it
+before they build a model.
 """
 
 from __future__ import annotations
@@ -51,3 +56,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"the probe kernel computed a wrong result on {dev}")
         _probed.add(dev)
     return dev
+
+
+def f32_convolutions(precision) -> None:
+    """For an f32 run (``precision`` 32 or "32", as the CLIs spell it) turn
+    TF32 off for cuDNN's convolutions and cuBLAS's products, so that f32
+    means f32 on the card; a bf16 run leaves both flags as they are."""
+    if str(precision) == "32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -51,9 +51,12 @@
 //   wgmma route (wg_*, C = 128 and 256): two warpgroups of 64 rows by all
 //     C channels, A from registers, B from a 3-stage ring of swizzled
 //     chunks, one bulk copy and one mbarrier each.
-//   mma.sync route (mma_*, C = 32 and 64): eight warps of 32 rows by all C
+//   mma.sync route (mma_*, C = 8 to 64): eight warps of 32 rows by all C
 //     channels, B through ldmatrix.trans from a 2-stage cp.async ring of
 //     row-padded chunks, the operands of a k-step loaded during the last.
+//     At C = 8 a conv's K is k * 8, an odd number of 8-row halves of
+//     mma.sync's k16: the last k-step's upper half is zeroed in A (its B
+//     rows are zeros or an earlier chunk's taps, never uninitialised).
 //
 //   f32 route (f32_*, every C): split-TF32 mma.sync m16n8k8 (csrc/mma.cuh),
 //     each f32 product as a_hi b_lo + a_lo b_hi + a_hi b_hi, which keeps
@@ -82,8 +85,15 @@
 //     x and t in the tile's scratch slice, and a cluster barrier between
 //     convs: tiles four times as long for the same blocks.
 //
-// Shapes the kernel takes: C in {32, 64, 128, 256}, up to three resblocks
-// of up to three dilation pairs each, any L >= 1.
+// HiFi-GAN V2's narrow stages (C = 16 and 8) take the mma.sync and f32
+// routes. There a row is 16 to 64 bytes and a conv's taps a few KB: the
+// work is bound by bytes (the tile plan weighs the bytes a block moves),
+// and one chunk holds all of a conv's taps. The TPU kernels folded such
+// stages into 128 lanes (tap_blocks), multiplying the MACs by the fold;
+// these take them unfolded.
+//
+// Shapes the kernel takes: C in {8, 16, 32, 64, 128, 256}, up to three
+// resblocks of up to three dilation pairs each, any L >= 1.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -167,15 +177,26 @@ __device__ __forceinline__ uint32_t leaky2(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// The A fragment of 16 rows by 16 input channels (mma.m16n8k16's layout,
-// which wgmma takes from registers too): this lane's row is a_row, clamped
-// to the buffer (a clamped row only feeds an output row past the conv's
-// end, which the epilogue drops); the k-step's tap j shifts it by j*d - pad.
+// The A fragment of 16 rows by 16 K-rows (mma.m16n8k16's layout, which
+// wgmma takes from registers too): this lane's row is a_row, clamped to the
+// buffer (a clamped row only feeds an output row past the conv's end, which
+// the epilogue drops); lanes 16-31 give the upper 8 K-rows, kg + 8. K-row
+// kk is tap j = kk / C, channel kk % C, and tap j shifts the row by j*d -
+// pad (at C = 8 the two halves are two taps).
 template <int C, int LD>
 __device__ __forceinline__ void load_a(uint32_t a[4], unsigned src, int src_rows, int a_row,
                                        int kg, int d, int pad, int lane) {
-  const int r = min(a_row + (kg / C) * d - pad, src_rows - 1);
-  ldmatrix_x4(a, src + 2u * (r * LD + kg % C + (lane >> 4) * 8));
+  const int kk = kg + (lane >> 4) * 8;
+  const int r = min(a_row + (kk / C) * d - pad, src_rows - 1);
+  ldmatrix_x4(a, src + 2u * (r * LD + kk % C));
+}
+
+// Two 8 x 8 b16 matrices, transposed: lanes 0-15 give the row addresses
+// (one n8 tile of B at C = 8)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void leaky_a(uint32_t a[4]) {
@@ -270,13 +291,16 @@ __device__ __forceinline__ void combine(const bf16* xs, bf16* __restrict__ ob, i
 // ---- C <= 64: mma.sync ------------------------------------------------------
 // A warp owns 32 rows by all C channels (NT n8 tiles); the 8 warps span a
 // 256-row pass. Taps stream through a 2-stage ring of row-padded chunks
-// read with ldmatrix.trans.
+// read with ldmatrix.trans. Below C = 32 a chunk holds 256 K-rows, a whole
+// conv's taps up to k = 16 (C = 16) or 32 (C = 8), and C = 8 pads its rows
+// to 48 bytes: eight rows 32 bytes apart would meet in two bank groups.
 template <int C> struct MmaGeo {
   static constexpr int MT = 2;                // m16 tiles per warp
   static constexpr int NT = C / 8;            // n8 tiles per warp
+  static constexpr int NB = (NT + 1) / 2;     // B loads per k-step (two n8 tiles each)
   static constexpr int PASS = 16 * MT * 8;    // rows per pass
-  static constexpr int KC = kChunkElems / C;  // K rows per chunk
-  static constexpr int LD = C + 8;            // padded row stride (elements)
+  static constexpr int KC = kChunkElems / C < 256 ? kChunkElems / C : 256;  // K rows per chunk
+  static constexpr int LD = C == 8 ? 24 : C + 8;  // padded row stride (elements)
   static constexpr int STAGES = 2;
 };
 
@@ -296,21 +320,30 @@ __device__ __forceinline__ void issue_chunk_padded(const bf16* __restrict__ taps
 // The operands of one k-step of 16: the warp's A rows and its B columns
 template <int C> struct Frags {
   uint32_t a[MmaGeo<C>::MT][4];
-  uint32_t b[MmaGeo<C>::NT / 2][4];
+  uint32_t b[MmaGeo<C>::NB][4];
 };
 
+// the operands of k-step s of a chunk of krem K-rows; a k-step with only
+// 8 of them left (C = 8) zeroes A's upper half
 template <int C>
 __device__ __forceinline__ void load_frags(Frags<C>& f, unsigned src, int src_rows, int a_row,
-                                           unsigned b_addr, int kg0, int s, int d, int pad,
-                                           int n_mt, int lane) {
+                                           unsigned b_addr, int kg0, int s, int krem, int d,
+                                           int pad, int n_mt, int lane) {
   using G = MmaGeo<C>;
+  const bool half = C % 16 != 0 && 16 * s + 8 == krem;
 #pragma unroll
   for (int mt = 0; mt < G::MT; ++mt)
-    if (mt < n_mt)
+    if (mt < n_mt) {
       load_a<C, G::LD>(f.a[mt], src, src_rows, a_row + 16 * mt, kg0 + 16 * s, d, pad, lane);
+      if (half) f.a[mt][2] = f.a[mt][3] = 0u;
+    }
 #pragma unroll
-  for (int np = 0; np < G::NT / 2; ++np)
-    ldmatrix_x4_trans(f.b[np], b_addr + 2u * (16 * s * G::LD + np * 16));
+  for (int np = 0; np < G::NB; ++np) {
+    if constexpr (G::NT == 1)
+      ldmatrix_x2_trans(f.b[np], b_addr + 2u * (16 * s * G::LD));
+    else
+      ldmatrix_x4_trans(f.b[np], b_addr + 2u * (16 * s * G::LD + np * 16));
+  }
 }
 
 // the step's products, with the leaky on conv 1's input applied to A here,
@@ -324,32 +357,34 @@ __device__ __forceinline__ void frag_products(float (&acc)[MmaGeo<C>::MT][MmaGeo
     if (mt >= n_mt) continue;
     if (FIRST) leaky_a(f.a[mt]);
 #pragma unroll
-    for (int np = 0; np < G::NT / 2; ++np) {
+    for (int np = 0; np < G::NB; ++np) {
       mma_bf16(acc[mt][2 * np], f.a[mt], f.b[np]);
-      mma_bf16(acc[mt][2 * np + 1], f.a[mt], f.b[np] + 2);
+      if (2 * np + 1 < G::NT) mma_bf16(acc[mt][2 * np + 1], f.a[mt], f.b[np] + 2);
     }
   }
 }
 
-// acc += the products of one K-chunk (ksteps of 16) for the warp's rows,
-// the operands of step s + 1 loaded while step s's products issue
+// acc += the products of one K-chunk of krem K-rows (k-steps of 16, the
+// last one half at C = 8) for the warp's rows, the operands of step s + 1
+// loaded while step s's products issue
 template <int C, bool FIRST>
 __device__ __forceinline__ void mma_chunk(float (&acc)[MmaGeo<C>::MT][MmaGeo<C>::NT][4],
                                           unsigned src, int src_rows, int a_row, unsigned stage,
-                                          int kg0, int ksteps, int d, int pad, int n_mt,
+                                          int kg0, int krem, int d, int pad, int n_mt,
                                           int lane) {
   using G = MmaGeo<C>;
   const unsigned b_addr =
       stage + 2u * (((lane & 7) + ((lane >> 3) & 1) * 8) * G::LD + (lane >> 4) * 8);
+  const int ksteps = (krem + 15) / 16;
   Frags<C> f0, f1;
-  load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, 0, d, pad, n_mt, lane);
+  load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, 0, krem, d, pad, n_mt, lane);
   for (int s = 0; s < ksteps; s += 2) {
     if (s + 1 < ksteps)
-      load_frags<C>(f1, src, src_rows, a_row, b_addr, kg0, s + 1, d, pad, n_mt, lane);
+      load_frags<C>(f1, src, src_rows, a_row, b_addr, kg0, s + 1, krem, d, pad, n_mt, lane);
     frag_products<C, FIRST>(acc, f0, n_mt);
     if (s + 1 < ksteps) {
       if (s + 2 < ksteps)
-        load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, s + 2, d, pad, n_mt, lane);
+        load_frags<C>(f0, src, src_rows, a_row, b_addr, kg0, s + 2, krem, d, pad, n_mt, lane);
       frag_products<C, FIRST>(acc, f1, n_mt);
     }
   }
@@ -372,6 +407,13 @@ mma_resblock_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
   const bf16* xb = x + static_cast<long long>(blockIdx.y) * L * C;
   bf16* ob = out + static_cast<long long>(blockIdx.y) * L * C;
   constexpr int kStageBytes = G::KC * G::LD * 2;
+  if constexpr (C % 16 != 0) {
+    // a half k-step reads 8 B rows past its chunk: zeros, or taps of an
+    // earlier chunk, multiplied by A's zeroed half
+    for (int i = threadIdx.x; i < G::STAGES * kStageBytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
 
   // the next chunk is issued before this one's products, into the other stage
   Cursor cur = {0, 0, 0};
@@ -414,14 +456,14 @@ mma_resblock_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
           }
           cp_async_commit();
           if (n_mt == 0) continue;
-          const int ksteps = min(G::KC, K - i * G::KC) / 16;
+          const int krem = min(G::KC, K - i * G::KC);
           const unsigned stage = ring + (q % G::STAGES) * kStageBytes;
           const int a_row = row0 + (lane & 15) - src_base;
           if (cs.first)
-            mma_chunk<C, true>(acc, src, src_rows, a_row, stage, i * G::KC, ksteps, cs.d, pad,
+            mma_chunk<C, true>(acc, src, src_rows, a_row, stage, i * G::KC, krem, cs.d, pad,
                                n_mt, lane);
           else
-            mma_chunk<C, false>(acc, src, src_rows, a_row, stage, i * G::KC, ksteps, cs.d, pad,
+            mma_chunk<C, false>(acc, src, src_rows, a_row, stage, i * G::KC, krem, cs.d, pad,
                                 n_mt, lane);
         }
 #pragma unroll
@@ -661,6 +703,8 @@ wg_resblock_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
 int bf16_smem_bytes(int C, const Sched& sc) {
   const int rows = sc.x_rows + sc.t_rows;
   switch (C) {
+    case 8: return (MmaGeo<8>::STAGES * MmaGeo<8>::KC + rows) * MmaGeo<8>::LD * 2;
+    case 16: return (MmaGeo<16>::STAGES * MmaGeo<16>::KC + rows) * MmaGeo<16>::LD * 2;
     case 32: return (MmaGeo<32>::STAGES * MmaGeo<32>::KC + rows) * MmaGeo<32>::LD * 2;
     case 64: return (MmaGeo<64>::STAGES * MmaGeo<64>::KC + rows) * MmaGeo<64>::LD * 2;
     case 128: return 1024 + WgGeo<128>::STAGES * WgGeo<128>::STAGE + WgGeo<128>::BARS +
@@ -688,6 +732,8 @@ cudaError_t bf16_dispatch(int C, const void* x, void* out, const void* w, const 
                           int B, int L, int tile, int halo, const Sched& sc, cudaStream_t s) {
   const int smem = bf16_smem_bytes(C, sc);
   switch (C) {
+    case 8: return bf16_launch(mma_resblock_kernel<8>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
+    case 16: return bf16_launch(mma_resblock_kernel<16>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
     case 32: return bf16_launch(mma_resblock_kernel<32>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
     case 64: return bf16_launch(mma_resblock_kernel<64>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
     case 128: return bf16_launch(wg_resblock_kernel<128>, smem, x, out, w, bias, B, L, tile, halo, sc, s);
@@ -698,24 +744,26 @@ cudaError_t bf16_dispatch(int C, const void* x, void* out, const void* w, const 
 
 // ===================== f32 route: split TF32 on the tensor cores ===========
 // Eight warps, WN across the block's channels by 8 / WN down the rows;
-// each owns 32 rows (MT m16 tiles) by 64 channels (NT n8 tiles; 32 at
-// C = 32): 64 f32 accumulators a thread (32 at C = 32) and as many for the
-// chunk's products on the tensor cores. A chunk is KC K-rows of hi and lo
-// taps in fragment order (KC divides C, so a conv's taps are k * C / KC
-// whole chunks).
+// each owns 32 rows (MT m16 tiles) by 64 channels (NT n8 tiles; C at C <=
+// 32): 64 f32 accumulators a thread (fewer below C = 64) and as many for
+// the chunk's products on the tensor cores. A chunk is KC K-rows of hi and
+// lo taps in fragment order. From C = 32 KC divides C, so a conv's taps
+// are k * C / KC whole chunks; below, a chunk of 192 K-rows holds a whole
+// conv's taps up to k = 12 (C = 16) or 24 (C = 8), and a shorter conv's
+// chunk is copied and multiplied as far as its taps go.
 template <int C, int NS> struct F32Geo {
   static constexpr int CN = C / NS;                  // output channels a block
   static constexpr int MT = 2;                       // m16 tiles a warp
   static constexpr int WN = CN < 64 ? 1 : CN / 64;   // warps across the channels
   static constexpr int NT = CN / 8 / WN;             // n8 tiles a warp
   static constexpr int PASS = 16 * MT * (kThreads / 32 / WN);  // rows a pass
-  static constexpr int KC = C < 4096 / CN ? C : 4096 / CN;  // K rows a chunk
+  static constexpr int KC = C <= 16 ? 192 : C < 4096 / CN ? C : 4096 / CN;  // K rows a chunk
   static constexpr int KS = KC / 8;                  // k-steps a chunk
   static constexpr int STAGE = KC * CN * 8;          // bytes of a chunk (hi and lo)
   static constexpr int STAGES = 2;
   static constexpr int BARS = 16;                    // bytes for the stages' mbarriers
   static constexpr int LD = C + 8;                   // x and t row stride in shared memory
-  static_assert(C % KC == 0 && KC % 8 == 0 && STAGE <= 32768, "f32 geometry");
+  static_assert((C <= 16 || C % KC == 0) && KC % 8 == 0 && STAGE <= 32768, "f32 geometry");
 };
 
 // The raw A values of one k-step for the warp's m16 tiles: rows g and
@@ -741,9 +789,10 @@ __device__ __forceinline__ void f32_load_a(float2 (&a)[F32Geo<C, NS>::MT][2], co
     }
 }
 
-// acc += one chunk's split products for the warp's rows and channels. a
-// holds the raw A values of the chunk's first k-step and leaves with the
-// next chunk's: each k-step loads the next one's before its products.
+// acc += one chunk's split products for the warp's rows and channels (its
+// KS k-steps; below C = 32 those up to the conv's K). a holds the raw A
+// values of the chunk's first k-step and leaves with the next chunk's:
+// each k-step loads the next one's before its products.
 // FIRST applies leaky(0.1) to A (conv 1's input) before the split. The
 // chunk's products sum on the tensor cores from zero, in tc, and are
 // added to acc with f32 adds: a k-step's three products are each issued
@@ -761,9 +810,10 @@ __device__ __forceinline__ void f32_chunk(float (&acc)[F32Geo<C, NS>::MT][F32Geo
     for (int nt = 0; nt < G::NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) tc[mt][nt][i] = 0.0f;
+  const int ks = C <= 16 ? min(G::KC, K - kg0) / 8 : G::KS;
   // (unrolled further, the k-steps' loads are hoisted until registers spill)
 #pragma unroll 4
-  for (int s = 0; s < G::KS; ++s) {
+  for (int s = 0; s < ks; ++s) {
     uint32_t ah[G::MT][4], al[G::MT][4];
 #pragma unroll
     for (int mt = 0; mt < G::MT; ++mt) {
@@ -906,11 +956,12 @@ f32_resblock_kernel(const float* __restrict__ x, float* __restrict__ out,
     if (cur.conv >= sc.n_convs) return;
     if (threadIdx.x == 0) {
       const ConvStep& cs = sc.conv[cur.conv];
-      mbar_expect_tx(full + 8 * stage, G::STAGE);
+      const unsigned bytes = min(G::KC, cs.k * C - cur.chunk * G::KC) * G::CN * 8;
+      mbar_expect_tx(full + 8 * stage, bytes);
       bulk_load(ring + stage * G::STAGE,
                 w + 2 * (cs.w_off + static_cast<long long>(rank) * cs.k * C * G::CN +
                          static_cast<long long>(cur.chunk) * G::KC * G::CN),
-                G::STAGE, full + 8 * stage);
+                bytes, full + 8 * stage);
     }
     advance<C, G::KC, G::PASS>(cur, sc);
   };
@@ -929,7 +980,7 @@ f32_resblock_kernel(const float* __restrict__ x, float* __restrict__ out,
       if (NS > 1) cluster_sync();
       const ConvStep cs = sc.conv[ci];
       const int K = cs.k * C;
-      const int chunks = K / G::KC;
+      const int chunks = (K + G::KC - 1) / G::KC;
       const int passes = (cs.ohi - cs.olo + G::PASS - 1) / G::PASS;
       const int pad = cs.d * (cs.k - 1) / 2;
       const float* bconv = bias + static_cast<long long>(cs.b_off) * C;
@@ -1044,6 +1095,8 @@ cudaError_t f32_dispatch(int C, const void* x, void* out, const void* w, const f
 #define LFS2_F32_ARGS x, out, w, bias, scratch, B, L, tile, halo, sc, s
   if (nsplit != (C == 256 ? 4 : 1) || (nsplit > 1 && x_in_smem)) return cudaErrorInvalidValue;
   switch (C) {
+    case 8: return x_in_smem ? f32_launch<8, true, 1>(LFS2_F32_ARGS) : f32_launch<8, false, 1>(LFS2_F32_ARGS);
+    case 16: return x_in_smem ? f32_launch<16, true, 1>(LFS2_F32_ARGS) : f32_launch<16, false, 1>(LFS2_F32_ARGS);
     case 32: return x_in_smem ? f32_launch<32, true, 1>(LFS2_F32_ARGS) : f32_launch<32, false, 1>(LFS2_F32_ARGS);
     case 64: return x_in_smem ? f32_launch<64, true, 1>(LFS2_F32_ARGS) : f32_launch<64, false, 1>(LFS2_F32_ARGS);
     case 128: return x_in_smem ? f32_launch<128, true, 1>(LFS2_F32_ARGS) : f32_launch<128, false, 1>(LFS2_F32_ARGS);

@@ -40,6 +40,19 @@ def require_kernel_device(device: torch.device) -> None:
     _capable.add(index)
 
 
+def refuse_grad(what: str, route: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where grad mode is on and one of ``tensors`` needs a gradient:
+    a kernel's output has no ``grad_fn``, so launching it would stop the
+    gradient silently. ``tensors`` are the launch's inputs and, where the
+    caller has them, the parameters its prepared weights were copied from
+    (``None`` entries are skipped); ``route`` names the differentiable
+    route to train through instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input needs a gradient; train through {route}, "
+            "or call it under torch.no_grad()")
+
+
 def kernel_stream(*tensors: Optional[torch.Tensor],
                   strided: Sequence[torch.Tensor] = ()) -> int:
     """Check the tensors of one launch (``None`` entries are skipped) and

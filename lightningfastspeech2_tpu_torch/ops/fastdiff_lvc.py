@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from lightningfastspeech2_tpu_torch.kernels import build
-from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream, refuse_grad
 
 LRELU_SLOPE = 0.2
 # the JAX path's frame tile for a stage whose hop is below the reach when
@@ -369,12 +369,8 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     if x.device.type == "cpu":
         return lvc_stack_plain(x, audio_down, kernels, biases, conv_w, conv_b, hop,
                                fast_gating)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, audio_down, kernels, biases, conv_w, conv_b)):
-        raise RuntimeError(
-            "lvc_stack has no backward: an input needs a gradient; train through "
-            "FastDiff's training route (FastDiff.forward(..., train_route=True)), or "
-            "call it under torch.no_grad()")
+    refuse_grad("lvc_stack", "FastDiff's training route (FastDiff.forward(..., "
+                "train_route=True))", x, audio_down, kernels, biases, conv_w, conv_b)
     B, L, C = x.shape
     layers = kernels.shape[2]
     dt = x.dtype

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as nnf
 
 from lightningfastspeech2_tpu_torch.kernels import build
-from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream, refuse_grad
 from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
 from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import tf32
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
@@ -161,11 +161,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     gradient."""
     if z.device.type == "cpu":
         return ffn_ln_plain(z, w)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (z, w.wd, w.w1, w.b1, w.w2f, w.lnp)):
-        raise RuntimeError(
-            "ffn_ln is the deterministic (serving) kernel and has no backward; "
-            "train through ffn_ln_train, or call it under torch.no_grad()")
+    refuse_grad("ffn_ln", "ffn_ln_train", z, w.wd, w.w1, w.b1, w.w2f, w.lnp)
     stream = kernel_stream(z, w.wd, w.w1, w.b1, w.w2f, w.lnp, w.img)
     B, T, C = z.shape
     F = w.w1.shape[1]

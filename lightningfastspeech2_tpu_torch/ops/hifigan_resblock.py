@@ -9,7 +9,15 @@ versions below. The TPU kernels' time-into-lanes fold (``tap_blocks``) was
 a trick for the MXU and is not carried over: signals stay (B, L, C).
 Every route runs on the tensor cores: bf16 at C >= 128 through wgmma,
 bf16 below through mma.sync, f32 through mma.sync with split-TF32
-products (three TF32 products each, f32 accuracy).
+products (three TF32 products each, f32 accuracy). The kernels take C in
+``KERNEL_CHANNELS`` (HiFi-GAN V1's stages and V2's narrower ones); any
+other C raises on the card (ROADMAP B16).
+
+The kernels have no backward: on a CUDA tensor the wrappers raise when
+grad mode is on and x needs a gradient. A generator that trains runs its
+resblocks on the training route (``Generator.forward(mel,
+train_route=True)``: plain ``F.conv1d`` on the live parameters), and
+serves again after ``Generator.prepare()``.
 
 Numerics, kernel and plain alike: leaky_relu(0.1) on the working dtype
 before the first conv of a pair, f32 accumulation, bias and the second
@@ -21,7 +29,8 @@ Tap stacks are prepared once, when weights load
 (``prepare_resblock_weights``, in the order the route reads them), not per
 call. ``tile_plan`` is the one place that sizes a launch: the time tile,
 its shared memory and blocks, and the share of conv work spent on halo
-rows.
+rows. Below C = 32 the plan weighs the bytes a block moves: there a row
+is 16 to 64 bytes and the kernel is bound by bytes, not products.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from lightningfastspeech2_tpu_torch.kernels import build
-from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream
+from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream, refuse_grad
 
 LRELU_SLOPE = 0.1
 # the H100 SXM: shared memory a block may take, and streaming multiprocessors
@@ -55,6 +64,10 @@ _F32_MMA_US = 0.0057
 # clusters of 4 blocks an H100 runs at once (more take a second wave:
 # scripts/bench_resblock.py --sweep, 32 clusters as slow as two waves)
 _F32_CLUSTERS_AT_ONCE = 28
+# the channel counts the kernels take; others raise on the card
+KERNEL_CHANNELS = (8, 16, 32, 64, 128, 256)
+# below this many channels a launch is bound by bytes (see tile_plan)
+_NARROW = 32
 _c_fn = None
 
 # one residual pair: (w1, b1, dilation, w2, b2), torch Conv1d layout (C, C, k)
@@ -96,6 +109,9 @@ class ResblockWeights:
     taps: torch.Tensor      # every conv's taps, flat, working dtype, as _kernel_taps lays them
     bias: torch.Tensor      # (n_convs, C) f32
     pairs: List[List[Pair]]  # per resblock, f32 weights rounded through dtype
+    # the tensors the taps were copied from: where they need a gradient, the
+    # kernels refuse to launch under grad mode
+    sources: Tuple[torch.Tensor, ...] = ()
 
     @property
     def shape(self) -> ChainShape:
@@ -146,6 +162,7 @@ def prepare_resblock_weights(
             taps=torch.cat(taps).contiguous(),
             bias=torch.stack(biases).contiguous(),
             pairs=pairs,
+            sources=tuple(t for _, _, convs in blocks for c in convs for t in c),
         )
 
 
@@ -155,9 +172,11 @@ def _kernel_taps(w: torch.Tensor) -> torch.Tensor:
     (k C_in, C_out) matrix into shared memory as they lie, so each chunk is
     stored as its shared-memory image: 64-channel boxes of 128-byte rows,
     the 16-byte pieces of row r at piece index ^ (r % 8). The f32 route
-    takes them split (``split_taps``). bf16 below C = 128 keeps the
-    order."""
+    takes them split (``split_taps``). bf16 below C = 128, and a C that no
+    kernel takes, keep the order."""
     k, C, _ = w.shape
+    if C not in KERNEL_CHANNELS:
+        return w.reshape(-1)
     if w.dtype == torch.float32:
         return split_taps(w, _f32_split(C))
     if _bf16_geometry(C)[0] != "wgmma":
@@ -280,6 +299,12 @@ def _t_lo(w: ChainShape) -> int:
     return min(w.halo - sum(r) + r[0] for r in w.reaches)
 
 
+def _bf16_ld(C: int) -> int:
+    """The bf16 row stride in shared memory (elements): C + 8, and 24 at
+    C = 8, so that eight consecutive rows fall in distinct bank groups."""
+    return 24 if C == 8 else C + 8
+
+
 def _bf16_geometry(C: int) -> Tuple[str, int, int, int, int]:
     """(route, rows a pass, rows a warp or warpgroup tile, K rows a chunk,
     tap-ring bytes) at C channels, as csrc/resblock.cu MmaGeo<C>, WgGeo<C>
@@ -287,11 +312,12 @@ def _bf16_geometry(C: int) -> Tuple[str, int, int, int, int]:
     launches' tile, grid and shared memory against the plan, as
     ``last_launch`` reads them): wgmma at C >= 128, a 3-stage ring of
     swizzled chunks, the 1 KB that aligns it and 64 bytes of mbarriers;
-    mma.sync below, a 2-stage ring of row-padded chunks."""
-    kc = _CHUNK // C
+    mma.sync below, a 2-stage ring of row-padded chunks of at most 256
+    K rows."""
     if C >= 128:
-        return "wgmma", 128, 64, kc, 1024 + 3 * _CHUNK * 2 + 64
-    return "mma", 256, 32, kc, 2 * kc * (C + 8) * 2
+        return "wgmma", 128, 64, _CHUNK // C, 1024 + 3 * _CHUNK * 2 + 64
+    kc = min(_CHUNK // C, 256)
+    return "mma", 256, 32, kc, 2 * kc * _bf16_ld(C) * 2
 
 
 def _bf16_smem(w: ChainShape, tile: int) -> int:
@@ -299,7 +325,7 @@ def _bf16_smem(w: ChainShape, tile: int) -> int:
     2 halo rows) and the first convs' outputs t, from their lowest row."""
     C, halo = w.channels, w.halo
     rows = (tile + 2 * halo) + (tile + 2 * (halo - _t_lo(w)))
-    return _bf16_geometry(C)[4] + rows * (C + 8) * 2
+    return _bf16_geometry(C)[4] + rows * _bf16_ld(C) * 2
 
 
 def _bf16_cost(w: ChainShape, tile: int) -> float:
@@ -324,16 +350,23 @@ def _f32_split(C: int) -> int:
     return 4 if C == 256 else 1
 
 
+def _f32_kc(C: int) -> int:
+    """K rows of an f32 chunk (csrc/resblock.cu F32Geo<C, NS>::KC): 192
+    below C = 32 (a whole conv's taps up to k = 12 at C = 16), else as many
+    as fit 32 KB, at most C."""
+    return 192 if C < _NARROW else min(C, 4096 // (C // _f32_split(C)))
+
+
 def _f32_geometry(C: int) -> Tuple[int, int, int, int]:
     """(rows a pass, warps across a block's channels, m16 tiles a warp,
     bytes of a K-chunk of hi and lo taps) at C channels, as csrc/resblock.cu
     F32Geo<C, NS> lays them out: eight warps of 32 rows by 64 of the
-    block's CN = C / NS output channels (32 at CN = 32), chunks of 32 KB
-    (8 KB at C = 32) in a 2-stage ring, 16 bytes of mbarriers beside it."""
+    block's CN = C / NS output channels (CN at CN <= 32), chunks of 32 KB
+    (8 KB at C = 32, 24 KB at 16, 12 KB at 8) in a 2-stage ring, 16 bytes
+    of mbarriers beside it."""
     cn = C // _f32_split(C)
     mt, wn = 2, max(1, cn // 64)
-    kc = min(C, 4096 // cn)
-    return 16 * mt * (8 // wn), wn, mt, kc * cn * 8
+    return 16 * mt * (8 // wn), wn, mt, _f32_kc(C) * cn * 8
 
 
 def _f32_smem(w: ChainShape, tile: int, x_in_smem: bool) -> int:
@@ -351,9 +384,9 @@ def _f32_us(w: ChainShape, tile: int) -> float:
     all of the conv's K-chunks, each with its products for the warps of
     the row groups that have rows in the pass."""
     C = w.channels
-    pass_rows, wn, mt, chunk = _f32_geometry(C)
+    pass_rows, wn, mt, _ = _f32_geometry(C)
     cn = C // _f32_split(C)
-    kc = chunk // (8 * cn)
+    kc = _f32_kc(C)
     step = 3 * mt * (cn // 8 // wn) * _F32_MMA_US   # one warp's k-step
     us = 0.0
     for k, rows in zip(w.kernel_sizes, conv_rows(w, tile)):
@@ -361,8 +394,20 @@ def _f32_us(w: ChainShape, tile: int) -> float:
             for p0 in range(0, n, pass_rows):
                 groups = -(-min(pass_rows, n - p0) // (16 * mt))
                 busy = -(-groups * wn // 4)
-                us += k * C // kc * (_F32_CHUNK_US + kc // 8 * busy * step)
+                us += -(-k * C // kc) * _F32_CHUNK_US + k * C // 8 * busy * step
     return us
+
+
+def _narrow_bytes(w: ChainShape, tile: int) -> int:
+    """The bytes a block moves below C = 32, where the work is bound by
+    them: each resblock's x rows (the tile and its reach on both sides),
+    the output's tile written once and read again by each later resblock
+    of a trio, and every conv's taps."""
+    C, f32 = w.channels, w.dtype == torch.float32
+    rows = sum(tile + 2 * sum(r) for r in w.reaches) + (2 * len(w.reaches) - 1) * tile
+    taps = sum(2 * len(ds) * k * C * C for k, ds in zip(w.kernel_sizes, w.dilations))
+    # f32 taps are split into TF32 hi and lo halves
+    return rows * C * (4 if f32 else 2) + taps * (8 if f32 else 2)
 
 
 def tile_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
@@ -370,7 +415,9 @@ def tile_plan(w: ResblockWeights, B: int, L: int) -> TilePlan:
     16) that minimises the waves of blocks over the card's SMs times a
     block's time, larger tiles winning ties. bf16 weighs a block's chunk
     loads and products (``_bf16_cost``); f32 (``_f32_us``) also picks where
-    x lies below C = 256: with x in L2 a tile can be larger. The latest
+    x lies below C = 256: with x in L2 a tile can be larger. Below C = 32
+    both weigh the bytes a block moves (``_narrow_bytes``): the least
+    waves, and in them the shortest tile, so the least halo. The latest
     plans are kept per (shape, B, L): serving asks for a few frame
     buckets' lengths, each launch looks its plan up."""
     return _make_plan(w.shape, B, L)
@@ -400,10 +447,12 @@ def _make_plan(w: ChainShape, B: int, L: int) -> TilePlan:
         waves = math.ceil(blocks / at_once)
         if w.dtype == torch.bfloat16:
             smem = _bf16_smem(w, tile)
-            options = ([(_bf16_geometry(C)[0], True, smem, _bf16_cost(w, tile))]
+            cost = _narrow_bytes(w, tile) if C < _NARROW else _bf16_cost(w, tile)
+            options = ([(_bf16_geometry(C)[0], True, smem, cost)]
                        if smem <= SMEM_PER_BLOCK else [])
         else:
-            options = [(route, xs, smem, _f32_us(w, tile))
+            options = [(route, xs, smem,
+                        _narrow_bytes(w, tile) if C < _NARROW else _f32_us(w, tile))
                        for route, xs, smem in _f32_options(w, tile)]
         if not options:
             break
@@ -450,9 +499,11 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
     if x.dtype not in build.DTYPE_CODES or w.taps.dtype != x.dtype:
         raise ValueError(f"{what} takes f32 or bf16 x with taps of the same dtype, "
                          f"got {x.dtype}, {w.taps.dtype}")
-    if C != w.channels or C not in (32, 64, 128, 256):
-        raise ValueError(f"{what} kernel takes C in (32, 64, 128, 256) matching "
-                         f"its weights, got C={C}, weights {w.channels}")
+    if C != w.channels:
+        raise ValueError(f"{what}: x has C={C}, its weights {w.channels}")
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"{what} kernel takes C in {KERNEL_CHANNELS}, got C={C} "
+                         "(ROADMAP B16: HiFi-GAN stages of other widths)")
     if w.n_res > 3 or any(len(ds) > 3 for ds in w.dilations):
         raise ValueError(f"{what} kernel takes up to 3 resblocks of up to 3 pairs")
     plan = plan or tile_plan(w, B, L)
@@ -475,25 +526,38 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
     return out
 
 
+_TRAIN_ROUTE = "the generator's training route (Generator.forward(mel, train_route=True))"
+
+
 def resblock(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
-    """One ResBlock1 on x (B, L, C), f32 or bf16."""
+    """One ResBlock1 on x (B, L, C), f32 or bf16. On the card it raises
+    under grad mode where x or a parameter the taps came from needs a
+    gradient (the kernel has no backward)."""
     if x.device.type == "cpu":
         return resblock_plain(x, w)
     if w.n_res != 1:
         raise ValueError(f"resblock takes one resblock, got {w.n_res}")
+    refuse_grad("resblock", _TRAIN_ROUTE, x, *w.sources)
     out = _launch(x, w, "resblock")
     resblock.launches += 1
+    resblock.by_width[w.channels] = resblock.by_width.get(w.channels, 0) + 1
     return out
 
 
 def resblock_trio(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
-    """The ResBlock1s of one stage on x (B, L, C) from one read, averaged."""
+    """The ResBlock1s of one stage on x (B, L, C) from one read, averaged.
+    On the card it raises as ``resblock`` does under grad mode."""
     if x.device.type == "cpu":
         return resblock_trio_plain(x, w)
+    refuse_grad("resblock_trio", _TRAIN_ROUTE, x, *w.sources)
     out = _launch(x, w, "resblock_trio")
     resblock_trio.launches += 1
+    resblock_trio.by_width[w.channels] = resblock_trio.by_width.get(w.channels, 0) + 1
     return out
 
 
 resblock.launches = 0
 resblock_trio.launches = 0
+# launches by channel count C, set to {} with the count
+resblock.by_width = {}
+resblock_trio.by_width = {}

@@ -10,7 +10,9 @@ arrays (with or without the top-level ``"params"`` key), the output a
 JAX nor the JAX package.
 
 Layouts: Dense kernel (in, out) -> Linear (out, in); Conv kernel
-(k, in, out) -> Conv1d (out, in, k); depthwise (k, 1, C) -> (C, 1, k);
+(k, in, out) -> Conv1d (out, in, k), grouped (k, in/g, out) -> (out,
+in/g, k); 2-D Conv kernel (kh, kw, in, out) -> Conv2d (out, in, kh, kw);
+depthwise (k, 1, C) -> (C, 1, k);
 grouped (k, G, ci, co) -> (G*co, ci, k); LayerNorm scale -> weight;
 packed qkv kernel (H, 3H) -> in_proj_weight (3H, H); transposed-conv
 kernel (k, in, out) -> ConvTranspose1d (in, out, k), a plain transpose
@@ -19,9 +21,11 @@ kernel (k, in, out) -> ConvTranspose1d (in, out, k), a plain transpose
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
+import torch
 
 from lightningfastspeech2_tpu_torch.core.config import ModelConfig
 from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffConfig
@@ -223,6 +227,54 @@ def from_jax_hifigan(params: Mapping[str, Any],
             for branch in branches:
                 _conv(out, f"resblocks.{rb}.{branch}.{j}", block[f"{branch}_{j}"])
     return out
+
+
+def from_jax_discriminators(params: Mapping[str, Any]) -> State:
+    """The JAX ``Discriminators`` tree (``vocoder/hifigan_train.py``: mpd's
+    period{p} and msd's scale{i}, each conv{i} and conv_post) -> the port's
+    ``Discriminators`` state dict."""
+    t = _tree(params)
+    out: State = {}
+    for group, subs in (("mpd", t["mpd"]), ("msd", t["msd"])):
+        for sub, tree in subs.items():
+            prefix = f"{group}.discs.{sub}"
+            for name, p in tree.items():
+                key = f"{prefix}.conv_post" if name == "conv_post" else f"{prefix}.convs.{name[4:]}"
+                kernel = np.asarray(p["kernel"])
+                # (kh, kw, in, out) -> (out, in, kh, kw); (k, in/g, out) -> (out, in/g, k)
+                axes = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
+                out[f"{key}.weight"] = np.ascontiguousarray(np.transpose(kernel, axes))
+                out[f"{key}.bias"] = np.asarray(p["bias"])
+    return out
+
+
+def _truncated_normal(n: int, generator: torch.Generator) -> torch.Tensor:
+    """n standard normal draws truncated to [-2, 2], each one outside drawn
+    again until it falls inside (on the CPU)."""
+    w = torch.randn(n, generator=generator)
+    idx = torch.nonzero(w.abs() > 2.0).squeeze(1)
+    while idx.numel():
+        w[idx] = torch.randn(idx.numel(), generator=generator)
+        idx = idx[w[idx].abs() > 2.0]
+    return w
+
+
+@torch.no_grad()
+def init_discriminator_weights(d: torch.nn.Module, generator: torch.Generator) -> None:
+    """flax's ``nn.Conv`` init on every conv of ``d``: LeCun normal (a
+    normal of std sqrt(1 / fan_in), fan_in = in/g times the kernel's taps,
+    truncated at two standard deviations and rescaled to keep that
+    variance) and zero biases, drawn on the CPU from ``generator``, so that
+    a card and the CPU draw alike. flax's own draws cannot be reproduced."""
+    # the std of a standard normal truncated to [-2, 2]
+    # (jax.nn.initializers.variance_scaling's constant)
+    trunc_std = 0.87962566103423978
+    for m in d.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            w = _truncated_normal(m.weight.numel(), generator).reshape(m.weight.shape)
+            m.weight.copy_(w * (math.sqrt(1.0 / fan_in) / trunc_std))
+            m.bias.zero_()
 
 
 # the convs of KernelPredictor.residual_conv at the reference's Sequential

@@ -16,6 +16,15 @@ A config with ``resblock: "2"`` (HiFi-GAN V3's block) builds ``ResBlock2``
 instead: two (leaky ReLU, dilated conv) residual steps in plain
 ``F.conv1d``, which the JAX package also runs outside its kernels.
 
+Training takes ``forward(mel, train_route=True)``: each ResBlock1 computes
+from its own ``nn.Conv1d`` parameters in plain ``F.conv1d``, with the
+kernels' numerics, as the JAX trainer differentiates ``Generator.apply``
+outside any Pallas kernel (the JAX package has no resblock backward
+kernel, and the port has none). The serving route reads the tap stacks
+that ``prepare()`` builds from the parameters; after optimizer steps they
+are stale, so whatever serves a generator being trained calls
+``prepare()`` first.
+
 Parameters are named like the released torch checkpoints (``conv_pre``,
 ``ups.{i}``, ``resblocks.{rb}.convs1.{j}``, ResBlock2's
 ``resblocks.{rb}.convs.{j}``) with weight norm folded
@@ -146,6 +155,21 @@ class ResBlock1(nn.Module):
                 [(c1.weight, c1.bias, c2.weight, c2.bias)
                  for c1, c2 in zip(self.convs1, self.convs2)])
 
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The training route on x (B, C, L) in the working dtype ``dtype``,
+        with the numerics of ``ops/hifigan_resblock.py resblock_plain``:
+        leaky on the working dtype, f32 convs on weights rounded through
+        it, bias and the second leaky in f32, a cast before the second conv
+        and before the residual add (all no-ops in f32)."""
+        for c1, c2 in zip(self.convs1, self.convs2):
+            t = F.conv1d(F.leaky_relu(x, LRELU_SLOPE).float(), c1.weight.to(dtype).float(),
+                         c1.bias.float(), padding=c1.padding, dilation=c1.dilation)
+            t = F.leaky_relu(t, LRELU_SLOPE).to(dtype)
+            t = F.conv1d(t.float(), c2.weight.to(dtype).float(), c2.bias.float(),
+                         padding=c2.padding)
+            x = x + t.to(dtype)
+        return x
+
 
 class ResBlock2(nn.Module):
     """Two (leaky ReLU, dilated conv) residual steps: HiFi-GAN's second
@@ -221,10 +245,15 @@ class Generator(nn.Module):
             return F.conv_transpose1d(x, w, b, conv.stride, conv.padding)
         return F.conv1d(x, w, b, padding=conv.padding)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, train_route: bool = False) -> torch.Tensor:
+        """mel (B, T, num_mels) -> waveform (B, T * hop). ``train_route``:
+        the resblocks from their live parameters in plain ``F.conv1d``
+        (differentiable); else from the prepared taps through
+        ``ops.hifigan_resblock`` (the kernels on the card, which raise where
+        a gradient is needed)."""
         x = self._conv(mel.to(self.dtype).transpose(1, 2), self.conv_pre)
-        if self.cfg.resblock != "1":
-            return self._forward_resblock2(x)
+        if self.cfg.resblock != "1" or train_route:
+            return self._forward_plain(x)
         for up, stage in zip(self.ups, self.stage_weights):
             x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)
             xt = x.transpose(1, 2).contiguous()          # (B, L, C) for the kernels
@@ -239,7 +268,9 @@ class Generator(nn.Module):
             x = xt.transpose(1, 2)
         return self._post(x)
 
-    def _forward_resblock2(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """Every stage's resblocks as their modules compute them, averaged
+        in the working dtype (ResBlock2, and ResBlock1's training route)."""
         n = len(self.cfg.resblock_kernel_sizes)
         for i, up in enumerate(self.ups):
             x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)

@@ -73,7 +73,8 @@ def launches(dtype, dev):
 
     g = torch.Generator().manual_seed(0)
     cfg = HifiGanConfig()
-    gen = Generator(cfg, dtype)
+    # serving weights: the kernels refuse parameters that need a gradient
+    gen = Generator(cfg, dtype).requires_grad_(False)
     with torch.no_grad():
         for m in gen.resblocks.modules():
             if isinstance(m, torch.nn.Conv1d):

@@ -74,6 +74,8 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.ops import splines\n"
         "from lightningfastspeech2_tpu_torch.models import draws, fastdiff_variances, sdp\n"
         "from lightningfastspeech2_tpu_torch.audio import srmr\n"
+        "from lightningfastspeech2_tpu_torch.vocoder import hifigan_train\n"
+        "from lightningfastspeech2_tpu_torch.cli import train_vocoder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -110,3 +112,12 @@ def test_default_device_raises_without_cuda():
     m = C.canonical_joint().model
     with pytest.raises(RuntimeError, match="no CUDA device"):
         JointFastSpeech2FastDiff(m, make_fastdiff_config(m))
+    from lightningfastspeech2_tpu_torch.cli import train_vocoder
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan_train import Discriminators, HifiGanTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Discriminators()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HifiGanTrainer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vocoder.main(["--train_target_path", "."])

@@ -131,13 +131,19 @@ def test_ffn_ln_wide_matches_plain(cuda_card, C_, B, T, k, dtype):
 # (C, L, kernel sizes, B): the small shapes, HiFi-GAN V1's own at a
 # 512-frame mel (stage 0's three resblocks, stage 1's trio), and the edges a
 # tiling can break: L shorter than the halo (1, 37), L one past a tile
-# boundary ("tile+1", resolved against the plan), and B = 2
+# boundary ("tile+1", resolved against the plan), and B = 2; then HiFi-GAN
+# V2's narrow stages (C = 16, 8) at a 512-frame mel, the same edges, and
+# single resblocks of odd k at C = 8 (a half k-step at the end of each
+# conv's K)
 RESBLOCK_CASES = [
     (256, 300, (11,), 2), (128, 257, (3, 7, 11), 2), (32, 40, (3, 7, 11), 2),
     (256, 4096, (3,), 1), (256, 4096, (7,), 1), (256, 4096, (11,), 1),
     (128, 32768, (3, 7, 11), 1),
     (256, 1, (11,), 1), (64, 1, (3, 7, 11), 2), (256, 37, (7,), 2), (32, 37, (3, 7, 11), 1),
     (256, "tile+1", (11,), 1), (128, "tile+1", (3, 7, 11), 2), (64, "tile+1", (3, 7, 11), 1),
+    (16, 65536, (3, 7, 11), 1), (8, 131072, (3, 7, 11), 1), (16, 300, (3, 7, 11), 2),
+    (8, 37, (3, 7, 11), 2), (8, 1, (3, 7, 11), 1), (16, "tile+1", (3, 7, 11), 1),
+    (8, "tile+1", (3, 7, 11), 2), (8, 5000, (3,), 1), (8, 5000, (11,), 2), (16, 5000, (7,), 1),
 ]
 
 
@@ -181,7 +187,8 @@ def test_resblock_kernels_match_plain(cuda_card, C_, L, ks, B, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("C_,ks", [(256, (11,)), (256, (3,)), (128, (3, 7, 11)),
-                                   (32, (3, 7, 11))])
+                                   (32, (3, 7, 11)), (16, (3, 7, 11)), (8, (3, 7, 11)),
+                                   (8, (11,))])
 def test_resblock_plan_smem_matches_the_library(cuda_card, C_, ks):
     """The tile plan's tile, blocks and shared memory are the ones each
     launch takes, on either route (csrc/resblock.cu lfs2_resblock_last_launch)."""
@@ -239,6 +246,64 @@ def test_resblock_f32_kernels_hold_an_f64_reference(cuda_card, C_, L, ks, B):
     assert err <= 1e-5 * top, (err, top)
     one_pass = _resblock_chain(x, w, operand=tf32_round)
     assert (one_pass.double() - want).abs().max().item() > 1e-5 * top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C_,ks", [(32, (3, 7, 11)), (256, (11,)), (8, (3, 7, 11))])
+def test_resblock_raises_when_grad_is_needed(cuda_card, C_, ks):
+    # the kernels have no backward: on the card they must not silently give
+    # the resblock parameters (and everything before them) no gradient
+    w = _resblock_weights(C_, ks, torch.float32, cuda_card)
+    kernel = trb.resblock if len(ks) == 1 else trb.resblock_trio
+    x = torch.randn(1, 64, C_, device=cuda_card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernel(x, w)
+    with torch.no_grad():
+        assert kernel(x, w).shape == x.shape
+    assert kernel(x.detach(), w).shape == x.shape
+    # x needs no gradient (conv_pre and ups frozen), but a parameter the
+    # taps were copied from does
+    w.sources[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernel(x.detach(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C_", [24, 512])
+def test_resblock_refuses_other_channel_counts(cuda_card, C_):
+    w = _resblock_weights(C_, (3,), torch.bfloat16, cuda_card)
+    with pytest.raises(ValueError, match="B16"):
+        trb.resblock(torch.zeros(1, 64, C_, device=cuda_card, dtype=torch.bfloat16), w)
+
+
+@pytest.mark.gpu
+def test_generator_train_route_gives_every_parameter_a_gradient(cuda_card):
+    # HiFi-GAN V1 in f32 on the card: the serving route raises under grad,
+    # the training route reaches every parameter, and matches the serving
+    # route (phase 4's f32 tolerance, relative to the output)
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import (
+        Generator, HifiGanConfig, init_generator_weights)
+
+    gen = Generator(HifiGanConfig())
+    init_generator_weights(gen, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # every stage carries signal, tanh short of saturation
+        for p in gen.parameters():
+            p.mul_(4.0)
+    gen.to(cuda_card)
+    mel = torch.randn(2, 16, 80, generator=torch.Generator().manual_seed(3)).to(cuda_card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gen(mel)
+    gen.conv_pre.requires_grad_(False)
+    gen.ups.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gen(mel)   # the resblocks alone train
+    gen.requires_grad_(True)
+    out = gen(mel, train_route=True)
+    out.square().mean().backward()
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in gen.parameters())
+    with torch.no_grad():
+        served = gen(mel)
+    assert (served - out.detach()).abs().max().item() <= 1e-4 * out.abs().max().item() + 1e-7
 
 
 @pytest.mark.gpu

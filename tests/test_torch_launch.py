@@ -1,5 +1,6 @@
 """The port's one launch path (``kernels/launch.py kernel_stream``): the
-checks it keeps, the capability check made once per device, and a source
+checks it keeps, the capability check made once per device, the refusal
+of a launch whose gradient would be lost (``refuse_grad``), and a source
 scan that every wrapper under ``ops/`` launches through it. Needs no card
 and imports no JAX."""
 
@@ -58,6 +59,29 @@ def test_capability_is_checked_once_per_device(monkeypatch, cap, ok):
                 launch.require_kernel_device(dev)
     assert calls == ([3] if ok else [3, 3, 3])
     assert launch._capable == ({3} if ok else set())
+
+
+def test_refuse_grad_sees_the_parameters_the_taps_came_from():
+    # a generator whose conv_pre and ups are frozen hands the resblock
+    # kernels an x that needs no gradient; its resblocks' parameters still do
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import Generator, HifiGanConfig
+
+    gen = Generator(HifiGanConfig(upsample_rates=(8, 2), upsample_kernel_sizes=(16, 4),
+                                  upsample_initial_channel=16))
+    gen.conv_pre.requires_grad_(False)
+    gen.ups.requires_grad_(False)
+    stacks = [w for stage in gen.stage_weights for w in stage]
+    assert {id(t) for w in stacks for t in w.sources} == {
+        id(p) for p in gen.resblocks.parameters()}
+    x = torch.zeros(1, 8, 8)
+    for w in stacks:
+        with pytest.raises(RuntimeError, match="resblock_trio has no backward.*train_route"):
+            launch.refuse_grad("resblock_trio", "train_route", x, None, *w.sources)
+        with torch.no_grad():
+            launch.refuse_grad("resblock_trio", "train_route", x, *w.sources)
+    gen.requires_grad_(False)
+    for w in stacks:
+        launch.refuse_grad("resblock_trio", "train_route", x, None, *w.sources)
 
 
 def _calls(tree):

@@ -65,6 +65,57 @@ def test_v1_bf16_plans_at_512_frames_fill_the_card():
     assert blocks[-2] >= 128 and blocks[-1] >= 128
 
 
+def _v2_stage_weights(stage, dtype):
+    """HiFi-GAN V2's stage: its trio, then each resblock alone."""
+    gen = Generator(HifiGanConfig(upsample_initial_channel=128), dtype)
+    n = len(gen.cfg.resblock_kernel_sizes)
+    return gen.stage_weights[stage] + [
+        trb.prepare_resblock_weights([gen.resblocks[stage * n + j].spec()], dtype)
+        for j in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stage", [2, 3])
+def test_v2_narrow_stage_plans_fit_a_block_and_cover_l(stage, dtype):
+    """HiFi-GAN V2's stages of 16 and 8 channels: every launch the kernels
+    take at a served mel's lengths fits a block's shared memory (the ring,
+    at csrc/resblock.cu's geometry, then t and x), and its tiles cover L;
+    the byte-bound plan fills the SMs before it lengthens a tile."""
+    cfg = HifiGanConfig(upsample_initial_channel=128)
+    hop = int(np.prod(cfg.upsample_rates[:stage + 1]))
+    f32 = dtype == torch.float32
+    for w in _v2_stage_weights(stage, dtype):
+        C, halo = w.channels, w.halo
+        assert C == 128 // 2 ** (stage + 1)
+        t_lo = min(halo - sum(r) + r[0] for r in w.reaches)
+        for frames in MEL_FRAMES:
+            for B in (1, 8):
+                L = frames * hop
+                plan = trb.tile_plan(w, B, L)
+                assert plan.route in ({"mma_tf32", "mma_tf32_xl2"} if f32 else {"mma"})
+                assert 0 < plan.smem_bytes <= 232_448
+                tiles = -(-L // plan.tile)
+                assert plan.tile % 16 == 0 and plan.blocks == B * tiles
+                assert plan.tile * tiles >= L > plan.tile * (tiles - 1)
+                if B * -(-L // 16) >= 132:
+                    assert plan.blocks >= 128 or plan.tile >= 1024
+                t_rows = plan.tile + 2 * (halo - t_lo)
+                x_rows = plan.tile + 2 * halo if plan.x_in_smem else 0
+                if f32:  # two chunks of 192 K-rows, hi and lo, and 16 bytes of mbarriers
+                    assert plan.smem_bytes == 2 * 192 * C * 8 + 16 + (t_rows + x_rows) * (C + 8) * 4
+                else:    # two chunks of 256 K-rows, rows padded to 48 (C = 8) or C + 8 elements
+                    ld = 24 if C == 8 else C + 8
+                    assert plan.smem_bytes == (2 * 256 + t_rows + x_rows) * ld * 2
+
+
+def test_other_channel_counts_lay_out_plain_taps():
+    """A width no kernel takes (a tiny test vocoder's 4 channels) still
+    prepares: its taps keep the (k, C_in, C_out) order, for no kernel to read."""
+    w = torch.randn(3, 4, 4)
+    assert torch.equal(trb._kernel_taps(w), w.reshape(-1))
+    assert 4 not in trb.KERNEL_CHANNELS and 8 in trb.KERNEL_CHANNELS
+
+
 @pytest.mark.parametrize("ks,dils", [((11,), (1, 3, 5)), ((3, 7, 11), (1, 3, 5)),
                                      ((5,), (2,)), ((3, 7), (1, 2))])
 @pytest.mark.parametrize("tile", [16, 48, 1008])
@@ -102,7 +153,7 @@ def test_bf16_leaky_rounds_the_f32_product_once():
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("C_,k", [(256, 3), (128, 7), (64, 3)])
+@pytest.mark.parametrize("C_,k", [(256, 3), (128, 7), (64, 3), (16, 11), (8, 7)])
 def test_kernel_taps_are_the_wgmma_chunk_images(C_, k):
     """bf16 taps at C >= 128 are stored as the wgmma route's shared-memory
     chunks: tap row kk, channel c of chunk kk // KC at box c // 64, row
@@ -173,7 +224,7 @@ def test_f32_plan_smem_is_the_ring_t_and_x(stage):
         assert plan.smem_bytes == 2 * chunk + 16 + rows * (C + 8) * 4
 
 
-@pytest.mark.parametrize("C_,k", [(256, 11), (128, 3), (32, 7)])
+@pytest.mark.parametrize("C_,k", [(256, 11), (128, 3), (32, 7), (16, 11), (8, 3)])
 def test_f32_split_taps_keep_f32_digits(C_, k):
     """hi + lo equals each f32 tap within 2^-22 of its size, and both halves
     are TF32 values (the low 13 bits of each f32 zero)."""

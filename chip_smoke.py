@@ -267,6 +267,27 @@ Phases, each printed as one JSON line:
     and V1's training route gives every parameter a gradient. Rows 4-5 of
     the ``kernels`` line gain ``launches_phase_28`` and ``c16_c8``.
 
+29. on-device features, G2P and denoiser training: ``cli.train.main
+    --on_device_features True`` on phase 26's corpora anew: the flagship
+    from raw int16 wavs, bf16, batch 8, 10 steps through a 2-worker loader
+    with a validation set: every loss finite, ``ffn_ln_train`` and flash
+    launched (``launches_phase_29``). The run's first batch: its features on
+    the card with both TF32 flags on, timed (host, events, profiled device
+    ms and kernels), against the same on the CPU (the mel linear within
+    2e-6 of each item's peak and log10 1e-4 within 30 dB, energy and SNR
+    within their rounding bounds, the pitch CWT where YIN decided alike)
+    and, on float32 samples, against the CPU host pipeline's items at the
+    JAX package's tolerances for the two paths; ``frame_srmr_padded`` over
+    the batch on the card (time, peak) within ``SRMR_REL`` of the CPU; one
+    more raw-mode step profiled with its peak. A 2-step f32 raw-mode run on
+    the card against the same on the CPU (the first step's energy, duration
+    and pitch within ``TC_LOSS_REL``; one step replayed on the CPU from the
+    card's features, every loss within it). Then the G2P CLI (300 steps, d
+    = 96, batch 256, the shipped lexicon: loss, held-out word accuracy and
+    PER; the bundle reloaded, an OOV word decoded on the card) and the
+    denoiser CLI (50 steps on the corpus's wavs; the npz reloaded, one
+    ``apply_mask_net`` on the card).
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -3962,6 +3983,446 @@ def hifigan_training_phase(counters, smi: str) -> dict:
     return {"row": row, "c4": c4_row, "narrow": narrow, "launches": launches}
 
 
+# ------------------------------------------------------- on-device features
+ODF_STEPS = 10
+ODF_BATCH = 8
+ODF_RUNS = 5                           # timed extractions of one batch: their median
+ODF_HOST_MEDIAN = 0.05                 # tests/test_on_device_features.py: host pipeline
+ODF_HOST_MEL_ATOL = 1e-3               # against the device's, median error and mel atol
+ODF_CWT_ATOL = 1e-5                    # the CWT spectrogram, card (TF32 on) against CPU
+G2P_STEPS, G2P_BATCH = 300, 256
+DN_STEPS = 50
+
+
+def _odf_batch(ds, bucketer, seed: int) -> tuple:
+    """The first batch the train loop draws from ``ds``: its indices, the
+    items collated without duration jitter (so the host pipeline's items
+    for the same indices share their durations) as the dataset ships them
+    (int16 wavs), and the same with float32 wavs (the samples the host
+    pipeline reads)."""
+    from lightningfastspeech2_tpu_torch.data.dataset import collate
+    from lightningfastspeech2_tpu_torch.data.loader import batch_index_stream
+
+    idx = next(batch_index_stream(len(ds), ODF_BATCH, True, seed, None, None))
+    items = [ds.__getitem__(int(i), augment=False) for i in idx]
+    arrays = lambda b: {k: v for k, v in b.items() if isinstance(v, np.ndarray)}
+    f32 = collate(items, dataclasses.replace(ds.cfg, wav_dtype="float32"), bucketer)
+    return [int(i) for i in idx], arrays(ds.collate(items, bucketer)), arrays(f32)
+
+
+def _yin_flips(wav: torch.Tensor, n_frames, sr: int, card: str = "cuda") -> list:
+    """Per item, whether the YIN track on the card and on the CPU differ at
+    any of its frames (a decision taken the other way: ``near_decision``),
+    and how many frames lie within ``YIN_MARGIN`` of a decision."""
+    from lightningfastspeech2_tpu_torch.audio import pitch as pitch_mod
+
+    a = pitch_mod.track(wav.to(card), sr).cpu().numpy()
+    b = pitch_mod.track(wav.cpu(), sr).numpy()
+    near = pitch_mod.near_decision(pitch_mod.frame_windows(wav.cpu(), sr), sr, YIN_MARGIN).numpy()
+    out = []
+    for i, n in enumerate(n_frames):
+        diff = ((a[i, :n] > 0) != (b[i, :n] > 0)) | (np.abs(a[i, :n] - b[i, :n])
+                                                     > 1e-5 * np.maximum(b[i, :n], 1.0))
+        off = diff & ~near[i, :n]
+        out.append({"flipped": bool(diff.any()), "near": int(near[i, :n].sum()),
+                    "off_near": int(off.sum())})
+    return out
+
+
+def _hold_odf(card, cpu, wav, n_frames, stats, flips) -> dict:
+    """The on-device features of one batch on the card against the same on
+    the CPU, per item at the CPU tests' tolerances: the mel (linear within
+    2e-6 of the item's peak, log10 within 1e-4 within 30 dB of it), energy
+    and SNR de-normalized within their prefix sums' rounding bounds; the
+    pitch (CWT) signal rtol 1e-5, spectrogram atol ``ODF_CWT_ATOL``, mean and
+    std rtol 1e-5 in items whose YIN decisions all came out alike (a
+    decision taken the other way moves the item's whole CWT)."""
+    from lightningfastspeech2_tpu_torch.audio.features import energy_rounding_bound
+    from lightningfastspeech2_tpu_torch.audio.snr import snr_rounding_bound
+
+    c = {k: v.float().cpu().numpy() for k, v in card.items() if torch.is_tensor(v)}
+    h = {k: v.float().numpy() for k, v in cpu.items() if torch.is_tensor(v)}
+    worst: dict = {}
+    bad = []
+
+    def note(key, err, tol):
+        worst[key] = max(worst.get(key, 0.0), float(err))
+        if not err <= tol:
+            bad.append((key, float(err), float(tol)))
+
+    for i, n in enumerate(n_frames):
+        w = wav[i]
+        lin_a, lin_b = 10.0 ** c["mel"][i].astype(np.float64), 10.0 ** h["mel"][i].astype(np.float64)
+        peak = lin_b.max()
+        loud = lin_b >= 1e-3 * peak
+        note("mel_lin_rel", np.abs(lin_a - lin_b).max() / peak, 2e-6)
+        note("mel_log", np.abs(c["mel"][i] - h["mel"][i])[loud].max(), 1e-4)
+        st = stats["energy"]
+        ea, eb = (x["variances_energy"][i].astype(np.float64) * st.std + st.mean for x in (c, h))
+        note("energy_sq_over_bound", np.abs(ea ** 2 - eb ** 2).max()
+             / energy_rounding_bound(w), 1.0)
+        st = stats["snr"]
+        sa, sb = (x["variances_snr"][i].astype(np.float64) * st.std + st.mean for x in (c, h))
+        note("snr_over_bound", np.abs(sa - sb).max() / max(snr_rounding_bound(w, sb[:n]), 1e-12),
+             1.0)
+        if flips[i]["flipped"]:
+            continue
+        ps_a, ps_b = c["variances_pitch_signal"][i], h["variances_pitch_signal"][i]
+        note("pitch_signal_rel", (np.abs(ps_a - ps_b) / np.maximum(np.abs(ps_b), 1e-6)).max(), 1e-5)
+        note("pitch_spectrogram", np.abs(c["variances_pitch_spectrogram"][i]
+                                         - h["variances_pitch_spectrogram"][i]).max(), ODF_CWT_ATOL)
+        for k in ("variances_pitch_mean", "variances_pitch_std"):
+            note(k[10:] + "_rel", abs(c[k][i] - h[k][i]) / max(abs(h[k][i]), 1e-6), 1e-5)
+    if bad:
+        raise RuntimeError(f"on-device features card vs CPU: {bad}")
+    return worst
+
+
+def _hold_host(card, items, n_frames) -> dict:
+    """The on-device features on the card of a float32-wav batch against the
+    CPU host pipeline's items for the same utterances (and durations; the
+    int16 transfer's rounding moves the mel's near-silent bins far past
+    these tolerances, so the two are compared on the same samples), at the
+    JAX package's tolerances for the two paths
+    (tests/test_on_device_features.py): the mel log10 within
+    ``ODF_HOST_MEL_ATOL`` over each item's frames within 30 dB of its peak,
+    and linear within 2e-6 of the peak everywhere (the JAX test holds the
+    log10 everywhere, but its two paths share one FFT; the card's and the
+    CPU's part in near-silent bins: 2.8e-3 in log10 in a chip run), energy,
+    SNR, the pitch signal and spectrogram a median error under
+    ``ODF_HOST_MEDIAN``, the pitch mean within 0.2. The two differ by
+    design where an item's SNR windows reach its end (the host truncates
+    them, the batch's run into padding)."""
+    c = {k: v.float().cpu().numpy() for k, v in card.items() if torch.is_tensor(v)}
+    out = {"mel_max_abs": 0.0, "mel_lin_rel": 0.0}
+    med = {k: [] for k in ("energy", "snr", "pitch_signal", "pitch_spectrogram", "pitch_mean")}
+    for i, (item, n) in enumerate(zip(items, n_frames)):
+        m = min(n, len(item["mel"]))
+        la, lb = (10.0 ** x.astype(np.float64) for x in (c["mel"][i, :m], item["mel"][:m]))
+        loud = lb >= 1e-3 * lb.max()
+        out["mel_lin_rel"] = max(out["mel_lin_rel"], float(np.abs(la - lb).max() / lb.max()))
+        out["mel_max_abs"] = max(out["mel_max_abs"], float(np.abs(
+            c["mel"][i, :m] - item["mel"][:m])[loud].max()))
+        for var in ("energy", "snr"):
+            med[var].append(float(np.median(np.abs(c[f"variances_{var}"][i, :m]
+                                                   - item[f"variances_{var}"][:m]))))
+        for k in ("signal", "spectrogram"):
+            med[f"pitch_{k}"].append(float(np.median(np.abs(
+                c[f"variances_pitch_{k}"][i, :m] - item[f"variances_pitch_{k}"][:m]))))
+        med["pitch_mean"].append(abs(float(c["variances_pitch_mean"][i])
+                                     - float(item["variances_pitch_mean"])))
+    out.update({f"{k}_median_err_max": max(v) for k, v in med.items() if k != "pitch_mean"})
+    out["pitch_mean_err_max"] = max(med["pitch_mean"])
+    if not (out["mel_max_abs"] <= ODF_HOST_MEL_ATOL and out["mel_lin_rel"] <= 2e-6
+            and out["pitch_mean_err_max"] <= 0.2
+            and all(out[f"{k}_median_err_max"] < ODF_HOST_MEDIAN
+                    for k in ("energy", "snr", "pitch_signal", "pitch_spectrogram"))):
+        raise RuntimeError(f"on-device features against the host pipeline: {out}")
+    return out
+
+
+def _extraction_times(fn) -> dict:
+    """Host ms (the call to its return, and to the card's end) and event ms
+    of ``ODF_RUNS`` calls after a warm-up, their medians; one more call
+    under torch.profiler: its kernels' device ms and count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    ret, wall, ev = [], [], []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(ODF_RUNS):
+        t = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        ret.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        ev.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = _step_split(prof, "on_device_features_profile.txt", fam={}, top=8)
+    return {"host_ms_to_return": statistics.median(ret), "host_ms": statistics.median(wall),
+            "event_ms": statistics.median(ev), "device_ms": split["device_ms"],
+            "device_kernels": split["device_launches"], "top_kernels": split["top_kernels"]}
+
+
+def _f32_raw_mode_check(cli, counters, work: Path, long_corpus: Path, bucketer,
+                        card: str = "cuda") -> dict:
+    """Phase 29's f32 raw-mode runs of the train CLI, on ``card`` and on the
+    CPU, and their checks (below); ``card="cpu"`` rehearses them."""
+    from lightningfastspeech2_tpu_torch.data import dataset as dsm
+    from lightningfastspeech2_tpu_torch.data.wav import dequantize
+    from lightningfastspeech2_tpu_torch.train.loop import (_step_draws, _step_generator,
+                                                           batch_iterator, build_model,
+                                                           stats_tree)
+    from lightningfastspeech2_tpu_torch.train.on_device_features import (
+        augment_batch_with_features)
+    from lightningfastspeech2_tpu_torch.train.step import (create_train_state, make_train_step,
+                                                           to_device)
+
+    # f32 raw mode, every rate 0: the card against the CPU over one stats
+    # cache. Each run computes its targets on its own device, where the
+    # mel's near-silent bins (the two FFTs) and the SNR's prefix sums round
+    # apart within their bounds (above); the teacher-forced SNR enters the
+    # decoder through a 256-bin embedding, so a target at a bin's edge moves
+    # the predicted mel, and the mel, SNR and total losses and the gradient
+    # norm of the two runs part by more than the step's own rounding. So the
+    # CLI's first step is held on the losses ahead of the decoder (energy,
+    # duration, and pitch where YIN decided alike) within TC_LOSS_REL, the
+    # rest reported with the two targets' largest differences; and the step
+    # itself is held whole: one f32 step on the card and one on the CPU from
+    # the same weights on the card's features of the same batch, every loss
+    # and the gradient norm within TC_LOSS_REL.
+    f32_argv = ["--train_target_path", str(long_corpus), "--cache_path", str(work / "long_cache"),
+                "--batch_size", "2", "--max_steps", "2", "--log_every", "1", "--num_workers", "0",
+                "--precision", "32", "--warmup_steps", "1", "--encoder_dropout", "0",
+                "--decoder_dropout", "0", "--variance_dropout", "0", "0", "0",
+                "--duration_dropout", "0", "--augment_duration", "0",
+                "--variance_transforms", "cwt", "none", "none", "--on_device_features", "True"]
+    f32 = {}
+    for dev in (card, "cpu"):
+        f32[dev] = _train_cli(cli, f32_argv + [
+            "--checkpoint_dir", str(work / f"f32_{dev}"), "--log_dir", str(work / f"f32_logs_{dev}"),
+            "--device", dev], counters)
+    ha, hb = f32[card]["result"].history, f32["cpu"]["result"].history
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-6)
+    first = {k: rel(ha[0][k], hb[0][k]) for k in hb[0] if k not in ("steps_per_s", "lr")}
+    second = {k: rel(ha[1][k], hb[1][k]) for k in hb[1] if k not in ("steps_per_s", "lr")}
+    args32 = cli.build_parser().parse_args(f32_argv + ["--checkpoint_dir", str(work / "f32_x")])
+    cfg32 = cli.args_to_config(args32)
+    ds32 = dsm.TTSDataset(long_corpus, cli.data_config(args32, cfg32),
+                          cache_dir=work / "long_cache", device=card)
+    b32 = {k: v for k, v in next(batch_iterator(ds32, 2, bucketer, seed=cfg32.train.seed)).items()
+           if isinstance(v, np.ndarray)}
+    stats32 = stats_tree(ds32, cfg32.model.variance.variances)
+    feats = {dev: augment_batch_with_features(to_device(b32, dev), cfg32, stats32)
+             for dev in (card, "cpu")}
+    n32 = [int(d.sum()) for d in b32["duration"]]
+    delta = {k: max(float((feats[card][k][i, :n].cpu() - feats["cpu"][k][i, :n]).abs().max())
+                    for i, n in enumerate(n32)) for k in ("mel", "variances_snr")}
+    flips32 = _yin_flips(dequantize(torch.from_numpy(b32["wav"])), n32,
+                         cfg32.model.audio.sampling_rate, card)
+    gated = [k for k in ("energy", "duration") + (
+        () if any(f["flipped"] for f in flips32) else ("pitch_cwt", "pitch_mean", "pitch_std"))]
+    replay = {}
+    for dev in (card, "cpu"):
+        model = build_model(cfg32, ds32, device=dev)
+        state = create_train_state(model, cfg32)
+        _, m = make_train_step(model, cfg32)(
+            state, {k: v.to(dev) for k, v in feats[card].items()},
+            _step_generator(model.device, cfg32.train.seed, 0),
+            draws=_step_draws(cfg32.train.seed, 0))
+        replay[dev] = {k: float(v) for k, v in m.items()}
+    replay_err = {k: rel(replay[card][k], v) for k, v in replay["cpu"].items()}
+    if not (len(ha) == len(hb) == 2 and all(first[k] <= TC_LOSS_REL for k in gated)
+            and max(replay_err.values()) <= TC_LOSS_REL):
+        raise RuntimeError(f"f32 raw-mode train CLI card vs CPU: first step {first} (gated "
+                           f"{gated}), replay {replay_err}, card {ha}, CPU {hb}")
+    return {"first_step_rel_err": first, "second_step_rel_err": second, "gated": gated,
+            "tol": TC_LOSS_REL, "target_max_abs_delta": delta,
+            "yin": flips32, "replay_rel_err": replay_err,
+            "card": [{k: v for k, v in h.items() if k != "steps_per_s"} for h in ha],
+            "cpu_s": f32["cpu"]["s"], "card_s": f32[card]["s"],
+            "flash_routes": f32[card]["flash_routes"]}
+
+
+def on_device_features_phase(counters, smi: str) -> dict:
+    """Phase 29: on-device features in the train CLI, and the G2P and
+    denoiser trainers, on the card. Phase 26's corpora anew under ``_chip/``;
+    the CLI trains the flagship in bf16 from raw wavs shipped as int16
+    (``--on_device_features True``), ``ODF_STEPS`` steps at batch 8 through a
+    2-worker loader with an eval; the run's first batch's features on the
+    card (TF32 on, as a bf16 process has it, and both flags on) against the
+    same on the CPU and against the CPU host pipeline's items, timed; SRMR
+    (``frame_srmr_padded``) on the card against the CPU; one more raw-mode
+    step profiled with its peak memory; an f32 raw-mode run of 2 steps on
+    the card against the same on the CPU; then the G2P CLI (``G2P_STEPS`` at
+    d = 96, batch 256, the shipped lexicon) and the denoiser CLI
+    (``DN_STEPS`` on the corpus's wavs), each bundle loaded and served."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.audio.srmr import frame_srmr_padded
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.cli import train_denoiser as dn_cli
+    from lightningfastspeech2_tpu_torch.cli import train_g2p as g2p_cli
+    from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
+    from lightningfastspeech2_tpu_torch.data import dataset as dsm
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.data.wav import dequantize
+    from lightningfastspeech2_tpu_torch.synthesis import denoiser as dn
+    from lightningfastspeech2_tpu_torch.synthesis.g2p import BUILTIN_LEXICON
+    from lightningfastspeech2_tpu_torch.synthesis.neural_g2p import NeuralG2P
+    from lightningfastspeech2_tpu_torch.train.loop import stats_tree
+    from lightningfastspeech2_tpu_torch.train.on_device_features import (
+        augment_batch_with_features)
+    from lightningfastspeech2_tpu_torch.train.step import make_train_step, to_device
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_chip" / "odf"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    long_corpus = make_rich_corpus(work / "long", n_speakers=2, n_utts=2, seed=1,
+                                   min_words=TC_LONG_WORDS[0], max_words=TC_LONG_WORDS[1])
+    valid = make_rich_corpus(work / "valid", n_speakers=TC_SPEAKERS, n_utts=2, seed=2,
+                             min_words=TC_VALID_WORDS[0], max_words=TC_VALID_WORDS[1])
+    ck, logs, cache = work / "ckpt", work / "logs", work / "cache"
+    argv = ["--train_target_path", str(corpus), "--valid_target_path", str(valid),
+            "--checkpoint_dir", str(ck), "--log_dir", str(logs), "--cache_path", str(cache),
+            "--batch_size", str(ODF_BATCH), "--log_every", "1", "--max_steps", str(ODF_STEPS),
+            "--eval_every", str(ODF_STEPS), "--checkpoint_every", str(ODF_STEPS),
+            "--num_workers", "2", "--variance_transforms", "cwt", "none", "none",
+            "--on_device_features", "True", "--wav_transfer_dtype", "int16"]
+    run = _train_cli(cli, argv, counters)
+    res = run["result"]
+    lines = _metrics_lines(logs)
+    train_lines = [l for l in lines if "train/total_loss" in l]
+    eval_lines = [l for l in lines if "eval/mel_loss" in l]
+    bad = [(l["step"], k) for l in lines for k, v in l.items()
+           if k.startswith(("train/", "eval/")) and not math.isfinite(v)]
+    n = run["launches"]
+    need = ("ffn_ln_train", "ffn_ln_train_bwd", "flash_attention", "flash_attention_bwd", "ffn_ln")
+    if len(train_lines) != ODF_STEPS or len(eval_lines) != 2 or bad or not all(
+            n[k] > 0 for k in need):
+        raise RuntimeError(f"on-device features train CLI: {len(train_lines)} step lines, "
+                           f"{len(eval_lines)} evals, not finite {bad[:8]}, launches {n}")
+    step_ms = [1e3 / l["train/steps_per_s"] for l in train_lines]
+
+    # the run's first batch, from the run's own data config and cached stats
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.args_to_config(args)
+    ds = dsm.TTSDataset(corpus, cli.data_config(args, cfg), cache_dir=cache, device="cuda")
+    bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
+    idx, batch, batch_f32 = _odf_batch(ds, bucketer, cfg.train.seed)
+    stats = stats_tree(ds, cfg.model.variance.variances)
+    hop = cfg.model.audio.hop_length
+    n_frames = [int(d.sum()) for d in batch["duration"]]
+    wav = dequantize(torch.from_numpy(batch["wav"]))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on_card = lambda: augment_batch_with_features(to_device(batch, "cuda"), cfg, stats)
+        card = on_card()
+        times = _extraction_times(on_card)
+        card_f32 = augment_batch_with_features(to_device(batch_f32, "cuda"), cfg, stats)
+        tf32 = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    t = time.perf_counter()
+    cpu = augment_batch_with_features(to_device(batch, "cpu"), cfg, stats)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    flips = _yin_flips(wav, n_frames, cfg.model.audio.sampling_rate)
+    worst = _hold_odf(card, cpu, batch["wav"].astype(np.float32) / 32768.0, n_frames,
+                      dict(stats), flips)
+    # the CPU host pipeline's items for the same utterances
+    host_cfg = dataclasses.replace(cli.data_config(args, cfg), raw_mode=False,
+                                   mel_dtype="float32", scan_workers=0)
+    host_ds = dsm.TTSDataset(corpus, host_cfg, stats=ds.stats, device="cpu")
+    host_ds.entries = ds.entries
+    t = time.perf_counter()
+    host_items = [host_ds.__getitem__(i, augment=False) for i in idx]
+    host_item_ms = (time.perf_counter() - t) * 1e3 / len(idx)
+    host = _hold_host(card_f32, host_items, n_frames)
+
+    # SRMR: the whole batch on the card (its peak memory), two items on the CPU
+    frames_t = torch.tensor(n_frames)
+    max_frames = min(wav.shape[1] // hop, cfg.model.max_frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    srmr_card = frame_srmr_padded(wav.cuda(), (frames_t * hop).cuda(), frames_t.cuda(),
+                                  max_frames).cpu().numpy()
+    srmr_ms = (time.perf_counter() - t) * 1e3
+    srmr_peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    srmr_cpu = frame_srmr_padded(wav[:2], frames_t[:2] * hop, frames_t[:2], max_frames).numpy()
+    srmr_err = float((np.abs(srmr_card[:2] - srmr_cpu) / np.maximum(np.abs(srmr_cpu), 1e-6)).max())
+    if not (np.isfinite(srmr_card).all() and srmr_err <= SRMR_REL):
+        raise RuntimeError(f"frame_srmr_padded card vs CPU: {srmr_err} > {SRMR_REL}")
+
+    # one more raw-mode step of the trained model, profiled, with its peak
+    step = make_train_step(res.state.model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(res.state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    step(res.state, batch, gen)
+    torch.cuda.synchronize()
+    step_host_ms = (time.perf_counter() - t) * 1e3
+    step_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(res.state, batch, gen)
+        torch.cuda.synchronize()
+    split = _step_split(prof, "on_device_features_step_profile.txt")
+    row = {"phase": "on_device_features", "cli_s": run["s"], "cli_timeline": run["timeline"],
+           "steps": ODF_STEPS, "launches": n, "flash_routes": run["flash_routes"],
+           "steps_per_s_loop": ODF_STEPS / res.loop_s,
+           "host_ms_a_step_median": statistics.median(step_ms), "host_ms_a_step": step_ms,
+           "loader_wait_s": res.loader_wait_s, "first_batch_s": res.first_batch_s,
+           "first_loss": train_lines[0]["train/total_loss"],
+           "last_loss": train_lines[-1]["train/total_loss"],
+           "eval_mel_loss": [l["eval/mel_loss"] for l in eval_lines],
+           "batch": {"items": idx, "frame_bucket": int(batch["wav"].shape[1] // hop),
+                     "frames": n_frames, "wav_dtype": str(batch["wav"].dtype)},
+           "extraction": {**times, "tf32_flags_around_the_call": tf32, "cpu_ms": cpu_ms,
+                          "host_pipeline_ms_an_item_cpu": host_item_ms},
+           "card_vs_cpu": worst, "yin": flips, "card_vs_host_pipeline": host,
+           "int16_vs_float32_mel_max_abs": float((card["mel"] - card_f32["mel"]).abs().max()),
+           "srmr": {"max_rel_err": srmr_err, "tol": SRMR_REL, "card_ms": srmr_ms,
+                    "peak_gb_above_start": srmr_peak_gb},
+           "profiled_step": {"host_ms": step_host_ms, "peak_gb": step_peak_gb,
+                             **{k: split[k] for k in (
+                                 "device_ms", "device_launches", "ffn_ln_train_ms",
+                                 "ffn_ln_train_bwd_ms", "flash_attention_ms",
+                                 "flash_attention_bwd_ms")}},
+           "nvidia_smi": smi}
+    emit(row)
+
+    f32 = _f32_raw_mode_check(cli, counters, work, long_corpus, bucketer)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # the G2P and the denoiser trainers through their CLIs, on the card
+    out_g2p = work / "g2p.npz"
+    t = time.perf_counter()
+    g2p = g2p_cli.main(["--lexicon", BUILTIN_LEXICON, "--out", str(out_g2p),
+                        "--steps", str(G2P_STEPS), "--batch_size", str(G2P_BATCH)])
+    g2p_s = time.perf_counter() - t
+    loaded = NeuralG2P.load(out_g2p)
+    oov = loaded(["zyxwort"])[0]
+    out_dn = work / "denoiser.npz"
+    t = time.perf_counter()
+    dres = dn_cli.main(["--corpus", str(corpus), "--steps", str(DN_STEPS), "--out", str(out_dn)])
+    dn_s = time.perf_counter() - t
+    net = dn.load(out_dn)
+    mag = torch.rand(256, 513, generator=torch.Generator().manual_seed(0)).cuda() + 0.01
+    masked = dn.apply_mask_net(net, mag)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    if not (np.isfinite(g2p["losses"]).all() and oov and np.isfinite(dres["losses"]).all()
+            and bool(torch.isfinite(masked).all()) and loaded.device.type == "cuda"):
+        raise RuntimeError(f"G2P / denoiser training: {g2p['losses'][-3:]}, {oov}, "
+                           f"{dres['losses'][-3:]}")
+    tail = {"phase": "on_device_features_checks",
+            "f32_card_vs_cpu": f32,
+            "g2p": {"steps": G2P_STEPS, "batch": G2P_BATCH, "s": g2p_s,
+                    "first_loss": g2p["losses"][0], "last_loss": g2p["losses"][-1],
+                    "held": g2p["held"], "word_accuracy": g2p["word_accuracy"],
+                    "per": g2p["per"], "oov_zyxwort": oov},
+            "denoiser": {"steps": DN_STEPS, "clips": dres["clips"], "s": dn_s,
+                         "first_loss": dres["losses"][0], "last_loss": dres["losses"][-1]},
+            "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 29 (on-device features, G2P and denoiser training): {tail['phase_s']:.1f} s",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"row": row, "launches": n}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -4045,6 +4506,7 @@ def main() -> int:
     train_cli = train_cli_phase(counters, info["nvidia_smi"])
     joint = canonical_joint_phase(counters, info["nvidia_smi"])
     voc = hifigan_training_phase(counters, info["nvidia_smi"])
+    odf = on_device_features_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -4209,6 +4671,11 @@ def main() -> int:
             k["launches_phase_28"] = voc["launches"][k["name"]]
             k["c16_c8"] = {d: [{f: r[f] for f in narrow_keys} for r in rows if r["name"] == k["name"]]
                            for d, rows in voc["narrow"].items()}
+    # phase 29's counted run (the train CLI from raw wavs, features in the
+    # step)
+    for k in kernels:
+        if k["name"] in odf["launches"] and "launches_phase_29" not in k:
+            k["launches_phase_29"] = odf["launches"][k["name"]]
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

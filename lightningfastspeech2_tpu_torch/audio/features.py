@@ -4,7 +4,9 @@ Counterpart of ``lightningfastspeech2_tpu/audio/features.py`` (the
 reference's online extraction, ``litfass/dataset/datasets.py:566-648,
 796-837``): ``frame_energy`` in PyTorch on the wav's device; NaN
 interpolation, phone averaging, expansion, normalization and duration
-augmentation as copies of the numpy helpers, bit for bit.
+augmentation as copies of the numpy helpers, bit for bit; and the on-device
+twins of NaN interpolation and phone averaging (``interpolate_nans_t``,
+``phone_average_t``) for ``train/on_device_features.py``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 def frame_energy(wav: torch.Tensor, hop_length: int = 256,
                  win_length: int = 1024) -> torch.Tensor:
-    """Per-frame RMS energy of a 1-D wav.
+    """Per-frame RMS energy of a wav (..., N), each row on its own.
 
     Frame x spans samples [x*hop, x*hop + win); the divisor is always
     ``win_length`` even for the truncated tail windows, and the number of
@@ -24,11 +26,11 @@ def frame_energy(wav: torch.Tensor, hop_length: int = 256,
     n = wav.shape[-1]
     n_frames = -(-n // hop_length)
     sq = wav.to(torch.float32).square()
-    csum = torch.cat([sq.new_zeros(1), torch.cumsum(sq, 0)])
+    csum = torch.cat([sq.new_zeros(sq.shape[:-1] + (1,)), torch.cumsum(sq, -1)], -1)
     starts = torch.clamp(torch.arange(n_frames, device=wav.device) * hop_length, max=n)
     ends = torch.clamp(starts + win_length, max=n)
     # clamp: float cumsum differences can dip microscopically below zero
-    window_sums = torch.clamp(csum[ends] - csum[starts], min=0.0)
+    window_sums = torch.clamp(csum[..., ends] - csum[..., starts], min=0.0)
     return torch.sqrt(window_sums / win_length)
 
 
@@ -61,6 +63,49 @@ def interpolate_nans(x: np.ndarray) -> np.ndarray:
     idx = np.arange(len(x))
     x[nans] = np.interp(idx[nans], idx[~nans], x[~nans])
     return x
+
+
+def interpolate_nans_t(x: torch.Tensor) -> torch.Tensor:
+    """On-device NaN linear interpolation along the last axis of ``x``
+    (the JAX package's ``interpolate_nans_jnp``): each NaN takes the line
+    between its nearest valid neighbours (a ``cummax`` of the valid indices
+    from the left, a flipped ``cummin`` from the right); NaNs outside the
+    valid support take the boundary value (np.interp's clamp). A row of NaN
+    only stays NaN."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    valid = ~torch.isnan(x)
+    left = torch.cummax(torch.where(valid, idx, -1), -1).values
+    right = torch.cummin(torch.where(valid, idx, n).flip(-1), -1).values.flip(-1)
+    left_c = left.clamp(0, n - 1)
+    right_c = right.clamp(0, n - 1)
+    xl = x.gather(-1, left_c)
+    xr = x.gather(-1, right_c)
+    # the weight in f32 from the integer distances; 1 where left == right
+    w = (idx - left_c).float() / (right_c - left_c).clamp(min=1).float()
+    interp = xl * (1 - w) + xr * w
+    interp = torch.where(left < 0, xr, interp)
+    interp = torch.where(right >= n, xl, interp)
+    return torch.where(valid, x, interp)
+
+
+def phone_average_t(values: torch.Tensor, durations: torch.Tensor,
+                    max_phones: int) -> torch.Tensor:
+    """On-device phone averaging (the JAX package's ``phone_average_jnp``):
+    ``values`` (..., T) frame signals, ``durations`` (..., P) frame counts
+    padded with zeros -> (..., max_phones) means over each phone's frames,
+    1e-7 at zero-duration slots; frames past the durations' total belong to
+    no phone. Each sum is a masked f32 reduction over a (P, T) span mask, so
+    it is deterministic on the card (no atomics) and adds only the phone's
+    own frames, as ``segment_sum`` does."""
+    d = durations[..., :max_phones].to(torch.int64)
+    ends = torch.cumsum(durations.to(torch.int64), -1)[..., :max_phones]
+    starts = ends - d
+    t = torch.arange(values.shape[-1], device=values.device)
+    span = (t >= starts[..., None]) & (t < ends[..., None])          # (..., P, T)
+    sums = torch.where(span, values[..., None, :], 0.0).sum(-1)
+    means = sums / d.clamp(min=1).to(values.dtype)
+    return torch.where(d > 0, means, torch.full_like(means, 1e-7))
 
 
 def phone_average(values: np.ndarray, durations: np.ndarray) -> np.ndarray:

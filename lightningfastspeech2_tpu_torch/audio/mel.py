@@ -140,16 +140,20 @@ def spectrogram(
     win_length: int = 1024,
     hop_length: int = 256,
 ) -> torch.Tensor:
-    """Power-1.0 (magnitude) spectrogram of a 1-D wav, (T, 1 + n_fft//2),
-    f32, T = 1 + len(wav) // hop.
+    """Power-1.0 (magnitude) spectrogram of a wav (..., N), (..., T,
+    1 + n_fft//2), f32, T = 1 + N // hop; each row of a batch on its own.
 
     win_length == n_fft in the reference config; shorter windows are
     zero-centered inside the FFT frame, as torch.stft does."""
     wav = wav.to(torch.float32)
+    lead = wav.shape[:-1]
+    if wav.dim() > 2:  # torch.stft takes (N,) or (B, N)
+        wav = wav.reshape(-1, wav.shape[-1])
     win = stft_window(n_fft, win_length, str(wav.device))
     spec = torch.stft(wav, n_fft, hop_length=hop_length, win_length=n_fft, window=win,
                       center=True, pad_mode="constant", return_complex=True)
-    return spec.abs().transpose(-1, -2)
+    spec = spec.abs().transpose(-1, -2)
+    return spec.reshape(lead + spec.shape[-2:])
 
 
 def log_compress(x: torch.Tensor, clip_val: float = 1e-6, log10: bool = True,
@@ -160,7 +164,8 @@ def log_compress(x: torch.Tensor, clip_val: float = 1e-6, log10: bool = True,
 
 
 def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
-    """Full front-end: wav (N,) -> log-mel (T, n_mels), T = 1 + N//hop."""
+    """Full front-end: wav (..., N) -> log-mel (..., T, n_mels), T = 1 +
+    N//hop."""
     spec = spectrogram(wav, cfg.n_fft, cfg.win_length, cfg.hop_length)
     basis = mel_basis(cfg.sampling_rate, cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max,
                       str(spec.device))

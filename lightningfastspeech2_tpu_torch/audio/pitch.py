@@ -4,7 +4,9 @@ YIN tracker (de Cheveigne & Kawahara 2002) on the mel frame grid.
 Counterpart of ``lightningfastspeech2_tpu/audio/pitch.py`` (which replaces
 the reference's pyworld DIO + StoneMask, ``litfass/dataset/datasets.py:
 566-582``, on the same frame grid). The same math on the wav's device,
-with ``torch.fft.rfft`` / ``irfft`` at the same power-of-two length.
+with ``torch.fft.rfft`` / ``irfft`` at the same power-of-two length. Every
+function takes leading batch dims: a wav (..., N) gives frames (..., T,
+W + tau_max) and a track (..., T), each row on its own.
 
 YIN's decisions are discontinuous: the absolute threshold, the
 local-minimum test, the first candidate or the global minimum, and the
@@ -31,17 +33,17 @@ def lag_range(sampling_rate: int, f0_floor: float = F0_FLOOR,
 def _difference_function(frames: torch.Tensor, tau_max: int) -> torch.Tensor:
     """YIN difference d(tau) for all frames at once via FFT correlation.
 
-    frames: (T, W + tau_max) windows. Returns (T, tau_max + 1).
+    frames: (..., T, W + tau_max) windows. Returns (..., T, tau_max + 1).
     d(tau) = sum_{j<W} (x[j] - x[j+tau])^2
            = e0 + e_tau - 2 * sum_j x[j] x[j+tau]
     """
-    T, L = frames.shape
+    L = frames.shape[-1]
     W = L - tau_max
     sq = frames.square()
-    csum = torch.cat([frames.new_zeros((T, 1)), torch.cumsum(sq, -1)], -1)
-    e0 = csum[:, W] - csum[:, 0]                       # (T,)
+    csum = torch.cat([frames.new_zeros(frames.shape[:-1] + (1,)), torch.cumsum(sq, -1)], -1)
+    e0 = csum[..., W] - csum[..., 0]                   # (..., T)
     taus = torch.arange(tau_max + 1, device=frames.device)
-    e_tau = csum[:, W + taus] - csum[:, taus]          # (T, tau_max+1)
+    e_tau = csum[..., W + taus] - csum[..., taus]      # (..., T, tau_max+1)
 
     # cross-correlation of x[0:W] with the full window, lags 0..tau_max
     n_fft = 1
@@ -51,17 +53,17 @@ def _difference_function(frames: torch.Tensor, tau_max: int) -> torch.Tensor:
     F_head = torch.fft.rfft(head, n=n_fft, dim=-1)
     F_full = torch.fft.rfft(frames, n=n_fft, dim=-1)
     corr = torch.fft.irfft(torch.conj(F_head) * F_full, n=n_fft, dim=-1)
-    cross = corr[:, : tau_max + 1]
+    cross = corr[..., : tau_max + 1]
 
-    return e0[:, None] + e_tau - 2.0 * cross
+    return e0[..., None] + e_tau - 2.0 * cross
 
 
 def _cmnd(d: torch.Tensor) -> torch.Tensor:
     """Cumulative mean normalized difference d'(tau); d'(0) = 1."""
     taus = torch.arange(1, d.shape[-1], device=d.device)
-    cum = torch.cumsum(d[:, 1:], -1)
-    dprime = d[:, 1:] * taus / torch.clamp(cum, min=1e-12)
-    return torch.cat([d.new_ones((d.shape[0], 1)), dprime], -1)
+    cum = torch.cumsum(d[..., 1:], -1)
+    dprime = d[..., 1:] * taus / torch.clamp(cum, min=1e-12)
+    return torch.cat([d.new_ones(d.shape[:-1] + (1,)), dprime], -1)
 
 
 def _lag_candidates(dp: torch.Tensor, tau_min: int, tau_max: int, threshold: float):
@@ -69,21 +71,21 @@ def _lag_candidates(dp: torch.Tensor, tau_min: int, tau_max: int, threshold: flo
     under the threshold at a local minimum."""
     taus = torch.arange(dp.shape[-1], device=dp.device)
     in_range = (taus >= tau_min) & (taus < tau_max)
-    dpr = torch.where(in_range[None, :], dp, torch.inf)
+    dpr = torch.where(in_range, dp, torch.inf)
     below = dpr < threshold
-    inner = (dpr[:, 1:-1] <= dpr[:, :-2]) & (dpr[:, 1:-1] <= dpr[:, 2:])
+    inner = (dpr[..., 1:-1] <= dpr[..., :-2]) & (dpr[..., 1:-1] <= dpr[..., 2:])
     is_min = torch.nn.functional.pad(inner, (1, 1), value=False)
     return dpr, below & is_min
 
 
 def _yin(frames: torch.Tensor, sampling_rate: int, f0_floor: float, f0_ceil: float,
          threshold: float) -> dict:
-    """YIN's steps on (T, W + tau_max) windows: d', the lag-range d' and
+    """YIN's steps on (..., T, W + tau_max) windows: d', the lag-range d' and
     candidates, the chosen lag, its parabolic refinement, the F0 before the
     range cut and the voicing."""
     tau_min, tau_max = lag_range(sampling_rate, f0_floor, f0_ceil)
     d = _difference_function(frames, tau_max)
-    dp = _cmnd(d)  # (T, tau_max+1)
+    dp = _cmnd(d)  # (..., T, tau_max+1)
 
     # absolute-threshold rule: first tau whose d' dips under threshold and
     # is a local minimum; fall back to the global minimum
@@ -95,8 +97,7 @@ def _yin(frames: torch.Tensor, sampling_rate: int, f0_floor: float, f0_ceil: flo
 
     # parabolic interpolation around tau_star
     t = torch.clamp(tau_star, 1, dp.shape[-1] - 2)
-    rows = torch.arange(dp.shape[0], device=dp.device)
-    y0, y1, y2 = dp[rows, t - 1], dp[rows, t], dp[rows, t + 1]
+    y0, y1, y2 = (dp.gather(-1, (t + o)[..., None])[..., 0] for o in (-1, 0, 1))
     denom = y0 - 2 * y1 + y2
     safe = torch.abs(denom) > 1e-12
     offset = torch.where(safe, 0.5 * (y0 - y2) / torch.where(safe, denom, 1.0), 0.0)
@@ -104,7 +105,7 @@ def _yin(frames: torch.Tensor, sampling_rate: int, f0_floor: float, f0_ceil: flo
     tau_refined = t + offset
 
     return dict(dp=dp, dpr=dpr, candidate=candidate, has_candidate=has_candidate,
-                first=first_idx, best=argmin_idx, at=dp[rows, t],
+                first=first_idx, best=argmin_idx, at=y1,
                 f0=sampling_rate / torch.clamp(tau_refined, min=1.0))
 
 
@@ -115,7 +116,7 @@ def yin_frame_f0(
     f0_ceil: float = F0_CEIL,
     threshold: float = YIN_THRESHOLD,
 ) -> torch.Tensor:
-    """F0 per frame; 0.0 where unvoiced. frames: (T, W + tau_max)."""
+    """F0 per frame; 0.0 where unvoiced. frames: (..., T, W + tau_max)."""
     y = _yin(frames, sampling_rate, f0_floor, f0_ceil, threshold)
     f0 = y["f0"]
     voiced = y["at"] < max(threshold * 2.0, 0.3)
@@ -125,14 +126,15 @@ def yin_frame_f0(
 
 def frame_windows(wav: torch.Tensor, sampling_rate: int = 22050, hop_length: int = 256,
                   win_length: int = 1024, f0_floor: float = F0_FLOOR) -> torch.Tensor:
-    """The (1 + len//hop, win + tau_max) YIN windows of a 1-D wav: frame t
-    spans [t*hop - win/2, t*hop + win/2 + tau_max), zero-padded, centered
-    like the STFT frames so that pitch, energy and mel share a time base."""
+    """The (..., 1 + N//hop, win + tau_max) YIN windows of a wav (..., N):
+    frame t spans [t*hop - win/2, t*hop + win/2 + tau_max), zero-padded,
+    centered like the STFT frames so that pitch, energy and mel share a time
+    base."""
     n = wav.shape[-1]
     tau_max = int(sampling_rate / f0_floor) + 1
     span = win_length + tau_max
     padded = torch.nn.functional.pad(wav.to(torch.float32), (win_length // 2, span))
-    return padded.unfold(0, span, hop_length)[: 1 + n // hop_length]
+    return padded.unfold(-1, span, hop_length)[..., : 1 + n // hop_length, :]
 
 
 def track(
@@ -143,7 +145,7 @@ def track(
     f0_floor: float = F0_FLOOR,
     f0_ceil: float = F0_CEIL,
 ) -> torch.Tensor:
-    """F0 track on the mel frame grid: (1 + len//hop,) with 0 = unvoiced."""
+    """F0 track on the mel frame grid: (..., 1 + N//hop) with 0 = unvoiced."""
     frames = frame_windows(wav, sampling_rate, hop_length, win_length, f0_floor)
     return yin_frame_f0(frames, sampling_rate, f0_floor, f0_ceil)
 
@@ -156,7 +158,7 @@ def near_decision(
     f0_ceil: float = F0_CEIL,
     threshold: float = YIN_THRESHOLD,
 ) -> torch.Tensor:
-    """(T,) bool: the frames whose F0 a change of d' by less than ``margin``
+    """(..., T) bool: the frames whose F0 a change of d' by less than ``margin``
     could change by more than a lag's refinement, because a decision of
     ``yin_frame_f0`` sits within ``margin`` of its boundary: a local minimum
     (to within ``margin``) at the threshold, at or before the first
@@ -170,15 +172,15 @@ def near_decision(
     dpr, has_candidate = y["dpr"], y["has_candidate"]
     n = dpr.shape[-1]
     lags = torch.arange(n, device=dpr.device)
-    inner = ((dpr[:, 1:-1] <= dpr[:, :-2] + margin)
-             & (dpr[:, 1:-1] <= dpr[:, 2:] + margin))
+    inner = ((dpr[..., 1:-1] <= dpr[..., :-2] + margin)
+             & (dpr[..., 1:-1] <= dpr[..., 2:] + margin))
     loose_min = torch.nn.functional.pad(inner, (1, 1), value=False)
     first = torch.where(has_candidate, y["first"], n)
     shaky = (loose_min & ((dpr - threshold).abs() < margin)
-             & (lags[None, :] <= first[:, None] + 1)).any(-1)
+             & (lags <= first[..., None] + 1)).any(-1)
 
-    lo = dpr.gather(1, y["best"][:, None])
-    rival = (dpr < lo + margin) & ((lags[None, :] - y["best"][:, None]).abs() > 1)
+    lo = dpr.gather(-1, y["best"][..., None])
+    rival = (dpr < lo + margin) & ((lags - y["best"][..., None]).abs() > 1)
     shaky |= ~has_candidate & rival.any(-1)
 
     shaky |= (y["at"] - max(threshold * 2.0, 0.3)).abs() < margin

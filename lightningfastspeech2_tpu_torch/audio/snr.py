@@ -79,24 +79,24 @@ def windowed_wada(
     hop_length: int = 256,
     win_length: int = 1024,
 ) -> torch.Tensor:
-    """Per-frame WADA SNR of a 1-D wav, frame grid [k*hop, k*hop+win) with
-    tail truncation; frames = ceil(N/hop). Returns SNR+20 with NaN where the
-    estimate leaves (-20, 100) (snr.py:260-271)."""
+    """Per-frame WADA SNR of a wav (..., N), each row on its own, frame grid
+    [k*hop, k*hop+win) with tail truncation; frames = ceil(N/hop). Returns
+    SNR+20 with NaN where the estimate leaves (-20, 100) (snr.py:260-271)."""
     n = wav.shape[-1]
     n_frames = -(-n // hop_length)
     abs_wav = torch.clamp(wav.to(torch.float32).abs(), min=_EPS)
     log_abs = torch.log(abs_wav)
 
-    zero = abs_wav.new_zeros(1)
-    csum_abs = torch.cat([zero, torch.cumsum(abs_wav, 0)])
-    csum_log = torch.cat([zero, torch.cumsum(log_abs, 0)])
+    zero = abs_wav.new_zeros(abs_wav.shape[:-1] + (1,))
+    csum_abs = torch.cat([zero, torch.cumsum(abs_wav, -1)], -1)
+    csum_log = torch.cat([zero, torch.cumsum(log_abs, -1)], -1)
 
     starts = torch.clamp(torch.arange(n_frames, device=wav.device) * hop_length, max=n)
     ends = torch.clamp(starts + win_length, max=n)
     counts = torch.clamp(ends - starts, min=1)
 
-    v1 = torch.clamp((csum_abs[ends] - csum_abs[starts]) / counts, min=_EPS)
-    v2 = (csum_log[ends] - csum_log[starts]) / counts
+    v1 = torch.clamp((csum_abs[..., ends] - csum_abs[..., starts]) / counts, min=_EPS)
+    v2 = (csum_log[..., ends] - csum_log[..., starts]) / counts
     v3 = torch.log(v1) - v2
 
     snr = snr_from_statistic(v3)

@@ -22,7 +22,10 @@ dataset then loads each wav), ``--fastdiff_variances`` /
 ``--fastdiff_speakers`` the diffusion adaptor and speaker generator,
 ``--duration_stochastic`` the flow-based duration predictor, and an
 ``srmr`` variance comes from ``audio/srmr.py``. ``--on_device_features``
-is not ported and raises ``NotImplementedError`` naming ROADMAP.md A14.
+ships raw wavs (int16 under ``--wav_transfer_dtype int16``) and computes
+the features in the train step (``train/on_device_features.py``); raw-mode
+items carry no priors, so with ``--priors`` it raises, where the JAX CLI
+fails on the missing ``priors_*`` at its first batch.
 """
 
 from __future__ import annotations
@@ -147,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "memory a third)")
     p.add_argument("--on_device_features", type=str2bool, default=False,
                    help="extract mel/pitch/energy/SNR on the device inside the "
-                        "train step (raw-wav host pipeline; not ported: A14)")
+                        "train step (raw-wav host pipeline)")
     p.add_argument("--seed", type=int, default=42)
     # host input pipeline (reference DataLoader num_workers=cpu_count,
     # fastspeech2.py:42,114); default: leave 2 CPUs for the main process
@@ -284,16 +287,14 @@ def args_to_config(args):
     return C.Config(model=model, train=train, mesh=mesh)
 
 
-_UNPORTED_FLAGS = (
-    ("on_device_features", "--on_device_features (train/on_device_features.py)", "A14"),
-)
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose module is not ported, naming its ROADMAP item."""
-    for attr, what, item in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+def check_flags(args) -> None:
+    """Raise for flags that cannot train together: raw-mode items
+    (``--on_device_features``) carry no ``priors_*``, which the model's
+    prior embeddings read (the JAX CLI raises a KeyError at its first
+    batch)."""
+    if args.on_device_features and args.priors:
+        raise ValueError("--priors needs the host features: raw-mode batches "
+                         "(--on_device_features) carry no priors_*")
 
 
 def data_config(args, cfg):
@@ -326,7 +327,7 @@ def data_config(args, cfg):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
-    check_ported(args)
+    check_flags(args)
 
     import torch
 

@@ -15,7 +15,8 @@ before they build a model.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -65,3 +66,16 @@ def f32_convolutions(precision) -> None:
     if str(precision) == "32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_off() -> Iterator[None]:
+    """TF32 off for cuDNN and cuBLAS inside the block, whatever the process
+    set, and both flags as they were after it: for work that must be f32 in
+    a bf16 run (the on-device features' filterbank product)."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

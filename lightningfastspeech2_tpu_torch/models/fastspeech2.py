@@ -72,6 +72,7 @@ class FastSpeech2(nn.Module):
         dev = resolve_device(device)
         self.cfg, self.dtype = cfg, dtype
         stats = stats or default_stats(cfg.variance.variances)
+        self.stats = stats  # the corpus statistics the on-device features normalize by
         self.phone_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden)
         # one module for both places, with the encoder's rate, as the JAX
         # package applies its one PositionalEncoding twice

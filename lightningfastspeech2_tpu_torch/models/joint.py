@@ -70,6 +70,10 @@ class JointFastSpeech2FastDiff(nn.Module):
     def device(self) -> torch.device:
         return self.acoustic.device
 
+    @property
+    def stats(self):
+        return self.acoustic.stats
+
     def forward(self, batch: Dict[str, torch.Tensor], inference: bool = False,
                 tf: bool = True, schedule_p: float = 1.0,
                 generator: Optional[torch.Generator] = None,

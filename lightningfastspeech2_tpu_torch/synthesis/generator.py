@@ -12,8 +12,9 @@ by default; here they are the only path):
   bucket, then the full inference pass runs at that bucket; sampled
   durations, variances and speakers are drawn alike in both;
 - the vocoder sees the mel at its bucket length, padded frames at the
-  log-mel silence floor (-6.0 = log10 of the front-end clip 1e-6), and the
-  waveform is cut to valid frames x hop.
+  log-mel silence floor of the config's front end (``mel_pad_floor``: -6.0 =
+  log10 of the default clip 1e-6, where the JAX package hard-codes -6.0),
+  and the waveform is cut to valid frames x hop.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ from lightningfastspeech2_tpu_torch.vocoder.fastdiff import FastDiffVocoder
 
 _log = logging.getLogger(__name__)
 
-# padded vocoder frames: the log10 mel floor of the front end (clip 1e-6)
-MEL_PAD_FLOOR = -6.0
+def mel_pad_floor(audio: C.AudioConfig) -> np.float32:
+    """The log-mel value of a silent frame, where padded vocoder frames sit:
+    the front end's clip ``clip_val`` through its log (log10 or ln)."""
+    return np.float32(np.log10(audio.clip_val) if audio.log10 else np.log(audio.clip_val))
 
 
 def _batch_tensor(v, dev: torch.device) -> torch.Tensor:
@@ -196,7 +199,7 @@ class SpeechGenerator:
         audios = []
         for i in range(len(mels)):
             if self.synthesiser is not None:
-                mel_in = np.where(mask[i][:, None], mels[i], np.float32(MEL_PAD_FLOOR))
+                mel_in = np.where(mask[i][:, None], mels[i], mel_pad_floor(self.cfg.model.audio))
                 wav = np.asarray(self.synthesiser(mel_in), np.float32)
                 if wav.ndim > 1:
                     wav = wav[0]

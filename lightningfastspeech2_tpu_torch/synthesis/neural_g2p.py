@@ -14,18 +14,26 @@ scaled by 1/sqrt(d/4), masked scores set to the f32 minimum (so a row with
 no valid key takes a uniform softmax, not NaN). Decoding re-runs the
 decoder over the whole token buffer at every step and takes the argmax
 (first index on ties) at the step's position, as the JAX package's
-``fori_loop`` does. Training (``train_neural_g2p``) is not ported yet.
+``fori_loop`` does.
+
+``train_neural_g2p`` trains one on a word -> phones dict as the JAX trainer
+does (teacher-forced cross-entropy, AdamW with optax's defaults, batches
+drawn by ``np.random.default_rng(seed)``), on the card unless asked for the
+CPU; ``NeuralG2P.save`` writes the JAX package's bundle (the flax tree as
+``to_bytes`` bytes, ``utils/flax_msgpack.py``), so either package loads
+what the other wrote.
 
     g2p = NeuralG2P.load(BUILTIN_PATH)          # on the card
     g2p = NeuralG2P.load(BUILTIN_PATH, "cpu")
     g2p(["hello", "zyzzyva"])                   # [[...], [...]]
+    train_neural_g2p(lexicon, device="cpu").save("g2p.npz")
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +50,11 @@ HEADS = 4
 LN_EPS = 1e-6    # flax's LayerNorm default
 
 BUILTIN_PATH = Path(__file__).resolve().parent.parent / "data" / "g2p_en.npz"
+
+
+def _char_vocab() -> Dict[str, int]:
+    chars = list("abcdefghijklmnopqrstuvwxyz'-.")
+    return {c: i + 3 for i, c in enumerate(chars)}
 
 
 class _Attention(nn.Module):
@@ -159,6 +172,66 @@ def flax_state_dict(params: Mapping, layers: int = 2) -> Dict[str, np.ndarray]:
     return out
 
 
+def flax_tree(state: Mapping[str, torch.Tensor], layers: int = 2) -> Dict[str, Dict]:
+    """This module's state dict -> the flax ``G2PTransformer`` variables
+    ``{"params": ...}`` (``flax_state_dict``'s inverse), f32 numpy."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+    heads = HEADS
+    t: Dict[str, Dict] = {
+        "char_emb": {"embedding": a["char_emb.weight"]},
+        "phone_emb": {"embedding": a["phone_emb.weight"]},
+        "pos_enc": a["pos_enc"],
+        "head": {"kernel": np.ascontiguousarray(a["head.weight"].T), "bias": a["head.bias"]},
+    }
+
+    def attn(prefix):
+        out = {}
+        for name in ("query", "key", "value"):
+            w = a[f"{prefix}.{name}.weight"]                          # (out, in)
+            out[name] = {"kernel": np.ascontiguousarray(w.T.reshape(w.shape[1], heads, -1)),
+                         "bias": a[f"{prefix}.{name}.bias"].reshape(heads, -1)}
+        w = a[f"{prefix}.out.weight"]
+        out["out"] = {"kernel": np.ascontiguousarray(w.T.reshape(heads, -1, w.shape[0])),
+                      "bias": a[f"{prefix}.out.bias"]}
+        return out
+
+    for kind, n_norms in (("enc", 2), ("dec", 3)):
+        for i in range(layers):
+            b = f"{kind}_blocks.{i}"
+            p = {"MultiHeadDotProductAttention_0": attn(f"{b}.self_attn")}
+            if kind == "dec":
+                p["MultiHeadDotProductAttention_1"] = attn(f"{b}.cross_attn")
+            for j in range(n_norms):
+                p[f"LayerNorm_{j}"] = {"scale": a[f"{b}.norms.{j}.weight"],
+                                       "bias": a[f"{b}.norms.{j}.bias"]}
+            for j in range(2):
+                p[f"Dense_{j}"] = {"kernel": np.ascontiguousarray(a[f"{b}.dense{j}.weight"].T),
+                                   "bias": a[f"{b}.dense{j}.bias"]}
+            t[f"{kind}_blocks_{i}"] = p
+    return {"params": t}
+
+
+@torch.no_grad()
+def init_weights(model: G2PTransformer, generator: torch.Generator) -> None:
+    """flax's initializers for ``G2PTransformer``, drawn on the CPU from
+    ``generator`` (flax's own draws cannot be reproduced): embeddings
+    N(0, 1/d), ``pos_enc`` N(0, 0.02^2), every kernel LeCun normal
+    (fan_in = its input width), biases 0, LayerNorms 1 and 0."""
+    from lightningfastspeech2_tpu_torch.utils.convert import lecun_normal_
+
+    for emb in (model.char_emb, model.phone_emb):
+        emb.weight.copy_(torch.randn(emb.weight.shape, generator=generator)
+                         * emb.weight.shape[1] ** -0.5)
+    model.pos_enc.copy_(torch.randn(model.pos_enc.shape, generator=generator) * 0.02)
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, m.weight.shape[1], generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 class NeuralG2P:
     """Inference wrapper: word strings -> ARPABET phone lists, on the
     model's device, with a per-word cache."""
@@ -209,6 +282,16 @@ class NeuralG2P:
                 self._cache[words[i]] = phones
         return out  # type: ignore[return-value]
 
+    def save(self, path) -> None:
+        """The JAX package's bundle: ``params`` the flax tree's ``to_bytes``
+        bytes, ``meta`` JSON of the vocabularies and the width."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tree = flax_tree(self.model.state_dict(), layers=len(self.model.enc_blocks))
+        np.savez(path, params=np.frombuffer(flax_msgpack.to_bytes(tree), np.uint8),
+                 meta=json.dumps({"char2id": self.char2id, "phone_list": self.phone_list,
+                                  "d": self.model.d}))
+
     @classmethod
     def load(cls, path=BUILTIN_PATH, device: DeviceLike = None) -> "NeuralG2P":
         """A bundle the JAX package's ``NeuralG2P.save`` wrote, on ``device``
@@ -223,3 +306,76 @@ class NeuralG2P:
         model.load_state_dict({k: torch.as_tensor(np.array(v, np.float32))
                                for k, v in state.items()})
         return cls(model.to(dev), meta["char2id"], meta["phone_list"])
+
+
+def _prepare_dataset(lexicon: Dict[str, List[str]], char2id: Dict[str, int],
+                     phone2id: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static-shape (chars, dec_in, dec_target) arrays; words whose
+    characters or phones are unknown or too long are skipped."""
+    xs, tin, tout = [], [], []
+    for word, phones in lexicon.items():
+        cids = [char2id[c] for c in word.lower() if c in char2id]
+        pids = [phone2id[p] for p in phones if p in phone2id]
+        if not cids or not pids:
+            continue
+        if len(cids) > MAX_WORD or len(pids) >= MAX_PHONES:
+            continue
+        xs.append(cids + [PAD] * (MAX_WORD - len(cids)))
+        seq_in = [BOS] + pids
+        seq_out = pids + [EOS]
+        tin.append(seq_in + [PAD] * (MAX_PHONES - len(seq_in)))
+        tout.append(seq_out + [PAD] * (MAX_PHONES - len(seq_out)))
+    return (np.asarray(xs, np.int64), np.asarray(tin, np.int64),
+            np.asarray(tout, np.int64))
+
+
+def train_neural_g2p(lexicon: Dict[str, List[str]], steps: int = 3000, batch_size: int = 128,
+                     lr: float = 1e-3, d: int = 96, seed: int = 0, verbose: bool = False,
+                     device: DeviceLike = None,
+                     init: Optional[Mapping[str, torch.Tensor]] = None,
+                     losses: Optional[List[float]] = None) -> NeuralG2P:
+    """Teacher-forced cross-entropy training on a word -> phones dict (the
+    JAX package's ``train_neural_g2p``), on ``device`` (``cuda`` unless
+    ``"cpu"``). AdamW as ``optax.adamw(lr)``: betas (0.9, 0.999), eps 1e-8
+    and weight decay 1e-4 on every parameter (torch's default is 1e-2).
+    Each step's batch indices come from ``np.random.default_rng(seed)``;
+    the weights from ``init_weights`` on a ``torch.Generator`` seeded
+    ``seed``, or from ``init`` (a state dict, e.g. a JAX run's first
+    weights through ``flax_state_dict``). ``losses``, where given, gets
+    every step's loss."""
+    dev = resolve_device(device)
+    char2id = _char_vocab()
+    phone_list = sorted({p for ph in lexicon.values() for p in ph})
+    phone2id = {p: i + 3 for i, p in enumerate(phone_list)}
+    chars, tin, tout = _prepare_dataset(lexicon, char2id, phone2id)
+    n = len(chars)
+    if n == 0:
+        raise ValueError("empty/unusable lexicon")
+    model = G2PTransformer(n_chars=len(char2id) + 3, n_phones=len(phone_list) + 3, d=d)
+    if init is None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict({k: torch.as_tensor(np.array(v, np.float32))
+                               for k, v in init.items()})
+    model.to(dev).train()
+    optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    data = [torch.as_tensor(a, device=dev) for a in (chars, tin, tout)]
+    rng = np.random.default_rng(seed)
+    step_losses = []
+    for step in range(steps):
+        idx = torch.as_tensor(rng.integers(n, size=batch_size), device=dev)
+        bc, bi, bo = (a[idx] for a in data)
+        logits = model(bc, bi)
+        mask = (bo != PAD).float()
+        ce = F.cross_entropy(logits.transpose(1, 2), bo, reduction="none")
+        loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        step_losses.append(loss.detach())
+        if verbose and step % 200 == 0:
+            print(f"g2p step {step}: loss {float(step_losses[-1]):.4f}", flush=True)
+    if losses is not None and step_losses:
+        losses.extend(torch.stack(step_losses).tolist())
+    return NeuralG2P(model, char2id, phone_list)

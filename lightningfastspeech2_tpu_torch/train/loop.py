@@ -172,7 +172,8 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
         if n_batches >= max_batches:
             break
         arrs = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
-        losses, out, out_inf = eval_step(arrs)
+        # feat carries the targets, those of a raw-wav batch too
+        losses, out, out_inf, feat = eval_step(arrs)
         n_batches += 1
         # one transfer a batch: every tensor the metrics read
         keys = ["phone_mask", "frame_mask", "mel"] + [f"variances_{v}" for v in variances]
@@ -188,7 +189,7 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
                 continue   # distribution metrics use the scalar signals
             phone = vcfg.levels[i] == "phone"
             true_mask = phone_mask if phone else tf_mask
-            true_full = _host(arrs[f"variances_{var}"])
+            true_full = _host(feat[f"variances_{var}"])
             accum.setdefault(f"{var}_pred", []).append(
                 host_inf[f"variances_{var}"][phone_mask if phone else host_inf["frame_mask"]])
             accum.setdefault(f"{var}_true", []).append(
@@ -200,7 +201,7 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
         accum.setdefault("duration_pred", []).append(host_inf["duration_rounded"][phone_mask])
         accum.setdefault("duration_true", []).append(
             _host(arrs["duration"])[:, : phone_mask.shape[1]][phone_mask])
-        mel_pred, mel_true = host["mel"], _host(arrs["mel"])
+        mel_pred, mel_true = host["mel"], _host(feat["mel"])
         for b in range(mel_pred.shape[0]):
             accum.setdefault("mel_pred", []).append(mel_pred[b][tf_mask[b]])
             accum.setdefault("mel_true", []).append(mel_true[b][: tf_mask[b].sum()])

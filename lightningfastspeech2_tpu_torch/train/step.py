@@ -13,6 +13,10 @@ A batch whose ``phones`` carry a leading micro-batch axis (A, B, P) means
 gradient accumulation: gradients and losses are averaged over the A
 micro-batches before the update, each micro-batch drawing its own dropout.
 
+With ``cfg.train.on_device_features`` a raw-wav batch (a ``wav`` and no
+``mel``) gets its features in the step, once a micro-batch, before the
+forward (``train/on_device_features.py``), as the JAX step does.
+
 ``frozen`` components (variance encoders by name, or ``"duration"`` for the
 duration predictor) are left out of the total loss and get no update: their
 gradients are dropped (``.grad = None``) before the norm, the clip and the
@@ -32,6 +36,7 @@ from lightningfastspeech2_tpu_torch.core.config import Config
 from lightningfastspeech2_tpu_torch.models.draws import Draws
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from lightningfastspeech2_tpu_torch.train.losses import compute_losses
+from lightningfastspeech2_tpu_torch.train.on_device_features import maybe_on_device_features
 from lightningfastspeech2_tpu_torch.train.optim import (
     clip_by_global_norm_,
     global_norm,
@@ -94,6 +99,7 @@ def make_train_step(model: FastSpeech2, cfg: Config) -> Callable:
         sums: Dict[str, torch.Tensor] = {}
         kwargs = {} if schedule_p is None else {"schedule_p": schedule_p}
         for mb in micro:
+            mb = maybe_on_device_features(m, cfg, mb)
             out = m(mb, tf=tf, generator=generator, draws=draws, **kwargs)
             losses = compute_losses(out, mb, cfg, frozen)
             (losses["total"] / n).backward()
@@ -124,22 +130,25 @@ def make_train_step(model: FastSpeech2, cfg: Config) -> Callable:
 
 
 def make_eval_step(model: FastSpeech2, cfg: Config) -> Callable:
-    """Returns ``step(batch) -> (losses, out, out_inf)``: the teacher-forced
-    loss pass and a free-running (inference) forward, both in eval mode and
-    without gradients, through the serving kernels (reference
-    ``validation_step``, ``fastspeech2.py:799-827``)."""
+    """Returns ``step(batch) -> (losses, out, out_inf, feat_batch)``: the
+    teacher-forced loss pass and a free-running (inference) forward, both in
+    eval mode and without gradients, through the serving kernels (reference
+    ``validation_step``, ``fastspeech2.py:799-827``), and the batch on the
+    model's device after on-device feature extraction (the input's tensors
+    where it is off), where a raw-wav batch's ``mel`` and ``variances_*``
+    targets are read."""
 
     @torch.no_grad()
     def step(batch: Batch):
         was_training = model.training
         model.eval()
         try:
-            b = to_device(batch, model.device)
+            b = maybe_on_device_features(model, cfg, to_device(batch, model.device))
             out = model(b)
             losses = compute_losses(out, b, cfg)
             out_inf = model(b, inference=True)
         finally:
             model.train(was_training)
-        return losses, out, out_inf
+        return losses, out, out_inf, b
 
     return step

@@ -266,15 +266,22 @@ def init_discriminator_weights(d: torch.nn.Module, generator: torch.Generator) -
     truncated at two standard deviations and rescaled to keep that
     variance) and zero biases, drawn on the CPU from ``generator``, so that
     a card and the CPU draw alike. flax's own draws cannot be reproduced."""
+    for m in d.modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            m.bias.zero_()
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's LeCun normal in place: a normal of std sqrt(1 / fan_in),
+    truncated at two standard deviations and rescaled to keep that
+    variance, drawn on the CPU from ``generator``."""
     # the std of a standard normal truncated to [-2, 2]
     # (jax.nn.initializers.variance_scaling's constant)
     trunc_std = 0.87962566103423978
-    for m in d.modules():
-        if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            w = _truncated_normal(m.weight.numel(), generator).reshape(m.weight.shape)
-            m.weight.copy_(w * (math.sqrt(1.0 / fan_in) / trunc_std))
-            m.bias.zero_()
+    w = _truncated_normal(weight.numel(), generator).reshape(weight.shape)
+    weight.copy_(w * (math.sqrt(1.0 / fan_in) / trunc_std))
 
 
 # the convs of KernelPredictor.residual_conv at the reference's Sequential

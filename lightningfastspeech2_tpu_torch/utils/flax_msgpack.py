@@ -1,5 +1,5 @@
-"""Reads the bytes ``flax.serialization.to_bytes`` writes, without msgpack
-or flax.
+"""Reads and writes the bytes of ``flax.serialization.to_bytes``, without
+msgpack or flax.
 
 flax writes a state dict as MessagePack: maps with str keys, lists, ints,
 floats, bools, None, str and bin, and its own extension types: 1 an ndarray
@@ -7,7 +7,9 @@ floats, bools, None, str and bin, and its own extension types: 1 an ndarray
 (packed as an ndarray of shape ()). Arrays above 2**30 bytes are split
 into a map marked ``__msgpack_chunked_array__``, which ``restore`` joins
 again. This is the decoding half of the MessagePack format for that
-subset (flax's Python complex, extension 2, is refused).
+subset (flax's Python complex, extension 2, is refused), and ``to_bytes``
+the encoding half for trees of numpy arrays (no chunking: arrays up to
+2**30 bytes).
 """
 
 from __future__ import annotations
@@ -124,3 +126,92 @@ def restore(data: bytes) -> Any:
     arrays."""
     return _unchunk(unpackb(data))
 
+
+
+class _Writer:
+    def __init__(self):
+        self.parts = []
+
+    def put(self, fmt: str, *values) -> None:
+        self.parts.append(struct.pack(">" + fmt, *values))
+
+    def sized(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A length header: the fix form ``fix | n`` up to ``fix_max``, else
+        the 8 / 16 / 32-bit form whose type bytes are ``codes``."""
+        if fix is not None and n <= fix_max:
+            self.put("B", fix | n)
+        elif codes[0] is not None and n < 1 << 8:
+            self.put("BB", codes[0], n)
+        elif n < 1 << 16:
+            self.put("BH", codes[1], n)
+        else:
+            self.put("BI", codes[2], n)
+
+    def obj(self, x: Any) -> None:
+        if isinstance(x, int):
+            self.int(x)
+        elif isinstance(x, str):
+            b = x.encode("utf-8")
+            self.sized(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.parts.append(b)
+        elif isinstance(x, (bytes, bytearray)):
+            self.sized(len(x), None, -1, (0xC4, 0xC5, 0xC6))
+            self.parts.append(bytes(x))
+        elif isinstance(x, (list, tuple)):
+            self.sized(len(x), 0x90, 15, (None, 0xDC, 0xDD))
+            for v in x:
+                self.obj(v)
+        elif isinstance(x, dict):
+            self.sized(len(x), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, v in x.items():
+                self.obj(k)
+                self.obj(v)
+        elif isinstance(x, np.ndarray):
+            self.ext(EXT_NDARRAY, _ndarray_bytes(x))
+        else:
+            raise TypeError(f"cannot pack {type(x).__name__}")
+
+    def int(self, v: int) -> None:
+        """A non-negative int (an array's dimension)."""
+        if v <= 0x7F:
+            self.put("B", v)
+            return
+        for code, fmt, top in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                               (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+            if v < top:
+                self.put("B" + fmt, code, v)
+                return
+        raise OverflowError(v)
+
+    def ext(self, code: int, data: bytes) -> None:
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixed:
+            self.put("Bb", fixed[len(data)], code)
+        else:
+            self.sized(len(data), None, -1, (0xC7, 0xC8, 0xC9))
+            self.put("b", code)
+        self.parts.append(data)
+
+
+def packb(obj: Any) -> bytes:
+    """``obj`` as MessagePack: ints, str, bytes, lists, tuples, dicts and
+    numpy arrays (flax's extension 1), each in its shortest form, as
+    msgpack-python writes them: what a tree of arrays needs."""
+    w = _Writer()
+    w.obj(obj)
+    return b"".join(w.parts)
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.name == "bfloat16":
+        raise ValueError("bfloat16 arrays are not supported; save the state in float32")
+    if arr.nbytes > 1 << 30:
+        raise ValueError("arrays above 2**30 bytes are not supported (flax chunks them)")
+    return packb((tuple(int(d) for d in arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def to_bytes(state: Any) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for a state dict of
+    nested str-keyed dicts of numpy arrays: ``restore`` reads them back, and
+    so does flax's ``from_bytes`` against a template of that tree."""
+    return packb(state)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``lightningfastspeech2_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax, optax, orbax, msgpack, scikit-learn,
-huggingface_hub or the JAX package, and entry points refuse to run silently
-on the CPU."""
+huggingface_hub, the JAX package or the repo's ``scripts/``, and entry
+points refuse to run silently on the CPU."""
 
 import ast
 import os
@@ -9,13 +9,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "lightningfastspeech2_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "sklearn",
-             "huggingface_hub", "lightningfastspeech2_tpu")
+             "huggingface_hub", "lightningfastspeech2_tpu", "scripts")
 
 
 def _imported_modules(path: Path):
@@ -76,6 +77,8 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.audio import srmr\n"
         "from lightningfastspeech2_tpu_torch.vocoder import hifigan_train\n"
         "from lightningfastspeech2_tpu_torch.cli import train_vocoder\n"
+        "from lightningfastspeech2_tpu_torch.train import on_device_features\n"
+        "from lightningfastspeech2_tpu_torch.cli import train_denoiser, train_g2p\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -121,3 +124,15 @@ def test_default_device_raises_without_cuda():
         HifiGanTrainer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vocoder.main(["--train_target_path", "."])
+    from lightningfastspeech2_tpu_torch.cli import train_denoiser, train_g2p
+    from lightningfastspeech2_tpu_torch.synthesis.denoiser import train_denoiser as train_dn
+    from lightningfastspeech2_tpu_torch.synthesis.neural_g2p import train_neural_g2p
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_neural_g2p({"cat": ["K", "AE1", "T"]}, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_dn([np.zeros(8192, np.float32)], steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_g2p.main(["--lexicon", "missing.txt"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_denoiser.main(["--corpus", "missing", "--out", "unused.npz"])

@@ -1361,3 +1361,112 @@ def test_dvector_embedding_card_matches_cpu(cuda_card):
     assert a.shape == b.shape == (256,)
     assert float(np.abs(a - b).max()) <= 5e-4
     assert abs(float(np.linalg.norm(a)) - 1.0) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_on_device_features_card_matches_cpu(cuda_card, tmp_path):
+    """``train/on_device_features.py`` on a raw batch (make_corpus, 3 items,
+    int16 wavs) with pitch (CWT), energy, SNR and SRMR, on the card with
+    both TF32 flags on (the extraction turns them off and restores them)
+    against the CPU: the mel linear within 2e-6 of each item's peak and log10
+    within 1e-4 within 30 dB of it; energy and SNR de-normalized within
+    their prefix sums' rounding bounds; SRMR rtol 1e-4; the pitch (CWT)
+    signal rtol 1e-5, spectrogram atol 1e-5, mean and std rtol 1e-5 in the
+    items whose YIN track is alike on both devices (a decision taken the
+    other way moves an item's whole CWT)."""
+    import numpy as np
+
+    from lightningfastspeech2_tpu_torch.audio import pitch as pitch_mod
+    from lightningfastspeech2_tpu_torch.audio.features import energy_rounding_bound
+    from lightningfastspeech2_tpu_torch.audio.snr import snr_rounding_bound
+    from lightningfastspeech2_tpu_torch.data import dataset as dsm
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus
+    from lightningfastspeech2_tpu_torch.train.loop import stats_tree
+    from lightningfastspeech2_tpu_torch.train.on_device_features import (
+        augment_batch_with_features)
+
+    variances = ("pitch", "energy", "snr", "srmr")
+    corpus = make_corpus(tmp_path / "c", n_speakers=1, n_utts=3, seed=5)
+    ds = dsm.TTSDataset(corpus, dsm.DataConfig(
+        variances=variances, variance_levels=("frame",) * 4,
+        variance_transforms=("cwt", "none", "none", "none"), augment_duration=0.0,
+        raw_mode=True, wav_dtype="int16"), device="cpu")
+    batch = ds.collate([ds.__getitem__(i, augment=False) for i in range(len(ds))])
+    arrays = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    var = TC.VarianceConfig(variances=variances, levels=("frame",) * 4,
+                            transforms=("cwt", "none", "none", "none"), losses=("mse",) * 4,
+                            nlayers=(2,) * 4, kernel_sizes=(3,) * 4, dropouts=(0.0,) * 4,
+                            loss_weights=(0.1,) * 4)
+    cfg = TC.Config(model=TC.ModelConfig(variance=var))
+    stats = stats_tree(ds, variances)
+    st = dict(stats)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = {dev: {k: v.float().cpu().numpy() for k, v in augment_batch_with_features(
+            {k: v.to(dev) for k, v in arrays.items()}, cfg, stats).items()
+            if torch.is_tensor(v)} for dev in (cuda_card, "cpu")}
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    a, b = out[cuda_card], out["cpu"]
+    wav = batch["wav"].astype(np.float32) / 32768.0
+    f0 = {dev: pitch_mod.track(torch.from_numpy(wav).to(dev)).cpu().numpy()
+          for dev in (cuda_card, "cpu")}
+    alike = 0
+    for i, n in enumerate(int(d.sum()) for d in batch["duration"]):
+        la, lb = 10.0 ** a["mel"][i].astype(np.float64), 10.0 ** b["mel"][i].astype(np.float64)
+        assert np.abs(la - lb).max() <= 2e-6 * lb.max()
+        loud = lb >= 1e-3 * lb.max()
+        assert np.abs(a["mel"][i] - b["mel"][i])[loud].max() <= 1e-4
+        ea, eb = (x["variances_energy"][i].astype(np.float64) * st["energy"].std
+                  + st["energy"].mean for x in (a, b))
+        assert np.abs(ea ** 2 - eb ** 2).max() <= energy_rounding_bound(wav[i])
+        sa, sb = (x["variances_snr"][i].astype(np.float64) * st["snr"].std + st["snr"].mean
+                  for x in (a, b))
+        assert np.abs(sa - sb).max() <= snr_rounding_bound(wav[i], sb[:n])
+        sra, srb = (x["variances_srmr"][i].astype(np.float64) * st["srmr"].std
+                    + st["srmr"].mean for x in (a, b))
+        np.testing.assert_allclose(sra, srb, rtol=1e-4, atol=1e-7)
+        fa, fb = f0[cuda_card][i, :n], f0["cpu"][i, :n]
+        if ((fa > 0) != (fb > 0)).any() or (np.abs(fa - fb) > 1e-5 * np.maximum(fb, 1)).any():
+            continue
+        alike += 1
+        np.testing.assert_allclose(a["variances_pitch_signal"][i], b["variances_pitch_signal"][i],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(a["variances_pitch_spectrogram"][i],
+                                   b["variances_pitch_spectrogram"][i], rtol=0, atol=1e-5)
+        for k in ("variances_pitch_mean", "variances_pitch_std"):
+            np.testing.assert_allclose(a[k][i], b[k][i], rtol=1e-5)
+    assert alike >= 2
+
+
+@pytest.mark.gpu
+def test_cwt_stays_f32_with_tf32_on(cuda_card):
+    """``audio/cwt.py decompose_padded`` at a 2048-frame bucket (the widest
+    scale's kernel 2048 taps) on the card with both TF32 flags on, as a
+    bf16 training process may have them, against the CPU: the spectrogram
+    within 1e-5, mean and std rtol 1e-6 (the FFT convolution takes no
+    TF32). The flags are restored."""
+    import numpy as np
+
+    from lightningfastspeech2_tpu_torch.audio import cwt
+
+    g = np.random.default_rng(0)
+    sig = (np.abs(g.standard_normal((2, 2048))) * 100 + 80).astype(np.float32)
+    length = np.asarray([2048, 1500])
+    sig[1, 1500:] = 0
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        a = cwt.decompose_padded(torch.from_numpy(sig).to(cuda_card),
+                                 torch.from_numpy(length).to(cuda_card))
+        a = {k: v.cpu().numpy() for k, v in a.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    b = {k: v.numpy() for k, v in cwt.decompose_padded(torch.from_numpy(sig),
+                                                       torch.from_numpy(length)).items()}
+    np.testing.assert_allclose(a["spectrogram"], b["spectrogram"], rtol=0, atol=1e-5)
+    for k in ("mean", "std", "signal"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-7)
+    assert np.abs(b["spectrogram"]).max() > 0.05

@@ -1,5 +1,6 @@
 """The port's train CLI (cli/train.py): its config against the JAX CLI's for
-the same arguments, the flags whose modules are not ported, the default
+the same arguments, the flags whose modules were ported late (one of them,
+``--on_device_features``, training a step), the default
 device, and one run on the CPU at tiny widths (5 steps with evals,
 asynchronous checkpoints, d-vectors and their GMMs, SWA, prior GMMs), whose
 checkpoint the port's generate CLI then serves; a second run warm-starts
@@ -83,14 +84,27 @@ def srmr_corpus(tmp_path_factory):
     (["--variances", "pitch", "srmr"], "A16"),
 ])
 def test_unported_flags_raise_with_their_item(tmp_path, srmr_corpus, flag, item):
-    """``--on_device_features`` (A14) still raises naming its item. The
-    others are ported (A11, A13, A16): each builds the JAX CLI's config and
-    the module it names."""
-    argv = ["--train_target_path", str(tmp_path), "--device", "cpu",
-            "--checkpoint_dir", str(tmp_path / "c"), "--log_dir", str(tmp_path / "l")] + flag
+    """Each flag once unported is ported now (A11, A13, A14, A16): it builds
+    the JAX CLI's config and the module it names; ``--on_device_features``
+    (A14) trains one step on the CPU from raw wavs shipped as int16, and
+    refuses ``--priors`` (raw-mode items carry none; the JAX CLI fails on
+    the missing ``priors_*`` at its first batch)."""
     if item == "A14":
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main(argv)
+        argv = ["--train_target_path", str(srmr_corpus)] + TINY + flag
+        got = tcli.args_to_config(tcli.build_parser().parse_args(argv + ["--device", "cpu"]))
+        ref = jcli.args_to_config(jcli.build_parser().parse_args(argv))
+        assert json.dumps(TC.to_dict(got), sort_keys=True) == json.dumps(JC.to_dict(ref),
+                                                                          sort_keys=True)
+        assert got.train.on_device_features
+        run = argv + ["--device", "cpu", "--checkpoint_dir", str(tmp_path / "c"),
+                      "--log_dir", str(tmp_path / "l"), "--max_steps", "1", "--batch_size", "2",
+                      "--num_workers", "0", "--log_every", "1", "--compute_dvectors", "False"]
+        with pytest.raises(ValueError, match="priors"):
+            tcli.main(run + ["--priors", "pitch"])
+        result = tcli.main(run)
+        last = result.history[-1]
+        assert np.isfinite([last[k] for k in ("total", "mel", "pitch", "energy")]).all()
+        assert (tmp_path / "c" / "latest").exists()
         return
     if flag[0] == "--variances":
         flag = flag + ["--variance_transforms", "none", "none"]
@@ -99,7 +113,7 @@ def test_unported_flags_raise_with_their_item(tmp_path, srmr_corpus, flag, item)
     ref = jcli.args_to_config(jcli.build_parser().parse_args(argv))
     assert json.dumps(TC.to_dict(got), sort_keys=True) == json.dumps(JC.to_dict(ref),
                                                                       sort_keys=True)
-    tcli.check_ported(tcli.build_parser().parse_args(argv))
+    tcli.check_flags(tcli.build_parser().parse_args(argv))
     m = got.model
     if item == "A16":
         ds = TTSDataset(srmr_corpus, DataConfig(variances=m.variance.variances,

@@ -143,7 +143,7 @@ def test_eval_step_matches_jax(setup):
     jcfg, tcfg, model, state, _, params0, batch = setup
     jlosses, _, jout_inf, _ = jax_make_eval_step(model, jcfg)(
         state.params, {k: jnp.asarray(v) for k, v in batch.items()})
-    losses, _, out_inf = make_eval_step(_port(tcfg, params0), tcfg)(batch)
+    losses, _, out_inf, _ = make_eval_step(_port(tcfg, params0), tcfg)(batch)
     for key in jlosses:
         np.testing.assert_allclose(float(losses[key]), float(jlosses[key]), rtol=2e-5,
                                    atol=1e-6, err_msg=key)

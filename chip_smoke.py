@@ -287,6 +287,21 @@ Phases, each printed as one JSON line:
     PER; the bundle reloaded, an OOV word decoded on the card) and the
     denoiser CLI (50 steps on the corpus's wavs; the npz reloaded, one
     ``apply_mask_net`` on the card).
+30. data-parallel training: two ranks share the card over gloo under
+    ``python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --cli-rank RUNS`` (each rank runs ``cli.train.main``, the
+    entry point ``-m lightningfastspeech2_tpu_torch.cli.train`` calls) on
+    phase 26's corpora anew: the flagship in bf16 at the global batch 8 (4
+    a rank), 10 steps through 2 loader workers a rank, with AdamW (and
+    evals) and with ``--zero1`` (the parameters at step 2 alike); every
+    rank's losses finite and equal to the other's, ``ffn_ln_train``, flash
+    and ``ffn_ln`` launched on each (``launches_phase_30``); each rank's
+    host ms a step, one profiled step's device ms, the gradient
+    all-reduce's host ms (gloo, through the host), peak memory and
+    optimizer bytes. An f32 step at global B = 2 of two ranks within
+    ``DP_F32_REL`` of the same step in this process; then the mesh helpers
+    in a world of one NCCL rank. Alone: ``python3 chip_smoke.py --parallel
+    N`` (N ranks; on a machine of N cards, one rank a card over NCCL).
 
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
@@ -4423,6 +4438,400 @@ def on_device_features_phase(counters, smi: str) -> dict:
     return {"row": row, "launches": n}
 
 
+# ------------------------------------------------ data parallel (phase 30)
+DP_STEPS = 10
+DP_BATCH = 8                           # the global batch: 4 a rank
+DP_RANKS = 2                           # sharing the one card over gloo
+DP_F32_REL = 1e-5                      # the f32 2-rank step against one process
+DP_ZERO1_REL = 0.1                     # ZeRO-1's parameters after 2 steps against AdamW's:
+                                       # the difference's norm over the update's (the bf16
+                                       # backward's atomics flip the few updates whose
+                                       # gradient is noise; the phase reads the AdamW run
+                                       # repeated against itself beside it)
+DP_ZERO1_TENSOR = 0.05                 # each tensor's update norm within 5 % of AdamW's
+DP_ALLREDUCE_RUNS = 5                  # timed gradient all-reduces: their median
+
+
+def all_counters() -> tuple:
+    """Every kernel wrapper's launch counter, in the ``kernels`` line's
+    order."""
+    from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
+    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+    from lightningfastspeech2_tpu_torch.ops.length_regulator import regulate, regulate_bwd
+    from lightningfastspeech2_tpu_torch.ops.probe import probe
+    from lightningfastspeech2_tpu_torch.ops.soft_dtw import soft_dtw, soft_dtw_bwd
+
+    return (probe, ffn_ln, resblock, resblock_trio, ffn_ln_train, ffn_ln_train_bwd,
+            flash_attention, flash_attention_bwd, soft_dtw, soft_dtw_bwd, regulate,
+            regulate_bwd, lvc_stack)
+
+
+def _optimizer_bytes(optimizer) -> int:
+    """Bytes of the tensors this rank's optimizer holds (its moments and
+    step counts): a ZeRO-1 optimizer's own share."""
+    local = getattr(optimizer, "optim", optimizer)
+    return sum(t.numel() * t.element_size() for st in local.state.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def _rank_profile(cli, argv, result, rank: int) -> dict:
+    """One more step of ``result``'s state on this rank's share of the run's
+    first global batch, profiled (device ms, this rank's kernel table), and
+    the gradient all-reduce's host ms (gloo copies through the host: not
+    NCCL's time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightningfastspeech2_tpu_torch.core.bucketing import Bucketer
+    from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
+    from lightningfastspeech2_tpu_torch.train.loop import batch_iterator, common_bucket
+    from lightningfastspeech2_tpu_torch.train.step import make_train_step
+
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.args_to_config(args)
+    mesh = cli.make_train_mesh(cfg, args.batch_size)
+    ds = TTSDataset(Path(args.train_target_path), cli.data_config(args, cfg),
+                    cache_dir=Path(args.cache_path), device="cuda").shard_across_hosts(mesh)
+    batch = next(batch_iterator(ds, args.batch_size // mesh.data,
+                                Bucketer(cfg.model.max_phones, cfg.model.max_frames),
+                                seed=cfg.train.seed))
+    arrs = common_bucket({k: v for k, v in batch.items()
+                          if isinstance(v, (np.ndarray, torch.Tensor))}, ds.cfg, mesh)
+    step = make_train_step(result.state.model, cfg, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    step(result.state, arrs, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(result.state, arrs, gen)
+        torch.cuda.synchronize()
+    split = _step_split(prof, f"parallel_profile_rank{rank}.txt")
+    n = sum(p.numel() for p in result.state.model.parameters())
+    flat = torch.zeros(n, device="cuda")
+    times = []
+    for _ in range(DP_ALLREDUCE_RUNS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mesh.sum(flat)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return {"frame_bucket": int(arrs["mel"].shape[1]), "local_batch": int(arrs["mel"].shape[0]),
+            "device_ms": split["device_ms"], "device_launches": split["device_launches"],
+            "gradient_floats": n, "allreduce_host_ms_median": statistics.median(times[1:]),
+            "allreduce_host_ms": times[1:]}
+
+
+def cli_rank_main(runs_file: str) -> int:
+    """One rank of phase 30 under ``torch.distributed.run``: joins the world
+    (``parallel/mesh.py distributed_init``), then runs each train CLI run of
+    ``runs_file`` (a JSON list of ``{"name", "argv", "profile"}``) with the
+    launch counts set to 0 just before and read just after, its peak
+    memory and optimizer bytes; writes ``chiprun_out/parallel_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
+
+    backend = mesh_lib.distributed_init("cuda")
+    rank = mesh_lib.rank()
+    counters = all_counters()
+    out = {"rank": rank, "backend": backend, "world": mesh_lib.world_size(),
+           "device": torch.cuda.current_device(), "runs": {}}
+    try:
+        for run in json.loads(Path(runs_file).read_text()):
+            reset_counts(counters)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            result = cli.main(run["argv"])
+            torch.cuda.synchronize()
+            row = {"s": time.perf_counter() - t,
+                   "launches": {c.__name__: c.launches for c in counters},
+                   "flash_routes": flash_routes(counters),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "optimizer": type(result.state.optimizer).__name__,
+                   "optimizer_bytes": _optimizer_bytes(result.state.optimizer),
+                   "steps": result.state.step, "history": result.history,
+                   "loop_s": result.loop_s, "loader_wait_s": result.loader_wait_s,
+                   "first_batch_s": result.first_batch_s}
+            if run.get("profile"):
+                row["profiled_step"] = _rank_profile(cli, run["argv"], result, rank)
+            out["runs"][run["name"]] = row
+            del result
+    finally:
+        (ROOT / "chiprun_out" / f"parallel_rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(args: list, log: Path, timeout: int, n_ranks: int) -> float:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    n_ranks args`` in a session of its own (killed whole on a timeout),
+    its output in ``log``; raises when any rank failed. Returns seconds."""
+    import signal
+
+    t = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(n_ranks), *args], cwd=ROOT,
+                                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        raise RuntimeError(f"torch.distributed.run {args[:3]}: exit {rc}\n"
+                           f"{log.read_text()[-6000:]}")
+    return time.perf_counter() - t
+
+
+def _nccl_world_of_one() -> dict:
+    """The mesh helpers in a world of one NCCL rank (the card can hold one
+    NCCL rank): the sum, the max and min, the any, the gather and a
+    barrier, each checked."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_lib.make_mesh()
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        ok = {"backend": dist.get_backend(mesh.data_group),
+              "sum": bool(torch.equal(mesh.sum(x.clone()), x)),
+              "max_min": mesh.max([3, 5]) == [3, 5] and mesh.min([3, 5]) == [3, 5],
+              "any": bool(torch.equal(mesh.any(x > 3), x > 3)),
+              "gather": mesh.gather({"a": 1}) == [{"a": 1}]}
+        mesh_lib.barrier("nccl_world_of_one")
+    finally:
+        dist.destroy_process_group()
+    if not (ok["backend"] == "nccl" and all(v for k, v in ok.items() if k != "backend")):
+        raise RuntimeError(f"mesh helpers under NCCL: {ok}")
+    return ok
+
+
+def parallel_phase(counters, smi: str, one_rank: dict = None, n_ranks: int = DP_RANKS) -> dict:
+    """Phase 30: data-parallel training on the card. ``n_ranks`` ranks
+    (``torch.distributed.run``, this script's ``cli_rank_main`` on each;
+    two share one card over gloo, ranks with a card each take NCCL) run
+    the train CLI on phase 26's corpora
+    anew: the flagship in bf16 at the global batch ``DP_BATCH``,
+    ``DP_STEPS`` steps through 2 loader workers a rank, once with AdamW
+    (with evals) and once with ``--zero1`` (checkpoints every 2 steps, held
+    to each other at step 2, beside the AdamW run's first 2 steps repeated),
+    then an f32 step at the global batch ``n_ranks`` on a corpus of as
+    many utterances, held to the same step in this process. Each rank's
+    launches, host ms a step, one profiled step's device ms, the gradient
+    all-reduce's host ms, peak memory and optimizer bytes; then the mesh
+    helpers in a world of one NCCL rank."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer
+    from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.train.loop import build_model
+
+    t_phase = time.perf_counter()
+    work = ROOT / "_chip" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    valid = make_rich_corpus(work / "valid", n_speakers=TC_SPEAKERS, n_utts=2, seed=2,
+                             min_words=TC_VALID_WORDS[0], max_words=TC_VALID_WORDS[1])
+    pair = make_rich_corpus(work / "pair", n_speakers=1, n_utts=n_ranks, seed=1,
+                            min_words=TC_LONG_WORDS[0], max_words=TC_LONG_WORDS[1])
+    # phase 26's bf16 run's corpus, batch, CWT pitch and 2 loader workers;
+    # warm-up 1 (updates of lr 1e-4, well above an f32 ulp of the weights,
+    # so that the ZeRO-1 and AdamW runs compare), no duration augmentation
+    # (each loader worker draws its own, so two runs' batches would
+    # differ), no priors, GMMs, d-vectors or SWA
+    bf16 = ["--train_target_path", str(corpus), "--cache_path", str(work / "cache"),
+            "--batch_size", str(DP_BATCH), "--log_every", "1", "--max_steps", str(DP_STEPS),
+            "--checkpoint_every", "2", "--num_workers", "2", "--warmup_steps", "1",
+            "--augment_duration", "0", "--compute_dvectors", "False",
+            "--variance_transforms", "cwt", "none", "none"]
+    f32 = ["--train_target_path", str(pair), "--cache_path", str(work / "pair_cache"),
+           "--batch_size", str(n_ranks), "--max_steps", "1", "--log_every", "1",
+           "--num_workers", "0",
+           "--precision", "32", "--warmup_steps", "1", "--encoder_dropout", "0",
+           "--decoder_dropout", "0", "--variance_dropout", "0", "0", "0",
+           "--duration_dropout", "0", "--augment_duration", "0",
+           "--variance_transforms", "cwt", "none", "none"]
+    runs = [{"name": "adamw", "profile": True,
+             "argv": bf16 + ["--valid_target_path", str(valid), "--eval_every", str(DP_STEPS),
+                             "--checkpoint_dir", str(work / "ck_adamw"),
+                             "--log_dir", str(work / "logs_adamw")]},
+            {"name": "zero1",
+             "argv": bf16 + ["--zero1", "True", "--checkpoint_dir", str(work / "ck_zero1"),
+                             "--log_dir", str(work / "logs_zero1")]},
+            # the AdamW run's first 2 steps again, batches from this process:
+            # two runs' difference, the floor the ZeRO-1 run is read against
+            {"name": "repeat",
+             "argv": bf16 + ["--max_steps", "2", "--num_workers", "0",
+                             "--checkpoint_dir", str(work / "ck_repeat")]},
+            {"name": "f32", "argv": f32 + ["--checkpoint_dir", str(work / "ck_f32")]}]
+    runs_file = work / "runs.json"
+    runs_file.write_text(json.dumps(runs))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    torchrun_s = _torchrun([str(ROOT / "chip_smoke.py"), "--cli-rank", str(runs_file)],
+                           ROOT / "chiprun_out" / "parallel_torchrun.log", 600, n_ranks)
+    ranks = [json.loads((ROOT / "chiprun_out" / f"parallel_rank{r}.json").read_text())
+             for r in range(n_ranks)]
+    backend = "nccl" if n_ranks <= torch.cuda.device_count() else "gloo"
+
+    # every rank trained, launched the slice's kernels (the AdamW run also
+    # the probe, a process probing its card once, and ``ffn_ln`` in its
+    # evals), and logged the global batch's losses (rank 0 wrote them)
+    need = {"adamw": ("probe", "ffn_ln", "ffn_ln_train", "ffn_ln_train_bwd", "flash_attention",
+                      "flash_attention_bwd"),
+            "zero1": ("ffn_ln_train", "ffn_ln_train_bwd", "flash_attention",
+                      "flash_attention_bwd")}
+    for r in ranks:
+        for name in ("adamw", "zero1"):
+            run = r["runs"][name]
+            losses = [h["total"] for h in run["history"]]
+            if not (run["steps"] == DP_STEPS and len(losses) == DP_STEPS
+                    and all(math.isfinite(v) for v in losses)
+                    and all(run["launches"][k] > 0 for k in need[name])):
+                raise RuntimeError(f"rank {r['rank']} {name}: {run['steps']} steps, losses "
+                                   f"{losses}, launches {run['launches']}")
+        if r["backend"] != backend or r["world"] != n_ranks:
+            raise RuntimeError(f"rank {r['rank']}: backend {r['backend']}, world {r['world']}")
+    for name in ("adamw", "zero1"):
+        logged = [[{k: v for k, v in h.items() if k != "steps_per_s"}
+                   for h in r["runs"][name]["history"]] for r in ranks]
+        if any(other != logged[0] for other in logged[1:]):
+            raise RuntimeError(f"{name}: the ranks logged different losses")
+    lines = _metrics_lines(work / "logs_adamw")
+    if len([l for l in lines if "train/total_loss" in l]) != DP_STEPS or not any(
+            "eval/mel_loss" in l for l in lines):
+        raise RuntimeError(f"rank 0's metrics.jsonl: {len(lines)} lines")
+    # ZeRO-1 against AdamW: the parameters after 2 steps, against the
+    # update from the (seeded) initial weights, over all and tensor by
+    # tensor (a tensor no rank broadcast would not have moved); the
+    # backward's atomics part two runs' gradients by rounding
+    p2 = {name: Checkpointer(work / f"ck_{name}").restore(
+        work / f"ck_{name}" / "step_00000002")[0] for name in ("adamw", "zero1", "repeat")}
+    args = cli.build_parser().parse_args(runs[0]["argv"])
+    cfg = cli.args_to_config(args)
+    dcfg = dataclasses.replace(cli.data_config(args, cfg), scan_workers=0)
+    init = build_model(cfg, TTSDataset(corpus, dcfg, cache_dir=work / "cache", device="cuda"),
+                       device="cuda").state_dict()
+
+    def against_adamw(name):
+        """The run's step-2 parameters against the AdamW run's: the norm of
+        the difference over the update's, the largest element, and each
+        tensor's update norm over AdamW's."""
+        diff = update = err = 0.0
+        moved = []
+        for k, a in p2["adamw"]["params"].items():
+            a, z, i = a.double(), p2[name]["params"][k].double(), init[k].cpu().double()
+            upd = float(((a - i) ** 2).sum())
+            diff += float(((z - a) ** 2).sum())
+            update += upd
+            err = max(err, float((z - a).abs().max()))
+            if upd > 0:
+                moved.append(math.sqrt(float(((z - i) ** 2).sum()) / upd))
+        return {"diff_over_update": math.sqrt(diff / max(update, 1e-300)), "max_abs_err": err,
+                "update_norm": math.sqrt(update), "tensor_update_ratio": [min(moved), max(moved)]}
+
+    zero = against_adamw("zero1")
+    repeat = against_adamw("repeat")
+    full_state = p2["zero1"]["opt_state"]["state"]
+    if (zero["diff_over_update"] > DP_ZERO1_REL
+            or max(abs(m - 1) for m in zero["tensor_update_ratio"]) > DP_ZERO1_TENSOR
+            or len(full_state) != len(p2["adamw"]["opt_state"]["state"])):
+        raise RuntimeError(f"ZeRO-1 after 2 steps: {zero} (AdamW run again: {repeat}), "
+                           f"{len(full_state)} parameter states")
+    opt_bytes = {name: [r["runs"][name]["optimizer_bytes"] for r in ranks]
+                 for name in ("adamw", "zero1")}
+    if not all(z < a for z, a in zip(opt_bytes["zero1"], opt_bytes["adamw"])):
+        raise RuntimeError(f"optimizer bytes a rank: {opt_bytes}")
+
+    # the f32 step of the ranks against one process on the same global batch
+    reset_counts(counters)
+    one = _train_cli(cli, f32 + ["--checkpoint_dir", str(work / "ck_f32_one")], counters)
+    ha = ranks[0]["runs"]["f32"]["history"][0]
+    hb = one["result"].history[0]
+    f32_err = {k: abs(ha[k] - hb[k]) / max(abs(hb[k]), 1e-6)
+               for k in hb if k not in ("steps_per_s", "lr")}
+    if max(f32_err.values()) > DP_F32_REL:
+        raise RuntimeError(f"f32 {n_ranks}-rank step against one process: {f32_err}")
+
+    nccl = _nccl_world_of_one()
+
+    def step_ms(r, name, checkpointed):
+        """Host ms of the logged intervals after the first: those that hold a
+        checkpoint (every 2 steps) or those that do not."""
+        ms = [1e3 / h["steps_per_s"] for h in r["runs"][name]["history"]]
+        return [m for i, m in enumerate(ms) if i and (i % 2 == 0) == checkpointed]
+
+    row = {"phase": "parallel", "ranks": n_ranks, "cards": torch.cuda.device_count(),
+           "backend": backend,
+           "global_batch": DP_BATCH, "steps": DP_STEPS, "torchrun_s": torchrun_s,
+           "host_ms_a_step_median": {
+               name: [statistics.median(step_ms(r, name, False)) for r in ranks]
+               for name in ("adamw", "zero1")},
+           "host_ms_a_checkpoint_step_median": {
+               name: [statistics.median(step_ms(r, name, True)) for r in ranks]
+               for name in ("adamw", "zero1")},
+           "one_rank_host_ms_a_step_median": (one_rank or {}).get("host_ms_a_step_median"),
+           "profiled_step": [r["runs"]["adamw"]["profiled_step"] for r in ranks],
+           "peak_gb": {name: [r["runs"][name]["peak_gb"] for r in ranks]
+                       for name in ("adamw", "zero1", "f32")},
+           "optimizer_bytes": opt_bytes,
+           "launches": [r["runs"]["adamw"]["launches"] for r in ranks],
+           "flash_routes": [r["runs"]["adamw"]["flash_routes"] for r in ranks],
+           "run_s": {name: [r["runs"][name]["s"] for r in ranks]
+                     for name in ("adamw", "zero1", "f32")},
+           "loader_wait_s": [r["runs"]["adamw"]["loader_wait_s"] for r in ranks],
+           "first_loss": ranks[0]["runs"]["adamw"]["history"][0]["total"],
+           "last_loss": ranks[0]["runs"]["adamw"]["history"][-1]["total"],
+           "zero1_vs_adamw_step2": {**zero, "tol": DP_ZERO1_REL, "tensor_tol": DP_ZERO1_TENSOR},
+           "adamw_again_vs_adamw_step2": repeat,
+           "f32_ranks_vs_one": {"max_rel_err": max(f32_err.values()), "per_loss": f32_err,
+                                "tol": DP_F32_REL, "ranks": ha, "one": hb},
+           "nccl_world_of_one": nccl,
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(row)
+    print(f"phase 30 (data parallel): {row['phase_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"row": row,
+            "launches": {c.__name__: [r["runs"]["adamw"]["launches"][c.__name__] for r in ranks]
+                         for c in counters}}
+
+
+def parallel_main(n_ranks: int) -> int:
+    """``python3 chip_smoke.py --parallel N``: phase 30 alone at ``N``
+    ranks after the build (with N cards, one rank a card over NCCL), then
+    the nvidia-smi lines and the device line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a Hopper card",
+              file=sys.stderr)
+        return 1
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    parallel_phase(all_counters(), smi, None, n_ranks)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -4443,13 +4852,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from lightningfastspeech2_tpu_torch.ops import attention as att
-    from lightningfastspeech2_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
-    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
-    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
-    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
-    from lightningfastspeech2_tpu_torch.ops.length_regulator import regulate, regulate_bwd
-    from lightningfastspeech2_tpu_torch.ops.probe import probe
-    from lightningfastspeech2_tpu_torch.ops.soft_dtw import soft_dtw, soft_dtw_bwd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4458,9 +4860,7 @@ def main() -> int:
     build_phase()
     probe_row = probe_phase(dev)
     rows = kernels_phase(dev)
-    counters = (probe, ffn_ln, resblock, resblock_trio, ffn_ln_train, ffn_ln_train_bwd,
-                flash_attention, flash_attention_bwd, soft_dtw, soft_dtw_bwd, regulate,
-                regulate_bwd, lvc_stack)
+    counters = all_counters()
     for flag in ("LFS2_PALLAS_LR", "LFS2_FUSED_STAGE1"):
         if flag in os.environ:
             raise RuntimeError(f"run without {flag}: the script sets it for its own phases")
@@ -4507,6 +4907,7 @@ def main() -> int:
     joint = canonical_joint_phase(counters, info["nvidia_smi"])
     voc = hifigan_training_phase(counters, info["nvidia_smi"])
     odf = on_device_features_phase(counters, info["nvidia_smi"])
+    dp = parallel_phase(counters, info["nvidia_smi"], train_cli["row"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -4676,6 +5077,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in odf["launches"] and "launches_phase_29" not in k:
             k["launches_phase_29"] = odf["launches"][k["name"]]
+    # phase 30's counted run (two ranks, the AdamW run), each rank's
+    for k in kernels:
+        if k["name"] in dp["launches"] and "launches_phase_30" not in k:
+            k["launches_phase_30"] = {f"rank {i}": n
+                                      for i, n in enumerate(dp["launches"][k["name"]])}
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4684,4 +5090,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel"]:
+        sys.exit(parallel_main(int(sys.argv[2])))
     sys.exit(main())

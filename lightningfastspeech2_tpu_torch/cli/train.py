@@ -15,8 +15,17 @@ generate CLI):
 asynchronous checkpoints, an optional warm start) -> final checkpoint ->
 SWA checkpoint under ``swa/`` -> final eval -> priors in the sidecar and
 ``prior_gmms.pkl``. The checkpoint directory is what the port's generate
-CLI serves. One process trains on one device: the mesh flags and
-``--zero1`` change nothing, as in the JAX CLI on one device.
+CLI serves.
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+lightningfastspeech2_tpu_torch.cli.train ...`` N ranks train one model on
+the global batch ``--batch_size`` (parallel/mesh.py): the mesh's data axis
+(every rank ``--mesh_model`` leaves, halved until it divides the batch, as
+the JAX CLI halves it) splits the corpus and each batch, ``--mesh_model``
+replicates, ``--zero1`` shards the optimizer's moments over the data axis.
+Rank 0 writes the feature and d-vector caches first (the others then read
+them), the GMM pickles, the checkpoints and the logs. In one process the
+mesh flags and ``--zero1`` change nothing, as in the JAX CLI on one device.
 ``--fastdiff_vocoder`` trains the joint acoustic + FastDiff module (the
 dataset then loads each wav), ``--fastdiff_variances`` /
 ``--fastdiff_speakers`` the diffusion adaptor and speaker generator,
@@ -329,24 +338,71 @@ def main(argv=None):
     cfg = args_to_config(args)
     check_flags(args)
 
+    import torch.distributed as dist
+
+    from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
+
+    # before the device is resolved: each rank's card becomes its current one
+    backend = mesh_lib.distributed_init(args.device)
+    try:
+        return _train(args, cfg)
+    finally:
+        if backend is not None:
+            dist.destroy_process_group()
+
+
+def make_train_mesh(cfg, batch_size: int):
+    """The mesh of the ranks of the process group (None in one process):
+    the JAX CLI's layout, its data axis halved until it divides the global
+    batch. Every rank must find a place in it."""
+    from lightningfastspeech2_tpu_torch.core.config import MeshConfig
+    from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
+
+    n = mesh_lib.world_size()
+    if n == 1:
+        return None
+    mesh_lib.mesh_layout(cfg.mesh, n)
+    data = mesh_lib.data_axis_for_batch(cfg.mesh, n, batch_size)
+    if data * cfg.mesh.model != n:
+        raise ValueError(f"the data axis halves to {data} to divide the global batch "
+                         f"{batch_size}: a {data}x{cfg.mesh.model} mesh leaves ranks of the "
+                         f"{n} out; pick a batch that {n // cfg.mesh.model} ranks divide")
+    mesh = mesh_lib.make_mesh(MeshConfig(data=data, model=cfg.mesh.model))
+    print(f"mesh: data={data} model={cfg.mesh.model}", flush=True)
+    return mesh
+
+
+def _train(args, cfg):
+    import contextlib
+    import copy
+
     import torch
 
     from lightningfastspeech2_tpu_torch.core.checkpoint import Checkpointer, warm_start
     from lightningfastspeech2_tpu_torch.core.device import f32_convolutions, resolve_device
     from lightningfastspeech2_tpu_torch.data.dataset import TTSDataset
     from lightningfastspeech2_tpu_torch.models.joint import flatten_joint, nest_joint
+    from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
     from lightningfastspeech2_tpu_torch.train.loop import (
         StopTraining, build_model, encoder_snapshot, evaluate, fit)
     from lightningfastspeech2_tpu_torch.train.metrics_logger import MetricsLogger
-    from lightningfastspeech2_tpu_torch.train.step import TrainState, create_train_state
+    from lightningfastspeech2_tpu_torch.train.step import (
+        TrainState, create_train_state, optimizer_state_dict)
 
     f32_convolutions(args.precision)
     device = resolve_device(args.device)
+    main_rank = mesh_lib.is_main()
+    mesh = make_train_mesh(cfg, args.batch_size)
     dcfg = data_config(args, cfg)
     print(f"scanning corpus {args.train_target_path} ...", flush=True)
-    dataset = TTSDataset(root=Path(args.train_target_path), cfg=dcfg,
-                         cache_dir=Path(args.cache_path) if args.cache_path else None,
-                         device=device)
+    cache = Path(args.cache_path) if args.cache_path else None
+    # every rank parses the corpus at once; with a cache, rank 0 computes
+    # the statistics (filling the feature cache and the stats JSON) and the
+    # others then read them
+    dataset = TTSDataset(root=Path(args.train_target_path), cfg=dcfg, cache_dir=cache,
+                         device=device, compute_stats=False)
+    with mesh_lib.main_first("dataset_stats") if cache else contextlib.nullcontext():
+        dataset.compute_stats(cache)
     print(f"{len(dataset)} utterances, {len(dataset.speakers)} speakers, "
           f"{len(dataset.vocab)} phones", flush=True)
     if args.compute_dvectors and "dvector" in args.speaker_type and len(dataset):
@@ -360,10 +416,12 @@ def main(argv=None):
                                     weights_only=True)
         pipeline = DVectorPipeline(state_dict, sampling_rate=cfg.model.audio.sampling_rate,
                                    device=device)
-        dataset.create_dvectors(pipeline)
+        # rank 0 writes the d-vector files beside the audio, the others read
+        with mesh_lib.main_first("dvectors"):
+            dataset.create_dvectors(pipeline)
         print(f"d-vectors: embedded {len(dataset)} utterances, "
               f"{len(dataset.speaker2dvector)} speaker vectors", flush=True)
-        if args.dvector_gmm:
+        if args.dvector_gmm and main_rank:
             from lightningfastspeech2_tpu_torch.utils.log_gmm import fit_dvector_gmms
 
             dvector_gmms = fit_dvector_gmms(dataset.get_speaker_dvectors())
@@ -376,9 +434,18 @@ def main(argv=None):
                          "paired <utt>.wav + <utt>.TextGrid files)")
     if args.sort_data_by_length:
         dataset.sort_by_duration()
+    train_set = dataset
+    if mesh is not None:
+        # each data rank keeps a strided slice of the scanned (seed-shuffled)
+        # corpus; ``dataset`` stays whole for the priors
+        train_set = copy.copy(dataset).shard_across_hosts(mesh)
+        print(f"rank {mesh.rank}/{mesh_lib.world_size()}: {len(train_set)} local utterances",
+              flush=True)
     valid = None
     if args.valid_target_path:
         valid = dataset.create_validation_dataset(Path(args.valid_target_path))
+        if mesh is not None:
+            valid.shard_across_hosts(mesh)
 
     logger = MetricsLogger(args.log_dir, use_wandb=args.wandb_mode == "online",
                            wandb_project=args.wandb_project)
@@ -390,23 +457,25 @@ def main(argv=None):
 
     def save(step: int, state: TrainState, directory=ckpt, side=sidecar, params=None):
         # a joint model's weights as {"acoustic", "fastdiff"}, as the JAX CLI
-        # writes them and the generate CLI serves them
+        # writes them and the generate CLI serves them; every rank calls it
+        # (a ZeRO-1 optimizer gathers its state), rank 0 writes
         params = params if params is not None else state.model.state_dict()
         return directory.save(step, nest_joint(params), cfg, side,
-                              opt_state=state.optimizer.state_dict())
+                              opt_state=optimizer_state_dict(state.optimizer))
 
     resume_state = None
     if args.from_checkpoint:
         # warm start (reference train.py:240-260, load_from_checkpoint with
         # strict=False): every tensor of matching name and shape restored, a
-        # fresh optimizer whose schedule starts over, as in the JAX CLI
+        # fresh optimizer whose schedule starts over, as in the JAX CLI; every
+        # rank restores
         restored, _, _ = Checkpointer(args.from_checkpoint).restore()
         model0 = build_model(cfg, dataset, device=device)
         merged, used, dropped = warm_start(model0.state_dict(),
                                            flatten_joint(restored["params"]))
         model0.load_state_dict(merged)
         print(f"warm start: {used} tensors restored, {dropped} kept fresh")
-        resume_state = create_train_state(model0, cfg)
+        resume_state = create_train_state(model0, cfg, mesh)
 
     eval_fn = None
     if valid is not None and len(valid):
@@ -418,10 +487,12 @@ def main(argv=None):
         best = {"loss": float("inf"), "stale": 0}
 
         def eval_fn(step_i, state):
+            # the whole validation set's metrics on every rank, so that every
+            # rank takes the same early-stopping decisions
             metrics = evaluate(cfg, valid, state.model,
                                media_dir=(Path(args.log_dir) / "eval_examples"
                                           if args.log_eval_media else None),
-                               step=step_i + 1)
+                               step=step_i + 1, mesh=mesh)
             logger.log(step_i, metrics)
             # best checkpoint on the eval mel loss (ModelCheckpoint analog,
             # reference train.py:265-273)
@@ -429,7 +500,8 @@ def main(argv=None):
             if mel_loss == mel_loss and mel_loss < best["loss"]:
                 best["loss"], best["stale"] = mel_loss, 0
                 path = save(step_i + 1, state)
-                (ckpt.dir / "best").write_text(path.name)
+                if main_rank:
+                    (ckpt.dir / "best").write_text(path.name)
             else:
                 best["stale"] += 1
                 if args.early_stopping and best["stale"] >= args.early_stopping_patience:
@@ -453,9 +525,9 @@ def main(argv=None):
                        for k, v in m.items()})
 
     try:
-        result = fit(cfg, dataset, max_steps=args.max_steps, log_fn=train_log_fn,
+        result = fit(cfg, train_set, max_steps=args.max_steps, log_fn=train_log_fn,
                      checkpoint_fn=lambda step_i, state: save(step_i + 1, state),
-                     eval_fn=eval_fn, state=resume_state, device=device)
+                     eval_fn=eval_fn, state=resume_state, device=device, mesh=mesh)
         save(args.max_steps, result.state)
         if result.swa_params is not None:
             # the averaged weights as a checkpoint of their own
@@ -464,15 +536,17 @@ def main(argv=None):
                  params={**result.state.model.state_dict(), **result.swa_params})
             print("saved SWA-averaged weights to checkpoint_dir/swa")
         if valid is not None and len(valid):
-            logger.log(args.max_steps, evaluate(cfg, valid, result.state.model))
+            logger.log(args.max_steps, evaluate(cfg, valid, result.state.model, mesh=mesh))
         if args.priors:
             # per-speaker priors always persist when priors are modelled: the
             # default "sample" strategy at synthesis needs them (reference
-            # fastspeech2.py:622-634)
-            priors = dataset.create_priors()
+            # fastspeech2.py:622-634); rank 0 computes them over the whole
+            # training set
+            priors = dataset.create_priors() if main_rank else {}
             save(args.max_steps, result.state, side={**sidecar, "speaker2priors": priors})
-            print(f"persisted priors for {len(priors)} speakers")
-            if args.priors_gmm:
+            if main_rank:
+                print(f"persisted priors for {len(priors)} speakers")
+            if args.priors_gmm and main_rank:
                 from lightningfastspeech2_tpu_torch.utils.log_gmm import fit_speaker_gmms
 
                 gmms = fit_speaker_gmms(priors, tuple(args.priors),

@@ -24,8 +24,18 @@ blocks only while the tensors are copied to the host (the train step then
 updates the live ones in place), the ``latest`` marker is published in
 ``wait_until_finished()`` after the write finished, and ``restore`` /
 ``latest_path`` wait implicitly, so a crash mid-write never leaves
-``latest`` pointing at a torn checkpoint. The port trains in one process,
-so there are no multi-host barriers.
+``latest`` pointing at a torn checkpoint.
+
+Under several ranks (parallel/mesh.py) every rank calls ``save`` and
+``wait_until_finished`` in the same order, and rank 0 alone touches the
+disk, in the JAX package's order: it removes a stale step directory, a
+barrier follows, it writes the tree, the config and the sidecars; a barrier
+ends a synchronous save, and one follows the publication of ``latest`` for
+an asynchronous one, so that no rank reads ``latest`` before it names a
+whole checkpoint. Every rank restores. A ZeRO-1 optimizer's shares are
+gathered before ``save`` (train/step.py ``optimizer_state_dict``, a
+collective), so the file holds a plain AdamW ``state_dict()`` whatever the
+number of ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from lightningfastspeech2_tpu_torch.core import config as C
+from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
 
 TREE_FILE = "tree.pt"
 
@@ -70,7 +81,8 @@ def _host_copy(tree: Any) -> Any:
 class Checkpointer:
     def __init__(self, directory, use_async: bool = False):
         self.dir = Path(directory).resolve()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if mesh_lib.is_main():
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._async = bool(use_async)
         self._writer: Optional[threading.Thread] = None
         self._pending: Optional[str] = None
@@ -89,8 +101,18 @@ class Checkpointer:
         # one write in flight: finish (and publish) the previous one first
         self.wait_until_finished()
         path = self.dir / f"step_{step:08d}"
-        if path.exists():
+        multi = mesh_lib.world_size() > 1
+        main = mesh_lib.is_main()
+        if main and path.exists():
             shutil.rmtree(path)
+        if multi:
+            mesh_lib.barrier(f"ckpt_pre_save_{step}")
+        if not main:
+            if self._async:
+                self._pending = path.name
+            elif multi:
+                mesh_lib.barrier(f"ckpt_post_save_{step}")
+            return path
         path.mkdir(parents=True)
         tree = {"params": _to_tensors(params), "step": int(step)}
         if opt_state is not None:
@@ -121,6 +143,9 @@ class Checkpointer:
         else:
             _write_tree(tree, path)
             (self.dir / "latest").write_text(path.name)
+            if multi:
+                # the other ranks may read ``latest`` right after save()
+                mesh_lib.barrier(f"ckpt_post_save_{step}")
         return path
 
     def _write(self, tree: Dict[str, Any], path: Path) -> None:
@@ -131,17 +156,20 @@ class Checkpointer:
 
     def wait_until_finished(self) -> None:
         """Block until the write in flight finished, then publish its
-        ``latest`` marker; re-raises the write's error. A no-op when no
-        write is in flight."""
-        if self._writer is None:
+        ``latest`` marker (rank 0) and wait for every rank; re-raises the
+        write's error. A no-op when no write is in flight."""
+        if self._pending is None:
             return
-        self._writer.join()
-        self._writer = None
         pending, self._pending = self._pending, None
-        if self._error is not None:
-            error, self._error = self._error, None
-            raise RuntimeError(f"checkpoint {pending} was not written") from error
-        (self.dir / "latest").write_text(pending)
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+            if self._error is not None:
+                error, self._error = self._error, None
+                raise RuntimeError(f"checkpoint {pending} was not written") from error
+            (self.dir / "latest").write_text(pending)
+        if mesh_lib.world_size() > 1:
+            mesh_lib.barrier(f"ckpt_publish_{pending}")
 
     def latest_path(self) -> Optional[Path]:
         self.wait_until_finished()

@@ -248,12 +248,18 @@ class TTSDataset:
 
         self.stats = stats
         if self.stats is None and compute_stats:
-            if cache_dir is not None and self.load_cache(cache_dir):
-                pass  # stats + vocab restored from cache
-            else:
-                self.stats = self._create_stats()
-                if cache_dir is not None:
-                    self.save_cache(cache_dir)
+            self.compute_stats(cache_dir)
+
+    def compute_stats(self, cache_dir: Optional[Path] = None) -> Dict[str, Dict[str, float]]:
+        """The variance statistics (and the vocab) from the stats cache under
+        ``cache_dir`` where it matches the corpus, else computed over the
+        corpus (filling the feature cache) and written there."""
+        if cache_dir is not None and self.load_cache(cache_dir):
+            return self.stats
+        self.stats = self._create_stats()
+        if cache_dir is not None:
+            self.save_cache(cache_dir)
+        return self.stats
 
     # ------------------------------------------------------------ scanning
     @staticmethod
@@ -663,16 +669,20 @@ class TTSDataset:
         self.vocab = Vocab.from_dict(data["phone2id"])
         return True
 
-    def shard_across_hosts(self) -> "TTSDataset":
-        """Multi-process input sharding: each rank of an initialized
-        ``torch.distributed`` group keeps a strided slice of the (already
-        seed-shuffled) entries; vocab and stats stay global so that every
-        rank builds identical models. Without a group, ``self``."""
-        import torch.distributed as dist
+    def shard_across_hosts(self, mesh=None) -> "TTSDataset":
+        """Multi-process input sharding: each data rank keeps a strided
+        slice of the (already seed-shuffled) entries; vocab and stats stay
+        global so that every rank builds identical models. ``mesh``
+        (parallel/mesh.py) gives the data axis: the ranks of one model group
+        keep the same slice, as the model axis replicates. Without a mesh
+        the world is the data axis; in one process (or a data axis of 1),
+        ``self`` as it is."""
+        from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
 
-        if not (dist.is_available() and dist.is_initialized()):
-            return self
-        n, i = dist.get_world_size(), dist.get_rank()
+        if mesh is None:
+            n, i = mesh_lib.world_size(), mesh_lib.rank()
+        else:
+            n, i = mesh.data, mesh.data_rank
         if n == 1:
             return self
         self.entries = self.entries[i::n]
@@ -766,6 +776,48 @@ def collate(
         wav_len = T * cfg.audio.hop_length
         batch["wav"] = pad_batch([i["wav"] for i in items], wav_len)
     return _shrink_transfer(batch, cfg)
+
+
+def batch_buckets(batch: Dict[str, Any], cfg: DataConfig) -> Tuple[int, int]:
+    """A collated batch's phone and frame buckets."""
+    if "mel" in batch:
+        return int(batch["phones"].shape[1]), int(batch["mel"].shape[1])
+    return int(batch["phones"].shape[1]), int(batch["wav"].shape[1]) // cfg.audio.hop_length
+
+
+def pad_to_bucket(batch: Dict[str, Any], cfg: DataConfig, P: int, T: int) -> Dict[str, Any]:
+    """A collated batch padded (never cut) to ``P`` phones and ``T`` frames,
+    as ``collate`` pads: ``silence_mask`` with 1, every other array with 0,
+    the wav to ``T`` hops. Per-item arrays (lengths, speakers, priors, CWT
+    means) stay as they are."""
+    p0, t0 = batch_buckets(batch, cfg)
+    if (p0, t0) == (P, T):
+        return batch
+    phone_level = {"phones", "duration", "silence_phone"}
+    frame_level = {"mel", "silence_mask"}
+    for var, level in zip(cfg.variances, cfg.variance_levels):
+        names = {f"variances_{var}", f"variances_{var}_signal", f"variances_{var}_spectrogram"}
+        (phone_level if level == "phone" else frame_level).update(names)
+    out = dict(batch)
+    for key, value in batch.items():
+        if key in phone_level:
+            out[key] = _pad_axis1(value, P)
+        elif key in frame_level:
+            out[key] = _pad_axis1(value, T, 1 if key == "silence_mask" else 0)
+        elif key == "wav":
+            out[key] = _pad_axis1(value, T * cfg.audio.hop_length)
+    return out
+
+
+def _pad_axis1(x, length: int, value=0):
+    """``x`` (numpy or a tensor) padded along axis 1 to ``length``."""
+    if isinstance(x, torch.Tensor):
+        fill = torch.full((x.shape[0], length - x.shape[1]) + tuple(x.shape[2:]), value,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, fill], dim=1)
+    widths = [(0, 0)] * x.ndim
+    widths[1] = (0, length - x.shape[1])
+    return np.pad(x, widths, constant_values=value)
 
 
 def _shrink_transfer(batch: Dict[str, np.ndarray],

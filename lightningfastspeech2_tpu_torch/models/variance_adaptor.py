@@ -20,7 +20,9 @@ Three spots where bits matter:
   multiply-add: a silent frame's energy comes back exactly at the stats
   minimum, the first boundary, where a second rounding flips its bin;
 - ``VariancePredictor`` zeroes rows beyond the batch-wide extent
-  (``any`` over the batch), not per item, as the reference does.
+  (``any`` over the batch), not per item, as the reference does; under a
+  batch split over data ranks the extent is the global batch's
+  (``parallel/mesh.py batch_any``), as in the JAX package's global step.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from lightningfastspeech2_tpu_torch.models.draws import Draws
 from lightningfastspeech2_tpu_torch.models.layers import LayerNorm, linear
 from lightningfastspeech2_tpu_torch.models.sdp import StochasticDurationPredictor
 from lightningfastspeech2_tpu_torch.ops import length_regulator as lr
+from lightningfastspeech2_tpu_torch.parallel.mesh import batch_any
 from lightningfastspeech2_tpu_torch.ops.dropout import dropout
 from lightningfastspeech2_tpu_torch.ops.depthwise import (
     depthwise_conv1d,
@@ -164,7 +167,7 @@ class VariancePredictor(nn.Module):
         if mask is not None:
             # zero rows past the batch-wide extent: the reference's tensors
             # end at the batch-max length, the static bucket goes further
-            extent = mask.any(0, keepdim=True)[..., None]
+            extent = batch_any(mask)[..., None]
         h = x
         for layer in self.layers:
             h = layer(h, generator)

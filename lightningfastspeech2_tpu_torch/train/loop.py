@@ -11,8 +11,19 @@ schedule. Metrics go to a pluggable ``log_fn`` (train/metrics_logger.py),
 checkpoints through ``checkpoint_fn`` (core/checkpoint.py).
 
 The model holds its parameters, so ``evaluate`` takes the model, and
-``restore_encoder_params`` works on state dicts. One process trains; the
-JAX package's mesh and ZeRO-1 paths have no counterpart here.
+``restore_encoder_params`` works on state dicts.
+
+Under a ``mesh`` that splits the batch (parallel/mesh.py; the train CLI
+under ``torch.distributed.run``) each data rank loads ``batch_size / data``
+items a micro-batch from its shard of the corpus (``local_batch_size``),
+the ranks pad each step's batch to their common bucket (``common_bucket``:
+the JAX package's global batch has one shape, and the CWT's recompose
+normalizes over the whole bucket), and the step reduces over the ranks
+(train/step.py). Every rank draws the same teacher-forcing branch; the
+dropout and stochastic-module streams differ by data rank, as the global
+batch's items draw apart in the JAX step. ``evaluate`` gathers the outputs
+over the data ranks, so every rank's metrics are the whole validation
+set's; media go from rank 0.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_devic
 from lightningfastspeech2_tpu_torch.models.draws import Draws, ModuleStreams
 from lightningfastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from lightningfastspeech2_tpu_torch.models.variance_adaptor import StatsTree, VarianceStats
+from lightningfastspeech2_tpu_torch.parallel import mesh as mesh_lib
 from lightningfastspeech2_tpu_torch.train.optim import noam_lr
 from lightningfastspeech2_tpu_torch.train.step import (
     TrainState,
@@ -95,6 +107,26 @@ class StopTraining(Exception):
     reference train.py:275-280)."""
 
 
+def local_batch_size(cfg: Config, mesh=None) -> int:
+    """The items a rank loads a micro-batch: ``cfg.train.batch_size`` is the
+    global batch, split over the mesh's data ranks (the JAX package's
+    ``local_batch_size``)."""
+    if mesh is None:
+        return cfg.train.batch_size
+    return mesh_lib.host_local_batch_size(cfg.train.batch_size, mesh.data)
+
+
+def common_bucket(batch: Dict[str, Any], data_cfg, mesh) -> Dict[str, Any]:
+    """A collated batch padded to the largest phone and frame buckets of the
+    data ranks (one small all-reduce), so that the ranks' shares are one
+    global batch of one shape. A no-op without a split batch."""
+    if mesh is None or not mesh.sharded:
+        return batch
+    from lightningfastspeech2_tpu_torch.data.dataset import batch_buckets, pad_to_bucket
+
+    return pad_to_bucket(batch, data_cfg, *mesh.max(batch_buckets(batch, data_cfg)))
+
+
 def _component_prefix(var: str) -> str:
     return ("variance_adaptor.duration_predictor." if var == "duration"
             else f"variance_adaptor.encoders.{var}.")
@@ -151,27 +183,38 @@ def _host(x) -> np.ndarray:
 @torch.no_grad()
 def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
              media_dir=None, step: int = 0, vocoder: Optional[Callable] = None,
-             max_examples: int = 10) -> Dict[str, float]:
+             max_examples: int = 10, mesh=None) -> Dict[str, float]:
     """Validation pass (reference validation_step + epoch end,
     ``fastspeech2.py:799-827,998-1163``): the teacher-forced losses and an
     inference forward of up to ``max_batches`` batches in eval mode, then
     the KDE-JS / MAE / MCD / soft-DTW metrics. Each batch's outputs come to
     the host once. With ``media_dir`` the first ``max_examples`` pred/true
-    mels are written there (and, with a ``vocoder``, their audio)."""
+    mels are written there (and, with a ``vocoder``, their audio), by rank
+    0. Under a ``mesh`` that splits the batch, ``dataset`` is this rank's
+    shard: the ranks run the same number of batches (the shortest shard's),
+    each global batch's losses come from the eval step, and its host
+    outputs are gathered in data-rank order, as the JAX package's
+    replicated eval outputs hold the global batch."""
     from lightningfastspeech2_tpu_torch.train.metrics import eval_metrics
 
     bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
-    eval_step = make_eval_step(model, cfg)
+    eval_step = make_eval_step(model, cfg, mesh)
+    sharded = mesh is not None and mesh.sharded
+    batch_size = local_batch_size(cfg, mesh)
+    if sharded:
+        max_batches = mesh.min([min(max_batches, len(dataset) // batch_size)])[0]
     vcfg = cfg.model.variance
     variances = vcfg.variances
     accum: Dict[str, List[np.ndarray]] = {}
     losses_sum: Dict[str, float] = {}
     n_batches = 0
-    for batch in batch_iterator(dataset, cfg.train.batch_size, bucketer, shuffle=False,
-                                epochs=1):
+    batches = batch_iterator(dataset, batch_size, bucketer, shuffle=False,
+                             epochs=1) if max_batches > 0 else iter(())
+    for batch in batches:
         if n_batches >= max_batches:
             break
         arrs = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+        arrs = common_bucket(arrs, getattr(dataset, "cfg", None), mesh)
         # feat carries the targets, those of a raw-wav batch too
         losses, out, out_inf, feat = eval_step(arrs)
         n_batches += 1
@@ -183,6 +226,7 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
                     if k in out_inf}
         for k, v in losses.items():
             losses_sum[k] = losses_sum.get(k, 0.0) + float(v)
+        part: Dict[str, List[np.ndarray]] = {}
         phone_mask, tf_mask = host["phone_mask"], host["frame_mask"]
         for i, var in enumerate(variances):
             if vcfg.transforms[i] == "cwt":
@@ -190,25 +234,28 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
             phone = vcfg.levels[i] == "phone"
             true_mask = phone_mask if phone else tf_mask
             true_full = _host(feat[f"variances_{var}"])
-            accum.setdefault(f"{var}_pred", []).append(
+            part.setdefault(f"{var}_pred", []).append(
                 host_inf[f"variances_{var}"][phone_mask if phone else host_inf["frame_mask"]])
-            accum.setdefault(f"{var}_true", []).append(
+            part.setdefault(f"{var}_true", []).append(
                 true_full[:, : true_mask.shape[1]][true_mask])
             # teacher-forced predictions share the target's frame grid: the
             # MAE's aligned pairs (fastspeech2.py:1024-1056)
-            accum.setdefault(f"{var}_pred_tf", []).append(
+            part.setdefault(f"{var}_pred_tf", []).append(
                 host[f"variances_{var}"][:, : true_mask.shape[1]][true_mask])
-        accum.setdefault("duration_pred", []).append(host_inf["duration_rounded"][phone_mask])
-        accum.setdefault("duration_true", []).append(
+        part.setdefault("duration_pred", []).append(host_inf["duration_rounded"][phone_mask])
+        part.setdefault("duration_true", []).append(
             _host(arrs["duration"])[:, : phone_mask.shape[1]][phone_mask])
         mel_pred, mel_true = host["mel"], _host(feat["mel"])
         for b in range(mel_pred.shape[0]):
-            accum.setdefault("mel_pred", []).append(mel_pred[b][tf_mask[b]])
-            accum.setdefault("mel_true", []).append(mel_true[b][: tf_mask[b].sum()])
+            part.setdefault("mel_pred", []).append(mel_pred[b][tf_mask[b]])
+            part.setdefault("mel_true", []).append(mel_true[b][: tf_mask[b].sum()])
+        for rank_part in (mesh.gather(part) if sharded else [part]):
+            for k, v in rank_part.items():
+                accum.setdefault(k, []).extend(v)
     metrics = eval_metrics(accum, variances)
     for k, v in losses_sum.items():
         metrics[f"eval/{k}_loss"] = v / max(n_batches, 1)
-    if media_dir is not None:
+    if media_dir is not None and mesh_lib.is_main():
         from lightningfastspeech2_tpu_torch.utils.plotting import save_eval_examples
 
         mels_pred = accum.get("mel_pred", [])[:max_examples]
@@ -223,18 +270,20 @@ def evaluate(cfg: Config, dataset, model: FastSpeech2, max_batches: int = 8,
     return metrics
 
 
-def _step_generator(device: torch.device, seed: int, step_i: int) -> torch.Generator:
-    """The dropout and kernel-seed stream of step ``step_i``: a function of
-    (seed, step) alone, as the JAX package's ``fold_in(PRNGKey(seed + 1),
-    step)``."""
-    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + step_i)
+def _step_generator(device: torch.device, seed: int, step_i: int,
+                    data_rank: int = 0) -> torch.Generator:
+    """The dropout and kernel-seed stream of step ``step_i`` on data rank
+    ``data_rank``: a function of (seed, step, data rank) alone, as the JAX
+    package's ``fold_in(PRNGKey(seed + 1), step)``."""
+    return torch.Generator(device=device).manual_seed(((seed + 1) << 32) + step_i
+                                                      + (data_rank << 48))
 
 
-def _step_draws(seed: int, step_i: int) -> ModuleStreams:
-    """The stochastic modules' draws of step ``step_i`` (the JAX package's
-    ``sdp`` stream, ``fold_in(rng, 7)``): drawn on the CPU, so the card and
-    the CPU train on the same values."""
-    return ModuleStreams((((seed + 1) << 32) + step_i) * 8 + 7)
+def _step_draws(seed: int, step_i: int, data_rank: int = 0) -> ModuleStreams:
+    """The stochastic modules' draws of step ``step_i`` on data rank
+    ``data_rank`` (the JAX package's ``sdp`` stream, ``fold_in(rng, 7)``):
+    drawn on the CPU, so the card and the CPU train on the same values."""
+    return ModuleStreams((((seed + 1) << 32) + step_i) * 8 + 7 + (data_rank << 52))
 
 
 def fit(cfg: Config, dataset, max_steps: Optional[int] = None,
@@ -242,31 +291,34 @@ def fit(cfg: Config, dataset, max_steps: Optional[int] = None,
         checkpoint_fn: Optional[Callable[[int, TrainState], None]] = None,
         eval_fn: Optional[Callable[[int, TrainState], Any]] = None,
         state: Optional[TrainState] = None, device: DeviceLike = None,
-        draws: Optional[Draws] = None) -> TrainResult:
+        draws: Optional[Draws] = None, mesh=None) -> TrainResult:
     """Train for ``max_steps`` (default ``cfg.train.max_steps``) optimizer
     steps from ``state`` (default: ``build_model`` on ``device`` and a fresh
-    AdamW). The stochastic modules draw from each step's own streams
-    (``_step_draws``), or from ``draws`` for all steps where given. The
+    AdamW, ZeRO-1 under ``cfg.train.zero1`` and a split batch). The
+    stochastic modules draw from each step's own streams (``_step_draws``),
+    or from ``draws`` for all steps where given. Under a ``mesh``,
+    ``dataset`` is this rank's shard and every rank calls ``fit``. The
     loader's workers, when there are any, are closed on every way out."""
     if state is None:
-        state = create_train_state(build_model(cfg, dataset, device=resolve_device(device)), cfg)
+        state = create_train_state(build_model(cfg, dataset, device=resolve_device(device)), cfg,
+                                   mesh)
     bucketer = Bucketer(cfg.model.max_phones, cfg.model.max_frames)
     max_steps = max_steps or cfg.train.max_steps
     accum = max(cfg.train.grad_accum, 1)
+    batch_size = local_batch_size(cfg, mesh)
     loader = None
     if cfg.train.num_workers > 0:
         from lightningfastspeech2_tpu_torch.data.loader import PrefetchLoader
 
-        loader = PrefetchLoader(dataset, cfg.train.batch_size * accum, bucketer,
+        loader = PrefetchLoader(dataset, batch_size * accum, bucketer,
                                 seed=cfg.train.seed, num_workers=cfg.train.num_workers,
                                 prefetch=cfg.train.prefetch, device=dataset.device)
         batches = iter(loader)
     else:
-        batches = batch_iterator(dataset, cfg.train.batch_size * accum, bucketer,
-                                 seed=cfg.train.seed)
+        batches = batch_iterator(dataset, batch_size * accum, bucketer, seed=cfg.train.seed)
     try:
         return _fit_loop(cfg, state, batches, accum, max_steps, log_fn, checkpoint_fn, eval_fn,
-                         len(dataset), draws)
+                         len(dataset), draws, mesh, getattr(dataset, "cfg", None))
     finally:
         if loader is not None:
             loader.close()
@@ -274,13 +326,16 @@ def fit(cfg: Config, dataset, max_steps: Optional[int] = None,
 
 def _fit_loop(cfg: Config, state: TrainState, batches, accum: int, max_steps: int,
               log_fn, checkpoint_fn, eval_fn, len_dataset: int = 1,
-              draws: Optional[Draws] = None) -> TrainResult:
+              draws: Optional[Draws] = None, mesh=None, data_cfg=None) -> TrainResult:
     model = state.model
-    step_fn = make_train_step(model, cfg)
+    step_fn = make_train_step(model, cfg, mesh)
+    batch_size = local_batch_size(cfg, mesh)
+    data_rank = 0 if mesh is None else mesh.data_rank
     schedule_fn = None
     if cfg.model.fastdiff_vocoder:
         # the epoch-indexed P(condition the vocoder on the predicted mel)
-        # (reference fastspeech2.py:403-411)
+        # (reference fastspeech2.py:403-411); as in the JAX package, an
+        # epoch is this rank's shard over the global batch
         from lightningfastspeech2_tpu_torch.models.joint import schedule_probability
 
         steps_per_epoch = max(len_dataset // (cfg.train.batch_size * accum), 1)
@@ -298,8 +353,9 @@ def _fit_loop(cfg: Config, state: TrainState, batches, accum: int, max_steps: in
     rate_anchor = (0, t_start)
     for step_i in range(max_steps):
         arrs = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+        arrs = common_bucket(arrs, data_cfg, mesh)
         if accum > 1:
-            arrs = {k: v.reshape((accum, cfg.train.batch_size) + tuple(v.shape[1:]))
+            arrs = {k: v.reshape((accum, batch_size) + tuple(v.shape[1:]))
                     for k, v in arrs.items()}
         tf = True
         if cfg.model.tf_ratio < 1.0:
@@ -308,9 +364,11 @@ def _fit_loop(cfg: Config, state: TrainState, batches, accum: int, max_steps: in
                       <= cfg.model.tf_ratio)
         kwargs = {} if schedule_fn is None else {"schedule_p": schedule_fn(step_i)}
         state, metrics = step_fn(state, arrs, _step_generator(model.device, cfg.train.seed,
-                                                               step_i), tf=tf, frozen=frozen,
+                                                               step_i, data_rank),
+                                 tf=tf, frozen=frozen,
                                  draws=(draws if draws is not None
-                                        else _step_draws(cfg.train.seed, step_i)), **kwargs)
+                                        else _step_draws(cfg.train.seed, step_i, data_rank)),
+                                 **kwargs)
         if swa is not None:
             swa.update(step_i, dict(model.named_parameters()))
         if step_i % cfg.train.log_every == 0 or step_i == max_steps - 1:

@@ -104,13 +104,21 @@ def _bf16(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
-def make_optimizer(params: Iterable[torch.nn.Parameter],
-                   cfg: TrainConfig) -> torch.optim.Optimizer:
+def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
+                   zero_group=None) -> torch.optim.Optimizer:
+    """AdamW (``AdamWBf16Mu`` with ``cfg.bf16_moments``); with a
+    ``zero_group`` (a process group) torch's ``ZeroRedundancyOptimizer``
+    around it, each rank of the group holding the moments of its share of
+    the parameters (ZeRO-1)."""
     kwargs = dict(lr=noam_lr(cfg.lr, cfg.warmup_steps, 0), betas=tuple(cfg.betas),
                   eps=cfg.eps, weight_decay=cfg.weight_decay)
-    if cfg.bf16_moments:
-        return AdamWBf16Mu(list(params), **kwargs)
-    return torch.optim.AdamW(list(params), **kwargs)
+    cls = AdamWBf16Mu if cfg.bf16_moments else torch.optim.AdamW
+    if zero_group is not None:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        return ZeroRedundancyOptimizer(list(params), optimizer_class=cls,
+                                       process_group=zero_group, **kwargs)
+    return cls(list(params), **kwargs)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -302,6 +302,18 @@ Phases, each printed as one JSON line:
     ``DP_F32_REL`` of the same step in this process; then the mesh helpers
     in a world of one NCCL rank. Alone: ``python3 chip_smoke.py --parallel
     N`` (N ranks; on a machine of N cards, one rank a card over NCCL).
+31. B16 widths and the tools: phase 5's sentences and batch through the
+    flagship with a V1-shaped HiFi-GAN at ``upsample_initial_channel`` 384
+    (stages 192, 96, 48, 24, which the resblock kernels run zero-padded to
+    256, 128, 64, 32) in bf16 and in f32: launches counted by width, no
+    signal padded on the way; the f32 request against the CPU (phase 6's
+    tolerance); each width against its plain version at the 512-frame
+    bucket with its time, the unpadded work's bound and the copy a direct
+    call makes. Then ``cli.plot`` on phase 26's corpus without matplotlib,
+    ``dio_pitch`` built on the host, one request under ``profile_trace``
+    with an ``annotate`` span and the resblock kernels in the trace, and
+    the resblock library's SASS through ``kernel_dump_to``. Rows 4-5 of the
+    ``kernels`` line gain ``launches_phase_31`` and ``b16_widths``.
 
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
@@ -736,7 +748,11 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16, cfg=None, stages=None,
     each) of HiFi-GAN V1 (or ``cfg``; only ``stages`` where given) in
     ``dtype`` for a mel of ``t_mel`` frames, with the tile plan of each
     launch; bf16 also times the same chain through bf16 cuDNN convs.
-    ``singles``: a trio stage's resblocks also one at a time."""
+    ``singles``: a trio stage's resblocks also one at a time. A stage the
+    kernels run zero-padded (ROADMAP B16) gets x at the padded width with
+    the padded channels 0, as the served generator hands it over; its
+    bound is that of the unpadded work, and the copy a direct call at the
+    stage's own width makes (``pad_copy_ms``) is timed beside it."""
     from lightningfastspeech2_tpu_torch.ops import hifigan_resblock as rb
     from lightningfastspeech2_tpu_torch.vocoder.hifigan import Generator, HifiGanConfig
 
@@ -757,7 +773,9 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16, cfg=None, stages=None,
         if stages is not None and stage not in stages:
             continue
         C = cfg.upsample_initial_channel // 2 ** (stage + 1)
-        x = torch.randn(1, L, C, generator=g).to(dev, dtype)
+        P = weights[0].channels
+        x_real = torch.randn(1, L, C, generator=g).to(dev, dtype)
+        x = torch.nn.functional.pad(x_real, (0, P - C))
         if singles and weights[0].n_res > 1:
             weights = weights + [rb.prepare_resblock_weights([blk], dtype) for blk in (
                 gen.resblocks[stage * weights[0].n_res + j].spec()
@@ -774,16 +792,19 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16, cfg=None, stages=None,
             flops = L * sum(2 * k * C * C * 2 * len(ds)
                             for k, ds in zip(w.kernel_sizes, w.dilations))
             # x read and the output written once, each conv's weights once
-            # (the f32 route's prepared taps are split: twice the weights)
+            # (the f32 route's prepared taps are split: twice the weights),
+            # all at the stage's own width
             n_w = sum(k * C * C * 2 * len(ds) for k, ds in zip(w.kernel_sizes, w.dilations))
-            nbytes = 2 * tensor_bytes(x) + n_w * x.element_size() + tensor_bytes(w.bias)
+            nbytes = (2 * tensor_bytes(x_real) + n_w * x.element_size()
+                      + tensor_bytes(w.bias) * C // P)
             plan = rb.tile_plan(w, 1, L)
             if launched != {"blocks": plan.blocks, "tile": plan.tile,
                             "smem_bytes": plan.smem_bytes}:
                 raise RuntimeError(f"{kern.__name__} at L={L}: launched {launched}, "
                                    f"planned {plan}")
+            at = f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}"
             row = {"name": kern.__name__, "stage": stage, "channels": C,
-                   "at": f"x (1, {L}, {C}) {name}, k={list(w.kernel_sizes)}, Tmel={t_mel}",
+                   "at": at if P == C else f"{at}, run at C={P}",
                    "route": plan.route, "max_abs_err": err, "tol": tol,
                    "ms": cuda_ms(lambda: kern(x, w)), "plain_ms": cuda_ms(lambda: plain(x, w)),
                    "plain": ("the f32 cuDNN chain (F.conv1d, TF32 off)" if dtype == torch.float32
@@ -791,6 +812,12 @@ def _resblock_cases(dev, t_mel, g, dtype=torch.bfloat16, cfg=None, stages=None,
                    "tile": launched["tile"], "blocks_per_launch": launched["blocks"],
                    "smem_bytes": launched["smem_bytes"], "x_in_smem": plan.x_in_smem,
                    "halo_recompute_share": plan.halo_share}
+            if P != C:
+                row["kernel_channels"] = P
+                row["pad_copy_ms"] = cuda_ms(lambda: torch.nn.functional.pad(x_real, (0, P - C)))
+                row["direct_call_ms"] = cuda_ms(lambda: kern(x_real, w))
+                if torch.count_nonzero(out[..., C:]).item():
+                    raise RuntimeError(f"{kern.__name__} at {at}: padded channels not 0")
             if dtype == torch.bfloat16:
                 blocks = [[(w1.to(dtype), b1.to(dtype), d, w2.to(dtype), b2.to(dtype))
                            for w1, b1, d, w2, b2 in pairs] for pairs in w.pairs]
@@ -851,10 +878,12 @@ def _calibrate_durations(model, gen, texts) -> float:
     return bias
 
 
-def _make_generator(cfg, dtype, dev, dvecs, texts, bias, fastdiff=False, noise_source=None):
-    """The served generator: the flagship and HiFi-GAN V1, or with
-    ``fastdiff`` the flagship with its residual head and the FastDiff
-    vocoder (its noise from ``noise_source`` where given)."""
+def _make_generator(cfg, dtype, dev, dvecs, texts, bias, fastdiff=False, noise_source=None,
+                    hifigan_cfg=None):
+    """The served generator: the flagship and HiFi-GAN V1 (or
+    ``hifigan_cfg``), or with ``fastdiff`` the flagship with its residual
+    head and the FastDiff vocoder (its noise from ``noise_source`` where
+    given)."""
     from lightningfastspeech2_tpu_torch.data.vocab import Vocab
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import build_fastspeech2
     from lightningfastspeech2_tpu_torch.synthesis.g2p import BUILTIN_LEXICON, EnglishG2P
@@ -872,7 +901,7 @@ def _make_generator(cfg, dtype, dev, dvecs, texts, bias, fastdiff=False, noise_s
         synth = FastDiffSynthesiser(cfg.model, vocoder_precision=16 if dtype == torch.bfloat16
                                     else 32, device=dev, seed=1, noise_source=noise_source)
     else:
-        synth = Synthesiser(HifiGanConfig(), dtype=dtype, device=dev, seed=1)
+        synth = Synthesiser(hifigan_cfg or HifiGanConfig(), dtype=dtype, device=dev, seed=1)
     gen = SpeechGenerator(cfg, model, vocab, g2p, synthesiser=synth,
                           speaker2dvector=dvecs)
     if bias is None:
@@ -1062,11 +1091,12 @@ def hifigan_vocoder_profile(synth, cfg, tag: str = "") -> dict:
     return row
 
 
-def reference_phase(served, fastdiff: bool = False, tag: str = "") -> None:
+def reference_phase(served, fastdiff: bool = False, tag: str = "", hifigan_cfg=None) -> dict:
     """One f32 request on the card (kernels) against the same request on
     the CPU (plain versions), same seeded weights and duration bias; with
     ``fastdiff``, the FastDiff server, its noise drawn on the CPU from one
-    seed for each call and handed to both."""
+    seed for each call and handed to both; ``hifigan_cfg`` another
+    HiFi-GAN than V1."""
     text = SENTENCES[1]
     cfg = served["fastdiff_cfg"] if fastdiff else served["cfg"]
 
@@ -1080,7 +1110,8 @@ def reference_phase(served, fastdiff: bool = False, tag: str = "") -> None:
     for dev in ("cuda", "cpu"):
         gen, _ = _make_generator(cfg, torch.float32, dev, served["dvecs"], BATCH_TEXTS,
                                  bias=served["bias"], fastdiff=fastdiff,
-                                 noise_source=cpu_noise if fastdiff else None)
+                                 noise_source=cpu_noise if fastdiff else None,
+                                 hifigan_cfg=hifigan_cfg)
         reset_counts((ffn_ln,))
         t = time.perf_counter()
         wavs[dev] = gen.generate_from_text(text, speaker="spk1", seed=0)
@@ -1094,11 +1125,13 @@ def reference_phase(served, fastdiff: bool = False, tag: str = "") -> None:
     # (and, for FastDiff, four ε passes of the reverse sampler)
     tol = 1e-3 * top + 1e-7
     name = tag + ("fastdiff_reference" if fastdiff else "reference")
-    emit({"phase": name, "samples": [a.size, b.size], "max_abs_err": err,
-          "tol": tol, "peak": top, "request_ms": ms, "ffn_ln_launches": n_ffn})
+    row = {"phase": name, "samples": [a.size, b.size], "max_abs_err": err,
+           "tol": tol, "peak": top, "request_ms": ms, "ffn_ln_launches": n_ffn}
+    emit(row)
     if not (a.shape == b.shape and err <= tol and top > 0):
         raise RuntimeError(f"{name} card vs CPU: shapes {a.shape} {b.shape}, "
                            f"max |err| {err} > {tol}")
+    return row
 
 
 # ---------------------------------------------------------- training slice
@@ -4832,6 +4865,147 @@ def parallel_main(n_ranks: int) -> int:
     return 0
 
 
+# ----------------------------------- B16 widths and the tools (phase 31)
+B16_CHANNELS = 384                     # upsample_initial_channel: stages 192, 96, 48, 24
+# launches a vocoder call makes, by the stage's own width
+B16_WIDTHS = {"resblock": {192: 3}, "resblock_trio": {96: 1, 48: 1, 24: 1}}
+PLOT_ITEMS = 4
+
+
+def _trace_names(path: Path) -> tuple:
+    """(every event name, the device kernels' names) of a Chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return ({e.get("name") for e in events},
+            {e.get("name") for e in events if e.get("cat") == "kernel"})
+
+
+def b16_tools_phase(counters, served, smi: str) -> dict:
+    """Phase 31: HiFi-GAN stages the kernels run zero-padded (ROADMAP B16)
+    and the JAX package's last tools. Phase 5's sentences and batch through
+    the flagship with a V1-shaped HiFi-GAN at ``upsample_initial_channel``
+    384 (stages 192, 96, 48, 24, run at 256, 128, 64, 32) from seeded
+    weights, in bf16 and in f32, each run's launches counted by width and
+    no signal padded on the way (``pad_copies``); the f32 request against
+    the CPU's plain path (phase 6's tolerance); each new width's launch
+    against its plain version at the batch's 512-frame bucket, with its
+    time, the unpadded work's bound and the copy a direct call would make;
+    ``cli.plot`` on phase 26's corpus without matplotlib (its PNGs under
+    ``chiprun_out/plots``); ``dio_pitch`` built with g++ on the host; one
+    request under ``profile_trace`` (``chiprun_out/b16_trace/trace.json``)
+    holding its ``annotate`` span and the resblock kernels; and the
+    resblock library's SASS through ``kernel_dump_to``."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import plot as plot_cli
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.native import dio_pitch
+    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+    from lightningfastspeech2_tpu_torch.utils import debug
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    hcfg = HifiGanConfig(upsample_initial_channel=B16_CHANNELS)
+    cfg, dvecs = served["cfg"], served["dvecs"]
+    runs, gens = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        gen, _ = _make_generator(cfg, dtype, None, dvecs, BATCH_TEXTS, served["bias"],
+                                 hifigan_cfg=hcfg)
+        reset_counts(counters)
+        copies = resblock.pad_copies + resblock_trio.pad_copies
+        run = _serve_all(gen, cfg, dvecs, tag=f"b16_{name}_")
+        torch.cuda.synchronize()
+        n = len(run["vocoder_buckets"])
+        got = {"resblock": dict(resblock.by_width), "resblock_trio": dict(resblock_trio.by_width)}
+        want = {k: {c: m * n for c, m in v.items()} for k, v in B16_WIDTHS.items()}
+        stages = gen.synthesiser.model.stage_weights
+        runs[name] = {"by_width": got, "expected": want,
+                      "pad_copies": resblock.pad_copies + resblock_trio.pad_copies - copies,
+                      "launches": {c.__name__: c.launches for c in counters},
+                      "stage_kernel_channels": [w[0].channels for w in stages],
+                      "request_ms": [r["ms"] for r in run["requests"]],
+                      "batch_ms": run["batch"]["ms"],
+                      "batch_audio_s_per_s": run["batch"]["audio_s_per_s"]}
+        emit({"phase": f"b16_{name}_launches", **runs[name]})
+        if got != want or runs[name]["pad_copies"]:
+            raise RuntimeError(f"the {name} 384-channel serving run launched {got} with "
+                               f"{runs[name]['pad_copies']} pad copies, want {want} and none")
+        gens[name] = gen
+    ref = reference_phase(served, tag="b16_", hifigan_cfg=hcfg)
+
+    g = torch.Generator().manual_seed(31)
+    widths = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        rows = _resblock_cases(dev, 512, g, dtype, cfg=hcfg)
+        for r in rows:
+            r["launches_phase_31"] = runs[name]["by_width"][r["name"]].get(r["channels"], 0)
+        widths[name] = rows
+
+    # cli.plot on phase 26's corpus, in a process without matplotlib or PIL
+    work = ROOT / "_chip" / "b16_tools"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    plots = ROOT / "chiprun_out" / "plots"
+    shutil.rmtree(plots, ignore_errors=True)
+    written = plot_cli.main(["--target_path", str(corpus), "--output_path", str(plots),
+                             "--n", str(PLOT_ITEMS), "--stat_entries", "4",
+                             "--variances", "pitch", "energy", "--variance_transforms", "cwt",
+                             "none"])
+    plot_s = time.perf_counter() - t
+    loaded = sorted(m for m in ("matplotlib", "PIL") if m in sys.modules)
+    if len(written) != PLOT_ITEMS or loaded or not all(p.stat().st_size > 1000 for p in written):
+        raise RuntimeError(f"cli.plot wrote {written}; imported {loaded}")
+
+    # the native DIO tracker, built with g++ here
+    t = time.perf_counter()
+    tt = np.arange(SAMPLING_RATE) / SAMPLING_RATE
+    wav = sum(np.sin(2 * np.pi * 220.0 * k * tt) / k for k in range(1, 7))
+    track = dio_pitch(wav / np.abs(wav).max(), SAMPLING_RATE)
+    dio_s = time.perf_counter() - t
+    voiced = track[track > 0]
+    dio_err = abs(float(np.median(voiced)) - 220.0) / 220.0
+    if not (len(voiced) > 0.7 * len(track) and dio_err < 0.01):
+        raise RuntimeError(f"dio_pitch: {len(voiced)} of {len(track)} voiced, error {dio_err}")
+
+    # one bf16 request under the profiler, inside an annotate span
+    trace_dir = ROOT / "chiprun_out" / "b16_trace"
+    with debug.profile_trace(trace_dir):
+        with debug.annotate("lfs2_b16_request"):
+            gens["bfloat16"].generate_from_text(SENTENCES[2], speaker="spk0", seed=0)
+    names, kernels = _trace_names(trace_dir / debug.TRACE_FILE)
+    resblock_kernels = sorted(k for k in kernels if "resblock_kernel" in k)
+    if "lfs2_b16_request" not in names or not resblock_kernels:
+        raise RuntimeError(f"the trace holds no annotate span or no resblock kernel: "
+                           f"{sorted(kernels)[:20]}")
+    dumped = debug.kernel_dump_to(work / "dump", names=("resblock",), ptx=False)
+    sass = dumped["resblock"]["sass"].read_text()
+    if "HGMMA" not in sass or "wg_resblock_kernel" not in sass:
+        raise RuntimeError("kernel_dump_to: the resblock SASS lacks its wgmma kernel")
+    shutil.rmtree(work, ignore_errors=True)
+
+    keys = ("name", "at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "tol", "tile", "blocks_per_launch", "pad_copy_ms", "direct_call_ms",
+            "launches_phase_31")
+    tail = {"phase": "b16_tools", "hifigan": f"V1 at upsample_initial_channel {B16_CHANNELS}",
+            "runs": runs, "reference_max_abs_err": ref["max_abs_err"], "reference_tol": ref["tol"],
+            "widths": {d: [{k: r.get(k) for k in keys} for r in rows]
+                       for d, rows in widths.items()},
+            "plot": {"files": [p.name for p in written], "s": plot_s, "imported": loaded},
+            "dio_pitch": {"s_with_build": dio_s, "median_rel_err": dio_err},
+            "trace": {"resblock_kernels": resblock_kernels, "events": len(names),
+                      "file_bytes": (trace_dir / debug.TRACE_FILE).stat().st_size},
+            "sass_bytes": len(sass), "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 31 (B16 widths and tools): {tail['phase_s']:.1f} s", flush=True)
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("resblock", "resblock_trio")}
+    return {"widths": widths, "launches": launches}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -4908,6 +5082,7 @@ def main() -> int:
     voc = hifigan_training_phase(counters, info["nvidia_smi"])
     odf = on_device_features_phase(counters, info["nvidia_smi"])
     dp = parallel_phase(counters, info["nvidia_smi"], train_cli["row"])
+    b16 = b16_tools_phase(counters, served, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -5082,6 +5257,17 @@ def main() -> int:
         if k["name"] in dp["launches"] and "launches_phase_30" not in k:
             k["launches_phase_30"] = {f"rank {i}": n
                                       for i, n in enumerate(dp["launches"][k["name"]])}
+    # phase 31's counted serving runs (384 channels, bf16 and f32) and its
+    # widths, each at the 512-frame bucket against its plain version
+    b16_keys = ("at", "route", "channels", "kernel_channels", "ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err", "tol", "tile", "blocks_per_launch", "pad_copy_ms",
+                "direct_call_ms", "launches_phase_31")
+    for k in kernels:
+        if k["name"] in b16["launches"]:
+            k["launches_phase_31"] = b16["launches"][k["name"]]
+            k["b16_widths"] = {d: [{f: r.get(f) for f in b16_keys} for r in rows
+                                   if r["name"] == k["name"]]
+                               for d, rows in b16["widths"].items()}
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""Native (C++) soft-DTW on the CPU, for the eval metrics.
+"""Native (C++) soft-DTW and DIO pitch on the CPU.
 
-Counterpart of the soft-DTW half of ``lightningfastspeech2_tpu/native``
-(``softdtw_cpu``, ``softdtw_grad_cpu``): ``softdtw.cpp`` beside this file is
+Counterpart of ``lightningfastspeech2_tpu/native`` (``softdtw_cpu``,
+``softdtw_grad_cpu``, ``pitch_lib``, ``dio_pitch``): ``softdtw.cpp`` and
+``pitch.cpp`` beside this file (copies of the JAX package's sources) are
 compiled with g++ at first use into ``lightningfastspeech2_tpu_torch/_build/``
 (git-ignored; the library is named after a hash of the source and flags, so
-an edited source is rebuilt) and bound with ctypes on its plain C functions.
-The training loss on the card is ``ops/soft_dtw.py``; this is the metric's
-exact float64 recursion over whole utterances.
+an edited source is rebuilt) and bound with ctypes on their plain C
+functions. The same source and flags as the JAX package's build give the
+same bits. The training loss on the card is ``ops/soft_dtw.py``; soft-DTW
+here is the metric's exact float64 recursion over whole utterances.
+``dio_pitch`` is the offline DIO + StoneMask F0 tracker (the reference's
+pyworld path); the dataset's pitch is ``audio/pitch.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _softdtw_lib: Optional[ctypes.CDLL] = None
+_pitch_lib: Optional[ctypes.CDLL] = None
 
 
 def _build(name: str) -> Path:
@@ -64,8 +69,46 @@ def softdtw_lib() -> ctypes.CDLL:
     return _softdtw_lib
 
 
+def pitch_lib() -> ctypes.CDLL:
+    global _pitch_lib
+    with _lock:
+        if _pitch_lib is None:
+            lib = ctypes.CDLL(str(_build("pitch")))
+            dp, i, d = ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_double
+            lib.dio_f0.restype = ctypes.c_int
+            lib.dio_f0.argtypes = [dp, i, d, d, d, d, dp]
+            lib.stonemask_refine.restype = None
+            lib.stonemask_refine.argtypes = [dp, i, d, d, dp, i, dp]
+            _pitch_lib = lib
+    return _pitch_lib
+
+
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def dio_pitch(wav: np.ndarray, sampling_rate: int, frame_period_ms: Optional[float] = None,
+              hop_length: int = 256, f0_floor: float = 71.0, f0_ceil: float = 800.0,
+              refine: bool = True) -> np.ndarray:
+    """DIO F0 track, refined by StoneMask unless ``refine`` is false: (n_frames,)
+    float64 in Hz, 0 where unvoiced. The frame period defaults to the mel
+    hop (hop_length / sampling_rate s)."""
+    lib = pitch_lib()
+    wav = np.ascontiguousarray(wav, dtype=np.float64)
+    if frame_period_ms is None:
+        frame_period_ms = hop_length / sampling_rate * 1000.0
+    n_frames = int(len(wav) / sampling_rate * 1000.0 / frame_period_ms) + 1
+    f0 = np.empty(n_frames, dtype=np.float64)
+    got = lib.dio_f0(_ptr(wav), len(wav), sampling_rate, frame_period_ms, f0_floor, f0_ceil,
+                     _ptr(f0))
+    if got != n_frames:
+        raise RuntimeError(f"dio_f0 wrote {got} frames, expected {n_frames}")
+    if refine:
+        refined = np.empty_like(f0)
+        lib.stonemask_refine(_ptr(wav), len(wav), sampling_rate, frame_period_ms, _ptr(f0),
+                             n_frames, _ptr(refined))
+        f0 = refined
+    return f0
 
 
 def _sq_dist(x: np.ndarray, y: np.ndarray) -> np.ndarray:

@@ -9,9 +9,15 @@ versions below. The TPU kernels' time-into-lanes fold (``tap_blocks``) was
 a trick for the MXU and is not carried over: signals stay (B, L, C).
 Every route runs on the tensor cores: bf16 at C >= 128 through wgmma,
 bf16 below through mma.sync, f32 through mma.sync with split-TF32
-products (three TF32 products each, f32 accuracy). The kernels take C in
-``KERNEL_CHANNELS`` (HiFi-GAN V1's stages and V2's narrower ones); any
-other C raises on the card (ROADMAP B16).
+products (three TF32 products each, f32 accuracy). The kernels are built
+for C in ``KERNEL_CHANNELS`` (HiFi-GAN V1's stages and V2's narrower ones).
+A resblock of another C up to 256 is zero-padded to the next of them
+(``kernel_channels``): ``prepare_resblock_weights`` pads the taps and
+biases, the served generator carries its stages' signals at the padded
+width, and a direct call at the resblock's own C pads x once here. The
+padded channels stay exactly 0 through the chain (leaky(0) = 0, zero taps
+and biases), and the real channels see only added zeros. C > 256 raises on
+the card (ROADMAP B16w).
 
 The kernels have no backward: on a CUDA tensor the wrappers raise when
 grad mode is on and x needs a gradient. A generator that trains runs its
@@ -64,7 +70,8 @@ _F32_MMA_US = 0.0057
 # clusters of 4 blocks an H100 runs at once (more take a second wave:
 # scripts/bench_resblock.py --sweep, 32 clusters as slow as two waves)
 _F32_CLUSTERS_AT_ONCE = 28
-# the channel counts the kernels take; others raise on the card
+# the channel counts the kernels are built for; a narrower C is padded up
+# to the next of them, a wider one raises on the card
 KERNEL_CHANNELS = (8, 16, 32, 64, 128, 256)
 # below this many channels a launch is bound by bytes (see tile_plan)
 _NARROW = 32
@@ -98,11 +105,21 @@ class ChainShape:
         return max(sum(r) for r in self.reaches)
 
 
+def kernel_channels(C: int) -> int:
+    """The width the kernels run a C-channel resblock at: the least entry
+    of ``KERNEL_CHANNELS`` that is at least C; C itself past 256 (which the
+    kernels refuse)."""
+    return next((k for k in KERNEL_CHANNELS if k >= C), C)
+
+
 @dataclass
 class ResblockWeights:
-    """Prepared weights of ``n_res`` ResBlock1s of one stage."""
+    """Prepared weights of ``n_res`` ResBlock1s of one stage, zero-padded
+    from the resblocks' ``real_channels`` to ``channels``, the width the
+    kernels run at."""
 
     channels: int
+    real_channels: int
     dtype: torch.dtype
     kernel_sizes: Tuple[int, ...]
     dilations: Tuple[Tuple[int, ...], ...]
@@ -142,12 +159,18 @@ def prepare_resblock_weights(
     dtype: torch.dtype,
 ) -> ResblockWeights:
     """``blocks``: per resblock (kernel_size, dilations, [(w1, b1, w2, b2)
-    per dilation]) with torch Conv1d weights (C, C, k)."""
+    per dilation]) with torch Conv1d weights (C, C, k). The taps, biases
+    and plain-version weights are zero-padded to ``kernel_channels(C)``
+    channels, in and out."""
+    C = blocks[0][2][0][0].shape[0]
+    P = kernel_channels(C)
     with torch.no_grad():
         taps, biases, pairs = [], [], []
         for k, ds, convs in blocks:
             rb_pairs = []
             for d, (w1, b1, w2, b2) in zip(ds, convs):
+                w1, w2 = (F.pad(w, (0, 0, 0, P - C, 0, P - C)) for w in (w1, w2))
+                b1, b2 = (F.pad(b, (0, P - C)) for b in (b1, b2))
                 for w, b in ((w1, b1), (w2, b2)):
                     taps.append(_kernel_taps(w.to(dtype).permute(2, 1, 0)))
                     biases.append(b.float())
@@ -155,7 +178,8 @@ def prepare_resblock_weights(
                                  w2.to(dtype).float(), b2.float()))
             pairs.append(rb_pairs)
         return ResblockWeights(
-            channels=blocks[0][2][0][0].shape[0],
+            channels=P,
+            real_channels=C,
             dtype=dtype,
             kernel_sizes=tuple(int(k) for k, _, _ in blocks),
             dilations=tuple(tuple(int(d) for d in ds) for _, ds, _ in blocks),
@@ -502,8 +526,9 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
     if C != w.channels:
         raise ValueError(f"{what}: x has C={C}, its weights {w.channels}")
     if C not in KERNEL_CHANNELS:
-        raise ValueError(f"{what} kernel takes C in {KERNEL_CHANNELS}, got C={C} "
-                         "(ROADMAP B16: HiFi-GAN stages of other widths)")
+        raise ValueError(f"{what} kernel takes C up to 256 (padded to one of "
+                         f"{KERNEL_CHANNELS}), got C={C}: C > 256 is ROADMAP B16w "
+                         "(B16's widest stages)")
     if w.n_res > 3 or any(len(ds) > 3 for ds in w.dilations):
         raise ValueError(f"{what} kernel takes up to 3 resblocks of up to 3 pairs")
     plan = plan or tile_plan(w, B, L)
@@ -529,10 +554,24 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
 _TRAIN_ROUTE = "the generator's training route (Generator.forward(mel, train_route=True))"
 
 
+def _padded_call(wrapper, x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
+    """``wrapper`` on x (B, L, C) given at the resblocks' own C below the
+    kernels' width: x zero-padded once (one copy, counted in the wrapper's
+    ``pad_copies``), the output cut back to C. The served generator never
+    takes this: its stages carry the padded width."""
+    C = x.shape[-1]
+    wrapper.pad_copies += 1
+    out = wrapper(F.pad(x, (0, w.channels - C)), w)
+    return out[..., :C].contiguous()
+
+
 def resblock(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
-    """One ResBlock1 on x (B, L, C), f32 or bf16. On the card it raises
+    """One ResBlock1 on x (B, L, C), f32 or bf16; C is the weights' padded
+    width, or their own (then x is padded here). On the card it raises
     under grad mode where x or a parameter the taps came from needs a
     gradient (the kernel has no backward)."""
+    if x.shape[-1] == w.real_channels != w.channels:
+        return _padded_call(resblock, x, w)
     if x.device.type == "cpu":
         return resblock_plain(x, w)
     if w.n_res != 1:
@@ -540,24 +579,30 @@ def resblock(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
     refuse_grad("resblock", _TRAIN_ROUTE, x, *w.sources)
     out = _launch(x, w, "resblock")
     resblock.launches += 1
-    resblock.by_width[w.channels] = resblock.by_width.get(w.channels, 0) + 1
+    resblock.by_width[w.real_channels] = resblock.by_width.get(w.real_channels, 0) + 1
     return out
 
 
 def resblock_trio(x: torch.Tensor, w: ResblockWeights) -> torch.Tensor:
-    """The ResBlock1s of one stage on x (B, L, C) from one read, averaged.
-    On the card it raises as ``resblock`` does under grad mode."""
+    """The ResBlock1s of one stage on x (B, L, C) from one read, averaged;
+    C as for ``resblock``. On the card it raises as ``resblock`` does under
+    grad mode."""
+    if x.shape[-1] == w.real_channels != w.channels:
+        return _padded_call(resblock_trio, x, w)
     if x.device.type == "cpu":
         return resblock_trio_plain(x, w)
     refuse_grad("resblock_trio", _TRAIN_ROUTE, x, *w.sources)
     out = _launch(x, w, "resblock_trio")
     resblock_trio.launches += 1
-    resblock_trio.by_width[w.channels] = resblock_trio.by_width.get(w.channels, 0) + 1
+    resblock_trio.by_width[w.real_channels] = resblock_trio.by_width.get(w.real_channels, 0) + 1
     return out
 
 
 resblock.launches = 0
 resblock_trio.launches = 0
-# launches by channel count C, set to {} with the count
+# launches by the resblocks' own channel count, set to {} with the count
 resblock.by_width = {}
 resblock_trio.by_width = {}
+# copies of x padded to the kernels' width in a direct call (_padded_call)
+resblock.pad_copies = 0
+resblock_trio.pad_copies = 0

@@ -22,7 +22,7 @@ kernel (k, in, out) -> ConvTranspose1d (in, out, k), a plain transpose
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -343,3 +343,71 @@ def from_jax_dvector(params: Mapping[str, Any], num_layers: int = 3) -> State:
     _linear(out, "embedding", tree["embedding"])
     _linear(out, "attention", tree["attention"])
     return out
+
+
+def _sorted_leaves(tree: Any) -> List[np.ndarray]:
+    """The leaves of a tree of nested dicts in the order
+    ``jax.tree_util.tree_leaves`` gives them (each dict's keys sorted)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in _sorted_leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def _unflatten_sorted(tree: Any, leaves: List[np.ndarray]) -> Any:
+    """``tree``'s structure with ``leaves`` (consumed from the front, in
+    ``_sorted_leaves`` order) in place of its own."""
+    if isinstance(tree, Mapping):
+        return {k: _unflatten_sorted(tree[k], leaves) for k in sorted(tree)}
+    leaf = np.asarray(leaves.pop(0))
+    if leaf.shape != np.shape(tree):
+        raise ValueError(f"a leaf of shape {leaf.shape} where the tree has {np.shape(tree)}")
+    return leaf
+
+
+def adamw_state_from_optax(leaves: Any, params: Mapping[str, Any],
+                           to_state: Callable[[Mapping[str, Any]], State],
+                           names: Sequence[str]) -> Dict[str, Any]:
+    """The state of ``optax.adamw(schedule)`` over the JAX tree ``params``,
+    saved as its flat leaf list (Adam's count, the first moments, the
+    second moments, the schedule's count; a dict keyed "0", "1", ... as
+    orbax may restore a list), as a ``torch.optim.AdamW.state_dict()``
+    over the port's parameters ``names`` in the optimizer's order.
+
+    The moments are rebuilt against ``params`` and mapped by ``to_state``,
+    the mapping that carries the weights (``from_jax_hifigan``, ...),
+    since a moment has its parameter's layout. The mapping is first run on
+    a tree of element indices, which must come out a permutation of them:
+    it may only move and reshape elements. Each parameter's ``step`` is the
+    count, which also drives the port's learning-rate schedule
+    (``vocoder/hifigan_train.py scheduled_lr``). The param group's
+    hyperparameters are torch's defaults: the trainer that loads the state
+    sets its own, as an optax optimizer's come from the code that runs it."""
+    if isinstance(leaves, Mapping):
+        leaves = [leaves[k] for k in sorted(leaves, key=int)]
+    leaves = [np.asarray(l) for l in leaves]
+    shapes = _sorted_leaves(params)
+    n = len(shapes)
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters; "
+                         "optax.adamw holds 2 n + 2")
+    count, sched = int(leaves[0]), int(leaves[-1])
+    if count != sched:
+        raise ValueError(f"Adam's count {count} and the schedule's {sched} differ")
+    sizes = np.cumsum([0] + [a.size for a in shapes])
+    index = to_state(_unflatten_sorted(
+        params, [np.arange(o, o + a.size).reshape(a.shape) for o, a in zip(sizes, shapes)]))
+    moved = np.sort(np.concatenate([np.asarray(v).reshape(-1) for v in index.values()]))
+    if not np.array_equal(moved, np.arange(sizes[-1])):
+        raise ValueError("the weight mapping does more than move and reshape elements")
+    if set(index) != set(names):
+        raise ValueError(f"the mapping names {sorted(set(index) ^ set(names))} "
+                         "on one side only")
+    mu = np.concatenate([a.reshape(-1) for a in leaves[1:n + 1]])
+    nu = np.concatenate([a.reshape(-1) for a in leaves[n + 1:2 * n + 1]])
+    template = torch.optim.AdamW([torch.nn.Parameter(torch.empty(0)) for _ in names])
+    group = template.state_dict()["param_groups"][0]
+    state = {i: {"step": torch.tensor(float(count)),
+                 "exp_avg": torch.from_numpy(np.ascontiguousarray(mu[index[name]])),
+                 "exp_avg_sq": torch.from_numpy(np.ascontiguousarray(nu[index[name]]))}
+             for i, name in enumerate(names)}
+    return {"state": state, "param_groups": [group]}

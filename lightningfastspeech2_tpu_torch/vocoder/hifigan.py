@@ -7,10 +7,18 @@ ResBlock1s, averaged] -> leaky(0.01) -> conv_post(7) -> tanh.
 
 Every resblock group goes through ``ops.hifigan_resblock``: stages of at
 most 128 channels through ``resblock_trio`` (one launch for the three
-ResBlock1s), the 256-channel first stage through three ``resblock``
-launches; on the card these are the CUDA kernels, on the CPU their plain
-versions. conv_pre, the upsampling convs and conv_post are
+ResBlock1s), wider stages (V1's 256-channel first one) through three
+``resblock`` launches; on the card these are the CUDA kernels, on the CPU
+their plain versions. conv_pre, the upsampling convs and conv_post are
 ``F.conv1d``/``F.conv_transpose1d``, as the JAX package left them to XLA.
+
+A stage whose width the kernels are not built for (``upsample_initial_channel``
+384 gives 192, 96, 48, 24) runs at the next width they are
+(``kernel_channels``: 256, 128, 64, 32): ``prepare()`` zero-pads the
+output channels of the stage's upsampling conv and the input channels of
+the conv after it (the next upsampling conv, or conv_post), so the
+stage's signal carries the padded width from the conv that makes it, and
+no signal is padded on the way. The padded channels stay exactly 0.
 
 A config with ``resblock: "2"`` (HiFi-GAN V3's block) builds ``ResBlock2``
 instead: two (leaky ReLU, dilated conv) residual steps in plain
@@ -45,6 +53,7 @@ from lightningfastspeech2_tpu_torch.core.device import DeviceLike, resolve_devic
 from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import (
     LRELU_SLOPE,
     ResblockWeights,
+    kernel_channels,
     prepare_resblock_weights,
     resblock,
     resblock_trio,
@@ -204,24 +213,32 @@ class Generator(nn.Module):
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (rate, k_up) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
-            ch = c.upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(nn.ConvTranspose1d(2 * ch, ch, k_up, rate,
+            # the previous stage's width (not 2 ch, which an odd width breaks)
+            ch_in, ch = (c.upsample_initial_channel // 2 ** j for j in (i, i + 1))
+            self.ups.append(nn.ConvTranspose1d(ch_in, ch, k_up, rate,
                                                padding=(k_up - rate) // 2))
             for k, ds in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
                 self.resblocks.append(block(ch, k, tuple(ds)))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
         self.stage_weights: List[List[ResblockWeights]] = []
+        # the serving route's (weight, bias) of each upsampling conv and of
+        # conv_post where a stage is padded, else None (the parameters)
+        self.serve_convs: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
         self.prepare()
         self.register_load_state_dict_post_hook(lambda m, _keys: m.prepare())
 
     def prepare(self) -> None:
         """(Re)build the resblock tap stacks: per stage one trio stack, or
-        one stack per resblock for stages above TRIO_MAX_CHANNELS. ResBlock2
-        stages have none: they run plain convs."""
+        one stack per resblock for stages above TRIO_MAX_CHANNELS, and the
+        padded serving convs where a stage is padded. ResBlock2 stages have
+        none: they run plain convs."""
         n = len(self.cfg.resblock_kernel_sizes)
-        self.stage_weights = []
+        self.stage_weights, self.serve_convs = [], None
         if self.cfg.resblock != "1":
             return
+        widths = [kernel_channels(up.out_channels) for up in self.ups]
+        if any(P != up.out_channels for P, up in zip(widths, self.ups)):
+            self.serve_convs = self._padded_convs(widths)
         for i in range(len(self.ups)):
             blocks = [rb.spec() for rb in self.resblocks[i * n:(i + 1) * n]]
             if self.ups[i].out_channels <= TRIO_MAX_CHANNELS:
@@ -231,16 +248,35 @@ class Generator(nn.Module):
                 self.stage_weights.append(
                     [prepare_resblock_weights([b], self.dtype) for b in blocks])
 
+    @torch.no_grad()
+    def _padded_convs(self, widths: List[int]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each upsampling conv with its output channels zero-padded to its
+        stage's width and its input channels to the previous stage's, then
+        conv_post with its input channels padded to the last stage's."""
+        out, prev = [], self.cfg.upsample_initial_channel
+        for up, P in zip(self.ups, widths):
+            w = up.weight                                     # (in, out, k)
+            w = F.pad(w, (0, 0, 0, P - w.shape[1], 0, prev - w.shape[0]))
+            out.append((w, F.pad(up.bias, (0, P - up.bias.shape[0]))))
+            prev = P
+        w = self.conv_post.weight                             # (1, in, 7)
+        out.append((F.pad(w, (0, 0, 0, prev - w.shape[1])), self.conv_post.bias))
+        return out
+
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)
         if self.stage_weights:
             self.prepare()
         return out
 
-    def _conv(self, x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-        """x (B, C, L) in the working dtype through conv (transposed or not)."""
+    def _conv(self, x: torch.Tensor, conv: nn.Module,
+              wb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """x (B, C, L) in the working dtype through conv (transposed or
+        not), with the weight and bias ``wb`` in place of its own where
+        given."""
         dt = self.dtype
-        w, b = conv.weight.to(dt), conv.bias.to(dt)
+        w, b = wb or (conv.weight, conv.bias)
+        w, b = w.to(dt), b.to(dt)
         if isinstance(conv, nn.ConvTranspose1d):
             return F.conv_transpose1d(x, w, b, conv.stride, conv.padding)
         return F.conv1d(x, w, b, padding=conv.padding)
@@ -250,12 +286,13 @@ class Generator(nn.Module):
         the resblocks from their live parameters in plain ``F.conv1d``
         (differentiable); else from the prepared taps through
         ``ops.hifigan_resblock`` (the kernels on the card, which raise where
-        a gradient is needed)."""
+        a gradient is needed), each stage at its padded width."""
         x = self._conv(mel.to(self.dtype).transpose(1, 2), self.conv_pre)
         if self.cfg.resblock != "1" or train_route:
             return self._forward_plain(x)
-        for up, stage in zip(self.ups, self.stage_weights):
-            x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up)
+        convs = self.serve_convs or [None] * (len(self.ups) + 1)
+        for up, stage, wb in zip(self.ups, self.stage_weights, convs):
+            x = self._conv(F.leaky_relu(x, LRELU_SLOPE), up, wb)
             xt = x.transpose(1, 2).contiguous()          # (B, L, C) for the kernels
             if len(stage) == 1:
                 xt = resblock_trio(xt, stage[0])
@@ -266,7 +303,7 @@ class Generator(nn.Module):
                     acc = y if acc is None else acc + y
                 xt = acc / float(len(stage))
             x = xt.transpose(1, 2)
-        return self._post(x)
+        return self._post(x, convs[-1])
 
     def _forward_plain(self, x: torch.Tensor) -> torch.Tensor:
         """Every stage's resblocks as their modules compute them, averaged
@@ -277,9 +314,10 @@ class Generator(nn.Module):
             x = sum(rb(x, self.dtype) for rb in self.resblocks[i * n:(i + 1) * n]) / float(n)
         return self._post(x)
 
-    def _post(self, x: torch.Tensor) -> torch.Tensor:
+    def _post(self, x: torch.Tensor,
+              wb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         # reference models.py:161 uses F.leaky_relu's default slope here
-        x = self._conv(F.leaky_relu(x, 0.01), self.conv_post)
+        x = self._conv(F.leaky_relu(x, 0.01), self.conv_post, wb)
         return torch.tanh(x)[:, 0, :]
 
 

@@ -307,10 +307,15 @@ class HifiGanTrainer:
 
     def load(self, params: Dict[str, dict], opt_state: Dict[str, dict] = None) -> None:
         """Weights (and the optimizers' states, step counts included) as
-        ``params`` / ``opt_state`` give them."""
+        ``params`` / ``opt_state`` give them (a JAX run's through
+        ``utils/convert.py adamw_state_from_optax``). The hyperparameters
+        stay this trainer's, as the JAX CLI's come from its flags."""
         self.generator.load_state_dict({k: torch.as_tensor(v) for k, v in params["gen"].items()})
         self.discriminators.load_state_dict(
             {k: torch.as_tensor(v) for k, v in params["disc"].items()})
         if opt_state is not None:
-            self.gen_opt.load_state_dict(opt_state["gen"])
-            self.disc_opt.load_state_dict(opt_state["disc"])
+            for opt, name in ((self.gen_opt, "gen"), (self.disc_opt, "disc")):
+                own = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
+                opt.load_state_dict(opt_state[name])
+                for group, hyper in zip(opt.param_groups, own):
+                    group.update(hyper)

@@ -106,7 +106,9 @@ def checkpoints(tmp_path_factory):
                                      jnp.zeros((1, 16, 80))), seed=1, kernel_std=0.08)
     voc_dir = root / "jax_voc"
     JCheckpointer(voc_dir).save(
-        2, SimpleNamespace(params={"gen": hparams, "disc": {"w": np.zeros(2, np.float32)}},
+        # the generator alone: the script converts a discriminator tree and
+        # the optimizer states only beside a real one (tests/test_torch_vocoder_resume.py)
+        2, SimpleNamespace(params={"gen": hparams},
                            opt_state={"gen": [np.zeros(1, np.float32)]},
                            step=np.asarray(2, np.int32)),
         sidecar={"hifigan_config": dataclasses.asdict(hcfg)})

@@ -36,6 +36,8 @@ def _port_files():
 def test_no_forbidden_imports():
     files = _port_files()
     assert len(files) > 20 and PORT / "parallel" / "mesh.py" in files
+    assert {PORT / "cli" / "plot.py", PORT / "utils" / "debug.py",
+            PORT / "utils" / "reference_checkpoint.py"} <= set(files)
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -81,6 +83,8 @@ def test_import_leaves_jax_out():
         "from lightningfastspeech2_tpu_torch.cli import train_denoiser, train_g2p\n"
         "import lightningfastspeech2_tpu_torch.parallel\n"
         "from lightningfastspeech2_tpu_torch.parallel import mesh\n"
+        "from lightningfastspeech2_tpu_torch.cli import plot\n"
+        "from lightningfastspeech2_tpu_torch.utils import debug, reference_checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -269,11 +269,58 @@ def test_resblock_raises_when_grad_is_needed(cuda_card, C_, ks):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C_", [24, 512])
+@pytest.mark.parametrize("C_", [512])
 def test_resblock_refuses_other_channel_counts(cuda_card, C_):
     w = _resblock_weights(C_, (3,), torch.bfloat16, cuda_card)
-    with pytest.raises(ValueError, match="B16"):
+    with pytest.raises(ValueError, match="B16.*C > 256|C > 256.*B16"):
         trb.resblock(torch.zeros(1, 64, C_, device=cuda_card, dtype=torch.bfloat16), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_,ks", [(24, (3,)), (24, (3, 7, 11)), (40, (3, 7, 11)),
+                                   (96, (7,)), (96, (3, 7, 11)), (192, (11,)), (192, (3,))])
+def test_resblock_padded_widths_match_plain(cuda_card, C_, ks, dtype):
+    """A width the kernels are not built for runs zero-padded to the next
+    one (ROADMAP B16): called at its own C, the wrapper pads x once and
+    launches at the padded width; called at the padded width (as the
+    served generator calls it) it copies nothing and the padded channels
+    come back exactly 0. Held against the plain version on the padded
+    weights, with test_resblock_kernels_match_plain's tolerance."""
+    w = _resblock_weights(C_, ks, dtype, cuda_card)
+    P = trb.kernel_channels(C_)
+    assert (w.real_channels, w.channels) == (C_, P) and P in trb.KERNEL_CHANNELS
+    kernel, plain = ((trb.resblock, trb.resblock_plain) if len(ks) == 1 else
+                     (trb.resblock_trio, trb.resblock_trio_plain))
+    x = torch.randn(2, 1000, C_, device=cuda_card).to(dtype)
+    xp = torch.nn.functional.pad(x, (0, P - C_))
+    before, copies = kernel.launches, kernel.pad_copies
+    widths = dict(kernel.by_width)
+    out = kernel(x, w)
+    outp = kernel(xp, w)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 and kernel.pad_copies == copies + 1
+    assert kernel.by_width[C_] == widths.get(C_, 0) + 2
+    assert out.shape == x.shape and torch.equal(outp[..., :C_], out)
+    assert torch.count_nonzero(outp[..., C_:]) == 0
+    ref = plain(xp, w)[..., :C_].float()
+    top = ref.abs().max().item()
+    tol = 2e-5 * top if dtype == torch.float32 else 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_kernel_dump_writes_sass_and_ptx(cuda_card, tmp_path):
+    """utils/debug.py kernel_dump_to, the port's counterpart of the JAX
+    package's xla_dump_to: a library's SASS through cuobjdump, its PTX
+    through nvcc."""
+    from lightningfastspeech2_tpu_torch.utils.debug import kernel_dump_to
+
+    out = kernel_dump_to(tmp_path, names=("probe",))
+    sass = out["probe"]["sass"].read_text()
+    assert "sm_90a" in sass and "Function : " in sass and "probe" in sass
+    ptx = out["probe"]["ptx"].read_text()
+    assert ".target sm_90a" in ptx and ".entry" in ptx
 
 
 @pytest.mark.gpu

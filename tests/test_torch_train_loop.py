@@ -33,6 +33,7 @@ from lightningfastspeech2_tpu_torch.train import loop as tloop
 from lightningfastspeech2_tpu_torch.train.step import create_train_state
 from lightningfastspeech2_tpu_torch.train.swa import SWA
 from lightningfastspeech2_tpu_torch.utils.convert import from_jax_fastspeech2
+from lightningfastspeech2_tpu_torch.utils.plotting import FRAME_PX, MAGMA, item_layout
 from tests.torch_port_helpers import data_config, jax_train_setup, train_config, torch_threads
 
 RTOL = 2e-5
@@ -102,13 +103,15 @@ def test_fit_matches_jax(setup):
 
 
 def _png_size(data: bytes):
+    """An RGB PNG's width, height and (h, w, 3) pixels."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     w, h = struct.unpack(">II", data[16:24])
+    assert data[25] == 2   # colour type RGB
     n = struct.unpack(">I", data[33:37])[0]
     assert data[37:41] == b"IDAT"
-    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8).reshape(h, w + 1)
+    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8).reshape(h, 3 * w + 1)
     assert not rows[:, 0].any()
-    return w, h, rows[:, 1:]
+    return w, h, rows[:, 1:].reshape(h, w, 3)
 
 
 def test_evaluate_matches_jax(setup, tmp_path):
@@ -126,8 +129,13 @@ def test_evaluate_matches_jax(setup, tmp_path):
     assert model.training   # evaluate leaves the training mode as it found it
     pngs = sorted((tmp_path / "step_00000007").glob("*.png"))
     assert [p.name for p in pngs] == ["0_pred.png", "0_true.png", "1_pred.png", "1_true.png"]
+    # each mel through plot_item: the title strip over the 80 bins, the
+    # mel's own range spanning the colour map's ends
     w, h, img = _png_size(pngs[1].read_bytes())
-    assert h == 80 and w > 10 and img.min() == 0 and img.max() == 255
+    geo = item_layout(w // FRAME_PX, 80, 0, phones=False)
+    assert (h, w) == (geo["height"], geo["width"]) and w > 10
+    mel = img[geo["mel_top"]:].reshape(-1, 3)
+    assert {tuple(MAGMA[0]), tuple(MAGMA[-1])} <= {tuple(p) for p in mel}
 
 
 def test_swa_is_a_running_mean_of_copies():

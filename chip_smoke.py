@@ -22,7 +22,11 @@ Phases, each printed as one JSON line:
    HGMMA in bf16 and HMMA without a spill byte in f32, the split-TF32 flash
    kernels at head dims 128 and 256 HMMA, the wgmma flash kernels HGMMA, and
    the other spills and serialised wgmma of these and of the CUDA-core
-   flash route are reported.
+   flash route are reported; the kernels past C = 256 (phase 32): the
+   product of ``csrc/gemm_mma.cuh`` at each of its epilogues (ten in
+   ``csrc/ffn_wide.cu``, four in ``csrc/resblock.cu``'s wide route) must
+   hold HMMA and, in f32, spill nothing, and ``csrc/ffn_wide.cu``'s twelve
+   row and depthwise kernels spill nothing in f32.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -315,6 +319,26 @@ Phases, each printed as one JSON line:
     the resblock library's SASS through ``kernel_dump_to``. Rows 4-5 of the
     ``kernels`` line gain ``launches_phase_31`` and ``b16_widths``.
 
+32. widths past C = 256 (ROADMAP B9t, B16w): the train CLI at hidden 512
+    (4 heads, filter 1024, 4 + 4 blocks) on phase 26's corpus, 3 bf16
+    steps with every FFN half through ``ffn_ln_train`` at C = 512
+    (``csrc/ffn_wide.cu``; its launches by width equal to 8 a step), and
+    one f32 step on the card against the CPU's within ``TC_LOSS_REL``; the
+    training chain at each width of ``W_TRAIN`` (384-768, F up to 1152),
+    bf16 at B = 8, T = 256 and 2048, f32 at phase 9's B = 2, T = 128 and
+    1024, rate 0.1, against the plain
+    version with every launch against ``ffn_plan`` (timed at the decoder
+    shape at the widths a block builds), and ``ffn_ln`` served at C = 768 against
+    its plain version; a HiFi-GAN at ``upsample_initial_channel`` 1024 trained
+    3 f32 steps through the train_vocoder CLI and served with the hidden-512
+    checkpoint through the generate CLI in f32 and bf16 (stage 0's
+    ``resblock`` on the wide route at C = 512, 3 a call; ``ffn_ln`` at C =
+    512), the f32 request against the CPU's (phase 6's tolerance), and the
+    wide route at C = 512, 384 and 320 (run at 384) against its plain
+    version at a 512-frame mel. The ``kernels`` line gains
+    ``ffn_ln_train_wide``, ``ffn_ln_train_bwd_wide``, ``ffn_ln_c768`` and
+    ``resblock_wide``.
+
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
 the main paths' counted runs (phases 5, 8, 9, 21) made there, and phase
@@ -457,6 +481,7 @@ def build_phase() -> None:
     ffn_sass_phase(report)
     soft_dtw_sass_phase(report)
     wide_sass_phase(report)
+    chain_sass_phase(report)
 
 
 # the FFN sources' tensor-core kernels, by their mangled names
@@ -592,6 +617,40 @@ def wide_sass_phase(report) -> dict:
             or len(rows["flash_f32"]) != 6 or len(rows["flash_wide"]) != 6 or bad):
         raise RuntimeError(f"this slice's kernels: {[len(r) for r in rows.values()]} found "
                            f"(want 6 each), without tensor-core instructions {bad}")
+    return rows
+
+
+# csrc/gemm_mma.cuh's product, by dtype and epilogue (csrc/ffn_wide.cu's
+# five, csrc/resblock.cu's wide route's two), and csrc/ffn_wide.cu's row
+# and depthwise kernels
+GEMM_KERNEL = re.compile(r"gemm_kernelI(f|13__nv_bfloat16)Lb[01]ELb[01]E.*?"
+                         r"(UpEp|DownEp|DupEp|StoreEpILb([01])E|ConvFirstEp|ConvSecondEp)")
+CHAIN_ROWS = re.compile(r"\d(wide_[a-z0-9_]+?_kernel)I(f|13__nv_bfloat16)E")
+
+
+def chain_sass_phase(report) -> dict:
+    """The kernels past C = 256 as compiled: every product must hold HMMA
+    (bf16 mma.sync, or f32 as split TF32), and in f32 the products and the
+    chain's other kernels must spill nothing; bf16's spills are reported."""
+    def dt(x):
+        return "bf16" if x.endswith("bfloat16") else "f32"
+
+    def gemm_key(m):
+        ep = m.group(2) if m.group(3) is None else ("StoreEp<add>" if m.group(3) == "1"
+                                                    else "StoreEp<store>")
+        return f"gemm_kernel<{dt(m.group(1))}, {ep}>"
+
+    rows = {"ffn_wide_gemm": _sass_rows("ffn_wide", report, GEMM_KERNEL, gemm_key),
+            "resblock_gemm": _sass_rows("resblock", report, GEMM_KERNEL, gemm_key),
+            "ffn_wide_rows": _sass_rows("ffn_wide", report, CHAIN_ROWS,
+                                        lambda m: f"{m.group(1)}<{dt(m.group(2))}>")}
+    emit({"phase": "chain_sass", **rows})
+    bad = {k: r for part in ("ffn_wide_gemm", "resblock_gemm") for k, r in rows[part].items()
+           if r["hmma"] == 0 or ("f32" in k and r["spill_bytes"])}
+    bad.update({k: r for k, r in rows["ffn_wide_rows"].items() if "f32" in k and r["spill_bytes"]})
+    found = tuple(len(r) for r in rows.values())
+    if found != (10, 4, 12) or bad:
+        raise RuntimeError(f"kernels past C = 256: {found} found (want 10, 4, 12), off {bad}")
     return rows
 
 
@@ -1178,8 +1237,11 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
     rec = ffn.last_launches()
     plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
     wide = plan[0].kernel == "ffn_wide_kernel"
-    got = ([rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
-           + ([rec["ffn_ln_wide_ln2"]] if wide else []))
+    if plan[0].kernel == "wide_ln1_kernel":   # csrc/ffn_wide.cu's chain, every launch
+        got = rec["ffn_wide"]
+    else:
+        got = ([rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
+               + ([rec["ffn_ln_wide_ln2"]] if wide else []))
     want = [ffn.planned_launch(x) for x in plan]
     if got != want:
         raise RuntimeError(f"ffn {mode} launches {got}, planned {want}")
@@ -1195,9 +1257,9 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
 def _b1_off_the_kink(z, p, eps=1e-5):
     """b1 with every F column that holds a ReLU input within 2^-14 of its
     products' magnitude sum of zero moved by the least multiple of 0.01
-    that clears the column: f32 sums of C products in two orders (kernel,
-    plain version) stay within 2^-16 of that sum of the exact value, so
-    every ReLU then takes the same branch in both."""
+    that clears the column: f32 sums of C <= 768 products in two orders
+    (kernel, plain version) stay within C 2^-24 <= 2^-14.4 of that sum of
+    the exact value, so every ReLU then takes the same branch in both."""
     from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
     from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
@@ -1233,29 +1295,44 @@ def ffn_products_ms(B, T, C, F, dev, mode) -> float:
                             up.t() @ dff))
 
 
-def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
+def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16, C=256, F=1024,
+                    timed: float = 200.0) -> dict:
     """ffn_ln_train forward and backward kernels at one of the step's FFN
-    shapes (F 1024, rate 0.1): the output and every gradient against the
-    plain version's autograd (bf16: and the gradients' distance from the
-    staged plain backward, the kernels' own rounding points; f32: b1 moved
-    off the ReLU kink first), the kernel times with the call's weight
-    layouts prepared, each launch as the library recorded it. f32 adds its
+    shapes (rate 0.1; C 256 and F 1024 unless given): the output and every
+    gradient against the plain version's autograd (bf16: and the gradients'
+    distance from the staged plain backward, the kernels' own rounding
+    points; f32: b1 moved off the ReLU kink first), the kernel times with
+    the call's weight layouts prepared (each timing fills ``timed`` ms; 0:
+    untimed), each launch as the
+    library recorded it. A width no depthwise block builds (F not a
+    multiple of C) draws the kernel's parameters directly. f32 adds its
     bound at the CUDA cores' 67 TFLOP/s and its products' time as f32
     ``torch.matmul`` calls."""
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
     from lightningfastspeech2_tpu_torch.models.layers import FFTBlock
     from lightningfastspeech2_tpu_torch.ops import ffn
 
-    C, F, rate = 256, 1024, 0.1
+    rate = 0.1
     f32 = dtype == torch.float32
-    block = FFTBlock(C, 2, k, F, dtype)
-    init_weights(block, g)
-    with torch.no_grad():
-        for n in (block.norm1, block.norm2):
-            n.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g))
-            n.bias.copy_(0.1 * torch.randn(C, generator=g))
-    block.to(dev)
-    p = [t.detach().clone().requires_grad_(True) for t in ffn.ffn_train_params(*block._ffn_modules())]
+    if F % C:
+        def draw(*shape, scale, shift=0.0):
+            return (shift + scale * torch.randn(*shape, generator=g)).to(dev)
+
+        p = [draw(k, C, scale=0.3), draw(C, scale=0.1), draw(C, F, scale=C ** -0.5),
+             draw(F, scale=0.1), draw(F, C, scale=F ** -0.5), draw(C, scale=0.1),
+             draw(C, scale=0.1, shift=1.0), draw(C, scale=0.1), draw(C, scale=0.1, shift=1.0),
+             draw(C, scale=0.1)]
+        p = [t.requires_grad_(True) for t in p]
+    else:
+        block = FFTBlock(C, 2, k, F, dtype)
+        init_weights(block, g)
+        with torch.no_grad():
+            for n in (block.norm1, block.norm2):
+                n.weight.copy_(1.0 + 0.1 * torch.randn(C, generator=g))
+                n.bias.copy_(0.1 * torch.randn(C, generator=g))
+        block.to(dev)
+        p = [t.detach().clone().requires_grad_(True)
+             for t in ffn.ffn_train_params(*block._ffn_modules())]
     z = torch.randn(B, T, C, generator=g).to(dev, dtype)
     dout = torch.randn(B, T, C, generator=g).to(dev, dtype)
     if f32:
@@ -1263,14 +1340,17 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
     seed = torch.tensor([4242], dtype=torch.int32, device=dev)
     at = f"z ({B}, {T}, {C}) {str(dtype)[6:]}, F={F}, k={k}, rate={rate}"
     w = ffn._kernel_layouts(p, dtype)
+    def timer(fn):
+        return cuda_ms(fn, min_total_ms=timed) if timed else (fn(), None)[1]
+
     row_f = {"name": "ffn_ln_train", "at": at,
-             "ms": cuda_ms(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate, layouts=w))}
+             "ms": timer(lambda: ffn.ffn_ln_train_fwd(z, p, seed, rate, layouts=w))}
     row_f["launch"] = ffn_launches(ffn, C, F, k, B, T, dtype, "train")
     row_b = {"name": "ffn_ln_train_bwd", "at": at,
-             "ms": cuda_ms(lambda: ffn.ffn_ln_train_bwd(dout, z, p, seed, rate, layouts=w))}
+             "ms": timer(lambda: ffn.ffn_ln_train_bwd(dout, z, p, seed, rate, layouts=w))}
     row_b["launch"] = ffn_launches(ffn, C, F, k, B, T, dtype, "bwd")
     # what a training call adds to the kernels: the weight layouts it prepares
-    row_f["layouts_ms"] = cuda_ms(lambda: ffn._kernel_layouts(p, dtype))
+    row_f["layouts_ms"] = timer(lambda: ffn._kernel_layouts(p, dtype))
     wbytes = sum(tensor_bytes(t) for t in p)
     # the backward recomputes up and ff (4CF) and forms dup, dacc, dW1, dW2f
     # (8CF); f32 products are f32-accurate ones (PEAK_F32_ACCURATE, split
@@ -1282,7 +1362,7 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
                                                 PEAK_F32_ACCURATE if f32 else None)
         if f32:
             r["bound_ms_cuda_cores"] = bound_ms(*work[part], dtype)[0]
-            r["products_matmul_ms"] = ffn_products_ms(B, T, C, F, dev, part)
+            r["products_matmul_ms"] = ffn_products_ms(B, T, C, F, dev, part) if timed else None
     zk = z.clone().requires_grad_(True)
     out = ffn.ffn_ln_train(zk, p, seed, rate)
     grads = torch.autograd.grad(out, [zk, *p], dout)
@@ -1293,7 +1373,7 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
     torch.cuda.synchronize()
     err, tol = max_err_and_tol(out, ref, 2e-4)
     row_f.update(max_abs_err=err, tol=tol,
-                 plain_ms=cuda_ms(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
+                 plain_ms=timer(lambda: ffn.ffn_ln_train_plain(z, p, seed, rate)))
     # gradients against the plain version's autograd: bf16, the kernel
     # rounds dff and dup to bf16 before its products, the plain version
     # keeps them f32, each within 3 % of its largest element; f32, the
@@ -1313,7 +1393,8 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16) -> dict:
                  tol=("2e-4 of each gradient's largest element, the mean 2e-5" if f32
                       else "3 % of each gradient's largest element"),
                  staged_plain_max_rel_err=staged_rel,
-                 plain_ms=cuda_ms_grad(ref, [zp, *p], dout))
+                 plain_ms=(cuda_ms_grad(ref, [zp, *p], dout, min_total_ms=timed) if timed
+                           else None))
     for r in (row_f, row_b):
         emit({"phase": "kernel", **r})
     if not err <= tol:
@@ -5006,6 +5087,206 @@ def b16_tools_phase(counters, served, smi: str) -> dict:
     return {"widths": widths, "launches": launches}
 
 
+# --------------------------- the widths past C = 256 (phase 32: B9t, B16w)
+W_FLAGS = ["--encoder_hidden", "512", "--decoder_hidden", "512", "--encoder_head", "4",
+           "--decoder_head", "4", "--encoder_conv_filter_size", "1024",
+           "--decoder_conv_filter_size", "1024"]
+W_STEPS, W_BLOCKS = 3, 8               # bf16 steps; FFT blocks (4 + 4, the flagship's)
+# the training widths past 256: what a depthwise block builds (F a multiple
+# of C), then what the JAX fit estimate alone also admits
+W_TRAIN = [(384, 384), (384, 768), (384, 1152), (512, 512), (512, 1024), (640, 640), (768, 768),
+           (384, 1024), (640, 1024), (768, 896)]
+# (B, T, k) of the chain's checks: bf16 at the training step's encoder and
+# decoder shapes; f32 at phase 9's (the f32 step against the CPU), where
+# moving b1 off the ReLU kink clears every column (a comparison of two f32
+# sums: at B T = 16384 rows each column holds ReLU inputs within rounding
+# of zero)
+W_TRAIN_SHAPES = {torch.bfloat16: ((TRAIN_B, TRAIN_P, 5), (TRAIN_B, TRAIN_T, 17)),
+                  torch.float32: ((2, 128, 5), (2, 1024, 17))}
+W_TIMED_MS = 40.0                      # CUDA-event time each timing fills
+W_VOC = 1024                           # upsample_initial_channel: stages 512, 256, 128, 64
+W_VOC_FLAGS = ["--upsample_initial_channel", str(W_VOC), "--batch_size", "4", "--max_steps", "3",
+               "--log_every", "1", "--checkpoint_every", "1000"]
+# a vocoder call's launches by the stage's width
+W_VOC_WIDTHS = {"resblock": {512: 3, 256: 3}, "resblock_trio": {128: 1, 64: 1}}
+W_DIRECT = (1024, 768, 640)            # upsample_initial_channel: stage 0 at C = 512, 384, 320
+
+
+def wide_phase(counters, smi: str) -> dict:
+    """Phase 32: the widths past C = 256. (a) The train CLI at hidden 512 (4
+    heads, filter 1024, 4 + 4 blocks, the flagship otherwise) on phase 26's
+    corpus: ``W_STEPS`` bf16 steps, every FFN half through ``ffn_ln_train``
+    at C = 512 (``csrc/ffn_wide.cu``), its launches by width equal to the
+    steps' blocks; one f32 step on the card against the CPU's (rates 0,
+    ``TC_LOSS_REL``). (b) The training chain at every width of ``W_TRAIN``,
+    both dtypes at ``W_TRAIN_SHAPES``, rate 0.1, against the plain version
+    (phase 7's tolerances, each launch against ``ffn_plan``), timed at the
+    decoder shape at the widths a block builds; ``ffn_ln`` served at C = 768
+    against its plain version. (c) HiFi-GAN at ``upsample_initial_channel``
+    1024 through the train_vocoder CLI (3 f32 steps), then served with (a)'s
+    acoustic checkpoint through the generate CLI in f32 and bf16: stage 0's
+    ``resblock`` on the wide route at C = 512 (3 a call), the other stages on
+    theirs, ``ffn_ln`` at C = 512; the f32 request against the same CLI run
+    on the CPU (phase 6's tolerance); the wide route at C = 512, 384 and 320
+    (run at 384) against its plain version at a 512-frame mel."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.cli import train_vocoder as voc_cli
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_corpus, make_rich_corpus
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln, ffn_ln_train, ffn_ln_train_bwd
+    from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import resblock, resblock_trio
+    from lightningfastspeech2_tpu_torch.vocoder.hifigan import HifiGanConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = ROOT / "_chip" / "wide"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    long_corpus = make_rich_corpus(work / "long", n_speakers=2, n_utts=2, seed=1,
+                                   min_words=TC_LONG_WORDS[0], max_words=TC_LONG_WORDS[1])
+    corpus_s = time.perf_counter() - t
+
+    # (a) the train CLI at hidden 512
+    ck, logs = work / "ckpt", work / "logs"
+    run = _train_cli(cli, ["--train_target_path", str(corpus), "--checkpoint_dir", str(ck),
+                           "--log_dir", str(logs), "--cache_path", str(work / "cache"),
+                           "--batch_size", "8", "--log_every", "1", "--num_workers", "0",
+                           "--max_steps", str(W_STEPS), "--checkpoint_every", str(W_STEPS),
+                           *W_FLAGS], counters)
+    by_width = {c.__name__: dict(c.by_width) for c in (ffn_ln_train, ffn_ln_train_bwd)}
+    lines = [l for l in _metrics_lines(logs) if "train/total_loss" in l]
+    bad = [(l["step"], k) for l in lines for k, v in l.items()
+           if k.startswith("train/") and not math.isfinite(v)]
+    want = {n: {512: W_BLOCKS * len(lines)} for n in by_width}
+    if len(lines) != W_STEPS or bad or by_width != want:
+        raise RuntimeError(f"hidden-512 train CLI: {len(lines)} steps, not finite {bad}, "
+                           f"ffn_ln_train by width {by_width}, want {want}")
+    # f32, every rate 0: the first step on the card against the CPU's
+    f32 = {}
+    for d in ("cuda", "cpu"):
+        f32[d] = _train_cli(cli, [
+            "--train_target_path", str(long_corpus), "--checkpoint_dir", str(work / f"f32_{d}"),
+            "--log_dir", str(work / f"f32_logs_{d}"), "--cache_path", str(work / "long_cache"),
+            "--batch_size", "2", "--max_steps", "1", "--log_every", "1", "--num_workers", "0",
+            "--precision", "32", "--warmup_steps", "1", "--encoder_dropout", "0",
+            "--decoder_dropout", "0", "--variance_dropout", "0", "0", "0",
+            "--duration_dropout", "0", "--augment_duration", "0",
+            "--variance_transforms", "cwt", "none", "none", *W_FLAGS, "--device", d], counters)
+        if d == "cuda":
+            f32_widths = dict(ffn_ln_train.by_width)
+    ha, hb = f32["cuda"]["result"].history, f32["cpu"]["result"].history
+    f32_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                  for a, b in zip(ha, hb) for k in b if k not in ("steps_per_s", "lr"))
+    if not (len(ha) == len(hb) == 1 and f32_err <= TC_LOSS_REL
+            and f32_widths == {512: W_BLOCKS}):
+        raise RuntimeError(f"hidden-512 f32 step card vs CPU: max rel err {f32_err}, "
+                           f"ffn_ln_train by width {f32_widths}; card {ha}, CPU {hb}")
+    row_a = {"phase": "wide_train_cli", "flags": W_FLAGS, "corpus_s": corpus_s, "cli_s": run["s"],
+             "steps": len(lines), "host_ms_a_step": [1e3 / l["train/steps_per_s"] for l in lines],
+             "losses": [l["train/total_loss"] for l in lines], "by_width": by_width,
+             "launches": run["launches"],
+             "f32_card_vs_cpu": {"max_rel_err": f32_err, "tol": TC_LOSS_REL,
+                                 "card_s": f32["cuda"]["s"], "cpu_s": f32["cpu"]["s"],
+                                 "by_width": f32_widths},
+             "nvidia_smi": smi}
+    emit(row_a)
+
+    parts_s = {"a": time.perf_counter() - t_phase}
+    # (b) the training chain at every width, and serving at C = 768
+    g = torch.Generator().manual_seed(32)
+    train_rows = {}
+    for C, F in W_TRAIN:
+        for dtype, shapes in W_TRAIN_SHAPES.items():
+            for B, T, k in shapes:
+                timed = W_TIMED_MS if T == shapes[-1][1] and F % C == 0 else 0.0
+                t = time.perf_counter()
+                r = train_rows[(C, F, str(dtype)[6:], T)] = _ffn_train_case(
+                    dev, B, T, k, g, dtype, C=C, F=F, timed=timed)
+                r["case_s"] = time.perf_counter() - t
+    serve_rows = [_ffn_case(dev, B, T, k, dtype, g, C=768, F=F)
+                  for F, (B, T, k) in ((768, (8, 512, 17)), (1536, (1, 256, 17)))
+                  for dtype in (torch.bfloat16, torch.float32)]
+
+    parts_s["b"] = time.perf_counter() - t_phase - parts_s["a"]
+    # (c) HiFi-GAN at 1024 channels: train, serve with (a)'s checkpoint
+    voc_corpus = make_corpus(work / "voc_corpus", n_speakers=VOC_FILES[0], n_utts=VOC_FILES[1],
+                             seed=2, min_phones=12, max_phones=20)
+    voc, voc_logs = work / "voc", work / "voc_logs"
+    voc_run = _train_cli(voc_cli, ["--train_target_path", str(voc_corpus), "--checkpoint_dir",
+                                   str(voc), "--log_dir", str(voc_logs), *W_VOC_FLAGS], counters)
+    voc_lines = _metrics_lines(voc_logs)
+    if (len(voc_lines) != 3 or voc_run["launches"]["resblock"]
+            or not all(math.isfinite(l[f"train/{n}"]) for l in voc_lines for n in VOC_LOSSES)):
+        raise RuntimeError(f"1024-channel HiFi-GAN training: {voc_lines}, "
+                           f"launches {voc_run['launches']}")
+    served, wavs = {}, {}
+    for prec, name in (("32", "f32"), ("16", "bf16")):
+        served[name] = _serve(gen_cli, ck, work / f"out_{name}",
+                              ["--hifigan_checkpoint", str(voc), "--vocoder_precision", prec],
+                              counters)
+        got = {"resblock": dict(resblock.by_width), "resblock_trio": dict(resblock_trio.by_width),
+               "ffn_ln": dict(ffn_ln.by_width)}
+        served[name]["by_width"] = got
+        if ({k: got[k] for k in W_VOC_WIDTHS} != W_VOC_WIDTHS or set(got["ffn_ln"]) != {512}):
+            raise RuntimeError(f"{name} serving at hidden 512 with the 1024-channel HiFi-GAN "
+                               f"launched {got}, want {W_VOC_WIDTHS} and ffn_ln at C = 512")
+    # the f32 request's float waveform (the written wav is 16-bit) on the
+    # card and on the CPU
+    for d in ("cuda", "cpu"):
+        t = time.perf_counter()
+        wavs[d] = gen_cli.main(["--checkpoint_dir", str(ck), "--sentence", "Hello world.",
+                                "--output_path", str(work / f"ref_{d}"), "--seed", "0",
+                                "--hifigan_checkpoint", str(voc), "--device", d])
+        if d == "cpu":
+            cpu_s = time.perf_counter() - t
+    a, b = np.asarray(wavs["cuda"]), np.asarray(wavs["cpu"])
+    peak = float(np.abs(b).max())
+    ref_err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    ref_tol = 1e-3 * peak + 1e-7       # phase 6's: summation order through two models
+    if not (a.shape == b.shape and ref_err <= ref_tol and peak > 0):
+        raise RuntimeError(f"1024-channel f32 request card vs CPU: max |err| {ref_err} > {ref_tol}")
+    direct = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = []
+        for uic in W_DIRECT:
+            rows += _resblock_cases(dev, 512, g, dtype, cfg=HifiGanConfig(upsample_initial_channel=uic),
+                                    stages=(0,))
+        for r in rows:
+            r["launches_phase_32"] = served["bf16" if dtype == torch.bfloat16 else "f32"][
+                "by_width"]["resblock"].get(r["channels"], 0)
+        direct[str(dtype)[6:]] = rows
+    keys = ("at", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "tol")
+    tail = {"phase": "wide", "train_cli": {k: row_a[k] for k in ("cli_s", "steps", "by_width")},
+            "train_kernels": {f"{C}x{F} {d} T={T}": {
+                "case_s": r["case_s"], **{p: {k: r[p].get(k) for k in keys} for p in ("fwd", "bwd")}}
+                for (C, F, d, T), r in train_rows.items()},
+            "serve_768": [{k: r[k] for k in keys} for r in serve_rows],
+            "vocoder_training": {"s": voc_run["s"],
+                                 "losses": [{n: l[f"train/{n}"] for n in VOC_LOSSES}
+                                            for l in voc_lines]},
+            "served": served, "reference": {"max_abs_err": ref_err, "tol": ref_tol, "peak": peak,
+                                            "samples": int(a.size), "cpu_s": cpu_s},
+            "resblock_wide": {d: [{k: r.get(k) for k in keys + (
+                "channels", "kernel_channels", "route", "tile", "blocks_per_launch",
+                "pad_copy_ms", "direct_call_ms", "launches_phase_32")} for r in rows]
+                for d, rows in direct.items()},
+            "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    tail["parts_s"] = {**parts_s, "c": tail["phase_s"] - parts_s["a"] - parts_s["b"]}
+    emit(tail)
+    print(f"phase 32 (widths past 256): {tail['phase_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {"ffn_ln_train": by_width["ffn_ln_train"][512],
+                "ffn_ln_train_bwd": by_width["ffn_ln_train_bwd"][512],
+                "ffn_ln": sum(r["by_width"]["ffn_ln"].get(768, 0) for r in served.values()),
+                "resblock": sum(r["by_width"]["resblock"][512] for r in served.values())}
+    return {"train": train_rows, "serve_768": serve_rows, "resblock": direct,
+            "launches": launches}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -5083,6 +5364,7 @@ def main() -> int:
     odf = on_device_features_phase(counters, info["nvidia_smi"])
     dp = parallel_phase(counters, info["nvidia_smi"], train_cli["row"])
     b16 = b16_tools_phase(counters, served, info["nvidia_smi"])
+    wide32 = wide_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -5268,6 +5550,39 @@ def main() -> int:
             k["b16_widths"] = {d: [{f: r.get(f) for f in b16_keys} for r in rows
                                    if r["name"] == k["name"]]
                                for d, rows in b16["widths"].items()}
+    # phase 32: csrc/ffn_wide.cu's chain (training at C = 384-768 with the
+    # hidden-512 CLI run's launches at the decoder's shape; every width
+    # beside it) and serving at C = 768 (no preset serves it: 0 launches on
+    # a main path), and csrc/resblock.cu's wide route at the 1024-channel
+    # HiFi-GAN's stage 0 (its served requests' launches)
+    wt = wide32["train"]
+    part_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "at")
+    for part, name, rep_ in (("fwd", "ffn_ln_train", "pallas_ffn.py:242"),
+                             ("bwd", "ffn_ln_train_bwd", "pallas_ffn.py:311")):
+        r = wt[(512, 1024, "bfloat16", TRAIN_T)][part]
+        r32 = wt[(512, 1024, "float32", W_TRAIN_SHAPES[torch.float32][-1][1])][part]
+        kernels.append({
+            "name": f"{name}_wide", "route": "cuda", "source": f"{pkg}/ffn_wide.cu",
+            "replaces": f"lightningfastspeech2_tpu/ops/{rep_}",
+            "launches": wide32["launches"][name], **{k: r[k] for k in part_keys},
+            "library_ms": None, "launch_record": r["launch"],
+            "f32_route": {k: r32[k] for k in part_keys},
+            "widths": {f"{C}x{F} {d} T={T}": {k: c[part][k] for k in part_keys}
+                       for (C, F, d, T), c in wt.items()}})
+    sv = wide32["serve_768"]
+    kernels.append({
+        **_summary("ffn_ln_c768", f"{pkg}/ffn_wide.cu", "lightningfastspeech2_tpu/ops/pallas_ffn.py:77",
+                   sv[:1], wide32["launches"]["ffn_ln"]),
+        "shapes": [{k: r[k] for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err", "launch")} for r in sv]})
+    rw = wide32["resblock"]
+    kernels.append({
+        **_summary("resblock_wide", f"{pkg}/resblock.cu (wide_chain)",
+                   "lightningfastspeech2_tpu/ops/pallas_hifigan.py:103",
+                   [r for r in rw["bfloat16"] if r["channels"] == 512], wide32["launches"]["resblock"]),
+        "widths": {d: [{k: r.get(k) for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
+                                               "max_abs_err", "launches_phase_32")} for r in rows]
+                   for d, rows in rw.items()}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,7 +94,27 @@
 //
 // Shapes the kernel takes: C in {8, 16, 32, 64, 128, 256}, up to three
 // resblocks of up to three dilation pairs each, any L >= 1.
+//
+// Past C = 256 (ROADMAP B16w; a HiFi-GAN at upsample_initial_channel 1024
+// has C = 512 at stage 0), the wide route (wide_conv: one resblock, any C a
+// multiple of 128, both dtypes) runs the chain one conv a launch. There a
+// 64-row f32 accumulator over all C outputs (128 KB at C = 512) fits no
+// warpgroup, and a conv's taps (5.8 MB at C = 512, k = 11 in bf16) only
+// stream. Each conv is an implicit GEMM over every row of the signal
+// (csrc/gemm_mma.cuh: 128 rows by 128 output channels a block, the output
+// channels split across blocks, the taps streamed through shared memory
+// from their (C_out, k C_in) transpose): A gathers the conv's rows from
+// the signal, leaky applied for the first conv of a pair, zero outside [0,
+// L); the epilogue stores leaky(y + b) rounded into a scratch signal
+// (first conv) or x + round(y + b) rounded into out (second conv, in place
+// after the first pair). No halo is recomputed; the intermediate signals
+// go through device memory instead, which at a stage's sizes stays in L2.
+// Chosen over a cluster that shares the intermediate through distributed
+// shared memory because a cluster's blocks would each still need all C
+// channels of every halo row: the split across launches keeps one simple
+// product that both dtypes and every C share.
 #include "common.cuh"
+#include "gemm_mma.cuh"
 #include "mma.cuh"
 
 #include <cstdint>
@@ -1177,6 +1197,88 @@ Sched make_sched(const Spec& spec, int tile, int halo) {
   return sc;
 }
 
+// ===================== the wide route: C > 256, one launch a conv =====================
+
+// A of a conv: row m = b L + l, k index kk = j C + c_in -> the signal at l +
+// (j - half) d (zero outside [0, L)), leaky first where LEAKY; 16 bytes of
+// consecutive input channels a call
+template <typename T, bool LEAKY> struct ConvRows {
+  const T* x;
+  int L, C, d, half;
+  __device__ __forceinline__ uint4 vec(int m, int kk) const {
+    const int j = kk / C, ci = kk - j * C;
+    const int b = m / L, l = m - b * L;
+    const int src = l + (j - half) * d;
+    if (src < 0 || src >= L) return make_uint4(0, 0, 0, 0);
+    uint4 v = *reinterpret_cast<const uint4*>(x + (static_cast<long long>(b) * L + src) * C + ci);
+    if (LEAKY) {
+      T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+      for (int q = 0; q < lfs2::gemm::vec_elems<T>(); ++q) {
+        const float f = lfs2::to_f(e[q]);
+        e[q] = lfs2::from_f<T>(fmaxf(f, f * 0.1f));
+      }
+    }
+    return v;
+  }
+};
+
+// the first conv's epilogue: y = leaky(acc + b), rounded
+template <typename T> struct ConvFirstEp {
+  T* y;
+  const float* bias;
+  int C;
+  __device__ void operator()(const float (&acc)[4][4][4], int mw, int nw, int lane, int M) const {
+    lfs2::gemm::for_each_pair(acc, mw, nw, lane, M, [&](int m, int n, int, float v0, float v1) {
+      const float a = v0 + bias[n], b = v1 + bias[n + 1];
+      y[static_cast<size_t>(m) * C + n] = lfs2::from_f<T>(fmaxf(a, a * 0.1f));
+      y[static_cast<size_t>(m) * C + n + 1] = lfs2::from_f<T>(fmaxf(b, b * 0.1f));
+    });
+  }
+};
+
+// the second conv's epilogue: out = x + round(acc + b), rounded (x may be out)
+template <typename T> struct ConvSecondEp {
+  T* out;
+  const T* x;
+  const float* bias;
+  int C;
+  __device__ void operator()(const float (&acc)[4][4][4], int mw, int nw, int lane, int M) const {
+    lfs2::gemm::for_each_pair(acc, mw, nw, lane, M, [&](int m, int n, int, float v0, float v1) {
+      const size_t o = static_cast<size_t>(m) * C + n;
+      const float a = lfs2::round_to<T>(v0 + bias[n]), b = lfs2::round_to<T>(v1 + bias[n + 1]);
+      const float xa = lfs2::to_f(x[o]), xb = lfs2::to_f(x[o + 1]);
+      out[o] = lfs2::from_f<T>(xa + a);
+      out[o + 1] = lfs2::from_f<T>(xb + b);
+    });
+  }
+};
+
+template <typename T>
+cudaError_t wide_chain(const T* x, T* out, const T* w, const float* bias, T* y, int B, int L,
+                       int C, const Spec& spec, cudaStream_t s) {
+  using lfs2::gemm::Mat;
+  const int M = B * L, k = spec.k[0], K = k * C, half = (k - 1) / 2;
+  const T* cur = x;
+  int rec[5] = {};
+  for (int p = 0; p < spec.n_pairs[0]; ++p) {
+    const T* w1 = w + spec.w_off[0][2 * p];
+    const T* w2 = w + spec.w_off[0][2 * p + 1];
+    const float* b1 = bias + spec.b_off[0][2 * p] * C;
+    const float* b2 = bias + spec.b_off[0][2 * p + 1] * C;
+    cudaError_t e = lfs2::gemm::launch<T, true, true>(
+        ConvRows<T, true>{cur, L, C, spec.dil[0][p], half}, Mat<T>{w1, K, 1},
+        ConvFirstEp<T>{y, b1, C}, M, C, K, K, s, rec);
+    if (e != cudaSuccess) return e;
+    e = lfs2::gemm::launch<T, true, true>(ConvRows<T, false>{y, L, C, 1, half}, Mat<T>{w2, K, 1},
+                                          ConvSecondEp<T>{out, cur, b2, C}, M, C, K, K, s, rec);
+    if (e != cudaSuccess) return e;
+    cur = out;
+  }
+  for (int i = 0; i < 5; ++i) g_last_launch[i] = rec[i];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
@@ -1210,4 +1312,25 @@ LFS2_EXPORT int lfs2_resblock(const void* x, void* out, const void* w, const flo
 LFS2_EXPORT int lfs2_resblock_last_launch(int* out) {
   for (int i = 0; i < 5; ++i) out[i] = g_last_launch[i];
   return 0;
+}
+
+// The wide route (C > 256, a multiple of 128): one resblock ([k, n_pairs,
+// d_0, ..]), its taps each conv's (C_out, k, C_in) in order, the working
+// dtype; bias (n_convs, C) f32; y (B, L, C) scratch of the working dtype.
+// Each conv is one launch; the latest is recorded (its tile: 128 rows).
+LFS2_EXPORT int lfs2_resblock_wide(const void* x, void* out, const void* w, const float* bias,
+                                   void* y, int B, int L, int C, const int* layout, int dtype,
+                                   void* stream) {
+  Spec spec;
+  if (B < 1 || L < 1 || C < 128 || C % 128 != 0 || !parse_spec(layout, 1, C, 1 << 30, &spec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == lfs2::kBF16
+          ? wide_chain(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+                       static_cast<const __nv_bfloat16*>(w), bias, static_cast<__nv_bfloat16*>(y),
+                       B, L, C, spec, s)
+          : wide_chain(static_cast<const float*>(x), static_cast<float*>(out),
+                       static_cast<const float*>(w), bias, static_cast<float*>(y), B, L, C, spec, s);
+  return static_cast<int>(err);
 }

@@ -28,8 +28,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("probe", "ffn_ln", "ffn_ln_train_bwd", "flash_attention", "flash_attention_sm90",
-           "flash_attention_wide", "resblock", "soft_dtw", "length_regulator", "lvc_stack")
+SOURCES = ("probe", "ffn_ln", "ffn_ln_train_bwd", "ffn_wide", "flash_attention",
+           "flash_attention_sm90", "flash_attention_wide", "resblock", "soft_dtw",
+           "length_regulator", "lvc_stack")
 # the dtype codes of csrc/common.cuh's DType, as the launchers take them
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = (

@@ -117,9 +117,11 @@ def ffn_fused_ok(hidden: int, filter_size: int, kernel_size: int, training: bool
     (``models/layers.py _fused_ffn_ok``) as it runs on the chip, on the CPU
     and on the card alike. Hidden and filter must be multiples of 128; in
     training the JAX fit estimate ``16 C F + 3 * 320 * F * 4 <= 14 MiB``
-    must hold too. Where that estimate admits widths that the port's
-    training kernels do not take (``ops.ffn.ffn_train_fits``), it raises
-    rather than run another path (ROADMAP item B9t)."""
+    must hold too. The port's training kernels take every width a
+    depthwise block can build there (C up to 768, ``ops.ffn.ffn_train_fits``);
+    where the estimate admits widths they do not take (C >= 896 with F <
+    C, which no depthwise block builds), it raises rather than run another
+    path (ROADMAP item B9t)."""
     if hidden % 128 or filter_size % 128:
         return False
     if not training:
@@ -130,7 +132,7 @@ def ffn_fused_ok(hidden: int, filter_size: int, kernel_size: int, training: bool
         raise NotImplementedError(
             f"the fused training FFN at hidden {hidden}, filter {filter_size}, kernel "
             f"{kernel_size} in {dtype}: the JAX package's gate admits these widths, and "
-            f"ops.ffn.ffn_ln_train does not take them yet (ROADMAP item B9t)")
+            f"ops.ffn.ffn_ln_train takes C up to 768 (ROADMAP item B9t)")
     return True
 
 

@@ -13,7 +13,11 @@ chain in ``csrc/ffn_ln.cu``, the dup and dt1 passes in
 ``csrc/ffn_ln_train_bwd.cu``) through an autograd Function, or runs
 ``ffn_ln_train_plain`` on the CPU. Both dtypes run the products on the
 tensor cores: bf16 on wgmma, f32 as split-TF32 ``mma.sync`` (three TF32
-products a product, f32's digits). The rounding points follow the TPU
+products a product, f32's digits). Training at C = 384-768 (``CHAIN_C``),
+and serving at C = 768, run ``csrc/ffn_wide.cu`` instead: the half as a
+chain of launches (LN1, depthwise, the two products on ``mma.sync``, LN2;
+the backward's LN2 backward, four more products and the depthwise and LN1
+backwards), cut where a row's C-wide accumulator no longer fits a block. The rounding points follow the TPU
 kernel: LN1 output, depthwise output and ReLU output are rounded to the
 working dtype; the depthwise taps, both products and both LayerNorms
 accumulate in f32. ``ffn_ln_train_bwd_plain`` is the backward's stages in
@@ -46,6 +50,7 @@ import torch.nn.functional as nnf
 
 from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream, refuse_grad
+from lightningfastspeech2_tpu_torch.ops import gemm
 from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
 from lightningfastspeech2_tpu_torch.ops.hifigan_resblock import tf32
 from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
@@ -56,6 +61,8 @@ _c_wide = None
 _c_train = None
 _c_chain = None
 _c_bwd = None
+_c_chain_fwd = None
+_c_chain_bwd = None
 
 
 def _lib_fn(name: str, symbol: str, argtypes):
@@ -170,12 +177,21 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
                          f"dtype, got {z.dtype}, {w.w1.dtype}, {w.w2f.dtype}")
     if C not in SERVE_C or F % 128 != 0:
         raise ValueError(f"ffn_ln kernel takes C in {SERVE_C} and F % 128 == 0, got C={C}, "
-                         f"F={F}")
-    plan = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")[0]
-    if not _fits(plan, w.kernel_size):
+                         f"F={F} (C >= 896 is ROADMAP B9w)")
+    plans = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")
+    plan = plans[0]
+    if not all(_fits(p, w.kernel_size) for p in plans):
         raise ValueError(f"ffn_ln kernel: k={w.kernel_size} at C={C} needs {plan.smem_bytes} "
-                         f"bytes of shared memory (at most {SMEM_LIMIT}) or a t1 window of "
-                         f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32)")
+                         f"bytes of shared memory (at most {SMEM_LIMIT}), a t1 window of "
+                         f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32) "
+                         f"or, past C = 640, k <= {_CHAIN_MAX_K}")
+    if C not in WIDE_C and C in CHAIN_C:
+        if w.img is None:
+            w.img = _chain_image(w.w1, w.w2f, z.dtype)
+        out = _chain_fwd(z, w.wd, w.b1, w.lnp, w.img, F, None, w.eps, 0, 1.0, stream)
+        ffn_ln.launches += 1
+        ffn_ln.by_width[C] = ffn_ln.by_width.get(C, 0) + 1
+        return out
     wide = C in WIDE_C
     if w.img is None:
         if wide:
@@ -207,15 +223,16 @@ ffn_ln.by_width = {}  # launches by channel count C, set to {} with the count
 
 
 
-
 # ---------------------------------------------------------------------------
 # the launches' geometry: csrc/ffn_sm90.cuh's tables (bf16 wgmma, f32 split TF32)
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
-TRAIN_C = (32, 64, 128, 256)  # widths of the training kernels (and of serving's first route)
-WIDE_C = (384, 512, 640)      # widths only ffn_wide_kernel takes, serving only
-SERVE_C = TRAIN_C + WIDE_C
+NARROW_C = (32, 64, 128, 256)  # csrc/ffn_ln.cu's fused kernels: serving and training
+WIDE_C = (384, 512, 640)       # widths ffn_wide_kernel serves
+CHAIN_C = (384, 512, 640, 768)  # csrc/ffn_wide.cu's chain: training, and serving past WIDE_C
+TRAIN_C = NARROW_C + CHAIN_C   # widths the training kernels take
+SERVE_C = NARROW_C + CHAIN_C   # widths the serving kernels take
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 _ROWS = 128          # kRows: rows of one item a wgmma block owns (two warpgroups of 64)
 _FC = 64             # kFC: F columns per weight chunk
@@ -228,6 +245,12 @@ _F32_FC, _DUP_FC = 32, 16  # kF32FC, kDupFC: F columns per forward / dup chunk
 _F32_WINDOW = 2 * _F32_FC * 8 // 4  # rows of t1 the two f32 piece buffers hold
 _STAGE_LD = _DUP_FC + 4  # kStageLd
 _BAR_BYTES = 64
+# csrc/ffn_wide.cu: rows a forward row-kernel block owns (one a warp), rows
+# a backward row-kernel block owns, the depthwise tiles (rows, channels),
+# and the depthwise kernel sizes the chain takes
+_CHAIN_WARP_ROWS, _CHAIN_RED_ROWS = 8, 128
+_CHAIN_DW_ROWS, _CHAIN_DW_CH = 64, 64
+_CHAIN_MAX_K = 63
 
 
 @dataclass(frozen=True)
@@ -341,6 +364,41 @@ def _wide_split(B: int, T: int, R: int, nch: int) -> Tuple[int, int, int]:
     return x, m, -(-nch // per)
 
 
+def _chain_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
+                mode: str) -> Tuple[FFNLaunch, ...]:
+    """The launches of ``csrc/ffn_wide.cu``, in order: LN1 (8 rows a block,
+    one a warp), the depthwise conv (64 rows of one item by 64 channels a
+    block, the t1 window in shared memory), the up and down products
+    (``ops/gemm.py``: 128 x 128 output tiles); serving and the training
+    forward then LN2; the backward instead the LN2 backward (128 rows a
+    block, their column sums met in shared memory), the dup and dacc
+    products, dW1 and dW2f split over the rows (``gemm.split_k_rows``), the
+    depthwise backward and the LN1 backward."""
+    M, smem, tile = B * T, gemm.smem_bytes(dtype), gemm.TILE
+
+    def product(name, N, rows, K=None):
+        z = 1 if K is None else -(-K // gemm.split_k_rows((C // tile) * (F // tile), K))
+        return FFNLaunch(name, tile, gemm.CHUNK, 2, smem, (N // tile, -(-rows // tile), z), 256)
+
+    def dw(name, smem_rows):
+        return FFNLaunch(name, _CHAIN_DW_ROWS, 0, 0, smem_rows * _CHAIN_DW_CH * 4,
+                         (-(-T // _CHAIN_DW_ROWS), C // _CHAIN_DW_CH, B), 256)
+
+    def rows(name, per, smem=0):
+        return FFNLaunch(name, per, 0, 0, smem, (-(-M // per), 1, 1), 256)
+
+    window = _CHAIN_DW_ROWS + k - 1
+    fwd = (rows("wide_ln1_kernel", _CHAIN_WARP_ROWS), dw("wide_dw_kernel", window),
+           product("gemm_up", F, M), product("gemm_down", C, M))
+    if mode != "bwd":
+        return fwd + (rows("wide_ln2_kernel", _CHAIN_WARP_ROWS),)
+    return fwd + (rows("wide_ln2_bwd_kernel", _CHAIN_RED_ROWS, 3 * C * 4),
+                  product("gemm_dup", F, M), product("gemm_dacc", C, M),
+                  product("gemm_dw1", F, C, M), product("gemm_dw2f", C, F, M),
+                  dw("wide_dw_bwd_kernel", 2 * window + k + 1),
+                  rows("wide_ln1_bwd_kernel", _CHAIN_RED_ROWS, 2 * C * 4))
+
+
 def _f32_rows(B: int, T: int) -> int:
     """Rows a split-TF32 block owns: of 64 and 32, the one whose blocks take
     fewer rows' time in waves over the card's SMs (one block an SM), 64 on
@@ -367,11 +425,15 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
     chunks, two weight buffers). f32 runs the split-TF32 kernels: blocks
     of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
     forward and the chain, 16-column for the dup pass. The dt1 pass takes
-    64-row blocks in both. Every block owns the rows its products form."""
+    64-row blocks in both. Every block owns the rows its products form.
+    Training at C in ``CHAIN_C``, and serving at C = 768, run
+    ``csrc/ffn_wide.cu``'s chain (``_chain_plan``)."""
     def grid(rows):
         return (-(-T // rows), B, 1)
 
     bf16 = dtype == torch.bfloat16
+    if C in CHAIN_C and not (C in WIDE_C and mode == "serve"):
+        return _chain_plan(C, F, k, B, T, dtype, mode)
     if C in WIDE_C and mode == "serve":
         R, _, ns, threads = _wide_geometry(C, dtype)
         x, m, splits = _wide_split(B, T, R, F // _WIDE_FC)
@@ -398,10 +460,13 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
 
 def _fits(launch: FFNLaunch, k: int) -> bool:
     """Whether a launch fits a block: its shared memory, in f32 the t1
-    window of the forward's two piece buffers, and in the wide kernel the
-    window rows whose z pieces its threads hold (8 a row, 8 a thread)."""
+    window of the forward's two piece buffers, in the wide kernel the
+    window rows whose z pieces its threads hold (8 a row, 8 a thread), and
+    in the chain's depthwise kernels k up to 63."""
     window = {"ffn_tf32_kernel": _F32_WINDOW,
               "ffn_wide_kernel": _WIDE_PIECES * 256 // 8}.get(launch.kernel)
+    if launch.kernel in ("wide_dw_kernel", "wide_dw_bwd_kernel") and k > _CHAIN_MAX_K:
+        return False
     return launch.smem_bytes <= SMEM_LIMIT and (window is None or launch.rows + k - 1 <= window)
 
 
@@ -410,7 +475,8 @@ def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
     own counterpart of the JAX package's VMEM estimate (``_fused_ffn_ok``).
     Every launch of the forward and the backward must fit a block (at both
     f32 row counts); k is at most 63 in bf16 and 50 in f32 (the dt1 tile at
-    C = 256)."""
+    C = 256), at every width. C runs to 768: past it the JAX estimate admits
+    only widths with F < C, which no depthwise block builds (ROADMAP B9t)."""
     if dtype not in _MAX_K or C not in TRAIN_C or F % 128 != 0:
         return False
     if not 1 <= k <= _MAX_K[dtype]:
@@ -733,9 +799,10 @@ def _check_train(z: torch.Tensor, k: int, F: int) -> None:
     B, T, C = z.shape
     if not ffn_train_fits(C, F, k, z.dtype):
         raise ValueError(
-            f"ffn_ln_train kernels take f32 or bf16 z, C in {TRAIN_C}, "
-            f"F % 128 == 0 and k <= {_MAX_K.get(z.dtype, 0)} within "
-            f"{SMEM_LIMIT} bytes of shared memory; got {z.dtype}, C={C}, F={F}, k={k}")
+            f"ffn_ln_train kernels take f32 or bf16 z, C in {TRAIN_C} (the chain of "
+            f"csrc/ffn_wide.cu from C = 384), F % 128 == 0 and k <= "
+            f"{_MAX_K.get(z.dtype, 0)} within {SMEM_LIMIT} bytes of shared memory; "
+            f"got {z.dtype}, C={C}, F={F}, k={k}")
 
 
 def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -743,17 +810,80 @@ def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     the backward alike: the f32 taps, biases and LayerNorm vectors, and W1,
     W2f as the kernels stream them: bf16 one swizzled image ("img", the
     forward, the chain and the dup pass); f32 the forward's and the chain's
-    split pieces ("img") and the dup pass's ("dup_img")."""
+    split pieces ("img") and the dup pass's ("dup_img"). At C in
+    ``CHAIN_C`` W1 (C, F) and W2f (F, C) as they lie ("w1", "w2f", the
+    backward's dup and dacc products) and their transposes
+    (``_chain_image``, "img", the up and down products), in the working
+    dtype: ``csrc/ffn_wide.cu`` reads them so, f32 split as read."""
     wd, bd, w1, b1, w2f, b2f, g1, be1, g2, be2 = (t.detach() for t in p)
     lnp = torch.stack([g1.float(), be1.float(), g2.float(), be2.float(),
                        bd.float(), b2f.float()]).contiguous()
     out = dict(wd=wd.float().contiguous(), b1=b1.float().contiguous(), lnp=lnp)
-    if dt == torch.bfloat16:
+    if w1.shape[0] in CHAIN_C:
+        out.update(w1=w1.to(dt).contiguous(), w2f=w2f.to(dt).contiguous(),
+                   img=_chain_image(w1, w2f, dt))
+    elif dt == torch.bfloat16:
         out["img"] = _weight_image(w1, w2f)
     else:
         src = _split_source(w1, w2f)
         out.update(img=_f32_image(w1, w2f, "fwd", src), dup_img=_f32_image(w1, w2f, "dup", src))
     return out
+
+
+def _chain_image(w1: torch.Tensor, w2f: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """W1 (C, F) and W2f (F, C) as the chain's forward products read them:
+    W1^T (F, C) then W2f^T (C, F), flat, in ``dtype`` (each the B operand of
+    its product, k-contiguous)."""
+    return torch.cat([w1.t().reshape(-1), w2f.t().reshape(-1)]).to(dtype).contiguous()
+
+
+def _chain_fwd(z: torch.Tensor, wd, b1, lnp, img, F: int, seed: Optional[torch.Tensor],
+               eps: float, thr: int, ik: float, stream: int) -> torch.Tensor:
+    """``csrc/ffn_wide.cu``'s forward on z (B, T, C) with ``_chain_image``'s
+    weights: serving (``seed`` None, no dropout) or the training forward,
+    with its scratch."""
+    global _c_chain_fwd
+    if _c_chain_fwd is None:
+        _c_chain_fwd = _lib_fn("ffn_wide", "lfs2_ffn_wide_fwd",
+                               [_P] * 12 + [_I] * 5 + [_F, _U, _F, _I, _I, _P])
+    B, T, C = z.shape
+    k = wd.shape[0]
+    out, t1, h0 = (torch.empty_like(z) for _ in range(3))
+    up = z.new_empty(B, T, F)
+    ff = torch.empty(B, T, C, dtype=torch.float32, device=z.device)
+    lib, fn = _c_chain_fwd
+    w1t, w2ft = img[:F * C], img[F * C:]
+    rc = fn(z.data_ptr(), out.data_ptr(), wd.data_ptr(), b1.data_ptr(), lnp.data_ptr(),
+            w1t.data_ptr(), w2ft.data_ptr(), None if seed is None else seed.data_ptr(),
+            t1.data_ptr(), h0.data_ptr(), up.data_ptr(), ff.data_ptr(), B, T, C, F, k, eps,
+            thr, ik, int(seed is not None), build.DTYPE_CODES[z.dtype], stream)
+    build.check(lib, rc, "ffn_wide (forward)")
+    return out
+
+
+def _chain_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, grads) -> None:
+    """``csrc/ffn_wide.cu``'s backward: dz and the gradients added into the
+    zeroed ``grads`` views (dwd, dw1, dw2f, db1, dvec)."""
+    global _c_chain_bwd
+    if _c_chain_bwd is None:
+        _c_chain_bwd = _lib_fn("ffn_wide", "lfs2_ffn_wide_bwd",
+                               [_P] * 24 + [_I] * 5 + [_F, _U, _F, _I, _P])
+    B, T, C = z.shape
+    k, F = w["wd"].shape[0], w["w1"].shape[1]
+    t1, h0, dff = (torch.empty_like(z) for _ in range(3))
+    up, dup = z.new_empty(B, T, F), z.new_empty(B, T, F)
+    ff, dres, dacc = (torch.empty(B, T, C, dtype=torch.float32, device=z.device)
+                      for _ in range(3))
+    lib, fn = _c_chain_bwd
+    w1t, w2ft = w["img"][:F * C], w["img"][F * C:]
+    rc = fn(z.data_ptr(), dout.data_ptr(), w["wd"].data_ptr(), w["b1"].data_ptr(),
+            w["lnp"].data_ptr(), w["w1"].data_ptr(), w["w2f"].data_ptr(), w1t.data_ptr(),
+            w2ft.data_ptr(), seed.data_ptr(),
+            t1.data_ptr(), h0.data_ptr(), up.data_ptr(), ff.data_ptr(), dres.data_ptr(),
+            dff.data_ptr(), dup.data_ptr(), dacc.data_ptr(), dz.data_ptr(),
+            *(g.data_ptr() for g in grads), B, T, C, F, k, eps, thr, ik,
+            build.DTYPE_CODES[z.dtype], stream)
+    build.check(lib, rc, "ffn_wide (backward)")
 
 
 def _train_fn():
@@ -783,22 +913,28 @@ def _bwd_fn():
 def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
                      eps: float = 1e-5, layouts: Optional[Dict[str, torch.Tensor]] = None
                      ) -> torch.Tensor:
-    """Launch the training forward kernel (``csrc/ffn_ln.cu``, dropout on);
-    CUDA tensors only. ``layouts`` (``_kernel_layouts``) are built here when
+    """Launch the training forward kernel (``csrc/ffn_ln.cu``, dropout on;
+    at C in ``CHAIN_C`` the chain of ``csrc/ffn_wide.cu``); CUDA tensors only. ``layouts`` (``_kernel_layouts``) are built here when
     not given. The result is not connected to autograd."""
     k, F = p[0].shape[0], p[2].shape[1]
     _check_train(z, k, F)
     w = _kernel_layouts(p, z.dtype) if layouts is None else layouts
     stream = kernel_stream(z, seed, *w.values())
     B, T, C = z.shape
-    rows = ffn_plan(C, F, k, B, T, z.dtype, "train")[0].rows
-    out = torch.empty_like(z)
-    lib, fn = _train_fn()
-    rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), w["b1"].data_ptr(),
-            w["lnp"].data_ptr(), w["img"].data_ptr(), seed.data_ptr(), B, T, C, F, k, rows,
-            eps, keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype], stream)
-    build.check(lib, rc, "ffn_ln_train")
+    if C in CHAIN_C:
+        out = _chain_fwd(z, w["wd"], w["b1"], w["lnp"], w["img"], F, seed, eps,
+                         keep_threshold(rate), 1.0 / (1.0 - rate), stream)
+    else:
+        rows = ffn_plan(C, F, k, B, T, z.dtype, "train")[0].rows
+        out = torch.empty_like(z)
+        lib, fn = _train_fn()
+        rc = fn(z.data_ptr(), out.data_ptr(), w["wd"].data_ptr(), w["b1"].data_ptr(),
+                w["lnp"].data_ptr(), w["img"].data_ptr(), seed.data_ptr(), B, T, C, F, k, rows,
+                eps, keep_threshold(rate), 1.0 / (1.0 - rate), build.DTYPE_CODES[z.dtype],
+                stream)
+        build.check(lib, rc, "ffn_ln_train")
     ffn_ln_train.launches += 1
+    ffn_ln_train.by_width[C] = ffn_ln_train.by_width.get(C, 0) + 1
     return out
 
 
@@ -808,7 +944,8 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     """Launch the backward (CUDA tensors only): the chain
     (``csrc/ffn_ln.cu``), then the dup and dt1 passes
     (``csrc/ffn_ln_train_bwd.cu``), through (B, T, C) scratch h0, dff (the
-    working dtype), dres and dacc (f32), each launch sized by ``ffn_plan``.
+    working dtype), dres and dacc (f32), each launch sized by ``ffn_plan``;
+    at C in ``CHAIN_C`` the eleven launches of ``csrc/ffn_wide.cu``.
     Returns ``dz`` and the f32 gradients of the ten entries of ``p``, in
     order."""
     k, F = p[0].shape[0], p[2].shape[1]
@@ -824,6 +961,23 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=z.device)
     dwd, dw1, dw2f, db1, dvec = torch.split(grads, sizes)
     thr, ik = keep_threshold(rate), 1.0 / (1.0 - rate)
+    if C in CHAIN_C:
+        _chain_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, (dwd, dw1, dw2f, db1, dvec))
+    else:
+        _narrow_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, (dwd, dw1, dw2f, db1, dvec))
+    ffn_ln_train_bwd.launches += 1
+    ffn_ln_train_bwd.by_width[C] = ffn_ln_train_bwd.by_width.get(C, 0) + 1
+    dg1, dbe1, dg2, dbe2, dbd, db2f = dvec.view(6, C)
+    return (dz, dwd.view(k, C), dbd, dw1.view(C, F), db1, dw2f.view(F, C),
+            db2f, dg1, dbe1, dg2, dbe2)
+
+
+def _narrow_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, grads) -> None:
+    """The backward's three launches at C in ``NARROW_C``: the chain, then
+    the dup and dt1 passes."""
+    dwd, dw1, dw2f, db1, dvec = grads
+    B, T, C = z.shape
+    k, F = w["wd"].shape[0], db1.numel()
     code = build.DTYPE_CODES[z.dtype]
     chain, dup, _ = ffn_plan(C, F, k, B, T, z.dtype, "bwd")
     h0, dff = torch.empty_like(z), torch.empty_like(z)
@@ -842,10 +996,6 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
             dwd.data_ptr(), dw1.data_ptr(), dw2f.data_ptr(), db1.data_ptr(),
             dvec.data_ptr(), B, T, C, F, k, dup.rows, eps, thr, ik, code, stream)
     build.check(lib, rc, "ffn_ln_train_bwd")
-    ffn_ln_train_bwd.launches += 1
-    dg1, dbe1, dg2, dbe2, dbd, db2f = dvec.view(6, C)
-    return (dz, dwd.view(k, C), dbd, dw1.view(C, F), db1, dw2f.view(F, C),
-            db2f, dg1, dbe1, dg2, dbe2)
 
 
 def last_launches() -> Dict[str, object]:
@@ -857,7 +1007,8 @@ def last_launches() -> Dict[str, object]:
     the card holds at once at the latest wide launch's configuration
     (cudaOccupancyMaxActiveClusters; 0 after other routes), under
     "ffn_ln_train_bwd" the backward library's latest call (the dup and dt1
-    passes). Zeros before the first."""
+    passes), under "ffn_wide" every launch of ``csrc/ffn_wide.cu``'s latest
+    call (the chain at C in ``CHAIN_C``). Zeros before the first."""
     def rec(r, cluster=1):
         return {"grid": (r[0], r[1], r[2]), "smem_bytes": r[3], "rows": r[4], "cluster": cluster}
 
@@ -869,10 +1020,15 @@ def last_launches() -> Dict[str, object]:
     lib = build.load("ffn_ln_train_bwd")
     lib.lfs2_ffn_ln_train_bwd_last_launches.argtypes = [ctypes.POINTER(ctypes.c_int)]
     build.check(lib, lib.lfs2_ffn_ln_train_bwd_last_launches(bwd), "ffn_ln_train_bwd launch query")
+    chain = (ctypes.c_int * 81)()
+    lib = build.load("ffn_wide")
+    lib.lfs2_ffn_wide_last_launches.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    build.check(lib, lib.lfs2_ffn_wide_last_launches(chain), "ffn_wide launch query")
     return {"ffn_ln": rec(fwd[:5], fwd[5]),
             "ffn_ln_wide_ln2": rec(fwd[7:12]),
             "ffn_ln_max_active_clusters": fwd[6],
-            "ffn_ln_train_bwd": [rec(bwd[5 * i:5 * i + 5]) for i in range(2) if bwd[5 * i]]}
+            "ffn_ln_train_bwd": [rec(bwd[5 * i:5 * i + 5]) for i in range(2) if bwd[5 * i]],
+            "ffn_wide": [rec(chain[1 + 5 * i:6 + 5 * i]) for i in range(chain[0])]}
 
 
 def planned_launch(launch: FFNLaunch) -> Dict[str, object]:
@@ -918,3 +1074,6 @@ def ffn_ln_train(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
 
 ffn_ln_train.launches = 0
 ffn_ln_train_bwd.launches = 0
+# launches by channel count C, set to {} with the counts
+ffn_ln_train.by_width = {}
+ffn_ln_train_bwd.by_width = {}

@@ -9,15 +9,20 @@ versions below. The TPU kernels' time-into-lanes fold (``tap_blocks``) was
 a trick for the MXU and is not carried over: signals stay (B, L, C).
 Every route runs on the tensor cores: bf16 at C >= 128 through wgmma,
 bf16 below through mma.sync, f32 through mma.sync with split-TF32
-products (three TF32 products each, f32 accuracy). The kernels are built
-for C in ``KERNEL_CHANNELS`` (HiFi-GAN V1's stages and V2's narrower ones).
-A resblock of another C up to 256 is zero-padded to the next of them
-(``kernel_channels``): ``prepare_resblock_weights`` pads the taps and
-biases, the served generator carries its stages' signals at the padded
-width, and a direct call at the resblock's own C pads x once here. The
-padded channels stay exactly 0 through the chain (leaky(0) = 0, zero taps
-and biases), and the real channels see only added zeros. C > 256 raises on
-the card (ROADMAP B16w).
+products (three TF32 products each, f32 accuracy). The fused kernels are
+built for C in ``KERNEL_CHANNELS`` (HiFi-GAN V1's stages and V2's narrower
+ones). Past C = 256 (a HiFi-GAN at ``upsample_initial_channel`` 1024 has
+C = 512 at stage 0) ``resblock`` takes the wide route of the same source
+(route "gemm"): one launch a conv of the chain, each an implicit GEMM on
+mma.sync with the output channels split across blocks, the intermediate
+signals through device memory. A resblock of another C is zero-padded to
+the width its route runs (``kernel_channels``: the next of
+``KERNEL_CHANNELS`` up to 256, the next multiple of 128 past it):
+``prepare_resblock_weights`` pads the taps and biases, the served
+generator carries its stages' signals at the padded width, and a direct
+call at the resblock's own C pads x once here. The padded channels stay
+exactly 0 through the chain (leaky(0) = 0, zero taps and biases), and the
+real channels see only added zeros.
 
 The kernels have no backward: on a CUDA tensor the wrappers raise when
 grad mode is on and x needs a gradient. A generator that trains runs its
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 
 from lightningfastspeech2_tpu_torch.kernels import build
 from lightningfastspeech2_tpu_torch.kernels.launch import kernel_stream, refuse_grad
+from lightningfastspeech2_tpu_torch.ops import gemm
 
 LRELU_SLOPE = 0.1
 # the H100 SXM: shared memory a block may take, and streaming multiprocessors
@@ -70,12 +76,14 @@ _F32_MMA_US = 0.0057
 # clusters of 4 blocks an H100 runs at once (more take a second wave:
 # scripts/bench_resblock.py --sweep, 32 clusters as slow as two waves)
 _F32_CLUSTERS_AT_ONCE = 28
-# the channel counts the kernels are built for; a narrower C is padded up
-# to the next of them, a wider one raises on the card
+# the channel counts the fused kernels are built for; a narrower C is padded
+# up to the next of them, a wider one to the wide route's multiple of 128
+# (its product's output tile, ops/gemm.py)
 KERNEL_CHANNELS = (8, 16, 32, 64, 128, 256)
 # below this many channels a launch is bound by bytes (see tile_plan)
 _NARROW = 32
 _c_fn = None
+_c_wide = None
 
 # one residual pair: (w1, b1, dilation, w2, b2), torch Conv1d layout (C, C, k)
 Pair = Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor, torch.Tensor]
@@ -107,9 +115,9 @@ class ChainShape:
 
 def kernel_channels(C: int) -> int:
     """The width the kernels run a C-channel resblock at: the least entry
-    of ``KERNEL_CHANNELS`` that is at least C; C itself past 256 (which the
-    kernels refuse)."""
-    return next((k for k in KERNEL_CHANNELS if k >= C), C)
+    of ``KERNEL_CHANNELS`` that is at least C; past 256 the next multiple of
+    128 (the wide route's tile)."""
+    return next((k for k in KERNEL_CHANNELS if k >= C), -(-C // gemm.TILE) * gemm.TILE)
 
 
 @dataclass
@@ -197,8 +205,12 @@ def _kernel_taps(w: torch.Tensor) -> torch.Tensor:
     stored as its shared-memory image: 64-channel boxes of 128-byte rows,
     the 16-byte pieces of row r at piece index ^ (r % 8). The f32 route
     takes them split (``split_taps``). bf16 below C = 128, and a C that no
-    kernel takes, keep the order."""
+    kernel takes, keep the order; the wide route past C = 256 (both dtypes,
+    f32 split as read) takes the (C_out, k C_in) transpose, each output
+    channel's taps contiguous."""
     k, C, _ = w.shape
+    if C > KERNEL_CHANNELS[-1]:
+        return w.permute(2, 0, 1).reshape(-1)
     if C not in KERNEL_CHANNELS:
         return w.reshape(-1)
     if w.dtype == torch.float32:
@@ -311,7 +323,8 @@ class TilePlan:
     residual signal in shared memory, else (f32 only) in device scratch."""
 
     route: str             # bf16: "wgmma" (C >= 128) or "mma" (mma.sync); f32 (split
-    tile: int              # TF32): "mma_tf32", "mma_tf32_xl2" (x in L2), "mma_tf32_c4"
+    tile: int              # TF32): "mma_tf32", "mma_tf32_xl2" (x in L2), "mma_tf32_c4";
+    #                        past C = 256 both: "gemm" (one launch a conv; tile: its rows a block)
     blocks: int
     smem_bytes: int
     x_in_smem: bool
@@ -460,9 +473,19 @@ def _f32_options(w: ChainShape, tile: int):
             yield route, xs, smem
 
 
+def _wide_plan(w: ChainShape, B: int, L: int) -> TilePlan:
+    """The wide route's launches (every conv alike): ``ops/gemm.py``'s 128
+    rows by 128 output channels a block over all B L rows; no halo
+    recomputed."""
+    blocks = (w.channels // gemm.TILE) * -(-B * L // gemm.TILE)
+    return TilePlan("gemm", gemm.TILE, blocks, gemm.smem_bytes(w.dtype), False, 0.0)
+
+
 @functools.lru_cache(maxsize=256)
 def _make_plan(w: ChainShape, B: int, L: int) -> TilePlan:
     C, halo = w.channels, w.halo
+    if C > KERNEL_CHANNELS[-1]:
+        return _wide_plan(w, B, L)
     best = None
     split = _f32_split(C) if w.dtype == torch.float32 else 1
     at_once = SM_COUNT if split == 1 else _F32_CLUSTERS_AT_ONCE * split
@@ -489,6 +512,18 @@ def _make_plan(w: ChainShape, B: int, L: int) -> TilePlan:
         raise ValueError(f"resblock kernel: C={C} with halo {halo} does not fit")
     _, route, tile, blocks, smem, xs = best
     return TilePlan(route, tile, blocks, smem, xs, halo_share(w, tile))
+
+
+def _wide_fn():
+    global _c_wide
+    if _c_wide is None:
+        lib = build.load("resblock")
+        fn = lib.lfs2_resblock_wide
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.POINTER(ctypes.c_int), i, p]
+        fn.restype = ctypes.c_int
+        _c_wide = (lib, fn)
+    return _c_wide
 
 
 def _fn():
@@ -525,12 +560,21 @@ def _launch(x: torch.Tensor, w: ResblockWeights, what: str,
                          f"got {x.dtype}, {w.taps.dtype}")
     if C != w.channels:
         raise ValueError(f"{what}: x has C={C}, its weights {w.channels}")
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"{what} kernel takes C up to 256 (padded to one of "
-                         f"{KERNEL_CHANNELS}), got C={C}: C > 256 is ROADMAP B16w "
-                         "(B16's widest stages)")
     if w.n_res > 3 or any(len(ds) > 3 for ds in w.dilations):
         raise ValueError(f"{what} kernel takes up to 3 resblocks of up to 3 pairs")
+    if C not in KERNEL_CHANNELS:
+        if C % gemm.TILE or w.n_res != 1:
+            raise ValueError(f"{what} kernel takes C in {KERNEL_CHANNELS} or, one resblock "
+                             f"at a time, a multiple of {gemm.TILE} (padded by "
+                             f"kernel_channels), got C={C} with {w.n_res} resblocks")
+        layout = w.layout
+        out, y = torch.empty_like(x), torch.empty_like(x)   # y: each pair's first conv
+        lib, fn = _wide_fn()
+        rc = fn(x.data_ptr(), out.data_ptr(), w.taps.data_ptr(), w.bias.data_ptr(),
+                y.data_ptr(), B, L, C, (ctypes.c_int * len(layout))(*layout),
+                build.DTYPE_CODES[x.dtype], stream)
+        build.check(lib, rc, what)
+        return out
     plan = plan or tile_plan(w, B, L)
     split = _f32_split(C) if x.dtype == torch.float32 else 1
     if plan.x_in_smem:

@@ -7,14 +7,16 @@ ResBlock1s, averaged] -> leaky(0.01) -> conv_post(7) -> tanh.
 
 Every resblock group goes through ``ops.hifigan_resblock``: stages of at
 most 128 channels through ``resblock_trio`` (one launch for the three
-ResBlock1s), wider stages (V1's 256-channel first one) through three
-``resblock`` launches; on the card these are the CUDA kernels, on the CPU
-their plain versions. conv_pre, the upsampling convs and conv_post are
+ResBlock1s), wider stages (V1's 256-channel first one, and past 256 the
+wide route's stages, 512 at ``upsample_initial_channel`` 1024) through
+three ``resblock`` launches; on the card these are the CUDA kernels, on
+the CPU their plain versions. conv_pre, the upsampling convs and conv_post are
 ``F.conv1d``/``F.conv_transpose1d``, as the JAX package left them to XLA.
 
 A stage whose width the kernels are not built for (``upsample_initial_channel``
 384 gives 192, 96, 48, 24) runs at the next width they are
-(``kernel_channels``: 256, 128, 64, 32): ``prepare()`` zero-pads the
+(``kernel_channels``: 256, 128, 64, 32; past 256 the next multiple of
+128, so 640 gives 320 run at 384): ``prepare()`` zero-pads the
 output channels of the stage's upsampling conv and the input channels of
 the conv after it (the next upsampling conv, or conv_post), so the
 stage's signal carries the padded width from the conv that makes it, and

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from lightningfastspeech2_tpu_torch.ops import ffn
+from lightningfastspeech2_tpu_torch.ops import ffn, gemm
 
 C, F = 256, 1024
 # (B, T, k, mode): the training step's encoder (P = 256) and decoder
@@ -249,15 +249,58 @@ def test_wide_takes_every_kernel_size_it_took_before(C_, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C_", ffn.WIDE_C)
 def test_training_past_256_is_refused_naming_b9t(C_, dtype):
-    """The training kernels stop at C = 256: ffn_train_fits says no, and
-    where the JAX gate's fit estimate admits the widths, the port's gate
-    raises naming ROADMAP item B9t rather than run another path."""
+    """Past C = 256 the training kernels (csrc/ffn_wide.cu's chain) take
+    every width up to 768 where the JAX gate's fit estimate admits it, so
+    the port's gate admits it too; B9t is still named where the estimate
+    admits widths no kernel takes (C >= 896, F < C), rather than run
+    another path."""
     from lightningfastspeech2_tpu_torch.models.layers import ffn_fused_ok
 
-    assert not ffn.ffn_train_fits(C_, 1024, 5, dtype)
-    with pytest.raises(NotImplementedError, match="B9t"):
-        ffn_fused_ok(C_, 1024, 5, True, dtype)
+    assert ffn.ffn_train_fits(C_, 1024, 5, dtype)
+    assert ffn_fused_ok(C_, 1024, 5, True, dtype)
     assert ffn_fused_ok(C_, 1024, 5, False, dtype)   # serving takes them
+    assert not ffn.ffn_train_fits(C_ + 512, 512, 5, dtype)
+    with pytest.raises(NotImplementedError, match="B9t"):
+        ffn_fused_ok(C_ + 512, 512, 5, True, dtype)
+
+
+# the training widths past C = 256: what a depthwise block builds (F a
+# multiple of C) and what the JAX fit estimate alone also admits
+CHAIN_WIDTHS = [(384, 384), (384, 768), (384, 1152), (512, 512), (512, 1024), (640, 640),
+                (768, 768), (384, 1024), (640, 1024), (768, 896)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_,F_", CHAIN_WIDTHS)
+def test_training_chain_covers_the_rows_and_fits_a_block(C_, F_, dtype):
+    """ffn_ln_train at C = 384-768 runs csrc/ffn_wide.cu: the forward's
+    five launches and the backward's eleven cover every row, channel and F
+    column (the products' tiles, the depthwise tiles of each item, the row
+    kernels' rows; dW1 and dW2f split over all B T rows), and each fits a
+    block, at every kernel size the C = 256 kernels take."""
+    for B, T in ((1, 1), (8, 256), (8, 2048), (3, 300)):
+        M = B * T
+        fwd = ffn.ffn_plan(C_, F_, 5, B, T, dtype, "train")
+        bwd = ffn.ffn_plan(C_, F_, 5, B, T, dtype, "bwd")
+        assert [x.kernel for x in fwd] == ["wide_ln1_kernel", "wide_dw_kernel", "gemm_up",
+                                           "gemm_down", "wide_ln2_kernel"]
+        assert [x.kernel for x in bwd[:4]] == [x.kernel for x in fwd[:4]]
+        assert len(bwd) == 11
+        for x in fwd + bwd:
+            gx, gy, gz = x.grid
+            if x.kernel.startswith("gemm_dw"):   # (N tiles, M' tiles, splits of the rows)
+                n, m = (F_, C_) if x.kernel == "gemm_dw1" else (C_, F_)
+                kper = gemm.split_k_rows((C_ // 128) * (F_ // 128), M)
+                assert (gx * 128, gy * 128) == (n, m) and (gz - 1) * kper < M <= gz * kper
+            elif x.kernel.startswith("gemm_"):
+                assert gx * 128 in (C_, F_) and gy * 128 >= M > (gy - 1) * 128 and gz == 1
+            elif "dw" in x.kernel:
+                assert (gy * 64, gz) == (C_, B) and gx * 64 >= T > (gx - 1) * 64
+            else:
+                assert gx * x.rows >= M > (gx - 1) * x.rows
+    for k in range(1, ffn._MAX_K[dtype] + 1):
+        assert ffn.ffn_train_fits(C_, F_, k, dtype), k
+    assert not ffn.ffn_train_fits(C_, F_, ffn._MAX_K[dtype] + 1, dtype)
 
 
 def _wide_boxes(img, C_, F_):

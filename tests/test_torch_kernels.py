@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on a Hopper
 card: ``probe``, ``ffn_ln``, ``resblock``, ``resblock_trio`` (the f32
-route also held to the chain in f64), the training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
+route also held to the chain in f64; past C = 256 the wide route), the
+training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
 backward ``ffn_ln_train_bwd_plain``; every launch's grid and shared memory
-against ``ffn_plan``) and ``flash_attention`` (forward and
+against ``ffn_plan``; at C = 384-768 the chain of ``csrc/ffn_wide.cu``,
+which also serves C = 768) and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
@@ -269,11 +271,31 @@ def test_resblock_raises_when_grad_is_needed(cuda_card, C_, ks):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C_", [512])
-def test_resblock_refuses_other_channel_counts(cuda_card, C_):
-    w = _resblock_weights(C_, (3,), torch.bfloat16, cuda_card)
-    with pytest.raises(ValueError, match="B16.*C > 256|C > 256.*B16"):
-        trb.resblock(torch.zeros(1, 64, C_, device=cuda_card, dtype=torch.bfloat16), w)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_,L,k,B", [(512, 4096, 11, 1), (512, 1000, 3, 2), (384, 1000, 7, 2),
+                                      (320, 300, 11, 1), (512, 1, 3, 1)])
+def test_resblock_wide_channels_match_plain(cuda_card, C_, L, k, B, dtype):
+    """Past C = 256 (ROADMAP B16w) the wide route, one launch a conv: a C
+    that is not a multiple of 128 runs zero-padded to the next one (the
+    padded channels exactly 0); each launch as the library recorded it
+    against the plan; test_resblock_kernels_match_plain's tolerance."""
+    w = _resblock_weights(C_, (k,), dtype, cuda_card)
+    P = trb.kernel_channels(C_)
+    assert (w.real_channels, w.channels) == (C_, P) and P % 128 == 0
+    x = torch.nn.functional.pad(torch.randn(B, L, C_, device=cuda_card), (0, P - C_)).to(dtype)
+    before = trb.resblock.launches
+    out = trb.resblock(x, w)
+    torch.cuda.synchronize()
+    assert trb.resblock.launches == before + 1
+    plan = trb.tile_plan(w, B, L)
+    assert plan.route == "gemm"
+    assert trb.last_launch() == {"blocks": plan.blocks, "tile": plan.tile,
+                                 "smem_bytes": plan.smem_bytes}
+    assert torch.count_nonzero(out[..., C_:]) == 0
+    ref = trb.resblock_plain(x, w).float()
+    top = ref.abs().max().item()
+    tol = 2e-5 * top if dtype == torch.float32 else 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert (out.float() - ref).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
@@ -468,6 +490,75 @@ def test_ffn_ln_train_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rat
             # four of them: 4 ulps (2^-6) of its largest element, the bulk
             # within 2^-9
             _bulk_close(got, want, 2.0 ** -6, 2.0 ** -9, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C_,F_,k", [(2, 300, 384, 768, 17), (2, 150, 512, 1024, 25),
+                                         (3, 64, 640, 1024, 5), (2, 200, 768, 896, 9),
+                                         (1, 1, 768, 768, 5)])
+def test_ffn_ln_train_wide_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rate):
+    """The chain of csrc/ffn_wide.cu (C = 384 to 768, ROADMAP B9t) against
+    the plain version, with test_ffn_ln_train_kernels_match_plain's
+    tolerances; b1 is moved off the ReLU kink at four times its margin (a
+    sum of up to 768 products), and every launch as the library recorded
+    it against ffn_plan. F need not be a multiple of C here (the JAX fit
+    estimate admits (640, 1024) and (768, 896)), so the kernel's own
+    parameters are drawn, not a block's."""
+    g = torch.Generator().manual_seed(C_ + F_)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=g)).to(cuda_card).requires_grad_(True)
+
+    params = [draw(k, C_, scale=0.3), draw(C_, scale=0.1), draw(C_, F_, scale=C_ ** -0.5),
+              draw(F_, scale=0.1), draw(F_, C_, scale=F_ ** -0.5), draw(C_, scale=0.1),
+              draw(C_, scale=0.1, shift=1.0), draw(C_, scale=0.1), draw(C_, scale=0.1, shift=1.0),
+              draw(C_, scale=0.1)]
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda_card)
+    z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
+    dout = torch.randn(B, T, C_, device=cuda_card).to(dtype)
+    params[3] = _b1_off_the_kink(z, params, 4 * KINK_MARGIN).requires_grad_(True)
+    widths = dict(tffn.ffn_ln_train.by_width)
+    out, *grads = _ffn_train_grads(tffn.ffn_ln_train, z, params, seed, rate, dout)
+    torch.cuda.synchronize()
+    assert tffn.ffn_ln_train.by_width[C_] == widths.get(C_, 0) + 1
+    assert tffn.last_launches()["ffn_wide"] == [
+        tffn.planned_launch(x) for x in tffn.ffn_plan(C_, F_, k, B, T, dtype, "bwd")]
+    ref, *ref_grads = _ffn_train_grads(tffn.ffn_ln_train_plain, z, params, seed, rate, dout)
+    if dtype == torch.bfloat16:
+        ref_grads = tffn.ffn_ln_train_bwd_plain(dout, z, params, seed, rate)
+    for name, got, want in zip(_FFN_GRADS, (out, *grads), (ref, *ref_grads)):
+        if dtype == torch.float32:
+            _bulk_close(got, want, 2e-4, 2e-5, name)
+        elif name == "out":
+            _bulk_close(got, want, 0.03, 0.005, name)
+        else:
+            _bulk_close(got, want, 2.0 ** -6, 2.0 ** -9, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F_,k", [(2, 300, 768, 17), (1, 32, 1536, 5), (8, 512, 3072, 25)])
+def test_ffn_ln_serves_c768_through_the_chain(cuda_card, B, T, F_, k, dtype):
+    """Serving at C = 768, past ffn_wide_kernel: the chain without dropout,
+    against ffn_ln_plain (test_ffn_ln_kernel_matches_plain's tolerance), its
+    launches against ffn_plan."""
+    p = ffn_params(1, 768, F_, k)
+    w = tffn.prepare_ffn_weights(
+        **{n: type(v)(**{a: t.to(cuda_card) for a, t in vars(v).items()})
+           for n, v in ffn_modules(p).items()}, dtype=dtype)
+    z = torch.randn(B, T, 768, device=cuda_card).to(dtype)
+    widths = dict(tffn.ffn_ln.by_width)
+    with torch.no_grad():
+        out = tffn.ffn_ln(z, w)
+    torch.cuda.synchronize()
+    assert tffn.ffn_ln.by_width[768] == widths.get(768, 0) + 1
+    assert tffn.last_launches()["ffn_wide"] == [
+        tffn.planned_launch(x) for x in tffn.ffn_plan(768, F_, k, B, T, dtype, "serve")]
+    ref = tffn.ffn_ln_plain(z, w)
+    tol = 2e-4 if dtype == torch.float32 else 0.07
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.gpu

@@ -52,7 +52,7 @@ def _torch_grads(mods, zt):
     g["w1"] = mods["conv1_point"].weight.grad[:, :, 0].T[None]
     g["b1"] = mods["conv1_point"].bias.grad
     wg = mods["conv2_group"].weight.grad[:, :, 0]          # (G*co, ci)
-    G = C
+    G = mods["conv1_depth"].weight.shape[0]                # groups = channels
     g["wg"] = wg.reshape(G, wg.shape[0] // G, wg.shape[1]).transpose(1, 2)[None]
     g["bg"] = mods["conv2_group"].bias.grad
     g["w2"] = mods["conv2_point"].weight.grad[:, :, 0].T[None]

@@ -10,8 +10,10 @@ Phases, each printed as one JSON line:
    for cuDNN and cuBLAS, so f32 comparisons measure the kernels alone.
 2. build: nvcc builds every kernel in csrc/ for sm_90a, all in parallel;
    the bf16 FFN kernels' SASS must hold HGMMA and ptxas must report no
-   spill and no serialised wgmma for them; the four tensor-core
-   ``lvc_stack`` kernels (bf16 and f32, exact and Padé gate), the eleven
+   spill and no serialised wgmma for them; the 16 tensor-core
+   ``lvc_stack`` kernels (bf16 and f32 at C = 16, 32, 64, 128, exact and
+   Padé gate) must hold HMMA and spill nothing in f32 and at C = 32, and the
+   32 CUDA-core ones spill nothing in f32; the eleven
    split-TF32 ``resblock`` kernels (f32 at C = 8, 16, 32, 64, 128 with x
    in shared memory or in L2, and C = 256 in clusters of 4) and the 24
    split-TF32 FFN kernels (``ffn_tf32_kernel`` and ``ffn_dup_tf32_kernel``
@@ -25,8 +27,9 @@ Phases, each printed as one JSON line:
    flash route are reported; the kernels past C = 256 (phase 32): the
    product of ``csrc/gemm_mma.cuh`` at each of its epilogues (ten in
    ``csrc/ffn_wide.cu``, four in ``csrc/resblock.cu``'s wide route) must
-   hold HMMA and, in f32, spill nothing, and ``csrc/ffn_wide.cu``'s twelve
-   row and depthwise kernels spill nothing in f32.
+   hold HMMA and, in f32, spill nothing, and ``csrc/ffn_wide.cu``'s 16
+   row and depthwise kernels (the long-row LN kernels past C = 768 among
+   them) spill nothing in f32.
 3. probe: the launch probe against ``2 * x``, its time beside
    ``torch.mul``'s, and the host µs per launch of the launch path before
    ``kernels/launch.py`` and of today's, in turns, with a launch's pieces.
@@ -338,6 +341,21 @@ Phases, each printed as one JSON line:
     version at a 512-frame mel. The ``kernels`` line gains
     ``ffn_ln_train_wide``, ``ffn_ln_train_bwd_wide``, ``ffn_ln_c768`` and
     ``resblock_wide``.
+33. inner widths (``inner_widths_phase``): the train CLI on phase 26's
+    corpus for 2 bf16 steps with FastDiff at 64 inner channels, then the
+    generate CLI with ``--use_fastdiff true`` on that checkpoint at
+    ``--vocoder_precision`` 16 and 32 (``lvc_stack.by_width`` {64: 8} a
+    request), the f32 request against the CPU's with the same noise;
+    ``lvc_stack`` at C = 16, 48 (padded to 64), 64 and 128 in both dtypes at
+    a 512-frame bucket's stages against its plain version, each launch
+    against ``lvc_plan``; a hidden-1024 model (8 heads of 128, filter 1024,
+    4 + 4 blocks) with HiFi-GAN V1 serving a batch through
+    ``generate_samples`` in bf16 and f32 (``ffn_ln.by_width`` {1024: 12} a
+    batch), the f32 batch against the CPU's; ``ffn_ln`` at C = 896, 1024,
+    2048 and 4096 against its plain version. The ``kernels`` line gains
+    ``launches_phase_33`` and ``lvc_by_width`` on ``lvc_stack`` and
+    ``ffn_ln``, and the rows ``lvc_stack_c64`` and ``ffn_ln_c1024`` with
+    every width.
 
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
@@ -486,8 +504,11 @@ def build_phase() -> None:
 
 # the FFN sources' tensor-core kernels, by their mangled names
 FFN_WGMMA = re.compile(r"(ffn_ln_kernel|ffn_dup_kernel)ILi(\d+)E(?:Lb([01])E)?")
-# lvc_stack's tensor-core kernels: lvc_mma_kernel<bf16 or float, Padé gate>
-LVC_MMA = re.compile(r"(lvc_mma_kernel)I(13__nv_bfloat16|f)Lb([01])E")
+# lvc_stack's tensor-core kernels: lvc_mma_kernel<bf16 or float, C, Padé gate>,
+# and its CUDA-core kernels: lvc_stack_kernel<bf16 or float, C, rows a chunk,
+# Padé gate>
+LVC_MMA = re.compile(r"(lvc_mma_kernel)I(13__nv_bfloat16|f)Li(\d+)ELb([01])E")
+LVC_CORES = re.compile(r"(lvc_stack_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb([01])E")
 # resblock's split-TF32 kernels: f32_resblock_kernel<C, x in shared memory,
 # blocks a row tile>
 RESBLOCK_F32 = re.compile(r"(f32_resblock_kernel)ILi(\d+)ELb([01])ELi(\d+)E")
@@ -529,8 +550,10 @@ def ffn_sass_phase(report) -> dict:
     """The tensor-core kernels as compiled: HGMMA (wgmma) and HMMA counts in
     cuobjdump's SASS of the built libraries, and ptxas's spill bytes and
     serialised-wgmma warnings (C7512). Fails unless every bf16 FFN kernel
-    has HGMMA and none spills or serialises, and every tensor-core
-    lvc_stack kernel, every split-TF32 resblock kernel (C = 8, 16, 32, 64,
+    has HGMMA and none spills or serialises, every tensor-core lvc_stack
+    kernel (C = 16, 32, 64, 128) has HMMA and spills nothing in f32 and at C
+    = 32 (bf16's other spills are reported), no f32 CUDA-core lvc_stack
+    kernel spills, and every split-TF32 resblock kernel (C = 8, 16, 32, 64,
     128 with x in shared memory or in L2, C = 256 in clusters of 4) and every
     split-TF32 FFN kernel has HMMA and spills nothing."""
 
@@ -539,7 +562,8 @@ def ffn_sass_phase(report) -> dict:
 
     def lvc_key(m):
         dtype = "bf16" if m.group(2).endswith("bfloat16") else "float"
-        return f"{m.group(1)}<{dtype}, {'true' if m.group(3) == '1' else 'false'}>"
+        rest = ", ".join(m.groups()[2:-1])
+        return f"{m.group(1)}<{dtype}, {rest}, {'true' if m.group(m.lastindex) == '1' else 'false'}>"
 
     def f32_key(m):
         return (f"{m.group(1)}<{m.group(2)}, {m.group(3)}"
@@ -550,19 +574,24 @@ def ffn_sass_phase(report) -> dict:
         rows.update(_sass_rows(name, report, FFN_WGMMA, key))
         f32_rows.update(_sass_rows(name, report, FFN_TF32, f32_key))
     lvc_rows = _sass_rows("lvc_stack", report, LVC_MMA, lvc_key)
+    lvc_cores = _sass_rows("lvc_stack", report, LVC_CORES, lvc_key)
     rb_rows = _sass_rows("resblock", report, RESBLOCK_F32, lambda m: (
         f"{m.group(1)}<{m.group(2)}, {'true' if m.group(3) == '1' else 'false'}, "
         f"{m.group(4)}>"))
     emit({"phase": "ffn_sass", "kernels": rows, "ffn_f32": f32_rows, "lvc_stack": lvc_rows,
-          "resblock_f32": rb_rows})
+          "lvc_stack_cuda_cores": lvc_cores, "resblock_f32": rb_rows})
     bad = {k: r for k, r in rows.items()
            if r["hgmma"] == 0 or r["spill_bytes"] or r["serialised_wgmma"]}
-    bad.update({k: r for k, r in {**lvc_rows, **rb_rows, **f32_rows}.items()
+    bad.update({k: r for k, r in {**rb_rows, **f32_rows}.items()
                 if r["hmma"] == 0 or r["spill_bytes"]})
-    if len(rows) != 9 or len(f32_rows) != 24 or len(lvc_rows) != 4 or len(rb_rows) != 11 or bad:
+    bad.update({k: r for k, r in lvc_rows.items()
+                if r["hmma"] == 0 or (r["spill_bytes"] and ("float" in k or ", 32," in k))})
+    bad.update({k: r for k, r in lvc_cores.items() if "float" in k and r["spill_bytes"]})
+    if (len(rows) != 9 or len(f32_rows) != 24 or len(lvc_rows) != 16 or len(lvc_cores) != 32
+            or len(rb_rows) != 11 or bad):
         raise RuntimeError(f"tensor-core kernels: {len(rows)} bf16 ffn, {len(f32_rows)} f32 "
-                           f"ffn, {len(lvc_rows)} lvc_stack and {len(rb_rows)} f32 resblock "
-                           f"found, off {bad}")
+                           f"ffn, {len(lvc_rows)} + {len(lvc_cores)} lvc_stack and "
+                           f"{len(rb_rows)} f32 resblock found, off {bad}")
     return rows
 
 
@@ -631,7 +660,9 @@ CHAIN_ROWS = re.compile(r"\d(wide_[a-z0-9_]+?_kernel)I(f|13__nv_bfloat16)E")
 def chain_sass_phase(report) -> dict:
     """The kernels past C = 256 as compiled: every product must hold HMMA
     (bf16 mma.sync, or f32 as split TF32), and in f32 the products and the
-    chain's other kernels must spill nothing; bf16's spills are reported."""
+    chain's other kernels (the row kernels, those past C = 768 among them,
+    and the depthwise ones) must spill nothing; bf16's spills are
+    reported."""
     def dt(x):
         return "bf16" if x.endswith("bfloat16") else "f32"
 
@@ -649,8 +680,8 @@ def chain_sass_phase(report) -> dict:
            if r["hmma"] == 0 or ("f32" in k and r["spill_bytes"])}
     bad.update({k: r for k, r in rows["ffn_wide_rows"].items() if "f32" in k and r["spill_bytes"]})
     found = tuple(len(r) for r in rows.values())
-    if found != (10, 4, 12) or bad:
-        raise RuntimeError(f"kernels past C = 256: {found} found (want 10, 4, 12), off {bad}")
+    if found != (10, 4, 16) or bad:
+        raise RuntimeError(f"kernels past C = 256: {found} found (want 10, 4, 16), off {bad}")
     return rows
 
 
@@ -1237,7 +1268,7 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
     rec = ffn.last_launches()
     plan = ffn.ffn_plan(C, F, k, B, T, dtype, mode)
     wide = plan[0].kernel == "ffn_wide_kernel"
-    if plan[0].kernel == "wide_ln1_kernel":   # csrc/ffn_wide.cu's chain, every launch
+    if plan[0].kernel.startswith("wide_ln1"):   # csrc/ffn_wide.cu's chain, every launch
         got = rec["ffn_wide"]
     else:
         got = ([rec["ffn_ln"]] + (rec["ffn_ln_train_bwd"] if mode == "bwd" else [])
@@ -2083,20 +2114,26 @@ FD_BUCKET = 512   # the served batch's frame bucket
 FD_CALL_RUNS = 5  # timed vocoder calls: their median and spread
 
 
-def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
+def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET, C=32) -> dict:
     """lvc_stack at one upsample stage of a FD_BUCKET-frame bucket, B=1, 4
-    layers, C=32, against the plain version; the biases in the working
-    dtype, as the kernel predictor gives them."""
+    layers, C channels (the inputs drawn on ``g``'s device), against the
+    plain version; the biases in the working dtype, as the kernel predictor
+    gives them. At a width the kernel is not built at, the padding's copy
+    is timed too (``pad_copy_ms``, part of ``ms``)."""
     from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc as lvc
 
-    B, C, layers = 1, 32, 4
+    B, layers = 1, 4
     L = nL * hop
-    x = torch.randn(B, L, C, generator=g).to(dev, dtype)
-    ad = torch.randn(B, L, C, generator=g).to(dev, dtype)
-    k = (0.2 * torch.randn(B, nL, layers, C, 2 * C, 3, generator=g)).to(dev, dtype)
-    b = (0.1 * torch.randn(B, nL, layers, 2 * C, generator=g)).to(dev, dtype)
-    cw = (0.1 * torch.randn(layers, 3, C, C, generator=g)).to(dev, dtype)
-    cb = (0.1 * torch.randn(layers, C, generator=g)).to(dev)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=g.device)
+
+    x = draw(B, L, C).to(dev, dtype)
+    ad = draw(B, L, C).to(dev, dtype)
+    k = (0.2 * draw(B, nL, layers, C, 2 * C, 3)).to(dev, dtype)
+    b = (0.1 * draw(B, nL, layers, 2 * C)).to(dev, dtype)
+    cw = (0.1 * draw(layers, 3, C, C)).to(dev, dtype)
+    cb = (0.1 * draw(layers, C)).to(dev)
     args = (x, ad, k, b, cw, cb, hop)
     out = lvc.lvc_stack(*args, fast_gating=fast)
     launched = lvc.last_launch()  # as the library gave it to the card
@@ -2110,19 +2147,21 @@ def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
         ok = err <= tol
     else:   # per value, in ulps of the chain's |x| there (lvc.bf16_chain_error)
         ulps, share = lvc.bf16_chain_error(out, ref, x, ad, layers)
-        tol = f"{lvc.BF16_MAX_ULPS} ulps a value, {lvc.BF16_MAX_UNEQUAL} of values unequal"
+        most_ulps, most_unequal = lvc.bf16_chain_limits(C)
+        tol = f"{most_ulps} ulps a value, {most_unequal} of values unequal"
         held = {"max_ulps": ulps, "unequal_share": share}
-        ok = ulps <= lvc.BF16_MAX_ULPS and share <= lvc.BF16_MAX_UNEQUAL
+        ok = ulps <= most_ulps and share <= most_unequal
     # per row and layer: the dilated conv (3C x C) and the LVC (3C x 2C);
     # bf16 at the tensor cores' peak, f32 as split-TF32 products
     flops = B * L * layers * 2 * (3 * C * C + 3 * C * 2 * C)
     nbytes = 2 * tensor_bytes(x) + tensor_bytes(ad, k, b, cw, cb)
     peak = PEAK_FLOPS[dtype] if dtype == torch.bfloat16 else PEAK_F32_ACCURATE
-    plan = lvc.lvc_plan(B, L, hop, layers, dtype)
+    plan = lvc.lvc_plan(B, L, hop, layers, dtype, C)
     row = {"name": "lvc_stack", "stage": {8: 1, 64: 2, 256: 3}.get(hop),
            "at": f"x ({B}, {L}, {C}) {str(dtype)[6:]}, hop {hop}, {nL} frames, {layers} layers, "
                  f"{'Padé' if fast else 'exact'} gate",
-           "max_abs_err": err, "tol": tol, **held, "route": plan.route,
+           "max_abs_err": err, "tol": tol, **held, "route": plan.route, "channels": C,
+           "kernel_channels": plan.channels,
            "launch": launched, "plan": plan.record, "halo": plan.halo,
            "frames": plan.frames,
            "ms": cuda_ms(lambda: lvc.lvc_stack(*args, fast_gating=fast)),
@@ -2131,6 +2170,8 @@ def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET) -> dict:
            "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": flops / peak * 1e3}
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype, peak)
     row["x_bound"] = row["ms"] / row["bound_ms"]
+    if plan.channels != C:
+        row["pad_copy_ms"] = cuda_ms(lambda: lvc.pad_lvc_inputs(*args[:6], plan.channels))
     emit({"phase": "kernel", **row})
     if not ok:
         raise RuntimeError(f"lvc_stack at {row['at']}: max |err| {err} {held}, tolerance {tol}")
@@ -5287,6 +5328,211 @@ def wide_phase(counters, smi: str) -> dict:
             "launches": launches}
 
 
+# ------------- the inner widths past 32 and the serving FFN past 768 (phase 33)
+# the train CLI's flags of (a): the flagship with FastDiff at 64 inner channels
+IW_FLAGS = ["--fastdiff_vocoder", "true", "--fastdiff_inner_channels", "64"]
+IW_STEPS = 2
+IW_LVC_WIDTHS = (16, 48, 64, 128)      # 48 runs padded to 64
+IW_HOPS = (8, 64, 256)                 # FastDiff's stages (stage 1 under LFS2_FUSED_STAGE1)
+IW_HIDDEN = 1024                       # (c): 8 heads of 128, filter 1024, 4 + 4 blocks
+IW_TEXTS = SENTENCES[:2]               # (c): the batch served through generate_samples
+# (d): (C, B, T, F, k); f32 at no more than 2 x 1024 rows, small B T at the widest
+IW_FFN = ((896, 2, 512, 896, 17), (1024, 2, 512, 1024, 17), (2048, 1, 512, 2048, 17),
+          (4096, 1, 128, 4096, 17))
+
+
+def inner_widths_phase(counters, served, smi: str) -> dict:
+    """Phase 33: the widths the JAX kernels take past the port's earlier
+    ones. (a) The train CLI on phase 26's corpus for ``IW_STEPS`` bf16 steps
+    of the flagship with FastDiff at 64 inner channels (FastDiff trains on
+    its plain route: no ``lvc_stack`` launch), then the generate CLI with
+    ``--use_fastdiff true`` on that checkpoint at ``--vocoder_precision`` 16
+    and 32: ``lvc_stack.by_width`` must read {64: 8} a request (4 steps x
+    stages 2 and 3); the f32 request on the card against the same request
+    on the CPU with the same noise (phase 6's tolerance). (b) ``lvc_stack``
+    at C = 16, 48 (padded), 64 and 128 in both dtypes at a 512-frame
+    bucket's stages against its plain version (phase 14's holds), each
+    launch equal to ``lvc_plan``. (c) A hidden-1024 acoustic model (8 heads
+    of 128, filter 1024, 4 + 4 blocks) with HiFi-GAN V1 from seeded
+    generators serves ``IW_TEXTS`` through ``generate_samples`` in bf16 and
+    f32: ``ffn_ln.by_width`` must be {1024: every block of both passes};
+    the f32 waveforms against the CPU's (phase 6's tolerance). (d)
+    ``ffn_ln`` at C = 896, 1024, 2048 and 4096 against its plain version."""
+    import dataclasses
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core.bucketing import pad_to
+    from lightningfastspeech2_tpu_torch.core.config import lightspeech_flagship
+    from lightningfastspeech2_tpu_torch.core.device import f32_convolutions
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = ROOT / "_chip" / "inner_widths"
+    shutil.rmtree(work, ignore_errors=True)
+    parts_s = {}
+
+    # (a) a joint checkpoint with FastDiff at 64 inner channels, served
+    corpus = make_rich_corpus(work / "corpus", n_speakers=TC_SPEAKERS, n_utts=TC_UTTS, seed=0,
+                              min_words=TC_WORDS[0], max_words=TC_WORDS[1])
+    ck, logs = work / "ckpt", work / "logs"
+    run = _train_cli(cli, ["--train_target_path", str(corpus), "--checkpoint_dir", str(ck),
+                           "--log_dir", str(logs), "--cache_path", str(work / "cache"),
+                           "--batch_size", "4", "--log_every", "1", "--num_workers", "0",
+                           "--max_steps", str(IW_STEPS), "--checkpoint_every", str(IW_STEPS),
+                           *IW_FLAGS], counters)
+    lines = [l for l in _metrics_lines(logs) if "train/total_loss" in l]
+    bad = [(l["step"], k) for l in lines for k, v in l.items()
+           if k.startswith("train/") and not math.isfinite(v)]
+    if len(lines) != IW_STEPS or bad or run["launches"]["lvc_stack"]:
+        raise RuntimeError(f"FastDiff-64 train CLI: {len(lines)} steps, not finite {bad}, "
+                           f"launches {run['launches']}")
+    requests = {}
+    for prec, name in (("16", "bf16"), ("32", "f32")):
+        r = requests[name] = _serve(gen_cli, ck, work / f"out_{name}",
+                                    ["--use_fastdiff", "true", "--vocoder_precision", prec],
+                                    counters)
+        r["lvc_by_width"] = dict(lvc_stack.by_width)
+        if r["lvc_by_width"] != {64: 8}:
+            raise RuntimeError(f"{name} FastDiff-64 request: lvc_stack by width "
+                               f"{r['lvc_by_width']}, want {{64: 8}}")
+
+    def cpu_noise(shape, N):
+        g = torch.Generator().manual_seed(7)
+        return torch.randn(tuple(shape), generator=g), torch.randn((N, *shape), generator=g)
+
+    f32_convolutions(32)
+    wavs, ms = {}, {}
+    for d in ("cuda", "cpu"):
+        args = gen_cli.build_parser().parse_args(
+            ["--checkpoint_dir", str(ck), "--sentence", SENTENCES[0], "--output_path",
+             str(work / f"ref_{d}"), "--seed", "0", "--use_fastdiff", "true", "--device", d])
+        gen, gcfg, _ = gen_cli.load_generator(args)
+        gen.synthesiser.noise_source = cpu_noise
+        t = time.perf_counter()
+        wavs[d] = gen_cli.synthesize_sentence(gen, gcfg, args)
+        ms[d] = (time.perf_counter() - t) * 1e3
+        del gen
+    a, b = np.asarray(wavs["cuda"]), np.asarray(wavs["cpu"])
+    peak = float(np.abs(b).max())
+    ref_err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    ref_tol = 1e-3 * peak + 1e-7      # phase 6's: summation order through two models
+    row_a = {"phase": "inner_widths_fastdiff64", "flags": IW_FLAGS, "cli_s": run["s"],
+             "steps": len(lines), "losses": [l["train/total_loss"] for l in lines],
+             "train_launches": run["launches"], "requests": requests,
+             "reference": {"max_abs_err": ref_err, "tol": ref_tol, "peak": peak,
+                           "samples": int(a.size), "request_ms": ms},
+             "nvidia_smi": smi}
+    emit(row_a)
+    if not (a.shape == b.shape and ref_err <= ref_tol and peak > 0):
+        raise RuntimeError(f"FastDiff-64 f32 request card vs CPU: max |err| {ref_err} > "
+                           f"{ref_tol}")
+    parts_s["a"] = time.perf_counter() - t_phase
+
+    # (b) lvc_stack at every inner width against its plain version
+    g = torch.Generator(device=dev).manual_seed(33)
+    lvc_rows = {}
+    for C in IW_LVC_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for hop in IW_HOPS:
+                r = lvc_rows[(C, str(dtype)[6:], hop)] = _lvc_case(dev, g, hop, dtype, C=C)
+                # (a)'s request of the same dtype, at this width
+                r["launches_phase_33"] = requests[str(dtype)[6:].replace("bfloat16", "bf16").replace(
+                    "float32", "f32")]["lvc_by_width"].get(C, 0)
+                torch.cuda.empty_cache()
+    parts_s["b"] = time.perf_counter() - t_phase - sum(parts_s.values())
+
+    # (c) a hidden-1024 acoustic model with HiFi-GAN V1 through generate_samples
+    base = lightspeech_flagship()
+    m = base.model
+    enc = dataclasses.replace(m.encoder, hidden=IW_HIDDEN, heads=8, conv_filter_size=IW_HIDDEN)
+    dec = dataclasses.replace(m.decoder, hidden=IW_HIDDEN, heads=8, conv_filter_size=IW_HIDDEN)
+    cfg = dataclasses.replace(base, model=dataclasses.replace(m, encoder=enc, decoder=dec))
+    m = cfg.model
+    dvecs = served["dvecs"]
+    blocks = 2 * m.encoder.layers + m.decoder.layers   # the duration pass, then the full one
+    served_c, bias, batch = {}, None, None
+    for dtype in (torch.bfloat16, torch.float32):
+        # the duration bias taken on the card before the counts (bf16 run)
+        gen, bias = _make_generator(cfg, dtype, None, dvecs, BATCH_TEXTS, bias)
+        if batch is None:
+            ids = [gen.text_to_ids(t) for t in IW_TEXTS]
+            P = gen.bucketer.phone_bucket(max(len(i) for i in ids))
+            batch = {"phones": np.stack([pad_to(i, P) for i in ids]),
+                     "speaker": np.stack([dvecs[f"spk{j}"] for j in range(len(ids))])}
+        reset_counts(counters)
+        t = time.perf_counter()
+        out = gen.generate_samples(batch)
+        torch.cuda.synchronize()
+        dt = str(dtype)[6:]
+        served_c[dt] = {"ms": (time.perf_counter() - t) * 1e3,
+                        "launches": {c.__name__: c.launches for c in counters if c.launches},
+                        "ffn_by_width": dict(ffn_ln.by_width),
+                        "samples": [int(w.size) for w in out]}
+        if served_c[dt]["ffn_by_width"] != {IW_HIDDEN: blocks} or not all(
+                w.size > 0 and np.isfinite(w).all() for w in out):
+            raise RuntimeError(f"hidden-{IW_HIDDEN} {dt} batch: {served_c[dt]}, want ffn_ln "
+                               f"by width {{{IW_HIDDEN}: {blocks}}}")
+        if dtype == torch.float32:
+            wav32 = out
+        del gen
+    gen, _ = _make_generator(cfg, torch.float32, "cpu", dvecs, BATCH_TEXTS, bias)
+    t = time.perf_counter()
+    cpu = gen.generate_samples(batch)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    del gen
+    peak_c = max(float(np.abs(w).max()) for w in cpu)
+    err_c = max((float(np.abs(x - y).max()) if x.shape == y.shape else float("inf"))
+                for x, y in zip(wav32, cpu))
+    tol_c = 1e-3 * peak_c + 1e-7
+    row_c = {"phase": "inner_widths_hidden1024", "hidden": IW_HIDDEN, "heads": 8,
+             "filter": IW_HIDDEN, "blocks": [m.encoder.layers, m.decoder.layers],
+             "served": served_c, "duration_bias": bias,
+             "reference": {"max_abs_err": err_c, "tol": tol_c, "peak": peak_c,
+                           "cpu_ms": cpu_ms}, "nvidia_smi": smi}
+    emit(row_c)
+    if not err_c <= tol_c or peak_c <= 0:
+        raise RuntimeError(f"hidden-{IW_HIDDEN} f32 batch card vs CPU: max |err| {err_c} > "
+                           f"{tol_c}")
+    parts_s["c"] = time.perf_counter() - t_phase - sum(parts_s.values())
+
+    # (d) ffn_ln past C = 768 against its plain version
+    g = torch.Generator().manual_seed(34)
+    ffn_rows = []
+    for C, B, T, F, k in IW_FFN:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = _ffn_case(dev, B, T, k, dtype, g, C=C, F=F)
+            r.update(channels=C, dtype=str(dtype)[6:],
+                     launches_phase_33=served_c[str(dtype)[6:]]["ffn_by_width"].get(C, 0))
+            ffn_rows.append(r)
+            torch.cuda.empty_cache()
+    parts_s["d"] = time.perf_counter() - t_phase - sum(parts_s.values())
+    keys = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "tol",
+            "max_ulps", "unequal_share", "kernel_channels", "pad_copy_ms", "launch")
+    tail = {"phase": "inner_widths",
+            "lvc_stack": {f"C={C} {d} hop {h}": {k: r.get(k) for k in keys}
+                          for (C, d, h), r in lvc_rows.items()},
+            "ffn_ln": [{k: r.get(k) for k in keys} for r in ffn_rows],
+            "parts_s": parts_s, "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 33 (inner widths, serving FFN past 768): {tail['phase_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"lvc": lvc_rows, "ffn": ffn_rows,
+            "launches": {"lvc_stack": sum(sum(r["lvc_by_width"].values())
+                                          for r in requests.values()),
+                         "ffn_ln": sum(sum(r["ffn_by_width"].values())
+                                       for r in served_c.values())},
+            "lvc_by_width": {w: sum(r["lvc_by_width"].get(w, 0) for r in requests.values())
+                             for w in sorted({w for r in requests.values()
+                                              for w in r["lvc_by_width"]})},
+            "ffn_by_width": {IW_HIDDEN: sum(r["ffn_by_width"][IW_HIDDEN]
+                                            for r in served_c.values())}}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -5365,6 +5611,7 @@ def main() -> int:
     dp = parallel_phase(counters, info["nvidia_smi"], train_cli["row"])
     b16 = b16_tools_phase(counters, served, info["nvidia_smi"])
     wide32 = wide_phase(counters, info["nvidia_smi"])
+    inner = inner_widths_phase(counters, served, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -5583,6 +5830,32 @@ def main() -> int:
         "widths": {d: [{k: r.get(k) for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "launches_phase_32")} for r in rows]
                    for d, rows in rw.items()}})
+    # phase 33: lvc_stack past C = 32 (its counted requests: FastDiff at 64
+    # inner channels, bf16 and f32) and ffn_ln past C = 768 (the hidden-1024
+    # model's counted batches), every width beside
+    for k in kernels:
+        if k["name"] in inner["launches"]:
+            k["launches_phase_33"] = inner["launches"][k["name"]]
+            if k["name"] == "lvc_stack":
+                k["lvc_by_width"] = inner["lvc_by_width"]
+    lvc_keys33 = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                  "kernel_channels", "pad_copy_ms", "launches_phase_33")
+    kernels.append({
+        **_summary("lvc_stack_c64", f"{pkg}/lvc_stack.cu",
+                   "lightningfastspeech2_tpu/ops/pallas_fastdiff.py:80",
+                   [inner["lvc"][(64, "bfloat16", 256)]], inner["launches"]["lvc_stack"]),
+        "lvc_by_width": inner["lvc_by_width"], "launches_phase_33": inner["launches"]["lvc_stack"],
+        "widths": {f"C={C} {d} hop {h}": {k: r.get(k) for k in lvc_keys33}
+                   for (C, d, h), r in inner["lvc"].items()}})
+    kernels.append({
+        **_summary("ffn_ln_c1024", f"{pkg}/ffn_wide.cu",
+                   "lightningfastspeech2_tpu/ops/pallas_ffn.py:77",
+                   [r for r in inner["ffn"] if (r["channels"], r["dtype"]) == (1024, "bfloat16")],
+                   inner["launches"]["ffn_ln"]),
+        "ffn_by_width": inner["ffn_by_width"], "launches_phase_33": inner["launches"]["ffn_ln"],
+        "widths": [{k: r.get(k) for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err", "launch", "launches_phase_33")}
+                   for r in inner["ffn"]]})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

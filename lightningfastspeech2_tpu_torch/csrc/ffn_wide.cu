@@ -1,9 +1,10 @@
 // The FFN half of a conformer FFT block at C = 384-768: the training
 // forward and backward of lightningfastspeech2_tpu/ops/pallas_ffn.py
 // fused_ffn_ln_train (_ffn_train_kernel, _ffn_train_bwd_kernel), and serving
-// (fused_ffn_ln, _ffn_kernel) at C = 768, past csrc/ffn_ln.cu's
-// ffn_wide_kernel. Both dtypes; f32 forms its products as split TF32 (f32's
-// digits), bf16 on bf16 mma.sync, both through csrc/gemm_mma.cuh.
+// (fused_ffn_ln, _ffn_kernel) at every C from 768 that is a multiple of 128,
+// past csrc/ffn_ln.cu's ffn_wide_kernel. Both dtypes; f32 forms its products
+// as split TF32 (f32's digits), bf16 on bf16 mma.sync, both through
+// csrc/gemm_mma.cuh.
 //
 // Design. At these widths a row's C-wide f32 accumulator does not fit a
 // block's registers beside its h0 tile (64 rows x 768 f32 is 196 KB), so
@@ -22,6 +23,12 @@
 // bit (common.cuh ffn_keep): keep1 (salt 1) at (row t, column f), keep2
 // (salt 2) at (t, channel c). dup's ReLU mask is read off the dropped up
 // (up > 0 where keep1 held and relu(pre) > 0).
+//
+// The row kernels hold a row in registers, C / 32 values a lane, up to C =
+// 768 (kMaxLane); past it the forward's LN1 and LN2 take a row kernel that
+// reads its row twice, sums then the normalised values, the second time
+// from L1 or L2 (wide_ln1_long_kernel, wide_ln2_long_kernel: any C, the same
+// sums in the same order).
 //
 // Bound: the products, 4 C F a row forward and 12 C F backward; the cuts
 // add the bytes of t1, h0, up (F wide), ff and their gradients, each once.
@@ -91,6 +98,26 @@ wide_ln1_kernel(const T* __restrict__ z, const float* __restrict__ lnp, T* __res
     }
 }
 
+// LN1 past kMaxLane: the row read twice, no per-lane arrays
+template <typename T>
+__global__ void __launch_bounds__(256)
+wide_ln1_long_kernel(const T* __restrict__ z, const float* __restrict__ lnp,
+                     T* __restrict__ t1, int rows, int C, float eps) {
+  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t o = static_cast<size_t>(row) * C;
+  float s = 0.0f, s2 = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = to_f(z[o + c]);
+    s += v;
+    s2 += v * v;
+  }
+  float mean, inv;
+  ln_stats(s, s2, C, eps, mean, inv);
+  for (int c = lane; c < C; c += 32)
+    t1[o + c] = from_f<T>((to_f(z[o + c]) - mean) * (inv * lnp[c]) + lnp[C + c]);
+}
+
 // LN2 (forward): out = LN2(t1 + ff)
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -116,6 +143,29 @@ wide_ln2_kernel(const T* __restrict__ t1, const float* __restrict__ ff,
       const int c = lane + 32 * i;
       out[o + c] = from_f<T>((v[i] - mean) * (inv * lnp[2 * C + c]) + lnp[3 * C + c]);
     }
+}
+
+// LN2 past kMaxLane: the row read twice, no per-lane arrays
+template <typename T>
+__global__ void __launch_bounds__(256)
+wide_ln2_long_kernel(const T* __restrict__ t1, const float* __restrict__ ff,
+                     const float* __restrict__ lnp, T* __restrict__ out, int rows, int C,
+                     float eps) {
+  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t o = static_cast<size_t>(row) * C;
+  float s = 0.0f, s2 = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = to_f(t1[o + c]) + ff[o + c];
+    s += v;
+    s2 += v * v;
+  }
+  float mean, inv;
+  ln_stats(s, s2, C, eps, mean, inv);
+  for (int c = lane; c < C; c += 32) {
+    const float v = to_f(t1[o + c]) + ff[o + c];
+    out[o + c] = from_f<T>((v - mean) * (inv * lnp[2 * C + c]) + lnp[3 * C + c]);
+  }
 }
 
 // depthwise conv (SAME: left (k - 1) / 2): h0[t] = bd + sum_j t1[t + j - lpad] wd[j];
@@ -460,12 +510,17 @@ template <typename K> cudaError_t opt_in(K kernel, int smem) {
   } while (0)
 
 // the forward's launches (and the backward's first four): LN1, depthwise,
-// up, down; then, unless `chain`, LN2 into out
+// up, down; then, unless `chain`, LN2 into out (past kMaxLane lanes of a
+// row, the row kernels that read it twice)
 template <typename T> cudaError_t forward(const Wide<T>& a, bool chain, cudaStream_t s) {
   namespace gm = lfs2::gemm;
   const int M = a.B * a.T_len, C = a.C, F = a.F;
+  const bool long_rows = C > 32 * kMaxLane;
   const dim3 rows8((M + kWarpRows - 1) / kWarpRows);
-  wide_ln1_kernel<T><<<rows8, 256, 0, s>>>(a.z, a.lnp, a.t1, M, C, a.eps);
+  if (long_rows)
+    wide_ln1_long_kernel<T><<<rows8, 256, 0, s>>>(a.z, a.lnp, a.t1, M, C, a.eps);
+  else
+    wide_ln1_kernel<T><<<rows8, 256, 0, s>>>(a.z, a.lnp, a.t1, M, C, a.eps);
   LFS2_TRY(cudaGetLastError());
   record(rows8, 0, kWarpRows);
   const dim3 dgrid((a.T_len + kDwRows - 1) / kDwRows, C / kDwCh, a.B);
@@ -485,7 +540,10 @@ template <typename T> cudaError_t forward(const Wide<T>& a, bool chain, cudaStre
                                        M, C, F, F, s, rec)));
   record(dim3(rec[0], rec[1], rec[2]), rec[3], rec[4]);
   if (chain) return cudaSuccess;
-  wide_ln2_kernel<T><<<rows8, 256, 0, s>>>(a.t1, a.ff, a.lnp, a.out, M, C, a.eps);
+  if (long_rows)
+    wide_ln2_long_kernel<T><<<rows8, 256, 0, s>>>(a.t1, a.ff, a.lnp, a.out, M, C, a.eps);
+  else
+    wide_ln2_kernel<T><<<rows8, 256, 0, s>>>(a.t1, a.ff, a.lnp, a.out, M, C, a.eps);
   LFS2_TRY(cudaGetLastError());
   record(rows8, 0, kWarpRows);
   return cudaSuccess;
@@ -533,8 +591,10 @@ template <typename T> cudaError_t backward(const Wide<T>& a, cudaStream_t s) {
   return cudaSuccess;
 }
 
-bool bad_shape(int B, int T_len, int C, int F, int k) {
-  return B < 1 || T_len < 1 || C % 128 != 0 || C < 128 || C > 32 * kMaxLane || F % 128 != 0 ||
+// the forward takes any C a multiple of 128; the backward's row kernels
+// hold a row in registers, C up to 32 kMaxLane
+bool bad_shape(int B, int T_len, int C, int F, int k, int max_c) {
+  return B < 1 || T_len < 1 || C % 128 != 0 || C < 128 || C > max_c || F % 128 != 0 ||
          F < 128 || k < 1 || k > kMaxK;
 }
 
@@ -551,7 +611,7 @@ LFS2_EXPORT int lfs2_ffn_wide_fwd(const void* z, void* out, const float* wd, con
                                   const int* seed, void* t1, void* h0, void* up, float* ff, int B,
                                   int T_len, int C, int F, int k, float eps, unsigned thr,
                                   float ik, int drop, int dtype, void* stream) {
-  if (bad_shape(B, T_len, C, F, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, T_len, C, F, k, 1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
   g_n_rec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto* tag) {
@@ -582,7 +642,7 @@ LFS2_EXPORT int lfs2_ffn_wide_bwd(const void* z, const void* dout, const float* 
                                   void* dz, float* dwd, float* dw1, float* dw2f, float* db1,
                                   float* dvec, int B, int T_len, int C, int F, int k, float eps,
                                   unsigned thr, float ik, int dtype, void* stream) {
-  if (bad_shape(B, T_len, C, F, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, T_len, C, F, k, 32 * kMaxLane)) return static_cast<int>(cudaErrorInvalidValue);
   g_n_rec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto* tag) {

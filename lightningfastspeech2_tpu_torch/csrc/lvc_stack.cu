@@ -1,7 +1,7 @@
 // lvc_stack: FastDiff's time-aware LVC chain, every layer of one upsample
 // stage in one launch.
 //
-// Per layer i (d = 3^i), on x (B, L, C = 32) with audio_down ad:
+// Per layer i (d = 3^i), on x (B, L, C) with audio_down ad:
 //   x = round(x + ad); y1 = round(leaky(x, 0.2))          zero outside [0, L)
 //   y2 = round(leaky(conv3_d(y1) + conv_b[i], 0.2))       f32 sum, zero outside
 //   g[t] = sum_k y2[t - 1 + k] @ K_f[i][:, :, k] + bias_f[i]   (f = t / hop)
@@ -9,7 +9,9 @@
 // round() is the working dtype (f32 or bf16); products sum in f32; biases
 // and conv biases are f32. The per-frame kernels K are read in the kernel
 // predictor's layout, (B, nL, layers, C_in, 2C, 3), straight from device
-// memory; conv_w is (layers, 3, C_in, C_out).
+// memory; conv_w is (layers, 3, C_in, C_out). C is a template parameter,
+// built at 16, 32, 64 and 128 (ops/fastdiff_lvc.py pads other widths up to
+// 128 with zero channels, which stay zero through every layer).
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_fastdiff.py _stack_kernel
 // (fused_lvc_stack). The TPU kernel's prev/cur/next halo blocks, its halo of
@@ -18,15 +20,17 @@
 // here owns `tile` output rows and a halo in rows, and every row finds its
 // frame's kernel by t / hop.
 //
-// What bounds it on an H100. bf16: bytes. At a 512-frame bucket, stage 3
-// (hop 256, L = 131,072) reads x, ad and 25 MB of per-frame kernels and
-// writes x: about 51 MB (15 us at 3.35 TB/s) against 9.7 GFLOP (9.8 us at
-// the bf16 tensor-core peak); stage 2 (hop 64) about 31 MB, most of it the
+// What bounds it on an H100. bf16: bytes. At a 512-frame bucket and C = 32,
+// stage 3 (hop 256, L = 131,072) reads x, ad and 25 MB of per-frame kernels
+// and writes x: about 51 MB (15 us at 3.35 TB/s) against 9.7 GFLOP (9.8 us
+// at the bf16 tensor-core peak); stage 2 (hop 64) about 31 MB, most of it the
 // per-frame kernels, whose 25 MB do not depend on the hop and each serve
 // only 64 rows. f32: operations. About 100 MB (30 us) against the same
 // products as split TF32, three TF32 products each (59 us at 165 TFLOP/s
 // of f32-accurate products; mma.sync itself reaches about 320 TFLOP/s of
-// TF32 on an H100 at 700 W, so its floor is about 90 us). What the design does about it: x, ad
+// TF32 on an H100 at 700 W, so its floor is about 90 us). Both grow with C
+// squared (the kernels and the products) past the signal's C. What the
+// design does about it: x, ad
 // and the LVC's input stay in shared memory for all layers, so each input
 // byte is read once and the output written once; the conv's input is
 // formed from x in registers; only the halo rows (48 a side at 4 layers)
@@ -36,20 +40,23 @@
 // computes; and the products run on the tensor cores.
 //
 // Tensor-core route (lvc_mma_kernel, hop a multiple of 8). Both products
-// are formed transposed, out^T = W^T @ rows^T: M = the output channels (32
-// for the conv, 64 for the LVC: sigmoid's half in m16 tiles 0-1, tanh's in
-// 2-3, so a thread holds both halves of a gate), K = 96 in the JAX
-// wrapper's order k = tap * C + cin (pallas_fastdiff.py:193), N = 8 signal
-// rows. The weights are A, read through ldmatrix from their staged copy;
-// the signal is B, read through ldmatrix from the shared-memory rows with
-// one row address per lane, so a tap's shift (-d, 0, +d for the conv, -1,
-// 0, +1 for the LVC) is an address and never a copy. Why transposed: an n8
-// tile of 8 rows lies in one frame whenever hop % 8 == 0, so the one form
-// serves stage 1 (hop 8, where an m16 tile of rows would span two frames
-// with different kernels) as well as stages 2 and 3; and a warp's A
-// fragments serve all nt row tiles of its chunk, which at nt = 4 reads as
-// few shared-memory bytes per product as 32-row A tiles would. The leaky on
-// the conv's input is applied to the B fragments.
+// are formed transposed, out^T = W^T @ rows^T: M = the output channels (C
+// for the conv, 2C for the LVC), K = 3C in the JAX wrapper's order k = tap *
+// C + cin (pallas_fastdiff.py:193), N = 8 signal rows. The outputs are taken
+// in groups of CG = min(C, 32) channels: a conv group is CG / 16 m16 tiles,
+// an LVC group the CG / 16 tiles of sigmoid rows c.. beside the CG / 16 of
+// tanh rows C + c.., so that a thread holds both halves of a gate. The
+// weights are A; the signal is B, read through ldmatrix from the
+// shared-memory rows with one row address per lane, so a tap's shift (-d,
+// 0, +d for the conv, -1, 0, +1 for the LVC) is an address and never a
+// copy. Why transposed: an n8 tile of 8 rows lies in one frame whenever hop
+// % 8 == 0, so the one form serves stage 1 (hop 8, where an m16 tile of
+// rows would span two frames with different kernels) as well as stages 2
+// and 3; and a warp's A fragments serve all nt row tiles of its chunk, which
+// at nt = 4 reads as few weight bytes per product as 32-row A tiles would.
+// The leaky on the conv's input is applied to the B fragments.
+//   Staged (bf16 at C <= 64, f32 at C <= 32; route "mma"): the weights are
+// staged in shared memory and read through ldmatrix.
 //   bf16: mma.sync m16n8k16; 16 warps. Weights staged [k][out] and read
 // with ldmatrix.trans. A round's raw (cin, out, tap) kernels land by bulk
 // copies (cp.async.bulk, one a frame, issued by one thread and counted on
@@ -68,9 +75,18 @@
 // tile a frame (hop 8) neither a split nor a reordered copy would be
 // reused: the LVC reads each frame's raw kernel as it landed, from two
 // bulk-copy slots by round parity (raw_products).
-//   Per layer: the conv's rows, then the LVC's rows round by round; a
-// round holds the kernels of up to round_frames frames; each step's n8
-// tiles are split evenly over the warps. Epilogues in registers: the conv
+//   Direct (bf16 at C = 128, f32 at C >= 64; route "mma_direct"): one
+// frame's kernel of one layer is 6 C^2 values (196 KB in bf16 at C = 128,
+// and as much in f32 at C = 64 once split), so no staged copy fits beside
+// the rows. Shared memory holds only the signal rows; each warp reads its
+// A fragments straight from device memory by scalar loads (L2, where a
+// frame's kernel is reused by every chunk of its rows), split in registers
+// in f32. Right, and slower than its bound by more than the staged route
+// (PERF.md).
+//   Per layer: the conv's rows, then the LVC's rows (staged: round by
+// round, a round holding the kernels of up to round_frames frames); each
+// step's n8 tiles are split evenly over the warps, each warp taking every
+// channel group of its tiles. Epilogues in registers: the conv
 // adds its bias, the leaky, the round and the zero outside [0, L); the LVC
 // its frame's bias, the gate (__expf and __fdividef: no IEEE-division slow
 // path), the round and the residual add, and (but in the last layer) the
@@ -79,7 +95,8 @@
 // CUDA-core route (lvc_stack_kernel): hops that are not a multiple of 8,
 // and chains whose tensor-core launch does not fit shared memory (f32 with
 // more than 4 layers), by the rule on shape in ops/fastdiff_lvc.py
-// lvc_plan. Plain f32 FMAs, lane = channel.
+// lvc_plan. Plain f32 FMAs, lane = channel (C / 32 channels a lane past 32,
+// half the warp at C = 16).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -87,26 +104,26 @@
 
 namespace {
 
-constexpr int C = 32;  // channels: one warp's lanes
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 6;
 constexpr int kAlign = 4;     // region rounding; rows per chunk when hop % 4 == 0
 constexpr int kConvRows = 4;  // rows per chunk of the dilated conv
 constexpr int kMaxSmem = 232448;
-constexpr int kRouteCores = 0, kRouteMma = 1;
+constexpr int kRouteCores = 0, kRouteMma = 1, kRouteDirect = 2;
 
 // the latest accepted launch: route, tile, grid x, grid y, shared-memory
-// bytes a block, frames staged a round, n8 row tiles of an LVC chunk
-int g_last_launch[7];
+// bytes a block, frames staged a round, n8 row tiles of an LVC chunk,
+// channels
+int g_last_launch[8];
 
 cudaError_t record_launch(int route, int tile, const dim3& grid, int smem, int round_frames,
-                          int nt) {
+                          int nt, int channels) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {
-    const int rec[7] = {route, tile, static_cast<int>(grid.x), static_cast<int>(grid.y), smem,
-                        round_frames, nt};
-    for (int i = 0; i < 7; ++i) g_last_launch[i] = rec[i];
+    const int rec[8] = {route, tile, static_cast<int>(grid.x), static_cast<int>(grid.y), smem,
+                        round_frames, nt, channels};
+    for (int i = 0; i < 8; ++i) g_last_launch[i] = rec[i];
   }
   return err;
 }
@@ -120,6 +137,18 @@ struct Spec {
   int a_lo[kMaxLayers], a_hi[kMaxLayers];
   int b_lo[kMaxLayers], b_hi[kMaxLayers];
   int c_lo[kMaxLayers], c_hi[kMaxLayers];
+};
+
+// The arguments of one launch, as the library takes them
+struct Args {
+  const void* x;
+  const void* ad;
+  const void* kern;
+  const float* bias;
+  const void* conv_w;
+  const float* conv_b;
+  void* out;
+  int B, L, hop, layers, tile, fast, route, round_frames, nt;
 };
 
 // The gate, both routes: sigmoid(a) * tanh(b) with tanh(b) = 2 sigmoid(2b)
@@ -146,7 +175,7 @@ __device__ __forceinline__ float gate(float a, float b) {
 }
 
 // ============================ CUDA-core route ===============================
-template <typename T, int RPT, bool FAST>
+template <typename T, int C, int RPT, bool FAST>
 __global__ void __launch_bounds__(kThreads)
 lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __restrict__ kern,
                  const float* __restrict__ bias, const T* __restrict__ conv_w,
@@ -187,15 +216,16 @@ lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __r
     }
     __syncthreads();
 
-    // dilated conv, lane = output channel, kConvRows rows a chunk. A chunk's
-    // last rows may lie past b_hi and read up to kConvRows - 1 rows past
-    // the end of y1's region: they lie inside y2's buffer and the results
-    // are dropped.
-    {
-      const T* w = conv_w + static_cast<long long>(i) * 3 * C * C + lane;
-      const float cb = conv_b[i * C + lane];
-      for (int r0 = spec.b_lo[i] + warp * kConvRows; r0 < spec.b_hi[i];
-           r0 += kWarps * kConvRows) {
+    // dilated conv, lane = output channel (each lane's channels co = lane,
+    // lane + 32, ..), kConvRows rows a chunk. A chunk's last rows may lie
+    // past b_hi and read up to kConvRows - 1 rows past the end of y1's
+    // region: they lie inside y2's buffer and the results are dropped.
+    for (int r0 = spec.b_lo[i] + warp * kConvRows; r0 < spec.b_hi[i];
+         r0 += kWarps * kConvRows) {
+#pragma unroll 1
+      for (int co = lane; co < C; co += 32) {
+        const T* w = conv_w + static_cast<long long>(i) * 3 * C * C + co;
+        const float cb = conv_b[i * C + co];
         float acc[kConvRows];
 #pragma unroll
         for (int rr = 0; rr < kConvRows; ++rr) acc[rr] = cb;
@@ -203,7 +233,7 @@ lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __r
         for (int j = 0; j < 3; ++j) {
           const T* src = y1 + (r0 + (j - 1) * d) * C;
           const T* wj = w + j * C * C;
-#pragma unroll
+#pragma unroll 4
           for (int ci0 = 0; ci0 < C; ci0 += 8) {
             float wv[8];
 #pragma unroll
@@ -223,7 +253,7 @@ lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __r
           if (r >= spec.b_hi[i]) break;
           const int g = g0 + r;
           const float v = fmaxf(acc[rr], acc[rr] * 0.2f);
-          y2[r * C + lane] = (g >= 0 && g < L) ? lfs2::from_f<T>(v) : zero;
+          y2[r * C + co] = (g >= 0 && g < L) ? lfs2::from_f<T>(v) : zero;
         }
       }
     }
@@ -236,41 +266,44 @@ lvc_stack_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __r
       const int g = g0 + r0;
       if (g < 0 || g >= L) continue;
       const long long fi = (static_cast<long long>(b) * nL + g / hop) * spec.layers + i;
-      const T* K = kern + fi * (C * 2 * C * 3) + lane * 3;
       const float* bs = bias + fi * (2 * C);
-      float acc_a[RPT], acc_b[RPT];
-#pragma unroll
-      for (int rr = 0; rr < RPT; ++rr) {
-        acc_a[rr] = bs[lane];
-        acc_b[rr] = bs[lane + C];
-      }
 #pragma unroll 1
-      for (int ci0 = 0; ci0 < C; ci0 += 8) {
-        float yv[RPT + 2][8];
+      for (int co = lane; co < C; co += 32) {
+        const T* K = kern + fi * (C * 2 * C * 3) + co * 3;
+        float acc_a[RPT], acc_b[RPT];
 #pragma unroll
-        for (int q = 0; q < RPT + 2; ++q) lfs2::load_vec<8>(y2 + (r0 - 1 + q) * C + ci0, yv[q]);
+        for (int rr = 0; rr < RPT; ++rr) {
+          acc_a[rr] = bs[co];
+          acc_b[rr] = bs[co + C];
+        }
+#pragma unroll 1
+        for (int ci0 = 0; ci0 < C; ci0 += 8) {
+          float yv[RPT + 2][8];
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
-          const T* ka = K + (ci0 + cc) * (2 * C * 3);
-          const T* kb = ka + C * 3;
-          const float wa0 = lfs2::to_f(ka[0]), wa1 = lfs2::to_f(ka[1]), wa2 = lfs2::to_f(ka[2]);
-          const float wb0 = lfs2::to_f(kb[0]), wb1 = lfs2::to_f(kb[1]), wb2 = lfs2::to_f(kb[2]);
+          for (int q = 0; q < RPT + 2; ++q) lfs2::load_vec<8>(y2 + (r0 - 1 + q) * C + ci0, yv[q]);
 #pragma unroll
-          for (int rr = 0; rr < RPT; ++rr) {
-            acc_a[rr] = fmaf(yv[rr][cc], wa0, acc_a[rr]);
-            acc_a[rr] = fmaf(yv[rr + 1][cc], wa1, acc_a[rr]);
-            acc_a[rr] = fmaf(yv[rr + 2][cc], wa2, acc_a[rr]);
-            acc_b[rr] = fmaf(yv[rr][cc], wb0, acc_b[rr]);
-            acc_b[rr] = fmaf(yv[rr + 1][cc], wb1, acc_b[rr]);
-            acc_b[rr] = fmaf(yv[rr + 2][cc], wb2, acc_b[rr]);
+          for (int cc = 0; cc < 8; ++cc) {
+            const T* ka = K + (ci0 + cc) * (2 * C * 3);
+            const T* kb = ka + C * 3;
+            const float wa0 = lfs2::to_f(ka[0]), wa1 = lfs2::to_f(ka[1]), wa2 = lfs2::to_f(ka[2]);
+            const float wb0 = lfs2::to_f(kb[0]), wb1 = lfs2::to_f(kb[1]), wb2 = lfs2::to_f(kb[2]);
+#pragma unroll
+            for (int rr = 0; rr < RPT; ++rr) {
+              acc_a[rr] = fmaf(yv[rr][cc], wa0, acc_a[rr]);
+              acc_a[rr] = fmaf(yv[rr + 1][cc], wa1, acc_a[rr]);
+              acc_a[rr] = fmaf(yv[rr + 2][cc], wa2, acc_a[rr]);
+              acc_b[rr] = fmaf(yv[rr][cc], wb0, acc_b[rr]);
+              acc_b[rr] = fmaf(yv[rr + 1][cc], wb1, acc_b[rr]);
+              acc_b[rr] = fmaf(yv[rr + 2][cc], wb2, acc_b[rr]);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int rr = 0; rr < RPT; ++rr) {
-        T* xp = xs + (r0 + rr) * C + lane;
-        const float gv = lfs2::round_to<T>(gate<FAST>(acc_a[rr], acc_b[rr]));
-        *xp = lfs2::from_f<T>(lfs2::to_f(*xp) + gv);
+        for (int rr = 0; rr < RPT; ++rr) {
+          T* xp = xs + (r0 + rr) * C + co;
+          const float gv = lfs2::round_to<T>(gate<FAST>(acc_a[rr], acc_b[rr]));
+          *xp = lfs2::from_f<T>(lfs2::to_f(*xp) + gv);
+        }
       }
     }
     __syncthreads();
@@ -312,56 +345,55 @@ Spec make_spec(int layers, int tile) {
   return s;
 }
 
-template <typename T, int RPT, bool FAST>
-cudaError_t launch(const void* x, const void* ad, const void* kern, const float* bias,
-                   const void* conv_w, const float* conv_b, void* out, int B, int L, int hop,
-                   int tile, const Spec& spec, cudaStream_t stream) {
+template <typename T, int C, int RPT, bool FAST>
+cudaError_t launch(const Args& a, const Spec& spec, cudaStream_t stream) {
   const int smem = 4 * spec.rows * C * static_cast<int>(sizeof(T));
-  auto kernel = lvc_stack_kernel<T, RPT, FAST>;
+  auto kernel = lvc_stack_kernel<T, C, RPT, FAST>;
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + tile - 1) / tile, B);
+  const dim3 grid((a.L + a.tile - 1) / a.tile, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ad), static_cast<const T*>(kern), bias,
-      static_cast<const T*>(conv_w), conv_b, static_cast<T*>(out), L, hop, tile, spec);
-  return record_launch(kRouteCores, tile, grid, smem, 0, 0);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.ad), static_cast<const T*>(a.kern),
+      a.bias, static_cast<const T*>(a.conv_w), a.conv_b, static_cast<T*>(a.out), a.L, a.hop,
+      a.tile, spec);
+  return record_launch(kRouteCores, a.tile, grid, smem, 0, 0, C);
 }
 
-template <typename T>
-cudaError_t dispatch(const void* x, const void* ad, const void* kern, const float* bias,
-                     const void* conv_w, const float* conv_b, void* out, int B, int L, int hop,
-                     int tile, int fast, const Spec& spec, cudaStream_t s) {
-  const bool quad = hop % kAlign == 0;
-  if (fast) {
-    return quad ? launch<T, kAlign, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, s)
-                : launch<T, 1, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, s);
-  }
-  return quad ? launch<T, kAlign, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, s)
-              : launch<T, 1, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, s);
+template <typename T, int C>
+cudaError_t dispatch(const Args& a, const Spec& spec, cudaStream_t s) {
+  const bool quad = a.hop % kAlign == 0;
+  if (a.fast)
+    return quad ? launch<T, C, kAlign, true>(a, spec, s) : launch<T, C, 1, true>(a, spec, s);
+  return quad ? launch<T, C, kAlign, false>(a, spec, s) : launch<T, C, 1, false>(a, spec, s);
 }
 
 // ===================== tensor-core route (hop % 8 == 0) ====================
-constexpr int kFrameElems = C * 2 * C * 3;  // one frame's (C, 2C, 3) kernel of one layer
-constexpr int kK = 3 * C;                   // the products' contraction: k = tap * C + cin
-constexpr int kLDK = 2 * C + 8;             // row stride of a staged frame kernel, [k][out]
-constexpr int kLDW = C + 8;                 // row stride of staged conv taps, [k][cout]
-constexpr int kLDT = kK + 4;                // f32: row stride of split weights, [out][k]
-constexpr int kConvTiles = 4;               // n8 row tiles of a conv chunk
-constexpr int kMmaWarpsMax = 16;            // the most warps of a tensor-core block
+constexpr int kConvTiles = 4;    // n8 row tiles of a conv chunk
+constexpr int kMmaWarpsMax = 16;  // the most warps of a tensor-core block
 
-// per working dtype: signal row stride (80 or 144 bytes: any 8 rows fall
-// in distinct bank groups for ldmatrix), the most n8 row tiles of an LVC
-// chunk (acc registers: 4 m16 tiles x 4 floats each) and the threads
-template <typename T> struct Geo;
-template <> struct Geo<__nv_bfloat16> {
-  static constexpr int LDY = C + 8;
-  static constexpr int NT = 4;
-  static constexpr int THREADS = 512;  // 16 warps: four a scheduler, 128 registers a thread
-};
-template <> struct Geo<float> {
-  static constexpr int LDY = C + 4;
-  static constexpr int NT = 2;
-  static constexpr int THREADS = 256;  // the split products need more than 128 registers
+// per working dtype and width: signal row stride (C + 16 bytes' worth: any 8
+// rows fall in distinct bank groups for ldmatrix), the contraction, one
+// frame's (C, 2C, 3) kernel of one layer, the staged weights' row strides
+// (bf16 [k][out] frame kernels and [k][cout] conv taps; f32 split [out][k]),
+// the channel groups, whether the weights are read from device memory
+// (direct: no staged copy fits), the most n8 row tiles of an LVC chunk (acc
+// registers: 2 CG / 16 m16 tiles x 4 floats each) and the threads
+template <typename T, int C> struct Mma {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int LDY = C + 16 / static_cast<int>(sizeof(T));
+  static constexpr int K = 3 * C;
+  static constexpr int FRAME = C * 2 * C * 3;
+  static constexpr int LDK = 2 * C + 8;
+  static constexpr int LDW = C + 8;
+  static constexpr int LDT = 3 * C + 4;
+  static constexpr int CG = C < 32 ? C : 32;  // output channels of a group
+  static constexpr int NG = C / CG;
+  static constexpr int MTC = CG / 16;          // m16 tiles of a group's conv rows
+  static constexpr bool DIRECT = BF16 ? C >= 128 : C >= 64;
+  static constexpr int NT = BF16 ? 4 : 2;
+  // bf16: 16 warps, four a scheduler, 128 registers a thread; f32: 8 warps
+  // (the split products need more than 128 registers)
+  static constexpr int THREADS = BF16 ? 512 : 256;
 };
 
 // Buffer rows (row 0 is signal position blockIdx.x * tile - halo) each
@@ -370,7 +402,7 @@ template <> struct Geo<float> {
 // reach rounded up to 8, so that buffer rows and signal rows agree mod 8.
 struct MmaSpec {
   int layers, halo, rows;
-  int round_frames;  // frames whose kernels are staged at once
+  int round_frames;  // frames whose kernels are staged at once (0: direct)
   int nt;            // n8 row tiles of an LVC chunk: 8 * nt rows of one frame
   int b_lo[kMaxLayers], b_hi[kMaxLayers];
   int c_lo[kMaxLayers], c_hi[kMaxLayers];
@@ -385,28 +417,83 @@ __device__ __forceinline__ uint32_t leaky2(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// ---- A operands: the weights (out, k) of an m16 tile whose first output is col
+// bf16 staged [k][out] at stride lda in shared memory: ldmatrix.trans
+struct SmemA {
+  unsigned base;
+  int lda;
+  __device__ __forceinline__ void load(uint32_t (&a)[4], int col, int k0, int lane) const {
+    const int r8 = lane & 7, j = lane >> 3;
+    lfs2::ldmatrix_x4_trans(a, base + 2u * ((k0 + r8 + 8 * (j >> 1)) * lda + col + 8 * (j & 1)));
+  }
+};
+
+// bf16 in device memory, A(m, k = tap C + cin) at w[cin sc + tap st + m sm]
+// (conv taps: sc = C, st = C^2, sm = 1; a frame's kernel: sc = 6C, st = 1,
+// sm = 3): scalar loads paired into the fragment's registers. k and k + 1
+// (and k + 8, k + 9) share a tap, C being a multiple of 16.
+template <int C> struct GlobalA {
+  const unsigned short* w;
+  int sc, st, sm;
+  __device__ __forceinline__ void load(uint32_t (&a)[4], int col, int k0, int lane) const {
+    const int g = lane >> 2, tq = lane & 3;
+    const unsigned short* p = w + (k0 % C + 2 * tq) * sc + (k0 / C) * st + (col + g) * sm;
+    const int o[4] = {0, 8 * sm, 8 * sc, 8 * sc + 8 * sm};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      a[q] = static_cast<uint32_t>(__ldg(p + o[q])) |
+             (static_cast<uint32_t>(__ldg(p + o[q] + sc)) << 16);
+  }
+};
+
+// f32 split, hi and lo halves staged [out][k] at stride LDT: ldmatrix gives
+// a thread its A fragment (a b16 8 x 8 matrix is an 8 x 4 block of 32-bit
+// values)
+template <int LDT> struct SmemSplitA {
+  unsigned hi, lo;
+  __device__ __forceinline__ void load(uint32_t (&ah)[4], uint32_t (&al)[4], int col, int k0,
+                                       int lane) const {
+    const int r8 = lane & 7, j = lane >> 3;
+    const unsigned off = 4u * ((col + r8 + 8 * (j & 1)) * LDT + k0 + 4 * (j >> 1));
+    lfs2::ldmatrix_x4(ah, hi + off);
+    lfs2::ldmatrix_x4(al, lo + off);
+  }
+};
+
+// f32 in device memory (GlobalA's layout), split in registers
+template <int C> struct GlobalSplitA {
+  const float* w;
+  int sc, st, sm;
+  __device__ __forceinline__ void load(uint32_t (&ah)[4], uint32_t (&al)[4], int col, int k0,
+                                       int lane) const {
+    const int g = lane >> 2, tq = lane & 3;
+    const float* p = w + (k0 % C + tq) * sc + (k0 / C) * st + (col + g) * sm;
+    lfs2::split_a(__ldg(p), __ldg(p + 8 * sm), __ldg(p + 4 * sc), __ldg(p + 4 * sc + 8 * sm), ah,
+                  al);
+  }
+};
+
 // acc[mt][nt] (m16 tile mt of MT, n8 row tile nt of NT) += the products of
-// one chunk: A = the (out, k) weights staged [k][out] at stride LDA (conv
-// taps or a frame's kernel), B = signal rows s + 8 nt + shift(tap) of src,
+// one chunk: A = the weights (wa), m16 tile mt's first output col0 + 16 (mt
+// % H) + (mt / H) hstride (an LVC group: H sigmoid tiles, then H tanh tiles
+// hstride = C further), B = signal rows s + 8 nt + shift(tap) of src,
 // clamped to the buffer (a clamped row feeds only a row the epilogue
 // drops). n8 tiles past n_act issue nothing. LEAKY applies the leaky to B
-// (the conv reads x). bf16: m16n8k16, A through ldmatrix.trans, B through
-// ldmatrix.
-template <int MT, int NT, int LDA, int LDY, bool LEAKY>
-__device__ __forceinline__ void chunk_products(float (&acc)[MT][NT][4],
-                                               const __nv_bfloat16* A, const __nv_bfloat16* src,
-                                               int s, int n_act, int d, int rows, int lane) {
-  const unsigned a_base = lfs2::smem_u32(A), y_base = lfs2::smem_u32(src);
+// (the conv reads x). bf16: m16n8k16, B through ldmatrix.
+template <int MT, int H, int NT, int LDY, int C, bool LEAKY, class A>
+__device__ __forceinline__ void products(float (&acc)[MT][NT][4], const A& wa, int col0,
+                                         int hstride, const __nv_bfloat16* src, int s, int n_act,
+                                         int d, int rows, int lane) {
+  const unsigned y_base = lfs2::smem_u32(src);
   const int r8 = lane & 7, j = lane >> 3;
-#pragma unroll
-  for (int ks = 0; ks < kK / 16; ++ks) {
-    const int k0 = 16 * ks, tap = ks >> 1, cin0 = 16 * (ks & 1);
+  constexpr int kSteps = 3 * C / 16, kUnroll = C <= 32 ? kSteps : 2;
+#pragma unroll (kUnroll)
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const int k0 = 16 * ks, tap = k0 / C, cin0 = k0 % C;
     const int shift = (tap - 1) * d;
     uint32_t a[MT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      lfs2::ldmatrix_x4_trans(
-          a[mt], a_base + 2u * ((k0 + r8 + 8 * (j >> 1)) * LDA + 16 * mt + 8 * (j & 1)));
+    for (int mt = 0; mt < MT; ++mt) wa.load(a[mt], col0 + 16 * (mt % H) + (mt / H) * hstride, k0, lane);
     uint32_t b[NT][2];
 #pragma unroll
     for (int np = 0; np < (NT + 1) / 2; ++np) {
@@ -434,27 +521,22 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][NT][4],
   }
 }
 
-// f32: the weights come split already, hi and lo halves stored [out][k] at
-// stride kLDT, so ldmatrix gives a thread its A fragment (a b16 8 x 8
-// matrix is an 8 x 4 block of 32-bit values); B is split in registers.
-template <int MT, int NT, int LDY, bool LEAKY>
-__device__ __forceinline__ void chunk_products_split(float (&acc)[MT][NT][4], const float* Ah,
-                                                     const float* Al, const float* src, int s,
-                                                     int n_act, int d, int rows, int lane) {
-  const unsigned ah_base = lfs2::smem_u32(Ah), al_base = lfs2::smem_u32(Al);
+// f32: the weights come split (SmemSplitA or GlobalSplitA); B is split in
+// registers.
+template <int MT, int H, int NT, int LDY, int C, bool LEAKY, class A>
+__device__ __forceinline__ void products(float (&acc)[MT][NT][4], const A& wa, int col0,
+                                         int hstride, const float* src, int s, int n_act, int d,
+                                         int rows, int lane) {
   const unsigned y_base = lfs2::smem_u32(src);
   const int r8 = lane & 7, j = lane >> 3;
 #pragma unroll 2
-  for (int ks = 0; ks < kK / 8; ++ks) {
-    const int k0 = 8 * ks, tap = ks >> 2, cin0 = 8 * (ks & 3);
+  for (int ks = 0; ks < 3 * C / 8; ++ks) {
+    const int k0 = 8 * ks, tap = k0 / C, cin0 = k0 % C;
     const int shift = (tap - 1) * d;
     uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const unsigned off = 4u * ((16 * mt + r8 + 8 * (j & 1)) * kLDT + k0 + 4 * (j >> 1));
-      lfs2::ldmatrix_x4(ah[mt], ah_base + off);
-      lfs2::ldmatrix_x4(al[mt], al_base + off);
-    }
+    for (int mt = 0; mt < MT; ++mt)
+      wa.load(ah[mt], al[mt], col0 + 16 * (mt % H) + (mt / H) * hstride, k0, lane);
     uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
     for (int np = 0; np < (NT + 1) / 2; ++np) {
@@ -486,16 +568,16 @@ __device__ __forceinline__ void chunk_products_split(float (&acc)[MT][NT][4], co
 
 // f32 at one n8 row tile a frame (a hop that is not a multiple of 16): the
 // LVC product straight from the frame's raw (cin, out, tap) kernel as it
-// landed, for the gate pair of m16 tiles {h2, h2 + 2}. The
+// landed, for the gate pair of m16 tiles {h2, h2 + C / 16}. The
 // contraction runs in the raw order k = cin * 3 + tap (any order serves
 // when A and B agree), so a lane's A values of one k-step lie at most two
 // banks apart; A and B come by scalar loads and are split in registers.
-template <int LDY>
+template <int LDY, int C>
 __device__ __forceinline__ void raw_products(float (&acc)[2][4], const float* K, int h2,
                                              const float* src, int s, int rows, int lane) {
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll 2
-  for (int ks = 0; ks < kK / 8; ++ks) {
+  for (int ks = 0; ks < 3 * C / 8; ++ks) {
     const int k0 = 8 * ks + tq, k1 = k0 + 4;
     const int cin0 = k0 / 3, tap0 = k0 - 3 * cin0, cin1 = k1 / 3, tap1 = k1 - 3 * cin1;
     uint32_t ah[2][4], al[2][4];
@@ -555,54 +637,58 @@ __device__ long long g_phase[kMmaWarpsMax][8];
 #endif
 
 // One launch runs every layer for a tile of rows, in the transposed form:
-// out^T (channels x rows) = W^T (channels x 96) @ rows^T (96 x rows), n8
+// out^T (channels x rows) = W^T (channels x 3C) @ rows^T (3C x rows), n8
 // row tiles (see the note at the top of this file). Each step's n8 tiles
 // are split evenly over the warps, each warp taking a contiguous run of
-// them in chunks of up to NT tiles (an LVC chunk never crosses a frame).
-template <typename T, bool FAST>
-__global__ void __launch_bounds__(Geo<T>::THREADS, 1)
+// them in chunks of up to NT tiles (an LVC chunk never crosses a frame),
+// every channel group of a chunk in turn.
+template <typename T, int C, bool FAST>
+__global__ void __launch_bounds__(Mma<T, C>::THREADS, 1)
 lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __restrict__ kern,
                const float* __restrict__ bias, const T* __restrict__ conv_w,
                const float* __restrict__ conv_b, T* __restrict__ out, int L, int hop, int tile,
                const __grid_constant__ MmaSpec sp) {
-  constexpr int LDY = Geo<T>::LDY;
-  constexpr int NTL = Geo<T>::NT;
-  constexpr int kMmaThreads = Geo<T>::THREADS;
+  using G = Mma<T, C>;
+  constexpr int LDY = G::LDY;
+  constexpr int NTL = G::NT;
+  constexpr int kMmaThreads = G::THREADS;
   constexpr int kMmaWarps = kMmaThreads / 32;
   constexpr int V = 16 / sizeof(T);           // elements in 16 bytes
   constexpr int kRowPieces = C / V;           // 16-byte pieces of a signal row
-  constexpr int kFramePieces = kFrameElems / V;
-  constexpr bool kSplit = sizeof(T) == 4;     // f32: split-TF32 products
+  constexpr int kFramePieces = G::FRAME / V;
+  constexpr bool kSplit = !G::BF16;           // f32: split-TF32 products
+  constexpr int CG = G::CG, NG = G::NG, MTC = G::MTC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = sp.rows, FR = sp.round_frames;
   T* xs = reinterpret_cast<T*>(smem_raw);     // x (after this layer's residual add)
   T* as = xs + R * LDY;                       // audio_down
   T* y2 = as + R * LDY;                       // the LVC's input
-  // Then the weights. bf16: the layer's conv taps [k][cout], the round's
-  // frame kernels [k][out], the next round's raw frame kernels (stg). f32:
-  // the conv taps split, hi then lo halves, each [out][k] (wh, wl); with
-  // nt > 1 the round's frame kernels split the same way (kf), the next
-  // round's raw ones waiting in registers (pre), for want of room; with one
-  // n8 tile a chunk (a hop that is not a multiple of 16) no kf: the LVC reads
-  // each frame's kernel raw (raw_products) from two slots of bulk copies by
-  // round parity, since a split or reordered copy would serve one tile.
-  const bool presplit = kSplit && sp.nt > 1;
-  const bool raw = kSplit && !presplit;
-  const int kf_elems = kSplit ? (presplit ? 2 * 2 * C * kLDT : 0) : kK * kLDK;
+  // Then, staged, the weights. bf16: the layer's conv taps [k][cout], the
+  // round's frame kernels [k][out], the next round's raw frame kernels
+  // (stg). f32: the conv taps split, hi then lo halves, each [out][k] (wh,
+  // wl); with nt > 1 the round's frame kernels split the same way (kf), the
+  // next round's raw ones waiting in registers (pre), for want of room; with
+  // one n8 tile a chunk (a hop that is not a multiple of 16) no kf: the LVC
+  // reads each frame's kernel raw (raw_products) from two slots of bulk
+  // copies by round parity, since a split or reordered copy would serve one
+  // tile. Direct: nothing past y2.
+  const bool presplit = kSplit && !G::DIRECT && sp.nt > 1;
+  const bool raw = kSplit && !G::DIRECT && !presplit;
+  const int kf_elems = kSplit ? (presplit ? 2 * 2 * C * G::LDT : 0) : G::K * G::LDK;
   T* cw = y2 + R * LDY;
-  T* kf = cw + (kSplit ? 2 * C * kLDT : kK * kLDW);
+  T* kf = cw + (kSplit ? 2 * C * G::LDT : G::K * G::LDW);
   T* stg = kf + FR * kf_elems;
   // one mbarrier a staging slot (two slots on the raw route, none with
   // split kernels): a round's frames land by bulk copies
-  const unsigned bars = lfs2::smem_u32(stg + (raw ? 2 : presplit ? 0 : 1) * FR * kFrameElems);
+  const unsigned bars = lfs2::smem_u32(stg + (raw ? 2 : presplit ? 0 : 1) * FR * G::FRAME);
   float* wh = reinterpret_cast<float*>(cw);
-  float* wl = wh + C * kLDT;
+  float* wl = wh + C * G::LDT;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int g0 = t0 - sp.halo;                // signal position of buffer row 0
   const int nL = L / hop;
   const long long base = static_cast<long long>(b) * L * C;
-  const T* kb = kern + static_cast<long long>(b) * nL * sp.layers * kFrameElems;
+  const T* kb = kern + static_cast<long long>(b) * nL * sp.layers * G::FRAME;
   const float* bb = bias + static_cast<long long>(b) * nL * sp.layers * 2 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -615,13 +701,13 @@ lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __res
   };
   // f32: layer i's conv taps (k, cout), split, into wh and wl as [cout][k]
   auto split_conv = [&](int i) {
-    const float* src = reinterpret_cast<const float*>(conv_w) + static_cast<long long>(i) * kK * C;
-    for (int idx = threadIdx.x; idx < kK * C; idx += kMmaThreads) {
-      const int k = idx >> 5, co = idx & (C - 1);
+    const float* src = reinterpret_cast<const float*>(conv_w) + static_cast<long long>(i) * G::K * C;
+    for (int idx = threadIdx.x; idx < G::K * C; idx += kMmaThreads) {
+      const int k = idx / C, co = idx % C;
       uint32_t hi, lo;
       lfs2::split(src[idx], hi, lo);
-      wh[co * kLDT + k] = __uint_as_float(hi);
-      wl[co * kLDT + k] = __uint_as_float(lo);
+      wh[co * G::LDT + k] = __uint_as_float(hi);
+      wl[co * G::LDT + k] = __uint_as_float(lo);
     }
   };
   // round r of layer i into staging slot `slot`: its frames' raw kernels
@@ -633,20 +719,20 @@ lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __res
       int fa, fb;
       layer_frames(i, fa, fb);
       const int f0 = fa + r * FR, nf = min(FR, fb - f0);
-      const unsigned bytes = kFrameElems * sizeof(T), bar = bars + 8u * slot;
-      const unsigned dst = lfs2::smem_u32(stg + slot * FR * kFrameElems);
-      const T* src = kb + (static_cast<long long>(f0) * sp.layers + i) * kFrameElems;
+      const unsigned bytes = G::FRAME * sizeof(T), bar = bars + 8u * slot;
+      const unsigned dst = lfs2::smem_u32(stg + slot * FR * G::FRAME);
+      const T* src = kb + (static_cast<long long>(f0) * sp.layers + i) * G::FRAME;
       lfs2::mbar_expect_tx(bar, nf * bytes);
       for (int jf = 0; jf < nf; ++jf)
-        lfs2::bulk_load(dst + jf * bytes, src + static_cast<long long>(jf) * sp.layers * kFrameElems,
+        lfs2::bulk_load(dst + jf * bytes, src + static_cast<long long>(jf) * sp.layers * G::FRAME,
                         bytes, bar);
     }
     if (r == 0 && !kSplit) {
       T* cdst = cw;
-      const T* wsrc = conv_w + static_cast<long long>(i) * kK * C;
-      for (int idx = threadIdx.x; idx < kK * kRowPieces; idx += kMmaThreads) {
+      const T* wsrc = conv_w + static_cast<long long>(i) * G::K * C;
+      for (int idx = threadIdx.x; idx < G::K * kRowPieces; idx += kMmaThreads) {
         const int k = idx / kRowPieces, p = (idx - k * kRowPieces) * V;
-        lfs2::cp_async16(cdst + k * kLDW + p, wsrc + k * C + p);
+        lfs2::cp_async16(cdst + k * G::LDW + p, wsrc + k * C + p);
       }
     }
     lfs2::cp_async_commit();
@@ -654,36 +740,125 @@ lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __res
 
   // f32 with split kernels: round r of layer i's raw kernels into pre, one
   // 16-byte piece a thread per kMmaThreads (two frames at most: kPre pieces)
-  constexpr int kPre = 2 * kFramePieces / kMmaThreads;
-  float4 pre[kSplit ? kPre : 1];
+  constexpr int kPre = kSplit && !G::DIRECT ? 2 * kFramePieces / kMmaThreads : 1;
+  float4 pre[kPre];
   auto prefetch = [&](int i, int r) {
     int fa, fb;
     layer_frames(i, fa, fb);
     const int f0 = fa + r * FR, n_pieces = min(FR, fb - f0) * kFramePieces;
     const float* src = reinterpret_cast<const float*>(kb) +
-                       (static_cast<long long>(f0) * sp.layers + i) * kFrameElems;
+                       (static_cast<long long>(f0) * sp.layers + i) * G::FRAME;
 #pragma unroll
-    for (int t = 0; t < (kSplit ? kPre : 1); ++t) {
+    for (int t = 0; t < kPre; ++t) {
       const int idx = threadIdx.x + t * kMmaThreads;
       if (idx >= n_pieces) break;
       const int jf = idx / kFramePieces, p = (idx - jf * kFramePieces) * V;
       pre[t] = *reinterpret_cast<const float4*>(
-          src + static_cast<long long>(jf) * sp.layers * kFrameElems + p);
+          src + static_cast<long long>(jf) * sp.layers * G::FRAME + p);
     }
   };
 
+  // the dilated conv of layer i over [b_lo, b_hi) with the taps wa: y2 =
+  // round(leaky(conv(leaky(x)) + conv_b)), zero outside [0, L)
+  auto conv = [&](int i, int d, const auto& wa) {
+    const int lo = sp.b_lo[i], hi = sp.b_hi[i];
+    const int first = lo & ~7, n_tiles = (hi - first + 7) / 8;
+    const int u1 = n_tiles * (warp + 1) / kMmaWarps;
+    for (int u = n_tiles * warp / kMmaWarps; u < u1; u += kConvTiles) {
+      const int s = first + 8 * u, n_act = min(kConvTiles, u1 - u);
+#pragma unroll 1
+      for (int grp = 0; grp < NG; ++grp) {
+        float cb[MTC][2];
+#pragma unroll
+        for (int mt = 0; mt < MTC; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) cb[mt][h] = conv_b[i * C + grp * CG + 16 * mt + g + 8 * h];
+        float acc[MTC][kConvTiles][4] = {};
+        products<MTC, MTC, kConvTiles, LDY, C, true>(acc, wa, grp * CG, 0, xs, s, n_act, d, R,
+                                                     lane);
+#pragma unroll
+        for (int nt = 0; nt < kConvTiles; ++nt) {
+          if (nt >= n_act) continue;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int row = s + 8 * nt + 2 * tq + c;
+            if (row < lo || row >= hi) continue;
+            const bool inside = g0 + row >= 0 && g0 + row < L;
+            T* yr = y2 + row * LDY + grp * CG + g;
+#pragma unroll
+            for (int mt = 0; mt < MTC; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float v = acc[mt][nt][2 * h + c] + cb[mt][h];
+                yr[16 * mt + 8 * h] = lfs2::from_f<T>(inside ? fmaxf(v, v * 0.2f) : 0.0f);
+              }
+          }
+        }
+      }
+    }
+  };
+
+  // x = round(x + round(gate(a, b))) (then + ad, rounded, but in the last layer)
+  auto gate_into_x = [&](bool last, T* xp, const T* ap, float a, float bg) {
+    float v = lfs2::round_to<T>(lfs2::to_f(*xp) + lfs2::round_to<T>(gate<FAST>(a, bg)));
+    if (!last) v = lfs2::round_to<T>(v + lfs2::to_f(*ap));
+    *xp = lfs2::from_f<T>(v);
+  };
+
   LVC_CLOCK(tp);
-  if (threadIdx.x == 0) {
+  // the LVC of layer i on n_act n8 tiles from row s, all in frame f, with
+  // the frame's kernel (wa) and bias: the gate, the residual add (and the
+  // next layer's x + ad) into the rows of [rlo, rhi)
+  auto lvc = [&](int i, bool last, int s, int n_act, int f, int rlo, int rhi, const auto& wa) {
+    const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
+#pragma unroll 1
+    for (int grp = 0; grp < NG; ++grp) {
+      float ba[MTC][2], bg[MTC][2];
+#pragma unroll
+      for (int mt = 0; mt < MTC; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ba[mt][h] = bs[grp * CG + 16 * mt + g + 8 * h];
+          bg[mt][h] = bs[C + grp * CG + 16 * mt + g + 8 * h];
+        }
+      float acc[2 * MTC][NTL][4] = {};
+      products<2 * MTC, MTC, NTL, LDY, C, false>(acc, wa, grp * CG, C, y2, s, n_act, 1, R, lane);
+      LVC_PHASE(5, tp);
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) {
+        if (nt >= n_act) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = s + 8 * nt + 2 * tq + c;
+          if (row < rlo || row >= rhi) continue;
+          T* xr = xs + row * LDY + grp * CG + g;
+          const T* ar = as + row * LDY + grp * CG + g;
+#pragma unroll
+          for (int mt = 0; mt < MTC; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              gate_into_x(last, xr + 16 * mt + 8 * h, ar + 16 * mt + 8 * h,
+                          acc[mt][nt][2 * h + c] + ba[mt][h],
+                          acc[mt + MTC][nt][2 * h + c] + bg[mt][h]);
+        }
+      }
+      LVC_PHASE(6, tp);
+    }
+  };
+
+  if (!G::DIRECT && threadIdx.x == 0) {
     lfs2::mbar_init(bars, 1);
     lfs2::mbar_init(bars + 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (kSplit) split_conv(0);
-  if (presplit)
-    prefetch(0, 0);
-  else
-    issue(0, 0, 0);
+  if constexpr (!G::DIRECT) {
+    if (kSplit) split_conv(0);
+    if (presplit)
+      prefetch(0, 0);
+    else
+      issue(0, 0, 0);
+  }
   // x and audio_down rows through cp.async (zero outside [0, L)), with the
   // first round's copies; then xs = x + ad, layer 0's residual add
   for (int idx = threadIdx.x; idx < R * kRowPieces; idx += kMmaThreads) {
@@ -711,208 +886,173 @@ lvc_mma_kernel(const T* __restrict__ x, const T* __restrict__ ad, const T* __res
     *reinterpret_cast<uint4*>(xs + row * LDY + p) = xv;
   }
 
-  int q = 0;  // rounds so far: a raw slot's parity
-  int d = 1;
-  for (int i = 0; i < sp.layers; ++i, d *= 3) {
-    int fa, fb;
-    layer_frames(i, fa, fb);
-    const int n_rounds = (fb - fa + FR - 1) / FR;
-    const bool last = i == sp.layers - 1;
-    for (int r = 0; r < n_rounds; ++r, ++q) {
-      LVC_PHASE(0, tp);
-      lfs2::cp_async_wait_all();
-      if (!presplit) {  // the round's frames: slot q % slots, its (q / slots)-th use
-        const int slots = raw ? 2 : 1;
-        lfs2::mbar_wait(bars + 8u * (q % slots), (q / slots) & 1);
-      }
-      __syncthreads();  // the round's copies landed; every warp is done with kf and y2
-      LVC_PHASE(1, tp);
-      const int f0 = fa + r * FR, nf = min(FR, fb - f0);
-      const bool more = r + 1 < n_rounds || !last;  // a round follows
-      const int ni = r + 1 < n_rounds ? i : i + 1, nr = r + 1 < n_rounds ? r + 1 : 0;
-      if (raw && more) issue(ni, nr, (q + 1) & 1);  // the other slot: its round is done
-      if constexpr (kSplit) {
-        // f32 with split kernels: the round's raw (cin, out, tap) kernels
-        // from pre, 16 bytes a piece, split into kf's hi and lo halves at
-        // [out][tap * C + cin] (the raw route reads them as they landed)
-        if (presplit) {
-          float* kh = reinterpret_cast<float*>(kf);
-          const int n_pieces = nf * kFramePieces;
-#pragma unroll
-          for (int t = 0; t < kPre; ++t) {
-            const int idx = threadIdx.x + t * kMmaThreads;
-            if (idx >= n_pieces) break;
-            const int jf = idx / kFramePieces, p = (idx - jf * kFramePieces) * V;
-            const float ve[4] = {pre[t].x, pre[t].y, pre[t].z, pre[t].w};
-            const int cin = p / (2 * C * 3), o3 = p - cin * (2 * C * 3);
-            float* dh = kh + jf * kf_elems + cin;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int o = (o3 + e) / 3, tap = o3 + e - 3 * o;
-              uint32_t hi, lo;
-              lfs2::split(ve[e], hi, lo);
-              dh[o * kLDT + tap * C] = __uint_as_float(hi);
-              dh[(2 * C + o) * kLDT + tap * C] = __uint_as_float(lo);
-            }
-          }
-        }
-      } else {
-        // bf16: raw (cin, out, tap) -> kf[tap * C + cin][out]: a thread
-        // moves the three taps of one (cin, out)
-        const T* src = stg;
-#pragma unroll 4
-        for (int idx = threadIdx.x; idx < nf * C * 2 * C; idx += kMmaThreads) {
-          const int jf = idx >> 11, cin = (idx >> 6) & (C - 1), o = idx & (2 * C - 1);
-          const T* sp3 = src + jf * kFrameElems + (cin * 2 * C + o) * 3;
-          T* dst = kf + jf * kK * kLDK + cin * kLDK + o;
-          const T v0 = sp3[0], v1 = sp3[1], v2 = sp3[2];
-          dst[0] = v0;
-          dst[C * kLDK] = v1;
-          dst[2 * C * kLDK] = v2;
-        }
-      }
-      LVC_PHASE(2, tp);
-
-      if (r == 0) {
-        // dilated conv: y2 = round(leaky(conv(leaky(x)) + conv_b)), zero
-        // outside [0, L), over [b_lo, b_hi)
-        float cb[2][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) cb[mt][h] = conv_b[i * C + 16 * mt + g + 8 * h];
-        const int lo = sp.b_lo[i], hi = sp.b_hi[i];
-        const int first = lo & ~7, n_tiles = (hi - first + 7) / 8;
-        const int u1 = n_tiles * (warp + 1) / kMmaWarps;
-        for (int u = n_tiles * warp / kMmaWarps; u < u1; u += kConvTiles) {
-          const int s = first + 8 * u, n_act = min(kConvTiles, u1 - u);
-          float acc[2][kConvTiles][4] = {};
-          if constexpr (kSplit)
-            chunk_products_split<2, kConvTiles, LDY, true>(acc, wh, wl, xs, s, n_act, d, R, lane);
-          else
-            chunk_products<2, kConvTiles, kLDW, LDY, true>(acc, cw, xs, s, n_act, d, R, lane);
-#pragma unroll
-          for (int nt = 0; nt < kConvTiles; ++nt) {
-            if (nt >= n_act) continue;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int row = s + 8 * nt + 2 * tq + c;
-              if (row < lo || row >= hi) continue;
-              const bool inside = g0 + row >= 0 && g0 + row < L;
-              T* yr = y2 + row * LDY + g;
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  const float v = acc[mt][nt][2 * h + c] + cb[mt][h];
-                  yr[16 * mt + 8 * h] = lfs2::from_f<T>(inside ? fmaxf(v, v * 0.2f) : 0.0f);
-                }
-            }
-          }
-        }
-      }
-      LVC_PHASE(3, tp);
-      if (r == 0 || !raw) __syncthreads();  // y2 and the round's kf are whole; stg, cw free
-      // the next round's copies (or the next layer's first), under this LVC;
-      // f32 splits the next layer's conv taps here
-      if (kSplit && r + 1 == n_rounds && !last) split_conv(i + 1);
-      if (more && presplit) prefetch(ni, nr);
-      if (more && !kSplit) issue(ni, nr, 0);
-      LVC_PHASE(4, tp);
-
-      // LVC of the round's rows with each frame's kernel and bias, the
-      // gate, the residual add (and the next layer's x + ad). The round's
-      // n8 tiles start at a multiple of 8 in the signal, and so do frames
-      // (hop % 8 == 0): a chunk is cut at a frame's end.
-      const int rlo = max(sp.c_lo[i], f0 * hop - g0);
-      const int rhi = min(sp.c_hi[i], (f0 + nf) * hop - g0);
-      const int first = rlo & ~7, n_tiles = (rhi - first + 7) / 8;
-      // x = round(x + round(gate(a, b))) (then + ad, rounded, but in the last layer)
-      auto gate_into_x = [&](T* xp, const T* ap, float a, float bg) {
-        float v = lfs2::round_to<T>(lfs2::to_f(*xp) + lfs2::round_to<T>(gate<FAST>(a, bg)));
-        if (!last) v = lfs2::round_to<T>(v + lfs2::to_f(*ap));
-        *xp = lfs2::from_f<T>(v);
-      };
-      if constexpr (kSplit) {
-        if (raw) {
-          // f32, one row tile a frame: two units a tile, the gate pairs of m16
-          // tiles {h, h + 2}, so that twice as many warps share a round
-          const int n_units = 2 * n_tiles;
-          for (int u = warp; u < n_units; u += kMmaWarps) {
-            const int s = first + 8 * (u >> 1), h2 = u & 1;
-            const int f = (g0 + s) / hop;
-            const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
-            float ba[2], bg[2];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              ba[h] = bs[16 * h2 + g + 8 * h];
-              bg[h] = bs[C + 16 * h2 + g + 8 * h];
-            }
-            float acc[2][4] = {};
-            raw_products<LDY>(acc, reinterpret_cast<const float*>(stg) +
-                                       ((q & 1) * FR + f - f0) * kFrameElems,
-                              h2, y2, s, R, lane);
-            LVC_PHASE(5, tp);
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int row = s + 2 * tq + c;
-              if (row < rlo || row >= rhi) continue;
-              T* xr = xs + row * LDY + 16 * h2 + g;
-              const T* ar = as + row * LDY + 16 * h2 + g;
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                gate_into_x(xr + 8 * h, ar + 8 * h, acc[0][2 * h + c] + ba[h],
-                            acc[1][2 * h + c] + bg[h]);
-            }
-            LVC_PHASE(6, tp);
-          }
-          continue;
-        }
-      }
+  if constexpr (G::DIRECT) {
+    // every layer's weights straight from device memory: the conv over its
+    // rows, then the LVC over the rows inside [0, L), chunks cut at frames
+    int d = 1;
+    for (int i = 0; i < sp.layers; ++i, d *= 3) {
+      __syncthreads();  // x is whole (the previous layer's LVC, or the loads)
+      if constexpr (kSplit)
+        conv(i, d, GlobalSplitA<C>{reinterpret_cast<const float*>(conv_w) + i * G::K * C, C, C * C, 1});
+      else
+        conv(i, d, GlobalA<C>{reinterpret_cast<const unsigned short*>(conv_w) + i * G::K * C, C,
+                              C * C, 1});
+      __syncthreads();  // y2 is whole
+      const bool last = i == sp.layers - 1;
+      const int rlo = max(sp.c_lo[i], -g0), rhi = min(sp.c_hi[i], L - g0);
+      const int first = rlo & ~7, n_tiles = max(0, (rhi - first + 7) / 8);
       const int u1 = n_tiles * (warp + 1) / kMmaWarps;
       for (int u = n_tiles * warp / kMmaWarps; u < u1;) {
         const int s = first + 8 * u;
         const int f = (g0 + s) / hop;
         const int n_act = min(min(sp.nt, u1 - u), ((f + 1) * hop - g0 - s) / 8);
-        const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
-        float ba[2][2], bg[2][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            ba[mt][h] = bs[16 * mt + g + 8 * h];
-            bg[mt][h] = bs[C + 16 * mt + g + 8 * h];
-          }
-        float acc[4][NTL][4] = {};
-        if constexpr (kSplit) {
-          const float* kh = reinterpret_cast<const float*>(kf) + (f - f0) * kf_elems;
-          chunk_products_split<4, NTL, LDY, false>(acc, kh, kh + 2 * C * kLDT, y2, s, n_act, 1,
-                                                   R, lane);
-        } else {
-          chunk_products<4, NTL, kLDK, LDY, false>(acc, kf + (f - f0) * kK * kLDK, y2, s,
-                                                    n_act, 1, R, lane);
-        }
-        LVC_PHASE(5, tp);
-#pragma unroll
-        for (int nt = 0; nt < NTL; ++nt) {
-          if (nt >= n_act) continue;
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int row = s + 8 * nt + 2 * tq + c;
-            if (row < rlo || row >= rhi) continue;
-            T* xr = xs + row * LDY + g;
-            const T* ar = as + row * LDY + g;
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                gate_into_x(xr + 16 * mt + 8 * h, ar + 16 * mt + 8 * h,
-                            acc[mt][nt][2 * h + c] + ba[mt][h],
-                            acc[mt + 2][nt][2 * h + c] + bg[mt][h]);
-          }
-        }
-        LVC_PHASE(6, tp);
+        const long long fo = (static_cast<long long>(f) * sp.layers + i) * G::FRAME;
+        if constexpr (kSplit)
+          lvc(i, last, s, n_act, f, rlo, rhi,
+              GlobalSplitA<C>{reinterpret_cast<const float*>(kb) + fo, 6 * C, 1, 3});
+        else
+          lvc(i, last, s, n_act, f, rlo, rhi,
+              GlobalA<C>{reinterpret_cast<const unsigned short*>(kb) + fo, 6 * C, 1, 3});
         u += n_act;
+      }
+    }
+  } else {
+    int q = 0;  // rounds so far: a raw slot's parity
+    int d = 1;
+    for (int i = 0; i < sp.layers; ++i, d *= 3) {
+      int fa, fb;
+      layer_frames(i, fa, fb);
+      const int n_rounds = (fb - fa + FR - 1) / FR;
+      const bool last = i == sp.layers - 1;
+      for (int r = 0; r < n_rounds; ++r, ++q) {
+        LVC_PHASE(0, tp);
+        lfs2::cp_async_wait_all();
+        if (!presplit) {  // the round's frames: slot q % slots, its (q / slots)-th use
+          const int slots = raw ? 2 : 1;
+          lfs2::mbar_wait(bars + 8u * (q % slots), (q / slots) & 1);
+        }
+        __syncthreads();  // the round's copies landed; every warp is done with kf and y2
+        LVC_PHASE(1, tp);
+        const int f0 = fa + r * FR, nf = min(FR, fb - f0);
+        const bool more = r + 1 < n_rounds || !last;  // a round follows
+        const int ni = r + 1 < n_rounds ? i : i + 1, nr = r + 1 < n_rounds ? r + 1 : 0;
+        if (raw && more) issue(ni, nr, (q + 1) & 1);  // the other slot: its round is done
+        if constexpr (kSplit) {
+          // f32 with split kernels: the round's raw (cin, out, tap) kernels
+          // from pre, 16 bytes a piece, split into kf's hi and lo halves at
+          // [out][tap * C + cin] (the raw route reads them as they landed)
+          if (presplit) {
+            float* kh = reinterpret_cast<float*>(kf);
+            const int n_pieces = nf * kFramePieces;
+#pragma unroll
+            for (int t = 0; t < kPre; ++t) {
+              const int idx = threadIdx.x + t * kMmaThreads;
+              if (idx >= n_pieces) break;
+              const int jf = idx / kFramePieces, p = (idx - jf * kFramePieces) * V;
+              const float ve[4] = {pre[t].x, pre[t].y, pre[t].z, pre[t].w};
+              const int cin = p / (2 * C * 3), o3 = p - cin * (2 * C * 3);
+              float* dh = kh + jf * kf_elems + cin;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int o = (o3 + e) / 3, tap = o3 + e - 3 * o;
+                uint32_t hi, lo;
+                lfs2::split(ve[e], hi, lo);
+                dh[o * G::LDT + tap * C] = __uint_as_float(hi);
+                dh[(2 * C + o) * G::LDT + tap * C] = __uint_as_float(lo);
+              }
+            }
+          }
+        } else {
+          // bf16: raw (cin, out, tap) -> kf[tap * C + cin][out]: a thread
+          // moves the three taps of one (cin, out)
+          const T* src = stg;
+#pragma unroll 4
+          for (int idx = threadIdx.x; idx < nf * C * 2 * C; idx += kMmaThreads) {
+            const int jf = idx / (2 * C * C), cin = (idx / (2 * C)) % C, o = idx % (2 * C);
+            const T* sp3 = src + jf * G::FRAME + (cin * 2 * C + o) * 3;
+            T* dst = kf + jf * G::K * G::LDK + cin * G::LDK + o;
+            const T v0 = sp3[0], v1 = sp3[1], v2 = sp3[2];
+            dst[0] = v0;
+            dst[C * G::LDK] = v1;
+            dst[2 * C * G::LDK] = v2;
+          }
+        }
+        LVC_PHASE(2, tp);
+
+        if (r == 0) {
+          if constexpr (kSplit)
+            conv(i, d, SmemSplitA<G::LDT>{lfs2::smem_u32(wh), lfs2::smem_u32(wl)});
+          else
+            conv(i, d, SmemA{lfs2::smem_u32(cw), G::LDW});
+        }
+        LVC_PHASE(3, tp);
+        if (r == 0 || !raw) __syncthreads();  // y2 and the round's kf are whole; stg, cw free
+        // the next round's copies (or the next layer's first), under this LVC;
+        // f32 splits the next layer's conv taps here
+        if (kSplit && r + 1 == n_rounds && !last) split_conv(i + 1);
+        if (more && presplit) prefetch(ni, nr);
+        if (more && !kSplit) issue(ni, nr, 0);
+        LVC_PHASE(4, tp);
+
+        // LVC of the round's rows with each frame's kernel and bias, the
+        // gate, the residual add (and the next layer's x + ad). The round's
+        // n8 tiles start at a multiple of 8 in the signal, and so do frames
+        // (hop % 8 == 0): a chunk is cut at a frame's end.
+        const int rlo = max(sp.c_lo[i], f0 * hop - g0);
+        const int rhi = min(sp.c_hi[i], (f0 + nf) * hop - g0);
+        const int first = rlo & ~7, n_tiles = (rhi - first + 7) / 8;
+        if constexpr (kSplit) {
+          if (raw) {
+            // f32, one row tile a frame: C / 16 units a tile, the gate pairs
+            // of m16 tiles {h, h + C / 16}, so that more warps share a round
+            constexpr int NH = C / 16;
+            const int n_units = NH * n_tiles;
+            for (int u = warp; u < n_units; u += kMmaWarps) {
+              const int s = first + 8 * (u / NH), h2 = u % NH;
+              const int f = (g0 + s) / hop;
+              const float* bs = bb + (static_cast<long long>(f) * sp.layers + i) * 2 * C;
+              float ba[2], bg[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                ba[h] = bs[16 * h2 + g + 8 * h];
+                bg[h] = bs[C + 16 * h2 + g + 8 * h];
+              }
+              float acc[2][4] = {};
+              raw_products<LDY, C>(acc, reinterpret_cast<const float*>(stg) +
+                                           ((q & 1) * FR + f - f0) * G::FRAME,
+                                   h2, y2, s, R, lane);
+              LVC_PHASE(5, tp);
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int row = s + 2 * tq + c;
+                if (row < rlo || row >= rhi) continue;
+                T* xr = xs + row * LDY + 16 * h2 + g;
+                const T* ar = as + row * LDY + 16 * h2 + g;
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  gate_into_x(last, xr + 8 * h, ar + 8 * h, acc[0][2 * h + c] + ba[h],
+                              acc[1][2 * h + c] + bg[h]);
+              }
+              LVC_PHASE(6, tp);
+            }
+            continue;
+          }
+        }
+        const int u1 = n_tiles * (warp + 1) / kMmaWarps;
+        for (int u = n_tiles * warp / kMmaWarps; u < u1;) {
+          const int s = first + 8 * u;
+          const int f = (g0 + s) / hop;
+          const int n_act = min(min(sp.nt, u1 - u), ((f + 1) * hop - g0 - s) / 8);
+          if constexpr (kSplit) {
+            const float* kh = reinterpret_cast<const float*>(kf) + (f - f0) * kf_elems;
+            lvc(i, last, s, n_act, f, rlo, rhi,
+                SmemSplitA<G::LDT>{lfs2::smem_u32(kh), lfs2::smem_u32(kh + 2 * C * G::LDT)});
+          } else {
+            lvc(i, last, s, n_act, f, rlo, rhi,
+                SmemA{lfs2::smem_u32(kf + (f - f0) * G::K * G::LDK), G::LDK});
+          }
+          u += n_act;
+        }
       }
     }
   }
@@ -957,80 +1097,93 @@ MmaSpec make_mma_spec(int layers, int tile, int round_frames, int nt) {
 }
 
 // shared-memory bytes of a tensor-core launch (ops/fastdiff_lvc.py
-// lvc_plan computes the same): x, audio_down and y2 rows; bf16 the conv
-// taps and per staged frame its kernel in [k][out] order and its raw copy;
-// f32 the split conv taps and per frame its split kernel (nt > 1) or two
-// raw copies (nt == 1)
-int mma_smem_bytes(int elem, int rows, int round_frames, int nt) {
+// mma_smem_bytes computes the same): two mbarriers and the x, audio_down
+// and y2 rows; staged bf16 the conv taps and per staged frame its kernel in
+// [k][out] order and its raw copy; staged f32 the split conv taps and per
+// frame its split kernel (nt > 1) or two raw copies (nt == 1); direct
+// nothing more
+template <typename T, int C> int mma_smem_bytes(int rows, int round_frames, int nt) {
+  using G = Mma<T, C>;
   constexpr int kBars = 16;  // two mbarriers
-  if (elem == 2)
-    return kBars + 2 * (3 * rows * Geo<__nv_bfloat16>::LDY + kK * kLDW +
-                        round_frames * (kK * kLDK + kFrameElems));
-  return kBars + 4 * (3 * rows * Geo<float>::LDY + 2 * C * kLDT +
-                      round_frames * (nt > 1 ? 2 * 2 * C * kLDT : 2 * kFrameElems));
+  const int signal = 3 * rows * G::LDY * static_cast<int>(sizeof(T));
+  if (G::DIRECT) return kBars + signal;
+  if (G::BF16) return kBars + signal + 2 * (G::K * G::LDW + round_frames * (G::K * G::LDK + G::FRAME));
+  return kBars + signal +
+         4 * (2 * C * G::LDT + round_frames * (nt > 1 ? 2 * 2 * C * G::LDT : 2 * G::FRAME));
 }
 
-template <typename T, bool FAST>
-cudaError_t mma_launch(const void* x, const void* ad, const void* kern, const float* bias,
-                       const void* conv_w, const float* conv_b, void* out, int B, int L, int hop,
-                       int tile, const MmaSpec& spec, int smem, cudaStream_t stream) {
-  auto kernel = lvc_mma_kernel<T, FAST>;
+template <typename T, int C, bool FAST>
+cudaError_t mma_launch(const Args& a, const MmaSpec& spec, int smem, cudaStream_t stream) {
+  auto kernel = lvc_mma_kernel<T, C, FAST>;
   cudaError_t err = lfs2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + tile - 1) / tile, B);
-  kernel<<<grid, Geo<T>::THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ad), static_cast<const T*>(kern), bias,
-      static_cast<const T*>(conv_w), conv_b, static_cast<T*>(out), L, hop, tile, spec);
-  return record_launch(kRouteMma, tile, grid, smem, spec.round_frames, spec.nt);
+  const dim3 grid((a.L + a.tile - 1) / a.tile, a.B);
+  kernel<<<grid, Mma<T, C>::THREADS, smem, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.ad), static_cast<const T*>(a.kern),
+      a.bias, static_cast<const T*>(a.conv_w), a.conv_b, static_cast<T*>(a.out), a.L, a.hop,
+      a.tile, spec);
+  return record_launch(Mma<T, C>::DIRECT ? kRouteDirect : kRouteMma, a.tile, grid, smem,
+                       spec.round_frames, spec.nt, C);
+}
+
+// one launch at width C: the CUDA cores (route 0) or the tensor cores
+// (route 1 staged, route 2 direct: the one Mma<T, C> takes)
+template <typename T, int C>
+cudaError_t run(const Args& a, cudaStream_t s) {
+  if (a.route == kRouteCores) {
+    if (a.tile < kAlign || a.tile % kAlign != 0) return cudaErrorInvalidValue;
+    const Spec spec = make_spec(a.layers, a.tile);
+    if (4 * spec.rows * C * static_cast<int>(sizeof(T)) > kMaxSmem) return cudaErrorInvalidValue;
+    return dispatch<T, C>(a, spec, s);
+  }
+  using G = Mma<T, C>;
+  if (a.route != (G::DIRECT ? kRouteDirect : kRouteMma) || a.hop % 8 != 0 || a.tile < 8 ||
+      a.tile % 8 != 0 || (a.nt != 1 && a.nt != 2 && a.nt != 4) || a.nt > G::NT ||
+      a.hop % (8 * a.nt) != 0 || (G::DIRECT ? a.round_frames != 0 : a.round_frames < 1) ||
+      (!G::BF16 && !G::DIRECT && a.nt > 1 && a.round_frames > 2))
+    return cudaErrorInvalidValue;
+  const MmaSpec spec = make_mma_spec(a.layers, a.tile, a.round_frames, a.nt);
+  const int smem = mma_smem_bytes<T, C>(spec.rows, a.round_frames, a.nt);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  return a.fast ? mma_launch<T, C, true>(a, spec, smem, s) : mma_launch<T, C, false>(a, spec, smem, s);
+}
+
+template <typename T>
+cudaError_t run_width(int C, const Args& a, cudaStream_t s) {
+  switch (C) {
+    case 16: return run<T, 16>(a, s);
+    case 32: return run<T, 32>(a, s);
+    case 64: return run<T, 64>(a, s);
+    case 128: return run<T, 128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
 
-// x, ad, out (B, L, 32); kern (B, L / hop, layers, 32, 64, 3) and conv_w
-// (layers, 3, 32, 32) in the working dtype; bias (B, L / hop, layers, 64) and
-// conv_b (layers, 32) f32. route 1 (tensor cores): hop and tile multiples of
-// 8, round_frames >= 1 frames staged a round (at most 2 in f32 with nt > 1),
-// nt in {1, 2, 4} (bf16) or {1, 2} (f32) n8 row tiles an LVC chunk, 8 * nt
-// dividing hop. route 0 (CUDA
-// cores): tile a multiple of 4 (round_frames and nt unused).
+// x, ad, out (B, L, C); kern (B, L / hop, layers, C, 2C, 3) and conv_w
+// (layers, 3, C, C) in the working dtype; bias (B, L / hop, layers, 2C) and
+// conv_b (layers, C) f32; C one of 16, 32, 64, 128. route 1 (tensor cores,
+// weights staged: bf16 at C <= 64, f32 at C <= 32) and route 2 (tensor
+// cores, weights read from device memory: the other widths): hop and tile
+// multiples of 8, nt in {1, 2, 4} (bf16) or {1, 2} (f32) n8 row tiles an
+// LVC chunk, 8 * nt dividing hop; route 1 stages round_frames >= 1 frames a
+// round (at most 2 in f32 with nt > 1), route 2 none (round_frames 0).
+// route 0 (CUDA cores): tile a multiple of 4 (round_frames and nt unused).
 LFS2_EXPORT int lfs2_lvc_stack(const void* x, const void* ad, const void* kern, const float* bias,
                                const void* conv_w, const float* conv_b, void* out, int B, int L,
-                               int hop, int layers, int tile, int fast, int dtype, int route,
-                               int round_frames, int nt, void* stream) {
+                               int C, int hop, int layers, int tile, int fast, int dtype,
+                               int route, int round_frames, int nt, void* stream) {
   if (B < 1 || L < 1 || hop < 1 || L % hop != 0 || layers < 1 || layers > kMaxLayers ||
       (dtype != lfs2::kBF16 && dtype != lfs2::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int elem = dtype == lfs2::kBF16 ? 2 : 4;
+  const Args a{x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, layers, tile, fast, route,
+               round_frames, nt};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = dtype == lfs2::kBF16;
-  if (route == kRouteMma) {
-    const int nt_max = bf ? Geo<__nv_bfloat16>::NT : Geo<float>::NT;
-    if (hop % 8 != 0 || tile < 8 || tile % 8 != 0 || round_frames < 1 ||
-        (nt != 1 && nt != 2 && nt != 4) || nt > nt_max || hop % (8 * nt) != 0 ||
-        (!bf && nt > 1 && round_frames > 2))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const MmaSpec spec = make_mma_spec(layers, tile, round_frames, nt);
-    const int smem = mma_smem_bytes(elem, spec.rows, round_frames, nt);
-    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err;
-    if (bf)
-      err = fast ? mma_launch<__nv_bfloat16, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s)
-                 : mma_launch<__nv_bfloat16, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s);
-    else
-      err = fast ? mma_launch<float, true>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s)
-                 : mma_launch<float, false>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, spec, smem, s);
-    return static_cast<int>(err);
-  }
-  if (route != kRouteCores || tile < kAlign || tile % kAlign != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Spec spec = make_spec(layers, tile);
-  if (4 * spec.rows * C * elem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      bf ? dispatch<__nv_bfloat16>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s)
-         : dispatch<float>(x, ad, kern, bias, conv_w, conv_b, out, B, L, hop, tile, fast, spec, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dtype == lfs2::kBF16 ? run_width<__nv_bfloat16>(C, a, s)
+                                               : run_width<float>(C, a, s));
 }
 
 #ifdef LFS2_LVC_PHASE_CLOCKS
@@ -1040,10 +1193,11 @@ LFS2_EXPORT int lfs2_lvc_stack_phase_clocks(long long* out) {
 }
 #endif
 
-// copies into out[0..6] the route (0 CUDA cores, 1 tensor cores), tile, grid
-// x and y, shared-memory bytes, frames staged a round and n8 tiles an LVC
-// chunk of the latest accepted launch; zeros before the first
+// copies into out[0..7] the route (0 CUDA cores, 1 tensor cores staged, 2
+// tensor cores direct), tile, grid x and y, shared-memory bytes, frames
+// staged a round, n8 tiles an LVC chunk and channels of the latest accepted
+// launch; zeros before the first
 LFS2_EXPORT int lfs2_lvc_stack_last_launch(int* out) {
-  for (int i = 0; i < 7; ++i) out[i] = g_last_launch[i];
+  for (int i = 0; i < 8; ++i) out[i] = g_last_launch[i];
   return 0;
 }

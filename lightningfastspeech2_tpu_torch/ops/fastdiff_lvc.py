@@ -21,6 +21,14 @@ otherwise), the tile, halo, frames, shared memory and blocks. The wrapper
 passes it to the library and holds the launch the library records
 (``last_launch``) to it.
 
+The kernel is built at C = 16, 32, 64 and 128 (``KERNEL_CHANNELS``). Other
+widths up to 128 are zero-padded to the next of them
+(``pad_lvc_inputs``) and the output sliced back: padded channels of x,
+audio_down, the conv's taps and bias and the frame kernels' and biases'
+rows and columns are 0, so each stays 0 through every layer (its gate is
+sigmoid(0) tanh(0) = 0, and 0 with the Padé gate too) and adds nothing to
+the real channels. Past 128 the wrapper raises (ROADMAP B18w).
+
 The elementwise pieces (``fast_tanh``, ``gated_activation``) and
 ``location_variable_convolution`` live here too; ``vocoder.fastdiff``
 takes them from this module.
@@ -50,20 +58,19 @@ HALO_TILE_FRAMES = 16
 # the H100 SXM: shared memory a block may take, and streaming multiprocessors
 SMEM_PER_BLOCK = 232_448
 SM_COUNT = 132
-C = 32                  # the channels the kernel takes
+# the widths csrc/lvc_stack.cu is built at; others up to the last are padded
+# to the next of them
+KERNEL_CHANNELS = (16, 32, 64, 128)
+MAX_CHANNELS = KERNEL_CHANNELS[-1]
 # CUDA-core route: output rows per block, largest first (the largest that
-# still gives every SM a block); regions rounded to 4 rows
+# still gives every SM a block); below them, for wide rows, the largest
+# that fits a block; regions rounded to 4 rows
 _CORES_TILES = (256, 128, 64)
+_CORES_SMALL_TILES = (32, 16)
 _CORES_ALIGN = 4
 # tensor-core route (csrc/lvc_stack.cu): output rows per block, largest
-# first; signal row stride (x, audio_down, the LVC input) and the staged
-# weights' row strides, in elements
+# first
 _MMA_TILES = (512, 256, 128, 64, 32)
-_MMA_LDY = {torch.bfloat16: C + 8, torch.float32: C + 4}
-_LDK, _LDW = 2 * C + 8, C + 8
-_LDT = 3 * C + 4        # f32: row stride of split weights, [out][k]
-_FRAME = C * 2 * C * 3  # one frame's kernel of one layer, elements
-_K = 3 * C              # the products' contraction, k = tap * C + cin
 _c_fn = None
 _c_last = None
 
@@ -182,12 +189,25 @@ BF16_MAX_ULPS = 3
 BF16_MAX_UNEQUAL = 0.02
 
 
+def bf16_chain_limits(C: int):
+    """(most ulps, largest share of unequal values) for a bf16 chain of C
+    channels: ``BF16_MAX_ULPS`` and ``BF16_MAX_UNEQUAL`` up to C = 32, past
+    it the ulps times C / 32 and the share times (C / 32)^2. A flip reaches
+    further as C grows: each conv and LVC input feeds 3C sums of its row's
+    neighbours, and longer sums flip more roundings. The plain chain itself,
+    against the same chain with its sums taken in f64, differs at about
+    0.02 % of values at C = 32, 0.16 % at 64 and 0.9 % at 128, by up to
+    0.5, 1 and 2 ulps (tests/test_torch_lvc_plan.py)."""
+    w = max(1.0, C / 32)
+    return BF16_MAX_ULPS * w, BF16_MAX_UNEQUAL * w * w
+
+
 def bf16_chain_error(out, ref, x, audio_down, layers: int):
     """How far a bf16 chain ``out`` lies from ``ref`` (both from x0 = ``x``
     and ``audio_down``): the largest |out - ref| in bf16 ulps of a bound on
     every |x| the chain holds at that value, |x0| + layers (|audio_down| +
     1) (each gate lies in (-1, 1)), and the share of values that differ.
-    They agree within ``BF16_MAX_ULPS`` and ``BF16_MAX_UNEQUAL``. A value's
+    They agree within ``bf16_chain_limits`` of the width. A value's
     own |ref| is no bound: x cancels to near 0 where it held a large value."""
     s = x.float().abs() + layers * (audio_down.float().abs() + 1.0)
     diff = (out.float() - ref.float()).abs()
@@ -201,7 +221,7 @@ def _fn():
         lib = build.load("lvc_stack")
         fn = lib.lfs2_lvc_stack
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 10 + [p]
+        fn.argtypes = [p] * 7 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
         _c_fn = (lib, fn)
     return _c_fn
@@ -238,19 +258,42 @@ def _cores_halo(layers: int, tile: int) -> int:
     return -_floor_to(-max(-lo, hi - tile), _CORES_ALIGN)
 
 
-def mma_smem_bytes(dtype: torch.dtype, rows: int, round_frames: int, nt: int) -> int:
-    """Shared memory of a tensor-core launch (``mma_smem_bytes`` in the
-    source): two mbarriers, x, audio_down and the LVC input rows; in bf16 the conv taps and
-    per staged frame its kernel in [k][out] order and its raw copy, in f32
-    the conv taps split into TF32 hi and lo halves and per frame its kernel
-    in [out][k] order, split where chunks hold more than one row tile
-    (``nt`` > 1, the next round's raw kernels then wait in registers, two
-    frames at most), else two raw copies by round parity, read raw."""
-    rows_bytes = 16 + 3 * rows * _MMA_LDY[dtype] * (torch.finfo(dtype).bits // 8)
+def kernel_channels(C: int) -> int:
+    """The width the kernel runs a C-channel chain at: the narrowest of
+    ``KERNEL_CHANNELS`` that holds C (a multiple of 16: the tensor cores'
+    m16 tiles and k16 steps)."""
+    return next(k for k in KERNEL_CHANNELS if k >= C)
+
+
+def mma_direct(dtype: torch.dtype, C: int) -> bool:
+    """Whether the tensor-core route reads its weights straight from device
+    memory at kernel width C (``Mma<T, C>::DIRECT``): where one frame's
+    staged kernel leaves no room beside the rows, bf16 at C = 128 and f32
+    from C = 64 (route "mma_direct"); elsewhere it stages them (route
+    "mma")."""
+    return C >= (128 if dtype == torch.bfloat16 else 64)
+
+
+def mma_smem_bytes(dtype: torch.dtype, rows: int, round_frames: int, nt: int,
+                   C: int = 32) -> int:
+    """Shared memory of a tensor-core launch at kernel width C
+    (``mma_smem_bytes`` in the source): two mbarriers, x, audio_down and the
+    LVC input rows (a row C + 16 bytes' worth of elements); staged, in bf16
+    the conv taps and per staged frame its kernel in [k][out] order and its
+    raw copy, in f32 the conv taps split into TF32 hi and lo halves and per
+    frame its kernel in [out][k] order, split where chunks hold more than
+    one row tile (``nt`` > 1, the next round's raw kernels then wait in
+    registers, two frames at most), else two raw copies by round parity,
+    read raw; direct, nothing more."""
+    elem = torch.finfo(dtype).bits // 8
+    K, frame, ldt = 3 * C, C * 2 * C * 3, 3 * C + 4
+    rows_bytes = 16 + 3 * rows * (C + 16 // elem) * elem
+    if mma_direct(dtype, C):
+        return rows_bytes
     if dtype == torch.bfloat16:
-        return rows_bytes + 2 * (_K * _LDW + round_frames * (_K * _LDK + _FRAME))
-    per_frame = 2 * 2 * C * _LDT if nt > 1 else 2 * _FRAME
-    return rows_bytes + 4 * (2 * C * _LDT + round_frames * per_frame)
+        return rows_bytes + 2 * (K * (C + 8) + round_frames * (K * (2 * C + 8) + frame))
+    per_frame = 2 * 2 * C * ldt if nt > 1 else 2 * frame
+    return rows_bytes + 4 * (2 * C * ldt + round_frames * per_frame)
 
 
 def _frames_touched(hop: int, n_rows: int, n_frames: int) -> int:
@@ -260,13 +303,15 @@ def _frames_touched(hop: int, n_rows: int, n_frames: int) -> int:
 
 @dataclass(frozen=True)
 class LvcPlan:
-    """One launch of ``lvc_stack``. ``route``: "mma" (tensor cores) or
-    "cuda_cores"; ``tile``: output rows a block; ``halo``: rows a side;
-    ``rows``: tile + 2 halo; ``frames``: the most frames one layer's LVC
-    rows touch in a block; ``round_frames``: frames whose kernels a block
-    stages at once (0 on the CUDA cores, which read them from device
-    memory); ``nt``: n8 row tiles of an LVC chunk (0 on the CUDA cores);
-    ``smem_bytes`` a block; ``blocks`` a launch."""
+    """One launch of ``lvc_stack``. ``route``: "mma" (tensor cores,
+    weights staged in shared memory), "mma_direct" (tensor cores, weights
+    read from device memory) or "cuda_cores"; ``tile``: output rows a
+    block; ``halo``: rows a side; ``rows``: tile + 2 halo; ``frames``: the
+    most frames one layer's LVC rows touch in a block; ``round_frames``:
+    frames whose kernels a block stages at once (0 on the other routes,
+    which read them from device memory); ``nt``: n8 row tiles of an LVC
+    chunk (0 on the CUDA cores); ``smem_bytes`` a block; ``blocks`` a
+    launch; ``channels``: the kernel's width (``kernel_channels``)."""
 
     route: str
     tile: int
@@ -277,23 +322,27 @@ class LvcPlan:
     nt: int
     smem_bytes: int
     blocks: int
+    channels: int
 
     @property
     def record(self) -> dict:
         """What the library records of this launch (``last_launch``)."""
         return {"route": self.route, "tile": self.tile, "blocks": self.blocks,
                 "smem_bytes": self.smem_bytes, "round_frames": self.round_frames,
-                "nt": self.nt}
+                "nt": self.nt, "channels": self.channels}
 
 
 @functools.lru_cache(maxsize=None)
-def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype) -> LvcPlan:
-    """The launch of one stage's chain on (B, L, 32) in ``dtype``.
+def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype,
+             C: int = 32) -> LvcPlan:
+    """The launch of one stage's chain on (B, L, C) in ``dtype``, at the
+    kernel width ``kernel_channels(C)``.
 
     The rule on shape: the tensor cores when the hop is a multiple of 8 (an
     n8 tile of rows then lies in one frame) and a 32-row tile fits a block
-    with one frame staged a round; the CUDA cores otherwise (a hop such as
-    6, or a chain whose halo leaves no room, as f32 at six layers).
+    (with one frame staged a round where the width stages its weights,
+    ``mma_direct``); the CUDA cores otherwise (a hop such as 6, or a chain
+    whose halo leaves no room, as f32 at six layers).
 
     Tensor cores: the largest tile of ``_MMA_TILES`` that fits and gives
     at least one block per two SMs (the smallest that fits when none does):
@@ -303,11 +352,19 @@ def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype) -> LvcPl
     stages as many frames as fit, up to all that one layer's rows touch;
     chunks of up to 32 rows of one frame in bf16 (a warp's weight fragments
     then serve 4 row tiles), 16 in f32 (measured faster: its split operands
-    take the registers). CUDA cores: the largest of ``_CORES_TILES`` that
-    gives every SM a block, as before the tensor-core route."""
-    if dtype not in _MMA_LDY or L % hop:
-        raise ValueError(f"lvc_plan: dtype {dtype}, L {L}, hop {hop}")
+    take the registers). The direct route takes its tile by the same
+    rule, stages nothing (``round_frames`` 0) and takes the same ``nt``.
+    CUDA cores: the largest of ``_CORES_TILES`` that fits a block and gives
+    every SM a block (the smallest of them that fits when none does), as
+    before the tensor-core route; where none of them fits (rows of 64 or 128
+    channels), the largest of ``_CORES_SMALL_TILES`` that does. A chain
+    whose halo leaves no room at any tile keeps the smallest of
+    ``_CORES_TILES``, which ``lvc_stack`` refuses."""
+    if dtype not in (torch.bfloat16, torch.float32) or L % hop or not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"lvc_plan: dtype {dtype}, L {L}, hop {hop}, C {C}")
+    Cp = kernel_channels(C)
     n_frames = L // hop
+    direct = mma_direct(dtype, Cp)
 
     def blocks(tile):
         return B * -(-L // tile)
@@ -320,49 +377,76 @@ def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype) -> LvcPl
         fitting = []
         for tile in _MMA_TILES:
             halo, rows, _, _ = mma_regions(layers, tile)
-            most = 2 if dtype == torch.float32 and nt > 1 else frames(tile)
-            fit = [f for f in range(1, min(frames(tile), most) + 1)
-                   if mma_smem_bytes(dtype, rows, f, nt) <= SMEM_PER_BLOCK]
+            most = 0 if direct else 2 if dtype == torch.float32 and nt > 1 else frames(tile)
+            fit = [f for f in range(0 if direct else 1, min(frames(tile), most) + 1)
+                   if mma_smem_bytes(dtype, rows, f, nt, Cp) <= SMEM_PER_BLOCK]
             if fit:
                 fitting.append((tile, halo, rows, fit[-1]))
         if fitting:
             full = [t for t in fitting if blocks(t[0]) >= -(-SM_COUNT // 2)]
             tile, halo, rows, rf = full[0] if full else fitting[-1]
-            return LvcPlan("mma", tile, halo, rows, frames(tile), rf, nt,
-                           mma_smem_bytes(dtype, rows, rf, nt), blocks(tile))
-    tile = next((t for t in _CORES_TILES if blocks(t) >= SM_COUNT), _CORES_TILES[-1])
+            return LvcPlan("mma_direct" if direct else "mma", tile, halo, rows, frames(tile),
+                           rf, nt, mma_smem_bytes(dtype, rows, rf, nt, Cp), blocks(tile), Cp)
+
+    def cores_smem(tile):
+        return 4 * (tile + 2 * _cores_halo(layers, tile)) * Cp * (torch.finfo(dtype).bits // 8)
+
+    fits = [t for t in _CORES_TILES if cores_smem(t) <= SMEM_PER_BLOCK]
+    if fits:
+        tile = next((t for t in fits if blocks(t) >= SM_COUNT), fits[-1])
+    else:  # the smallest tile, which may still not fit (the wrapper raises)
+        tile = next((t for t in _CORES_SMALL_TILES if cores_smem(t) <= SMEM_PER_BLOCK),
+                    _CORES_TILES[-1])
     halo = _cores_halo(layers, tile)
-    rows = tile + 2 * halo
-    return LvcPlan("cuda_cores", tile, halo, rows, frames(tile), 0, 0,
-                   4 * rows * C * (torch.finfo(dtype).bits // 8), blocks(tile))
+    return LvcPlan("cuda_cores", tile, halo, tile + 2 * halo, frames(tile), 0, 0,
+                   cores_smem(tile), blocks(tile), Cp)
 
 
-_ROUTES = ("cuda_cores", "mma")
+_ROUTES = ("cuda_cores", "mma", "mma_direct")
 
 
 def last_launch() -> dict:
     """The latest accepted launch as the library recorded it (the route,
-    tile, blocks, shared memory, frames staged a round and n8 tiles of an
-    LVC chunk)."""
+    tile, blocks, shared memory, frames staged a round, n8 tiles of an LVC
+    chunk and the kernel's width)."""
     global _c_last
     if _c_last is None:
         lib, _ = _fn()
         fn = lib.lfs2_lvc_stack_last_launch
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _c_last = (fn, (ctypes.c_int * 7)())
+        _c_last = (fn, (ctypes.c_int * 8)())
     fn, buf = _c_last
     fn(buf)
-    route, tile, gx, gy, smem, rf, nt = list(buf)
+    route, tile, gx, gy, smem, rf, nt, ch = list(buf)
     return {"route": _ROUTES[route], "tile": tile, "blocks": gx * gy, "smem_bytes": smem,
-            "round_frames": rf, "nt": nt}
+            "round_frames": rf, "nt": nt, "channels": ch}
+
+
+def pad_lvc_inputs(x, audio_down, kernels, biases, conv_w, conv_b, Cp: int):
+    """The chain's inputs at C channels zero-padded to ``Cp``: x and
+    audio_down (B, L, Cp); each frame kernel's input rows and both gate
+    halves' output columns (sigmoid's at [0, C), tanh's at [Cp, Cp + C));
+    the biases the same; the conv's taps (layers, 3, Cp, Cp) and bias."""
+    C = x.shape[-1]
+    p = Cp - C
+    kp = kernels.new_zeros(*kernels.shape[:3], Cp, 2 * Cp, 3)
+    kp[:, :, :, :C, :C] = kernels[:, :, :, :, :C]
+    kp[:, :, :, :C, Cp:Cp + C] = kernels[:, :, :, :, C:]
+    bp = biases.new_zeros(*biases.shape[:3], 2 * Cp)
+    bp[..., :C] = biases[..., :C]
+    bp[..., Cp:Cp + C] = biases[..., C:]
+    return (F.pad(x, (0, p)), F.pad(audio_down, (0, p)), kp, bp,
+            F.pad(conv_w, (0, p, 0, p)), F.pad(conv_b, (0, p)))
 
 
 def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
               fast_gating: bool = False) -> torch.Tensor:
     """The whole chain of one stage (see ``lvc_stack_plain`` for the
     arguments): the kernel for CUDA tensors, the plain version on the CPU.
-    The kernel's result is invisible to autograd, so on the card it raises
+    C up to ``MAX_CHANNELS``: a width the kernel is not built at runs
+    zero-padded (``pad_lvc_inputs``) and the output is sliced back; wider
+    raises. The kernel's result is invisible to autograd, so on the card it raises
     when grad mode is on and an input needs a gradient: a caller that
     trains takes FastDiff's training route (``FastDiff.forward(...,
     train_route=True)``, the plain chain JAX's ``FastDiff.apply`` runs)."""
@@ -374,8 +458,11 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     B, L, C = x.shape
     layers = kernels.shape[2]
     dt = x.dtype
-    if dt not in build.DTYPE_CODES or C != 32:
-        raise ValueError(f"lvc_stack kernel takes f32 or bf16 x with C=32, got {dt}, C={C}")
+    if dt not in build.DTYPE_CODES:
+        raise ValueError(f"lvc_stack kernel takes f32 or bf16 x, got {dt}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"lvc_stack kernel takes C up to {MAX_CHANNELS}, got C={C} "
+                         f"(wider is ROADMAP B18w)")
     if (audio_down.shape != x.shape or kernels.shape != (B, L // hop, layers, C, 2 * C, 3)
             or L % hop or biases.shape != (B, L // hop, layers, 2 * C)
             or conv_w.shape != (layers, 3, C, C) or conv_b.shape != (layers, C)):
@@ -386,8 +473,14 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     for name, t in (("audio_down", audio_down), ("kernels", kernels), ("conv_w", conv_w)):
         if t.dtype != dt:
             raise ValueError(f"lvc_stack: {name} is {t.dtype}, x is {dt}")
-    plan = lvc_plan(B, L, hop, layers, dt)
-    if plan.route == "mma":  # its 16-byte copies need 16-byte aligned rows
+    plan = lvc_plan(B, L, hop, layers, dt, C)
+    if plan.smem_bytes > SMEM_PER_BLOCK:
+        raise ValueError(f"lvc_stack: no launch of {layers} layers at C={C} in {dt} fits "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory (planned {plan})")
+    if plan.channels != C:
+        x, audio_down, kernels, biases, conv_w, conv_b = pad_lvc_inputs(
+            x, audio_down, kernels, biases, conv_w, conv_b, plan.channels)
+    elif plan.route != "cuda_cores":  # its 16-byte copies need 16-byte aligned rows
         x, audio_down, kernels, conv_w = (t if t.data_ptr() % 16 == 0 else t.clone()
                                           for t in (x, audio_down, kernels, conv_w))
     biases, conv_b = biases.float().contiguous(), conv_b.float().contiguous()
@@ -395,14 +488,16 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     out = torch.empty_like(x)
     lib, fn = _fn()
     rc = fn(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
-            conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, hop, layers,
-            plan.tile, int(fast_gating), build.DTYPE_CODES[dt], _ROUTES.index(plan.route),
-            plan.round_frames, plan.nt, stream)
+            conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, plan.channels, hop,
+            layers, plan.tile, int(fast_gating), build.DTYPE_CODES[dt],
+            _ROUTES.index(plan.route), plan.round_frames, plan.nt, stream)
     build.check(lib, rc, "lvc_stack")
     lvc_stack.launches += 1
+    lvc_stack.by_width[C] = lvc_stack.by_width.get(C, 0) + 1
     if last_launch() != plan.record:
         raise RuntimeError(f"lvc_stack launched {last_launch()}, planned {plan}")
-    return out
+    return out if plan.channels == C else out[..., :C].contiguous()
 
 
 lvc_stack.launches = 0
+lvc_stack.by_width = {}  # launches by channel count C, set to {} with the count

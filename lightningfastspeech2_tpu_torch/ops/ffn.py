@@ -13,8 +13,9 @@ chain in ``csrc/ffn_ln.cu``, the dup and dt1 passes in
 ``csrc/ffn_ln_train_bwd.cu``) through an autograd Function, or runs
 ``ffn_ln_train_plain`` on the CPU. Both dtypes run the products on the
 tensor cores: bf16 on wgmma, f32 as split-TF32 ``mma.sync`` (three TF32
-products a product, f32's digits). Training at C = 384-768 (``CHAIN_C``),
-and serving at C = 768, run ``csrc/ffn_wide.cu`` instead: the half as a
+products a product, f32's digits). Training at C = 384-768, and serving at
+every C from 768 that is a multiple of 128 (``on_chain``), run
+``csrc/ffn_wide.cu`` instead: the half as a
 chain of launches (LN1, depthwise, the two products on ``mma.sync``, LN2;
 the backward's LN2 backward, four more products and the depthwise and LN1
 backwards), cut where a row's C-wide accumulator no longer fits a block. The rounding points follow the TPU
@@ -162,8 +163,9 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     """LN2(LN1(z) + ConvFFN(LN1(z))) for z (B, T, C) in f32 or bf16.
 
     CPU tensors take ``ffn_ln_plain``; CUDA tensors launch the kernel,
-    which takes C in ``SERVE_C`` and F a multiple of 128, and raises on
-    anything else. The kernel's result is invisible to autograd,
+    which takes the widths ``serve_ok`` admits (C in ``NARROW_C`` or any
+    multiple of 128 from 384: every width the JAX serving gate fuses) and F
+    a multiple of 128, and raises on anything else. The kernel's result is invisible to autograd,
     so on the card it raises when grad mode is on and an input needs a
     gradient."""
     if z.device.type == "cpu":
@@ -175,9 +177,9 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
     if z.dtype not in build.DTYPE_CODES or w.w1.dtype != z.dtype or w.w2f.dtype != z.dtype:
         raise ValueError(f"ffn_ln takes f32 or bf16 z with weights of the same "
                          f"dtype, got {z.dtype}, {w.w1.dtype}, {w.w2f.dtype}")
-    if C not in SERVE_C or F % 128 != 0:
-        raise ValueError(f"ffn_ln kernel takes C in {SERVE_C} and F % 128 == 0, got C={C}, "
-                         f"F={F} (C >= 896 is ROADMAP B9w)")
+    if not serve_ok(C) or F % 128 != 0:
+        raise ValueError(f"ffn_ln kernel takes C in {NARROW_C} or a multiple of 128 from "
+                         f"{CHAIN_MIN_C}, and F % 128 == 0, got C={C}, F={F}")
     plans = ffn_plan(C, F, w.kernel_size, B, T, z.dtype, "serve")
     plan = plans[0]
     if not all(_fits(p, w.kernel_size) for p in plans):
@@ -185,7 +187,7 @@ def ffn_ln(z: torch.Tensor, w: FFNWeights) -> torch.Tensor:
                          f"bytes of shared memory (at most {SMEM_LIMIT}), a t1 window of "
                          f"{plan.rows + w.kernel_size - 1} rows (at most {_F32_WINDOW} in f32) "
                          f"or, past C = 640, k <= {_CHAIN_MAX_K}")
-    if C not in WIDE_C and C in CHAIN_C:
+    if on_chain(C, "serve"):
         if w.img is None:
             w.img = _chain_image(w.w1, w.w2f, z.dtype)
         out = _chain_fwd(z, w.wd, w.b1, w.lnp, w.img, F, None, w.eps, 0, 1.0, stream)
@@ -230,9 +232,8 @@ ffn_ln.by_width = {}  # launches by channel count C, set to {} with the count
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
 NARROW_C = (32, 64, 128, 256)  # csrc/ffn_ln.cu's fused kernels: serving and training
 WIDE_C = (384, 512, 640)       # widths ffn_wide_kernel serves
-CHAIN_C = (384, 512, 640, 768)  # csrc/ffn_wide.cu's chain: training, and serving past WIDE_C
-TRAIN_C = NARROW_C + CHAIN_C   # widths the training kernels take
-SERVE_C = NARROW_C + CHAIN_C   # widths the serving kernels take
+CHAIN_MIN_C = 384    # csrc/ffn_wide.cu's chain: multiples of 128 from here
+TRAIN_MAX_C = 768    # its training row kernels hold a row in registers up to here
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 _ROWS = 128          # kRows: rows of one item a wgmma block owns (two warpgroups of 64)
 _FC = 64             # kFC: F columns per weight chunk
@@ -251,6 +252,28 @@ _BAR_BYTES = 64
 _CHAIN_WARP_ROWS, _CHAIN_RED_ROWS = 8, 128
 _CHAIN_DW_ROWS, _CHAIN_DW_CH = 64, 64
 _CHAIN_MAX_K = 63
+
+
+def on_chain(C: int, mode: str) -> bool:
+    """Whether a call at width C runs ``csrc/ffn_wide.cu``'s chain:
+    training ("train", "bwd") from 384 to ``TRAIN_MAX_C``, serving
+    ("serve") from 768 on (below it ``ffn_wide_kernel`` serves ``WIDE_C``)."""
+    if C < CHAIN_MIN_C or C % 128:
+        return False
+    return C not in WIDE_C if mode == "serve" else C <= TRAIN_MAX_C
+
+
+def serve_ok(C: int) -> bool:
+    """Whether ``ffn_ln`` serves width C on the card: ``NARROW_C``,
+    ``WIDE_C`` or the chain, so every multiple of 128 (every width the JAX
+    serving gate fuses) and 32, 64."""
+    return C in NARROW_C or C in WIDE_C or on_chain(C, "serve")
+
+
+def train_ok(C: int) -> bool:
+    """Whether the training kernels take width C: ``NARROW_C`` or the
+    chain, so C up to ``TRAIN_MAX_C``."""
+    return C in NARROW_C or on_chain(C, "train")
 
 
 @dataclass(frozen=True)
@@ -367,7 +390,8 @@ def _wide_split(B: int, T: int, R: int, nch: int) -> Tuple[int, int, int]:
 def _chain_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
                 mode: str) -> Tuple[FFNLaunch, ...]:
     """The launches of ``csrc/ffn_wide.cu``, in order: LN1 (8 rows a block,
-    one a warp), the depthwise conv (64 rows of one item by 64 channels a
+    one a warp; past C = 768 the kernel that reads its row twice), the
+    depthwise conv (64 rows of one item by 64 channels a
     block, the t1 window in shared memory), the up and down products
     (``ops/gemm.py``: 128 x 128 output tiles); serving and the training
     forward then LN2; the backward instead the LN2 backward (128 rows a
@@ -388,10 +412,11 @@ def _chain_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
         return FFNLaunch(name, per, 0, 0, smem, (-(-M // per), 1, 1), 256)
 
     window = _CHAIN_DW_ROWS + k - 1
-    fwd = (rows("wide_ln1_kernel", _CHAIN_WARP_ROWS), dw("wide_dw_kernel", window),
+    ln = "wide_ln{}_long_kernel" if C > TRAIN_MAX_C else "wide_ln{}_kernel"
+    fwd = (rows(ln.format(1), _CHAIN_WARP_ROWS), dw("wide_dw_kernel", window),
            product("gemm_up", F, M), product("gemm_down", C, M))
     if mode != "bwd":
-        return fwd + (rows("wide_ln2_kernel", _CHAIN_WARP_ROWS),)
+        return fwd + (rows(ln.format(2), _CHAIN_WARP_ROWS),)
     return fwd + (rows("wide_ln2_bwd_kernel", _CHAIN_RED_ROWS, 3 * C * 4),
                   product("gemm_dup", F, M), product("gemm_dacc", C, M),
                   product("gemm_dw1", F, C, M), product("gemm_dw2f", C, F, M),
@@ -426,13 +451,13 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
     of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
     forward and the chain, 16-column for the dup pass. The dt1 pass takes
     64-row blocks in both. Every block owns the rows its products form.
-    Training at C in ``CHAIN_C``, and serving at C = 768, run
-    ``csrc/ffn_wide.cu``'s chain (``_chain_plan``)."""
+    Training at C = 384-768, and serving from C = 768, run
+    ``csrc/ffn_wide.cu``'s chain (``on_chain``, ``_chain_plan``)."""
     def grid(rows):
         return (-(-T // rows), B, 1)
 
     bf16 = dtype == torch.bfloat16
-    if C in CHAIN_C and not (C in WIDE_C and mode == "serve"):
+    if on_chain(C, mode):
         return _chain_plan(C, F, k, B, T, dtype, mode)
     if C in WIDE_C and mode == "serve":
         R, _, ns, threads = _wide_geometry(C, dtype)
@@ -477,7 +502,7 @@ def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
     f32 row counts); k is at most 63 in bf16 and 50 in f32 (the dt1 tile at
     C = 256), at every width. C runs to 768: past it the JAX estimate admits
     only widths with F < C, which no depthwise block builds (ROADMAP B9t)."""
-    if dtype not in _MAX_K or C not in TRAIN_C or F % 128 != 0:
+    if dtype not in _MAX_K or not train_ok(C) or F % 128 != 0:
         return False
     if not 1 <= k <= _MAX_K[dtype]:
         return False
@@ -799,8 +824,9 @@ def _check_train(z: torch.Tensor, k: int, F: int) -> None:
     B, T, C = z.shape
     if not ffn_train_fits(C, F, k, z.dtype):
         raise ValueError(
-            f"ffn_ln_train kernels take f32 or bf16 z, C in {TRAIN_C} (the chain of "
-            f"csrc/ffn_wide.cu from C = 384), F % 128 == 0 and k <= "
+            f"ffn_ln_train kernels take f32 or bf16 z, C in {NARROW_C} or a multiple of 128 "
+            f"from {CHAIN_MIN_C} to {TRAIN_MAX_C} (the chain of csrc/ffn_wide.cu), "
+            f"F % 128 == 0 and k <= "
             f"{_MAX_K.get(z.dtype, 0)} within {SMEM_LIMIT} bytes of shared memory; "
             f"got {z.dtype}, C={C}, F={F}, k={k}")
 
@@ -811,7 +837,7 @@ def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     W2f as the kernels stream them: bf16 one swizzled image ("img", the
     forward, the chain and the dup pass); f32 the forward's and the chain's
     split pieces ("img") and the dup pass's ("dup_img"). At C in
-    ``CHAIN_C`` W1 (C, F) and W2f (F, C) as they lie ("w1", "w2f", the
+    384-768 W1 (C, F) and W2f (F, C) as they lie ("w1", "w2f", the
     backward's dup and dacc products) and their transposes
     (``_chain_image``, "img", the up and down products), in the working
     dtype: ``csrc/ffn_wide.cu`` reads them so, f32 split as read."""
@@ -819,7 +845,7 @@ def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     lnp = torch.stack([g1.float(), be1.float(), g2.float(), be2.float(),
                        bd.float(), b2f.float()]).contiguous()
     out = dict(wd=wd.float().contiguous(), b1=b1.float().contiguous(), lnp=lnp)
-    if w1.shape[0] in CHAIN_C:
+    if on_chain(w1.shape[0], "train"):
         out.update(w1=w1.to(dt).contiguous(), w2f=w2f.to(dt).contiguous(),
                    img=_chain_image(w1, w2f, dt))
     elif dt == torch.bfloat16:
@@ -914,14 +940,14 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
                      eps: float = 1e-5, layouts: Optional[Dict[str, torch.Tensor]] = None
                      ) -> torch.Tensor:
     """Launch the training forward kernel (``csrc/ffn_ln.cu``, dropout on;
-    at C in ``CHAIN_C`` the chain of ``csrc/ffn_wide.cu``); CUDA tensors only. ``layouts`` (``_kernel_layouts``) are built here when
+    at C = 384-768 the chain of ``csrc/ffn_wide.cu``); CUDA tensors only. ``layouts`` (``_kernel_layouts``) are built here when
     not given. The result is not connected to autograd."""
     k, F = p[0].shape[0], p[2].shape[1]
     _check_train(z, k, F)
     w = _kernel_layouts(p, z.dtype) if layouts is None else layouts
     stream = kernel_stream(z, seed, *w.values())
     B, T, C = z.shape
-    if C in CHAIN_C:
+    if on_chain(C, "train"):
         out = _chain_fwd(z, w["wd"], w["b1"], w["lnp"], w["img"], F, seed, eps,
                          keep_threshold(rate), 1.0 / (1.0 - rate), stream)
     else:
@@ -945,7 +971,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     (``csrc/ffn_ln.cu``), then the dup and dt1 passes
     (``csrc/ffn_ln_train_bwd.cu``), through (B, T, C) scratch h0, dff (the
     working dtype), dres and dacc (f32), each launch sized by ``ffn_plan``;
-    at C in ``CHAIN_C`` the eleven launches of ``csrc/ffn_wide.cu``.
+    at C = 384-768 the eleven launches of ``csrc/ffn_wide.cu``.
     Returns ``dz`` and the f32 gradients of the ten entries of ``p``, in
     order."""
     k, F = p[0].shape[0], p[2].shape[1]
@@ -961,7 +987,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     grads = torch.zeros(sum(sizes), dtype=torch.float32, device=z.device)
     dwd, dw1, dw2f, db1, dvec = torch.split(grads, sizes)
     thr, ik = keep_threshold(rate), 1.0 / (1.0 - rate)
-    if C in CHAIN_C:
+    if on_chain(C, "bwd"):
         _chain_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, (dwd, dw1, dw2f, db1, dvec))
     else:
         _narrow_bwd(dout, z, w, seed, eps, thr, ik, stream, dz, (dwd, dw1, dw2f, db1, dvec))
@@ -1008,7 +1034,7 @@ def last_launches() -> Dict[str, object]:
     (cudaOccupancyMaxActiveClusters; 0 after other routes), under
     "ffn_ln_train_bwd" the backward library's latest call (the dup and dt1
     passes), under "ffn_wide" every launch of ``csrc/ffn_wide.cu``'s latest
-    call (the chain at C in ``CHAIN_C``). Zeros before the first."""
+    call (the chain, ``on_chain``). Zeros before the first."""
     def rec(r, cluster=1):
         return {"grid": (r[0], r[1], r[2]), "smem_bytes": r[3], "rows": r[4], "cluster": cluster}
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time ``lvc_stack`` (FastDiff's LVC chain of one upsample stage) on the card.
 
-    python3 scripts/bench_lvc_stack.py [--tree DIR] [--label NAME]
+    python3 scripts/bench_lvc_stack.py [--tree DIR] [--label NAME] [--channels C]
         [--defines MACRO ...] [--phases] [--sweep] [--mma-rate] [--no-call]
 
 First the card's name and power limit (nvidia-smi), then one JSON line per
@@ -16,7 +16,10 @@ ms.
 
 ``--tree DIR`` imports the port from DIR (an unpacked checkout, e.g. the
 parent commit) instead of this checkout, so two trees can be timed in turns
-in one run on one card. ``--defines`` adds preprocessor macros to every
+in one run on one card. ``--channels C`` times the chain at C inner
+channels (default 32, FastDiff's reference width; a tree whose kernel takes
+other widths takes C up to 128, padded past its built ones as its wrapper
+pads them). ``--defines`` adds preprocessor macros to every
 kernel build (``LFS2_KERNEL_DEFINES``, part of the libraries' names);
 ``--phases`` adds ``LFS2_LVC_PHASE_CLOCKS`` and prints, per shape, the
 cycles of each phase of one block, per warp (the tensor-core route only).
@@ -89,6 +92,12 @@ def inputs(B, hop, dtype, dev, seed):
     return (x, ad, k, b, cw, cb, hop)
 
 
+def _width() -> tuple:
+    """``lvc_plan``'s width argument: none at C = 32, so that trees from
+    before the kernel took other widths are timed too."""
+    return () if C == 32 else (C,)
+
+
 def bound(args, dtype):
     """(bytes ms, operations ms): each input read once and the output
     written once; the conv (3C x C) and LVC (3C x 2C) products per row and
@@ -116,12 +125,13 @@ def shapes(dev, label) -> None:
         args = inputs(B, hop, dtype, dev, seed=hop + B)
         ms = cuda_ms(lambda: lvc.lvc_stack(*args, fast_gating=fast))
         row = {"phase": "lvc_stack", "label": label,
+               "channels": C,
                "at": f"x ({B}, {FRAMES * hop}, {C}) {str(dtype)[6:]}, hop {hop}, "
                      f"{'Padé' if fast else 'exact'} gate",
                "stage": {8: 1, 64: 2, 256: 3}[hop], "ms": ms}
         row["bytes_ms"], row["ops_ms"] = bound(args, dtype)
         if hasattr(lvc, "lvc_plan"):
-            row["plan"] = lvc.lvc_plan(B, FRAMES * hop, hop, LAYERS, dtype).record
+            row["plan"] = lvc.lvc_plan(B, FRAMES * hop, hop, LAYERS, dtype, *_width()).record
             row["launch"] = lvc.last_launch()
         emit(row)
 
@@ -158,6 +168,7 @@ def sweep(dev) -> None:
     from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc as lvc
 
     _, fn = lvc._fn()
+    widths = hasattr(lvc, "KERNEL_CHANNELS")   # the library takes C (and route 2)
     for hop, dtype, B, fast in CASES:
         if B != 1 or fast:
             continue
@@ -165,16 +176,21 @@ def sweep(dev) -> None:
         x, ad, k, b, cw, cb, _ = args
         b = b.float()
         ref = lvc.lvc_stack_plain(*args).float()
-        plan = lvc.lvc_plan(B, FRAMES * hop, hop, LAYERS, dtype)
+        plan = lvc.lvc_plan(B, FRAMES * hop, hop, LAYERS, dtype, *_width())
+        if widths and plan.channels != C:
+            continue   # the sweep calls the library at a width it is built at
+        direct = widths and lvc.mma_direct(dtype, C)
         out = torch.empty_like(x)
         rows = []
         for tile in (512, 256, 192, 128, 96, 64, 32):
-            for rf in range(1, 9):
+            for rf in ((0,) if direct else range(1, 9)):
                 for nt in (4, 2, 1):
                     def launch():
+                        shape = (B, FRAMES * hop, C) if widths else (B, FRAMES * hop)
                         return fn(x.data_ptr(), ad.data_ptr(), k.data_ptr(), b.data_ptr(),
-                                  cw.data_ptr(), cb.data_ptr(), out.data_ptr(), B, FRAMES * hop,
-                                  hop, LAYERS, tile, 0, build.DTYPE_CODES[dtype], 1, rf, nt,
+                                  cw.data_ptr(), cb.data_ptr(), out.data_ptr(), *shape,
+                                  hop, LAYERS, tile, 0, build.DTYPE_CODES[dtype],
+                                  2 if direct else 1, rf, nt,
                                   torch.cuda.current_stream().cuda_stream)
 
                     if launch() != 0:  # the library refuses what does not fit
@@ -273,8 +289,9 @@ def mma_rate() -> None:
 
 
 def vocoder_calls(dev, label) -> None:
-    """One 512-frame FastDiff vocoder call per dtype: warmed up, then once
-    under torch.profiler; device ms and lvc_stack ms (kernels by name)."""
+    """One 512-frame FastDiff vocoder call per dtype (FastDiff at C inner
+    channels): warmed up, then once under torch.profiler; device ms and
+    lvc_stack ms (kernels by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,7 +299,8 @@ def vocoder_calls(dev, label) -> None:
     from lightningfastspeech2_tpu_torch.synthesis.generator import FastDiffSynthesiser
 
     cfg = lightspeech_flagship()
-    model_cfg = replace(cfg.model, fastdiff_vocoder=True)
+    model_cfg = replace(cfg.model, fastdiff_vocoder=True,
+                        **({"fastdiff_inner_channels": C} if C != 32 else {}))
     mel = (np.random.default_rng(5).standard_normal((FRAMES, model_cfg.audio.n_mels)) - 4.0
            ).astype(np.float32)
     for precision in (16, 32):
@@ -313,12 +331,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=None)
     ap.add_argument("--label", default="")
+    ap.add_argument("--channels", type=int, default=32)
     ap.add_argument("--defines", nargs="*", default=[])
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--mma-rate", action="store_true")
     ap.add_argument("--no-call", action="store_true")
     a = ap.parse_args()
+    global C
+    C = a.channels
     defines = list(a.defines) + (["LFS2_LVC_PHASE_CLOCKS"] if a.phases else [])
     if defines:
         os.environ["LFS2_KERNEL_DEFINES"] = " ".join(defines)
@@ -335,7 +356,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "device", "label": a.label, "package": str(Path(pkg.__file__).parent),
-          "name": torch.cuda.get_device_name(0), "nvidia_smi": smi, "defines": defines})
+          "name": torch.cuda.get_device_name(0), "nvidia_smi": smi, "defines": defines,
+          "channels": C})
     dev = torch.device("cuda", 0)
     if a.phases:
         phase_clocks(dev)

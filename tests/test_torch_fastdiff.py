@@ -73,15 +73,25 @@ def _stack_inputs(seed, B, nL, hop, layers=4, C=32):
             g.normal(size=(layers, 3, C, C)) * 0.1, g.normal(size=(layers, C)) * 0.1)
 
 
-@pytest.mark.parametrize("hop,nL,tile_frames,fast,bf16", [
-    (64, 6, 4, False, False),    # stage-2 class, tail tile
-    (256, 4, 2, False, False),   # stage-3 class
-    (8, 24, 12, False, False),   # stage-1 class: a halo of 6 frames
-    (64, 6, 4, True, False),     # Padé gate
-    (64, 4, 4, False, True),     # bf16 working dtype
-])
-def test_lvc_stack_matches_pallas_interpret(hop, nL, tile_frames, fast, bf16):
-    x, ad, k, b, cw, cb = _stack_inputs(hop + nL, 2, nL, hop)
+_STACK_CASES = [
+    (64, 6, 4, False, False, 32),    # stage-2 class, tail tile
+    (256, 4, 2, False, False, 32),   # stage-3 class
+    (8, 24, 12, False, False, 32),   # stage-1 class: a halo of 6 frames
+    (64, 6, 4, True, False, 32),     # Padé gate
+    (64, 4, 4, False, True, 32),     # bf16 working dtype
+    # inner widths the kernel takes besides 32 (FastDiffConfig.inner_channels)
+    (64, 4, 4, False, False, 16),
+    (64, 4, 4, False, True, 16),
+    (64, 4, 4, False, False, 64),
+    (64, 4, 4, False, True, 64),
+]
+
+
+@pytest.mark.parametrize("hop,nL,tile_frames,fast,bf16,C", [
+    pytest.param(*c, id="-".join(map(str, c[:5])) + ("" if c[5] == 32 else f"-C{c[5]}"))
+    for c in _STACK_CASES])
+def test_lvc_stack_matches_pallas_interpret(hop, nL, tile_frames, fast, bf16, C):
+    x, ad, k, b, cw, cb = _stack_inputs(hop + nL, 2, nL, hop, C=C)
     jdt = jnp.bfloat16 if bf16 else jnp.float32
     ref = pallas_fastdiff.fused_lvc_stack(
         jnp.asarray(x, jdt), jnp.asarray(ad, jdt), jnp.asarray(k, jdt),
@@ -209,14 +219,17 @@ def reference_fastdiff():
     return _fastdiff_params(jfd.FastDiffConfig(), 0)
 
 
-@pytest.mark.parametrize("Tc", [3, 16])
-def test_eps_network_matches_jax(reference_fastdiff, monkeypatch, Tc):
+@pytest.mark.parametrize("Tc,inner", [pytest.param(3, 32, id="3"), pytest.param(16, 32, id="16"),
+                                      pytest.param(3, 64, id="3-inner64")])
+def test_eps_network_matches_jax(reference_fastdiff, monkeypatch, Tc, inner):
     # Tc 16 under the opt-in: every stage on the JAX kernel (interpret mode)
-    # and on lvc_stack in the port; Tc 3 keeps stage 1 on the plain chain
+    # and on lvc_stack in the port; Tc 3 keeps stage 1 on the plain chain;
+    # inner 64: a network trained with 64 inner channels, stages 2 and 3 on
+    # the JAX kernel at C = 64
     if Tc == 16:
         monkeypatch.setenv("LFS2_FUSED_STAGE1", "1")
-    model, params = reference_fastdiff
-    cfg = jfd.FastDiffConfig()
+    cfg = jfd.FastDiffConfig(inner_channels=inner)
+    model, params = reference_fastdiff if inner == 32 else _fastdiff_params(cfg, 0)
     g = np.random.default_rng(4)
     x = g.normal(size=(2, Tc * cfg.hop_length)).astype(np.float32)
     c = g.normal(size=(2, Tc, cfg.cond_channels)).astype(np.float32)
@@ -225,7 +238,7 @@ def test_eps_network_matches_jax(reference_fastdiff, monkeypatch, Tc):
     ref = np.asarray(jax.jit(model.apply)(*args))
     fused = np.asarray(jax.jit(lambda p, xx, cc, tt: jfd.eps_apply_fused(
         p, cfg, xx, cc, tt, dtype=jnp.float32, interpret=True))(*args))
-    port = tfd.FastDiff(tfd.FastDiffConfig())
+    port = tfd.FastDiff(tfd.FastDiffConfig(inner_channels=inner))
     port.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                           for k, v in from_jax_fastdiff(params).items()})
     with torch.no_grad():

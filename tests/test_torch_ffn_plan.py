@@ -411,3 +411,44 @@ def test_wide_splits_rebuild_the_ffn_from_the_image(dtype):
     ref = ffn.ffn_ln_plain(z, w)
     tol = 2e-5 if dtype == torch.float32 else 0.07
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_", [896, 1024, 2048, 4096])
+def test_serving_past_768_covers_the_rows_and_fits_a_block(C_, dtype):
+    """ffn_ln serves every multiple of 128 past 768 on csrc/ffn_wide.cu's
+    chain, its LN rows on the kernels that read a row twice (no per-lane
+    registers, any C): every launch covers its rows, channels and F columns
+    and fits a block, at every kernel size the chain takes."""
+    assert ffn.serve_ok(C_) and not ffn.train_ok(C_)
+    assert ffn.on_chain(C_, "serve") and not ffn.on_chain(C_, "train")
+    for F_ in (C_, 4 * C_, 512):
+        for B, T in ((1, 1), (1, 64), (8, 512), (3, 300)):
+            M = B * T
+            plan = ffn.ffn_plan(C_, F_, 17, B, T, dtype, "serve")
+            assert [x.kernel for x in plan] == ["wide_ln1_long_kernel", "wide_dw_kernel",
+                                                "gemm_up", "gemm_down", "wide_ln2_long_kernel"]
+            for x in plan:
+                gx, gy, gz = x.grid
+                if x.kernel.startswith("gemm_"):
+                    assert gx * 128 in (C_, F_) and gy * 128 >= M > (gy - 1) * 128 and gz == 1
+                elif "dw" in x.kernel:
+                    assert (gy * 64, gz) == (C_, B) and gx * 64 >= T > (gx - 1) * 64
+                else:
+                    assert gx * x.rows >= M > (gx - 1) * x.rows
+        for k in range(1, ffn._CHAIN_MAX_K + 1):
+            assert all(ffn._fits(x, k) for x in ffn.ffn_plan(C_, F_, k, 1, 64, dtype, "serve"))
+
+
+def test_every_width_the_jax_serving_gate_fuses_is_served():
+    """No width rule refuses what the JAX serving gate admits (hidden and
+    filter multiples of 128): C = 128 and 256 on the fused kernels, 384-640
+    on ffn_wide_kernel, 768 on with the chain; the chain's lane kernels end
+    at 768, its long-row kernels start past it."""
+    for C_ in range(128, 4097, 128):
+        assert ffn.serve_ok(C_), C_
+        plan = ffn.ffn_plan(C_, 1024, 17, 1, 64, torch.bfloat16, "serve")
+        want = ("ffn_ln_kernel" if C_ <= 256 else "ffn_wide_kernel" if C_ in ffn.WIDE_C
+                else "wide_ln1_kernel" if C_ == 768 else "wide_ln1_long_kernel")
+        assert plan[0].kernel == want, C_
+    assert not any(ffn.serve_ok(c) for c in (96, 320, 900, 1000))

@@ -4,7 +4,7 @@ route also held to the chain in f64; past C = 256 the wide route), the
 training kernels ``ffn_ln_train`` (bf16 gradients against the staged plain
 backward ``ffn_ln_train_bwd_plain``; every launch's grid and shared memory
 against ``ffn_plan``; at C = 384-768 the chain of ``csrc/ffn_wide.cu``,
-which also serves C = 768) and ``flash_attention`` (forward and
+which also serves every multiple of 128 from C = 768) and ``flash_attention`` (forward and
 backward, gradients against the plain version's autograd, on both routes:
 bf16 through the wgmma kernels, f32 through the split-TF32 mma.sync ones,
 which are also held to the function in f64), ``soft_dtw``
@@ -13,7 +13,8 @@ against ``soft_dtw_plan``; dD repeatable bit for bit), the length regulator's tw
 every shape the bench times and at rows that are not 16-byte aligned, the running sums it
 writes, the backward repeatable bit for bit and on strided gradients, one device
 kernel a direction by the profiler's count), and the
-FastDiff LVC chain ``lvc_stack`` (at the served batch too; the f32 route
+FastDiff LVC chain ``lvc_stack`` (at inner widths 16-128 and the served
+batch too; the f32 route
 held to the chain in f64; every launch as recorded against ``lvc_plan``;
 the launches of one ε pass). Marked
 ``gpu``; the ``cuda_card`` fixture skips them without a card. This file
@@ -556,6 +557,32 @@ def test_ffn_ln_serves_c768_through_the_chain(cuda_card, B, T, F_, k, dtype):
     assert tffn.ffn_ln.by_width[768] == widths.get(768, 0) + 1
     assert tffn.last_launches()["ffn_wide"] == [
         tffn.planned_launch(x) for x in tffn.ffn_plan(768, F_, k, B, T, dtype, "serve")]
+    ref = tffn.ffn_ln_plain(z, w)
+    tol = 2e-4 if dtype == torch.float32 else 0.07
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_,B,T,F_,k", [(896, 2, 300, 896, 17), (1024, 2, 512, 1024, 17),
+                                         (1024, 1, 64, 4096, 5), (2048, 1, 256, 2048, 25)])
+def test_ffn_ln_serves_past_c768_through_the_chain(cuda_card, C_, B, T, F_, k, dtype):
+    """Serving past C = 768: the chain with its long-row LN kernels, against
+    ffn_ln_plain (the C = 768 test's tolerance; f32 at no more than 2 x
+    1024 rows), its launches against ffn_plan."""
+    p = ffn_params(C_, C_, F_, k)
+    w = tffn.prepare_ffn_weights(
+        **{n: type(v)(**{a: t.to(cuda_card) for a, t in vars(v).items()})
+           for n, v in ffn_modules(p).items()}, dtype=dtype)
+    z = torch.randn(B, T, C_, device=cuda_card).to(dtype)
+    widths = dict(tffn.ffn_ln.by_width)
+    with torch.no_grad():
+        out = tffn.ffn_ln(z, w)
+    torch.cuda.synchronize()
+    assert tffn.ffn_ln.by_width[C_] == widths.get(C_, 0) + 1
+    plan = tffn.ffn_plan(C_, F_, k, B, T, dtype, "serve")
+    assert plan[0].kernel == "wide_ln1_long_kernel"
+    assert tffn.last_launches()["ffn_wide"] == [tffn.planned_launch(x) for x in plan]
     ref = tffn.ffn_ln_plain(z, w)
     tol = 2e-4 if dtype == torch.float32 else 0.07
     assert (out.float() - ref.float()).abs().max().item() <= tol
@@ -1272,17 +1299,21 @@ def _lvc_inputs(device, B, nL, hop, dtype, seed, layers=4, C=32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 16, 48, 64, 128])
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hop,nL", [(8, 25), (64, 7), (256, 5), (256, 80), (6, 9)])
-def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast):
+def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast, C):
     # (8, 25): stage 1, tail tile; (256, 80): 256-row tiles; (6, 9): a hop
-    # that is not a multiple of 4 (one row a chunk), one partial tile
-    args = _lvc_inputs(cuda_card, 2, nL, hop, dtype, seed=hop + nL)
-    n = tlvc.lvc_stack.launches
+    # that is not a multiple of 4 (one row a chunk), one partial tile; at
+    # every inner width the kernel is built at, and 48 (padded to 64)
+    args = _lvc_inputs(cuda_card, 2, nL, hop, dtype, seed=hop + nL, C=C)
+    n, widths = tlvc.lvc_stack.launches, dict(tlvc.lvc_stack.by_width)
     out = tlvc.lvc_stack(*args, hop, fast_gating=fast)
     torch.cuda.synchronize()
-    assert tlvc.lvc_stack.launches == n + 1 and out.dtype == dtype
+    assert tlvc.lvc_stack.launches == n + 1 and out.dtype == dtype and out.shape == args[0].shape
+    assert tlvc.lvc_stack.by_width[C] == widths.get(C, 0) + 1
+    assert tlvc.last_launch() == tlvc.lvc_plan(2, nL * hop, hop, 4, dtype, C).record
     ref = tlvc.lvc_stack_plain(*args, hop, fast_gating=fast).float()
     if dtype == torch.float32:   # summation order only
         err = (out - ref).abs().max().item()
@@ -1292,7 +1323,17 @@ def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast):
         # both round at the same places: a few one-ulp flips, carried down
         # the residual chain, held per value
         ulps, share = tlvc.bf16_chain_error(out, ref, args[0], args[1], args[2].shape[2])
-        assert ulps <= tlvc.BF16_MAX_ULPS and share <= tlvc.BF16_MAX_UNEQUAL, (ulps, share)
+        most_ulps, most_unequal = tlvc.bf16_chain_limits(C)
+        assert ulps <= most_ulps and share <= most_unequal, (ulps, share)
+
+
+@pytest.mark.gpu
+def test_lvc_stack_past_128_channels_raises_naming_b18w(cuda_card):
+    args = _lvc_inputs(cuda_card, 1, 2, 64, torch.float32, seed=0, C=144)
+    n = tlvc.lvc_stack.launches
+    with pytest.raises(ValueError, match="B18w"):
+        tlvc.lvc_stack(*args, 64)
+    assert tlvc.lvc_stack.launches == n
 
 
 @pytest.mark.gpu

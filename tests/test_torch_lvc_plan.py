@@ -104,3 +104,136 @@ def test_staged_kernel_order_gives_the_lvc(hop):
     got = torch.einsum("bftk,bfko->bfto", rows.reshape(B, nL, hop, 3 * C), staged)
     got = (got + bias[:, :, None, :]).reshape(B, nL * hop, 2 * C)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+WIDTHS = (16, 32, 48, 64, 128)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("hop", [8, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_plans_at_every_width_fit_a_block_and_follow_the_rule(C, dtype, hop, B):
+    """Every inner width up to 128 at a 512-frame bucket's stages: the
+    kernel's width is the narrowest built one that holds C (48 runs as 64);
+    the tensor cores take every stage, staging the weights where a frame's
+    kernel fits beside the rows (bf16 to 64, f32 to 32) and reading them
+    from device memory past that; every launch fits a block."""
+    L = 512 * hop
+    plan = lvc.lvc_plan(B, L, hop, LAYERS, dtype, C)
+    Cp = lvc.kernel_channels(C)
+    assert plan.channels == Cp and Cp in lvc.KERNEL_CHANNELS and C <= Cp
+    assert all(k < C for k in lvc.KERNEL_CHANNELS if k < Cp)
+    direct = Cp >= (128 if dtype == torch.bfloat16 else 64)
+    assert lvc.mma_direct(dtype, Cp) == direct
+    assert plan.route == ("mma_direct" if direct else "mma")
+    assert 0 < plan.smem_bytes <= lvc.SMEM_PER_BLOCK
+    assert plan.smem_bytes == lvc.mma_smem_bytes(dtype, plan.rows, plan.round_frames, plan.nt, Cp)
+    assert plan.blocks == B * -(-L // plan.tile) and plan.blocks >= lvc.SM_COUNT // 2
+    assert plan.halo == 48 and plan.rows == plan.tile + 2 * plan.halo
+    assert plan.tile % 8 == 0 and hop % (8 * plan.nt) == 0
+    assert plan.round_frames == 0 if direct else 1 <= plan.round_frames <= plan.frames
+    assert plan.record["channels"] == Cp
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_cuda_core_tile_is_sized_by_shared_memory(C, dtype):
+    """A hop that is not a multiple of 8 takes the CUDA cores at every
+    width: its tile is the largest that fits a block's shared memory (4
+    rows a C-wide row of x, audio_down and both conv operands), down to
+    16 rows at C = 128 in f32, where a 256-row tile would need 360,448
+    bytes."""
+    for B, frames in ((1, 512), (8, 512), (1, 1)):
+        plan = lvc.lvc_plan(B, frames * 6, 6, LAYERS, dtype, C)
+        elem = torch.finfo(dtype).bits // 8
+        assert plan.route == "cuda_cores" and plan.round_frames == plan.nt == 0
+        assert plan.smem_bytes == 4 * plan.rows * plan.channels * elem <= lvc.SMEM_PER_BLOCK
+        bigger = [t for t in (256, 128, 64, 32, 16) if t > plan.tile]
+        fits = [t for t in bigger
+                if 4 * (t + 2 * lvc._cores_halo(LAYERS, t)) * plan.channels * elem
+                <= lvc.SMEM_PER_BLOCK]
+        # a larger tile that fits is passed over only for the SMs' sake
+        assert all(B * -(-frames * 6 // t) < lvc.SM_COUNT for t in fits)
+    wide = lvc.lvc_plan(1, 512 * 6, 6, LAYERS, torch.float32, 128)
+    assert (wide.tile, wide.smem_bytes) == (16, 229_376)
+
+
+def test_widths_past_128_have_no_plan():
+    with pytest.raises(ValueError, match="C 129"):
+        lvc.lvc_plan(1, 512 * 64, 64, LAYERS, torch.float32, 129)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_padding_is_exact(dtype, fast):
+    """The wrapper's padding: the plain chain at C = 48 equals the plain
+    chain on the inputs padded to 64 (``pad_lvc_inputs``), sliced back to
+    48: the padded channels stay exactly 0 through every layer and add
+    only zeros to the real ones, so the two differ only where the f32 sums
+    of F.conv1d and the LVC's einsum run in another order at another width
+    (f32: within 1e-6 of |x|; bf16: ``bf16_chain_error``'s bounds)."""
+    g = torch.Generator().manual_seed(48)
+    B, nL, hop, C = 2, 3, 8, 48
+    L = nL * hop
+    x = torch.randn(B, L, C, generator=g).to(dtype)
+    ad = torch.randn(B, L, C, generator=g).to(dtype)
+    k = (0.2 * torch.randn(B, nL, LAYERS, C, 2 * C, 3, generator=g)).to(dtype)
+    b = 0.1 * torch.randn(B, nL, LAYERS, 2 * C, generator=g)
+    cw = (0.1 * torch.randn(LAYERS, 3, C, C, generator=g)).to(dtype)
+    cb = 0.1 * torch.randn(LAYERS, C, generator=g)
+    want = lvc.lvc_stack_plain(x, ad, k, b, cw, cb, hop, fast)
+    padded = lvc.pad_lvc_inputs(x, ad, k, b, cw, cb, 64)
+    assert [tuple(t.shape) for t in padded] == [
+        (B, L, 64), (B, L, 64), (B, nL, LAYERS, 64, 128, 3), (B, nL, LAYERS, 128),
+        (LAYERS, 3, 64, 64), (LAYERS, 64)]
+    got = lvc.lvc_stack_plain(*padded, hop, fast)
+    assert got.dtype == dtype and not got[..., C:].any()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[..., :C], want, rtol=1e-6, atol=1e-6)
+    else:
+        ulps, share = lvc.bf16_chain_error(got[..., :C], want, x, ad, LAYERS)
+        assert ulps <= lvc.BF16_MAX_ULPS and share <= lvc.BF16_MAX_UNEQUAL, (ulps, share)
+
+
+def _chain_f64_sums(x, ad, k, b, cw, cb, hop):
+    """``lvc_stack_plain`` with the conv's and the LVC's sums taken in f64,
+    rounded where the kernel rounds: the chain free of any f32 sum order."""
+    import torch.nn.functional as F
+
+    dt, C = x.dtype, x.shape[-1]
+    for i in range(k.shape[2]):
+        d = 3 ** i
+        x = x + ad.to(dt)
+        y = torch.maximum(x, x * lvc.LRELU_SLOPE)
+        y = F.conv1d(y.double().transpose(1, 2), cw[i].to(dt).double().permute(2, 1, 0),
+                     cb[i].double(), padding=d, dilation=d).transpose(1, 2)
+        y = torch.maximum(y, y * lvc.LRELU_SLOPE).to(dt)
+        g = lvc.location_variable_convolution(y.double(), k[:, :, i].to(dt).double(),
+                                              b[:, :, i].double(), hop)
+        x = x + lvc.gated_activation(g.float(), C, False).to(dt)
+    return x
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
+def test_bf16_chain_limits_leave_room_over_the_plain_chains_own_order(C):
+    """``bf16_chain_limits`` against the order the sums are taken in: the
+    plain bf16 chain (f32 sums) against the same chain with f64 sums
+    differs by at most half the width's ulps limit, at a quarter of its
+    share of unequal values or less: a kernel summing in another order
+    flips more values as C grows, and the limits grow with it past 32."""
+    g = torch.Generator().manual_seed(C)
+    B, nL, hop = 2, 7, 64
+    L = nL * hop
+    x = torch.randn(B, L, C, generator=g).bfloat16()
+    ad = torch.randn(B, L, C, generator=g).bfloat16()
+    k = (0.2 * torch.randn(B, nL, LAYERS, C, 2 * C, 3, generator=g)).bfloat16()
+    b = 0.1 * torch.randn(B, nL, LAYERS, 2 * C, generator=g)
+    cw = (0.1 * torch.randn(LAYERS, 3, C, C, generator=g)).bfloat16()
+    cb = 0.1 * torch.randn(LAYERS, C, generator=g)
+    ulps, share = lvc.bf16_chain_error(lvc.lvc_stack_plain(x, ad, k, b, cw, cb, hop),
+                                       _chain_f64_sums(x, ad, k, b, cw, cb, hop), x, ad, LAYERS)
+    most_ulps, most_unequal = lvc.bf16_chain_limits(C)
+    assert ulps <= most_ulps / 2 and share <= most_unequal / 4, (ulps, share)
+    w = max(1, C // 32)
+    assert lvc.bf16_chain_limits(C) == (lvc.BF16_MAX_ULPS * w, lvc.BF16_MAX_UNEQUAL * w * w)

@@ -26,7 +26,9 @@ from lightningfastspeech2_tpu_torch.vocoder import hifigan as thg
 from tests.torch_port_helpers import ffn_modules, ffn_params
 
 GATE_WIDTHS = [(256, 1024), (640, 2560), (384, 1024), (96, 384), (640, 1024), (512, 1024),
-               (768, 768), (1024, 512)]
+               (768, 768), (1024, 512),
+               # serving past C = 768 (the chain with its long-row LN kernels)
+               (896, 896), (1024, 1024), (1024, 4096), (2048, 2048), (4096, 4096)]
 
 
 @pytest.mark.parametrize("training", [False, True], ids=["serve", "train"])
@@ -49,11 +51,9 @@ def test_ffn_gate_is_the_jax_gate_on_a_chip(monkeypatch, C, F, training):
         assert ffn_fused_ok(C, F, 5, training, dtype) == want
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ffn_ln_plain_matches_pallas_interpret_at_c640(dtype):
-    C, F, k, T = 640, 2560, 17, 32
-    p = ffn_params(640, C, F, k)
-    z = np.random.default_rng(640).standard_normal((1, T, C)).astype(np.float32)
+def _ffn_ln_against_pallas_interpret(C, F, k, T, dtype):
+    p = ffn_params(C, C, F, k)
+    z = np.random.default_rng(C).standard_normal((1, T, C)).astype(np.float32)
     a = {n: jnp.asarray(v) for n, v in p.items()}
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     ref = fused_ffn_ln(jnp.asarray(z).astype(jdt), a["wd"], a["bd"], a["w1"], a["b1"], a["wg"],
@@ -70,6 +70,19 @@ def test_ffn_ln_plain_matches_pallas_interpret_at_c640(dtype):
         # rounding can flip a bf16 ulp (test_torch_ffn.py's tolerance)
         np.testing.assert_allclose(out, ref, rtol=0, atol=0.07)
         assert np.mean(np.abs(out - ref)) < 3e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_ln_plain_matches_pallas_interpret_at_c640(dtype):
+    _ffn_ln_against_pallas_interpret(640, 2560, 17, 32, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_ln_plain_matches_pallas_interpret_at_c1024(dtype):
+    # a hidden-1024 model's serving half (the chain's long-row LN kernels
+    # on the card)
+    assert tffn.serve_ok(1024)
+    _ffn_ln_against_pallas_interpret(1024, 1024, 17, 64, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -356,6 +356,20 @@ Phases, each printed as one JSON line:
     ``launches_phase_33`` and ``lvc_by_width`` on ``lvc_stack`` and
     ``ffn_ln``, and the rows ``lvc_stack_c64`` and ``ffn_ln_c1024`` with
     every width.
+34. past widths (``past_widths_phase``): the train CLI for 1 bf16 step at
+    batch 1 with FastDiff at 256 inner channels (its kernel predictor at 8
+    hidden channels) on a corpus of short utterances (its peak device
+    memory printed), then the generate CLI with ``--use_fastdiff true`` on
+    that checkpoint at ``--vocoder_precision`` 16 and 32
+    (``lvc_stack.by_width`` {256: 8} a request: the wide route), the f32
+    request against the CPU's with the same noise; ``lvc_stack`` at C =
+    192, 256 and 512 in both dtypes at a 512-frame bucket's stages against
+    its plain version; ``ffn_ln_train`` with its backward through autograd
+    at C = 896, F = 768 (each {896: 1}); ``ffn_ln_train`` at C = 896, 1024
+    and 2048 (bf16 at 8 x 256, f32 at 2 x 512) against its plain version.
+    The ``kernels`` line gains ``launches_phase_34`` and the rows
+    ``lvc_stack_wide``, ``ffn_ln_train_c896`` and ``ffn_ln_train_bwd_c896``
+    with every width.
 
 The flash kernels count launches by route and by (route, head dim): the
 ``kernels`` line gives the rows at head dims 256 and 512 the launches that
@@ -375,6 +389,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -517,15 +532,21 @@ RESBLOCK_F32 = re.compile(r"(f32_resblock_kernel)ILi(\d+)ELb([01])ELi(\d+)E")
 FFN_TF32 = re.compile(r"(ffn_tf32_kernel|ffn_dup_tf32_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_text(name: str) -> str:
+    """cuobjdump's SASS of library ``name``, dumped once a run."""
+    from lightningfastspeech2_tpu_torch.kernels import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+
+
 def _sass_rows(name, report, pattern, key) -> dict:
     """Per kernel of library ``name`` matching ``pattern``: HGMMA and HMMA
     counts and local-memory instructions (LDL, STL) in cuobjdump's SASS,
     ptxas's spill bytes and C7512 warnings."""
-    from lightningfastspeech2_tpu_torch.kernels import build
-
-    tool = Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+    sass = _sass_text(name)
     rows = {}
     for block in re.split(r"\n\s+Function : ", sass)[1:]:
         m = pattern.search(block.split("\n", 1)[0])
@@ -650,11 +671,14 @@ def wide_sass_phase(report) -> dict:
 
 
 # csrc/gemm_mma.cuh's product, by dtype and epilogue (csrc/ffn_wide.cu's
-# five, csrc/resblock.cu's wide route's two), and csrc/ffn_wide.cu's row
-# and depthwise kernels
+# five, csrc/resblock.cu's wide route's two, csrc/lvc_stack.cu's wide
+# route's conv), and csrc/ffn_wide.cu's row and depthwise kernels
 GEMM_KERNEL = re.compile(r"gemm_kernelI(f|13__nv_bfloat16)Lb[01]ELb[01]E.*?"
-                         r"(UpEp|DownEp|DupEp|StoreEpILb([01])E|ConvFirstEp|ConvSecondEp)")
+                         r"(UpEp|DownEp|DupEp|StoreEpILb([01])E|ConvFirstEp|ConvSecondEp|ConvEp)")
 CHAIN_ROWS = re.compile(r"\d(wide_[a-z0-9_]+?_kernel)I(f|13__nv_bfloat16)E")
+# csrc/lvc_stack.cu's wide route's LVC: lvc_wide_kernel<T, Padé gate,
+# 16-byte kernel loads>
+LVC_WIDE = re.compile(r"(lvc_wide_kernel)I(f|13__nv_bfloat16)Lb([01])ELb([01])E")
 
 
 def chain_sass_phase(report) -> dict:
@@ -662,7 +686,9 @@ def chain_sass_phase(report) -> dict:
     (bf16 mma.sync, or f32 as split TF32), and in f32 the products and the
     chain's other kernels (the row kernels, those past C = 768 among them,
     and the depthwise ones) must spill nothing; bf16's spills are
-    reported."""
+    reported. The same for lvc_stack's wide route (C > 128): its conv
+    product and its eight LVC kernels must hold HMMA, and its f32 ones
+    spill nothing."""
     def dt(x):
         return "bf16" if x.endswith("bfloat16") else "f32"
 
@@ -674,14 +700,19 @@ def chain_sass_phase(report) -> dict:
     rows = {"ffn_wide_gemm": _sass_rows("ffn_wide", report, GEMM_KERNEL, gemm_key),
             "resblock_gemm": _sass_rows("resblock", report, GEMM_KERNEL, gemm_key),
             "ffn_wide_rows": _sass_rows("ffn_wide", report, CHAIN_ROWS,
-                                        lambda m: f"{m.group(1)}<{dt(m.group(2))}>")}
+                                        lambda m: f"{m.group(1)}<{dt(m.group(2))}>"),
+            "lvc_wide_gemm": _sass_rows("lvc_stack", report, GEMM_KERNEL, gemm_key),
+            "lvc_wide": _sass_rows("lvc_stack", report, LVC_WIDE, lambda m: (
+                f"{m.group(1)}<{dt(m.group(2))}, {'true' if m.group(3) == '1' else 'false'}, "
+                f"{'true' if m.group(4) == '1' else 'false'}>"))}
     emit({"phase": "chain_sass", **rows})
-    bad = {k: r for part in ("ffn_wide_gemm", "resblock_gemm") for k, r in rows[part].items()
-           if r["hmma"] == 0 or ("f32" in k and r["spill_bytes"])}
+    bad = {k: r for part in ("ffn_wide_gemm", "resblock_gemm", "lvc_wide_gemm", "lvc_wide")
+           for k, r in rows[part].items() if r["hmma"] == 0 or ("f32" in k and r["spill_bytes"])}
     bad.update({k: r for k, r in rows["ffn_wide_rows"].items() if "f32" in k and r["spill_bytes"]})
     found = tuple(len(r) for r in rows.values())
-    if found != (10, 4, 16) or bad:
-        raise RuntimeError(f"kernels past C = 256: {found} found (want 10, 4, 16), off {bad}")
+    if found != (10, 4, 20, 2, 8) or bad:
+        raise RuntimeError(f"kernels past C = 256: {found} found (want 10, 4, 20, 2, 8), "
+                           f"off {bad}")
     return rows
 
 
@@ -1287,23 +1318,27 @@ def ffn_launches(ffn, C, F, k, B, T, dtype, mode) -> list:
 
 def _b1_off_the_kink(z, p, eps=1e-5):
     """b1 with every F column that holds a ReLU input within 2^-14 of its
-    products' magnitude sum of zero moved by the least multiple of 0.01
-    that clears the column: f32 sums of C <= 768 products in two orders
-    (kernel, plain version) stay within C 2^-24 <= 2^-14.4 of that sum of
-    the exact value, so every ReLU then takes the same branch in both."""
+    products' magnitude sum of zero (C / 768 times that past C = 768) moved
+    by the least multiple of 0.01 that clears the column: f32 sums of C
+    products in two orders (kernel, plain version) stay within C 2^-24 of
+    that sum of the exact value, so every ReLU then takes the same branch
+    in both. t1, h0 and W1 are rounded to z's dtype, as both round them."""
     from lightningfastspeech2_tpu_torch.ops.depthwise import depthwise_conv1d
     from lightningfastspeech2_tpu_torch.ops.layer_norm import layer_norm_fn
 
     wd, bd, w1, b1, _, _, g1, be1, _, _ = (t.detach() for t in p)
+    dt, C = z.dtype, z.shape[-1]
     with torch.no_grad():
-        t1 = layer_norm_fn(z.float(), g1, be1, torch.float32, eps)
-        h0 = depthwise_conv1d(t1, wd.t().unsqueeze(1).float(), bd.float()).double()
-        exact = (h0 @ w1.double()).reshape(-1, w1.shape[1])
-        mag = (h0.abs() @ w1.abs().double()).reshape(-1, w1.shape[1])
+        t1 = layer_norm_fn(z.float(), g1, be1, torch.float32, eps).to(dt).float()
+        h0 = depthwise_conv1d(t1, wd.t().unsqueeze(1).float(), bd.float()).to(dt).double()
+        w1 = w1.to(dt).double()
+        exact = (h0 @ w1).reshape(-1, w1.shape[1])
+        mag = (h0.abs() @ w1.abs()).reshape(-1, w1.shape[1])
+    margin = 2.0 ** -14 * max(1.0, C / 768)
     moved = b1.clone()
     for step in range(1, 100):
         b = moved.double()
-        bad = ((exact + b).abs() <= 2.0 ** -14 * (mag + b.abs())).any(0)
+        bad = ((exact + b).abs() <= margin * (mag + b.abs())).any(0)
         if not bad.any():
             return moved
         moved = torch.where(bad, b1 + 0.01 * step, moved)
@@ -1327,12 +1362,13 @@ def ffn_products_ms(B, T, C, F, dev, mode) -> float:
 
 
 def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16, C=256, F=1024,
-                    timed: float = 200.0) -> dict:
+                    timed: float = 200.0, off_kink=None) -> dict:
     """ffn_ln_train forward and backward kernels at one of the step's FFN
     shapes (rate 0.1; C 256 and F 1024 unless given): the output and every
     gradient against the plain version's autograd (bf16: and the gradients'
     distance from the staged plain backward, the kernels' own rounding
-    points; f32: b1 moved off the ReLU kink first), the kernel times with
+    points; f32, or either with ``off_kink``: b1 moved off the ReLU kink
+    first, as the card tests move it), the kernel times with
     the call's weight layouts prepared (each timing fills ``timed`` ms; 0:
     untimed), each launch as the
     library recorded it. A width no depthwise block builds (F not a
@@ -1366,7 +1402,7 @@ def _ffn_train_case(dev, B, T, k, g, dtype=torch.bfloat16, C=256, F=1024,
              for t in ffn.ffn_train_params(*block._ffn_modules())]
     z = torch.randn(B, T, C, generator=g).to(dev, dtype)
     dout = torch.randn(B, T, C, generator=g).to(dev, dtype)
-    if f32:
+    if f32 if off_kink is None else off_kink:
         p[3] = _b1_off_the_kink(z, p).requires_grad_(True)
     seed = torch.tensor([4242], dtype=torch.int32, device=dev)
     at = f"z ({B}, {T}, {C}) {str(dtype)[6:]}, F={F}, k={k}, rate={rate}"
@@ -2170,7 +2206,9 @@ def _lvc_case(dev, g, hop, dtype, fast=False, nL=FD_BUCKET, C=32) -> dict:
            "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": flops / peak * 1e3}
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, dtype, peak)
     row["x_bound"] = row["ms"] / row["bound_ms"]
-    if plan.channels != C:
+    if plan.route == lvc.WIDE_ROUTE and plan.channels != C:   # the signal and the taps
+        row["pad_copy_ms"] = cuda_ms(lambda: lvc.pad_wide_inputs(x, ad, cw, cb, plan.channels))
+    elif plan.channels != C:
         row["pad_copy_ms"] = cuda_ms(lambda: lvc.pad_lvc_inputs(*args[:6], plan.channels))
     emit({"phase": "kernel", **row})
     if not ok:
@@ -5533,6 +5571,198 @@ def inner_widths_phase(counters, served, smi: str) -> dict:
                                             for r in served_c.values())}}
 
 
+# ------- FastDiff past 128 inner channels, the training FFN past 768 (phase 34)
+# the train CLI's flags of (a): the flagship with FastDiff at 256 inner
+# channels, its kernel predictor at 8 hidden channels (at the reference's
+# 64 its last convs alone hold 906M weights: the CLI run took 43.6 s and
+# the CPU's request 29.9 s)
+PW_FLAGS = ["--fastdiff_vocoder", "true", "--fastdiff_inner_channels", "256",
+            "--fastdiff_kpnet_hidden", "8"]
+PW_WORDS = (4, 8)                      # (a)'s corpus: short utterances, one a step
+PW_REF_FRAME_STEP = 16                 # (b): the frame buckets of the card-vs-CPU pair
+PW_LVC_WIDTHS = (192, 256, 512)        # (c): the wide route, 512-frame bucket
+# (d): ffn_ln_train with its backward as a caller runs it, at the width
+# past 768 the JAX fit estimate admits (F < C: no depthwise block builds it)
+PW_CALL = (2, 256, 896, 768, 17)       # B, T, C, F, k
+# (e): (C, F, k); bf16 at (B, T) = (8, 256), f32 at 2 x 512 rows
+PW_FFN = ((896, 768, 17), (1024, 1024, 17), (2048, 2048, 17))
+PW_FFN_SHAPES = {torch.bfloat16: (8, 256), torch.float32: (2, 512)}
+
+
+def past_widths_phase(counters, smi: str) -> dict:
+    """Phase 34: the last shapes the JAX kernels take past the port's
+    earlier ones. (a) The train CLI on a corpus of short utterances, one
+    bf16 step at batch 1 of the flagship with FastDiff at 256 inner
+    channels (its plain training route: no ``lvc_stack`` launch), the peak
+    device memory beside it; (b) the generate CLI with ``--use_fastdiff
+    true`` on that checkpoint at ``--vocoder_precision`` 16 and 32:
+    ``lvc_stack.by_width`` must read {256: 8} a request (the wide route);
+    the f32 request on the card against the CPU's with the same noise
+    (phase 6's tolerance), both at ``PW_REF_FRAME_STEP``-frame buckets. (c)
+    ``lvc_stack`` at C = 192, 256 and 512 in both
+    dtypes at a 512-frame bucket's stages against its plain version (phase
+    14's holds), each launch equal to ``lvc_plan``. (d) ``ffn_ln_train``
+    and its backward through autograd at ``PW_CALL`` (C = 896, F = 768,
+    the width past 768 the JAX fit estimate admits) in bf16, as a caller
+    runs them: launches by width {896: 1} each, the output and gradients
+    finite. (e) ``ffn_ln_train`` at C = 896, 1024 and 2048 against its
+    plain version (phase 32's holds), each launch against ``ffn_plan``."""
+    import shutil
+
+    from lightningfastspeech2_tpu_torch.cli import generate as gen_cli
+    from lightningfastspeech2_tpu_torch.cli import train as cli
+    from lightningfastspeech2_tpu_torch.core.device import f32_convolutions
+    from lightningfastspeech2_tpu_torch.data.synthetic import make_rich_corpus
+    from lightningfastspeech2_tpu_torch.ops.fastdiff_lvc import lvc_stack
+    from lightningfastspeech2_tpu_torch.ops.ffn import ffn_ln_train, ffn_ln_train_bwd
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = ROOT / "_chip" / "past_widths"
+    shutil.rmtree(work, ignore_errors=True)
+    parts_s = {}
+
+    # (a) a joint checkpoint with FastDiff at 256 inner channels, served
+    corpus = make_rich_corpus(work / "corpus", n_speakers=2, n_utts=2, seed=0,
+                              min_words=PW_WORDS[0], max_words=PW_WORDS[1])
+    ck, logs = work / "ckpt", work / "logs"
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = _train_cli(cli, ["--train_target_path", str(corpus), "--checkpoint_dir", str(ck),
+                           "--log_dir", str(logs), "--cache_path", str(work / "cache"),
+                           "--batch_size", "1", "--log_every", "1", "--num_workers", "0",
+                           "--max_steps", "1", "--checkpoint_every", "1", *PW_FLAGS], counters)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"phase 34: FastDiff-256 train step at batch 1, peak device memory {peak_gb:.2f} GB",
+          flush=True)
+    lines = [l for l in _metrics_lines(logs) if "train/total_loss" in l]
+    bad = [(l["step"], k) for l in lines for k, v in l.items()
+           if k.startswith("train/") and not math.isfinite(v)]
+    if len(lines) != 1 or bad or run["launches"]["lvc_stack"]:
+        raise RuntimeError(f"FastDiff-256 train CLI: {len(lines)} steps, not finite {bad}, "
+                           f"launches {run['launches']}")
+    requests = {}
+    for prec, name in (("16", "bf16"), ("32", "f32")):
+        r = requests[name] = _serve(gen_cli, ck, work / f"out_{name}",
+                                    ["--use_fastdiff", "true", "--vocoder_precision", prec],
+                                    counters)
+        r["lvc_by_width"] = dict(lvc_stack.by_width)
+        if r["lvc_by_width"] != {256: 8}:
+            raise RuntimeError(f"{name} FastDiff-256 request: lvc_stack by width "
+                               f"{r['lvc_by_width']}, want {{256: 8}}")
+
+    def cpu_noise(shape, N):
+        g = torch.Generator().manual_seed(7)
+        return torch.randn(tuple(shape), generator=g), torch.randn((N, *shape), generator=g)
+
+    f32_convolutions(32)
+    wavs, ms = {}, {}
+    for d in ("cuda", "cpu"):
+        args = gen_cli.build_parser().parse_args(
+            ["--checkpoint_dir", str(ck), "--sentence", SENTENCES[0], "--output_path",
+             str(work / f"ref_{d}"), "--seed", "0", "--use_fastdiff", "true", "--device", d])
+        gen, gcfg, _ = gen_cli.load_generator(args)
+        gen.synthesiser.noise_source = cpu_noise
+        # both at PW_REF_FRAME_STEP-frame buckets: at the 256-frame bucket the
+        # CPU's f32 FastDiff at 256 inner channels took 23.5 s
+        gen.bucketer = dataclasses.replace(gen.bucketer, frame_step=PW_REF_FRAME_STEP)
+        t = time.perf_counter()
+        wavs[d] = gen_cli.synthesize_sentence(gen, gcfg, args)
+        ms[d] = (time.perf_counter() - t) * 1e3
+        del gen
+    a, b = np.asarray(wavs["cuda"]), np.asarray(wavs["cpu"])
+    peak = float(np.abs(b).max())
+    ref_err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    ref_tol = 1e-3 * peak + 1e-7      # phase 6's: summation order through two models
+    row_a = {"phase": "past_widths_fastdiff256", "flags": PW_FLAGS, "cli_s": run["s"],
+             "steps": len(lines), "losses": [l["train/total_loss"] for l in lines],
+             "train_peak_device_gb": peak_gb, "train_launches": run["launches"],
+             "requests": requests,
+             "reference": {"max_abs_err": ref_err, "tol": ref_tol, "peak": peak,
+                           "samples": int(a.size), "request_ms": ms},
+             "nvidia_smi": smi}
+    emit(row_a)
+    if not (a.shape == b.shape and ref_err <= ref_tol and peak > 0):
+        raise RuntimeError(f"FastDiff-256 f32 request card vs CPU: max |err| {ref_err} > "
+                           f"{ref_tol}")
+    del run
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    parts_s["a"] = time.perf_counter() - t_phase
+
+    # (c) lvc_stack on the wide route against its plain version
+    g = torch.Generator(device=dev).manual_seed(34)
+    lvc_rows = {}
+    for C in PW_LVC_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            for hop in IW_HOPS:
+                r = lvc_rows[(C, dt, hop)] = _lvc_case(dev, g, hop, dtype, C=C)
+                r["launches_phase_34"] = requests[
+                    "bf16" if dtype == torch.bfloat16 else "f32"]["lvc_by_width"].get(C, 0)
+                torch.cuda.empty_cache()
+    parts_s["c"] = time.perf_counter() - t_phase - sum(parts_s.values())
+
+    # (d) ffn_ln_train and its backward as a caller runs them, past C = 768
+    B, T, C, F, k = PW_CALL
+    g = torch.Generator().manual_seed(34)
+    p = [(scale * torch.randn(*shape, generator=g) + shift).to(dev).requires_grad_(True)
+         for shape, scale, shift in (((k, C), 0.3, 0.0), ((C,), 0.1, 0.0), ((C, F), C ** -0.5, 0.0),
+                                     ((F,), 0.1, 0.0), ((F, C), F ** -0.5, 0.0), ((C,), 0.1, 0.0),
+                                     ((C,), 0.1, 1.0), ((C,), 0.1, 0.0), ((C,), 0.1, 1.0),
+                                     ((C,), 0.1, 0.0))]
+    z = torch.randn(B, T, C, generator=g).to(dev, torch.bfloat16).requires_grad_(True)
+    seed = torch.tensor([34], dtype=torch.int32, device=dev)
+    reset_counts(counters)
+    t = time.perf_counter()
+    out = ffn_ln_train(z, p, seed, 0.1)
+    grads = torch.autograd.grad(out, [z, *p], torch.randn_like(out))
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t) * 1e3
+    by_width = {c.__name__: dict(c.by_width) for c in (ffn_ln_train, ffn_ln_train_bwd)}
+    finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(x).all()) for x in grads)
+    want = {n: {C: 1} for n in by_width}
+    row_d = {"phase": "past_widths_train_call", "at": f"z ({B}, {T}, {C}) bf16, F={F}, k={k}",
+             "call_ms_first": call_ms, "by_width": by_width, "finite": finite,
+             "launches": {c.__name__: c.launches for c in counters if c.launches},
+             "nvidia_smi": smi}
+    emit(row_d)
+    if by_width != want or not finite:
+        raise RuntimeError(f"ffn_ln_train at C = {C}: {row_d}, want {want}")
+    del p, z, out, grads
+    parts_s["d"] = time.perf_counter() - t_phase - sum(parts_s.values())
+
+    # (e) the training chain past C = 768 against its plain version
+    g = torch.Generator().manual_seed(35)
+    ffn_rows = {}
+    for C, F, k in PW_FFN:
+        for dtype, (B, T) in PW_FFN_SHAPES.items():
+            r = ffn_rows[(C, F, str(dtype)[6:])] = _ffn_train_case(
+                dev, B, T, k, g, dtype, C=C, F=F, timed=W_TIMED_MS, off_kink=True)
+            for part in ("fwd", "bwd"):
+                r[part]["launches_phase_34"] = by_width[r[part]["name"]].get(C, 0)
+            torch.cuda.empty_cache()
+    parts_s["e"] = time.perf_counter() - t_phase - sum(parts_s.values())
+    keys = ("at", "route", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "tol",
+            "max_ulps", "unequal_share", "kernel_channels", "pad_copy_ms", "launch")
+    tail = {"phase": "past_widths",
+            "lvc_stack": {f"C={C} {d} hop {h}": {k: r.get(k) for k in keys}
+                          for (C, d, h), r in lvc_rows.items()},
+            "ffn_ln_train": {f"{C}x{F} {d}": {p: {k: r[p].get(k) for k in keys}
+                                              for p in ("fwd", "bwd")}
+                             for (C, F, d), r in ffn_rows.items()},
+            "parts_s": parts_s, "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(tail)
+    print(f"phase 34 (FastDiff past 128, training FFN past 768): {tail['phase_s']:.1f} s",
+          flush=True)
+    return {"lvc": lvc_rows, "ffn": ffn_rows,
+            "launches": {"lvc_stack": sum(sum(r["lvc_by_width"].values())
+                                          for r in requests.values()),
+                         "ffn_ln_train": by_width["ffn_ln_train"][PW_CALL[2]],
+                         "ffn_ln_train_bwd": by_width["ffn_ln_train_bwd"][PW_CALL[2]]},
+            "lvc_by_width": {256: sum(r["lvc_by_width"][256] for r in requests.values())},
+            "ffn_by_width": by_width}
+
+
 def _summary(name, source, replaces, rows, launches) -> dict:
     """One kernels-line entry; several shapes add up to the stage's work."""
     keys = ("ms", "plain_ms", "bound_ms")
@@ -5612,6 +5842,7 @@ def main() -> int:
     b16 = b16_tools_phase(counters, served, info["nvidia_smi"])
     wide32 = wide_phase(counters, info["nvidia_smi"])
     inner = inner_widths_phase(counters, served, info["nvidia_smi"])
+    past = past_widths_phase(counters, info["nvidia_smi"])
     # flash launches by route and head dim on the main paths' counted runs:
     # serving (phase 5), training (8, and its soft-DTW run), the f32 step
     # against the CPU (9, both losses), lightspeech_true76m training (21)
@@ -5856,6 +6087,35 @@ def main() -> int:
         "widths": [{k: r.get(k) for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "max_abs_err", "launch", "launches_phase_33")}
                    for r in inner["ffn"]]})
+    # phase 34: lvc_stack's wide route (its counted requests: FastDiff at 256
+    # inner channels, bf16 and f32) and the training chain past C = 768 (the
+    # hidden-1024 step's counted launches), every width beside
+    for k in kernels:
+        if k["name"] in past["launches"]:
+            k["launches_phase_34"] = past["launches"][k["name"]]
+    kernels.append({
+        **_summary("lvc_stack_wide", f"{pkg}/lvc_stack.cu (wide route)",
+                   "lightningfastspeech2_tpu/ops/pallas_fastdiff.py:80",
+                   [past["lvc"][(256, "bfloat16", 256)]], past["launches"]["lvc_stack"]),
+        "lvc_by_width": past["lvc_by_width"], "launches_phase_34": past["launches"]["lvc_stack"],
+        "f32_route": {k: past["lvc"][(256, "float32", 256)][k]
+                      for k in ("at", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "widths": {f"C={C} {d} hop {h}": {k: r.get(k) for k in lvc_keys33[:-1] + (
+            "max_ulps", "unequal_share", "launches_phase_34")}
+                   for (C, d, h), r in past["lvc"].items()}})
+    for part, name, rep_ in (("fwd", "ffn_ln_train", "pallas_ffn.py:242"),
+                             ("bwd", "ffn_ln_train_bwd", "pallas_ffn.py:311")):
+        r = past["ffn"][(896, 768, "bfloat16")][part]
+        kernels.append({
+            "name": f"{name}_c896", "route": "cuda", "source": f"{pkg}/ffn_wide.cu",
+            "replaces": f"lightningfastspeech2_tpu/ops/{rep_}",
+            "launches": past["launches"][name], **{k: r[k] for k in part_keys},
+            "library_ms": None, "launch_record": r["launch"],
+            "ffn_by_width": past["ffn_by_width"][name],
+            "launches_phase_34": past["launches"][name],
+            "f32_route": {k: past["ffn"][(896, 768, "float32")][part][k] for k in part_keys},
+            "widths": {f"{C}x{F} {d}": {k: c[part].get(k) for k in part_keys + ("launch",)}
+                       for (C, F, d), c in past["ffn"].items()}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

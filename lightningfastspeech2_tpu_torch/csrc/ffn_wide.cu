@@ -1,6 +1,7 @@
-// The FFN half of a conformer FFT block at C = 384-768: the training
-// forward and backward of lightningfastspeech2_tpu/ops/pallas_ffn.py
-// fused_ffn_ln_train (_ffn_train_kernel, _ffn_train_bwd_kernel), and serving
+// The FFN half of a conformer FFT block from C = 384: the training forward
+// and backward of lightningfastspeech2_tpu/ops/pallas_ffn.py
+// fused_ffn_ln_train (_ffn_train_kernel, _ffn_train_bwd_kernel) at every C
+// from 384 that is a multiple of 128, and serving
 // (fused_ffn_ln, _ffn_kernel) at every C from 768 that is a multiple of 128,
 // past csrc/ffn_ln.cu's ffn_wide_kernel. Both dtypes; f32 forms its products
 // as split TF32 (f32's digits), bf16 on bf16 mma.sync, both through
@@ -25,10 +26,13 @@
 // (up > 0 where keep1 held and relu(pre) > 0).
 //
 // The row kernels hold a row in registers, C / 32 values a lane, up to C =
-// 768 (kMaxLane); past it the forward's LN1 and LN2 take a row kernel that
-// reads its row twice, sums then the normalised values, the second time
-// from L1 or L2 (wide_ln1_long_kernel, wide_ln2_long_kernel: any C, the same
-// sums in the same order).
+// 768 (kMaxLane); past it every row kernel reads its row again from L1 or
+// L2 instead, with no per-lane array (any C, the same sums in the same
+// order): the forward's LN1 and LN2 twice (wide_ln1_long_kernel,
+// wide_ln2_long_kernel), the backward's LN2 and LN1 three times (the row's
+// sums, the two means, the gradients: wide_ln2_bwd_long_kernel,
+// wide_ln1_bwd_long_kernel), their column sums added into shared memory a
+// row at a time.
 //
 // Bound: the products, 4 C F a row forward and 12 C F backward; the cuts
 // add the bytes of t1, h0, up (F wide), ff and their gradients, each once.
@@ -289,8 +293,20 @@ template <bool ADD> struct StoreEp {
 // A block owns kRedRows rows, 16 a warp; the column sums of its rows meet
 // in shared memory and are added into dvec once a block.
 
+// after the block's barrier, adds shared red[NSUM][C] into dvec's rows a0,
+// a1, a2 of (6, C)
+template <int NSUM>
+__device__ __forceinline__ void add_block_sums(const float* red, float* dvec, int a0, int a1,
+                                               int a2, int C) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < NSUM * C; i += 256) {
+    const int q = i / C;
+    atomicAdd(dvec + (q == 0 ? a0 : q == 1 ? a1 : a2) * C + i % C, red[i]);
+  }
+}
+
 // adds a lane's partials of NSUM column sums into shared red[NSUM][C], then
-// (after the block's barrier) red into dvec's rows a0, a1, a2 of (6, C)
+// red into dvec (add_block_sums)
 template <int NSUM>
 __device__ __forceinline__ void block_column_sums(float (&part)[NSUM][kMaxLane], float* red,
                                                   float* dvec, int a0, int a1, int a2, int C) {
@@ -300,11 +316,7 @@ __device__ __forceinline__ void block_column_sums(float (&part)[NSUM][kMaxLane],
 #pragma unroll
     for (int i = 0; i < kMaxLane; ++i)
       if (i < n) atomicAdd(red + q * C + lane + 32 * i, part[q][i]);
-  __syncthreads();
-  for (int i = threadIdx.x; i < NSUM * C; i += 256) {
-    const int q = i / C;
-    atomicAdd(dvec + (q == 0 ? a0 : q == 1 ? a1 : a2) * C + i % C, red[i]);
-  }
+  add_block_sums<NSUM>(red, dvec, a0, a1, a2, C);
 }
 
 // the LN2 backward: x = t1 + ff; dres = inv (dy g2 - mean(dy g2) - xh
@@ -367,6 +379,58 @@ wide_ln2_bwd_kernel(const T* __restrict__ t1, const float* __restrict__ ff,
       }
   }
   block_column_sums<3>(part, red, dvec, 2, 3, 5, C);
+}
+
+// the LN2 backward past kMaxLane: the row read three times, no per-lane
+// arrays; the column sums go into shared red a row at a time
+template <typename T>
+__global__ void __launch_bounds__(256)
+wide_ln2_bwd_long_kernel(const T* __restrict__ t1, const float* __restrict__ ff,
+                         const T* __restrict__ dout, const float* __restrict__ lnp,
+                         const int* __restrict__ seed, float* __restrict__ dres,
+                         T* __restrict__ dff, float* __restrict__ dvec, int rows, int T_len, int C,
+                         float eps, unsigned thr, float ik) {
+  extern __shared__ float red[];  // (3, C)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 3 * C; i += 256) red[i] = 0.0f;
+  __syncthreads();
+  const int sd = *seed;
+  for (int rr = warp; rr < kRedRows; rr += 8) {
+    const int row = blockIdx.x * kRedRows + rr;
+    if (row >= rows) break;
+    const size_t o = static_cast<size_t>(row) * C;
+    const int b = row / T_len, t = row - b * T_len;
+    const unsigned sb = lfs2::item_seed(sd, b);
+    float s = 0.0f, s2 = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = to_f(t1[o + c]) + ff[o + c];
+      s += x;
+      s2 += x * x;
+    }
+    float mean, inv;
+    ln_stats(s, s2, C, eps, mean, inv);
+    float m1 = 0.0f, m2 = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (to_f(t1[o + c]) + ff[o + c] - mean) * inv;
+      const float dyg = to_f(dout[o + c]) * lnp[2 * C + c];
+      m1 += dyg;
+      m2 += dyg * x;
+    }
+    m1 = lfs2::warp_sum(m1) / C;
+    m2 = lfs2::warp_sum(m2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (to_f(t1[o + c]) + ff[o + c] - mean) * inv;
+      const float dy = to_f(dout[o + c]);
+      const float dr = inv * (dy * lnp[2 * C + c] - m1 - x * m2);
+      const float df = lfs2::ffn_keep(t, c, sb, 2u, thr) ? dr * ik : 0.0f;
+      dres[o + c] = dr;
+      dff[o + c] = from_f<T>(df);
+      atomicAdd(red + c, dy * x);
+      atomicAdd(red + C + c, dy);
+      atomicAdd(red + 2 * C + c, df);
+    }
+  }
+  add_block_sums<3>(red, dvec, 2, 3, 5, C);
 }
 
 // the depthwise backward and its weights' gradients: dt1[t] = dres[t] +
@@ -465,6 +529,49 @@ wide_ln1_bwd_kernel(const T* __restrict__ z, const float* __restrict__ dt1,
   block_column_sums<2>(part, red, dvec, 0, 1, 0, C);
 }
 
+// the LN1 backward past kMaxLane: the row read three times, no per-lane
+// arrays; the column sums go into shared red a row at a time
+template <typename T>
+__global__ void __launch_bounds__(256)
+wide_ln1_bwd_long_kernel(const T* __restrict__ z, const float* __restrict__ dt1,
+                         const float* __restrict__ lnp, T* __restrict__ dz,
+                         float* __restrict__ dvec, int rows, int C, float eps) {
+  extern __shared__ float red[];  // (2, C)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 2 * C; i += 256) red[i] = 0.0f;
+  __syncthreads();
+  for (int rr = warp; rr < kRedRows; rr += 8) {
+    const int row = blockIdx.x * kRedRows + rr;
+    if (row >= rows) break;
+    const size_t o = static_cast<size_t>(row) * C;
+    float s = 0.0f, s2 = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = to_f(z[o + c]);
+      s += x;
+      s2 += x * x;
+    }
+    float mean, inv;
+    ln_stats(s, s2, C, eps, mean, inv);
+    float m1 = 0.0f, m2 = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (to_f(z[o + c]) - mean) * inv;
+      const float dyg = dt1[o + c] * lnp[c];
+      m1 += dyg;
+      m2 += dyg * x;
+    }
+    m1 = lfs2::warp_sum(m1) / C;
+    m2 = lfs2::warp_sum(m2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (to_f(z[o + c]) - mean) * inv;
+      const float d = dt1[o + c];
+      dz[o + c] = from_f<T>(inv * (d * lnp[c] - m1 - x * m2));
+      atomicAdd(red + c, d * x);
+      atomicAdd(red + C + c, d);
+    }
+  }
+  add_block_sums<2>(red, dvec, 0, 1, 0, C);
+}
+
 // ---- the launches ------------------------------------------------------------
 
 template <typename T> struct Wide {
@@ -553,10 +660,12 @@ template <typename T> cudaError_t backward(const Wide<T>& a, cudaStream_t s) {
   namespace gm = lfs2::gemm;
   LFS2_TRY(forward(a, true, s));
   const int M = a.B * a.T_len, C = a.C, F = a.F;
+  const bool long_rows = C > 32 * kMaxLane;
   const dim3 rgrid((M + kRedRows - 1) / kRedRows);
-  wide_ln2_bwd_kernel<T><<<rgrid, 256, 3 * C * 4, s>>>(a.t1, a.ff, a.dout, a.lnp, a.seed, a.dres,
-                                                       a.dff, a.dvec, M, a.T_len, C, a.eps, a.thr,
-                                                       a.ik);
+  auto ln2_bwd = long_rows ? wide_ln2_bwd_long_kernel<T> : wide_ln2_bwd_kernel<T>;
+  LFS2_TRY(opt_in(ln2_bwd, 3 * C * 4));
+  ln2_bwd<<<rgrid, 256, 3 * C * 4, s>>>(a.t1, a.ff, a.dout, a.lnp, a.seed, a.dres, a.dff, a.dvec,
+                                        M, a.T_len, C, a.eps, a.thr, a.ik);
   LFS2_TRY(cudaGetLastError());
   record(rgrid, 3 * C * 4, kRedRows);
   int rec[5];
@@ -584,18 +693,18 @@ template <typename T> cudaError_t backward(const Wide<T>& a, cudaStream_t s) {
                                                   C, a.k);
   LFS2_TRY(cudaGetLastError());
   record(dgrid, dsmem, kDwRows);
-  wide_ln1_bwd_kernel<T><<<rgrid, 256, 2 * C * 4, s>>>(a.z, a.dres, a.lnp, a.dz, a.dvec, M, C,
-                                                       a.eps);
+  auto ln1_bwd = long_rows ? wide_ln1_bwd_long_kernel<T> : wide_ln1_bwd_kernel<T>;
+  LFS2_TRY(opt_in(ln1_bwd, 2 * C * 4));
+  ln1_bwd<<<rgrid, 256, 2 * C * 4, s>>>(a.z, a.dres, a.lnp, a.dz, a.dvec, M, C, a.eps);
   LFS2_TRY(cudaGetLastError());
   record(rgrid, 2 * C * 4, kRedRows);
   return cudaSuccess;
 }
 
-// the forward takes any C a multiple of 128; the backward's row kernels
-// hold a row in registers, C up to 32 kMaxLane
-bool bad_shape(int B, int T_len, int C, int F, int k, int max_c) {
-  return B < 1 || T_len < 1 || C % 128 != 0 || C < 128 || C > max_c || F % 128 != 0 ||
-         F < 128 || k < 1 || k > kMaxK;
+// both directions take any C a multiple of 128
+bool bad_shape(int B, int T_len, int C, int F, int k) {
+  return B < 1 || T_len < 1 || C % 128 != 0 || C < 128 || F % 128 != 0 || F < 128 || k < 1 ||
+         k > kMaxK;
 }
 
 }  // namespace
@@ -611,7 +720,7 @@ LFS2_EXPORT int lfs2_ffn_wide_fwd(const void* z, void* out, const float* wd, con
                                   const int* seed, void* t1, void* h0, void* up, float* ff, int B,
                                   int T_len, int C, int F, int k, float eps, unsigned thr,
                                   float ik, int drop, int dtype, void* stream) {
-  if (bad_shape(B, T_len, C, F, k, 1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, T_len, C, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   g_n_rec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto* tag) {
@@ -642,7 +751,7 @@ LFS2_EXPORT int lfs2_ffn_wide_bwd(const void* z, const void* dout, const float* 
                                   void* dz, float* dwd, float* dw1, float* dw2f, float* db1,
                                   float* dvec, int B, int T_len, int C, int F, int k, float eps,
                                   unsigned thr, float ik, int dtype, void* stream) {
-  if (bad_shape(B, T_len, C, F, k, 32 * kMaxLane)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, T_len, C, F, k)) return static_cast<int>(cudaErrorInvalidValue);
   g_n_rec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto* tag) {

@@ -124,7 +124,12 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // (16 rows), n-tile j (8 columns)
 template <typename T> struct Chunk;
 
+// bf16 with FRESH: each k-step's products sum from zero on the tensor cores
+// and are added to the accumulators with f32 adds, as f32's route (a long
+// sum kept on the tensor cores truncates, and flips the bf16 roundings
+// after it more often than a sum in f32 does)
 template <> struct Chunk<__nv_bfloat16> {
+  template <bool FRESH>
   static __device__ __forceinline__ void run(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
                                              float (&acc)[4][4][4], int wm, int wn, int lane) {
     constexpr int LD = Tile<__nv_bfloat16>::LD;
@@ -149,7 +154,16 @@ template <> struct Chunk<__nv_bfloat16> {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < 4; ++j) {
+          if (FRESH) {
+            float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(part, a[i], b[j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+          } else {
+            mma_bf16(acc[i][j], a[i], b[j]);
+          }
+        }
     }
   }
 };
@@ -159,6 +173,7 @@ template <> struct Chunk<__nv_bfloat16> {
 // f32 route: the tensor cores' f32 accumulation truncates, and over
 // thousands of terms it drifts past f32's tolerance)
 template <> struct Chunk<float> {
+  template <bool FRESH>
   static __device__ __forceinline__ void run(const float* As, const float* Bs,
                                              float (&acc)[4][4][4], int wm, int wn, int lane) {
     constexpr int LD = Tile<float>::LD;
@@ -226,8 +241,9 @@ __device__ __forceinline__ void column_sums_add(float (&cs)[4][2], int nw, int l
 }
 
 // grid (N / kBN, ceil(M / kBM), ceil(K / kper)); N a multiple of kBN; kper
-// a multiple of kBK; ep(acc, first row, first column, lane, M) per warp
-template <typename T, bool AK, bool BKF, class GA, class GB, class EP>
+// a multiple of kBK; ep(acc, first row, first column, lane, M) per warp;
+// FRESH: bf16 sums each k-step from zero (Chunk)
+template <typename T, bool AK, bool BKF, class GA, class GB, class EP, bool FRESH = false>
 __global__ void __launch_bounds__(kThreads, MinBlocks<T>::value)
 gemm_kernel(const GA ga, const GB gb, const EP ep, int M, int N, int K, int kper) {
   constexpr int TILE = kBM * Tile<T>::LD;
@@ -261,7 +277,7 @@ gemm_kernel(const GA ga, const GB gb, const EP ep, int M, int N, int K, int kper
       sa.load(ga, m0, k0 + kBK, M, ke);
       sb.load(gb, n0, k0 + kBK, N, ke);
     }
-    Chunk<T>::run(As + s * TILE, Bs + s * TILE, acc, wm, wn, lane);
+    Chunk<T>::template run<FRESH>(As + s * TILE, Bs + s * TILE, acc, wm, wn, lane);
     if (more) {
       sa.store(As + (s ^ 1) * TILE);
       sb.store(Bs + (s ^ 1) * TILE);

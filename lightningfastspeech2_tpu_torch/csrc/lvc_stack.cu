@@ -11,7 +11,8 @@
 // predictor's layout, (B, nL, layers, C_in, 2C, 3), straight from device
 // memory; conv_w is (layers, 3, C_in, C_out). C is a template parameter,
 // built at 16, 32, 64 and 128 (ops/fastdiff_lvc.py pads other widths up to
-// 128 with zero channels, which stay zero through every layer).
+// 128 with zero channels, which stay zero through every layer); past 128 the
+// wide route at the end of this file takes any C, a layer at a time.
 //
 // Replaces lightningfastspeech2_tpu/ops/pallas_fastdiff.py _stack_kernel
 // (fused_lvc_stack). The TPU kernel's prev/cur/next halo blocks, its halo of
@@ -98,6 +99,7 @@
 // lvc_plan. Plain f32 FMAs, lane = channel (C / 32 channels a lane past 32,
 // half the warp at C = 16).
 #include "common.cuh"
+#include "gemm_mma.cuh"
 #include "mma.cuh"
 
 #include <cstdint>
@@ -1159,6 +1161,385 @@ cudaError_t run_width(int C, const Args& a, cudaStream_t s) {
   }
 }
 
+// ============================ wide route (C > 128) ==========================
+// Past C = 128 neither a fused tile nor one frame's staged kernel fits a
+// block (a frame's kernel of one layer is 6 C^2 values: 786 KB in bf16 at C
+// = 256), and the frame kernels are the launch's traffic whatever the hop.
+// So the chain runs one layer at a time, two launches a layer, x kept in
+// device memory (out) and the conv's output y in a (B, L, Cp) scratch of
+// the working dtype; Cp is C rounded up to 16 (the wrapper zero-pads x, ad,
+// the conv's taps and bias; the frame kernels and biases are read at the
+// real C, masked, and never copied).
+//   conv: y = round(leaky(conv3_d(leaky(round(x + ad))) + conv_b)), an
+// implicit GEMM on csrc/gemm_mma.cuh (M = B L rows, N = Cp, K = 3 Cp in the
+// order tap * Cp + cin; A gathered from x and ad by WideConvRows, B the
+// taps as they lie, the output columns past Cp masked).
+//   LVC (lvc_wide_kernel): a block takes 64 rows of one frame by 128 gate
+// columns, i.e. 256 product columns: the sigmoid half's c and the tanh
+// half's C + c side by side in each warp's n-tiles, so a thread holds both
+// halves of its gates (hop 8 or 50 leave rows of the tile unused). K = 3 C
+// in the order cin * 3 + tap: for one input channel a run of output columns
+// with their three taps lies contiguous in the frame kernel, so each block
+// streams its kernel rows as they lie (16-byte loads where C and the
+// pointer allow, else element loads) and reorders them into [column][k] in
+// shared memory; its A is the frame's y rows -1 .. 64, each element stored
+// at its three taps. Two shared-memory stages, the next chunk loaded into
+// registers over the current chunk's products (bf16 m16n8k16, f32
+// split-TF32 m16n8k8, both summed from zero each k-step and added in f32,
+// as gemm_mma.cuh's FRESH products, which the conv runs too: a long sum
+// kept on the tensor cores truncates). Epilogue: the bias, the gate, the
+// round and x = round(round(x + ad) + gate). Bound: the frame kernels'
+// bytes at hop 64, the products at hop 256 in f32 (PERF.md).
+constexpr int kRouteWide = 3;
+
+namespace wide {
+
+constexpr int kBM = 64, kGC = 128, kBN = 2 * kGC, kThreads = 256;
+
+// CK input channels a chunk (3 CK k values: three k16 steps in bf16, three
+// k8 steps in f32); LD the [row][k] stride in shared memory, padded so that
+// a fragment read's eight rows by four k fall in distinct banks
+template <typename T> struct Geo;
+template <> struct Geo<__nv_bfloat16> {
+  static constexpr int CK = 16, LD = 56;
+};
+template <> struct Geo<float> {
+  static constexpr int CK = 8, LD = 28;
+};
+
+// ops/fastdiff_lvc.py WIDE_SMEM: two stages of the A and the B tile
+template <typename T> constexpr int smem_bytes() {
+  return 2 * (kBM + kBN) * Geo<T>::LD * static_cast<int>(sizeof(T));
+}
+
+__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
+
+// a chunk's frame-kernel rows: for each of CK input channels, the block's
+// 128 gate columns of either half with their taps, 384 contiguous values a
+// run; elements past C (columns or channels) read 0
+template <typename T, bool VEC_OK> struct KernLoad {
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T)), RV = kGC * 3 / VEC;
+  static constexpr int NV = Geo<T>::CK * 2 * RV / kThreads;
+  uint4 v[NV];
+
+  static __device__ __forceinline__ void at(int n, int& cc, int& h, int& e0) {
+    const int i = threadIdx.x + n * kThreads;
+    cc = i / (2 * RV);
+    h = (i / RV) & 1;
+    e0 = (i % RV) * VEC;
+  }
+  // kf: the frame's kernel of this layer, (C, 2C, 3); c0 the chunk's first
+  // channel; g0 the block's first gate column
+  __device__ __forceinline__ void load(const T* kf, int C, int c0, int g0) {
+    const int lim = 3 * (C - g0);  // valid values of a run
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      int cc, h, e0;
+      at(n, cc, h, e0);
+      const int c = c0 + cc;
+      const T* p = kf + static_cast<size_t>(c) * 6 * C + (h * C + g0) * 3 + e0;
+      if (VEC_OK) {  // lim and e0 are multiples of VEC: a vector is wholly in or out
+        v[n] = (c < C && e0 < lim) ? *reinterpret_cast<const uint4*>(p) : zero4();
+      } else {
+        T* e = reinterpret_cast<T*>(&v[n]);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q)
+          e[q] = (c < C && e0 + q < lim) ? p[q] : lfs2::from_f<T>(0.0f);
+      }
+    }
+  }
+  // into Bs[row][k]: gate column g of half h is row (g / 16) 32 + 16 h + g %
+  // 16 (warp g / 16 holds both halves), k = cc * 3 + tap
+  __device__ __forceinline__ void store(T* Bs) const {
+    constexpr int LD = Geo<T>::LD;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      int cc, h, e0;
+      at(n, cc, h, e0);
+      const T* e = reinterpret_cast<const T*>(&v[n]);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const int el = e0 + q, g = el / 3, tap = el - 3 * g;
+        Bs[((g >> 4) * 32 + h * 16 + (g & 15)) * LD + cc * 3 + tap] = e[q];
+      }
+    }
+  }
+};
+
+// a chunk's signal rows: y at window rows 0 .. kBM + 1 (signal position s0
+// + w, zero outside [0, L)) by CK channels, each value stored at row w - tap
+// for its three taps
+template <typename T> struct RowLoad {
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T)), PER = Geo<T>::CK / VEC;
+  static constexpr int N = (kBM + 2) * PER;
+  static_assert(N <= kThreads, "one window vector a thread");
+  uint4 v;
+
+  __device__ __forceinline__ void load(const T* yb, int L, int Cp, int s0, int c0) {
+    const int i = threadIdx.x, s = s0 + i / PER;
+    const T* p = yb + static_cast<size_t>(s) * Cp + c0 + (i % PER) * VEC;
+    v = (i < N && s >= 0 && s < L) ? *reinterpret_cast<const uint4*>(p) : zero4();
+  }
+  __device__ __forceinline__ void store(T* As) const {
+    constexpr int LD = Geo<T>::LD;
+    const int i = threadIdx.x;
+    if (i >= N) return;
+    const int w = i / PER, cb = (i % PER) * VEC;
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q)
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        const int t = w - tap;
+        if (t >= 0 && t < kBM) As[t * LD + (cb + q) * 3 + tap] = e[q];
+      }
+  }
+};
+
+// one chunk's products into the warp's 64 x 32 accumulators (m-tile i, n-tile j)
+__device__ __forceinline__ void chunk(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
+                                      float (&acc)[4][4][4], int wn, int lane) {
+  constexpr int LD = Geo<__nv_bfloat16>::LD, KC = 3 * Geo<__nv_bfloat16>::CK;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KC; ks += 16) {
+    uint32_t a[4][4], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat16* p = As + (i * 16 + g) * LD + ks + 2 * t;
+      a[i][0] = lfs2::gemm::ld32(p);
+      a[i][1] = lfs2::gemm::ld32(p + 8 * LD);
+      a[i][2] = lfs2::gemm::ld32(p + 8);
+      a[i][3] = lfs2::gemm::ld32(p + 8 * LD + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16* p = Bs + (wn * 32 + j * 8 + g) * LD + ks + 2 * t;
+      b[j][0] = lfs2::gemm::ld32(p);
+      b[j][1] = lfs2::gemm::ld32(p + 8);
+    }
+    // each k-step summed from zero, added in f32 (gemm_mma.cuh FRESH)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        lfs2::mma_bf16(part, a[i], b[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+      }
+  }
+}
+
+__device__ __forceinline__ void chunk(const float* As, const float* Bs, float (&acc)[4][4][4],
+                                      int wn, int lane) {
+  constexpr int LD = Geo<float>::LD, KC = 3 * Geo<float>::CK;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int ks = 0; ks < KC; ks += 8) {
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* p = Bs + (wn * 32 + j * 8 + g) * LD + ks + t;
+      lfs2::split(p[0], bh[j][0], bl[j][0]);
+      lfs2::split(p[4], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* p = As + (i * 16 + g) * LD + ks + t;
+      uint32_t ah[4], al[4];
+      lfs2::split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4], ah, al);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        lfs2::mma3(part, ah, al, bh[j], bl[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+      }
+    }
+  }
+}
+
+// grid (mtiles * ceil(C / kGC), nL, B): blockIdx.x % mtiles the frame's row
+// tile (so the blocks that share a frame's kernel run side by side),
+// blockIdx.x / mtiles the gate-column tile
+template <typename T, bool FAST, bool VEC_OK>
+__global__ void __launch_bounds__(kThreads)
+lvc_wide_kernel(const T* x_in, const T* __restrict__ ad, const T* __restrict__ kern,
+                const float* __restrict__ bias, const T* __restrict__ y, T* x_out, int L, int C,
+                int Cp, int hop, int layer, int layers, int mtiles) {
+  // x_in is x_out past layer 0 (each value read, then written, by one thread)
+  constexpr int LD = Geo<T>::LD, CK = Geo<T>::CK;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* As = reinterpret_cast<T*>(wide_smem);  // stage s: As + s kBM LD, Bs + s kBN LD
+  T* Bs = As + 2 * kBM * LD;
+  const int m0 = (blockIdx.x % mtiles) * kBM, g0 = (blockIdx.x / mtiles) * kGC;
+  const int f = blockIdx.y, b = blockIdx.z, nL = gridDim.y;
+  const int wn = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t fr = (static_cast<size_t>(b) * nL + f) * layers + layer;
+  const T* kf = kern + fr * 6 * static_cast<size_t>(C) * C;
+  const float* bf = bias + fr * 2 * C;
+  const T* yb = y + static_cast<size_t>(b) * L * Cp;
+  const int s0 = f * hop + m0 - 1;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  KernLoad<T, VEC_OK> kl;
+  RowLoad<T> rl;
+  kl.load(kf, C, 0, g0);
+  rl.load(yb, L, Cp, s0, 0);
+  kl.store(Bs);
+  rl.store(As);
+  __syncthreads();
+  const int chunks = (C + CK - 1) / CK;
+  for (int ch = 0, s = 0; ch < chunks; ++ch, s ^= 1) {
+    const bool more = ch + 1 < chunks;
+    if (more) {
+      kl.load(kf, C, (ch + 1) * CK, g0);
+      rl.load(yb, L, Cp, s0, (ch + 1) * CK);
+    }
+    chunk(As + s * kBM * LD, Bs + s * kBN * LD, acc, wn, lane);
+    if (more) {
+      kl.store(Bs + (s ^ 1) * kBN * LD);
+      rl.store(As + (s ^ 1) * kBM * LD);
+    }
+    __syncthreads();
+  }
+  // n-tiles 0, 1 hold the sigmoid half of gate columns g0 + 16 wn + 8 j + 2
+  // t + e, n-tiles 2, 3 the tanh half of the same columns
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row0 = static_cast<size_t>(b) * L + static_cast<size_t>(f) * hop;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = m0 + i * 16 + g + 8 * h, gc = g0 + wn * 16 + j * 8 + 2 * t + e;
+          const size_t o = (row0 + r) * Cp + gc;
+          if (r < hop && gc < C) {
+            const float gv = lfs2::round_to<T>(
+                gate<FAST>(acc[i][j][2 * h + e] + bf[gc], acc[i][j + 2][2 * h + e] + bf[C + gc]));
+            const float xv = lfs2::round_to<T>(lfs2::to_f(x_in[o]) + lfs2::to_f(ad[o]));
+            x_out[o] = lfs2::from_f<T>(xv + gv);
+          } else if (r < hop && gc < Cp) {  // the padded channels stay 0 (the next conv reads them)
+            x_out[o] = lfs2::from_f<T>(0.0f);
+          }
+        }
+}
+
+// A of the conv: row m = b L + l, k index kk = j Cp + cin -> leaky(round(x +
+// ad)) at l + (j - 1) d (zero outside [0, L)); 16 bytes of consecutive input
+// channels a call
+template <typename T> struct ConvRows {
+  const T* x;
+  const T* ad;
+  int L, Cp, d;
+  __device__ __forceinline__ uint4 vec(int m, int kk) const {
+    const int j = kk / Cp, ci = kk - j * Cp;
+    const int b = m / L, l = m - b * L, src = l + (j - 1) * d;
+    if (src < 0 || src >= L) return make_uint4(0, 0, 0, 0);
+    const size_t o = (static_cast<size_t>(b) * L + src) * Cp + ci;
+    uint4 v = *reinterpret_cast<const uint4*>(x + o);
+    const uint4 a = *reinterpret_cast<const uint4*>(ad + o);
+    T* e = reinterpret_cast<T*>(&v);
+    const T* ea = reinterpret_cast<const T*>(&a);
+#pragma unroll
+    for (int q = 0; q < lfs2::gemm::vec_elems<T>(); ++q) {
+      const float s = lfs2::round_to<T>(lfs2::to_f(e[q]) + lfs2::to_f(ea[q]));
+      e[q] = lfs2::from_f<T>(fmaxf(s, s * 0.2f));
+    }
+    return v;
+  }
+};
+
+// the conv's epilogue: y = round(leaky(acc + conv_b)), columns below Cp
+template <typename T> struct ConvEp {
+  T* y;
+  const float* cb;
+  int Cp;
+  __device__ void operator()(const float (&acc)[4][4][4], int mw, int nw, int lane, int M) const {
+    lfs2::gemm::for_each_pair(acc, mw, nw, lane, M, [&](int m, int n, int, float v0, float v1) {
+      if (n >= Cp) return;
+      const float a = v0 + cb[n], c = v1 + cb[n + 1];
+      T* p = y + static_cast<size_t>(m) * Cp + n;
+      p[0] = lfs2::from_f<T>(fmaxf(a, a * 0.2f));
+      p[1] = lfs2::from_f<T>(fmaxf(c, c * 0.2f));
+    });
+  }
+};
+
+template <typename T>
+cudaError_t conv(const T* x, const T* ad, const T* w, const float* cb, T* y, int M, int L, int Cp,
+                 int d, cudaStream_t s) {
+  namespace gm = lfs2::gemm;
+  const int K = 3 * Cp, kper = (K + gm::kBK - 1) / gm::kBK * gm::kBK;
+  const dim3 grid((Cp + gm::kBN - 1) / gm::kBN, (M + gm::kBM - 1) / gm::kBM, 1);
+  constexpr int smem = gm::smem_bytes<T>();
+  auto kernel = gm::gemm_kernel<T, true, false, ConvRows<T>, gm::Mat<T>, ConvEp<T>, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = lfs2::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+  }
+  // B(n, kk) = w[kk][n]: the taps (3, Cp, Cp) as they lie, n contiguous
+  kernel<<<grid, gm::kThreads, smem, s>>>(ConvRows<T>{x, ad, L, Cp, d}, gm::Mat<T>{w, 1, Cp},
+                                          ConvEp<T>{y, cb, Cp}, M, Cp, K, kper);
+  return cudaGetLastError();
+}
+
+template <typename T, bool FAST, bool VEC_OK>
+cudaError_t chain(const T* x, const T* ad, const T* kern, const float* bias, const T* conv_w,
+                  const float* conv_b, T* out, T* y, int B, int L, int C, int Cp, int hop,
+                  int layers, cudaStream_t s) {
+  constexpr int smem = smem_bytes<T>();
+  auto kernel = lvc_wide_kernel<T, FAST, VEC_OK>;
+  cudaError_t e = lfs2::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int mtiles = (hop + kBM - 1) / kBM;
+  const dim3 grid(mtiles * ((C + kGC - 1) / kGC), L / hop, B);
+  for (int i = 0, d = 1; i < layers; ++i, d *= 3) {
+    const T* xin = i == 0 ? x : out;
+    e = conv<T>(xin, ad, conv_w + static_cast<size_t>(i) * 3 * Cp * Cp, conv_b + i * Cp, y, B * L,
+                L, Cp, d, s);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem, s>>>(xin, ad, kern, bias, y, out, L, C, Cp, hop, i, layers,
+                                        mtiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return record_launch(kRouteWide, kBM, dim3(grid.x * grid.y, grid.z), smem, 0, 0, Cp);
+}
+
+template <typename T>
+cudaError_t run(const void* x, const void* ad, const void* kern, const float* bias,
+                const void* conv_w, const float* conv_b, void* out, void* y, int B, int L, int C,
+                int hop, int layers, int fast, cudaStream_t s) {
+  const int Cp = (C + 15) / 16 * 16;
+  if (L / hop > 65535 || B > 65535) return cudaErrorInvalidValue;
+  // 16-byte kernel loads need every run of a channel row on 16 bytes
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const bool vec_ok = C % VEC == 0 && reinterpret_cast<uintptr_t>(kern) % 16 == 0;
+  const T* xa = static_cast<const T*>(x);
+  const T* ada = static_cast<const T*>(ad);
+  const T* ka = static_cast<const T*>(kern);
+  const T* wa = static_cast<const T*>(conv_w);
+  T* o = static_cast<T*>(out);
+  T* ya = static_cast<T*>(y);
+#define LFS2_WIDE(F, V) \
+  chain<T, F, V>(xa, ada, ka, bias, wa, conv_b, o, ya, B, L, C, Cp, hop, layers, s)
+  if (fast) return vec_ok ? LFS2_WIDE(true, true) : LFS2_WIDE(true, false);
+  return vec_ok ? LFS2_WIDE(false, true) : LFS2_WIDE(false, false);
+#undef LFS2_WIDE
+}
+
+}  // namespace wide
+
 }  // namespace
 
 LFS2_DEFINE_ERROR_STRING
@@ -1186,6 +1567,27 @@ LFS2_EXPORT int lfs2_lvc_stack(const void* x, const void* ad, const void* kern, 
                                                : run_width<float>(C, a, s));
 }
 
+// The wide route (route 3, C > 128): x, ad, out (B, L, Cp) with Cp = C
+// rounded up to 16, the channels past C zero; kern (B, L / hop, layers, C,
+// 2C, 3) and bias (B, L / hop, layers, 2C) at the real C; conv_w (layers, 3,
+// Cp, Cp) and conv_b (layers, Cp) zero-padded; y (B, L, Cp) scratch of the
+// working dtype. x, ad, out, conv_w and y on 16 bytes.
+LFS2_EXPORT int lfs2_lvc_stack_wide(const void* x, const void* ad, const void* kern,
+                                    const float* bias, const void* conv_w, const float* conv_b,
+                                    void* out, void* y, int B, int L, int C, int hop, int layers,
+                                    int fast, int dtype, void* stream) {
+  if (B < 1 || L < 1 || hop < 1 || L % hop != 0 || layers < 1 || layers > kMaxLayers || C < 1 ||
+      (dtype != lfs2::kBF16 && dtype != lfs2::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == lfs2::kBF16
+          ? wide::run<__nv_bfloat16>(x, ad, kern, bias, conv_w, conv_b, out, y, B, L, C, hop,
+                                     layers, fast, s)
+          : wide::run<float>(x, ad, kern, bias, conv_w, conv_b, out, y, B, L, C, hop, layers,
+                             fast, s));
+}
+
 #ifdef LFS2_LVC_PHASE_CLOCKS
 // copies g_phase (kMmaWarpsMax x 8 cycle counts) into out
 LFS2_EXPORT int lfs2_lvc_stack_phase_clocks(long long* out) {
@@ -1194,9 +1596,10 @@ LFS2_EXPORT int lfs2_lvc_stack_phase_clocks(long long* out) {
 #endif
 
 // copies into out[0..7] the route (0 CUDA cores, 1 tensor cores staged, 2
-// tensor cores direct), tile, grid x and y, shared-memory bytes, frames
-// staged a round, n8 tiles an LVC chunk and channels of the latest accepted
-// launch; zeros before the first
+// tensor cores direct, 3 wide), tile, grid x and y, shared-memory bytes,
+// frames staged a round, n8 tiles an LVC chunk and channels of the latest
+// accepted launch (the wide route: its last LVC launch, as grid x its
+// blocks of one item, grid y the items); zeros before the first
 LFS2_EXPORT int lfs2_lvc_stack_last_launch(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = g_last_launch[i];
   return 0;

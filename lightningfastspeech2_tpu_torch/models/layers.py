@@ -43,7 +43,6 @@ from lightningfastspeech2_tpu_torch.ops.dropout import draw_seed, dropout
 from lightningfastspeech2_tpu_torch.ops.ffn import (
     ffn_ln,
     ffn_ln_train,
-    ffn_train_fits,
     ffn_train_params,
     fold_grouped_into_down,
     prepare_ffn_weights,
@@ -110,30 +109,19 @@ def flash_ok(T: int, head_dim: int, training: bool) -> bool:
 _JAX_TRAIN_FIT = 14 * 1024 * 1024
 
 
-def ffn_fused_ok(hidden: int, filter_size: int, kernel_size: int, training: bool,
-                 dtype: torch.dtype) -> bool:
+def ffn_fused_ok(hidden: int, filter_size: int, training: bool) -> bool:
     """Whether a depthwise conformer block (grouped conv of kernel 1) runs its
     FFN half as one fused kernel call: the JAX package's gate
     (``models/layers.py _fused_ffn_ok``) as it runs on the chip, on the CPU
     and on the card alike. Hidden and filter must be multiples of 128; in
     training the JAX fit estimate ``16 C F + 3 * 320 * F * 4 <= 14 MiB``
-    must hold too. The port's training kernels take every width a
-    depthwise block can build there (C up to 768, ``ops.ffn.ffn_train_fits``);
-    where the estimate admits widths they do not take (C >= 896 with F <
-    C, which no depthwise block builds), it raises rather than run another
-    path (ROADMAP item B9t)."""
+    must hold too. The port's training kernels take every width it admits
+    (``ops.ffn.ffn_train_fits``), and raise on the card at a kernel size
+    past their reach."""
     if hidden % 128 or filter_size % 128:
         return False
-    if not training:
-        return True
-    if 16 * hidden * filter_size + 3 * (256 + 64) * filter_size * 4 > _JAX_TRAIN_FIT:
-        return False
-    if not ffn_train_fits(hidden, filter_size, kernel_size, dtype):
-        raise NotImplementedError(
-            f"the fused training FFN at hidden {hidden}, filter {filter_size}, kernel "
-            f"{kernel_size} in {dtype}: the JAX package's gate admits these widths, and "
-            f"ops.ffn.ffn_ln_train takes C up to 768 (ROADMAP item B9t)")
-    return True
+    return not training or (16 * hidden * filter_size + 3 * (256 + 64) * filter_size * 4
+                            <= _JAX_TRAIN_FIT)
 
 
 class SelfAttention(nn.Module):
@@ -221,8 +209,7 @@ class FFTBlock(nn.Module):
     def fused(self) -> bool:
         """Whether this forward runs the FFN half as one fused call."""
         return self.depthwise and ffn_fused_ok(
-            self.norm1.weight.shape[0], self.conv1[1].weight.shape[0],
-            self.conv1[0].weight.shape[-1], self.training, self.dtype)
+            self.norm1.weight.shape[0], self.conv1[1].weight.shape[0], self.training)
 
     def _ffn_modules(self):
         return (self.conv1[0], self.conv1[1], self.conv2[0], self.conv2[1],

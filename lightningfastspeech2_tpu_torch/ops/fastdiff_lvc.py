@@ -21,13 +21,16 @@ otherwise), the tile, halo, frames, shared memory and blocks. The wrapper
 passes it to the library and holds the launch the library records
 (``last_launch``) to it.
 
-The kernel is built at C = 16, 32, 64 and 128 (``KERNEL_CHANNELS``). Other
-widths up to 128 are zero-padded to the next of them
+The fused kernel is built at C = 16, 32, 64 and 128 (``KERNEL_CHANNELS``).
+Other widths up to 128 are zero-padded to the next of them
 (``pad_lvc_inputs``) and the output sliced back: padded channels of x,
 audio_down, the conv's taps and bias and the frame kernels' and biases'
 rows and columns are 0, so each stays 0 through every layer (its gate is
 sigmoid(0) tanh(0) = 0, and 0 with the Padé gate too) and adds nothing to
-the real channels. Past 128 the wrapper raises (ROADMAP B18w).
+the real channels. Past 128 the wide route (``WIDE_ROUTE``) takes every
+width: one layer at a time, x, audio_down and the conv's taps zero-padded
+to the next multiple of 16 (``wide_channels``), the frame kernels and
+biases read at the real C and never copied.
 
 The elementwise pieces (``fast_tanh``, ``gated_activation``) and
 ``location_variable_convolution`` live here too; ``vocoder.fastdiff``
@@ -62,6 +65,13 @@ SM_COUNT = 132
 # to the next of them
 KERNEL_CHANNELS = (16, 32, 64, 128)
 MAX_CHANNELS = KERNEL_CHANNELS[-1]
+# past MAX_CHANNELS: csrc/lvc_stack.cu's wide route (lfs2_lvc_stack_wide),
+# 64 rows of one frame by 128 gate columns a block, two shared-memory
+# stages of (64 + 256) rows of 3 CK k values (wide::smem_bytes: 71,680
+# bytes in both dtypes)
+WIDE_ROUTE = "wide"
+WIDE_ROWS, WIDE_GATE_COLUMNS = 64, 128
+WIDE_SMEM = 71_680
 # CUDA-core route: output rows per block, largest first (the largest that
 # still gives every SM a block); below them, for wide rows, the largest
 # that fits a block; regions rounded to 4 rows
@@ -187,18 +197,28 @@ def lvc_stack_plain(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
 # (chip_smoke.py prints both measures for each shape it checks)
 BF16_MAX_ULPS = 3
 BF16_MAX_UNEQUAL = 0.02
+# past MAX_CHANNELS (the wide route): the share of unequal values a chain
+# may show, whatever its width
+BF16_WIDE_UNEQUAL = 0.16
 
 
 def bf16_chain_limits(C: int):
     """(most ulps, largest share of unequal values) for a bf16 chain of C
     channels: ``BF16_MAX_ULPS`` and ``BF16_MAX_UNEQUAL`` up to C = 32, past
-    it the ulps times C / 32 and the share times (C / 32)^2. A flip reaches
-    further as C grows: each conv and LVC input feeds 3C sums of its row's
-    neighbours, and longer sums flip more roundings. The plain chain itself,
-    against the same chain with its sums taken in f64, differs at about
-    0.02 % of values at C = 32, 0.16 % at 64 and 0.9 % at 128, by up to
-    0.5, 1 and 2 ulps (tests/test_torch_lvc_plan.py)."""
+    it the ulps times C / 32 and, up to 128, the share times (C / 32)^2. A
+    flip reaches further as C grows: each conv and LVC input feeds 3C sums
+    of its row's neighbours, and longer sums flip more roundings. The plain
+    chain itself, against the same chain with its sums taken in f64,
+    differs at about 0.02 % of values at C = 32, 0.16 % at 64 and 0.9 % at
+    128, by up to 0.5, 1 and 2 ulps (tests/test_torch_lvc_plan.py). Past
+    128 that share stops growing (2.8 % at 192, 2.6 % at 256, 3.9 % at
+    512, by up to 2.9, 5.3 and 12 ulps): the 3C-term LVC sums saturate more
+    gates, and a saturated gate rounds alike in any order. So past 128 the
+    share is ``BF16_WIDE_UNEQUAL``, four times the most of them, where a
+    gate off by 1e-3 changes 22-30 % of values."""
     w = max(1.0, C / 32)
+    if C > MAX_CHANNELS:
+        return BF16_MAX_ULPS * w, BF16_WIDE_UNEQUAL
     return BF16_MAX_ULPS * w, BF16_MAX_UNEQUAL * w * w
 
 
@@ -216,14 +236,17 @@ def bf16_chain_error(out, ref, x, audio_down, layers: int):
 
 
 def _fn():
+    """The library and its two launchers: the fused chain
+    (``lfs2_lvc_stack``) and the wide route (``lfs2_lvc_stack_wide``)."""
     global _c_fn
     if _c_fn is None:
         lib = build.load("lvc_stack")
-        fn = lib.lfs2_lvc_stack
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 11 + [p]
-        fn.restype = ctypes.c_int
-        _c_fn = (lib, fn)
+        fused, wide = lib.lfs2_lvc_stack, lib.lfs2_lvc_stack_wide
+        fused.argtypes = [p] * 7 + [i] * 11 + [p]
+        wide.argtypes = [p] * 8 + [i] * 7 + [p]
+        fused.restype = wide.restype = ctypes.c_int
+        _c_fn = (lib, fused, wide)
     return _c_fn
 
 
@@ -261,8 +284,14 @@ def _cores_halo(layers: int, tile: int) -> int:
 def kernel_channels(C: int) -> int:
     """The width the kernel runs a C-channel chain at: the narrowest of
     ``KERNEL_CHANNELS`` that holds C (a multiple of 16: the tensor cores'
-    m16 tiles and k16 steps)."""
-    return next(k for k in KERNEL_CHANNELS if k >= C)
+    m16 tiles and k16 steps); past them ``wide_channels``."""
+    return next((k for k in KERNEL_CHANNELS if k >= C), None) or wide_channels(C)
+
+
+def wide_channels(C: int) -> int:
+    """The width of the wide route's signal rows (x, audio_down, the conv's
+    output): C rounded up to 16, so that its 16-byte row loads stay whole."""
+    return -(-C // 16) * 16
 
 
 def mma_direct(dtype: torch.dtype, C: int) -> bool:
@@ -305,12 +334,15 @@ def _frames_touched(hop: int, n_rows: int, n_frames: int) -> int:
 class LvcPlan:
     """One launch of ``lvc_stack``. ``route``: "mma" (tensor cores,
     weights staged in shared memory), "mma_direct" (tensor cores, weights
-    read from device memory) or "cuda_cores"; ``tile``: output rows a
-    block; ``halo``: rows a side; ``rows``: tile + 2 halo; ``frames``: the
-    most frames one layer's LVC rows touch in a block; ``round_frames``:
-    frames whose kernels a block stages at once (0 on the other routes,
-    which read them from device memory); ``nt``: n8 row tiles of an LVC
-    chunk (0 on the CUDA cores); ``smem_bytes`` a block; ``blocks`` a
+    read from device memory), "cuda_cores" or "wide" (C > 128: per layer a
+    conv launch and an LVC launch, the record and these fields the LVC
+    launch's); ``tile``: output rows a block (the wide route's rows of one
+    frame); ``halo``: rows a side (0 on the wide route, whose rows are
+    one layer's); ``rows``: tile + 2 halo; ``frames``: the most frames one
+    layer's LVC rows touch in a block; ``round_frames``: frames whose
+    kernels a block stages at once (0 on the other routes, which read them
+    from device memory); ``nt``: n8 row tiles of an LVC chunk (0 on the
+    CUDA cores and the wide route); ``smem_bytes`` a block; ``blocks`` a
     launch; ``channels``: the kernel's width (``kernel_channels``)."""
 
     route: str
@@ -359,11 +391,18 @@ def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype,
     before the tensor-core route; where none of them fits (rows of 64 or 128
     channels), the largest of ``_CORES_SMALL_TILES`` that does. A chain
     whose halo leaves no room at any tile keeps the smallest of
-    ``_CORES_TILES``, which ``lvc_stack`` refuses."""
-    if dtype not in (torch.bfloat16, torch.float32) or L % hop or not 1 <= C <= MAX_CHANNELS:
+    ``_CORES_TILES``, which ``lvc_stack`` refuses.
+
+    Past ``MAX_CHANNELS`` every hop takes the wide route: a block owns
+    ``WIDE_ROWS`` rows of one frame (ceil(hop / 64) tiles a frame) by
+    ``WIDE_GATE_COLUMNS`` gate columns, one block a tile, frame and item."""
+    if dtype not in (torch.bfloat16, torch.float32) or L % hop or C < 1:
         raise ValueError(f"lvc_plan: dtype {dtype}, L {L}, hop {hop}, C {C}")
     Cp = kernel_channels(C)
     n_frames = L // hop
+    if C > MAX_CHANNELS:
+        blocks = B * n_frames * -(-hop // WIDE_ROWS) * -(-C // WIDE_GATE_COLUMNS)
+        return LvcPlan(WIDE_ROUTE, WIDE_ROWS, 0, WIDE_ROWS, 1, 0, 0, WIDE_SMEM, blocks, Cp)
     direct = mma_direct(dtype, Cp)
 
     def blocks(tile):
@@ -402,7 +441,7 @@ def lvc_plan(B: int, L: int, hop: int, layers: int, dtype: torch.dtype,
                    cores_smem(tile), blocks(tile), Cp)
 
 
-_ROUTES = ("cuda_cores", "mma", "mma_direct")
+_ROUTES = ("cuda_cores", "mma", "mma_direct", WIDE_ROUTE)
 
 
 def last_launch() -> dict:
@@ -411,7 +450,7 @@ def last_launch() -> dict:
     chunk and the kernel's width)."""
     global _c_last
     if _c_last is None:
-        lib, _ = _fn()
+        lib = _fn()[0]
         fn = lib.lfs2_lvc_stack_last_launch
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -440,13 +479,29 @@ def pad_lvc_inputs(x, audio_down, kernels, biases, conv_w, conv_b, Cp: int):
             F.pad(conv_w, (0, p, 0, p)), F.pad(conv_b, (0, p)))
 
 
+def pad_wide_inputs(x, audio_down, conv_w, conv_b, Cp: int):
+    """The wide route's inputs at C channels: x and audio_down (B, L, Cp),
+    the conv's taps (layers, 3, Cp, Cp) and bias, zero-padded (the channels
+    past C stay 0 through every layer); each 16-byte aligned (a tensor that
+    is not is copied; the frame kernels are not touched)."""
+    p = Cp - x.shape[-1]
+    if p:
+        return (F.pad(x, (0, p)), F.pad(audio_down, (0, p)), F.pad(conv_w, (0, p, 0, p)),
+                F.pad(conv_b, (0, p)))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, audio_down, conv_w, conv_b))
+
+
 def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
               fast_gating: bool = False) -> torch.Tensor:
     """The whole chain of one stage (see ``lvc_stack_plain`` for the
     arguments): the kernel for CUDA tensors, the plain version on the CPU.
     C up to ``MAX_CHANNELS``: a width the kernel is not built at runs
     zero-padded (``pad_lvc_inputs``) and the output is sliced back; wider
-    raises. The kernel's result is invisible to autograd, so on the card it raises
+    takes the wide route (``lvc_plan``), its signal, conv taps and bias
+    zero-padded to ``wide_channels`` (``pad_wide_inputs``), the frame
+    kernels and biases as given. The kernel's result is invisible to
+    autograd, so on the card it raises
     when grad mode is on and an input needs a gradient: a caller that
     trains takes FastDiff's training route (``FastDiff.forward(...,
     train_route=True)``, the plain chain JAX's ``FastDiff.apply`` runs)."""
@@ -460,9 +515,6 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     dt = x.dtype
     if dt not in build.DTYPE_CODES:
         raise ValueError(f"lvc_stack kernel takes f32 or bf16 x, got {dt}")
-    if C > MAX_CHANNELS:
-        raise ValueError(f"lvc_stack kernel takes C up to {MAX_CHANNELS}, got C={C} "
-                         f"(wider is ROADMAP B18w)")
     if (audio_down.shape != x.shape or kernels.shape != (B, L // hop, layers, C, 2 * C, 3)
             or L % hop or biases.shape != (B, L // hop, layers, 2 * C)
             or conv_w.shape != (layers, 3, C, C) or conv_b.shape != (layers, C)):
@@ -477,7 +529,11 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     if plan.smem_bytes > SMEM_PER_BLOCK:
         raise ValueError(f"lvc_stack: no launch of {layers} layers at C={C} in {dt} fits "
                          f"{SMEM_PER_BLOCK} bytes of shared memory (planned {plan})")
-    if plan.channels != C:
+    wide = plan.route == WIDE_ROUTE
+    if wide:
+        x, audio_down, conv_w, conv_b = pad_wide_inputs(x, audio_down, conv_w, conv_b,
+                                                        plan.channels)
+    elif plan.channels != C:
         x, audio_down, kernels, biases, conv_w, conv_b = pad_lvc_inputs(
             x, audio_down, kernels, biases, conv_w, conv_b, plan.channels)
     elif plan.route != "cuda_cores":  # its 16-byte copies need 16-byte aligned rows
@@ -486,11 +542,17 @@ def lvc_stack(x, audio_down, kernels, biases, conv_w, conv_b, hop: int,
     biases, conv_b = biases.float().contiguous(), conv_b.float().contiguous()
     stream = kernel_stream(x, audio_down, kernels, biases, conv_w, conv_b)
     out = torch.empty_like(x)
-    lib, fn = _fn()
-    rc = fn(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
-            conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, plan.channels, hop,
-            layers, plan.tile, int(fast_gating), build.DTYPE_CODES[dt],
-            _ROUTES.index(plan.route), plan.round_frames, plan.nt, stream)
+    lib, fused, wide_fn = _fn()
+    if wide:  # kernels as given: its loads take any C and alignment
+        y = torch.empty_like(x)
+        rc = wide_fn(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
+                     conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), y.data_ptr(), B, L, C,
+                     hop, layers, int(fast_gating), build.DTYPE_CODES[dt], stream)
+    else:
+        rc = fused(x.data_ptr(), audio_down.data_ptr(), kernels.data_ptr(), biases.data_ptr(),
+                   conv_w.data_ptr(), conv_b.data_ptr(), out.data_ptr(), B, L, plan.channels,
+                   hop, layers, plan.tile, int(fast_gating), build.DTYPE_CODES[dt],
+                   _ROUTES.index(plan.route), plan.round_frames, plan.nt, stream)
     build.check(lib, rc, "lvc_stack")
     lvc_stack.launches += 1
     lvc_stack.by_width[C] = lvc_stack.by_width.get(C, 0) + 1

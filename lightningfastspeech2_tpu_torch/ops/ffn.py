@@ -13,8 +13,8 @@ chain in ``csrc/ffn_ln.cu``, the dup and dt1 passes in
 ``csrc/ffn_ln_train_bwd.cu``) through an autograd Function, or runs
 ``ffn_ln_train_plain`` on the CPU. Both dtypes run the products on the
 tensor cores: bf16 on wgmma, f32 as split-TF32 ``mma.sync`` (three TF32
-products a product, f32's digits). Training at C = 384-768, and serving at
-every C from 768 that is a multiple of 128 (``on_chain``), run
+products a product, f32's digits). Training at every C from 384, and serving
+at every C from 768, that is a multiple of 128 (``on_chain``), run
 ``csrc/ffn_wide.cu`` instead: the half as a
 chain of launches (LN1, depthwise, the two products on ``mma.sync``, LN2;
 the backward's LN2 backward, four more products and the depthwise and LN1
@@ -233,7 +233,7 @@ SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (H100)
 NARROW_C = (32, 64, 128, 256)  # csrc/ffn_ln.cu's fused kernels: serving and training
 WIDE_C = (384, 512, 640)       # widths ffn_wide_kernel serves
 CHAIN_MIN_C = 384    # csrc/ffn_wide.cu's chain: multiples of 128 from here
-TRAIN_MAX_C = 768    # its training row kernels hold a row in registers up to here
+LANE_MAX_C = 768     # its row kernels hold a row in registers up to here, past it read it again
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 _ROWS = 128          # kRows: rows of one item a wgmma block owns (two warpgroups of 64)
 _FC = 64             # kFC: F columns per weight chunk
@@ -256,11 +256,11 @@ _CHAIN_MAX_K = 63
 
 def on_chain(C: int, mode: str) -> bool:
     """Whether a call at width C runs ``csrc/ffn_wide.cu``'s chain:
-    training ("train", "bwd") from 384 to ``TRAIN_MAX_C``, serving
-    ("serve") from 768 on (below it ``ffn_wide_kernel`` serves ``WIDE_C``)."""
+    training ("train", "bwd") from 384 on, serving ("serve") from 768 on
+    (below it ``ffn_wide_kernel`` serves ``WIDE_C``)."""
     if C < CHAIN_MIN_C or C % 128:
         return False
-    return C not in WIDE_C if mode == "serve" else C <= TRAIN_MAX_C
+    return C not in WIDE_C or mode != "serve"
 
 
 def serve_ok(C: int) -> bool:
@@ -272,7 +272,7 @@ def serve_ok(C: int) -> bool:
 
 def train_ok(C: int) -> bool:
     """Whether the training kernels take width C: ``NARROW_C`` or the
-    chain, so C up to ``TRAIN_MAX_C``."""
+    chain, so every multiple of 128 and 32, 64."""
     return C in NARROW_C or on_chain(C, "train")
 
 
@@ -390,7 +390,7 @@ def _wide_split(B: int, T: int, R: int, nch: int) -> Tuple[int, int, int]:
 def _chain_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
                 mode: str) -> Tuple[FFNLaunch, ...]:
     """The launches of ``csrc/ffn_wide.cu``, in order: LN1 (8 rows a block,
-    one a warp; past C = 768 the kernel that reads its row twice), the
+    one a warp; past ``LANE_MAX_C`` the kernel that reads its row twice), the
     depthwise conv (64 rows of one item by 64 channels a
     block, the t1 window in shared memory), the up and down products
     (``ops/gemm.py``: 128 x 128 output tiles); serving and the training
@@ -412,16 +412,16 @@ def _chain_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
         return FFNLaunch(name, per, 0, 0, smem, (-(-M // per), 1, 1), 256)
 
     window = _CHAIN_DW_ROWS + k - 1
-    ln = "wide_ln{}_long_kernel" if C > TRAIN_MAX_C else "wide_ln{}_kernel"
-    fwd = (rows(ln.format(1), _CHAIN_WARP_ROWS), dw("wide_dw_kernel", window),
+    ln = "wide_ln{}{}_long_kernel" if C > LANE_MAX_C else "wide_ln{}{}_kernel"
+    fwd = (rows(ln.format(1, ""), _CHAIN_WARP_ROWS), dw("wide_dw_kernel", window),
            product("gemm_up", F, M), product("gemm_down", C, M))
     if mode != "bwd":
-        return fwd + (rows(ln.format(2), _CHAIN_WARP_ROWS),)
-    return fwd + (rows("wide_ln2_bwd_kernel", _CHAIN_RED_ROWS, 3 * C * 4),
+        return fwd + (rows(ln.format(2, ""), _CHAIN_WARP_ROWS),)
+    return fwd + (rows(ln.format(2, "_bwd"), _CHAIN_RED_ROWS, 3 * C * 4),
                   product("gemm_dup", F, M), product("gemm_dacc", C, M),
                   product("gemm_dw1", F, C, M), product("gemm_dw2f", C, F, M),
                   dw("wide_dw_bwd_kernel", 2 * window + k + 1),
-                  rows("wide_ln1_bwd_kernel", _CHAIN_RED_ROWS, 2 * C * 4))
+                  rows(ln.format(1, "_bwd"), _CHAIN_RED_ROWS, 2 * C * 4))
 
 
 def _f32_rows(B: int, T: int) -> int:
@@ -451,7 +451,7 @@ def ffn_plan(C: int, F: int, k: int, B: int, T: int, dtype: torch.dtype,
     of 64 or 32 rows (``_f32_rows``) with 32-column F chunks for the
     forward and the chain, 16-column for the dup pass. The dt1 pass takes
     64-row blocks in both. Every block owns the rows its products form.
-    Training at C = 384-768, and serving from C = 768, run
+    Training from C = 384, and serving from C = 768, run
     ``csrc/ffn_wide.cu``'s chain (``on_chain``, ``_chain_plan``)."""
     def grid(rows):
         return (-(-T // rows), B, 1)
@@ -500,8 +500,8 @@ def ffn_train_fits(C: int, F: int, k: int, dtype: torch.dtype) -> bool:
     own counterpart of the JAX package's VMEM estimate (``_fused_ffn_ok``).
     Every launch of the forward and the backward must fit a block (at both
     f32 row counts); k is at most 63 in bf16 and 50 in f32 (the dt1 tile at
-    C = 256), at every width. C runs to 768: past it the JAX estimate admits
-    only widths with F < C, which no depthwise block builds (ROADMAP B9t)."""
+    C = 256), at every width; C at every multiple of 128 (past
+    ``LANE_MAX_C`` the chain's row kernels read their rows again)."""
     if dtype not in _MAX_K or not train_ok(C) or F % 128 != 0:
         return False
     if not 1 <= k <= _MAX_K[dtype]:
@@ -825,7 +825,7 @@ def _check_train(z: torch.Tensor, k: int, F: int) -> None:
     if not ffn_train_fits(C, F, k, z.dtype):
         raise ValueError(
             f"ffn_ln_train kernels take f32 or bf16 z, C in {NARROW_C} or a multiple of 128 "
-            f"from {CHAIN_MIN_C} to {TRAIN_MAX_C} (the chain of csrc/ffn_wide.cu), "
+            f"from {CHAIN_MIN_C} (the chain of csrc/ffn_wide.cu), "
             f"F % 128 == 0 and k <= "
             f"{_MAX_K.get(z.dtype, 0)} within {SMEM_LIMIT} bytes of shared memory; "
             f"got {z.dtype}, C={C}, F={F}, k={k}")
@@ -836,8 +836,8 @@ def _kernel_layouts(p, dt: torch.dtype) -> Dict[str, torch.Tensor]:
     the backward alike: the f32 taps, biases and LayerNorm vectors, and W1,
     W2f as the kernels stream them: bf16 one swizzled image ("img", the
     forward, the chain and the dup pass); f32 the forward's and the chain's
-    split pieces ("img") and the dup pass's ("dup_img"). At C in
-    384-768 W1 (C, F) and W2f (F, C) as they lie ("w1", "w2f", the
+    split pieces ("img") and the dup pass's ("dup_img"). At C from
+    384 W1 (C, F) and W2f (F, C) as they lie ("w1", "w2f", the
     backward's dup and dacc products) and their transposes
     (``_chain_image``, "img", the up and down products), in the working
     dtype: ``csrc/ffn_wide.cu`` reads them so, f32 split as read."""
@@ -940,7 +940,8 @@ def ffn_ln_train_fwd(z: torch.Tensor, p, seed: torch.Tensor, rate: float,
                      eps: float = 1e-5, layouts: Optional[Dict[str, torch.Tensor]] = None
                      ) -> torch.Tensor:
     """Launch the training forward kernel (``csrc/ffn_ln.cu``, dropout on;
-    at C = 384-768 the chain of ``csrc/ffn_wide.cu``); CUDA tensors only. ``layouts`` (``_kernel_layouts``) are built here when
+    from C = 384 the chain of ``csrc/ffn_wide.cu``); CUDA tensors only.
+    ``layouts`` (``_kernel_layouts``) are built here when
     not given. The result is not connected to autograd."""
     k, F = p[0].shape[0], p[2].shape[1]
     _check_train(z, k, F)
@@ -971,7 +972,7 @@ def ffn_ln_train_bwd(dout: torch.Tensor, z: torch.Tensor, p, seed: torch.Tensor,
     (``csrc/ffn_ln.cu``), then the dup and dt1 passes
     (``csrc/ffn_ln_train_bwd.cu``), through (B, T, C) scratch h0, dff (the
     working dtype), dres and dacc (f32), each launch sized by ``ffn_plan``;
-    at C = 384-768 the eleven launches of ``csrc/ffn_wide.cu``.
+    from C = 384 the eleven launches of ``csrc/ffn_wide.cu``.
     Returns ``dz`` and the f32 gradients of the ten entries of ``p``, in
     order."""
     k, F = p[0].shape[0], p[2].shape[1]

@@ -3,7 +3,7 @@
 step's shapes, and split one profiled training step by kernel family.
 
     python3 scripts/bench_ffn_train.py [--tree DIR] [--label NAME] [--no-step] [--f32]
-        [--f32-step] [--defines MACRO ...] [--phases]
+        [--f32-step] [--channels C] [--filter F] [--defines MACRO ...] [--phases]
 
 ``--tree`` imports ``lightningfastspeech2_tpu_torch`` from another checkout
 (for example an unpacked parent commit), so that two versions can be timed
@@ -15,6 +15,12 @@ B=8, P=256, k = 5, 25, 13, 9; decoder B=8, T=2048, k = 17, 21, 9, 13;
 C=256, F=1024, dropout rate 0.1) through ``ffn_ln_train_fwd`` and
 ``ffn_ln_train_bwd`` in bf16 (and in f32 with ``--f32``), and the serving
 ``ffn_ln`` at the served batch's decoder shape (8, 512, 256), k=17, bf16.
+``--channels C`` and ``--filter F`` time the same shapes at another width
+(csrc/ffn_wide.cu's chain from C = 384; past C = 768 its long-row
+kernels): a block's parameters where F is a multiple of C, else the
+kernel's own drawn as chip_smoke.py draws them (no serving row then, since
+no depthwise block builds those widths); with ``--no-step``, as the step
+is the flagship's.
 Times are CUDA-event means after a warm-up, L2 warm. f32 rows carry their
 bound at split TF32's 165 TFLOP/s (three TF32 products a product) with the
 CUDA cores' 67 beside it, and the time of their products alone as f32
@@ -106,6 +112,19 @@ def bound_ms(flops: float, nbytes: float, dtype, peak: float = None) -> float:
     return max(nbytes / PEAK_BYTES_PER_S, flops / (peak or PEAK_FLOPS[dtype])) * 1e3
 
 
+def train_params(ffn, ffn_layers, k, dtype, g, dev) -> list:
+    """The training call's ten parameters: a block's (F a multiple of C),
+    else drawn at chip_smoke.py _ffn_train_case's scales."""
+    if F % C == 0:
+        blk = block(ffn_layers, k, dtype, g, dev)
+        return [t.detach().clone() for t in ffn.ffn_train_params(*blk._ffn_modules())]
+    shapes = (((k, C), 0.3, 0.0), ((C,), 0.1, 0.0), ((C, F), C ** -0.5, 0.0), ((F,), 0.1, 0.0),
+              ((F, C), F ** -0.5, 0.0), ((C,), 0.1, 0.0), ((C,), 0.1, 1.0), ((C,), 0.1, 0.0),
+              ((C,), 0.1, 1.0), ((C,), 0.1, 0.0))
+    return [(shift + scale * torch.randn(*shape, generator=g)).to(dev)
+            for shape, scale, shift in shapes]
+
+
 def block(ffn_layers, k, dtype, g, dev):
     from lightningfastspeech2_tpu_torch.models.fastspeech2 import init_weights
 
@@ -135,8 +154,7 @@ def shapes(dev, dtypes) -> None:
     for dtype in dtypes:
         for rows, ks in ((P, ENC_K), (T, DEC_K)):
             for k in ks:
-                blk = block(layers, k, dtype, g, dev)
-                p = [t.detach().clone() for t in ffn.ffn_train_params(*blk._ffn_modules())]
+                p = train_params(ffn, layers, k, dtype, g, dev)
                 z = torch.randn(B, rows, C, generator=g).to(dev, dtype)
                 dout = torch.randn(B, rows, C, generator=g).to(dev, dtype)
                 seed = torch.tensor([4242], dtype=torch.int32, device=dev)
@@ -163,6 +181,8 @@ def shapes(dev, dtypes) -> None:
                     else:
                         row[f"{part}_bound_ms"] = bound_ms(*wk, dtype)
                 emit({"phase": "ffn_train_shape", **row})
+    if F % C:
+        return
     blk = block(layers, 17, torch.bfloat16, g, dev)
     w = blk.ffn_weights
     z = torch.randn(B, 512, C, generator=g).to(dev, torch.bfloat16)
@@ -277,7 +297,11 @@ def main() -> int:
     ap.add_argument("--f32-step", action="store_true")
     ap.add_argument("--defines", nargs="*", default=[])
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--channels", type=int, default=256)
+    ap.add_argument("--filter", type=int, default=1024)
     a = ap.parse_args()
+    global C, F
+    C, F = a.channels, a.filter
     defines = list(a.defines) + (["LFS2_FFN_PHASE_CLOCKS"] if a.phases else [])
     if defines:
         import os
@@ -296,7 +320,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     emit({"phase": "device", "label": a.label, "package": str(Path(pkg.__file__).parent),
-          "nvidia_smi": smi, "defines": defines})
+          "nvidia_smi": smi, "defines": defines, "channels": C, "filter": F})
     dev = torch.device("cuda", 0)
     if a.phases:
         phases(dev)

@@ -19,7 +19,10 @@ parent commit) instead of this checkout, so two trees can be timed in turns
 in one run on one card. ``--channels C`` times the chain at C inner
 channels (default 32, FastDiff's reference width; a tree whose kernel takes
 other widths takes C up to 128, padded past its built ones as its wrapper
-pads them). ``--defines`` adds preprocessor macros to every
+pads them, and one with the wide route any C past 128: ``--channels 256``
+times that route, its conv and LVC launches together, the vocoder call's
+``lvc_stack_ms`` summing both). The inputs are drawn on the card.
+``--defines`` adds preprocessor macros to every
 kernel build (``LFS2_KERNEL_DEFINES``, part of the libraries' names);
 ``--phases`` adds ``LFS2_LVC_PHASE_CLOCKS`` and prints, per shape, the
 cycles of each phase of one block, per warp (the tensor-core route only).
@@ -80,15 +83,20 @@ def cuda_ms(fn, min_total_ms: float = 200.0, max_iters: int = 50) -> float:
 
 
 def inputs(B, hop, dtype, dev, seed):
-    """chip_smoke.py _lvc_case's draws at B items of a FRAMES-frame bucket."""
-    g = torch.Generator().manual_seed(seed)
+    """chip_smoke.py _lvc_case's draws at B items of a FRAMES-frame bucket,
+    on the card (the frame kernels at B = 8 and C = 256 are 3.2G values)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     L = FRAMES * hop
-    x = torch.randn(B, L, C, generator=g).to(dev, dtype)
-    ad = torch.randn(B, L, C, generator=g).to(dev, dtype)
-    k = (0.2 * torch.randn(B, FRAMES, LAYERS, C, 2 * C, 3, generator=g)).to(dev, dtype)
-    b = (0.1 * torch.randn(B, FRAMES, LAYERS, 2 * C, generator=g)).to(dev, dtype)
-    cw = (0.1 * torch.randn(LAYERS, 3, C, C, generator=g)).to(dev, dtype)
-    cb = (0.1 * torch.randn(LAYERS, C, generator=g)).to(dev)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = draw(B, L, C).to(dtype)
+    ad = draw(B, L, C).to(dtype)
+    k = (0.2 * draw(B, FRAMES, LAYERS, C, 2 * C, 3)).to(dtype)
+    b = (0.1 * draw(B, FRAMES, LAYERS, 2 * C)).to(dtype)
+    cw = (0.1 * draw(LAYERS, 3, C, C)).to(dtype)
+    cb = 0.1 * draw(LAYERS, C)
     return (x, ad, k, b, cw, cb, hop)
 
 
@@ -167,7 +175,7 @@ def sweep(dev) -> None:
     from lightningfastspeech2_tpu_torch.kernels import build
     from lightningfastspeech2_tpu_torch.ops import fastdiff_lvc as lvc
 
-    _, fn = lvc._fn()
+    fn = lvc._fn()[1]   # the fused chain's launcher
     widths = hasattr(lvc, "KERNEL_CHANNELS")   # the library takes C (and route 2)
     for hop, dtype, B, fast in CASES:
         if B != 1 or fast:
@@ -177,8 +185,8 @@ def sweep(dev) -> None:
         b = b.float()
         ref = lvc.lvc_stack_plain(*args).float()
         plan = lvc.lvc_plan(B, FRAMES * hop, hop, LAYERS, dtype, *_width())
-        if widths and plan.channels != C:
-            continue   # the sweep calls the library at a width it is built at
+        if widths and plan.channels != C or plan.route == "wide":
+            continue   # the sweep calls the fused chain at a width it is built at
         direct = widths and lvc.mma_direct(dtype, C)
         out = torch.empty_like(x)
         rows = []
@@ -318,7 +326,8 @@ def vocoder_calls(dev, label) -> None:
             if e.device_type != DeviceType.CUDA or e.key in host or e.self_device_time_total <= 0:
                 continue
             dev_us += e.self_device_time_total
-            if re.search(r"\b(lvc_mma_kernel|lvc_stack_kernel)\b", e.key):
+            if re.search(r"\b(lvc_mma_kernel|lvc_stack_kernel|lvc_wide_kernel)\b|wide::ConvRows",
+                         e.key):
                 lvc_us += e.self_device_time_total
                 lvc_n += e.count
         emit({"phase": "fastdiff_vocoder_call", "label": label, "frames": FRAMES,

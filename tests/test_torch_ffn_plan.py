@@ -248,43 +248,46 @@ def test_wide_takes_every_kernel_size_it_took_before(C_, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C_", ffn.WIDE_C)
-def test_training_past_256_is_refused_naming_b9t(C_, dtype):
+def test_training_past_256_is_admitted_where_the_jax_estimate_admits_it(C_, dtype):
     """Past C = 256 the training kernels (csrc/ffn_wide.cu's chain) take
-    every width up to 768 where the JAX gate's fit estimate admits it, so
-    the port's gate admits it too; B9t is still named where the estimate
-    admits widths no kernel takes (C >= 896, F < C), rather than run
-    another path."""
+    every width the JAX gate's fit estimate admits, so the port's gate
+    admits it too: C up to 768 with F = 1024, and C + 512 (896 to 1152)
+    with F = 512, where F < C, which the row kernels past 768 take."""
     from lightningfastspeech2_tpu_torch.models.layers import ffn_fused_ok
 
-    assert ffn.ffn_train_fits(C_, 1024, 5, dtype)
-    assert ffn_fused_ok(C_, 1024, 5, True, dtype)
-    assert ffn_fused_ok(C_, 1024, 5, False, dtype)   # serving takes them
-    assert not ffn.ffn_train_fits(C_ + 512, 512, 5, dtype)
-    with pytest.raises(NotImplementedError, match="B9t"):
-        ffn_fused_ok(C_ + 512, 512, 5, True, dtype)
+    for C, F in ((C_, 1024), (C_ + 512, 512)):
+        assert ffn.ffn_train_fits(C, F, 5, dtype)
+        assert ffn_fused_ok(C, F, True)
+        assert ffn_fused_ok(C, F, False)   # serving takes them
+    assert ffn_fused_ok(896, 768, True)
 
 
 # the training widths past C = 256: what a depthwise block builds (F a
-# multiple of C) and what the JAX fit estimate alone also admits
+# multiple of C) and what the JAX fit estimate alone also admits; past 768
+# (the row kernels that read a row again) up to 4096
 CHAIN_WIDTHS = [(384, 384), (384, 768), (384, 1152), (512, 512), (512, 1024), (640, 640),
-                (768, 768), (384, 1024), (640, 1024), (768, 896)]
+                (768, 768), (384, 1024), (640, 1024), (768, 896),
+                (896, 768), (1024, 512), (1024, 1024), (2048, 2048), (4096, 4096)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C_,F_", CHAIN_WIDTHS)
 def test_training_chain_covers_the_rows_and_fits_a_block(C_, F_, dtype):
-    """ffn_ln_train at C = 384-768 runs csrc/ffn_wide.cu: the forward's
-    five launches and the backward's eleven cover every row, channel and F
+    """ffn_ln_train from C = 384 runs csrc/ffn_wide.cu: the forward's five
+    launches and the backward's eleven cover every row, channel and F
     column (the products' tiles, the depthwise tiles of each item, the row
     kernels' rows; dW1 and dW2f split over all B T rows), and each fits a
-    block, at every kernel size the C = 256 kernels take."""
+    block, at every kernel size the C = 256 kernels take; past C = 768 the
+    four LN row kernels are the ones that read a row again."""
+    ln = "wide_ln{}_long_kernel" if C_ > ffn.LANE_MAX_C else "wide_ln{}_kernel"
     for B, T in ((1, 1), (8, 256), (8, 2048), (3, 300)):
         M = B * T
         fwd = ffn.ffn_plan(C_, F_, 5, B, T, dtype, "train")
         bwd = ffn.ffn_plan(C_, F_, 5, B, T, dtype, "bwd")
-        assert [x.kernel for x in fwd] == ["wide_ln1_kernel", "wide_dw_kernel", "gemm_up",
-                                           "gemm_down", "wide_ln2_kernel"]
+        assert [x.kernel for x in fwd] == [ln.format(1), "wide_dw_kernel", "gemm_up",
+                                           "gemm_down", ln.format(2)]
         assert [x.kernel for x in bwd[:4]] == [x.kernel for x in fwd[:4]]
+        assert [bwd[4].kernel, bwd[10].kernel] == [ln.format("2_bwd"), ln.format("1_bwd")]
         assert len(bwd) == 11
         for x in fwd + bwd:
             gx, gy, gz = x.grid
@@ -420,8 +423,8 @@ def test_serving_past_768_covers_the_rows_and_fits_a_block(C_, dtype):
     chain, its LN rows on the kernels that read a row twice (no per-lane
     registers, any C): every launch covers its rows, channels and F columns
     and fits a block, at every kernel size the chain takes."""
-    assert ffn.serve_ok(C_) and not ffn.train_ok(C_)
-    assert ffn.on_chain(C_, "serve") and not ffn.on_chain(C_, "train")
+    assert ffn.serve_ok(C_) and ffn.train_ok(C_)
+    assert ffn.on_chain(C_, "serve") and ffn.on_chain(C_, "train")
     for F_ in (C_, 4 * C_, 512):
         for B, T in ((1, 1), (1, 64), (8, 512), (3, 300)):
             M = B * T

@@ -498,15 +498,18 @@ def test_ffn_ln_train_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rat
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,C_,F_,k", [(2, 300, 384, 768, 17), (2, 150, 512, 1024, 25),
                                          (3, 64, 640, 1024, 5), (2, 200, 768, 896, 9),
-                                         (1, 1, 768, 768, 5)])
+                                         (1, 1, 768, 768, 5),
+                                         # past 768: the row kernels that read a row again
+                                         (2, 64, 896, 768, 9), (1, 48, 1024, 1024, 5)])
 def test_ffn_ln_train_wide_kernels_match_plain(cuda_card, B, T, C_, F_, k, dtype, rate):
-    """The chain of csrc/ffn_wide.cu (C = 384 to 768, ROADMAP B9t) against
-    the plain version, with test_ffn_ln_train_kernels_match_plain's
-    tolerances; b1 is moved off the ReLU kink at four times its margin (a
-    sum of up to 768 products), and every launch as the library recorded
-    it against ffn_plan. F need not be a multiple of C here (the JAX fit
-    estimate admits (640, 1024) and (768, 896)), so the kernel's own
-    parameters are drawn, not a block's."""
+    """The chain of csrc/ffn_wide.cu (every C from 384, its LN rows past 768
+    on the long-row kernels) against the plain version, with
+    test_ffn_ln_train_kernels_match_plain's tolerances; b1 is moved off the
+    ReLU kink at four times its margin (a sum of up to 1024 products), and
+    every launch as the library recorded it against ffn_plan. F need not be
+    a multiple of C here (the JAX fit estimate admits (640, 1024), (768,
+    896) and (896, 768)), so the kernel's own parameters are drawn, not a
+    block's."""
     g = torch.Generator().manual_seed(C_ + F_)
 
     def draw(*shape, scale=1.0, shift=0.0):
@@ -1298,15 +1301,21 @@ def _lvc_inputs(device, B, nL, hop, dtype, seed, layers=4, C=32):
             + [cw.to(device, dtype), cb.to(device)])
 
 
+# (8, 25): stage 1, tail tile; (256, 80): 256-row tiles; (6, 9): a hop
+# that is not a multiple of 4 (one row a chunk), one partial tile; (50, 9):
+# not a multiple of 8; at every inner width the kernel is built at, 48
+# (padded to 64), and past 128 the wide route: 129 (element loads of the
+# frame kernels, signal padded to 144), 200 (padded to 208), 192, 256 and
+# 512 (but at 80 frames, whose f32 frame kernels alone would take 4 GB)
+_LVC_CASES = [(hop, nL, C) for hop, nL in ((8, 25), (64, 7), (256, 5), (256, 80), (6, 9), (50, 9))
+              for C in (32, 16, 48, 64, 128, 129, 192, 200, 256, 512) if nL * C <= 80 * 256]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [32, 16, 48, 64, 128])
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hop,nL", [(8, 25), (64, 7), (256, 5), (256, 80), (6, 9)])
+@pytest.mark.parametrize("hop,nL,C", _LVC_CASES)
 def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast, C):
-    # (8, 25): stage 1, tail tile; (256, 80): 256-row tiles; (6, 9): a hop
-    # that is not a multiple of 4 (one row a chunk), one partial tile; at
-    # every inner width the kernel is built at, and 48 (padded to 64)
     args = _lvc_inputs(cuda_card, 2, nL, hop, dtype, seed=hop + nL, C=C)
     n, widths = tlvc.lvc_stack.launches, dict(tlvc.lvc_stack.by_width)
     out = tlvc.lvc_stack(*args, hop, fast_gating=fast)
@@ -1328,12 +1337,27 @@ def test_lvc_stack_kernel_matches_plain(cuda_card, hop, nL, dtype, fast, C):
 
 
 @pytest.mark.gpu
-def test_lvc_stack_past_128_channels_raises_naming_b18w(cuda_card):
-    args = _lvc_inputs(cuda_card, 1, 2, 64, torch.float32, seed=0, C=144)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lvc_stack_past_128_channels_takes_the_wide_route(cuda_card, dtype):
+    """C = 256 launches the wide route once, as planned, and allocates no
+    tensor the size of the frame kernels (its 16 times the signal here):
+    the peak over the call stays below what one copy of them would add."""
+    args = _lvc_inputs(cuda_card, 1, 64, 64, dtype, seed=0, C=256)
+    kbytes = args[2].numel() * args[2].element_size()
+    assert kbytes >= 16 * args[0].numel() * args[0].element_size()
     n = tlvc.lvc_stack.launches
-    with pytest.raises(ValueError, match="B18w"):
-        tlvc.lvc_stack(*args, 64)
-    assert tlvc.lvc_stack.launches == n
+    tlvc.lvc_stack(*args, 64)          # the build and the first launch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_card)
+    base = torch.cuda.memory_allocated(cuda_card)
+    out = tlvc.lvc_stack(*args, 64)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_card) - base
+    assert tlvc.lvc_stack.launches == n + 2
+    plan = tlvc.lvc_plan(1, 64 * 64, 64, 4, dtype, 256)
+    assert plan.route == "wide" and tlvc.last_launch() == plan.record
+    assert peak < kbytes / 4, (peak, kbytes)
+    assert out.shape == args[0].shape
 
 
 @pytest.mark.gpu

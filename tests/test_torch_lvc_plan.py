@@ -159,9 +159,63 @@ def test_cuda_core_tile_is_sized_by_shared_memory(C, dtype):
     assert (wide.tile, wide.smem_bytes) == (16, 229_376)
 
 
-def test_widths_past_128_have_no_plan():
-    with pytest.raises(ValueError, match="C 129"):
-        lvc.lvc_plan(1, 512 * 64, 64, LAYERS, torch.float32, 129)
+@pytest.mark.parametrize("hop", [8, 50, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_widths_past_128_plan_the_wide_route(dtype, hop):
+    """Every C from 129 to 512 at a 512-frame bucket's stage (and hop 50, not
+    a multiple of 8) takes the wide route: a block owns 64 rows of one frame
+    by 128 gate columns, its shared memory fits, the blocks cover every
+    frame's rows and both halves of every gate column, the signal runs at
+    C rounded up to 16, and the record is the plan's."""
+    frames = 512
+    for C in range(129, 513):
+        plan = lvc.lvc_plan(1, frames * hop, hop, LAYERS, dtype, C)
+        assert plan.route == lvc.WIDE_ROUTE and plan.record["route"] == "wide"
+        assert plan.channels == lvc.wide_channels(C) == lvc.kernel_channels(C)
+        assert C <= plan.channels < C + 16 and plan.channels % 16 == 0
+        assert plan.smem_bytes == lvc.WIDE_SMEM <= lvc.SMEM_PER_BLOCK
+        tiles, cols = -(-hop // plan.tile), -(-C // lvc.WIDE_GATE_COLUMNS)
+        assert (tiles - 1) * plan.tile < hop <= tiles * plan.tile
+        assert (cols - 1) * lvc.WIDE_GATE_COLUMNS < C <= cols * lvc.WIDE_GATE_COLUMNS
+        assert plan.blocks == frames * tiles * cols
+        assert (plan.round_frames, plan.nt, plan.halo) == (0, 0, 0)
+    with pytest.raises(ValueError, match="C 0"):
+        lvc.lvc_plan(1, frames * hop, hop, LAYERS, dtype, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_padding_is_exact(dtype):
+    """The wide route's padding: the plain chain at C = 200 equals the plain
+    chain on x, audio_down and the conv's taps and bias padded to 208
+    (``pad_wide_inputs``) with the frame kernels and biases padded the same
+    way, sliced back: the padded channels stay 0 (f32: within the card
+    test's 2e-4 (1 + max |x|); bf16: ``bf16_chain_limits(200)``)."""
+    g = torch.Generator().manual_seed(200)
+    B, nL, hop, C = 1, 2, 8, 200
+    L = nL * hop
+    x = torch.randn(B, L, C, generator=g).to(dtype)
+    ad = torch.randn(B, L, C, generator=g).to(dtype)
+    k = (0.2 * torch.randn(B, nL, LAYERS, C, 2 * C, 3, generator=g)).to(dtype)
+    b = 0.1 * torch.randn(B, nL, LAYERS, 2 * C, generator=g)
+    cw = (0.1 * torch.randn(LAYERS, 3, C, C, generator=g)).to(dtype)
+    cb = 0.1 * torch.randn(LAYERS, C, generator=g)
+    want = lvc.lvc_stack_plain(x, ad, k, b, cw, cb, hop)
+    Cp = lvc.wide_channels(C)
+    xp, adp, cwp, cbp = lvc.pad_wide_inputs(x, ad, cw, cb, Cp)
+    assert [tuple(t.shape) for t in (xp, adp, cwp, cbp)] == [
+        (B, L, Cp), (B, L, Cp), (LAYERS, 3, Cp, Cp), (LAYERS, Cp)]
+    _, _, kp, bp, _, _ = lvc.pad_lvc_inputs(x, ad, k, b, cw, cb, Cp)
+    got = lvc.lvc_stack_plain(xp, adp, kp, bp, cwp, cbp, hop)
+    assert not got[..., C:].any()
+    if dtype == torch.float32:
+        # summation order only, in sums of 600 terms (test_torch_kernels.py's
+        # f32 bound for the card)
+        err, top = (got[..., :C] - want).abs().max().item(), want.abs().max().item()
+        assert err <= 2e-4 * (1 + top), (err, top)
+    else:
+        ulps, share = lvc.bf16_chain_error(got[..., :C], want, x, ad, LAYERS)
+        most_ulps, most_unequal = lvc.bf16_chain_limits(C)
+        assert ulps <= most_ulps and share <= most_unequal, (ulps, share)
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -215,13 +269,14 @@ def _chain_f64_sums(x, ad, k, b, cw, cb, hop):
     return x
 
 
-@pytest.mark.parametrize("C", [16, 32, 64, 128])
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 192, 256])
 def test_bf16_chain_limits_leave_room_over_the_plain_chains_own_order(C):
     """``bf16_chain_limits`` against the order the sums are taken in: the
     plain bf16 chain (f32 sums) against the same chain with f64 sums
     differs by at most half the width's ulps limit, at a quarter of its
     share of unequal values or less: a kernel summing in another order
-    flips more values as C grows, and the limits grow with it past 32."""
+    flips more values as C grows, and the limits grow with it past 32, the
+    share up to 128 (past it ``BF16_WIDE_UNEQUAL``, well below 1)."""
     g = torch.Generator().manual_seed(C)
     B, nL, hop = 2, 7, 64
     L = nL * hop
@@ -236,4 +291,5 @@ def test_bf16_chain_limits_leave_room_over_the_plain_chains_own_order(C):
     most_ulps, most_unequal = lvc.bf16_chain_limits(C)
     assert ulps <= most_ulps / 2 and share <= most_unequal / 4, (ulps, share)
     w = max(1, C // 32)
-    assert lvc.bf16_chain_limits(C) == (lvc.BF16_MAX_ULPS * w, lvc.BF16_MAX_UNEQUAL * w * w)
+    share = lvc.BF16_MAX_UNEQUAL * w * w if C <= 128 else lvc.BF16_WIDE_UNEQUAL
+    assert lvc.bf16_chain_limits(C) == (lvc.BF16_MAX_ULPS * w, share) and share < 0.5

@@ -28,27 +28,26 @@ from tests.torch_port_helpers import ffn_modules, ffn_params
 GATE_WIDTHS = [(256, 1024), (640, 2560), (384, 1024), (96, 384), (640, 1024), (512, 1024),
                (768, 768), (1024, 512),
                # serving past C = 768 (the chain with its long-row LN kernels)
-               (896, 896), (1024, 1024), (1024, 4096), (2048, 2048), (4096, 4096)]
+               (896, 896), (1024, 1024), (1024, 4096), (2048, 2048), (4096, 4096),
+               # training past C = 768 where the JAX estimate admits it (F < C)
+               (896, 768)]
 
 
 @pytest.mark.parametrize("training", [False, True], ids=["serve", "train"])
 @pytest.mark.parametrize("C,F", GATE_WIDTHS)
 def test_ffn_gate_is_the_jax_gate_on_a_chip(monkeypatch, C, F, training):
     """The JAX gate with its backend switched to a chip's (Pallas on, not
-    interpreted); where it admits training widths the port's training
-    kernels do not take (only C >= 896 with F < C now: (1024, 512)), the
-    port raises naming B9t."""
+    interpreted), in both dtypes; where it admits training widths, the
+    port's training kernels take them (C >= 896 with F < C too: (1024,
+    512), (896, 768))."""
     monkeypatch.setattr(kernel_gate, "pallas_enabled", lambda: True)
     monkeypatch.setattr(kernel_gate, "pallas_interpret", lambda: False)
     monkeypatch.delenv("LFS2_FUSED_FFN", raising=False)
     want = jlayers._fused_ffn_ok(C, F, train=training)
-    if training and want and not tffn.ffn_train_fits(C, F, 5, torch.bfloat16):
-        with pytest.raises(NotImplementedError, match="B9t"):
-            ffn_fused_ok(C, F, 5, training, torch.bfloat16)
-        return
-    assert ffn_fused_ok(C, F, 5, training, torch.bfloat16) == want
-    for dtype in (torch.float32, torch.bfloat16):   # the rule is the dtype's only through B9t
-        assert ffn_fused_ok(C, F, 5, training, dtype) == want
+    assert ffn_fused_ok(C, F, training) == want
+    for dtype in (torch.float32, torch.bfloat16):
+        if training and want:
+            assert tffn.ffn_train_fits(C, F, 5, dtype)
 
 
 def _ffn_ln_against_pallas_interpret(C, F, k, T, dtype):
@@ -83,6 +82,37 @@ def test_ffn_ln_plain_matches_pallas_interpret_at_c1024(dtype):
     # on the card)
     assert tffn.serve_ok(1024)
     _ffn_ln_against_pallas_interpret(1024, 1024, 17, 64, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_ln_train_matches_pallas_interpret_at_c1024(dtype):
+    """``ffn_ln_train`` on the CPU (``ffn_ln_train_plain``, autograd) at C =
+    F = 1024, the card's chain with its long-row backward there: the
+    forward and the VJP at rate 0.1 against ``fused_ffn_ln_train`` in
+    interpret mode, one item of 48 frames, with test_torch_wide_train.py's
+    tolerances."""
+    from tests.test_torch_train_ffn import _torch_grads
+    from tests.test_torch_wide_train import NAMES, SEED, K, _grads_close, _holders, _jax_ffn
+
+    C = F = 1024
+    p = ffn_params(C + F, C, F, K)
+    rng = np.random.default_rng(C)
+    z, dout = (rng.standard_normal((1, 48, C)).astype(np.float32) for _ in range(2))
+    args = [jnp.asarray(z).astype(jnp.dtype(dtype))] + [jnp.asarray(p[n]) for n in NAMES[1:]]
+    ref_out, ref_grads = _jax_ffn(args, jnp.asarray(dout), 0.1)
+    mods, tdt = _holders(p), getattr(torch, dtype)
+    zt = torch.from_numpy(z).to(tdt).requires_grad_(True)
+    out = tffn.ffn_ln_train(zt, tffn.ffn_train_params(**mods),
+                            torch.tensor([SEED], dtype=torch.int32), 0.1)
+    out.backward(torch.from_numpy(dout).to(tdt))
+    ref_out = np.asarray(ref_out.astype(jnp.float32))
+    out = out.detach().float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref_out, rtol=0, atol=2e-5)
+    else:
+        np.testing.assert_allclose(out, ref_out, rtol=0, atol=0.07)
+        assert np.mean(np.abs(out - ref_out)) < 3e-3
+    _grads_close(_torch_grads(mods, zt), ref_grads, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

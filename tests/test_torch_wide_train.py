@@ -205,7 +205,7 @@ def test_train_step_at_hidden_384_matches_jax(monkeypatch):
     (test_torch_train_step.py's comparison)."""
     jcfg, tcfg = _hidden_384(JC), _hidden_384(TC)
     assert JC.to_dict(jcfg) == TC.to_dict(tcfg)
-    assert ffn_fused_ok(384, 768, 3, True, torch.float32)
+    assert ffn_fused_ok(384, 768, True)
     batch = jax_dummy_batch(jcfg.model, batch_size=2, n_phones=8, n_frames=128, seed=0)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     model = JaxFastSpeech2(jcfg.model)
